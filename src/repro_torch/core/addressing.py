@@ -1,0 +1,45 @@
+"""Sparse content-based addressing and usage tracking (paper §3.1-3.2):
+the single-device, exact-read part of `repro/core/addressing.py`. Every
+O(N) operation goes through `repro_torch.kernels.ops`, which runs the
+CUDA kernels on the card and the plain versions on the CPU."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.types import SparseRead
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import gather_rows  # noqa: F401 (JAX API name)
+
+
+def sparse_read_exact(q: torch.Tensor, m: torch.Tensor, beta: torch.Tensor,
+                      k: int, *, valid_n: int | None = None) -> SparseRead:
+    """'Linear index' SAM read: the exact K nearest rows by cosine
+    similarity among rows [0, valid_n), softmax over the kept K only."""
+    read, w, idx = ops.fused_read(q, m, beta, k, valid_n=valid_n)
+    return SparseRead(indices=idx, weights=w, words=read)
+
+
+def update_last_access(last_access: torch.Tensor, idx: torch.Tensor,
+                       w: torch.Tensor, step: torch.Tensor,
+                       delta: float) -> torch.Tensor:
+    """Usage U^(2), in place: stamp `step` on the slots accessed with
+    weight > δ. last_access: (B, N+1) int32; idx, w: (B, J)."""
+    idx = idx.long()
+    stamp = step.to(torch.int32).expand(idx.shape)
+    upd = torch.where(w > delta, stamp, torch.gather(last_access, 1, idx))
+    return last_access.scatter_reduce_(1, idx, upd, "amax", include_self=True)
+
+
+def least_recently_accessed(last_access: torch.Tensor, n: int, *,
+                            valid_n: int | None = None) -> torch.Tensor:
+    """The n least-recently-accessed slots per batch row (B, n) int32
+    (eq. 6; ties toward the lowest index)."""
+    return ops.lra_topn(last_access, n, valid_n=valid_n)
+
+
+def sparse_write_update(memory, last_access, write_idx, write_w, a, lra_idx,
+                        step, delta: float):
+    """The fused write side (eqs. 3/5/6 + the U^(2) stamp of written rows),
+    in place on ``memory`` and ``last_access``. Returns both."""
+    return ops.sparse_write_update(memory, last_access, write_idx, write_w,
+                                   a, lra_idx, step, delta=delta)

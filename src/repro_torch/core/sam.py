@@ -1,0 +1,171 @@
+"""Sparse Access Memory (SAM) — the paper's cell (§3), forward path.
+
+One step runs the LSTM controller, splits its interface, picks the H
+least-recently-accessed rows, plans the eq. 5 write, runs the fused write
+(erase + w^W a^T + usage stamp), the exact top-K read, and the read-side
+usage stamp — the same sequence as `repro/core/sam.py::sam_step` for the
+exact read on f32 rows on one device. The memory and the usage table are
+updated **in place**: the state handed to `sam_step` shares its `memory`
+and `last_access` tensors with the state it returns.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from repro_torch.core import addressing as addr
+from repro_torch.core.controller import (linear, linear_init, lstm_init,
+                                         lstm_step, lstm_zero_state)
+from repro_torch.core.types import (ControllerConfig, MemoryConfig, SAMState,
+                                    SparseRead, init_scratch_last_access,
+                                    init_scratch_memory)
+
+
+@dataclasses.dataclass(frozen=True)
+class SAMConfig:
+    memory: MemoryConfig
+    controller: ControllerConfig
+
+    @property
+    def write_rows_per_head(self) -> int:
+        return self.memory.k + 1          # K previously-read + 1 LRA
+
+    @property
+    def total_write_rows(self) -> int:
+        return self.memory.num_heads * self.write_rows_per_head
+
+
+def init_params(generator: torch.Generator, cfg: SAMConfig, *, device="cuda"):
+    """Weights of the JAX shapes and glorot scale, drawn in order (LSTM wx,
+    wh, interface, output) from ``generator``."""
+    mem, ctl = cfg.memory, cfg.controller
+    H, W = mem.num_heads, mem.word_size
+    # Per head: query (W), beta (1), write word (W), alpha (1), gamma (1).
+    return {
+        "lstm": lstm_init(generator, ctl.input_size + H * W, ctl.hidden_size,
+                          device=device),
+        "iface": linear_init(generator, ctl.hidden_size, H * (2 * W + 3),
+                             device=device),
+        "out": linear_init(generator, ctl.hidden_size + H * W,
+                           ctl.output_size, device=device),
+    }
+
+
+def init_state(batch: int, cfg: SAMConfig, *, device="cuda") -> SAMState:
+    mem, ctl = cfg.memory, cfg.controller
+    H, K, W, N = mem.num_heads, mem.k, mem.word_size, mem.num_slots
+    read = SparseRead(
+        indices=torch.zeros((batch, H, K), dtype=torch.int32, device=device),
+        weights=torch.zeros((batch, H, K), device=device),
+        words=torch.zeros((batch, H, W), device=device))
+    return SAMState(
+        memory=init_scratch_memory(batch, N, W, device=device),
+        last_access=init_scratch_last_access(batch, N, device=device),
+        read=read, ctrl=lstm_zero_state(batch, ctl.hidden_size, device=device),
+        step=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _interface(params, cfg: SAMConfig, h: torch.Tensor):
+    """Split the controller projection p_t = (q, a, beta, alpha, gamma),
+    per head with stride 2W+3."""
+    H, W = cfg.memory.num_heads, cfg.memory.word_size
+    p = linear(params["iface"], h).reshape(h.shape[0], H, 2 * W + 3)
+    q = p[..., :W].contiguous()
+    a = p[..., W:2 * W].contiguous()
+    beta = F.softplus(p[..., 2 * W]) + 1.0
+    alpha = torch.sigmoid(p[..., 2 * W + 1])
+    gamma = torch.sigmoid(p[..., 2 * W + 2])
+    return q, a, beta, alpha, gamma
+
+
+def write_plan(cfg: SAMConfig, prev_read: SparseRead, lra_idx: torch.Tensor,
+               alpha: torch.Tensor, gamma: torch.Tensor):
+    """Eq. (5): w^W = α (γ w^R_{t-1} + (1-γ) I^U), flattened to
+    (B, H·(K+1)): each head's K previous read rows, in the read's order,
+    then its LRA row."""
+    B = prev_read.indices.shape[0]
+    w_read = alpha[..., None] * gamma[..., None] * prev_read.weights
+    w_lra = (alpha * (1.0 - gamma))[..., None]
+    idx = torch.cat([prev_read.indices, lra_idx[..., None]], dim=-1)
+    w = torch.cat([w_read, w_lra], dim=-1)
+    return idx.reshape(B, -1), w.reshape(B, -1), idx, w
+
+
+@torch.inference_mode()
+def sam_step(params, cfg: SAMConfig, state: SAMState, x: torch.Tensor):
+    """One SAM time step. Returns (new_state, y_t); ``state.memory`` and
+    ``state.last_access`` are updated in place."""
+    mem = cfg.memory
+    H, K, N = mem.num_heads, mem.k, mem.num_slots
+    if state.ann is not None or state.mem_scale is not None:
+        raise ValueError("this port runs the exact read on f32 rows only")
+    if state.memory.shape[1] != N + 1:
+        raise ValueError(f"memory must be in the (B, N+1, W) scratch-row "
+                         f"layout, got {tuple(state.memory.shape)} for N={N}")
+    B = x.shape[0]
+    ctrl_in = torch.cat([x, state.read.words.reshape(B, -1)], dim=-1)
+    ctrl, h = lstm_step(params["lstm"], state.ctrl, ctrl_in)
+    q, a, beta, alpha, gamma = _interface(params, cfg, h)
+
+    # ---- write (uses the previous step's read locations, eq. 5) ----
+    step = state.step + 1
+    lra_idx = addr.least_recently_accessed(state.last_access, H, valid_n=N)
+    widx, ww, _, _ = write_plan(cfg, state.read, lra_idx, alpha, gamma)
+    memory, la = addr.sparse_write_update(state.memory, state.last_access,
+                                          widx, ww, a, lra_idx, step,
+                                          mem.delta)
+
+    # ---- read (content-based, sparse) and its usage stamp ----
+    read = addr.sparse_read_exact(q, memory, beta, K, valid_n=N)
+    la = addr.update_last_access(la, read.indices.reshape(B, -1),
+                                 read.weights.reshape(B, -1), step, mem.delta)
+
+    y = linear(params["out"], torch.cat([h, read.words.reshape(B, -1)], -1))
+    return SAMState(memory=memory, last_access=la, read=read, ctrl=ctrl,
+                    step=step), y
+
+
+@torch.inference_mode()
+def sam_unroll(params, cfg: SAMConfig, state: SAMState, xs: torch.Tensor):
+    """Run `sam_step` over xs (T, B, D). Returns (final_state, ys (T, B,
+    output_size)); the memory is updated in place."""
+    ys = []
+    for x in xs:
+        state, y = sam_step(params, cfg, state, x)
+        ys.append(y)
+    return state, torch.stack(ys)
+
+
+class SAM(nn.Module):
+    """The SAM cell as a module. Its weights are (frozen) parameters in the
+    JAX tree layout; `forward` unrolls the cell over a sequence."""
+
+    def __init__(self, cfg: SAMConfig, params=None, *, seed: int = 0,
+                 device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        if params is None:
+            params = init_params(torch.Generator().manual_seed(seed), cfg,
+                                 device=device)
+
+        def frozen(tree):
+            return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+                                     for k, v in tree.items()})
+
+        self.lstm = frozen(params["lstm"])
+        self.iface = frozen(params["iface"])
+        self.out = frozen(params["out"])
+
+    def params(self):
+        """The weights as the nested dict that `sam_step` takes."""
+        return {"lstm": dict(self.lstm), "iface": dict(self.iface),
+                "out": dict(self.out)}
+
+    def init_state(self, batch: int) -> SAMState:
+        return init_state(batch, self.cfg, device=self.lstm["b"].device)
+
+    def forward(self, state: SAMState, xs: torch.Tensor):
+        return sam_unroll(self.params(), self.cfg, state, xs)

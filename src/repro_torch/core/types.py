@@ -1,0 +1,97 @@
+"""Config and state types of the SAM cell, in the JAX package's layout.
+
+Scratch-row layout: memory is a persistent (B, N+1, W) buffer whose row N
+is write scratch, and `last_access` is (B, N+1) int32 with the scratch
+entry pinned to ``LA_SCRATCH``. Rows [0, N) are the logical memory; no
+sweep reads row N and no write touches it. Keeping the layout identical to
+the JAX package lets a JAX state convert field for field
+(`repro_torch.convert`).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+# Number of write-scratch rows appended past the logical memory (row N).
+SCRATCH_ROWS = 1
+# `last_access` value pinned on the scratch row: int32 max, so LRA
+# selection can never pick it.
+LA_SCRATCH = 2 ** 31 - 1
+
+
+def init_scratch_memory(batch: int, num_slots: int, word_size: int, *,
+                        device="cuda") -> torch.Tensor:
+    """Zero (B, N+1, W) f32 memory in the scratch-row layout."""
+    return torch.zeros((batch, num_slots + SCRATCH_ROWS, word_size),
+                       dtype=torch.float32, device=device)
+
+
+def init_scratch_last_access(batch: int, num_slots: int, *,
+                             device="cuda") -> torch.Tensor:
+    """(B, N+1) int32 usage table: the logical rows staggered with
+    ``-arange(N)`` so the first LRA picks are N-1, N-2, ..., and the
+    scratch entry pinned to `LA_SCRATCH`."""
+    la = torch.empty((batch, num_slots + SCRATCH_ROWS), dtype=torch.int32,
+                     device=device)
+    la[:, :num_slots] = -torch.arange(num_slots, dtype=torch.int32,
+                                      device=device)
+    la[:, num_slots:] = LA_SCRATCH
+    return la
+
+
+@dataclasses.dataclass(frozen=True)
+class MemoryConfig:
+    """Configuration of the external memory (paper §3). This slice runs
+    the exact read on f32 rows on one device."""
+
+    num_slots: int = 1024          # N
+    word_size: int = 32            # W
+    num_heads: int = 4             # access heads (paper Suppl. C: 4)
+    k: int = 4                     # K non-zero reads per head
+    delta: float = 0.005           # usage threshold δ (paper §3.2)
+
+
+@dataclasses.dataclass(frozen=True)
+class ControllerConfig:
+    input_size: int = 8
+    hidden_size: int = 100         # paper Suppl. C: 100 hidden units
+    output_size: int = 8
+
+
+class LSTMState(NamedTuple):
+    h: torch.Tensor  # (B, hidden)
+    c: torch.Tensor  # (B, hidden)
+
+
+class SparseRead(NamedTuple):
+    """Result of a sparse content-based read."""
+
+    indices: torch.Tensor   # (B, H, K) int32
+    weights: torch.Tensor   # (B, H, K) f32
+    words: torch.Tensor     # (B, H, W) f32 — the read vectors r_t
+
+
+class SAMState(NamedTuple):
+    """SAM recurrent state in the scratch-row layout (module docstring).
+    ``ann`` and ``mem_scale`` are always None in this slice (exact read,
+    f32 rows); they keep the JAX field set."""
+
+    memory: torch.Tensor        # (B, N+1, W) f32 — row N = write scratch
+    last_access: torch.Tensor   # (B, N+1) int32; [N] = LA_SCRATCH
+    read: SparseRead            # previous step's read
+    ctrl: LSTMState
+    step: torch.Tensor          # () int32
+    ann: Optional[object] = None
+    mem_scale: Optional[torch.Tensor] = None
+
+
+def glorot(generator: torch.Generator, shape, *, device="cuda") -> torch.Tensor:
+    """Normal draw scaled by sqrt(2 / (fan_in + fan_out)). Drawn on the
+    generator's device (the CPU for a default generator) and then moved,
+    so a seed gives the same weights on every device."""
+    fan_in, fan_out = shape[-2], shape[-1]
+    w = torch.randn(shape, generator=generator, dtype=torch.float32)
+    return (w * math.sqrt(2.0 / (fan_in + fan_out))).to(device)

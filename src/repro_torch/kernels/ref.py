@@ -1,0 +1,133 @@
+"""Plain PyTorch versions of the ported kernels, under the JAX oracle names.
+
+They are what a CPU tensor runs (`kernels/ops.py` dispatches by device),
+what the CPU tests hold against `repro.kernels.ref` and the Pallas
+kernels, and what `chip_smoke.py` holds each CUDA kernel against on the
+card. They state the kernels' contracts exactly:
+
+* Ties are the normal case (a zero memory gives every row similarity 0),
+  and `torch.topk` promises no tie order. The top-K read sorts stably
+  (value descending, then lowest index) and the LRA selection ranks a
+  unique int64 key ``(value << 32) | index`` — `lax.top_k`'s rule.
+* Duplicate write rows accumulate in j order, starting from the row's old
+  value (or zero, if erased), the same order as the TPU kernel and the
+  CUDA kernel; `index_put_(accumulate=True)` would sum in an unspecified
+  order on CUDA.
+* The write updates ``mem`` and ``last_access`` in place and never
+  touches a row that no index names (in particular not scratch row N).
+"""
+from __future__ import annotations
+
+import torch
+
+_EPS = 1e-6   # inside the rsqrt, not added to the norm
+
+
+def _normalize(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.rsqrt((x * x).sum(-1, keepdim=True) + _EPS)
+
+
+def topk_read_ref(q: torch.Tensor, mem: torch.Tensor, k: int):
+    """q: (B, H, W), mem: (B, N, W) -> (vals (B,H,K), idx (B,H,K) int32):
+    the K rows of highest cosine similarity, ordered by (sim desc,
+    index asc)."""
+    sims = torch.einsum("bhw,bnw->bhn", _normalize(q), _normalize(mem))
+    vals, idx = torch.sort(sims, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k].to(torch.int32)
+
+
+def gather_rows(mem: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """mem: (B, N, W), idx: (B, ...) int -> the rows idx names, (B, ..., W)."""
+    b = torch.arange(mem.shape[0], device=mem.device)
+    b = b.view((-1,) + (1,) * (idx.dim() - 1))
+    return mem[b, idx.long()]
+
+
+def sparse_read_tail(q: torch.Tensor, mem: torch.Tensor, beta: torch.Tensor,
+                     idx: torch.Tensor):
+    """The read after selection (exact mode: every index is valid): gather
+    the K rows, re-rank them by cosine similarity times ``beta``, softmax,
+    renormalise as `addressing.finish_candidate_read` does, and take the
+    weighted sum. q: (B,H,W), mem: (B,N,W), beta: (B,H), idx: (B,H,K) ->
+    (read (B,H,W), weights (B,H,K))."""
+    words = gather_rows(mem, idx)                            # (B,H,K,W)
+    sel = torch.einsum("bhw,bhkw->bhk", _normalize(q), _normalize(words))
+    w = torch.softmax(sel * beta[..., None], dim=-1)
+    w = w / w.sum(-1, keepdim=True).clamp_min(1e-6)
+    read = torch.einsum("bhk,bhkw->bhw", w, words)
+    return read, w
+
+
+def fused_read_ref(q: torch.Tensor, mem: torch.Tensor, beta: torch.Tensor,
+                   k: int, valid_n=None):
+    """The exact read: top-K over rows [0, valid_n) of the (B, N+1, W)
+    buffer, then `sparse_read_tail`. Returns (read (B,H,W), weights
+    (B,H,K), indices (B,H,K) int32)."""
+    mv = mem if valid_n is None else mem[:, :valid_n]
+    _, idx = topk_read_ref(q, mv, k)
+    read, w = sparse_read_tail(q, mem, beta, idx)
+    return read, w, idx
+
+
+def lra_topn_ref(last_access: torch.Tensor, n: int) -> torch.Tensor:
+    """last_access: (B, N) int -> (B, n) int32 indices of the n smallest
+    entries, ascending by (value, index)."""
+    N = last_access.shape[1]
+    key = (last_access.to(torch.int64) * (1 << 32)
+           + torch.arange(N, device=last_access.device))
+    return torch.topk(key, n, dim=-1, largest=False).indices.to(torch.int32)
+
+
+def first_occurrence(idx: torch.Tensor) -> torch.Tensor:
+    """(B, J) bool: True where idx[b, j] is the first occurrence of its
+    value along j — the column that owns the row in the fused write."""
+    eq = idx[:, :, None] == idx[:, None, :]                   # (B, J, J)
+    J = idx.shape[-1]
+    return eq.to(torch.int8).argmax(-1) == torch.arange(J, device=idx.device)
+
+
+def _lane_step(step, batch: int, device) -> torch.Tensor:
+    """The usage-stamp step as a (B,) int32 tensor: a () step is
+    broadcast, a (B,)/(B, 1) per-lane step is flattened."""
+    step = torch.as_tensor(step, dtype=torch.int32, device=device)
+    if step.dim() == 0:
+        return step.expand(batch)
+    flat = step.reshape(-1)
+    if flat.shape[0] != batch:
+        raise ValueError(f"per-lane step must have one entry per batch row: "
+                         f"got shape {tuple(step.shape)} for batch {batch}")
+    return flat
+
+
+def sparse_write_update_ref(mem: torch.Tensor, last_access: torch.Tensor,
+                            write_idx: torch.Tensor, write_w: torch.Tensor,
+                            a: torch.Tensor, lra_idx: torch.Tensor, step,
+                            delta: float):
+    """The fused SAM write, in place on ``mem`` (B, N+1, W) and
+    ``last_access`` (B, N+1):
+
+      1. mem[b, lra_idx] = 0                      (R_t erase, eq. 6)
+      2. mem[b, write_idx] += write_w · a          (A_t, eqs. 3/5; column j
+                                                    writes head j // (K+1))
+      3. last_access[b, i] = max(last_access, step[b]) wherever a column
+                                                    with weight > δ hits i
+
+    Each touched row takes its sum in j order and only its first column
+    writes it (`first_occurrence`). Returns (mem, last_access)."""
+    B, H, W = a.shape
+    J = write_idx.shape[1]
+    kp1 = J // H
+    widx = write_idx.long()
+    b = torch.arange(B, device=mem.device)[:, None]
+    mem[b, lra_idx.long()] = 0.0
+    acc = mem[b, widx]                                        # (B, J, W)
+    rows = write_w[..., None] * a.repeat_interleave(kp1, dim=1)
+    eq = widx[:, :, None] == widx[:, None, :]                 # (B, J, J)
+    for j in range(J):
+        acc = torch.where(eq[:, :, j, None], acc + rows[:, j:j + 1], acc)
+    own = first_occurrence(widx)
+    mem[b.expand(B, J)[own], widx[own]] = acc[own]
+    stamp = _lane_step(step, B, mem.device)[:, None].expand(B, J)
+    upd = torch.where(write_w > delta, stamp, last_access[b, widx])
+    last_access.scatter_reduce_(1, widx, upd, "amax", include_self=True)
+    return mem, last_access

@@ -1,0 +1,164 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: run with ``python -m pytest -m cuda tests/test_torch_cuda.py``
+on a machine with an NVIDIA GPU and nvcc. Whether a card is present is
+decided inside the fixture, so every worker collects the same tests; on a
+machine without one each test skips. Sizes are small and N is ragged
+(not a multiple of any tile) so the masked tail runs.
+
+Tolerances: integers (indices, usage) exact; floats within 1e-5 (the
+kernels sum in another order than the plain versions, and the read's
+similarity is computed as (x·q̂)·|x|⁻¹ rather than x̂·q̂).
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import sam
+from repro_torch.core.types import (LA_SCRATCH, ControllerConfig,
+                                    MemoryConfig)
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.fused_read import fused_read_sweep
+from repro_torch.kernels.sparse_write import sparse_write_update
+from repro_torch.kernels.usage_argmin import lra_topn
+
+pytestmark = pytest.mark.cuda
+TOL = 1e-5
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run with -m cuda on the GPU)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _read_inputs(rng, B, N, W, H, case):
+    mem = rng.standard_normal((B, N + 1, W)).astype(np.float32)
+    q = rng.standard_normal((B, H, W)).astype(np.float32)
+    if case == "zero":
+        mem[:] = 0.0
+    elif case == "dup":
+        for r in (N // 3, N // 2, N - 1):
+            mem[:, r] = mem[:, 7]
+        q = mem[:, 7][:, None, :] + 0.01 * q
+    beta = (1.0 + rng.random((B, H))).astype(np.float32)
+    return q, mem, beta
+
+
+@pytest.mark.parametrize("N", [1000, 4097])
+@pytest.mark.parametrize("case", ["rand", "zero", "dup"])
+def test_fused_read_kernel_matches_plain(dev, N, case):
+    B, W, H, K = 3, 32, 4, 4
+    q, mem, beta = (torch.tensor(x, device=dev) for x in
+                    _read_inputs(np.random.default_rng(N), B, N, W, H, case))
+    read, w, idx = fused_read_sweep(q, mem, beta, k=K, valid_n=N)
+    r_read, r_w, r_idx = ref.fused_read_ref(q, mem, beta, K, valid_n=N)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, r_idx)
+    assert (read - r_read).abs().max().item() <= TOL
+    assert (w - r_w).abs().max().item() <= TOL
+    if case == "zero":
+        assert torch.equal(idx.cpu(), torch.arange(K, dtype=torch.int32)
+                           .expand(B, H, K))
+
+
+@pytest.mark.parametrize("N", [1000, 4097])
+@pytest.mark.parametrize("n", [1, 4, 8])
+@pytest.mark.parametrize("case", ["ties", "stagger"])
+def test_lra_topn_kernel_matches_plain(dev, N, n, case):
+    B = 3
+    rng = np.random.default_rng(N + n)
+    if case == "ties":
+        la = rng.integers(-3, 3, (B, N + 1)).astype(np.int32)
+    else:
+        la = np.broadcast_to(-np.arange(N + 1, dtype=np.int32), (B, N + 1)).copy()
+    la[:, N] = LA_SCRATCH
+    la = torch.tensor(la, device=dev)
+    got = lra_topn(la, n, valid_n=N)
+    want = ref.lra_topn_ref(la[:, :N], n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _write_inputs(rng, B, N, W, H, K):
+    J = H * (K + 1)
+    mem = rng.standard_normal((B, N + 1, W)).astype(np.float32)
+    la = rng.integers(-50, 50, (B, N + 1)).astype(np.int32)
+    la[:, N] = LA_SCRATCH
+    widx = rng.integers(0, N, (B, H, K + 1)).astype(np.int32)
+    widx[:, 1, 0] = widx[:, 0, 2]          # duplicate across heads
+    widx[:, 1, K] = widx[:, 0, 1]          # an LRA row that was also read
+    lra = widx[:, :, K].copy()
+    ww = rng.random((B, J)).astype(np.float32)
+    ww[:, 3] = 0.001                       # below delta: no usage stamp
+    a = rng.standard_normal((B, H, W)).astype(np.float32)
+    return mem, la, widx.reshape(B, J), ww, a, lra
+
+
+@pytest.mark.parametrize("N", [1000, 4097])
+@pytest.mark.parametrize("per_lane", [False, True])
+def test_sparse_write_kernel_matches_plain(dev, N, per_lane):
+    B, W, H, K = 3, 32, 4, 4
+    mem, la, widx, ww, a, lra = (torch.tensor(x, device=dev) for x in
+                                 _write_inputs(np.random.default_rng(N),
+                                               B, N, W, H, K))
+    step = (torch.tensor([60, 7, 61], dtype=torch.int32, device=dev)
+            if per_lane else torch.tensor(60, dtype=torch.int32, device=dev))
+    scratch = mem[:, N].clone()
+    m_ref, l_ref = mem.clone(), la.clone()
+    ref.sparse_write_update_ref(m_ref, l_ref, widx, ww, a, lra, step, 0.005)
+    m_out, l_out = sparse_write_update(mem, la, widx, ww, a, lra, step,
+                                       delta=0.005)
+    torch.cuda.synchronize()
+    assert m_out.data_ptr() == mem.data_ptr()          # in place
+    assert (mem - m_ref).abs().max().item() <= TOL
+    assert torch.equal(la, l_ref)
+    assert torch.equal(mem[:, N], scratch)
+    assert la[:, N].eq(LA_SCRATCH).all()
+
+
+def test_kernels_raise_on_inputs_they_cannot_take(dev):
+    la = torch.zeros((2, 65), device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        ops.lra_topn(la, 2, valid_n=64)            # float usage table
+    q = torch.zeros((2, 8, 4), device=dev).transpose(1, 2)
+    mem = torch.zeros((2, 65, 4), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.fused_read(q, mem, torch.ones((2, 4), device=dev), 2)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ops.fused_read(torch.zeros((2, 4, 6), device=dev),
+                       torch.zeros((2, 65, 6), device=dev),
+                       torch.ones((2, 4), device=dev), 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_read_sweep(q.cpu().contiguous(), mem.cpu(),
+                         torch.ones((2, 4)), k=2)
+
+
+def test_sam_unroll_on_card_matches_cpu(dev):
+    cfg = sam.SAMConfig(MemoryConfig(num_slots=1000, word_size=16,
+                                     num_heads=2, k=4),
+                        ControllerConfig(input_size=6, hidden_size=16,
+                                         output_size=4))
+    params = sam.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    xs = torch.tensor(np.random.default_rng(0).integers(0, 2, (8, 2, 6)),
+                      dtype=torch.float32)
+    s_cpu = sam.init_state(2, cfg, device="cpu")
+    s_gpu = sam.init_state(2, cfg, device=dev)
+    p_gpu = {g: {n: v.to(dev) for n, v in t.items()} for g, t in params.items()}
+    counts = (fused_read_sweep.launches, sparse_write_update.launches,
+              lra_topn.launches)
+    for x in xs:
+        s_cpu, y_cpu = sam.sam_step(params, cfg, s_cpu, x)
+        s_gpu, y_gpu = sam.sam_step(p_gpu, cfg, s_gpu, x.to(dev))
+        assert torch.equal(s_gpu.read.indices.cpu(), s_cpu.read.indices)
+        assert torch.equal(s_gpu.last_access.cpu(), s_cpu.last_access)
+        assert (s_gpu.memory.cpu() - s_cpu.memory).abs().max() <= TOL
+        assert (y_gpu.cpu() - y_cpu).abs().max() <= TOL
+    assert (fused_read_sweep.launches, sparse_write_update.launches,
+            lra_topn.launches) == tuple(c + len(xs) for c in counts)

@@ -1,0 +1,174 @@
+"""The port's plain kernel versions (`repro_torch.kernels.ref`, through the
+CPU dispatch of `repro_torch.kernels.ops`) against the JAX oracles
+(`repro.kernels.ref`) and the Pallas kernels in interpret mode, called with
+small blocks so that the multi-tile merge runs.
+
+Inputs are made from a numpy seed and passed to both sides as numpy.
+Tolerances: integers exact; floats within 1e-5 at f32 (the two sides sum
+in other orders)."""
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.fused_read import fused_read_sweep as pallas_read
+from repro.kernels.scatter_rows import first_occurrence as jax_first
+from repro.kernels.sparse_write import sparse_write_update as pallas_write
+from repro.kernels.usage_argmin import lra_topn as pallas_topn
+from repro_torch.core.types import LA_SCRATCH
+from repro_torch.kernels import ops, ref
+
+TOL = 1e-5
+B, N, W, H, K = 2, 128, 8, 2, 4
+
+
+def _close(a, b):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=TOL,
+                               rtol=TOL)
+
+
+def _read_inputs(case, seed=0):
+    rng = np.random.default_rng(seed)
+    mem = rng.standard_normal((B, N + 1, W)).astype(np.float32)
+    q = rng.standard_normal((B, H, W)).astype(np.float32)
+    if case == "zero":
+        mem[:] = 0.0
+    elif case == "dup":
+        # Rows 50 and 90 copy row 10, and the queries point at it: three
+        # exactly tied similarities, ordered by index.
+        mem[:, 50] = mem[:, 10]
+        mem[:, 90] = mem[:, 10]
+        q = mem[:, 10][:, None, :] + 0.01 * q
+    beta = (1.0 + rng.random((B, H))).astype(np.float32)
+    return q, mem, beta
+
+
+@pytest.mark.parametrize("case", ["rand", "zero", "dup"])
+def test_fused_read_matches_jax_ref_and_pallas(case):
+    q, mem, beta = _read_inputs(case)
+    got = ops.fused_read(torch.tensor(q), torch.tensor(mem),
+                         torch.tensor(beta), K, valid_n=N)
+    want_ref = jref.fused_read_ref(jnp.asarray(q), jnp.asarray(mem),
+                                   jnp.asarray(beta), K, valid_n=N)
+    want_pl = pallas_read(jnp.asarray(q), jnp.asarray(mem), jnp.asarray(beta),
+                          k=K, block_n=32, interpret=True, valid_n=N)
+    for want in (want_ref, want_pl):
+        _close(got[0], want[0])
+        _close(got[1], want[1])
+        np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    if case == "zero":      # all N similarities tie at 0: rows 0..K-1
+        np.testing.assert_array_equal(
+            got[2].numpy(), np.broadcast_to(np.arange(K), (B, H, K)))
+    if case == "dup":
+        np.testing.assert_array_equal(got[2].numpy()[:, :, :3],
+                                      np.broadcast_to([10, 50, 90], (B, H, 3)))
+
+
+def test_topk_read_and_tail_match_jax():
+    q, mem, beta = _read_inputs("dup", seed=1)
+    vals, idx = ref.topk_read_ref(torch.tensor(q), torch.tensor(mem[:, :N]), K)
+    j_vals, j_idx = jref.topk_read_ref(jnp.asarray(q), jnp.asarray(mem[:, :N]),
+                                       K)
+    _close(vals, j_vals)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(j_idx))
+    read, w = ref.sparse_read_tail(torch.tensor(q), torch.tensor(mem),
+                                   torch.tensor(beta), idx)
+    j_read, j_w = jref.sparse_read_tail(jnp.asarray(q), jnp.asarray(mem),
+                                        jnp.asarray(beta), j_idx)
+    _close(read, j_read)
+    _close(w, j_w)
+
+
+@pytest.mark.parametrize("case", ["ties", "stagger", "wide"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_lra_topn_matches_jax_ref_and_pallas(case, n):
+    rng = np.random.default_rng(n)
+    if case == "ties":          # equal usage stamps everywhere
+        la = rng.integers(-2, 2, (B, N + 1)).astype(np.int32)
+    elif case == "stagger":     # init_scratch_last_access: N-1, N-2, ...
+        la = np.broadcast_to(-np.arange(N + 1, dtype=np.int32),
+                             (B, N + 1)).copy()
+    else:
+        la = rng.integers(-10 ** 6, 10 ** 6, (B, N + 1)).astype(np.int32)
+    la[:, N] = LA_SCRATCH
+    got = ops.lra_topn(torch.tensor(la), n, valid_n=N).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jref.lra_topn_ref(jnp.asarray(la[:, :N]), n)))
+    np.testing.assert_array_equal(
+        got, np.asarray(pallas_topn(jnp.asarray(la), n=n, block_n=32,
+                                    interpret=True, valid_n=N)))
+    if case == "stagger":
+        np.testing.assert_array_equal(got[0], N - 1 - np.arange(n))
+
+
+def _write_inputs(seed=0):
+    rng = np.random.default_rng(seed)
+    J = H * (K + 1)
+    mem = rng.standard_normal((B, N + 1, W)).astype(np.float32)
+    la = rng.integers(-50, 50, (B, N + 1)).astype(np.int32)
+    la[:, N] = LA_SCRATCH
+    widx = rng.integers(0, N, (B, H, K + 1)).astype(np.int32)
+    widx[:, 1, 0] = widx[:, 0, 2]           # a row duplicated across heads
+    widx[:, 1, 2] = widx[:, 0, 2]           # ... three times
+    widx[:, 1, K] = widx[:, 0, 1]           # an LRA row that was also read
+    lra = widx[:, :, K].copy()
+    ww = rng.random((B, J)).astype(np.float32)
+    ww[:, 2] = 0.001                        # below delta: no usage stamp
+    a = rng.standard_normal((B, H, W)).astype(np.float32)
+    return mem, la, widx.reshape(B, J), ww, a, lra
+
+
+@pytest.mark.parametrize("per_lane", [False, True])
+def test_sparse_write_matches_jax_ref_and_pallas(per_lane):
+    mem, la, widx, ww, a, lra = _write_inputs()
+    step = np.array([60, 7], np.int32) if per_lane else np.int32(60)
+    t_mem, t_la = torch.tensor(mem), torch.tensor(la)
+    out_mem, out_la = ops.sparse_write_update(
+        t_mem, t_la, torch.tensor(widx), torch.tensor(ww), torch.tensor(a),
+        torch.tensor(lra), torch.tensor(step), delta=0.005)
+    assert out_mem is t_mem and out_la is t_la            # in place
+    args = [jnp.asarray(x) for x in (widx, ww, a, lra, step)]
+    j_mem, j_la = jref.sparse_write_update_ref(
+        jnp.asarray(mem[:, :N]), jnp.asarray(la[:, :N]), *args[:4],
+        jref._lane_step(args[4], B), 0.005)
+    p_mem, p_la = pallas_write(jnp.asarray(mem), jnp.asarray(la), *args,
+                               delta=0.005, interpret=True, scratch_row=N)
+    _close(t_mem[:, :N], j_mem)
+    _close(t_mem, p_mem)
+    np.testing.assert_array_equal(t_la[:, :N].numpy(), np.asarray(j_la))
+    np.testing.assert_array_equal(t_la.numpy(), np.asarray(p_la))
+    # Row N, the write-scratch row, is bit-identical after the write.
+    np.testing.assert_array_equal(t_mem[:, N].numpy(), mem[:, N])
+    assert (t_la[:, N] == LA_SCRATCH).all()
+
+
+def test_gather_rows_matches_jax():
+    from repro.core.addressing import gather_rows as jax_gather
+    from repro_torch.core.addressing import gather_rows
+    _, mem, _ = _read_inputs("rand", seed=2)
+    idx = np.random.default_rng(2).integers(0, N, (B, H, K)).astype(np.int32)
+    np.testing.assert_array_equal(
+        gather_rows(torch.tensor(mem), torch.tensor(idx)).numpy(),
+        np.asarray(jax_gather(jnp.asarray(mem), jnp.asarray(idx))))
+
+
+def test_first_occurrence_matches_jax():
+    idx = np.random.default_rng(3).integers(0, 5, (3, 10)).astype(np.int32)
+    np.testing.assert_array_equal(ref.first_occurrence(torch.tensor(idx)).numpy(),
+                                  np.asarray(jax_first(jnp.asarray(idx))))
+
+
+def test_lane_step_shapes():
+    assert ref._lane_step(5, 3, "cpu").tolist() == [5, 5, 5]
+    assert ref._lane_step(torch.tensor([[1], [2]]), 2, "cpu").tolist() == [1, 2]
+    with pytest.raises(ValueError, match="one entry per batch row"):
+        ref._lane_step(torch.tensor([1, 2, 3]), 2, "cpu")
+
+
+def test_ops_refuse_devices_without_a_kernel():
+    la = torch.zeros((2, 9), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.lra_topn(la, 2, valid_n=8)
