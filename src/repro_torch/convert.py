@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import LSTMState, SAMState, SparseRead
+from repro_torch.optim.optimizers import RMSPropState
 
 _PARAM_GROUPS = {"lstm": ("wx", "wh", "b"), "iface": ("w", "b"),
                  "out": ("w", "b")}
@@ -52,3 +53,9 @@ def state_from_jax(state, *, device="cuda") -> SAMState:
                     last_access=_tensor(state.last_access, np.int32, device),
                     read=read, ctrl=ctrl,
                     step=_tensor(state.step, np.int32, device))
+
+
+def opt_state_from_jax(state, *, device="cuda") -> RMSPropState:
+    """JAX `optimizers.RMSPropState` (its ``acc`` tree in the parameters'
+    layout) -> the port's `RMSPropState`, leaf for leaf."""
+    return RMSPropState(acc=params_from_jax(state.acc, device=device))

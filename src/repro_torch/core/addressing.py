@@ -7,8 +7,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.types import SparseRead
-from repro_torch.kernels import ops
-from repro_torch.kernels.ref import gather_rows  # noqa: F401 (JAX API name)
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.ref import gather_rows
 
 
 def sparse_read_exact(q: torch.Tensor, m: torch.Tensor, beta: torch.Tensor,
@@ -17,6 +17,37 @@ def sparse_read_exact(q: torch.Tensor, m: torch.Tensor, beta: torch.Tensor,
     similarity among rows [0, valid_n), softmax over the kept K only."""
     read, w, idx = ops.fused_read(q, m, beta, k, valid_n=valid_n)
     return SparseRead(indices=idx, weights=w, words=read)
+
+
+def read_from_rows(q: torch.Tensor, words: torch.Tensor, beta: torch.Tensor,
+                   idx: torch.Tensor) -> SparseRead:
+    """The differentiable tail of a read on its gathered rows ``words``
+    (B, H, K, W), selected by the *signed* ``idx`` (B, H, K): -1 marks an
+    invalid selection, which gets weight exactly 0."""
+    read, w = ref.read_tail_rows(q, words, beta, idx >= 0)
+    return SparseRead(indices=idx.clamp_min(0), weights=w, words=read)
+
+
+def finish_candidate_read(q: torch.Tensor, m: torch.Tensor, beta: torch.Tensor,
+                          idx: torch.Tensor) -> SparseRead:
+    """The differentiable tail of every sparse read, from recorded (signed)
+    indices: gather the K rows, re-rank, softmax. Only those rows get a
+    gradient. The replay (`core/cell.py`) recomputes the forward's read
+    through this tail, so the two match bit for bit."""
+    return read_from_rows(q, gather_rows(m, idx.clamp_min(0)), beta, idx)
+
+
+def scatter_add_rows(m: torch.Tensor, idx: torch.Tensor,
+                     rows: torch.Tensor) -> torch.Tensor:
+    """m[b, idx[b, j]] += rows[b, j], in place; duplicates sum in j order.
+    idx: (B, J), rows: (B, J, W)."""
+    return ops.scatter_rows(m, idx, rows, "add")
+
+
+def scatter_set_rows(m: torch.Tensor, idx: torch.Tensor,
+                     rows: torch.Tensor) -> torch.Tensor:
+    """m[b, idx[b, j]] = rows[b, j], in place; the last duplicate wins."""
+    return ops.scatter_rows(m, idx, rows, "set")
 
 
 def update_last_access(last_access: torch.Tensor, idx: torch.Tensor,

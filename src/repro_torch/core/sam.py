@@ -1,4 +1,4 @@
-"""Sparse Access Memory (SAM) — the paper's cell (§3), forward path.
+"""Sparse Access Memory (SAM) — the paper's cell (§3).
 
 One step runs the LSTM controller, splits its interface, picks the H
 least-recently-accessed rows, plans the eq. 5 write, runs the fused write
@@ -6,7 +6,13 @@ least-recently-accessed rows, plans the eq. 5 write, runs the fused write
 usage stamp — the same sequence as `repro/core/sam.py::sam_step` for the
 exact read on f32 rows on one device. The memory and the usage table are
 updated **in place**: the state handed to `sam_step` shares its `memory`
-and `last_access` tensors with the state it returns.
+and `last_access` tensors with the state it returns. With
+``collect_deltas=True`` a step also returns what the sparse-rollback
+backward needs (`StepDeltas`, `core/cell.py`).
+
+`sam_step` records an autograd graph when its inputs require grad (the
+naive unroll of `core/unroll.py`); `sam_unroll` and `SAM.forward`, the
+forward-only path, run under `torch.inference_mode` and record none.
 """
 from __future__ import annotations
 
@@ -20,8 +26,10 @@ from repro_torch.core import addressing as addr
 from repro_torch.core.controller import (linear, linear_init, lstm_init,
                                          lstm_step, lstm_zero_state)
 from repro_torch.core.types import (ControllerConfig, MemoryConfig, SAMState,
-                                    SparseRead, init_scratch_last_access,
+                                    SparseRead, StepDeltas,
+                                    init_scratch_last_access,
                                     init_scratch_memory)
+from repro_torch.kernels import ref
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,10 +102,23 @@ def write_plan(cfg: SAMConfig, prev_read: SparseRead, lra_idx: torch.Tensor,
     return idx.reshape(B, -1), w.reshape(B, -1), idx, w
 
 
-@torch.inference_mode()
-def sam_step(params, cfg: SAMConfig, state: SAMState, x: torch.Tensor):
-    """One SAM time step. Returns (new_state, y_t); ``state.memory`` and
-    ``state.last_access`` are updated in place."""
+def apply_write(memory: torch.Tensor, write_idx: torch.Tensor,
+                write_w: torch.Tensor, a: torch.Tensor,
+                lra_idx: torch.Tensor) -> torch.Tensor:
+    """The memory-only write used by the replay (`core/cell.py`), in place:
+    erase the LRA rows (R_t = I^U 1^T), then add the outer product
+    A_t = w^W a^T on the H·(K+1) touched rows, both through `scatter_rows`.
+    Its floats are the fused write's bit for bit: each touched row starts
+    from its old value (zero if erased) and adds its columns in j order."""
+    B, H, W = a.shape
+    memory = addr.scatter_set_rows(memory, lra_idx, memory.new_zeros((B, H, W)))
+    return addr.scatter_add_rows(memory, write_idx, ref.write_rows(write_w, a))
+
+
+def sam_step(params, cfg: SAMConfig, state: SAMState, x: torch.Tensor, *,
+             collect_deltas: bool = False):
+    """One SAM time step. Returns (new_state, y_t[, deltas]);
+    ``state.memory`` and ``state.last_access`` are updated in place."""
     mem = cfg.memory
     H, K, N = mem.num_heads, mem.k, mem.num_slots
     if state.ann is not None or state.mem_scale is not None:
@@ -114,6 +135,8 @@ def sam_step(params, cfg: SAMConfig, state: SAMState, x: torch.Tensor):
     step = state.step + 1
     lra_idx = addr.least_recently_accessed(state.last_access, H, valid_n=N)
     widx, ww, _, _ = write_plan(cfg, state.read, lra_idx, alpha, gamma)
+    if collect_deltas:
+        old_rows = addr.gather_rows(state.memory, widx)
     memory, la = addr.sparse_write_update(state.memory, state.last_access,
                                           widx, ww, a, lra_idx, step,
                                           mem.delta)
@@ -124,8 +147,12 @@ def sam_step(params, cfg: SAMConfig, state: SAMState, x: torch.Tensor):
                                  read.weights.reshape(B, -1), step, mem.delta)
 
     y = linear(params["out"], torch.cat([h, read.words.reshape(B, -1)], -1))
-    return SAMState(memory=memory, last_access=la, read=read, ctrl=ctrl,
-                    step=step), y
+    new_state = SAMState(memory=memory, last_access=la, read=read, ctrl=ctrl,
+                         step=step)
+    if collect_deltas:
+        return new_state, y, StepDeltas(write_idx=widx, old_rows=old_rows,
+                                        read_idx=read.indices)
+    return new_state, y
 
 
 @torch.inference_mode()
@@ -140,8 +167,10 @@ def sam_unroll(params, cfg: SAMConfig, state: SAMState, xs: torch.Tensor):
 
 
 class SAM(nn.Module):
-    """The SAM cell as a module. Its weights are (frozen) parameters in the
-    JAX tree layout; `forward` unrolls the cell over a sequence."""
+    """The SAM cell as a module. Its weights are trainable parameters in
+    the JAX tree layout (`params()` hands them to `core/unroll.py` for
+    training); `forward` unrolls the cell over a sequence without a
+    graph."""
 
     def __init__(self, cfg: SAMConfig, params=None, *, seed: int = 0,
                  device="cuda"):
@@ -151,13 +180,13 @@ class SAM(nn.Module):
             params = init_params(torch.Generator().manual_seed(seed), cfg,
                                  device=device)
 
-        def frozen(tree):
-            return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+        def group(tree):
+            return nn.ParameterDict({k: nn.Parameter(v)
                                      for k, v in tree.items()})
 
-        self.lstm = frozen(params["lstm"])
-        self.iface = frozen(params["iface"])
-        self.out = frozen(params["out"])
+        self.lstm = group(params["lstm"])
+        self.iface = group(params["iface"])
+        self.out = group(params["out"])
 
     def params(self):
         """The weights as the nested dict that `sam_step` takes."""

@@ -1,0 +1,137 @@
+"""Training harness for the copy task (paper §4.2/§4.3), the port of
+`repro/core/training.py` (`ModelSpec`, `build_model`, `bits_loss`,
+`bits_error`, `make_task_train_step`, `train_task`) for the kind ``sam``:
+RMSProp (paper Suppl. C) on sigmoid cross-entropy over the output bits,
+through the sparse-rollback engine by default (`core/unroll.py`).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import time
+from typing import Optional, Union
+
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
+
+from repro_torch.core import unroll as unroll_lib
+from repro_torch.core.cell import SAMCell
+from repro_torch.core.sam import SAMConfig
+from repro_torch.core.types import ControllerConfig, MemoryConfig
+from repro_torch.data.curriculum import Curriculum
+from repro_torch.data.tasks import copy_task
+from repro_torch.optim import optimizers as opt
+
+TASKS = {"copy": copy_task}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    kind: str                     # sam (the only kind ported so far)
+    memory: MemoryConfig
+    controller: ControllerConfig
+    # Train through the sparse-rollback engine (False -> the naive loop).
+    sparse_bptt: bool = True
+    # Segment length C for the chunked engine: None -> whole-sequence
+    # sparse, an int or "auto" -> chunked with O(T/C·state + C·K·W)
+    # residuals (core/unroll.py).
+    bptt_chunk: Optional[Union[int, str]] = None
+
+
+def build_model(spec: ModelSpec, *, device="cuda"):
+    """Returns (init_params(generator), init_state(batch),
+    unroll(params, state, xs)). Kind ``sam`` trains through the
+    sparse-rollback engine behind `SAMCell`; every other kind of the JAX
+    package is still to port and raises."""
+    if spec.kind != "sam":
+        raise ValueError(f"model kind {spec.kind!r} is not ported; only "
+                         f"'sam' is")
+    cell = SAMCell(SAMConfig(spec.memory, spec.controller))
+    if not spec.sparse_bptt:
+        mode, chunk = "naive", None
+    elif spec.bptt_chunk is None:
+        mode, chunk = "sparse", None
+    else:
+        mode, chunk = "chunked", spec.bptt_chunk
+    return (functools.partial(cell.init_params, device=device),
+            functools.partial(cell.init_state, device=device),
+            functools.partial(unroll_lib.unroll, cell, mode=mode, chunk=chunk))
+
+
+def bits_loss(logits, targets, mask):
+    """Sigmoid CE per output bit, masked to the answer span.
+
+    logits/targets: (T, B, bits); mask: (T, B)."""
+    ce = (logits.clamp_min(0) - logits * targets
+          + torch.log1p(torch.exp(-logits.abs())))
+    return (ce.sum(-1) * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def bits_error(logits, targets, mask):
+    pred = (logits > 0).float()
+    err = ((pred - targets).abs().sum(-1) * mask).sum()
+    return err / mask.sum().clamp_min(1.0)
+
+
+def make_task_train_step(spec: ModelSpec, lr: float = 1e-4, *, device="cuda"):
+    """Returns (init_params, init_state, step). ``step(params, opt_state,
+    inputs, targets, mask)`` takes batch-major (B, T, ...) tensors and
+    returns (params, opt_state, loss, err), new trees beside the old."""
+    init_p, init_s, unroll = build_model(spec, device=device)
+
+    def step(params, opt_state, inputs, targets, mask):
+        xs = inputs.transpose(0, 1)                     # time-major
+        ts = targets.transpose(0, 1)
+        ms = mask.transpose(0, 1)
+        leaves, spec_p = pytree.tree_flatten(params)
+        with torch.enable_grad():
+            p = pytree.tree_unflatten(
+                [x.detach().requires_grad_() for x in leaves], spec_p)
+            _, ys = unroll(p, init_s(inputs.shape[0]), xs)
+            loss = bits_loss(ys, ts, ms)
+            grads = torch.autograd.grad(loss, pytree.tree_leaves(p))
+        with torch.no_grad():
+            err = bits_error(ys, ts, ms)
+            grads, _ = opt.clip_by_global_norm(
+                pytree.tree_unflatten(list(grads), spec_p), 10.0)
+            params, opt_state = opt.rmsprop_update(params, grads, opt_state,
+                                                   lr=lr)
+        return params, opt_state, loss.detach(), err
+
+    return init_p, init_s, step
+
+
+def train_task(spec: ModelSpec, task: str, *, steps: int = 200,
+               batch: int = 8, level: int = 4, max_level: int = 8,
+               bits: int = 8, lr: float = 1e-4, seed: int = 0,
+               curriculum: Curriculum = None, log_every: int = 25,
+               verbose: bool = False, device="cuda"):
+    """Train one model on one task; returns (params, the loss/error
+    history). The weights and every batch are drawn from
+    ``torch.Generator``s seeded with ``seed``, the curriculum's levels
+    from ``numpy.random.default_rng(seed)``."""
+    task_fn = TASKS[task]
+    init_p, init_s, step = make_task_train_step(spec, lr, device=device)
+    params = init_p(torch.Generator().manual_seed(seed))
+    opt_state = opt.rmsprop_init(params)
+    data = torch.Generator().manual_seed(seed + 1)
+    rng = np.random.default_rng(seed)
+
+    history = []
+    t0 = time.time()
+    for i in range(steps):
+        lvl = curriculum.sample_level(rng) if curriculum else level
+        inputs, targets, mask = task_fn(batch, lvl, max_level, bits,
+                                        generator=data, device=device)
+        params, opt_state, loss, err = step(params, opt_state, inputs,
+                                            targets, mask)
+        lf, ef = float(loss), float(err)
+        history.append({"step": i, "loss": lf, "err": ef,
+                        "level": int(curriculum.level) if curriculum else lvl})
+        if curriculum:
+            curriculum.update(ef)
+        if verbose and i % log_every == 0:
+            print(f"  [{spec.kind}/{task}] step {i} loss={lf:.4f} "
+                  f"err={ef:.3f} ({time.time()-t0:.0f}s)")
+    return params, history

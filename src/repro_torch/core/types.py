@@ -14,6 +14,7 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils import _pytree as pytree
 
 # Number of write-scratch rows appended past the logical memory (row N).
 SCRATCH_ROWS = 1
@@ -86,6 +87,27 @@ class SAMState(NamedTuple):
     step: torch.Tensor          # () int32
     ann: Optional[object] = None
     mem_scale: Optional[torch.Tensor] = None
+
+
+class StepDeltas(NamedTuple):
+    """What one SAM step records for the backward pass (paper §3.4): the
+    touched rows and their pre-write contents, so the rollback restores
+    the memory bit for bit, and the read's selection, so the replay needs
+    neither the usage table nor a sweep. O(K·W) per step, independent of
+    N."""
+
+    write_idx: torch.Tensor   # (B, J) int32 rows touched by the write
+    old_rows: torch.Tensor    # (B, J, W) their contents before the write
+    read_idx: torch.Tensor    # (B, H, K) int32 rows selected by the read,
+    #                           signed: -1 = no valid selection
+    old_scale: Optional[torch.Tensor] = None   # int8 rows only (not ported)
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of the tensors among the leaves of a nested tuple/dict."""
+    leaves, _ = pytree.tree_flatten(tree)
+    return sum(t.numel() * t.element_size() for t in leaves
+               if isinstance(t, torch.Tensor))
 
 
 def glorot(generator: torch.Generator, shape, *, device="cuda") -> torch.Tensor:

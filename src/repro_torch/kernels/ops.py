@@ -1,5 +1,5 @@
-"""Device dispatch of the memory ops (the forward, f32, single-device part
-of `repro/kernels/ops.py`).
+"""Device dispatch of the memory ops (the f32, single-device part of
+`repro/kernels/ops.py`), and their gradients.
 
 A CPU tensor takes the plain version in `kernels/ref.py`; a CUDA tensor
 launches the hand-written kernel, which raises on anything it cannot take
@@ -7,6 +7,15 @@ launches the hand-written kernel, which raises on anything it cannot take
 There is no fallback from one to the other and no switch that swaps the
 kernel out: unlike the JAX package, the kernels take any N and mask the
 ragged tile themselves.
+
+When autograd records (grad enabled and an input requires grad), each op
+runs inside a `torch.autograd.Function` whose backward is the closed-form
+VJP of the JAX package's custom VJP (`repro/kernels/ops.py:318-340`,
+`:481-506`, `:587-622`); otherwise the op runs bare. These dense
+gradients are what the naive unroll (`core/unroll.py`) differentiates
+through: each step's memory gradient is a (B, N+1, W) tensor. The
+sparse-rollback engine does not use them; it keeps one memory cotangent
+for the whole backward (`core/cell.py`).
 """
 from __future__ import annotations
 
@@ -14,6 +23,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.fused_read import fused_read_sweep
+from repro_torch.kernels.scatter_rows import scatter_rows as scatter_rows_kernel
 from repro_torch.kernels.sparse_write import \
     sparse_write_update as sparse_write_kernel
 from repro_torch.kernels.usage_argmin import lra_topn as lra_topn_kernel
@@ -27,6 +37,10 @@ def _on_cpu(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {t.device}")
 
 
+def _records(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def lra_topn(last_access: torch.Tensor, n: int, *, valid_n: int | None = None):
     """last_access: (B, rows) int -> (B, n) int32 least-recently-accessed
     rows among [0, valid_n), most stale first (ties toward the lowest
@@ -37,22 +51,161 @@ def lra_topn(last_access: torch.Tensor, n: int, *, valid_n: int | None = None):
     return lra_topn_kernel(last_access, n, valid_n=valid_n)
 
 
-def fused_read(q: torch.Tensor, mem: torch.Tensor, beta: torch.Tensor, k: int,
-               *, valid_n: int | None = None):
-    """The exact read. q: (B, H, W), mem: (B, rows, W), beta: (B, H) ->
-    (read (B, H, W), weights (B, H, K), indices (B, H, K) int32), sweeping
-    rows [0, valid_n)."""
+# --------------------------------------------------------------------------
+# The exact read
+# --------------------------------------------------------------------------
+
+def _fused_read(q, mem, beta, k, valid_n):
     if _on_cpu(mem):
         return ref.fused_read_ref(q, mem, beta, k, valid_n=valid_n)
     return fused_read_sweep(q, mem, beta, k=k, valid_n=valid_n)
 
 
-def sparse_write_update(mem, last_access, write_idx, write_w, a, lra_idx,
-                        step, *, delta: float):
-    """The fused LRA erase + w^W a^T scatter-add + usage stamp, in place on
-    ``mem`` (B, N+1, W) and ``last_access`` (B, N+1). Returns both."""
+def fused_read(q: torch.Tensor, mem: torch.Tensor, beta: torch.Tensor, k: int,
+               *, valid_n: int | None = None):
+    """The exact read. q: (B, H, W), mem: (B, rows, W), beta: (B, H) ->
+    (read (B, H, W), weights (B, H, K), indices (B, H, K) int32), sweeping
+    rows [0, valid_n). Differentiable in q, mem and beta; the selection is
+    not."""
+    if _records(q, mem, beta):
+        return _FusedRead.apply(q, mem, beta, k, valid_n)
+    return _fused_read(q, mem, beta, k, valid_n)
+
+
+class _FusedRead(torch.autograd.Function):
+    """`_fused_read_sweep_vjp`: the backward re-derives the read's tail
+    from the recorded indices. It saves the K gathered rows, never the
+    memory, so later in-place writes leave it valid."""
+
+    @staticmethod
+    def forward(ctx, q, mem, beta, k, valid_n):
+        read, w, idx = _fused_read(q, mem, beta, k, valid_n)
+        ctx.save_for_backward(q, beta, idx, ref.gather_rows(mem, idx))
+        ctx.mem_shape = mem.shape
+        ctx.mark_non_differentiable(idx)
+        return read, w, idx
+
+    @staticmethod
+    def backward(ctx, g_read, g_w, _):
+        q, beta, idx, words = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, words, beta)]
+            out = ref.read_tail_rows(*leaves, idx >= 0)
+            g_q, g_words, g_beta = torch.autograd.grad(out, leaves,
+                                                       (g_read, g_w))
+        g_mem = None
+        if ctx.needs_input_grad[1]:
+            B, W = q.shape[0], q.shape[-1]
+            g_mem = g_words.new_zeros(ctx.mem_shape)
+            _scatter_rows(g_mem, idx.reshape(B, -1),
+                          g_words.reshape(B, -1, W), "add")
+        return g_q, g_mem, g_beta, None, None
+
+
+# --------------------------------------------------------------------------
+# Row scatter
+# --------------------------------------------------------------------------
+
+def _scatter_rows(mem, idx, rows, mode):
+    idx, rows = idx.contiguous(), rows.contiguous()
+    if _on_cpu(mem):
+        return ref.scatter_rows_ref(mem, idx, rows, mode)
+    return scatter_rows_kernel(mem, idx, rows, mode=mode)
+
+
+def scatter_rows(mem: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
+                 mode: str = "add") -> torch.Tensor:
+    """mem: (B, R, W) f32, idx: (B, J) int32, rows: (B, J, W), in place.
+    'add' sums duplicate columns into their row in j order; 'set' keeps
+    the last (sequential semantics, j ascending). No other row is touched,
+    so a (B, N+1, W) buffer's scratch row N needs no parking duty. Returns
+    ``mem``; differentiable in mem and rows."""
+    if _records(mem, rows):
+        return _ScatterRows.apply(mem, rows, idx, mode)
+    return _scatter_rows(mem, idx, rows, mode)
+
+
+class _ScatterRows(torch.autograd.Function):
+    """`_scatter_rows_vjp`: 'add' passes the memory's gradient through and
+    hands each column its target row's gradient; 'set' zeroes the
+    overwritten rows and hands the gradient only to the column that
+    survived (the last of each duplicate set)."""
+
+    @staticmethod
+    def forward(ctx, mem, rows, idx, mode):
+        _scatter_rows(mem, idx, rows, mode)
+        ctx.mark_dirty(mem)
+        ctx.save_for_backward(idx)
+        ctx.mode = mode
+        return mem
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        g_rows = ref.gather_rows(g, idx)
+        if ctx.mode == "add":
+            return g, g_rows, None, None
+        g_mem = _scatter_rows(g.clone(), idx, torch.zeros_like(g_rows), "set")
+        last = ref.first_occurrence(idx.flip(1)).flip(1)
+        return g_mem, g_rows * last[..., None], None, None
+
+
+# --------------------------------------------------------------------------
+# The fused write
+# --------------------------------------------------------------------------
+
+def write_rows_vjp(g_rows: torch.Tensor, write_w: torch.Tensor,
+                   a: torch.Tensor):
+    """Gradients of `ref.write_rows` (w_j · a_{j // (K+1)}) from those of
+    its (B, J, W) rows: (g_w (B, J), g_a (B, H, W))."""
+    B, H, W = a.shape
+    kp1 = write_w.shape[1] // H
+    g_w = (g_rows * a.repeat_interleave(kp1, dim=1)).sum(-1)
+    g_a = (write_w.reshape(B, H, kp1, 1) * g_rows.reshape(B, H, kp1, W)).sum(2)
+    return g_w, g_a
+
+
+def _sparse_write(mem, last_access, write_idx, write_w, a, lra_idx, step,
+                  delta):
     if _on_cpu(mem):
         return ref.sparse_write_update_ref(mem, last_access, write_idx,
                                            write_w, a, lra_idx, step, delta)
     return sparse_write_kernel(mem, last_access, write_idx, write_w, a,
                                lra_idx, step, delta=delta)
+
+
+def sparse_write_update(mem, last_access, write_idx, write_w, a, lra_idx,
+                        step, *, delta: float):
+    """The fused LRA erase + w^W a^T scatter-add + usage stamp, in place on
+    ``mem`` (B, N+1, W) and ``last_access`` (B, N+1). Returns both; the
+    memory is differentiable in mem, write_w and a, the usage table not
+    (the paper passes no gradient through U^(2))."""
+    if _records(mem, write_w, a):
+        mem = _SparseWrite.apply(mem, write_w, a, last_access, write_idx,
+                                 lra_idx, step, delta)
+        return mem, last_access
+    return _sparse_write(mem, last_access, write_idx, write_w, a, lra_idx,
+                         step, delta)
+
+
+class _SparseWrite(torch.autograd.Function):
+    """`_sparse_write_vjp`: w_j and a_h read the output gradient at their
+    target rows (before the erase zeroes it); the memory's gradient passes
+    through except on the erased rows. Needs no memory residual, so the
+    write runs in place and marks ``mem`` dirty."""
+
+    @staticmethod
+    def forward(ctx, mem, write_w, a, last_access, write_idx, lra_idx, step,
+                delta):
+        _sparse_write(mem, last_access, write_idx, write_w, a, lra_idx, step,
+                      delta)
+        ctx.mark_dirty(mem)
+        ctx.save_for_backward(write_idx, write_w, a, lra_idx)
+        return mem
+
+    @staticmethod
+    def backward(ctx, g):
+        write_idx, write_w, a, lra_idx = ctx.saved_tensors
+        g_w, g_a = write_rows_vjp(ref.gather_rows(g, write_idx), write_w, a)
+        g_mem = _scatter_rows(g.clone(), lra_idx, g.new_zeros(a.shape), "set")
+        return g_mem, g_w, g_a, None, None, None, None, None

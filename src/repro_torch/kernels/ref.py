@@ -9,18 +9,21 @@ card. They state the kernels' contracts exactly:
   and `torch.topk` promises no tie order. The top-K read sorts stably
   (value descending, then lowest index) and the LRA selection ranks a
   unique int64 key ``(value << 32) | index`` — `lax.top_k`'s rule.
-* Duplicate write rows accumulate in j order, starting from the row's old
-  value (or zero, if erased), the same order as the TPU kernel and the
-  CUDA kernel; `index_put_(accumulate=True)` would sum in an unspecified
-  order on CUDA.
-* The write updates ``mem`` and ``last_access`` in place and never
-  touches a row that no index names (in particular not scratch row N).
+* Duplicate rows of a write or an 'add' scatter accumulate in j order,
+  starting from the row's old value (or zero, if erased), the same order
+  as the TPU write kernel and the CUDA kernels;
+  `index_put_(accumulate=True)` would sum in an unspecified order on CUDA.
+  The replay of a write (erase, then 'add') therefore gives the fused
+  write's floats bit for bit.
+* The write and the scatter update their buffers in place and never
+  touch a row that no index names (in particular not scratch row N).
 """
 from __future__ import annotations
 
 import torch
 
 _EPS = 1e-6   # inside the rsqrt, not added to the norm
+_NEG = -1e9   # the score of an invalid selection
 
 
 def _normalize(x: torch.Tensor) -> torch.Tensor:
@@ -43,19 +46,30 @@ def gather_rows(mem: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return mem[b, idx.long()]
 
 
-def sparse_read_tail(q: torch.Tensor, mem: torch.Tensor, beta: torch.Tensor,
-                     idx: torch.Tensor):
-    """The read after selection (exact mode: every index is valid): gather
-    the K rows, re-rank them by cosine similarity times ``beta``, softmax,
+def read_tail_rows(q: torch.Tensor, words: torch.Tensor, beta: torch.Tensor,
+                   valid: torch.Tensor):
+    """The read after selection, on the K gathered rows: re-rank them by
+    cosine similarity times ``beta``, softmax, zero the invalid entries and
     renormalise as `addressing.finish_candidate_read` does, and take the
-    weighted sum. q: (B,H,W), mem: (B,N,W), beta: (B,H), idx: (B,H,K) ->
-    (read (B,H,W), weights (B,H,K))."""
-    words = gather_rows(mem, idx)                            # (B,H,K,W)
+    weighted sum. q: (B,H,W), words: (B,H,K,W), beta: (B,H), valid:
+    (B,H,K) bool -> (read (B,H,W), weights (B,H,K))."""
     sel = torch.einsum("bhw,bhkw->bhk", _normalize(q), _normalize(words))
-    w = torch.softmax(sel * beta[..., None], dim=-1)
+    sel = torch.where(valid, sel * beta[..., None], _NEG)
+    w = torch.where(valid, torch.softmax(sel, dim=-1), 0.0)
     w = w / w.sum(-1, keepdim=True).clamp_min(1e-6)
     read = torch.einsum("bhk,bhkw->bhw", w, words)
     return read, w
+
+
+def sparse_read_tail(q: torch.Tensor, mem: torch.Tensor, beta: torch.Tensor,
+                     idx: torch.Tensor):
+    """`read_tail_rows` on the rows ``idx`` names. idx: (B,H,K) *signed*:
+    -1 marks an invalid selection, gathered as row 0 with weight exactly 0.
+    q: (B,H,W), mem: (B,N,W), beta: (B,H) -> (read (B,H,W), weights
+    (B,H,K))."""
+    valid = idx >= 0
+    words = gather_rows(mem, idx.clamp_min(0))               # (B,H,K,W)
+    return read_tail_rows(q, words, beta, valid)
 
 
 def fused_read_ref(q: torch.Tensor, mem: torch.Tensor, beta: torch.Tensor,
@@ -99,6 +113,38 @@ def _lane_step(step, batch: int, device) -> torch.Tensor:
     return flat
 
 
+def scatter_rows_ref(mem: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
+                     mode: str = "add") -> torch.Tensor:
+    """mem: (B, R, W), idx: (B, J) int with every index in [0, R), rows:
+    (B, J, W), in place. 'add': each target row takes its old value plus
+    every column naming it, summed in j order (written once, by the first
+    such column). 'set': each target row takes its last column's row.
+    Rows no index names are not touched. Returns ``mem``."""
+    B, J = idx.shape
+    i = idx.long()
+    b = torch.arange(B, device=mem.device)[:, None].expand(B, J)
+    if mode == "add":
+        eq = i[:, :, None] == i[:, None, :]                   # (B, J, J)
+        acc = mem[b, i]                                       # (B, J, W)
+        for j in range(J):
+            acc = torch.where(eq[:, :, j, None], acc + rows[:, j:j + 1], acc)
+        own = first_occurrence(i)
+    elif mode == "set":
+        acc = rows
+        own = first_occurrence(i.flip(1)).flip(1)             # last occurrence
+    else:
+        raise ValueError(f"scatter_rows: unknown mode {mode!r}")
+    mem[b[own], i[own]] = acc[own].to(mem.dtype)
+    return mem
+
+
+def write_rows(write_w: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """The rows the SAM write adds: w_j · a_{j // (K+1)}. write_w: (B, J),
+    a: (B, H, W) -> (B, J, W)."""
+    kp1 = write_w.shape[1] // a.shape[1]
+    return write_w[..., None] * a.repeat_interleave(kp1, dim=1)
+
+
 def sparse_write_update_ref(mem: torch.Tensor, last_access: torch.Tensor,
                             write_idx: torch.Tensor, write_w: torch.Tensor,
                             a: torch.Tensor, lra_idx: torch.Tensor, step,
@@ -112,21 +158,15 @@ def sparse_write_update_ref(mem: torch.Tensor, last_access: torch.Tensor,
       3. last_access[b, i] = max(last_access, step[b]) wherever a column
                                                     with weight > δ hits i
 
-    Each touched row takes its sum in j order and only its first column
-    writes it (`first_occurrence`). Returns (mem, last_access)."""
+    Steps 1 and 2 are `scatter_rows_ref` 'set' of zeros and 'add' of
+    `write_rows`: each touched row takes its sum in j order. Returns (mem,
+    last_access)."""
     B, H, W = a.shape
     J = write_idx.shape[1]
-    kp1 = J // H
+    scatter_rows_ref(mem, lra_idx, mem.new_zeros((B, H, W)), "set")
+    scatter_rows_ref(mem, write_idx, write_rows(write_w, a), "add")
     widx = write_idx.long()
     b = torch.arange(B, device=mem.device)[:, None]
-    mem[b, lra_idx.long()] = 0.0
-    acc = mem[b, widx]                                        # (B, J, W)
-    rows = write_w[..., None] * a.repeat_interleave(kp1, dim=1)
-    eq = widx[:, :, None] == widx[:, None, :]                 # (B, J, J)
-    for j in range(J):
-        acc = torch.where(eq[:, :, j, None], acc + rows[:, j:j + 1], acc)
-    own = first_occurrence(widx)
-    mem[b.expand(B, J)[own], widx[own]] = acc[own]
     stamp = _lane_step(step, B, mem.device)[:, None].expand(B, J)
     upd = torch.where(write_w > delta, stamp, last_access[b, widx])
     last_access.scatter_reduce_(1, widx, upd, "amax", include_self=True)

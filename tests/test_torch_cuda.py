@@ -21,6 +21,7 @@ from repro_torch.core.types import (LA_SCRATCH, ControllerConfig,
                                     MemoryConfig)
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fused_read import fused_read_sweep
+from repro_torch.kernels.scatter_rows import scatter_rows
 from repro_torch.kernels.sparse_write import sparse_write_update
 from repro_torch.kernels.usage_argmin import lra_topn
 
@@ -120,6 +121,109 @@ def test_sparse_write_kernel_matches_plain(dev, N, per_lane):
     assert torch.equal(la, l_ref)
     assert torch.equal(mem[:, N], scratch)
     assert la[:, N].eq(LA_SCRATCH).all()
+
+
+def _scatter_inputs(rng, B, N, W, J, dups):
+    mem = rng.standard_normal((B, N + 1, W)).astype(np.float32)
+    if dups == "heavy":
+        idx = rng.integers(0, 3, (B, J)).astype(np.int32)
+    else:
+        idx = rng.integers(0, N, (B, J)).astype(np.int32)
+        idx[:, 7] = idx[:, 2]              # a row named three times
+        idx[:, 9] = idx[:, 2]
+        idx[:, J - 1] = N - 1              # the last logical row
+    rows = rng.standard_normal((B, J, W)).astype(np.float32)
+    return mem, idx, rows
+
+
+@pytest.mark.parametrize("N", [1000, 4097])
+@pytest.mark.parametrize("mode", ["add", "set"])
+@pytest.mark.parametrize("dups", ["some", "heavy"])
+def test_scatter_rows_kernel_matches_plain(dev, N, mode, dups):
+    """Both modes bit for bit: the kernel's 'add' sums a row's columns in j
+    order with separately rounded adds, as the plain version does."""
+    B, W, J = 3, 32, 20
+    mem, idx, rows = (torch.tensor(x, device=dev) for x in _scatter_inputs(
+        np.random.default_rng(N), B, N, W, J, dups))
+    want = ref.scatter_rows_ref(mem.clone(), idx, rows, mode)
+    count = scatter_rows.launches
+    out = scatter_rows(mem, idx, rows, mode=mode)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == mem.data_ptr()            # in place
+    assert scatter_rows.launches == count + 1
+    assert torch.equal(mem, want)
+
+
+def test_scatter_rows_kernel_raises_on_inputs_it_cannot_take(dev):
+    mem = torch.zeros((2, 65, 8), device=dev)
+    idx = torch.zeros((2, 5), dtype=torch.int32, device=dev)
+    rows = torch.zeros((2, 5, 8), device=dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        scatter_rows(mem.cpu(), idx.cpu(), rows.cpu(), mode="add")
+    with pytest.raises(ValueError, match="int32"):
+        scatter_rows(mem, idx.long(), rows, mode="add")
+    with pytest.raises(ValueError, match="float32"):
+        scatter_rows(mem, idx, rows.double(), mode="set")
+    with pytest.raises(ValueError, match="rows must be"):
+        scatter_rows(mem, idx, rows[:, :4], mode="set")
+    with pytest.raises(ValueError, match="contiguous"):
+        scatter_rows(mem.transpose(0, 1).contiguous().transpose(0, 1), idx,
+                     rows, mode="add")
+    with pytest.raises(ValueError, match="mode"):
+        scatter_rows(mem, idx, rows, mode="max")
+
+
+def test_sparse_train_step_on_card_matches_cpu(dev):
+    """One sparse-mode training step, kernels on the card against the plain
+    versions on the CPU: loss within 1e-5 relative; gradients and updated
+    weights within atol 2e-4 / rtol 1e-3, the JAX suite's bar between its
+    sparse and naive modes (cuBLAS and the CPU sum the controller's
+    products in other orders, and T recurrent steps carry the difference).
+    The backward launches no sweep: the forward's T launches of each O(N)
+    kernel are all there are."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core import training
+    from repro_torch.data.tasks import copy_task
+    from repro_torch.optim import optimizers as opt
+    spec = training.ModelSpec(
+        "sam", MemoryConfig(num_slots=1000, word_size=32, num_heads=4, k=4),
+        ControllerConfig(input_size=10, hidden_size=32, output_size=8))
+    batch = copy_task(2, 5, 5, 8, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
+    T = batch[0].shape[1]
+    out = {}
+    for device in ("cpu", dev):
+        init_p, init_s, unroll = training.build_model(spec, device=device)
+        params = init_p(torch.Generator().manual_seed(0))
+        inputs, targets, mask = (t.to(device) for t in batch)
+        leaves, treedef = pytree.tree_flatten(params)
+        leaves = [p.clone().requires_grad_() for p in leaves]
+        counts = [k.launches for k in (fused_read_sweep, lra_topn,
+                                       sparse_write_update, scatter_rows)]
+        _, ys = unroll(pytree.tree_unflatten(leaves, treedef),
+                       init_s(2), inputs.transpose(0, 1))
+        loss = training.bits_loss(ys, targets.transpose(0, 1),
+                                  mask.transpose(0, 1))
+        grads = torch.autograd.grad(loss, leaves)
+        launched = [k.launches - c for k, c in zip(
+            (fused_read_sweep, lra_topn, sparse_write_update, scatter_rows),
+            counts)]
+        _, _, step = training.make_task_train_step(spec, 1e-3, device=device)
+        new_params, _, step_loss, _ = step(params, opt.rmsprop_init(params),
+                                           inputs, targets, mask)
+        out[device if device == "cpu" else "cuda"] = (
+            loss.item(), [g.cpu() for g in grads],
+            [p.cpu() for p in pytree.tree_leaves(new_params)],
+            step_loss.item(), launched)
+    (l_cpu, g_cpu, p_cpu, s_cpu, _), (l_gpu, g_gpu, p_gpu, s_gpu, launched) = \
+        out["cpu"], out["cuda"]
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    assert abs(s_gpu - s_cpu) <= 1e-5 * abs(s_cpu)
+    for a, b in [*zip(g_gpu, g_cpu), *zip(p_gpu, p_cpu)]:
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=1e-3)
+    assert launched[:3] == [T, T, T]
+    assert launched[3] >= T
 
 
 def test_kernels_raise_on_inputs_they_cannot_take(dev):

@@ -16,6 +16,7 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.fused_read import fused_read_sweep as pallas_read
 from repro.kernels.scatter_rows import first_occurrence as jax_first
+from repro.kernels.scatter_rows import scatter_rows as pallas_scatter
 from repro.kernels.sparse_write import sparse_write_update as pallas_write
 from repro.kernels.usage_argmin import lra_topn as pallas_topn
 from repro_torch.core.types import LA_SCRATCH
@@ -143,6 +144,59 @@ def test_sparse_write_matches_jax_ref_and_pallas(per_lane):
     # Row N, the write-scratch row, is bit-identical after the write.
     np.testing.assert_array_equal(t_mem[:, N].numpy(), mem[:, N])
     assert (t_la[:, N] == LA_SCRATCH).all()
+
+
+def _scatter_inputs(dups, rows_n, seed=0):
+    rng = np.random.default_rng(seed)
+    J = H * (K + 1)
+    mem = rng.standard_normal((B, rows_n, W)).astype(np.float32)
+    if dups == "heavy":                     # three rows, each named ~7 times
+        idx = rng.integers(0, 3, (B, J)).astype(np.int32)
+    else:
+        idx = rng.integers(0, N, (B, J)).astype(np.int32)
+        idx[:, 7] = idx[:, 2]               # a duplicate ...
+        idx[:, 9] = idx[:, 2]               # ... three times
+        idx[:, 4] = idx[:, 3]               # and a neighbouring pair
+    rows = rng.standard_normal((B, J, W)).astype(np.float32)
+    return mem, idx, rows
+
+
+@pytest.mark.parametrize("scratch", [False, True], ids=["no-scratch", "scratch"])
+@pytest.mark.parametrize("dups", ["some", "heavy"])
+@pytest.mark.parametrize("mode", ["add", "set"])
+def test_scatter_rows_matches_jax_ref_and_pallas(mode, dups, scratch):
+    """'add' sums every column naming a row (j order here, a pre-summed
+    einsum in the Pallas path): within 1e-5. 'set' keeps the last column:
+    bit for bit. With the (B, N+1, W) scratch-row buffer the Pallas 'add'
+    parks duplicates on row N (adding zeros); the port never touches it."""
+    mem, idx, rows = _scatter_inputs(dups, N + 1 if scratch else N)
+    t_mem = torch.tensor(mem)
+    out = ops.scatter_rows(t_mem, torch.tensor(idx), torch.tensor(rows), mode)
+    assert out is t_mem                                       # in place
+    args = [jnp.asarray(x) for x in (mem, idx, rows)]
+    want_ref = jref.scatter_rows_ref(*args, mode=mode)
+    want_pl = pallas_scatter(*args, mode=mode, interpret=True,
+                             scratch_row=N if scratch else None)
+    for want in (want_ref, want_pl):
+        if mode == "set":
+            np.testing.assert_array_equal(t_mem.numpy(), np.asarray(want))
+        else:
+            _close(t_mem, want)
+    untouched = np.ones(mem.shape[:2], bool)
+    untouched[np.arange(B)[:, None], idx] = False
+    np.testing.assert_array_equal(t_mem.numpy()[untouched], mem[untouched])
+    # In j order: the duplicated row is ((m + r2) + r7) + r9, in f32.
+    if mode == "add" and dups == "some":
+        want = ((mem[0, idx[0, 2]] + rows[0, 2]) + rows[0, 7]) + rows[0, 9]
+        np.testing.assert_array_equal(t_mem[0, idx[0, 2]].numpy(), want)
+
+
+def test_scatter_rows_refuses_an_unknown_mode_and_device():
+    mem, idx, rows = (torch.tensor(x) for x in _scatter_inputs("some", N))
+    with pytest.raises(ValueError, match="unknown mode"):
+        ops.scatter_rows(mem, idx, rows, "max")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.scatter_rows(mem.to("meta"), idx.to("meta"), rows.to("meta"))
 
 
 def test_gather_rows_matches_jax():
