@@ -48,12 +48,13 @@ Tolerances: integer outputs exact; forward floats within 1e-5 (other
 summation order, rsqrt rounding). Read indices may differ from the plain
 version's only where the plain similarities of the swapped rows lie within
 1e-6 of each other; each such near-tie is counted and printed.
-`scatter_rows` 'set' bit for bit, 'add' within 1e-5 (it sums in the plain
-version's order, so it is expected bit for bit too; the script says
-whether it was). Card against CPU: loss within 1e-5 relative; gradients
-and chunked against sparse within atol 2e-4 / rtol 1e-3, the JAX suite's
-own bar between its sparse and naive modes (cuBLAS sums the controller's
-products in another order than the CPU, and T recurrent steps carry it).
+`scatter_rows` bit for bit in both modes: 'add' sums each row's columns
+in the plain version's j order, so a dropped or reordered duplicate shows
+even where the cotangents are tiny. Card against CPU: loss within 1e-5
+relative; gradients, card against CPU and chunked against sparse, within
+atol 1e-5 / rtol 1e-5, the bar of `tests/test_torch_train.py` (cuBLAS
+sums the controller's products in another order than the CPU, and T
+recurrent steps carry it; the runs read errors of 1e-8 and below).
 
 It exits nonzero without printing a result when no CUDA device is
 present or the port's sources are missing.
@@ -71,7 +72,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 TOL = 1e-5
 NEAR_TIE = 1e-6
-GRAD_ATOL, GRAD_RTOL = 2e-4, 1e-3
+GRAD_ATOL = GRAD_RTOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 B, T, MAX_LEN, BITS = 8, 42, 20, 8
@@ -115,7 +116,6 @@ class Checker:
         self.err = {name: 0.0 for name in REPLACES}
         self.near_ties = 0
         self.scatter_calls = {"add": 0, "set": 0}
-        self.scatter_add_bitwise = True
 
     def lra(self, la, n, valid_n, out):
         want = self.ref.lra_topn_ref(la[:, :valid_n], n)
@@ -160,15 +160,9 @@ class Checker:
         version updates here; ``after``: the kernel's result."""
         want = self.ref.scatter_rows_ref(before, idx.contiguous(),
                                          rows.contiguous(), mode)
-        same = torch.equal(after, want)
-        if mode == "set":
-            require(same, "scatter_rows 'set' differs from its plain version")
-            err = 0.0
-        else:
-            err = (after - want).abs().max().item()
-            require(err <= TOL, f"scatter_rows 'add' float error {err:.3g}")
-            self.scatter_add_bitwise &= same
-        self.err["scatter_rows"] = max(self.err["scatter_rows"], err)
+        err = (after - want).abs().max().item()
+        require(torch.equal(after, want), f"scatter_rows '{mode}' differs "
+                f"from its plain version (max err {err:.3g})")
         self.scatter_calls[mode] += 1
 
 
@@ -400,10 +394,9 @@ def run() -> None:
             del out
         torch.cuda.synchronize()
         print(f"[kernels] scatter_rows on backward inputs at full width: "
-              f"{', '.join(scatter_cases)}; 'set' bit for bit, 'add' err "
-              f"{checker.err['scatter_rows']:.3g} (bit for bit: "
-              f"{checker.scatter_add_bitwise}); the rollback gives back the "
-              f"memory before step {step}'s write bit for bit")
+              f"{', '.join(scatter_cases)}; both modes bit for bit; the "
+              f"rollback gives back the memory before step {step}'s write "
+              f"bit for bit")
 
     # ---- 3. the forward path, in lockstep ----
     zero_counts()
@@ -483,9 +476,7 @@ def run() -> None:
     loss_s, g_sparse, fwd, bwd, restored, acct = fwd_bwd("sparse", None, True)
     print(f"[train] sparse forward launches {fwd}; backward launches {bwd}; "
           f"scatter_rows calls checked in lockstep "
-          f"{checked_since(scatter_checked)}, max err "
-          f"{checker.err['scatter_rows']:.3g} (add bit for bit: "
-          f"{checker.scatter_add_bitwise})")
+          f"{checked_since(scatter_checked)}, each bit for bit")
     for name in FORWARD:
         require(fwd[name] == T, f"forward: {name} launched {fwd[name]} times")
         require(bwd[name] == 0, f"the backward launched {name} {bwd[name]} "
@@ -626,7 +617,9 @@ def run() -> None:
                                                           "set"), 20, flush),
             library_ms=time_ms(lambda: buf_set.index_put_((b_set, widx_l),
                                                           old21), 50, flush),
-            bound=bound(4 * (B * J + B * J * W + uniq * W), 0)),
+            # 'set' reads only the row that wins each target (its last
+            # column) and writes it once; every column's index is read.
+            bound=bound(4 * (B * J + 2 * uniq * W), 0)),
     }
     scatter_add = dict(
         ms=time_ms(lambda: scatter_rows(buf_add, ridx21, g_add, mode="add"),

@@ -31,10 +31,11 @@ def read_from_rows(q: torch.Tensor, words: torch.Tensor, beta: torch.Tensor,
 def finish_candidate_read(q: torch.Tensor, m: torch.Tensor, beta: torch.Tensor,
                           idx: torch.Tensor) -> SparseRead:
     """The differentiable tail of every sparse read, from recorded (signed)
-    indices: gather the K rows, re-rank, softmax. Only those rows get a
-    gradient. The replay (`core/cell.py`) recomputes the forward's read
-    through this tail, so the two match bit for bit."""
-    return read_from_rows(q, gather_rows(m, idx.clamp_min(0)), beta, idx)
+    indices: gather the K rows, re-rank, softmax (`ref.sparse_read_tail`).
+    Only those rows get a gradient. The replay (`core/cell.py`) runs the
+    same tail on rows it gathers itself (`read_from_rows`)."""
+    read, w = ref.sparse_read_tail(q, m, beta, idx)
+    return SparseRead(indices=idx.clamp_min(0), weights=w, words=read)
 
 
 def scatter_add_rows(m: torch.Tensor, idx: torch.Tensor,

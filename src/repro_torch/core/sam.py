@@ -28,7 +28,7 @@ from repro_torch.core.controller import (linear, linear_init, lstm_init,
 from repro_torch.core.types import (ControllerConfig, MemoryConfig, SAMState,
                                     SparseRead, StepDeltas,
                                     init_scratch_last_access,
-                                    init_scratch_memory)
+                                    init_scratch_memory, require_live)
 from repro_torch.kernels import ref
 
 
@@ -123,6 +123,7 @@ def sam_step(params, cfg: SAMConfig, state: SAMState, x: torch.Tensor, *,
     H, K, N = mem.num_heads, mem.k, mem.num_slots
     if state.ann is not None or state.mem_scale is not None:
         raise ValueError("this port runs the exact read on f32 rows only")
+    require_live(state)
     if state.memory.shape[1] != N + 1:
         raise ValueError(f"memory must be in the (B, N+1, W) scratch-row "
                          f"layout, got {tuple(state.memory.shape)} for N={N}")

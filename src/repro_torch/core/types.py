@@ -103,6 +103,25 @@ class StepDeltas(NamedTuple):
     old_scale: Optional[torch.Tensor] = None   # int8 rows only (not ported)
 
 
+def mark_rolled_back(memory: torch.Tensor) -> None:
+    """Flag a memory buffer that a sparse or chunked backward has rolled
+    back to the unroll's initial memory. The usage table beside it still
+    holds the final step's stamps, so no state that holds the buffer is
+    consistent any more: `require_live` refuses to step from it."""
+    memory.rolled_back = True
+
+
+def require_live(state) -> None:
+    """Raise if ``state.memory`` was rolled back by a backward
+    (`mark_rolled_back`)."""
+    if getattr(state.memory, "rolled_back", False):
+        raise RuntimeError(
+            "this state's memory was rolled back to the unroll's initial "
+            "memory by a sparse or chunked backward, while its usage table "
+            "was not: start again from a fresh state (init_state), or unroll "
+            "in naive mode to keep the final state")
+
+
 def tree_bytes(tree) -> int:
     """Bytes of the tensors among the leaves of a nested tuple/dict."""
     leaves, _ = pytree.tree_flatten(tree)

@@ -21,7 +21,11 @@ The memory is updated **in place**: the returned state's ``memory`` and
 ``last_access`` are the tensors of ``state0``. The sparse and chunked
 backwards leave the memory as it was before the unroll, bit for bit (the
 usage table is left stale: the backward never reads it), and need the
-memory to hold the unroll's final memory when they start. Gradients reach the parameters,
+memory to hold the unroll's final memory when they start. After such a
+backward, neither ``state0`` nor the returned state is a valid state any
+more (the memory is M₀, the usage table that of step T): the backward
+flags the memory (`types.mark_rolled_back`) and a later step from either
+raises. Gradients reach the parameters,
 xs and the float leaves of ``state0``; the memory's gradient is one dense
 cotangent buffer that the whole backward updates in place (`core/cell.py`),
 and the backward launches no O(N) kernel outside the chunked recompute.
@@ -29,11 +33,12 @@ and the backward launches no O(N) kernel outside the chunked recompute.
 from __future__ import annotations
 
 import math
+import weakref
 
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch.core.types import tree_bytes
+from repro_torch.core.types import mark_rolled_back, tree_bytes
 
 
 def _split(tree):
@@ -150,6 +155,9 @@ class _RollbackUnroll(torch.autograd.Function):
         ctx.cell, ctx.chunk, ctx.s_template = cell, chunk, s_template
         ctx.params, ctx.xs, ctx.ys_shape = params, xs, ys.shape
         ctx.mark_dirty(state.memory, state.last_access)
+        # The caller's memory tensor, to flag once the backward rolls it
+        # back (a saved output unpacks as another tensor object).
+        ctx.memory_ref = weakref.ref(state.memory)
         ctx.mark_non_differentiable(*[t for t in out
                                       if not t.is_floating_point()])
         # Saved as outputs: backward raises if the memory changed since.
@@ -193,6 +201,9 @@ class _RollbackUnroll(torch.autograd.Function):
                                       cts, g_ys[lo:hi], mem_ct, g_params,
                                       g_xs[lo:hi])
         ctx.res = ctx.checkpoints = None
+        memory = ctx.memory_ref()
+        if memory is not None:
+            mark_rolled_back(memory)
         g_s0, _ = _split(_with_small_floats(state._replace(memory=mem_ct),
                                             cts))
         return (None, None, None, None, g_xs, *g_params,
@@ -225,6 +236,11 @@ def unroll(cell, params, state0, xs, *, mode: str = "sparse", chunk=None):
       * "chunked" — boundary checkpoints + per-segment recompute,
                     O(T/C·state + C·K·W) residuals. `chunk` is the segment
                     length C (None/"auto" → the √-rule `suggest_chunk`).
+
+    The memory is updated in place. After the backward of a "sparse" or
+    "chunked" unroll it holds ``state0``'s memory again while the usage
+    table keeps step T's: the returned state (and ``state0``) can be read
+    but not stepped from; `sam_step` raises (module docstring).
     """
     if mode == "naive":
         return unroll_naive(cell, params, state0, xs)

@@ -129,7 +129,10 @@ class _ScatterRows(torch.autograd.Function):
     """`_scatter_rows_vjp`: 'add' passes the memory's gradient through and
     hands each column its target row's gradient; 'set' zeroes the
     overwritten rows and hands the gradient only to the column that
-    survived (the last of each duplicate set)."""
+    survived (the last of each duplicate set). No training path records
+    it (the replay's scatters run on a memory outside the graph,
+    `core/cell.py`); it is the port of the JAX op's VJP, held against
+    `jax.vjp` in the CPU tests."""
 
     @staticmethod
     def forward(ctx, mem, rows, idx, mode):

@@ -347,6 +347,36 @@ def test_rollback_restores_the_memory_bit_for_bit():
     assert int(state.step) == 3
 
 
+@pytest.mark.parametrize("mode,chunk", [("sparse", None), ("chunked", 3)])
+def test_stepping_from_a_rolled_back_state_is_refused(mode, chunk):
+    """After the backward, the memory is M0 again and the usage table is
+    step T's: the returned state and state0 can be read but a step (or a
+    new unroll) from either raises. Before the backward the final state
+    carries on as in JAX; a fresh state steps as usual afterwards."""
+    cell = SAMCell(CFG)
+    params = cell.init_params(torch.Generator().manual_seed(2), device="cpu")
+    for p in pytree.tree_leaves(params):
+        p.requires_grad_()
+    xs = torch.tensor(np.random.default_rng(2).integers(0, 2, (T, B, BITS + 2)),
+                      dtype=torch.float32)
+    state0 = cell.init_state(B, device="cpu")
+    final, ys = unroll.unroll(cell, params, state0, xs, mode=mode, chunk=chunk)
+    with torch.no_grad():
+        cell.step(params, final._replace(memory=final.memory.clone(),
+                                         last_access=final.last_access.clone()),
+                  xs[0])
+    ys.sum().backward()
+    assert torch.equal(final.memory, torch.zeros_like(final.memory))
+    for s in (final, state0):
+        with pytest.raises(RuntimeError, match="rolled back"):
+            cell.step(params, s, xs[0])
+        with pytest.raises(RuntimeError, match="rolled back"):
+            unroll.unroll(cell, params, s, xs, mode=mode, chunk=chunk)
+    fresh = cell.init_state(B, device="cpu")
+    _, ys2 = unroll.unroll(cell, params, fresh, xs, mode=mode, chunk=chunk)
+    torch.testing.assert_close(ys2, ys, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("mode,chunk", [("naive", None), ("sparse", None),
                                         ("chunked", 3), ("chunked", "auto")])
 def test_residual_accounting_matches_jax(mode, chunk):
