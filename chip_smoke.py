@@ -5,8 +5,10 @@
 
 Drives the SAM cell — the copy task at the paper's widths (controller 100,
 H = K = 4, W = 32, δ = 0.005, f32 rows) with N = 2^20 memory rows, B = 8
-and T = 42 — through the four hand-written CUDA kernels, forward and in
-training, and fails (nonzero exit) if any phase fails:
+and T = 42 — through the six hand-written CUDA kernels, forward and in
+training, with the exact read and with the LSH read (kind ``sam_ann``: 4
+tables of 8 bits, buckets of 32, so C = 4·32 + 20 = 148 candidates per
+head), and fails (nonzero exit) if any phase fails:
 
 1. build the kernels from `src/repro_torch/kernels/csrc/` with nvcc for
    sm_90a and print each kernel's registers, shared memory and spills;
@@ -35,19 +37,36 @@ training, and fails (nonzero exit) if any phase fails:
       three more RMSProp steps, and nothing may turn NaN;
    d. a small training step (N = 1000, T = 12) on the card against the
       plain versions on the CPU;
-5. time each kernel, its plain version and the one PyTorch call that
+5. the LSH read (`core/ann.py`, the ``ann="lsh"`` branch of `sam_step`):
+   a. `lsh_hash` and `fused_read_candidates` against their plain versions
+      at full width on the inputs of a real LSH rollout, the cold first
+      step and step 21, and the hash on all B·N rows of the exact
+      rollout's final memory;
+   b. the LSH forward rollout (`SAM.forward`, T = 42, cold index) in
+      lockstep; per step the hash launches twice, the candidate read, the
+      LRA and the write once each, the exact sweep never;
+   c. a ``sam_ann`` sparse-mode forward and backward in lockstep (the
+      backward launches no read, hash, LRA or write kernel and gives the
+      memory back bit for bit), chunked against sparse, the main path
+      (one ``sam_ann`` `make_task_train_step` step with the counters set
+      to 0 before it and read after) and a small step on the card against
+      the CPU;
+6. time each kernel, its plain version and the one PyTorch call that
    computes the same function where there is one (CUDA events, L2 flushed
-   before each launch), the rollout's ms per step and its peak memory, the
-   train step's ms (forward and backward apart) and its peak memory beside
-   `residual_accounting(mode="sparse")` plus the one dense memory
+   before each launch), the rollouts' ms per step, device time per step
+   (`torch.profiler`) and peak memory, exact and LSH, and the train
+   steps' ms (forward and backward apart) and peak memory, the exact one
+   beside `residual_accounting(mode="sparse")` plus the one dense memory
    cotangent;
-6. print the card, one JSON line of per-kernel numbers, and last the
+7. print the card, one JSON line of per-kernel numbers, and last the
    ``{"ok": true, ...}`` line.
 
 Tolerances: integer outputs exact; forward floats within 1e-5 (other
 summation order, rsqrt rounding). Read indices may differ from the plain
 version's only where the plain similarities of the swapped rows lie within
-1e-6 of each other; each such near-tie is counted and printed.
+1e-6 of each other; each such near-tie is counted and printed. A bucket id
+of the hash may differ only in bits whose plain projection lies within
+1e-6·|x|·|plane| of 0; each such bit is counted and printed.
 `scatter_rows` bit for bit in both modes: 'add' sums each row's columns
 in the plain version's j order, so a dropped or reordered duplicate shows
 even where the cotangents are tiny. Card against CPU: loss within 1e-5
@@ -61,6 +80,7 @@ present or the port's sources are missing.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -88,8 +108,17 @@ REPLACES = {
                  "src/repro_torch/kernels/csrc/lra_topn.cu"),
     "scatter_rows": ("src/repro/kernels/scatter_rows.py:29",
                      "src/repro_torch/kernels/csrc/scatter_rows.cu"),
+    "lsh_hash": ("src/repro/kernels/lsh_hash.py:17",
+                 "src/repro_torch/kernels/csrc/lsh_hash.cu"),
+    "fused_read_candidates": (
+        "src/repro/kernels/fused_read.py:210",
+        "src/repro_torch/kernels/csrc/fused_read_candidates.cu"),
 }
 FORWARD = ("fused_read_sweep", "sparse_write_update", "lra_topn")
+# Launches of one LSH step (the exact sweep: none).
+LSH_STEP = {"lsh_hash": 2, "fused_read_candidates": 1, "lra_topn": 1,
+            "sparse_write_update": 1, "fused_read_sweep": 0}
+LSH = dict(ann="lsh", lsh_tables=4, lsh_bits=8, lsh_bucket_size=32)
 
 
 class SmokeFailure(Exception):
@@ -109,40 +138,74 @@ def ptxas_summary(log: str) -> list[str]:
 
 class Checker:
     """Compares each kernel call with its plain version on the same inputs
-    and keeps the largest float error and the near-tie count per kernel."""
+    and keeps the largest float error, the near-tie count of the reads and
+    the count of hash bits near 0 that differ."""
 
     def __init__(self, ref):
         self.ref = ref
         self.err = {name: 0.0 for name in REPLACES}
         self.near_ties = 0
+        self.near_zero_bits = 0
         self.scatter_calls = {"add": 0, "set": 0}
 
     def lra(self, la, n, valid_n, out):
         want = self.ref.lra_topn_ref(la[:, :valid_n], n)
         require(torch.equal(out, want), "lra_topn differs from its plain version")
 
-    def read(self, q, mem, beta, k, valid_n, out):
-        read, w, idx = out
-        _, _, r_idx = self.ref.fused_read_ref(q, mem, beta, k, valid_n=valid_n)
+    def _selection(self, name, q, mem, idx, r_idx):
+        """Swapped selections only at plain similarities within NEAR_TIE
+        (signed indices: -1 scores -1e9)."""
         diff = idx != r_idx
-        if diff.any():
-            qn = q * torch.rsqrt((q * q).sum(-1, keepdim=True) + 1e-6)
+        if not diff.any():
+            return
 
-            def sims(ix):
-                rows = self.ref.gather_rows(mem, ix)
-                rn = rows * torch.rsqrt((rows * rows).sum(-1, keepdim=True) + 1e-6)
-                return torch.einsum("bhw,bhkw->bhk", qn, rn)
+        def sims(ix):
+            rows = self.ref.gather_rows(mem, ix.clamp_min(0))
+            s = torch.einsum("bhw,bhkw->bhk", self.ref._normalize(q),
+                             self.ref._normalize(rows))
+            return torch.where(ix < 0, -1e9, s)
 
-            gap = (sims(idx) - sims(r_idx)).abs()[diff].max().item()
-            require(gap <= NEAR_TIE, f"read indices differ beyond a near-tie "
-                                     f"(similarity gap {gap:.3g})")
-            self.near_ties += int(diff.sum().item())
-        # The floats are held against the plain tail on the kernel's rows.
+        gap = (sims(idx) - sims(r_idx)).abs()[diff].max().item()
+        require(gap <= NEAR_TIE, f"{name} indices differ beyond a near-tie "
+                                 f"(similarity gap {gap:.3g})")
+        self.near_ties += int(diff.sum().item())
+
+    def _tail(self, name, q, mem, beta, out):
+        """The floats, held against the plain tail on the kernel's rows."""
+        read, w, idx = (t.detach() for t in out)
         t_read, t_w = self.ref.sparse_read_tail(q, mem, beta, idx)
         err = max((read - t_read).abs().max().item(),
                   (w - t_w).abs().max().item())
-        require(err <= TOL, f"fused_read_sweep float error {err:.3g}")
-        self.err["fused_read_sweep"] = max(self.err["fused_read_sweep"], err)
+        require(err <= TOL, f"{name} float error {err:.3g}")
+        require(bool((w[idx < 0] == 0).all()),
+                f"{name} gave an invalid selection a weight")
+        self.err[name] = max(self.err[name], err)
+
+    def read(self, q, mem, beta, k, valid_n, out):
+        _, _, r_idx = self.ref.fused_read_ref(q, mem, beta, k, valid_n=valid_n)
+        self._selection("fused_read_sweep", q, mem, out[2], r_idx)
+        self._tail("fused_read_sweep", q, mem, beta, out)
+
+    def read_cand(self, q, mem, beta, k, cand, out):
+        r_idx = self.ref.candidate_topk(q, mem, k, cand)
+        self._selection("fused_read_candidates", q, mem, out[2], r_idx)
+        self._tail("fused_read_candidates", q, mem, beta, out)
+
+    def hash(self, x, planes, out):
+        """x: (R, W), out: (R, T). Bits may differ only where the plain
+        projection lies within NEAR_TIE·|x|·|plane| of 0."""
+        want = self.ref.lsh_hash_ref(x, planes)
+        shift = torch.arange(planes.shape[1], device=x.device,
+                             dtype=torch.int32)
+        diff = (((out ^ want)[..., None] >> shift) & 1).bool()
+        if diff.any():
+            proj = torch.einsum("rw,tbw->rtb", x, planes)
+            near = proj.abs() <= NEAR_TIE * (x.norm(dim=-1)[:, None, None]
+                                             * planes.norm(dim=-1)[None])
+            far = int((diff & ~near).sum().item())
+            require(far == 0, f"lsh_hash: {far} bucket-id bits differ away "
+                              f"from 0")
+            self.near_zero_bits += int(diff.sum().item())
 
     def write(self, before, after):
         m_ref, l_ref = before[0].clone(), before[1].clone()
@@ -167,27 +230,30 @@ class Checker:
 
 
 class Intercept:
-    """Wraps the four ops of `repro_torch.kernels.ops` for one run. With a
+    """Wraps the five ops of `repro_torch.kernels.ops` for one run. With a
     ``checker`` every call is compared with the plain version on the same
     inputs (lockstep); with ``record`` the inputs of the steps in
-    RECORD_STEPS are kept as clones."""
+    RECORD_STEPS are kept as clones (the hash's under the step: a step
+    hashes twice, its query and then its written rows)."""
 
     def __init__(self, ops, checker=None, record=False):
         self.ops, self.checker, self.record = ops, checker, record
         self.calls = {name: 0 for name in REPLACES}
         self.records = {}
 
-    def _keep(self, name, args):
+    def _keep(self, name, args, per_step=1):
         self.calls[name] += 1
-        if self.record and self.calls[name] in RECORD_STEPS:
-            self.records[(name, self.calls[name])] = tuple(
+        step, nth = divmod(self.calls[name] - 1, per_step)
+        if self.record and step + 1 in RECORD_STEPS:
+            key = (name, step + 1) if per_step == 1 else (name, step + 1, nth)
+            self.records[key] = tuple(
                 a.clone() if isinstance(a, torch.Tensor) else a for a in args)
 
     def __enter__(self):
         ops = self.ops
         self.saved = (ops.lra_topn, ops.fused_read, ops.sparse_write_update,
-                      ops.scatter_rows)
-        lra0, read0, write0, scatter0 = self.saved
+                      ops.scatter_rows, ops.lsh_hash)
+        lra0, read0, write0, scatter0, hash0 = self.saved
 
         def lra_topn(la, n, *, valid_n=None):
             self._keep("lra_topn", (la, n, valid_n))
@@ -196,11 +262,27 @@ class Intercept:
                 self.checker.lra(la, n, valid_n, out)
             return out
 
-        def fused_read(q, mem, beta, k, *, valid_n=None):
+        def fused_read(q, mem, beta, k, *, valid_n=None, cand_idx=None):
+            if cand_idx is not None:
+                self._keep("fused_read_candidates", (q, mem, beta, k, cand_idx))
+                out = read0(q, mem, beta, k, cand_idx=cand_idx)
+                if self.checker:
+                    self.checker.read_cand(q.detach(), mem.detach(),
+                                           beta.detach(), k, cand_idx, out)
+                return out
             self._keep("fused_read_sweep", (q, mem, beta, k, valid_n))
             out = read0(q, mem, beta, k, valid_n=valid_n)
             if self.checker:
                 self.checker.read(q, mem, beta, k, valid_n, out)
+            return out
+
+        def lsh_hash(x, planes):
+            self._keep("lsh_hash", (x, planes), per_step=2)
+            out = hash0(x, planes)
+            if self.checker:
+                W = x.shape[-1]
+                self.checker.hash(x.reshape(-1, W), planes,
+                                  out.reshape(-1, planes.shape[0]))
             return out
 
         def sparse_write_update(mem, la, widx, ww, a, lra, step, *, delta):
@@ -225,11 +307,12 @@ class Intercept:
         ops.lra_topn, ops.fused_read = lra_topn, fused_read
         ops.sparse_write_update, ops.scatter_rows = (sparse_write_update,
                                                      scatter_rows)
+        ops.lsh_hash = lsh_hash
         return self
 
     def __exit__(self, *exc):
         (self.ops.lra_topn, self.ops.fused_read, self.ops.sparse_write_update,
-         self.ops.scatter_rows) = self.saved
+         self.ops.scatter_rows, self.ops.lsh_hash) = self.saved
         return False
 
 
@@ -291,6 +374,9 @@ def run() -> None:
         from repro_torch.data.tasks import copy_task
         from repro_torch.kernels import _build, ops, ref
         from repro_torch.kernels.fused_read import fused_read_sweep
+        from repro_torch.kernels.fused_read_candidates import \
+            fused_read_candidates
+        from repro_torch.kernels.lsh_hash import lsh_hash
         from repro_torch.kernels.scatter_rows import scatter_rows
         from repro_torch.kernels.sparse_write import sparse_write_update
         from repro_torch.kernels.usage_argmin import lra_topn
@@ -302,7 +388,9 @@ def run() -> None:
     dev = torch.device("cuda")
     kernels = {"fused_read_sweep": fused_read_sweep,
                "sparse_write_update": sparse_write_update,
-               "lra_topn": lra_topn, "scatter_rows": scatter_rows}
+               "lra_topn": lra_topn, "scatter_rows": scatter_rows,
+               "lsh_hash": lsh_hash,
+               "fused_read_candidates": fused_read_candidates}
 
     def zero_counts():
         for fn in kernels.values():
@@ -410,6 +498,8 @@ def run() -> None:
     for name in FORWARD:
         require(fwd_launches[name] == T, f"{name} launched "
                 f"{fwd_launches[name]} times, expected {T}")
+    require(fwd_launches["lsh_hash"] == fwd_launches["fused_read_candidates"]
+            == 0, "the exact-read rollout launched an LSH kernel")
     require(ys.shape == (T, B, BITS) and torch.isfinite(ys).all().item(),
             "outputs are not finite values of shape (T, B, bits)")
     require(torch.isfinite(state.memory).all().item(), "memory not finite")
@@ -431,39 +521,51 @@ def run() -> None:
 
     # ---- 4. training ----
     cell = SAMCell(cfg)
-    flat_p, p_spec = pytree.tree_flatten(
-        {g: {n: v.detach() for n, v in t.items()}
-         for g, t in model.params().items()})
 
-    def start_state():
-        """A fresh state holding what the forward rollout left: a memory
-        with 42 steps of writes, its usage table, read and controller."""
-        s = cell.init_state(B, device=dev)
-        s.memory.copy_(state.memory)
-        s.last_access.copy_(state.last_access)
-        return s._replace(read=type(state.read)(*(t.clone() for t in state.read)),
-                          ctrl=type(state.ctrl)(*(t.clone() for t in state.ctrl)),
-                          step=state.step.clone())
+    def flat_params(m):
+        """The module's weights (and an LSH cell's planes), detached and
+        flattened: (leaves, spec)."""
+        return pytree.tree_flatten(pytree.tree_map(lambda v: v.detach(),
+                                                   m.params()))
 
-    def fwd_bwd(mode, chunk, lockstep):
-        """One forward and backward through `unroll` from `start_state`.
-        Returns (loss, grads, fwd counts, bwd counts, memory restored,
-        residual accounting)."""
-        s0 = start_state()
+    flat_p, p_spec = flat_params(model)
+
+    def start_state(c=cell, src=None):
+        """A fresh state of cell ``c`` holding what a forward rollout left
+        (``src``, by default the exact one's): a memory with 42 steps of
+        writes, its usage table, read, controller and LSH index."""
+        src = state if src is None else src
+        s = c.init_state(B, device=dev)
+        s.memory.copy_(src.memory)
+        s.last_access.copy_(src.last_access)
+        return s._replace(read=type(src.read)(*(t.clone() for t in src.read)),
+                          ctrl=type(src.ctrl)(*(t.clone() for t in src.ctrl)),
+                          step=src.step.clone(), ann=src.ann)
+
+    def fwd_bwd(mode, chunk, lockstep, c=cell, src=None, flat=None):
+        """One forward and backward of cell ``c`` through `unroll` from
+        `start_state(c, src)` with the weights ``flat`` ((leaves, spec),
+        by default the exact model's). Returns (loss, grads (a zero one
+        for a leaf the loss does not reach), fwd counts, bwd counts,
+        memory restored, residual accounting)."""
+        s0 = start_state(c, src)
         m0 = s0.memory.clone()
-        leaves = [p.clone().requires_grad_() for p in flat_p]
-        params = pytree.tree_unflatten(leaves, p_spec)
-        acct = unroll_lib.residual_accounting(cell, params, s0, xs, mode=mode,
+        f_leaves, f_spec = (flat_p, p_spec) if flat is None else flat
+        leaves = [p.clone().requires_grad_() for p in f_leaves]
+        params = pytree.tree_unflatten(leaves, f_spec)
+        acct = unroll_lib.residual_accounting(c, params, s0, xs, mode=mode,
                                               chunk=chunk)
         with Intercept(ops, checker=checker if lockstep else None):
             zero_counts()
-            _, ys_t = unroll_lib.unroll(cell, params, s0, xs, mode=mode,
+            _, ys_t = unroll_lib.unroll(c, params, s0, xs, mode=mode,
                                         chunk=chunk)
             loss = training.bits_loss(ys_t, ts, ms)
             torch.cuda.synchronize()
             fwd = counts()
             zero_counts()
-            grads = torch.autograd.grad(loss, leaves)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(leaves, grads)]
             torch.cuda.synchronize()
             bwd = counts()
         restored = torch.equal(s0.memory, m0)
@@ -506,70 +608,221 @@ def run() -> None:
           f"against sparse; backward launches {bwd_c} (the segment's "
           f"forward is recomputed once); memory restored bit for bit")
 
-    # The main path: one make_task_train_step step, in lockstep.
-    init_p, init_s, step_fn = training.make_task_train_step(
-        training.ModelSpec("sam", cfg.memory, cfg.controller), LR,
-        device=dev)
-    params = pytree.tree_unflatten([p.clone() for p in flat_p], p_spec)
-    opt_state = opt.rmsprop_init(params)
-    scatter_checked = dict(checker.scatter_calls)
-    zero_counts()
-    with Intercept(ops, checker=checker):
-        params, opt_state, loss, err = step_fn(params, opt_state, inputs,
-                                               targets, mask)
-    torch.cuda.synchronize()
-    launches = counts()
-    print(f"[train] main path: one make_task_train_step step, launches "
-          f"{launches}; loss {loss.item():.6f}, bit error {err.item():.4f}; "
-          f"scatter_rows calls checked in lockstep "
-          f"{checked_since(scatter_checked)}")
+    def main_step(kind, flat):
+        """The main path of ``kind``: one `make_task_train_step` step, in
+        lockstep, with every counter set to 0 just before it and read just
+        after, then three more RMSProp steps; nothing may turn NaN. Returns
+        (step_fn, params, opt_state, launches of the first step)."""
+        _, _, fn = training.make_task_train_step(
+            training.ModelSpec(kind, cfg.memory, cfg.controller), LR,
+            device=dev)
+        p0 = pytree.tree_unflatten([p.clone() for p in flat[0]], flat[1])
+        o0 = opt.rmsprop_init(p0)
+        before = dict(checker.scatter_calls)
+        zero_counts()
+        with Intercept(ops, checker=checker):
+            p1, o1, loss, err = fn(p0, o0, inputs, targets, mask)
+        torch.cuda.synchronize()
+        launched = counts()
+        print(f"[train] main path ({kind}): one make_task_train_step step, "
+              f"launches {launched}; loss {loss.item():.6f}, bit error "
+              f"{err.item():.4f}; scatter_rows calls checked in lockstep "
+              f"{checked_since(before)}")
+        if "lsh_planes" in p0:
+            require(torch.equal(p1["lsh_planes"], p0["lsh_planes"]),
+                    "an RMSProp step moved the fixed LSH planes")
+        losses = [loss.item()]
+        for _ in range(3):
+            p1, o1, loss, _ = fn(p1, o1, inputs, targets, mask)
+            losses.append(loss.item())
+            require(torch.isfinite(loss).item() and all(
+                torch.isfinite(p).all().item()
+                for p in pytree.tree_leaves((p1, o1))),
+                f"a {kind} RMSProp step produced a NaN or an infinity")
+        print(f"[train] four {kind} RMSProp steps, losses {losses}: all "
+              f"finite")
+        return fn, p1, o1, launched
+
+    step_fn, params, opt_state, launches = main_step("sam", (flat_p, p_spec))
     for name in FORWARD:
         require(launches[name] == T, f"train step: {name} launched "
                 f"{launches[name]} times, expected {T} (forward only)")
     require(launches["scatter_rows"] >= T, "train step: scatter_rows "
             f"launched {launches['scatter_rows']} times")
-    losses = [loss.item()]
-    for _ in range(3):
-        params, opt_state, loss, _ = step_fn(params, opt_state, inputs,
-                                             targets, mask)
-        losses.append(loss.item())
-        require(torch.isfinite(loss).item() and all(
-            torch.isfinite(p).all().item()
-            for p in pytree.tree_leaves((params, opt_state))),
-            "an RMSProp step produced a NaN or an infinity")
-    print(f"[train] four RMSProp steps, losses {losses}: all finite")
+    require(launches["lsh_hash"] == launches["fused_read_candidates"] == 0,
+            "the exact-read train step launched an LSH kernel")
 
-    # A small training step: kernels on the card against plain on the CPU.
-    small_spec = training.ModelSpec("sam", small.memory, small.controller)
-    batch = copy_task(2, 5, 5, BITS, device="cpu",
-                      generator=torch.Generator().manual_seed(4))
-    results = {}
-    for device in ("cpu", dev):
-        s_init_p, s_init_s, s_unroll = training.build_model(small_spec,
-                                                            device=device)
-        leaves, spec_s = pytree.tree_flatten(
-            s_init_p(torch.Generator().manual_seed(5)))
-        leaves = [p.requires_grad_() for p in leaves]
-        b_in, b_tgt, b_mask = (t.to(device) for t in batch)
-        _, ys_small = s_unroll(pytree.tree_unflatten(leaves, spec_s),
-                               s_init_s(2), b_in.transpose(0, 1))
-        l_small = training.bits_loss(ys_small, b_tgt.transpose(0, 1),
-                                     b_mask.transpose(0, 1))
-        results[str(device)] = (l_small.item(), [
-            g.cpu() for g in torch.autograd.grad(l_small, leaves)])
-    (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results[str(dev)]
-    small_grad_err = max((a - b).abs().max().item()
-                         for a, b in zip(g_gpu, g_cpu))
-    require(abs(l_gpu - l_cpu) <= TOL * abs(l_cpu),
-            f"small train step: loss {l_gpu} on the card, {l_cpu} on the CPU")
+    def small_train(kind):
+        """A small training step (N = 1000, T = 12) of ``kind``: kernels on
+        the card against the plain versions on the CPU. Returns the
+        largest gradient error."""
+        small_spec = training.ModelSpec(kind, small.memory, small.controller)
+        batch = copy_task(2, 5, 5, BITS, device="cpu",
+                          generator=torch.Generator().manual_seed(4))
+        results = {}
+        for device in ("cpu", dev):
+            s_init_p, s_init_s, s_unroll = training.build_model(small_spec,
+                                                                device=device)
+            leaves, spec_s = pytree.tree_flatten(
+                s_init_p(torch.Generator().manual_seed(5)))
+            leaves = [p.requires_grad_() for p in leaves]
+            b_in, b_tgt, b_mask = (t.to(device) for t in batch)
+            _, ys_small = s_unroll(pytree.tree_unflatten(leaves, spec_s),
+                                   s_init_s(2), b_in.transpose(0, 1))
+            l_small = training.bits_loss(ys_small, b_tgt.transpose(0, 1),
+                                         b_mask.transpose(0, 1))
+            grads = torch.autograd.grad(l_small, leaves, allow_unused=True)
+            results[str(device)] = (l_small.item(), [
+                torch.zeros_like(p).cpu() if g is None else g.cpu()
+                for p, g in zip(leaves, grads)])
+        (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results[str(dev)]
+        grad_err = max((a - b).abs().max().item()
+                       for a, b in zip(g_gpu, g_cpu))
+        require(abs(l_gpu - l_cpu) <= TOL * abs(l_cpu),
+                f"small {kind} train step: loss {l_gpu} on the card, "
+                f"{l_cpu} on the CPU")
+        require(all(torch.allclose(a, b, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+                    for a, b in zip(g_gpu, g_cpu)),
+                f"small {kind} train step: gradients differ (max err "
+                f"{grad_err:.3g})")
+        print(f"[train] small {kind} step (N=1000, T=12) card vs CPU: loss "
+              f"rel err {abs(l_gpu - l_cpu) / abs(l_cpu):.3g}, gradients max "
+              f"err {grad_err:.3g}")
+        return grad_err
+
+    small_grad_err = small_train("sam")
+
+    # ---- 5. the LSH read (kind sam_ann) ----
+    lsh_cfg = sam.SAMConfig(dataclasses.replace(cfg.memory, **LSH),
+                            cfg.controller)
+    lsh_model = sam.SAM(lsh_cfg, seed=0, device=dev)
+    planes = lsh_model.lsh_planes
+    C = lsh_cfg.memory.candidates + H * (K + 1)
+    # (a) the two new kernels on a real LSH rollout's inputs.
+    with torch.inference_mode():
+        with Intercept(ops, record=True) as rec_l:
+            lsh_model(lsh_model.init_state(B), xs[:max(RECORD_STEPS)])
+        for step in RECORD_STEPS:
+            q, mem, beta, k, cand = rec_l.records[("fused_read_candidates",
+                                                   step)]
+            require(cand.shape == (B, H, C), f"candidates {tuple(cand.shape)}")
+            checker.read_cand(q, mem, beta, k, cand, fused_read_candidates(
+                q, mem, beta, cand, k=k))
+            for nth in (0, 1):                     # the query, the written rows
+                x, pl = rec_l.records[("lsh_hash", step, nth)]
+                x2 = x.reshape(-1, W).contiguous()
+                checker.hash(x2, pl, lsh_hash(x2, pl))
+            valid = int((cand >= 0).sum().item())
+            if step == 1:
+                require(bool((cand[..., :lsh_cfg.memory.candidates] < 0).all()),
+                        "the first step's index should be empty")
+            torch.cuda.synchronize()
+            n_query = rec_l.records[("lsh_hash", step, 0)][0].numel() // W
+            print(f"[lsh] step {step}: candidates (B, H, C) = "
+                  f"{tuple(cand.shape)}, {valid} valid after dedup; "
+                  f"candidate read err "
+                  f"{checker.err['fused_read_candidates']:.3g}; hash of "
+                  f"{n_query} query and {x2.shape[0]} written rows; "
+                  f"near-ties {checker.near_ties}, near-zero bits "
+                  f"{checker.near_zero_bits}")
+        # The hash on every row of the exact rollout's final memory.
+        bulk_x = state.memory[:, :N].reshape(-1, W).contiguous()
+        checker.hash(bulk_x, planes, lsh_hash(bulk_x, planes))
+        torch.cuda.synchronize()
+        print(f"[lsh] hash of all {bulk_x.shape[0]} rows of the exact "
+              f"rollout's memory: near-zero bits {checker.near_zero_bits}")
+
+    # (b) the LSH forward rollout, in lockstep.
+    zero_counts()
+    with torch.inference_mode(), Intercept(ops, checker=checker):
+        lsh_state, lsh_ys = lsh_model(lsh_model.init_state(B), xs)
+    torch.cuda.synchronize()
+    lsh_fwd_launches = counts()
+    print(f"[lsh] forward launches {lsh_fwd_launches} over T={T} steps; "
+          f"near-ties {checker.near_ties}, near-zero bits "
+          f"{checker.near_zero_bits}")
+    for name, per in LSH_STEP.items():
+        require(lsh_fwd_launches[name] == per * T, f"LSH rollout: {name} "
+                f"launched {lsh_fwd_launches[name]} times, expected {per * T}")
+    require(lsh_ys.shape == (T, B, BITS) and torch.isfinite(lsh_ys).all().item(),
+            "LSH outputs are not finite values of shape (T, B, bits)")
+    require(torch.isfinite(lsh_state.memory).all().item()
+            and lsh_state.memory[:, N].eq(0).all().item(),
+            "LSH memory not finite, or its scratch row touched")
+    d = lsh_cfg.memory.lsh_bucket_size
+    filled = int((lsh_state.ann.buckets >= 0).sum().item())
+    require(bool(((lsh_state.ann.buckets >= -1)
+                  & (lsh_state.ann.buckets < N)).all())
+            and bool(((lsh_state.ann.cursor >= 0)
+                      & (lsh_state.ann.cursor < d)).all()),
+            "the LSH index holds an id or a cursor out of range")
+    print(f"[lsh] index after T={T} steps: {filled} of "
+          f"{lsh_state.ann.buckets.numel()} bucket slots filled "
+          f"({T * H * (K + 1)} inserts per table and batch row)")
+    # The same LSH cell on a small input: the card against the CPU.
+    small_lsh = sam.SAMConfig(dataclasses.replace(small.memory, **LSH),
+                              cfg.controller)
+    m_cpu = sam.SAM(small_lsh, seed=3, device="cpu")
+    m_gpu = sam.SAM(small_lsh, seed=3, device=dev)
+    s_cpu, y_cpu = m_cpu(m_cpu.init_state(2), xs[:12, :2].cpu())
+    s_gpu, y_gpu = m_gpu(m_gpu.init_state(2), xs[:12, :2])
+    small_lsh_err = (y_gpu.cpu() - y_cpu).abs().max().item()
+    require(small_lsh_err <= TOL and torch.equal(s_gpu.ann.buckets.cpu(),
+                                                 s_cpu.ann.buckets)
+            and torch.equal(s_gpu.ann.cursor.cpu(), s_cpu.ann.cursor),
+            f"small LSH rollout differs from the CPU ({small_lsh_err:.3g})")
+    print(f"[lsh] small rollout (N=1000, T=12) card vs CPU max err "
+          f"{small_lsh_err:.3g}; index bit for bit")
+
+    # (c) training sam_ann.
+    lsh_cell = SAMCell(lsh_cfg)
+    flat_l = flat_params(lsh_model)
+    i_planes = [i for i, p in enumerate(flat_l[0]) if p.dim() == 3]
+    scatter_checked = dict(checker.scatter_calls)
+    loss_ls, g_ls, fwd_l, bwd_l, restored_l, acct_l = fwd_bwd(
+        "sparse", None, True, lsh_cell, lsh_state, flat_l)
+    print(f"[lsh-train] sparse forward launches {fwd_l}; backward launches "
+          f"{bwd_l}; scatter_rows calls checked in lockstep "
+          f"{checked_since(scatter_checked)}, each bit for bit")
+    for name, per in LSH_STEP.items():
+        require(fwd_l[name] == per * T, f"sam_ann forward: {name} launched "
+                f"{fwd_l[name]} times, expected {per * T}")
+        require(bwd_l[name] == 0, f"the sam_ann backward launched {name} "
+                f"{bwd_l[name]} times")
+    require(fwd_l["scatter_rows"] == 0 and bwd_l["scatter_rows"] >= T,
+            f"sam_ann: scatter_rows launched {fwd_l['scatter_rows']} times in "
+            f"the forward and {bwd_l['scatter_rows']} in the backward")
+    require(restored_l, "the sam_ann backward did not restore the memory")
+    require(len(i_planes) == 1 and g_ls[i_planes[0]].eq(0).all().item(),
+            "the LSH planes got a gradient")
+    require(torch.isfinite(loss_ls).item() and all(
+        torch.isfinite(g).all().item() for g in g_ls),
+        "a sam_ann loss or gradient leaf is not finite")
+    print(f"[lsh-train] sparse backward: memory restored bit for bit; loss "
+          f"{loss_ls.item():.6f}; planes' gradient 0")
+    # Chunked with several segments: each must start from its own index.
+    chunk_l = 5
+    loss_lc, g_lc, _, bwd_lc, restored_lc, acct_lc = fwd_bwd(
+        "chunked", chunk_l, False, lsh_cell, lsh_state, flat_l)
+    lsh_chunk_err = max((a - b).abs().max().item()
+                        for a, b in zip(g_lc, g_ls))
+    require(restored_lc, "the sam_ann chunked backward did not restore the "
+            "memory")
     require(all(torch.allclose(a, b, atol=GRAD_ATOL, rtol=GRAD_RTOL)
-                for a, b in zip(g_gpu, g_cpu)),
-            f"small train step: gradients differ (max err {small_grad_err:.3g})")
-    print(f"[train] small step (N=1000, T=12) card vs CPU: loss rel err "
-          f"{abs(l_gpu - l_cpu) / abs(l_cpu):.3g}, gradients max err "
-          f"{small_grad_err:.3g}")
+                for a, b in zip(g_lc, g_ls)),
+            f"sam_ann chunked gradients differ from sparse ones (max err "
+            f"{lsh_chunk_err:.3g})")
+    print(f"[lsh-train] chunked C={chunk_l}: gradients max err "
+          f"{lsh_chunk_err:.3g} against sparse; backward launches {bwd_lc}")
+    step_fn_l, params_l, opt_l, launches_l = main_step("sam_ann", flat_l)
+    for name, per in LSH_STEP.items():
+        require(launches_l[name] == per * T, f"sam_ann train step: {name} "
+                f"launched {launches_l[name]} times, expected {per * T}")
+    require(launches_l["scatter_rows"] >= T, "sam_ann train step: "
+            f"scatter_rows launched {launches_l['scatter_rows']} times")
+    small_lsh_grad_err = small_train("sam_ann")
 
-    # ---- 5. timing, on the step-21 inputs ----
+    # ---- 6. timing, on the step-21 inputs ----
     flush = torch.empty(32 << 20, device=dev)
     step = max(RECORD_STEPS)
     q, mem, beta, k, valid_n = rec.records[("fused_read_sweep", step)]
@@ -630,70 +883,138 @@ def run() -> None:
             (b_add, ridx_l), g_add, accumulate=True), 50, flush),
         bound=bound(4 * (B * H * K + B * H * K * W + 2 * uniq_add * W),
                     B * H * K * W))
-    # The rollout's time per step on the host clock: the median of five
-    # synchronised T-step rollouts, each from a fresh state.
-    # Its peak memory is counted above what the script already holds (the
-    # recorded inputs of phase 2).
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()
-    rollouts = []
-    for _ in range(5):
-        fresh = model.init_state(B)
+    # The new kernels at the LSH step-21 inputs: the candidate read, the
+    # hash of the written rows (R = B·J) and of the queries (R = B·H), and
+    # the hash of all B·N rows of a memory (an index rebuild).
+    q_c, mem_c, beta_c, _, cand_c = rec_l.records[("fused_read_candidates",
+                                                   step)]
+    x_q = rec_l.records[("lsh_hash", step, 0)][0].reshape(-1, W).contiguous()
+    x_w = rec_l.records[("lsh_hash", step, 1)][0].reshape(-1, W).contiguous()
+    TB = lsh_cfg.memory.lsh_tables * lsh_cfg.memory.lsh_bits
+
+    def hash_row(x):
+        R = x.shape[0]
+        return dict(
+            ms=time_ms(lambda: lsh_hash(x, planes), 50 if R < N else 20,
+                       flush),
+            plain_ms=time_ms(lambda: ref.lsh_hash_ref(x, planes),
+                             20 if R < N else 5, flush),
+            library_ms=None,
+            bound=bound(4 * (R * W + TB * W + R * TB // lsh_cfg.memory.lsh_bits),
+                        2 * R * W * TB))
+
+    rows["lsh_hash"] = hash_row(x_w)
+    hash_query, hash_bulk = hash_row(x_q), hash_row(bulk_x)
+    # The candidate read needs each valid candidate's row once per batch
+    # row (two heads may share one), the queries, betas and ids, and writes
+    # the read, weights and indices; it scores each valid candidate (dot
+    # and norm, 4W) and sums K rows (2KW) per head.
+    valid_c = cand_c >= 0
+    uniq_c = len({(b, r) for b, row in enumerate(cand_c.reshape(B, -1).tolist())
+                  for r in row if r >= 0})
+    rows["fused_read_candidates"] = dict(
+        ms=time_ms(lambda: fused_read_candidates(q_c, mem_c, beta_c, cand_c,
+                                                 k=K), 50, flush),
+        plain_ms=time_ms(lambda: ref.fused_read_candidates_ref(
+            q_c, mem_c, beta_c, K, cand_c), 20, flush),
+        library_ms=None,
+        bound=bound(4 * (uniq_c * W + B * H * (W + 1 + C)
+                         + B * H * (W + 2 * K)),
+                    int(valid_c.sum().item()) * 4 * W + B * H * 2 * K * W))
+
+    def rollout_ms(m):
+        """Median host-clock ms per step of five synchronised T-step
+        rollouts, each from a fresh state, and the peak memory above what
+        the script already holds."""
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        times = []
+        for _ in range(5):
+            fresh = m.init_state(B)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                m(fresh, xs)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / T)
+            del fresh
+        return (sorted(times)[len(times) // 2], times,
+                torch.cuda.max_memory_allocated() - held)
+
+    def device_time(fn):
+        """Device time of the kernels of one ``fn()`` traced by
+        torch.profiler: (ms, [(kernel, ms, launches)] largest first)."""
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        on_dev = sorted(
+            ((e.key, e.self_device_time_total / 1e3, e.count)
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.self_device_time_total > 0), key=lambda r: -r[1])
+        return sum(r[1] for r in on_dev), on_dev
+
+    def rollout_device(m):
+        """Device ms and kernel launches per step of one traced rollout."""
         with torch.inference_mode():
-            model(fresh, xs)
+            d_ms, on_dev = device_time(lambda: m(m.init_state(B), xs))
+        return d_ms / T, sum(r[2] for r in on_dev) / T
+
+    def train_timing(fn, p, o, c, flat, src):
+        """The train step (five, host clock), then its forward and its
+        backward apart, and its peak memory above what is held."""
+        step_med, step_all = host_ms(lambda _: fn(p, o, inputs, targets, mask))
+        leaves = [x.clone().requires_grad_() for x in flat[0]]
+        p_train = pytree.tree_unflatten(leaves, flat[1])
+        out = {}
+
+        def forward(s0):
+            out["loss"] = training.bits_loss(
+                unroll_lib.unroll(c, p_train, s0, xs)[1], ts, ms)
+
+        def setup_backward():
+            s0 = start_state(c, src)
+            forward(s0)
+            return s0
+
+        f_med, f_all = host_ms(forward, setup=lambda: start_state(c, src))
+        b_med, b_all = host_ms(
+            lambda _: torch.autograd.grad(out["loss"], leaves,
+                                          allow_unused=True),
+            setup=setup_backward)
+        del out["loss"]
         torch.cuda.synchronize()
-        rollouts.append((time.perf_counter() - t0) * 1e3 / T)
-        del fresh
-    step_ms = sorted(rollouts)[len(rollouts) // 2]
-    peak = torch.cuda.max_memory_allocated() - held
-    # The train step: the whole step (five, host clock), then its forward
-    # and its backward apart, and its peak memory above what is held.
-    train_ms, train_all = host_ms(lambda _: step_fn(params, opt_state, inputs,
-                                                    targets, mask))
-    leaves = [p.clone().requires_grad_() for p in flat_p]
-    p_train = pytree.tree_unflatten(leaves, p_spec)
-    fwd_out = {}
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        fn(p, o, inputs, targets, mask)
+        torch.cuda.synchronize()
+        return dict(ms=step_med, all=step_all, fwd_ms=f_med, fwd_all=f_all,
+                    bwd_ms=b_med, bwd_all=b_all,
+                    peak=torch.cuda.max_memory_allocated() - held)
 
-    def forward(s0):
-        fwd_out["loss"] = training.bits_loss(
-            unroll_lib.unroll(cell, p_train, s0, xs)[1], ts, ms)
-
-    def setup_backward():
-        s0 = start_state()
-        forward(s0)
-        return s0
-
-    fwd_ms, fwd_all = host_ms(forward, setup=start_state)
-    bwd_ms, bwd_all = host_ms(
-        lambda _: torch.autograd.grad(fwd_out["loss"], leaves),
-        setup=setup_backward)
-    del fwd_out["loss"]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    held_train = torch.cuda.memory_allocated()
-    step_fn(params, opt_state, inputs, targets, mask)
-    torch.cuda.synchronize()
-    train_peak = torch.cuda.max_memory_allocated() - held_train
+    step_ms, rollouts, peak = rollout_ms(model)
+    lsh_step_ms, lsh_rollouts, lsh_peak = rollout_ms(lsh_model)
+    (dev_step_ms, dev_step_n), (lsh_dev_step_ms, lsh_dev_step_n) = (
+        rollout_device(model), rollout_device(lsh_model))
+    tr = train_timing(step_fn, params, opt_state, cell, (flat_p, p_spec),
+                      state)
+    tr_l = train_timing(step_fn_l, params_l, opt_l, lsh_cell, flat_l,
+                        lsh_state)
+    train_ms, fwd_ms, bwd_ms, train_peak = (tr["ms"], tr["fwd_ms"],
+                                            tr["bwd_ms"], tr["peak"])
     mem_ct_bytes = B * (N + 1) * W * 4
     # Where the train step's time goes: the device time of its kernels in
     # one step traced by torch.profiler, against the step's wall time.
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        step_fn(params, opt_state, inputs, targets, mask)
-        torch.cuda.synchronize()
-    on_device = sorted(
-        ((e.key, e.self_device_time_total / 1e3, e.count)
-         for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA
-         and e.self_device_time_total > 0), key=lambda r: -r[1])
-    device_ms = sum(r[1] for r in on_device)
+    device_ms, on_device = device_time(
+        lambda: step_fn(params, opt_state, inputs, targets, mask))
+    lsh_device_ms, lsh_on_device = device_time(
+        lambda: step_fn_l(params_l, opt_l, inputs, targets, mask))
     for name, r in rows.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        print(f"[time] {name}: {r['ms']:.4f} ms (bound {r['bound'][0]:.4f} ms "
+        print(f"[time] {name}: {r['ms']:.4f} ms (bound {r['bound'][0]:.6f} ms "
               f"by {r['bound'][1]}), plain {r['plain_ms']:.4f} ms, "
               f"library {lib}")
     print(f"[time] scatter_rows 'set' above is the rollback of step {step} "
@@ -704,58 +1025,106 @@ def run() -> None:
           f"ms, library index_put_(accumulate=True) "
           f"{scatter_add['library_ms']:.4f} ms; launches per train step "
           f"{launches['scatter_rows']}")
+    for what, r in (("the written rows", rows["lsh_hash"]),
+                    ("the queries", hash_query), ("all B·N rows", hash_bulk)):
+        print(f"[time] lsh_hash of {what}: {r['ms']:.4f} ms (bound "
+              f"{r['bound'][0]:.6f} ms by {r['bound'][1]}), plain "
+              f"{r['plain_ms']:.4f} ms")
+    print(f"[time] fused_read_candidates above: C={C} candidates per head, "
+          f"{int(valid_c.sum().item())} valid, {uniq_c} unique rows")
     print(f"[time] rollout {step_ms:.3f} ms/step, median of "
           f"{', '.join(f'{r:.3f}' for r in rollouts)} (B={B}, N={N}, T={T}); "
           f"peak memory {peak / 2**30:.2f} GiB; write touches {uniq} unique "
-          f"rows")
-    print(f"[time] train step {train_ms:.2f} ms, median of "
-          f"{', '.join(f'{t:.2f}' for t in train_all)} (sparse, B={B}, N={N}, "
-          f"T={T}); forward {fwd_ms:.2f} ms (of "
-          f"{', '.join(f'{t:.2f}' for t in fwd_all)}), backward {bwd_ms:.2f} "
-          f"ms (of {', '.join(f'{t:.2f}' for t in bwd_all)})")
+          f"rows; device time {dev_step_ms:.4f} ms/step in "
+          f"{dev_step_n:.1f} kernel launches")
+    print(f"[time] LSH rollout {lsh_step_ms:.3f} ms/step, median of "
+          f"{', '.join(f'{r:.3f}' for r in lsh_rollouts)}; peak memory "
+          f"{lsh_peak / 2**30:.2f} GiB; device time {lsh_dev_step_ms:.4f} "
+          f"ms/step in {lsh_dev_step_n:.1f} kernel launches")
+    for kind, r in (("sam", tr), ("sam_ann", tr_l)):
+        print(f"[time] {kind} train step {r['ms']:.2f} ms, median of "
+              f"{', '.join(f'{t:.2f}' for t in r['all'])} (sparse, B={B}, "
+              f"N={N}, T={T}); forward {r['fwd_ms']:.2f} ms (of "
+              f"{', '.join(f'{t:.2f}' for t in r['fwd_all'])}), backward "
+              f"{r['bwd_ms']:.2f} ms (of "
+              f"{', '.join(f'{t:.2f}' for t in r['bwd_all'])}); peak memory "
+              f"{r['peak']} B")
     print(f"[time] train step peak memory {train_peak / 2**30:.3f} GiB "
           f"({train_peak} B) against residual_accounting(mode='sparse') "
           f"{acct['residual_bytes']} B + one dense memory cotangent "
           f"{mem_ct_bytes} B = {acct['residual_bytes'] + mem_ct_bytes} B "
-          f"(chunked C={chunk}: {acct_c['residual_bytes']} B)")
-    if device_ms > 0:
-        print(f"[time] train step on the device (torch.profiler, one step): "
-              f"{device_ms:.2f} ms of kernels, {device_ms / train_ms:.1%} of "
-              f"the {train_ms:.2f} ms step; by kernel (ms, launches): "
-              + "; ".join(f"{k[:60]} {t:.3f} ({c})" for k, t, c in on_device[:8]))
-    else:
-        print("[time] train step on the device: not measured (the profiler "
-              "recorded no device time)")
+          f"(chunked C={chunk}: {acct_c['residual_bytes']} B); sam_ann "
+          f"{acct_l['residual_bytes'] + mem_ct_bytes} B")
+    for kind, d_ms, on_dev, r in (("sam", device_ms, on_device, tr),
+                                  ("sam_ann", lsh_device_ms, lsh_on_device,
+                                   tr_l)):
+        if d_ms > 0:
+            print(f"[time] {kind} train step on the device (torch.profiler, "
+                  f"one step): {d_ms:.2f} ms of kernels, "
+                  f"{d_ms / r['ms']:.1%} of the {r['ms']:.2f} ms step; by "
+                  f"kernel (ms, launches): "
+                  + "; ".join(f"{k[:60]} {t:.3f} ({c})"
+                              for k, t, c in on_dev[:8]))
+        else:
+            print(f"[time] {kind} train step on the device: not measured "
+                  f"(the profiler recorded no device time)")
 
-    # ---- 6. report ----
+    # ---- 7. report ----
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     require(smi.returncode == 0 and smi.stdout.strip(), "nvidia-smi failed")
     print(smi.stdout.strip().splitlines()[0])
+    # Launches: each kernel's count in the main path of its own read, the
+    # exact-read train step or (the hash, the candidate read) sam_ann's.
+    path_of = {"lsh_hash": launches_l, "fused_read_candidates": launches_l}
     report = []
     for name, r in rows.items():
         replaces, source = REPLACES[name]
         report.append({"name": name, "route": "cuda", "source": source,
-                       "replaces": replaces, "launches": launches[name],
+                       "replaces": replaces,
+                       "launches": path_of.get(name, launches)[name],
                        "max_abs_err": checker.err.get(name, 0.0),
                        "ms": r["ms"], "plain_ms": r["plain_ms"],
                        "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                        "library_ms": r["library_ms"]})
-    report[-1]["add"] = {"ms": scatter_add["ms"],
-                         "plain_ms": scatter_add["plain_ms"],
-                         "bound_ms": scatter_add["bound"][0],
-                         "library_ms": scatter_add["library_ms"]}
+
+    def sub(r):
+        return {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "library_ms": r["library_ms"]}
+
+    by_name = {r["name"]: r for r in report}
+    by_name["scatter_rows"]["add"] = sub(scatter_add)
+    by_name["lsh_hash"]["query"] = sub(hash_query)
+    by_name["lsh_hash"]["bulk"] = sub(hash_bulk)
     print(json.dumps({"kernels": report, "near_ties": checker.near_ties,
+                      "near_zero_bits": checker.near_zero_bits,
+                      "main_path_launches": {"sam": launches,
+                                             "sam_ann": launches_l},
                       "ms_per_step": step_ms, "peak_bytes": peak,
+                      "device_ms_per_step": dev_step_ms or None,
+                      "device_launches_per_step": dev_step_n,
                       "forward_launches": fwd_launches,
+                      "lsh_ms_per_step": lsh_step_ms,
+                      "lsh_peak_bytes": lsh_peak,
+                      "lsh_device_ms_per_step": lsh_dev_step_ms or None,
+                      "lsh_device_launches_per_step": lsh_dev_step_n,
+                      "lsh_forward_launches": lsh_fwd_launches,
                       "train_ms_per_step": train_ms, "train_fwd_ms": fwd_ms,
                       "train_bwd_ms": bwd_ms, "train_peak_bytes": train_peak,
                       "train_device_ms": device_ms or None,
                       "train_residual_bytes": acct["residual_bytes"],
                       "mem_ct_bytes": mem_ct_bytes,
+                      "lsh_train_ms_per_step": tr_l["ms"],
+                      "lsh_train_fwd_ms": tr_l["fwd_ms"],
+                      "lsh_train_bwd_ms": tr_l["bwd_ms"],
+                      "lsh_train_peak_bytes": tr_l["peak"],
+                      "lsh_train_device_ms": lsh_device_ms or None,
                       "card_vs_cpu_grad_err": small_grad_err,
-                      "chunked_vs_sparse_grad_err": chunk_err}))
+                      "lsh_card_vs_cpu_grad_err": small_lsh_grad_err,
+                      "chunked_vs_sparse_grad_err": chunk_err,
+                      "lsh_chunked_vs_sparse_grad_err": lsh_chunk_err}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

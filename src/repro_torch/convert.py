@@ -2,16 +2,18 @@
 
 Both sides share names and layout: weights are the tree
 ``{"lstm": {wx, wh, b}, "iface": {w, b}, "out": {w, b}}`` with matrices
-kept (in, out), so ``x @ w`` holds on both sides, and the state is the
-scratch-row `SAMState`. The functions take numpy leaves (or anything
-`numpy.asarray` reads) and import nothing of JAX.
+kept (in, out), so ``x @ w`` holds on both sides, plus ``lsh_planes``
+(T, bits, W) for an LSH cell; the state is the scratch-row `SAMState`,
+with the single-device LSH index (`ANNState`, P = 1) where there is one.
+The functions take numpy leaves (or anything `numpy.asarray` reads) and
+import nothing of JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.types import LSTMState, SAMState, SparseRead
+from repro_torch.core.types import ANNState, LSTMState, SAMState, SparseRead
 from repro_torch.optim.optimizers import RMSPropState
 
 _PARAM_GROUPS = {"lstm": ("wx", "wh", "b"), "iface": ("w", "b"),
@@ -24,11 +26,12 @@ def _tensor(x, dtype, device) -> torch.Tensor:
 
 def params_from_jax(tree, *, device="cuda"):
     """JAX `sam.init_params` tree -> the port's parameter dict, leaf for
-    leaf in the same (in, out) orientation. Raises on leaves outside the
-    exact-read cell (an LSH model's ``lsh_planes``)."""
-    if set(tree) != set(_PARAM_GROUPS):
-        raise ValueError(f"expected groups {sorted(_PARAM_GROUPS)}, got "
-                         f"{sorted(tree)}")
+    leaf in the same (in, out) orientation; an LSH cell's ``lsh_planes``
+    (T, bits, W) come across as they are. Raises on any other leaf."""
+    groups = set(tree) - {"lsh_planes"}
+    if groups != set(_PARAM_GROUPS):
+        raise ValueError(f"expected groups {sorted(_PARAM_GROUPS)} (and "
+                         f"lsh_planes), got {sorted(tree)}")
     out = {}
     for group, names in _PARAM_GROUPS.items():
         if set(tree[group]) != set(names):
@@ -36,14 +39,32 @@ def params_from_jax(tree, *, device="cuda"):
                              f"{sorted(tree[group])}")
         out[group] = {n: _tensor(tree[group][n], np.float32, device)
                       for n in names}
+    if "lsh_planes" in tree:
+        planes = _tensor(tree["lsh_planes"], np.float32, device)
+        if planes.dim() != 3:
+            raise ValueError(f"lsh_planes must be (T, bits, W), got "
+                             f"{tuple(planes.shape)}")
+        out["lsh_planes"] = planes
     return out
 
 
+def ann_from_jax(ann, *, device="cuda") -> ANNState:
+    """JAX `ANNState` -> the port's, field for field. Raises on an index
+    with more than one ownership partition (the sharded index is not
+    ported)."""
+    buckets = _tensor(ann.buckets, np.int32, device)
+    if buckets.dim() != 5 or buckets.shape[3] != 1:
+        raise ValueError(f"only the single-device LSH index (P = 1) "
+                         f"converts, got buckets {tuple(buckets.shape)}")
+    return ANNState(buckets=buckets,
+                    cursor=_tensor(ann.cursor, np.int32, device))
+
+
 def state_from_jax(state, *, device="cuda") -> SAMState:
-    """JAX `SAMState` (f32 rows, exact read, scratch-row layout) -> the
-    port's `SAMState`, field for field."""
-    if state.ann is not None or getattr(state, "mem_scale", None) is not None:
-        raise ValueError("only exact-read, f32-row states convert")
+    """JAX `SAMState` (f32 rows, exact or LSH read, scratch-row layout) ->
+    the port's `SAMState`, field for field."""
+    if getattr(state, "mem_scale", None) is not None:
+        raise ValueError("only f32-row states convert")
     read = SparseRead(indices=_tensor(state.read.indices, np.int32, device),
                       weights=_tensor(state.read.weights, np.float32, device),
                       words=_tensor(state.read.words, np.float32, device))
@@ -52,10 +73,13 @@ def state_from_jax(state, *, device="cuda") -> SAMState:
     return SAMState(memory=_tensor(state.memory, np.float32, device),
                     last_access=_tensor(state.last_access, np.int32, device),
                     read=read, ctrl=ctrl,
-                    step=_tensor(state.step, np.int32, device))
+                    step=_tensor(state.step, np.int32, device),
+                    ann=(None if state.ann is None
+                         else ann_from_jax(state.ann, device=device)))
 
 
 def opt_state_from_jax(state, *, device="cuda") -> RMSPropState:
     """JAX `optimizers.RMSPropState` (its ``acc`` tree in the parameters'
-    layout) -> the port's `RMSPropState`, leaf for leaf."""
+    layout, the planes' accumulator included) -> the port's
+    `RMSPropState`, leaf for leaf."""
     return RMSPropState(acc=params_from_jax(state.acc, device=device))

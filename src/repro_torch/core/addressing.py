@@ -1,7 +1,8 @@
 """Sparse content-based addressing and usage tracking (paper §3.1-3.2):
-the single-device, exact-read part of `repro/core/addressing.py`. Every
-O(N) operation goes through `repro_torch.kernels.ops`, which runs the
-CUDA kernels on the card and the plain versions on the CPU."""
+the single-device part of `repro/core/addressing.py`, exact and LSH
+reads. Every kernel operation goes through `repro_torch.kernels.ops`,
+which runs the CUDA kernels on the card and the plain versions on the
+CPU."""
 from __future__ import annotations
 
 import torch
@@ -17,6 +18,38 @@ def sparse_read_exact(q: torch.Tensor, m: torch.Tensor, beta: torch.Tensor,
     similarity among rows [0, valid_n), softmax over the kept K only."""
     read, w, idx = ops.fused_read(q, m, beta, k, valid_n=valid_n)
     return SparseRead(indices=idx, weights=w, words=read)
+
+
+def select_candidates(q: torch.Tensor, m: torch.Tensor, k: int,
+                      cand_idx: torch.Tensor) -> torch.Tensor:
+    """The selection half of the ANN read: dedup the candidates (B, H, C),
+    re-rank them without gradient and keep the K best. Returns *signed*
+    indices (B, H, K) int32: -1 where fewer than K valid candidates
+    existed."""
+    return ref.candidate_topk(q.detach(), m.detach(), k,
+                              ref.dedup(cand_idx))
+
+
+def sparse_read_candidates(q: torch.Tensor, m: torch.Tensor,
+                           beta: torch.Tensor, k: int,
+                           cand_idx: torch.Tensor) -> SparseRead:
+    """ANN read composed of its two halves: `select_candidates`, then
+    `finish_candidate_read`. An invalid selection reads with weight exactly
+    0 and gives no gradient."""
+    return finish_candidate_read(q, m, beta,
+                                 select_candidates(q, m, k, cand_idx))
+
+
+def select_and_read_candidates(q: torch.Tensor, m: torch.Tensor,
+                               beta: torch.Tensor, k: int,
+                               cand_idx: torch.Tensor):
+    """The ANN read as one kernel: dedup the raw candidates, then one
+    `ops.fused_read(..., cand_idx=)` call re-ranks, selects, and runs the
+    softmax tail and the weighted sum. Returns (the read, with its indices
+    clamped to >= 0, and the *signed* (B, H, K) selection, which a step
+    records so the replay rebuilds the same validity mask)."""
+    read, w, sel = ops.fused_read(q, m, beta, k, cand_idx=ref.dedup(cand_idx))
+    return SparseRead(indices=sel.clamp_min(0), weights=w, words=read), sel
 
 
 def read_from_rows(q: torch.Tensor, words: torch.Tensor, beta: torch.Tensor,

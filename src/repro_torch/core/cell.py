@@ -12,7 +12,10 @@
     backward never reads it;
   * ``replay_step(params, state, x, deltas, mem_ct)`` — recompute the step
     from the rolled-back state with the recorded selections as fixed
-    inputs. It needs neither the usage table nor a sweep.
+    inputs. It needs neither the usage table, nor a sweep, nor the LSH
+    index (an LSH cell's recorded selection is signed: -1 replays with
+    weight exactly 0), so the rollback leaves the index as it is, as the
+    JAX cell does.
 
 The memory is a (B, N+1, W) buffer updated in place, so the memory's
 cotangent cannot follow JAX's functional replay, which hands every step a
@@ -108,7 +111,7 @@ def sam_replay_step(params, cfg: SAMConfig, s: SAMState, x: torch.Tensor,
     read = addr.read_from_rows(q, words, beta, deltas.read_idx)
     y = linear(params["out"], torch.cat([h, read.words.reshape(B, -1)], -1))
     return SAMState(memory=s.memory, last_access=s.last_access, read=read,
-                    ctrl=ctrl, step=s.step + 1), y
+                    ctrl=ctrl, step=s.step + 1, ann=s.ann), y
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,13 +2,16 @@
 
 One step runs the LSTM controller, splits its interface, picks the H
 least-recently-accessed rows, plans the eq. 5 write, runs the fused write
-(erase + w^W a^T + usage stamp), the exact top-K read, and the read-side
-usage stamp — the same sequence as `repro/core/sam.py::sam_step` for the
-exact read on f32 rows on one device. The memory and the usage table are
-updated **in place**: the state handed to `sam_step` shares its `memory`
-and `last_access` tensors with the state it returns. With
-``collect_deltas=True`` a step also returns what the sparse-rollback
-backward needs (`StepDeltas`, `core/cell.py`).
+(erase + w^W a^T + usage stamp), the top-K read, and the read-side usage
+stamp — the same sequence as `repro/core/sam.py::sam_step` for f32 rows
+on one device. The read is exact (a sweep of the memory) or, with
+``MemoryConfig(ann="lsh")``, a re-rank of the LSH index's candidates plus
+the freshly written rows, after which the written rows go into the index
+(`core/ann.py`). The memory and the usage table are updated **in place**:
+the state handed to `sam_step` shares its `memory` and `last_access`
+tensors with the state it returns; the LSH index is a new tensor each
+step. With ``collect_deltas=True`` a step also returns what the
+sparse-rollback backward needs (`StepDeltas`, `core/cell.py`).
 
 `sam_step` records an autograd graph when its inputs require grad (the
 naive unroll of `core/unroll.py`); `sam_unroll` and `SAM.forward`, the
@@ -23,6 +26,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.core import addressing as addr
+from repro_torch.core import ann as ann_lib
 from repro_torch.core.controller import (linear, linear_init, lstm_init,
                                          lstm_step, lstm_zero_state)
 from repro_torch.core.types import (ControllerConfig, MemoryConfig, SAMState,
@@ -48,11 +52,13 @@ class SAMConfig:
 
 def init_params(generator: torch.Generator, cfg: SAMConfig, *, device="cuda"):
     """Weights of the JAX shapes and glorot scale, drawn in order (LSTM wx,
-    wh, interface, output) from ``generator``."""
+    wh, interface, output) from ``generator``; an LSH cell's fixed planes
+    (``lsh_planes``, (T, bits, W)) are drawn after them, so a seed gives an
+    exact-read cell the same weights as before."""
     mem, ctl = cfg.memory, cfg.controller
     H, W = mem.num_heads, mem.word_size
     # Per head: query (W), beta (1), write word (W), alpha (1), gamma (1).
-    return {
+    params = {
         "lstm": lstm_init(generator, ctl.input_size + H * W, ctl.hidden_size,
                           device=device),
         "iface": linear_init(generator, ctl.hidden_size, H * (2 * W + 3),
@@ -60,6 +66,10 @@ def init_params(generator: torch.Generator, cfg: SAMConfig, *, device="cuda"):
         "out": linear_init(generator, ctl.hidden_size + H * W,
                            ctl.output_size, device=device),
     }
+    if mem.ann == "lsh":
+        params["lsh_planes"] = ann_lib.lsh_planes(generator, mem,
+                                                  device=device)
+    return params
 
 
 def init_state(batch: int, cfg: SAMConfig, *, device="cuda") -> SAMState:
@@ -73,7 +83,9 @@ def init_state(batch: int, cfg: SAMConfig, *, device="cuda") -> SAMState:
         memory=init_scratch_memory(batch, N, W, device=device),
         last_access=init_scratch_last_access(batch, N, device=device),
         read=read, ctrl=lstm_zero_state(batch, ctl.hidden_size, device=device),
-        step=torch.zeros((), dtype=torch.int32, device=device))
+        step=torch.zeros((), dtype=torch.int32, device=device),
+        ann=(ann_lib.ann_init(batch, mem, device=device)
+             if mem.ann == "lsh" else None))
 
 
 def _interface(params, cfg: SAMConfig, h: torch.Tensor):
@@ -121,8 +133,12 @@ def sam_step(params, cfg: SAMConfig, state: SAMState, x: torch.Tensor, *,
     ``state.memory`` and ``state.last_access`` are updated in place."""
     mem = cfg.memory
     H, K, N = mem.num_heads, mem.k, mem.num_slots
-    if state.ann is not None or state.mem_scale is not None:
-        raise ValueError("this port runs the exact read on f32 rows only")
+    if state.mem_scale is not None:
+        raise ValueError("this port runs f32 rows only")
+    if (state.ann is not None) != (mem.ann == "lsh"):
+        raise ValueError(f"ann={mem.ann!r} needs a state "
+                         f"{'with' if mem.ann == 'lsh' else 'without'} an "
+                         f"LSH index")
     require_live(state)
     if state.memory.shape[1] != N + 1:
         raise ValueError(f"memory must be in the (B, N+1, W) scratch-row "
@@ -143,16 +159,31 @@ def sam_step(params, cfg: SAMConfig, state: SAMState, x: torch.Tensor, *,
                                           mem.delta)
 
     # ---- read (content-based, sparse) and its usage stamp ----
-    read = addr.sparse_read_exact(q, memory, beta, K, valid_n=N)
+    if mem.ann == "lsh":
+        # Candidates: the buckets of q in the index from before this step's
+        # insert, then the freshly written rows; the read runs on the
+        # written memory, and the written rows then go into the index.
+        planes = params["lsh_planes"]
+        cand = ann_lib.ann_candidates(planes, state.ann, q, widx, mem)
+        read, read_sel = addr.select_and_read_candidates(q, memory, beta, K,
+                                                         cand)
+        ann_state = ann_lib.ann_insert(planes, state.ann, widx,
+                                       addr.gather_rows(memory, widx).detach(),
+                                       mem)
+    else:
+        read = addr.sparse_read_exact(q, memory, beta, K, valid_n=N)
+        read_sel, ann_state = read.indices, None
     la = addr.update_last_access(la, read.indices.reshape(B, -1),
                                  read.weights.reshape(B, -1), step, mem.delta)
 
     y = linear(params["out"], torch.cat([h, read.words.reshape(B, -1)], -1))
     new_state = SAMState(memory=memory, last_access=la, read=read, ctrl=ctrl,
-                         step=step)
+                         step=step, ann=ann_state)
     if collect_deltas:
+        # Signed (-1 = no valid candidate), so the replay rebuilds the
+        # read's validity mask.
         return new_state, y, StepDeltas(write_idx=widx, old_rows=old_rows,
-                                        read_idx=read.indices)
+                                        read_idx=read_sel)
     return new_state, y
 
 
@@ -170,8 +201,8 @@ def sam_unroll(params, cfg: SAMConfig, state: SAMState, xs: torch.Tensor):
 class SAM(nn.Module):
     """The SAM cell as a module. Its weights are trainable parameters in
     the JAX tree layout (`params()` hands them to `core/unroll.py` for
-    training); `forward` unrolls the cell over a sequence without a
-    graph."""
+    training); an LSH cell's fixed planes are a buffer, not a parameter.
+    `forward` unrolls the cell over a sequence without a graph."""
 
     def __init__(self, cfg: SAMConfig, params=None, *, seed: int = 0,
                  device="cuda"):
@@ -188,11 +219,16 @@ class SAM(nn.Module):
         self.lstm = group(params["lstm"])
         self.iface = group(params["iface"])
         self.out = group(params["out"])
+        if "lsh_planes" in params:
+            self.register_buffer("lsh_planes", params["lsh_planes"])
 
     def params(self):
         """The weights as the nested dict that `sam_step` takes."""
-        return {"lstm": dict(self.lstm), "iface": dict(self.iface),
-                "out": dict(self.out)}
+        out = {"lstm": dict(self.lstm), "iface": dict(self.iface),
+               "out": dict(self.out)}
+        if self.cfg.memory.ann == "lsh":
+            out["lsh_planes"] = self.lsh_planes
+        return out
 
     def init_state(self, batch: int) -> SAMState:
         return init_state(batch, self.cfg, device=self.lstm["b"].device)

@@ -1,8 +1,9 @@
 """Training harness for the copy task (paper §4.2/§4.3), the port of
 `repro/core/training.py` (`ModelSpec`, `build_model`, `bits_loss`,
-`bits_error`, `make_task_train_step`, `train_task`) for the kind ``sam``:
-RMSProp (paper Suppl. C) on sigmoid cross-entropy over the output bits,
-through the sparse-rollback engine by default (`core/unroll.py`).
+`bits_error`, `make_task_train_step`, `train_task`) for the kinds ``sam``
+(exact read) and ``sam_ann`` (the LSH read): RMSProp (paper Suppl. C) on
+sigmoid cross-entropy over the output bits, through the sparse-rollback
+engine by default (`core/unroll.py`).
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ TASKS = {"copy": copy_task}
 
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
-    kind: str                     # sam (the only kind ported so far)
+    kind: str                     # sam or sam_ann (the kinds ported)
     memory: MemoryConfig
     controller: ControllerConfig
     # Train through the sparse-rollback engine (False -> the naive loop).
@@ -41,13 +42,16 @@ class ModelSpec:
 
 def build_model(spec: ModelSpec, *, device="cuda"):
     """Returns (init_params(generator), init_state(batch),
-    unroll(params, state, xs)). Kind ``sam`` trains through the
-    sparse-rollback engine behind `SAMCell`; every other kind of the JAX
-    package is still to port and raises."""
-    if spec.kind != "sam":
+    unroll(params, state, xs)). Kinds ``sam`` and ``sam_ann`` (the SAM cell
+    with ``ann="lsh"``) train through the sparse-rollback engine behind
+    `SAMCell`; every other kind of the JAX package is still to port and
+    raises."""
+    if spec.kind not in ("sam", "sam_ann"):
         raise ValueError(f"model kind {spec.kind!r} is not ported; only "
-                         f"'sam' is")
-    cell = SAMCell(SAMConfig(spec.memory, spec.controller))
+                         f"'sam' and 'sam_ann' are")
+    mem = dataclasses.replace(
+        spec.memory, ann="lsh" if spec.kind == "sam_ann" else "exact")
+    cell = SAMCell(SAMConfig(mem, spec.controller))
     if not spec.sparse_bptt:
         mode, chunk = "naive", None
     elif spec.bptt_chunk is None:
@@ -77,7 +81,10 @@ def bits_error(logits, targets, mask):
 def make_task_train_step(spec: ModelSpec, lr: float = 1e-4, *, device="cuda"):
     """Returns (init_params, init_state, step). ``step(params, opt_state,
     inputs, targets, mask)`` takes batch-major (B, T, ...) tensors and
-    returns (params, opt_state, loss, err), new trees beside the old."""
+    returns (params, opt_state, loss, err), new trees beside the old. A
+    leaf the loss does not reach (an LSH cell's fixed planes) gets a zero
+    gradient, as under `jax.grad`: RMSProp leaves it as it was and decays
+    its accumulator."""
     init_p, init_s, unroll = build_model(spec, device=device)
 
     def step(params, opt_state, inputs, targets, mask):
@@ -90,7 +97,10 @@ def make_task_train_step(spec: ModelSpec, lr: float = 1e-4, *, device="cuda"):
                 [x.detach().requires_grad_() for x in leaves], spec_p)
             _, ys = unroll(p, init_s(inputs.shape[0]), xs)
             loss = bits_loss(ys, ts, ms)
-            grads = torch.autograd.grad(loss, pytree.tree_leaves(p))
+            p_leaves = pytree.tree_leaves(p)
+            grads = torch.autograd.grad(loss, p_leaves, allow_unused=True)
+            grads = [torch.zeros_like(x) if g is None else g
+                     for x, g in zip(p_leaves, grads)]
         with torch.no_grad():
             err = bits_error(ys, ts, ms)
             grads, _ = opt.clip_by_global_norm(

@@ -45,14 +45,24 @@ def init_scratch_last_access(batch: int, num_slots: int, *,
 
 @dataclasses.dataclass(frozen=True)
 class MemoryConfig:
-    """Configuration of the external memory (paper §3). This slice runs
-    the exact read on f32 rows on one device."""
+    """Configuration of the external memory (paper §3): f32 rows on one
+    device, read exactly (``ann="exact"``) or through the LSH index
+    (``ann="lsh"``, `core/ann.py`)."""
 
     num_slots: int = 1024          # N
     word_size: int = 32            # W
     num_heads: int = 4             # access heads (paper Suppl. C: 4)
     k: int = 4                     # K non-zero reads per head
     delta: float = 0.005           # usage threshold δ (paper §3.2)
+    ann: str = "exact"             # 'exact' (linear sweep) or 'lsh'
+    lsh_tables: int = 4
+    lsh_bits: int = 8              # buckets per table = 2**bits
+    lsh_bucket_size: int = 32
+
+    @property
+    def candidates(self) -> int:
+        """Bucket candidates per head: tables × bucket size."""
+        return self.lsh_tables * self.lsh_bucket_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,17 +85,31 @@ class SparseRead(NamedTuple):
     words: torch.Tensor     # (B, H, W) f32 — the read vectors r_t
 
 
+class ANNState(NamedTuple):
+    """The LSH index in the JAX layout, partitioned by slot ownership into
+    P sub-rings of depth d = bucket_size / P. The port keeps P = 1 (one
+    full-depth ring per bucket); the sharded index is not ported.
+
+    buckets: (B, T, 2**bits, P, d) int32 slot indices, -1 = empty;
+    cursor:  (B, T, 2**bits, P) int32 ring-insert position per sub-ring.
+    """
+
+    buckets: torch.Tensor
+    cursor: torch.Tensor
+
+
 class SAMState(NamedTuple):
     """SAM recurrent state in the scratch-row layout (module docstring).
-    ``ann`` and ``mem_scale`` are always None in this slice (exact read,
-    f32 rows); they keep the JAX field set."""
+    ``ann`` is the LSH index (`ANNState`) of an ``ann="lsh"`` cell and None
+    for the exact read; ``mem_scale`` is always None (f32 rows). Both keep
+    the JAX field set."""
 
     memory: torch.Tensor        # (B, N+1, W) f32 — row N = write scratch
     last_access: torch.Tensor   # (B, N+1) int32; [N] = LA_SCRATCH
     read: SparseRead            # previous step's read
     ctrl: LSTMState
     step: torch.Tensor          # () int32
-    ann: Optional[object] = None
+    ann: Optional[ANNState] = None
     mem_scale: Optional[torch.Tensor] = None
 
 

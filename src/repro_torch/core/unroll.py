@@ -144,6 +144,10 @@ class _RollbackUnroll(torch.autograd.Function):
             ctx.bounds = list(range(0, T, chunk)) + [T]
             ctx.checkpoints, ys = [], []
             for lo, hi in zip(ctx.bounds, ctx.bounds[1:]):
+                # The memory and the usage table are updated in place, so
+                # they are copied; an LSH index is new each step
+                # (`ann.ann_insert`), so the reference holds the segment
+                # start's index.
                 ctx.checkpoints.append(state._replace(
                     memory=state.memory.clone(),
                     last_access=state.last_access.clone()))

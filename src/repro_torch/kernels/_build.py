@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("fused_read", "sparse_write", "lra_topn", "scatter_rows")
+KERNELS = ("fused_read", "sparse_write", "lra_topn", "scatter_rows",
+           "lsh_hash", "fused_read_candidates")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

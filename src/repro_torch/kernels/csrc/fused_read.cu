@@ -316,7 +316,7 @@ cudaError_t launch_pass1(dim3 grid, size_t smem, cudaStream_t s,
 extern "C" {
 
 // Candidates per (b, h) that pass 1 writes (the wrapper allocates them).
-int fused_read_candidates(int valid_n, int k) {
+int fused_read_num_candidates(int valid_n, int k) {
   return ((valid_n + kChunkRows - 1) / kChunkRows) * k;
 }
 

@@ -9,7 +9,9 @@
 //   'set': mem[b, idx[b, j]]  = rows[b, j]
 // With duplicate indices, 'add' sums every matching column into the row in
 // j order, starting from the row's value; 'set' keeps the last column.
-// Rows outside [0, R) are ignored, and no row that no index names is
+// Every index must lie in [0, R): the plain version raises on one outside,
+// and the kernel, which cannot raise without waiting on the device, skips
+// it rather than write out of bounds. No row that no index names is
 // touched (in particular not the write-scratch row N of a (B, N+1, W)
 // buffer, which the TPU kernel used as a parking row for duplicates).
 //

@@ -47,7 +47,7 @@ def fused_read_sweep(q: torch.Tensor, mem: torch.Tensor, beta: torch.Tensor,
     fn = _build.function("fused_read", "fused_read_launch",
                          [_P, _P, _P, _I, _I, _I, _I, _I, _L, _P, _P, _P,
                           _P, _P, _P])
-    ncand = _build.function("fused_read", "fused_read_candidates",
+    ncand = _build.function("fused_read", "fused_read_num_candidates",
                             [_I, _I])(n, k)
     dev = q.device
     cand_v = torch.empty((B, H, ncand), dtype=torch.float32, device=dev)

@@ -10,7 +10,7 @@ ragged tile themselves.
 
 When autograd records (grad enabled and an input requires grad), each op
 runs inside a `torch.autograd.Function` whose backward is the closed-form
-VJP of the JAX package's custom VJP (`repro/kernels/ops.py:318-340`,
+VJP of the JAX package's custom VJP (`repro/kernels/ops.py:318-364`,
 `:481-506`, `:587-622`); otherwise the op runs bare. These dense
 gradients are what the naive unroll (`core/unroll.py`) differentiates
 through: each step's memory gradient is a (B, N+1, W) tensor. The
@@ -23,6 +23,9 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.fused_read import fused_read_sweep
+from repro_torch.kernels.fused_read_candidates import \
+    fused_read_candidates as fused_read_cand_kernel
+from repro_torch.kernels.lsh_hash import lsh_hash as lsh_hash_kernel
 from repro_torch.kernels.scatter_rows import scatter_rows as scatter_rows_kernel
 from repro_torch.kernels.sparse_write import \
     sparse_write_update as sparse_write_kernel
@@ -51,36 +54,58 @@ def lra_topn(last_access: torch.Tensor, n: int, *, valid_n: int | None = None):
     return lra_topn_kernel(last_access, n, valid_n=valid_n)
 
 
+def lsh_hash(x: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+    """x: (..., W), planes: (T, bits, W) -> bucket ids (..., T) int32, the
+    signs of x's projections on each table's planes, packed
+    little-endian. Not differentiable (the caller detaches)."""
+    if _on_cpu(x):
+        return ref.lsh_hash_ref(x, planes)
+    shape = x.shape
+    ids = lsh_hash_kernel(x.reshape(-1, shape[-1]).contiguous(),
+                          planes.contiguous())
+    return ids.reshape(shape[:-1] + (planes.shape[0],))
+
+
 # --------------------------------------------------------------------------
-# The exact read
+# The reads: exact (a sweep of the memory) and over LSH candidates
 # --------------------------------------------------------------------------
 
-def _fused_read(q, mem, beta, k, valid_n):
+def _fused_read(q, mem, beta, k, valid_n, cand_idx):
+    if cand_idx is not None:
+        if _on_cpu(mem):
+            return ref.fused_read_candidates_ref(q, mem, beta, k, cand_idx)
+        return fused_read_cand_kernel(q, mem, beta, cand_idx, k=k)
     if _on_cpu(mem):
         return ref.fused_read_ref(q, mem, beta, k, valid_n=valid_n)
     return fused_read_sweep(q, mem, beta, k=k, valid_n=valid_n)
 
 
 def fused_read(q: torch.Tensor, mem: torch.Tensor, beta: torch.Tensor, k: int,
-               *, valid_n: int | None = None):
-    """The exact read. q: (B, H, W), mem: (B, rows, W), beta: (B, H) ->
-    (read (B, H, W), weights (B, H, K), indices (B, H, K) int32), sweeping
-    rows [0, valid_n). Differentiable in q, mem and beta; the selection is
-    not."""
+               *, valid_n: int | None = None,
+               cand_idx: torch.Tensor | None = None):
+    """The SAM read. q: (B, H, W), mem: (B, rows, W), beta: (B, H) ->
+    (read (B, H, W), weights (B, H, K), indices (B, H, K) int32).
+    Without ``cand_idx`` the exact read sweeps rows [0, valid_n). With
+    ``cand_idx`` (B, H, C), signed and pre-deduped (-1 = invalid), the ANN
+    read re-ranks those candidates only and returns *signed* indices.
+    Differentiable in q, mem and beta; the selection is not."""
     if _records(q, mem, beta):
-        return _FusedRead.apply(q, mem, beta, k, valid_n)
-    return _fused_read(q, mem, beta, k, valid_n)
+        return _FusedRead.apply(q, mem, beta, k, valid_n, cand_idx)
+    return _fused_read(q, mem, beta, k, valid_n, cand_idx)
 
 
 class _FusedRead(torch.autograd.Function):
-    """`_fused_read_sweep_vjp`: the backward re-derives the read's tail
-    from the recorded indices. It saves the K gathered rows, never the
-    memory, so later in-place writes leave it valid."""
+    """`_fused_read_sweep_vjp` and `_fused_read_cand_vjp`: the backward
+    re-derives the read's tail from the recorded (signed) indices. It
+    saves the K gathered rows, never the memory, so later in-place writes
+    leave it valid. An invalid selection (-1) gathers row 0 with weight
+    exactly 0 and gives it no gradient."""
 
     @staticmethod
-    def forward(ctx, q, mem, beta, k, valid_n):
-        read, w, idx = _fused_read(q, mem, beta, k, valid_n)
-        ctx.save_for_backward(q, beta, idx, ref.gather_rows(mem, idx))
+    def forward(ctx, q, mem, beta, k, valid_n, cand_idx):
+        read, w, idx = _fused_read(q, mem, beta, k, valid_n, cand_idx)
+        ctx.save_for_backward(q, beta, idx,
+                              ref.gather_rows(mem, idx.clamp_min(0)))
         ctx.mem_shape = mem.shape
         ctx.mark_non_differentiable(idx)
         return read, w, idx
@@ -88,18 +113,20 @@ class _FusedRead(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_read, g_w, _):
         q, beta, idx, words = ctx.saved_tensors
+        valid = idx >= 0
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_() for t in (q, words, beta)]
-            out = ref.read_tail_rows(*leaves, idx >= 0)
+            out = ref.read_tail_rows(*leaves, valid)
             g_q, g_words, g_beta = torch.autograd.grad(out, leaves,
                                                        (g_read, g_w))
         g_mem = None
         if ctx.needs_input_grad[1]:
             B, W = q.shape[0], q.shape[-1]
+            g_words = torch.where(valid[..., None], g_words, 0.0)
             g_mem = g_words.new_zeros(ctx.mem_shape)
-            _scatter_rows(g_mem, idx.reshape(B, -1),
+            _scatter_rows(g_mem, idx.clamp_min(0).reshape(B, -1),
                           g_words.reshape(B, -1, W), "add")
-        return g_q, g_mem, g_beta, None, None
+        return g_q, g_mem, g_beta, None, None, None
 
 
 # --------------------------------------------------------------------------

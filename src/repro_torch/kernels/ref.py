@@ -40,7 +40,11 @@ def topk_read_ref(q: torch.Tensor, mem: torch.Tensor, k: int):
 
 
 def gather_rows(mem: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """mem: (B, N, W), idx: (B, ...) int -> the rows idx names, (B, ..., W)."""
+    """mem: (B, R, W), idx: (B, ...) int with every index in [0, R) -> the
+    rows idx names, (B, ..., W). The index is not checked (this runs on the
+    card's main path, where a check would wait on the device): a signed
+    selection is clamped by its caller first. Python's wrap-around would
+    read a -1 as row R-1, the scratch row of a (B, N+1, W) buffer."""
     b = torch.arange(mem.shape[0], device=mem.device)
     b = b.view((-1,) + (1,) * (idx.dim() - 1))
     return mem[b, idx.long()]
@@ -70,6 +74,55 @@ def sparse_read_tail(q: torch.Tensor, mem: torch.Tensor, beta: torch.Tensor,
     valid = idx >= 0
     words = gather_rows(mem, idx.clamp_min(0))               # (B,H,K,W)
     return read_tail_rows(q, words, beta, valid)
+
+
+def dedup(idx: torch.Tensor) -> torch.Tensor:
+    """Mask repeated candidate ids with -1 along the last axis: the first
+    occurrence in position order stays, every later one becomes -1 (and a
+    -1 stays -1). The port of `repro/core/addressing.py::_dedup`: a stable
+    sort puts equal ids in position order, and an id is a repeat when its
+    sorted neighbour to the left is equal."""
+    s, order = torch.sort(idx, dim=-1, stable=True)
+    dup_sorted = torch.zeros_like(s, dtype=torch.bool)
+    dup_sorted[..., 1:] = s[..., 1:] == s[..., :-1]
+    dup = torch.empty_like(dup_sorted).scatter_(-1, order, dup_sorted)
+    return torch.where(dup, torch.full_like(idx, -1), idx)
+
+
+def candidate_topk(q: torch.Tensor, mem: torch.Tensor, k: int,
+                   cand_idx: torch.Tensor) -> torch.Tensor:
+    """The selection of the ANN read on a *pre-deduped* signed candidate
+    set cand_idx (B, H, C), -1 = invalid: re-rank the candidates by cosine
+    similarity (an invalid one at -1e9, so it is kept only when fewer than
+    K are valid) and keep the top K by (similarity desc, position asc).
+    Returns the signed indices (B, H, K) int32."""
+    cand = gather_rows(mem, cand_idx.clamp_min(0))             # (B,H,C,W)
+    sims = torch.einsum("bhw,bhcw->bhc", _normalize(q), _normalize(cand))
+    sims = torch.where(cand_idx < 0, _NEG, sims)
+    _, pos = torch.sort(sims, dim=-1, descending=True, stable=True)
+    return torch.gather(cand_idx, -1, pos[..., :k]).to(torch.int32)
+
+
+def fused_read_candidates_ref(q: torch.Tensor, mem: torch.Tensor,
+                              beta: torch.Tensor, k: int,
+                              cand_idx: torch.Tensor):
+    """The ANN read: `candidate_topk`, then `sparse_read_tail`. Returns
+    (read (B,H,W), weights (B,H,K), signed indices (B,H,K) int32); an
+    invalid selection has weight exactly 0."""
+    idx = candidate_topk(q.detach(), mem.detach(), k, cand_idx)
+    read, w = sparse_read_tail(q, mem, beta, idx)
+    return read, w, idx
+
+
+def lsh_hash_ref(x: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+    """x: (..., W), planes: (T, bits, W) -> bucket ids (..., T) int32: bit
+    i of table t is set where the projection on plane (t, i) is > 0 (a
+    zero row gives 0), packed little-endian."""
+    proj = torch.einsum("...w,tbw->...tb", x, planes)
+    bits = (proj > 0).to(torch.int32)
+    weights = 2 ** torch.arange(planes.shape[1], dtype=torch.int32,
+                                device=x.device)
+    return (bits * weights).sum(-1, dtype=torch.int32)
 
 
 def fused_read_ref(q: torch.Tensor, mem: torch.Tensor, beta: torch.Tensor,
@@ -119,9 +172,13 @@ def scatter_rows_ref(mem: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
     (B, J, W), in place. 'add': each target row takes its old value plus
     every column naming it, summed in j order (written once, by the first
     such column). 'set': each target row takes its last column's row.
-    Rows no index names are not touched. Returns ``mem``."""
+    Rows no index names are not touched. Returns ``mem``. Raises on an
+    index outside [0, R), which the CUDA kernel would skip."""
     B, J = idx.shape
     i = idx.long()
+    if ((i < 0) | (i >= mem.shape[1])).any():
+        raise ValueError(f"scatter_rows: an index lies outside [0, "
+                         f"{mem.shape[1]})")
     b = torch.arange(B, device=mem.device)[:, None].expand(B, J)
     if mode == "add":
         eq = i[:, :, None] == i[:, None, :]                   # (B, J, J)

@@ -6,9 +6,13 @@ decided inside the fixture, so every worker collects the same tests; on a
 machine without one each test skips. Sizes are small and N is ragged
 (not a multiple of any tile) so the masked tail runs.
 
-Tolerances: integers (indices, usage) exact; floats within 1e-5 (the
-kernels sum in another order than the plain versions, and the read's
-similarity is computed as (x·q̂)·|x|⁻¹ rather than x̂·q̂).
+Tolerances: integers (indices, usage, LSH bucket ids and index) exact;
+floats within 1e-5 (the kernels sum in another order than the plain
+versions, and the reads' similarity is computed as (x·q̂)·|x|⁻¹ rather
+than x̂·q̂). Two exceptions, each counted: a bucket-id bit may differ
+where the plain projection lies within 1e-6·|x|·|plane| of 0, and the
+candidate read may swap selections whose plain similarities lie within
+1e-6 of each other.
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ from repro_torch.core.types import (LA_SCRATCH, ControllerConfig,
                                     MemoryConfig)
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fused_read import fused_read_sweep
+from repro_torch.kernels.fused_read_candidates import fused_read_candidates
+from repro_torch.kernels.lsh_hash import lsh_hash
 from repro_torch.kernels.scatter_rows import scatter_rows
 from repro_torch.kernels.sparse_write import sparse_write_update
 from repro_torch.kernels.usage_argmin import lra_topn
@@ -181,14 +187,27 @@ def test_sparse_train_step_on_card_matches_cpu(dev):
     T recurrent steps carry the difference, to about 1e-8 at this size).
     The backward launches no sweep: the forward's T launches of each O(N)
     kernel are all there are."""
+    _train_step_on_card_matches_cpu(dev, "sam")
+
+
+def test_sam_ann_train_step_on_card_matches_cpu(dev):
+    """The same for the LSH cell: the forward launches the hash 2T times
+    and the candidate read, the LRA and the write T times each, the
+    backward none of them; the planes do not move."""
+    _train_step_on_card_matches_cpu(dev, "sam_ann")
+
+
+def _train_step_on_card_matches_cpu(dev, kind):
     from torch.utils import _pytree as pytree
 
     from repro_torch.core import training
     from repro_torch.data.tasks import copy_task
     from repro_torch.optim import optimizers as opt
     spec = training.ModelSpec(
-        "sam", MemoryConfig(num_slots=1000, word_size=32, num_heads=4, k=4),
+        kind, MemoryConfig(num_slots=1000, word_size=32, num_heads=4, k=4),
         ControllerConfig(input_size=10, hidden_size=32, output_size=8))
+    read = fused_read_candidates if kind == "sam_ann" else fused_read_sweep
+    kernels = (read, lra_topn, sparse_write_update, scatter_rows, lsh_hash)
     batch = copy_task(2, 5, 5, 8, generator=torch.Generator().manual_seed(0),
                       device="cpu")
     T = batch[0].shape[1]
@@ -199,19 +218,20 @@ def test_sparse_train_step_on_card_matches_cpu(dev):
         inputs, targets, mask = (t.to(device) for t in batch)
         leaves, treedef = pytree.tree_flatten(params)
         leaves = [p.clone().requires_grad_() for p in leaves]
-        counts = [k.launches for k in (fused_read_sweep, lra_topn,
-                                       sparse_write_update, scatter_rows)]
+        counts = [k.launches for k in kernels]
         _, ys = unroll(pytree.tree_unflatten(leaves, treedef),
                        init_s(2), inputs.transpose(0, 1))
         loss = training.bits_loss(ys, targets.transpose(0, 1),
                                   mask.transpose(0, 1))
-        grads = torch.autograd.grad(loss, leaves)
-        launched = [k.launches - c for k, c in zip(
-            (fused_read_sweep, lra_topn, sparse_write_update, scatter_rows),
-            counts)]
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g
+                 for x, g in zip(leaves, grads)]
+        launched = [k.launches - c for k, c in zip(kernels, counts)]
         _, _, step = training.make_task_train_step(spec, 1e-3, device=device)
         new_params, _, step_loss, _ = step(params, opt.rmsprop_init(params),
                                            inputs, targets, mask)
+        if kind == "sam_ann":               # fixed planes: not moved
+            assert torch.equal(new_params["lsh_planes"], params["lsh_planes"])
         out[device if device == "cpu" else "cuda"] = (
             loss.item(), [g.cpu() for g in grads],
             [p.cpu() for p in pytree.tree_leaves(new_params)],
@@ -224,6 +244,7 @@ def test_sparse_train_step_on_card_matches_cpu(dev):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
     assert launched[:3] == [T, T, T]
     assert launched[3] >= T
+    assert launched[4] == (2 * T if kind == "sam_ann" else 0)
 
 
 def test_kernels_raise_on_inputs_they_cannot_take(dev):
@@ -266,3 +287,187 @@ def test_sam_unroll_on_card_matches_cpu(dev):
         assert (y_gpu.cpu() - y_cpu).abs().max() <= TOL
     assert (fused_read_sweep.launches, sparse_write_update.launches,
             lra_topn.launches) == tuple(c + len(xs) for c in counts)
+
+
+# --------------------------------------------------------------------------
+# The LSH read: the signature hash and the candidate read
+# --------------------------------------------------------------------------
+
+NEAR_ZERO = NEAR_TIE = 1e-6
+
+
+def _hash_flips(x, planes, got, want):
+    """(bits that differ, of which not near 0): a bit may differ only where
+    the plain projection lies within 1e-6·|x|·|plane| of 0."""
+    bits = planes.shape[1]
+    proj = torch.einsum("rw,tbw->rtb", x, planes)
+    shift = torch.arange(bits, device=x.device, dtype=torch.int32)
+    diff = (((got ^ want)[..., None] >> shift) & 1).bool()
+    near = proj.abs() <= NEAR_ZERO * (x.norm(dim=-1)[:, None, None]
+                                      * planes.norm(dim=-1)[None])
+    return int(diff.sum()), int((diff & ~near).sum())
+
+
+@pytest.mark.parametrize("R,W,T,bits", [(32, 32, 4, 8), (160, 32, 4, 8),
+                                        (5000, 32, 4, 8), (333, 64, 2, 30),
+                                        (7, 4, 1, 1)])
+def test_lsh_hash_kernel_matches_plain(dev, R, W, T, bits):
+    gen = torch.Generator().manual_seed(R)
+    x = torch.randn((R, W), generator=gen)
+    x[:3] = 0.0                             # zero rows: exactly 0, id 0
+    x[3] = 1e-30                            # projections near 0
+    planes = torch.randn((T, bits, W), generator=gen)
+    x, planes = x.to(dev), planes.to(dev)
+    count = lsh_hash.launches
+    got = lsh_hash(x, planes)
+    want = ref.lsh_hash_ref(x, planes)
+    torch.cuda.synchronize()
+    assert lsh_hash.launches == count + 1
+    flips, far = _hash_flips(x, planes, got, want)
+    assert far == 0, f"{far} of {flips} differing bits are not near 0"
+    assert (got[:3] == 0).all() and (got >= 0).all()
+    assert (got < 2 ** bits).all()
+
+
+def test_lsh_hash_kernel_raises_on_inputs_it_cannot_take(dev):
+    x = torch.zeros((8, 32), device=dev)
+    planes = torch.zeros((4, 8, 32), device=dev)
+    with pytest.raises(ValueError, match="bits"):
+        lsh_hash(x, torch.zeros((1, 31, 32), device=dev))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        lsh_hash(torch.zeros((8, 6), device=dev),
+                 torch.zeros((4, 8, 6), device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        lsh_hash(torch.zeros((32, 8), device=dev).t(), planes)
+    with pytest.raises(ValueError, match="float32"):
+        lsh_hash(x.double(), planes)
+    with pytest.raises(ValueError, match="CUDA"):
+        lsh_hash(x.cpu(), planes.cpu())
+
+
+def _cand_inputs(rng, B, N, W, H, C, case):
+    q, mem, beta = _read_inputs(rng, B, N, W, H, "rand")
+    cand = rng.integers(0, N, (B, H, C)).astype(np.int32)
+    if case == "cold":                     # fewer than K valid candidates
+        cand[:] = -1
+        cand[0, 0, [1, C - 1]] = [5, N - 1]
+        cand[1, 2, C // 2] = 40
+    elif case == "zero":                   # every similarity ties at 0
+        mem[:] = 0.0
+        cand[:, :, ::3] = -1
+    elif case == "dup":                    # repeats, removed by dedup
+        cand[:, :, C // 2:] = cand[:, :, :C - C // 2]
+    return q, mem, beta, ref.dedup(torch.tensor(cand)).numpy()
+
+
+def _cand_near_ties(q, mem, idx, r_idx):
+    """Swapped selections, each allowed only at plain similarities within
+    1e-6 of each other (an invalid one scores -1e9)."""
+    diff = idx != r_idx
+    if not diff.any():
+        return 0
+
+    def sims(ix):
+        rows = ref.gather_rows(mem, ix.clamp_min(0))
+        s = torch.einsum("bhw,bhkw->bhk", ref._normalize(q),
+                         ref._normalize(rows))
+        return torch.where(ix < 0, -1e9, s)
+
+    gap = (sims(idx) - sims(r_idx)).abs()[diff].max().item()
+    assert gap <= NEAR_TIE, f"selections differ beyond a near-tie ({gap})"
+    return int(diff.sum())
+
+
+@pytest.mark.parametrize("C", [4, 148, 300])
+@pytest.mark.parametrize("case", ["rand", "cold", "zero", "dup"])
+def test_fused_read_candidates_kernel_matches_plain(dev, case, C):
+    """C = K (the edge: every candidate is selected), the step's C = 148,
+    and C > 128 candidates in two tiles."""
+    B, N, W, H, K = 3, 1000, 32, 4, 4
+    q, mem, beta, cand = (torch.tensor(x, device=dev) for x in _cand_inputs(
+        np.random.default_rng(C), B, N, W, H, C, case))
+    count = fused_read_candidates.launches
+    read, w, idx = fused_read_candidates(q, mem, beta, cand, k=K)
+    r_read, r_w, r_idx = ref.fused_read_candidates_ref(q, mem, beta, K, cand)
+    torch.cuda.synchronize()
+    assert fused_read_candidates.launches == count + 1
+    _cand_near_ties(q, mem, idx, r_idx)
+    t_read, t_w = ref.sparse_read_tail(q, mem, beta, idx)
+    assert (read - t_read).abs().max().item() <= TOL
+    assert (w - t_w).abs().max().item() <= TOL
+    assert (w[idx < 0] == 0).all()
+    if case == "cold":
+        assert sorted(idx[0, 0, :2].tolist()) == [5, N - 1]
+        assert (idx[0, 0, 2:] == -1).all() and (idx[0, 1] == -1).all()
+        assert (read[0, 1] == 0).all() and (w[0, 1] == 0).all()
+    if case in ("zero", "cold") or C == K:
+        assert torch.equal(idx, r_idx)     # exact ties: position order
+
+
+def test_fused_read_candidates_kernel_raises_on_inputs_it_cannot_take(dev):
+    q = torch.zeros((2, 4, 32), device=dev)
+    mem = torch.zeros((2, 65, 32), device=dev)
+    beta = torch.ones((2, 4), device=dev)
+    cand = torch.zeros((2, 4, 3), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="C >= k"):
+        fused_read_candidates(q, mem, beta, cand, k=4)
+    with pytest.raises(ValueError, match="int32"):
+        fused_read_candidates(q, mem, beta, cand.long(), k=2)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fused_read_candidates(torch.zeros((2, 4, 6), device=dev),
+                              torch.zeros((2, 65, 6), device=dev), beta, cand,
+                              k=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_read_candidates(q.cpu(), mem.cpu(), beta.cpu(), cand.cpu(), k=2)
+
+
+def _lsh_cfg(N, H=2, W=16):
+    return sam.SAMConfig(MemoryConfig(num_slots=N, word_size=W, num_heads=H,
+                                      k=4, ann="lsh"),
+                         ControllerConfig(input_size=6, hidden_size=16,
+                                          output_size=4))
+
+
+def test_lsh_sam_unroll_on_card_matches_cpu(dev):
+    """Eight LSH steps from a cold index, the card against the CPU: read
+    indices, usage table and the index exact, floats within 1e-5. Per step
+    the card launches the hash twice, the candidate read, the LRA and the
+    write once each, and the exact sweep never."""
+    cfg = _lsh_cfg(1000)
+    params = sam.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    xs = torch.tensor(np.random.default_rng(0).integers(0, 2, (8, 2, 6)),
+                      dtype=torch.float32)
+    s_cpu = sam.init_state(2, cfg, device="cpu")
+    s_gpu = sam.init_state(2, cfg, device=dev)
+    p_gpu = {g: ({n: v.to(dev) for n, v in t.items()}
+                 if isinstance(t, dict) else t.to(dev))
+             for g, t in params.items()}
+    kernels = (lsh_hash, fused_read_candidates, lra_topn,
+               sparse_write_update, fused_read_sweep)
+    counts = [k.launches for k in kernels]
+    for x in xs:
+        s_cpu, y_cpu = sam.sam_step(params, cfg, s_cpu, x)
+        s_gpu, y_gpu = sam.sam_step(p_gpu, cfg, s_gpu, x.to(dev))
+        assert torch.equal(s_gpu.read.indices.cpu(), s_cpu.read.indices)
+        assert torch.equal(s_gpu.last_access.cpu(), s_cpu.last_access)
+        assert torch.equal(s_gpu.ann.buckets.cpu(), s_cpu.ann.buckets)
+        assert torch.equal(s_gpu.ann.cursor.cpu(), s_cpu.ann.cursor)
+        assert (s_gpu.memory.cpu() - s_cpu.memory).abs().max() <= TOL
+        assert (y_gpu.cpu() - y_cpu).abs().max() <= TOL
+    T = len(xs)
+    assert [k.launches - c for k, c in zip(kernels, counts)] == \
+        [2 * T, T, T, T, 0]
+
+
+def test_lsh_ann_build_on_card_matches_cpu(dev):
+    from repro_torch.core import ann
+    cfg = _lsh_cfg(1000, W=32).memory
+    gen = torch.Generator().manual_seed(3)
+    planes = ann.lsh_planes(gen, cfg, device="cpu")
+    mem = torch.randn((2, 1001, 32), generator=gen)
+    mem[:, 100:200] = mem[:, 7:8]          # a bucket fuller than its ring
+    got = ann.ann_build(planes.to(dev), mem.to(dev), cfg)
+    want = ann.ann_build(planes, mem, cfg)
+    assert torch.equal(got.buckets.cpu(), want.buckets)
+    assert torch.equal(got.cursor.cpu(), want.cursor)

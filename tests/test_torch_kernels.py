@@ -13,8 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import addressing as jaddr
 from repro.kernels import ref as jref
+from repro.kernels.fused_read import \
+    fused_read_candidates as pallas_read_cand
 from repro.kernels.fused_read import fused_read_sweep as pallas_read
+from repro.kernels.lsh_hash import lsh_hash as pallas_hash
 from repro.kernels.scatter_rows import first_occurrence as jax_first
 from repro.kernels.scatter_rows import scatter_rows as pallas_scatter
 from repro.kernels.sparse_write import sparse_write_update as pallas_write
@@ -226,3 +230,98 @@ def test_ops_refuse_devices_without_a_kernel():
     la = torch.zeros((2, 9), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         ops.lra_topn(la, 2, valid_n=8)
+
+
+def test_scatter_rows_ref_raises_on_an_index_outside_the_buffer():
+    """One contract for every index: [0, R). A -1 (an invalid LSH
+    selection) would wrap to the scratch row; the plain version raises on
+    it, and on R, before it touches the buffer."""
+    mem, idx, rows = (torch.tensor(x) for x in _scatter_inputs("some", N + 1))
+    before = mem.clone()
+    for bad in (-1, N + 1):
+        idx[1, 3] = bad
+        for mode in ("add", "set"):
+            with pytest.raises(ValueError, match="outside"):
+                ops.scatter_rows(mem, idx, rows, mode)
+    assert torch.equal(mem, before)
+
+
+# --------------------------------------------------------------------------
+# The LSH read's kernels: the signature hash and the candidate read
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("R,W_,T,bits", [(10, 16, 2, 4), (300, 64, 4, 8)])
+def test_lsh_hash_matches_jax_ref_and_pallas(R, W_, T, bits):
+    """Bucket ids bit for bit (the shapes of `tests/test_kernels.py::
+    test_lsh_hash_sweep`); zero rows project to exactly 0 and hash to 0."""
+    rng = np.random.default_rng(R)
+    x = rng.standard_normal((R, W_)).astype(np.float32)
+    x[:3] = 0.0
+    planes = rng.standard_normal((T, bits, W_)).astype(np.float32)
+    got = ops.lsh_hash(torch.tensor(x), torch.tensor(planes))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (R, T)
+    for want in (jref.lsh_hash_ref(jnp.asarray(x), jnp.asarray(planes)),
+                 pallas_hash(jnp.asarray(x), jnp.asarray(planes),
+                             interpret=True)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got[:3] == 0).all() and (got < 2 ** bits).all()
+    # Leading dimensions pass through, as in the JAX op.
+    got3 = ops.lsh_hash(torch.tensor(x[:10]).reshape(2, 5, W_),
+                        torch.tensor(planes))
+    assert torch.equal(got3.reshape(10, T), got[:10])
+
+
+def test_dedup_matches_jax():
+    rng = np.random.default_rng(4)
+    idx = rng.integers(-1, 6, (3, 2, 17)).astype(np.int32)
+    idx[0, 0] = -1                          # every entry invalid
+    idx[1, 1] = 3                           # every entry one row
+    got = ref.dedup(torch.tensor(idx))
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jaddr._dedup(jnp.asarray(idx))))
+    np.testing.assert_array_equal(got[1, 1].numpy(), [3] + [-1] * 16)
+    assert (got[0, 0] == -1).all()
+
+
+def _cand_inputs(case, seed=0, C=12):
+    """Candidates over rows [0, N) as the LSH read gets them: pre-deduped,
+    -1 = invalid."""
+    rng = np.random.default_rng(seed)
+    q, mem, beta = _read_inputs("rand", seed)
+    cand = rng.integers(0, N, (B, H, C)).astype(np.int32)
+    if case == "cold":                     # fewer than K valid candidates
+        cand[:] = -1
+        cand[0, 0, [2, 7]] = [5, 9]
+        cand[1, 1, 11] = 40
+    elif case == "zero":                   # every similarity ties at 0
+        mem[:] = 0.0
+        cand[:, :, ::3] = -1
+    elif case == "dup":                    # repeats, then dedup
+        cand[:, :, 6:] = cand[:, :, :6]
+        cand[:, :, 3] = -1
+    cand = np.asarray(jaddr._dedup(jnp.asarray(cand)))
+    return q, mem, beta, cand
+
+
+@pytest.mark.parametrize("case", ["rand", "cold", "zero", "dup"])
+def test_fused_read_candidates_matches_jax_ref_and_pallas(case):
+    q, mem, beta, cand = _cand_inputs(case)
+    got = ops.fused_read(torch.tensor(q), torch.tensor(mem),
+                         torch.tensor(beta), K, cand_idx=torch.tensor(cand))
+    args = [jnp.asarray(x) for x in (q, mem, beta)]
+    want_ref = jref.fused_read_candidates_ref(*args, K, jnp.asarray(cand))
+    want_pl = pallas_read_cand(*args, jnp.asarray(cand), k=K, interpret=True)
+    for want in (want_ref, want_pl):
+        _close(got[0], want[0])
+        _close(got[1], want[1])
+        np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    valid = got[2] >= 0
+    assert (got[1][~valid] == 0).all()
+    if case == "cold":                     # the valid ones, then -1s
+        assert sorted(got[2][0, 0, :2].tolist()) == [5, 9]
+        assert (got[2][0, 0, 2:] == -1).all()
+        np.testing.assert_array_equal(got[2][1, 1].numpy(), [40, -1, -1, -1])
+        assert (got[0][0, 1] == 0).all() and (got[1][0, 1] == 0).all()
+    if case == "zero":                     # ties at 0: the first K valid
+        first = np.stack([[c[c >= 0][:K] for c in row] for row in cand])
+        np.testing.assert_array_equal(got[2].numpy(), first)

@@ -138,10 +138,13 @@ def test_convert_keeps_orientation_and_rejects_other_models():
     np.testing.assert_array_equal(params["iface"]["w"].numpy(),
                                   jparams["iface"]["w"])      # (in, out)
     with pytest.raises(ValueError, match="expected groups"):
+        convert.params_from_jax({**jparams, "dnc": {"w": np.zeros(3)}},
+                                device="cpu")
+    with pytest.raises(ValueError, match="lsh_planes must be"):
         convert.params_from_jax({**jparams, "lsh_planes": np.zeros(3)},
                                 device="cpu")
     jstate = _numpy(jsam.init_state(B, jcfg))
-    with pytest.raises(ValueError, match="exact-read"):
+    with pytest.raises(ValueError, match="f32-row"):
         convert.state_from_jax(jstate._replace(mem_scale=np.zeros(3)),
                                device="cpu")
 

@@ -12,10 +12,14 @@ runs under the ``ref`` and the ``pallas-interpret`` backends.
   against `jax.grad` of the JAX `unroll` in naive and in sparse mode, for a
   loss that reads the outputs, the final memory and the final controller
   state; gradients reach the parameters, xs, the initial memory and the
-  initial small state. The rollback leaves the memory as it found it.
+  initial small state. The rollback leaves the memory as it found it. The
+  same for the LSH cell (kind ``sam_ann``: 2 tables of 3 bits, buckets of
+  8, the index built from the initial memory), whose fixed planes get a
+  zero gradient.
 * `residual_accounting` against JAX's.
 * Three `make_task_train_step` steps from the same weights, optimizer state
-  and batches; `rmsprop_update` and `clip_by_global_norm`.
+  and batches, for ``sam`` and ``sam_ann`` (planes unchanged bit for bit);
+  `rmsprop_update` and `clip_by_global_norm`.
 
 Tolerances. Forward floats (outputs, losses) within 1e-5. Gradients within
 GRAD_ATOL = GRAD_RTOL = 1e-5 — tighter than the JAX suite's own bar between
@@ -34,6 +38,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro.core import addressing as jaddr
+from repro.core import ann as jann
 from repro.core import unroll as junroll
 from repro.core.cell import SAMCell as JaxSAMCell
 from repro.core.sam import SAMConfig as JaxSAMConfig
@@ -73,17 +78,26 @@ def _numpy(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def _jax_cfg(backend):
+# The LSH index of the ``sam_ann`` cases: small, so buckets fill and wrap.
+LSH = dict(lsh_tables=2, lsh_bits=3, lsh_bucket_size=8)
+
+
+def _jax_cfg(backend, ann="exact"):
     return JaxSAMConfig(
         JaxMemoryConfig(num_slots=N, word_size=W, num_heads=H, k=K,
-                        backend=backend),
+                        backend=backend, ann=ann, **LSH),
         JaxControllerConfig(input_size=BITS + 2, hidden_size=HIDDEN,
                             output_size=BITS))
 
 
-CFG = SAMConfig(MemoryConfig(num_slots=N, word_size=W, num_heads=H, k=K),
-                ControllerConfig(input_size=BITS + 2, hidden_size=HIDDEN,
-                                 output_size=BITS))
+def _port_cfg(ann="exact"):
+    return SAMConfig(MemoryConfig(num_slots=N, word_size=W, num_heads=H, k=K,
+                                  ann=ann, **LSH),
+                     ControllerConfig(input_size=BITS + 2, hidden_size=HIDDEN,
+                                      output_size=BITS))
+
+
+CFG = _port_cfg()
 
 
 # --------------------------------------------------------------------------
@@ -194,17 +208,22 @@ def test_finish_candidate_read_matches_jax_with_signed_indices():
 # Unroll gradients: the port's three modes against JAX's naive and sparse
 # --------------------------------------------------------------------------
 
-def _unroll_inputs(seed=0):
+def _unroll_inputs(seed=0, ann="exact"):
     """Weights from the JAX init; a random initial memory (scratch row
     zero), controller state and read weights (the all-zero initial read
     indices then make every step-1 write hit row 0 K times per head); xs
-    and the loss weights from numpy."""
+    and the loss weights from numpy. An LSH cell's index is JAX's
+    `ann_build` of the initial memory."""
     rng = np.random.default_rng(seed)
-    jparams = _numpy(JaxSAMCell(_jax_cfg("ref")).init_params(
-        jax.random.PRNGKey(seed)))
-    jstate = _numpy(JaxSAMCell(_jax_cfg("ref")).init_state(B))
+    jcell = JaxSAMCell(_jax_cfg("ref", ann))
+    jparams = _numpy(jcell.init_params(jax.random.PRNGKey(seed)))
+    jstate = _numpy(jcell.init_state(B))
     mem = rng.standard_normal((B, N + 1, W)).astype(np.float32)
     mem[:, N] = 0.0
+    if ann == "lsh":
+        jstate = jstate._replace(ann=_numpy(jann.ann_build(
+            jnp.asarray(jparams["lsh_planes"]), jnp.asarray(mem),
+            jcell.cfg.memory, partitions=1)))
     floats = dict(
         memory=mem,
         h=0.5 * rng.standard_normal((B, HIDDEN)).astype(np.float32),
@@ -227,10 +246,10 @@ def _jax_state(jstate, f):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_unroll_grads(backend, mode):
+def _jax_unroll_grads(backend, mode, ann="exact"):
     """(loss, ys, grads as numpy: params tree, the FLOAT_NAMES, xs)."""
-    jparams, jstate, floats, xs, (r_mem, r_h) = _unroll_inputs()
-    cell = JaxSAMCell(_jax_cfg(backend))
+    jparams, jstate, floats, xs, (r_mem, r_h) = _unroll_inputs(ann=ann)
+    cell = JaxSAMCell(_jax_cfg(backend, ann))
 
     def loss(p, f, x):
         final, ys = junroll.unroll(cell, p, _jax_state(jstate, f), x,
@@ -243,8 +262,8 @@ def _jax_unroll_grads(backend, mode):
     return float(val), np.asarray(ys), _numpy(grads)
 
 
-def _port_unroll_grads(mode, chunk):
-    jparams, jstate, floats, xs, (r_mem, r_h) = _unroll_inputs()
+def _port_unroll_grads(mode, chunk, ann="exact"):
+    jparams, jstate, floats, xs, (r_mem, r_h) = _unroll_inputs(ann=ann)
     params = convert.params_from_jax(jparams, device="cpu")
     p_leaves, p_spec = pytree.tree_flatten(params)
     p_leaves = [p.requires_grad_() for p in p_leaves]
@@ -256,16 +275,43 @@ def _port_unroll_grads(mode, chunk):
     state0 = s0._replace(
         memory=f["memory"].clone(), ctrl=LSTMState(h=f["h"], c=f["c"]),
         read=s0.read._replace(words=f["words"], weights=f["weights"]))
-    final, ys = unroll.unroll(SAMCell(CFG), params, state0, x, mode=mode,
-                              chunk=chunk)
+    final, ys = unroll.unroll(SAMCell(_port_cfg(ann)), params, state0, x,
+                              mode=mode, chunk=chunk)
     loss = ((ys ** 2).sum() + (final.memory * torch.tensor(r_mem)).sum()
             + (final.ctrl.h * torch.tensor(r_h)).sum())
-    grads = torch.autograd.grad(
-        loss, [*p_leaves, *(f[k] for k in FLOAT_NAMES), x])
+    # The naive unroll never reaches the planes: their gradient is None.
+    inputs = [*p_leaves, *(f[k] for k in FLOAT_NAMES), x]
+    grads = [torch.zeros_like(i) if g is None else g for i, g in zip(
+        inputs, torch.autograd.grad(loss, inputs, allow_unused=True))]
     g_params = pytree.tree_unflatten(list(grads[:len(p_leaves)]), p_spec)
     g_floats = dict(zip(FLOAT_NAMES, grads[len(p_leaves):-1]))
     return (loss.item(), ys.detach(), g_params, g_floats, grads[-1],
             state0.memory.detach(), floats["memory"])
+
+
+def _check_unroll_grads(mode, chunk, backend, ann="exact"):
+    loss, ys, g_params, g_floats, g_xs, mem_after, mem0 = \
+        _port_unroll_grads(mode, chunk, ann)
+    if mode != "naive":
+        # The rollback restored the initial memory bit for bit.
+        np.testing.assert_array_equal(mem_after.numpy(), mem0)
+    for j_mode in ("naive", "sparse"):
+        j_loss, j_ys, (jg_params, jg_floats, jg_xs) = \
+            _jax_unroll_grads(backend, j_mode, ann)
+        _close(ys, j_ys)
+        np.testing.assert_allclose(loss, j_loss, rtol=TOL)
+        assert g_params.keys() == jg_params.keys()
+        for group, leaves in jg_params.items():
+            if group == "lsh_planes":         # fixed: zero on both sides
+                assert (leaves == 0).all()
+                assert (g_params[group] == 0).all()
+                continue
+            for name, want in leaves.items():
+                _close(g_params[group][name], want, GRAD_ATOL, GRAD_RTOL)
+        _close(g_floats["memory"], jg_floats["memory"], GRAD_ATOL, GRAD_RTOL)
+        for name in FLOAT_NAMES[1:]:
+            _close(g_floats[name], jg_floats[name], GRAD_ATOL, GRAD_RTOL)
+        _close(g_xs, jg_xs, GRAD_ATOL, GRAD_RTOL)
 
 
 @pytest.mark.parametrize("backend", BACKENDS)
@@ -274,23 +320,19 @@ def _port_unroll_grads(mode, chunk):
     ("chunked", T), ("chunked", "auto")],
     ids=["naive", "sparse", "chunked1", "chunked3", "chunkedT", "auto"])
 def test_unroll_grads_match_jax(mode, chunk, backend):
-    loss, ys, g_params, g_floats, g_xs, mem_after, mem0 = \
-        _port_unroll_grads(mode, chunk)
-    if mode != "naive":
-        # The rollback restored the initial memory bit for bit.
-        np.testing.assert_array_equal(mem_after.numpy(), mem0)
-    for j_mode in ("naive", "sparse"):
-        j_loss, j_ys, (jg_params, jg_floats, jg_xs) = \
-            _jax_unroll_grads(backend, j_mode)
-        _close(ys, j_ys)
-        np.testing.assert_allclose(loss, j_loss, rtol=TOL)
-        for group, leaves in jg_params.items():
-            for name, want in leaves.items():
-                _close(g_params[group][name], want, GRAD_ATOL, GRAD_RTOL)
-        _close(g_floats["memory"], jg_floats["memory"], GRAD_ATOL, GRAD_RTOL)
-        for name in FLOAT_NAMES[1:]:
-            _close(g_floats[name], jg_floats[name], GRAD_ATOL, GRAD_RTOL)
-        _close(g_xs, jg_xs, GRAD_ATOL, GRAD_RTOL)
+    _check_unroll_grads(mode, chunk, backend)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("mode,chunk", [
+    ("naive", None), ("sparse", None), ("chunked", 1), ("chunked", 3),
+    ("chunked", T)],
+    ids=["naive", "sparse", "chunked1", "chunked3", "chunkedT"])
+def test_sam_ann_unroll_grads_match_jax(mode, chunk, backend):
+    """The LSH cell: the chunked recompute must start each segment from
+    the index as it was at the segment's start, or it selects other
+    candidates and its gradients differ."""
+    _check_unroll_grads(mode, chunk, backend, ann="lsh")
 
 
 def test_sparse_backward_launches_no_selection():
@@ -405,27 +447,26 @@ def _acc_like(jparams, rng):
         jparams)
 
 
-@pytest.mark.parametrize("backend,bptt_chunk", [
-    ("ref", None), ("pallas-interpret", None), ("ref", 3)],
-    ids=["ref-sparse", "pallas-interpret-sparse", "ref-chunked3"])
-def test_three_train_steps_match_jax(backend, bptt_chunk):
+def _three_train_steps(kind, backend, bptt_chunk):
+    """Three steps of the port and of JAX from the same weights, optimizer
+    state and batches: losses, bit errors, weights and accumulators. An
+    LSH cell's planes must come out bit for bit as they went in."""
     rng = np.random.default_rng(7)
     lr, max_len = 1e-3, 3
-    mem = JaxMemoryConfig(num_slots=N, word_size=W, num_heads=H, k=K,
-                          backend=backend)
-    ctl = JaxControllerConfig(input_size=BITS + 2, hidden_size=HIDDEN,
-                              output_size=BITS)
+    ann = "lsh" if kind == "sam_ann" else "exact"
+    jcfg = _jax_cfg(backend, ann)
     j_init, _, j_step = jax_train_step(
-        JaxModelSpec("sam", mem, ctl, bptt_chunk=bptt_chunk), lr)
-    spec = training.ModelSpec(
-        "sam", MemoryConfig(num_slots=N, word_size=W, num_heads=H, k=K),
-        ControllerConfig(input_size=BITS + 2, hidden_size=HIDDEN,
-                         output_size=BITS), bptt_chunk=bptt_chunk)
+        JaxModelSpec(kind, jcfg.memory, jcfg.controller,
+                     bptt_chunk=bptt_chunk), lr)
+    cfg = _port_cfg()                  # build_model sets ann from the kind
+    spec = training.ModelSpec(kind, cfg.memory, cfg.controller,
+                              bptt_chunk=bptt_chunk)
     _, _, step = training.make_task_train_step(spec, lr, device="cpu")
     jparams = _numpy(j_init(jax.random.PRNGKey(3)))
     j_opt = jopt.RMSPropState(acc=_acc_like(jparams, rng))
     params = convert.params_from_jax(jparams, device="cpu")
     opt_state = convert.opt_state_from_jax(j_opt, device="cpu")
+    planes0 = params.get("lsh_planes")
     j_step = jax.jit(j_step)
     for length in (3, 1, 2):
         seq = rng.integers(0, 2, (B, max_len, BITS))
@@ -435,11 +476,31 @@ def test_three_train_steps_match_jax(backend, bptt_chunk):
         params, opt_state, loss, err = step(params, opt_state, *batch)
         np.testing.assert_allclose(loss.item(), float(j_loss), rtol=TOL)
         assert err.item() == float(j_err)
-        for group, leaves in _numpy(jparams).items():
-            for name, want in leaves.items():
-                _close(params[group][name], want)
-                _close(opt_state.acc[group][name],
-                       np.asarray(j_opt.acc[group][name]))
+        for got, want in ((params, jparams), (opt_state.acc, j_opt.acc)):
+            assert got.keys() == want.keys()
+            for group, leaves in _numpy(want).items():
+                if group == "lsh_planes":
+                    _close(got[group], leaves)
+                    continue
+                for name, leaf in leaves.items():
+                    _close(got[group][name], leaf)
+    if kind == "sam_ann":
+        assert torch.equal(params["lsh_planes"], planes0)
+        np.testing.assert_array_equal(jparams["lsh_planes"], planes0.numpy())
+
+
+@pytest.mark.parametrize("backend,bptt_chunk", [
+    ("ref", None), ("pallas-interpret", None), ("ref", 3)],
+    ids=["ref-sparse", "pallas-interpret-sparse", "ref-chunked3"])
+def test_three_train_steps_match_jax(backend, bptt_chunk):
+    _three_train_steps("sam", backend, bptt_chunk)
+
+
+@pytest.mark.parametrize("backend,bptt_chunk", [
+    ("ref", None), ("pallas-interpret", None), ("ref", 3)],
+    ids=["ref-sparse", "pallas-interpret-sparse", "ref-chunked3"])
+def test_three_sam_ann_train_steps_match_jax(backend, bptt_chunk):
+    _three_train_steps("sam_ann", backend, bptt_chunk)
 
 
 @pytest.mark.parametrize("max_norm", [0.5, 1e3], ids=["clipped", "unclipped"])
@@ -486,15 +547,22 @@ def test_curriculum_copy_matches_jax():
 
 def test_build_model_sends_sam_to_the_rollback_engine_and_refuses_others():
     mem, ctl = CFG.memory, CFG.controller
-    for kind in ("dam", "ntm", "dnc", "sdnc", "sam_ann", "lstm"):
+    for kind in ("dam", "ntm", "dnc", "sdnc", "lstm"):
         with pytest.raises(ValueError, match="not ported"):
             training.build_model(training.ModelSpec(kind, mem, ctl))
-    modes = [training.build_model(training.ModelSpec("sam", mem, ctl, **kw),
-                                  device="cpu")[2].keywords
-             for kw in ({}, {"bptt_chunk": 4}, {"sparse_bptt": False})]
-    assert modes == [{"mode": "sparse", "chunk": None},
-                     {"mode": "chunked", "chunk": 4},
-                     {"mode": "naive", "chunk": None}]
+    for kind in ("sam", "sam_ann"):
+        modes = [training.build_model(training.ModelSpec(kind, mem, ctl, **kw),
+                                      device="cpu")[2].keywords
+                 for kw in ({}, {"bptt_chunk": 4}, {"sparse_bptt": False})]
+        assert modes == [{"mode": "sparse", "chunk": None},
+                         {"mode": "chunked", "chunk": 4},
+                         {"mode": "naive", "chunk": None}]
+    # sam_ann is the SAM cell with the LSH read, whatever ``ann`` says.
+    init_p, init_s, unroll_fn = training.build_model(
+        training.ModelSpec("sam_ann", mem, ctl), device="cpu")
+    assert unroll_fn.args[0].cfg.memory.ann == "lsh"
+    assert "lsh_planes" in init_p(torch.Generator().manual_seed(0))
+    assert init_s(B).ann is not None
 
 
 def test_train_task_is_seeded_and_learns_nothing_wild():
