@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Drives the SAM cell — the copy task at the paper's widths (controller 100,
-H = K = 4, W = 32, δ = 0.005, f32 rows) with N = 2^20 memory rows, B = 8
-and T = 42 — through the six hand-written CUDA kernels, forward and in
+H = K = 4, W = 32, δ = 0.005) with N = 2^20 memory rows, B = 8 and T = 42
+— through the hand-written CUDA kernels: on f32 rows forward and in
 training, with the exact read and with the LSH read (kind ``sam_ann``: 4
 tables of 8 bits, buckets of 32, so C = 4·32 + 20 = 148 candidates per
-head), and fails (nonzero exit) if any phase fails:
+head), and on bf16 and int8 rows forward, with both reads; it fails
+(nonzero exit) if any phase fails:
 
 1. build the kernels from `src/repro_torch/kernels/csrc/` with nvcc for
    sm_90a and print each kernel's registers, shared memory and spills;
@@ -58,11 +59,25 @@ head), and fails (nonzero exit) if any phase fails:
    steps' ms (forward and backward apart) and peak memory, the exact one
    beside `residual_accounting(mode="sparse")` plus the one dense memory
    cotangent;
-7. print the card, one JSON line of per-kernel numbers, and last the
+7. bf16 and int8 rows (``mem_dtype``), for each of (bf16, int8) × (exact,
+   LSH), at the same widths and seed:
+   a. the write (bf16: `sparse_write_update`; int8: `sparse_write_update_q`)
+      and the read (the sweep or the candidate read on bf16 or int8 rows)
+      against their plain versions on the inputs of a real rollout, the
+      cold first step and step 21, and the write on a case heavy in
+      duplicates (every column on rows 0-2);
+   b. the forward rollout (`SAM.forward`, T = 42) in lockstep, with the
+      launch count of every kernel and instantiation exact: per step the
+      write, the read and the LRA once, the hash twice (LSH), nothing else;
+   c. each instantiation's time against its bound, the plain version's
+      time, the rollout's host ms/step, device ms/step (`torch.profiler`)
+      and peak memory beside the state's size;
+8. print the card, one JSON line of per-kernel numbers, and last the
    ``{"ok": true, ...}`` line.
 
 Tolerances: integer outputs exact; forward floats within 1e-5 (other
-summation order, rsqrt rounding). Read indices may differ from the plain
+summation order, rsqrt rounding); the bf16 and int8 writes bit for bit
+(bf16 rows, int8 codes and scales). Read indices may differ from the plain
 version's only where the plain similarities of the swapped rows lie within
 1e-6 of each other; each such near-tie is counted and printed. A bucket id
 of the hash may differ only in bits whose plain projection lies within
@@ -113,7 +128,35 @@ REPLACES = {
     "fused_read_candidates": (
         "src/repro/kernels/fused_read.py:210",
         "src/repro_torch/kernels/csrc/fused_read_candidates.cu"),
+    # The storage dtypes (phase 7): instantiations of the read and write
+    # kernels for bf16 and int8 rows, and the int8 write (_kernel_q).
+    "sparse_write_update_bf16": (
+        "src/repro/kernels/sparse_write.py:68",
+        "src/repro_torch/kernels/csrc/sparse_write.cu"),
+    "sparse_write_update_q": ("src/repro/kernels/sparse_write.py:90",
+                              "src/repro_torch/kernels/csrc/sparse_write.cu"),
+    "fused_read_sweep_bf16": ("src/repro/kernels/fused_read.py:85",
+                              "src/repro_torch/kernels/csrc/fused_read.cu"),
+    "fused_read_sweep_int8": ("src/repro/kernels/fused_read.py:85",
+                              "src/repro_torch/kernels/csrc/fused_read.cu"),
+    "fused_read_candidates_bf16": (
+        "src/repro/kernels/fused_read.py:210",
+        "src/repro_torch/kernels/csrc/fused_read_candidates.cu"),
+    "fused_read_candidates_int8": (
+        "src/repro/kernels/fused_read.py:210",
+        "src/repro_torch/kernels/csrc/fused_read_candidates.cu"),
 }
+SUFFIX = {"bfloat16": "_bf16", "int8": "_int8"}
+
+
+def kernel_name(base: str, mem: torch.Tensor) -> str:
+    """The REPLACES name of kernel ``base`` on ``mem``'s row dtype."""
+    dtype = str(mem.dtype)[6:]
+    if dtype == "float32":
+        return base
+    if base == "sparse_write_update" and dtype == "int8":
+        return "sparse_write_update_q"
+    return base + SUFFIX[dtype]
 FORWARD = ("fused_read_sweep", "sparse_write_update", "lra_topn")
 # Launches of one LSH step (the exact sweep: none).
 LSH_STEP = {"lsh_hash": 2, "fused_read_candidates": 1, "lra_topn": 1,
@@ -152,7 +195,7 @@ class Checker:
         want = self.ref.lra_topn_ref(la[:, :valid_n], n)
         require(torch.equal(out, want), "lra_topn differs from its plain version")
 
-    def _selection(self, name, q, mem, idx, r_idx):
+    def _selection(self, name, q, mem, idx, r_idx, mem_scale=None):
         """Swapped selections only at plain similarities within NEAR_TIE
         (signed indices: -1 scores -1e9)."""
         diff = idx != r_idx
@@ -160,7 +203,7 @@ class Checker:
             return
 
         def sims(ix):
-            rows = self.ref.gather_rows(mem, ix.clamp_min(0))
+            rows = self.ref.gather_words(mem, ix.clamp_min(0), mem_scale)
             s = torch.einsum("bhw,bhkw->bhk", self.ref._normalize(q),
                              self.ref._normalize(rows))
             return torch.where(ix < 0, -1e9, s)
@@ -170,10 +213,10 @@ class Checker:
                                  f"(similarity gap {gap:.3g})")
         self.near_ties += int(diff.sum().item())
 
-    def _tail(self, name, q, mem, beta, out):
+    def _tail(self, name, q, mem, beta, out, mem_scale=None):
         """The floats, held against the plain tail on the kernel's rows."""
         read, w, idx = (t.detach() for t in out)
-        t_read, t_w = self.ref.sparse_read_tail(q, mem, beta, idx)
+        t_read, t_w = self.ref.sparse_read_tail(q, mem, beta, idx, mem_scale)
         err = max((read - t_read).abs().max().item(),
                   (w - t_w).abs().max().item())
         require(err <= TOL, f"{name} float error {err:.3g}")
@@ -181,15 +224,18 @@ class Checker:
                 f"{name} gave an invalid selection a weight")
         self.err[name] = max(self.err[name], err)
 
-    def read(self, q, mem, beta, k, valid_n, out):
-        _, _, r_idx = self.ref.fused_read_ref(q, mem, beta, k, valid_n=valid_n)
-        self._selection("fused_read_sweep", q, mem, out[2], r_idx)
-        self._tail("fused_read_sweep", q, mem, beta, out)
+    def read(self, q, mem, beta, k, valid_n, out, mem_scale=None):
+        name = kernel_name("fused_read_sweep", mem)
+        _, _, r_idx = self.ref.fused_read_ref(q, mem, beta, k, valid_n=valid_n,
+                                              mem_scale=mem_scale)
+        self._selection(name, q, mem, out[2], r_idx, mem_scale)
+        self._tail(name, q, mem, beta, out, mem_scale)
 
-    def read_cand(self, q, mem, beta, k, cand, out):
-        r_idx = self.ref.candidate_topk(q, mem, k, cand)
-        self._selection("fused_read_candidates", q, mem, out[2], r_idx)
-        self._tail("fused_read_candidates", q, mem, beta, out)
+    def read_cand(self, q, mem, beta, k, cand, out, mem_scale=None):
+        name = kernel_name("fused_read_candidates", mem)
+        r_idx = self.ref.candidate_topk(q, mem, k, cand, mem_scale)
+        self._selection(name, q, mem, out[2], r_idx, mem_scale)
+        self._tail(name, q, mem, beta, out, mem_scale)
 
     def hash(self, x, planes, out):
         """x: (R, W), out: (R, T). Bits may differ only where the plain
@@ -208,15 +254,30 @@ class Checker:
             self.near_zero_bits += int(diff.sum().item())
 
     def write(self, before, after):
+        """``before``: clones of the write's arguments (mem, la, widx, ww,
+        a, lra, step, delta[, mem_scale]); ``after``: the kernel's result.
+        f32 rows within TOL; bf16 rows, int8 codes and scales and the usage
+        table bit for bit."""
+        name = kernel_name("sparse_write_update", before[0])
         m_ref, l_ref = before[0].clone(), before[1].clone()
-        self.ref.sparse_write_update_ref(m_ref, l_ref, *before[2:7],
-                                         delta=before[7])
-        require(torch.equal(after[1], l_ref),
-                "sparse_write_update usage table differs")
-        err = (after[0] - m_ref).abs().max().item()
-        require(err <= TOL, f"sparse_write_update float error {err:.3g}")
-        self.err["sparse_write_update"] = max(
-            self.err["sparse_write_update"], err)
+        scale = before[8] if len(before) > 8 else None
+        if scale is None:
+            self.ref.sparse_write_update_ref(m_ref, l_ref, *before[2:7],
+                                             delta=before[7])
+        else:
+            s_ref = scale.clone()
+            self.ref.sparse_write_update_q_ref(m_ref, s_ref, l_ref,
+                                               *before[2:7], before[7])
+            require(torch.equal(after[2], s_ref),
+                    f"{name}: scales differ from the plain version's")
+        require(torch.equal(after[1], l_ref), f"{name} usage table differs")
+        err = (after[0].float() - m_ref.float()).abs().max().item()
+        if m_ref.dtype == torch.float32:
+            require(err <= TOL, f"{name} float error {err:.3g}")
+        else:
+            require(torch.equal(after[0], m_ref), f"{name}: rows differ from "
+                    f"the plain version's bit for bit (max err {err:.3g})")
+        self.err[name] = max(self.err[name], err)
 
     def scatter(self, before, idx, rows, mode, after):
         """``before``: a copy of the buffer the kernel got, which the plain
@@ -262,18 +323,23 @@ class Intercept:
                 self.checker.lra(la, n, valid_n, out)
             return out
 
-        def fused_read(q, mem, beta, k, *, valid_n=None, cand_idx=None):
+        def fused_read(q, mem, beta, k, *, valid_n=None, cand_idx=None,
+                       mem_scale=None):
             if cand_idx is not None:
-                self._keep("fused_read_candidates", (q, mem, beta, k, cand_idx))
-                out = read0(q, mem, beta, k, cand_idx=cand_idx)
+                self._keep("fused_read_candidates",
+                           (q, mem, beta, k, cand_idx, mem_scale))
+                out = read0(q, mem, beta, k, cand_idx=cand_idx,
+                            mem_scale=mem_scale)
                 if self.checker:
                     self.checker.read_cand(q.detach(), mem.detach(),
-                                           beta.detach(), k, cand_idx, out)
+                                           beta.detach(), k, cand_idx, out,
+                                           mem_scale)
                 return out
-            self._keep("fused_read_sweep", (q, mem, beta, k, valid_n))
-            out = read0(q, mem, beta, k, valid_n=valid_n)
+            self._keep("fused_read_sweep", (q, mem, beta, k, valid_n,
+                                            mem_scale))
+            out = read0(q, mem, beta, k, valid_n=valid_n, mem_scale=mem_scale)
             if self.checker:
-                self.checker.read(q, mem, beta, k, valid_n, out)
+                self.checker.read(q, mem, beta, k, valid_n, out, mem_scale)
             return out
 
         def lsh_hash(x, planes):
@@ -285,12 +351,14 @@ class Intercept:
                                   out.reshape(-1, planes.shape[0]))
             return out
 
-        def sparse_write_update(mem, la, widx, ww, a, lra, step, *, delta):
-            args = (mem, la, widx, ww, a, lra, step, delta)
+        def sparse_write_update(mem, la, widx, ww, a, lra, step, *, delta,
+                                mem_scale=None):
+            args = (mem, la, widx, ww, a, lra, step, delta, mem_scale)
             self._keep("sparse_write_update", args)
             before = tuple(x.clone() if isinstance(x, torch.Tensor) else x
                            for x in args) if self.checker else None
-            out = write0(mem, la, widx, ww, a, lra, step, delta=delta)
+            out = write0(mem, la, widx, ww, a, lra, step, delta=delta,
+                         mem_scale=mem_scale)
             if self.checker:
                 self.checker.write(before, out)
             return out
@@ -370,7 +438,7 @@ def run() -> None:
         from repro_torch.core import unroll as unroll_lib
         from repro_torch.core.cell import SAMCell
         from repro_torch.core.types import (LA_SCRATCH, ControllerConfig,
-                                            MemoryConfig)
+                                            MemoryConfig, tree_bytes)
         from repro_torch.data.tasks import copy_task
         from repro_torch.kernels import _build, ops, ref
         from repro_torch.kernels.fused_read import fused_read_sweep
@@ -378,7 +446,8 @@ def run() -> None:
             fused_read_candidates
         from repro_torch.kernels.lsh_hash import lsh_hash
         from repro_torch.kernels.scatter_rows import scatter_rows
-        from repro_torch.kernels.sparse_write import sparse_write_update
+        from repro_torch.kernels.sparse_write import (sparse_write_update,
+                                                      sparse_write_update_q)
         from repro_torch.kernels.usage_argmin import lra_topn
         from repro_torch.optim import optimizers as opt
     except ImportError as e:
@@ -390,14 +459,24 @@ def run() -> None:
                "sparse_write_update": sparse_write_update,
                "lra_topn": lra_topn, "scatter_rows": scatter_rows,
                "lsh_hash": lsh_hash,
-               "fused_read_candidates": fused_read_candidates}
+               "fused_read_candidates": fused_read_candidates,
+               "sparse_write_update_q": sparse_write_update_q}
 
     def zero_counts():
         for fn in kernels.values():
             fn.launches = 0
+            for dtype in getattr(fn, "launches_by_dtype", {}):
+                fn.launches_by_dtype[dtype] = 0
 
     def counts():
-        return {name: fn.launches for name, fn in kernels.items()}
+        """Launches per kernel; a kernel's count covers all its row dtypes,
+        and each bf16 or int8 instantiation also has its own (REPLACES)."""
+        c = {name: fn.launches for name, fn in kernels.items()}
+        for name, fn in kernels.items():
+            for dtype, n in getattr(fn, "launches_by_dtype", {}).items():
+                if name + SUFFIX.get(dtype, "?") in REPLACES:
+                    c[name + SUFFIX[dtype]] = n
+        return c
 
     # ---- 1. build ----
     t0 = time.perf_counter()
@@ -430,7 +509,8 @@ def run() -> None:
         with Intercept(ops, record=True) as rec:
             model(model.init_state(B), xs[:max(RECORD_STEPS)])
         for step in RECORD_STEPS:
-            q, mem, beta, k, valid_n = rec.records[("fused_read_sweep", step)]
+            q, mem, beta, k, valid_n, _ = rec.records[("fused_read_sweep",
+                                                       step)]
             checker.read(q, mem, beta, k, valid_n,
                          fused_read_sweep(q, mem, beta, k=k, valid_n=valid_n))
             la, n, valid_n = rec.records[("lra_topn", step)]
@@ -452,7 +532,7 @@ def run() -> None:
         # scatter_rows on the inputs of a real backward at step 21.
         step = max(RECORD_STEPS)
         wr = rec.records[("sparse_write_update", step)]
-        q21, mem21, beta21, _, _ = rec.records[("fused_read_sweep", step)]
+        q21, mem21, beta21, _, _, _ = rec.records[("fused_read_sweep", step)]
         widx21 = wr[2]                       # the rows step 21 wrote ...
         old21 = ref.gather_rows(wr[0], widx21)       # ... and their old rows
         ridx21 = fused_read_sweep(q21, mem21, beta21, k=K,
@@ -703,8 +783,8 @@ def run() -> None:
         with Intercept(ops, record=True) as rec_l:
             lsh_model(lsh_model.init_state(B), xs[:max(RECORD_STEPS)])
         for step in RECORD_STEPS:
-            q, mem, beta, k, cand = rec_l.records[("fused_read_candidates",
-                                                   step)]
+            q, mem, beta, k, cand, _ = rec_l.records[("fused_read_candidates",
+                                                      step)]
             require(cand.shape == (B, H, C), f"candidates {tuple(cand.shape)}")
             checker.read_cand(q, mem, beta, k, cand, fused_read_candidates(
                 q, mem, beta, cand, k=k))
@@ -825,7 +905,7 @@ def run() -> None:
     # ---- 6. timing, on the step-21 inputs ----
     flush = torch.empty(32 << 20, device=dev)
     step = max(RECORD_STEPS)
-    q, mem, beta, k, valid_n = rec.records[("fused_read_sweep", step)]
+    q, mem, beta, k, valid_n, _ = rec.records[("fused_read_sweep", step)]
     la, n, _ = rec.records[("lra_topn", step)]
     m_t, l_t = wr[0].clone(), wr[1].clone()
     neg_la = (-la[:, :N]).contiguous()
@@ -886,8 +966,8 @@ def run() -> None:
     # The new kernels at the LSH step-21 inputs: the candidate read, the
     # hash of the written rows (R = B·J) and of the queries (R = B·H), and
     # the hash of all B·N rows of a memory (an index rebuild).
-    q_c, mem_c, beta_c, _, cand_c = rec_l.records[("fused_read_candidates",
-                                                   step)]
+    q_c, mem_c, beta_c, _, cand_c, _ = rec_l.records[
+        ("fused_read_candidates", step)]
     x_q = rec_l.records[("lsh_hash", step, 0)][0].reshape(-1, W).contiguous()
     x_w = rec_l.records[("lsh_hash", step, 1)][0].reshape(-1, W).contiguous()
     TB = lsh_cfg.memory.lsh_tables * lsh_cfg.memory.lsh_bits
@@ -1069,7 +1149,180 @@ def run() -> None:
             print(f"[time] {kind} train step on the device: not measured "
                   f"(the profiler recorded no device time)")
 
-    # ---- 7. report ----
+    # ---- 7. bf16 and int8 rows, exact and LSH reads ----
+    def run_write(args):
+        """The write kernel of ``args`` (a write's recorded arguments) on
+        clones of its buffers."""
+        m, la_, scale = args[0].clone(), args[1].clone(), args[8]
+        if scale is None:
+            return sparse_write_update(m, la_, *args[2:7], delta=args[7])
+        return sparse_write_update_q(m, scale.clone(), la_, *args[2:7],
+                                     delta=args[7])
+
+    def timed_write(args):
+        """(kernel ms, plain ms, bound) of the write of ``args``, repeated
+        in place on copies of its buffers."""
+        m, la_ = args[0].clone(), args[1].clone()
+        scale = None if args[8] is None else args[8].clone()
+        uniq_w = unique_rows(args[2])
+        row_bytes = W * m.element_size() + (0 if scale is None else 4)
+        if scale is None:
+            ms_ = time_ms(lambda: sparse_write_update(
+                m, la_, *args[2:7], delta=args[7]), 50, flush)
+            plain = time_ms(lambda: ref.sparse_write_update_ref(
+                m, la_, *args[2:7], args[7]), 20, flush)
+        else:
+            ms_ = time_ms(lambda: sparse_write_update_q(
+                m, scale, la_, *args[2:7], delta=args[7]), 50, flush)
+            plain = time_ms(lambda: ref.sparse_write_update_q_ref(
+                m, scale, la_, *args[2:7], args[7]), 20, flush)
+        return dict(ms=ms_, plain_ms=plain, library_ms=None,
+                    bound=bound(2 * uniq_w * (row_bytes + 4)
+                                + 4 * (2 * B * J + B * H * W + B * H + B),
+                                2 * B * J * W))
+
+    dtype_runs, dtype_launches = {}, {}
+    cpu_gen = torch.Generator().manual_seed(6)
+    for dtype in ("bfloat16", "int8"):
+        for read in ("exact", "lsh"):
+            pair = f"{dtype}/{read}"
+            d_cfg = sam.SAMConfig(dataclasses.replace(
+                cfg.memory, mem_dtype=dtype, **(LSH if read == "lsh" else {})),
+                cfg.controller)
+            d_model = sam.SAM(d_cfg, seed=0, device=dev)
+            base = "fused_read_candidates" if read == "lsh" else \
+                "fused_read_sweep"
+            rname = base + SUFFIX[dtype]
+            wname = ("sparse_write_update_q" if dtype == "int8"
+                     else "sparse_write_update_bf16")
+            scaled = dtype == "int8"
+            # (a) each kernel against its plain version on the inputs of a
+            # real rollout: the cold first step and step 21, and a write
+            # heavy in duplicates (every column on rows 0-2).
+            with torch.inference_mode():
+                with Intercept(ops, record=True) as rec_d:
+                    d_model(d_model.init_state(B), xs[:max(RECORD_STEPS)])
+                for step in RECORD_STEPS:
+                    wr_d = rec_d.records[("sparse_write_update", step)]
+                    checker.write(wr_d, run_write(wr_d))
+                    r_args = rec_d.records[(base, step)]
+                    q_, m_, b_, k_, x_, s_ = r_args
+                    if read == "exact":
+                        checker.read(q_, m_, b_, k_, x_, fused_read_sweep(
+                            q_, m_, b_, k=k_, valid_n=x_, mem_scale=s_), s_)
+                    else:
+                        checker.read_cand(q_, m_, b_, k_, x_,
+                                          fused_read_candidates(
+                                              q_, m_, b_, x_, k=k_,
+                                              mem_scale=s_), s_)
+                    if step == 1:
+                        require(wr_d[0].eq(0).all().item(),
+                                f"{pair}: step 1 should write into an "
+                                f"all-zero memory")
+                dup_idx = torch.randint(0, 3, wr_d[2].shape, generator=cpu_gen,
+                                        dtype=torch.int32).to(dev)
+                dup_lra = dup_idx.reshape(B, H, K + 1)[..., K].contiguous()
+                dup = (*wr_d[:2], dup_idx, *wr_d[3:5], dup_lra, *wr_d[6:])
+                checker.write(dup, run_write(dup))
+                torch.cuda.synchronize()
+            print(f"[dtype] {pair}: {wname} bit for bit at steps "
+                  f"{RECORD_STEPS} and on a duplicate-heavy write; {rname} "
+                  f"err {checker.err[rname]:.3g}; near-ties "
+                  f"{checker.near_ties}")
+            # (b) the forward rollout, in lockstep, with exact launches.
+            zero_counts()
+            with torch.inference_mode(), Intercept(ops, checker=checker):
+                d_state, d_ys = d_model(d_model.init_state(B), xs)
+            torch.cuda.synchronize()
+            launched = counts()
+            want = {name: 0 for name in launched}
+            want.update({"lra_topn": T, base: T, rname: T, wname: T,
+                         "sparse_write_update": 0 if scaled else T})
+            if read == "lsh":
+                want["lsh_hash"] = 2 * T
+            require(launched == want, f"{pair} rollout launched {launched}, "
+                    f"expected {want}")
+            dtype_launches[pair] = launched
+            f32_ys = lsh_ys if read == "lsh" else ys
+            require(d_ys.shape == (T, B, BITS)
+                    and torch.isfinite(d_ys).all().item(),
+                    f"{pair}: outputs are not finite values of shape "
+                    f"(T, B, bits)")
+            require(d_state.memory.dtype == getattr(torch, dtype)
+                    and d_state.memory[:, N].eq(0).all().item()
+                    and d_state.last_access[:, N].eq(LA_SCRATCH).all().item()
+                    and int(d_state.step) == T,
+                    f"{pair}: the memory changed dtype, or the scratch row "
+                    f"was touched")
+            if scaled:
+                sc = d_state.mem_scale
+                require(sc.shape == (B, N + 1) and sc[:, N].eq(0).all().item()
+                        and torch.isfinite(sc).all().item()
+                        and sc.ge(0).all().item() and sc.gt(0).any().item(),
+                        f"{pair}: the scales are out of shape or range")
+            if read == "lsh":
+                bk = d_state.ann.buckets
+                require(bool(((bk >= -1) & (bk < N)).all()),
+                        f"{pair}: the LSH index holds an id out of range")
+            y_gap = (d_ys - f32_ys).abs().max().item()
+            print(f"[dtype] {pair} rollout (T={T}) in lockstep: launches "
+                  f"{ {k: v for k, v in launched.items() if v} }; outputs "
+                  f"finite; max |y - y(f32 rows)| {y_gap:.3g}")
+            # (c) times.
+            step21 = max(RECORD_STEPS)
+            if read == "exact":
+                rows[wname] = timed_write(
+                    rec_d.records[("sparse_write_update", step21)])
+                q_, m_, b_, k_, vn_, s_ = rec_d.records[(base, step21)]
+                row_bytes = W * m_.element_size() + (4 if scaled else 0)
+                rows[rname] = dict(
+                    ms=time_ms(lambda: fused_read_sweep(
+                        q_, m_, b_, k=k_, valid_n=vn_, mem_scale=s_), 20,
+                        flush),
+                    plain_ms=time_ms(lambda: ref.fused_read_ref(
+                        q_, m_, b_, k_, valid_n=vn_, mem_scale=s_), 5, flush),
+                    library_ms=None,
+                    bound=bound(B * N * row_bytes
+                                + 4 * (2 * B * H * W + B * H + 2 * B * H * K),
+                                B * N * W * (2 * H + 2 + int(scaled))))
+            else:
+                q_, m_, b_, k_, c_, s_ = rec_d.records[(base, step21)]
+                row_bytes = W * m_.element_size() + (4 if scaled else 0)
+                uniq_d = len({(b, r) for b, row in
+                              enumerate(c_.reshape(B, -1).tolist())
+                              for r in row if r >= 0})
+                rows[rname] = dict(
+                    ms=time_ms(lambda: fused_read_candidates(
+                        q_, m_, b_, c_, k=k_, mem_scale=s_), 50, flush),
+                    plain_ms=time_ms(lambda: ref.fused_read_candidates_ref(
+                        q_, m_, b_, k_, c_, s_), 20, flush),
+                    library_ms=None,
+                    bound=bound(uniq_d * row_bytes
+                                + 4 * (B * H * (W + 1 + c_.shape[-1])
+                                       + B * H * (W + 2 * K)),
+                                int((c_ >= 0).sum().item()) * 4 * W
+                                + B * H * 2 * K * W))
+            d_ms, d_all, d_peak = rollout_ms(d_model)
+            d_dev_ms, d_dev_n = rollout_device(d_model)
+            dtype_runs[pair] = dict(
+                ms_per_step=d_ms, device_ms_per_step=d_dev_ms or None,
+                device_launches_per_step=d_dev_n, peak_bytes=d_peak,
+                state_bytes=tree_bytes(d_state), y_gap_to_f32=y_gap)
+            for name in (wname, rname) if read == "exact" else (rname,):
+                r = rows[name]
+                print(f"[time] {name}: {r['ms']:.4f} ms (bound "
+                      f"{r['bound'][0]:.6f} ms by {r['bound'][1]}), plain "
+                      f"{r['plain_ms']:.4f} ms")
+            print(f"[time] {pair} rollout {d_ms:.3f} ms/step, median of "
+                  f"{', '.join(f'{r:.3f}' for r in d_all)}; device time "
+                  f"{d_dev_ms:.4f} ms/step in {d_dev_n:.1f} kernel launches; "
+                  f"peak memory {d_peak} B against the state's "
+                  f"{tree_bytes(d_state)} B")
+            del d_model, d_state, d_ys, rec_d, wr_d, dup, r_args
+            q_ = m_ = b_ = s_ = None
+            torch.cuda.empty_cache()
+
+    # ---- 8. report ----
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -1077,7 +1330,13 @@ def run() -> None:
     print(smi.stdout.strip().splitlines()[0])
     # Launches: each kernel's count in the main path of its own read, the
     # exact-read train step or (the hash, the candidate read) sam_ann's.
-    path_of = {"lsh_hash": launches_l, "fused_read_candidates": launches_l}
+    path_of = {"lsh_hash": launches_l, "fused_read_candidates": launches_l,
+               "sparse_write_update_bf16": dtype_launches["bfloat16/exact"],
+               "fused_read_sweep_bf16": dtype_launches["bfloat16/exact"],
+               "sparse_write_update_q": dtype_launches["int8/exact"],
+               "fused_read_sweep_int8": dtype_launches["int8/exact"],
+               "fused_read_candidates_bf16": dtype_launches["bfloat16/lsh"],
+               "fused_read_candidates_int8": dtype_launches["int8/lsh"]}
     report = []
     for name, r in rows.items():
         replaces, source = REPLACES[name]
@@ -1124,7 +1383,8 @@ def run() -> None:
                       "card_vs_cpu_grad_err": small_grad_err,
                       "lsh_card_vs_cpu_grad_err": small_lsh_grad_err,
                       "chunked_vs_sparse_grad_err": chunk_err,
-                      "lsh_chunked_vs_sparse_grad_err": lsh_chunk_err}))
+                      "lsh_chunked_vs_sparse_grad_err": lsh_chunk_err,
+                      "dtypes": dtype_runs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

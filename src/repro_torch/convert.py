@@ -60,22 +60,45 @@ def ann_from_jax(ann, *, device="cuda") -> ANNState:
                     cursor=_tensor(ann.cursor, np.int32, device))
 
 
+def memory_from_jax(memory, *, device="cuda") -> torch.Tensor:
+    """A JAX memory buffer -> a tensor of the same storage dtype and bits:
+    f32 and int8 as they are; bf16 (an ``ml_dtypes`` array, which
+    `torch.as_tensor` cannot take) through f32, exactly. Raises on any
+    other dtype."""
+    x = np.asarray(memory)
+    name = str(x.dtype)
+    if name == "bfloat16":
+        return _tensor(x, np.float32, device).to(torch.bfloat16)
+    if name not in ("float32", "int8"):
+        raise ValueError(f"memory of dtype {name}: expected float32, "
+                         f"bfloat16 or int8")
+    return _tensor(x, x.dtype, device)
+
+
 def state_from_jax(state, *, device="cuda") -> SAMState:
-    """JAX `SAMState` (f32 rows, exact or LSH read, scratch-row layout) ->
-    the port's `SAMState`, field for field."""
-    if getattr(state, "mem_scale", None) is not None:
-        raise ValueError("only f32-row states convert")
+    """JAX `SAMState` (exact or LSH read, scratch-row layout) -> the port's
+    `SAMState`, field for field. The memory keeps its storage dtype and
+    bits (f32, bf16 or int8, `memory_from_jax`); an int8 state's per-row
+    scales ``mem_scale`` (B, N+1) come across as f32."""
+    scale = getattr(state, "mem_scale", None)
+    memory = memory_from_jax(state.memory, device=device)
+    if (scale is not None) != (memory.dtype == torch.int8):
+        raise ValueError(f"a {memory.dtype} memory "
+                         f"{'with' if scale is not None else 'without'} "
+                         f"mem_scale: int8 rows, and only they, carry scales")
     read = SparseRead(indices=_tensor(state.read.indices, np.int32, device),
                       weights=_tensor(state.read.weights, np.float32, device),
                       words=_tensor(state.read.words, np.float32, device))
     ctrl = LSTMState(h=_tensor(state.ctrl.h, np.float32, device),
                      c=_tensor(state.ctrl.c, np.float32, device))
-    return SAMState(memory=_tensor(state.memory, np.float32, device),
+    return SAMState(memory=memory,
                     last_access=_tensor(state.last_access, np.int32, device),
                     read=read, ctrl=ctrl,
                     step=_tensor(state.step, np.int32, device),
                     ann=(None if state.ann is None
-                         else ann_from_jax(state.ann, device=device)))
+                         else ann_from_jax(state.ann, device=device)),
+                    mem_scale=(None if scale is None
+                               else _tensor(scale, np.float32, device)))
 
 
 def opt_state_from_jax(state, *, device="cuda") -> RMSPropState:

@@ -1,8 +1,10 @@
 """Sparse content-based addressing and usage tracking (paper §3.1-3.2):
 the single-device part of `repro/core/addressing.py`, exact and LSH
-reads. Every kernel operation goes through `repro_torch.kernels.ops`,
-which runs the CUDA kernels on the card and the plain versions on the
-CPU."""
+reads, on f32, bf16 or int8 rows (``mem_scale=``: the (B, N+1) f32
+per-row scales of int8 rows). Every kernel operation goes through
+`repro_torch.kernels.ops`, which runs the CUDA kernels on the card and the
+plain versions on the CPU. `gather_rows` returns the raw storage bits;
+the reads upcast or dequantize what they gather."""
 from __future__ import annotations
 
 import torch
@@ -12,43 +14,53 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ref import gather_rows
 
 
+def gather_scales(mem_scale: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """mem_scale: (B, N), idx: (B, ...) -> (B, ...): the per-row scales of
+    the rows idx names (int8 rows)."""
+    return gather_rows(mem_scale[..., None], idx)[..., 0]
+
+
 def sparse_read_exact(q: torch.Tensor, m: torch.Tensor, beta: torch.Tensor,
-                      k: int, *, valid_n: int | None = None) -> SparseRead:
+                      k: int, *, valid_n: int | None = None,
+                      mem_scale=None) -> SparseRead:
     """'Linear index' SAM read: the exact K nearest rows by cosine
     similarity among rows [0, valid_n), softmax over the kept K only."""
-    read, w, idx = ops.fused_read(q, m, beta, k, valid_n=valid_n)
+    read, w, idx = ops.fused_read(q, m, beta, k, valid_n=valid_n,
+                                  mem_scale=mem_scale)
     return SparseRead(indices=idx, weights=w, words=read)
 
 
 def select_candidates(q: torch.Tensor, m: torch.Tensor, k: int,
-                      cand_idx: torch.Tensor) -> torch.Tensor:
+                      cand_idx: torch.Tensor, *,
+                      mem_scale=None) -> torch.Tensor:
     """The selection half of the ANN read: dedup the candidates (B, H, C),
     re-rank them without gradient and keep the K best. Returns *signed*
     indices (B, H, K) int32: -1 where fewer than K valid candidates
     existed."""
     return ref.candidate_topk(q.detach(), m.detach(), k,
-                              ref.dedup(cand_idx))
+                              ref.dedup(cand_idx), mem_scale)
 
 
 def sparse_read_candidates(q: torch.Tensor, m: torch.Tensor,
-                           beta: torch.Tensor, k: int,
-                           cand_idx: torch.Tensor) -> SparseRead:
+                           beta: torch.Tensor, k: int, cand_idx: torch.Tensor,
+                           *, mem_scale=None) -> SparseRead:
     """ANN read composed of its two halves: `select_candidates`, then
     `finish_candidate_read`. An invalid selection reads with weight exactly
     0 and gives no gradient."""
-    return finish_candidate_read(q, m, beta,
-                                 select_candidates(q, m, k, cand_idx))
+    sel = select_candidates(q, m, k, cand_idx, mem_scale=mem_scale)
+    return finish_candidate_read(q, m, beta, sel, mem_scale=mem_scale)
 
 
 def select_and_read_candidates(q: torch.Tensor, m: torch.Tensor,
                                beta: torch.Tensor, k: int,
-                               cand_idx: torch.Tensor):
+                               cand_idx: torch.Tensor, *, mem_scale=None):
     """The ANN read as one kernel: dedup the raw candidates, then one
     `ops.fused_read(..., cand_idx=)` call re-ranks, selects, and runs the
     softmax tail and the weighted sum. Returns (the read, with its indices
     clamped to >= 0, and the *signed* (B, H, K) selection, which a step
     records so the replay rebuilds the same validity mask)."""
-    read, w, sel = ops.fused_read(q, m, beta, k, cand_idx=ref.dedup(cand_idx))
+    read, w, sel = ops.fused_read(q, m, beta, k, cand_idx=ref.dedup(cand_idx),
+                                  mem_scale=mem_scale)
     return SparseRead(indices=sel.clamp_min(0), weights=w, words=read), sel
 
 
@@ -62,12 +74,12 @@ def read_from_rows(q: torch.Tensor, words: torch.Tensor, beta: torch.Tensor,
 
 
 def finish_candidate_read(q: torch.Tensor, m: torch.Tensor, beta: torch.Tensor,
-                          idx: torch.Tensor) -> SparseRead:
+                          idx: torch.Tensor, *, mem_scale=None) -> SparseRead:
     """The differentiable tail of every sparse read, from recorded (signed)
     indices: gather the K rows, re-rank, softmax (`ref.sparse_read_tail`).
     Only those rows get a gradient. The replay (`core/cell.py`) runs the
     same tail on rows it gathers itself (`read_from_rows`)."""
-    read, w = ref.sparse_read_tail(q, m, beta, idx)
+    read, w = ref.sparse_read_tail(q, m, beta, idx, mem_scale)
     return SparseRead(indices=idx.clamp_min(0), weights=w, words=read)
 
 
@@ -103,8 +115,11 @@ def least_recently_accessed(last_access: torch.Tensor, n: int, *,
 
 
 def sparse_write_update(memory, last_access, write_idx, write_w, a, lra_idx,
-                        step, delta: float):
+                        step, delta: float, *, mem_scale=None):
     """The fused write side (eqs. 3/5/6 + the U^(2) stamp of written rows),
-    in place on ``memory`` and ``last_access``. Returns both."""
+    in place on ``memory`` and ``last_access`` (and, for int8 rows, on
+    their scales ``mem_scale``). Returns (memory, last_access), or
+    (memory, last_access, mem_scale) with ``mem_scale``."""
     return ops.sparse_write_update(memory, last_access, write_idx, write_w,
-                                   a, lra_idx, step, delta=delta)
+                                   a, lra_idx, step, delta=delta,
+                                   mem_scale=mem_scale)

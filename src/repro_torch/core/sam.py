@@ -3,18 +3,23 @@
 One step runs the LSTM controller, splits its interface, picks the H
 least-recently-accessed rows, plans the eq. 5 write, runs the fused write
 (erase + w^W a^T + usage stamp), the top-K read, and the read-side usage
-stamp — the same sequence as `repro/core/sam.py::sam_step` for f32 rows
-on one device. The read is exact (a sweep of the memory) or, with
-``MemoryConfig(ann="lsh")``, a re-rank of the LSH index's candidates plus
-the freshly written rows, after which the written rows go into the index
-(`core/ann.py`). The memory and the usage table are updated **in place**:
-the state handed to `sam_step` shares its `memory` and `last_access`
-tensors with the state it returns; the LSH index is a new tensor each
-step. With ``collect_deltas=True`` a step also returns what the
-sparse-rollback backward needs (`StepDeltas`, `core/cell.py`).
+stamp — the same sequence as `repro/core/sam.py::sam_step` on one device,
+for f32, bf16 or int8 rows (``MemoryConfig.mem_dtype``; int8 rows carry
+their per-row scales in ``SAMState.mem_scale``, which the write updates
+and the reads dequantize with). The read is exact (a sweep of the
+memory) or, with ``MemoryConfig(ann="lsh")``, a re-rank of the LSH
+index's candidates plus the freshly written rows, after which the written
+rows go into the index (`core/ann.py`). The memory and the usage table
+are updated **in place**: the state handed to `sam_step` shares its
+`memory` and `last_access` tensors with the state it returns; the LSH
+index is a new tensor each step. With ``collect_deltas=True`` a step
+also returns what the sparse-rollback backward needs (`StepDeltas`,
+`core/cell.py`).
 
 `sam_step` records an autograd graph when its inputs require grad (the
-naive unroll of `core/unroll.py`); `sam_unroll` and `SAM.forward`, the
+naive unroll of `core/unroll.py`), on f32 rows only: bf16 and int8 rows
+run forward only and raise when autograd records
+(`types.DTYPE_TRAINING_ITEM`). `sam_unroll` and `SAM.forward`, the
 forward-only path, run under `torch.inference_mode` and record none.
 """
 from __future__ import annotations
@@ -29,9 +34,10 @@ from repro_torch.core import addressing as addr
 from repro_torch.core import ann as ann_lib
 from repro_torch.core.controller import (linear, linear_init, lstm_init,
                                          lstm_step, lstm_zero_state)
-from repro_torch.core.types import (ControllerConfig, MemoryConfig, SAMState,
-                                    SparseRead, StepDeltas,
-                                    init_scratch_last_access,
+from repro_torch.core.types import (MEM_DTYPES, ControllerConfig,
+                                    MemoryConfig, SAMState, SparseRead,
+                                    StepDeltas, init_scratch_last_access,
+                                    init_scratch_mem_scale,
                                     init_scratch_memory, require_live)
 from repro_torch.kernels import ref
 
@@ -73,6 +79,10 @@ def init_params(generator: torch.Generator, cfg: SAMConfig, *, device="cuda"):
 
 
 def init_state(batch: int, cfg: SAMConfig, *, device="cuda") -> SAMState:
+    """A zero state: the memory in the storage dtype ``mem_dtype`` (int8
+    rows with all-zero scales, so every cold row dequantizes to exactly
+    0.0), the staggered usage table, a zero read and controller, and an
+    empty LSH index for an ``ann="lsh"`` cell."""
     mem, ctl = cfg.memory, cfg.controller
     H, K, W, N = mem.num_heads, mem.k, mem.word_size, mem.num_slots
     read = SparseRead(
@@ -80,12 +90,16 @@ def init_state(batch: int, cfg: SAMConfig, *, device="cuda") -> SAMState:
         weights=torch.zeros((batch, H, K), device=device),
         words=torch.zeros((batch, H, W), device=device))
     return SAMState(
-        memory=init_scratch_memory(batch, N, W, device=device),
+        memory=init_scratch_memory(batch, N, W,
+                                   dtype=MEM_DTYPES[mem.mem_dtype],
+                                   device=device),
         last_access=init_scratch_last_access(batch, N, device=device),
         read=read, ctrl=lstm_zero_state(batch, ctl.hidden_size, device=device),
         step=torch.zeros((), dtype=torch.int32, device=device),
         ann=(ann_lib.ann_init(batch, mem, device=device)
-             if mem.ann == "lsh" else None))
+             if mem.ann == "lsh" else None),
+        mem_scale=(init_scratch_mem_scale(batch, N, device=device)
+                   if mem.mem_dtype == "int8" else None))
 
 
 def _interface(params, cfg: SAMConfig, h: torch.Tensor):
@@ -130,11 +144,18 @@ def apply_write(memory: torch.Tensor, write_idx: torch.Tensor,
 def sam_step(params, cfg: SAMConfig, state: SAMState, x: torch.Tensor, *,
              collect_deltas: bool = False):
     """One SAM time step. Returns (new_state, y_t[, deltas]);
-    ``state.memory`` and ``state.last_access`` are updated in place."""
+    ``state.memory`` and ``state.last_access`` (and an int8 memory's
+    ``state.mem_scale``) are updated in place."""
     mem = cfg.memory
     H, K, N = mem.num_heads, mem.k, mem.num_slots
-    if state.mem_scale is not None:
-        raise ValueError("this port runs f32 rows only")
+    int8 = mem.mem_dtype == "int8"
+    if (state.memory.dtype != MEM_DTYPES[mem.mem_dtype]
+            or (state.mem_scale is not None) != int8):
+        raise ValueError(f"mem_dtype={mem.mem_dtype!r} needs a "
+                         f"{MEM_DTYPES[mem.mem_dtype]} memory "
+                         f"{'with' if int8 else 'without'} mem_scale, got a "
+                         f"{state.memory.dtype} memory and mem_scale "
+                         f"{'set' if state.mem_scale is not None else 'None'}")
     if (state.ann is not None) != (mem.ann == "lsh"):
         raise ValueError(f"ann={mem.ann!r} needs a state "
                          f"{'with' if mem.ann == 'lsh' else 'without'} an "
@@ -152,11 +173,21 @@ def sam_step(params, cfg: SAMConfig, state: SAMState, x: torch.Tensor, *,
     step = state.step + 1
     lra_idx = addr.least_recently_accessed(state.last_access, H, valid_n=N)
     widx, ww, _, _ = write_plan(cfg, state.read, lra_idx, alpha, gamma)
+    old_scale = None
     if collect_deltas:
+        # The raw storage bits (int8 codes) and, for int8 rows, the scales.
         old_rows = addr.gather_rows(state.memory, widx)
-    memory, la = addr.sparse_write_update(state.memory, state.last_access,
-                                          widx, ww, a, lra_idx, step,
-                                          mem.delta)
+        if int8:
+            old_scale = addr.gather_scales(state.mem_scale, widx)
+    mem_scale = state.mem_scale
+    if int8:
+        memory, la, mem_scale = addr.sparse_write_update(
+            state.memory, state.last_access, widx, ww, a, lra_idx, step,
+            mem.delta, mem_scale=mem_scale)
+    else:
+        memory, la = addr.sparse_write_update(
+            state.memory, state.last_access, widx, ww, a, lra_idx, step,
+            mem.delta)
 
     # ---- read (content-based, sparse) and its usage stamp ----
     if mem.ann == "lsh":
@@ -165,25 +196,30 @@ def sam_step(params, cfg: SAMConfig, state: SAMState, x: torch.Tensor, *,
         # written memory, and the written rows then go into the index.
         planes = params["lsh_planes"]
         cand = ann_lib.ann_candidates(planes, state.ann, q, widx, mem)
-        read, read_sel = addr.select_and_read_candidates(q, memory, beta, K,
-                                                         cand)
-        ann_state = ann_lib.ann_insert(planes, state.ann, widx,
-                                       addr.gather_rows(memory, widx).detach(),
-                                       mem)
+        read, read_sel = addr.select_and_read_candidates(
+            q, memory, beta, K, cand, mem_scale=mem_scale)
+        # The written rows are hashed raw, upcast to f32 (exact for bf16
+        # and int8 codes) and not dequantized: a row's positive scale
+        # leaves its projections' signs as they are, and JAX hashes the
+        # codes so.
+        rows = addr.gather_rows(memory, widx).detach().to(torch.float32)
+        ann_state = ann_lib.ann_insert(planes, state.ann, widx, rows, mem)
     else:
-        read = addr.sparse_read_exact(q, memory, beta, K, valid_n=N)
+        read = addr.sparse_read_exact(q, memory, beta, K, valid_n=N,
+                                      mem_scale=mem_scale)
         read_sel, ann_state = read.indices, None
     la = addr.update_last_access(la, read.indices.reshape(B, -1),
                                  read.weights.reshape(B, -1), step, mem.delta)
 
     y = linear(params["out"], torch.cat([h, read.words.reshape(B, -1)], -1))
     new_state = SAMState(memory=memory, last_access=la, read=read, ctrl=ctrl,
-                         step=step, ann=ann_state)
+                         step=step, ann=ann_state, mem_scale=mem_scale)
     if collect_deltas:
         # Signed (-1 = no valid candidate), so the replay rebuilds the
         # read's validity mask.
         return new_state, y, StepDeltas(write_idx=widx, old_rows=old_rows,
-                                        read_idx=read_sel)
+                                        read_idx=read_sel,
+                                        old_scale=old_scale)
     return new_state, y
 
 

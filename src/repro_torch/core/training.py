@@ -19,7 +19,8 @@ from torch.utils import _pytree as pytree
 from repro_torch.core import unroll as unroll_lib
 from repro_torch.core.cell import SAMCell
 from repro_torch.core.sam import SAMConfig
-from repro_torch.core.types import ControllerConfig, MemoryConfig
+from repro_torch.core.types import (DTYPE_TRAINING_ITEM, ControllerConfig,
+                                    MemoryConfig)
 from repro_torch.data.curriculum import Curriculum
 from repro_torch.data.tasks import copy_task
 from repro_torch.optim import optimizers as opt
@@ -45,10 +46,14 @@ def build_model(spec: ModelSpec, *, device="cuda"):
     unroll(params, state, xs)). Kinds ``sam`` and ``sam_ann`` (the SAM cell
     with ``ann="lsh"``) train through the sparse-rollback engine behind
     `SAMCell`; every other kind of the JAX package is still to port and
-    raises."""
+    raises, and so does a bf16 or int8 memory (``mem_dtype``), which runs
+    forward only."""
     if spec.kind not in ("sam", "sam_ann"):
         raise ValueError(f"model kind {spec.kind!r} is not ported; only "
                          f"'sam' and 'sam_ann' are")
+    if spec.memory.mem_dtype != "float32":
+        raise ValueError(f"build_model with mem_dtype="
+                         f"{spec.memory.mem_dtype!r}: {DTYPE_TRAINING_ITEM}")
     mem = dataclasses.replace(
         spec.memory, ann="lsh" if spec.kind == "sam_ann" else "exact")
     cell = SAMCell(SAMConfig(mem, spec.controller))

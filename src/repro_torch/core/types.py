@@ -23,10 +23,25 @@ SCRATCH_ROWS = 1
 LA_SCRATCH = 2 ** 31 - 1
 
 
+# Storage dtypes of the memory rows (`MemoryConfig.mem_dtype`).
+MEM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "int8": torch.int8}
+
+
 def init_scratch_memory(batch: int, num_slots: int, word_size: int, *,
-                        device="cuda") -> torch.Tensor:
-    """Zero (B, N+1, W) f32 memory in the scratch-row layout."""
+                        dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """Zero (B, N+1, W) memory in the scratch-row layout; ``dtype`` is the
+    rows' storage dtype (f32, bf16 or int8)."""
     return torch.zeros((batch, num_slots + SCRATCH_ROWS, word_size),
+                       dtype=dtype, device=device)
+
+
+def init_scratch_mem_scale(batch: int, num_slots: int, *,
+                           device="cuda") -> torch.Tensor:
+    """(B, N+1) f32 per-row scales of int8 rows, all 0.0: a zero row's
+    scale, so a cold row dequantizes to exactly 0.0. The scratch entry is
+    0.0 too."""
+    return torch.zeros((batch, num_slots + SCRATCH_ROWS),
                        dtype=torch.float32, device=device)
 
 
@@ -45,9 +60,13 @@ def init_scratch_last_access(batch: int, num_slots: int, *,
 
 @dataclasses.dataclass(frozen=True)
 class MemoryConfig:
-    """Configuration of the external memory (paper §3): f32 rows on one
-    device, read exactly (``ann="exact"``) or through the LSH index
-    (``ann="lsh"``, `core/ann.py`)."""
+    """Configuration of the external memory (paper §3) on one device, read
+    exactly (``ann="exact"``) or through the LSH index (``ann="lsh"``,
+    `core/ann.py`). ``mem_dtype`` is the rows' storage dtype: 'float32',
+    'bfloat16' (reads upcast, writes round once per column) or 'int8'
+    (per-row symmetric quantization with an f32 scale per row,
+    `SAMState.mem_scale`; reads dequantize, writes re-quantize each
+    touched row once). bf16 and int8 rows run forward only."""
 
     num_slots: int = 1024          # N
     word_size: int = 32            # W
@@ -58,6 +77,12 @@ class MemoryConfig:
     lsh_tables: int = 4
     lsh_bits: int = 8              # buckets per table = 2**bits
     lsh_bucket_size: int = 32
+    mem_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.mem_dtype not in MEM_DTYPES:
+            raise ValueError(f"mem_dtype={self.mem_dtype!r}: expected one of "
+                             f"{sorted(MEM_DTYPES)}")
 
     @property
     def candidates(self) -> int:
@@ -101,10 +126,11 @@ class ANNState(NamedTuple):
 class SAMState(NamedTuple):
     """SAM recurrent state in the scratch-row layout (module docstring).
     ``ann`` is the LSH index (`ANNState`) of an ``ann="lsh"`` cell and None
-    for the exact read; ``mem_scale`` is always None (f32 rows). Both keep
-    the JAX field set."""
+    for the exact read; ``mem_scale`` is the (B, N+1) f32 per-row scale of
+    int8 rows (``mem_dtype="int8"``) and None for f32 and bf16 rows. Both
+    keep the JAX field set."""
 
-    memory: torch.Tensor        # (B, N+1, W) f32 — row N = write scratch
+    memory: torch.Tensor        # (B, N+1, W) f32/bf16/int8 — row N = scratch
     last_access: torch.Tensor   # (B, N+1) int32; [N] = LA_SCRATCH
     read: SparseRead            # previous step's read
     ctrl: LSTMState
@@ -121,10 +147,29 @@ class StepDeltas(NamedTuple):
     N."""
 
     write_idx: torch.Tensor   # (B, J) int32 rows touched by the write
-    old_rows: torch.Tensor    # (B, J, W) their contents before the write
+    old_rows: torch.Tensor    # (B, J, W) their raw contents (the storage
+    #                           dtype's bits) before the write
     read_idx: torch.Tensor    # (B, H, K) int32 rows selected by the read,
     #                           signed: -1 = no valid selection
-    old_scale: Optional[torch.Tensor] = None   # int8 rows only (not ported)
+    old_scale: Optional[torch.Tensor] = None   # (B, J) their f32 scales
+    #                           before the write, int8 rows only (None else)
+
+
+# The open roadmap item that bf16 and int8 rows wait on to train.
+DTYPE_TRAINING_ITEM = (
+    "training with bf16 or int8 memory rows is not ported yet: ROADMAP.md "
+    "A6b (the rollback of int8 (row, scale) pairs, the straight-through "
+    "scale cotangent, the bf16 memory cotangent); these rows run forward "
+    "only (SAM.forward, sam_unroll, sam_step)")
+
+
+def require_f32_rows(memory: torch.Tensor, mem_scale=None, *,
+                     what: str) -> None:
+    """Raise a ValueError naming `DTYPE_TRAINING_ITEM` unless ``memory``
+    holds f32 rows (no int8 scales): ``what`` is the refused operation."""
+    if memory.dtype != torch.float32 or mem_scale is not None:
+        raise ValueError(f"{what} on a {memory.dtype} memory: "
+                         f"{DTYPE_TRAINING_ITEM}")
 
 
 def mark_rolled_back(memory: torch.Tensor) -> None:

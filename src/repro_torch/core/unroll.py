@@ -38,7 +38,8 @@ import weakref
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch.core.types import mark_rolled_back, tree_bytes
+from repro_torch.core.types import (mark_rolled_back, require_f32_rows,
+                                    tree_bytes)
 
 
 def _split(tree):
@@ -244,8 +245,12 @@ def unroll(cell, params, state0, xs, *, mode: str = "sparse", chunk=None):
     The memory is updated in place. After the backward of a "sparse" or
     "chunked" unroll it holds ``state0``'s memory again while the usage
     table keeps step T's: the returned state (and ``state0``) can be read
-    but not stepped from; `sam_step` raises (module docstring).
+    but not stepped from; `sam_step` raises (module docstring). A bf16 or
+    int8 memory raises: those rows run forward only
+    (`types.DTYPE_TRAINING_ITEM`).
     """
+    require_f32_rows(state0.memory, getattr(state0, "mem_scale", None),
+                     what=f"unroll(mode={mode!r})")
     if mode == "naive":
         return unroll_naive(cell, params, state0, xs)
     if mode == "sparse":

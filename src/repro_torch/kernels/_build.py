@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library under
 ``build/repro_torch/`` at the repository root, keyed on a hash of the
-source and the flags, and loaded with `ctypes`. Nothing is built when a
+source, the shared headers (``csrc/*.cuh``) and the flags, and loaded
+with `ctypes`. Nothing is built when a
 module is imported: the first launch builds what is missing, and
 `build_all` builds every kernel at once, one ``nvcc`` per source, all
 started together. A library is written under a temporary name and renamed
@@ -41,7 +42,10 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """The library of ``csrc/<name>.cu``, keyed on that source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -1,10 +1,12 @@
 // fused_read_sweep: the exact SAM read (cosine top-K, softmax, weighted sum).
 //
-// Replaces src/repro/kernels/fused_read.py::fused_read_sweep (the f32 path
-// of _sweep_kernel, fused_read.py:85-143, called at :180).
+// Replaces src/repro/kernels/fused_read.py::fused_read_sweep (_sweep_kernel,
+// fused_read.py:85-143, called at :180) on f32 rows, on bf16 rows (:101)
+// and on int8 rows with their per-row scales (quantized=True, :102-106).
 //
 // Computes: q (B, H, W), mem (B, N+1, W) of which rows [0, valid_n) are
-// swept, beta (B, H) ->
+// swept, beta (B, H) -> (on the rows as f32: bf16 upcast, int8 q
+// dequantized as float(q)·scale[row], before the norm)
 //   idx  (B, H, K) int32: the K rows of highest cosine similarity
 //        x·q / (sqrt(|x|² + 1e-6) sqrt(|q|² + 1e-6)), ordered by
 //        (similarity desc, index asc) — lax.top_k's tie rule;
@@ -13,9 +15,10 @@
 //   read (B, H, W) f32: sum_k w_k · mem[b, idx_k].
 //
 // What bounds it on the H100: bytes. Each call streams the swept memory
-// once, B·N·W·4 bytes: 1.07 GB at B = 8, N = 2^20, W = 32, about 0.32 ms at
-// 3.35 TB/s. The arithmetic (about 2·H·W flops per row) is far below the
-// card's f32 rate.
+// once, B·N·W·4 bytes in f32: 1.07 GB at B = 8, N = 2^20, W = 32, about
+// 0.32 ms at 3.35 TB/s; half that in bf16 (0.16 ms) and B·N·(W + 4) bytes
+// in int8 with the scales (0.09 ms). The arithmetic (about 2·H·W flops per
+// row) is far below the card's f32 rate.
 //
 // Design: the TPU grid (B·H, N/block_n) runs in order and streams each
 // batch row's memory once per head. Here pass 1 runs a grid over
@@ -33,10 +36,21 @@
 // small. Pass 2 runs one small block per (b, h): it merges the chunks·K
 // candidates by the same (value desc, index asc) rule, applies the softmax
 // tail and gathers the K rows for the weighted sum. The two launches count
-// as one kernel of the port. W must be a multiple of 4.
+// as one kernel of the port.
+//
+// Storage types: the row type is a template parameter (rows.cuh), and
+// the one place it shows is the staging of a tile: each thread loads 16
+// bytes (4 f32, 8 bf16 or 16 int8 values, the latter with their row's
+// scale) and writes them as f32 into the shared tile, so the scoring, the
+// per-thread top-K, the block arg-best, pass 2's merge and the tail are
+// one code path. Pass 2 gathers its K rows the same way. W must be a
+// multiple of the values per load: 4 (f32), 8 (bf16) or 16 (int8).
 #include <cuda_runtime.h>
 #include <climits>
 #include <cmath>
+#include <cstdint>
+
+#include "rows.cuh"
 
 namespace {
 
@@ -80,6 +94,12 @@ __device__ void block_best(float& v, int& i, float* sv, int* si) {
   __syncthreads();
 }
 
+// Row of load e in a tile of rows of V loads: e / V as one multiply-high,
+// exact while e·V < 2^32 (e < kThreads·V); V = 1 has no such magic number.
+__device__ __forceinline__ int row_of(int e, int V, unsigned magic) {
+  return V > 1 ? (int)__umulhi((unsigned)e, magic) : e;
+}
+
 // Query heads padded to a multiple of 4: one float4 holds four heads.
 __host__ __device__ constexpr int padded_heads(int h) {
   return (h + 3) / 4 * 4;
@@ -91,14 +111,17 @@ size_t pass1_smem(int H, int K, int W) {
                           + 2 * (size_t)H * K * kThreads + 2 * 33);
 }
 
-template <int H>
+template <class R, int H>
 __global__ void __launch_bounds__(kThreads)
-fused_read_pass1(const float* __restrict__ q, const float* __restrict__ mem,
-                 long long mem_stride, int valid_n, int K, int W, int chunks,
+fused_read_pass1(const float* __restrict__ q,
+                 const typename R::T* __restrict__ mem,
+                 const float* __restrict__ scale, long long rows_per_b,
+                 int valid_n, int K, int W, int chunks,
                  float* __restrict__ cand_v, int* __restrict__ cand_i) {
   constexpr int HP = padded_heads(H);
   const int P = W + 4;                             // tile row pitch, floats
   const int W4 = W / 4;
+  const int V = W / R::kPer;                       // 16-byte loads per row
   extern __shared__ float4 smem4[];
   float* tile = reinterpret_cast<float*>(smem4);   // kThreads x P
   float* qn = tile + kThreads * P;                 // W x HP, [w][h]
@@ -126,28 +149,35 @@ fused_read_pass1(const float* __restrict__ q, const float* __restrict__ mem,
 #pragma unroll
   for (int h = 0; h < H; ++h) { thr_v[h] = -INFINITY; thr_i[h] = INT_MAX; }
 
-  // e / W4 as one multiply-high: exact while e·W4 < 2^32 (e < kThreads·W4).
-  const unsigned magic = 0xffffffffu / (unsigned)W4 + 1u;
-  const float4* mb = reinterpret_cast<const float4*>(mem + b * mem_stride);
+  const unsigned magic = V > 1 ? 0xffffffffu / (unsigned)V + 1u : 0u;
+  const uint4* mb = reinterpret_cast<const uint4*>(mem + b * rows_per_b * W);
+  const float* sb = R::kScaled ? scale + b * rows_per_b : nullptr;
   const int chunk_end = min((c + 1) * kChunkRows, valid_n);
   for (int r0 = c * kChunkRows; r0 < chunk_end; r0 += kThreads) {
     const int rows = min(kThreads, chunk_end - r0);
-    const int nf = rows * W4;                      // float4s in this tile
-    const float4* src = mb + (long long)r0 * W4;
+    const int nf = rows * V;                       // loads in this tile
+    const uint4* src = mb + (long long)r0 * V;
     __syncthreads();                               // tile free to refill
     for (int e0 = 0; e0 < nf; e0 += 8 * kThreads) {
-      float4 v[8];
+      uint4 v[8];
+      float sc[R::kScaled ? 8 : 1];   // the rows' scales (int8 only)
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
         const int e = e0 + u * kThreads + t;
-        if (e < nf) v[u] = __ldg(src + e);
+        if (e < nf) {
+          v[u] = __ldg(src + e);
+          if constexpr (R::kScaled)
+            sc[u] = __ldg(sb + r0 + row_of(e, V, magic));
+        }
       }
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
         const int e = e0 + u * kThreads + t;
         if (e < nf) {
-          const int rr = (int)__umulhi((unsigned)e, magic);
-          *reinterpret_cast<float4*>(tile + rr * P + 4 * (e - rr * W4)) = v[u];
+          const int rr = row_of(e, V, magic);
+          float s = 1.0f;
+          if constexpr (R::kScaled) s = sc[u];
+          R::unpack(v[u], s, tile + rr * P + R::kPer * (e - rr * V));
         }
       }
     }
@@ -221,10 +251,12 @@ fused_read_pass1(const float* __restrict__ q, const float* __restrict__ mem,
   }
 }
 
+template <class R>
 __global__ void __launch_bounds__(kMergeThreads)
 fused_read_pass2(const float* __restrict__ cand_v,
                  const int* __restrict__ cand_i, int ncand,
-                 const float* __restrict__ mem, long long mem_stride,
+                 const typename R::T* __restrict__ mem,
+                 const float* __restrict__ scale, long long rows_per_b,
                  const float* __restrict__ beta, int H, int K, int W,
                  float* __restrict__ read, float* __restrict__ w_out,
                  int* __restrict__ idx_out) {
@@ -232,6 +264,7 @@ fused_read_pass2(const float* __restrict__ cand_v,
   __shared__ int ri[33];
   __shared__ float sel_v[kMaxK];
   __shared__ int sel_i[kMaxK];
+  __shared__ float sel_s[kMaxK];
   const int bh = blockIdx.x, b = bh / H, t = threadIdx.x;
   const float* cv = cand_v + (long long)bh * ncand;
   const int* ci = cand_i + (long long)bh * ncand;
@@ -283,31 +316,60 @@ fused_read_pass2(const float* __restrict__ cand_v,
     const float d = fmaxf(sum2, 1e-6f);
     for (int k = 0; k < K; ++k) {
       sel_v[k] = sel_v[k] / d;
+      sel_s[k] = R::kScaled ? scale[b * rows_per_b + sel_i[k]] : 1.0f;
       w_out[(long long)bh * K + k] = sel_v[k];
       idx_out[(long long)bh * K + k] = sel_i[k];
     }
   }
   __syncthreads();
-  const float* mb = mem + (long long)b * mem_stride;
+  const typename R::T* mb = mem + b * rows_per_b * W;
   for (int w = t; w < W; w += kMergeThreads) {
     float acc = 0.0f;
     for (int k = 0; k < K; ++k)
-      acc = fmaf(sel_v[k], mb[(long long)sel_i[k] * W + w], acc);
+      acc = fmaf(sel_v[k], R::at(mb + (long long)sel_i[k] * W, w, sel_s[k]),
+                 acc);
     read[(long long)bh * W + w] = acc;
   }
 }
 
-template <int H>
+template <class R, int H>
 cudaError_t launch_pass1(dim3 grid, size_t smem, cudaStream_t s,
-                         const float* q, const float* mem,
-                         long long mem_stride, int valid_n, int K, int W,
+                         const float* q, const void* mem, const float* scale,
+                         long long rows_per_b, int valid_n, int K, int W,
                          int chunks, float* cand_v, int* cand_i) {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_read_pass1<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_read_pass1<R, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  fused_read_pass1<H><<<grid, kThreads, smem, s>>>(
-      q, mem, mem_stride, valid_n, K, W, chunks, cand_v, cand_i);
+  fused_read_pass1<R, H><<<grid, kThreads, smem, s>>>(
+      q, static_cast<const typename R::T*>(mem), scale, rows_per_b, valid_n,
+      K, W, chunks, cand_v, cand_i);
+  return cudaGetLastError();
+}
+
+template <class R>
+cudaError_t launch(const float* q, const void* mem, const float* scale,
+                   const float* beta, int batch, int H, int K, int W,
+                   int valid_n, long long rows_per_b, float* cand_v,
+                   int* cand_i, float* read, float* w_out, int* idx_out,
+                   cudaStream_t s) {
+  if (W % R::kPer != 0 || (R::kScaled && scale == nullptr))
+    return cudaErrorInvalidValue;
+  const size_t smem = pass1_smem(H, K, W);
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+  const int chunks = (valid_n + kChunkRows - 1) / kChunkRows;
+  const dim3 grid(chunks, batch);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (H) {
+#define PASS1(h) case h: err = launch_pass1<R, h>(grid, smem, s, q, mem, \
+    scale, rows_per_b, valid_n, K, W, chunks, cand_v, cand_i); break;
+    PASS1(1) PASS1(2) PASS1(3) PASS1(4) PASS1(5) PASS1(6) PASS1(7) PASS1(8)
+#undef PASS1
+  }
+  if (err != cudaSuccess) return err;
+  fused_read_pass2<R><<<batch * H, kMergeThreads, 0, s>>>(
+      cand_v, cand_i, chunks * K, static_cast<const typename R::T*>(mem),
+      scale, rows_per_b, beta, H, K, W, read, w_out, idx_out);
   return cudaGetLastError();
 }
 
@@ -320,30 +382,29 @@ int fused_read_num_candidates(int valid_n, int k) {
   return ((valid_n + kChunkRows - 1) / kChunkRows) * k;
 }
 
-int fused_read_launch(const float* q, const float* mem, const float* beta,
-                      int batch, int H, int K, int W, int valid_n,
-                      long long mem_stride, float* cand_v, int* cand_i,
-                      float* read, float* w_out, int* idx_out, void* stream) {
-  if (H < 1 || H > kMaxH || K < 1 || K > kMaxK || W < 4 || W % 4 != 0
-      || valid_n < K || batch < 1 || batch > 65535)
+// row_dtype: 0 = f32, 1 = bf16 (raw 16-bit patterns), 2 = int8 with
+// scale (B, rows_per_b) f32; scale is ignored (may be null) otherwise.
+int fused_read_launch(const float* q, const void* mem, const float* scale,
+                      const float* beta, int batch, int H, int K, int W,
+                      int valid_n, long long rows_per_b, int row_dtype,
+                      float* cand_v, int* cand_i, float* read, float* w_out,
+                      int* idx_out, void* stream) {
+  if (H < 1 || H > kMaxH || K < 1 || K > kMaxK || W < 4 || valid_n < K
+      || batch < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = pass1_smem(H, K, W);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  const int chunks = (valid_n + kChunkRows - 1) / kChunkRows;
-  const dim3 grid(chunks, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  switch (H) {
-#define PASS1(h) case h: err = launch_pass1<h>(grid, smem, s, q, mem, \
-    mem_stride, valid_n, K, W, chunks, cand_v, cand_i); break;
-    PASS1(1) PASS1(2) PASS1(3) PASS1(4) PASS1(5) PASS1(6) PASS1(7) PASS1(8)
-#undef PASS1
-  }
-  if (err != cudaSuccess) return (int)err;
-  fused_read_pass2<<<batch * H, kMergeThreads, 0, s>>>(
-      cand_v, cand_i, chunks * K, mem, mem_stride, beta, H, K, W, read,
-      w_out, idx_out);
-  return (int)cudaGetLastError();
+  if (row_dtype == 0)
+    err = launch<RowsF32>(q, mem, scale, beta, batch, H, K, W, valid_n,
+                          rows_per_b, cand_v, cand_i, read, w_out, idx_out, s);
+  else if (row_dtype == 1)
+    err = launch<RowsBF16>(q, mem, scale, beta, batch, H, K, W, valid_n,
+                           rows_per_b, cand_v, cand_i, read, w_out, idx_out,
+                           s);
+  else if (row_dtype == 2)
+    err = launch<RowsI8>(q, mem, scale, beta, batch, H, K, W, valid_n,
+                         rows_per_b, cand_v, cand_i, read, w_out, idx_out, s);
+  return (int)err;
 }
 
 }  // extern "C"

@@ -1,10 +1,13 @@
 // fused_read_candidates: the ANN (LSH) SAM read over a candidate set.
 //
-// Replaces src/repro/kernels/fused_read.py::fused_read_candidates (the f32
-// path of _cand_kernel, fused_read.py:210-275, called at :326).
+// Replaces src/repro/kernels/fused_read.py::fused_read_candidates
+// (_cand_kernel, fused_read.py:210-275, called at :326) on f32 rows, bf16
+// rows and int8 rows with their per-row scales (:229-234).
 //
 // Computes: q (B, H, W), mem (B, rows, W), beta (B, H), and cand (B, H, C)
-// int32 *signed, pre-deduped* candidate rows (-1 = invalid) ->
+// int32 *signed, pre-deduped* candidate rows (-1 = invalid) -> (on the
+// rows as f32: bf16 upcast, int8 dequantized as float(q)·scale[id] with
+// the scale of the clamped id, fused_read.py:302-308)
 //   idx  (B, H, K) int32: the K candidates of highest cosine similarity
 //        x·q / (sqrt(|x|² + 1e-6) sqrt(|q|² + 1e-6)), an invalid one scored
 //        -1e9, ordered by (similarity desc, position in C asc) — lax.top_k's
@@ -31,11 +34,17 @@
 // the weighted sum of the K rows. A first version with 128 threads and K
 // rounds of a block-wide arg-best took about as long, 16.7 against 18.0 µs
 // per launch (PERF.md): the three dependent trips to device memory (the
-// ids, the rows, the K rows again) and the launch set the time.
-// W must be a multiple of 4, 1 <= K <= 8 and C >= K.
+// ids, the rows, the K rows again) and the launch set the time. The row
+// storage type is a template parameter that shows only where a row is
+// staged or gathered: one 16-byte load holds 4 f32, 8 bf16 or 16 int8
+// values, written as f32 into the tile (int8 times the row's scale).
+// W must be a multiple of those 4, 8 or 16; 1 <= K <= 8 and C >= K.
 #include <cuda_runtime.h>
 #include <climits>
 #include <cmath>
+#include <cstdint>
+
+#include "rows.cuh"
 
 namespace {
 
@@ -49,13 +58,15 @@ __device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
 }
 
 size_t smem_bytes(int C, int W) {
-  return sizeof(float) * ((size_t)kThreads * (W + 4) + W + C + 2 * kMaxK);
+  return sizeof(float) * ((size_t)kThreads * (W + 4) + W + C + 3 * kMaxK);
 }
 
+template <class R>
 __global__ void __launch_bounds__(kThreads)
 fused_read_candidates_kernel(const float* __restrict__ q,
-                             const float* __restrict__ mem,
-                             long long mem_stride,
+                             const typename R::T* __restrict__ mem,
+                             const float* __restrict__ scale,
+                             long long rows_per_b,
                              const float* __restrict__ beta,
                              const int* __restrict__ cand, int H, int C,
                              int K, int W, float* __restrict__ read,
@@ -64,15 +75,18 @@ fused_read_candidates_kernel(const float* __restrict__ q,
   extern __shared__ float4 smem4[];
   const int P = W + 4;                             // tile row pitch, floats
   const int W4 = W / 4;
+  const int V = W / R::kPer;                       // 16-byte loads per row
   float* tile = reinterpret_cast<float*>(smem4);   // kThreads x P
   float* qn = tile + kThreads * P;                 // W
   float* score = qn + W;                           // C
   float* sel_v = score + C;                        // kMaxK
   int* sel_i = reinterpret_cast<int*>(sel_v + kMaxK);  // kMaxK
+  float* sel_s = reinterpret_cast<float*>(sel_i + kMaxK);  // kMaxK
 
   const int bh = blockIdx.x, b = bh / H, t = threadIdx.x;
   const int* cb = cand + (long long)bh * C;
-  const float* mb = mem + (long long)b * mem_stride;
+  const typename R::T* mb = mem + b * rows_per_b * W;
+  const float* sb = R::kScaled ? scale + b * rows_per_b : nullptr;
   if (t == 0) {
     const float* qh = q + (long long)bh * W;
     float s = 0.0f;
@@ -83,26 +97,28 @@ fused_read_candidates_kernel(const float* __restrict__ q,
 
   for (int c0 = 0; c0 < C; c0 += kThreads) {
     const int n = min(kThreads, C - c0);
-    const int nf = n * W4;                         // float4s in this tile
+    const int nf = n * V;                          // loads in this tile
     __syncthreads();                               // tile free, qn ready
     for (int e0 = 0; e0 < nf; e0 += 8 * kThreads) {
-      float4 v[8];
+      uint4 v[8];
+      float sc[8];
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
         const int e = e0 + u * kThreads + t;
         if (e < nf) {
-          const int cr = e / W4;
+          const int cr = e / V;
           const int row = max(cb[c0 + cr], 0);
-          v[u] = __ldg(reinterpret_cast<const float4*>(
-              mb + (long long)row * W) + (e - cr * W4));
+          v[u] = __ldg(reinterpret_cast<const uint4*>(
+              mb + (long long)row * W) + (e - cr * V));
+          sc[u] = R::kScaled ? __ldg(sb + row) : 1.0f;
         }
       }
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
         const int e = e0 + u * kThreads + t;
         if (e < nf) {
-          const int cr = e / W4;
-          *reinterpret_cast<float4*>(tile + cr * P + 4 * (e - cr * W4)) = v[u];
+          const int cr = e / V;
+          R::unpack(v[u], sc[u], tile + cr * P + R::kPer * (e - cr * V));
         }
       }
     }
@@ -167,6 +183,7 @@ fused_read_candidates_kernel(const float* __restrict__ q,
     const float d = fmaxf(sum2, 1e-6f);
     for (int k = 0; k < K; ++k) {
       sel_v[k] = sel_v[k] / d;
+      sel_s[k] = R::kScaled ? sb[max(sel_i[k], 0)] : 1.0f;
       w_out[(long long)bh * K + k] = sel_v[k];
       idx_out[(long long)bh * K + k] = sel_i[k];
     }
@@ -175,28 +192,54 @@ fused_read_candidates_kernel(const float* __restrict__ q,
   for (int w = t; w < W; w += kThreads) {
     float acc = 0.0f;
     for (int k = 0; k < K; ++k)
-      acc = fmaf(sel_v[k], mb[(long long)max(sel_i[k], 0) * W + w], acc);
+      acc = fmaf(sel_v[k],
+                 R::at(mb + (long long)max(sel_i[k], 0) * W, w, sel_s[k]),
+                 acc);
     read[(long long)bh * W + w] = acc;
   }
 }
 
+template <class R>
+cudaError_t launch(const float* q, const void* mem, const float* scale,
+                   long long rows_per_b, const float* beta, const int* cand,
+                   int batch, int H, int C, int K, int W, float* read,
+                   float* w_out, int* idx_out, cudaStream_t s) {
+  if (W % R::kPer != 0 || (R::kScaled && scale == nullptr))
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(C, W);
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_read_candidates_kernel<R>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  fused_read_candidates_kernel<R><<<batch * H, kThreads, smem, s>>>(
+      q, static_cast<const typename R::T*>(mem), scale, rows_per_b, beta,
+      cand, H, C, K, W, read, w_out, idx_out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// row_dtype: 0 = f32, 1 = bf16 (raw 16-bit patterns), 2 = int8 with
+// scale (B, rows_per_b) f32; scale is ignored (may be null) otherwise.
 extern "C" int fused_read_candidates_launch(
-    const float* q, const float* mem, const float* beta, const int* cand,
-    int batch, int H, int C, int K, int W, long long mem_stride, float* read,
-    float* w_out, int* idx_out, void* stream) {
-  if (H < 1 || K < 1 || K > kMaxK || C < K || W < 4 || W % 4 != 0
+    const float* q, const void* mem, const float* scale, const float* beta,
+    const int* cand, int batch, int H, int C, int K, int W,
+    long long rows_per_b, int row_dtype, float* read, float* w_out,
+    int* idx_out, void* stream) {
+  if (H < 1 || K < 1 || K > kMaxK || C < K || W < 4
       || batch < 1 || (long long)batch * H > INT_MAX)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(C, W);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_read_candidates_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fused_read_candidates_kernel<<<batch * H, kThreads, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      q, mem, mem_stride, beta, cand, H, C, K, W, read, w_out, idx_out);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (row_dtype == 0)
+    err = launch<RowsF32>(q, mem, scale, rows_per_b, beta, cand, batch, H, C,
+                          K, W, read, w_out, idx_out, s);
+  else if (row_dtype == 1)
+    err = launch<RowsBF16>(q, mem, scale, rows_per_b, beta, cand, batch, H,
+                           C, K, W, read, w_out, idx_out, s);
+  else if (row_dtype == 2)
+    err = launch<RowsI8>(q, mem, scale, rows_per_b, beta, cand, batch, H, C,
+                         K, W, read, w_out, idx_out, s);
+  return (int)err;
 }

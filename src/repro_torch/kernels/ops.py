@@ -8,6 +8,13 @@ There is no fallback from one to the other and no switch that swaps the
 kernel out: unlike the JAX package, the kernels take any N and mask the
 ragged tile themselves.
 
+Storage dtypes: the reads and the write take f32, bf16 or int8 rows (int8
+with ``mem_scale=``, the (B, rows) f32 per-row scales, which the int8
+write updates and returns). bf16 and int8 rows run forward only: when
+autograd records on such a memory the op raises
+(`types.DTYPE_TRAINING_ITEM`) rather than build a gradient the JAX
+package computes otherwise. `lsh_hash` takes f32; its callers upcast.
+
 When autograd records (grad enabled and an input requires grad), each op
 runs inside a `torch.autograd.Function` whose backward is the closed-form
 VJP of the JAX package's custom VJP (`repro/kernels/ops.py:318-364`,
@@ -21,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.types import require_f32_rows
 from repro_torch.kernels import ref
 from repro_torch.kernels.fused_read import fused_read_sweep
 from repro_torch.kernels.fused_read_candidates import \
@@ -29,6 +37,8 @@ from repro_torch.kernels.lsh_hash import lsh_hash as lsh_hash_kernel
 from repro_torch.kernels.scatter_rows import scatter_rows as scatter_rows_kernel
 from repro_torch.kernels.sparse_write import \
     sparse_write_update as sparse_write_kernel
+from repro_torch.kernels.sparse_write import \
+    sparse_write_update_q as sparse_write_q_kernel
 from repro_torch.kernels.usage_argmin import lra_topn as lra_topn_kernel
 
 
@@ -41,7 +51,8 @@ def _on_cpu(t: torch.Tensor) -> bool:
 
 
 def _records(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def lra_topn(last_access: torch.Tensor, n: int, *, valid_n: int | None = None):
@@ -70,28 +81,36 @@ def lsh_hash(x: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
 # The reads: exact (a sweep of the memory) and over LSH candidates
 # --------------------------------------------------------------------------
 
-def _fused_read(q, mem, beta, k, valid_n, cand_idx):
+def _fused_read(q, mem, beta, k, valid_n, cand_idx, mem_scale=None):
     if cand_idx is not None:
         if _on_cpu(mem):
-            return ref.fused_read_candidates_ref(q, mem, beta, k, cand_idx)
-        return fused_read_cand_kernel(q, mem, beta, cand_idx, k=k)
+            return ref.fused_read_candidates_ref(q, mem, beta, k, cand_idx,
+                                                 mem_scale)
+        return fused_read_cand_kernel(q, mem, beta, cand_idx, k=k,
+                                      mem_scale=mem_scale)
     if _on_cpu(mem):
-        return ref.fused_read_ref(q, mem, beta, k, valid_n=valid_n)
-    return fused_read_sweep(q, mem, beta, k=k, valid_n=valid_n)
+        return ref.fused_read_ref(q, mem, beta, k, valid_n=valid_n,
+                                  mem_scale=mem_scale)
+    return fused_read_sweep(q, mem, beta, k=k, valid_n=valid_n,
+                            mem_scale=mem_scale)
 
 
 def fused_read(q: torch.Tensor, mem: torch.Tensor, beta: torch.Tensor, k: int,
                *, valid_n: int | None = None,
-               cand_idx: torch.Tensor | None = None):
-    """The SAM read. q: (B, H, W), mem: (B, rows, W), beta: (B, H) ->
-    (read (B, H, W), weights (B, H, K), indices (B, H, K) int32).
-    Without ``cand_idx`` the exact read sweeps rows [0, valid_n). With
-    ``cand_idx`` (B, H, C), signed and pre-deduped (-1 = invalid), the ANN
-    read re-ranks those candidates only and returns *signed* indices.
-    Differentiable in q, mem and beta; the selection is not."""
-    if _records(q, mem, beta):
+               cand_idx: torch.Tensor | None = None,
+               mem_scale: torch.Tensor | None = None):
+    """The SAM read. q: (B, H, W), mem: (B, rows, W) f32, bf16 or int8
+    (then with ``mem_scale`` (B, rows) f32), beta: (B, H) -> (read
+    (B, H, W) f32, weights (B, H, K), indices (B, H, K) int32), computed
+    on the upcast or dequantized rows. Without ``cand_idx`` the exact read
+    sweeps rows [0, valid_n). With ``cand_idx`` (B, H, C), signed and
+    pre-deduped (-1 = invalid), the ANN read re-ranks those candidates only
+    and returns *signed* indices. Differentiable in q, mem and beta on f32
+    rows; the selection is not."""
+    if _records(q, mem, beta, mem_scale):
+        require_f32_rows(mem, mem_scale, what="autograd through fused_read")
         return _FusedRead.apply(q, mem, beta, k, valid_n, cand_idx)
-    return _fused_read(q, mem, beta, k, valid_n, cand_idx)
+    return _fused_read(q, mem, beta, k, valid_n, cand_idx, mem_scale)
 
 
 class _FusedRead(torch.autograd.Function):
@@ -204,16 +223,34 @@ def _sparse_write(mem, last_access, write_idx, write_w, a, lra_idx, step,
                                lra_idx, step, delta=delta)
 
 
+def _sparse_write_q(mem, mem_scale, last_access, write_idx, write_w, a,
+                    lra_idx, step, delta):
+    if _on_cpu(mem):
+        return ref.sparse_write_update_q_ref(mem, mem_scale, last_access,
+                                             write_idx, write_w, a, lra_idx,
+                                             step, delta)
+    return sparse_write_q_kernel(mem, mem_scale, last_access, write_idx,
+                                 write_w, a, lra_idx, step, delta=delta)
+
+
 def sparse_write_update(mem, last_access, write_idx, write_w, a, lra_idx,
-                        step, *, delta: float):
+                        step, *, delta: float, mem_scale=None):
     """The fused LRA erase + w^W a^T scatter-add + usage stamp, in place on
-    ``mem`` (B, N+1, W) and ``last_access`` (B, N+1). Returns both; the
+    ``mem`` (B, N+1, W) and ``last_access`` (B, N+1). ``mem`` holds f32 or
+    bf16 rows, or int8 rows with their scales ``mem_scale`` (B, N+1) f32,
+    which the write re-quantizes in place. Returns (mem, last_access), or
+    (mem, last_access, mem_scale) with ``mem_scale``. On f32 rows the
     memory is differentiable in mem, write_w and a, the usage table not
     (the paper passes no gradient through U^(2))."""
-    if _records(mem, write_w, a):
+    if _records(mem, write_w, a, mem_scale):
+        require_f32_rows(mem, mem_scale,
+                         what="autograd through sparse_write_update")
         mem = _SparseWrite.apply(mem, write_w, a, last_access, write_idx,
                                  lra_idx, step, delta)
         return mem, last_access
+    if mem_scale is not None:
+        return _sparse_write_q(mem, mem_scale, last_access, write_idx,
+                               write_w, a, lra_idx, step, delta)
     return _sparse_write(mem, last_access, write_idx, write_w, a, lra_idx,
                          step, delta)
 

@@ -17,10 +17,20 @@ card. They state the kernels' contracts exactly:
   write's floats bit for bit.
 * The write and the scatter update their buffers in place and never
   touch a row that no index names (in particular not scratch row N).
+* Storage dtypes: the reads take f32, bf16 or int8 rows. A bf16 row is
+  upcast, an int8 row is dequantized (``float(q) · scale``, its scale
+  from ``mem_scale`` (B, rows)) **before** the norm, so the ranking sees
+  what the JAX oracles see (`_deq_view`). The bf16 write rounds each
+  column's w·a to bf16 once and adds it into the bf16 row in j order,
+  the JAX oracle's rounding; the int8 write adds a row's columns into
+  its dequantized row in j order, each as one fused multiply-add, and
+  re-quantizes the row once (`sparse_write_update_q_ref`).
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.quant import dequantize_rows, quantize_rows
 
 _EPS = 1e-6   # inside the rsqrt, not added to the norm
 _NEG = -1e9   # the score of an invalid selection
@@ -39,6 +49,14 @@ def topk_read_ref(q: torch.Tensor, mem: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k].to(torch.int32)
 
 
+def _deq_view(mem: torch.Tensor, mem_scale=None) -> torch.Tensor:
+    """f32 view of a memory buffer: an upcast of f32/bf16 rows, or the
+    dequantized rows of an int8 buffer whose scales ``mem_scale`` gives."""
+    if mem_scale is None:
+        return mem.to(torch.float32)
+    return dequantize_rows(mem, mem_scale)
+
+
 def gather_rows(mem: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """mem: (B, R, W), idx: (B, ...) int with every index in [0, R) -> the
     rows idx names, (B, ..., W). The index is not checked (this runs on the
@@ -48,6 +66,17 @@ def gather_rows(mem: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     b = torch.arange(mem.shape[0], device=mem.device)
     b = b.view((-1,) + (1,) * (idx.dim() - 1))
     return mem[b, idx.long()]
+
+
+def gather_words(mem: torch.Tensor, idx: torch.Tensor,
+                 mem_scale=None) -> torch.Tensor:
+    """`gather_rows` as f32 words: bf16 rows upcast, int8 rows dequantized
+    against their gathered scales. ``idx`` as for `gather_rows`."""
+    rows = gather_rows(mem, idx)
+    if mem_scale is None:
+        return rows.to(torch.float32)
+    scale = gather_rows(mem_scale[..., None], idx)[..., 0]
+    return dequantize_rows(rows, scale)
 
 
 def read_tail_rows(q: torch.Tensor, words: torch.Tensor, beta: torch.Tensor,
@@ -66,13 +95,13 @@ def read_tail_rows(q: torch.Tensor, words: torch.Tensor, beta: torch.Tensor,
 
 
 def sparse_read_tail(q: torch.Tensor, mem: torch.Tensor, beta: torch.Tensor,
-                     idx: torch.Tensor):
+                     idx: torch.Tensor, mem_scale=None):
     """`read_tail_rows` on the rows ``idx`` names. idx: (B,H,K) *signed*:
     -1 marks an invalid selection, gathered as row 0 with weight exactly 0.
-    q: (B,H,W), mem: (B,N,W), beta: (B,H) -> (read (B,H,W), weights
-    (B,H,K))."""
+    q: (B,H,W), mem: (B,N,W) (int8 rows with ``mem_scale`` (B,N)), beta:
+    (B,H) -> (read (B,H,W), weights (B,H,K))."""
     valid = idx >= 0
-    words = gather_rows(mem, idx.clamp_min(0))               # (B,H,K,W)
+    words = gather_words(mem, idx.clamp_min(0), mem_scale)   # (B,H,K,W)
     return read_tail_rows(q, words, beta, valid)
 
 
@@ -90,13 +119,14 @@ def dedup(idx: torch.Tensor) -> torch.Tensor:
 
 
 def candidate_topk(q: torch.Tensor, mem: torch.Tensor, k: int,
-                   cand_idx: torch.Tensor) -> torch.Tensor:
+                   cand_idx: torch.Tensor, mem_scale=None) -> torch.Tensor:
     """The selection of the ANN read on a *pre-deduped* signed candidate
     set cand_idx (B, H, C), -1 = invalid: re-rank the candidates by cosine
     similarity (an invalid one at -1e9, so it is kept only when fewer than
     K are valid) and keep the top K by (similarity desc, position asc).
-    Returns the signed indices (B, H, K) int32."""
-    cand = gather_rows(mem, cand_idx.clamp_min(0))             # (B,H,C,W)
+    int8 rows are dequantized with the scale of their clamped id. Returns
+    the signed indices (B, H, K) int32."""
+    cand = gather_words(mem, cand_idx.clamp_min(0), mem_scale)  # (B,H,C,W)
     sims = torch.einsum("bhw,bhcw->bhc", _normalize(q), _normalize(cand))
     sims = torch.where(cand_idx < 0, _NEG, sims)
     _, pos = torch.sort(sims, dim=-1, descending=True, stable=True)
@@ -105,12 +135,12 @@ def candidate_topk(q: torch.Tensor, mem: torch.Tensor, k: int,
 
 def fused_read_candidates_ref(q: torch.Tensor, mem: torch.Tensor,
                               beta: torch.Tensor, k: int,
-                              cand_idx: torch.Tensor):
+                              cand_idx: torch.Tensor, mem_scale=None):
     """The ANN read: `candidate_topk`, then `sparse_read_tail`. Returns
     (read (B,H,W), weights (B,H,K), signed indices (B,H,K) int32); an
     invalid selection has weight exactly 0."""
-    idx = candidate_topk(q.detach(), mem.detach(), k, cand_idx)
-    read, w = sparse_read_tail(q, mem, beta, idx)
+    idx = candidate_topk(q.detach(), mem.detach(), k, cand_idx, mem_scale)
+    read, w = sparse_read_tail(q, mem, beta, idx, mem_scale)
     return read, w, idx
 
 
@@ -126,13 +156,14 @@ def lsh_hash_ref(x: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
 
 
 def fused_read_ref(q: torch.Tensor, mem: torch.Tensor, beta: torch.Tensor,
-                   k: int, valid_n=None):
-    """The exact read: top-K over rows [0, valid_n) of the (B, N+1, W)
-    buffer, then `sparse_read_tail`. Returns (read (B,H,W), weights
-    (B,H,K), indices (B,H,K) int32)."""
+                   k: int, valid_n=None, mem_scale=None):
+    """The exact read: top-K over the f32 view (`_deq_view`) of rows
+    [0, valid_n) of the (B, N+1, W) buffer, then `sparse_read_tail`.
+    Returns (read (B,H,W), weights (B,H,K), indices (B,H,K) int32)."""
     mv = mem if valid_n is None else mem[:, :valid_n]
-    _, idx = topk_read_ref(q, mv, k)
-    read, w = sparse_read_tail(q, mem, beta, idx)
+    sv = None if mem_scale is None else mem_scale[:, :mv.shape[1]]
+    _, idx = topk_read_ref(q, _deq_view(mv, sv), k)
+    read, w = sparse_read_tail(q, mem, beta, idx, mem_scale)
     return read, w, idx
 
 
@@ -216,15 +247,76 @@ def sparse_write_update_ref(mem: torch.Tensor, last_access: torch.Tensor,
                                                     with weight > δ hits i
 
     Steps 1 and 2 are `scatter_rows_ref` 'set' of zeros and 'add' of
-    `write_rows`: each touched row takes its sum in j order. Returns (mem,
-    last_access)."""
+    `write_rows`: each touched row takes its sum in j order. ``mem`` is
+    f32 or bf16; for bf16 rows each column's w·a is formed in f32 and
+    rounded to bf16 once, and each add rounds to bf16 —
+    ``row = bf16(row + bf16(w_j · a))`` in j order, the rounding of the
+    JAX oracle's bf16 scatter-add. Returns (mem, last_access)."""
     B, H, W = a.shape
-    J = write_idx.shape[1]
     scatter_rows_ref(mem, lra_idx, mem.new_zeros((B, H, W)), "set")
-    scatter_rows_ref(mem, write_idx, write_rows(write_w, a), "add")
+    scatter_rows_ref(mem, write_idx, write_rows(write_w, a).to(mem.dtype),
+                     "add")
+    _stamp(last_access, write_idx, write_w, step, delta)
+    return mem, last_access
+
+
+def _stamp(last_access, write_idx, write_w, step, delta) -> None:
+    """The write's usage stamp, in place: max(la, step[b]) on every row a
+    column with weight > δ hits."""
+    B, J = write_idx.shape
     widx = write_idx.long()
-    b = torch.arange(B, device=mem.device)[:, None]
-    stamp = _lane_step(step, B, mem.device)[:, None].expand(B, J)
+    b = torch.arange(B, device=last_access.device)[:, None]
+    stamp = _lane_step(step, B, last_access.device)[:, None].expand(B, J)
     upd = torch.where(write_w > delta, stamp, last_access[b, widx])
     last_access.scatter_reduce_(1, widx, upd, "amax", include_self=True)
-    return mem, last_access
+
+
+def fma_f32(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """f32 ``x·y + z`` rounded once, as CUDA's ``__fmaf_rn``: x·y is exact
+    in f64, the f64 sum is rounded to odd (TwoSum finds whether it was
+    exact), and the one rounding to f32 is then correct (53 >= 24 + 2)."""
+    p = x.to(torch.float64) * y.to(torch.float64)
+    zd = z.to(torch.float64)
+    s = p + zd
+    bb = s - p
+    e = (p - (s - bb)) + (zd - bb)                           # s + e exact
+    even = (s.view(torch.int64) & 1) == 0
+    away = torch.where(e > 0, torch.inf, -torch.inf).to(torch.float64)
+    s = torch.where((e != 0) & even, torch.nextafter(s, away), s)
+    return s.to(torch.float32)
+
+
+def sparse_write_update_q_ref(mem: torch.Tensor, mem_scale: torch.Tensor,
+                              last_access: torch.Tensor,
+                              write_idx: torch.Tensor, write_w: torch.Tensor,
+                              a: torch.Tensor, lra_idx: torch.Tensor, step,
+                              delta: float):
+    """The fused SAM write on int8 rows, in place on ``mem`` (B, N+1, W)
+    int8, ``mem_scale`` (B, N+1) f32 and ``last_access``: each touched row
+    is dequantized (or zero, if erased), takes every column naming it,
+    w_j · a_{j // (K+1)} added in j order, each as one fused multiply-add
+    (`fma_f32`), and is re-quantized **once** (`quantize_rows`); the usage
+    stamp as in `sparse_write_update_ref`. That is what JAX's
+    ``_kernel_q`` computes as compiled (XLA contracts its ``acc + w·a``
+    into an FMA); the JAX oracle sums a row's columns with an einsum and
+    then adds them to the old row, so its scales may differ by a few ulp.
+    Same precondition: every lra_idx row is in write_idx. Returns (mem,
+    last_access, mem_scale)."""
+    B, J = write_idx.shape
+    i = write_idx.long()
+    b = torch.arange(B, device=mem.device)[:, None].expand(B, J)
+    erased = (i[:, :, None] == lra_idx.long()[:, None, :]).any(-1)
+    acc = torch.where(erased[..., None], 0.0,
+                      dequantize_rows(mem[b, i], mem_scale[b, i]))
+    a_col = a.repeat_interleave(J // a.shape[1], dim=1)       # (B, J, W)
+    eq = i[:, :, None] == i[:, None, :]                       # (B, J, J)
+    for j in range(J):
+        acc = torch.where(eq[:, :, j, None],
+                          fma_f32(write_w[:, j, None, None],
+                                  a_col[:, j:j + 1], acc), acc)
+    new_q, new_s = quantize_rows(acc)
+    own = first_occurrence(i)
+    mem[b[own], i[own]] = new_q[own]
+    mem_scale[b[own], i[own]] = new_s[own]
+    _stamp(last_access, write_idx, write_w, step, delta)
+    return mem, last_access, mem_scale

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from repro_torch.core import sam
+from repro_torch.core.quant import quantize_rows
 from repro_torch.core.types import (LA_SCRATCH, ControllerConfig,
                                     MemoryConfig)
 from repro_torch.kernels import ops, ref
@@ -28,7 +29,8 @@ from repro_torch.kernels.fused_read import fused_read_sweep
 from repro_torch.kernels.fused_read_candidates import fused_read_candidates
 from repro_torch.kernels.lsh_hash import lsh_hash
 from repro_torch.kernels.scatter_rows import scatter_rows
-from repro_torch.kernels.sparse_write import sparse_write_update
+from repro_torch.kernels.sparse_write import (sparse_write_update,
+                                              sparse_write_update_q)
 from repro_torch.kernels.usage_argmin import lra_topn
 
 pytestmark = pytest.mark.cuda
@@ -360,7 +362,7 @@ def _cand_inputs(rng, B, N, W, H, C, case):
     return q, mem, beta, ref.dedup(torch.tensor(cand)).numpy()
 
 
-def _cand_near_ties(q, mem, idx, r_idx):
+def _cand_near_ties(q, mem, idx, r_idx, mem_scale=None):
     """Swapped selections, each allowed only at plain similarities within
     1e-6 of each other (an invalid one scores -1e9)."""
     diff = idx != r_idx
@@ -368,7 +370,7 @@ def _cand_near_ties(q, mem, idx, r_idx):
         return 0
 
     def sims(ix):
-        rows = ref.gather_rows(mem, ix.clamp_min(0))
+        rows = ref.gather_words(mem, ix.clamp_min(0), mem_scale)
         s = torch.einsum("bhw,bhkw->bhk", ref._normalize(q),
                          ref._normalize(rows))
         return torch.where(ix < 0, -1e9, s)
@@ -471,3 +473,234 @@ def test_lsh_ann_build_on_card_matches_cpu(dev):
     want = ann.ann_build(planes, mem, cfg)
     assert torch.equal(got.buckets.cpu(), want.buckets)
     assert torch.equal(got.cursor.cpu(), want.cursor)
+
+
+# --------------------------------------------------------------------------
+# bf16 and int8 rows: the write, the int8 write and both reads
+# --------------------------------------------------------------------------
+
+def _storage(mem, dtype):
+    """f32 rows -> (bf16 rows, None) or (int8 codes, scales)."""
+    if dtype == "bfloat16":
+        return mem.to(torch.bfloat16), None
+    return quantize_rows(mem)
+
+
+@pytest.mark.parametrize("N", [1000, 4097])
+@pytest.mark.parametrize("case", ["rand", "zero", "dup"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_fused_read_kernel_dtypes_match_plain(dev, N, case, dtype):
+    B, W, H, K = 3, 32, 4, 4
+    q, mem, beta = (torch.tensor(x, device=dev) for x in
+                    _read_inputs(np.random.default_rng(N), B, N, W, H, case))
+    mem, scale = _storage(mem, dtype)
+    count = fused_read_sweep.launches_by_dtype[dtype]
+    read, w, idx = fused_read_sweep(q, mem, beta, k=K, valid_n=N,
+                                    mem_scale=scale)
+    r_read, r_w, r_idx = ref.fused_read_ref(q, mem, beta, K, valid_n=N,
+                                            mem_scale=scale)
+    torch.cuda.synchronize()
+    assert fused_read_sweep.launches_by_dtype[dtype] == count + 1
+    assert torch.equal(idx, r_idx)
+    assert (read - r_read).abs().max().item() <= TOL
+    assert (w - r_w).abs().max().item() <= TOL
+    if case == "zero":
+        assert torch.equal(idx.cpu(), torch.arange(K, dtype=torch.int32)
+                           .expand(B, H, K))
+        assert read.eq(0).all()
+
+
+@pytest.mark.parametrize("case", ["rand", "cold", "zero", "dup"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_fused_read_candidates_kernel_dtypes_match_plain(dev, case, dtype):
+    B, N, W, H, K, C = 3, 1000, 32, 4, 4, 148
+    q, mem, beta, cand = (torch.tensor(x, device=dev) for x in _cand_inputs(
+        np.random.default_rng(C), B, N, W, H, C, case))
+    mem, scale = _storage(mem, dtype)
+    count = fused_read_candidates.launches_by_dtype[dtype]
+    read, w, idx = fused_read_candidates(q, mem, beta, cand, k=K,
+                                         mem_scale=scale)
+    r_idx = ref.candidate_topk(q, mem, K, cand, scale)
+    torch.cuda.synchronize()
+    assert fused_read_candidates.launches_by_dtype[dtype] == count + 1
+    _cand_near_ties(q, mem, idx, r_idx, scale)
+    t_read, t_w = ref.sparse_read_tail(q, mem, beta, idx, scale)
+    assert (read - t_read).abs().max().item() <= TOL
+    assert (w - t_w).abs().max().item() <= TOL
+    assert (w[idx < 0] == 0).all()
+    if case in ("zero", "cold"):
+        assert torch.equal(idx, r_idx)     # exact ties: position order
+
+
+@pytest.mark.parametrize("N", [1000, 4097])
+@pytest.mark.parametrize("case", ["rand", "zero", "heavy"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_sparse_write_kernel_dtypes_match_plain(dev, N, case, dtype):
+    """Bit for bit: rows (bf16 bits, int8 codes), scales and usage; a
+    duplicate-heavy case (every column on rows 0-2, as on a zero memory,
+    where all K reads of every head tie) and an all-zero memory."""
+    B, W, H, K = 3, 32, 4, 4
+    rng = np.random.default_rng(N + 1)
+    mem, la, widx, ww, a, lra = _write_inputs(rng, B, N, W, H, K)
+    if case == "zero":
+        mem[:] = 0.0
+    if case == "heavy":
+        widx = rng.integers(0, 3, widx.shape).astype(np.int32)
+        lra = widx.reshape(B, H, K + 1)[:, :, K].copy()
+    mem, la, widx, ww, a, lra = (torch.tensor(x, device=dev) for x in
+                                 (mem, la, widx, ww, a, lra))
+    mem, scale = _storage(mem, dtype)
+    step = torch.tensor([60, 7, 61], dtype=torch.int32, device=dev)
+    m_ref, l_ref = mem.clone(), la.clone()
+    scratch = mem[:, N].clone()
+    if dtype == "int8":
+        s_ref = scale.clone()
+        ref.sparse_write_update_q_ref(m_ref, s_ref, l_ref, widx, ww, a, lra,
+                                      step, 0.005)
+        count = sparse_write_update_q.launches
+        out = sparse_write_update_q(mem, scale, la, widx, ww, a, lra, step,
+                                    delta=0.005)
+        torch.cuda.synchronize()
+        assert sparse_write_update_q.launches == count + 1
+        assert out[2].data_ptr() == scale.data_ptr()
+        assert torch.equal(scale, s_ref)
+    else:
+        ref.sparse_write_update_ref(m_ref, l_ref, widx, ww, a, lra, step,
+                                    0.005)
+        count = sparse_write_update.launches_by_dtype[dtype]
+        out = sparse_write_update(mem, la, widx, ww, a, lra, step,
+                                  delta=0.005)
+        torch.cuda.synchronize()
+        assert sparse_write_update.launches_by_dtype[dtype] == count + 1
+    assert out[0].data_ptr() == mem.data_ptr()         # in place
+    assert torch.equal(mem, m_ref) and torch.equal(la, l_ref)
+    assert torch.equal(mem[:, N], scratch)
+
+
+def test_dtype_kernels_raise_on_inputs_they_cannot_take(dev):
+    q = torch.zeros((2, 4, 8), device=dev)
+    beta = torch.ones((2, 4), device=dev)
+    mem8 = torch.zeros((2, 65, 8), dtype=torch.int8, device=dev)
+    scale = torch.zeros((2, 65), device=dev)
+    cand = torch.zeros((2, 4, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fused_read_sweep(q, mem8, beta, k=2, mem_scale=scale)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fused_read_candidates(q, mem8, beta, cand, k=2, mem_scale=scale)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fused_read_sweep(torch.zeros((2, 4, 4), device=dev),
+                         torch.zeros((2, 65, 4), dtype=torch.bfloat16,
+                                     device=dev), beta, k=2)
+    q16 = torch.zeros((2, 4, 16), device=dev)
+    m16 = torch.zeros((2, 65, 16), dtype=torch.int8, device=dev)
+    for bad in (None, scale[:, :64], scale.double()):
+        with pytest.raises(ValueError, match="mem_scale"):
+            fused_read_sweep(q16, m16, beta, k=2, mem_scale=bad)
+    with pytest.raises(ValueError, match="no mem_scale"):
+        fused_read_candidates(q16, m16.to(torch.bfloat16), beta, cand, k=2,
+                              mem_scale=scale)
+    la = torch.zeros((2, 65), device=dev)          # a float usage table
+    J = 10
+    widx = torch.zeros((2, J), dtype=torch.int32, device=dev)
+    args = (widx, torch.ones((2, J), device=dev), q16[:, :2].contiguous(),
+            widx[:, :2].contiguous(), 1)
+    with pytest.raises(ValueError, match="last_access must be torch.int32"):
+        sparse_write_update_q(m16, scale, la, *args, delta=0.005)
+    with pytest.raises(ValueError, match="mem_scale must be"):
+        sparse_write_update_q(m16, scale[:, :64].contiguous(), la.int(),
+                              *args, delta=0.005)
+    with pytest.raises(ValueError, match="int8 rows"):
+        sparse_write_update(m16, la.int(), *args, delta=0.005)
+
+
+class _LockstepCPU:
+    """Wraps `ops.fused_read` and `ops.sparse_write_update` so that every
+    call on the card is repeated by the plain version on CPU copies of its
+    inputs: the write bit for bit (rows, scales, usage), the read's indices
+    up to near-ties within 1e-6 and its floats within 1e-5."""
+
+    def __enter__(self):
+        self.saved = read0, write0 = ops.fused_read, ops.sparse_write_update
+        self.calls = 0
+
+        def cpu(*xs):
+            return [x.cpu() if isinstance(x, torch.Tensor) else x for x in xs]
+
+        def fused_read(q, mem, beta, k, *, valid_n=None, cand_idx=None,
+                       mem_scale=None):
+            out = read0(q, mem, beta, k, valid_n=valid_n, cand_idx=cand_idx,
+                        mem_scale=mem_scale)
+            q_, m_, b_, c_, s_ = cpu(q, mem, beta, cand_idx, mem_scale)
+            if cand_idx is None:
+                want = ref.fused_read_ref(q_, m_, b_, k, valid_n=valid_n,
+                                          mem_scale=s_)[2]
+            else:
+                want = ref.candidate_topk(q_, m_, k, c_, s_)
+            idx = out[2].cpu()
+            _cand_near_ties(q_, m_, idx, want, s_)
+            t_read, t_w = ref.sparse_read_tail(q_, m_, b_, idx, s_)
+            assert (out[0].cpu() - t_read).abs().max() <= TOL
+            assert (out[1].cpu() - t_w).abs().max() <= TOL
+            self.calls += 1
+            return out
+
+        def sparse_write_update(mem, la, widx, ww, a, lra, step, *, delta,
+                                mem_scale=None):
+            before = cpu(mem, la, widx, ww, a, lra, step, mem_scale)
+            out = write0(mem, la, widx, ww, a, lra, step, delta=delta,
+                         mem_scale=mem_scale)
+            m_, l_, *rest, s_ = before
+            if s_ is None:
+                want = ref.sparse_write_update_ref(m_, l_, *rest, delta)
+            else:
+                want = ref.sparse_write_update_q_ref(m_, s_, l_, *rest, delta)
+            assert all(torch.equal(g.cpu(), w) for g, w in zip(out, want))
+            self.calls += 1
+            return out
+
+        ops.fused_read = fused_read
+        ops.sparse_write_update = sparse_write_update
+        return self
+
+    def __exit__(self, *exc):
+        ops.fused_read, ops.sparse_write_update = self.saved
+        return False
+
+
+@pytest.mark.parametrize("ann", ["exact", "lsh"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_dtype_sam_unroll_on_card_matches_cpu(dev, dtype, ann):
+    """Eight steps of `SAM.forward` on bf16 or int8 rows on the card, in
+    lockstep with the plain versions on the CPU (`_LockstepCPU`): every
+    write bit for bit, every read as the kernel tests hold it. (A rollout
+    on the CPU alone would not do: the controller's f32 sums differ from
+    cuBLAS's in the last bits, and a stored bf16 row or int8 code carries
+    such a difference across a rounding boundary now and then.) Launches:
+    each step's kernels once, in the rows' dtype; the output is finite."""
+    extra = {"ann": "lsh"} if ann == "lsh" else {}
+    cfg = sam.SAMConfig(MemoryConfig(num_slots=1000, word_size=16,
+                                     num_heads=2, k=4, mem_dtype=dtype,
+                                     **extra),
+                        ControllerConfig(input_size=6, hidden_size=16,
+                                         output_size=4))
+    model = sam.SAM(cfg, seed=0, device=dev)
+    xs = torch.tensor(np.random.default_rng(0).integers(0, 2, (8, 2, 6)),
+                      dtype=torch.float32, device=dev)
+    read = fused_read_candidates if ann == "lsh" else fused_read_sweep
+    before = (read.launches_by_dtype[dtype], sparse_write_update.launches,
+              sparse_write_update_q.launches)
+    with _LockstepCPU() as lock:
+        state, ys = model(model.init_state(2), xs)
+    torch.cuda.synchronize()
+    T = len(xs)
+    assert lock.calls == 2 * T
+    after = (read.launches_by_dtype[dtype], sparse_write_update.launches,
+             sparse_write_update_q.launches)
+    writes = (0, T) if dtype == "int8" else (T, 0)
+    assert tuple(a - b for a, b in zip(after, before)) == (T, *writes)
+    assert state.memory.dtype == getattr(torch, dtype)
+    assert torch.isfinite(ys).all() and ys.shape == (T, 2, 4)
+    assert state.memory[:, 1000].eq(0).all()
+    if dtype == "int8":
+        assert state.mem_scale[:, 1000].eq(0).all()
+        assert state.mem_scale.gt(0).any()

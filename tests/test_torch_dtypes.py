@@ -1,0 +1,437 @@
+"""bf16 and int8 memory rows in the port (`MemoryConfig.mem_dtype`) against
+the JAX package, on the CPU: the quantizer, the int8 and bf16 writes, both
+reads on bf16 and int8 rows, the 6-step SAM unroll (exact and LSH read),
+int8 ``collect_deltas``, the converter, and the refusal to train on such
+rows.
+
+Sizes: B = 2, W = 16 (int8 rows take W % 16 on the card), H = 2 to 4,
+K = 4, N = 128 to 1024, hidden 16, the copy task with max_len 2 (T = 6).
+Inputs come from a numpy seed; bf16 rows and int8 codes and scales are
+made on the JAX side and carried across by `repro_torch.convert`. Pallas
+kernels run in interpret mode (``backend="pallas-interpret"``).
+
+Tolerances, each with its reason:
+* the quantizer and the writes, on the same inputs: bit for bit against
+  the compiled JAX code (``jax.jit``: XLA turns ``max / 127`` into a
+  product with fl(1/127), and contracts `_kernel_q`'s ``acc + w·a`` into
+  an FMA; the port does both). The JAX int8 oracle adds a row's columns
+  with an einsum and then to the old row, so against it the codes are
+  exact and the scales within rtol 1e-6 (a few ulp);
+* the reads: indices exact, floats within 1e-5 (another summation order);
+* the unroll: integers exact (bf16 row bits, int8 codes, usage, buckets,
+  cursors), outputs within 1e-5, int8 scales within rtol 1e-6: the
+  controller's f32 sums differ in the last bits between torch and XLA
+  (the f32 unroll's memory differs in its last bit too), and a scale
+  carries that. bf16 against the ``ref`` backend only: JAX's Pallas bf16
+  write rounds w·a and each add otherwise (ROADMAP §C).
+"""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import quant as jquant
+from repro.core import sam as jsam
+from repro.core.types import ControllerConfig as JaxControllerConfig
+from repro.core.types import MemoryConfig as JaxMemoryConfig
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.sparse_write import sparse_write_update as jax_write
+from repro_torch import convert
+from repro_torch.core import quant, sam, training
+from repro_torch.core import unroll as unroll_lib
+from repro_torch.core.cell import SAMCell
+from repro_torch.core.types import ControllerConfig, MemoryConfig
+from repro_torch.data.tasks import copy_task
+from repro_torch.kernels import ops, ref
+
+TOL = 1e-5
+SCALE_RTOL = 1e-6
+B, W, HIDDEN, BITS, MAX_LEN = 2, 16, 16, 4, 2
+LSH = dict(ann="lsh", lsh_tables=2, lsh_bits=3, lsh_bucket_size=8)
+
+
+def _t(x):
+    """numpy/JAX array -> CPU tensor (bf16 through `convert`)."""
+    if str(np.asarray(x).dtype) == "bfloat16":
+        return convert.memory_from_jax(x, device="cpu")
+    return torch.tensor(np.asarray(x))
+
+
+def _storage(mem_f32, dtype):
+    """f32 rows -> the JAX storage: (rows, scales or None)."""
+    if dtype == "bfloat16":
+        return jnp.asarray(mem_f32).astype(jnp.bfloat16), None
+    return jax.jit(jquant.quantize_rows)(jnp.asarray(mem_f32))
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+# --------------------------------------------------------------------------
+# The quantizer
+# --------------------------------------------------------------------------
+
+def _quant_rows(case):
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((5, 7, W)) * 3).astype(np.float32)
+    if case == "halves":
+        # A power-of-two scale: row / scale hits k + 1/2 exactly.
+        s = np.float32(2.0 ** -3)
+        x[:] = s * np.array([127, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.5,
+                             -3.5, 4.5, 0, 126.5, -126.5, 5.5, 6.5, -127],
+                            np.float32)
+    elif case == "clip":
+        x[:, :, 0] = 1e30                  # the max; the rest round to 0
+        x[:, :, 1] = -1e30
+    elif case == "zero":
+        x[:, ::2] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("case", ["random", "halves", "clip", "zero"])
+def test_quantize_rows_matches_jax(case):
+    x = _quant_rows(case)
+    jq, js = jax.jit(jquant.quantize_rows)(jnp.asarray(x))
+    q, s = quant.quantize_rows(torch.tensor(x))
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    # Eager JAX divides by 127 and may differ in a scale's last bit; its
+    # codes are the same.
+    np.testing.assert_array_equal(
+        q.numpy(), np.asarray(jquant.quantize_rows(jnp.asarray(x))[0]))
+    deq = quant.dequantize_rows(q, s)
+    np.testing.assert_array_equal(
+        deq.numpy(), np.asarray(jax.jit(jquant.dequantize_rows)(jq, js)))
+    if case == "halves":                   # half to even
+        assert q[0, 0, :4].tolist() == [127, 0, 2, 2]
+    if case == "zero":
+        assert (s[:, ::2] == 0).all() and (deq[:, ::2] == 0).all()
+        assert not torch.signbit(deq[:, ::2]).any()
+
+
+# --------------------------------------------------------------------------
+# The writes
+# --------------------------------------------------------------------------
+
+def _write_case(dups, N=300, H=4, K=4, seed=0):
+    rng = np.random.default_rng(seed)
+    J = H * (K + 1)
+    mem = rng.standard_normal((B, N + 1, W)).astype(np.float32)
+    la = rng.integers(-50, 50, (B, N + 1)).astype(np.int32)
+    hi = N if dups == "some" else 3
+    widx = rng.integers(0, hi, (B, H, K + 1)).astype(np.int32)
+    if dups == "some":
+        widx[:, 1, 0] = widx[:, 0, 2]      # a duplicate across heads
+        widx[:, 1, K] = widx[:, 0, 1]      # an LRA row that was also read
+    lra = widx[:, :, K].copy()
+    ww = rng.random((B, J)).astype(np.float32)
+    ww[:, 3] = 0.001                       # below delta: no usage stamp
+    a = rng.standard_normal((B, H, W)).astype(np.float32)
+    return mem, la, widx.reshape(B, J), ww, a, lra
+
+
+def _step(lane):
+    return (np.array([60, 7], np.int32) if lane == "per_lane"
+            else np.int32(60))
+
+
+@pytest.mark.parametrize("lane", ["scalar", "per_lane"])
+@pytest.mark.parametrize("dups", ["some", "heavy"])
+def test_int8_write_matches_kernel_q_and_oracle(dups, lane):
+    mem, la, widx, ww, a, lra = _write_case(dups)
+    N = mem.shape[1] - 1
+    step = _step(lane)
+    jq, js = _storage(mem, "int8")
+    args = [jnp.asarray(x) for x in (la, widx, ww, a, lra)]
+    k_mem, k_la, k_s = jax_write(jq, *args, jnp.asarray(step), delta=0.005,
+                                 interpret=True, scratch_row=N, mem_scale=js)
+    o_mem, o_la, o_s = jref.sparse_write_update_q_ref(
+        jq, js, args[0], *args[1:], jnp.asarray(step), 0.005)
+    q, s, l = _t(jq), _t(js), _t(la)
+    out = ops.sparse_write_update(q, l, *(_t(x) for x in (widx, ww, a, lra)),
+                                  torch.tensor(step), delta=0.005,
+                                  mem_scale=s)
+    assert out[0] is q and out[1] is l and out[2] is s      # in place
+    # The TPU kernel in interpret mode, bit for bit.
+    np.testing.assert_array_equal(q.numpy(), np.asarray(k_mem))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(k_s))
+    np.testing.assert_array_equal(l.numpy(), np.asarray(k_la))
+    # The oracle: codes exact, scales within a few ulp.
+    np.testing.assert_array_equal(q.numpy(), np.asarray(o_mem))
+    np.testing.assert_array_equal(l.numpy(), np.asarray(o_la))
+    np.testing.assert_allclose(s.numpy(), np.asarray(o_s), rtol=SCALE_RTOL,
+                               atol=0)
+    assert torch.equal(q[:, N], _t(jq)[:, N])              # scratch row
+    assert torch.equal(s[:, N], _t(js)[:, N])
+
+
+@pytest.mark.parametrize("lane", ["scalar", "per_lane"])
+@pytest.mark.parametrize("dups", ["some", "heavy"])
+def test_bf16_write_matches_oracle(dups, lane):
+    mem, la, widx, ww, a, lra = _write_case(dups, seed=1)
+    step = _step(lane)
+    jm, _ = _storage(mem, "bfloat16")
+    o_mem, o_la = jref.sparse_write_update_ref(     # a per-lane step as (B, 1)
+        jm, *(jnp.asarray(x) for x in (la, widx, ww, a, lra)),
+        jnp.asarray(step).reshape(-1, 1) if step.ndim else step, 0.005)
+    m, l = _t(jm), _t(la)
+    assert m.dtype == torch.bfloat16
+    ops.sparse_write_update(m, l, *(_t(x) for x in (widx, ww, a, lra)),
+                            torch.tensor(step), delta=0.005)
+    assert m.dtype == torch.bfloat16
+    assert torch.equal(_bits(m), _bits(_t(o_mem)))
+    np.testing.assert_array_equal(l.numpy(), np.asarray(o_la))
+
+
+# --------------------------------------------------------------------------
+# The reads
+# --------------------------------------------------------------------------
+
+def _read_case(dtype, read, N=1024, H=2, C=24, seed=2):
+    rng = np.random.default_rng(seed)
+    mem = rng.standard_normal((B, N + 1, W)).astype(np.float32)
+    mem[:, 5] = mem[:, 9]                  # a tie
+    mem[:, 11] = 0.0                       # a zero row
+    q = rng.standard_normal((B, H, W)).astype(np.float32)
+    beta = (1.0 + rng.random((B, H))).astype(np.float32)
+    jm, js = _storage(mem, dtype)
+    cand = None
+    if read == "cand":
+        c = rng.integers(-1, N, (B, H, C)).astype(np.int32)
+        c[:, :, 3] = c[:, :, 0]            # a duplicate, deduped below
+        cand = ref.dedup(torch.tensor(c)).numpy()
+    return q, jm, js, beta, cand
+
+
+@pytest.mark.parametrize("backend", ["ref", "pallas-interpret"])
+@pytest.mark.parametrize("read", ["exact", "cand"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_reads_match_jax(dtype, read, backend):
+    q, jm, js, beta, cand = _read_case(dtype, read)
+    N = jm.shape[1] - 1
+    kw = {} if cand is None else {"cand_idx": jnp.asarray(cand)}
+    if cand is None:
+        kw["valid_n"] = N
+    j_read, j_w, j_idx = jops.fused_read(
+        jnp.asarray(q), jm, jnp.asarray(beta), 4, backend=backend,
+        mem_scale=js, **kw)
+    kw = {"valid_n": N} if cand is None else {"cand_idx": _t(cand)}
+    read_, w, idx = ops.fused_read(_t(q), _t(jm), _t(beta), 4,
+                                   mem_scale=None if js is None else _t(js),
+                                   **kw)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(j_idx))
+    np.testing.assert_allclose(read_.numpy(), np.asarray(j_read), atol=TOL,
+                               rtol=TOL)
+    np.testing.assert_allclose(w.numpy(), np.asarray(j_w), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("read", ["exact", "cand"])
+def test_all_zero_int8_memory_reads_exact_zero(read):
+    q, jm, js, beta, cand = _read_case("int8", read, N=64)
+    mem = torch.zeros(_t(jm).shape, dtype=torch.int8)
+    scale = torch.zeros(mem.shape[:2])
+    kw = ({"valid_n": 64} if cand is None
+          else {"cand_idx": torch.tensor(cand)})
+    read_, w, _ = ops.fused_read(_t(q), mem, _t(beta), 4, mem_scale=scale,
+                                 **kw)
+    assert read_.eq(0).all() and not torch.signbit(read_).any()
+    assert torch.isfinite(w).all()
+
+
+# --------------------------------------------------------------------------
+# The SAM cell
+# --------------------------------------------------------------------------
+
+def _sam_configs(dtype, ann, backend, N=128, H=2, K=4):
+    extra = LSH if ann == "lsh" else {}
+    jcfg = jsam.SAMConfig(
+        JaxMemoryConfig(num_slots=N, word_size=W, num_heads=H, k=K,
+                        backend=backend, mem_dtype=dtype, **extra),
+        JaxControllerConfig(input_size=BITS + 2, hidden_size=HIDDEN,
+                            output_size=BITS))
+    cfg = sam.SAMConfig(
+        MemoryConfig(num_slots=N, word_size=W, num_heads=H, k=K,
+                     mem_dtype=dtype, **extra),
+        ControllerConfig(input_size=BITS + 2, hidden_size=HIDDEN,
+                         output_size=BITS))
+    return jcfg, cfg
+
+
+def _xs():
+    seq = np.random.default_rng(0).integers(0, 2, (B, MAX_LEN, BITS))
+    inputs, _, _ = copy_task(B, MAX_LEN, MAX_LEN, BITS, seq=seq, device="cpu")
+    return inputs.transpose(0, 1).contiguous()                 # (T, B, D)
+
+
+def _numpy(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _assert_state_matches(state, jstate):
+    np.testing.assert_array_equal(_bits(state.memory).numpy(),
+                                  np.asarray(_bits(_t(jstate.memory))))
+    np.testing.assert_array_equal(state.last_access.numpy(),
+                                  np.asarray(jstate.last_access))
+    if jstate.mem_scale is None:
+        assert state.mem_scale is None
+    else:
+        np.testing.assert_allclose(state.mem_scale.numpy(),
+                                   np.asarray(jstate.mem_scale),
+                                   rtol=SCALE_RTOL, atol=0)
+        assert state.mem_scale[:, -1].eq(0).all()
+    if jstate.ann is not None:
+        np.testing.assert_array_equal(state.ann.buckets.numpy(),
+                                      np.asarray(jstate.ann.buckets))
+        np.testing.assert_array_equal(state.ann.cursor.numpy(),
+                                      np.asarray(jstate.ann.cursor))
+
+
+@pytest.mark.parametrize("dtype,ann,backend", [
+    ("bfloat16", "exact", "ref"), ("bfloat16", "lsh", "ref"),
+    ("int8", "exact", "ref"), ("int8", "exact", "pallas-interpret"),
+    ("int8", "lsh", "ref"), ("int8", "lsh", "pallas-interpret")])
+def test_sam_unroll_matches_jax_every_step(dtype, ann, backend):
+    jcfg, cfg = _sam_configs(dtype, ann, backend)
+    jparams = jsam.init_params(jax.random.PRNGKey(0), jcfg)
+    jstate = jsam.init_state(B, jcfg)
+    params = convert.params_from_jax(_numpy(jparams), device="cpu")
+    state = convert.state_from_jax(_numpy(jstate), device="cpu")
+    assert state.memory.dtype == getattr(torch, dtype)
+    fresh = sam.init_state(B, cfg, device="cpu")
+    assert fresh.memory.dtype == state.memory.dtype
+    assert (fresh.mem_scale is None) == (state.mem_scale is None)
+    xs = _xs()
+    step = jax.jit(lambda p, s, x: jsam.sam_step(p, jcfg, s, x))
+    for x in xs:
+        jstate, jy = step(jparams, jstate, jnp.asarray(x.numpy()))
+        state, y = sam.sam_step(params, cfg, state, x)
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=TOL,
+                                   rtol=TOL)
+        np.testing.assert_array_equal(state.read.indices.numpy(),
+                                      np.asarray(jstate.read.indices))
+        _assert_state_matches(state, jstate)
+    # The forward entry points run the same steps.
+    model = sam.SAM(cfg, params, device="cpu")
+    final, ys = model(convert.state_from_jax(
+        _numpy(jsam.init_state(B, jcfg)), device="cpu"), xs)
+    j_final, j_ys = jax.jit(lambda p, s, x: jsam.sam_unroll(p, jcfg, s, x))(
+        jparams, jsam.init_state(B, jcfg), jnp.asarray(xs.numpy()))
+    np.testing.assert_allclose(ys.numpy(), np.asarray(j_ys), atol=TOL,
+                               rtol=TOL)
+    _assert_state_matches(final, j_final)
+
+
+@pytest.mark.parametrize("ann", ["exact", "lsh"])
+def test_int8_collect_deltas_match_jax(ann):
+    jcfg, cfg = _sam_configs("int8", ann, "ref")
+    jparams = jsam.init_params(jax.random.PRNGKey(1), jcfg)
+    jstate = jsam.init_state(B, jcfg)
+    params = convert.params_from_jax(_numpy(jparams), device="cpu")
+    state = convert.state_from_jax(_numpy(jstate), device="cpu")
+    step = jax.jit(lambda p, s, x: jsam.sam_step(p, jcfg, s, x,
+                                                 collect_deltas=True))
+    for x in _xs()[:4]:
+        jstate, _, jd = step(jparams, jstate, jnp.asarray(x.numpy()))
+        with torch.no_grad():
+            state, _, d = sam.sam_step(params, cfg, state, x,
+                                       collect_deltas=True)
+        np.testing.assert_array_equal(d.write_idx.numpy(),
+                                      np.asarray(jd.write_idx))
+        assert d.old_rows.dtype == torch.int8
+        np.testing.assert_array_equal(d.old_rows.numpy(),
+                                      np.asarray(jd.old_rows))
+        np.testing.assert_allclose(d.old_scale.numpy(),
+                                   np.asarray(jd.old_scale),
+                                   rtol=SCALE_RTOL, atol=0)
+        np.testing.assert_array_equal(d.read_idx.numpy(),
+                                      np.asarray(jd.read_idx))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_state_from_jax_keeps_dtype_and_bits(dtype):
+    jcfg, cfg = _sam_configs(dtype, "lsh", "ref", N=32)
+    jstate = jsam.init_state(B, jcfg)
+    rng = np.random.default_rng(3)
+    rows = rng.standard_normal(jstate.memory.shape).astype(np.float32)
+    if dtype == "int8":
+        mem, scale = _storage(rows, "int8")
+        jstate = jstate._replace(memory=mem, mem_scale=scale)
+    else:
+        jstate = jstate._replace(memory=jnp.asarray(rows).astype(dtype))
+    state = convert.state_from_jax(_numpy(jstate), device="cpu")
+    assert state.memory.dtype == getattr(torch, dtype)
+    want = np.asarray(jstate.memory)
+    if dtype == "bfloat16":                # compare the 16-bit patterns
+        want = want.view(np.int16)
+    np.testing.assert_array_equal(_bits(state.memory).numpy(), want)
+    if dtype == "int8":
+        assert state.mem_scale.dtype == torch.float32
+        np.testing.assert_array_equal(state.mem_scale.numpy(),
+                                      np.asarray(jstate.mem_scale))
+    else:
+        assert state.mem_scale is None
+    with torch.inference_mode():           # it steps as a state of its cfg
+        sam.sam_step(convert.params_from_jax(
+            _numpy(jsam.init_params(jax.random.PRNGKey(0), jcfg)),
+            device="cpu"), cfg, state, _xs()[0])
+
+
+# --------------------------------------------------------------------------
+# What is not ported is refused
+# --------------------------------------------------------------------------
+
+def test_mem_dtype_is_checked():
+    with pytest.raises(ValueError, match="mem_dtype='float16'"):
+        MemoryConfig(mem_dtype="float16")
+    _, cfg = _sam_configs("bfloat16", "exact", "ref", N=32)
+    _, cfg8 = _sam_configs("int8", "exact", "ref", N=32)
+    params = sam.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    x = _xs()[0]
+    for c, s in ((cfg, sam.init_state(B, cfg8, device="cpu")),
+                 (cfg8, sam.init_state(B, cfg, device="cpu"))):
+        with pytest.raises(ValueError, match="mem_scale"):
+            sam.sam_step(params, c, s, x)
+
+
+def _refused(what, dtype):
+    _, cfg = _sam_configs(dtype, "exact", "ref", N=32)
+    spec = training.ModelSpec("sam", cfg.memory, cfg.controller)
+    if what == "build_model":
+        return lambda: training.build_model(spec, device="cpu")
+    if what == "make_task_train_step":
+        return lambda: training.make_task_train_step(spec, device="cpu")
+    cell = SAMCell(cfg)
+    params = cell.init_params(torch.Generator().manual_seed(0), device="cpu")
+    state = cell.init_state(B, device="cpu")
+    if what.startswith("unroll"):
+        mode = what.split("_")[1]
+        return lambda: unroll_lib.unroll(cell, params, state, _xs(),
+                                         mode=mode, chunk=2)
+    q = torch.randn(B, 2, W, requires_grad=True)
+    beta = torch.ones(B, 2)
+    if what == "autograd_read":
+        return lambda: ops.fused_read(q, state.memory, beta, 4, valid_n=32,
+                                      mem_scale=state.mem_scale)
+    J = 10
+    idx = torch.arange(J, dtype=torch.int32).expand(B, J).contiguous()
+    ww = torch.rand(B, J, requires_grad=True)
+    return lambda: ops.sparse_write_update(
+        state.memory, state.last_access, idx, ww, torch.randn(B, 2, W),
+        idx[:, 4::5].contiguous(), 1, delta=0.005, mem_scale=state.mem_scale)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("what", [
+    "build_model", "make_task_train_step", "unroll_naive", "unroll_sparse",
+    "unroll_chunked", "autograd_read", "autograd_write"])
+def test_training_on_bf16_or_int8_rows_is_refused(what, dtype):
+    fn = _refused(what, dtype)
+    with pytest.raises(ValueError, match="ROADMAP.md A6b"):
+        fn()

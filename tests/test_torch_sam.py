@@ -144,7 +144,7 @@ def test_convert_keeps_orientation_and_rejects_other_models():
         convert.params_from_jax({**jparams, "lsh_planes": np.zeros(3)},
                                 device="cpu")
     jstate = _numpy(jsam.init_state(B, jcfg))
-    with pytest.raises(ValueError, match="f32-row"):
+    with pytest.raises(ValueError, match="only they, carry scales"):
         convert.state_from_jax(jstate._replace(mem_scale=np.zeros(3)),
                                device="cpu")
 
