@@ -61,10 +61,9 @@ head), and on bf16 and int8 rows forward, with both reads; it fails
    cotangent;
 7. bf16 and int8 rows (``mem_dtype``), for each of (bf16, int8) × (exact,
    LSH), at the same widths and seed:
-   a. the write (bf16: `sparse_write_update`; int8: `sparse_write_update_q`)
-      and the read (the sweep or the candidate read on bf16 or int8 rows)
-      against their plain versions on the inputs of a real rollout, the
-      cold first step and step 21, and the write on a case heavy in
+   a. the write and the read (the sweep or the candidate read) against
+      their plain versions on the inputs of a real rollout, the cold
+      first step and step 21, and the write on a case heavy in
       duplicates (every column on rows 0-2);
    b. the forward rollout (`SAM.forward`, T = 42) in lockstep, with the
       launch count of every kernel and instantiation exact: per step the
@@ -133,8 +132,9 @@ REPLACES = {
     "sparse_write_update_bf16": (
         "src/repro/kernels/sparse_write.py:68",
         "src/repro_torch/kernels/csrc/sparse_write.cu"),
-    "sparse_write_update_q": ("src/repro/kernels/sparse_write.py:90",
-                              "src/repro_torch/kernels/csrc/sparse_write.cu"),
+    "sparse_write_update_int8": (
+        "src/repro/kernels/sparse_write.py:90",
+        "src/repro_torch/kernels/csrc/sparse_write.cu"),
     "fused_read_sweep_bf16": ("src/repro/kernels/fused_read.py:85",
                               "src/repro_torch/kernels/csrc/fused_read.cu"),
     "fused_read_sweep_int8": ("src/repro/kernels/fused_read.py:85",
@@ -151,12 +151,9 @@ SUFFIX = {"bfloat16": "_bf16", "int8": "_int8"}
 
 def kernel_name(base: str, mem: torch.Tensor) -> str:
     """The REPLACES name of kernel ``base`` on ``mem``'s row dtype."""
-    dtype = str(mem.dtype)[6:]
-    if dtype == "float32":
-        return base
-    if base == "sparse_write_update" and dtype == "int8":
-        return "sparse_write_update_q"
-    return base + SUFFIX[dtype]
+    return base + SUFFIX.get(str(mem.dtype)[6:], "")
+
+
 FORWARD = ("fused_read_sweep", "sparse_write_update", "lra_topn")
 # Launches of one LSH step (the exact sweep: none).
 LSH_STEP = {"lsh_hash": 2, "fused_read_candidates": 1, "lra_topn": 1,
@@ -446,8 +443,7 @@ def run() -> None:
             fused_read_candidates
         from repro_torch.kernels.lsh_hash import lsh_hash
         from repro_torch.kernels.scatter_rows import scatter_rows
-        from repro_torch.kernels.sparse_write import (sparse_write_update,
-                                                      sparse_write_update_q)
+        from repro_torch.kernels.sparse_write import sparse_write_update
         from repro_torch.kernels.usage_argmin import lra_topn
         from repro_torch.optim import optimizers as opt
     except ImportError as e:
@@ -459,8 +455,7 @@ def run() -> None:
                "sparse_write_update": sparse_write_update,
                "lra_topn": lra_topn, "scatter_rows": scatter_rows,
                "lsh_hash": lsh_hash,
-               "fused_read_candidates": fused_read_candidates,
-               "sparse_write_update_q": sparse_write_update_q}
+               "fused_read_candidates": fused_read_candidates}
 
     def zero_counts():
         for fn in kernels.values():
@@ -474,7 +469,7 @@ def run() -> None:
         c = {name: fn.launches for name, fn in kernels.items()}
         for name, fn in kernels.items():
             for dtype, n in getattr(fn, "launches_by_dtype", {}).items():
-                if name + SUFFIX.get(dtype, "?") in REPLACES:
+                if dtype in SUFFIX:
                     c[name + SUFFIX[dtype]] = n
         return c
 
@@ -1153,11 +1148,9 @@ def run() -> None:
     def run_write(args):
         """The write kernel of ``args`` (a write's recorded arguments) on
         clones of its buffers."""
-        m, la_, scale = args[0].clone(), args[1].clone(), args[8]
-        if scale is None:
-            return sparse_write_update(m, la_, *args[2:7], delta=args[7])
-        return sparse_write_update_q(m, scale.clone(), la_, *args[2:7],
-                                     delta=args[7])
+        scale = None if args[8] is None else args[8].clone()
+        return sparse_write_update(args[0].clone(), args[1].clone(),
+                                   *args[2:7], delta=args[7], mem_scale=scale)
 
     def timed_write(args):
         """(kernel ms, plain ms, bound) of the write of ``args``, repeated
@@ -1166,14 +1159,12 @@ def run() -> None:
         scale = None if args[8] is None else args[8].clone()
         uniq_w = unique_rows(args[2])
         row_bytes = W * m.element_size() + (0 if scale is None else 4)
+        ms_ = time_ms(lambda: sparse_write_update(
+            m, la_, *args[2:7], delta=args[7], mem_scale=scale), 50, flush)
         if scale is None:
-            ms_ = time_ms(lambda: sparse_write_update(
-                m, la_, *args[2:7], delta=args[7]), 50, flush)
             plain = time_ms(lambda: ref.sparse_write_update_ref(
                 m, la_, *args[2:7], args[7]), 20, flush)
         else:
-            ms_ = time_ms(lambda: sparse_write_update_q(
-                m, scale, la_, *args[2:7], delta=args[7]), 50, flush)
             plain = time_ms(lambda: ref.sparse_write_update_q_ref(
                 m, scale, la_, *args[2:7], args[7]), 20, flush)
         return dict(ms=ms_, plain_ms=plain, library_ms=None,
@@ -1193,8 +1184,7 @@ def run() -> None:
             base = "fused_read_candidates" if read == "lsh" else \
                 "fused_read_sweep"
             rname = base + SUFFIX[dtype]
-            wname = ("sparse_write_update_q" if dtype == "int8"
-                     else "sparse_write_update_bf16")
+            wname = "sparse_write_update" + SUFFIX[dtype]
             scaled = dtype == "int8"
             # (a) each kernel against its plain version on the inputs of a
             # real rollout: the cold first step and step 21, and a write
@@ -1237,7 +1227,7 @@ def run() -> None:
             launched = counts()
             want = {name: 0 for name in launched}
             want.update({"lra_topn": T, base: T, rname: T, wname: T,
-                         "sparse_write_update": 0 if scaled else T})
+                         "sparse_write_update": T})
             if read == "lsh":
                 want["lsh_hash"] = 2 * T
             require(launched == want, f"{pair} rollout launched {launched}, "
@@ -1333,7 +1323,7 @@ def run() -> None:
     path_of = {"lsh_hash": launches_l, "fused_read_candidates": launches_l,
                "sparse_write_update_bf16": dtype_launches["bfloat16/exact"],
                "fused_read_sweep_bf16": dtype_launches["bfloat16/exact"],
-               "sparse_write_update_q": dtype_launches["int8/exact"],
+               "sparse_write_update_int8": dtype_launches["int8/exact"],
                "fused_read_sweep_int8": dtype_launches["int8/exact"],
                "fused_read_candidates_bf16": dtype_launches["bfloat16/lsh"],
                "fused_read_candidates_int8": dtype_launches["int8/lsh"]}

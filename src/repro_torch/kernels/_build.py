@@ -20,10 +20,14 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("fused_read", "sparse_write", "lra_topn", "scatter_rows",
            "lsh_hash", "fused_read_candidates")
+# The launchers' code for each row storage dtype (csrc/rows.cuh).
+ROW_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -95,9 +95,12 @@ __device__ void block_best(float& v, int& i, float* sv, int* si) {
 }
 
 // Row of load e in a tile of rows of V loads: e / V as one multiply-high,
-// exact while e·V < 2^32 (e < kThreads·V); V = 1 has no such magic number.
-__device__ __forceinline__ int row_of(int e, int V, unsigned magic) {
-  return V > 1 ? (int)__umulhi((unsigned)e, magic) : e;
+// (2e)·magic / 2^32 with magic = ceil(2^31 / V), exact for every V >= 1
+// while e < 2^31 / V (here e < kThreads·V and V <= W/4 < 64). A select
+// for V = 1 instead cost the f32 pass registers, a spill and 3 % of its
+// time on the H100.
+__device__ __forceinline__ int row_of(int e, unsigned magic) {
+  return (int)__umulhi((unsigned)e << 1, magic);
 }
 
 // Query heads padded to a multiple of 4: one float4 holds four heads.
@@ -116,7 +119,7 @@ __global__ void __launch_bounds__(kThreads)
 fused_read_pass1(const float* __restrict__ q,
                  const typename R::T* __restrict__ mem,
                  const float* __restrict__ scale, long long rows_per_b,
-                 int valid_n, int K, int W, int chunks,
+                 long long mem_stride, int valid_n, int K, int W, int chunks,
                  float* __restrict__ cand_v, int* __restrict__ cand_i) {
   constexpr int HP = padded_heads(H);
   const int P = W + 4;                             // tile row pitch, floats
@@ -149,8 +152,9 @@ fused_read_pass1(const float* __restrict__ q,
 #pragma unroll
   for (int h = 0; h < H; ++h) { thr_v[h] = -INFINITY; thr_i[h] = INT_MAX; }
 
-  const unsigned magic = V > 1 ? 0xffffffffu / (unsigned)V + 1u : 0u;
-  const uint4* mb = reinterpret_cast<const uint4*>(mem + b * rows_per_b * W);
+  const unsigned magic = 0x7fffffffu / (unsigned)V + 1u;
+  const uint4* mb =
+      reinterpret_cast<const uint4*>(mem + (long long)b * mem_stride);
   const float* sb = R::kScaled ? scale + b * rows_per_b : nullptr;
   const int chunk_end = min((c + 1) * kChunkRows, valid_n);
   for (int r0 = c * kChunkRows; r0 < chunk_end; r0 += kThreads) {
@@ -167,14 +171,14 @@ fused_read_pass1(const float* __restrict__ q,
         if (e < nf) {
           v[u] = __ldg(src + e);
           if constexpr (R::kScaled)
-            sc[u] = __ldg(sb + r0 + row_of(e, V, magic));
+            sc[u] = __ldg(sb + r0 + row_of(e, magic));
         }
       }
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
         const int e = e0 + u * kThreads + t;
         if (e < nf) {
-          const int rr = row_of(e, V, magic);
+          const int rr = row_of(e, magic);
           float s = 1.0f;
           if constexpr (R::kScaled) s = sc[u];
           R::unpack(v[u], s, tile + rr * P + R::kPer * (e - rr * V));
@@ -342,8 +346,8 @@ cudaError_t launch_pass1(dim3 grid, size_t smem, cudaStream_t s,
       (int)smem);
   if (err != cudaSuccess) return err;
   fused_read_pass1<R, H><<<grid, kThreads, smem, s>>>(
-      q, static_cast<const typename R::T*>(mem), scale, rows_per_b, valid_n,
-      K, W, chunks, cand_v, cand_i);
+      q, static_cast<const typename R::T*>(mem), scale, rows_per_b,
+      rows_per_b * W, valid_n, K, W, chunks, cand_v, cand_i);
   return cudaGetLastError();
 }
 

@@ -16,17 +16,15 @@ import torch
 from repro_torch.kernels import _build
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# Row dtype -> (the launcher's storage code, values per 16-byte load).
-ROWS = {torch.float32: (0, 4), torch.bfloat16: (1, 8), torch.int8: (2, 16)}
 
 
 def check_rows(require, mem: torch.Tensor, mem_scale, W: int) -> int:
     """Check a memory's storage (f32, bf16, or int8 with (B, rows) f32
     scales, contiguous, 16-byte aligned, W a multiple of the values per
     16-byte load) with ``require(cond, msg)``; return the storage code."""
-    require(mem.dtype in ROWS, f"mem must be float32, bfloat16 or int8, "
-                               f"got {mem.dtype}")
-    code, per = ROWS[mem.dtype]
+    require(mem.dtype in _build.ROW_CODE, f"mem must be float32, bfloat16 "
+                                          f"or int8, got {mem.dtype}")
+    per = 16 // mem.element_size()
     require(W % per == 0, f"word size W={W} must be a multiple of {per} "
                           f"for {mem.dtype} rows (one 16-byte load)")
     require(mem.is_contiguous(), "mem must be contiguous")
@@ -41,7 +39,7 @@ def check_rows(require, mem: torch.Tensor, mem_scale, W: int) -> int:
                 f"{tuple(mem.shape[:2])} on {mem.device}")
     else:
         require(mem_scale is None, f"{mem.dtype} rows take no mem_scale")
-    return code
+    return _build.ROW_CODE[mem.dtype]
 
 
 def _require(cond: bool, msg: str) -> None:

@@ -37,8 +37,6 @@ from repro_torch.kernels.lsh_hash import lsh_hash as lsh_hash_kernel
 from repro_torch.kernels.scatter_rows import scatter_rows as scatter_rows_kernel
 from repro_torch.kernels.sparse_write import \
     sparse_write_update as sparse_write_kernel
-from repro_torch.kernels.sparse_write import \
-    sparse_write_update_q as sparse_write_q_kernel
 from repro_torch.kernels.usage_argmin import lra_topn as lra_topn_kernel
 
 
@@ -215,22 +213,17 @@ def write_rows_vjp(g_rows: torch.Tensor, write_w: torch.Tensor,
 
 
 def _sparse_write(mem, last_access, write_idx, write_w, a, lra_idx, step,
-                  delta):
-    if _on_cpu(mem):
-        return ref.sparse_write_update_ref(mem, last_access, write_idx,
-                                           write_w, a, lra_idx, step, delta)
-    return sparse_write_kernel(mem, last_access, write_idx, write_w, a,
-                               lra_idx, step, delta=delta)
-
-
-def _sparse_write_q(mem, mem_scale, last_access, write_idx, write_w, a,
-                    lra_idx, step, delta):
-    if _on_cpu(mem):
+                  delta, mem_scale=None):
+    if not _on_cpu(mem):
+        return sparse_write_kernel(mem, last_access, write_idx, write_w, a,
+                                   lra_idx, step, delta=delta,
+                                   mem_scale=mem_scale)
+    if mem_scale is not None:
         return ref.sparse_write_update_q_ref(mem, mem_scale, last_access,
                                              write_idx, write_w, a, lra_idx,
                                              step, delta)
-    return sparse_write_q_kernel(mem, mem_scale, last_access, write_idx,
-                                 write_w, a, lra_idx, step, delta=delta)
+    return ref.sparse_write_update_ref(mem, last_access, write_idx, write_w,
+                                       a, lra_idx, step, delta)
 
 
 def sparse_write_update(mem, last_access, write_idx, write_w, a, lra_idx,
@@ -248,11 +241,8 @@ def sparse_write_update(mem, last_access, write_idx, write_w, a, lra_idx,
         mem = _SparseWrite.apply(mem, write_w, a, last_access, write_idx,
                                  lra_idx, step, delta)
         return mem, last_access
-    if mem_scale is not None:
-        return _sparse_write_q(mem, mem_scale, last_access, write_idx,
-                               write_w, a, lra_idx, step, delta)
     return _sparse_write(mem, last_access, write_idx, write_w, a, lra_idx,
-                         step, delta)
+                         step, delta, mem_scale)
 
 
 class _SparseWrite(torch.autograd.Function):

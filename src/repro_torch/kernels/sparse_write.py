@@ -1,15 +1,14 @@
-"""Wrappers of the fused write kernels (`csrc/sparse_write.cu`), the port
+"""Wrapper of the fused write kernels (`csrc/sparse_write.cu`), the port
 of `repro/kernels/sparse_write.py::sparse_write_update`: `_kernel` on f32
-or bf16 rows (`sparse_write_update`) and `_kernel_q` on int8 rows with
-their per-row scales (`sparse_write_update_q`).
+or bf16 rows and `_kernel_q` on int8 rows with their per-row scales.
 
 The memory, the usage table and the scales are updated **in place**, as
 the Pallas kernels update them through ``input_output_aliases``
 (`repro/kernels/sparse_write.py:207,226`). CUDA tensors only: the caller
 (`kernels/ops.py`) sends CPU tensors to the plain versions,
-`ref.sparse_write_update_ref` and `ref.sparse_write_update_q_ref`. Each
-wrapper's ``launches`` counts its launches; ``sparse_write_update``'s
-``launches_by_dtype`` counts them per row dtype ('float32', 'bfloat16').
+`ref.sparse_write_update_ref` and `ref.sparse_write_update_q_ref`.
+``sparse_write_update.launches`` counts the launches, and
+``sparse_write_update.launches_by_dtype`` counts them per row dtype.
 """
 from __future__ import annotations
 
@@ -21,8 +20,6 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import _lane_step
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# Row dtype -> the launcher's storage code.
-_ROW_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -30,20 +27,44 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"sparse_write_update: {msg}")
 
 
-def _checked(mem, last_access, write_idx, write_w, a, lra_idx, step,
-             extra=None):
-    """Check the shared arguments (and ``extra``: {name: (tensor, dtype,
-    shape)}); return (B, N, W, J, H, the (B,) int32 step)."""
+def sparse_write_update(mem: torch.Tensor, last_access: torch.Tensor,
+                        write_idx: torch.Tensor, write_w: torch.Tensor,
+                        a: torch.Tensor, lra_idx: torch.Tensor, step, *,
+                        delta: float, mem_scale: torch.Tensor | None = None):
+    """Erase the ``lra_idx`` rows, add w_j · a_{j // (K+1)} into each
+    ``write_idx`` row, and stamp max(la, step[b]) where w_j > δ — in place.
+
+    mem: (B, N+1, W) f32; bf16 (each column's w·a rounded to bf16 once and
+    each add rounded to bf16); or int8 with its per-row scales
+    ``mem_scale`` (B, N+1) f32 (each touched row is dequantized, zero if
+    erased, takes its columns' w·a in j order as fused multiply-adds and
+    is re-quantized once: ``scale = max|row|·fl(1/127)``,
+    ``q = rint(row / scale)`` clipped to ±127). last_access: (B, N+1)
+    int32 (row N is write scratch and is never touched); write_idx: (B, J)
+    int32, J = H·(K+1); write_w: (B, J) f32; a: (B, H, W) f32; lra_idx:
+    (B, H) int32; step: () or (B,)/(B, 1) int. Every index lies in
+    [0, N), and every lra_idx row also appears in write_idx (SAM's write
+    plan guarantees both). Returns (mem, last_access), or (mem,
+    last_access, mem_scale) on int8 rows. Matches
+    `ref.sparse_write_update_ref` / `ref.sparse_write_update_q_ref` bit
+    for bit."""
     _require(mem.is_cuda, "mem must be a CUDA tensor")
+    _require(mem.dtype in _build.ROW_CODE,
+             f"mem must be float32, bfloat16 or int8, got {mem.dtype}")
+    int8 = mem.dtype == torch.int8
+    _require(int8 == (mem_scale is not None),
+             "int8 rows need their mem_scale" if int8
+             else f"{mem.dtype} rows take no mem_scale")
     B, rows, W = mem.shape
-    H = a.shape[1]
-    J = write_idx.shape[1]
+    N, H, J = rows - 1, a.shape[1], write_idx.shape[1]
     step = _lane_step(step, B, mem.device).contiguous()
     shapes = {"last_access": (last_access, torch.int32, (B, rows)),
               "write_idx": (write_idx, torch.int32, (B, J)),
               "write_w": (write_w, torch.float32, (B, J)),
               "a": (a, torch.float32, (B, H, W)),
-              "lra_idx": (lra_idx, torch.int32, (B, H)), **(extra or {})}
+              "lra_idx": (lra_idx, torch.int32, (B, H))}
+    if int8:
+        shapes["mem_scale"] = (mem_scale, torch.float32, (B, rows))
     _require(mem.is_contiguous(), "mem must be contiguous")
     for name, (t, dtype, shape) in shapes.items():
         _require(t.device == mem.device, f"{name} is not on {mem.device}")
@@ -52,72 +73,30 @@ def _checked(mem, last_access, write_idx, write_w, a, lra_idx, step,
                  f"{name} must be {shape}, got {tuple(t.shape)}")
         _require(t.is_contiguous(), f"{name} must be contiguous")
     _require(J % H == 0, f"J={J} is not a multiple of H={H}")
-    return B, rows - 1, W, J, H, step
-
-
-def sparse_write_update(mem: torch.Tensor, last_access: torch.Tensor,
-                        write_idx: torch.Tensor, write_w: torch.Tensor,
-                        a: torch.Tensor, lra_idx: torch.Tensor, step, *,
-                        delta: float):
-    """Erase the ``lra_idx`` rows, add w_j · a_{j // (K+1)} into each
-    ``write_idx`` row, and stamp max(la, step[b]) where w_j > δ — in place.
-
-    mem: (B, N+1, W) f32 or bf16 (each column's w·a rounded to bf16 once
-    and each add rounded to bf16); last_access: (B, N+1) int32 (row N is
-    write scratch and is never touched); write_idx: (B, J) int32,
-    J = H·(K+1); write_w: (B, J) f32; a: (B, H, W) f32; lra_idx: (B, H)
-    int32; step: () or (B,)/(B, 1) int. Every index lies in [0, N), and
-    every lra_idx row also appears in write_idx (SAM's write plan
-    guarantees both). Returns (mem, last_access). Matches
-    `ref.sparse_write_update_ref` bit for bit."""
-    _require(mem.dtype in _ROW_CODE,
-             f"mem must be float32 or bfloat16, got {mem.dtype} (int8 rows: "
-             f"sparse_write_update_q)")
-    B, N, W, J, H, step = _checked(mem, last_access, write_idx, write_w, a,
-                                   lra_idx, step)
-    fn = _build.function("sparse_write", "sparse_write_launch",
-                         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                          _I, _P])
+    stream = torch.cuda.current_stream(mem.device).cuda_stream
     with torch.cuda.device(mem.device):
-        err = fn(mem.data_ptr(), last_access.data_ptr(), write_idx.data_ptr(),
-                 write_w.data_ptr(), a.data_ptr(), lra_idx.data_ptr(),
-                 step.data_ptr(), B, N, W, J, H, delta, _ROW_CODE[mem.dtype],
-                 torch.cuda.current_stream(mem.device).cuda_stream)
+        if int8:
+            fn = _build.function("sparse_write", "sparse_write_q_launch",
+                                 [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _F, _P])
+            err = fn(mem.data_ptr(), mem_scale.data_ptr(),
+                     last_access.data_ptr(), write_idx.data_ptr(),
+                     write_w.data_ptr(), a.data_ptr(), lra_idx.data_ptr(),
+                     step.data_ptr(), B, N, W, J, H, delta, stream)
+        else:
+            fn = _build.function("sparse_write", "sparse_write_launch",
+                                 [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _F, _I, _P])
+            err = fn(mem.data_ptr(), last_access.data_ptr(),
+                     write_idx.data_ptr(), write_w.data_ptr(), a.data_ptr(),
+                     lra_idx.data_ptr(), step.data_ptr(), B, N, W, J, H,
+                     delta, _build.ROW_CODE[mem.dtype], stream)
     _build.check("sparse_write_update", err)
     sparse_write_update.launches += 1
     sparse_write_update.launches_by_dtype[str(mem.dtype)[6:]] += 1
-    return mem, last_access
-
-
-def sparse_write_update_q(mem: torch.Tensor, mem_scale: torch.Tensor,
-                          last_access: torch.Tensor, write_idx: torch.Tensor,
-                          write_w: torch.Tensor, a: torch.Tensor,
-                          lra_idx: torch.Tensor, step, *, delta: float):
-    """The write on int8 rows, in place: each touched row is dequantized
-    (zero if erased), takes its columns' w·a in j order as fused
-    multiply-adds, and is re-quantized once (``scale = max|row|·fl(1/127)``,
-    ``q = rint(row / scale)`` clipped to ±127); then the usage stamp.
-    mem: (B, N+1, W) int8, mem_scale: (B, N+1) f32, the rest as for
-    `sparse_write_update`. Returns (mem, last_access, mem_scale). Matches
-    `ref.sparse_write_update_q_ref` bit for bit."""
-    _require(mem.dtype == torch.int8, f"mem must be int8, got {mem.dtype}")
-    B, rows, _ = mem.shape
-    B, N, W, J, H, step = _checked(
-        mem, last_access, write_idx, write_w, a, lra_idx, step,
-        {"mem_scale": (mem_scale, torch.float32, (B, rows))})
-    fn = _build.function("sparse_write", "sparse_write_q_launch",
-                         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _F, _P])
-    with torch.cuda.device(mem.device):
-        err = fn(mem.data_ptr(), mem_scale.data_ptr(), last_access.data_ptr(),
-                 write_idx.data_ptr(), write_w.data_ptr(), a.data_ptr(),
-                 lra_idx.data_ptr(), step.data_ptr(), B, N, W, J, H, delta,
-                 torch.cuda.current_stream(mem.device).cuda_stream)
-    _build.check("sparse_write_update_q", err)
-    sparse_write_update_q.launches += 1
-    return mem, last_access, mem_scale
+    return (mem, last_access, mem_scale) if int8 else (mem, last_access)
 
 
 sparse_write_update.launches = 0
-sparse_write_update.launches_by_dtype = {"float32": 0, "bfloat16": 0}
-sparse_write_update_q.launches = 0
+sparse_write_update.launches_by_dtype = {"float32": 0, "bfloat16": 0,
+                                         "int8": 0}

@@ -29,8 +29,7 @@ from repro_torch.kernels.fused_read import fused_read_sweep
 from repro_torch.kernels.fused_read_candidates import fused_read_candidates
 from repro_torch.kernels.lsh_hash import lsh_hash
 from repro_torch.kernels.scatter_rows import scatter_rows
-from repro_torch.kernels.sparse_write import (sparse_write_update,
-                                              sparse_write_update_q)
+from repro_torch.kernels.sparse_write import sparse_write_update
 from repro_torch.kernels.usage_argmin import lra_topn
 
 pytestmark = pytest.mark.cuda
@@ -552,26 +551,21 @@ def test_sparse_write_kernel_dtypes_match_plain(dev, N, case, dtype):
     mem, scale = _storage(mem, dtype)
     step = torch.tensor([60, 7, 61], dtype=torch.int32, device=dev)
     m_ref, l_ref = mem.clone(), la.clone()
+    s_ref = None if scale is None else scale.clone()
     scratch = mem[:, N].clone()
+    count = sparse_write_update.launches_by_dtype[dtype]
+    out = sparse_write_update(mem, la, widx, ww, a, lra, step, delta=0.005,
+                              mem_scale=scale)
+    torch.cuda.synchronize()
+    assert sparse_write_update.launches_by_dtype[dtype] == count + 1
     if dtype == "int8":
-        s_ref = scale.clone()
         ref.sparse_write_update_q_ref(m_ref, s_ref, l_ref, widx, ww, a, lra,
                                       step, 0.005)
-        count = sparse_write_update_q.launches
-        out = sparse_write_update_q(mem, scale, la, widx, ww, a, lra, step,
-                                    delta=0.005)
-        torch.cuda.synchronize()
-        assert sparse_write_update_q.launches == count + 1
         assert out[2].data_ptr() == scale.data_ptr()
         assert torch.equal(scale, s_ref)
     else:
         ref.sparse_write_update_ref(m_ref, l_ref, widx, ww, a, lra, step,
                                     0.005)
-        count = sparse_write_update.launches_by_dtype[dtype]
-        out = sparse_write_update(mem, la, widx, ww, a, lra, step,
-                                  delta=0.005)
-        torch.cuda.synchronize()
-        assert sparse_write_update.launches_by_dtype[dtype] == count + 1
     assert out[0].data_ptr() == mem.data_ptr()         # in place
     assert torch.equal(mem, m_ref) and torch.equal(la, l_ref)
     assert torch.equal(mem[:, N], scratch)
@@ -605,10 +599,10 @@ def test_dtype_kernels_raise_on_inputs_they_cannot_take(dev):
     args = (widx, torch.ones((2, J), device=dev), q16[:, :2].contiguous(),
             widx[:, :2].contiguous(), 1)
     with pytest.raises(ValueError, match="last_access must be torch.int32"):
-        sparse_write_update_q(m16, scale, la, *args, delta=0.005)
+        sparse_write_update(m16, la, *args, delta=0.005, mem_scale=scale)
     with pytest.raises(ValueError, match="mem_scale must be"):
-        sparse_write_update_q(m16, scale[:, :64].contiguous(), la.int(),
-                              *args, delta=0.005)
+        sparse_write_update(m16, la.int(), *args, delta=0.005,
+                            mem_scale=scale[:, :64].contiguous())
     with pytest.raises(ValueError, match="int8 rows"):
         sparse_write_update(m16, la.int(), *args, delta=0.005)
 
@@ -687,17 +681,18 @@ def test_dtype_sam_unroll_on_card_matches_cpu(dev, dtype, ann):
     xs = torch.tensor(np.random.default_rng(0).integers(0, 2, (8, 2, 6)),
                       dtype=torch.float32, device=dev)
     read = fused_read_candidates if ann == "lsh" else fused_read_sweep
-    before = (read.launches_by_dtype[dtype], sparse_write_update.launches,
-              sparse_write_update_q.launches)
+    def counts():
+        return (read.launches, read.launches_by_dtype[dtype],
+                sparse_write_update.launches,
+                sparse_write_update.launches_by_dtype[dtype])
+
+    before = counts()
     with _LockstepCPU() as lock:
         state, ys = model(model.init_state(2), xs)
     torch.cuda.synchronize()
     T = len(xs)
     assert lock.calls == 2 * T
-    after = (read.launches_by_dtype[dtype], sparse_write_update.launches,
-             sparse_write_update_q.launches)
-    writes = (0, T) if dtype == "int8" else (T, 0)
-    assert tuple(a - b for a, b in zip(after, before)) == (T, *writes)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (T, T, T, T)
     assert state.memory.dtype == getattr(torch, dtype)
     assert torch.isfinite(ys).all() and ys.shape == (T, 2, 4)
     assert state.memory[:, 1000].eq(0).all()
