@@ -8,8 +8,11 @@ H = K = 4, W = 32, δ = 0.005) with N = 2^20 memory rows, B = 8 and T = 42
 — through the hand-written CUDA kernels: on f32 rows forward and in
 training, with the exact read and with the LSH read (kind ``sam_ann``: 4
 tables of 8 bits, buckets of 32, so C = 4·32 + 20 = 148 candidates per
-head), and on bf16 and int8 rows forward, with both reads; it fails
-(nonzero exit) if any phase fails:
+head), and on bf16 and int8 rows forward, with both reads; then the dense
+baselines (DAM, whose least-used row is the `usage_argmin` kernel, the
+NTM and the LSTM) forward and in training, and the paper's comparison of
+SAM against DAM and the NTM as N grows. It fails (nonzero exit) if any
+phase fails:
 
 1. build the kernels from `src/repro_torch/kernels/csrc/` with nvcc for
    sm_90a and print each kernel's registers, shared memory and spills;
@@ -71,7 +74,33 @@ head), and on bf16 and int8 rows forward, with both reads; it fails
    c. each instantiation's time against its bound, the plain version's
       time, the rollout's host ms/step, device ms/step (`torch.profiler`)
       and peak memory beside the state's size;
-8. print the card, one JSON line of per-kernel numbers, and last the
+8. the dense baselines (`core/dense.py`), at the same widths, λ = 0.99:
+   a. `usage_argmin` against its plain version at (B, N) = (8, 2^20),
+      indices equal, on DAM's initial usage table, the table at step 21 of
+      the DAM rollout, an all-equal table, a minimum in two chunks, -0.0
+      beside +0.0, a ragged N and a ``valid_n``;
+   b. the DAM forward rollout (`Dense.forward`, T = 42, N = 2^20) in
+      lockstep: the kernel's index equals the plain version's at every
+      step; `usage_argmin` launches exactly T times and nothing else does;
+   c. for each of ``dam`` (N = 2^18), ``ntm`` (N = 2^16) and ``lstm``, a
+      forward and a backward with the counters read after each (DAM: T
+      launches in the forward, none in the backward), the loss and every
+      gradient leaf finite, the peak memory beside `dense.activation_bytes`
+      times T; the main path, one `make_task_train_step` step with the
+      counters set to 0 just before it and read just after, and three more
+      RMSProp steps without a NaN; a small ``dam`` step (N = 1000, T = 12)
+      on the card against the CPU;
+   d. the paper's comparison (`benchmarks/bench_speed.py`'s setup: T = 10,
+      B = 8, loss (ys**2).sum()): for SAM (exact read, sparse mode), DAM
+      and the NTM at N = 2^12 ... 2^20, the forward and the forward +
+      backward (host clock around synchronised runs, median of 3 after a
+      warm-up), the warm-up's peak memory and SAM's speed-up; each
+      configuration runs only where its byte reckoning (the state, the
+      activations kept for the backward, two steps' temporaries) fits the
+      free device memory, and is reported as left out otherwise;
+   e. the kernel's time at step 21's table, its plain version's and
+      `torch.argmin`'s;
+9. print the card, one JSON line of per-kernel numbers, and last the
    ``{"ok": true, ...}`` line.
 
 Tolerances: integer outputs exact; forward floats within 1e-5 (other
@@ -119,7 +148,7 @@ REPLACES = {
     "sparse_write_update": ("src/repro/kernels/sparse_write.py:68",
                             "src/repro_torch/kernels/csrc/sparse_write.cu"),
     "lra_topn": ("src/repro/kernels/usage_argmin.py:71",
-                 "src/repro_torch/kernels/csrc/lra_topn.cu"),
+                 "src/repro_torch/kernels/csrc/usage_argmin.cu"),
     "scatter_rows": ("src/repro/kernels/scatter_rows.py:29",
                      "src/repro_torch/kernels/csrc/scatter_rows.cu"),
     "lsh_hash": ("src/repro/kernels/lsh_hash.py:17",
@@ -145,6 +174,9 @@ REPLACES = {
     "fused_read_candidates_int8": (
         "src/repro/kernels/fused_read.py:210",
         "src/repro_torch/kernels/csrc/fused_read_candidates.cu"),
+    # DAM's least-used row (phase 8).
+    "usage_argmin": ("src/repro/kernels/usage_argmin.py:26",
+                     "src/repro_torch/kernels/csrc/usage_argmin.cu"),
 }
 SUFFIX = {"bfloat16": "_bf16", "int8": "_int8"}
 
@@ -159,6 +191,15 @@ FORWARD = ("fused_read_sweep", "sparse_write_update", "lra_topn")
 LSH_STEP = {"lsh_hash": 2, "fused_read_candidates": 1, "lra_topn": 1,
             "sparse_write_update": 1, "fused_read_sweep": 0}
 LSH = dict(ann="lsh", lsh_tables=4, lsh_bits=8, lsh_bucket_size=32)
+# Phase 8, the dense baselines. Their training keeps every step's
+# activations (`dense.activation_bytes`: about 2.7 (B, N, W) f32 tensors a
+# step for DAM, 9.4 for the NTM), so the main-path train steps (T = 42) run
+# at the largest N that fits the card; the LSTM has no memory. The
+# comparison with SAM runs at bench_speed.py's T and the N of the paper's
+# Fig. 1, each configuration only where its reckoning fits.
+DENSE_TRAIN_N = {"dam": 1 << 18, "ntm": 1 << 16, "lstm": 0}
+CMP_T = 10
+CMP_NS = tuple(1 << e for e in (12, 14, 16, 18, 20))
 
 
 class SmokeFailure(Exception):
@@ -191,6 +232,12 @@ class Checker:
     def lra(self, la, n, valid_n, out):
         want = self.ref.lra_topn_ref(la[:, :valid_n], n)
         require(torch.equal(out, want), "lra_topn differs from its plain version")
+
+    def argmin(self, usage, valid_n, out):
+        """Exactly: the kernel and its plain version see the same table."""
+        want = self.ref.usage_argmin_ref(usage[:, :valid_n])
+        require(torch.equal(out, want), "usage_argmin differs from its plain "
+                f"version: {out.tolist()} against {want.tolist()}")
 
     def _selection(self, name, q, mem, idx, r_idx, mem_scale=None):
         """Swapped selections only at plain similarities within NEAR_TIE
@@ -288,7 +335,7 @@ class Checker:
 
 
 class Intercept:
-    """Wraps the five ops of `repro_torch.kernels.ops` for one run. With a
+    """Wraps the six ops of `repro_torch.kernels.ops` for one run. With a
     ``checker`` every call is compared with the plain version on the same
     inputs (lockstep); with ``record`` the inputs of the steps in
     RECORD_STEPS are kept as clones (the hash's under the step: a step
@@ -310,14 +357,21 @@ class Intercept:
     def __enter__(self):
         ops = self.ops
         self.saved = (ops.lra_topn, ops.fused_read, ops.sparse_write_update,
-                      ops.scatter_rows, ops.lsh_hash)
-        lra0, read0, write0, scatter0, hash0 = self.saved
+                      ops.scatter_rows, ops.lsh_hash, ops.usage_argmin)
+        lra0, read0, write0, scatter0, hash0, argmin0 = self.saved
 
         def lra_topn(la, n, *, valid_n=None):
             self._keep("lra_topn", (la, n, valid_n))
             out = lra0(la, n, valid_n=valid_n)
             if self.checker:
                 self.checker.lra(la, n, valid_n, out)
+            return out
+
+        def usage_argmin(usage, *, valid_n=None):
+            self._keep("usage_argmin", (usage, valid_n))
+            out = argmin0(usage, valid_n=valid_n)
+            if self.checker:
+                self.checker.argmin(usage, valid_n, out)
             return out
 
         def fused_read(q, mem, beta, k, *, valid_n=None, cand_idx=None,
@@ -372,12 +426,13 @@ class Intercept:
         ops.lra_topn, ops.fused_read = lra_topn, fused_read
         ops.sparse_write_update, ops.scatter_rows = (sparse_write_update,
                                                      scatter_rows)
-        ops.lsh_hash = lsh_hash
+        ops.lsh_hash, ops.usage_argmin = lsh_hash, usage_argmin
         return self
 
     def __exit__(self, *exc):
         (self.ops.lra_topn, self.ops.fused_read, self.ops.sparse_write_update,
-         self.ops.scatter_rows, self.ops.lsh_hash) = self.saved
+         self.ops.scatter_rows, self.ops.lsh_hash,
+         self.ops.usage_argmin) = self.saved
         return False
 
 
@@ -415,6 +470,22 @@ def host_ms(fn, runs=5, setup=None):
     return sorted(times)[len(times) // 2], times
 
 
+def device_time(fn):
+    """Device time of the kernels of one ``fn()`` traced by torch.profiler:
+    (ms, [(kernel, ms, launches)] largest first)."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    on_dev = sorted(
+        ((e.key, e.self_device_time_total / 1e3, e.count)
+         for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and e.self_device_time_total > 0), key=lambda r: -r[1])
+    return sum(r[1] for r in on_dev), on_dev
+
+
 def bound(nbytes, nops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / F32_OPS_PER_S * 1e3
@@ -423,6 +494,309 @@ def bound(nbytes, nops):
 
 def unique_rows(idx) -> int:
     return len({(b, r) for b, row in enumerate(idx.tolist()) for r in row})
+
+
+def fits(need: int):
+    """Whether ``need`` bytes fit in what the caching allocator can still
+    hand out (free device memory and its own unused blocks), with 10 %
+    spare. Returns (fits, bytes available)."""
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    avail = free + torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+    return need <= 0.9 * avail, avail
+
+
+def dense_phase(dev, ops, ref, usage_argmin, checker, zero_counts, counts,
+                flush, small_train, batch):
+    """Phase 8: DAM, the NTM and the LSTM baseline (`core/dense.py`), and
+    the paper's comparison of SAM against DAM and the NTM. ``batch`` is
+    the copy task's (inputs, targets, mask, xs). Returns the kernel's row,
+    its launches in DAM's main-path train step, and what was measured."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core import dense, sam, training
+    from repro_torch.core import unroll as unroll_lib
+    from repro_torch.core.cell import SAMCell
+    from repro_torch.core.types import ControllerConfig, MemoryConfig
+    from repro_torch.optim import optimizers as opt
+
+    inputs, targets, mask, xs = batch
+    ts, ms = targets.transpose(0, 1), mask.transpose(0, 1)
+    ctl = ControllerConfig(input_size=BITS + 2, hidden_size=HIDDEN,
+                           output_size=BITS)
+
+    def mem_cfg(n):
+        return MemoryConfig(num_slots=n, word_size=W, num_heads=H, k=K,
+                            delta=DELTA)
+
+    def only(name, n):
+        """The launch counts of a run that launched ``name`` n times and
+        nothing else."""
+        want = {k: 0 for k in counts()}
+        if n:
+            want[name] = n
+        return want
+
+    model = dense.Dense(dense.DenseConfig(mem_cfg(N), ctl, model="dam"),
+                        seed=0, device=dev)
+    step21 = max(RECORD_STEPS)
+
+    # (a) the kernel against its plain version at full width, exactly.
+    with Intercept(ops, record=True) as rec:
+        model(model.init_state(B), xs[:step21])
+    u0 = model.init_state(B).usage
+    u21 = rec.records[("usage_argmin", step21)][0]
+    cpu = torch.Generator().manual_seed(8)
+    rows_b = torch.arange(B)
+    two = torch.rand((B, N), generator=cpu) + 1.0
+    lo, hi = rows_b * 7 + 3, N // 2 + rows_b * 11     # two of 128 chunks
+    two[rows_b, lo] = two[rows_b, hi] = 0.25
+    signed = torch.rand((B, N), generator=cpu) + 1.0
+    signed[rows_b, 40] = torch.where(rows_b % 2 == 0, -0.0, 0.0)
+    signed[rows_b, 9000] = torch.where(rows_b % 2 == 0, 0.0, -0.0)
+    cases = {
+        "DAM's initial usage": (u0, None, [0] * B),
+        f"step {step21} of the DAM rollout": (u21, None, None),
+        "all equal": (torch.full((B, N), 0.5, device=dev), None, [0] * B),
+        "a minimum in two chunks": (two.to(dev), None, lo.tolist()),
+        "-0.0 and +0.0": (signed.to(dev), None, [40] * B),
+        f"ragged N = {N - 3}": (u21[:, :N - 3].contiguous(), None, None),
+        f"valid_n = {N - 3}": (u21, N - 3, None),
+    }
+    for name, (table, valid_n, want) in cases.items():
+        got = usage_argmin(table, valid_n=valid_n)
+        checker.argmin(table, valid_n, got)
+        require(want is None or got.tolist() == want, f"usage_argmin on "
+                f"{name}: {got.tolist()}, expected {want}")
+    torch.cuda.synchronize()
+    print(f"[dense] usage_argmin at (B, N) = {(B, N)} equal to its plain "
+          f"version on: {'; '.join(cases)} (step {step21}'s indices "
+          f"{usage_argmin(u21).tolist()})")
+
+    # (b) the DAM forward rollout (Dense.forward), in lockstep.
+    zero_counts()
+    with Intercept(ops, checker=checker):
+        d_state, d_ys = model(model.init_state(B), xs)
+    torch.cuda.synchronize()
+    rollout_launches = counts()
+    require(rollout_launches == only("usage_argmin", T), f"the DAM rollout "
+            f"launched {rollout_launches}, expected usage_argmin {T} times "
+            f"and nothing else")
+    read_sum_err = (d_state.read_w.sum(-1) - 1).abs().max().item()
+    require(d_ys.shape == (T, B, BITS) and torch.isfinite(d_ys).all().item()
+            and all(torch.isfinite(t).all().item() for t in d_state[:5])
+            and read_sum_err <= 1e-4 and int(d_state.step) == T,
+            "DAM outputs or state not finite, of the wrong shape, or read "
+            "weights that do not sum to 1")
+    print(f"[dense] DAM rollout (T={T}, N={N}) in lockstep: usage_argmin "
+          f"launched {rollout_launches['usage_argmin']} times, equal to its "
+          f"plain version at every step, no other kernel; outputs finite; "
+          f"read weights sum to 1 within {read_sum_err:.3g}")
+    del d_state, d_ys
+    # Where a dense step's time goes: the kernels of a 3-step forward at
+    # full width traced by torch.profiler (the state made outside it).
+    breakdown = {}
+    for kind in ("dam", "ntm"):
+        m = model if kind == "dam" else dense.Dense(
+            dense.DenseConfig(mem_cfg(N), ctl, model=kind), seed=0,
+            device=dev)
+        s0 = m.init_state(B)
+        torch.cuda.synchronize()
+        d_ms, on_dev = device_time(lambda: m(s0, xs[:3]))
+        breakdown[kind] = dict(device_ms_per_step=d_ms / 3, kernels=[
+            (name[:90], t / 3, n / 3) for name, t, n in on_dev[:8]])
+        print(f"[dense] {kind} forward at N={N}: {d_ms / 3:.3f} ms of "
+              f"kernels per step (torch.profiler, 3 steps); by kernel "
+              f"(ms/step, launches/step): " + "; ".join(
+                  f"{name} {t:.3f} ({n:.0f})"
+                  for name, t, n in breakdown[kind]["kernels"]))
+        del s0, m
+    # ... and of a 2-step DAM forward and backward.
+    leaves, tdef = pytree.tree_flatten(model.params())
+    leaves = [p.detach().clone().requires_grad_() for p in leaves]
+    s0 = model.init_state(B)
+    torch.cuda.synchronize()
+    d_ms, on_dev = device_time(lambda: torch.autograd.grad(
+        dense.dense_unroll(pytree.tree_unflatten(leaves, tdef), model.cfg,
+                           s0, xs[:2])[1].square().sum(), leaves))
+    breakdown["dam_fwd_bwd"] = dict(device_ms_per_step=d_ms / 2, kernels=[
+        (name[:90], t / 2, n / 2) for name, t, n in on_dev[:8]])
+    print(f"[dense] dam forward + backward at N={N}: {d_ms / 2:.3f} ms of "
+          f"kernels per step (torch.profiler, 2 steps); by kernel "
+          f"(ms/step, launches/step): " + "; ".join(
+              f"{name} {t:.3f} ({n:.1f})"
+              for name, t, n in breakdown["dam_fwd_bwd"]["kernels"]))
+    del s0, leaves
+
+    # (c) training: forward and backward apart, then the main path (one
+    # make_task_train_step step) and three more RMSProp steps.
+    train = {}
+    for kind, n in DENSE_TRAIN_N.items():
+        spec = training.ModelSpec(kind, mem_cfg(n or N), ctl)
+        reckoning = (T * dense.activation_bytes(dense.DenseConfig(
+            spec.memory, ctl, model=kind), B) if n else 0)
+        ok, avail = fits(3 * reckoning // 2)
+        require(ok, f"the {kind} train step's reckoning {reckoning} B does "
+                f"not fit the {avail} B available")
+        init_p, init_s, unroll = training.build_model(spec, device=dev)
+        params = init_p(torch.Generator().manual_seed(0))
+        leaves, tdef = pytree.tree_flatten(params)
+        leaves = [p.clone().requires_grad_() for p in leaves]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        zero_counts()
+        with Intercept(ops, checker=checker):
+            _, ys_k = unroll(pytree.tree_unflatten(leaves, tdef), init_s(B), xs)
+            loss = training.bits_loss(ys_k, ts, ms)
+            torch.cuda.synchronize()
+            fwd = counts()
+            zero_counts()
+            grads = torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+            bwd = counts()
+        peak = torch.cuda.max_memory_allocated() - held
+        per = T if kind == "dam" else 0
+        require(fwd == only("usage_argmin", per) and bwd == only("usage_argmin", 0),
+                f"{kind}: forward launched {fwd}, backward {bwd}; expected "
+                f"usage_argmin {per} times in the forward and nothing else")
+        require(torch.isfinite(loss).item() and all(
+            torch.isfinite(g).all().item() for g in grads),
+            f"a {kind} loss or gradient leaf is not finite")
+        del ys_k, loss, grads
+        _, _, fn = training.make_task_train_step(spec, LR, device=dev)
+        opt_state = opt.rmsprop_init(params)
+        zero_counts()
+        with Intercept(ops, checker=checker):
+            p1, o1, loss, err = fn(params, opt_state, inputs, targets, mask)
+        torch.cuda.synchronize()
+        launched = counts()
+        require(launched == only("usage_argmin", per), f"{kind} train step "
+                f"launched {launched}")
+        losses = [loss.item()]
+        for _ in range(3):
+            p1, o1, loss, _ = fn(p1, o1, inputs, targets, mask)
+            losses.append(loss.item())
+            require(torch.isfinite(loss).item() and all(
+                torch.isfinite(p).all().item()
+                for p in pytree.tree_leaves((p1, o1))),
+                f"a {kind} RMSProp step produced a NaN or an infinity")
+        train[kind] = dict(n=n, launches=launched, peak_bytes=peak,
+                           reckoning_bytes=reckoning, losses=losses)
+        print(f"[dense-train] {kind} (N={n or '-'}, T={T}): forward launches "
+              f"usage_argmin {fwd['usage_argmin']} times, backward nothing; "
+              f"loss and {len(leaves)} gradient leaves finite; peak "
+              f"{peak} B against the reckoning T·activation_bytes "
+              f"{reckoning} B; main path (one make_task_train_step step) "
+              f"launched usage_argmin {launched['usage_argmin']} times; four "
+              f"RMSProp steps, losses {losses}: all finite")
+        del params, leaves, p1, o1, opt_state
+    small_grad_err = small_train("dam")
+
+    # (d) the paper's comparison (bench_speed.py's setup): forward and
+    # forward+backward of SAM (exact read, sparse mode), DAM and the NTM.
+    xs_c = torch.randn((CMP_T, B, BITS + 2),
+                       generator=torch.Generator().manual_seed(7)).to(dev)
+
+    def runners(kind, n):
+        """(new_state, forward, fwd_bwd, state bytes, activation bytes
+        kept for the backward, per-step transient bytes)."""
+        if kind == "sam":
+            cfg_k = sam.SAMConfig(mem_cfg(n), ctl)
+            fwd_model = sam.SAM(cfg_k, seed=0, device=dev)
+            cell = SAMCell(cfg_k)
+            state_b = 4 * B * (n + 1) * (W + 1)
+            act = 0
+        else:
+            cfg_k = dense.DenseConfig(mem_cfg(n), ctl, model=kind)
+            fwd_model = dense.Dense(cfg_k, seed=0, device=dev)
+            state_b = 4 * B * n * (W + 1 + 2 * H)
+            act = dense.activation_bytes(cfg_k, B)
+        flat, spec_p = pytree.tree_flatten(fwd_model.params())
+        leaves = [p.detach().clone().requires_grad_() for p in flat]
+        p_req = pytree.tree_unflatten(leaves, spec_p)
+
+        def forward(s):
+            fwd_model(s, xs_c)
+
+        def fwd_bwd(s):
+            if kind == "sam":
+                _, ys_k = unroll_lib.unroll(cell, p_req, s, xs_c,
+                                            mode="sparse")
+            else:
+                _, ys_k = dense.dense_unroll(p_req, cfg_k, s, xs_c)
+            torch.autograd.grad((ys_k ** 2).sum(), leaves)
+
+        if kind == "sam":   # the sparse backward's residuals, and the one
+            #                 dense memory cotangent
+            kept = (unroll_lib.residual_accounting(
+                cell, p_req, fwd_model.init_state(1), xs_c[:, :1],
+                mode="sparse")["residual_bytes"] * B + state_b)
+        else:
+            kept = CMP_T * act
+        return fwd_model.init_state, forward, fwd_bwd, state_b, kept, act
+
+    def measure(fn, new_state, need, per=1):
+        """ms per run over ``per`` (median of 3 after a warm-up) and the
+        warm-up's peak memory above what is held; only ``need`` and the
+        bytes available where ``need`` does not fit."""
+        ok, avail = fits(need)
+        if not ok:
+            return dict(need=need, avail=avail)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        fn(new_state(B))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        med, times = host_ms(fn, runs=3, setup=lambda: new_state(B))
+        return dict(ms=med / per, all=[t / per for t in times], peak=peak,
+                    need=need)
+
+    table = []
+    for n in CMP_NS:
+        for kind in ("sam", "dam", "ntm"):
+            new_state, forward, fwd_bwd, state_b, kept, act = runners(kind, n)
+            r = dict(model=kind, n=n, state_bytes=state_b, kept_bytes=kept,
+                     fwd=measure(forward, new_state, 2 * state_b + 2 * act,
+                                 per=CMP_T),
+                     fwd_bwd=measure(fwd_bwd, new_state,
+                                     state_b + kept + 2 * act))
+            table.append(r)
+    sam_of = {r["n"]: r for r in table if r["model"] == "sam"}
+    for r in table:
+        cells = []
+        for what in ("fwd", "fwd_bwd"):
+            m = r[what]
+            if "ms" not in m:
+                cells.append(f"{what} left out (needs {m['need']} B, "
+                             f"{m['avail']} B available)")
+                continue
+            ratio = m["ms"] / sam_of[r["n"]][what]["ms"]
+            m["sam_speedup"] = ratio
+            unit = " ms/step" if what == "fwd" else " ms"
+            cells.append(f"{what} {m['ms']:.3f}{unit} (of "
+                         f"{', '.join(f'{t:.3f}' for t in m['all'])}), peak "
+                         f"{m['peak']} B" + (f", {ratio:.2f}x SAM's"
+                                             if r["model"] != "sam" else ""))
+        print(f"[compare] {r['model']} N={r['n']} (B={B}, T={CMP_T}): "
+              + "; ".join(cells) + f"; state {r['state_bytes']} B, kept for "
+              f"the backward {r['kept_bytes']} B")
+
+    # (e) the kernel's time at step 21's table.
+    row = dict(ms=time_ms(lambda: usage_argmin(u21), 50, flush),
+               plain_ms=time_ms(lambda: ref.usage_argmin_ref(u21), 20, flush),
+               library_ms=time_ms(lambda: torch.argmin(u21, dim=-1), 50,
+                                  flush),
+               bound=bound(4 * (B * N + B), B * N))
+    print(f"[time] usage_argmin: {row['ms']:.4f} ms (bound "
+          f"{row['bound'][0]:.6f} ms by {row['bound'][1]}), plain "
+          f"{row['plain_ms']:.4f} ms, library torch.argmin "
+          f"{row['library_ms']:.4f} ms")
+    return dict(row=row, launches=train["dam"]["launches"],
+                rollout_launches=rollout_launches, breakdown=breakdown,
+                train=train,
+                card_vs_cpu_grad_err=small_grad_err, comparison=table)
 
 
 def run() -> None:
@@ -444,7 +818,7 @@ def run() -> None:
         from repro_torch.kernels.lsh_hash import lsh_hash
         from repro_torch.kernels.scatter_rows import scatter_rows
         from repro_torch.kernels.sparse_write import sparse_write_update
-        from repro_torch.kernels.usage_argmin import lra_topn
+        from repro_torch.kernels.usage_argmin import lra_topn, usage_argmin
         from repro_torch.optim import optimizers as opt
     except ImportError as e:
         raise SmokeFailure(f"the port's sources are missing: {e}") from e
@@ -455,7 +829,8 @@ def run() -> None:
                "sparse_write_update": sparse_write_update,
                "lra_topn": lra_topn, "scatter_rows": scatter_rows,
                "lsh_hash": lsh_hash,
-               "fused_read_candidates": fused_read_candidates}
+               "fused_read_candidates": fused_read_candidates,
+               "usage_argmin": usage_argmin}
 
     def zero_counts():
         for fn in kernels.values():
@@ -1017,21 +1392,6 @@ def run() -> None:
         return (sorted(times)[len(times) // 2], times,
                 torch.cuda.max_memory_allocated() - held)
 
-    def device_time(fn):
-        """Device time of the kernels of one ``fn()`` traced by
-        torch.profiler: (ms, [(kernel, ms, launches)] largest first)."""
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        on_dev = sorted(
-            ((e.key, e.self_device_time_total / 1e3, e.count)
-             for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and e.self_device_time_total > 0), key=lambda r: -r[1])
-        return sum(r[1] for r in on_dev), on_dev
-
     def rollout_device(m):
         """Device ms and kernel launches per step of one traced rollout."""
         with torch.inference_mode():
@@ -1312,7 +1672,13 @@ def run() -> None:
             q_ = m_ = b_ = s_ = None
             torch.cuda.empty_cache()
 
-    # ---- 8. report ----
+    # ---- 8. the dense baselines: DAM, the NTM, the LSTM ----
+    dense = dense_phase(dev, ops, ref, usage_argmin, checker, zero_counts,
+                        counts, flush, small_train,
+                        (inputs, targets, mask, xs))
+    rows["usage_argmin"] = dense["row"]
+
+    # ---- 9. report ----
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -1326,7 +1692,8 @@ def run() -> None:
                "sparse_write_update_int8": dtype_launches["int8/exact"],
                "fused_read_sweep_int8": dtype_launches["int8/exact"],
                "fused_read_candidates_bf16": dtype_launches["bfloat16/lsh"],
-               "fused_read_candidates_int8": dtype_launches["int8/lsh"]}
+               "fused_read_candidates_int8": dtype_launches["int8/lsh"],
+               "usage_argmin": dense["launches"]}
     report = []
     for name, r in rows.items():
         replaces, source = REPLACES[name]
@@ -1374,7 +1741,9 @@ def run() -> None:
                       "lsh_card_vs_cpu_grad_err": small_lsh_grad_err,
                       "chunked_vs_sparse_grad_err": chunk_err,
                       "lsh_chunked_vs_sparse_grad_err": lsh_chunk_err,
-                      "dtypes": dtype_runs}))
+                      "dtypes": dtype_runs,
+                      "dense": {k: v for k, v in dense.items()
+                                if k != "row"}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,23 +1,28 @@
-"""Carry a JAX SAM's weights and state across to the port.
+"""Carry a JAX model's weights and state across to the port.
 
 Both sides share names and layout: weights are the tree
-``{"lstm": {wx, wh, b}, "iface": {w, b}, "out": {w, b}}`` with matrices
-kept (in, out), so ``x @ w`` holds on both sides, plus ``lsh_planes``
-(T, bits, W) for an LSH cell; the state is the scratch-row `SAMState`,
-with the single-device LSH index (`ANNState`, P = 1) where there is one.
-The functions take numpy leaves (or anything `numpy.asarray` reads) and
-import nothing of JAX.
+``{"lstm": {wx, wh, b}, "iface": {w, b}, "out": {w, b}}`` (SAM, DAM and
+the NTM) or ``{"lstm": ..., "out": ...}`` (the LSTM baseline), with
+matrices kept (in, out), so ``x @ w`` holds on both sides, plus
+``lsh_planes`` (T, bits, W) for an LSH cell. SAM's state is the
+scratch-row `SAMState`, with the single-device LSH index (`ANNState`,
+P = 1) where there is one; the dense models' is `DenseState`, with a plain
+(B, N, W) memory. The functions take numpy leaves (or anything
+`numpy.asarray` reads) and import nothing of JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.types import ANNState, LSTMState, SAMState, SparseRead
+from repro_torch.core.types import (ANNState, DenseState, LSTMState,
+                                    SAMState, SparseRead)
 from repro_torch.optim.optimizers import RMSPropState
 
 _PARAM_GROUPS = {"lstm": ("wx", "wh", "b"), "iface": ("w", "b"),
                  "out": ("w", "b")}
+# The LSTM baseline's tree: the controller and its output layer only.
+_LSTM_GROUPS = ("lstm", "out")
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:
@@ -25,15 +30,22 @@ def _tensor(x, dtype, device) -> torch.Tensor:
 
 
 def params_from_jax(tree, *, device="cuda"):
-    """JAX `sam.init_params` tree -> the port's parameter dict, leaf for
-    leaf in the same (in, out) orientation; an LSH cell's ``lsh_planes``
-    (T, bits, W) come across as they are. Raises on any other leaf."""
-    groups = set(tree) - {"lsh_planes"}
-    if groups != set(_PARAM_GROUPS):
+    """A JAX weight tree -> the port's parameter dict, leaf for leaf in the
+    same (in, out) orientation: `sam.init_params`' and
+    `dense.init_params`' three groups (an LSH cell's ``lsh_planes`` (T,
+    bits, W) come across as they are), or `dense.lstm_baseline_init`'s
+    ``lstm`` and ``out``. Raises on any other tree."""
+    if set(tree) == set(_LSTM_GROUPS):
+        groups = _LSTM_GROUPS
+    elif set(tree) - {"lsh_planes"} == set(_PARAM_GROUPS):
+        groups = tuple(_PARAM_GROUPS)
+    else:
         raise ValueError(f"expected groups {sorted(_PARAM_GROUPS)} (and "
-                         f"lsh_planes), got {sorted(tree)}")
+                         f"lsh_planes), or {sorted(_LSTM_GROUPS)}, got "
+                         f"{sorted(tree)}")
     out = {}
-    for group, names in _PARAM_GROUPS.items():
+    for group in groups:
+        names = _PARAM_GROUPS[group]
         if set(tree[group]) != set(names):
             raise ValueError(f"{group}: expected {names}, got "
                              f"{sorted(tree[group])}")
@@ -99,6 +111,24 @@ def state_from_jax(state, *, device="cuda") -> SAMState:
                          else ann_from_jax(state.ann, device=device)),
                     mem_scale=(None if scale is None
                                else _tensor(scale, np.float32, device)))
+
+
+def dense_state_from_jax(state, *, device="cuda") -> DenseState:
+    """JAX `DenseState` (DAM or the NTM) -> the port's, leaf for leaf: the
+    (B, N, W) f32 memory (no scratch row), the (B, N) usage, the (B, H, N)
+    read and write weights, the read words, the controller and the step.
+    Raises on a memory that is not (B, N, W) beside a (B, N) usage."""
+    f32 = {name: _tensor(getattr(state, name), np.float32, device)
+           for name in ("memory", "usage", "read_w", "read_words", "write_w")}
+    B, N = f32["usage"].shape
+    if f32["memory"].dim() != 3 or f32["memory"].shape[:2] != (B, N):
+        raise ValueError(f"a dense memory is (B, N, W) beside its (B, N) "
+                         f"usage, got {tuple(f32['memory'].shape)} and "
+                         f"{(B, N)}")
+    ctrl = LSTMState(h=_tensor(state.ctrl.h, np.float32, device),
+                     c=_tensor(state.ctrl.c, np.float32, device))
+    return DenseState(ctrl=ctrl, step=_tensor(state.step, np.int32, device),
+                      **f32)
 
 
 def opt_state_from_jax(state, *, device="cuda") -> RMSPropState:

@@ -1,6 +1,7 @@
-"""Sparse content-based addressing and usage tracking (paper §3.1-3.2):
-the single-device part of `repro/core/addressing.py`, exact and LSH
-reads, on f32, bf16 or int8 rows (``mem_scale=``: the (B, N+1) f32
+"""Content-based addressing and usage tracking (paper §3.1-3.2): the
+single-device part of `repro/core/addressing.py`. The dense read (eq. 2)
+and DAM's discounted usage for the dense models; the sparse reads, exact
+and LSH, on f32, bf16 or int8 rows (``mem_scale=``: the (B, N+1) f32
 per-row scales of int8 rows). Every kernel operation goes through
 `repro_torch.kernels.ops`, which runs the CUDA kernels on the card and the
 plain versions on the CPU. `gather_rows` returns the raw storage bits;
@@ -12,6 +13,67 @@ import torch
 from repro_torch.core.types import SparseRead
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ref import gather_rows
+
+
+# Rows per chunk of the dense models' products over N. cuBLAS runs an
+# (H, N) @ (N, W) product (a sum over N) as a batched GEMV on B blocks:
+# the dense read took 30.9 of a DAM step's 41.2 ms of kernels at B = 8,
+# N = 2^20, W = 32, H = 4 on an H100, and 0.50 ms as partial sums of 4096
+# rows added afterwards (`chip_smoke.py`'s profile; PERF.md). Each product
+# below therefore puts N's chunks in a batch dimension, in the forward
+# and, through autograd, in the backward's sums over N.
+READ_ROWS = 4096
+
+
+def row_chunks(n: int) -> int:
+    """The number of `READ_ROWS`-row chunks of n rows, or 1 (the whole
+    product at once) where READ_ROWS does not divide n."""
+    return n // READ_ROWS if n % READ_ROWS == 0 else 1
+
+
+def cosine_sim(q: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """q: (B, H, W), m: (B, N, W) -> (B, H, N) cosine similarities, each
+    side normalized as x·rsqrt(|x|² + 1e-6) (gradient-safe at 0)."""
+    B, N, W = m.shape
+    S = row_chunks(N)
+    rows = ref._normalize(m).reshape(B, S, N // S, W).transpose(-1, -2)
+    sims = torch.matmul(ref._normalize(q)[:, None], rows)    # (B, S, H, C)
+    return sims.transpose(1, 2).reshape(B, -1, N)
+
+
+def dense_read_weights(q: torch.Tensor, m: torch.Tensor,
+                       beta: torch.Tensor) -> torch.Tensor:
+    """Eq. (2): a softmax over every row's similarity, sharpened by the key
+    strength beta (B, H) -> (B, H, N)."""
+    return torch.softmax(cosine_sim(q, m) * beta[..., None], dim=-1)
+
+
+def dense_read(w: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Eq. (1): r = sum_i w(i) M(i). w: (B, H, N), m: (B, N, W) ->
+    (B, H, W), summed over `READ_ROWS`-row chunks."""
+    B, H, N = w.shape
+    S = row_chunks(N)
+    parts = torch.matmul(w.reshape(B, H, S, N // S).transpose(1, 2),
+                         m.reshape(B, S, N // S, m.shape[-1]))  # (B,S,H,W)
+    return parts.sum(1)
+
+
+def outer_rows(w: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """The dense write's add term w^T a: w (B, H, N), a (B, H, W) ->
+    (B, N, W), sum_h w[b, h, n] a[b, h]; its gradient in a sums over
+    `READ_ROWS`-row chunks."""
+    B, H, N = w.shape
+    S = row_chunks(N)
+    out = torch.matmul(w.reshape(B, H, S, N // S).permute(0, 2, 3, 1),
+                       a[:, None])                            # (B,S,C,W)
+    return out.reshape(B, N, a.shape[-1])
+
+
+def dam_usage_update(usage: torch.Tensor, read_w: torch.Tensor,
+                     write_w: torch.Tensor, discount: float) -> torch.Tensor:
+    """DAM's usage U^(1): the time-discounted sum of the read and write
+    weights. usage: (B, N); read_w, write_w: (B, H, N)."""
+    return discount * usage + read_w.sum(dim=1) + write_w.sum(dim=1)
 
 
 def gather_scales(mem_scale: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,11 @@
 """Training harness for the copy task (paper §4.2/§4.3), the port of
 `repro/core/training.py` (`ModelSpec`, `build_model`, `bits_loss`,
 `bits_error`, `make_task_train_step`, `train_task`) for the kinds ``sam``
-(exact read) and ``sam_ann`` (the LSH read): RMSProp (paper Suppl. C) on
-sigmoid cross-entropy over the output bits, through the sparse-rollback
-engine by default (`core/unroll.py`).
+(exact read) and ``sam_ann`` (the LSH read), which train through the
+sparse-rollback engine by default (`core/unroll.py`), and the dense
+baselines ``dam``, ``ntm`` and ``lstm`` (`core/dense.py`), which train by
+a plain loop under autograd: RMSProp (paper Suppl. C) on sigmoid
+cross-entropy over the output bits.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.core import dense as dense_lib
 from repro_torch.core import unroll as unroll_lib
 from repro_torch.core.cell import SAMCell
 from repro_torch.core.sam import SAMConfig
@@ -30,10 +33,11 @@ TASKS = {"copy": copy_task}
 
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
-    kind: str                     # sam or sam_ann (the kinds ported)
+    kind: str                     # sam | sam_ann | dam | ntm | lstm (ported)
     memory: MemoryConfig
     controller: ControllerConfig
-    # Train through the sparse-rollback engine (False -> the naive loop).
+    # SAM kinds: train through the sparse-rollback engine (False -> the
+    # naive loop). The dense kinds always run the plain loop.
     sparse_bptt: bool = True
     # Segment length C for the chunked engine: None -> whole-sequence
     # sparse, an int or "auto" -> chunked with O(T/C·state + C·K·W)
@@ -45,15 +49,34 @@ def build_model(spec: ModelSpec, *, device="cuda"):
     """Returns (init_params(generator), init_state(batch),
     unroll(params, state, xs)). Kinds ``sam`` and ``sam_ann`` (the SAM cell
     with ``ann="lsh"``) train through the sparse-rollback engine behind
-    `SAMCell`; every other kind of the JAX package is still to port and
-    raises, and so does a bf16 or int8 memory (``mem_dtype``), which runs
+    `SAMCell`; ``dam`` and ``ntm`` unroll `dense.dense_unroll` and
+    ``lstm`` the bare controller, whose state is the batch size, all in a
+    plain loop. ``dnc`` and ``sdnc`` raise (ROADMAP A7b), and so does any
+    other kind and a bf16 or int8 memory (``mem_dtype``), which runs
     forward only."""
-    if spec.kind not in ("sam", "sam_ann"):
-        raise ValueError(f"model kind {spec.kind!r} is not ported; only "
-                         f"'sam' and 'sam_ann' are")
+    if spec.kind in ("dnc", "sdnc"):
+        raise ValueError(f"model kind {spec.kind!r}: the DNC and the sparse "
+                         f"DNC are not ported yet: ROADMAP.md A7b "
+                         f"(core/dnc.py, SDNCCell)")
+    if spec.kind not in ("sam", "sam_ann", "dam", "ntm", "lstm"):
+        raise ValueError(f"unknown model kind {spec.kind!r}")
     if spec.memory.mem_dtype != "float32":
         raise ValueError(f"build_model with mem_dtype="
                          f"{spec.memory.mem_dtype!r}: {DTYPE_TRAINING_ITEM}")
+    if spec.kind in ("dam", "ntm"):
+        cfg = dense_lib.DenseConfig(spec.memory, spec.controller,
+                                    model=spec.kind)
+        return (functools.partial(dense_lib.init_params, cfg=cfg,
+                                  device=device),
+                functools.partial(dense_lib.init_state, cfg=cfg,
+                                  device=device),
+                lambda p, s, xs: dense_lib.dense_unroll(p, cfg, s, xs))
+    if spec.kind == "lstm":
+        return (functools.partial(dense_lib.lstm_baseline_init,
+                                  cfg=spec.controller, device=device),
+                lambda batch: batch,
+                lambda p, batch, xs: dense_lib.lstm_baseline_unroll(
+                    p, spec.controller, batch, xs))
     mem = dataclasses.replace(
         spec.memory, ann="lsh" if spec.kind == "sam_ann" else "exact")
     cell = SAMCell(SAMConfig(mem, spec.controller))

@@ -78,6 +78,7 @@ class MemoryConfig:
     lsh_bits: int = 8              # buckets per table = 2**bits
     lsh_bucket_size: int = 32
     mem_dtype: str = "float32"
+    usage_discount: float = 0.99   # dense models (DAM): usage discount λ
 
     def __post_init__(self):
         if self.mem_dtype not in MEM_DTYPES:
@@ -137,6 +138,22 @@ class SAMState(NamedTuple):
     step: torch.Tensor          # () int32
     ann: Optional[ANNState] = None
     mem_scale: Optional[torch.Tensor] = None
+
+
+class DenseState(NamedTuple):
+    """State of the dense models (DAM, NTM, `core/dense.py`). A dense
+    softmax weighting addresses every row, so there is no never-read row
+    to park a write on: the memory is the plain (B, N, W), with no
+    scratch row, as in the JAX package."""
+
+    memory: torch.Tensor        # (B, N, W) f32
+    usage: torch.Tensor         # (B, N) f32 discounted usage (DAM; the NTM
+    #                             carries it unchanged)
+    read_w: torch.Tensor        # (B, H, N) previous read weights
+    read_words: torch.Tensor    # (B, H, W)
+    write_w: torch.Tensor       # (B, H, N) previous write weights
+    ctrl: LSTMState
+    step: torch.Tensor          # () int32
 
 
 class StepDeltas(NamedTuple):

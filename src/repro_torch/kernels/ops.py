@@ -3,7 +3,8 @@
 
 A CPU tensor takes the plain version in `kernels/ref.py`; a CUDA tensor
 launches the hand-written kernel, which raises on anything it cannot take
-(a float usage table, a wrong shape or dtype, a non-contiguous buffer).
+(a float table for the LRA rows, an int one for DAM's argmin, a wrong
+shape or dtype, a non-contiguous buffer).
 There is no fallback from one to the other and no switch that swaps the
 kernel out: unlike the JAX package, the kernels take any N and mask the
 ragged tile themselves.
@@ -38,6 +39,8 @@ from repro_torch.kernels.scatter_rows import scatter_rows as scatter_rows_kernel
 from repro_torch.kernels.sparse_write import \
     sparse_write_update as sparse_write_kernel
 from repro_torch.kernels.usage_argmin import lra_topn as lra_topn_kernel
+from repro_torch.kernels.usage_argmin import \
+    usage_argmin as usage_argmin_kernel
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -61,6 +64,16 @@ def lra_topn(last_access: torch.Tensor, n: int, *, valid_n: int | None = None):
         la = last_access if valid_n is None else last_access[:, :valid_n]
         return ref.lra_topn_ref(la, n)
     return lra_topn_kernel(last_access, n, valid_n=valid_n)
+
+
+def usage_argmin(usage: torch.Tensor, *, valid_n: int | None = None):
+    """usage: (B, rows) f32 -> (B,) int32 index of the minimum among
+    [0, valid_n) (ties toward the lowest index; -0.0 equals +0.0): DAM's
+    least-used row. Not differentiable (the caller detaches)."""
+    if _on_cpu(usage):
+        return ref.usage_argmin_ref(usage if valid_n is None
+                                    else usage[:, :valid_n])
+    return usage_argmin_kernel(usage, valid_n=valid_n)
 
 
 def lsh_hash(x: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:

@@ -176,6 +176,13 @@ def lra_topn_ref(last_access: torch.Tensor, n: int) -> torch.Tensor:
     return torch.topk(key, n, dim=-1, largest=False).indices.to(torch.int32)
 
 
+def usage_argmin_ref(usage: torch.Tensor) -> torch.Tensor:
+    """usage: (B, N) f32 -> (B,) int32 index of each row's minimum; the
+    lowest index wins ties (PyTorch documents `argmin` so), and -0.0
+    equals +0.0."""
+    return torch.argmin(usage, dim=-1).to(torch.int32)
+
+
 def first_occurrence(idx: torch.Tensor) -> torch.Tensor:
     """(B, J) bool: True where idx[b, j] is the first occurrence of its
     value along j — the column that owns the row in the fused write."""

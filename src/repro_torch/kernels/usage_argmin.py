@@ -1,9 +1,11 @@
-"""Wrapper of the LRA selection kernel (`csrc/lra_topn.cu`), the port of
-`repro/kernels/usage_argmin.py::lra_topn`.
+"""Wrappers of the least-used selection kernels (`csrc/usage_argmin.cu`),
+the ports of `repro/kernels/usage_argmin.py::lra_topn` (SAM's LRA rows)
+and `::usage_argmin` (DAM's least-used row).
 
 CUDA tensors only: the caller (`kernels/ops.py`) sends CPU tensors to the
-plain version, `ref.lra_topn_ref`. ``lra_topn.launches`` counts the
-launches (the kernel's two passes count as one).
+plain versions, `ref.lra_topn_ref` and `ref.usage_argmin_ref`. Each
+wrapper counts its launches in ``<wrapper>.launches`` (a kernel's two
+passes count as one).
 """
 from __future__ import annotations
 
@@ -16,9 +18,31 @@ from repro_torch.kernels import _build
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
-def _require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(f"lra_topn: {msg}")
+def _check_table(name: str, table: torch.Tensor, dtype: torch.dtype,
+                 valid_n: int | None, least: int) -> tuple[int, int, int]:
+    """Raise unless ``table`` is a contiguous (B, rows) CUDA tensor of
+    ``dtype`` with ``least`` <= valid_n <= rows. Returns (B, rows,
+    valid_n)."""
+    def require(cond, msg):
+        if not cond:
+            raise ValueError(f"{name}: {msg}")
+
+    require(table.is_cuda, "the table must be a CUDA tensor")
+    require(table.dtype == dtype, f"the table must be {dtype}, got "
+                                  f"{table.dtype}")
+    require(table.dim() == 2 and table.is_contiguous(),
+            "the table must be a contiguous (B, rows) tensor")
+    B, rows = table.shape
+    nv = rows if valid_n is None else valid_n
+    require(least <= nv <= rows, f"valid_n={nv} outside [{least}, {rows}]")
+    return B, rows, nv
+
+
+def _candidates(valid_n: int, n: int, B: int, device) -> torch.Tensor:
+    """Pass 1's scratch: n int64 keys per chunk and batch row."""
+    per_row = _build.function("usage_argmin", "smallest_candidates",
+                              [_I, _I])(valid_n, n)
+    return torch.empty((B, per_row), dtype=torch.int64, device=device)
 
 
 def lra_topn(last_access: torch.Tensor, n: int, *,
@@ -26,21 +50,14 @@ def lra_topn(last_access: torch.Tensor, n: int, *,
     """last_access: (B, rows) int32 CUDA tensor -> (B, n) int32 indices of
     the n smallest entries among [0, valid_n) (default: all), ascending by
     (value, index). Matches `ref.lra_topn_ref`. A float table raises."""
-    _require(last_access.is_cuda, "last_access must be a CUDA tensor")
-    _require(last_access.dtype == torch.int32,
-             f"last_access must be int32, got {last_access.dtype}")
-    _require(last_access.dim() == 2 and last_access.is_contiguous(),
-             "last_access must be a contiguous (B, rows) table")
-    B, rows = last_access.shape
-    nv = rows if valid_n is None else valid_n
-    _require(1 <= n <= 8, f"n={n} outside [1, 8]")
-    _require(n <= nv <= rows, f"valid_n={nv} outside [{n}, {rows}]")
-    fn = _build.function("lra_topn", "lra_topn_launch",
+    if not 1 <= n <= 8:
+        raise ValueError(f"lra_topn: n={n} outside [1, 8]")
+    B, rows, nv = _check_table("lra_topn", last_access, torch.int32, valid_n,
+                               n)
+    fn = _build.function("usage_argmin", "lra_topn_launch",
                          [_P, _L, _I, _I, _I, _P, _P, _P])
-    ncand = _build.function("lra_topn", "lra_topn_candidates",
-                            [_I, _I])(nv, n)
     dev = last_access.device
-    cand = torch.empty((B, ncand), dtype=torch.int64, device=dev)
+    cand = _candidates(nv, n, B, dev)
     out = torch.empty((B, n), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = fn(last_access.data_ptr(), rows, B, nv, n, cand.data_ptr(),
@@ -51,3 +68,29 @@ def lra_topn(last_access: torch.Tensor, n: int, *,
 
 
 lra_topn.launches = 0
+
+
+def usage_argmin(usage: torch.Tensor, *,
+                 valid_n: int | None = None) -> torch.Tensor:
+    """usage: (B, rows) f32 CUDA tensor -> (B,) int32 index of the minimum
+    among [0, valid_n) (default: all): the lowest index wins ties, and
+    -0.0 equals +0.0. Matches `ref.usage_argmin_ref`. Any other dtype
+    raises (an int table has `lra_topn`). A NaN is not handled: DAM's
+    usage, a sum of softmax weights, is finite, and the hot path carries
+    no check."""
+    B, rows, nv = _check_table("usage_argmin", usage, torch.float32, valid_n,
+                               1)
+    fn = _build.function("usage_argmin", "usage_argmin_launch",
+                         [_P, _L, _I, _I, _P, _P, _P])
+    dev = usage.device
+    cand = _candidates(nv, 1, B, dev)
+    out = torch.empty((B,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(usage.data_ptr(), rows, B, nv, cand.data_ptr(),
+                 out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check("usage_argmin", err)
+    usage_argmin.launches += 1
+    return out
+
+
+usage_argmin.launches = 0

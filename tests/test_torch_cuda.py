@@ -6,7 +6,8 @@ decided inside the fixture, so every worker collects the same tests; on a
 machine without one each test skips. Sizes are small and N is ragged
 (not a multiple of any tile) so the masked tail runs.
 
-Tolerances: integers (indices, usage, LSH bucket ids and index) exact;
+Tolerances: integers (indices, usage, LSH bucket ids and index, DAM's
+least-used row) exact;
 floats within 1e-5 (the kernels sum in another order than the plain
 versions, and the reads' similarity is computed as (x·q̂)·|x|⁻¹ rather
 than x̂·q̂). Two exceptions, each counted: a bucket-id bit may differ
@@ -30,7 +31,7 @@ from repro_torch.kernels.fused_read_candidates import fused_read_candidates
 from repro_torch.kernels.lsh_hash import lsh_hash
 from repro_torch.kernels.scatter_rows import scatter_rows
 from repro_torch.kernels.sparse_write import sparse_write_update
-from repro_torch.kernels.usage_argmin import lra_topn
+from repro_torch.kernels.usage_argmin import lra_topn, usage_argmin
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-5
@@ -699,3 +700,146 @@ def test_dtype_sam_unroll_on_card_matches_cpu(dev, dtype, ann):
     if dtype == "int8":
         assert state.mem_scale[:, 1000].eq(0).all()
         assert state.mem_scale.gt(0).any()
+
+
+# --------------------------------------------------------------------------
+# DAM's least-used row (`usage_argmin`) and the dense models
+# --------------------------------------------------------------------------
+
+def _usage_table(rng, B, N, case):
+    """(B, N) f32 usage and the index each row's minimum must have where
+    the case fixes it (None where the plain version alone decides)."""
+    u = (1.0 + rng.random((B, N))).astype(np.float32)
+    lo, hi = min(3, N - 1), N - 1          # hi in another chunk past 8192
+    if case == "ties":
+        u[:] = 0.25
+        return u, [0] * B
+    if case == "tiles":
+        u[:, [lo, hi]] = 0.5
+        return u, [lo] * B
+    if case == "zeros":                    # -0.0 equals +0.0: lo wins
+        u[0::2, lo], u[0::2, hi] = -0.0, 0.0
+        u[1::2, lo], u[1::2, hi] = 0.0, -0.0
+        return u, [lo] * B
+    return u, None
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("N", [1, 1000, (1 << 20) - 3])
+@pytest.mark.parametrize("case", ["rand", "ties", "tiles", "zeros"])
+def test_usage_argmin_kernel_matches_plain(dev, B, N, case):
+    u, want = _usage_table(np.random.default_rng(N + B), B, N, case)
+    u = torch.tensor(u, device=dev)
+    got = usage_argmin(u)
+    plain = ref.usage_argmin_ref(u)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == (B,)
+    assert torch.equal(got, plain)
+    if want is not None:
+        assert got.tolist() == want
+    if N > 1:                              # the rows past valid_n are unseen
+        u[:, N - 1] = -1.0
+        assert torch.equal(usage_argmin(u, valid_n=N - 1),
+                           ref.usage_argmin_ref(u[:, :N - 1]))
+
+
+def test_usage_argmin_kernel_raises_on_inputs_it_cannot_take(dev):
+    u = torch.rand((2, 64), device=dev)
+    for dtype in (torch.float64, torch.bfloat16, torch.int32):
+        with pytest.raises(ValueError, match="float32"):
+            usage_argmin(u.to(dtype))
+    with pytest.raises(ValueError, match="contiguous"):
+        usage_argmin(torch.rand((64, 2), device=dev).t())
+    with pytest.raises(ValueError, match="contiguous"):
+        usage_argmin(u[:, ::2])
+    with pytest.raises(ValueError, match="valid_n"):
+        usage_argmin(u, valid_n=65)
+    with pytest.raises(ValueError, match="CUDA"):
+        usage_argmin(u.cpu())
+
+
+@pytest.mark.parametrize("model", ["dam", "ntm"])
+def test_dense_unroll_on_card_matches_cpu(dev, model):
+    """Eight steps of `dense_step` on the card and on the CPU from the same
+    state, each step from the CPU's state (teacher-forced), so that a
+    near-tie of DAM's usage cannot carry a cuBLAS rounding into another
+    row: indices equal, floats within 1e-5. DAM launches `usage_argmin`
+    once a step, the NTM never."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core import dense
+    cfg = dense.DenseConfig(
+        MemoryConfig(num_slots=1000, word_size=32, num_heads=4),
+        ControllerConfig(input_size=10, hidden_size=32, output_size=8),
+        model=model)
+    params = dense.init_params(torch.Generator().manual_seed(0), cfg,
+                               device="cpu")
+    p_gpu = {g: {k: v.to(dev) for k, v in t.items()}
+             for g, t in params.items()}
+    xs = torch.tensor(np.random.default_rng(0).standard_normal((8, 2, 10)),
+                      dtype=torch.float32)
+    s_cpu = dense.init_state(2, cfg, device="cpu")
+    before = usage_argmin.launches
+    for x in xs:
+        s_gpu = type(s_cpu)(*(t.to(dev) if isinstance(t, torch.Tensor)
+                              else type(t)(*(u.to(dev) for u in t))
+                              for t in s_cpu))
+        if model == "dam":
+            assert torch.equal(ops.usage_argmin(s_gpu.usage).cpu(),
+                               ref.usage_argmin_ref(s_cpu.usage))
+        s_gpu, y_gpu = dense.dense_step(p_gpu, cfg, s_gpu, x.to(dev))
+        s_cpu, y_cpu = dense.dense_step(params, cfg, s_cpu, x)
+        assert (y_gpu.cpu() - y_cpu).abs().max() <= TOL
+        for a, b in zip(pytree.tree_leaves(s_gpu), pytree.tree_leaves(s_cpu)):
+            assert (a.cpu().float() - b.float()).abs().max() <= TOL
+    torch.cuda.synchronize()
+    assert usage_argmin.launches - before == (2 * len(xs) if model == "dam"
+                                              else 0)
+
+
+def test_dam_train_step_on_card_matches_cpu(dev):
+    """One DAM training step (N = 1000, T = 12) on the card against the
+    CPU: loss within 1e-5 relative; gradients and updated weights within
+    atol/rtol 1e-5 (cuBLAS and the CPU sum the controller's and the dense
+    read's products in other orders). The forward launches `usage_argmin`
+    T times, the backward never."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core import training
+    from repro_torch.data.tasks import copy_task
+    from repro_torch.optim import optimizers as opt
+    spec = training.ModelSpec(
+        "dam", MemoryConfig(num_slots=1000, word_size=32, num_heads=4, k=4),
+        ControllerConfig(input_size=10, hidden_size=32, output_size=8))
+    batch = copy_task(2, 5, 5, 8, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
+    T = batch[0].shape[1]
+    out = {}
+    for device in ("cpu", dev):
+        init_p, init_s, unroll = training.build_model(spec, device=device)
+        params = init_p(torch.Generator().manual_seed(0))
+        inputs, targets, mask = (t.to(device) for t in batch)
+        leaves, treedef = pytree.tree_flatten(params)
+        leaves = [p.clone().requires_grad_() for p in leaves]
+        n0 = usage_argmin.launches
+        _, ys = unroll(pytree.tree_unflatten(leaves, treedef), init_s(2),
+                       inputs.transpose(0, 1))
+        loss = training.bits_loss(ys, targets.transpose(0, 1),
+                                  mask.transpose(0, 1))
+        n1 = usage_argmin.launches
+        grads = torch.autograd.grad(loss, leaves)
+        launched = (n1 - n0, usage_argmin.launches - n1)
+        _, _, step = training.make_task_train_step(spec, 1e-3, device=device)
+        new_params, _, step_loss, _ = step(params, opt.rmsprop_init(params),
+                                           inputs, targets, mask)
+        out["cpu" if device == "cpu" else "cuda"] = (
+            loss.item(), [g.cpu() for g in grads],
+            [p.cpu() for p in pytree.tree_leaves(new_params)],
+            step_loss.item(), launched)
+    (l_cpu, g_cpu, p_cpu, s_cpu, cpu_launched), \
+        (l_gpu, g_gpu, p_gpu, s_gpu, launched) = out["cpu"], out["cuda"]
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    assert abs(s_gpu - s_cpu) <= 1e-5 * abs(s_cpu)
+    for a, b in [*zip(g_gpu, g_cpu), *zip(p_gpu, p_cpu)]:
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    assert launched == (T, 0) and cpu_launched == (0, 0)
