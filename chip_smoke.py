@@ -11,8 +11,10 @@ tables of 8 bits, buckets of 32, so C = 4·32 + 20 = 148 candidates per
 head), and on bf16 and int8 rows forward, with both reads; then the dense
 baselines (DAM, whose least-used row is the `usage_argmin` kernel, the
 NTM and the LSTM) forward and in training, and the paper's comparison of
-SAM against DAM and the NTM as N grows. It fails (nonzero exit) if any
-phase fails:
+SAM against DAM and the NTM as N grows; then the SAM-augmented LM at
+StarCoder2-7B's full width (`starcoder2_7b_sam`: prefill, decode with
+memory states and the static `serve`), whose attention is the
+`flash_attention` kernel. It fails (nonzero exit) if any phase fails:
 
 1. build the kernels from `src/repro_torch/kernels/csrc/` with nvcc for
    sm_90a and print each kernel's registers, shared memory and spills;
@@ -100,11 +102,36 @@ phase fails:
       free device memory, and is reported as left out otherwise;
    e. the kernel's time at step 21's table, its plain version's and
       `torch.argmin`'s;
-9. print the card, one JSON line of per-kernel numbers, and last the
-   ``{"ok": true, ...}`` line.
+9. the LM (`repro_torch.models.lm`, weights from seed 0 held in bf16,
+   7.9 B parameters):
+   a. `flash_attention` against its plain version at (B, S, H, Hkv, D) =
+      (4, 2048, 48, 4, 128) in f32 and bf16, at a ragged S and at G = 1,
+      on unit normal inputs: f32 within 2e-5, bf16 within one bf16 ulp
+      of the output's magnitude;
+   b. `prefill` at B = 4, S = 2048 in lockstep: every attention launch
+      against its plain version (`check_flash`), every read, write and
+      LRA through the checker; exactly 32 attention launches (layers 0-3
+      bf16, 4-31 f32: the first memory group promotes the stream) and 32
+      of each memory kernel (8 groups × 4 segments), f32 logits;
+   c. `decode_scan` with memory states over a 32-token prompt, then 32
+      greedy `decode_step`s, in lockstep: per token 0 attention launches
+      and 8 of each memory kernel; then `serve(..., use_reduced=False)`;
+   d. (run first) the reduced config at f32 compute: `prefill` and a
+      memoryless `decode_scan` on the card against the plain versions on
+      the CPU, within 1e-4 of max(1, |CPU|) (`tests/test_torch_lm.py`'s
+      bar), where the prefill's reads hold no near-tie at K;
+   e. times: the attention kernel at layer 0's and layer 4's inputs
+      against its bound, its plain version and
+      `scaled_dot_product_attention`; the memory kernels at the LM's
+      shapes; the prefill (median of 3), a decode step (median of 5),
+      their peaks and the decode step's device time (`torch.profiler`);
+10. print the card, one JSON line of per-kernel numbers (the LM's under
+   ``"lm"``), and last the ``{"ok": true, ...}`` line.
 
-Tolerances: integer outputs exact; forward floats within 1e-5 (other
-summation order, rsqrt rounding); the bf16 and int8 writes bit for bit
+Tolerances: integer outputs exact; forward floats within 1e-5 of
+max(1, |plain|) (other summation order, rsqrt rounding; the LM's memory
+rows and reads reach magnitudes of thousands, where an f32 ulp exceeds
+1e-5); the bf16 and int8 writes bit for bit
 (bf16 rows, int8 codes and scales). Read indices may differ from the plain
 version's only where the plain similarities of the swapped rows lie within
 1e-6 of each other; each such near-tie is counted and printed. A bucket id
@@ -117,6 +144,13 @@ relative; gradients, card against CPU and chunked against sparse, within
 atol 1e-5 / rtol 1e-5, the bar of `tests/test_torch_train.py` (cuBLAS
 sums the controller's products in another order than the CPU, and T
 recurrent steps carry it; the runs read errors of 1e-8 and below).
+
+The attention kernel: f32 within 2e-5 of its plain version (the JAX
+suite's bar), or, where two f32 summation orders differ by more (the
+LM's scores reach a standard deviation of ~144: JAX draws stacked
+weights with fan_in = the layer count), no further from the f64 result
+than twice the plain version is; bf16 within one bf16 ulp of the
+output's magnitude (both round one f32 softmax, summed in other orders).
 
 It exits nonzero without printing a result when no CUDA device is
 present or the port's sources are missing.
@@ -177,6 +211,9 @@ REPLACES = {
     # DAM's least-used row (phase 8).
     "usage_argmin": ("src/repro/kernels/usage_argmin.py:26",
                      "src/repro_torch/kernels/csrc/usage_argmin.cu"),
+    # The LM's causal attention (phase 9).
+    "flash_attention": ("src/repro/kernels/flash_attention.py:94",
+                        "src/repro_torch/kernels/csrc/flash_attention.cu"),
 }
 SUFFIX = {"bfloat16": "_bf16", "int8": "_int8"}
 
@@ -200,6 +237,14 @@ LSH = dict(ann="lsh", lsh_tables=4, lsh_bits=8, lsh_bucket_size=32)
 DENSE_TRAIN_N = {"dam": 1 << 18, "ntm": 1 << 16, "lstm": 0}
 CMP_T = 10
 CMP_NS = tuple(1 << e for e in (12, 14, 16, 18, 20))
+# Phase 9, the SAM-augmented LM at StarCoder2-7B's full width (bf16
+# compute; weights from seed 0 held in bf16): a prefill of B × S tokens, and
+# a decode of a PROMPT-token prompt and GEN greedy tokens into a cache of
+# MAX_LEN. Its memory: N = 65536 rows of W = 128, H = 4 heads, K = 8.
+LM_ARCH = "starcoder2_7b_sam"
+LM_B, LM_S, LM_PROMPT, LM_GEN, LM_MAX_LEN = 4, 2048, 32, 32, 128
+FLASH_TOL = 2e-5               # the JAX suite's f32 bar for the kernel
+SLICE_TOL = 1e-4               # tests/test_torch_lm.py's bar for the slice
 
 
 class SmokeFailure(Exception):
@@ -209,6 +254,11 @@ class SmokeFailure(Exception):
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def magnitude(t: torch.Tensor) -> float:
+    """max(1, max |t|): the scale a float error is measured against."""
+    return max(1.0, t.abs().max().item())
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -261,7 +311,7 @@ class Checker:
         """The floats, held against the plain tail on the kernel's rows."""
         read, w, idx = (t.detach() for t in out)
         t_read, t_w = self.ref.sparse_read_tail(q, mem, beta, idx, mem_scale)
-        err = max((read - t_read).abs().max().item(),
+        err = max((read - t_read).abs().max().item() / magnitude(t_read),
                   (w - t_w).abs().max().item())
         require(err <= TOL, f"{name} float error {err:.3g}")
         require(bool((w[idx < 0] == 0).all()),
@@ -317,6 +367,7 @@ class Checker:
         require(torch.equal(after[1], l_ref), f"{name} usage table differs")
         err = (after[0].float() - m_ref.float()).abs().max().item()
         if m_ref.dtype == torch.float32:
+            err /= magnitude(m_ref)
             require(err <= TOL, f"{name} float error {err:.3g}")
         else:
             require(torch.equal(after[0], m_ref), f"{name}: rows differ from "
@@ -799,6 +850,414 @@ def dense_phase(dev, ops, ref, usage_argmin, checker, zero_counts, counts,
                 card_vs_cpu_grad_err=small_grad_err, comparison=table)
 
 
+def bf16_ulp(x: torch.Tensor) -> float:
+    """One bf16 ulp at the magnitude max |x|."""
+    _, e = torch.frexp(x.float().abs().max())
+    return 2.0 ** (int(e) - 8)
+
+
+def check_flash(ref, q, k, v, out) -> dict:
+    """The attention kernel's output against its plain version on the same
+    inputs: bf16 within one bf16 ulp of the output's magnitude; f32 within
+    FLASH_TOL, or, where the two f32 versions differ by more (scores as
+    large as the LM's: two f32 summation orders then differ by ~1e-3), no
+    further from the f64 result than twice the plain version is."""
+    want = ref.flash_attention_ref(q, k, v)
+    err = (out.float() - want.float()).abs().max().item()
+    r = {"err": err}
+    if q.dtype == torch.bfloat16:
+        require(err <= bf16_ulp(want), f"flash_attention (bf16) differs from "
+                f"its plain version by {err:.3g}, above one bf16 ulp "
+                f"{bf16_ulp(want):.3g}")
+    elif err > FLASH_TOL:
+        del want
+        exact = ref.flash_attention_ref(q.double(), k.double(), v.double())
+        r["exact_err"] = (out.double() - exact).abs().max().item()
+        r["plain_exact_err"] = (ref.flash_attention_ref(q, k, v).double()
+                                - exact).abs().max().item()
+        require(r["exact_err"] <= 2 * r["plain_exact_err"] + FLASH_TOL,
+                f"flash_attention (f32) is {r['exact_err']:.3g} from the f64 "
+                f"result, the plain version {r['plain_exact_err']:.3g}")
+    return r
+
+
+class FlashCheck:
+    """Wraps `ops.flash_attention` for one run: every launch is held against
+    the plain version (`check_flash`), and the inputs of the launches whose
+    ordinal is in ``keep`` are kept."""
+
+    def __init__(self, ops, ref, keep=()):
+        self.ops, self.ref, self.keep = ops, ref, keep
+        self.checks, self.kept = [], {}
+
+    def __enter__(self):
+        self.saved = self.ops.flash_attention
+
+        def flash_attention(q, k, v):
+            out = self.saved(q, k, v)
+            n = len(self.checks)
+            if n in self.keep:
+                self.kept[n] = tuple(t.contiguous().clone() for t in (q, k, v))
+            self.checks.append(check_flash(self.ref, q.contiguous(),
+                                           k.contiguous(), v.contiguous(),
+                                           out))
+            return out
+
+        self.ops.flash_attention = flash_attention
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention = self.saved
+        return False
+
+
+def stable_reads(ref, reads, margin=NEAR_TIE) -> bool:
+    """Whether no read of ``reads`` ((q, memory, k, valid_n) each) has a row
+    within ``margin`` of its K-th similarity (f64) that could trade places
+    across the K boundary: rows in that band either all lie in the top K
+    or are equal (equal rows are ordered by index everywhere)."""
+    for q, mem, k, valid_n in reads:
+        sims = torch.einsum("bhw,bnw->bhn", ref._normalize(q.double()),
+                            ref._normalize(mem[:, :valid_n].double()))
+        v = sims.sort(dim=-1, descending=True).values[..., k - 1:k]
+        band = (sims - v).abs() <= margin
+        straddles = (sims > v + margin).sum(-1) + band.sum(-1) > k
+        if (straddles & (band & (sims != v)).any(-1)).any():
+            return False
+    return True
+
+
+def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
+    """Phase 9: the SAM-augmented LM's serving forward at StarCoder2-7B's
+    full width. Returns the attention kernel's row (f32, with its bf16
+    instantiation as a sub-row), the prefill's launches and the numbers."""
+    import torch.nn.functional as F
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.fused_read import fused_read_sweep
+    from repro_torch.kernels.sparse_write import sparse_write_update
+    from repro_torch.kernels.usage_argmin import lra_topn
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+    from repro_torch.models.layers import tree_map
+
+    cfg = get_config(LM_ARCH)
+    m = cfg.memory
+    N_, W_, H_, K_ = m.num_slots, m.word_size, m.num_heads, m.k
+    groups = cfg.num_layers // m.every_n_layers
+    segments = LM_S // m.segment
+    out = {}
+
+    def close(a, b, what):
+        """|a - b| <= SLICE_TOL · max(1, max |b|); returns the error."""
+        a, b = a.float().cpu(), b.float().cpu()
+        err = (a - b).abs().max().item()
+        scale = max(1.0, b.abs().max().item())
+        require(err <= SLICE_TOL * scale, f"{what}: card against CPU "
+                f"{err:.3g} above {SLICE_TOL} x {scale:.3g}")
+        return err
+
+    # (d) first, at the reduced config in f32: the card against the plain
+    # versions on the CPU (prefill; a decode without memory, whose
+    # memory-carrying counterpart is held in lockstep in (c)).
+    small = dataclasses.replace(reduced(cfg), compute_dtype="float32")
+    p_cpu = lm.init_params(small, seed=0, device="cpu")
+    p_gpu = tree_map(lambda t: t.to(dev), p_cpu)
+    toks_s = torch.randint(0, small.vocab_size, (2, 64),
+                           generator=torch.Generator().manual_seed(0))
+    seen, fused_read = [], ops.fused_read
+
+    def record(q, mem, beta, k, *, valid_n=None, cand_idx=None,
+               mem_scale=None):
+        seen.append((q.clone(), mem.clone(), k, valid_n))
+        return fused_read(q, mem, beta, k, valid_n=valid_n)
+
+    ops.fused_read = record
+    try:
+        want = lm.prefill(p_cpu, small, {"tokens": toks_s})
+    finally:
+        ops.fused_read = fused_read
+    require(stable_reads(ref, seen), "the reduced prefill's reads hold a "
+            "near-tie at K: card against CPU is undecidable there")
+    got = lm.prefill(p_gpu, small, {"tokens": toks_s.to(dev)})
+    errs = {"prefill": close(got, want, "prefill logits")}
+    res = {}
+    for name, p_, d_ in (("cpu", p_cpu, "cpu"), ("cuda", p_gpu, dev)):
+        cache = lm.init_cache(small, 2, 16, device=d_)
+        res[name] = lm.decode_scan(p_, small, cache, toks_s[:, :8].to(d_))
+    errs["decode"] = close(res["cuda"][0], res["cpu"][0], "decode logits")
+    errs["cache"] = max(close(res["cuda"][1][kk], res["cpu"][1][kk], kk)
+                        for kk in ("k", "v"))
+    torch.cuda.synchronize()
+    out["card_vs_cpu_err"] = errs
+    print(f"[lm] reduced {LM_ARCH} (f32 compute) on the card against the "
+          f"CPU: prefill logits {errs['prefill']:.3g}, decode logits "
+          f"{errs['decode']:.3g}, caches {errs['cache']:.3g} (bar {SLICE_TOL} "
+          f"of max(1, |CPU|)); the prefill's {len(seen)} reads hold no "
+          f"near-tie at K")
+    del p_cpu, p_gpu, seen, res
+
+    # (a) the kernel against its plain version at full width: StarCoder2's
+    # heads (48 over 4: G = 12) at a ragged S and G = 1, unit normal.
+    gen = torch.Generator().manual_seed(8)
+    for Bq, S_, Hq, Hk, dtype in ((LM_B, LM_S, 48, 4, torch.float32),
+                                  (LM_B, LM_S, 48, 4, torch.bfloat16),
+                                  (2, LM_S - 61, 48, 4, torch.float32),
+                                  (LM_B, LM_S, 4, 4, torch.float32)):
+        q = torch.randn((Bq, S_, Hq, 128), generator=gen).to(dev, dtype)
+        k = torch.randn((Bq, S_, Hk, 128), generator=gen).to(dev, dtype)
+        v = torch.randn((Bq, S_, Hk, 128), generator=gen).to(dev, dtype)
+        r = check_flash(ref, q, k, v, flash_attention(q, k, v))
+        require(dtype == torch.bfloat16 or r["err"] <= FLASH_TOL,
+                f"flash_attention on unit normal inputs: {r['err']:.3g}")
+        torch.cuda.synchronize()
+        print(f"[lm] flash_attention (B, S, H, Hkv, D) = "
+              f"{(Bq, S_, Hq, Hk, 128)} {str(dtype)[6:]}, unit normal: max "
+              f"err {r['err']:.3g} against its plain version")
+        del q, k, v
+
+    # (b) the prefill at full width, in lockstep.
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=dev, dtype=cfg.compute_dtype)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in pytree.tree_leaves(params))
+    out.update(params=n_params, param_bytes=param_bytes)
+    print(f"[lm] {LM_ARCH}: {n_params} parameters, {param_bytes} B in bf16, "
+          f"drawn on the card in {time.perf_counter() - t0:.1f} s")
+    toks = torch.randint(0, cfg.vocab_size, (LM_B, LM_S),
+                         generator=torch.Generator().manual_seed(7)).to(dev)
+    zero_counts()
+    with torch.inference_mode(), Intercept(ops, checker=checker), \
+            FlashCheck(ops, ref, keep=(0, m.every_n_layers)) as fc:
+        logits = lm.prefill(params, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    launched = counts()
+    want_counts = {name: 0 for name in launched}
+    want_counts.update({"flash_attention": cfg.num_layers,
+                        **{name: groups * segments for name in FORWARD}})
+    require(launched == want_counts, f"prefill launches {launched}, expected "
+            f"{want_counts}")
+    require(logits.dtype == torch.float32
+            and logits.shape == (LM_B, 1, cfg.vocab_size)
+            and torch.isfinite(logits).all().item(),
+            "prefill logits are not finite f32 of shape (B, 1, V)")
+    q0, k0, v0 = fc.kept[0]
+    q4, k4, v4 = fc.kept[m.every_n_layers]
+    require(q0.dtype == torch.bfloat16 and q4.dtype == torch.float32,
+            f"layer 0 ran {q0.dtype}, layer 4 {q4.dtype}: expected bf16, "
+            f"then f32 after the first memory group")
+    flash_err = max(c["err"] for c in fc.checks)
+    conditioned = [c for c in fc.checks if "exact_err" in c]
+    bf16_errs = [c["err"] for c in fc.checks[:m.every_n_layers]]
+    out.update(prefill_launches=launched,
+               flash_bf16_max_err=max(bf16_errs),
+               flash_f32_max_err=max(c["err"] for c in
+                                     fc.checks[m.every_n_layers:]),
+               flash_f32_above_tol=len(conditioned),
+               flash_f32_exact_err=max((c["exact_err"] for c in conditioned),
+                                       default=None),
+               flash_f32_plain_exact_err=max(
+                   (c["plain_exact_err"] for c in conditioned), default=None))
+    print(f"[lm] prefill (B={LM_B}, S={LM_S}) in lockstep: launches "
+          f"{ {kk: vv for kk, vv in launched.items() if vv} }; flash against "
+          f"plain: max err {flash_err:.3g} (layer 0 bf16 "
+          f"{fc.checks[0]['err']:.3g}, layer 4 f32 "
+          f"{fc.checks[m.every_n_layers]['err']:.3g}); {len(conditioned)} "
+          f"f32 launches above {FLASH_TOL}, held against f64: kernel "
+          f"{max((c['exact_err'] for c in conditioned), default=0):.3g}, "
+          f"plain {max((c['plain_exact_err'] for c in conditioned), default=0):.3g}"
+          f"; memory kernels: read err {checker.err['fused_read_sweep']:.3g}, "
+          f"write err {checker.err['sparse_write_update']:.3g}, near-ties "
+          f"{checker.near_ties}")
+
+    # (c) the decode: a prompt, then greedy tokens, with memory states.
+    cache = lm.init_cache(cfg, LM_B, LM_MAX_LEN, device=dev)
+    mem = lm.init_memory_states(cfg, LM_B, device=dev)
+    zero_counts()
+    with torch.inference_mode(), Intercept(ops, checker=checker,
+                                           record=True) as rec_lm:
+        d_logits, cache, mem = lm.decode_scan(params, cfg, cache,
+                                              toks[:, :LM_PROMPT],
+                                              mem_states=mem)
+        after_prompt = counts()
+        per_token = []
+        for _ in range(LM_GEN):
+            tok = d_logits[:, -1].float().argmax(-1).to(torch.int32)
+            zero_counts()
+            d_logits, cache, mem = lm.decode_step(params, cfg, cache,
+                                                  tok[:, None],
+                                                  mem_states=mem)
+            per_token.append(counts())
+    torch.cuda.synchronize()
+    one = {name: 0 for name in after_prompt}
+    one.update({name: groups for name in FORWARD})
+    require(after_prompt == {kk: vv * LM_PROMPT for kk, vv in one.items()},
+            f"prompt launches {after_prompt}")
+    require(all(c == one for c in per_token), f"a decode step launched "
+            f"{[c for c in per_token if c != one][:1]}, expected {one}")
+    n_tok = LM_PROMPT + LM_GEN
+    require(d_logits.dtype == torch.bfloat16
+            and torch.isfinite(d_logits).all().item()
+            and int(cache["pos"]) == n_tok
+            and all(int(st.step) == n_tok and st.memory[:, N_].eq(0).all()
+                    and st.last_access[:, N_].eq(2 ** 31 - 1).all()
+                    for st in mem),
+            "decode: logits not finite bf16, or the position, the steps or "
+            "the scratch rows are off")
+    print(f"[lm] decode_scan with memory states: {LM_PROMPT} prompt tokens "
+          f"({ {kk: vv for kk, vv in after_prompt.items() if vv} }), then "
+          f"{LM_GEN} greedy tokens at {one['fused_read_sweep']} read, write "
+          f"and LRA launches and 0 flash launches each; in lockstep, read "
+          f"err {checker.err['fused_read_sweep']:.3g}, near-ties "
+          f"{checker.near_ties}")
+
+    # (e) times: the kernel at layer 0's (bf16) and layer 4's (f32) inputs,
+    # the memory kernels at the decode's 21st read, write and LRA.
+    def flash_row(q, k, v):
+        Bq, S_, Hq, D_ = q.shape
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        try:
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 10, flush)
+        except RuntimeError as e:          # a yardstick only
+            print(f"[lm] scaled_dot_product_attention not timed: {e}")
+            lib = None
+        del qt, kt, vt
+        return dict(
+            ms=time_ms(lambda: flash_attention(q, k, v), 10, flush),
+            plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v), 3,
+                             flush),
+            library_ms=lib,
+            bound=bound((2 * q.numel() + k.numel() + v.numel())
+                        * q.element_size(),
+                        S_ * (S_ + 1) / 2 * Bq * Hq * 4 * D_))
+
+    flash_f32, flash_bf16 = flash_row(q4, k4, v4), flash_row(q0, k0, v0)
+    del q0, k0, v0, q4, k4, v4
+    step21 = max(RECORD_STEPS)
+    q_, mem_, beta_, k_, vn_, _ = rec_lm.records[("fused_read_sweep", step21)]
+    la_, n_, _ = rec_lm.records[("lra_topn", step21)]
+    wr_ = rec_lm.records[("sparse_write_update", step21)]
+    m_w, l_w = wr_[0].clone(), wr_[1].clone()
+    J_ = wr_[2].shape[1]
+    uniq_ = unique_rows(wr_[2])
+    neg_la = (-la_[:, :N_]).contiguous()
+    mem_rows = {
+        "fused_read_sweep": dict(
+            ms=time_ms(lambda: fused_read_sweep(q_, mem_, beta_, k=k_,
+                                                valid_n=vn_), 20, flush),
+            plain_ms=time_ms(lambda: ref.fused_read_ref(
+                q_, mem_, beta_, k_, valid_n=vn_), 5, flush),
+            library_ms=None,
+            bound=bound(4 * (LM_B * N_ * W_ + 2 * LM_B * H_ * W_ + LM_B * H_
+                             + 2 * LM_B * H_ * K_),
+                        LM_B * N_ * W_ * (2 * H_ + 2))),
+        "sparse_write_update": dict(
+            ms=time_ms(lambda: sparse_write_update(m_w, l_w, *wr_[2:7],
+                                                   delta=wr_[7]), 50, flush),
+            plain_ms=time_ms(lambda: ref.sparse_write_update_ref(
+                m_w, l_w, *wr_[2:7], wr_[7]), 20, flush),
+            library_ms=None,
+            bound=bound(4 * (2 * uniq_ * W_ + 2 * uniq_ + 2 * LM_B * J_
+                             + LM_B * H_ * W_ + LM_B * H_ + LM_B),
+                        2 * LM_B * J_ * W_)),
+        "lra_topn": dict(
+            ms=time_ms(lambda: lra_topn(la_, n_, valid_n=N_), 50, flush),
+            plain_ms=time_ms(lambda: ref.lra_topn_ref(la_[:, :N_], n_), 20,
+                             flush),
+            library_ms=time_ms(lambda: torch.topk(neg_la, n_, dim=-1), 50,
+                               flush),
+            bound=bound(4 * (LM_B * N_ + LM_B * n_), LM_B * N_)),
+    }
+    del m_w, l_w, rec_lm
+
+    # The prefill and a decode step, on the host clock (synchronised).
+    def prefill_run(_):
+        lm.prefill(params, cfg, {"tokens": toks})
+
+    # Peaks above what the script holds (the weights, the cache and the
+    # memory states among it; earlier phases' tensors too).
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms, prefill_all = host_ms(prefill_run, runs=3)
+    prefill_peak = torch.cuda.max_memory_allocated() - held
+    state = {"cache": cache, "mem": mem}
+
+    def decode_run(_):
+        tok = torch.ones((LM_B, 1), dtype=torch.int32, device=dev)
+        _, state["cache"], state["mem"] = lm.decode_step(
+            params, cfg, state["cache"], tok, mem_states=state["mem"])
+
+    torch.cuda.reset_peak_memory_stats()
+    decode_ms, decode_all = host_ms(decode_run, runs=5)
+    decode_peak = torch.cuda.max_memory_allocated() - held
+    dev_ms, on_dev = device_time(lambda: decode_run(None))
+    out.update(prefill_ms=prefill_ms, prefill_ms_all=prefill_all,
+               held_bytes=held, prefill_peak_bytes=prefill_peak,
+               decode_ms_per_token=decode_ms,
+               decode_ms_all=decode_all, decode_peak_bytes=decode_peak,
+               decode_device_ms=dev_ms or None,
+               decode_busy_share=(dev_ms / decode_ms) if dev_ms else None,
+               kernels_at_lm_shapes={
+                   kk: {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                        "library_ms": r["library_ms"]}
+                   for kk, r in mem_rows.items()})
+    for name, r in (("flash_attention f32 (layer 4)", flash_f32),
+                    ("flash_attention bf16 (layer 0)", flash_bf16),
+                    *mem_rows.items()):
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"[time] {name} at the LM's shapes: {r['ms']:.4f} ms (bound "
+              f"{r['bound'][0]:.4f} ms by {r['bound'][1]}), plain "
+              f"{r['plain_ms']:.4f} ms, library {lib}")
+    print(f"[time] prefill (B={LM_B}, S={LM_S}) {prefill_ms:.1f} ms, median "
+          f"of {', '.join(f'{t:.1f}' for t in prefill_all)}; peak memory "
+          f"{prefill_peak} B above the {held} B held ({param_bytes} B of "
+          f"weights); decode {decode_ms:.2f} ms per token (B={LM_B}, with "
+          f"memory), median of {', '.join(f'{t:.2f}' for t in decode_all)}; "
+          f"peak {decode_peak} B above what is held")
+    if dev_ms:
+        print(f"[time] a decode step on the device (torch.profiler): "
+              f"{dev_ms:.2f} ms of kernels, {dev_ms / decode_ms:.1%} of the "
+              f"step; by kernel (ms, launches): "
+              + "; ".join(f"{kk[:60]} {t:.3f} ({c})"
+                          for kk, t, c in on_dev[:6]))
+    else:
+        print("[time] a decode step on the device: not measured (the "
+              "profiler recorded no device time)")
+    del params, cache, mem, state, toks, logits, d_logits
+    torch.cuda.empty_cache()
+
+    # The static serving driver, once (it runs no memory op and, decoding
+    # only, no attention kernel).
+    zero_counts()
+    served = serve(LM_ARCH, use_reduced=False, batch=LM_B,
+                   prompt_len=LM_PROMPT, gen_len=LM_GEN, device=dev)
+    torch.cuda.synchronize()
+    tokens = served["tokens"]
+    require(tokens.shape == (LM_B, LM_GEN)
+            and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+            and not any(counts().values()),
+            "serve: tokens out of shape or range, or a kernel launched")
+    out.update(serve_prefill_s=served["prefill_s"],
+               serve_decode_s=served["decode_s"],
+               serve_decode_tok_per_s=served["decode_tok_per_s"])
+    print(f"[lm] serve(--full): {tuple(tokens.shape)} greedy tokens; prefill "
+          f"{served['prefill_s']:.2f} s, decode "
+          f"{served['decode_tok_per_s']:.1f} tok/s")
+    del served
+    torch.cuda.empty_cache()
+    flash_f32["bf16"] = flash_bf16
+    return {"row": flash_f32, "launches": launched,
+            "err": out["flash_f32_max_err"],
+            "bf16_err": out["flash_bf16_max_err"],
+            "bf16_launches": m.every_n_layers, "lm": out}
+
+
 def run() -> None:
     require(torch.cuda.is_available(), "no CUDA device")
     sys.path.insert(0, str(ROOT / "src"))
@@ -812,6 +1271,7 @@ def run() -> None:
                                             MemoryConfig, tree_bytes)
         from repro_torch.data.tasks import copy_task
         from repro_torch.kernels import _build, ops, ref
+        from repro_torch.kernels.flash_attention import flash_attention
         from repro_torch.kernels.fused_read import fused_read_sweep
         from repro_torch.kernels.fused_read_candidates import \
             fused_read_candidates
@@ -824,8 +1284,12 @@ def run() -> None:
         raise SmokeFailure(f"the port's sources are missing: {e}") from e
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    require(torch.get_float32_matmul_precision() == "highest"
+            and not torch.backends.cuda.matmul.allow_tf32,
+            "f32 products must not use TF32")
     dev = torch.device("cuda")
-    kernels = {"fused_read_sweep": fused_read_sweep,
+    kernels = {"flash_attention": flash_attention,
+               "fused_read_sweep": fused_read_sweep,
                "sparse_write_update": sparse_write_update,
                "lra_topn": lra_topn, "scatter_rows": scatter_rows,
                "lsh_hash": lsh_hash,
@@ -1678,7 +2142,12 @@ def run() -> None:
                         (inputs, targets, mask, xs))
     rows["usage_argmin"] = dense["row"]
 
-    # ---- 9. report ----
+    # ---- 9. the SAM-augmented LM at StarCoder2-7B's width ----
+    lmr = lm_phase(dev, ops, ref, checker, zero_counts, counts, flush)
+    rows["flash_attention"] = lmr["row"]
+    checker.err["flash_attention"] = lmr["err"]
+
+    # ---- 10. report ----
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -1693,7 +2162,8 @@ def run() -> None:
                "fused_read_sweep_int8": dtype_launches["int8/exact"],
                "fused_read_candidates_bf16": dtype_launches["bfloat16/lsh"],
                "fused_read_candidates_int8": dtype_launches["int8/lsh"],
-               "usage_argmin": dense["launches"]}
+               "usage_argmin": dense["launches"],
+               "flash_attention": lmr["launches"]}
     report = []
     for name, r in rows.items():
         replaces, source = REPLACES[name]
@@ -1714,6 +2184,9 @@ def run() -> None:
     by_name["scatter_rows"]["add"] = sub(scatter_add)
     by_name["lsh_hash"]["query"] = sub(hash_query)
     by_name["lsh_hash"]["bulk"] = sub(hash_bulk)
+    by_name["flash_attention"]["bf16"] = dict(
+        sub(lmr["row"]["bf16"]), max_abs_err=lmr["bf16_err"],
+        launches=lmr["bf16_launches"])
     print(json.dumps({"kernels": report, "near_ties": checker.near_ties,
                       "near_zero_bits": checker.near_zero_bits,
                       "main_path_launches": {"sam": launches,
@@ -1743,7 +2216,8 @@ def run() -> None:
                       "lsh_chunked_vs_sparse_grad_err": lsh_chunk_err,
                       "dtypes": dtype_runs,
                       "dense": {k: v for k, v in dense.items()
-                                if k != "row"}}))
+                                if k != "row"},
+                      "lm": lmr["lm"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,73 @@
+"""Architecture registry of the port, the JAX package's `configs/`.
+
+``get_config(name)`` returns the published config (a ``_sam`` suffix adds
+the default `MemoryLayerConfig`); ``reduced(cfg)`` a test-sized config of
+the same family. The port runs the dense GQA family with no window and no
+prefix-LM: StarCoder2-7B. Every other architecture of the JAX registry
+raises, naming the ROADMAP item that ports it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from repro_torch.models.config import MemoryLayerConfig, ModelConfig
+
+ARCH_IDS = (
+    "rwkv6_7b",
+    "starcoder2_7b",
+    "yi_34b",
+    "h2o_danube_3_4b",
+    "mistral_large_123b",
+    "musicgen_medium",
+    "deepseek_v2_236b",
+    "llama4_maverick_400b_a17b",
+    "paligemma_3b",
+    "hymba_1_5b",
+)
+PORTED = ("starcoder2_7b",)
+# What each architecture the port does not run yet needs (ROADMAP §A).
+NOT_PORTED = {
+    "rwkv6_7b": "A9c (the RWKV block)",
+    "yi_34b": "A9c (dense GQA like StarCoder2, but 34B parameters need "
+              "more than one H100; its registry entry comes with A9c)",
+    "h2o_danube_3_4b": "A9c (sliding-window attention and the ring-buffer "
+                       "decode; head_dim 120)",
+    "mistral_large_123b": "A9c (dense GQA, 123B parameters: more than one "
+                          "H100)",
+    "musicgen_medium": "A9c (the audio frontend)",
+    "deepseek_v2_236b": "A9c (MLA and MoE)",
+    "llama4_maverick_400b_a17b": "A9c (MoE)",
+    "paligemma_3b": "A9c (prefix-LM and the vision frontend)",
+    "hymba_1_5b": "A9c (the hybrid SSM block)",
+}
+
+
+def get_config(name: str) -> ModelConfig:
+    name = name.replace("-", "_").replace(".", "_")
+    if name.endswith("_sam"):
+        base = get_config(name[:-4])
+        return dataclasses.replace(base, memory=MemoryLayerConfig())
+    if name in NOT_PORTED:
+        raise ValueError(f"{name} is not ported yet: ROADMAP item "
+                         f"{NOT_PORTED[name]}")
+    if name not in PORTED:
+        raise ValueError(f"unknown architecture {name!r}: expected one of "
+                         f"{ARCH_IDS}, optionally with '_sam'")
+    return importlib.import_module(f"repro_torch.configs.{name}").CONFIG
+
+
+def reduced(cfg: ModelConfig) -> ModelConfig:
+    """Test-sized config of the same family (`repro/configs/__init__.py::
+    reduced` for the families the port runs): 2 layers, d 128, 4 heads
+    over 2 kv heads, head_dim 32, no head padding, and a memory of 64
+    slots of 16 with K = 4, a memory group per layer and segments of 32."""
+    kw = dict(
+        num_layers=2, d_model=128, num_heads=4, num_kv_heads=2, head_dim=32,
+        d_ff=256, vocab_size=512, q_block=64, kv_block=64, loss_chunk=64,
+        remat=False, pad_head_groups=None)
+    if cfg.memory is not None:
+        kw["memory"] = dataclasses.replace(
+            cfg.memory, num_slots=64, word_size=16, k=4, every_n_layers=1,
+            segment=32)
+    return dataclasses.replace(cfg, **kw)

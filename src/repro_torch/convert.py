@@ -7,8 +7,12 @@ matrices kept (in, out), so ``x @ w`` holds on both sides, plus
 ``lsh_planes`` (T, bits, W) for an LSH cell. SAM's state is the
 scratch-row `SAMState`, with the single-device LSH index (`ANNState`,
 P = 1) where there is one; the dense models' is `DenseState`, with a plain
-(B, N, W) memory. The functions take numpy leaves (or anything
-`numpy.asarray` reads) and import nothing of JAX.
+(B, N, W) memory. The LM's weights are the nested tree of
+`models/lm.py::param_defs` (stacked ``blocks``, ``memory``, ``embed``,
+``final_norm``, ``lm_head``) on both sides; its cache is {"k", "v", "pos"}
+and its memory states a tuple of `sam_layer.MemoryState`. The functions
+take numpy leaves (or anything `numpy.asarray` reads) and import nothing
+of JAX.
 """
 from __future__ import annotations
 
@@ -136,3 +140,68 @@ def opt_state_from_jax(state, *, device="cuda") -> RMSPropState:
     layout, the planes' accumulator included) -> the port's
     `RMSPropState`, leaf for leaf."""
     return RMSPropState(acc=params_from_jax(state.acc, device=device))
+
+
+# --------------------------------------------------------------------------
+# The LM
+# --------------------------------------------------------------------------
+
+_LM_GROUPS = ("embed", "blocks", "final_norm", "lm_head", "memory")
+
+
+def _float_leaf(x, device) -> torch.Tensor:
+    """An f32 or bf16 leaf -> a tensor of the same dtype and bits."""
+    name = str(np.asarray(x).dtype)
+    if name not in ("float32", "bfloat16"):
+        raise ValueError(f"a leaf of dtype {name}: expected float32 or "
+                         f"bfloat16")
+    return memory_from_jax(x, device=device)
+
+
+def _tree(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree(v, device) for k, v in tree.items()}
+    return _float_leaf(tree, device)
+
+
+def lm_params_from_jax(tree, *, device="cuda"):
+    """A JAX LM weight tree (`repro.models.lm.init_params`) -> the port's,
+    leaf for leaf in the same layout and dtype (stacked ``blocks`` (L, ...)
+    and ``memory`` (groups, ...), ``embed``, ``final_norm``, ``lm_head``).
+    Raises on any other group."""
+    unknown = set(tree) - set(_LM_GROUPS)
+    if unknown or not {"embed", "blocks", "final_norm"} <= set(tree):
+        raise ValueError(f"expected the groups {_LM_GROUPS} (lm_head and "
+                         f"memory optional), got {sorted(tree)}")
+    return _tree(dict(tree), device)
+
+
+def lm_cache_from_jax(cache, *, device="cuda"):
+    """A JAX LM cache {"k", "v" (L, B, Smax, Hkv, D), "pos" () or (B,)}
+    -> the port's, k and v in their dtype (f32 or bf16), pos int32."""
+    if set(cache) != {"k", "v", "pos"}:
+        raise ValueError(f"expected the cache keys k, v and pos (the dense "
+                         f"GQA family), got {sorted(cache)}")
+    return {"k": _float_leaf(cache["k"], device),
+            "v": _float_leaf(cache["v"], device),
+            "pos": _tensor(cache["pos"], np.int32, device)}
+
+
+def lm_memory_states_from_jax(states, *, device="cuda"):
+    """A tuple of JAX `sam_layer.MemoryState` (f32 rows, scratch-row
+    layout) -> the port's, field for field; the step () or (B, 1) int32.
+    Raises on bf16 or int8 rows (A9c)."""
+    from repro_torch.models.sam_layer import MemoryState
+    out = []
+    for st in states:
+        memory = memory_from_jax(st.memory, device=device)
+        if memory.dtype != torch.float32:
+            raise ValueError(f"the LM memory layer runs f32 rows, got "
+                             f"{memory.dtype} (ROADMAP A9c)")
+        out.append(MemoryState(
+            memory=memory,
+            last_access=_tensor(st.last_access, np.int32, device),
+            read_idx=_tensor(st.read_idx, np.int32, device),
+            read_w=_tensor(st.read_w, np.float32, device),
+            step=_tensor(st.step, np.int32, device)))
+    return tuple(out)

@@ -25,8 +25,9 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("fused_read", "sparse_write", "usage_argmin", "scatter_rows",
-           "lsh_hash", "fused_read_candidates")
-# The launchers' code for each row storage dtype (csrc/rows.cuh).
+           "lsh_hash", "fused_read_candidates", "flash_attention")
+# The launchers' code for each row storage dtype (csrc/rows.cuh); the
+# attention launcher takes the same codes for f32 and bf16.
 ROW_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,5 +1,6 @@
 """Device dispatch of the memory ops (the f32, single-device part of
-`repro/kernels/ops.py`), and their gradients.
+`repro/kernels/ops.py`), and their gradients; and of the LM's causal
+attention (`flash_attention`, forward only).
 
 A CPU tensor takes the plain version in `kernels/ref.py`; a CUDA tensor
 launches the hand-written kernel, which raises on anything it cannot take
@@ -31,6 +32,8 @@ import torch
 
 from repro_torch.core.types import require_f32_rows
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import \
+    flash_attention as flash_attention_kernel
 from repro_torch.kernels.fused_read import fused_read_sweep
 from repro_torch.kernels.fused_read_candidates import \
     fused_read_candidates as fused_read_cand_kernel
@@ -86,6 +89,22 @@ def lsh_hash(x: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
     ids = lsh_hash_kernel(x.reshape(-1, shape[-1]).contiguous(),
                           planes.contiguous())
     return ids.reshape(shape[:-1] + (planes.shape[0],))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Causal GQA attention, forward only: q (B, S, H, D), k, v (B, S, Hkv,
+    D), f32 or bf16 -> (B, S, H, D) in q's dtype (`ref.flash_attention_ref`
+    on the CPU, `csrc/flash_attention.cu` on the card). Like the TPU
+    kernel it has no gradient: under autograd it raises (LM training,
+    ROADMAP A9b)."""
+    if _records(q, k, v):
+        raise NotImplementedError("flash_attention has no backward: LM "
+                                  "training is ROADMAP item A9b")
+    if _on_cpu(q):
+        return ref.flash_attention_ref(q, k, v)
+    return flash_attention_kernel(q.contiguous(), k.contiguous(),
+                                  v.contiguous())
 
 
 # --------------------------------------------------------------------------

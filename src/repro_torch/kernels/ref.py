@@ -25,6 +25,9 @@ card. They state the kernels' contracts exactly:
   the JAX oracle's rounding; the int8 write adds a row's columns into
   its dequantized row in j order, each as one fused multiply-add, and
   re-quantizes the row once (`sparse_write_update_q_ref`).
+* Attention (`flash_attention_ref`) is the naive masked softmax over the
+  whole S×S score matrix in f32 (f64 for f64 inputs, an exact reference
+  on the card), the oracle of the JAX suite's flash-attention tests.
 """
 from __future__ import annotations
 
@@ -327,3 +330,22 @@ def sparse_write_update_q_ref(mem: torch.Tensor, mem_scale: torch.Tensor,
     mem_scale[b[own], i[own]] = new_s[own]
     _stamp(last_access, write_idx, write_w, step, delta)
     return mem, last_access, mem_scale
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """Causal GQA attention, the plain version of `csrc/flash_attention.cu`
+    and of `repro/kernels/flash_attention.py`. q: (B, S, H, D), k, v:
+    (B, S, Hkv, D) -> o (B, S, H, D) in q's dtype. Query head h reads kv
+    head h // (H // Hkv); scores q·kᵀ·D^-0.5 are masked to -1e30 where
+    pos_q < pos_k and softmaxed, all in f32 (bf16 inputs upcast; f64
+    inputs stay f64)."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qg = q.to(ct).reshape(B, S, Hkv, H // Hkv, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(ct)) * D ** -0.5
+    causal = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(torch.where(causal, s, -1e30), dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(ct))
+    return o.reshape(B, S, H, D).to(q.dtype)

@@ -1,0 +1,112 @@
+"""Static-batch serving driver of the port, the JAX package's
+`launch/serve.py::serve`: prefill a lockstep batch of prompts with
+`lm.decode_scan`, then decode greedy (or sampled) tokens one
+`lm.decode_step` at a time. Like the JAX driver it passes no memory
+states, so it runs no memory op; the memory-carrying decode is the
+continuous-batching engine's call (ROADMAP A10).
+
+    python -m repro_torch.launch.serve --arch starcoder2_7b_sam --full
+
+runs StarCoder2-7B at full width on the card (weights from ``--seed``, held
+in the bf16 compute dtype: 15.8 GB); without ``--full`` the reduced config.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.configs import reduced as reduce_cfg
+from repro_torch.models import lm
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _select(logits: torch.Tensor, greedy: bool,
+            generator: torch.Generator) -> torch.Tensor:
+    """Next token from the last position's logits (B, 1, V): the argmax
+    (the lowest index on ties), or a temperature-1 sample."""
+    last = logits[:, -1].float()
+    if greedy:
+        return last.argmax(-1).to(torch.int32)
+    return torch.multinomial(torch.softmax(last, -1), 1,
+                             generator=generator)[:, 0].to(torch.int32)
+
+
+def serve(arch: str, *, batch: int = 4, prompt_len: int = 32,
+          gen_len: int = 32, max_len: int = 128, use_reduced: bool = True,
+          seed: int = 0, greedy: bool = True, device="cuda"):
+    """Serve one static batch of ``arch`` (the reduced config unless
+    ``use_reduced=False``); see `_serve`."""
+    cfg = get_config(arch)
+    if use_reduced:
+        cfg = reduce_cfg(cfg)
+    return _serve(cfg, batch=batch, prompt_len=prompt_len, gen_len=gen_len,
+                  max_len=max_len, seed=seed, greedy=greedy, device=device)
+
+
+def _serve(cfg, *, batch, prompt_len, gen_len, max_len, seed, greedy=True,
+           device="cuda", params=None, prompt=None):
+    """``params`` and ``prompt`` (B, prompt_len) default to weights from
+    ``seed`` (held in the compute dtype) and tokens in [1, V) from
+    ``seed``. Returns {"tokens" (B, gen_len): the token chosen after each
+    decode step, "prefill_s", "decode_s", "decode_tok_per_s"}."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if params is None:
+        params = lm.init_params(cfg, seed=seed, device=device,
+                                dtype=cfg.compute_dtype)
+    if prompt is None:
+        prompt = torch.randint(1, cfg.vocab_size, (batch, prompt_len),
+                               generator=gen, device=device)
+    cache = lm.init_cache(cfg, batch, max_len, device=device)
+
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, cache = lm.decode_scan(params, cfg, cache, prompt)
+    _sync(device)
+    prefill_s = time.perf_counter() - t0
+
+    tok = _select(logits, greedy, gen)
+    toks = []
+    t0 = time.perf_counter()
+    for _ in range(gen_len):
+        logits, cache = lm.decode_step(params, cfg, cache, tok[:, None])
+        tok = _select(logits, greedy, gen)
+        toks.append(tok)
+    tokens = torch.stack(toks, dim=1)
+    _sync(device)
+    decode_s = time.perf_counter() - t0
+    return {"tokens": tokens, "prefill_s": prefill_s, "decode_s": decode_s,
+            "decode_tok_per_s": batch * gen_len / max(decode_s, 1e-9)}
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="starcoder2_7b_sam")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-len", type=int, default=32)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sample", action="store_true",
+                    help="categorical sampling instead of argmax")
+    ap.add_argument("--full", action="store_true",
+                    help="the published width (default: the reduced config)")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+    res = serve(args.arch, batch=args.batch, prompt_len=args.prompt_len,
+                gen_len=args.gen_len, max_len=args.max_len,
+                use_reduced=not args.full, seed=args.seed,
+                greedy=not args.sample, device=args.device)
+    print(f"generated {tuple(res['tokens'].shape)} tokens; "
+          f"prefill {res['prefill_s']:.2f}s, "
+          f"decode {res['decode_tok_per_s']:.1f} tok/s")
+
+
+if __name__ == "__main__":
+    main()

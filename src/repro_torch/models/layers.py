@@ -1,0 +1,142 @@
+"""Common layers and the parameter declarations of the LM, the JAX
+package's `models/layers.py`.
+
+Every parameter is declared once as ``pdef(shape, init, scale)``; `stack_defs`
+adds a leading stacked-layers axis and `init_from_defs` draws the weights
+from a `torch.Generator`. Dtype flow follows JAX's promotion exactly, and
+PyTorch's einsum takes one dtype, so it is written out: `peinsum` emits its
+first operand's dtype (the JAX package's ``preferred_element_type``), and
+`einsum` the promoted dtype of its operands (``jnp.einsum``)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """A config's dtype name ('float32' or 'bfloat16') as a torch dtype."""
+    if name not in _DTYPES:
+        raise ValueError(f"dtype {name!r}: expected one of {sorted(_DTYPES)}")
+    return _DTYPES[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    """One parameter: ``init`` 'normal' draws N(0, 1) times ``scale`` or,
+    without one, fan_in^-0.5 with fan_in = shape[0] (the leading axis: for
+    a stacked parameter, the number of stacked layers, as in the JAX
+    package); 'zeros' fills."""
+    shape: tuple
+    init: str = "normal"
+    scale: Optional[float] = None
+
+    def initialize(self, generator: torch.Generator, dtype, device):
+        if self.init == "zeros":
+            return torch.zeros(self.shape, dtype=dtype, device=device)
+        fan_in = self.shape[0] if len(self.shape) > 1 else self.shape[-1]
+        scale = self.scale if self.scale is not None else fan_in ** -0.5
+        if len(self.shape) == 1:
+            return (torch.randn(self.shape, generator=generator,
+                                device=device) * scale).to(dtype)
+        # Drawn slice by slice of the leading axis in f32 and cast, so a
+        # stacked leaf never exists in f32 whole.
+        out = torch.empty(self.shape, dtype=dtype, device=device)
+        for i in range(self.shape[0]):
+            out[i] = torch.randn(self.shape[1:], generator=generator,
+                                 device=device) * scale
+        return out
+
+
+def pdef(shape, init="normal", scale=None) -> ParamDef:
+    return ParamDef(tuple(shape), init, scale)
+
+
+def _map_defs(fn, defs):
+    if isinstance(defs, ParamDef):
+        return fn(defs)
+    return {k: _map_defs(fn, v) for k, v in defs.items()}
+
+
+def stack_defs(defs, num: int):
+    """Add a leading stacked-layers axis of size ``num`` to every def."""
+    return _map_defs(lambda d: ParamDef((num,) + d.shape, d.init, d.scale),
+                     defs)
+
+
+def init_from_defs(defs, generator: torch.Generator, dtype, device):
+    """Draw every leaf, in sorted key order, from ``generator``."""
+    if isinstance(defs, ParamDef):
+        return defs.initialize(generator, dtype, device)
+    return {k: init_from_defs(defs[k], generator, dtype, device)
+            for k in sorted(defs)}
+
+
+def tree_map(fn, tree):
+    """``fn`` on every tensor leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+# ----------------------------- layer math --------------------------------
+
+def einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.einsum``: both operands in their promoted dtype."""
+    ct = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(spec, a.to(ct), b.to(ct))
+
+
+def peinsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The JAX package's ``peinsum``: computed in the operands' promoted
+    dtype (f32 when an f32 activation meets a bf16 weight), emitted in the
+    first operand's dtype."""
+    return einsum(spec, a, b).to(a.dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
+    """f32 RMS norm scaled by **1 + scale**, in x's dtype."""
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """Rotary embedding of x (..., S, H, D) at ``positions`` (..., S): the
+    two **halves** of the head dim rotate against each other (not
+    interleaved pairs), in f32; returns x's dtype."""
+    half = x.shape[-1] // 2
+    exponent = -torch.arange(0, half, dtype=torch.float32,
+                             device=x.device) / half
+    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                  device=x.device), exponent)
+    angles = positions[..., None].to(torch.float32) * freq
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def mlp_defs(d_in: int, d_hidden: int):
+    return {"w1": pdef((d_in, d_hidden)), "w2": pdef((d_hidden, d_in))}
+
+
+def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
+    """The non-gated GELU MLP, x (B, S, d) -> w2 · gelu(w1 · x). GELU is
+    the tanh approximation, `jax.nn.gelu`'s default. (The gated silu and
+    geglu MLPs of other families are ROADMAP A9c.)"""
+    h = F.gelu(peinsum("bsd,df->bsf", x, params["w1"]), approximate="tanh")
+    return peinsum("bsf,fd->bsd", h, params["w2"])
+
+
+def embed_defs(vocab_size: int, d_model: int):
+    return {"tok": pdef((vocab_size, d_model), scale=1.0)}
+
+
+def embed_apply(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    return params["tok"].to(dtype)[tokens.long()]

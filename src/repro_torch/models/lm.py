@@ -1,0 +1,218 @@
+"""The top-level LM's serving forward, the JAX package's `models/lm.py`
+for the dense GQA family: embeddings, the stack of blocks with a SAM
+memory layer after every group of `every_n_layers`, the final norm and the
+head; `prefill` (the full-sequence forward, whose attention is the causal
+attention kernel) and `decode_step`/`decode_scan` against a KV cache, with
+or without memory states.
+
+Dtypes follow JAX: the weights are cast to the compute dtype per call
+(`_cast`, a no-op on weights already held in it). A memory layer adds its
+f32 reads to the stream, which promotes a bf16 stream to f32 after the
+first memory group in `forward`/`prefill` (later blocks then run f32
+activations against bf16 weights); `decode_step` casts the read back to
+the stream's dtype. Caches and memory states are updated in place (JAX
+returns new ones). Forward only: `loss_fn` and the memory layer's
+training are ROADMAP item A9b."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.models import sam_layer
+from repro_torch.models import transformer as tfm
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (einsum, embed_apply, embed_defs,
+                                       init_from_defs, pdef, rms_norm,
+                                       stack_defs, torch_dtype, tree_map)
+
+
+def _n_groups(cfg: ModelConfig) -> int:
+    return max(1, cfg.num_layers // cfg.memory.every_n_layers)
+
+
+def param_defs(cfg: ModelConfig):
+    defs = {"embed": embed_defs(cfg.vocab_size, cfg.d_model),
+            "blocks": stack_defs(tfm.block_defs(cfg), cfg.num_layers),
+            "final_norm": pdef((cfg.d_model,), init="zeros")}
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = pdef((cfg.d_model, cfg.vocab_size))
+    if cfg.memory is not None:
+        defs["memory"] = stack_defs(sam_layer.memory_defs(cfg),
+                                    _n_groups(cfg))
+    return defs
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
+                dtype: Optional[str] = None):
+    """Weights from ``seed`` (a `torch.Generator` on ``device``), held in
+    ``dtype`` (default: ``cfg.param_dtype``). Holding them in the compute
+    dtype is what `_cast` would do on every call, done once."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return init_from_defs(param_defs(cfg), gen,
+                          torch_dtype(dtype or cfg.param_dtype), device)
+
+
+def _cast(params, cfg: ModelConfig):
+    cd = torch_dtype(cfg.compute_dtype)
+    return tree_map(lambda t: t.to(cd) if t.is_floating_point() else t,
+                    params)
+
+
+def _layer(stacked, i: int):
+    return tree_map(lambda t: t[i], stacked)
+
+
+def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embeddings times √d; the scale is rounded to the compute
+    dtype first, as JAX converts a Python scalar to the array's dtype."""
+    cd = torch_dtype(cfg.compute_dtype)
+    x = embed_apply(params["embed"], tokens, cd)
+    return x * torch.tensor(cfg.d_model ** 0.5, dtype=cd, device=x.device)
+
+
+def _head_weight(params, cfg: ModelConfig) -> torch.Tensor:
+    cd = torch_dtype(cfg.compute_dtype)
+    if cfg.tie_embeddings:
+        return params["embed"]["tok"].to(cd).T
+    return params["lm_head"].to(cd)
+
+
+@torch.inference_mode()
+def forward(params, cfg: ModelConfig, batch):
+    """batch {"tokens": (B, S) int} -> (final hidden states (B, S, d),
+    the auxiliary loss: 0, the dense blocks make none). With a memory, the
+    blocks run in groups and each group is followed by
+    `sam_layer.memory_layer_seq` on fresh memory states."""
+    x = _embed(params, cfg, batch["tokens"])
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    blocks = _cast(params["blocks"], cfg)
+    if cfg.memory is None:
+        for i in range(cfg.num_layers):
+            x = tfm.block_forward(_layer(blocks, i), cfg, x, positions)
+    else:
+        n_groups = _n_groups(cfg)
+        per = cfg.num_layers // n_groups
+        state = sam_layer.init_memory_state(cfg, x.shape[0], device=x.device)
+        mem_params = _cast(params["memory"], cfg)
+        for g in range(n_groups):
+            for i in range(g * per, (g + 1) * per):
+                x = tfm.block_forward(_layer(blocks, i), cfg, x, positions)
+            x, state = sam_layer.memory_layer_seq(_layer(mem_params, g), cfg,
+                                                  x, state)
+    x = rms_norm(x, _cast(params["final_norm"], cfg), cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+@torch.inference_mode()
+def prefill(params, cfg: ModelConfig, batch):
+    """The full-sequence forward; returns the last position's logits
+    (B, 1, V) in the promoted dtype of the hidden state and the head."""
+    hidden, _ = forward(params, cfg, batch)
+    return einsum("bsd,dv->bsv", hidden[:, -1:], _head_weight(params, cfg))
+
+
+# --------------------------------------------------------------------------
+# Serving: cache and memory states, decode
+# --------------------------------------------------------------------------
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
+    per_layer = tfm.layer_cache_shapes(cfg, batch, max_len)
+    return {k: (cfg.num_layers,) + v for k, v in per_layer.items()}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               per_lane_pos: bool = False, *, device="cuda"):
+    """Zero (L, B, max_len, Hkv, D) k and v caches in the compute dtype and
+    ``pos``: () int32, or (B,) per-lane positions with ``per_lane_pos``."""
+    cd = torch_dtype(cfg.compute_dtype)
+    cache = {k: torch.zeros(v, dtype=cd, device=device)
+             for k, v in cache_shapes(cfg, batch, max_len).items()}
+    cache["pos"] = torch.zeros((batch,) if per_lane_pos else (),
+                               dtype=torch.int32, device=device)
+    return cache
+
+
+def init_memory_states(cfg: ModelConfig, batch: int, *,
+                       per_lane_step: bool = False, device="cuda"):
+    """One `sam_layer.MemoryState` per memory group; ``per_lane_step``
+    carries each state's step as (B, 1), so every lane stamps usage with
+    its own step. None for a config without memory."""
+    if cfg.memory is None:
+        return None
+    states = []
+    for _ in range(_n_groups(cfg)):
+        st = sam_layer.init_memory_state(cfg, batch, device=device)
+        if per_lane_step:
+            st = st._replace(step=torch.zeros((batch, 1), dtype=torch.int32,
+                                              device=device))
+        states.append(st)
+    return tuple(states)
+
+
+@torch.inference_mode()
+def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
+                mem_states=None):
+    """tokens (B, 1) int. ``cache["pos"]`` is () or (B,). With
+    ``mem_states`` (`init_memory_states`) each memory group's blocks are
+    followed by one SAM read and write of the token's hidden state, whose
+    read is added back in the stream's dtype. Returns (logits (B, 1, V),
+    cache) — plus the new memory states when ``mem_states`` was given.
+    The cache's k and v and the memory states are updated in place."""
+    pos = cache["pos"]
+    x = _embed(params, cfg, tokens)
+    blocks = _cast(params["blocks"], cfg)
+    new_cache = {"k": cache["k"], "v": cache["v"]}
+
+    def run(i, x):
+        layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
+        x, _ = tfm.block_decode(_layer(blocks, i), cfg, x, layer_cache, pos)
+        return x
+
+    new_mem = None
+    if mem_states is not None:
+        if cfg.memory is None:
+            raise ValueError("mem_states passed but cfg.memory is None")
+        per = cfg.num_layers // len(mem_states)
+        mem_params = _cast(params["memory"], cfg)
+        new_mem = []
+        for g, state in enumerate(mem_states):
+            for i in range(g * per, (g + 1) * per):
+                x = run(i, x)
+            state, out = sam_layer.memory_access(_layer(mem_params, g), cfg,
+                                                 x[:, 0], state)
+            new_mem.append(state)
+            x = x + out[:, None, :].to(x.dtype)
+    else:
+        for i in range(cfg.num_layers):
+            x = run(i, x)
+    x = rms_norm(x, _cast(params["final_norm"], cfg), cfg.norm_eps)
+    logits = einsum("bsd,dv->bsv", x, _head_weight(params, cfg))
+    new_cache["pos"] = pos + 1
+    if mem_states is not None:
+        return logits, new_cache, tuple(new_mem)
+    return logits, new_cache
+
+
+@torch.inference_mode()
+def decode_scan(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
+                mem_states=None):
+    """Consume tokens (B, T) one `decode_step` at a time. Returns (logits
+    (B, 1, V) of the last position, cache) — plus the memory states when
+    ``mem_states`` was given."""
+    B, T = tokens.shape
+    logits = torch.zeros((B, 1, cfg.vocab_size),
+                         dtype=torch_dtype(cfg.compute_dtype),
+                         device=tokens.device)
+    mem = mem_states
+    for t in range(T):
+        if mem is None:
+            logits, cache = decode_step(params, cfg, cache,
+                                        tokens[:, t:t + 1])
+        else:
+            logits, cache, mem = decode_step(params, cfg, cache,
+                                             tokens[:, t:t + 1],
+                                             mem_states=mem)
+    if mem_states is not None:
+        return logits, cache, mem
+    return logits, cache

@@ -13,7 +13,12 @@ versions, and the reads' similarity is computed as (x·q̂)·|x|⁻¹ rather
 than x̂·q̂). Two exceptions, each counted: a bucket-id bit may differ
 where the plain projection lies within 1e-6·|x|·|plane| of 0, and the
 candidate read may swap selections whose plain similarities lie within
-1e-6 of each other.
+1e-6 of each other. The causal attention kernel: f32 within 2e-5 (the JAX
+suite's bar) on unit normal inputs; bf16 outputs within one bf16 ulp of
+the output's magnitude (both round the same f32 softmax, summed in
+another order); on scores as large as the LM's (q and k of std 12), where
+two f32 orders differ by 1e-3, no further from the f64 result than twice
+the plain f32 version is.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from repro_torch.core.quant import quantize_rows
 from repro_torch.core.types import (LA_SCRATCH, ControllerConfig,
                                     MemoryConfig)
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_read import fused_read_sweep
 from repro_torch.kernels.fused_read_candidates import fused_read_candidates
 from repro_torch.kernels.lsh_hash import lsh_hash
@@ -843,3 +849,77 @@ def test_dam_train_step_on_card_matches_cpu(dev):
     for a, b in [*zip(g_gpu, g_cpu), *zip(p_gpu, p_cpu)]:
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
     assert launched == (T, 0) and cpu_launched == (0, 0)
+
+
+# --------------------------------------------------------------------------
+# The causal GQA attention kernel (csrc/flash_attention.cu)
+# --------------------------------------------------------------------------
+
+def _bf16_ulp(x: torch.Tensor) -> float:
+    """One bf16 ulp at the magnitude max |x|."""
+    _, e = torch.frexp(x.float().abs().max())
+    return 2.0 ** (int(e) - 8)
+
+
+def _attention_inputs(dev, B, S, H, Hkv, D, dtype, seed=0, scale=1.0):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, S, H, D), generator=g) * scale
+    k = torch.randn((B, S, Hkv, D), generator=g) * scale
+    v = torch.randn((B, S, Hkv, D), generator=g)
+    return tuple(t.to(device=dev, dtype=getattr(torch, dtype))
+                 for t in (q, k, v))
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D", [
+    (1, 64, 2, 1, 16), (2, 128, 4, 2, 32), (1, 128, 8, 8, 16),   # JAX's
+    (1, 130, 12, 1, 128),            # G = 12, S not a multiple of the tile
+    (2, 1000, 4, 4, 64), (1, 1, 2, 1, 32),
+    (2, 2048, 48, 4, 128),           # StarCoder2-7B's heads at full length
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_matches_plain(dev, B, S, H, Hkv, D, dtype):
+    q, k, v = _attention_inputs(dev, B, S, H, Hkv, D, dtype, seed=S + H)
+    n0 = flash_attention.launches
+    out = flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= (2e-5 if dtype == "float32" else _bf16_ulp(want))
+    # The dispatch takes any layout (a transposed view is copied first).
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+    assert torch.equal(ops.flash_attention(qt, k, v), out)
+
+
+def test_flash_attention_kernel_on_large_scores(dev):
+    """Scores of std ~144, as the LM's weights give them: both f32 versions
+    are held against the f64 result."""
+    q, k, v = _attention_inputs(dev, 2, 512, 8, 2, 128, "float32", seed=5,
+                                scale=12.0)
+    exact = ref.flash_attention_ref(q.double(), k.double(), v.double())
+    err = (flash_attention(q, k, v).double() - exact).abs().max().item()
+    plain = (ref.flash_attention_ref(q, k, v).double() - exact).abs().max()
+    assert err <= 2 * plain.item() + 2e-5
+
+
+def test_flash_attention_kernel_raises_on_inputs_it_cannot_take(dev):
+    q, k, v = _attention_inputs(dev, 1, 64, 4, 2, 32, "float32")
+    bad = {
+        "float16": (q.half(), k.half(), v.half()),
+        "dtypes differ": (q, k.bfloat16(), v),
+        "rank": (q[0], k[0], v[0]),
+        "head ratio": (q[:, :, :3], k, v),
+        "head dim": (q[..., :24].contiguous(), k[..., :24].contiguous(),
+                     v[..., :24].contiguous()),
+        "k shape": (q, k[:, :32], v),
+        "layout": (q.transpose(1, 2).contiguous().transpose(1, 2), k, v),
+        "cpu": (q.cpu(), k.cpu(), v.cpu()),
+    }
+    n0 = flash_attention.launches
+    for case, args in bad.items():
+        with pytest.raises(ValueError, match="flash_attention"):
+            flash_attention(*args)
+    assert flash_attention.launches == n0
+    with pytest.raises(NotImplementedError, match="A9b"):
+        ops.flash_attention(q.requires_grad_(), k, v)
