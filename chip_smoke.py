@@ -123,15 +123,21 @@ memory states and the static `serve`), whose attention is the
    e. times: the attention kernel at layer 0's and layer 4's inputs
       against its bound, its plain version and
       `scaled_dot_product_attention`; the memory kernels at the LM's
-      shapes; the prefill (median of 3), a decode step (median of 5),
-      their peaks and the decode step's device time (`torch.profiler`);
+      shapes; the prefill (median of 3); the decode's ms per token, a
+      window of 32 greedy steps timed as one span, the median of five
+      windows after one untimed (single steps, median of 5, on the
+      side); their peaks and the window's device time
+      (`torch.profiler`);
 10. print the card, one JSON line of per-kernel numbers (the LM's under
    ``"lm"``), and last the ``{"ok": true, ...}`` line.
 
 Tolerances: integer outputs exact; forward floats within 1e-5 of
-max(1, |plain|) (other summation order, rsqrt rounding; the LM's memory
-rows and reads reach magnitudes of thousands, where an f32 ulp exceeds
-1e-5); the bf16 and int8 writes bit for bit
+max(1, |plain|), element by element (other summation order, rsqrt
+rounding: an absolute 1e-5 up to 1, relative above, where the LM's memory
+rows and reads reach magnitudes of thousands and an f32 ulp exceeds
+1e-5), a read word's |plain| taken as its size Σ_k w_k·|row_k| (its
+rounding's scale where the K terms cancel); the bf16 and int8 writes bit
+for bit
 (bf16 rows, int8 codes and scales). Read indices may differ from the plain
 version's only where the plain similarities of the swapped rows lie within
 1e-6 of each other; each such near-tie is counted and printed. A bucket id
@@ -172,6 +178,7 @@ NEAR_TIE = 1e-6
 GRAD_ATOL = GRAD_RTOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 B, T, MAX_LEN, BITS = 8, 42, 20, 8
 N, W, H, K, HIDDEN, DELTA = 1 << 20, 32, 4, 4, 100, 0.005
 LR = 1e-4
@@ -256,9 +263,13 @@ def require(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def magnitude(t: torch.Tensor) -> float:
-    """max(1, max |t|): the scale a float error is measured against."""
-    return max(1.0, t.abs().max().item())
+def rel_err(got: torch.Tensor, want: torch.Tensor, size=None) -> float:
+    """max |got - want| / max(1, size), element by element, with ``size``
+    |want| unless given: an absolute error where the size is at most 1, a
+    relative one (the f32 ulp grows with the value) above."""
+    d = (got.float() - want.float()).abs_()
+    size = want.float().abs() if size is None else size.clone()
+    return d.div_(size.clamp_min_(1.0)).max().item()
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -308,11 +319,14 @@ class Checker:
         self.near_ties += int(diff.sum().item())
 
     def _tail(self, name, q, mem, beta, out, mem_scale=None):
-        """The floats, held against the plain tail on the kernel's rows."""
+        """The floats, held against the plain tail on the kernel's rows. A
+        read word is Σ_k w_k·row_k, whose rounding scales with its size
+        Σ_k w_k·|row_k|: |read| where no terms cancel."""
         read, w, idx = (t.detach() for t in out)
         t_read, t_w = self.ref.sparse_read_tail(q, mem, beta, idx, mem_scale)
-        err = max((read - t_read).abs().max().item() / magnitude(t_read),
-                  (w - t_w).abs().max().item())
+        rows = self.ref.gather_words(mem, idx.clamp_min(0), mem_scale)
+        size = torch.einsum("bhk,bhkw->bhw", t_w, rows.abs())
+        err = max(rel_err(read, t_read, size), (w - t_w).abs().max().item())
         require(err <= TOL, f"{name} float error {err:.3g}")
         require(bool((w[idx < 0] == 0).all()),
                 f"{name} gave an invalid selection a weight")
@@ -365,11 +379,11 @@ class Checker:
             require(torch.equal(after[2], s_ref),
                     f"{name}: scales differ from the plain version's")
         require(torch.equal(after[1], l_ref), f"{name} usage table differs")
-        err = (after[0].float() - m_ref.float()).abs().max().item()
         if m_ref.dtype == torch.float32:
-            err /= magnitude(m_ref)
+            err = rel_err(after[0], m_ref)
             require(err <= TOL, f"{name} float error {err:.3g}")
         else:
+            err = (after[0].float() - m_ref.float()).abs().max().item()
             require(torch.equal(after[0], m_ref), f"{name}: rows differ from "
                     f"the plain version's bit for bit (max err {err:.3g})")
         self.err[name] = max(self.err[name], err)
@@ -537,9 +551,12 @@ def device_time(fn):
     return sum(r[1] for r in on_dev), on_dev
 
 
-def bound(nbytes, nops):
+def bound(nbytes, nops, bf16_ops=0):
+    """The least ms for the work: ``nbytes`` at the HBM rate against
+    ``nops`` f32 operations at the CUDA cores' rate plus ``bf16_ops`` (bf16
+    products summed in f32) at the bf16 tensor cores' rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / F32_OPS_PER_S * 1e3
+    t_ops = (nops / F32_OPS_PER_S + bf16_ops / BF16_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1116,9 +1133,14 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
           f"{checker.near_ties}")
 
     # (e) times: the kernel at layer 0's (bf16) and layer 4's (f32) inputs,
-    # the memory kernels at the decode's 21st read, write and LRA.
+    # the memory kernels at the decode's 21st read, write and LRA. The
+    # bound: q·kᵀ and p·v take half the flop each. On bf16 inputs q·kᵀ is
+    # exact on the bf16 tensor cores (f32 sums); p·v keeps p in f32, as
+    # the TPU kernel does, so it stays at the f32 rate.
     def flash_row(q, k, v):
         Bq, S_, Hq, D_ = q.shape
+        half = S_ * (S_ + 1) / 2 * Bq * Hq * 2 * D_
+        on_tc = half if q.dtype == torch.bfloat16 else 0
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         try:
             lib = time_ms(lambda: F.scaled_dot_product_attention(
@@ -1133,8 +1155,7 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
                              flush),
             library_ms=lib,
             bound=bound((2 * q.numel() + k.numel() + v.numel())
-                        * q.element_size(),
-                        S_ * (S_ + 1) / 2 * Bq * Hq * 4 * D_))
+                        * q.element_size(), 2 * half - on_tc, on_tc))
 
     flash_f32, flash_bf16 = flash_row(q4, k4, v4), flash_row(q0, k0, v0)
     del q0, k0, v0, q4, k4, v4
@@ -1192,14 +1213,40 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
         _, state["cache"], state["mem"] = lm.decode_step(
             params, cfg, state["cache"], tok, mem_states=state["mem"])
 
+    # The decode's rate: a window of GEN greedy steps (the token fed back
+    # on the device) as one synchronised span, from the prompt's end of
+    # the cache; the median of five windows after one untimed; single
+    # steps (median of 5) on the side.
+    def rewind():
+        state["cache"] = {**state["cache"], "pos": torch.tensor(
+            LM_PROMPT, dtype=torch.int32, device=dev)}
+
+    def decode_window(_):
+        tok = torch.ones((LM_B, 1), dtype=torch.int32, device=dev)
+        for _ in range(LM_GEN):
+            lg, state["cache"], state["mem"] = lm.decode_step(
+                params, cfg, state["cache"], tok, mem_states=state["mem"])
+            tok = lg[:, -1].float().argmax(-1).to(torch.int32)[:, None]
+
     torch.cuda.reset_peak_memory_stats()
-    decode_ms, decode_all = host_ms(decode_run, runs=5)
+    step_ms, step_all = host_ms(decode_run, runs=5)
     decode_peak = torch.cuda.max_memory_allocated() - held
-    dev_ms, on_dev = device_time(lambda: decode_run(None))
+    rewind()
+    decode_window(None)
+    window_ms, window_all = host_ms(decode_window, runs=5, setup=rewind)
+    decode_ms = window_ms / LM_GEN
+    decode_all = [t / LM_GEN for t in window_all]
+    spread = (max(decode_all) - min(decode_all)) / decode_ms
+    rewind()
+    dev_ms, on_dev = device_time(lambda: decode_window(None))
+    dev_ms /= LM_GEN
+    on_dev = [(kk, t / LM_GEN, c / LM_GEN) for kk, t, c in on_dev]
     out.update(prefill_ms=prefill_ms, prefill_ms_all=prefill_all,
                held_bytes=held, prefill_peak_bytes=prefill_peak,
                decode_ms_per_token=decode_ms,
-               decode_ms_all=decode_all, decode_peak_bytes=decode_peak,
+               decode_ms_per_token_all=decode_all,
+               decode_spread=spread, decode_step_ms=step_ms,
+               decode_step_ms_all=step_all, decode_peak_bytes=decode_peak,
                decode_device_ms=dev_ms or None,
                decode_busy_share=(dev_ms / decode_ms) if dev_ms else None,
                kernels_at_lm_shapes={
@@ -1217,17 +1264,21 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
     print(f"[time] prefill (B={LM_B}, S={LM_S}) {prefill_ms:.1f} ms, median "
           f"of {', '.join(f'{t:.1f}' for t in prefill_all)}; peak memory "
           f"{prefill_peak} B above the {held} B held ({param_bytes} B of "
-          f"weights); decode {decode_ms:.2f} ms per token (B={LM_B}, with "
-          f"memory), median of {', '.join(f'{t:.2f}' for t in decode_all)}; "
-          f"peak {decode_peak} B above what is held")
+          f"weights); decode {decode_ms:.3f} ms per token (B={LM_B}, with "
+          f"memory; windows of {LM_GEN} greedy steps: "
+          f"{', '.join(f'{t:.3f}' for t in decode_all)}, spread "
+          f"{spread:.1%}); single steps {step_ms:.2f} ms, median of "
+          f"{', '.join(f'{t:.2f}' for t in step_all)}; peak {decode_peak} B "
+          f"above what is held")
     if dev_ms:
-        print(f"[time] a decode step on the device (torch.profiler): "
-              f"{dev_ms:.2f} ms of kernels, {dev_ms / decode_ms:.1%} of the "
-              f"step; by kernel (ms, launches): "
-              + "; ".join(f"{kk[:60]} {t:.3f} ({c})"
+        print(f"[time] the decode on the device (torch.profiler, a window "
+              f"of {LM_GEN} steps): {dev_ms:.3f} ms of kernels a token, "
+              f"{dev_ms / decode_ms:.1%} of the token's time; by kernel (ms, "
+              f"launches a token): "
+              + "; ".join(f"{kk[:60]} {t:.3f} ({c:g})"
                           for kk, t, c in on_dev[:6]))
     else:
-        print("[time] a decode step on the device: not measured (the "
+        print("[time] the decode on the device: not measured (the "
               "profiler recorded no device time)")
     del params, cache, mem, state, toks, logits, d_logits
     torch.cuda.empty_cache()

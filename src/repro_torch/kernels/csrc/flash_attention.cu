@@ -14,8 +14,11 @@
 // at f32 (0.13 ms at 3.35 TB/s). f32 inputs must not go through TF32, whose
 // 10-bit mantissa cannot hold the JAX suite's 2e-5; so every product here
 // is an f32 FMA on the CUDA cores, and bf16 inputs are upcast as they are
-// loaded (exactly) and take the same path. The bound of this design is
-// therefore the f32 one for both dtypes.
+// loaded (exactly) and take the same path. The card's bound for bf16
+// inputs is lower: their q·kᵀ products are exact on the bf16 tensor cores
+// with f32 sums (half the flop at 989 TFLOP/s), and only p·v, with p in
+// f32 as the TPU kernel keeps it, needs the f32 rate: 1.64 ms at these
+// shapes. This design does not reach for it; mma.sync for q·kᵀ would.
 //
 // Design: one block of 256 threads per (b·h, tile of 64 query rows),
 // the heaviest tiles (the last rows, which see the most keys) first. The

@@ -2,9 +2,9 @@
 `models/attention.py`: the training/prefill attention (`gqa_forward`,
 through the causal attention kernel, `ops.flash_attention`), the
 single-token decode against a KV cache (`gqa_decode`, plain PyTorch, as
-the JAX package computes it outside any kernel) and the jnp chunked
-online softmax (`chunked_attention`), which the JAX forward runs where the
-port runs the kernel.
+the JAX package computes it outside any kernel). Where the JAX forward
+runs its jnp chunked online softmax (`chunked_attention`), the port runs
+the kernel; the kernel's plain version is `kernels/ref.flash_attention_ref`.
 
 Layouts are the JAX package's: q (B, S, H, D), k and v (B, S, Hkv, D),
 caches (B, Smax, Hkv, D). Windows, prefix-LM and MLA are not ported
@@ -37,46 +37,6 @@ def _head_mask(cfg: ModelConfig, dtype, device) -> Optional[torch.Tensor]:
     valid = torch.arange(cfg.pad_head_groups, device=device) \
         < cfg.q_heads_per_kv
     return valid.repeat(cfg.num_kv_heads).to(dtype)
-
-
-def chunked_attention(q, k, v, *, q_block: int, kv_block: int):
-    """q: (B, S, H, D); k, v: (B, S, Hkv, D) -> (B, S, H, D) in q's dtype:
-    the JAX package's causal online softmax over its tile schedule, scores
-    and accumulator in f32 (the plain PyTorch counterpart of the forward
-    that the JAX LM runs; the port's forward runs the kernel). Like JAX's
-    it skips the kv blocks j > i by block index, which drops keys a q
-    block needs when it is wider than a kv block."""
-    B, S, H, D = q.shape
-    Hkv = k.shape[2]
-    G = H // Hkv
-    q_block, kv_block = min(q_block, S), min(kv_block, S)
-    if S % q_block or S % kv_block:
-        raise ValueError(f"sequence length {S} must be a multiple of the "
-                         f"blocks ({q_block}, {kv_block})")
-    qb = q.reshape(B, S // q_block, q_block, Hkv, G, D).float()
-    kb = k.reshape(B, S // kv_block, kv_block, Hkv, D).float()
-    vb = v.reshape(B, S // kv_block, kv_block, Hkv, D).float()
-    out = torch.empty((B, S // q_block, q_block, Hkv, G, D), device=q.device)
-    for i in range(S // q_block):
-        pos_q = i * q_block + torch.arange(q_block, device=q.device)
-        m = torch.full((B, q_block, Hkv, G), _NEG, device=q.device)
-        l = torch.zeros((B, q_block, Hkv, G), device=q.device)
-        acc = torch.zeros((B, q_block, Hkv, G, D), device=q.device)
-        for j in range(min(i, S // kv_block - 1) + 1):
-            s = torch.einsum("bqhgd,bkhd->bqhgk", qb[:, i], kb[:, j]) \
-                * D ** -0.5
-            pos_k = j * kv_block + torch.arange(kv_block, device=q.device)
-            causal = pos_q[:, None] >= pos_k[None, :]
-            s = torch.where(causal[None, :, None, None, :], s, _NEG)
-            m_new = torch.maximum(m, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bqhgk,bkhd->bqhgd", p, vb[:, j])
-            m = m_new
-        out[:, i] = acc / l[..., None].clamp_min(1e-20)
-    return out.reshape(B, S, H, D).to(q.dtype)
 
 
 def gqa_forward(params, cfg: ModelConfig, x: torch.Tensor,
