@@ -14,7 +14,10 @@ NTM and the LSTM) forward and in training, and the paper's comparison of
 SAM against DAM and the NTM as N grows; then the SAM-augmented LM at
 StarCoder2-7B's full width (`starcoder2_7b_sam`: prefill, decode with
 memory states and the static `serve`), whose attention is the
-`flash_attention` kernel. It fails (nonzero exit) if any phase fails:
+`flash_attention` kernel; then the SAM cell's forward on a memory sharded
+by slots over 4 processes (`repro_torch.distributed.mem_shard`), whose
+ranks sweep their blocks with the `topk_read` kernel. It fails (nonzero
+exit) if any phase fails:
 
 1. build the kernels from `src/repro_torch/kernels/csrc/` with nvcc for
    sm_90a and print each kernel's registers, shared memory and spills;
@@ -128,8 +131,36 @@ memory states and the static `serve`), whose attention is the
       windows after one untimed (single steps, median of 5, on the
       side); their peaks and the window's device time
       (`torch.profiler`);
-10. print the card, one JSON line of per-kernel numbers (the LM's under
-   ``"lm"``), and last the ``{"ok": true, ...}`` line.
+10. the slot-sharded memory (N = 2^20 over S = 4 ranks, one block of
+   2^18 + 1 rows each):
+   a. `topk_read` against its plain version at (B, H, W, K) =
+      (8, 4, 32, 4) on step 21's memory, whole (2^20 + 1 rows) and as each
+      rank's block (valid_n = 2^18), on an all-zero memory (rows 0..3),
+      on copies of one row spread over both sides of a block boundary
+      (the lowest copy first) and at a ragged valid_n; its indices equal
+      `fused_read_sweep`'s on the same inputs bit for bit;
+   b. S = 4 processes on this card, joined by gloo (`file://` rendezvous
+      in a temporary directory; the kernels built above), run
+      `sam_unroll` (T = 42) from the model's weights and phase 3's inputs
+      on a memory that `init_state` builds per rank under
+      `memory_mesh`: every `topk_read`, `lra_topn` and write of a rank's
+      block against its plain version; per rank exactly T launches of
+      each and none of `fused_read_sweep`; the ranks' ys, read words and
+      indices bit-identical; then the parent holds the gathered rows,
+      usage table, ys and read against phase 3's single-device rollout
+      (floats within 1e-5, with the count of memory elements that are not
+      bit-equal; usage and read indices exact). A failed rank fails the
+      run;
+   c. times, labelled as S ranks sharing one card with gloo through the
+      host (not the times of S cards): `topk_read` at both shapes against
+      its bound and its plain version; each rank's host ms per step
+      (median of 3) and the part of it inside the collectives beside
+      phase 6's single-device step; rank 0's device ms per step
+      (`torch.profiler`); each rank's peak memory beside its block; a
+      bare all-gather of a CUDA and of a host tensor;
+11. print the card, one JSON line of per-kernel numbers (the LM's under
+   ``"lm"``, the sharded memory's under ``"mesh"``), and last the
+   ``{"ok": true, ...}`` line.
 
 Tolerances: integer outputs exact; forward floats within 1e-5 of
 max(1, |plain|), element by element (other summation order, rsqrt
@@ -167,10 +198,13 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 ROOT = Path(__file__).resolve().parent
 TOL = 1e-5
@@ -221,6 +255,10 @@ REPLACES = {
     # The LM's causal attention (phase 9).
     "flash_attention": ("src/repro/kernels/flash_attention.py:94",
                         "src/repro_torch/kernels/csrc/flash_attention.cu"),
+    # The slot-sharded memory's top-K (phase 10): fused_read.cu's first
+    # pass and a merge without the softmax tail.
+    "topk_read": ("src/repro/kernels/topk_read.py:31",
+                  "src/repro_torch/kernels/csrc/fused_read.cu"),
 }
 SUFFIX = {"bfloat16": "_bf16", "int8": "_int8"}
 
@@ -252,6 +290,10 @@ LM_ARCH = "starcoder2_7b_sam"
 LM_B, LM_S, LM_PROMPT, LM_GEN, LM_MAX_LEN = 4, 2048, 32, 32, 128
 FLASH_TOL = 2e-5               # the JAX suite's f32 bar for the kernel
 SLICE_TOL = 1e-4               # tests/test_torch_lm.py's bar for the slice
+# Phase 10, the slot-sharded memory: MESH_S ranks, one block of N/MESH_S
+# rows each, all on the one card, joined by gloo.
+MESH_S = 4
+MESH_LABEL = f"{MESH_S} ranks sharing one card, gloo through the host"
 
 
 class SmokeFailure(Exception):
@@ -332,6 +374,19 @@ class Checker:
                 f"{name} gave an invalid selection a weight")
         self.err[name] = max(self.err[name], err)
 
+    def topk(self, q, mem, k, valid_n, out):
+        """The selection as a read's (swaps only at near-ties), and the
+        scores within TOL of the plain similarities of the rows picked."""
+        vals, idx = out
+        _, r_idx = self.ref.topk_read_ref(q, mem, k, valid_n=valid_n)
+        self._selection("topk_read", q, mem, idx, r_idx)
+        rows = self.ref.gather_rows(mem, idx)
+        sims = torch.einsum("bhw,bhkw->bhk", self.ref._normalize(q),
+                            self.ref._normalize(rows))
+        err = (vals - sims).abs().max().item()
+        require(err <= TOL, f"topk_read score error {err:.3g}")
+        self.err["topk_read"] = max(self.err["topk_read"], err)
+
     def read(self, q, mem, beta, k, valid_n, out, mem_scale=None):
         name = kernel_name("fused_read_sweep", mem)
         _, _, r_idx = self.ref.fused_read_ref(q, mem, beta, k, valid_n=valid_n,
@@ -400,7 +455,7 @@ class Checker:
 
 
 class Intercept:
-    """Wraps the six ops of `repro_torch.kernels.ops` for one run. With a
+    """Wraps the seven ops of `repro_torch.kernels.ops` for one run. With a
     ``checker`` every call is compared with the plain version on the same
     inputs (lockstep); with ``record`` the inputs of the steps in
     RECORD_STEPS are kept as clones (the hash's under the step: a step
@@ -422,8 +477,16 @@ class Intercept:
     def __enter__(self):
         ops = self.ops
         self.saved = (ops.lra_topn, ops.fused_read, ops.sparse_write_update,
-                      ops.scatter_rows, ops.lsh_hash, ops.usage_argmin)
-        lra0, read0, write0, scatter0, hash0, argmin0 = self.saved
+                      ops.scatter_rows, ops.lsh_hash, ops.usage_argmin,
+                      ops.topk_read)
+        lra0, read0, write0, scatter0, hash0, argmin0, topk0 = self.saved
+
+        def topk_read(q, mem, k, *, valid_n=None):
+            self._keep("topk_read", (q, mem, k, valid_n))
+            out = topk0(q, mem, k, valid_n=valid_n)
+            if self.checker:
+                self.checker.topk(q, mem, k, valid_n, out)
+            return out
 
         def lra_topn(la, n, *, valid_n=None):
             self._keep("lra_topn", (la, n, valid_n))
@@ -492,12 +555,13 @@ class Intercept:
         ops.sparse_write_update, ops.scatter_rows = (sparse_write_update,
                                                      scatter_rows)
         ops.lsh_hash, ops.usage_argmin = lsh_hash, usage_argmin
+        ops.topk_read = topk_read
         return self
 
     def __exit__(self, *exc):
         (self.ops.lra_topn, self.ops.fused_read, self.ops.sparse_write_update,
-         self.ops.scatter_rows, self.ops.lsh_hash,
-         self.ops.usage_argmin) = self.saved
+         self.ops.scatter_rows, self.ops.lsh_hash, self.ops.usage_argmin,
+         self.ops.topk_read) = self.saved
         return False
 
 
@@ -1309,6 +1373,275 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
             "bf16_launches": m.every_n_layers, "lm": out}
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    require(smi.returncode == 0 and smi.stdout.strip(), "nvidia-smi failed")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def _mesh_rank(rank: int, shards: int, path: str, payload: dict) -> None:
+    """One rank of phase 10 (b), in a process of its own on cuda:0: the
+    sharded forward rollout in lockstep, its launches, the ranks' outputs
+    against each other bit for bit, then its times; writes what the
+    parent compares to ``path``/rank<r>.pt. A failed check raises, and
+    `torch.multiprocessing.spawn` re-raises it in the parent."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core import sam
+    from repro_torch.core.types import ControllerConfig, MemoryConfig
+    from repro_torch.distributed import mem_shard
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fused_read import fused_read_sweep
+    from repro_torch.kernels.sparse_write import sparse_write_update
+    from repro_torch.kernels.topk_read import topk_read
+    from repro_torch.kernels.usage_argmin import lra_topn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(payload["device"])
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("gloo", init_method=f"file://{path}/init",
+                            rank=rank, world_size=shards)
+    kernels = {"topk_read": topk_read, "lra_topn": lra_topn,
+               "sparse_write_update": sparse_write_update,
+               "fused_read_sweep": fused_read_sweep}
+    cfg = sam.SAMConfig(MemoryConfig(num_slots=N, word_size=W, num_heads=H,
+                                     k=K, delta=DELTA),
+                        ControllerConfig(input_size=BITS + 2,
+                                         hidden_size=HIDDEN,
+                                         output_size=BITS))
+    params = pytree.tree_map(lambda a: torch.tensor(a, device=dev),
+                             payload["params"])
+    xs = torch.tensor(payload["xs"], device=dev)
+    checker = Checker(ref)
+    with mem_shard.memory_mesh(N) as ctx:
+        state = sam.init_state(B, cfg, device=dev)
+        require(state.memory.shape == (B, ctx.local_rows, W),
+                f"rank {rank}: block of shape {tuple(state.memory.shape)}")
+        block_bytes = sum(t.numel() * t.element_size()
+                          for t in (state.memory, state.last_access))
+        # The main path, in lockstep: every top-K, LRA and write of this
+        # rank's block against its plain version, the counts set to 0 just
+        # before and read just after.
+        for fn in kernels.values():
+            fn.launches = 0
+        with torch.inference_mode(), Intercept(ops, checker=checker):
+            final, ys = sam.sam_unroll(params, cfg, state, xs)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        want = {"topk_read": T, "lra_topn": T, "sparse_write_update": T,
+                "fused_read_sweep": 0}
+        require(launches == want, f"rank {rank}: launches {launches}, "
+                                  f"expected {want}")
+        # Lockstep: every rank's outputs equal, bit for bit.
+        for name, t in (("ys", ys), ("read words", final.read.words),
+                        ("read indices", final.read.indices)):
+            parts = [torch.empty_like(t) for _ in range(shards)]
+            dist.all_gather(parts, t.contiguous())
+            require(all(torch.equal(p, t) for p in parts),
+                    f"rank {rank}: the ranks' {name} differ")
+        la = mem_shard.gather_blocks(ctx, final.last_access)
+        out = dict(ys=ys.cpu(), memory=final.memory[:, :ctx.local_n].cpu(),
+                   la=la.cpu() if rank == 0 else None,
+                   read_idx=final.read.indices.cpu(),
+                   read_words=final.read.words.cpu(), launches=launches,
+                   err=checker.err["topk_read"],
+                   write_err=checker.err["sparse_write_update"],
+                   near_ties=checker.near_ties, block_bytes=block_bytes)
+        del final, state, la
+
+        # Times: host ms per step of a rollout from a fresh state and the
+        # host ms inside the collectives (median of 3), the peak memory,
+        # and rank 0's device time per step (torch.profiler).
+        def rollout():
+            s = sam.init_state(B, cfg, device=dev)
+            torch.cuda.synchronize()
+            ctx.collectives.reset()
+            t0 = time.perf_counter()
+            sam.sam_unroll(params, cfg, s, xs)
+            torch.cuda.synchronize()
+            return ((time.perf_counter() - t0) * 1e3 / T,
+                    ctx.collectives.seconds * 1e3 / T)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = sorted(rollout() for _ in range(3))
+        out["peak"] = torch.cuda.max_memory_allocated()
+        out["host_ms"], out["coll_ms"] = times[1]
+        out["host_all"] = [t[0] for t in times]
+        out["bytes_per_step"] = {k: v // T for k, v in
+                                 ctx.collectives.bytes.items()}
+        # One bare all-gather of a read's (B, H, K) scores, of a CUDA
+        # tensor and of a host tensor (median ms of 20, lockstep): what a
+        # collective costs here without the rollout's kernels before it.
+        for key, where in (("dev", dev), ("host", torch.device("cpu"))):
+            x = torch.zeros((B, H, K), device=where)
+            bare = []
+            for _ in range(20):
+                dist.barrier()
+                t0 = time.perf_counter()
+                mem_shard.all_gather(ctx, x)
+                bare.append((time.perf_counter() - t0) * 1e3)
+            out[f"bare_ms_{key}"] = sorted(bare)[10]
+        s = sam.init_state(B, cfg, device=dev)
+        torch.cuda.synchronize()
+        if rank == 0:
+            d_ms, on_dev = device_time(
+                lambda: sam.sam_unroll(params, cfg, s, xs))
+            out["device_ms"] = d_ms / T
+            out["device_top"] = on_dev[:6]
+        else:
+            sam.sam_unroll(params, cfg, s, xs)
+            torch.cuda.synchronize()
+    torch.save(out, f"{path}/rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mesh_phase(dev, ref, checker, flush, rec, mesh_ref, params, xs,
+               step_ms):
+    """Phase 10: the slot-sharded memory. ``rec`` holds phase 2's recorded
+    inputs, ``mesh_ref`` phase 3's single-device rollout (on the host),
+    ``params`` the model's weights, ``step_ms`` phase 6's single-device
+    exact step."""
+    from repro_torch.distributed import mem_shard
+    from repro_torch.kernels.fused_read import fused_read_sweep
+    from repro_torch.kernels.topk_read import topk_read
+    S, ln = MESH_S, N // MESH_S
+    step = max(RECORD_STEPS)
+    q, mem, beta, _, _, _ = rec.records[("fused_read_sweep", step)]
+
+    # (a) the kernel against its plain version and fused_read's selection
+    # at full width: step 21's memory whole and as each rank's block, an
+    # all-zero memory, copies of row N-1 (written at step 1) in rows 7, ...
+    # (the best, straddling the blocks' boundary: row 7 must come first)
+    # and a ragged valid_n.
+    cpu = torch.Generator().manual_seed(10)
+    dup = mem.clone()
+    dup[:, [7, N // 3, N // 2, ln - 1, ln]] = mem[:, N - 1:N]
+    q_dup = mem[:, N - 1][:, None, :] * (
+        1.0 + 0.01 * torch.randn((B, H, W), generator=cpu).to(dev))
+    cases = {f"step {step}": (q, mem, N)}
+    for r in range(S):
+        cases[f"block {r}"] = (q, mem_shard.shard_block(mem, N, S, r), ln)
+    cases.update({"all zero": (q, torch.zeros_like(mem), N),
+                  "duplicate rows": (q_dup, dup, N),
+                  "ragged": (q, mem, 3 * N // 4 + 5)})
+    with torch.inference_mode():
+        for name, (q_, m_, n_) in cases.items():
+            out = topk_read(q_, m_, k=K, valid_n=n_)
+            checker.topk(q_, m_, K, n_, out)
+            f_idx = fused_read_sweep(q_, m_, beta, k=K, valid_n=n_)[2]
+            require(torch.equal(out[1], f_idx), f"topk_read ({name}) picks "
+                    f"other rows than fused_read_sweep")
+            if name == "all zero":
+                require(torch.equal(out[1].cpu(), torch.arange(
+                    K, dtype=torch.int32).expand(B, H, K)),
+                    "topk_read on an all-zero memory must pick rows 0..K-1")
+            if name == "duplicate rows":
+                require(torch.equal(out[1][:, :, 0].cpu(), torch.full(
+                    (B, H), 7, dtype=torch.int32)), "topk_read: row 7 first")
+        torch.cuda.synchronize()
+    print(f"[mesh] topk_read against its plain version at (B, H, W, K) = "
+          f"({B}, {H}, {W}, {K}) on {', '.join(cases)}: indices equal "
+          f"(near-ties {checker.near_ties} so far), scores err "
+          f"{checker.err['topk_read']:.3g}; indices equal fused_read_sweep's "
+          f"bit for bit")
+    blk = cases["block 0"][1]
+
+    def topk_row(m_, n_, iters):
+        return dict(
+            ms=time_ms(lambda: topk_read(q, m_, k=K, valid_n=n_), iters,
+                       flush),
+            plain_ms=time_ms(lambda: ref.topk_read_ref(q, m_, K, valid_n=n_),
+                             5, flush),
+            library_ms=None,
+            bound=bound(4 * (B * n_ * W + B * H * W + 2 * B * H * K),
+                        B * n_ * W * (2 * H + 2)))
+
+    row = topk_row(blk, ln, 50)
+    row["full"] = topk_row(mem, N, 20)
+    del cases, dup, q_dup
+
+    # (b) the sharded forward: S ranks on this card over gloo, from the
+    # model's weights and phase 3's inputs.
+    payload = {"params": {g: {n: t.detach().cpu().numpy() for n, t in
+                              grp.items()} for g, grp in params.items()},
+               "xs": xs.cpu().numpy(), "device": str(dev)}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as path:
+        mp.spawn(_mesh_rank, args=(S, path, payload), nprocs=S)
+        runs = [torch.load(f"{path}/rank{r}.pt", weights_only=False)
+                for r in range(S)]
+    spawn_s = time.perf_counter() - t0
+    for r, run in enumerate(runs):
+        require(torch.equal(run["ys"], runs[0]["ys"]),
+                f"rank {r}'s ys differ from rank 0's")
+    memory = torch.cat([run["memory"] for run in runs], 1)   # (B, N, W)
+    ys_err = rel_err(runs[0]["ys"], mesh_ref["ys"])
+    mem_err = rel_err(memory, mesh_ref["memory"])
+    words_err = rel_err(runs[0]["read_words"], mesh_ref["read_words"])
+    not_bit_equal = int((memory != mesh_ref["memory"]).sum())
+    require(max(ys_err, mem_err, words_err) <= TOL,
+            f"the sharded rollout is not the single-device one: ys err "
+            f"{ys_err:.3g}, memory err {mem_err:.3g}, read words err "
+            f"{words_err:.3g}")
+    require(torch.equal(runs[0]["la"], mesh_ref["la"]),
+            "the sharded usage table differs from the single-device one")
+    require(torch.equal(runs[0]["read_idx"], mesh_ref["read_idx"]),
+            "the sharded read indices differ from the single-device ones")
+    checker.err["topk_read"] = max([checker.err["topk_read"]]
+                                   + [run["err"] for run in runs])
+    checker.near_ties += sum(run["near_ties"] for run in runs)
+    print(f"[mesh] S={S} ranks on {dev} over gloo ({spawn_s:.1f} s with the "
+          f"spawn): launches per rank {runs[0]['launches']} over T={T} "
+          f"steps, every step checked against the plain versions (top-K "
+          f"err {checker.err['topk_read']:.3g}, write err "
+          f"{max(run['write_err'] for run in runs):.3g}); ys, read words "
+          f"and indices bit-identical across ranks; against phase 3's "
+          f"single-device rollout: ys err {ys_err:.3g}, memory err "
+          f"{mem_err:.3g} ({not_bit_equal} of {memory.numel()} elements "
+          f"not bit-equal), read words err {words_err:.3g}, usage table and "
+          f"read indices exact")
+    card = card_line()
+    print(f"[mesh] times ({MESH_LABEL}; {card}): host ms/step per rank "
+          f"{[round(run['host_ms'], 4) for run in runs]} (median of 3), in "
+          f"the collectives {[round(run['coll_ms'], 4) for run in runs]}; "
+          f"single-device exact step (phase 6) {step_ms:.4f}; device "
+          f"ms/step on rank 0 {runs[0]['device_ms']:.4f} "
+          f"({', '.join(f'{k} {v:.3f}' for k, v, _ in runs[0]['device_top'][:4])}"
+          f"); peak per rank {[run['peak'] for run in runs]} B beside a "
+          f"block of {runs[0]['block_bytes']} B; bytes per step per rank "
+          f"{runs[0]['bytes_per_step']}")
+    print(f"[mesh] topk_read ({card}): block (B, 2^18+1, W) "
+          f"{row['ms']:.4f} ms (bound {row['bound'][0]:.4f}, plain "
+          f"{row['plain_ms']:.3f}); whole (B, 2^20+1, W) "
+          f"{row['full']['ms']:.4f} ms (bound {row['full']['bound'][0]:.4f}, "
+          f"plain {row['full']['plain_ms']:.3f}); a bare all-gather of "
+          f"(B, H, K) f32 per rank: CUDA tensor "
+          f"{[round(run['bare_ms_dev'], 4) for run in runs]} ms, host "
+          f"tensor {[round(run['bare_ms_host'], 4) for run in runs]} ms")
+    return {"row": row, "launches": runs[0]["launches"], "mesh": {
+        "label": MESH_LABEL, "card": card, "shards": S,
+        "launches_per_rank": [run["launches"] for run in runs],
+        "ys_err": ys_err, "memory_err": mem_err, "read_words_err": words_err,
+        "memory_not_bit_equal": not_bit_equal,
+        "host_ms_per_step": [run["host_ms"] for run in runs],
+        "host_ms_all": [run["host_all"] for run in runs],
+        "collective_ms_per_step": [run["coll_ms"] for run in runs],
+        "collective_bytes_per_step": runs[0]["bytes_per_step"],
+        "bare_all_gather_ms": {"cuda": [run["bare_ms_dev"] for run in runs],
+                               "host": [run["bare_ms_host"] for run in runs]},
+        "device_ms_per_step_rank0": runs[0]["device_ms"],
+        "peak_bytes": [run["peak"] for run in runs],
+        "block_bytes": runs[0]["block_bytes"],
+        "single_device_ms_per_step": step_ms}}
+
+
 def run() -> None:
     require(torch.cuda.is_available(), "no CUDA device")
     sys.path.insert(0, str(ROOT / "src"))
@@ -1329,6 +1662,7 @@ def run() -> None:
         from repro_torch.kernels.lsh_hash import lsh_hash
         from repro_torch.kernels.scatter_rows import scatter_rows
         from repro_torch.kernels.sparse_write import sparse_write_update
+        from repro_torch.kernels.topk_read import topk_read
         from repro_torch.kernels.usage_argmin import lra_topn, usage_argmin
         from repro_torch.optim import optimizers as opt
     except ImportError as e:
@@ -1345,7 +1679,7 @@ def run() -> None:
                "lra_topn": lra_topn, "scatter_rows": scatter_rows,
                "lsh_hash": lsh_hash,
                "fused_read_candidates": fused_read_candidates,
-               "usage_argmin": usage_argmin}
+               "usage_argmin": usage_argmin, "topk_read": topk_read}
 
     def zero_counts():
         for fn in kernels.values():
@@ -1472,6 +1806,13 @@ def run() -> None:
             and state.last_access[:, N].eq(LA_SCRATCH).all().item(),
             "the scratch row was touched")
     require(int(state.step) == T, "step counter")
+    require(fwd_launches["topk_read"] == 0, "the single-device rollout "
+            "launched topk_read")
+    # What phase 10 holds the sharded rollout against, kept on the host.
+    mesh_ref = {"ys": ys.cpu(), "memory": state.memory[:, :N].cpu(),
+                "la": state.last_access.cpu(),
+                "read_idx": state.read.indices.cpu(),
+                "read_words": state.read.words.cpu()}
     # The same cell on a small input: kernels on the card vs plain on the CPU.
     small = sam.SAMConfig(MemoryConfig(num_slots=1000, word_size=W,
                                        num_heads=H, k=K, delta=DELTA),
@@ -2198,12 +2539,13 @@ def run() -> None:
     rows["flash_attention"] = lmr["row"]
     checker.err["flash_attention"] = lmr["err"]
 
-    # ---- 10. report ----
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    require(smi.returncode == 0 and smi.stdout.strip(), "nvidia-smi failed")
-    print(smi.stdout.strip().splitlines()[0])
+    # ---- 10. the slot-sharded memory: MESH_S ranks over gloo ----
+    mesh = mesh_phase(dev, ref, checker, flush, rec, mesh_ref,
+                      model.params(), xs, step_ms)
+    rows["topk_read"] = mesh["row"]
+
+    # ---- 11. report ----
+    print(card_line())
     # Launches: each kernel's count in the main path of its own read, the
     # exact-read train step or (the hash, the candidate read) sam_ann's.
     path_of = {"lsh_hash": launches_l, "fused_read_candidates": launches_l,
@@ -2214,7 +2556,8 @@ def run() -> None:
                "fused_read_candidates_bf16": dtype_launches["bfloat16/lsh"],
                "fused_read_candidates_int8": dtype_launches["int8/lsh"],
                "usage_argmin": dense["launches"],
-               "flash_attention": lmr["launches"]}
+               "flash_attention": lmr["launches"],
+               "topk_read": mesh["launches"]}
     report = []
     for name, r in rows.items():
         replaces, source = REPLACES[name]
@@ -2235,6 +2578,7 @@ def run() -> None:
     by_name["scatter_rows"]["add"] = sub(scatter_add)
     by_name["lsh_hash"]["query"] = sub(hash_query)
     by_name["lsh_hash"]["bulk"] = sub(hash_bulk)
+    by_name["topk_read"]["full"] = sub(mesh["row"]["full"])
     by_name["flash_attention"]["bf16"] = dict(
         sub(lmr["row"]["bf16"]), max_abs_err=lmr["bf16_err"],
         launches=lmr["bf16_launches"])
@@ -2268,7 +2612,7 @@ def run() -> None:
                       "dtypes": dtype_runs,
                       "dense": {k: v for k, v in dense.items()
                                 if k != "row"},
-                      "lm": lmr["lm"]}))
+                      "lm": lmr["lm"], "mesh": mesh["mesh"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

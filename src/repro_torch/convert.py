@@ -7,8 +7,9 @@ matrices kept (in, out), so ``x @ w`` holds on both sides, plus
 ``lsh_planes`` (T, bits, W) for an LSH cell. SAM's state is the
 scratch-row `SAMState`, with the single-device LSH index (`ANNState`,
 P = 1) where there is one; the dense models' is `DenseState`, with a plain
-(B, N, W) memory. The LM's weights are the nested tree of
-`models/lm.py::param_defs` (stacked ``blocks``, ``memory``, ``embed``,
+(B, N, W) memory. `sharded_state_from_jax` cuts a SAM state into one
+rank's block of a slot-sharded memory. The LM's weights are the nested
+tree of `models/lm.py::param_defs` (stacked ``blocks``, ``memory``, ``embed``,
 ``final_norm``, ``lm_head``) on both sides; its cache is {"k", "v", "pos"}
 and its memory states a tuple of `sam_layer.MemoryState`. The functions
 take numpy leaves (or anything `numpy.asarray` reads) and import nothing
@@ -19,8 +20,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.types import (ANNState, DenseState, LSTMState,
-                                    SAMState, SparseRead)
+from repro_torch.core.types import (SCRATCH_ROWS, SLOT_LEAVES, ANNState,
+                                    DenseState, LSTMState, SAMState,
+                                    SparseRead)
 from repro_torch.optim.optimizers import RMSPropState
 
 _PARAM_GROUPS = {"lstm": ("wx", "wh", "b"), "iface": ("w", "b"),
@@ -115,6 +117,24 @@ def state_from_jax(state, *, device="cuda") -> SAMState:
                          else ann_from_jax(state.ann, device=device)),
                     mem_scale=(None if scale is None
                                else _tensor(scale, np.float32, device)))
+
+
+def sharded_state_from_jax(state, ctx, *, device="cuda") -> SAMState:
+    """A JAX `SAMState` in the canonical (B, N+1, ...) layout -> this
+    rank's state of the slot-sharded memory of context ``ctx``
+    (`mem_shard.MemShardCtx`): each `SLOT_LEAVES` leaf becomes block
+    ``ctx.rank`` (`mem_shard.shard_block`), every other leaf is
+    replicated. Raises on a state whose memory is not canonical for
+    ``ctx.num_slots``."""
+    from repro_torch.distributed import mem_shard
+    full = state_from_jax(state, device=device)
+    if full.memory.shape[1] != ctx.num_slots + SCRATCH_ROWS:
+        raise ValueError(f"expected a canonical (B, {ctx.num_slots} + 1, W) "
+                         f"memory, got {tuple(full.memory.shape)}")
+    return full._replace(**{
+        name: mem_shard.shard_block(getattr(full, name), ctx.num_slots,
+                                    ctx.shards, ctx.rank)
+        for name in SLOT_LEAVES if getattr(full, name, None) is not None})
 
 
 def dense_state_from_jax(state, *, device="cuda") -> DenseState:

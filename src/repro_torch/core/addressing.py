@@ -1,18 +1,24 @@
-"""Content-based addressing and usage tracking (paper §3.1-3.2): the
-single-device part of `repro/core/addressing.py`. The dense read (eq. 2)
-and DAM's discounted usage for the dense models; the sparse reads, exact
-and LSH, on f32, bf16 or int8 rows (``mem_scale=``: the (B, N+1) f32
-per-row scales of int8 rows). Every kernel operation goes through
+"""Content-based addressing and usage tracking (paper §3.1-3.2), the port
+of `repro/core/addressing.py`. The dense read (eq. 2) and DAM's
+discounted usage for the dense models; the sparse reads, exact and LSH,
+on f32, bf16 or int8 rows (``mem_scale=``: the (B, N+1) f32 per-row
+scales of int8 rows). Every kernel operation goes through
 `repro_torch.kernels.ops`, which runs the CUDA kernels on the card and the
 plain versions on the CPU. `gather_rows` returns the raw storage bits;
-the reads upcast or dequantize what they gather."""
+the reads upcast or dequantize what they gather.
+
+On a slot-sharded memory (`distributed/mem_shard.py`) the caller passes
+``shard=``, the context of the block it holds (`mem_shard.memory_layout`
+classifies the buffer), and the exact read, the LRA selection, the write,
+the usage stamp and the row gather take their sharded counterparts,
+which use global indices."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.types import SparseRead
+from repro_torch.distributed import mem_shard
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.ref import gather_rows
 
 
 # Rows per chunk of the dense models' products over N. cuBLAS runs an
@@ -76,6 +82,18 @@ def dam_usage_update(usage: torch.Tensor, read_w: torch.Tensor,
     return discount * usage + read_w.sum(dim=1) + write_w.sum(dim=1)
 
 
+def gather_rows(m: torch.Tensor, idx: torch.Tensor, *,
+                shard=None) -> torch.Tensor:
+    """m: (B, N, W), idx: (B, ...) -> the rows idx names, (B, ..., W)
+    (`ref.gather_rows`); on a rank's block, ``shard`` given, the rows of
+    global indices, assembled from the ranks that own them."""
+    if shard is None:
+        return ref.gather_rows(m, idx)
+    B = m.shape[0]
+    rows = mem_shard.gather_rows_sharded(shard, m, idx.reshape(B, -1))
+    return rows.reshape(tuple(idx.shape) + (m.shape[-1],))
+
+
 def gather_scales(mem_scale: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """mem_scale: (B, N), idx: (B, ...) -> (B, ...): the per-row scales of
     the rows idx names (int8 rows)."""
@@ -83,10 +101,18 @@ def gather_scales(mem_scale: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def sparse_read_exact(q: torch.Tensor, m: torch.Tensor, beta: torch.Tensor,
-                      k: int, *, valid_n: int | None = None,
-                      mem_scale=None) -> SparseRead:
+                      k: int, *, valid_n: int | None = None, mem_scale=None,
+                      shard=None) -> SparseRead:
     """'Linear index' SAM read: the exact K nearest rows by cosine
-    similarity among rows [0, valid_n), softmax over the kept K only."""
+    similarity among rows [0, valid_n), softmax over the kept K only: one
+    `ops.fused_read` call. On a rank's block (``shard``; f32 rows) the
+    sweep and merge are `mem_shard.topk_read_sharded`, the K rows come
+    from the ranks that own them and `read_from_rows` finishes the read,
+    with global indices."""
+    if shard is not None:
+        _, idx = mem_shard.topk_read_sharded(shard, q.detach(), m.detach(),
+                                             k)
+        return read_from_rows(q, gather_rows(m, idx, shard=shard), beta, idx)
     read, w, idx = ops.fused_read(q, m, beta, k, valid_n=valid_n,
                                   mem_scale=mem_scale)
     return SparseRead(indices=idx, weights=w, words=read)
@@ -159,29 +185,37 @@ def scatter_set_rows(m: torch.Tensor, idx: torch.Tensor,
 
 
 def update_last_access(last_access: torch.Tensor, idx: torch.Tensor,
-                       w: torch.Tensor, step: torch.Tensor,
-                       delta: float) -> torch.Tensor:
+                       w: torch.Tensor, step: torch.Tensor, delta: float, *,
+                       shard=None) -> torch.Tensor:
     """Usage U^(2), in place: stamp `step` on the slots accessed with
     weight > δ. last_access: (B, N+1) int32; idx, w: (B, J)."""
-    idx = idx.long()
-    stamp = step.to(torch.int32).expand(idx.shape)
-    upd = torch.where(w > delta, stamp, torch.gather(last_access, 1, idx))
-    return last_access.scatter_reduce_(1, idx, upd, "amax", include_self=True)
+    if shard is not None:
+        return mem_shard.update_last_access_sharded(shard, last_access, idx,
+                                                    w, step, delta)
+    ref.stamp_usage(last_access, idx, w, step, delta)
+    return last_access
 
 
 def least_recently_accessed(last_access: torch.Tensor, n: int, *,
-                            valid_n: int | None = None) -> torch.Tensor:
+                            valid_n: int | None = None,
+                            shard=None) -> torch.Tensor:
     """The n least-recently-accessed slots per batch row (B, n) int32
     (eq. 6; ties toward the lowest index)."""
+    if shard is not None:
+        return mem_shard.lra_topn_sharded(shard, last_access, n)
     return ops.lra_topn(last_access, n, valid_n=valid_n)
 
 
 def sparse_write_update(memory, last_access, write_idx, write_w, a, lra_idx,
-                        step, delta: float, *, mem_scale=None):
+                        step, delta: float, *, mem_scale=None, shard=None):
     """The fused write side (eqs. 3/5/6 + the U^(2) stamp of written rows),
     in place on ``memory`` and ``last_access`` (and, for int8 rows, on
     their scales ``mem_scale``). Returns (memory, last_access), or
     (memory, last_access, mem_scale) with ``mem_scale``."""
+    if shard is not None:
+        return mem_shard.sparse_write_update_sharded(
+            shard, memory, last_access, write_idx, write_w, a, lra_idx,
+            step, delta=delta)
     return ops.sparse_write_update(memory, last_access, write_idx, write_w,
                                    a, lra_idx, step, delta=delta,
                                    mem_scale=mem_scale)

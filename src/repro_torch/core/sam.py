@@ -21,6 +21,14 @@ naive unroll of `core/unroll.py`), on f32 rows only: bf16 and int8 rows
 run forward only and raise when autograd records
 (`types.DTYPE_TRAINING_ITEM`). `sam_unroll` and `SAM.forward`, the
 forward-only path, run under `torch.inference_mode` and record none.
+
+Slot-sharded memory (`distributed/mem_shard.py`): under
+``mem_shard.memory_mesh(N)`` in each rank of a process group,
+`init_state` builds this rank's block and `sam_step` runs every memory op
+through its sharded counterpart (`mem_shard.memory_layout` tells a block
+from a whole memory). That route runs the exact read on f32 rows forward
+only; the LSH read, bf16 and int8 rows and a step recorded for training
+raise (`MESH_ITEM`).
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ import dataclasses
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils import _pytree as pytree
 
 from repro_torch.core import addressing as addr
 from repro_torch.core import ann as ann_lib
@@ -39,7 +48,13 @@ from repro_torch.core.types import (MEM_DTYPES, ControllerConfig,
                                     StepDeltas, init_scratch_last_access,
                                     init_scratch_mem_scale,
                                     init_scratch_memory, require_live)
+from repro_torch.distributed import mem_shard
 from repro_torch.kernels import ref
+
+# The open roadmap item that the slot-sharded memory's other routes wait on.
+MESH_ITEM = ("on a slot-sharded memory the port runs the exact read on "
+             "float32 rows, forward only; the LSH read, bf16 and int8 rows "
+             "and training are ROADMAP.md A11")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,9 +97,13 @@ def init_state(batch: int, cfg: SAMConfig, *, device="cuda") -> SAMState:
     """A zero state: the memory in the storage dtype ``mem_dtype`` (int8
     rows with all-zero scales, so every cold row dequantizes to exactly
     0.0), the staggered usage table, a zero read and controller, and an
-    empty LSH index for an ``ann="lsh"`` cell."""
+    empty LSH index for an ``ann="lsh"`` cell. Under
+    ``mem_shard.memory_mesh(N)`` the memory and usage table are this
+    rank's block, (B, N/S + 1, ...), built directly
+    (`mem_shard.init_layout`)."""
     mem, ctl = cfg.memory, cfg.controller
-    H, K, W, N = mem.num_heads, mem.k, mem.word_size, mem.num_slots
+    H, K, W = mem.num_heads, mem.k, mem.word_size
+    N, first = mem_shard.init_layout(mem.num_slots)
     read = SparseRead(
         indices=torch.zeros((batch, H, K), dtype=torch.int32, device=device),
         weights=torch.zeros((batch, H, K), device=device),
@@ -93,7 +112,8 @@ def init_state(batch: int, cfg: SAMConfig, *, device="cuda") -> SAMState:
         memory=init_scratch_memory(batch, N, W,
                                    dtype=MEM_DTYPES[mem.mem_dtype],
                                    device=device),
-        last_access=init_scratch_last_access(batch, N, device=device),
+        last_access=init_scratch_last_access(batch, N, first=first,
+                                             device=device),
         read=read, ctrl=lstm_zero_state(batch, ctl.hidden_size, device=device),
         step=torch.zeros((), dtype=torch.int32, device=device),
         ann=(ann_lib.ann_init(batch, mem, device=device)
@@ -161,9 +181,14 @@ def sam_step(params, cfg: SAMConfig, state: SAMState, x: torch.Tensor, *,
                          f"{'with' if mem.ann == 'lsh' else 'without'} an "
                          f"LSH index")
     require_live(state)
-    if state.memory.shape[1] != N + 1:
-        raise ValueError(f"memory must be in the (B, N+1, W) scratch-row "
-                         f"layout, got {tuple(state.memory.shape)} for N={N}")
+    shard = mem_shard.memory_layout(N, state.memory.shape[1])
+    if shard is not None and (
+            mem.ann == "lsh" or mem.mem_dtype != "float32" or collect_deltas
+            or (torch.is_grad_enabled() and any(
+                t.requires_grad for t in [x, *pytree.tree_leaves(params)]))):
+        raise NotImplementedError(
+            f"ann={mem.ann!r}, mem_dtype={mem.mem_dtype!r}, collect_deltas="
+            f"{collect_deltas}, autograd recording: {MESH_ITEM}")
     B = x.shape[0]
     ctrl_in = torch.cat([x, state.read.words.reshape(B, -1)], dim=-1)
     ctrl, h = lstm_step(params["lstm"], state.ctrl, ctrl_in)
@@ -171,7 +196,8 @@ def sam_step(params, cfg: SAMConfig, state: SAMState, x: torch.Tensor, *,
 
     # ---- write (uses the previous step's read locations, eq. 5) ----
     step = state.step + 1
-    lra_idx = addr.least_recently_accessed(state.last_access, H, valid_n=N)
+    lra_idx = addr.least_recently_accessed(state.last_access, H, valid_n=N,
+                                           shard=shard)
     widx, ww, _, _ = write_plan(cfg, state.read, lra_idx, alpha, gamma)
     old_scale = None
     if collect_deltas:
@@ -187,7 +213,7 @@ def sam_step(params, cfg: SAMConfig, state: SAMState, x: torch.Tensor, *,
     else:
         memory, la = addr.sparse_write_update(
             state.memory, state.last_access, widx, ww, a, lra_idx, step,
-            mem.delta)
+            mem.delta, shard=shard)
 
     # ---- read (content-based, sparse) and its usage stamp ----
     if mem.ann == "lsh":
@@ -206,10 +232,11 @@ def sam_step(params, cfg: SAMConfig, state: SAMState, x: torch.Tensor, *,
         ann_state = ann_lib.ann_insert(planes, state.ann, widx, rows, mem)
     else:
         read = addr.sparse_read_exact(q, memory, beta, K, valid_n=N,
-                                      mem_scale=mem_scale)
+                                      mem_scale=mem_scale, shard=shard)
         read_sel, ann_state = read.indices, None
     la = addr.update_last_access(la, read.indices.reshape(B, -1),
-                                 read.weights.reshape(B, -1), step, mem.delta)
+                                 read.weights.reshape(B, -1), step, mem.delta,
+                                 shard=shard)
 
     y = linear(params["out"], torch.cat([h, read.words.reshape(B, -1)], -1))
     new_state = SAMState(memory=memory, last_access=la, read=read, ctrl=ctrl,

@@ -21,6 +21,11 @@ SCRATCH_ROWS = 1
 # `last_access` value pinned on the scratch row: int32 max, so LRA
 # selection can never pick it.
 LA_SCRATCH = 2 ** 31 - 1
+# Field names of the state leaves indexed by slot: the leaves that a
+# slot-sharded memory splits into blocks (`distributed/mem_shard.py`,
+# `convert.sharded_state_from_jax`); every other leaf is replicated.
+# ``usage`` is the dense models' and the DNC's table.
+SLOT_LEAVES = frozenset({"memory", "last_access", "usage", "mem_scale"})
 
 
 # Storage dtypes of the memory rows (`MemoryConfig.mem_dtype`).
@@ -45,15 +50,17 @@ def init_scratch_mem_scale(batch: int, num_slots: int, *,
                        dtype=torch.float32, device=device)
 
 
-def init_scratch_last_access(batch: int, num_slots: int, *,
+def init_scratch_last_access(batch: int, num_slots: int, *, first: int = 0,
                              device="cuda") -> torch.Tensor:
     """(B, N+1) int32 usage table: the logical rows staggered with
     ``-arange(N)`` so the first LRA picks are N-1, N-2, ..., and the
-    scratch entry pinned to `LA_SCRATCH`."""
+    scratch entry pinned to `LA_SCRATCH`. With ``first`` the N rows are the
+    global rows first .. first+N-1 of a larger memory (a rank's block of a
+    slot-sharded one) and hold -first .. -(first+N-1)."""
     la = torch.empty((batch, num_slots + SCRATCH_ROWS), dtype=torch.int32,
                      device=device)
-    la[:, :num_slots] = -torch.arange(num_slots, dtype=torch.int32,
-                                      device=device)
+    la[:, :num_slots] = -torch.arange(first, first + num_slots,
+                                      dtype=torch.int32, device=device)
     la[:, num_slots:] = LA_SCRATCH
     return la
 

@@ -38,6 +38,16 @@
 // tail and gathers the K rows for the weighted sum. The two launches count
 // as one kernel of the port.
 //
+// topk_read (topk_read_launch, f32 rows) is the same two launches with
+// pass 2's tail switched off at compile time: it replaces
+// src/repro/kernels/topk_read.py::topk_read (_kernel, pallas_call at
+// topk_read.py:69), the tiled cosine top-K of the slot-sharded memory's
+// read, and returns (vals (B, H, K) f32, idx (B, H, K) int32) over rows
+// [0, valid_n) in the same (similarity desc, index asc) order. Sharing
+// pass 1 gives the sharded sweep the single-device read's scores bit for
+// bit, so a shard picks exactly the rows the fused read picks, near-ties
+// included. Its bound is the fused read's: the bytes of the swept rows.
+//
 // Storage types: the row type is a template parameter (rows.cuh), and
 // the one place it shows is the staging of a tile: each thread loads 16
 // bytes (4 f32, 8 bf16 or 16 int8 values, the latter with their row's
@@ -255,7 +265,9 @@ fused_read_pass1(const float* __restrict__ q,
   }
 }
 
-template <class R>
+// kTail = false is topk_read: the merged (value, index) pairs are written to
+// w_out and idx_out, and beta, read and the memory are not touched.
+template <class R, bool kTail>
 __global__ void __launch_bounds__(kMergeThreads)
 fused_read_pass2(const float* __restrict__ cand_v,
                  const int* __restrict__ cand_i, int ncand,
@@ -302,6 +314,13 @@ fused_read_pass2(const float* __restrict__ cand_v,
     if (t == 0) { sel_v[k] = bv; sel_i[k] = bi; }
   }
   __syncthreads();
+  if constexpr (!kTail) {
+    if (t < K) {
+      w_out[(long long)bh * K + t] = sel_v[t];
+      idx_out[(long long)bh * K + t] = sel_i[t];
+    }
+    return;
+  }
   if (t == 0) {
     // Softmax tail of fused_read.py:70-78 (exact reads are all valid).
     const float bt = beta[bh];
@@ -351,7 +370,7 @@ cudaError_t launch_pass1(dim3 grid, size_t smem, cudaStream_t s,
   return cudaGetLastError();
 }
 
-template <class R>
+template <class R, bool kTail>
 cudaError_t launch(const float* q, const void* mem, const float* scale,
                    const float* beta, int batch, int H, int K, int W,
                    int valid_n, long long rows_per_b, float* cand_v,
@@ -371,7 +390,7 @@ cudaError_t launch(const float* q, const void* mem, const float* scale,
 #undef PASS1
   }
   if (err != cudaSuccess) return err;
-  fused_read_pass2<R><<<batch * H, kMergeThreads, 0, s>>>(
+  fused_read_pass2<R, kTail><<<batch * H, kMergeThreads, 0, s>>>(
       cand_v, cand_i, chunks * K, static_cast<const typename R::T*>(mem),
       scale, rows_per_b, beta, H, K, W, read, w_out, idx_out);
   return cudaGetLastError();
@@ -399,16 +418,30 @@ int fused_read_launch(const float* q, const void* mem, const float* scale,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (row_dtype == 0)
-    err = launch<RowsF32>(q, mem, scale, beta, batch, H, K, W, valid_n,
+    err = launch<RowsF32, true>(q, mem, scale, beta, batch, H, K, W, valid_n,
                           rows_per_b, cand_v, cand_i, read, w_out, idx_out, s);
   else if (row_dtype == 1)
-    err = launch<RowsBF16>(q, mem, scale, beta, batch, H, K, W, valid_n,
+    err = launch<RowsBF16, true>(q, mem, scale, beta, batch, H, K, W, valid_n,
                            rows_per_b, cand_v, cand_i, read, w_out, idx_out,
                            s);
   else if (row_dtype == 2)
-    err = launch<RowsI8>(q, mem, scale, beta, batch, H, K, W, valid_n,
+    err = launch<RowsI8, true>(q, mem, scale, beta, batch, H, K, W, valid_n,
                          rows_per_b, cand_v, cand_i, read, w_out, idx_out, s);
   return (int)err;
+}
+
+// topk_read: q (B, H, W), mem (B, rows_per_b, W) f32 -> vals, idx (B, H, K)
+// over rows [0, valid_n); cand_v/cand_i as for fused_read_launch.
+int topk_read_launch(const float* q, const float* mem, int batch, int H,
+                     int K, int W, int valid_n, long long rows_per_b,
+                     float* cand_v, int* cand_i, float* vals, int* idx,
+                     void* stream) {
+  if (H < 1 || H > kMaxH || K < 1 || K > kMaxK || W < 4 || valid_n < K
+      || batch < 1 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch<RowsF32, false>(
+      q, mem, nullptr, nullptr, batch, H, K, W, valid_n, rows_per_b, cand_v,
+      cand_i, nullptr, vals, idx, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,6 +1,8 @@
 """Device dispatch of the memory ops (the f32, single-device part of
 `repro/kernels/ops.py`), and their gradients; and of the LM's causal
-attention (`flash_attention`, forward only).
+attention (`flash_attention`, forward only). The ops never route a
+slot-sharded memory: `distributed/mem_shard.py` calls them on a rank's
+block with the block's ``valid_n``.
 
 A CPU tensor takes the plain version in `kernels/ref.py`; a CUDA tensor
 launches the hand-written kernel, which raises on anything it cannot take
@@ -41,6 +43,7 @@ from repro_torch.kernels.lsh_hash import lsh_hash as lsh_hash_kernel
 from repro_torch.kernels.scatter_rows import scatter_rows as scatter_rows_kernel
 from repro_torch.kernels.sparse_write import \
     sparse_write_update as sparse_write_kernel
+from repro_torch.kernels.topk_read import topk_read as topk_read_kernel
 from repro_torch.kernels.usage_argmin import lra_topn as lra_topn_kernel
 from repro_torch.kernels.usage_argmin import \
     usage_argmin as usage_argmin_kernel
@@ -67,6 +70,20 @@ def lra_topn(last_access: torch.Tensor, n: int, *, valid_n: int | None = None):
         la = last_access if valid_n is None else last_access[:, :valid_n]
         return ref.lra_topn_ref(la, n)
     return lra_topn_kernel(last_access, n, valid_n=valid_n)
+
+
+def topk_read(q: torch.Tensor, mem: torch.Tensor, k: int, *,
+              valid_n: int | None = None):
+    """q: (B, H, W), mem: (B, rows, W) f32 -> (vals (B, H, K) f32, idx
+    (B, H, K) int32): the K rows among [0, valid_n) of highest cosine
+    similarity, by (similarity desc, index asc). A selection: it has no
+    gradient and raises when autograd records (the caller detaches)."""
+    if _records(q, mem):
+        raise ValueError("topk_read is a selection and has no gradient: "
+                         "pass detached q and mem")
+    if _on_cpu(mem):
+        return ref.topk_read_ref(q, mem, k, valid_n=valid_n)
+    return topk_read_kernel(q.contiguous(), mem, k=k, valid_n=valid_n)
 
 
 def usage_argmin(usage: torch.Tensor, *, valid_n: int | None = None):

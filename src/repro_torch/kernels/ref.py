@@ -43,11 +43,13 @@ def _normalize(x: torch.Tensor) -> torch.Tensor:
     return x * torch.rsqrt((x * x).sum(-1, keepdim=True) + _EPS)
 
 
-def topk_read_ref(q: torch.Tensor, mem: torch.Tensor, k: int):
-    """q: (B, H, W), mem: (B, N, W) -> (vals (B,H,K), idx (B,H,K) int32):
-    the K rows of highest cosine similarity, ordered by (sim desc,
-    index asc)."""
-    sims = torch.einsum("bhw,bnw->bhn", _normalize(q), _normalize(mem))
+def topk_read_ref(q: torch.Tensor, mem: torch.Tensor, k: int,
+                  valid_n: int | None = None):
+    """q: (B, H, W), mem: (B, rows, W) -> (vals (B,H,K), idx (B,H,K)
+    int32): the K rows among [0, valid_n) (default: all) of highest cosine
+    similarity, ordered by (sim desc, index asc)."""
+    mv = mem if valid_n is None else mem[:, :valid_n]
+    sims = torch.einsum("bhw,bnw->bhn", _normalize(q), _normalize(mv))
     vals, idx = torch.sort(sims, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k].to(torch.int32)
 
@@ -266,19 +268,19 @@ def sparse_write_update_ref(mem: torch.Tensor, last_access: torch.Tensor,
     scatter_rows_ref(mem, lra_idx, mem.new_zeros((B, H, W)), "set")
     scatter_rows_ref(mem, write_idx, write_rows(write_w, a).to(mem.dtype),
                      "add")
-    _stamp(last_access, write_idx, write_w, step, delta)
+    stamp_usage(last_access, write_idx, write_w, step, delta)
     return mem, last_access
 
 
-def _stamp(last_access, write_idx, write_w, step, delta) -> None:
-    """The write's usage stamp, in place: max(la, step[b]) on every row a
-    column with weight > δ hits."""
-    B, J = write_idx.shape
-    widx = write_idx.long()
-    b = torch.arange(B, device=last_access.device)[:, None]
+def stamp_usage(last_access, idx, w, step, delta) -> None:
+    """The usage stamp U^(2), in place: max(la, step[b]) on every row that
+    an entry of idx (B, J) with weight w (B, J) > δ names (the write's
+    stamp and the read's, `addressing.update_last_access`)."""
+    B, J = idx.shape
+    i = idx.long()
     stamp = _lane_step(step, B, last_access.device)[:, None].expand(B, J)
-    upd = torch.where(write_w > delta, stamp, last_access[b, widx])
-    last_access.scatter_reduce_(1, widx, upd, "amax", include_self=True)
+    upd = torch.where(w > delta, stamp, torch.gather(last_access, 1, i))
+    last_access.scatter_reduce_(1, i, upd, "amax", include_self=True)
 
 
 def fma_f32(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
@@ -328,7 +330,7 @@ def sparse_write_update_q_ref(mem: torch.Tensor, mem_scale: torch.Tensor,
     own = first_occurrence(i)
     mem[b[own], i[own]] = new_q[own]
     mem_scale[b[own], i[own]] = new_s[own]
-    _stamp(last_access, write_idx, write_w, step, delta)
+    stamp_usage(last_access, write_idx, write_w, step, delta)
     return mem, last_access, mem_scale
 
 

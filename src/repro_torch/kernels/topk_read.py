@@ -1,0 +1,70 @@
+"""Wrapper of the cosine top-K kernel (`topk_read_launch` in
+`csrc/fused_read.cu`), the port of `repro/kernels/topk_read.py::topk_read`:
+the read of the slot-sharded memory (`distributed/mem_shard.py`) sweeps a
+rank's block with it. It runs the exact read's first pass unchanged, so a
+block's rows score as they do in `fused_read_sweep`, and a merge pass
+without the softmax tail.
+
+CUDA tensors and f32 rows only: the caller (`kernels/ops.py`) sends CPU
+tensors to the plain version, `ref.topk_read_ref`. ``topk_read.launches``
+counts the launches (the two passes count as one).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.fused_read import check_rows
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"topk_read: {msg}")
+
+
+def topk_read(q: torch.Tensor, mem: torch.Tensor, *, k: int,
+              valid_n: int | None = None):
+    """q: (B, H, W) f32, mem: (B, rows, W) f32, of which rows [0, valid_n)
+    are swept (default: all) -> (vals (B, H, K) f32, idx (B, H, K) int32):
+    the K rows of highest cosine similarity, ordered by (similarity desc,
+    index asc). W must be a multiple of 4. Matches `ref.topk_read_ref`;
+    the indices are `fused_read_sweep`'s on the same inputs."""
+    _require(q.is_cuda, "q must be a CUDA tensor")
+    _require(mem.device == q.device, "q and mem must be on one device")
+    _require(q.dtype == torch.float32 and q.is_contiguous(),
+             "q must be a contiguous float32 tensor")
+    _require(mem.dtype == torch.float32, f"mem must be float32 (bf16 and "
+                                         f"int8 rows on the sharded memory "
+                                         f"are not ported), got {mem.dtype}")
+    _require(q.dim() == 3 and mem.dim() == 3, "q and mem must be 3-D")
+    B, H, W = q.shape
+    rows = mem.shape[1]
+    n = rows if valid_n is None else valid_n
+    _require(mem.shape[0] == B and mem.shape[2] == W,
+             f"mem {tuple(mem.shape)} does not match q {tuple(q.shape)}")
+    _require(1 <= k <= 8 and 1 <= H <= 8, "needs 1 <= k <= 8 and H <= 8")
+    check_rows(_require, mem, None, W)
+    _require(k <= n <= rows, f"valid_n={n} outside [{k}, {rows}]")
+    fn = _build.function("fused_read", "topk_read_launch",
+                         [_P, _P, _I, _I, _I, _I, _I, _L, _P, _P, _P, _P, _P])
+    ncand = _build.function("fused_read", "fused_read_num_candidates",
+                            [_I, _I])(n, k)
+    dev = q.device
+    cand_v = torch.empty((B, H, ncand), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((B, H, ncand), dtype=torch.int32, device=dev)
+    vals = torch.empty((B, H, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, H, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(q.data_ptr(), mem.data_ptr(), B, H, k, W, n, rows,
+                 cand_v.data_ptr(), cand_i.data_ptr(), vals.data_ptr(),
+                 idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check("topk_read", err)
+    topk_read.launches += 1
+    return vals, idx
+
+
+topk_read.launches = 0

@@ -37,6 +37,7 @@ from repro_torch.kernels.fused_read_candidates import fused_read_candidates
 from repro_torch.kernels.lsh_hash import lsh_hash
 from repro_torch.kernels.scatter_rows import scatter_rows
 from repro_torch.kernels.sparse_write import sparse_write_update
+from repro_torch.kernels.topk_read import topk_read
 from repro_torch.kernels.usage_argmin import lra_topn, usage_argmin
 
 pytestmark = pytest.mark.cuda
@@ -80,6 +81,48 @@ def test_fused_read_kernel_matches_plain(dev, N, case):
     if case == "zero":
         assert torch.equal(idx.cpu(), torch.arange(K, dtype=torch.int32)
                            .expand(B, H, K))
+
+
+@pytest.mark.parametrize("N,valid_n", [(1000, 1000), (4097, 4097),
+                                       (4097, 1025)])
+@pytest.mark.parametrize("case", ["rand", "zero", "dup"])
+def test_topk_read_kernel_matches_plain_and_fused_read(dev, N, valid_n, case):
+    """On a (B, N+1, W) buffer (a rank's block has this layout, with N its
+    share of the rows) and with a valid_n far short of it: indices equal
+    to the plain version's and to `fused_read_sweep`'s bit for bit, vals
+    within 1e-5."""
+    B, W, H, K = 3, 32, 4, 4
+    q, mem, beta = (torch.tensor(x, device=dev) for x in
+                    _read_inputs(np.random.default_rng(N + valid_n), B,
+                                 N, W, H, case))
+    vals, idx = topk_read(q, mem, k=K, valid_n=valid_n)
+    r_vals, r_idx = ref.topk_read_ref(q, mem, K, valid_n=valid_n)
+    f_idx = fused_read_sweep(q, mem, beta, k=K, valid_n=valid_n)[2]
+    torch.cuda.synchronize()
+    assert torch.equal(idx, r_idx)
+    assert torch.equal(idx, f_idx)
+    assert (vals - r_vals).abs().max().item() <= TOL
+    assert int(idx.max()) < valid_n
+    if case == "zero":
+        assert torch.equal(idx.cpu(), torch.arange(K, dtype=torch.int32)
+                           .expand(B, H, K))
+    assert torch.equal(ops.topk_read(q, mem, K, valid_n=valid_n)[1], idx)
+
+
+def test_topk_read_kernel_raises_on_inputs_it_cannot_take(dev):
+    q = torch.zeros((2, 4, 8), device=dev)
+    mem = torch.zeros((2, 65, 8), device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        topk_read(q, mem.to(torch.bfloat16), k=2)
+    with pytest.raises(ValueError, match="valid_n"):
+        topk_read(q, mem, k=4, valid_n=3)
+    with pytest.raises(ValueError, match="CUDA"):
+        topk_read(q.cpu(), mem.cpu(), k=2)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        topk_read(torch.zeros((2, 4, 6), device=dev),
+                  torch.zeros((2, 65, 6), device=dev), k=2)
+    with pytest.raises(ValueError, match="selection"):
+        ops.topk_read(q.requires_grad_(), mem, 2)
 
 
 @pytest.mark.parametrize("N", [1000, 4097])
