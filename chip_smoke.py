@@ -20,7 +20,10 @@ ranks sweep their blocks with the `topk_read` kernel. It fails (nonzero
 exit) if any phase fails:
 
 1. build the kernels from `src/repro_torch/kernels/csrc/` with nvcc for
-   sm_90a and print each kernel's registers, shared memory and spills;
+   sm_90a and print each kernel's registers, shared memory and spills,
+   and the HMMA (tensor-core) instructions in each `flash_attention`
+   kernel's SASS (`cuobjdump -sass`): the bf16 kernels must have them,
+   the f32 ones none;
 2. hold each kernel against its plain PyTorch version at full width, on
    the inputs of a real rollout: the all-zero first step and step 21 for
    the forward kernels; for `scatter_rows`, the inputs of a real backward:
@@ -83,7 +86,9 @@ exit) if any phase fails:
    a. `usage_argmin` against its plain version at (B, N) = (8, 2^20),
       indices equal, on DAM's initial usage table, the table at step 21 of
       the DAM rollout, an all-equal table, a minimum in two chunks, -0.0
-      beside +0.0, a ragged N and a ``valid_n``;
+      beside +0.0 (far apart, and inside one float4), a ragged N, a
+      ``valid_n``, and rows of N - 3 (misaligned) with each row's minimum
+      in the scalar head the kernel reads before its first float4;
    b. the DAM forward rollout (`Dense.forward`, T = 42, N = 2^20) in
       lockstep: the kernel's index equals the plain version's at every
       step; `usage_argmin` launches exactly T times and nothing else does;
@@ -103,8 +108,10 @@ exit) if any phase fails:
       configuration runs only where its byte reckoning (the state, the
       activations kept for the backward, two steps' temporaries) fits the
       free device memory, and is reported as left out otherwise;
-   e. the kernel's time at step 21's table, its plain version's and
-      `torch.argmin`'s;
+   e. the kernel's time at step 21's table, its share of the bound, its
+      plain version's and `torch.argmin`'s time and the factor against
+      it; then the kernel's time again, settled (the first follows (d)'s
+      release of tens of GB, after which kernels run slower a while);
 9. the LM (`repro_torch.models.lm`, weights from seed 0 held in bf16,
    7.9 B parameters):
    a. `flash_attention` against its plain version at (B, S, H, Hkv, D) =
@@ -124,9 +131,10 @@ exit) if any phase fails:
       the CPU, within 1e-4 of max(1, |CPU|) (`tests/test_torch_lm.py`'s
       bar), where the prefill's reads hold no near-tie at K;
    e. times: the attention kernel at layer 0's and layer 4's inputs
-      against its bound, its plain version and
-      `scaled_dot_product_attention`; the memory kernels at the LM's
-      shapes; the prefill (median of 3); the decode's ms per token, a
+      against its bound (bf16: q·kᵀ and the two bf16 products of p·v at
+      the tensor cores' rate; f32: f32 FMAs), its share of it, its plain
+      version and `scaled_dot_product_attention` (and the factor); the
+      memory kernels at the LM's shapes; the prefill (median of 3); the decode's ms per token, a
       window of 32 greedy steps timed as one span, the median of five
       windows after one untimed (single steps, median of 5, on the
       side); their peaks and the window's device time
@@ -187,7 +195,9 @@ suite's bar), or, where two f32 summation orders differ by more (the
 LM's scores reach a standard deviation of ~144: JAX draws stacked
 weights with fan_in = the layer count), no further from the f64 result
 than twice the plain version is; bf16 within one bf16 ulp of the
-output's magnitude (both round one f32 softmax, summed in other orders).
+output's magnitude (the kernel sums q·kᵀ on the tensor cores and keeps p
+at f32 precision as p_hi + p_lo for p·v; both versions round one f32
+result, summed in other orders).
 
 It exits nonzero without printing a result when no CUDA device is
 present or the port's sources are missing.
@@ -196,6 +206,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -312,6 +323,30 @@ def rel_err(got: torch.Tensor, want: torch.Tensor, size=None) -> float:
     d = (got.float() - want.float()).abs_()
     size = want.float().abs() if size is None else size.clone()
     return d.div_(size.clamp_min_(1.0)).max().item()
+
+
+def hmma_counts(lib: str) -> dict | str:
+    """HMMA (tensor-core) instructions per `flash_attention` kernel in the
+    library's SASS, from ``cuobjdump -sass``; a string saying why not where
+    the toolkit has no cuobjdump or it fails."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return "cuobjdump not found"
+    res = subprocess.run([tool, "-sass", lib], capture_output=True, text=True)
+    if res.returncode != 0:
+        return f"cuobjdump failed: {res.stderr.strip()[:200]}"
+    counts, fn = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            fn = next((k for k in ("flash_bf16_kernel", "flash_f32_kernel")
+                       if k in name), None)
+            if fn:
+                fn += "<" + name.split("ILi")[1].split("E")[0] + ">"
+                counts[fn] = 0
+        elif fn and "HMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -686,14 +721,27 @@ def dense_phase(dev, ops, ref, usage_argmin, checker, zero_counts, counts,
     signed = torch.rand((B, N), generator=cpu) + 1.0
     signed[rows_b, 40] = torch.where(rows_b % 2 == 0, -0.0, 0.0)
     signed[rows_b, 9000] = torch.where(rows_b % 2 == 0, 0.0, -0.0)
+    one4 = torch.rand((B, N), generator=cpu) + 1.0    # float4 40 .. 43
+    one4[rows_b, 41] = torch.where(rows_b % 2 == 0, -0.0, 0.0)
+    one4[rows_b, 42] = torch.where(rows_b % 2 == 0, 0.0, -0.0)
+    # Rows of N - 3 entries: row b starts b entries (mod 4) past a 16-byte
+    # boundary, so the kernel reads its first (-b) mod 4 entries as a
+    # scalar head; each row's minimum on the head's last entry.
+    heads = [(-b * (N - 3)) % 4 for b in range(B)]
+    in_head = [max(hd - 1, 0) for hd in heads]
+    misaligned = torch.rand((B, N - 3), generator=cpu) + 1.0
+    misaligned[rows_b, torch.tensor(in_head)] = 0.25
     cases = {
         "DAM's initial usage": (u0, None, [0] * B),
         f"step {step21} of the DAM rollout": (u21, None, None),
         "all equal": (torch.full((B, N), 0.5, device=dev), None, [0] * B),
         "a minimum in two chunks": (two.to(dev), None, lo.tolist()),
         "-0.0 and +0.0": (signed.to(dev), None, [40] * B),
+        "-0.0 and +0.0 in one float4": (one4.to(dev), None, [41] * B),
         f"ragged N = {N - 3}": (u21[:, :N - 3].contiguous(), None, None),
         f"valid_n = {N - 3}": (u21, N - 3, None),
+        f"a minimum in each misaligned row's head (N = {N - 3}, entries "
+        f"{in_head})": (misaligned.to(dev), None, in_head),
     }
     for name, (table, valid_n, want) in cases.items():
         got = usage_argmin(table, valid_n=valid_n)
@@ -915,17 +963,26 @@ def dense_phase(dev, ops, ref, usage_argmin, checker, zero_counts, counts,
               + "; ".join(cells) + f"; state {r['state_bytes']} B, kept for "
               f"the backward {r['kept_bytes']} B")
 
-    # (e) the kernel's time at step 21's table.
+    # (e) the kernel's time at step 21's table. (d) has just released
+    # tens of GB (`fits` empties the allocator's cache), and kernels
+    # timed right after such a release run slower for a while; the first
+    # time is the row's, as in earlier runs, and the kernel is timed
+    # again after its plain version and torch.argmin, settled.
     row = dict(ms=time_ms(lambda: usage_argmin(u21), 50, flush),
                plain_ms=time_ms(lambda: ref.usage_argmin_ref(u21), 20, flush),
                library_ms=time_ms(lambda: torch.argmin(u21, dim=-1), 50,
                                   flush),
                bound=bound(4 * (B * N + B), B * N))
+    settled_ms = time_ms(lambda: usage_argmin(u21), 50, flush)
     print(f"[time] usage_argmin: {row['ms']:.4f} ms (bound "
-          f"{row['bound'][0]:.6f} ms by {row['bound'][1]}), plain "
+          f"{row['bound'][0]:.6f} ms by {row['bound'][1]}: "
+          f"{row['bound'][0] / row['ms']:.1%} of it), plain "
           f"{row['plain_ms']:.4f} ms, library torch.argmin "
-          f"{row['library_ms']:.4f} ms")
-    return dict(row=row, launches=train["dam"]["launches"],
+          f"{row['library_ms']:.4f} ms ({row['ms'] / row['library_ms']:.2f}x "
+          f"its time); timed again after those: {settled_ms:.4f} ms "
+          f"({row['bound'][0] / settled_ms:.1%} of the bound)")
+    return dict(row=row, settled_ms=settled_ms,
+                launches=train["dam"]["launches"],
                 rollout_launches=rollout_launches, breakdown=breakdown,
                 train=train,
                 card_vs_cpu_grad_err=small_grad_err, comparison=table)
@@ -1198,13 +1255,15 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
 
     # (e) times: the kernel at layer 0's (bf16) and layer 4's (f32) inputs,
     # the memory kernels at the decode's 21st read, write and LRA. The
-    # bound: q·kᵀ and p·v take half the flop each. On bf16 inputs q·kᵀ is
-    # exact on the bf16 tensor cores (f32 sums); p·v keeps p in f32, as
-    # the TPU kernel does, so it stays at the f32 rate.
+    # bound: q·kᵀ and p·v take `half` flop each. On f32 inputs both are
+    # f32 FMAs (no TF32). On bf16 inputs q·kᵀ is exact on the bf16 tensor
+    # cores (f32 sums), and p·v with p at f32 precision, as the TPU kernel
+    # keeps it, is two bf16 products (p_hi and p_lo; TF32 at half the rate
+    # gives the same time): 3·half at the bf16 rate.
     def flash_row(q, k, v):
         Bq, S_, Hq, D_ = q.shape
         half = S_ * (S_ + 1) / 2 * Bq * Hq * 2 * D_
-        on_tc = half if q.dtype == torch.bfloat16 else 0
+        on_tc = 3 * half if q.dtype == torch.bfloat16 else 0
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         try:
             lib = time_ms(lambda: F.scaled_dot_product_attention(
@@ -1219,7 +1278,7 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
                              flush),
             library_ms=lib,
             bound=bound((2 * q.numel() + k.numel() + v.numel())
-                        * q.element_size(), 2 * half - on_tc, on_tc))
+                        * q.element_size(), 0 if on_tc else 2 * half, on_tc))
 
     flash_f32, flash_bf16 = flash_row(q4, k4, v4), flash_row(q0, k0, v0)
     del q0, k0, v0, q4, k4, v4
@@ -1321,9 +1380,12 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
     for name, r in (("flash_attention f32 (layer 4)", flash_f32),
                     ("flash_attention bf16 (layer 0)", flash_bf16),
                     *mem_rows.items()):
-        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        lib = "none" if r["library_ms"] is None else (
+            f"{r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x "
+            f"its time)")
         print(f"[time] {name} at the LM's shapes: {r['ms']:.4f} ms (bound "
-              f"{r['bound'][0]:.4f} ms by {r['bound'][1]}), plain "
+              f"{r['bound'][0]:.4f} ms by {r['bound'][1]}: "
+              f"{r['bound'][0] / r['ms']:.1%} of it), plain "
               f"{r['plain_ms']:.4f} ms, library {lib}")
     print(f"[time] prefill (B={LM_B}, S={LM_S}) {prefill_ms:.1f} ms, median "
           f"of {', '.join(f'{t:.1f}' for t in prefill_all)}; peak memory "
@@ -1708,6 +1770,18 @@ def run() -> None:
     for name, v in info.items():
         for line in ptxas_summary(v["ptxas"]):
             print(f"[build] {name}: {line}")
+    hmma = hmma_counts(info["flash_attention"]["path"])
+    if isinstance(hmma, str):
+        print(f"[build] flash_attention: HMMA not counted ({hmma}); the "
+              f"-Xptxas -v lines above are all there is")
+    else:
+        require(len(hmma) == 8 and all(
+                    (n > 0) == k.startswith("flash_bf16") for k, n in
+                    hmma.items()),
+                f"flash_attention's SASS: HMMA counts {hmma}: the bf16 "
+                f"kernels must run on the tensor cores, the f32 ones not")
+        print(f"[build] flash_attention: HMMA instructions in the SASS "
+              f"(cuobjdump -sass): {hmma}")
 
     cfg = sam.SAMConfig(MemoryConfig(num_slots=N, word_size=W, num_heads=H,
                                      k=K, delta=DELTA),

@@ -6,176 +6,450 @@
 // h reads kv head h / (H / Hkv) (:89-92). Scores are f32, masked to -1e30
 // where pos_q < pos_k; an online softmax (running max, running sum, an f32
 // accumulator rescaled by exp(m_prev - m_new)) takes the keys tile by tile,
-// p·v is f32, and the row is divided by max(l, 1e-20) at the end.
+// l is the f32 sum of the f32 p, and the row is divided by max(l, 1e-20)
+// at the end. Both instantiations run one block of four warps per (b·h,
+// tile of 64 query rows), the heaviest tiles (the last rows) first, walk
+// the 64-key tiles 0 .. the diagonal (the causal skip of the TPU kernel's
+// `pl.when`), fold the scale into exp2 (ex2.approx) and stream k and v
+// with 16-byte `cp.async` copies that are in flight while the tile before
+// computes. Rows and keys past S are zero-filled by cp.async's src-size
+// operand and never stored; the causal mask alone hides a ragged tile's
+// padded keys.
 //
-// What bounds it on the H100: operations. The causal half of the S×S
-// scores takes S(S+1)/2 · B · H · 4D flop (2.06e11 at B = 4, S = 2048,
-// H = 48, D = 128: 3.08 ms at 67 TFLOP/s), against 436 MB of q, k, v and o
-// at f32 (0.13 ms at 3.35 TB/s). f32 inputs must not go through TF32, whose
-// 10-bit mantissa cannot hold the JAX suite's 2e-5; so every product here
-// is an f32 FMA on the CUDA cores, and bf16 inputs are upcast as they are
-// loaded (exactly) and take the same path. The card's bound for bf16
-// inputs is lower: their q·kᵀ products are exact on the bf16 tensor cores
-// with f32 sums (half the flop at 989 TFLOP/s), and only p·v, with p in
-// f32 as the TPU kernel keeps it, needs the f32 rate: 1.64 ms at these
-// shapes. This design does not reach for it; mma.sync for q·kᵀ would.
+// What bounds it on the H100: operations. Let half = S(S+1)/2 · B·H · 2D,
+// the flop of q·kᵀ over the causal half (1.03e11 at B = 4, S = 2048,
+// H = 48, D = 128).
 //
-// Design: one block of 256 threads per (b·h, tile of 64 query rows),
-// the heaviest tiles (the last rows, which see the most keys) first. The
-// TPU kernel's sequential kv grid becomes a loop inside the block over the
-// key tiles 0 .. the diagonal, the causal skip of its `pl.when`. The q
-// tile, one k or v tile and the 64×64 tile of probabilities sit in shared
-// memory as f32 (88 KB at D = 128, so two blocks share an SM). Each thread
-// owns 4 query rows (ty + 16i) and, for the scores, 4 keys (tx + 16j): a
-// register tile of 16 scores, 64 FMAs per 8 16-byte shared loads; for the
-// output, 4 rows × D/16 columns of the accumulator, with the row's running
-// max and sum, in registers. The 16 threads that share a row reduce its
-// max and sum with warp shuffles. Rows and keys past S are zero on load
-// and never stored, so any S works: the causal mask alone hides a ragged
-// tile's padded keys from every real row.
+// bf16 inputs (`flash_bf16_kernel`): the tensor cores, FA2-style, with
+// mma.sync.m16n8k16 (bf16 operands, f32 accumulators). q·kᵀ is exact
+// products summed in f32. p stays f32 as the TPU kernel keeps it: it is
+// split into p_hi = bf16(p) and p_lo = bf16(p - p_hi), and p·v is two bf16
+// products into one f32 accumulator (v is bf16, so exact); rounding p once
+// would put the output one bf16 ulp from the plain version, the bar
+// itself. So the card's least time is 3·half at 989 TFLOP/s, 0.3128 ms at
+// those shapes (TF32 p·v at 495 TFLOP/s gives the same), beside 0.065 ms
+// of bytes. Each warp owns 16 query rows: q's A fragments are loaded once
+// (ldmatrix) and kept, the scores live in the mma's C fragments, the
+// online softmax runs in registers (row max by quad shuffles, each lane's
+// part of the sum reduced at the end), and the C fragments of p become
+// the A fragments of p·v in registers, so p never touches shared memory.
+// k and v stay bf16 in shared memory, in a double-buffered ring (tile t+1
+// loads while tile t computes: one barrier a tile), rows padded by 16
+// bytes so ldmatrix (and ldmatrix.trans for v's B fragments) meets no bank
+// conflict: 87 KB a block at D = 128, two blocks an SM. What holds it
+// back: two warps an SMSP (registers: 216 a thread at D = 128) cannot hide
+// the softmax between a warp's products, and mma.sync does not reach the
+// tensor cores' full rate; then the 4e8 exp2 of the causal half on the
+// SFUs (about 0.1 ms). wgmma with TMA and warp specialisation is the next
+// design.
+//
+// f32 inputs (`flash_f32_kernel`): f32 FMAs on the CUDA cores, 2·half at
+// 67 TFLOP/s (3.08 ms). TF32's 10-bit mantissa cannot hold the JAX suite's
+// 2e-5, and this kernel has no split-operand tensor-core scheme. Thread
+// (ty, tx) owns rows ty + 8i (i < 8): their scores against keys tx + 16j
+// (j < 4), an 8×4 register tile that takes 128 FMAs per 12 16-byte shared
+// loads, and their output columns (8 × D/16 accumulators, 256 FMAs per 16
+// loads of p and v). p goes through shared memory. The tiles' 16-byte
+// chunks are XOR-swizzled by row instead of padded, and k and v take
+// turns in one k slot and one v slot: v of tile t loads while q·kᵀ runs,
+// k of tile t+1 while p·v runs. 112 KB a block at D = 128, two blocks an
+// SM. What holds it back: the FMAs share the issue slots with the shared
+// loads, addresses and the softmax, with two warps an SMSP (246
+// registers a thread) to hide latency.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kBQ = 64;          // query rows per block
-constexpr int kBK = 64;          // keys per tile
-constexpr int kThreads = 256;    // 16 × 16: tx = key / column, ty = row
-constexpr int kLDP = kBK + 16;   // padded row of the probability tile
+constexpr int kThreads = 128;    // four warps
 constexpr float kNeg = -1e30f;   // the TPU kernel's mask value
 
+// ---- cp.async, ldmatrix, mma.sync ----
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared; zero-filled when !valid (src must still
+// be a mapped address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
+                   "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Four 8×8 bf16 matrices from the shared address `a` (each lane gives one
+// row's address): lane l gets row l/4, columns 2(l%4), +1 of each; .trans
+// gives it column l/4, rows 2(l%4), +1.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  unsigned a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// c += a · b: a 16×16 bf16 (row), b 16×8 bf16 (col), c 16×8 f32.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the SFU (ex2.approx, 2 ulp), a result below 2^-126 flushed to 0:
+// exp2f without the range fix-up for subnormal results, which a softmax
+// weight that small does not need.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two f32 rounded to nearest even into one bf16x2 register: lo in the low
+// half (the lower column of an mma fragment).
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// p = (lo, hi) as p_hi + p_lo, each half a bf16x2 register.
+__device__ __forceinline__ void split_bf16(float lo, float hi, unsigned& ph,
+                                           unsigned& pl) {
+  ph = pack_bf16(lo, hi);
+  pl = pack_bf16(lo - __uint_as_float(ph << 16),
+                 hi - __uint_as_float(ph & 0xffff0000u));
+}
+
+// f32 -> bf16 bits, round to nearest even (NaN stays a quiet NaN), as
+// PyTorch's cast does.
+__device__ __forceinline__ unsigned short to_bf16(float x) {
+  const unsigned u = __float_as_uint(x);
+  if ((u & 0x7fffffffu) > 0x7f800000u)
+    return (unsigned short)((u >> 16) | 0x40u);
+  return (unsigned short)((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
+}
+
+// Rows [0, R) of a (·, row_stride) input from `src` into a shared tile by
+// 16-byte cp.async; rows at or past `valid` (at least 1) are zero. Chunk
+// `ch` of row `r` goes to element `at(r, ch)` of `dst`. Each thread keeps
+// one chunk column and walks the rows kThreads / (D / V) apart.
+template <typename T, int R, int D, typename At>
+__device__ __forceinline__ void load_rows(T* dst, const T* src,
+                                          long long row_stride, int valid,
+                                          At at) {
+  constexpr int V = 16 / sizeof(T), PER_ROW = D / V;
+  constexpr int STEP = kThreads / PER_ROW;
+  static_assert(kThreads % PER_ROW == 0 && R % STEP == 0, "tile shape");
+  const int ch = threadIdx.x % PER_ROW, r0 = threadIdx.x / PER_ROW;
+  const T* row = src + r0 * row_stride + ch * V;
+#pragma unroll
+  for (int p = 0; p < R / STEP; ++p) {
+    const int r = r0 + p * STEP;
+    cp_async16(dst + at(r, ch), r < valid ? row : src, r < valid);
+    row += STEP * row_stride;
+  }
+}
+
+// ---- bf16: tensor cores ----
+
 template <int D>
-struct Tile {
+struct TileBF16 {
   static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dim");
-  static constexpr int LD = D + 4;                  // padded q/k/v row
-  static constexpr int CW = D >= 64 ? 4 : D / 16;   // output columns a load
-  static constexpr int NG = D / (16 * CW);          // loads a row
-  static constexpr int SMEM = (2 * kBQ * LD + kBQ * kLDP) * 4;
+  static constexpr int LD = D + 8;            // bf16 elements a padded row
+  static constexpr int TILE = kBQ * LD;       // one 64-row tile
+  static constexpr int SMEM = 5 * TILE * 2;   // q, k ×2, v ×2
 };
 
-// 16 bytes of the input as f32: four f32 values, or eight bf16 values
-// (a bf16 is the high half of the f32 with the same bits).
-__device__ __forceinline__ void load16(const float* p, float* out) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
-}
-
-__device__ __forceinline__ void load16(const unsigned short* p, float* out) {
-  const uint4 x = *reinterpret_cast<const uint4*>(p);
-  const unsigned int w[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    out[2 * i] = __uint_as_float(w[i] << 16);
-    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-// f32 -> bf16, round to nearest even (NaN stays a quiet NaN), as PyTorch's
-// cast does.
-__device__ __forceinline__ void store(unsigned short* p, float x) {
-  const unsigned int u = __float_as_uint(x);
-  if ((u & 0x7fffffffu) > 0x7f800000u) {
-    *p = (unsigned short)((u >> 16) | 0x40u);
-    return;
-  }
-  *p = (unsigned short)((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
-}
-
-// Rows [0, 64) of a (·, row_stride) input from `src` into the f32 tile
-// `dst` (row stride LD); rows at or past `valid` are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          long long row_stride, int valid) {
-  constexpr int V = 16 / sizeof(T);
-  constexpr int PER_ROW = D / V;
-  for (int e = threadIdx.x; e < kBQ * PER_ROW; e += kThreads) {
-    const int r = e / PER_ROW, c = (e % PER_ROW) * V;
-    float x[V];
-    if (r < valid) {
-      load16(src + r * row_stride + c, x);
-    } else {
-#pragma unroll
-      for (int i = 0; i < V; ++i) x[i] = 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < V; i += 4)
-      *reinterpret_cast<float4*>(dst + r * Tile<D>::LD + c + i) =
-          make_float4(x[i], x[i + 1], x[i + 2], x[i + 3]);
-  }
-}
-
-// Max and sum over the 16 lanes that share a row (a half warp).
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int H,
-                 int Hkv, float scale) {
-  using Sh = Tile<D>;
-  constexpr int LD = Sh::LD, CW = Sh::CW, NG = Sh::NG;
-  extern __shared__ float smem[];
-  float* Qs = smem;                    // [kBQ][LD]
-  float* KVs = Qs + kBQ * LD;          // [kBK][LD], k then v
-  float* Ps = KVs + kBK * LD;          // [kBQ][kLDP]
+flash_bf16_kernel(const unsigned short* __restrict__ q,
+                  const unsigned short* __restrict__ k,
+                  const unsigned short* __restrict__ v,
+                  unsigned short* __restrict__ o, int S, int H, int Hkv,
+                  float scale_log2) {
+  using Sh = TileBF16<D>;
+  constexpr int LD = Sh::LD, TILE = Sh::TILE;
+  constexpr int KD = D / 16;                  // k-slices of q·kᵀ
+  constexpr int NO = D / 8;                   // n-tiles of the output
+  extern __shared__ __align__(16) unsigned short smem_bf[];
+  unsigned short* Qs = smem_bf;               // [64][LD]
+  unsigned short* Ks = Qs + TILE;             // 2 × [64][LD]
+  unsigned short* Vs = Ks + 2 * TILE;         // 2 × [64][LD]
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int iq = gridDim.x - 1 - blockIdx.x;          // heaviest first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;      // the mma fragments' row, pair
+  const int iq = gridDim.x - 1 - blockIdx.x;  // heaviest first
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int hk = h / (H / Hkv);
   const long long q_stride = (long long)H * D, kv_stride = (long long)Hkv * D;
-  const T* q_rows = q + ((long long)b * S * H + h) * D;
-  const T* k_rows = k + ((long long)b * S * Hkv + hk) * D;
-  const T* v_rows = v + ((long long)b * S * Hkv + hk) * D;
+  const unsigned short* q_rows = q + ((long long)b * S * H + h) * D;
+  const unsigned short* k_rows = k + ((long long)b * S * Hkv + hk) * D;
+  const unsigned short* v_rows = v + ((long long)b * S * Hkv + hk) * D;
   const int q0 = iq * kBQ;
 
-  load_tile<T, D>(Qs, q_rows + q0 * q_stride, q_stride, S - q0);
+  const auto padded = [](int r, int ch) { return r * LD + ch * 8; };
+  load_rows<unsigned short, kBQ, D>(Qs, q_rows + q0 * q_stride, q_stride,
+                                    S - q0, padded);
+  load_rows<unsigned short, kBQ, D>(Ks, k_rows, kv_stride, S, padded);
+  load_rows<unsigned short, kBQ, D>(Vs, v_rows, kv_stride, S, padded);
+  cp_async_commit();
 
-  float m[4], l[4], acc[4][NG][CW];
+  float acc[NO][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.0f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.0f, 0.0f};   // rows g, g + 8
+  unsigned qf[KD][4];
+  const int row_a = warp * 16 + g, row_b = row_a + 8;   // in the tile
+  // Each lane's ldmatrix row addresses (bytes): q's A fragments (rows
+  // warp·16 + l%16, columns 8·(l/16)); k's B fragments (keys l%8 + 8·(l/16),
+  // columns 8·(l/8 % 2)); v's, transposed (keys l%8 + 8·(l/8 % 2), columns
+  // 8·(l/16)). The fragment (kk, np) or (kv, dp) adds a constant.
+  const unsigned q_lane = smem_addr(Qs) +
+      2 * ((warp * 16 + (lane & 15)) * LD + ((lane >> 4) << 3));
+  const unsigned k_lane = smem_addr(Ks) +
+      2 * (((lane & 7) + ((lane >> 4) << 3)) * LD + (((lane >> 3) & 1) << 3));
+  const unsigned v_lane = smem_addr(Vs) +
+      2 * (((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + ((lane >> 4) << 3));
+
+  for (int kt = 0; kt <= iq; ++kt) {
+    cp_async_wait_all();
+    __syncthreads();        // tile kt is in; every read of tile kt-1 done
+    if (kt < iq) {          // tile kt+1 into the other half of the ring
+      const int k0 = (kt + 1) * kBQ, st = (kt + 1) & 1;
+      load_rows<unsigned short, kBQ, D>(Ks + st * TILE,
+                                        k_rows + k0 * kv_stride, kv_stride,
+                                        S - k0, padded);
+      load_rows<unsigned short, kBQ, D>(Vs + st * TILE,
+                                        v_rows + k0 * kv_stride, kv_stride,
+                                        S - k0, padded);
+      cp_async_commit();
+    }
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) ldmatrix_x4(qf[kk], q_lane + 32 * kk);
+    }
+    const unsigned kt_lane = k_lane + (kt & 1) * TILE * 2;
+    const unsigned vt_lane = v_lane + (kt & 1) * TILE * 2;
+
+    // s = q·kᵀ: 8 n-tiles of 8 keys; C fragment c0,c1 = row g, keys
+    // 8j + 2t, +1; c2,c3 = row g + 8.
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {      // keys 16np .. 16np + 15
+        unsigned bk[4];
+        ldmatrix_x4(bk, kt_lane + 2 * (16 * np * LD + 16 * kk));
+        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+      }
+    }
+    if (kt == iq) {                          // the diagonal tile
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int key = 8 * j + 2 * t;
+        if (key > row_a) s[j][0] = kNeg;
+        if (key + 1 > row_a) s[j][1] = kNeg;
+        if (key > row_b) s[j][2] = kNeg;
+        if (key + 1 > row_b) s[j][3] = kNeg;
+      }
+    }
+
+    // Online softmax in registers: a row's 64 scores lie in one quad.
+    float mx[2] = {kNeg, kNeg};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+    float corr[2], ms[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      corr[r] = exp2_ftz((m[r] - m_new) * scale_log2);
+      ms[r] = m_new * scale_log2;
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[j][c] = exp2_ftz(fmaf(s[j][c], scale_log2, -ms[c >> 1]));
+        sum[c >> 1] += s[j][c];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      acc[n][0] *= corr[0]; acc[n][1] *= corr[0];
+      acc[n][2] *= corr[1]; acc[n][3] *= corr[1];
+    }
+
+    // acc += p_hi·v + p_lo·v over keys 16kv .. 16kv + 15: the C fragments
+    // of n-tiles 2kv and 2kv + 1 are the A fragment of that key slice.
+#pragma unroll
+    for (int kv = 0; kv < 4; ++kv) {
+      unsigned ph[4], pl[4];
+      split_bf16(s[2 * kv][0], s[2 * kv][1], ph[0], pl[0]);
+      split_bf16(s[2 * kv][2], s[2 * kv][3], ph[1], pl[1]);
+      split_bf16(s[2 * kv + 1][0], s[2 * kv + 1][1], ph[2], pl[2]);
+      split_bf16(s[2 * kv + 1][2], s[2 * kv + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {  // columns 16dp .. 16dp + 15
+        unsigned bv[4];
+        ldmatrix_x4_trans(bv, vt_lane + 2 * (16 * kv * LD + 16 * dp));
+        mma_bf16(acc[2 * dp], ph, bv[0], bv[1]);
+        mma_bf16(acc[2 * dp], pl, bv[0], bv[1]);
+        mma_bf16(acc[2 * dp + 1], ph, bv[2], bv[3]);
+        mma_bf16(acc[2 * dp + 1], pl, bv[2], bv[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + (r ? row_b : row_a);
+    if (row >= S) continue;
+    const float denom = fmaxf(l[r], 1e-20f);
+    unsigned* dst = reinterpret_cast<unsigned*>(
+        o + (((long long)b * S + row) * H + h) * D);
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      dst[(8 * n + 2 * t) >> 1] =
+          (unsigned)to_bf16(acc[n][2 * r] / denom) |
+          ((unsigned)to_bf16(acc[n][2 * r + 1] / denom) << 16);
+  }
+}
+
+// ---- f32: CUDA-core FMAs ----
+
+// A row of D f32 in shared memory, its 16-byte chunks XOR-swizzled by the
+// row (chunk c of row r sits at c ^ (r & SW)), so the loads of a warp's
+// rows meet no bank conflict and a tile needs no padding.
+template <int D>
+struct TileF32 {
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dim");
+  static constexpr int SW = D >= 32 ? 7 : 3;        // swizzle mask
+  static constexpr int CW = D >= 64 ? 4 : D / 16;   // output columns a load
+  static constexpr int NG = D / (16 * CW);          // loads a row
+  static constexpr int TILE = kBQ * D;              // one 64-row tile
+  // q, one k and one v slot, p (64 × 64, swizzled as D = 64)
+  static constexpr int SMEM = (3 * TILE + kBQ * kBQ) * 4;
+};
+
+template <int D, int SW>
+__device__ __forceinline__ int swz(int r, int c) {   // element (r, c)
+  return r * D + ((((c >> 2) ^ (r & SW))) << 2) + (c & 3);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int S,
+                 int H, int Hkv, float scale_log2) {
+  using Sh = TileF32<D>;
+  constexpr int SW = Sh::SW, CW = Sh::CW, NG = Sh::NG, TILE = Sh::TILE;
+  extern __shared__ __align__(16) float smem_f[];
+  float* Qs = smem_f;                // [64][D]
+  float* Ks = Qs + TILE;             // [64][D]: k of tile t
+  float* Vs = Ks + TILE;             // [64][D]: v of tile t
+  float* Ps = Vs + TILE;             // [64][64]
+
+  // Thread (ty, tx) owns rows ty + 8i (i < 8): their scores against keys
+  // tx + 16j (j < 4), their softmax state, and their output columns
+  // g·16·CW + tx·CW + c. The 16 lanes of a half warp share the rows.
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tx = lane & 15, ty = warp * 2 + (lane >> 4);
+  const int iq = gridDim.x - 1 - blockIdx.x;        // heaviest first
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int hk = h / (H / Hkv);
+  const long long q_stride = (long long)H * D, kv_stride = (long long)Hkv * D;
+  const float* q_rows = q + ((long long)b * S * H + h) * D;
+  const float* k_rows = k + ((long long)b * S * Hkv + hk) * D;
+  const float* v_rows = v + ((long long)b * S * Hkv + hk) * D;
+  const int q0 = iq * kBQ;
+
+  const auto swizzled = [](int r, int ch) { return swz<D, SW>(r, 4 * ch); };
+  load_rows<float, kBQ, D>(Qs, q_rows + q0 * q_stride, q_stride, S - q0,
+                           swizzled);
+  load_rows<float, kBQ, D>(Ks, k_rows, kv_stride, S, swizzled);
+  cp_async_commit();
+
+  float m[8], l[8], acc[8][NG][CW];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
     m[i] = kNeg;
     l[i] = 0.0f;
 #pragma unroll
-    for (int g = 0; g < NG; ++g)
+    for (int gg = 0; gg < NG; ++gg)
 #pragma unroll
-      for (int c = 0; c < CW; ++c) acc[i][g][c] = 0.0f;
+      for (int c = 0; c < CW; ++c) acc[i][gg][c] = 0.0f;
   }
+  // Row ty + 8i has (row & SW) == (ty & SW) and key tx + 16j has
+  // (key & SW) == (tx & SW): each thread's swizzle is one constant.
+  const float* q_base = Qs + ty * D;
+  const float* k_base = Ks + tx * D;
+  const int qx = ty & SW, kx = tx & SW;
 
   for (int kt = 0; kt <= iq; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();                 // the last tile's p·v is done
-    load_tile<T, D>(KVs, k_rows + k0 * kv_stride, kv_stride, S - k0);
-    __syncthreads();
+    const int k0 = kt * kBQ;
+    cp_async_wait_all();
+    __syncthreads();        // k of tile kt is in; p·v of tile kt-1 done
+    load_rows<float, kBQ, D>(Vs, v_rows + k0 * kv_stride, kv_stride, S - k0,
+                             swizzled);
+    cp_async_commit();
 
-    // Scores: rows ty + 16i against keys tx + 16j.
-    float s[4][4];
+    float s[8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kv[4];
+#pragma unroll 2
+    for (int c = 0; c < D / 4; ++c) {
+      float4 qv[8], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * LD + d);
+      for (int i = 0; i < 8; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(q_base + 8 * i * D +
+                                                 ((c ^ qx) << 2));
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(KVs + (tx + 16 * j) * LD + d);
+        kv[j] = *reinterpret_cast<const float4*>(k_base + 16 * j * D +
+                                                 ((c ^ kx) << 2));
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
@@ -185,114 +459,144 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
     }
 
-    // Online softmax of each row over this tile.
+    // Online softmax of each row over this tile: the 16 lanes of a row
+    // reduce its max by shuffles, each keeps its part of the row's sum
+    // (summed across the lanes at the end); the scale is folded into
+    // exp2. p goes to shared memory, swizzled as a 64-wide tile.
+    float corr[8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = ty + 16 * i;
+    for (int i = 0; i < 8; ++i) {
+      const int row = ty + 8 * i;
       float mx = kNeg;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const bool keep = kt < iq || tx + 16 * j <= row;
-        s[i][j] = keep ? s[i][j] * scale : kNeg;
+        if (kt == iq && tx + 16 * j > row) s[i][j] = kNeg;
         mx = fmaxf(mx, s[i][j]);
       }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float corr = expf(m[i] - m_new);
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx), ms = m_new * scale_log2;
+      corr[i] = exp2_ftz((m[i] - m_new) * scale_log2);
       float sum = 0.0f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        Ps[row * kLDP + tx + 16 * j] = p;
+        const float p = exp2_ftz(fmaf(s[i][j], scale_log2, -ms));
+        Ps[swz<kBQ, 7>(row, tx + 16 * j)] = p;
         sum += p;
       }
-      l[i] = l[i] * corr + row_sum(sum);
+      l[i] = l[i] * corr[i] + sum;
       m[i] = m_new;
-#pragma unroll
-      for (int g = 0; g < NG; ++g)
-#pragma unroll
-        for (int c = 0; c < CW; ++c) acc[i][g][c] *= corr;
     }
-    __syncthreads();                 // every read of k is done, p is whole
-    load_tile<T, D>(KVs, v_rows + k0 * kv_stride, kv_stride, S - k0);
-    __syncthreads();
+    cp_async_wait_all();
+    __syncthreads();        // v of tile kt is in, p is whole, k is read
+    if (kt < iq) {          // k of tile kt+1 into the k slot
+      const int k1 = k0 + kBQ;
+      load_rows<float, kBQ, D>(Ks, k_rows + k1 * kv_stride, kv_stride,
+                               S - k1, swizzled);
+      cp_async_commit();
+    }
 
-    // acc[row, col] += p[row, key] · v[key, col] for columns
-    // g·16·CW + tx·CW + c.
-#pragma unroll 2
-    for (int j = 0; j < kBK; j += 4) {
-      float4 pv[4];
+    // acc[row, col] = acc · corr + Σ_key p[row, key] · v[key, col].
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * kLDP + j);
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int gg = 0; gg < NG; ++gg)
+#pragma unroll
+        for (int c = 0; c < CW; ++c) acc[i][gg][c] *= corr[i];
+#pragma unroll 2
+    for (int j = 0; j < kBQ / 4; ++j) {   // keys 4j .. 4j + 3
+      float4 pv[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(
+            Ps + (ty + 8 * i) * kBQ + ((j ^ (ty & 7)) << 2));
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
+        const int key = 4 * j + jj;
         float vv[NG][CW];
 #pragma unroll
-        for (int g = 0; g < NG; ++g) {
-          const float* src = KVs + (j + jj) * LD + g * 16 * CW + tx * CW;
+        for (int gg = 0; gg < NG; ++gg) {
+          const float* src = Vs + swz<D, SW>(key, gg * 16 * CW + tx * CW);
           if constexpr (CW == 4) {
             const float4 x = *reinterpret_cast<const float4*>(src);
-            vv[g][0] = x.x; vv[g][1] = x.y; vv[g][2] = x.z; vv[g][3] = x.w;
+            vv[gg][0] = x.x; vv[gg][1] = x.y; vv[gg][2] = x.z; vv[gg][3] = x.w;
           } else if constexpr (CW == 2) {
             const float2 x = *reinterpret_cast<const float2*>(src);
-            vv[g][0] = x.x; vv[g][1] = x.y;
+            vv[gg][0] = x.x; vv[gg][1] = x.y;
           } else {
-            vv[g][0] = src[0];
+            vv[gg][0] = src[0];
           }
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < 8; ++i) {
           const float p = jj == 0 ? pv[i].x : jj == 1 ? pv[i].y
                         : jj == 2 ? pv[i].z : pv[i].w;
 #pragma unroll
-          for (int g = 0; g < NG; ++g)
+          for (int gg = 0; gg < NG; ++gg)
 #pragma unroll
             for (int c = 0; c < CW; ++c)
-              acc[i][g][c] = fmaf(p, vv[g][c], acc[i][g][c]);
+              acc[i][gg][c] = fmaf(p, vv[gg][c], acc[i][gg][c]);
         }
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int row = q0 + ty + 8 * i;
     if (row >= S) continue;
     const float denom = fmaxf(l[i], 1e-20f);
-    T* dst = o + (((long long)b * S + row) * H + h) * D;
+    float* dst = o + (((long long)b * S + row) * H + h) * D;
 #pragma unroll
-    for (int g = 0; g < NG; ++g)
+    for (int gg = 0; gg < NG; ++gg)
 #pragma unroll
       for (int c = 0; c < CW; ++c)
-        store(dst + g * 16 * CW + tx * CW + c, acc[i][g][c] / denom);
+        dst[gg * 16 * CW + tx * CW + c] = acc[i][gg][c] / denom;
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int Hkv, float scale, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, D>;
+// ---- launchers ----
+
+// Both kernels ask for the whole 228 KB of an SM as shared memory, so two
+// blocks fit.
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, int smem) {
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<D>::SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  kernel<<<grid, kThreads, Tile<D>::SMEM, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, Hkv, scale);
-  return (int)cudaGetLastError();
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
 }
 
-template <typename T>
-int launch_dim(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int H, int Hkv, int D, float scale,
-               cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, S, H, Hkv, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, S, H, Hkv, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, Hkv, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, Hkv, scale, stream);
-    default: return (int)cudaErrorInvalidValue;
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int S, int H, int Hkv, int dtype, float scale,
+           cudaStream_t stream) {
+  const dim3 grid((S + kBQ - 1) / kBQ, B * H);
+  // exp(x·scale) = 2^(x·scale·log2 e)
+  const float scale_log2 = scale * 1.4426950408889634f;
+  if (dtype == 1) {
+    const cudaError_t err = prepare(flash_bf16_kernel<D>, TileBF16<D>::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    flash_bf16_kernel<D><<<grid, kThreads, TileBF16<D>::SMEM, stream>>>(
+        static_cast<const unsigned short*>(q),
+        static_cast<const unsigned short*>(k),
+        static_cast<const unsigned short*>(v),
+        static_cast<unsigned short*>(o), S, H, Hkv, scale_log2);
+  } else {
+    const cudaError_t err = prepare(flash_f32_kernel<D>, TileF32<D>::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    flash_f32_kernel<D><<<grid, kThreads, TileF32<D>::SMEM, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), S, H, Hkv,
+        scale_log2);
   }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -305,14 +609,17 @@ extern "C" {
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int S, int H, int Hkv, int D,
                            int dtype, float scale, void* stream) {
-  if (B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 || B * H > 65535)
+  if (B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 || B * H > 65535 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_dim<float>(q, k, v, o, B, S, H, Hkv, D, scale, s);
-  if (dtype == 1)
-    return launch_dim<unsigned short>(q, k, v, o, B, S, H, Hkv, D, scale, s);
-  return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 16: return launch<16>(q, k, v, o, B, S, H, Hkv, dtype, scale, s);
+    case 32: return launch<32>(q, k, v, o, B, S, H, Hkv, dtype, scale, s);
+    case 64: return launch<64>(q, k, v, o, B, S, H, Hkv, dtype, scale, s);
+    case 128: return launch<128>(q, k, v, o, B, S, H, Hkv, dtype, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

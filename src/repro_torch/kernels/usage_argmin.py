@@ -70,6 +70,21 @@ def lra_topn(last_access: torch.Tensor, n: int, *,
 lra_topn.launches = 0
 
 
+# The argmin kernel's merge words, one set per (device, stream) and batch:
+# B row minima (all ones) and B tickets (zero), which each launch leaves as
+# it found them; launches on one stream run in order.
+_STATE: dict[tuple[int, int, int], torch.Tensor] = {}
+
+
+def _state(dev: torch.device, stream: int, B: int) -> torch.Tensor:
+    key = (dev.index, stream, B)
+    if key not in _STATE:
+        _STATE[key] = torch.cat([
+            torch.full((B,), -1, dtype=torch.int64, device=dev),
+            torch.zeros((B,), dtype=torch.int64, device=dev)])
+    return _STATE[key]
+
+
 def usage_argmin(usage: torch.Tensor, *,
                  valid_n: int | None = None) -> torch.Tensor:
     """usage: (B, rows) f32 CUDA tensor -> (B,) int32 index of the minimum
@@ -83,11 +98,11 @@ def usage_argmin(usage: torch.Tensor, *,
     fn = _build.function("usage_argmin", "usage_argmin_launch",
                          [_P, _L, _I, _I, _P, _P, _P])
     dev = usage.device
-    cand = _candidates(nv, 1, B, dev)
     out = torch.empty((B,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = fn(usage.data_ptr(), rows, B, nv, cand.data_ptr(),
-                 out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(usage.data_ptr(), rows, B, nv,
+                 _state(dev, stream, B).data_ptr(), out.data_ptr(), stream)
     _build.check("usage_argmin", err)
     usage_argmin.launches += 1
     return out

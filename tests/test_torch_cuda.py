@@ -756,31 +756,51 @@ def test_dtype_sam_unroll_on_card_matches_cpu(dev, dtype, ann):
 # --------------------------------------------------------------------------
 
 def _usage_table(rng, B, N, case):
-    """(B, N) f32 usage and the index each row's minimum must have where
-    the case fixes it (None where the plain version alone decides)."""
+    """(B, N) f32 usage, the ``valid_n`` to sweep and the index each row's
+    minimum must have where the case fixes it (None where the plain version
+    alone decides). Row b of a (B, N) table starts (b·N) mod 4 entries past
+    a 16-byte boundary, so where N % 4 != 0 rows b > 0 start misaligned:
+    the kernel reads their first (-b·N) mod 4 entries (the head) and the
+    entries after their last whole float4 (the tail) as scalars."""
     u = (1.0 + rng.random((B, N))).astype(np.float32)
     lo, hi = min(3, N - 1), N - 1          # hi in another chunk past 8192
     if case == "ties":
         u[:] = 0.25
-        return u, [0] * B
+        return u, None, [0] * B
     if case == "tiles":
         u[:, [lo, hi]] = 0.5
-        return u, [lo] * B
+        return u, None, [lo] * B
     if case == "zeros":                    # -0.0 equals +0.0: lo wins
         u[0::2, lo], u[0::2, hi] = -0.0, 0.0
         u[1::2, lo], u[1::2, hi] = 0.0, -0.0
-        return u, [lo] * B
-    return u, None
+        return u, None, [lo] * B
+    if case == "head":                     # the head's last entry, tied
+        heads = [(-b * N) % 4 for b in range(B)]   # later in the body
+        want = [max(0, min(hd, N) - 1) for hd in heads]
+        for b, i in enumerate(want):
+            u[b, i] = u[b, min(i + 5, N - 1)] = 0.125
+        return u, None, want
+    if case == "tail":                     # the row's last entry
+        u[:, N - 1] = 0.125
+        return u, None, [N - 1] * B
+    if case == "last":                     # the last entry before valid_n;
+        vn = max(1, N - 1)                 # a smaller one past it, unseen
+        u[:, vn - 1] = 0.125
+        u[:, vn:] = 0.0
+        return u, vn, [vn - 1] * B
+    return u, None, None
 
 
 @pytest.mark.parametrize("B", [1, 8])
-@pytest.mark.parametrize("N", [1, 1000, (1 << 20) - 3])
-@pytest.mark.parametrize("case", ["rand", "ties", "tiles", "zeros"])
+@pytest.mark.parametrize("N", [1, 1000, (1 << 20) - 1, (1 << 20) - 2,
+                               (1 << 20) - 3])
+@pytest.mark.parametrize("case", ["rand", "ties", "tiles", "zeros", "head",
+                                  "tail", "last"])
 def test_usage_argmin_kernel_matches_plain(dev, B, N, case):
-    u, want = _usage_table(np.random.default_rng(N + B), B, N, case)
+    u, vn, want = _usage_table(np.random.default_rng(N + B), B, N, case)
     u = torch.tensor(u, device=dev)
-    got = usage_argmin(u)
-    plain = ref.usage_argmin_ref(u)
+    got = usage_argmin(u, valid_n=vn)
+    plain = ref.usage_argmin_ref(u[:, :vn])
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and got.shape == (B,)
     assert torch.equal(got, plain)
@@ -917,6 +937,10 @@ def _attention_inputs(dev, B, S, H, Hkv, D, dtype, seed=0, scale=1.0):
     (1, 64, 2, 1, 16), (2, 128, 4, 2, 32), (1, 128, 8, 8, 16),   # JAX's
     (1, 130, 12, 1, 128),            # G = 12, S not a multiple of the tile
     (2, 1000, 4, 4, 64), (1, 1, 2, 1, 32),
+    # Ragged S around the 64-row tile (cp.async's zero-fill, a ragged last
+    # tile), and D in 16 ... 128 at G = 1 and G = 12.
+    (1, 15, 12, 1, 32), (2, 63, 4, 4, 128), (1, 65, 12, 1, 16),
+    (1, 65, 2, 2, 32), (1, 130, 24, 2, 64),
     (2, 2048, 48, 4, 128),           # StarCoder2-7B's heads at full length
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -935,13 +959,22 @@ def test_flash_attention_kernel_matches_plain(dev, B, S, H, Hkv, D, dtype):
     assert torch.equal(ops.flash_attention(qt, k, v), out)
 
 
-def test_flash_attention_kernel_on_large_scores(dev):
-    """Scores of std ~144, as the LM's weights give them: both f32 versions
-    are held against the f64 result."""
-    q, k, v = _attention_inputs(dev, 2, 512, 8, 2, 128, "float32", seed=5,
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_on_large_scores(dev, dtype):
+    """Scores of std ~144, as the LM's weights give them. f32: both f32
+    versions are held against the f64 result. bf16: within one bf16 ulp
+    of the plain version, the bar of the small inputs (p·v keeps p at f32
+    precision as p_hi + p_lo)."""
+    q, k, v = _attention_inputs(dev, 2, 512, 8, 2, 128, dtype, seed=5,
                                 scale=12.0)
+    out = flash_attention(q, k, v)
+    if dtype == "bfloat16":
+        want = ref.flash_attention_ref(q, k, v)
+        err = (out.float() - want.float()).abs().max().item()
+        assert err <= _bf16_ulp(want)
+        return
     exact = ref.flash_attention_ref(q.double(), k.double(), v.double())
-    err = (flash_attention(q, k, v).double() - exact).abs().max().item()
+    err = (out.double() - exact).abs().max().item()
     plain = (ref.flash_attention_ref(q, k, v).double() - exact).abs().max()
     assert err <= 2 * plain.item() + 2e-5
 

@@ -234,6 +234,72 @@ def test_flash_attention_plain_bf16_and_ragged():
     _close(ref.flash_attention_ref(_t(q), _t(k), _t(v)), naive, FLASH_TOL)
 
 
+def _bf16_ulp(x: torch.Tensor) -> float:
+    """One bf16 ulp at the magnitude max |x| (`chip_smoke.py`'s bar)."""
+    _, e = torch.frexp(x.float().abs().max())
+    return 2.0 ** (int(e) - 8)
+
+
+def _flash_bf16_emulated(q, k, v, tile=64):
+    """The arithmetic of `csrc/flash_attention.cu`'s bf16 instantiation,
+    in torch on the CPU, before the output's rounding: scores from bf16 q
+    and k summed in f32, the online softmax over key tiles of 64 with the
+    scale folded into exp2, l the f32 sum of the f32 p, and p·v as
+    p_hi·v + p_lo·v in f32 with p_hi = bf16(p), p_lo = bf16(p - p_hi)."""
+    B_, S_, H, D = q.shape
+    Hkv = k.shape[2]
+    c = D ** -0.5 * np.log2(np.e)
+    qg = q.float().reshape(B_, S_, Hkv, H // Hkv, D)
+    s_all = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
+    m = torch.full(s_all.shape[:-1] + (1,), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(s_all.shape[:-1] + (D,))
+    rows = torch.arange(S_)[:, None]
+    for k0 in range(0, S_, tile):
+        keys = torch.arange(k0, min(k0 + tile, S_))[None, :]
+        s = torch.where(keys <= rows, s_all[..., k0:k0 + tile],
+                        torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp2((m - m_new) * c)
+        p = torch.exp2(s * c - m_new * c)
+        l = l * corr + p.sum(-1, keepdim=True)
+        p_hi = p.bfloat16().float()
+        p_lo = (p - p_hi).bfloat16().float()
+        vt = v[:, k0:k0 + tile].float()
+        acc = acc * corr + (torch.einsum("bhgqk,bkhd->bhgqd", p_hi, vt)
+                            + torch.einsum("bhgqk,bkhd->bhgqd", p_lo, vt))
+        m = m_new
+    o = acc / l.clamp_min(1e-20)
+    return o.permute(0, 3, 1, 2, 4).reshape(B_, S_, H, D)
+
+
+@pytest.mark.parametrize("S_", [130, 1000])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("scale", [1.0, 3.5, 12.0])
+def test_flash_attention_bf16_split_p_within_one_ulp(S_, D, scale):
+    """The bf16 kernel's design, proven on the CPU: keeping p at f32
+    precision as p_hi + p_lo holds the output within one bf16 ulp (at the
+    output's largest magnitude, the bar of `chip_smoke.py` and the CUDA
+    tests) of `ref.flash_attention_ref`, at score scales x1, x3.5 and x12
+    (scores of std up to ~144, as the LM's), D = 64 and 128 and S ragged
+    against the 64-key tile. Measured on these inputs: at most 0.25 ulp
+    after the output's rounding and 0.0015 ulp before it. Rounding p once
+    to bf16 instead reached 1.0 ulp, the bar itself (D = 128, scale x1),
+    and 0.09-0.18 ulp before the rounding. So the unrounded output is also
+    held within 1/64 ulp of the plain version's f32, which a single
+    rounding of p does not meet."""
+    rng = np.random.default_rng(S_ + D + int(scale * 2))
+    q, k, v = (torch.tensor(rng.standard_normal((1, S_, h, D)),
+                            dtype=torch.float32) for h in (4, 2, 2))
+    q, k, v = (q * scale).bfloat16(), (k * scale).bfloat16(), v.bfloat16()
+    want = ref.flash_attention_ref(q, k, v)
+    got = _flash_bf16_emulated(q, k, v)
+    ulp = _bf16_ulp(want)
+    assert (got.bfloat16().float() - want.float()).abs().max().item() <= ulp
+    plain32 = ref.flash_attention_ref(q.float(), k.float(), v.float())
+    assert (got - plain32).abs().max().item() <= ulp / 64
+
+
 def test_flash_attention_has_no_gradient():
     q, k, v = (_t(x).requires_grad_() for x in _qkv(0, 1, 16, 2, 1, 16))
     with pytest.raises(NotImplementedError, match="A9b"):
