@@ -20,10 +20,11 @@ ranks sweep their blocks with the `topk_read` kernel. It fails (nonzero
 exit) if any phase fails:
 
 1. build the kernels from `src/repro_torch/kernels/csrc/` with nvcc for
-   sm_90a and print each kernel's registers, shared memory and spills,
-   and the HMMA (tensor-core) instructions in each `flash_attention`
-   kernel's SASS (`cuobjdump -sass`): the bf16 kernels must have them,
-   the f32 ones none;
+   sm_90a and print each kernel's registers, shared memory and spills
+   (none may spill in `fused_read.cu`'s sweep), and the HMMA
+   (tensor-core) instructions in each `flash_attention` kernel's SASS
+   (`cuobjdump -sass`): the bf16 kernels must have them, the f32 ones
+   none;
 2. hold each kernel against its plain PyTorch version at full width, on
    the inputs of a real rollout: the all-zero first step and step 21 for
    the forward kernels; for `scatter_rows`, the inputs of a real backward:
@@ -66,7 +67,10 @@ exit) if any phase fails:
 6. time each kernel, its plain version and the one PyTorch call that
    computes the same function where there is one (CUDA events, L2 flushed
    before each launch), the rollouts' ms per step, device time per step
-   (`torch.profiler`) and peak memory, exact and LSH, and the train
+   (`torch.profiler`) and peak memory, exact and LSH (each sweep's
+   `[time]` line, here and in phases 7, 9 and 10, also gives the bytes
+   its bound counts over its time in GB/s, their share of 3.35 TB/s and
+   its rows per second), and the train
    steps' ms (forward and backward apart) and peak memory, the exact one
    beside `residual_accounting(mode="sparse")` plus the one dense memory
    cotangent;
@@ -206,6 +210,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -657,6 +662,18 @@ def bound(nbytes, nops, bf16_ops=0):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = (nops / F32_OPS_PER_S + bf16_ops / BF16_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sweep_rate(r) -> str:
+    """A sweep row's achieved rate: GB/s of the bytes its bound counts,
+    their share of the HBM rate, and G rows/s; '' for other kernels."""
+    if "rate" not in r:
+        return ""
+    nbytes, nrows = r["rate"]
+    return (f"; {nbytes / r['ms'] / 1e6:.1f} GB/s, "
+            f"{nbytes / (r['ms'] * 1e-3) / HBM_BYTES_PER_S:.1%} of "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, "
+            f"{nrows / r['ms'] / 1e6:.2f} G rows/s")
 
 
 def unique_rows(idx) -> int:
@@ -1290,6 +1307,8 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
     J_ = wr_[2].shape[1]
     uniq_ = unique_rows(wr_[2])
     neg_la = (-la_[:, :N_]).contiguous()
+    sweep_bytes = 4 * (LM_B * N_ * W_ + 2 * LM_B * H_ * W_ + LM_B * H_
+                       + 2 * LM_B * H_ * K_)
     mem_rows = {
         "fused_read_sweep": dict(
             ms=time_ms(lambda: fused_read_sweep(q_, mem_, beta_, k=k_,
@@ -1297,9 +1316,8 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
             plain_ms=time_ms(lambda: ref.fused_read_ref(
                 q_, mem_, beta_, k_, valid_n=vn_), 5, flush),
             library_ms=None,
-            bound=bound(4 * (LM_B * N_ * W_ + 2 * LM_B * H_ * W_ + LM_B * H_
-                             + 2 * LM_B * H_ * K_),
-                        LM_B * N_ * W_ * (2 * H_ + 2))),
+            bound=bound(sweep_bytes, LM_B * N_ * W_ * (2 * H_ + 2)),
+            rate=(sweep_bytes, LM_B * N_)),
         "sparse_write_update": dict(
             ms=time_ms(lambda: sparse_write_update(m_w, l_w, *wr_[2:7],
                                                    delta=wr_[7]), 50, flush),
@@ -1385,7 +1403,7 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
             f"its time)")
         print(f"[time] {name} at the LM's shapes: {r['ms']:.4f} ms (bound "
               f"{r['bound'][0]:.4f} ms by {r['bound'][1]}: "
-              f"{r['bound'][0] / r['ms']:.1%} of it), plain "
+              f"{r['bound'][0] / r['ms']:.1%} of it{sweep_rate(r)}), plain "
               f"{r['plain_ms']:.4f} ms, library {lib}")
     print(f"[time] prefill (B={LM_B}, S={LM_S}) {prefill_ms:.1f} ms, median "
           f"of {', '.join(f'{t:.1f}' for t in prefill_all)}; peak memory "
@@ -1615,17 +1633,23 @@ def mesh_phase(dev, ref, checker, flush, rec, mesh_ref, params, xs,
     blk = cases["block 0"][1]
 
     def topk_row(m_, n_, iters):
+        nbytes = 4 * (B * n_ * W + B * H * W + 2 * B * H * K)
         return dict(
             ms=time_ms(lambda: topk_read(q, m_, k=K, valid_n=n_), iters,
                        flush),
             plain_ms=time_ms(lambda: ref.topk_read_ref(q, m_, K, valid_n=n_),
                              5, flush),
             library_ms=None,
-            bound=bound(4 * (B * n_ * W + B * H * W + 2 * B * H * K),
-                        B * n_ * W * (2 * H + 2)))
+            bound=bound(nbytes, B * n_ * W * (2 * H + 2)),
+            rate=(nbytes, B * n_))
 
     row = topk_row(blk, ln, 50)
     row["full"] = topk_row(mem, N, 20)
+    for what, r in (("a rank's block (B, 2^18+1, W)", row),
+                    ("the whole memory (B, 2^20+1, W)", row["full"])):
+        print(f"[time] topk_read on {what}: {r['ms']:.4f} ms (bound "
+              f"{r['bound'][0]:.6f} ms by {r['bound'][1]}{sweep_rate(r)}), "
+              f"plain {r['plain_ms']:.4f} ms")
     del cases, dup, q_dup
 
     # (b) the sharded forward: S ranks on this card over gloo, from the
@@ -1770,6 +1794,9 @@ def run() -> None:
     for name, v in info.items():
         for line in ptxas_summary(v["ptxas"]):
             print(f"[build] {name}: {line}")
+    spills = [line for line in ptxas_summary(info["fused_read"]["ptxas"])
+              if re.search(r"[1-9][0-9]* bytes spill", line)]
+    require(not spills, f"fused_read's sweep spills registers: {spills}")
     hmma = hmma_counts(info["flash_attention"]["path"])
     if isinstance(hmma, str):
         print(f"[build] flash_attention: HMMA not counted ({hmma}); the "
@@ -2220,6 +2247,7 @@ def run() -> None:
     b_set = torch.arange(B, device=dev)[:, None].expand(B, J)
     b_add = torch.arange(B, device=dev)[:, None].expand(B, H * K)
     widx_l, ridx_l = widx.long(), ridx21.long()
+    sweep_bytes = 4 * (B * N * W + 2 * B * H * W + B * H + 2 * B * H * K)
     rows = {
         "fused_read_sweep": dict(
             ms=time_ms(lambda: fused_read_sweep(q, mem, beta, k=k,
@@ -2228,8 +2256,8 @@ def run() -> None:
                                                         valid_n=valid_n),
                              5, flush),
             library_ms=None,
-            bound=bound(4 * (B * N * W + 2 * B * H * W + B * H + 2 * B * H * K),
-                        B * N * W * (2 * H + 2))),
+            bound=bound(sweep_bytes, B * N * W * (2 * H + 2)),
+            rate=(sweep_bytes, B * N)),
         "sparse_write_update": dict(
             ms=time_ms(lambda: sparse_write_update(m_t, l_t, *wr[2:7],
                                                    delta=wr[7]), 50, flush),
@@ -2380,8 +2408,8 @@ def run() -> None:
     for name, r in rows.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"[time] {name}: {r['ms']:.4f} ms (bound {r['bound'][0]:.6f} ms "
-              f"by {r['bound'][1]}), plain {r['plain_ms']:.4f} ms, "
-              f"library {lib}")
+              f"by {r['bound'][1]}{sweep_rate(r)}), plain "
+              f"{r['plain_ms']:.4f} ms, library {lib}")
     print(f"[time] scatter_rows 'set' above is the rollback of step {step} "
           f"(J={J}, {uniq} unique rows; library = index_put_); 'add' (read "
           f"cotangent, {H * K} columns, {uniq_add} unique rows): "
@@ -2555,6 +2583,8 @@ def run() -> None:
                     rec_d.records[("sparse_write_update", step21)])
                 q_, m_, b_, k_, vn_, s_ = rec_d.records[(base, step21)]
                 row_bytes = W * m_.element_size() + (4 if scaled else 0)
+                read_bytes = (B * N * row_bytes
+                              + 4 * (2 * B * H * W + B * H + 2 * B * H * K))
                 rows[rname] = dict(
                     ms=time_ms(lambda: fused_read_sweep(
                         q_, m_, b_, k=k_, valid_n=vn_, mem_scale=s_), 20,
@@ -2562,9 +2592,9 @@ def run() -> None:
                     plain_ms=time_ms(lambda: ref.fused_read_ref(
                         q_, m_, b_, k_, valid_n=vn_, mem_scale=s_), 5, flush),
                     library_ms=None,
-                    bound=bound(B * N * row_bytes
-                                + 4 * (2 * B * H * W + B * H + 2 * B * H * K),
-                                B * N * W * (2 * H + 2 + int(scaled))))
+                    bound=bound(read_bytes,
+                                B * N * W * (2 * H + 2 + int(scaled))),
+                    rate=(read_bytes, B * N))
             else:
                 q_, m_, b_, k_, c_, s_ = rec_d.records[(base, step21)]
                 row_bytes = W * m_.element_size() + (4 if scaled else 0)
@@ -2591,8 +2621,8 @@ def run() -> None:
             for name in (wname, rname) if read == "exact" else (rname,):
                 r = rows[name]
                 print(f"[time] {name}: {r['ms']:.4f} ms (bound "
-                      f"{r['bound'][0]:.6f} ms by {r['bound'][1]}), plain "
-                      f"{r['plain_ms']:.4f} ms")
+                      f"{r['bound'][0]:.6f} ms by {r['bound'][1]}"
+                      f"{sweep_rate(r)}), plain {r['plain_ms']:.4f} ms")
             print(f"[time] {pair} rollout {d_ms:.3f} ms/step, median of "
                   f"{', '.join(f'{r:.3f}' for r in d_all)}; device time "
                   f"{d_dev_ms:.4f} ms/step in {d_dev_n:.1f} kernel launches; "

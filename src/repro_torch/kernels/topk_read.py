@@ -1,13 +1,13 @@
 """Wrapper of the cosine top-K kernel (`topk_read_launch` in
 `csrc/fused_read.cu`), the port of `repro/kernels/topk_read.py::topk_read`:
 the read of the slot-sharded memory (`distributed/mem_shard.py`) sweeps a
-rank's block with it. It runs the exact read's first pass unchanged, so a
-block's rows score as they do in `fused_read_sweep`, and a merge pass
-without the softmax tail.
+rank's block with it. It is the exact read's sweep with the softmax tail
+compiled out, so a block's rows score as they do in `fused_read_sweep`
+(a row's score does not depend on where the row lies).
 
 CUDA tensors and f32 rows only: the caller (`kernels/ops.py`) sends CPU
 tensors to the plain version, `ref.topk_read_ref`. ``topk_read.launches``
-counts the launches (the two passes count as one).
+counts the launches.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fused_read import check_rows
+from repro_torch.kernels.fused_read import check_rows, launch_scratch
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -31,7 +31,8 @@ def topk_read(q: torch.Tensor, mem: torch.Tensor, *, k: int,
     """q: (B, H, W) f32, mem: (B, rows, W) f32, of which rows [0, valid_n)
     are swept (default: all) -> (vals (B, H, K) f32, idx (B, H, K) int32):
     the K rows of highest cosine similarity, ordered by (similarity desc,
-    index asc). W must be a multiple of 4. Matches `ref.topk_read_ref`;
+    index asc). W must be a multiple of 4, at most 128. Matches
+    `ref.topk_read_ref`;
     the indices are `fused_read_sweep`'s on the same inputs."""
     _require(q.is_cuda, "q must be a CUDA tensor")
     _require(mem.device == q.device, "q and mem must be on one device")
@@ -50,18 +51,19 @@ def topk_read(q: torch.Tensor, mem: torch.Tensor, *, k: int,
     check_rows(_require, mem, None, W)
     _require(k <= n <= rows, f"valid_n={n} outside [{k}, {rows}]")
     fn = _build.function("fused_read", "topk_read_launch",
-                         [_P, _P, _I, _I, _I, _I, _I, _L, _P, _P, _P, _P, _P])
-    ncand = _build.function("fused_read", "fused_read_num_candidates",
-                            [_I, _I])(n, k)
+                         [_P, _P, _I, _I, _I, _I, _I, _L, _P, _P, _P, _P, _P,
+                          _P, _P])
     dev = q.device
-    cand_v = torch.empty((B, H, ncand), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((B, H, ncand), dtype=torch.int32, device=dev)
     vals = torch.empty((B, H, k), dtype=torch.float32, device=dev)
     idx = torch.empty((B, H, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        plan, cand_v, cand_i, tickets = launch_scratch(dev, stream, B, H, n,
+                                                       W, 4, k)
         err = fn(q.data_ptr(), mem.data_ptr(), B, H, k, W, n, rows,
-                 cand_v.data_ptr(), cand_i.data_ptr(), vals.data_ptr(),
-                 idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                 ctypes.byref(plan.struct()), cand_v.data_ptr(),
+                 cand_i.data_ptr(), tickets.data_ptr(), vals.data_ptr(),
+                 idx.data_ptr(), stream)
     _build.check("topk_read", err)
     topk_read.launches += 1
     return vals, idx

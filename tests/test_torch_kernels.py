@@ -25,6 +25,8 @@ from repro.kernels.sparse_write import sparse_write_update as pallas_write
 from repro.kernels.usage_argmin import lra_topn as pallas_topn
 from repro_torch.core.types import LA_SCRATCH
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.fused_read import (MAX_SMEM, WARPS, bank_ways,
+                                            smem_bytes, sweep_plan)
 
 TOL = 1e-5
 B, N, W, H, K = 2, 128, 8, 2, 4
@@ -325,3 +327,129 @@ def test_fused_read_candidates_matches_jax_ref_and_pallas(case):
     if case == "zero":                     # ties at 0: the first K valid
         first = np.stack([[c[c >= 0][:K] for c in row] for row in cand])
         np.testing.assert_array_equal(got[2].numpy(), first)
+
+
+# --------------------------------------------------------------------------
+# The exact sweep's grid plan (kernels/fused_read.py::sweep_plan), which the
+# CUDA kernel receives: the chunks, the candidate buffers, the lane layout.
+# --------------------------------------------------------------------------
+
+SMS = 132                                # the H100's SMs
+PLAN_SHAPES = [                          # (B, valid_n, W, itemsize, H, K)
+    (8, 1 << 20, 32, 4, 4, 4),           # the smoke's f32, bf16, int8 rows
+    (8, 1 << 20, 32, 2, 4, 4),
+    (8, 1 << 20, 32, 1, 4, 4),
+    (4, 65536, 128, 4, 4, 8),            # the LM's memory layer
+    (8, 1 << 18, 32, 4, 4, 4),           # a rank's block of the smoke
+    (8, (1 << 18) + 1, 32, 4, 4, 4),
+    (1, 4, 32, 4, 4, 4),                 # valid_n = K
+    (1, 1, 16, 1, 1, 1),
+    (4, 1000, 16, 1, 3, 4),              # int8's narrowest row
+    (4, 1000, 16, 1, 8, 8),              # int8 at H > 4: 8-byte pieces
+    (8, 4097, 128, 2, 8, 1),
+    (1, 65536, 128, 1, 4, 8),
+    (4, 4097, 16, 4, 1, 4),
+    (8, 1000, 128, 4, 8, 8),
+    (65535, 4097, 32, 4, 4, 4),          # the most batch rows
+    (3, 4097, 48, 4, 2, 4),              # 12 pieces over 16 lanes
+]
+
+
+def _row_plan(B, n, W, itemsize, H, K, sms=SMS):
+    return sweep_plan(B, n, W, itemsize, H, K, sms)
+
+
+@pytest.mark.parametrize("B,n,W,itemsize,H,K", PLAN_SHAPES)
+def test_sweep_plan_covers_the_rows_once_and_fills_the_card(B, n, W, itemsize,
+                                                            H, K):
+    p = _row_plan(B, n, W, itemsize, H, K)
+    row_bytes = W * itemsize
+    scaled = itemsize == 1
+    # Chunk c sweeps [c·chunk_rows, min((c+1)·chunk_rows, n)): every chunk
+    # holds a row, and together they hold [0, n) once.
+    starts = [c * p.chunk_rows for c in range(p.chunks)]
+    assert all(s < n for s in starts)
+    assert p.chunks * p.chunk_rows >= n
+    covered = sum(min(s + p.chunk_rows, n) - s for s in starts)
+    assert covered == n
+    # A block steps WARPS stages of tile_rows rows; a stage is whole rounds.
+    round_rows = 32 * p.bt // p.lanes
+    assert p.chunk_rows % (WARPS * p.tile_rows) == 0
+    assert p.tile_rows % round_rows == 0 and p.tile_rows % 4 == 0
+    assert p.stage_bytes == p.tile_rows * (row_bytes + 4 * scaled)
+    assert p.stage_bytes % 16 == 0
+    assert p.smem_bytes == smem_bytes(p.stage_bytes, H, K, W) <= MAX_SMEM
+    # The candidate buffers hold what the blocks write: K per (b, h, chunk).
+    assert p.candidates == p.chunks * K
+    # A row's pieces, one a lane; lanes a power of two; bt divides them.
+    pieces = row_bytes // p.piece
+    assert p.piece == (8 if scaled and H > 4 else 16)
+    assert pieces <= p.lanes < 2 * pieces or p.lanes == pieces == 1
+    assert p.lanes & (p.lanes - 1) == 0 and p.lanes % p.bt == 0
+    # One wave of resident blocks fills the card unless the rows run out.
+    steps = -(-n // (WARPS * p.tile_rows))
+    assert B * p.chunks >= min(SMS, B * steps)
+    if (B, n, W) == (4, 65536, 128):
+        assert B * p.chunks >= SMS
+    # Shared loads are conflict-free for rows of a power of two of pieces.
+    if pieces & (pieces - 1) == 0:
+        assert bank_ways(row_bytes, p.piece, p.lanes, p.bt, p.phi_shift) == 1
+
+
+@pytest.mark.parametrize("B,n,W,itemsize,H,K", PLAN_SHAPES)
+def test_sweep_plan_scores_a_row_the_same_anywhere(B, n, W, itemsize, H, K):
+    """What sets a row's summation order (lanes, bt, piece and the stagger)
+    comes from the row's width, dtype and H only: not from B, valid_n or
+    the SM count."""
+    keys = ("lanes", "bt", "piece", "phi_shift", "tile_rows")
+    p = _row_plan(B, n, W, itemsize, H, K)
+    for other in (_row_plan(1, 7 * n + 3, W, itemsize, H, 1, sms=16),
+                  _row_plan(B + 5, max(K, n // 3), W, itemsize, H, 8,
+                            sms=264)):
+        assert all(getattr(p, k) == getattr(other, k) for k in keys)
+
+
+@pytest.mark.parametrize("W,itemsize,H", [
+    (16, 1, 4), (32, 1, 4), (16, 1, 8), (32, 1, 8), (32, 2, 4), (16, 4, 4),
+    (32, 4, 4), (64, 4, 8), (128, 4, 4), (128, 2, 4), (128, 1, 8),
+    (48, 4, 4)])
+def test_sweep_lanes_sum_each_row_once(W, itemsize, H):
+    """The kernel's round, followed piece by piece: lane j of group g loads
+    piece j of row g·bt + (s ^ jh ^ phi) at slot s, the reduce-scatter adds
+    slot s + m of lane ^ m·cc into slot s, a butterfly adds over the low
+    bits. Every lane must end with all pieces of its row once, and the
+    owners (jl = 0) must hold each row of the round once."""
+    from collections import Counter
+    p = _row_plan(8, 1 << 16, W, itemsize, H, 4)
+    lanes, bt = p.lanes, p.bt
+    cc, pieces = lanes // bt, W * itemsize // p.piece
+    slots = []
+    for lane in range(32):
+        g, j = divmod(lane, lanes)
+        phi = (g >> p.phi_shift) & (bt - 1)
+        slots.append([Counter({(g * bt + (s ^ (j // cc) ^ phi), j): 1})
+                      if j < pieces else Counter() for s in range(bt)])
+    m = bt // 2
+    while m:
+        slots = [[slots[lane][s] + slots[lane ^ (m * cc)][s + m]
+                  for s in range(m)] for lane in range(32)]
+        m //= 2
+    m = cc // 2
+    while m:
+        slots = [[slots[lane][0] + slots[lane ^ m][0]] for lane in range(32)]
+        m //= 2
+    owned = Counter()
+    for lane in range(32):
+        g, j = divmod(lane, lanes)
+        row = g * bt + ((j // cc) ^ ((g >> p.phi_shift) & (bt - 1)))
+        assert slots[lane][0] == Counter({(row, q): 1 for q in range(pieces)})
+        if j % cc == 0:
+            owned[row] += 1
+    assert owned == Counter(range(32 * bt // lanes))
+
+
+def test_sweep_plan_refuses_rows_it_cannot_spread():
+    with pytest.raises(ValueError, match="pieces"):
+        sweep_plan(2, 100, 256, 4, 4, 4, SMS)      # 1 KB rows
+    with pytest.raises(ValueError, match="pieces"):
+        sweep_plan(2, 100, 512, 1, 8, 4, SMS)      # 64 pieces of 8 bytes
