@@ -21,7 +21,8 @@ exit) if any phase fails:
 
 1. build the kernels from `src/repro_torch/kernels/csrc/` with nvcc for
    sm_90a and print each kernel's registers, shared memory and spills
-   (none may spill in `fused_read.cu`'s sweep), and the HMMA
+   (none may spill in `fused_read.cu`, `usage_argmin.cu` or
+   `scatter_rows.cu`), and the HMMA
    (tensor-core) instructions in each `flash_attention` kernel's SASS
    (`cuobjdump -sass`): the bf16 kernels must have them, the f32 ones
    none;
@@ -66,12 +67,14 @@ exit) if any phase fails:
       the CPU;
 6. time each kernel, its plain version and the one PyTorch call that
    computes the same function where there is one (CUDA events, L2 flushed
-   before each launch), the rollouts' ms per step, device time per step
-   (`torch.profiler`) and peak memory, exact and LSH (each sweep's
-   `[time]` line, here and in phases 7, 9 and 10, also gives the bytes
-   its bound counts over its time in GB/s, their share of 3.35 TB/s and
-   its rows per second), and the train
-   steps' ms (forward and backward apart) and peak memory, the exact one
+   before each launch), `lra_topn` also on a rank's (B, 2^18 + 1) block,
+   beside the floor of an empty launch in the same timer
+   (`torch.cuda._sleep(0)`), the write also on its buffers cloned at four
+   other places (its time moves with them), the rollouts' ms per step,
+   device time per step (`torch.profiler`) and peak memory, exact and
+   LSH (each sweep's `[time]` line, here and in phases 7, 9 and 10, also
+   gives the bytes its bound counts over its time in GB/s, their share of
+   3.35 TB/s and its rows per second), and the train steps' ms (forward and backward apart) and peak memory, the exact one
    beside `residual_accounting(mode="sparse")` plus the one dense memory
    cotangent;
 7. bf16 and int8 rows (``mem_dtype``), for each of (bf16, int8) × (exact,
@@ -277,6 +280,9 @@ REPLACES = {
                   "src/repro_torch/kernels/csrc/fused_read.cu"),
 }
 SUFFIX = {"bfloat16": "_bf16", "int8": "_int8"}
+# The kernels whose ptxas report may show no spill: the exact read's sweep,
+# the LRA selection and DAM's argmin, the row scatter.
+NO_SPILL = ("fused_read", "usage_argmin", "scatter_rows")
 
 
 def kernel_name(base: str, mem: torch.Tensor) -> str:
@@ -1794,9 +1800,10 @@ def run() -> None:
     for name, v in info.items():
         for line in ptxas_summary(v["ptxas"]):
             print(f"[build] {name}: {line}")
-    spills = [line for line in ptxas_summary(info["fused_read"]["ptxas"])
-              if re.search(r"[1-9][0-9]* bytes spill", line)]
-    require(not spills, f"fused_read's sweep spills registers: {spills}")
+    for lib in NO_SPILL:
+        spills = [line for line in ptxas_summary(info[lib]["ptxas"])
+                  if re.search(r"[1-9][0-9]* bytes spill", line)]
+        require(not spills, f"{lib}.cu spills registers: {spills}")
     hmma = hmma_counts(info["flash_attention"]["path"])
     if isinstance(hmma, str):
         print(f"[build] flash_attention: HMMA not counted ({hmma}); the "
@@ -2282,6 +2289,30 @@ def run() -> None:
             # column) and writes it once; every column's index is read.
             bound=bound(4 * (B * J + 2 * uniq * W), 0)),
     }
+    # lra_topn on a rank's block of the sharded memory (phase 10): rank 0's
+    # 2^18 entries of step 21's table and the scratch entry.
+    blk_n = N // MESH_S
+    la_blk = torch.cat([la[:, :blk_n], la[:, N:]], 1).contiguous()
+    lra_block = dict(
+        ms=time_ms(lambda: lra_topn(la_blk, n, valid_n=blk_n), 50, flush),
+        plain_ms=time_ms(lambda: ref.lra_topn_ref(la_blk[:, :blk_n], n), 20,
+                         flush),
+        library_ms=time_ms(lambda: torch.topk(neg_la[:, :blk_n], n, dim=-1),
+                           50, flush),
+        bound=bound(4 * (B * blk_n + B * n), B * blk_n))
+    # The floor under every single-launch time: an empty kernel in the
+    # same timer.
+    empty_ms = time_ms(lambda: torch.cuda._sleep(0), 50, flush)
+    # A latency-bound kernel's time moves with where its buffers lie: the
+    # write on step 21's inputs, its memory and usage table cloned after
+    # pads of 0 to 3 MB.
+    write_placed = []
+    for pad_mb in range(4):
+        pad = torch.empty((pad_mb << 18) + 256, device=dev)
+        m_p, l_p = wr[0].clone(), wr[1].clone()
+        write_placed.append(time_ms(lambda: sparse_write_update(
+            m_p, l_p, *wr[2:7], delta=wr[7]), 50, flush))
+        del pad, m_p, l_p
     scatter_add = dict(
         ms=time_ms(lambda: scatter_rows(buf_add, ridx21, g_add, mode="add"),
                    50, flush),
@@ -2418,6 +2449,18 @@ def run() -> None:
           f"ms, library index_put_(accumulate=True) "
           f"{scatter_add['library_ms']:.4f} ms; launches per train step "
           f"{launches['scatter_rows']}")
+    print(f"[time] lra_topn on a rank's block ({B}, {blk_n + 1}), n={n}: "
+          f"{lra_block['ms']:.4f} ms (bound {lra_block['bound'][0]:.6f} ms "
+          f"by {lra_block['bound'][1]}), plain {lra_block['plain_ms']:.4f} "
+          f"ms, library torch.topk {lra_block['library_ms']:.4f} ms")
+    print(f"[time] empty-launch floor (torch.cuda._sleep(0), same timer): "
+          f"{empty_ms:.4f} ms; above it: lra_topn "
+          f"{rows['lra_topn']['ms'] - empty_ms:.4f} ms, block "
+          f"{lra_block['ms'] - empty_ms:.4f} ms, scatter_rows 'set' "
+          f"{rows['scatter_rows']['ms'] - empty_ms:.4f} ms, 'add' "
+          f"{scatter_add['ms'] - empty_ms:.4f} ms")
+    print(f"[time] sparse_write_update on its buffers cloned after pads of "
+          f"0 to 3 MB: {', '.join(f'{t:.4f}' for t in write_placed)} ms")
     for what, r in (("the written rows", rows["lsh_hash"]),
                     ("the queries", hash_query), ("all B·N rows", hash_bulk)):
         print(f"[time] lsh_hash of {what}: {r['ms']:.4f} ms (bound "
@@ -2680,6 +2723,7 @@ def run() -> None:
 
     by_name = {r["name"]: r for r in report}
     by_name["scatter_rows"]["add"] = sub(scatter_add)
+    by_name["lra_topn"]["block"] = sub(lra_block)
     by_name["lsh_hash"]["query"] = sub(hash_query)
     by_name["lsh_hash"]["bulk"] = sub(hash_bulk)
     by_name["topk_read"]["full"] = sub(mesh["row"]["full"])
@@ -2688,6 +2732,8 @@ def run() -> None:
         launches=lmr["bf16_launches"])
     print(json.dumps({"kernels": report, "near_ties": checker.near_ties,
                       "near_zero_bits": checker.near_zero_bits,
+                      "empty_launch_ms": empty_ms,
+                      "write_placements_ms": write_placed,
                       "main_path_launches": {"sam": launches,
                                              "sam_ann": launches_l},
                       "ms_per_step": step_ms, "peak_bytes": peak,

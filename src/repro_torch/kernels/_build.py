@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+_sms: dict[int, int] = {}
 
 
 def _nvcc() -> str:
@@ -100,6 +101,15 @@ def function(lib: str, fn: str, argtypes) -> ctypes._CFuncPtr:
         f.restype = ctypes.c_int
         _fns[key] = f
     return _fns[key]
+
+
+def sm_count(dev: torch.device) -> int:
+    """The SMs of CUDA device ``dev``, which the sweeps' grid plans size
+    their one wave of blocks for."""
+    if dev.index not in _sms:
+        _sms[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _sms[dev.index]
 
 
 def check(name: str, err: int) -> None:

@@ -691,15 +691,6 @@ bool args_ok(int batch, int H, int K, int valid_n, const void* plan,
 
 extern "C" {
 
-// The SM count the wrapper's plan sizes the grid for.
-int fused_read_sm_count(int device) {
-  int n = 0;
-  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device)
-      != cudaSuccess)
-    return -1;
-  return n;
-}
-
 // row_dtype: 0 = f32, 1 = bf16 (raw 16-bit patterns), 2 = int8 with
 // scale (B, rows_per_b) f32; scale is ignored (may be null) otherwise.
 // cand_v/cand_i: (B, H, plan.chunks·K) scratch; tickets: B words of zero,

@@ -22,43 +22,54 @@
 // unique. The TPU kernels' sequential grid has no counterpart: blocks run
 // in parallel and meet in a merge.
 //
-// lra_topn: pass 1, a grid over (chunk of 8192 entries, b); each thread
-// keeps its n smallest keys in a register list (loads issued four at a
-// time), then n rounds of a block-wide min pick the chunk's n smallest.
-// Pass 2: one block per b merges the chunks·n candidates the same way.
+// Both kernels sweep a row as one launch in one wave: the body of a row
+// is read as 16-byte loads; a row starts 16-byte aligned only when its
+// address does (rows % 4 == 0 for a whole table), so each row takes a
+// scalar head up to its first aligned entry and a scalar tail after its
+// last whole vector. The loads carry an L2 evict-first policy: the table
+// is read once, and its lines, not other kernels' (dirty ones cost a
+// write-back), make room. A row gets about 4·SMs/B blocks, so the table
+// is swept in one wave, and the last block of the row to finish (a ticket
+// counter taken with acquire-release order) writes the answer, in the
+// same launch.
+//
+// The grid plan of both (16-byte vectors a block, blocks a row) comes from
+// the wrapper (`kernels/usage_argmin.py::grid_plan`).
+//
+// lra_topn: the kernel is instantiated for each n in 1..8, so a thread's
+// list of its n smallest keys stays in registers. Each thread walks its
+// share from the high end down, and a vector forms keys only if its
+// smallest value is at most the value of the thread's n-th key (three min
+// ops and a compare; equal values pass, since the index decides the
+// tie). SAM's table is the -arange(N) stagger with a few hundred positive
+// stamps, so it falls as the index rises: a thread's first vector holds
+// its smallest entries and every later one fails the test (walking up,
+// every entry would be the smallest yet and go through the insert
+// chain). The walk order changes the time only, never the answer (keys
+// are unique). A block merges its threads' lists to n keys (n rounds of
+// a warp minimum, then one warp over the warps' lists in shared memory),
+// writes them to its row's scratch, and takes the ticket; the row's last
+// block picks the n smallest of blocks·n keys.
 //
 // usage_argmin (n = 1) has a sweep of its own, since a list of one is a
 // running minimum: each thread keeps one (value, index) pair and replaces
 // it only on a strictly smaller value (an f32 compare, in which -0.0
 // equals +0.0), so among equal values it keeps the first it saw, the
 // lowest index (a thread walks its entries in increasing order); the key
-// is formed once, for the block's minimum. The body of a row is read as
-// 16-byte float4 loads; a row starts 16-byte aligned only when its
-// address does (rows % 4 == 0 for a whole table), so each row takes a
-// scalar head up to its first aligned entry and a scalar tail after its
-// last whole float4. A thread takes 16 float4s (ptxas keeps about four
-// loads in flight, in 32 registers: 64 KB an SM, more than the memory
-// needs in flight) and a block has 512 threads; a row gets about 4·SMs/B
-// blocks, rounded to whole rounds of loads (B = 8, N = 2^20: 32 blocks a
-// row, 256 in all, two an SM), so the table is swept in one wave. The
-// loads carry an L2 evict-first policy: the table is read once, and its
-// lines, not other kernels' (dirty ones cost a write-back), make room.
-// Each block folds its minimum into its row's word with a 64-bit
-// atomicMin (keys are unique, so the order of the blocks does not
-// matter), and the last block of the row to finish (a ticket counter)
-// writes the index, in the same launch.
+// is formed once, for the block's minimum. A thread takes 16 float4s a
+// round (ptxas keeps about four loads in flight, in 32 registers: 64 KB
+// an SM, more than the memory needs in flight) and a block has 512
+// threads; a row's blocks are whole rounds (B = 8, N = 2^20: 32 blocks a
+// row, 256 in all, two an SM). Each block folds its minimum into
+// its row's word with a 64-bit atomicMin (keys are unique, so the order
+// of the blocks does not matter) before it takes its ticket.
 #include <cuda_runtime.h>
 #include <climits>
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxN = 8;
-constexpr int kChunk = 8192;         // table entries per pass-1 block
 constexpr long long kNone = LLONG_MAX;
-
-// An int32 usage value orders as itself.
-__device__ __forceinline__ int ordered(int v) { return v; }
 
 // An f32 value as an int32 whose signed order is the float order. -0.0
 // becomes +0.0 first (x + 0.0 rounds -0.0 to +0.0), so the two compare
@@ -71,24 +82,6 @@ __device__ __forceinline__ int ordered(float v) {
 
 __device__ __forceinline__ long long make_key(int value, int index) {
   return (long long)value * 4294967296LL + (long long)index;
-}
-
-// Insert `key` into the ascending register list top[0..n).
-__device__ __forceinline__ void insert(long long (&top)[kMaxN], int n,
-                                       long long key) {
-#pragma unroll
-  for (int p = kMaxN - 1; p >= 0; --p) {
-    if (p < n && key < top[p]) {
-      const long long prev = top[p > 0 ? p - 1 : 0];
-      top[p] = (p > 0 && key < prev) ? prev : key;
-    }
-  }
-}
-
-__device__ __forceinline__ void pop(long long (&top)[kMaxN]) {
-#pragma unroll
-  for (int p = 0; p < kMaxN - 1; ++p) top[p] = top[p + 1];
-  top[kMaxN - 1] = kNone;
 }
 
 __device__ __forceinline__ long long warp_min(long long v) {
@@ -117,97 +110,6 @@ __device__ long long block_min(long long v, long long* sh) {
   return r;
 }
 
-// n rounds: the block's smallest remaining head is emitted and popped.
-__device__ void merge_out(long long (&top)[kMaxN], int n, long long* sh,
-                          long long* out_keys, int* out_idx) {
-  for (int r = 0; r < n; ++r) {
-    const long long best = block_min(top[0], sh);
-    if (top[0] == best) pop(top);     // keys are unique (or all kNone)
-    if (threadIdx.x == 0) {
-      if (out_keys) out_keys[r] = best;
-      if (out_idx) out_idx[r] = (int)(best & 0xffffffffLL);
-    }
-  }
-}
-
-template <typename V>
-__global__ void __launch_bounds__(kThreads)
-smallest_pass1(const V* __restrict__ table, long long row_stride,
-               int valid_n, int n, int chunks, long long* __restrict__ cand) {
-  __shared__ long long sh[33];
-  const int b = blockIdx.y, c = blockIdx.x, t = threadIdx.x;
-  const V* row = table + (long long)b * row_stride;
-  long long top[kMaxN];
-#pragma unroll
-  for (int p = 0; p < kMaxN; ++p) top[p] = kNone;
-  const int start = c * kChunk;
-  const int end = min(start + kChunk, valid_n);
-  for (int base = start; base < end; base += 4 * kThreads) {
-    V v[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int i = base + u * kThreads + t;
-      v[u] = i < end ? row[i] : V(0);
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int i = base + u * kThreads + t;
-      if (i < end) insert(top, n, make_key(ordered(v[u]), i));
-    }
-  }
-  merge_out(top, n, sh, cand + ((long long)b * chunks + c) * n, nullptr);
-}
-
-__global__ void __launch_bounds__(kThreads)
-smallest_pass2(const long long* __restrict__ cand, int ncand, int n,
-               int* __restrict__ out) {
-  __shared__ long long sh[33];
-  const int b = blockIdx.x;
-  const long long* mine = cand + (long long)b * ncand;
-  long long top[kMaxN];
-#pragma unroll
-  for (int p = 0; p < kMaxN; ++p) top[p] = kNone;
-  for (int i = threadIdx.x; i < ncand; i += kThreads) insert(top, n, mine[i]);
-  merge_out(top, n, sh, nullptr, out + (long long)b * n);
-}
-
-// Both passes over a (batch, row_stride) table; out is (batch, n).
-template <typename V>
-int launch_smallest(const V* table, long long row_stride, int batch,
-                    int valid_n, int n, long long* cand, int* out,
-                    void* stream) {
-  if (n < 1 || n > kMaxN || valid_n < n || batch < 1 || batch > 65535)
-    return (int)cudaErrorInvalidValue;
-  const int chunks = (valid_n + kChunk - 1) / kChunk;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  smallest_pass1<V><<<dim3(chunks, batch), kThreads, 0, s>>>(
-      table, row_stride, valid_n, n, chunks, cand);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  smallest_pass2<<<batch, kThreads, 0, s>>>(cand, chunks * n, n, out);
-  return (int)cudaGetLastError();
-}
-
-
-constexpr int kArgThreads = 512;     // usage_argmin's block
-constexpr int kVec = 16;             // float4 loads a thread
-constexpr unsigned long long kSign = 1ULL << 63;
-
-// float4s a block of usage_argmin's sweep takes: a row's share of about
-// 4·SMs/batch blocks, rounded up to whole rounds of kVec loads a thread.
-int argmin_per_block(int batch, int nvec) {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    sms = 132;
-  const long long want = (4LL * sms + batch - 1) / batch;   // blocks a row
-  const long long round = (long long)kVec * kArgThreads;
-  long long per = (nvec + want - 1) / want;
-  per = (per + round - 1) / round * round;
-  return (int)(per < round ? round : per);
-}
-
 // 16 bytes of a table read once: through to L2 (no L1 line) under an
 // evict-first policy there.
 __device__ __forceinline__ unsigned long long evict_first_policy() {
@@ -226,6 +128,196 @@ __device__ __forceinline__ float4 load_once(const float4* p,
       : "l"(p), "l"(pol));
   return r;
 }
+
+__device__ __forceinline__ int4 load_once(const int4* p,
+                                          unsigned long long pol) {
+  int4 r;
+  asm volatile(
+      "ld.global.nc.L1::no_allocate.L2::cache_hint.v4.s32 "
+      "{%0,%1,%2,%3}, [%4], %5;\n"
+      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+      : "l"(p), "l"(pol));
+  return r;
+}
+
+// A ticket of the row's counter, taken with release and acquire order:
+// what this thread wrote before is visible before its ticket counts, and
+// the last block sees what every other block wrote.
+__device__ __forceinline__ unsigned long long take_ticket(
+    unsigned long long* counter) {
+  unsigned long long ticket;
+  asm volatile("atom.acq_rel.gpu.global.add.u64 %0, [%1], 1;\n"
+               : "=l"(ticket) : "l"(counter) : "memory");
+  return ticket;
+}
+
+constexpr int kTopnThreads = 256;    // lra_topn's block
+constexpr int kTopnWarps = kTopnThreads / 32;
+constexpr int kTopnVec = 4;          // int4 loads a thread keeps in flight
+
+// Insert `key` into the ascending register list top[0..N).
+template <int N>
+__device__ __forceinline__ void insert(long long (&top)[N], long long key) {
+#pragma unroll
+  for (int p = N - 1; p >= 0; --p) {
+    if (key < top[p]) {
+      const long long prev = top[p > 0 ? p - 1 : 0];
+      top[p] = (p > 0 && key < prev) ? prev : key;
+    }
+  }
+}
+
+// The value of the list's last key: an entry above it cannot enter
+// (INT_MAX while the list is not full).
+template <int N>
+__device__ __forceinline__ int cut_of(const long long (&top)[N]) {
+  return (int)(top[N - 1] >> 32);
+}
+
+template <int N>
+__device__ __forceinline__ void offer(long long (&top)[N], int& cut, int v,
+                                      int i) {
+  if (v <= cut) {
+    insert(top, make_key(v, i));
+    cut = cut_of(top);
+  }
+}
+
+// The four entries e..e+3 of a vector, highest index first, or none of
+// them when their smallest value is above the cut.
+template <int N>
+__device__ __forceinline__ void offer_vec(long long (&top)[N], int& cut,
+                                          int4 x, int e) {
+  if (min(min(x.x, x.y), min(x.z, x.w)) <= cut) {
+    offer(top, cut, x.w, e + 3);
+    offer(top, cut, x.z, e + 2);
+    offer(top, cut, x.y, e + 1);
+    offer(top, cut, x.x, e);
+  }
+}
+
+// The warp's N smallest keys, ascending, in res on every lane: N rounds
+// in which the lane holding the warp's smallest head pops it (keys are
+// unique; lanes whose head is kNone pop kNone and keep kNone).
+template <int N>
+__device__ __forceinline__ void warp_smallest(long long (&top)[N],
+                                              long long (&res)[N]) {
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    const long long m = warp_min(top[0]);
+    if (top[0] == m) {
+#pragma unroll
+      for (int p = 0; p < N - 1; ++p) top[p] = top[p + 1];
+      top[N - 1] = kNone;
+    }
+    res[r] = m;
+  }
+}
+
+// The block's N smallest keys, ascending, in res on warp 0's lanes; the
+// block's other warps hold no result. top is consumed.
+template <int N>
+__device__ __forceinline__ void block_smallest(long long (&top)[N],
+                                               long long (&res)[N],
+                                               long long* sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  warp_smallest(top, res);
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < N; ++r) sh[warp * N + r] = res[r];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int r = 0; r < N; ++r)
+      top[r] = lane < kTopnWarps ? sh[lane * N + r] : kNone;
+    warp_smallest(top, res);
+  }
+}
+
+// lra_topn in one launch: block c of row b sweeps int4s
+// [c·per, (c+1)·per) of the row's aligned body, block 0 also the head and
+// the last block the tail; each thread takes the vectors t, t + T, ... of
+// that range from the last down. keys holds gridDim.x·N keys a row;
+// tickets one zero word a row, which the row's last block puts back.
+template <int N>
+__global__ void __launch_bounds__(kTopnThreads, 4)
+topn_kernel(const int* __restrict__ table, long long row_stride, int valid_n,
+            int per, long long* __restrict__ keys,
+            unsigned long long* __restrict__ tickets, int* __restrict__ out) {
+  __shared__ long long sh[kTopnWarps * N];
+  __shared__ int last;
+  const int b = blockIdx.y, c = blockIdx.x, t = threadIdx.x;
+  const int blocks = gridDim.x;
+  const int* row = table + (long long)b * row_stride;
+  const int mis = (int)((reinterpret_cast<unsigned long long>(row) >> 2) & 3);
+  const int head = min((4 - mis) & 3, valid_n);
+  const int nvec = (valid_n - head) >> 2;
+  const int tail0 = head + 4 * nvec;
+  const int4* body = reinterpret_cast<const int4*>(row + head);
+  const int start = c * per, end = min(start + per, nvec);
+  const unsigned long long pol = evict_first_policy();
+
+  long long top[N];
+#pragma unroll
+  for (int p = 0; p < N; ++p) top[p] = kNone;
+  int cut = INT_MAX;
+  if (c == blocks - 1 && tail0 + t < valid_n)
+    offer(top, cut, row[tail0 + t], tail0 + t);
+  // This thread's vectors are start + t + k·T for k < count.
+  const int count = end - start > t
+                        ? (end - start - t + kTopnThreads - 1) / kTopnThreads
+                        : 0;
+  for (int k = count; k > 0; k -= kTopnVec) {
+    int4 x[kTopnVec];
+#pragma unroll
+    for (int u = 0; u < kTopnVec; ++u)
+      if (k - 1 - u >= 0)
+        x[u] = load_once(body + start + t + (k - 1 - u) * kTopnThreads, pol);
+#pragma unroll
+    for (int u = 0; u < kTopnVec; ++u)
+      if (k - 1 - u >= 0)
+        offer_vec(top, cut, x[u],
+                 head + 4 * (start + t + (k - 1 - u) * kTopnThreads));
+  }
+  if (c == 0 && t < head) offer(top, cut, row[t], t);
+
+  long long res[N];
+  block_smallest(top, res, sh);
+  if (t == 0) {
+    long long* mine = keys + ((long long)b * blocks + c) * N;
+#pragma unroll
+    for (int r = 0; r < N; ++r) mine[r] = res[r];
+    last = take_ticket(tickets + b) == (unsigned long long)(blocks - 1);
+    if (last) tickets[b] = 0ULL;
+  }
+  __syncthreads();
+  if (!last) return;
+  // The row's last block: the N smallest of the blocks' keys.
+  const long long* all = keys + (long long)b * blocks * N;
+#pragma unroll
+  for (int p = 0; p < N; ++p) top[p] = kNone;
+  for (int i = t; i < blocks * N; i += kTopnThreads) insert(top, __ldcg(all + i));
+  block_smallest(top, res, sh);
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < N; ++r) out[(long long)b * N + r] = (int)(res[r] & 0xffffffffLL);
+  }
+}
+
+template <int N>
+cudaError_t launch_topn(const int* la, long long row_stride, int batch,
+                        int valid_n, int per, int blocks, long long* scratch,
+                        int* out, cudaStream_t s) {
+  topn_kernel<N><<<dim3(blocks, batch), kTopnThreads, 0, s>>>(
+      la, row_stride, valid_n, per, scratch + batch,
+      reinterpret_cast<unsigned long long*>(scratch), out);
+  return cudaGetLastError();
+}
+
+constexpr int kArgThreads = 512;     // usage_argmin's block
+constexpr int kVec = 16;             // float4 loads a thread
+constexpr unsigned long long kSign = 1ULL << 63;
 
 // The running minimum of one thread: a strictly smaller value replaces it
 // (f32 compare: -0.0 equals +0.0), so among equal values the first seen,
@@ -293,13 +385,9 @@ argmin_kernel(const float* __restrict__ usage, long long row_stride,
   const long long best = block_min(key, sh);
   if (t == 0) {
     atomicMin(row_min + b, (unsigned long long)best ^ kSign);
-    // The ticket is taken with release and acquire order: this block's
-    // atomicMin is done before its ticket counts, and the last block sees
-    // every other block's.
-    unsigned long long ticket;
-    asm volatile("atom.acq_rel.gpu.global.add.u64 %0, [%1], 1;\n"
-                 : "=l"(ticket) : "l"(tickets + b) : "memory");
-    if (ticket == (unsigned long long)(blocks - 1)) {
+    // This block's atomicMin is done before its ticket counts, and the
+    // last block sees every other block's.
+    if (take_ticket(tickets + b) == (unsigned long long)(blocks - 1)) {
       const unsigned long long m = atomicExch(row_min + b, ~0ULL);
       tickets[b] = 0ULL;
       out[b] = (int)(m & 0xffffffffULL);
@@ -311,29 +399,35 @@ argmin_kernel(const float* __restrict__ usage, long long row_stride,
 
 extern "C" {
 
-// int64 candidates per batch row that pass 1 writes (the wrapper
-// allocates the scratch buffer).
-int smallest_candidates(int valid_n, int n) {
-  return ((valid_n + kChunk - 1) / kChunk) * n;
-}
-
+// scratch: batch tickets (zero), which the launch leaves as it found
+// them, then blocks·n int64 keys a row; two launches must not share it at
+// once (one per stream). per and blocks come from the wrapper's plan and
+// must cover the row's int4s.
 int lra_topn_launch(const int* la, long long row_stride, int batch,
-                    int valid_n, int n, long long* cand, int* out,
-                    void* stream) {
-  return launch_smallest(la, row_stride, batch, valid_n, n, cand, out, stream);
+                    int valid_n, int n, int per, int blocks,
+                    long long* scratch, int* out, void* stream) {
+  if (n < 1 || n > kMaxN || valid_n < n || batch < 1 || batch > 65535 ||
+      per < 1 || blocks < 1 || (long long)per * blocks < valid_n / 4)
+    return (int)cudaErrorInvalidValue;
+  static cudaError_t (*const launch[kMaxN])(const int*, long long, int, int,
+                                            int, int, long long*, int*,
+                                            cudaStream_t) = {
+      launch_topn<1>, launch_topn<2>, launch_topn<3>, launch_topn<4>,
+      launch_topn<5>, launch_topn<6>, launch_topn<7>, launch_topn<8>};
+  return (int)launch[n - 1](la, row_stride, batch, valid_n, per, blocks,
+                            scratch, out, static_cast<cudaStream_t>(stream));
 }
 
 // state: 2·batch words, the rows' minima (all ones) then their tickets
 // (zero), which the launch leaves as it found them; two launches must not
-// share them at once (one set per stream).
+// share them at once (one set per stream). per and blocks as for
+// lra_topn_launch.
 int usage_argmin_launch(const float* usage, long long row_stride, int batch,
-                        int valid_n, unsigned long long* state, int* out,
-                        void* stream) {
-  if (valid_n < 1 || batch < 1 || batch > 65535)
+                        int valid_n, int per, int blocks,
+                        unsigned long long* state, int* out, void* stream) {
+  if (valid_n < 1 || batch < 1 || batch > 65535 || per < 1 || blocks < 1 ||
+      (long long)per * blocks < valid_n / 4)
     return (int)cudaErrorInvalidValue;
-  const int nvec = valid_n / 4;
-  const int per = argmin_per_block(batch, nvec);
-  const int blocks = nvec > per ? (nvec + per - 1) / per : 1;
   argmin_kernel<<<dim3(blocks, batch), kArgThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
       usage, row_stride, valid_n, per, state, state + batch, out);

@@ -130,7 +130,6 @@ def sweep_plan(B: int, valid_n: int, W: int, itemsize: int, H: int, K: int,
                      smem_bytes=smem, k=K)
 
 
-_SMS: dict[int, int] = {}
 # B words of zero per (device, stream, B): the tickets by which the last
 # block of a batch row finds itself, which each launch leaves as it found
 # them; launches on one stream run in order.
@@ -140,13 +139,7 @@ _TICKETS: dict[tuple[int, int, int], torch.Tensor] = {}
 def launch_scratch(dev: torch.device, stream: int, B: int, H: int, n: int,
                    W: int, itemsize: int, k: int):
     """(plan, cand_v, cand_i, tickets) of a sweep launch on ``dev``."""
-    if dev.index not in _SMS:
-        sms = _build.function("fused_read", "fused_read_sm_count",
-                              [_I])(dev.index)
-        if sms < 1:
-            raise RuntimeError("fused_read: cudaDeviceGetAttribute failed")
-        _SMS[dev.index] = sms
-    plan = sweep_plan(B, n, W, itemsize, H, k, _SMS[dev.index])
+    plan = sweep_plan(B, n, W, itemsize, H, k, _build.sm_count(dev))
     key = (dev.index, stream, B)
     if key not in _TICKETS:
         _TICKETS[key] = torch.zeros((B,), dtype=torch.int32, device=dev)

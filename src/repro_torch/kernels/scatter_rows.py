@@ -17,6 +17,7 @@ from repro_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 MODES = ("add", "set")
+MAX_COLUMNS = 4096      # csrc/scatter_rows.cu: a block's indices in 48 KB
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -26,10 +27,10 @@ def _require(cond: bool, msg: str) -> None:
 
 def scatter_rows(mem: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor, *,
                  mode: str) -> torch.Tensor:
-    """mem: (B, R, W) f32, idx: (B, J) int32 with every index in [0, R),
-    rows: (B, J, W) f32. 'add' adds each column's row into its target, a
-    target's columns summed in j order from its old value; 'set' writes
-    each target from its last column. In place; returns ``mem``. Matches
+    """mem: (B, R, W) f32, idx: (B, J) int32 with every index in [0, R)
+    and J <= `MAX_COLUMNS`, rows: (B, J, W) f32. 'add' adds each column's
+    row into its target, a target's columns summed in j order from its old
+    value; 'set' writes each target from its last column. In place; returns ``mem``. Matches
     `ref.scatter_rows_ref` bit for bit."""
     _require(mode in MODES, f"mode must be one of {MODES}, got {mode!r}")
     _require(mem.is_cuda, "mem must be a CUDA tensor")
@@ -38,6 +39,8 @@ def scatter_rows(mem: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor, *,
     _require(idx.dim() == 2 and idx.shape[0] == B,
              f"idx must be (B={B}, J), got {tuple(idx.shape)}")
     J = idx.shape[1]
+    _require(J <= MAX_COLUMNS, f"idx has {J} columns, more than "
+                               f"{MAX_COLUMNS}")
     shapes = {"mem": (mem, torch.float32, (B, R, W)),
               "idx": (idx, torch.int32, (B, J)),
               "rows": (rows, torch.float32, (B, J, W))}

@@ -214,6 +214,58 @@ def test_lra_topn_kernel_matches_plain(dev, N, n, case):
     assert torch.equal(got, want)
 
 
+def _lra_table(rng, B, N, case):
+    """(B, N + 1) int32 usage table for `lra_topn` and the valid_n to sweep:
+    'step21' the -arange(N) stagger after 21 steps of SAM's writes (about
+    400 rows a batch row stamped 1..21, most of them at the high end, where
+    the LRA picks lie), 'ascending' values rising with the index, 'equal'
+    one value everywhere (the answer is 0..n-1), 'extremes' random values
+    with INT32_MIN and INT32_MAX at many places, 'valid' a smaller valid_n
+    with the smallest values just past it."""
+    lo, hi = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    la = np.broadcast_to(-np.arange(N + 1, dtype=np.int64), (B, N + 1)).copy()
+    vn = N
+    if case == "step21":
+        for step in range(1, 22):
+            rows = np.concatenate([N - 1 - rng.integers(0, 4 * step, 12),
+                                   rng.integers(0, N, 8)])
+            la[:, rows] = step
+    elif case == "ascending":
+        la = -la
+    elif case == "equal":
+        la[:] = 7
+    elif case == "extremes":
+        la = rng.integers(lo, hi, (B, N + 1), endpoint=True)
+        la[:, rng.integers(0, N, 24)] = lo
+        la[:, rng.integers(0, N, 24)] = hi
+    elif case == "valid":
+        vn = N - 5
+        la[:, vn:] = lo
+    la[:, N] = LA_SCRATCH
+    return la.astype(np.int32), vn
+
+
+@pytest.mark.parametrize("B,N", [(3, 4097), (4, 65536), (8, 1 << 20)],
+                         ids=["ragged", "lm", "smoke"])
+@pytest.mark.parametrize("case", ["step21", "ascending", "equal", "extremes",
+                                  "valid"])
+def test_lra_topn_kernel_on_usage_tables(dev, B, N, case):
+    """Every n of 1..8 bit for bit against the plain version, one launch a
+    call; the (8, 2^20 + 1) table has the smoke's stride, whose rows start
+    at every offset from a 16-byte boundary."""
+    la, vn = _lra_table(np.random.default_rng(N), B, N, case)
+    la = torch.tensor(la, device=dev)
+    for n in range(1, 9):
+        count = lra_topn.launches
+        got = lra_topn(la, n, valid_n=vn)
+        assert lra_topn.launches == count + 1
+        want = ref.lra_topn_ref(la[:, :vn], n)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (n, got, want)
+        if case == "equal":
+            assert got.tolist() == [list(range(n))] * B
+
+
 def _write_inputs(rng, B, N, W, H, K):
     J = H * (K + 1)
     mem = rng.standard_normal((B, N + 1, W)).astype(np.float32)
@@ -282,6 +334,54 @@ def test_scatter_rows_kernel_matches_plain(dev, N, mode, dups):
     assert torch.equal(mem, want)
 
 
+@pytest.mark.parametrize("B,R,J,W,case", [
+    (4, 65537, 36, 128, "some"),           # the LM's write: J = H·(K+1)
+    (3, 1000, 70, 32, "cross"),            # groups across three warps
+    (3, 1000, 36, 32, "heavy"),            # three rows, every column
+    (3, 1000, 36, 30, "some"),             # W % 4 != 0: floats
+    (3, 1000, 20, 32, "unaligned"),        # mem off a 16-byte boundary
+    (2, 500, 40, 32, "outside"),           # indices -1 and R are skipped
+])
+@pytest.mark.parametrize("mode", ["add", "set"])
+def test_scatter_rows_kernel_at_other_shapes(dev, B, R, J, W, case, mode):
+    """Bit for bit against the plain version, one launch a call. Skipped
+    columns are compared as if they were not there (the plain version
+    raises on them)."""
+    rng = np.random.default_rng(J + W)
+    mem = rng.standard_normal((B, R, W)).astype(np.float32)
+    rows = rng.standard_normal((B, J, W)).astype(np.float32)
+    if case == "heavy":
+        idx = rng.integers(0, 3, (B, J))
+    elif case == "cross":
+        idx = rng.integers(0, R, (B, J))
+        idx[:, [5, 33, 40, 66]] = idx[:, [0]]      # warps 0, 1, 1, 2
+        idx[:, [31, 32]] = idx[:, [64]]            # warps 0, 1 and 2
+    else:
+        idx = rng.integers(0, R, (B, J))
+        idx[:, [7, J - 1]] = idx[:, [2]]
+    keep = list(range(J))
+    if case == "outside":
+        idx[:, 3], idx[:, J - 4] = -1, R
+        keep = [j for j in keep if j not in (3, J - 4)]
+    idx = idx.astype(np.int32)
+    want = ref.scatter_rows_ref(torch.tensor(mem), torch.tensor(idx[:, keep]),
+                                torch.tensor(rows[:, keep]), mode)
+    if case == "unaligned":
+        flat = torch.empty(B * R * W + 1, device=dev)
+        m = flat[1:].view(B, R, W)
+        m.copy_(torch.tensor(mem))
+        assert m.data_ptr() % 16 == 4
+    else:
+        m = torch.tensor(mem, device=dev)
+    count = scatter_rows.launches
+    out = scatter_rows(m, torch.tensor(idx, device=dev),
+                       torch.tensor(rows, device=dev), mode=mode)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == m.data_ptr()
+    assert scatter_rows.launches == count + 1
+    assert torch.equal(m.cpu(), want)
+
+
 def test_scatter_rows_kernel_raises_on_inputs_it_cannot_take(dev):
     mem = torch.zeros((2, 65, 8), device=dev)
     idx = torch.zeros((2, 5), dtype=torch.int32, device=dev)
@@ -299,6 +399,10 @@ def test_scatter_rows_kernel_raises_on_inputs_it_cannot_take(dev):
                      rows, mode="add")
     with pytest.raises(ValueError, match="mode"):
         scatter_rows(mem, idx, rows, mode="max")
+    with pytest.raises(ValueError, match="columns"):
+        scatter_rows(mem, torch.zeros((2, 4097), dtype=torch.int32,
+                                      device=dev),
+                     torch.zeros((2, 4097, 8), device=dev), mode="set")
 
 
 def test_sparse_train_step_on_card_matches_cpu(dev):

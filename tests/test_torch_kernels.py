@@ -27,6 +27,9 @@ from repro_torch.core.types import LA_SCRATCH
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fused_read import (MAX_SMEM, WARPS, bank_ways,
                                             smem_bytes, sweep_plan)
+from repro_torch.kernels.usage_argmin import (ARGMIN_THREADS, ARGMIN_VEC,
+                                              BLOCKS_PER_SM, TOPN_THREADS,
+                                              grid_plan)
 
 TOL = 1e-5
 B, N, W, H, K = 2, 128, 8, 2, 4
@@ -453,3 +456,145 @@ def test_sweep_plan_refuses_rows_it_cannot_spread():
         sweep_plan(2, 100, 256, 4, 4, 4, SMS)      # 1 KB rows
     with pytest.raises(ValueError, match="pieces"):
         sweep_plan(2, 100, 512, 1, 8, 4, SMS)      # 64 pieces of 8 bytes
+
+
+# --------------------------------------------------------------------------
+# The least-used sweeps' grid plan (kernels/usage_argmin.py::grid_plan),
+# which the CUDA kernels receive, and the row scatter's owner rule
+# (csrc/scatter_rows.cu), each followed as the kernel computes it.
+# --------------------------------------------------------------------------
+
+def _sweep_pieces(plan, valid_n, offset, per_thread):
+    """The [lo, hi) entry ranges of one row that a kernel of
+    csrc/usage_argmin.cu sweeps, for a row whose first entry lies
+    ``offset`` entries past a 16-byte boundary: block 0's scalar head, the
+    blocks' vectors, the last block's scalar tail. With ``per_thread``,
+    `topn_kernel`'s vectors thread by thread (vectors start + t + k·T,
+    k < count), else each block's range as one piece."""
+    head = min((4 - offset) & 3, valid_n)
+    nvec = (valid_n - head) >> 2
+    tail0 = head + 4 * nvec
+    pieces = [(0, head)]
+    for c in range(plan.blocks):
+        start, end = c * plan.per, min((c + 1) * plan.per, nvec)
+        if not per_thread:
+            pieces.append((head + 4 * start, head + 4 * max(start, end)))
+            continue
+        for t in range(TOPN_THREADS):
+            count = (-(-(end - start - t) // TOPN_THREADS)
+                     if end - start > t else 0)
+            first = head + 4 * (start + t)
+            pieces += [(first + 4 * TOPN_THREADS * k,
+                        first + 4 * TOPN_THREADS * k + 4)
+                       for k in range(count)]
+    pieces.append((tail0, valid_n))
+    return pieces
+
+
+@pytest.mark.parametrize("kernel", ["lra_topn", "usage_argmin"])
+@pytest.mark.parametrize("rows_n", [1000, 4097, 65536, 1 << 18, 1 << 20])
+@pytest.mark.parametrize("batch", [1, 4, 8])
+def test_grid_plan_covers_each_entry_once_in_one_wave(kernel, rows_n, batch):
+    """The table is (B, N+1) with the scratch entry last, valid_n = N, so
+    row b starts b·(N+1) entries past the table's start; the table itself
+    may start at any 4-byte offset from a 16-byte boundary."""
+    stride, valid_n = rows_n + 1, rows_n
+    topn = kernel == "lra_topn"
+    round_vecs = TOPN_THREADS if topn else ARGMIN_THREADS * ARGMIN_VEC
+    plan = grid_plan(batch, valid_n, SMS, round_vecs)
+    assert batch * plan.blocks <= BLOCKS_PER_SM * SMS          # one wave
+    assert plan.blocks <= plan.slots                           # the scratch
+    assert plan.per % round_vecs == 0
+    assert plan.per * plan.blocks >= valid_n // 4
+    if valid_n // 4 >= BLOCKS_PER_SM * SMS * round_vecs:
+        # enough rows for the wave: it is at least half full
+        assert 2 * batch * plan.blocks >= BLOCKS_PER_SM * SMS
+    if (topn, rows_n, batch) == (False, 1 << 20, 8):
+        assert (plan.blocks, plan.per) == (32, 8192)   # the source note's
+    offsets = sorted({(base + b * stride) % 4 for base in range(4)
+                      for b in range(batch)})
+    for offset in offsets:
+        pieces = sorted(r for r in _sweep_pieces(plan, valid_n, offset, topn)
+                        if r[1] > r[0])
+        assert pieces[0][0] == 0 and pieces[-1][1] == valid_n
+        assert all(a[1] == b[0] for a, b in zip(pieces, pieces[1:]))
+        head = min((4 - offset) & 3, valid_n)
+        assert all((lo - head) % 4 == 0 and (hi - lo) % 4 == 0
+                   for lo, hi in pieces[1:-1] if lo >= head)
+
+
+def _match_any_owners(idx_row, n_rows, add):
+    """csrc/scatter_rows.cu's groups for one batch row, followed lane by
+    lane: warps of 32 columns grouped by equal index (__match_any_sync),
+    the next column found in the warp or by a scan of the later warps, the
+    first column by the earlier lanes and a scan of the earlier warps.
+    Returns (owner, next) lists; skipped columns own nothing."""
+    J = len(idx_row)
+    owner, nxt = [False] * J, [-1] * J
+    for base in range(0, J, 32):
+        lanes = [idx_row[j] if j < J and 0 <= idx_row[j] < n_rows else -1
+                 for j in range(base, base + 32)]
+        for lane, row in enumerate(lanes):
+            j = base + lane
+            if row < 0:
+                continue
+            same = [m for m, r in enumerate(lanes) if r == row]
+            above = [m for m in same if m > lane]
+            if above:
+                nxt[j] = base + above[0]
+            else:
+                later = [u for u in range(base + 32, J) if idx_row[u] == row]
+                nxt[j] = later[0] if later else -1
+            first = (not [m for m in same if m < lane]
+                     and row not in list(idx_row[:base]))
+            owner[j] = first if add else nxt[j] < 0
+    return owner, nxt
+
+
+def _scatter_by_groups(mem, idx, rows, mode):
+    """The kernel's result, in numpy f32: each owner writes its row, 'add'
+    from the row's old value plus its group's columns in j order."""
+    out = mem.copy()
+    for b in range(idx.shape[0]):
+        owner, nxt = _match_any_owners(list(idx[b]), mem.shape[1],
+                                       mode == "add")
+        for j, own in enumerate(owner):
+            if not own:
+                continue
+            if mode == "set":
+                out[b, idx[b, j]] = rows[b, j]
+                continue
+            acc = mem[b, idx[b, j]] + rows[b, j]
+            u = nxt[j]
+            while u >= 0:
+                acc = acc + rows[b, u]
+                u = nxt[u]
+            out[b, idx[b, j]] = acc
+    return out
+
+
+@pytest.mark.parametrize("J", [20, 36, 70])
+@pytest.mark.parametrize("mode", ["add", "set"])
+def test_scatter_owner_rule_matches_plain_on_heavy_duplicates(J, mode):
+    """Three rows named by all J columns, so groups span warps at J > 32;
+    bit for bit against `ref.scatter_rows_ref` (the same f32 adds in the
+    same order). Columns outside [0, R), which the kernel skips, leave the
+    result as if they were not there."""
+    rng = np.random.default_rng(J)
+    R, Wd, Bd = 9, 6, 3
+    mem = rng.standard_normal((Bd, R, Wd)).astype(np.float32)
+    idx = rng.integers(0, 3, (Bd, J)).astype(np.int32)
+    idx[:, J - 1] = 7                      # a row named once, last
+    rows = rng.standard_normal((Bd, J, Wd)).astype(np.float32)
+    want = ref.scatter_rows_ref(torch.tensor(mem), torch.tensor(idx),
+                                torch.tensor(rows), mode).numpy()
+    np.testing.assert_array_equal(_scatter_by_groups(mem, idx, rows, mode),
+                                  want)
+    outside = idx.copy()
+    outside[:, [1, J // 2]] = [-1, R]
+    np.testing.assert_array_equal(
+        _scatter_by_groups(mem, outside, rows, mode),
+        ref.scatter_rows_ref(torch.tensor(mem),
+                             torch.tensor(np.delete(idx, [1, J // 2], 1)),
+                             torch.tensor(np.delete(rows, [1, J // 2], 1)),
+                             mode).numpy())
