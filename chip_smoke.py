@@ -21,8 +21,9 @@ exit) if any phase fails:
 
 1. build the kernels from `src/repro_torch/kernels/csrc/` with nvcc for
    sm_90a and print each kernel's registers, shared memory and spills
-   (none may spill in `fused_read.cu`, `usage_argmin.cu` or
-   `scatter_rows.cu`), and the HMMA
+   (none may spill in `fused_read.cu`, `usage_argmin.cu`,
+   `scatter_rows.cu`, `sparse_write.cu` or `fused_read_candidates.cu`),
+   and the HMMA
    (tensor-core) instructions in each `flash_attention` kernel's SASS
    (`cuobjdump -sass`): the bf16 kernels must have them, the f32 ones
    none;
@@ -70,8 +71,11 @@ exit) if any phase fails:
    before each launch), `lra_topn` also on a rank's (B, 2^18 + 1) block,
    beside the floor of an empty launch in the same timer
    (`torch.cuda._sleep(0)`), the write also on its buffers cloned at four
-   other places (its time moves with them), the rollouts' ms per step,
-   device time per step (`torch.profiler`) and peak memory, exact and
+   other places (its time moves with them), and the write and the
+   candidate read with their rows folded into 2 MB of each batch row's
+   memory, the rollouts' ms per step, device time per step
+   (`torch.profiler`, with the exact step's kernels by name) and peak
+   memory, exact and
    LSH (each sweep's `[time]` line, here and in phases 7, 9 and 10, also
    gives the bytes its bound counts over its time in GB/s, their share of
    3.35 TB/s and its rows per second), and the train steps' ms (forward and backward apart) and peak memory, the exact one
@@ -173,8 +177,11 @@ exit) if any phase fails:
       phase 6's single-device step; rank 0's device ms per step
       (`torch.profiler`); each rank's peak memory beside its block; a
       bare all-gather of a CUDA and of a host tensor;
-11. print the card, one JSON line of per-kernel numbers (the LM's under
-   ``"lm"``, the sharded memory's under ``"mesh"``), and last the
+11. print the empty-launch floor with each latency-bound kernel's time
+   above it (`lra_topn`, the scatter, the write at step 21 on f32 and
+   bf16 rows and at the LM's shapes, the candidate read on f32, bf16 and
+   int8 rows), the card, one JSON line of per-kernel numbers (the LM's
+   under ``"lm"``, the sharded memory's under ``"mesh"``), and last the
    ``{"ok": true, ...}`` line.
 
 Tolerances: integer outputs exact; forward floats within 1e-5 of
@@ -281,8 +288,10 @@ REPLACES = {
 }
 SUFFIX = {"bfloat16": "_bf16", "int8": "_int8"}
 # The kernels whose ptxas report may show no spill: the exact read's sweep,
-# the LRA selection and DAM's argmin, the row scatter.
-NO_SPILL = ("fused_read", "usage_argmin", "scatter_rows")
+# the LRA selection and DAM's argmin, the row scatter, the writes and the
+# candidate read.
+NO_SPILL = ("fused_read", "usage_argmin", "scatter_rows", "sparse_write",
+            "fused_read_candidates")
 
 
 def kernel_name(base: str, mem: torch.Tensor) -> str:
@@ -1749,8 +1758,8 @@ def run() -> None:
         from repro_torch.kernels import _build, ops, ref
         from repro_torch.kernels.flash_attention import flash_attention
         from repro_torch.kernels.fused_read import fused_read_sweep
-        from repro_torch.kernels.fused_read_candidates import \
-            fused_read_candidates
+        from repro_torch.kernels.fused_read_candidates import (
+            cand_plan, fused_read_candidates)
         from repro_torch.kernels.lsh_hash import lsh_hash
         from repro_torch.kernels.scatter_rows import scatter_rows
         from repro_torch.kernels.sparse_write import sparse_write_update
@@ -2112,6 +2121,12 @@ def run() -> None:
     lsh_model = sam.SAM(lsh_cfg, seed=0, device=dev)
     planes = lsh_model.lsh_planes
     C = lsh_cfg.memory.candidates + H * (K + 1)
+    # The candidate read holds all C rows in one tile, for every row dtype,
+    # so its sum reads no row from device memory a second time.
+    for itemsize in (4, 2, 1):
+        plan = cand_plan(C, W, 16 // itemsize, K)
+        require(plan.tile == C, f"the candidate read's plan {plan} stages "
+                                f"C={C} rows in more than one tile")
     # (a) the two new kernels on a real LSH rollout's inputs.
     with torch.inference_mode():
         with Intercept(ops, record=True) as rec_l:
@@ -2313,6 +2328,19 @@ def run() -> None:
         write_placed.append(time_ms(lambda: sparse_write_update(
             m_p, l_p, *wr[2:7], delta=wr[7]), 50, flush))
         del pad, m_p, l_p
+    # ... and with every row it touches folded into the first 2 MB of each
+    # batch row's memory (row r -> r mod 2 MB / (4 W); the usage cells then
+    # lie in 64 KB), the rows it writes and the work the same up to the
+    # collisions the folding makes: whether the spread of its rows over
+    # the gigabyte, and not its own trips, sets its time. Likewise the
+    # candidate read, its candidates folded and deduped again.
+    fold = (2 << 20) // (4 * W)
+    m_f, l_f = wr[0].clone(), wr[1].clone()
+    fw_idx, fw_lra = wr[2] % fold, wr[5] % fold
+    write_folded = time_ms(lambda: sparse_write_update(
+        m_f, l_f, fw_idx, wr[3], wr[4], fw_lra, wr[6], delta=wr[7]), 50,
+        flush)
+    del m_f, l_f
     scatter_add = dict(
         ms=time_ms(lambda: scatter_rows(buf_add, ridx21, g_add, mode="add"),
                    50, flush),
@@ -2348,6 +2376,10 @@ def run() -> None:
     # row (two heads may share one), the queries, betas and ids, and writes
     # the read, weights and indices; it scores each valid candidate (dot
     # and norm, 4W) and sums K rows (2KW) per head.
+    cand_f = ref.dedup(torch.where(cand_c >= 0, cand_c % fold,
+                                   torch.full_like(cand_c, -1)))
+    cand_folded = time_ms(lambda: fused_read_candidates(
+        q_c, mem_c, beta_c, cand_f, k=K), 50, flush)
     valid_c = cand_c >= 0
     uniq_c = len({(b, r) for b, row in enumerate(cand_c.reshape(B, -1).tolist())
                   for r in row if r >= 0})
@@ -2381,10 +2413,14 @@ def run() -> None:
         return (sorted(times)[len(times) // 2], times,
                 torch.cuda.max_memory_allocated() - held)
 
-    def rollout_device(m):
-        """Device ms and kernel launches per step of one traced rollout."""
+    def rollout_device(m, by_kernel=None):
+        """Device ms and kernel launches per step of one traced rollout;
+        the (kernel, ms, launches) per step, largest first, go into
+        ``by_kernel`` if given."""
         with torch.inference_mode():
             d_ms, on_dev = device_time(lambda: m(m.init_state(B), xs))
+        if by_kernel is not None:
+            by_kernel += [(k_, t_ / T, c_ / T) for k_, t_, c_ in on_dev]
         return d_ms / T, sum(r[2] for r in on_dev) / T
 
     def train_timing(fn, p, o, c, flat, src):
@@ -2421,8 +2457,9 @@ def run() -> None:
 
     step_ms, rollouts, peak = rollout_ms(model)
     lsh_step_ms, lsh_rollouts, lsh_peak = rollout_ms(lsh_model)
+    step_kernels = []
     (dev_step_ms, dev_step_n), (lsh_dev_step_ms, lsh_dev_step_n) = (
-        rollout_device(model), rollout_device(lsh_model))
+        rollout_device(model, step_kernels), rollout_device(lsh_model))
     tr = train_timing(step_fn, params, opt_state, cell, (flat_p, p_spec),
                       state)
     tr_l = train_timing(step_fn_l, params_l, opt_l, lsh_cell, flat_l,
@@ -2453,14 +2490,12 @@ def run() -> None:
           f"{lra_block['ms']:.4f} ms (bound {lra_block['bound'][0]:.6f} ms "
           f"by {lra_block['bound'][1]}), plain {lra_block['plain_ms']:.4f} "
           f"ms, library torch.topk {lra_block['library_ms']:.4f} ms")
-    print(f"[time] empty-launch floor (torch.cuda._sleep(0), same timer): "
-          f"{empty_ms:.4f} ms; above it: lra_topn "
-          f"{rows['lra_topn']['ms'] - empty_ms:.4f} ms, block "
-          f"{lra_block['ms'] - empty_ms:.4f} ms, scatter_rows 'set' "
-          f"{rows['scatter_rows']['ms'] - empty_ms:.4f} ms, 'add' "
-          f"{scatter_add['ms'] - empty_ms:.4f} ms")
     print(f"[time] sparse_write_update on its buffers cloned after pads of "
-          f"0 to 3 MB: {', '.join(f'{t:.4f}' for t in write_placed)} ms")
+          f"0 to 3 MB: {', '.join(f'{t:.4f}' for t in write_placed)} ms "
+          f"(spread {max(write_placed) - min(write_placed):.4f} ms); with "
+          f"its rows folded into 2 MB of each batch row: "
+          f"{write_folded:.4f} ms; fused_read_candidates with its "
+          f"candidates so folded: {cand_folded:.4f} ms")
     for what, r in (("the written rows", rows["lsh_hash"]),
                     ("the queries", hash_query), ("all B·N rows", hash_bulk)):
         print(f"[time] lsh_hash of {what}: {r['ms']:.4f} ms (bound "
@@ -2473,6 +2508,9 @@ def run() -> None:
           f"peak memory {peak / 2**30:.2f} GiB; write touches {uniq} unique "
           f"rows; device time {dev_step_ms:.4f} ms/step in "
           f"{dev_step_n:.1f} kernel launches")
+    print(f"[time] rollout kernels a step (ms, launches): "
+          + "; ".join(f"{k_[:48]} {t_:.4f} ({c_:g})"
+                      for k_, t_, c_ in step_kernels))
     print(f"[time] LSH rollout {lsh_step_ms:.3f} ms/step, median of "
           f"{', '.join(f'{r:.3f}' for r in lsh_rollouts)}; peak memory "
           f"{lsh_peak / 2**30:.2f} GiB; device time {lsh_dev_step_ms:.4f} "
@@ -2692,6 +2730,20 @@ def run() -> None:
     rows["topk_read"] = mesh["row"]
 
     # ---- 11. report ----
+    lm_write = lmr["lm"]["kernels_at_lm_shapes"]["sparse_write_update"]
+    above = (("lra_topn", rows["lra_topn"]), ("block", lra_block),
+             ("scatter_rows 'set'", rows["scatter_rows"]),
+             ("'add'", scatter_add),
+             ("sparse_write_update", rows["sparse_write_update"]),
+             ("bf16", rows["sparse_write_update_bf16"]),
+             ("the LM's", lm_write),
+             ("fused_read_candidates", rows["fused_read_candidates"]),
+             ("bf16", rows["fused_read_candidates_bf16"]),
+             ("int8", rows["fused_read_candidates_int8"]))
+    print(f"[time] empty-launch floor (torch.cuda._sleep(0), same timer): "
+          f"{empty_ms:.4f} ms; above it: "
+          + ", ".join(f"{name} {r['ms'] - empty_ms:.4f} ms"
+                      for name, r in above))
     print(card_line())
     # Launches: each kernel's count in the main path of its own read, the
     # exact-read train step or (the hash, the candidate read) sam_ann's.
@@ -2734,6 +2786,8 @@ def run() -> None:
                       "near_zero_bits": checker.near_zero_bits,
                       "empty_launch_ms": empty_ms,
                       "write_placements_ms": write_placed,
+                      "write_folded_ms": write_folded,
+                      "cand_folded_ms": cand_folded,
                       "main_path_launches": {"sam": launches,
                                              "sam_ann": launches_l},
                       "ms_per_step": step_ms, "peak_bytes": peak,

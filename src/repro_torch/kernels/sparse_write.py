@@ -13,6 +13,8 @@ the Pallas kernels update them through ``input_output_aliases``
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -20,6 +22,50 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import _lane_step
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# csrc/sparse_write.cu's limits of the f32/bf16 write: columns a block
+# stages, floats of a a block stages, threads a block; and the plan's
+# aims: at most PIECES pieces a block, slices no narrower than MIN_WORDS.
+MAX_COLUMNS, MAX_A_WORDS, MAX_THREADS = 1024, 4096, 1024
+PIECES, MIN_WORDS = 256, 32
+
+
+@dataclass(frozen=True)
+class WritePlan:
+    """How the f32/bf16 write cuts its work (csrc/sparse_write.cu): a
+    block per (slice of ``words`` words of W, batch row), ``slices`` of
+    them a batch row, ``threads`` a block, each thread on pieces of
+    ``vec`` values of a column's row in the slice (up to 4 at once)."""
+    words: int
+    slices: int
+    threads: int
+    vec: int
+
+
+@functools.lru_cache(maxsize=256)
+def write_plan(J: int, W: int, H: int, vec: int) -> WritePlan:
+    """The write's plan for J columns of W words, H heads of a, pieces of
+    ``vec`` values (a 16-byte vector where W and the buffers allow it, else
+    1). W is cut into slices (halved, kept a multiple of vec) while a
+    block would hold more than PIECES pieces and a slice stays at least
+    MIN_WORDS wide, or while the slice of a is more than MAX_A_WORDS
+    floats; a block has a thread a piece, up to MAX_THREADS."""
+    _require(J <= MAX_COLUMNS, f"{J} columns, more than {MAX_COLUMNS}")
+    _require(W % vec == 0, f"W={W} is not a multiple of vec={vec}")
+    words = W
+    while True:
+        half = -(-words // (2 * vec)) * vec      # half, a multiple of vec
+        wide = J * (words // vec) > PIECES and half >= MIN_WORDS
+        if half >= words or not (wide or H * words > MAX_A_WORDS):
+            break
+        words = half
+    _require(H * words <= MAX_A_WORDS,
+             f"H={H} heads of a take {H * words} floats a slice, more than "
+             f"{MAX_A_WORDS}")
+    pieces = J * (words // vec)
+    threads = min(MAX_THREADS, -(-pieces // 32) * 32)
+    return WritePlan(words=words, slices=-(-W // words), threads=threads,
+                     vec=vec)
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -57,7 +103,9 @@ def sparse_write_update(mem: torch.Tensor, last_access: torch.Tensor,
              else f"{mem.dtype} rows take no mem_scale")
     B, rows, W = mem.shape
     N, H, J = rows - 1, a.shape[1], write_idx.shape[1]
-    step = _lane_step(step, B, mem.device).contiguous()
+    # A () step is read by every batch row in place (stride 0): no copy,
+    # so the write is one launch.
+    step = _lane_step(step, B, mem.device)
     shapes = {"last_access": (last_access, torch.int32, (B, rows)),
               "write_idx": (write_idx, torch.int32, (B, J)),
               "write_w": (write_w, torch.float32, (B, J)),
@@ -73,24 +121,31 @@ def sparse_write_update(mem: torch.Tensor, last_access: torch.Tensor,
                  f"{name} must be {shape}, got {tuple(t.shape)}")
         _require(t.is_contiguous(), f"{name} must be contiguous")
     _require(J % H == 0, f"J={J} is not a multiple of H={H}")
+    if not int8:
+        per = 16 // mem.element_size()
+        aligned = (W % per == 0 and mem.data_ptr() % 16 == 0
+                   and a.data_ptr() % 16 == 0)
+        plan = write_plan(J, W, H, per if aligned else 1)
     stream = torch.cuda.current_stream(mem.device).cuda_stream
     with torch.cuda.device(mem.device):
         if int8:
             fn = _build.function("sparse_write", "sparse_write_q_launch",
                                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                  _I, _I, _F, _P])
+                                  _I, _I, _I, _F, _P])
             err = fn(mem.data_ptr(), mem_scale.data_ptr(),
                      last_access.data_ptr(), write_idx.data_ptr(),
                      write_w.data_ptr(), a.data_ptr(), lra_idx.data_ptr(),
-                     step.data_ptr(), B, N, W, J, H, delta, stream)
+                     step.data_ptr(), step.stride(0), B, N, W, J, H, delta,
+                     stream)
         else:
             fn = _build.function("sparse_write", "sparse_write_launch",
                                  [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _I, _F, _I, _P])
+                                  _I, _I, _F, _I, _I, _I, _I, _P])
             err = fn(mem.data_ptr(), last_access.data_ptr(),
                      write_idx.data_ptr(), write_w.data_ptr(), a.data_ptr(),
-                     lra_idx.data_ptr(), step.data_ptr(), B, N, W, J, H,
-                     delta, _build.ROW_CODE[mem.dtype], stream)
+                     lra_idx.data_ptr(), step.data_ptr(), step.stride(0), B,
+                     N, W, J, H, delta, _build.ROW_CODE[mem.dtype],
+                     plan.words, plan.threads, plan.vec, stream)
     _build.check("sparse_write_update", err)
     sparse_write_update.launches += 1
     sparse_write_update.launches_by_dtype[str(mem.dtype)[6:]] += 1

@@ -303,6 +303,92 @@ def test_sparse_write_kernel_matches_plain(dev, N, per_lane):
     assert la[:, N].eq(LA_SCRATCH).all()
 
 
+WRITE_CASES = ["one-row", "lra-later", "at-delta", "scratch", "lm", "w30",
+               "unaligned", "strided-step"]
+
+
+def _write_case(rng, case, dtype):
+    """Inputs of the write's edge cases, each with a per-lane step: every
+    column on one row (erased: the row is also every head's LRA row); an
+    LRA row that a later head's column also names; weights exactly at
+    delta (no stamp); every column on the scratch row N with weight 0 (the
+    sharded write's columns of other ranks); the LM's (B, J, W) =
+    (4, 36, 128); the single-value pieces: W = 30, and a memory that
+    starts one value past a 16-byte boundary; and a per-lane step read
+    through a stride of 2."""
+    B, N, W, H, K = (4, 4097, 128, 4, 8) if case == "lm" else \
+        (3, 1000, 30 if case == "w30" else 32, 4, 4)
+    mem, la, widx, ww, a, lra = _write_inputs(rng, B, N, W, H, K)
+    mem[:, N] = 0.0
+    J = H * (K + 1)
+    if case == "one-row":
+        widx[:] = 17
+        lra[:] = 17
+    elif case == "lra-later":
+        widx = widx.reshape(B, H, K + 1)
+        widx[:, 2, 0] = widx[:, 0, K]
+        widx[:, 3, 1] = widx[:, 0, K]
+        widx = widx.reshape(B, J)
+    elif case == "at-delta":
+        ww[:, ::2] = np.float32(0.005)
+    elif case == "scratch":
+        widx[:] = N
+        lra[:] = N
+        ww[:] = 0.0
+    step = np.array([60, 7, 61, 3][:B], dtype=np.int32)
+    mem, la, widx, ww, a, lra, step = (
+        torch.tensor(x) for x in (mem, la, widx, ww, a, lra, step))
+    if dtype == "bfloat16":
+        mem = mem.to(torch.bfloat16)
+    return mem, la, widx, ww, a, lra, step
+
+
+def _unaligned(t):
+    """A contiguous copy of t that starts one value past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.parametrize("case", WRITE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sparse_write_kernel_edge_cases_bit_for_bit(dev, case, dtype):
+    """The f32/bf16 write's groups and stamps on their edge cases, rows and
+    usage bit for bit against the plain version (the same adds in the same
+    order), one launch each."""
+    mem, la, widx, ww, a, lra, step = (
+        x.to(dev) for x in _write_case(np.random.default_rng(len(case)),
+                                        case, dtype))
+    if case == "unaligned":
+        mem = _unaligned(mem)
+    if case == "strided-step":
+        step = step.repeat_interleave(2)[::2]
+        assert step.stride(0) == 2
+    before_m, before_l = mem.clone(), la.clone()
+    m_ref, l_ref = mem.clone(), la.clone()
+    ref.sparse_write_update_ref(m_ref, l_ref, widx, ww, a, lra, step, 0.005)
+    count = sparse_write_update.launches_by_dtype[dtype]
+    sparse_write_update(mem, la, widx, ww, a, lra, step, delta=0.005)
+    torch.cuda.synchronize()
+    assert sparse_write_update.launches_by_dtype[dtype] == count + 1
+    assert torch.equal(mem.view(torch.int16 if dtype == "bfloat16"
+                                else torch.int32),
+                       m_ref.view(torch.int16 if dtype == "bfloat16"
+                                  else torch.int32))
+    assert torch.equal(la, l_ref)
+    if case == "scratch":
+        assert torch.equal(mem, before_m) and torch.equal(la, before_l)
+    if case == "at-delta":                 # rows only columns at delta name
+        even = widx[:, ::2].cpu().numpy()
+        odd = widx[:, 1::2].cpu().numpy()
+        for b in range(widx.shape[0]):
+            rows = sorted(set(even[b]) - set(odd[b]))
+            assert rows and torch.equal(la[b, rows], before_l[b, rows])
+
+
 def _scatter_inputs(rng, B, N, W, J, dups):
     mem = rng.standard_normal((B, N + 1, W)).astype(np.float32)
     if dups == "heavy":
@@ -607,8 +693,10 @@ def _cand_near_ties(q, mem, idx, r_idx, mem_scale=None):
 @pytest.mark.parametrize("C", [4, 148, 300])
 @pytest.mark.parametrize("case", ["rand", "cold", "zero", "dup"])
 def test_fused_read_candidates_kernel_matches_plain(dev, case, C):
-    """C = K (the edge: every candidate is selected), the step's C = 148,
-    and C > 128 candidates in two tiles."""
+    """C = K (the edge: every candidate is selected), the step's C = 148
+    in one tile, and C = 300 in two tiles of at most 256 rows
+    (`fused_read_candidates.cand_plan`), where the sum reads the K chosen
+    rows from device memory again."""
     B, N, W, H, K = 3, 1000, 32, 4, 4
     q, mem, beta, cand = (torch.tensor(x, device=dev) for x in _cand_inputs(
         np.random.default_rng(C), B, N, W, H, C, case))
@@ -628,6 +716,61 @@ def test_fused_read_candidates_kernel_matches_plain(dev, case, C):
         assert (read[0, 1] == 0).all() and (w[0, 1] == 0).all()
     if case in ("zero", "cold") or C == K:
         assert torch.equal(idx, r_idx)     # exact ties: position order
+
+
+@pytest.mark.parametrize("case,dtype", [
+    (case, dtype) for case in ("none-valid", "k-valid", "copies")
+    for dtype in ("float32", "bfloat16", "int8")] + [("zero-scale", "int8")])
+def test_fused_read_candidates_kernel_edge_cases(dev, case, dtype):
+    """No candidate valid (every selection -1, weight 0, read 0); exactly K
+    valid (all of them selected); copies of one row at scattered positions
+    scoring highest (exact ties, which must go by position); int8 rows of
+    scale 0 (a zero row and codes under a zero scale) among the
+    candidates."""
+    B, N, W, H, K, C = 3, 1000, 32, 4, 4, 148
+    rng = np.random.default_rng(7)
+    q, mem, beta, cand = _cand_inputs(rng, B, N, W, H, C, "rand")
+    distinct = np.stack([rng.choice(N, C, replace=False)
+                         for _ in range(B * H)]).reshape(B, H, C)
+    copies = np.arange(0, C, 7)
+    if case == "none-valid":
+        cand[:] = -1
+    elif case == "k-valid":
+        keep = rng.permuted(np.tile(np.arange(C) < K, (B, H, 1)), axis=-1)
+        cand = np.where(keep, distinct, -1).astype(np.int32)
+    elif case == "copies":                 # ids 0..C-1, rows 0, 7, 14, ...
+        cand = rng.permuted(np.tile(np.arange(C, dtype=np.int32), (B, H, 1)),
+                            axis=-1)
+        mem[:, copies] = mem[:, :1]
+        q[:] = mem[:, :1]
+    mem_s, scale = (torch.tensor(mem, device=dev), None)
+    if dtype != "float32":
+        mem_s, scale = _storage(mem_s, dtype)
+    if case == "zero-scale":
+        ids = torch.tensor(cand[0, 0], device=dev).clamp_min(0)
+        mem_s[:, ids[:20]] = 0                   # zero rows: scale 0
+        scale[:, ids[:20]] = 0.0
+        scale[:, ids[20:40]] = 0.0               # codes under a zero scale
+    q, beta, cand = (torch.tensor(x, device=dev) for x in (q, beta, cand))
+    read, w, idx = fused_read_candidates(q, mem_s, beta, cand, k=K,
+                                         mem_scale=scale)
+    r_idx = ref.candidate_topk(q, mem_s, K, cand, scale)
+    torch.cuda.synchronize()
+    t_read, t_w = ref.sparse_read_tail(q, mem_s, beta, idx, scale)
+    assert (read - t_read).abs().max().item() <= TOL
+    assert (w - t_w).abs().max().item() <= TOL
+    assert (w[idx < 0] == 0).all()
+    if case == "none-valid":
+        assert idx.eq(-1).all() and w.eq(0).all() and read.eq(0).all()
+    elif case == "k-valid":
+        assert torch.equal(idx.sort(-1).values,
+                           cand.sort(-1).values[..., -K:])
+    elif case == "copies":
+        is_copy = torch.isin(cand, torch.tensor(copies, device=dev))
+        want = torch.stack([row[hit][:K] for row, hit in
+                            zip(cand.reshape(-1, C), is_copy.reshape(-1, C))])
+        assert torch.equal(idx, want.reshape(B, H, K))
+    _cand_near_ties(q, mem_s, idx, r_idx, scale)
 
 
 def test_fused_read_candidates_kernel_raises_on_inputs_it_cannot_take(dev):

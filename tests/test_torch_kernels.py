@@ -27,6 +27,11 @@ from repro_torch.core.types import LA_SCRATCH
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fused_read import (MAX_SMEM, WARPS, bank_ways,
                                             smem_bytes, sweep_plan)
+from repro_torch.kernels.fused_read_candidates import (LOADS, MAX_TILE,
+                                                       cand_plan, cand_smem)
+from repro_torch.kernels.sparse_write import (MAX_A_WORDS, MAX_COLUMNS,
+                                              MAX_THREADS, MIN_WORDS, PIECES,
+                                              write_plan)
 from repro_torch.kernels.usage_argmin import (ARGMIN_THREADS, ARGMIN_VEC,
                                               BLOCKS_PER_SM, TOPN_THREADS,
                                               grid_plan)
@@ -598,3 +603,249 @@ def test_scatter_owner_rule_matches_plain_on_heavy_duplicates(J, mode):
                              torch.tensor(np.delete(idx, [1, J // 2], 1)),
                              torch.tensor(np.delete(rows, [1, J // 2], 1)),
                              mode).numpy())
+
+
+# --------------------------------------------------------------------------
+# The f32/bf16 write's plan (kernels/sparse_write.py::write_plan) and its
+# groups (csrc/sparse_write.cu), followed in Python: the CUDA kernel cannot
+# run here.
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("J,W", [(20, 32), (36, 128), (20, 128), (36, 32),
+                                 (72, 128), (20, 30)])
+@pytest.mark.parametrize("vec", [1, 4, 8])
+def test_write_plan_covers_each_word_once(J, W, vec):
+    """Slices of ``words`` words, a multiple of the piece, cover W once;
+    the slice of a fits its shared memory; a block has a thread a piece
+    (up to the limit) in whole warps; step 21's (20, 32) takes one slice
+    and the LM's (36, 128) four of 32 words."""
+    H = 4
+    if W % vec:
+        with pytest.raises(ValueError, match="multiple of vec"):
+            write_plan(J, W, H, vec)
+        return
+    plan = write_plan(J, W, H, vec)
+    assert plan.vec == vec and plan.words % vec == 0
+    assert (plan.slices - 1) * plan.words < W <= plan.slices * plan.words
+    assert H * plan.words <= MAX_A_WORDS
+    pieces = J * plan.words // vec
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= MAX_THREADS
+    assert plan.threads >= min(pieces, MAX_THREADS)
+    assert plan.threads < pieces + 32
+    if J * (plan.words // vec) > PIECES:       # cut no narrower than allowed
+        assert plan.slices == 1 or plan.words // 2 < MIN_WORDS or \
+            -(-plan.words // (2 * vec)) * vec >= plan.words
+    if (J, W, vec) == (20, 32, 4):
+        assert (plan.slices, plan.threads) == (1, 160)
+    if (J, W, vec) == (36, 128, 4):
+        assert (plan.slices, plan.words, plan.threads) == (4, 32, 288)
+
+
+def test_write_plan_refuses_what_the_kernel_cannot_stage():
+    with pytest.raises(ValueError, match="columns"):
+        write_plan(MAX_COLUMNS + 1, 32, 1, 4)
+    with pytest.raises(ValueError, match="heads of a"):
+        write_plan(20, 32, MAX_A_WORDS, 4)
+
+
+def _write_groups(idx_row, lra_row, n_rows):
+    """csrc/sparse_write.cu's groups for one batch row, followed lane by
+    lane: warps of 32 columns grouped by equal row (__match_any_sync), the
+    next column found in the warp or by a scan of the later warps, the
+    owner being the first column (earlier lanes and a scan of the earlier
+    warps), erased if an LRA row names its row. Returns (flags, next)."""
+    owner, nxt = _match_any_owners(idx_row, n_rows, True)
+    erase = [own and idx_row[j] in list(lra_row) for j, own in
+             enumerate(owner)]
+    return owner, erase, nxt
+
+
+def _write_by_groups(mem, la, widx, ww, a, lra, step, delta):
+    """The kernel's result: each owner's row from its old value (zero if
+    erased) plus its group's columns in j order, rounded as the kernel
+    rounds (f32: product and sum apart; bf16: each to bf16); the la cell
+    stamped where a group column has w > delta."""
+    mem, la = mem.clone(), la.clone()
+    B, J = widx.shape
+    kp1 = J // a.shape[1]
+    bf16 = mem.dtype == torch.bfloat16
+    for b in range(B):
+        owner, erase, nxt = _write_groups(widx[b].tolist(), lra[b].tolist(),
+                                          mem.shape[1] - 1)
+        for j in range(J):
+            if not owner[j]:
+                continue
+            row = int(widx[b, j])
+            acc = torch.zeros(mem.shape[2]) if erase[j] else \
+                mem[b, row].float()
+            u, touched = j, False
+            while u >= 0:
+                p = ww[b, u] * a[b, u // kp1]
+                if bf16:
+                    acc = (acc + p.bfloat16().float()).bfloat16().float()
+                else:
+                    acc = acc + p
+                touched |= bool(ww[b, u] > delta)
+                u = nxt[u]
+            mem[b, row] = acc.to(mem.dtype)
+            if touched:
+                la[b, row] = max(int(la[b, row]), int(step[b]))
+    return mem, la
+
+
+@pytest.mark.parametrize("case", ["one-row", "lra-later", "at-delta",
+                                  "scratch", "heavy-36", "heavy-72"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_write_groups_match_plain_bit_for_bit(case, dtype):
+    """The kernel's ownership rule (first column owns, LRA rows erased,
+    groups across warps at J > 32) gives the plain write's rows and usage
+    bit for bit on its edge cases: every column on one row; an LRA row
+    that a later head's column names; weights exactly at delta; every
+    column on the scratch row with weight 0 (ignored); heavy duplicates
+    at J = 36 and 72, with a per-lane step."""
+    rng = np.random.default_rng(len(case))
+    Hd, Kd = (4, 8) if case == "heavy-36" else (8, 8) if case == "heavy-72" \
+        else (4, 4)
+    Bd, Nd, Wd, J = 3, 40, 8, Hd * (Kd + 1)
+    mem = rng.standard_normal((Bd, Nd + 1, Wd)).astype(np.float32)
+    mem[:, Nd] = 0.0
+    la = rng.integers(-50, 50, (Bd, Nd + 1)).astype(np.int32)
+    la[:, Nd] = LA_SCRATCH
+    widx = rng.integers(0, Nd, (Bd, Hd, Kd + 1)).astype(np.int32)
+    ww = rng.random((Bd, J)).astype(np.float32)
+    a = rng.standard_normal((Bd, Hd, Wd)).astype(np.float32)
+    if case == "one-row":
+        widx[:] = 17
+    elif case == "lra-later":
+        widx[:, 2, 0] = widx[:, 0, Kd]
+        widx[:, 3, 1] = widx[:, 0, Kd]
+    elif case == "at-delta":
+        ww[:, ::2] = np.float32(0.005)
+    elif case.startswith("heavy"):
+        widx = rng.integers(0, 3, widx.shape).astype(np.int32)
+    lra = widx[:, :, Kd].copy()
+    widx = widx.reshape(Bd, J)
+    if case == "scratch":
+        widx[:] = Nd
+        lra[:] = Nd
+        ww[:] = 0.0
+    step = np.array([60, 7, 61], np.int32)
+    t = {k: torch.tensor(v) for k, v in dict(mem=mem, la=la, widx=widx,
+                                              ww=ww, a=a, lra=lra,
+                                              step=step).items()}
+    t["mem"] = t["mem"].to(getattr(torch, dtype))
+    got_m, got_l = _write_by_groups(t["mem"], t["la"], t["widx"], t["ww"],
+                                    t["a"], t["lra"], t["step"], 0.005)
+    want_m, want_l = t["mem"].clone(), t["la"].clone()
+    ref.sparse_write_update_ref(want_m, want_l, t["widx"], t["ww"], t["a"],
+                                t["lra"], t["step"], 0.005)
+    bits = torch.int16 if dtype == "bfloat16" else torch.int32
+    assert torch.equal(got_m.view(bits), want_m.view(bits))
+    assert torch.equal(got_l, want_l)
+    if case == "scratch":
+        assert torch.equal(got_m, t["mem"]) and torch.equal(got_l, t["la"])
+
+
+# --------------------------------------------------------------------------
+# The candidate read's plan (kernels/fused_read_candidates.py::cand_plan)
+# and its selection (csrc/fused_read_candidates.cu: one 64-bit key a
+# candidate, each warp's K best, ranked by counting the keys that beat
+# each), followed in Python.
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("C", [4, 148, 300])
+@pytest.mark.parametrize("W", [32, 128])
+@pytest.mark.parametrize("per", [4, 8, 16])
+def test_cand_plan_tiles_fit_and_threads_cover_them(C, W, per):
+    """A tile of min(C, 256) rows (C = 148, the smoke's, in one tile; 300
+    in two), a thread to score each row of it, the tile's loads at no more
+    than LOADS a thread unless the block is at its limit, whole warps, and
+    shared memory within the block's limit."""
+    plan = cand_plan(C, W, per, 4)
+    assert plan.tile == min(C, MAX_TILE)
+    assert plan.threads % 32 == 0 and plan.tile <= plan.threads <= 512
+    loads = plan.tile * (W // per)
+    assert plan.threads * LOADS >= loads or plan.threads == 512
+    assert plan.threads < max(plan.tile, -(-loads // LOADS)) + 32
+    assert plan.smem == cand_smem(C, W, 4, plan.tile, plan.threads)
+    assert plan.smem <= MAX_SMEM
+    if (C, W, per) == (148, 32, 4):
+        assert (plan.tile, plan.threads) == (148, 160)
+
+
+def test_cand_plan_shrinks_the_tile_to_fit():
+    plan = cand_plan(300, 1024, 4, 8)
+    assert plan.tile < MAX_TILE and plan.smem <= MAX_SMEM
+    with pytest.raises(ValueError, match="do not fit"):
+        cand_plan(300, 1 << 16, 4, 8)
+
+
+def _order_key(v: np.ndarray, pos: np.ndarray) -> np.ndarray:
+    """The kernel's key: the f32 bits made monotone (-0 as +0), then the
+    position reversed."""
+    u = np.where(v == 0, np.float32(0), v).astype(np.float32).view(np.uint32)
+    u = np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint64)
+    return (u << np.uint64(32)) | (np.uint64(0xFFFFFFFF)
+                                   - pos.astype(np.uint64))
+
+
+def _select_by_keys(sims, cand, k, tile, threads):
+    """The kernel's selection of one (b, h): for each tile, each warp's k
+    best keys (its lanes' candidates sorted, 0 where a lane has none);
+    then the key of the lists that r others beat is selection r. Returns
+    the positions of the k selected."""
+    C = len(cand)
+    v = np.where(cand < 0, np.float32(-1e9), sims).astype(np.float32)
+    keys = _order_key(v, np.arange(C))
+    lists = []
+    for c0 in range(0, C, tile):
+        n = min(tile, C - c0)
+        for w0 in range(0, threads, 32):
+            mine = [keys[c0 + t] for t in range(w0, w0 + 32) if t < n]
+            best = sorted(mine, reverse=True)[:k]
+            lists += best + [np.uint64(0)] * (k - len(best))
+    lists = np.array(lists, dtype=np.uint64)
+    sel = [-1] * k
+    for key in lists[lists > 0]:
+        rank = int((lists > key).sum())
+        if rank < k:
+            sel[rank] = 0xFFFFFFFF - int(key & np.uint64(0xFFFFFFFF))
+    return sel
+
+
+@pytest.mark.parametrize("C", [4, 148, 300])
+@pytest.mark.parametrize("case", ["rand", "zero", "cold", "copies"])
+def test_candidate_keys_select_as_the_plain_sort(C, case):
+    """Keys, each warp's sorted K best and their ranks give
+    `ref.candidate_topk`'s selection: (similarity desc, position asc), a
+    -1 only when fewer than K are valid, ties (a zero memory, copies of one
+    row) by position, every slot filled; at the plan's tile and threads,
+    so C = 300 spans two tiles."""
+    rng = np.random.default_rng(C)
+    Bd, Hd, Nd, Wd, Kd = 2, 3, 500, 16, 4
+    mem = rng.standard_normal((Bd, Nd, Wd)).astype(np.float32)
+    q = rng.standard_normal((Bd, Hd, Wd)).astype(np.float32)
+    cand = np.stack([rng.choice(Nd, C, replace=False)
+                     for _ in range(Bd * Hd)]).reshape(Bd, Hd, C)
+    if case == "zero":
+        mem[:] = 0.0
+        cand[:, :, ::3] = -1
+    elif case == "cold":
+        cand[:] = -1
+        cand[0, 0, C - 1] = 5
+    elif case == "copies":
+        mem[:, cand[0, 0, ::5]] = mem[:, :1]
+        q[:] = mem[:, :1]
+    cand = cand.astype(np.int32)
+    mem_t, q_t, cand_t = map(torch.tensor, (mem, q, cand))
+    words = ref.gather_words(mem_t, cand_t.clamp_min(0))
+    sims = torch.einsum("bhw,bhcw->bhc", ref._normalize(q_t),
+                        ref._normalize(words)).numpy()
+    want = ref.candidate_topk(q_t, mem_t, Kd, cand_t).numpy()
+    plan = cand_plan(C, Wd, 4, Kd)
+    for b in range(Bd):
+        for h in range(Hd):
+            pos = _select_by_keys(sims[b, h], cand[b, h], Kd, plan.tile,
+                                  plan.threads)
+            assert -1 not in pos
+            np.testing.assert_array_equal(cand[b, h][pos], want[b, h])
