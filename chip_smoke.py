@@ -22,7 +22,8 @@ exit) if any phase fails:
 1. build the kernels from `src/repro_torch/kernels/csrc/` with nvcc for
    sm_90a and print each kernel's registers, shared memory and spills
    (none may spill in `fused_read.cu`, `usage_argmin.cu`,
-   `scatter_rows.cu`, `sparse_write.cu` or `fused_read_candidates.cu`),
+   `scatter_rows.cu`, `sparse_write.cu`, `fused_read_candidates.cu` or
+   `lsh_hash.cu`),
    and the HMMA
    (tensor-core) instructions in each `flash_attention` kernel's SASS
    (`cuobjdump -sass`): the bf16 kernels must have them, the f32 ones
@@ -56,7 +57,8 @@ exit) if any phase fails:
    a. `lsh_hash` and `fused_read_candidates` against their plain versions
       at full width on the inputs of a real LSH rollout, the cold first
       step and step 21, and the hash on all B·N rows of the exact
-      rollout's final memory;
+      rollout's final memory (an index rebuild: the hash's plan must
+      stream there and not at the step's R = B·H and B·J);
    b. the LSH forward rollout (`SAM.forward`, T = 42, cold index) in
       lockstep; per step the hash launches twice, the candidate read, the
       LRA and the write once each, the exact sweep never;
@@ -178,9 +180,10 @@ exit) if any phase fails:
       (`torch.profiler`); each rank's peak memory beside its block; a
       bare all-gather of a CUDA and of a host tensor;
 11. print the empty-launch floor with each latency-bound kernel's time
-   above it (`lra_topn`, the scatter, the write at step 21 on f32 and
-   bf16 rows and at the LM's shapes, the candidate read on f32, bf16 and
-   int8 rows), the card, one JSON line of per-kernel numbers (the LM's
+   above it (`lra_topn`, the scatter, the write at step 21 on f32, bf16
+   and int8 rows and at the LM's shapes, the candidate read on f32, bf16
+   and int8 rows, the hash of the written rows and of the queries), the
+   card, one JSON line of per-kernel numbers (the LM's
    under ``"lm"``, the sharded memory's under ``"mesh"``), and last the
    ``{"ok": true, ...}`` line.
 
@@ -288,10 +291,10 @@ REPLACES = {
 }
 SUFFIX = {"bfloat16": "_bf16", "int8": "_int8"}
 # The kernels whose ptxas report may show no spill: the exact read's sweep,
-# the LRA selection and DAM's argmin, the row scatter, the writes and the
-# candidate read.
+# the LRA selection and DAM's argmin, the row scatter, the writes, the
+# candidate read and the hash.
 NO_SPILL = ("fused_read", "usage_argmin", "scatter_rows", "sparse_write",
-            "fused_read_candidates")
+            "fused_read_candidates", "lsh_hash")
 
 
 def kernel_name(base: str, mem: torch.Tensor) -> str:
@@ -1760,7 +1763,7 @@ def run() -> None:
         from repro_torch.kernels.fused_read import fused_read_sweep
         from repro_torch.kernels.fused_read_candidates import (
             cand_plan, fused_read_candidates)
-        from repro_torch.kernels.lsh_hash import lsh_hash
+        from repro_torch.kernels.lsh_hash import hash_plan, lsh_hash, streams
         from repro_torch.kernels.scatter_rows import scatter_rows
         from repro_torch.kernels.sparse_write import sparse_write_update
         from repro_torch.kernels.topk_read import topk_read
@@ -2127,6 +2130,18 @@ def run() -> None:
         plan = cand_plan(C, W, 16 // itemsize, K)
         require(plan.tile == C, f"the candidate read's plan {plan} stages "
                                 f"C={C} rows in more than one tile")
+    # The hash streams its tiles through persistent blocks for an index
+    # rebuild (all B·N rows), and gives the step's hashes (the queries,
+    # R = B·H, and the written rows, R = B·J) a block per 8-row tile.
+    sms, n_ins = _build.sm_count(dev), B * H * (K + 1)
+    for R_ in (B * H, n_ins, B * N):
+        plan = hash_plan(streams(R_, sms), W)
+        require(plan.streamed == (R_ == B * N),
+                f"the hash's plan at R={R_} is {plan}")
+    print(f"[lsh] the hash's plans: R = {B * H} and {n_ins}: "
+          f"{hash_plan(False, W)}, {hash_plan(False, W).blocks(n_ins, sms)} "
+          f"blocks at R = {n_ins}; R = {B * N}: {hash_plan(True, W)}, "
+          f"{hash_plan(True, W).blocks(B * N, sms)} blocks")
     # (a) the two new kernels on a real LSH rollout's inputs.
     with torch.inference_mode():
         with Intercept(ops, record=True) as rec_l:
@@ -2499,7 +2514,8 @@ def run() -> None:
     for what, r in (("the written rows", rows["lsh_hash"]),
                     ("the queries", hash_query), ("all B·N rows", hash_bulk)):
         print(f"[time] lsh_hash of {what}: {r['ms']:.4f} ms (bound "
-              f"{r['bound'][0]:.6f} ms by {r['bound'][1]}), plain "
+              f"{r['bound'][0]:.6f} ms by {r['bound'][1]}, "
+              f"{r['bound'][0] / r['ms']:.1%} of it), plain "
               f"{r['plain_ms']:.4f} ms")
     print(f"[time] fused_read_candidates above: C={C} candidates per head, "
           f"{int(valid_c.sum().item())} valid, {uniq_c} unique rows")
@@ -2736,10 +2752,13 @@ def run() -> None:
              ("'add'", scatter_add),
              ("sparse_write_update", rows["sparse_write_update"]),
              ("bf16", rows["sparse_write_update_bf16"]),
+             ("int8", rows["sparse_write_update_int8"]),
              ("the LM's", lm_write),
              ("fused_read_candidates", rows["fused_read_candidates"]),
              ("bf16", rows["fused_read_candidates_bf16"]),
-             ("int8", rows["fused_read_candidates_int8"]))
+             ("int8", rows["fused_read_candidates_int8"]),
+             ("lsh_hash R = B·J", rows["lsh_hash"]),
+             ("R = B·H", hash_query))
     print(f"[time] empty-launch floor (torch.cuda._sleep(0), same timer): "
           f"{empty_ms:.4f} ms; above it: "
           + ", ".join(f"{name} {r['ms'] - empty_ms:.4f} ms"

@@ -25,8 +25,8 @@
 // first_occurrence, sparse_write.py:182-186), so the TPU kernel's parked
 // lanes (sparse_write.py:98-100, 118-119) have no counterpart here. The
 // owner starts from the row's old value, or zero when the row is an LRA
-// row, and adds every matching column in j order, with no atomics, so the
-// result is deterministic. Precondition (as for the TPU kernel): every
+// row, and adds every matching column in j order, with no atomic adds, so
+// the result is deterministic. Precondition (as for the TPU kernel): every
 // lra_idx row also appears in write_idx — only written rows are erased.
 // Rows outside [0, N) are ignored, so row N, the write-scratch row, is
 // never touched (the sharded write sends the columns a rank does not own
@@ -57,10 +57,33 @@
 //           thread of the row's first piece in slice 0, its la cell.
 // Then each piece sums its group's columns in j order from shared memory
 // and is stored, and the la cell is stamped where a group column has
-// w > delta. The int8 write (sparse_write_q_kernel) keeps one 32-thread
-// block per (column u, b): the owner scans the earlier columns, then keeps
-// its f32 row in shared memory, takes max|row| with warp shuffles (a max
-// is exact in any order) and writes codes and scale once.
+// w > delta.
+//
+// Design of the int8 write (sparse_write_q_kernel<V>): the same two
+// trips, in one block per batch row (a row's scale needs max|row|, so a
+// row is never split across blocks), ``threads`` planned by the wrapper
+// (sparse_write.py::q_plan: 64 at step 21's J = 20, W = 32):
+//   trip 1: the J indices and weights, the H LRA rows, step[b] and all
+//           H·W words of a (where they fit beside the columns: a wider a
+//           is read from device memory by the sums), every load of a
+//           round issued before its stores; then the groups and flags as
+//           above (group_columns);
+//   trip 2: each owned, unerased row's codes in 16-byte pieces (16 codes;
+//           single codes where W or the memory is not 16-byte aligned),
+//           its old scale and, by the thread of its first piece, its la
+//           cell, all at once.
+// Each piece is dequantized (fl(q·s_old), zero for an erased row), takes
+// its group's columns in j order as fmaf(w_j, a, acc) from shared memory,
+// and puts max|acc| into its column's slot with a shared atomicMax on the
+// bits (a max is exact in any order; |acc| >= 0 orders as its bits). After
+// a barrier each piece forms s' = max·fl(1/127) and its codes
+// clip(rint(acc / s'), ±127) (0 where s' = 0) and stores them; the first
+// piece stores s' and stamps la.
+// When a round of one piece a thread does not cover the J·W/V pieces (the
+// LM's J = 36, W = 128 takes 288 threads; J = 592 at W = 128 takes more
+// than the 512 a block has), the pieces go in rounds and the second pass
+// loads and sums its piece again (the same arithmetic, so the same acc)
+// instead of holding it.
 #include <cuda_runtime.h>
 #include <cstdint>
 #include <cstring>
@@ -69,12 +92,16 @@
 
 namespace {
 
-constexpr int kThreads = 32;          // the int8 write's block
 constexpr int kMaxThreads = 1024;     // the f32/bf16 write's block, at most
+constexpr int kMaxQThreads = 512;     // the int8 write's block, at most
+constexpr int kStage = 4;             // loads a thread issues a round, trip 1
 constexpr int kPer = 4;               // pieces a thread holds at once
 constexpr int kMaxColumns = 1024;     // J: 4 ints a column of shared memory
 constexpr int kMaxAWords = 4096;      // H·words floats of a: 16 KB
 constexpr int kOwn = 1, kErase = 2;   // a column's flags
+constexpr int kMaxSmem = 232448;      // bytes a block may use on sm_90
+constexpr int kDefaultSmem = 49152;   // bytes a block may use unasked
+constexpr int kMaxDevices = 64;
 
 struct WriteF32 {
   using T = float;
@@ -119,58 +146,19 @@ __device__ __forceinline__ void store_piece(T* p, const T (&x)[V]) {
   }
 }
 
-// Piece e of a block is piece e % P of column e / P, P = words / V pieces a
-// column (fewer in a ragged last slice). Dynamic shared memory: a's slice
-// (H x words floats), then the columns' weights, rows, next columns and
-// flags (J each), the H LRA rows and step[b].
-template <class R, int V>
-__global__ void __launch_bounds__(kMaxThreads)
-sparse_write_kernel(typename R::T* __restrict__ mem, int* __restrict__ la,
-                    const int* __restrict__ widx,
-                    const float* __restrict__ ww,
-                    const float* __restrict__ a,
-                    const int* __restrict__ lra,
-                    const int* __restrict__ step, int step_stride,
-                    int n_rows, int J, int H, int W, int words, float delta) {
-  using T = typename R::T;
-  extern __shared__ float4 smem4[];
-  float* sa = reinterpret_cast<float*>(smem4);
-  float* sw = sa + H * words;
-  int* sidx = reinterpret_cast<int*>(sw + J);
-  int* snext = sidx + J;
-  int* sflag = snext + J;
-  int* slra = sflag + J;
-  int* sstep = slra + H;
-  const int s = blockIdx.x, b = blockIdx.y, t = threadIdx.x, T_ = blockDim.x;
-  const int lane = t & 31;
-  const int w0 = s * words, ws = min(words, W - w0);   // this slice's words
-  const int P = ws / V, kp1 = J / H;
-
-  // Trip 1: nothing here depends on a row. One loop, each round's loads
-  // all issued before its stores, so the loads go out together.
-  const float* ab = a + (long long)b * H * W + w0;
-  const int n1 = max(J, H * ws);
-  for (int i = t; i < n1; i += T_) {
-    const int h = i / ws;
-    const int wi = i < J ? widx[(long long)b * J + i] : 0;
-    const float wv = i < J ? ww[(long long)b * J + i] : 0.0f;
-    const int li = i < H ? lra[(long long)b * H + i] : 0;
-    const int st = i == 0 ? step[(long long)b * step_stride] : 0;
-    const float av = i < H * ws ? ab[(long long)h * W + (i - h * ws)] : 0.0f;
-    if (i < J) {
-      sidx[i] = wi;
-      sw[i] = wv;
-    }
-    if (i < H) slra[i] = li;
-    if (i == 0) sstep[0] = st;
-    if (i < H * ws) sa[h * words + (i - h * ws)] = av;
-  }
-  __syncthreads();
-
-  // The groups, in shared memory. Whole warps, lane l on column base + l;
-  // a skipped column (past J or out of range) matches only other skipped
-  // ones, under -1, and owns nothing.
-  for (int base = t - lane; base < J; base += T_) {
+// The groups of a block's J columns, from their rows (sidx) and the H LRA
+// rows (slra) in shared memory: snext[j] is the next column naming column
+// j's row (-1 for none), sflag[j] kOwn for the first column naming a row in
+// [0, n_rows), with kErase where an LRA row names it. Whole warps, lane l
+// on column base + l, matched by __match_any_sync and a scan of the other
+// warps' columns; a skipped column (past J or out of range) matches only
+// other skipped ones, under -1, and owns nothing.
+__device__ __forceinline__ void group_columns(const int* sidx,
+                                              const int* slra, int* snext,
+                                              int* sflag, int J, int H,
+                                              int n_rows) {
+  const int lane = threadIdx.x & 31;
+  for (int base = threadIdx.x - lane; base < J; base += blockDim.x) {
     const int j = base + lane;
     const int row = j < J ? sidx[j] : -1;
     const bool ok = row >= 0 && row < n_rows;
@@ -199,6 +187,56 @@ sparse_write_kernel(typename R::T* __restrict__ mem, int* __restrict__ la,
       sflag[j] = 0;
     }
   }
+}
+
+// Piece e of a block is piece e % P of column e / P, P = words / V pieces a
+// column (fewer in a ragged last slice). Dynamic shared memory: a's slice
+// (H x words floats), then the columns' weights, rows, next columns and
+// flags (J each), the H LRA rows and step[b].
+template <class R, int V>
+__global__ void __launch_bounds__(kMaxThreads)
+sparse_write_kernel(typename R::T* __restrict__ mem, int* __restrict__ la,
+                    const int* __restrict__ widx,
+                    const float* __restrict__ ww,
+                    const float* __restrict__ a,
+                    const int* __restrict__ lra,
+                    const int* __restrict__ step, int step_stride,
+                    int n_rows, int J, int H, int W, int words, float delta) {
+  using T = typename R::T;
+  extern __shared__ float4 smem4[];
+  float* sa = reinterpret_cast<float*>(smem4);
+  float* sw = sa + H * words;
+  int* sidx = reinterpret_cast<int*>(sw + J);
+  int* snext = sidx + J;
+  int* sflag = snext + J;
+  int* slra = sflag + J;
+  int* sstep = slra + H;
+  const int s = blockIdx.x, b = blockIdx.y, t = threadIdx.x, T_ = blockDim.x;
+  const int w0 = s * words, ws = min(words, W - w0);   // this slice's words
+  const int P = ws / V, kp1 = J / H;
+
+  // Trip 1: nothing here depends on a row. One loop, each round's loads
+  // all issued before its stores, so the loads go out together.
+  const float* ab = a + (long long)b * H * W + w0;
+  const int n1 = max(J, H * ws);
+  for (int i = t; i < n1; i += T_) {
+    const int h = i / ws;
+    const int wi = i < J ? widx[(long long)b * J + i] : 0;
+    const float wv = i < J ? ww[(long long)b * J + i] : 0.0f;
+    const int li = i < H ? lra[(long long)b * H + i] : 0;
+    const int st = i == 0 ? step[(long long)b * step_stride] : 0;
+    const float av = i < H * ws ? ab[(long long)h * W + (i - h * ws)] : 0.0f;
+    if (i < J) {
+      sidx[i] = wi;
+      sw[i] = wv;
+    }
+    if (i < H) slra[i] = li;
+    if (i == 0) sstep[0] = st;
+    if (i < H * ws) sa[h * words + (i - h * ws)] = av;
+  }
+  __syncthreads();
+
+  group_columns(sidx, slra, snext, sflag, J, H, n_rows);
   __syncthreads();
 
   T* mb = mem + (long long)b * (n_rows + 1) * W + w0;
@@ -249,79 +287,154 @@ sparse_write_kernel(typename R::T* __restrict__ mem, int* __restrict__ la,
   }
 }
 
-// Whether this block owns its row (first column naming it, row in
-// [0, N)); *row is the row.
-__device__ __forceinline__ bool owner(const int* wi, int u, int n_rows,
-                                      int* row) {
-  *row = wi[u];
-  if (*row < 0 || *row >= n_rows) return false;
-  for (int j = 0; j < u; ++j)
-    if (wi[j] == *row) return false;          // an earlier column owns it
-  return true;
-}
-
-__device__ __forceinline__ bool erased(const int* lra, int b, int H,
-                                       int row) {
-  bool e = false;
-  for (int h = 0; h < H; ++h) e |= lra[(long long)b * H + h] == row;
-  return e;
-}
-
-__device__ __forceinline__ void stamp(int* la, long long la_stride,
-                                      const int* wi, const float* wb, int J,
-                                      int b, int row, int step, float delta) {
+// One piece of an owned row: its V codes x (unused when erased) times
+// s_old, then its group's columns from column j on, in j order, each as one
+// FMA; returns whether a group column has w > delta. p: the piece's first
+// word.
+template <int V>
+__device__ __forceinline__ bool sum_piece(float (&acc)[V],
+                                          const int8_t (&x)[V], float s_old,
+                                          bool erase, int j, int p,
+                                          const int* snext, const float* sw,
+                                          const float* sa, int W, int kp1,
+                                          float delta) {
+#pragma unroll
+  for (int i = 0; i < V; ++i)
+    acc[i] = erase ? 0.0f : __fmul_rn((float)x[i], s_old);
   bool touched = false;
-  for (int j = 0; j < J; ++j) touched |= (wi[j] == row) && (wb[j] > delta);
-  if (touched) {
-    int* cell = la + (long long)b * la_stride + row;
-    *cell = max(*cell, step);
+  for (int u = j; u >= 0; u = snext[u]) {
+    const float wu = sw[u];
+    touched |= wu > delta;
+    const float* au = sa + (u / kp1) * W + p;
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] = __fmaf_rn(wu, au[i], acc[i]);
   }
+  return touched;
 }
 
-// The int8 write; dynamic shared memory holds the owner's f32 row (W).
-__global__ void __launch_bounds__(kThreads)
+// The int8 write: a block per batch row, piece e = column e / P's piece
+// e % P (P = W / V). Dynamic shared memory: a (H x W floats, when kStageA;
+// otherwise the sums read a from device memory), then the columns'
+// weights, rows, next columns, flags, max|acc| bits and old scales (J
+// each), the H LRA rows and step[b].
+template <int V, bool kStageA>
+__global__ void __launch_bounds__(kMaxQThreads)
 sparse_write_q_kernel(int8_t* __restrict__ mem, float* __restrict__ scale,
                       int* __restrict__ la, const int* __restrict__ widx,
                       const float* __restrict__ ww,
                       const float* __restrict__ a,
                       const int* __restrict__ lra,
                       const int* __restrict__ step, int step_stride,
-                      int n_rows, long long mem_stride, long long la_stride,
-                      int J, int H, int kp1, int W, float delta) {
-  extern __shared__ float acc[];
-  const int u = blockIdx.x, b = blockIdx.y;
-  const int* wi = widx + (long long)b * J;
-  const float* wb = ww + (long long)b * J;
-  int row;
-  if (!owner(wi, u, n_rows, &row)) return;
-  const bool erase = erased(lra, b, H, row);
-  int8_t* mrow = mem + (long long)b * mem_stride + (long long)row * W;
-  float* srow = scale + (long long)b * la_stride + row;
-  const float s_old = *srow;
+                      int n_rows, int J, int H, int W, float delta) {
+  extern __shared__ float4 smem4[];
+  float* sw = reinterpret_cast<float*>(smem4) + (kStageA ? H * W : 0);
+  int* sidx = reinterpret_cast<int*>(sw + J);
+  int* snext = sidx + J;
+  int* sflag = snext + J;
+  unsigned* smax = reinterpret_cast<unsigned*>(sflag + J);
+  float* sold = reinterpret_cast<float*>(smax + J);
+  int* slra = reinterpret_cast<int*>(sold + J);
+  int* sstep = slra + H;
+  const int b = blockIdx.x, t = threadIdx.x, T_ = blockDim.x;
+  const int P = W / V, kp1 = J / H, E = J * P;
+
+  // Trip 1: nothing here depends on a row. kStage elements a thread a
+  // round, every load of a round issued before its stores.
   const float* ab = a + (long long)b * H * W;
-  float amax = 0.0f;
-  for (int w = threadIdx.x; w < W; w += kThreads) {
-    float x = erase ? 0.0f : __fmul_rn((float)mrow[w], s_old);
-    for (int j = 0; j < J; ++j)
-      if (wi[j] == row) x = __fmaf_rn(wb[j], ab[(j / kp1) * W + w], x);
-    acc[w] = x;
-    amax = fmaxf(amax, fabsf(x));
-  }
+  float* sa = reinterpret_cast<float*>(smem4);
+  const int n1 = max(J, kStageA ? H * W : 0);
+  for (int i0 = 0; i0 < n1; i0 += kStage * T_) {
+    int wi[kStage], li[kStage];
+    float wv[kStage], av[kStage];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  const float s_new = __fmul_rn(amax, 1.0f / 127.0f);
-  const float safe = s_new > 0.0f ? s_new : 1.0f;
-  __syncwarp();                        // every thread read s_old above
-  for (int w = threadIdx.x; w < W; w += kThreads) {
-    const float c = fminf(fmaxf(rintf(__fdiv_rn(acc[w], safe)), -127.0f),
-                          127.0f);
-    mrow[w] = (int8_t)c;
+    for (int k = 0; k < kStage; ++k) {
+      const int i = i0 + k * T_ + t;
+      wi[k] = i < J ? widx[(long long)b * J + i] : 0;
+      wv[k] = i < J ? ww[(long long)b * J + i] : 0.0f;
+      li[k] = i < H ? lra[(long long)b * H + i] : 0;
+      av[k] = kStageA && i < H * W ? ab[i] : 0.0f;
+    }
+    const bool first = i0 == 0 && t == 0;
+    const int st = first ? step[(long long)b * step_stride] : 0;
+#pragma unroll
+    for (int k = 0; k < kStage; ++k) {
+      const int i = i0 + k * T_ + t;
+      if (i < J) {
+        sidx[i] = wi[k];
+        sw[i] = wv[k];
+        smax[i] = 0u;
+      }
+      if (i < H) slra[i] = li[k];
+      if (kStageA && i < H * W) sa[i] = av[k];
+    }
+    if (first) sstep[0] = st;
   }
-  if (threadIdx.x == 0) {
-    *srow = s_new;
-    stamp(la, la_stride, wi, wb, J, b, row,
-          step[(long long)b * step_stride], delta);
+  __syncthreads();
+  group_columns(sidx, slra, snext, sflag, J, H, n_rows);
+  __syncthreads();
+
+  int8_t* mb = mem + (long long)b * (n_rows + 1) * W;
+  float* sb = scale + (long long)b * (n_rows + 1);
+  int* lb = la + (long long)b * (n_rows + 1);
+  const bool held = E <= T_;           // one round: acc stays in registers
+  float acc[V];
+  bool touched = false;
+  int old = 0;
+  // Trip 2 and the sums: each piece's max|acc| into its column's slot.
+  for (int e0 = 0; e0 < E; e0 += T_) {
+    const int e = e0 + t;
+    const int j = e < E ? e / P : 0;
+    const int f = e < E ? sflag[j] : 0;
+    if (!(f & kOwn)) continue;
+    const long long row = sidx[j];
+    const int p = (e - j * P) * V;
+    int8_t x[V] = {};
+    float s_old = 0.0f;
+    if (!(f & kErase)) {
+      load_piece(mb + row * W + p, x);
+      s_old = sb[row];
+    }
+    if (e == j * P) {
+      old = lb[row];
+      sold[j] = s_old;
+    }
+    touched = sum_piece(acc, x, s_old, f & kErase, j, p, snext, sw,
+                        kStageA ? sa : ab, W, kp1, delta);
+    float amax = 0.0f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) amax = fmaxf(amax, fabsf(acc[i]));
+    atomicMax(smax + j, __float_as_uint(amax));
+  }
+  __syncthreads();
+  // The codes, the scale and the stamp.
+  for (int e0 = 0; e0 < E; e0 += T_) {
+    const int e = e0 + t;
+    const int j = e < E ? e / P : 0;
+    const int f = e < E ? sflag[j] : 0;
+    if (!(f & kOwn)) continue;
+    const long long row = sidx[j];
+    const int p = (e - j * P) * V;
+    if (!held) {   // this thread's piece of this round, summed again; the
+      // old scale from shared memory, as the row's first piece may already
+      // have stored the new one
+      int8_t x[V] = {};
+      if (!(f & kErase)) load_piece(mb + row * W + p, x);
+      if (e == j * P) old = lb[row];
+      touched = sum_piece(acc, x, sold[j], f & kErase, j, p, snext, sw,
+                          kStageA ? sa : ab, W, kp1, delta);
+    }
+    const float s_new = __fmul_rn(__uint_as_float(smax[j]), 1.0f / 127.0f);
+    const float safe = s_new > 0.0f ? s_new : 1.0f;
+    int8_t y[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      y[i] = (int8_t)fminf(fmaxf(rintf(__fdiv_rn(acc[i], safe)), -127.0f),
+                           127.0f);
+    store_piece(mb + row * W + p, y);
+    if (e == j * P) {
+      sb[row] = s_new;
+      if (touched) lb[row] = max(old, sstep[0]);
+    }
   }
 }
 
@@ -340,6 +453,44 @@ cudaError_t launch(void* mem, int* la, const int* widx, const float* ww,
   sparse_write_kernel<R, V><<<grid, threads, smem, s>>>(
       static_cast<typename R::T*>(mem), la, widx, ww, a, lra, step,
       step_stride, n_rows, J, H, W, words, delta);
+  return cudaGetLastError();
+}
+
+// The int8 write's shared memory: six words a column, the LRA rows and the
+// step, and all of a where that fits (`stage_a`).
+size_t q_smem(int J, int H, int W, bool stage_a) {
+  return sizeof(float) *
+         ((stage_a ? (size_t)H * W : 0) + 6 * (size_t)J + H + 1);
+}
+
+// The dynamic shared-memory limit, raised once per device and
+// instantiation, and only above 48 KB.
+template <int V, bool kStageA>
+cudaError_t allow_q_smem(size_t smem) {
+  static bool allowed[kMaxDevices] = {};
+  if (smem <= (size_t)kDefaultSmem) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 0 && dev < kMaxDevices && allowed[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(sparse_write_q_kernel<V, kStageA>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kMaxSmem);
+  if (err == cudaSuccess && dev >= 0 && dev < kMaxDevices) allowed[dev] = true;
+  return err;
+}
+
+template <int V, bool kStageA>
+cudaError_t launch_q(int8_t* mem, float* scale, int* la, const int* widx,
+                     const float* ww, const float* a, const int* lra,
+                     const int* step, int step_stride, int batch, int n_rows,
+                     int W, int J, int H, float delta, int threads,
+                     size_t smem, cudaStream_t s) {
+  cudaError_t err = allow_q_smem<V, kStageA>(smem);
+  if (err != cudaSuccess) return err;
+  sparse_write_q_kernel<V, kStageA><<<batch, threads, smem, s>>>(
+      mem, scale, la, widx, ww, a, lra, step, step_stride, n_rows, J, H, W,
+      delta);
   return cudaGetLastError();
 }
 
@@ -386,20 +537,29 @@ int sparse_write_launch(void* mem, int* la, const int* widx, const float* ww,
                              s));
 }
 
+// The int8 write's plan (sparse_write.py::q_plan): ``threads`` a block,
+// pieces of ``vec`` codes (16, which needs W and the memory 16-byte
+// aligned, or 1). a goes to shared memory where it fits beside the
+// columns, and is read from device memory otherwise.
 int sparse_write_q_launch(int8_t* mem, float* scale, int* la, const int* widx,
                           const float* ww, const float* a, const int* lra,
                           const int* step, int step_stride, int batch,
                           int n_rows, int W, int J, int H, float delta,
-                          void* stream) {
+                          int vec, int threads, void* stream) {
+  const bool aligned =
+      (reinterpret_cast<std::uintptr_t>(mem) & 15) == 0 && W % 16 == 0;
+  const bool stage_a = q_smem(J, H, W, true) <= (size_t)kMaxSmem;
+  const size_t smem = q_smem(J, H, W, stage_a);
   if (bad_shape(batch, W, J, H) || step_stride < 0 ||
-      W > 12288)                                    // W floats of smem
+      smem > (size_t)kMaxSmem || threads < 32 || threads > kMaxQThreads ||
+      threads % 32 != 0 || !(vec == 1 || (vec == 16 && aligned)))
     return (int)cudaErrorInvalidValue;
-  sparse_write_q_kernel<<<dim3(J, batch), kThreads, W * sizeof(float),
-                          static_cast<cudaStream_t>(stream)>>>(
-      mem, scale, la, widx, ww, a, lra, step, step_stride, n_rows,
-      (long long)(n_rows + 1) * W, (long long)(n_rows + 1), J, H, J / H, W,
-      delta);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto go = stage_a
+      ? (vec == 1 ? launch_q<1, true> : launch_q<16, true>)
+      : (vec == 1 ? launch_q<1, false> : launch_q<16, false>);
+  return (int)go(mem, scale, la, widx, ww, a, lra, step, step_stride, batch,
+                 n_rows, W, J, H, delta, threads, smem, s);
 }
 
 }  // extern "C"

@@ -28,6 +28,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # aims: at most PIECES pieces a block, slices no narrower than MIN_WORDS.
 MAX_COLUMNS, MAX_A_WORDS, MAX_THREADS = 1024, 4096, 1024
 PIECES, MIN_WORDS = 256, 32
+# The int8 write's: threads a block, elements a thread stages a round in
+# its first trip, the shared memory a block may use.
+MAX_Q_THREADS, Q_STAGE, MAX_SMEM = 512, 4, 232448
 
 
 @dataclass(frozen=True)
@@ -66,6 +69,44 @@ def write_plan(J: int, W: int, H: int, vec: int) -> WritePlan:
     threads = min(MAX_THREADS, -(-pieces // 32) * 32)
     return WritePlan(words=words, slices=-(-W // words), threads=threads,
                      vec=vec)
+
+
+@dataclass(frozen=True)
+class QPlan:
+    """How the int8 write cuts its work (csrc/sparse_write.cu): a block of
+    ``threads`` per batch row, each thread on one piece of ``vec`` codes
+    (16, or 1 where W or the memory is not 16-byte aligned) a round, in
+    ``smem`` bytes of shared memory, which hold all of a when
+    ``stage_a``."""
+    threads: int
+    vec: int
+    stage_a: bool
+    smem: int
+
+
+def q_smem(J: int, W: int, H: int, stage_a: bool) -> int:
+    """The int8 write's shared memory (csrc `q_smem`): six words a column,
+    the H LRA rows and the step, and all of a (H·W floats) if staged."""
+    return 4 * ((H * W if stage_a else 0) + 6 * J + H + 1)
+
+
+@functools.lru_cache(maxsize=256)
+def q_plan(J: int, W: int, H: int, vec: int) -> QPlan:
+    """The int8 write's plan for J columns of W codes, H heads of a: a
+    staged in shared memory where it fits beside the columns (else the
+    sums read it from device memory); a thread a piece (J·W/vec of them),
+    and at least enough threads for a staged a to go in one round of
+    Q_STAGE loads a thread, in whole warps, up to MAX_Q_THREADS (more
+    pieces go in rounds)."""
+    _require(W % vec == 0, f"W={W} is not a multiple of vec={vec}")
+    stage_a = q_smem(J, W, H, True) <= MAX_SMEM
+    smem = q_smem(J, W, H, stage_a)
+    _require(smem <= MAX_SMEM,
+             f"J={J} columns take {smem} bytes of shared memory, more than "
+             f"{MAX_SMEM}")
+    need = max(J * (W // vec), -(-H * W // Q_STAGE) if stage_a else 0)
+    threads = min(MAX_Q_THREADS, -(-need // 32) * 32)
+    return QPlan(threads=threads, vec=vec, stage_a=stage_a, smem=smem)
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -121,8 +162,11 @@ def sparse_write_update(mem: torch.Tensor, last_access: torch.Tensor,
                  f"{name} must be {shape}, got {tuple(t.shape)}")
         _require(t.is_contiguous(), f"{name} must be contiguous")
     _require(J % H == 0, f"J={J} is not a multiple of H={H}")
-    if not int8:
-        per = 16 // mem.element_size()
+    per = 16 // mem.element_size()
+    if int8:
+        aligned = W % per == 0 and mem.data_ptr() % 16 == 0
+        qplan = q_plan(J, W, H, per if aligned else 1)
+    else:
         aligned = (W % per == 0 and mem.data_ptr() % 16 == 0
                    and a.data_ptr() % 16 == 0)
         plan = write_plan(J, W, H, per if aligned else 1)
@@ -131,12 +175,12 @@ def sparse_write_update(mem: torch.Tensor, last_access: torch.Tensor,
         if int8:
             fn = _build.function("sparse_write", "sparse_write_q_launch",
                                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                  _I, _I, _I, _F, _P])
+                                  _I, _I, _I, _F, _I, _I, _P])
             err = fn(mem.data_ptr(), mem_scale.data_ptr(),
                      last_access.data_ptr(), write_idx.data_ptr(),
                      write_w.data_ptr(), a.data_ptr(), lra_idx.data_ptr(),
                      step.data_ptr(), step.stride(0), B, N, W, J, H, delta,
-                     stream)
+                     qplan.vec, qplan.threads, stream)
         else:
             fn = _build.function("sparse_write", "sparse_write_launch",
                                  [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -30,11 +30,13 @@ from repro_torch.core import sam
 from repro_torch.core.quant import quantize_rows
 from repro_torch.core.types import (LA_SCRATCH, ControllerConfig,
                                     MemoryConfig)
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_read import fused_read_sweep
 from repro_torch.kernels.fused_read_candidates import fused_read_candidates
-from repro_torch.kernels.lsh_hash import lsh_hash
+from repro_torch.kernels.lsh_hash import (BLOCKS_PER_SM, STREAM_TILE,
+                                          STREAM_WARPS, hash_plan, lsh_hash,
+                                          streams)
 from repro_torch.kernels.scatter_rows import scatter_rows
 from repro_torch.kernels.sparse_write import sparse_write_update
 from repro_torch.kernels.topk_read import topk_read
@@ -620,16 +622,23 @@ def _hash_flips(x, planes, got, want):
     return int(diff.sum()), int((diff & ~near).sum())
 
 
-@pytest.mark.parametrize("R,W,T,bits", [(32, 32, 4, 8), (160, 32, 4, 8),
-                                        (5000, 32, 4, 8), (333, 64, 2, 30),
-                                        (7, 4, 1, 1)])
-def test_lsh_hash_kernel_matches_plain(dev, R, W, T, bits):
-    gen = torch.Generator().manual_seed(R)
+def _hash_inputs(R, W, T, bits, seed):
+    """Rows and planes from a seed: rows 0-2 zero (exactly 0, id 0), row 3
+    tiny (projections near 0), row 4 orthogonal to the first plane up to
+    rounding (that projection near 0)."""
+    gen = torch.Generator().manual_seed(seed)
     x = torch.randn((R, W), generator=gen)
-    x[:3] = 0.0                             # zero rows: exactly 0, id 0
-    x[3] = 1e-30                            # projections near 0
     planes = torch.randn((T, bits, W), generator=gen)
-    x, planes = x.to(dev), planes.to(dev)
+    x[:3] = 0.0
+    x[3:4] = 1e-30
+    p0 = planes[0, 0]
+    x[4:5] -= (x[4:5] @ p0)[:, None] / (p0 @ p0) * p0
+    return x, planes
+
+
+def _check_hash(x, planes):
+    """One launch; every differing bit near 0; ids in [0, 2^bits)."""
+    bits = planes.shape[1]
     count = lsh_hash.launches
     got = lsh_hash(x, planes)
     want = ref.lsh_hash_ref(x, planes)
@@ -639,6 +648,36 @@ def test_lsh_hash_kernel_matches_plain(dev, R, W, T, bits):
     assert far == 0, f"{far} of {flips} differing bits are not near 0"
     assert (got[:3] == 0).all() and (got >= 0).all()
     assert (got < 2 ** bits).all()
+
+
+# (R, W, T, bits): the step's R = 32 and 160 and their neighbours, a
+# single row, R = 4097 (513 one-warp tiles, the last of one row), W of
+# 4 to 128, T·bits below (16), at (32) and above (64) one group of 32
+# planes, bits = 30 (a table a group).
+@pytest.mark.parametrize("R,W,T,bits", [
+    (32, 32, 4, 8), (160, 32, 4, 8), (5000, 32, 4, 8), (333, 64, 2, 30),
+    (7, 4, 1, 1), (1, 32, 4, 8), (31, 32, 4, 8), (33, 32, 4, 8),
+    (4097, 32, 4, 8), (160, 4, 4, 8), (160, 64, 4, 8), (160, 128, 4, 8),
+    (160, 32, 2, 8), (160, 32, 8, 8), (4097, 128, 8, 8), (160, 32, 1, 30),
+    (33, 32, 3, 30)])
+def test_lsh_hash_kernel_matches_plain(dev, R, W, T, bits):
+    x, planes = _hash_inputs(R, W, T, bits, R)
+    _check_hash(x.to(dev), planes.to(dev))
+
+
+@pytest.mark.parametrize("W,T,bits", [(32, 4, 8), (4, 4, 8), (128, 8, 8),
+                                      (32, 3, 30)])
+def test_lsh_hash_kernel_streams_to_a_partial_tile(dev, W, T, bits):
+    """The streamed plan (a rebuild's): each warp of the persistent blocks
+    takes several tiles through its ring, and the last tile is partial."""
+    sms = _build.sm_count(dev)
+    R = 6 * STREAM_TILE * STREAM_WARPS * BLOCKS_PER_SM * sms + 37
+    plan = hash_plan(streams(R, sms), W)
+    tiles = -(-R // plan.tile)
+    assert plan.streamed and R % plan.tile
+    assert plan.blocks(R, sms) * plan.warps < tiles
+    x, planes = _hash_inputs(R, W, T, bits, W + T)
+    _check_hash(x.to(dev), planes.to(dev))
 
 
 def test_lsh_hash_kernel_raises_on_inputs_it_cannot_take(dev):
@@ -935,6 +974,118 @@ def test_sparse_write_kernel_dtypes_match_plain(dev, N, case, dtype):
     assert out[0].data_ptr() == mem.data_ptr()         # in place
     assert torch.equal(mem, m_ref) and torch.equal(la, l_ref)
     assert torch.equal(mem[:, N], scratch)
+
+
+def _q_case(rng, W, H, K, case):
+    """int8 inputs (B = 3, N = 4097) of the int8 write's cases, each with a
+    per-lane step: 'rand'; 'cross-warp', one row named in columns 3 and 40
+    (its group spans two warps of columns); 'all-erased', every column on
+    one of the H LRA rows; 'zero-sum', batch row 0's first LRA row taking
+    only weights of 0 (its sum is 0, so s' = 0); 'outside', columns on the
+    scratch row N, on N + 3 and on -1, which the kernel ignores. Returns
+    the inputs and the columns set outside."""
+    B, N = 3, 4097
+    mem, la, widx, ww, a, lra = _write_inputs(rng, B, N, W, H, K)
+    mem[:, N] = 0.0
+    outside = []
+    if case == "cross-warp":
+        widx[:, 40] = widx[:, 3]
+    elif case == "all-erased":
+        widx = lra[:, np.arange(H * (K + 1)) % H].copy()
+    elif case == "zero-sum":
+        ww[0, widx[0] == lra[0, 0]] = 0.0
+    elif case == "outside":                # none of them an LRA column
+        outside = [1, 6, 7, 11]
+        widx[:, outside] = np.array([N, N + 3, -1, N], np.int32)
+    step = np.array([60, 7, 61], dtype=np.int32)
+    mem, la, widx, ww, a, lra, step = (
+        torch.tensor(x) for x in (mem, la, widx, ww, a, lra, step))
+    q, scale = quantize_rows(mem)
+    return (q, la, widx, ww, a, lra, step, scale), outside
+
+
+# (W, H, K): W of 16 (one 16-byte piece a row), 24 (not a multiple of 16:
+# single codes), 32 and 128; J = H·(K+1) of 20, 36 and 592 (more pieces
+# than a block has threads at W >= 32: rounds, each piece summed again);
+# then J = 2000 columns, and H·W = 65536 floats of a, which do not fit in
+# shared memory and are read from device memory.
+Q_SHAPES = [(W, H, K) for W in (16, 24, 32, 128)
+            for H, K in ((4, 4), (4, 8), (4, 147))] + [(16, 4, 499),
+                                                       (8192, 8, 2)]
+
+
+# (W, H, K, case): each case at step 21's shape, and again where it meets
+# another path: a group across warps at J = 72 and 592, columns outside at
+# W = 24, a zero sum in rounds, every owner erased at W = 16, single codes
+# at J = 592.
+Q_CASES = [(32, 4, 4, case) for case in ("rand", "all-erased", "zero-sum",
+                                         "outside", "unaligned",
+                                         "strided-step")] + [
+    (32, 8, 8, "cross-warp"), (128, 4, 147, "cross-warp"),
+    (24, 4, 8, "outside"), (128, 4, 147, "zero-sum"),
+    (16, 4, 8, "all-erased"), (24, 4, 147, "unaligned")]
+
+
+@pytest.mark.parametrize("W,H,K,case", Q_CASES)
+def test_sparse_write_q_kernel_bit_for_bit(dev, W, H, K, case):
+    """The int8 write on its shapes and edge cases, one launch each: codes,
+    scales and usage bit for bit against the plain version, the scratch
+    row untouched. 'outside' is held against the plain write with those
+    columns on column 0's row at weight 0 (an FMA of 0 leaves a sum as it
+    is, and a weight of 0 stamps nothing); 'unaligned' starts the memory
+    one byte past a 16-byte boundary (single codes); 'strided-step' reads
+    the per-lane step through a stride of 2."""
+    (mem, la, widx, ww, a, lra, step, scale), outside = (
+        _q_case(np.random.default_rng(W * K + len(case)), W, H, K, case))
+    mem, la, widx, ww, a, lra, step, scale = (
+        x.to(dev) for x in (mem, la, widx, ww, a, lra, step, scale))
+    if case == "unaligned":
+        mem = _unaligned(mem)
+    if case == "strided-step":
+        step = step.repeat_interleave(2)[::2]
+        assert step.stride(0) == 2
+    N = mem.shape[1] - 1
+    r_idx, r_w = widx.clone(), ww.clone()
+    r_idx[:, outside] = widx[:, :1]
+    r_w[:, outside] = 0.0
+    m_ref, s_ref, l_ref = mem.clone(), scale.clone(), la.clone()
+    ref.sparse_write_update_q_ref(m_ref, s_ref, l_ref, r_idx, r_w, a, lra,
+                                  step, 0.005)
+    scratch = (mem[:, N].clone(), scale[:, N].clone(), la[:, N].clone())
+    count = sparse_write_update.launches_by_dtype["int8"]
+    sparse_write_update(mem, la, widx, ww, a, lra, step, delta=0.005,
+                        mem_scale=scale)
+    torch.cuda.synchronize()
+    assert sparse_write_update.launches_by_dtype["int8"] == count + 1
+    assert torch.equal(mem, m_ref)
+    assert torch.equal(scale.view(torch.int32), s_ref.view(torch.int32))
+    assert torch.equal(la, l_ref)
+    assert all(torch.equal(x[:, N], y) for x, y in zip((mem, scale, la),
+                                                       scratch))
+    if case == "zero-sum":
+        row = int(lra[0, 0])
+        assert scale[0, row] == 0 and (mem[0, row] == 0).all()
+
+
+@pytest.mark.parametrize("W,H,K", Q_SHAPES)
+def test_sparse_write_q_kernel_at_every_shape(dev, W, H, K):
+    """Every (W, J) of Q_SHAPES, aligned and not (16-byte pieces where W
+    allows, single codes otherwise), bit for bit, one launch each."""
+    (mem, la, widx, ww, a, lra, step, scale), _ = _q_case(
+        np.random.default_rng(W + K), W, H, K, "rand")
+    for aligned in (True, False):
+        m, l, sc = (x.to(dev) for x in (mem, la, scale))
+        if not aligned:
+            m = _unaligned(m)
+        args = [x.to(dev) for x in (widx, ww, a, lra, step)]
+        m_ref, s_ref, l_ref = m.clone(), sc.clone(), l.clone()
+        ref.sparse_write_update_q_ref(m_ref, s_ref, l_ref, *args, 0.005)
+        count = sparse_write_update.launches_by_dtype["int8"]
+        sparse_write_update(m, l, *args, delta=0.005, mem_scale=sc)
+        torch.cuda.synchronize()
+        assert sparse_write_update.launches_by_dtype["int8"] == count + 1
+        assert torch.equal(m, m_ref) and torch.equal(l, l_ref)
+        assert torch.equal(sc.view(torch.int32), s_ref.view(torch.int32))
 
 
 def test_dtype_kernels_raise_on_inputs_they_cannot_take(dev):

@@ -119,10 +119,10 @@ def test_quantize_rows_matches_jax(case):
 # The writes
 # --------------------------------------------------------------------------
 
-def _write_case(dups, N=300, H=4, K=4, seed=0):
+def _write_case(dups, N=300, H=4, K=4, seed=0, width=W):
     rng = np.random.default_rng(seed)
     J = H * (K + 1)
-    mem = rng.standard_normal((B, N + 1, W)).astype(np.float32)
+    mem = rng.standard_normal((B, N + 1, width)).astype(np.float32)
     la = rng.integers(-50, 50, (B, N + 1)).astype(np.int32)
     hi = N if dups == "some" else 3
     widx = rng.integers(0, hi, (B, H, K + 1)).astype(np.int32)
@@ -132,7 +132,7 @@ def _write_case(dups, N=300, H=4, K=4, seed=0):
     lra = widx[:, :, K].copy()
     ww = rng.random((B, J)).astype(np.float32)
     ww[:, 3] = 0.001                       # below delta: no usage stamp
-    a = rng.standard_normal((B, H, W)).astype(np.float32)
+    a = rng.standard_normal((B, H, width)).astype(np.float32)
     return mem, la, widx.reshape(B, J), ww, a, lra
 
 
@@ -169,6 +169,30 @@ def test_int8_write_matches_kernel_q_and_oracle(dups, lane):
                                atol=0)
     assert torch.equal(q[:, N], _t(jq)[:, N])              # scratch row
     assert torch.equal(s[:, N], _t(js)[:, N])
+
+
+@pytest.mark.parametrize("width,K", [(24, 4), (16, 8), (24, 8)])
+@pytest.mark.parametrize("lane", ["scalar", "per_lane"])
+def test_int8_write_matches_kernel_q_at_other_shapes(width, K, lane):
+    """The int8 write's plain version against `_kernel_q` in interpret mode,
+    codes, scales and usage bit for bit, at the CUDA kernel's other edge
+    shapes: W = 24 (not a multiple of 16: its single-code path) and J = 36
+    (K = 8, the LM's columns)."""
+    mem, la, widx, ww, a, lra = _write_case("some", K=K, seed=width + K,
+                                            width=width)
+    N = mem.shape[1] - 1
+    step = _step(lane)
+    jq, js = _storage(mem, "int8")
+    args = [jnp.asarray(x) for x in (la, widx, ww, a, lra)]
+    k_mem, k_la, k_s = jax_write(jq, *args, jnp.asarray(step), delta=0.005,
+                                 interpret=True, scratch_row=N, mem_scale=js)
+    q, s, l = _t(jq), _t(js), _t(la)
+    ops.sparse_write_update(q, l, *(_t(x) for x in (widx, ww, a, lra)),
+                            torch.tensor(step), delta=0.005, mem_scale=s)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(k_mem))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(k_s))
+    np.testing.assert_array_equal(l.numpy(), np.asarray(k_la))
+    assert torch.equal(q[:, N], _t(jq)[:, N])              # scratch row
 
 
 @pytest.mark.parametrize("lane", ["scalar", "per_lane"])

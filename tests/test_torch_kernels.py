@@ -23,15 +23,20 @@ from repro.kernels.scatter_rows import first_occurrence as jax_first
 from repro.kernels.scatter_rows import scatter_rows as pallas_scatter
 from repro.kernels.sparse_write import sparse_write_update as pallas_write
 from repro.kernels.usage_argmin import lra_topn as pallas_topn
+from repro_torch.core import quant
 from repro_torch.core.types import LA_SCRATCH
+from repro_torch.kernels import lsh_hash as hash_k
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fused_read import (MAX_SMEM, WARPS, bank_ways,
                                             smem_bytes, sweep_plan)
 from repro_torch.kernels.fused_read_candidates import (LOADS, MAX_TILE,
                                                        cand_plan, cand_smem)
+from repro_torch.kernels.lsh_hash import hash_plan
+from repro_torch.kernels.sparse_write import MAX_SMEM as MAX_SMEM_Q
 from repro_torch.kernels.sparse_write import (MAX_A_WORDS, MAX_COLUMNS,
-                                              MAX_THREADS, MIN_WORDS, PIECES,
-                                              write_plan)
+                                              MAX_Q_THREADS, MAX_THREADS,
+                                              MIN_WORDS, PIECES, Q_STAGE,
+                                              q_plan, q_smem, write_plan)
 from repro_torch.kernels.usage_argmin import (ARGMIN_THREADS, ARGMIN_VEC,
                                               BLOCKS_PER_SM, TOPN_THREADS,
                                               grid_plan)
@@ -279,6 +284,103 @@ def test_lsh_hash_matches_jax_ref_and_pallas(R, W_, T, bits):
     got3 = ops.lsh_hash(torch.tensor(x[:10]).reshape(2, 5, W_),
                         torch.tensor(planes))
     assert torch.equal(got3.reshape(10, T), got[:10])
+
+
+# The hash's plan (kernels/lsh_hash.py::hash_plan) and its lanes
+# (csrc/lsh_hash.cu), followed in Python: the CUDA kernel cannot run here.
+
+@pytest.mark.parametrize("R", [32, 160, 1 << 23])
+@pytest.mark.parametrize("W_", [4, 32, 128])
+def test_hash_plan_regime_and_smem(R, W_):
+    """The step's hashes (R = B·H = 32, B·J = 160) take a one-warp block
+    per 8-row tile, so R = 160 spreads over 20 SMs; a rebuild's 2^23 rows
+    stream through two persistent blocks an SM of 8 warps, at most one
+    warp a tile. The shared memory fits the 227 KB a block may use, and
+    the grid never has more warps than tiles."""
+    sms = 132
+    plan = hash_plan(hash_k.streams(R, sms), W_)
+    tiles = -(-R // plan.tile)
+    blocks = plan.blocks(R, sms)
+    assert plan.tile % hash_k.PASS_ROWS == 0
+    assert 1 <= plan.stages <= hash_k.MAX_STAGES
+    assert 1 <= plan.warps <= hash_k.MAX_WARPS
+    assert blocks * plan.warps <= tiles
+    assert plan.smem(R, W_, sms) <= hash_k.MAX_SMEM
+    if R < 1 << 23:
+        assert not plan.streamed and (plan.tile, plan.warps) == (8, 1)
+        assert blocks == tiles and plan.smem(R, W_, sms) == 32 * W_ + 8
+    else:
+        assert plan.streamed and plan.warps == hash_k.STREAM_WARPS
+        assert blocks == hash_k.BLOCKS_PER_SM * sms
+        if W_ <= 32:
+            assert (plan.tile, plan.stages) == (hash_k.STREAM_TILE,
+                                                hash_k.STREAM_STAGES)
+
+
+@pytest.mark.parametrize("W_", [256, 1024, 2048])
+def test_hash_plan_cuts_the_ring_to_fit(W_):
+    """Wide rows: the streamed ring loses stages, then rows a tile, then
+    warps, until it fits; rows too wide for two 8-row stages (streamed) or
+    one 8-row tile are refused."""
+    plan = hash_plan(True, W_)
+    assert plan.smem(1 << 23, W_, 132) <= hash_k.MAX_SMEM
+    assert plan.stages >= 2 and plan.tile >= hash_k.PASS_ROWS
+    with pytest.raises(ValueError, match="shared memory"):
+        hash_plan(True, 4096)
+    with pytest.raises(ValueError, match="shared memory"):
+        hash_plan(False, 1 << 14)
+
+
+def _hash_by_lanes(proj, T, bits):
+    """csrc/lsh_hash.cu's packing, lane by lane, from the sign of each
+    projection proj (R, T·bits): groups of 32 // bits whole tables; lane i
+    of half h votes planes i and i + 16 of the group for row 2j + h; the
+    row's sign word is the low (h = 0) or high (h = 1) 16 bits of each
+    vote; lane v of a pass writes table v % nt of row v // nt."""
+    R = proj.shape[0]
+    out = np.zeros((R, T), np.int64)
+    per = 32 // bits
+    pos = proj > 0
+    for base in range(0, R, 8):
+        for t0 in range(0, T, per):
+            nt = min(per, T - t0)
+            G = nt * bits
+            for j in range(4):
+                v0 = v1 = 0
+                for lane in range(32):
+                    h, i = lane >> 4, lane & 15
+                    r = base + 2 * j + h
+                    if r >= R:
+                        continue
+                    if i < G and pos[r, t0 * bits + i]:
+                        v0 |= 1 << lane
+                    if i + 16 < G and pos[r, t0 * bits + i + 16]:
+                        v1 |= 1 << lane
+                for h in (0, 1):
+                    r = base + 2 * j + h
+                    if r >= R:
+                        continue
+                    signs = ((v0 >> 16 * h) & 0xFFFF) | \
+                        (((v1 >> 16 * h) & 0xFFFF) << 16)
+                    for t in range(nt):
+                        out[r, t0 + t] = (signs >> t * bits) & ((1 << bits) - 1)
+    return out
+
+
+@pytest.mark.parametrize("T,bits", [(4, 8), (2, 8), (8, 8), (1, 30), (3, 30),
+                                    (1, 1), (5, 7), (7, 5)])
+def test_hash_lanes_pack_as_the_plain_hash(T, bits):
+    """The kernel's votes and packing give `ref.lsh_hash_ref`'s ids from the
+    same signs, for T·bits below, at and above one group of 32 planes and
+    for groups that do not fill 32 lanes; R = 13 ends in a partial pass."""
+    rng = np.random.default_rng(T * 31 + bits)
+    Wd, R = 8, 13
+    x = torch.tensor(rng.standard_normal((R, Wd)).astype(np.float32))
+    x[0] = 0.0
+    planes = torch.tensor(rng.standard_normal((T, bits, Wd)).astype(np.float32))
+    proj = torch.einsum("rw,tbw->rtb", x, planes).reshape(R, T * bits)
+    np.testing.assert_array_equal(_hash_by_lanes(proj.numpy(), T, bits),
+                                  ref.lsh_hash_ref(x, planes).numpy())
 
 
 def test_dedup_matches_jax():
@@ -648,6 +750,35 @@ def test_write_plan_refuses_what_the_kernel_cannot_stage():
         write_plan(20, 32, MAX_A_WORDS, 4)
 
 
+@pytest.mark.parametrize("J,W_,H_,vec,threads", [
+    (20, 32, 4, 16, 64), (36, 128, 4, 16, 288), (592, 128, 4, 16, 512),
+    (20, 24, 4, 1, 480), (20, 16, 4, 16, 32), (592, 24, 4, 1, 512),
+    (2000, 16, 4, 16, 512), (24, 8192, 8, 16, 512)])
+def test_q_plan_threads_and_smem(J, W_, H_, vec, threads):
+    """The int8 write's plan: a thread a piece of ``vec`` codes in whole
+    warps (64 at step 21's J = 20, W = 32; 288 at the LM's J = 36, W =
+    128), at most MAX_Q_THREADS (J = 592 at W = 128: rounds), enough for
+    a staged a to go to shared memory in one round; the shared memory a
+    block may use holds six words a column and all of a where it fits (not
+    H·W = 65536 floats: the sums then read a from device memory; J = 2000
+    columns, more than the f32 write's MAX_COLUMNS, still fit)."""
+    plan = q_plan(J, W_, H_, vec)
+    assert plan.threads == threads and plan.vec == vec
+    assert plan.threads % 32 == 0
+    assert plan.stage_a == (H_ * W_ < 1 << 16)
+    if plan.stage_a:
+        assert Q_STAGE * plan.threads >= min(H_ * W_,
+                                             Q_STAGE * MAX_Q_THREADS)
+    assert plan.smem == q_smem(J, W_, H_, plan.stage_a) <= MAX_SMEM_Q
+
+
+def test_q_plan_refuses_what_the_kernel_cannot_stage():
+    with pytest.raises(ValueError, match="shared memory"):
+        q_plan(10_000, 32, 4, 16)
+    with pytest.raises(ValueError, match="multiple of vec"):
+        q_plan(20, 24, 4, 16)
+
+
 def _write_groups(idx_row, lra_row, n_rows):
     """csrc/sparse_write.cu's groups for one batch row, followed lane by
     lane: warps of 32 columns grouped by equal row (__match_any_sync), the
@@ -660,12 +791,15 @@ def _write_groups(idx_row, lra_row, n_rows):
     return owner, erase, nxt
 
 
-def _write_by_groups(mem, la, widx, ww, a, lra, step, delta):
+def _write_by_groups(mem, la, widx, ww, a, lra, step, delta, scale=None):
     """The kernel's result: each owner's row from its old value (zero if
     erased) plus its group's columns in j order, rounded as the kernel
-    rounds (f32: product and sum apart; bf16: each to bf16); the la cell
-    stamped where a group column has w > delta."""
+    rounds (f32: product and sum apart; bf16: each to bf16; int8 rows with
+    their ``scale``: dequantized, one FMA a column, then s' = max|row|·
+    fl(1/127) and the codes rint(row / s')); the la cell stamped where a
+    group column has w > delta."""
     mem, la = mem.clone(), la.clone()
+    scale = None if scale is None else scale.clone()
     B, J = widx.shape
     kp1 = J // a.shape[1]
     bf16 = mem.dtype == torch.bfloat16
@@ -676,33 +810,47 @@ def _write_by_groups(mem, la, widx, ww, a, lra, step, delta):
             if not owner[j]:
                 continue
             row = int(widx[b, j])
-            acc = torch.zeros(mem.shape[2]) if erase[j] else \
-                mem[b, row].float()
+            if erase[j]:
+                acc = torch.zeros(mem.shape[2])
+            elif scale is not None:
+                acc = mem[b, row].float() * scale[b, row]
+            else:
+                acc = mem[b, row].float()
             u, touched = j, False
             while u >= 0:
-                p = ww[b, u] * a[b, u // kp1]
-                if bf16:
+                if scale is not None:          # one FMA a column
+                    acc = ref.fma_f32(ww[b, u].expand(acc.shape),
+                                      a[b, u // kp1], acc)
+                elif bf16:
+                    p = ww[b, u] * a[b, u // kp1]
                     acc = (acc + p.bfloat16().float()).bfloat16().float()
                 else:
-                    acc = acc + p
+                    acc = acc + ww[b, u] * a[b, u // kp1]
                 touched |= bool(ww[b, u] > delta)
                 u = nxt[u]
-            mem[b, row] = acc.to(mem.dtype)
+            if scale is not None:              # max|row| over its pieces
+                s_new = acc.abs().max() * quant.INV_QMAX
+                q = acc / (s_new if s_new > 0 else 1.0)
+                mem[b, row] = q.round().clamp(-127, 127).to(torch.int8)
+                scale[b, row] = s_new
+            else:
+                mem[b, row] = acc.to(mem.dtype)
             if touched:
                 la[b, row] = max(int(la[b, row]), int(step[b]))
-    return mem, la
+    return (mem, la) if scale is None else (mem, la, scale)
 
 
 @pytest.mark.parametrize("case", ["one-row", "lra-later", "at-delta",
                                   "scratch", "heavy-36", "heavy-72"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 def test_write_groups_match_plain_bit_for_bit(case, dtype):
-    """The kernel's ownership rule (first column owns, LRA rows erased,
+    """The kernels' ownership rule (first column owns, LRA rows erased,
     groups across warps at J > 32) gives the plain write's rows and usage
-    bit for bit on its edge cases: every column on one row; an LRA row
-    that a later head's column names; weights exactly at delta; every
-    column on the scratch row with weight 0 (ignored); heavy duplicates
-    at J = 36 and 72, with a per-lane step."""
+    (on int8 rows codes and scales too, the max taken over the row's
+    pieces) bit for bit on its edge cases: every column on one row; an LRA
+    row that a later head's column names; weights exactly at delta; every
+    column on the scratch row with weight 0 (ignored); heavy duplicates at
+    J = 36 and 72, with a per-lane step."""
     rng = np.random.default_rng(len(case))
     Hd, Kd = (4, 8) if case == "heavy-36" else (8, 8) if case == "heavy-72" \
         else (4, 4)
@@ -733,17 +881,29 @@ def test_write_groups_match_plain_bit_for_bit(case, dtype):
     t = {k: torch.tensor(v) for k, v in dict(mem=mem, la=la, widx=widx,
                                               ww=ww, a=a, lra=lra,
                                               step=step).items()}
-    t["mem"] = t["mem"].to(getattr(torch, dtype))
-    got_m, got_l = _write_by_groups(t["mem"], t["la"], t["widx"], t["ww"],
-                                    t["a"], t["lra"], t["step"], 0.005)
+    scale = None
+    if dtype == "int8":
+        t["mem"], scale = quant.quantize_rows(t["mem"])
+    else:
+        t["mem"] = t["mem"].to(getattr(torch, dtype))
+    got = _write_by_groups(t["mem"], t["la"], t["widx"], t["ww"], t["a"],
+                           t["lra"], t["step"], 0.005, scale)
     want_m, want_l = t["mem"].clone(), t["la"].clone()
-    ref.sparse_write_update_ref(want_m, want_l, t["widx"], t["ww"], t["a"],
-                                t["lra"], t["step"], 0.005)
-    bits = torch.int16 if dtype == "bfloat16" else torch.int32
-    assert torch.equal(got_m.view(bits), want_m.view(bits))
-    assert torch.equal(got_l, want_l)
+    if scale is None:
+        ref.sparse_write_update_ref(want_m, want_l, t["widx"], t["ww"],
+                                    t["a"], t["lra"], t["step"], 0.005)
+    else:
+        want_s = scale.clone()
+        ref.sparse_write_update_q_ref(want_m, want_s, want_l, t["widx"],
+                                      t["ww"], t["a"], t["lra"], t["step"],
+                                      0.005)
+        assert torch.equal(got[2].view(torch.int32), want_s.view(torch.int32))
+    bits = {"bfloat16": torch.int16, "int8": torch.int8}.get(dtype,
+                                                             torch.int32)
+    assert torch.equal(got[0].view(bits), want_m.view(bits))
+    assert torch.equal(got[1], want_l)
     if case == "scratch":
-        assert torch.equal(got_m, t["mem"]) and torch.equal(got_l, t["la"])
+        assert torch.equal(got[0], t["mem"]) and torch.equal(got[1], t["la"])
 
 
 # --------------------------------------------------------------------------
