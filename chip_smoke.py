@@ -16,8 +16,10 @@ StarCoder2-7B's full width (`starcoder2_7b_sam`: prefill, decode with
 memory states and the static `serve`), whose attention is the
 `flash_attention` kernel; then the SAM cell's forward on a memory sharded
 by slots over 4 processes (`repro_torch.distributed.mem_shard`), whose
-ranks sweep their blocks with the `topk_read` kernel. It fails (nonzero
-exit) if any phase fails:
+ranks sweep their blocks with the `topk_read` kernel; then the sparse DNC
+(exact and LSH) forward and in training on associative recall, and the
+paper's Fig. 7 against the dense DNC. It fails (nonzero exit) if any
+phase fails:
 
 1. build the kernels from `src/repro_torch/kernels/csrc/` with nvcc for
    sm_90a and print each kernel's registers, shared memory and spills
@@ -179,12 +181,41 @@ exit) if any phase fails:
       phase 6's single-device step; rank 0's device ms per step
       (`torch.profiler`); each rank's peak memory beside its block; a
       bare all-gather of a CUDA and of a host tensor;
-11. print the empty-launch floor with each latency-bound kernel's time
+11. the sparse DNC and the DNC (`core/dnc.py`, `SDNCCell`; paper Suppl.
+   D) at the same widths with K_L = 8, on associative recall (18 items of
+   2 vectors: T = 42):
+   a. the SDNC's forward rollout (`DNC.forward`, N = 2^20, about 2 GiB of
+      state), exact and LSH (C = 4·32 + 17 = 145 candidates), in
+      lockstep, with each kernel's launches per step exact: `lra_topn`
+      once (n = 1), `scatter_rows` twice (the LRA row's 'set', the 'add'
+      of J = 17 rows), `fused_read_sweep` once (exact) or `lsh_hash` twice
+      and `fused_read_candidates` once (LSH), nothing else;
+   b. a sparse-mode forward and backward from each rollout's final state
+      in lockstep: the backward launches no read, hash or LRA, only 13
+      scatters a step; memory, N_t and P_t come back bit for bit; every
+      gradient leaf finite; chunked (C = 14) against sparse within the
+      gradient bar;
+   c. the main path: one ``sdnc`` `make_task_train_step` step in
+      lockstep with the counters set to 0 just before it and read just
+      after, three more RMSProp steps without a NaN; a small ``sdnc`` and
+      ``dnc`` step (N = 1000, T = 12, from a random memory; the DNC from
+      distinct usages) on the card against the CPU;
+   d. flat in N: the sparse forward's and backward's ms and the peak above
+      the state at N = 2^16, 2^18, 2^20, beside `residual_accounting`;
+   e. Fig. 7 (`benchmarks/bench_sdnc.py`'s setup: B = 2, R = 2, K = 4,
+      W = 32, hidden 64, T = 10): forward + backward ms (median of 3
+      after a warm-up) and peak of the SDNC (its default sparse engine) at
+      N = 2^8 ... 2^20 and of the dense DNC where its byte reckoning fits
+      (`dnc_bytes`), with the SDNC's speed-up;
+   f. the rollouts' host ms per step (median of five), device ms per step
+      (`torch.profiler`) and peaks;
+12. print the empty-launch floor with each latency-bound kernel's time
    above it (`lra_topn`, the scatter, the write at step 21 on f32, bf16
    and int8 rows and at the LM's shapes, the candidate read on f32, bf16
    and int8 rows, the hash of the written rows and of the queries), the
    card, one JSON line of per-kernel numbers (the LM's
-   under ``"lm"``, the sharded memory's under ``"mesh"``), and last the
+   under ``"lm"``, the sharded memory's under ``"mesh"``, the DNC's under
+   ``"dnc"``), and last the
    ``{"ok": true, ...}`` line.
 
 Tolerances: integer outputs exact; forward floats within 1e-5 of
@@ -328,6 +359,27 @@ SLICE_TOL = 1e-4               # tests/test_torch_lm.py's bar for the slice
 # rows each, all on the one card, joined by gloo.
 MESH_S = 4
 MESH_LABEL = f"{MESH_S} ranks sharing one card, gloo through the host"
+# Phase 11, the DNC and the SDNC (paper Suppl. D) at the same widths with
+# K_L = 8, on associative recall: 18 items of 2 vectors, so T = 42.
+DNC_KL = 8
+RECALL_ITEMS, RECALL_LEN = 18, 2
+# Launches of one SDNC step: the LRA row (n = 1), the write as a 'set' and
+# an 'add' of J = H·K + 1 rows, the exact read or the LSH hash of the
+# queries and of the written rows and the candidate read; and the
+# scatters of one backward step (two rollbacks of the memory, the
+# replayed write's two, the write's cotangent 'set', the two reads' and
+# the two link reads' 'add's, the linkage's 'set' and 'add' in N_t's and
+# P_t's cotangents).
+SDNC_STEP = {"lra_topn": 1, "scatter_rows": 2, "fused_read_sweep": 1}
+SDNC_LSH_STEP = {"lra_topn": 1, "scatter_rows": 2, "lsh_hash": 2,
+                 "fused_read_candidates": 1}
+SDNC_BWD_SCATTERS = 13
+SDNC_CHUNK = 14
+FLAT_NS = (1 << 16, 1 << 18, 1 << 20)
+# Fig. 7 (`benchmarks/bench_sdnc.py`): B = 2, R = 2, K = 4, W = 32,
+# hidden 64, T = 10; the dense DNC only where its reckoning fits.
+FIG7_B, FIG7_T = 2, 10
+FIG7_NS = tuple(1 << e for e in range(8, 21))
 
 
 class SmokeFailure(Exception):
@@ -708,6 +760,25 @@ def fits(need: int):
     return need <= 0.9 * avail, avail
 
 
+def measure(fn, new_state, need, per=1, batch=B):
+    """ms per run over ``per`` (median of 3 after a warm-up) and the
+    warm-up's peak memory above what is held; only ``need`` and the bytes
+    available where ``need`` does not fit. ``fn`` takes a fresh state,
+    ``new_state(batch)``, made outside the timed window."""
+    ok, avail = fits(need)
+    if not ok:
+        return dict(need=need, avail=avail)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    fn(new_state(batch))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    med, times = host_ms(fn, runs=3, setup=lambda: new_state(batch))
+    return dict(ms=med / per, all=[t / per for t in times], peak=peak,
+                need=need)
+
+
 def dense_phase(dev, ops, ref, usage_argmin, checker, zero_counts, counts,
                 flush, small_train, batch):
     """Phase 8: DAM, the NTM and the LSTM baseline (`core/dense.py`), and
@@ -950,23 +1021,6 @@ def dense_phase(dev, ops, ref, usage_argmin, checker, zero_counts, counts,
         else:
             kept = CMP_T * act
         return fwd_model.init_state, forward, fwd_bwd, state_b, kept, act
-
-    def measure(fn, new_state, need, per=1):
-        """ms per run over ``per`` (median of 3 after a warm-up) and the
-        warm-up's peak memory above what is held; only ``need`` and the
-        bytes available where ``need`` does not fit."""
-        ok, avail = fits(need)
-        if not ok:
-            return dict(need=need, avail=avail)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated()
-        fn(new_state(B))
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - held
-        med, times = host_ms(fn, runs=3, setup=lambda: new_state(B))
-        return dict(ms=med / per, all=[t / per for t in times], peak=peak,
-                    need=need)
 
     table = []
     for n in CMP_NS:
@@ -1744,6 +1798,383 @@ def mesh_phase(dev, ref, checker, flush, rec, mesh_ref, params, xs,
         "peak_bytes": [run["peak"] for run in runs],
         "block_bytes": runs[0]["block_bytes"],
         "single_device_ms_per_step": step_ms}}
+
+
+def dnc_bytes(n: int, batch: int, steps: int, cfg) -> int:
+    """A bound on the device bytes of a dense-DNC forward and backward
+    under autograd: the state (its (B, N, N) link and (B, N) rows), per
+    step the link the read's products keep for the backward and the
+    (B, N)-sized tensors the allocation and the dense reads keep, and
+    three (B, N, N) temporaries of the link update."""
+    mem = cfg.memory
+    R, Wd = mem.num_heads, mem.word_size
+    per_row = 8 * Wd + 24 * R + 24
+    return 4 * batch * (n * n * (steps + 4)
+                        + n * (steps + 1) * per_row)
+
+
+def dnc_phase(dev, ops, ref, checker, zero_counts, counts):
+    """Phase 11: the sparse DNC (exact and LSH read) and the dense DNC
+    (`core/dnc.py`, `core/cell.py::SDNCCell`). Returns what was measured,
+    with each kernel's launches per SDNC step."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core import dnc, training
+    from repro_torch.core import unroll as unroll_lib
+    from repro_torch.core.cell import SDNCCell
+    from repro_torch.core.types import (LA_SCRATCH, ControllerConfig,
+                                        MemoryConfig, tree_bytes)
+    from repro_torch.data.tasks import associative_recall_task
+    from repro_torch.optim import optimizers as opt
+
+    ctl = ControllerConfig(input_size=BITS + 2, hidden_size=HIDDEN,
+                           output_size=BITS)
+
+    def sdnc_cfg(n, ann="exact", **kw):
+        lsh = LSH if ann == "lsh" else {}
+        return dnc.DNCConfig(MemoryConfig(num_slots=n, word_size=W,
+                                          num_heads=H, k=K, delta=DELTA,
+                                          **lsh),
+                             ctl, k_l=DNC_KL, sparse=True, **kw)
+
+    inputs, targets, mask = associative_recall_task(
+        B, RECALL_ITEMS, RECALL_ITEMS, BITS, RECALL_LEN, device=dev,
+        generator=torch.Generator().manual_seed(11))
+    xs = inputs.transpose(0, 1).contiguous()
+    ts, ms = targets.transpose(0, 1), mask.transpose(0, 1)
+    require(xs.shape == (T, B, BITS + 2), f"the recall batch has shape "
+            f"{tuple(xs.shape)}")
+
+    def expect(per_step, steps, **extra):
+        want = {name: 0 for name in counts()}
+        for name, n in per_step.items():
+            want[name] = n * steps
+        want.update(extra)
+        return want
+
+    def buffers(s):
+        return [s.memory, *s.n_mat, *s.p_mat]
+
+    def clone(s):
+        return pytree.tree_map(
+            lambda t: t.clone() if isinstance(t, torch.Tensor) else t, s)
+
+    # (a) the forward rollouts, in lockstep.
+    models, finals, fwd_launches = {}, {}, {}
+    for ann, per in (("exact", SDNC_STEP), ("lsh", SDNC_LSH_STEP)):
+        model = dnc.DNC(sdnc_cfg(N, ann), seed=0, device=dev)
+        ties = checker.near_ties
+        zero_counts()
+        with Intercept(ops, checker=checker):
+            state, ys = model(model.init_state(B), xs)
+        torch.cuda.synchronize()
+        launched = counts()
+        require(launched == expect(per, T), f"the {ann} SDNC rollout "
+                f"launched {launched}, expected {expect(per, T)}")
+        require(ys.shape == (T, B, BITS) and torch.isfinite(ys).all().item(),
+                f"{ann} SDNC outputs are not finite (T, B, bits) values")
+        require(all(torch.isfinite(t).all().item() for t in
+                    (state.memory, state.n_mat.vals, state.p_mat.vals)),
+                f"{ann} SDNC memory or links not finite")
+        require(state.memory[:, N].eq(0).all().item()
+                and state.usage[:, N].eq(LA_SCRATCH).all().item(),
+                f"the {ann} SDNC touched the scratch row")
+        require(int(state.step) == T and all(
+            ((m.cols >= -1) & (m.cols < N)).all().item()
+            for m in (state.n_mat, state.p_mat)), f"{ann} SDNC state")
+        models[ann], finals[ann], fwd_launches[ann] = model, state, launched
+        print(f"[sdnc] {ann} rollout (N={N}, B={B}, T={T}, K_L={DNC_KL}) in "
+              f"lockstep: launches {launched} ({per} a step, nothing else); "
+              f"near-ties {checker.near_ties - ties}; state "
+              f"{tree_bytes(state)} B")
+
+    # (b) sparse-mode forward and backward from the rollout's final state.
+    flat_p, p_spec = pytree.tree_flatten(pytree.tree_map(
+        lambda v: v.detach(), models["exact"].params()))
+
+    def fwd_bwd(ann, mode, chunk, lockstep):
+        cell = SDNCCell(models[ann].cfg)
+        f_leaves, f_spec = pytree.tree_flatten(pytree.tree_map(
+            lambda v: v.detach(), models[ann].params()))
+        s0 = clone(finals[ann])
+        before = [t.clone() for t in buffers(s0)]
+        leaves = [p.clone().requires_grad_() for p in f_leaves]
+        params = pytree.tree_unflatten(leaves, f_spec)
+        acct = unroll_lib.residual_accounting(cell, params, s0, xs,
+                                              mode=mode, chunk=chunk)
+        with Intercept(ops, checker=checker if lockstep else None):
+            zero_counts()
+            _, ys_t = unroll_lib.unroll(cell, params, s0, xs, mode=mode,
+                                        chunk=chunk)
+            loss = training.bits_loss(ys_t, ts, ms)
+            torch.cuda.synchronize()
+            fwd = counts()
+            zero_counts()
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(leaves, grads)]
+            torch.cuda.synchronize()
+            bwd = counts()
+        restored = all(torch.equal(a, b) for a, b in zip(buffers(s0), before))
+        return loss.detach(), grads, fwd, bwd, restored, acct
+
+    train = {}
+    for ann, per in (("exact", SDNC_STEP), ("lsh", SDNC_LSH_STEP)):
+        loss, grads, fwd, bwd, restored, acct = fwd_bwd(ann, "sparse", None,
+                                                        True)
+        require(fwd == expect(per, T), f"{ann} sparse forward launched {fwd}")
+        require(bwd == expect({}, T, scatter_rows=SDNC_BWD_SCATTERS * T),
+                f"the {ann} SDNC backward launched {bwd}: no read, hash or "
+                f"LRA, and {SDNC_BWD_SCATTERS} scatters a step")
+        require(restored, f"the {ann} sparse backward did not give the "
+                f"memory, N_t and P_t back bit for bit")
+        require(torch.isfinite(loss).item() and all(
+            torch.isfinite(g).all().item() for g in grads),
+            f"an {ann} SDNC loss or gradient leaf is not finite")
+        train[ann] = dict(loss=loss.item(), fwd_launches=fwd,
+                          bwd_launches=bwd, residual_bytes=acct[
+                              "residual_bytes"])
+        print(f"[sdnc] {ann} sparse forward launches {fwd}; backward "
+              f"launches {bwd} (every scatter checked in lockstep); memory, "
+              f"N_t and P_t restored bit for bit; loss {loss.item():.6f}; "
+              f"{len(grads)} gradient leaves finite")
+        if ann == "exact":
+            g_sparse = grads
+    chunk = SDNC_CHUNK
+    loss_c, g_chunk, _, _, restored_c, _ = fwd_bwd("exact", "chunked", chunk,
+                                                   False)
+    chunk_err = max((a - b).abs().max().item()
+                    for a, b in zip(g_chunk, g_sparse))
+    require(restored_c, "the chunked SDNC backward did not restore the "
+            "buffers")
+    require(all(torch.allclose(a, b, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+                for a, b in zip(g_chunk, g_sparse)),
+            f"chunked SDNC gradients differ from sparse ones ({chunk_err:.3g})")
+    require(abs(loss_c.item() - train["exact"]["loss"])
+            <= TOL * abs(train["exact"]["loss"]), "chunked SDNC loss")
+    print(f"[sdnc] chunked C={chunk}: gradients max err {chunk_err:.3g} "
+          f"against sparse; buffers restored bit for bit")
+
+    # (c) the main path: one make_task_train_step step of kind sdnc.
+    spec = training.ModelSpec("sdnc", sdnc_cfg(N).memory, ctl)
+    _, _, step_fn = training.make_task_train_step(spec, LR, device=dev)
+    p0 = pytree.tree_unflatten([p.clone() for p in flat_p], p_spec)
+    o0 = opt.rmsprop_init(p0)
+    zero_counts()
+    with Intercept(ops, checker=checker):
+        p1, o1, loss, err = step_fn(p0, o0, inputs, targets, mask)
+    torch.cuda.synchronize()
+    main_launches = counts()
+    require(main_launches == expect(SDNC_STEP, T, scatter_rows=(
+        SDNC_STEP["scatter_rows"] + SDNC_BWD_SCATTERS) * T),
+        f"the sdnc train step launched {main_launches}")
+    losses = [loss.item()]
+    for _ in range(3):
+        p1, o1, loss, _ = step_fn(p1, o1, inputs, targets, mask)
+        losses.append(loss.item())
+        require(torch.isfinite(loss).item() and all(
+            torch.isfinite(p).all().item()
+            for p in pytree.tree_leaves((p1, o1))),
+            "an sdnc RMSProp step produced a NaN or an infinity")
+    print(f"[sdnc] main path: one make_task_train_step step (sdnc, "
+          f"associative recall: {RECALL_ITEMS} items of {RECALL_LEN}), "
+          f"launches {main_launches}; loss {losses[0]:.6f}, bit error "
+          f"{err.item():.4f}; four RMSProp steps, losses {losses}: all finite")
+    del p1, o1, step_fn
+
+    # A small step of each kind on the card against the CPU (N = 1000,
+    # T = 12, a random initial memory; the DNC from a state of distinct
+    # usages, whose allocation sort has no near-tie).
+    small = training.ModelSpec("sdnc", sdnc_cfg(1000).memory, ctl)
+    batch = associative_recall_task(2, 3, 3, BITS, 2, device="cpu",
+                                    generator=torch.Generator().manual_seed(4))
+    require(batch[0].shape[1] == 12, "the small batch is not T = 12")
+    card_vs_cpu = {}
+    for kind in ("sdnc", "dnc"):
+        spec_k = dataclasses.replace(small, kind=kind)
+        results = {}
+        for device in ("cpu", dev):
+            init_p, init_s, unroll_k = training.build_model(spec_k,
+                                                            device=device)
+            leaves, spec_s = pytree.tree_flatten(
+                init_p(torch.Generator().manual_seed(5)))
+            leaves = [p.requires_grad_() for p in leaves]
+            s0 = small_state(init_s(2), kind, torch.Generator().manual_seed(6))
+            b_in, b_tgt, b_mask = (t.to(device) for t in batch)
+            _, ys_small = unroll_k(pytree.tree_unflatten(leaves, spec_s), s0,
+                                   b_in.transpose(0, 1))
+            l_small = training.bits_loss(ys_small, b_tgt.transpose(0, 1),
+                                         b_mask.transpose(0, 1))
+            grads = torch.autograd.grad(l_small, leaves, allow_unused=True)
+            results[str(device)] = (l_small.item(), [
+                torch.zeros_like(p).cpu() if g is None else g.cpu()
+                for p, g in zip(leaves, grads)])
+        (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results[str(dev)]
+        err_k = max((a - b).abs().max().item() for a, b in zip(g_gpu, g_cpu))
+        require(abs(l_gpu - l_cpu) <= TOL * abs(l_cpu),
+                f"small {kind} step: loss {l_gpu} on the card, {l_cpu} on "
+                f"the CPU")
+        require(all(torch.allclose(a, b, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+                    for a, b in zip(g_gpu, g_cpu)),
+                f"small {kind} step: gradients differ (max err {err_k:.3g})")
+        card_vs_cpu[kind] = err_k
+        print(f"[sdnc] small {kind} step (N=1000, T=12) card vs CPU: loss "
+              f"rel err {abs(l_gpu - l_cpu) / abs(l_cpu):.3g}, gradients max "
+              f"err {err_k:.3g}")
+
+    # (d) flat in N: the sparse backward's ms and peak, beside the
+    # accounting.
+    flat = []
+    for n in FLAT_NS:
+        cell = SDNCCell(sdnc_cfg(n))
+        leaves = [p.clone().requires_grad_() for p in flat_p]
+        params = pytree.tree_unflatten(leaves, p_spec)
+        out = {}
+
+        def forward(s0):
+            out["loss"] = training.bits_loss(
+                unroll_lib.unroll(cell, params, s0, xs)[1], ts, ms)
+            return s0
+
+        def backward(_):
+            torch.autograd.grad(out["loss"], leaves)
+
+        s0 = cell.init_state(B, device=dev)
+        sb = tree_bytes(s0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        forward(s0)
+        backward(None)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        del s0
+        f_med, _ = host_ms(forward, setup=lambda: cell.init_state(B,
+                                                                  device=dev))
+        b_med, b_all = host_ms(backward, setup=lambda: forward(
+            cell.init_state(B, device=dev)))
+        out.clear()
+        acct = unroll_lib.residual_accounting(
+            cell, params, cell.init_state(B, device=dev), xs, mode="sparse")
+        cts = 4 * B * ((n + 1) * W + 2 * n * DNC_KL)
+        flat.append(dict(n=n, fwd_ms=f_med, bwd_ms=b_med, bwd_all=b_all,
+                         peak_above_state=peak, state_bytes=sb,
+                         residual_bytes=acct["residual_bytes"],
+                         res_step_bytes=acct["res_step_bytes"],
+                         cotangent_bytes=cts))
+        print(f"[sdnc-flat] N={n}: sparse forward {f_med:.1f} ms, backward "
+              f"{b_med:.1f} ms (of {', '.join(f'{t:.1f}' for t in b_all)}), "
+              f"T={T}; peak {peak} B above the {sb} B state, beside "
+              f"residual_accounting(sparse) {acct['residual_bytes']} B "
+              f"(state + T·{acct['res_step_bytes']} B) and the cotangent "
+              f"buffers' {cts} B")
+        torch.cuda.empty_cache()
+
+    # (e) Fig. 7 (bench_sdnc.py's setup): forward + backward ms and peak,
+    # the SDNC through its default engine against the dense DNC.
+    ctl7 = ControllerConfig(input_size=10, hidden_size=64, output_size=8)
+    xs7 = torch.randn((FIG7_T, FIG7_B, 10),
+                      generator=torch.Generator().manual_seed(7)).to(dev)
+
+    def fig7_runner(sparse, n):
+        cfg7 = dnc.DNCConfig(MemoryConfig(num_slots=n, word_size=32,
+                                          num_heads=2, k=4), ctl7,
+                             sparse=sparse)
+        m7 = dnc.DNC(cfg7, seed=0, device=dev)
+        leaves7 = [p.detach().clone().requires_grad_()
+                   for p in pytree.tree_leaves(m7.params())]
+        p7 = pytree.tree_unflatten(leaves7,
+                                   pytree.tree_flatten(m7.params())[1])
+        cell7 = SDNCCell(cfg7) if sparse else None
+
+        def run7(s):
+            if sparse:
+                _, ys7 = unroll_lib.unroll(cell7, p7, s, xs7)
+            else:
+                _, ys7 = dnc.dnc_unroll(p7, cfg7, s, xs7)
+            torch.autograd.grad((ys7 ** 2).sum(), leaves7)
+
+        if sparse:
+            s_b = tree_bytes(m7.init_state(1)) * FIG7_B
+            need = 3 * s_b + (1 << 28)
+        else:
+            need = dnc_bytes(n, FIG7_B, FIG7_T, cfg7)
+        return run7, m7.init_state, need
+
+    fig7 = []
+    for n in FIG7_NS:
+        row = {"n": n}
+        for name, sparse in (("sdnc", True), ("dnc", False)):
+            run7, new_state, need = fig7_runner(sparse, n)
+            row[name] = measure(run7, new_state, need, batch=FIG7_B)
+            torch.cuda.empty_cache()
+        if "ms" in row["dnc"]:
+            row["speedup"] = row["dnc"]["ms"] / row["sdnc"]["ms"]
+        fig7.append(row)
+        cells = []
+        for name in ("sdnc", "dnc"):
+            m = row[name]
+            cells.append(f"{name} left out (needs {m['need']} B, "
+                         f"{m['avail']} B available)" if "ms" not in m else
+                         f"{name} {m['ms']:.2f} ms (of "
+                         f"{', '.join(f'{t:.2f}' for t in m['all'])}), peak "
+                         f"{m['peak']} B")
+        print(f"[fig7] N={n} (B={FIG7_B}, R=2, K=4, W=32, hidden 64, "
+              f"T={FIG7_T}, forward + backward): " + "; ".join(cells)
+              + (f"; the DNC takes {row['speedup']:.2f}x the SDNC's time"
+                 if "speedup" in row else ""))
+
+    # (f) the rollouts' times: host ms and device ms per step, peaks.
+    times = {}
+    for ann in ("exact", "lsh"):
+        model = models[ann]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        med, all_ms = host_ms(lambda s: model(s, xs),
+                              setup=lambda: model.init_state(B))
+        peak = torch.cuda.max_memory_allocated() - held
+        d_ms, on_dev = device_time(lambda: model(model.init_state(B), xs))
+        times[ann] = dict(ms_per_step=med / T, all=[t / T for t in all_ms],
+                          device_ms_per_step=d_ms / T or None,
+                          device_launches_per_step=sum(
+                              r[2] for r in on_dev) / T,
+                          top_kernels=[(k_, t_ / T, c_ / T)
+                                       for k_, t_, c_ in on_dev[:6]],
+                          peak_bytes=peak)
+        print(f"[sdnc-time] {ann} rollout: {med / T:.3f} ms/step on the host "
+              f"(of {', '.join(f'{t / T:.3f}' for t in all_ms)}), device "
+              f"{d_ms / T:.4f} ms/step in "
+              f"{times[ann]['device_launches_per_step']:.1f} launches; peak "
+              f"{peak} B above what is held (a fresh state each: "
+              f"{tree_bytes(finals[ann])} B); largest: "
+              + ", ".join(f"{k_[:40]} {t_:.4f} ms x{c_:.1f}"
+                          for k_, t_, c_ in times[ann]["top_kernels"][:4]))
+    per_step = {"exact": dict(SDNC_STEP), "lsh": dict(SDNC_LSH_STEP),
+                "backward_scatter_rows": SDNC_BWD_SCATTERS}
+    return dict(per_step=per_step, forward_launches=fwd_launches,
+                train=train, chunk=chunk, chunk_err=chunk_err,
+                main_path_launches=main_launches, main_losses=losses,
+                card_vs_cpu_grad_err=card_vs_cpu, flat=flat, fig7=fig7,
+                times=times)
+
+
+def small_state(s, kind, gen):
+    """A small model's start state for the card-against-CPU step: an SDNC
+    state with a random memory (written rows then are not parallel, so the
+    reads hold no near-tie), or a dense-DNC state with distinct usages
+    (its allocation sort holds none), drawn on the CPU from ``gen``."""
+    dev = s.memory.device
+    if kind == "sdnc":
+        mem = torch.randn(s.memory.shape, generator=gen)
+        mem[:, -1] = 0.0
+        s.memory.copy_(mem)
+        return s
+    B_, N_ = s.usage.shape
+    return s._replace(
+        memory=torch.randn(s.memory.shape, generator=gen).to(dev),
+        usage=torch.rand((B_, N_), generator=gen).to(dev),
+        write_w=(0.5 * torch.rand((B_, N_), generator=gen) / N_).to(dev))
 
 
 def run() -> None:
@@ -2745,7 +3176,10 @@ def run() -> None:
                       model.params(), xs, step_ms)
     rows["topk_read"] = mesh["row"]
 
-    # ---- 11. report ----
+    # ---- 11. the DNC and the SDNC ----
+    dnc_res = dnc_phase(dev, ops, ref, checker, zero_counts, counts)
+
+    # ---- 12. report ----
     lm_write = lmr["lm"]["kernels_at_lm_shapes"]["sparse_write_update"]
     above = (("lra_topn", rows["lra_topn"]), ("block", lra_block),
              ("scatter_rows 'set'", rows["scatter_rows"]),
@@ -2835,7 +3269,8 @@ def run() -> None:
                       "dtypes": dtype_runs,
                       "dense": {k: v for k, v in dense.items()
                                 if k != "row"},
-                      "lm": lmr["lm"], "mesh": mesh["mesh"]}))
+                      "lm": lmr["lm"], "mesh": mesh["mesh"],
+                      "dnc": dnc_res}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

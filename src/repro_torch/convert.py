@@ -7,7 +7,8 @@ matrices kept (in, out), so ``x @ w`` holds on both sides, plus
 ``lsh_planes`` (T, bits, W) for an LSH cell. SAM's state is the
 scratch-row `SAMState`, with the single-device LSH index (`ANNState`,
 P = 1) where there is one; the dense models' is `DenseState`, with a plain
-(B, N, W) memory. `sharded_state_from_jax` cuts a SAM state into one
+(B, N, W) memory; the DNC's and the SDNC's is `dnc.DNCState`
+(`dnc_state_from_jax`), whose weights share SAM's three groups. `sharded_state_from_jax` cuts a SAM state into one
 rank's block of a slot-sharded memory. The LM's weights are the nested
 tree of `models/lm.py::param_defs` (stacked ``blocks``, ``memory``, ``embed``,
 ``final_norm``, ``lm_head``) on both sides; its cache is {"k", "v", "pos"}
@@ -104,9 +105,7 @@ def state_from_jax(state, *, device="cuda") -> SAMState:
         raise ValueError(f"a {memory.dtype} memory "
                          f"{'with' if scale is not None else 'without'} "
                          f"mem_scale: int8 rows, and only they, carry scales")
-    read = SparseRead(indices=_tensor(state.read.indices, np.int32, device),
-                      weights=_tensor(state.read.weights, np.float32, device),
-                      words=_tensor(state.read.words, np.float32, device))
+    read = _read_from_jax(state.read, device)
     ctrl = LSTMState(h=_tensor(state.ctrl.h, np.float32, device),
                      c=_tensor(state.ctrl.c, np.float32, device))
     return SAMState(memory=memory,
@@ -153,6 +152,53 @@ def dense_state_from_jax(state, *, device="cuda") -> DenseState:
                      c=_tensor(state.ctrl.c, np.float32, device))
     return DenseState(ctrl=ctrl, step=_tensor(state.step, np.int32, device),
                       **f32)
+
+
+def _read_from_jax(read, device) -> SparseRead:
+    return SparseRead(indices=_tensor(read.indices, np.int32, device),
+                      weights=_tensor(read.weights, np.float32, device),
+                      words=_tensor(read.words, np.float32, device))
+
+
+def dnc_state_from_jax(state, *, device="cuda"):
+    """JAX `dnc.DNCState` -> the port's, field for field: the dense DNC's
+    (B, N, W) memory, f32 usage and (B, N, N) link, or the SDNC's
+    scratch-row memory, int32 usage table, sparse read, precedence and
+    N_t/P_t, with its LSH index where there is one (`ann_from_jax`).
+    Raises on a memory that is not f32 (the port's SDNC takes f32 rows)."""
+    from repro_torch.core.dnc import DNCState, SparseMat, SparseVec
+    memory = memory_from_jax(state.memory, device=device)
+    if memory.dtype != torch.float32:
+        raise ValueError(f"a {memory.dtype} DNC memory: the port's DNC and "
+                         f"SDNC take f32 rows")
+    sparse = state.n_mat is not None
+
+    def f32(x):
+        return _tensor(x, np.float32, device)
+
+    def i32(x):
+        return _tensor(x, np.int32, device)
+
+    def mat(m):
+        return SparseMat(cols=i32(m.cols), vals=f32(m.vals))
+
+    return DNCState(
+        memory=memory, usage=(i32 if sparse else f32)(state.usage),
+        read_w=f32(state.read_w),
+        read=None if state.read is None else _read_from_jax(state.read,
+                                                            device),
+        read_words=f32(state.read_words), write_w=f32(state.write_w),
+        write_idx=i32(state.write_idx), prec=f32(state.prec),
+        prec_sp=(None if state.prec_sp is None else
+                 SparseVec(idx=i32(state.prec_sp.idx),
+                           val=f32(state.prec_sp.val))),
+        link=f32(state.link),
+        n_mat=mat(state.n_mat) if sparse else None,
+        p_mat=mat(state.p_mat) if sparse else None,
+        ctrl=LSTMState(h=f32(state.ctrl.h), c=f32(state.ctrl.c)),
+        step=i32(state.step),
+        ann=(None if state.ann is None
+             else ann_from_jax(state.ann, device=device)))
 
 
 def opt_state_from_jax(state, *, device="cuda") -> RMSPropState:

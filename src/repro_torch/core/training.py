@@ -1,11 +1,12 @@
-"""Training harness for the copy task (paper §4.2/§4.3), the port of
-`repro/core/training.py` (`ModelSpec`, `build_model`, `bits_loss`,
-`bits_error`, `make_task_train_step`, `train_task`) for the kinds ``sam``
-(exact read) and ``sam_ann`` (the LSH read), which train through the
-sparse-rollback engine by default (`core/unroll.py`), and the dense
-baselines ``dam``, ``ntm`` and ``lstm`` (`core/dense.py`), which train by
-a plain loop under autograd: RMSProp (paper Suppl. C) on sigmoid
-cross-entropy over the output bits.
+"""Training harness for the paper's synthetic tasks (§4.2/§4.3: copy,
+associative recall, priority sort), the port of `repro/core/training.py`
+(`ModelSpec`, `build_model`, `bits_loss`, `bits_error`,
+`make_task_train_step`, `train_task`) for the kinds ``sam`` (exact read),
+``sam_ann`` (the LSH read) and ``sdnc`` (the sparse DNC), which train
+through the sparse-rollback engine by default (`core/unroll.py`), and the
+dense baselines ``dam``, ``ntm``, ``lstm`` (`core/dense.py`) and ``dnc``
+(`core/dnc.py`), which train by a plain loop under autograd: RMSProp
+(paper Suppl. C) on sigmoid cross-entropy over the output bits.
 """
 from __future__ import annotations
 
@@ -19,25 +20,30 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.core import dense as dense_lib
+from repro_torch.core import dnc as dnc_lib
 from repro_torch.core import unroll as unroll_lib
-from repro_torch.core.cell import SAMCell
+from repro_torch.core.cell import SAMCell, SDNCCell
 from repro_torch.core.sam import SAMConfig
 from repro_torch.core.types import (DTYPE_TRAINING_ITEM, ControllerConfig,
                                     MemoryConfig)
 from repro_torch.data.curriculum import Curriculum
-from repro_torch.data.tasks import copy_task
+from repro_torch.data.tasks import (associative_recall_task, copy_task,
+                                    priority_sort_task)
 from repro_torch.optim import optimizers as opt
 
-TASKS = {"copy": copy_task}
+TASKS = {"copy": copy_task, "associative_recall": associative_recall_task,
+         "priority_sort": priority_sort_task}
+KINDS = ("sam", "sam_ann", "sdnc", "dam", "ntm", "dnc", "lstm")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
-    kind: str                     # sam | sam_ann | dam | ntm | lstm (ported)
+    kind: str                     # sam | sam_ann | sdnc | dam | ntm | dnc | lstm
     memory: MemoryConfig
     controller: ControllerConfig
-    # SAM kinds: train through the sparse-rollback engine (False -> the
-    # naive loop). The dense kinds always run the plain loop.
+    # Sparse cells (sam, sam_ann, sdnc): train through the sparse-rollback
+    # engine (False -> the naive loop). The dense kinds always run the
+    # plain loop.
     sparse_bptt: bool = True
     # Segment length C for the chunked engine: None -> whole-sequence
     # sparse, an int or "auto" -> chunked with O(T/C·state + C·K·W)
@@ -48,17 +54,14 @@ class ModelSpec:
 def build_model(spec: ModelSpec, *, device="cuda"):
     """Returns (init_params(generator), init_state(batch),
     unroll(params, state, xs)). Kinds ``sam`` and ``sam_ann`` (the SAM cell
-    with ``ann="lsh"``) train through the sparse-rollback engine behind
-    `SAMCell`; ``dam`` and ``ntm`` unroll `dense.dense_unroll` and
-    ``lstm`` the bare controller, whose state is the batch size, all in a
-    plain loop. ``dnc`` and ``sdnc`` raise (ROADMAP A7b), and so does any
-    other kind and a bf16 or int8 memory (``mem_dtype``), which runs
-    forward only."""
-    if spec.kind in ("dnc", "sdnc"):
-        raise ValueError(f"model kind {spec.kind!r}: the DNC and the sparse "
-                         f"DNC are not ported yet: ROADMAP.md A7b "
-                         f"(core/dnc.py, SDNCCell)")
-    if spec.kind not in ("sam", "sam_ann", "dam", "ntm", "lstm"):
+    with ``ann="lsh"``) and ``sdnc`` (the sparse DNC, exact or LSH as
+    ``memory.ann`` says) train through the sparse-rollback engine behind
+    `SAMCell` and `SDNCCell`; ``dam`` and ``ntm`` unroll
+    `dense.dense_unroll`, ``dnc`` `dnc.dnc_unroll` and ``lstm`` the bare
+    controller, whose state is the batch size, all in a plain loop. Any
+    other kind raises, and so does a bf16 or int8 memory
+    (``mem_dtype``), which runs forward only."""
+    if spec.kind not in KINDS:
         raise ValueError(f"unknown model kind {spec.kind!r}")
     if spec.memory.mem_dtype != "float32":
         raise ValueError(f"build_model with mem_dtype="
@@ -71,15 +74,25 @@ def build_model(spec: ModelSpec, *, device="cuda"):
                 functools.partial(dense_lib.init_state, cfg=cfg,
                                   device=device),
                 lambda p, s, xs: dense_lib.dense_unroll(p, cfg, s, xs))
+    if spec.kind == "dnc":
+        cfg = dnc_lib.DNCConfig(spec.memory, spec.controller, sparse=False)
+        return (functools.partial(dnc_lib.init_params, cfg=cfg,
+                                  device=device),
+                functools.partial(dnc_lib.init_state, cfg=cfg, device=device),
+                lambda p, s, xs: dnc_lib.dnc_unroll(p, cfg, s, xs))
     if spec.kind == "lstm":
         return (functools.partial(dense_lib.lstm_baseline_init,
                                   cfg=spec.controller, device=device),
                 lambda batch: batch,
                 lambda p, batch, xs: dense_lib.lstm_baseline_unroll(
                     p, spec.controller, batch, xs))
-    mem = dataclasses.replace(
-        spec.memory, ann="lsh" if spec.kind == "sam_ann" else "exact")
-    cell = SAMCell(SAMConfig(mem, spec.controller))
+    if spec.kind == "sdnc":
+        cell = SDNCCell(dnc_lib.DNCConfig(spec.memory, spec.controller,
+                                          sparse=True))
+    else:
+        mem = dataclasses.replace(
+            spec.memory, ann="lsh" if spec.kind == "sam_ann" else "exact")
+        cell = SAMCell(SAMConfig(mem, spec.controller))
     if not spec.sparse_bptt:
         mode, chunk = "naive", None
     elif spec.bptt_chunk is None:

@@ -17,18 +17,21 @@ Three modes, as in the JAX package:
     segment, so the accounting is that of the JAX engine:
     ceil(T/C)·state + C·res.
 
-The memory is updated **in place**: the returned state's ``memory`` and
-``last_access`` are the tensors of ``state0``. The sparse and chunked
-backwards leave the memory as it was before the unroll, bit for bit (the
-usage table is left stale: the backward never reads it), and need the
-memory to hold the unroll's final memory when they start. After such a
+A cell's dense buffers are updated **in place** (``cell.dense_buffers``:
+SAM's memory and usage table, the SDNC's memory, usage table and N_t,
+P_t): the returned state holds the tensors of ``state0``. The sparse and
+chunked backwards leave them as they were before the unroll, bit for bit
+(the usage table is left stale: the backward never reads it), and need
+them to hold the unroll's final buffers when they start. After such a
 backward, neither ``state0`` nor the returned state is a valid state any
 more (the memory is M₀, the usage table that of step T): the backward
 flags the memory (`types.mark_rolled_back`) and a later step from either
-raises. Gradients reach the parameters,
-xs and the float leaves of ``state0``; the memory's gradient is one dense
-cotangent buffer that the whole backward updates in place (`core/cell.py`),
-and the backward launches no O(N) kernel outside the chunked recompute.
+raises. Gradients reach the parameters, xs and the float leaves of
+``state0``: every small one (the float leaves outside the dense buffers)
+is differentiated again at each replayed step, and each buffer of
+``cell.cotangent_buffers`` has one dense cotangent that the whole
+backward updates in place (`core/cell.py`). The backward launches no O(N)
+kernel outside the chunked recompute.
 """
 from __future__ import annotations
 
@@ -58,17 +61,48 @@ def _join(tensors, template):
         [next(it) if m else t for m, t in zip(is_tensor, rest)], spec)
 
 
-def _small_floats(state) -> list:
-    """The float leaves of a state other than its memory, in order."""
-    return [t for t in _split(state._replace(memory=None))[0]
-            if t.is_floating_point()]
+def _get(state, path: str):
+    """The leaf of ``state`` at a dotted field path ("n_mat.vals")."""
+    for name in path.split("."):
+        state = getattr(state, name)
+    return state
 
 
-def _with_small_floats(state, floats):
-    tensors, template = _split(state._replace(memory=None))
+def _put(state, path: str, value):
+    """``state`` with the leaf at a dotted field path replaced."""
+    head, _, rest = path.partition(".")
+    return state._replace(**{head: _put(getattr(state, head), rest, value)
+                             if rest else value})
+
+
+def _put_all(state, paths, values):
+    for path, value in zip(paths, values):
+        state = _put(state, path, value)
+    return state
+
+
+def _buffers(cell, state) -> list:
+    return [_get(state, p) for p in cell.dense_buffers]
+
+
+def _bare(cell, state):
+    """``state`` without its dense buffers (None in their place)."""
+    return _put_all(state, cell.dense_buffers,
+                    [None] * len(cell.dense_buffers))
+
+
+def _small_floats(cell, state) -> list:
+    """The float leaves of a state outside the cell's dense buffers, in
+    order."""
+    return [t for t in _split(_bare(cell, state))[0] if t.is_floating_point()]
+
+
+def _with_small_floats(cell, state, floats):
+    tensors, template = _split(_bare(cell, state))
     it = iter(floats)
     tensors = [next(it) if t.is_floating_point() else t for t in tensors]
-    return _join(tensors, template)._replace(memory=state.memory)
+    return _put_all(_join(tensors, template), cell.dense_buffers,
+                    _buffers(cell, state))
 
 
 def unroll_naive(cell, params, state, xs):
@@ -94,25 +128,27 @@ def _collect(cell, params, state, xs):
     return state, torch.stack(ys), res
 
 
-def _segment_bwd(cell, params, state, res, xs, cts, ct_ys, mem_ct, g_params,
+def _segment_bwd(cell, params, state, res, xs, cts, ct_ys, buf_cts, g_params,
                  g_xs):
     """Roll one segment back, step by step from its end. ``params`` require
     grad; each step adds its gradients into the ``g_params`` leaves and
-    writes ``g_xs[t]``, and updates ``mem_ct`` in place. ``cts`` are the
-    cotangents of the end state's small float leaves. Returns (the
-    segment's start state, the cotangents of its small float leaves)."""
+    writes ``g_xs[t]``, and updates the buffers' cotangents ``buf_cts`` in
+    place. ``cts`` are the cotangents of the end state's small float
+    leaves. Returns (the segment's start state, the cotangents of its
+    small float leaves)."""
     p_leaves = pytree.tree_leaves(params)
     for t in reversed(range(len(xs))):
         prev_small, deltas = res[t]
         state = cell.rollback(state, prev_small, deltas)
         with torch.enable_grad():
             diff = [leaf.detach().requires_grad_()
-                    for leaf in _small_floats(state)]
+                    for leaf in _small_floats(cell, state)]
             x = xs[t].detach().requires_grad_()
-            ns, y = cell.replay_step(params, _with_small_floats(state, diff),
-                                     x, deltas, mem_ct)
+            ns, y = cell.replay_step(params,
+                                     _with_small_floats(cell, state, diff),
+                                     x, deltas, buf_cts)
             inputs = [*p_leaves, *diff, x]
-            grads = torch.autograd.grad([*_small_floats(ns), y], inputs,
+            grads = torch.autograd.grad([*_small_floats(cell, ns), y], inputs,
                                         [*cts, ct_ys[t]], allow_unused=True)
         # The replay wrote this step's rows again: roll them back once more.
         state = cell.rollback(state, prev_small, deltas)
@@ -129,8 +165,8 @@ class _RollbackUnroll(torch.autograd.Function):
     """The sparse (``chunk=None``) and chunked unrolls as one autograd node.
     Inputs: the cell, the chunk, the parameter and state templates, xs,
     then the parameters' and the state's tensor leaves. Outputs: ys, then
-    the final state's tensor leaves, of which the memory and the usage
-    table are the input tensors, updated in place."""
+    the final state's tensor leaves, of which the cell's dense buffers
+    are the input tensors, updated in place."""
 
     @staticmethod
     def forward(ctx, cell, chunk, p_template, s_template, xs, *leaves):
@@ -145,13 +181,12 @@ class _RollbackUnroll(torch.autograd.Function):
             ctx.bounds = list(range(0, T, chunk)) + [T]
             ctx.checkpoints, ys = [], []
             for lo, hi in zip(ctx.bounds, ctx.bounds[1:]):
-                # The memory and the usage table are updated in place, so
-                # they are copied; an LSH index is new each step
-                # (`ann.ann_insert`), so the reference holds the segment
-                # start's index.
-                ctx.checkpoints.append(state._replace(
-                    memory=state.memory.clone(),
-                    last_access=state.last_access.clone()))
+                # The dense buffers are updated in place, so they are
+                # copied; an LSH index is new each step (`ann.ann_insert`),
+                # so the reference holds the segment start's index.
+                ctx.checkpoints.append(_put_all(
+                    state, cell.dense_buffers,
+                    [b.clone() for b in _buffers(cell, state)]))
                 for x in xs[lo:hi]:
                     state, y = cell.step(params, state, x)
                     ys.append(y)
@@ -159,7 +194,7 @@ class _RollbackUnroll(torch.autograd.Function):
         out, ctx.out_template = _split(state)
         ctx.cell, ctx.chunk, ctx.s_template = cell, chunk, s_template
         ctx.params, ctx.xs, ctx.ys_shape = params, xs, ys.shape
-        ctx.mark_dirty(state.memory, state.last_access)
+        ctx.mark_dirty(*_buffers(cell, state))
         # The caller's memory tensor, to flag once the backward rolls it
         # back (a saved output unpacks as another tensor object).
         ctx.memory_ref = weakref.ref(state.memory)
@@ -179,13 +214,20 @@ class _RollbackUnroll(torch.autograd.Function):
         params = pytree.tree_unflatten(
             [p.detach().requires_grad_() for p in flat_p], p_spec)
         g_params = [torch.zeros_like(p) for p in flat_p]
-        grad_of = {id(t): g for t, g in zip(outs, g_out)}
-        g_mem = grad_of[id(state.memory)]
-        # The one dense memory cotangent of the whole backward.
-        mem_ct = (torch.zeros_like(state.memory) if g_mem is None
-                  else g_mem.clone())
-        cts = [torch.zeros_like(t) if grad_of[id(t)] is None else grad_of[id(t)]
-               for t in _small_floats(state)]
+        # The incoming cotangents by place among the state's tensor leaves
+        # (not by tensor: a state may hold one tensor twice, as the SDNC's
+        # read.words and read_words), zeros where none came.
+        place = _join(range(len(outs)), ctx.out_template)
+        bufs = {_get(place, p): p for p in cell.dense_buffers}
+
+        # The one dense cotangent of each such buffer, for the whole
+        # backward, and those of the small floats (`_small_floats` order).
+        buf_cts = tuple(
+            torch.zeros_like(outs[i]) if g_out[i] is None else g_out[i].clone()
+            for i in (_get(place, p) for p in cell.cotangent_buffers))
+        cts = [torch.zeros_like(t) if g_out[i] is None else g_out[i]
+               for i, t in enumerate(outs)
+               if t.is_floating_point() and i not in bufs]
         if g_ys is None:
             g_ys = xs.new_zeros(ctx.ys_shape)
         g_xs = torch.zeros_like(xs)
@@ -196,21 +238,24 @@ class _RollbackUnroll(torch.autograd.Function):
                 res = ctx.res
             else:
                 start = ctx.checkpoints[s]
-                state.memory.copy_(start.memory)
-                state.last_access.copy_(start.last_access)
+                live = _buffers(cell, state)
+                for b, b0 in zip(live, _buffers(cell, start)):
+                    b.copy_(b0)
                 state, _, res = _collect(
-                    cell, params, start._replace(
-                        memory=state.memory, last_access=state.last_access),
+                    cell, params, _put_all(start, cell.dense_buffers, live),
                     xs[lo:hi])
             state, cts = _segment_bwd(cell, params, state, res, xs[lo:hi],
-                                      cts, g_ys[lo:hi], mem_ct, g_params,
+                                      cts, g_ys[lo:hi], buf_cts, g_params,
                                       g_xs[lo:hi])
         ctx.res = ctx.checkpoints = None
         memory = ctx.memory_ref()
         if memory is not None:
             mark_rolled_back(memory)
-        g_s0, _ = _split(_with_small_floats(state._replace(memory=mem_ct),
-                                            cts))
+        # The gradient of state0: the small floats' and the cotangent
+        # buffers', None for the other (integer) buffers.
+        grads = _put_all(_with_small_floats(cell, state, cts),
+                         cell.cotangent_buffers, buf_cts)
+        g_s0, _ = _split(grads)
         return (None, None, None, None, g_xs, *g_params,
                 *[g if g.is_floating_point() else None for g in g_s0])
 
@@ -242,11 +287,11 @@ def unroll(cell, params, state0, xs, *, mode: str = "sparse", chunk=None):
                     O(T/C·state + C·K·W) residuals. `chunk` is the segment
                     length C (None/"auto" → the √-rule `suggest_chunk`).
 
-    The memory is updated in place. After the backward of a "sparse" or
-    "chunked" unroll it holds ``state0``'s memory again while the usage
-    table keeps step T's: the returned state (and ``state0``) can be read
-    but not stepped from; `sam_step` raises (module docstring). A bf16 or
-    int8 memory raises: those rows run forward only
+    The cell's dense buffers are updated in place. After the backward of a
+    "sparse" or "chunked" unroll they hold ``state0``'s again while the
+    usage table keeps step T's: the returned state (and ``state0``) can
+    be read but not stepped from; the cell's step raises (module
+    docstring). A bf16 or int8 memory raises: those rows run forward only
     (`types.DTYPE_TRAINING_ITEM`).
     """
     require_f32_rows(state0.memory, getattr(state0, "mem_scale", None),
@@ -272,9 +317,10 @@ def residual_accounting(cell, params, state0, xs, *, mode: str,
       * sparse:  state + T · res
       * chunked: ceil(T/C) · state + C · res
 
-    The port's sparse mode keeps no copy of the final state (the memory is
-    rolled back in place), and its backward adds one dense memory
-    cotangent, which this count leaves out as the JAX one does."""
+    The port's sparse mode keeps no copy of the final state (the buffers
+    are rolled back in place), and its backward adds one dense cotangent
+    per `cotangent_buffers` entry, which this count leaves out as the JAX
+    one does."""
     T = xs.shape[0]
     sb = tree_bytes(state0)
     rb = cell.step_residual_bytes(state0)

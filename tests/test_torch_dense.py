@@ -24,6 +24,8 @@ row outright.
 """
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -344,17 +346,21 @@ def test_three_train_steps_match_jax(kind):
 
 
 def test_build_model_refuses_dnc_sdnc_and_other_rows():
+    """The DNC and the SDNC build (a plain loop; the rollback engine), and
+    refuse bf16 rows like every kind; an unknown kind raises."""
     _, cfg = _configs("dam", 64)
     for kind in ("dnc", "sdnc"):
-        with pytest.raises(ValueError, match="ROADMAP.md A7b"):
-            training.build_model(training.ModelSpec(kind, cfg.memory,
-                                                    cfg.controller))
+        init_p, init_s, unroll = training.build_model(
+            training.ModelSpec(kind, cfg.memory, cfg.controller),
+            device="cpu")
+        assert isinstance(unroll, functools.partial) == (kind == "sdnc")
+        assert init_s(2).memory.shape[1] == 64 + (kind == "sdnc")
     with pytest.raises(ValueError, match="unknown model kind"):
         training.build_model(training.ModelSpec("gru", cfg.memory,
                                                 cfg.controller))
     bf16 = MemoryConfig(num_slots=64, word_size=W, num_heads=H,
                         mem_dtype="bfloat16")
-    for kind in ("dam", "ntm", "lstm"):
+    for kind in ("dam", "ntm", "dnc", "sdnc", "lstm"):
         with pytest.raises(ValueError, match="ROADMAP.md A6b"):
             training.build_model(training.ModelSpec(kind, bf16,
                                                     cfg.controller))

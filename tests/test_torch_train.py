@@ -547,14 +547,13 @@ def test_curriculum_copy_matches_jax():
 
 def test_build_model_sends_sam_to_the_rollback_engine_and_refuses_others():
     mem, ctl = CFG.memory, CFG.controller
-    for kind in ("dnc", "sdnc"):
-        with pytest.raises(ValueError, match="not ported yet: ROADMAP.md A7b"):
-            training.build_model(training.ModelSpec(kind, mem, ctl))
-    for kind in ("dam", "ntm", "lstm"):             # plain loops, no engine
+    with pytest.raises(ValueError, match="unknown model kind"):
+        training.build_model(training.ModelSpec("gru", mem, ctl))
+    for kind in ("dam", "ntm", "dnc", "lstm"):      # plain loops, no engine
         assert not isinstance(training.build_model(
             training.ModelSpec(kind, mem, ctl), device="cpu")[2],
             functools.partial)
-    for kind in ("sam", "sam_ann"):
+    for kind in ("sam", "sam_ann", "sdnc"):
         modes = [training.build_model(training.ModelSpec(kind, mem, ctl, **kw),
                                       device="cpu")[2].keywords
                  for kw in ({}, {"bptt_chunk": 4}, {"sparse_bptt": False})]
