@@ -18,8 +18,9 @@ memory states and the static `serve`), whose attention is the
 by slots over 4 processes (`repro_torch.distributed.mem_shard`), whose
 ranks sweep their blocks with the `topk_read` kernel; then the sparse DNC
 (exact and LSH) forward and in training on associative recall, and the
-paper's Fig. 7 against the dense DNC. It fails (nonzero exit) if any
-phase fails:
+paper's Fig. 7 against the dense DNC; last the LM served through the
+continuous-batching engine with per-user memory sessions. It fails
+(nonzero exit) if any phase fails:
 
 1. build the kernels from `src/repro_torch/kernels/csrc/` with nvcc for
    sm_90a and print each kernel's registers, shared memory and spills
@@ -209,13 +210,38 @@ phase fails:
       (`dnc_bytes`), with the SDNC's speed-up;
    f. the rollouts' host ms per step (median of five), device ms per step
       (`torch.profiler`) and peaks;
-12. print the empty-launch floor with each latency-bound kernel's time
+12. the continuous-batching serving engine (`repro_torch.launch.engine`)
+   at StarCoder2-7B's full width on phase 9's weights: 4 lanes, a cache
+   of 128, two hot sessions and the rest spilled to disk:
+   a. an open-loop Poisson workload (12 requests at 1 a second, prompts
+      of 16-32 tokens, 16 new tokens, a quarter revisiting earlier users,
+      4 sampled, each submitted at its arrival), timed: tok/s, time to
+      first token and end to end (p50, p99), engine steps, host ms an
+      engine step, spills and restores with their ms, lane-to-host and
+      host-to-lane ms, peak memory; then the device's busy share over 8
+      steps of 4 decoding lanes (`torch.profiler`);
+   b. the same requests first, all submitted at once, with every kernel
+      launch of the first three steps after each restore and of every
+      16th step held against its plain version (the timed run's tokens
+      must equal this run's, request by request, whatever lanes and
+      neighbours they had); in both, the counters set to 0 before each
+      `step()` and read after: 8 reads, writes and LRAs an engine step
+      and nothing else;
+   c. determinism: user u (sampled, a 4-token prompt) 8 tokens
+      uninterrupted against 4 + 4 across two engines that share a store
+      of one hot session, u spilled to disk between them, with other
+      neighbours and lanes: tokens, memory states, cache, position and
+      counter bit for bit; then a live `rescale` 4 -> 2 -> 4 lanes
+      against an uninterrupted run, reported (bit-exact or not, where u's
+      logits first differ, and which products of a decode step give
+      other bits for two lanes than for the same two rows of four);
+13. print the empty-launch floor with each latency-bound kernel's time
    above it (`lra_topn`, the scatter, the write at step 21 on f32, bf16
    and int8 rows and at the LM's shapes, the candidate read on f32, bf16
    and int8 rows, the hash of the written rows and of the queries), the
    card, one JSON line of per-kernel numbers (the LM's
    under ``"lm"``, the sharded memory's under ``"mesh"``, the DNC's under
-   ``"dnc"``), and last the
+   ``"dnc"``, the engine's under ``"engine"``), and last the
    ``{"ok": true, ...}`` line.
 
 Tolerances: integer outputs exact; forward floats within 1e-5 of
@@ -376,6 +402,21 @@ SDNC_LSH_STEP = {"lra_topn": 1, "scatter_rows": 2, "lsh_hash": 2,
 SDNC_BWD_SCATTERS = 13
 SDNC_CHUNK = 14
 FLAT_NS = (1 << 16, 1 << 18, 1 << 20)
+# Phase 12, the serving engine at the LM's full width on phase 9's weights:
+# ENGINE_LANES lanes, a cache of ENGINE_MAX_LEN, ENGINE_CAPACITY hot
+# sessions (a session's memory: 8 × (65536 + 1) × 128 f32 rows, 256 MiB),
+# the rest spilled to a temporary directory; an open-loop Poisson workload
+# (`benchmarks/bench_serve.py::make_workload`'s): ENGINE_REQUESTS requests
+# at ENGINE_RATE a second, prompts of ENGINE_PROMPT tokens, ENGINE_GEN new
+# tokens, the trailing ENGINE_REVISIT of them revisiting earlier users,
+# ENGINE_SAMPLED of them sampled. Lockstep on the first
+# ENGINE_AFTER_RESTORE steps after each restore and every
+# ENGINE_LOCKSTEP_EVERY-th step; the busy share over ENGINE_BUSY_STEPS.
+ENGINE_LANES, ENGINE_MAX_LEN, ENGINE_CAPACITY = 4, 128, 2
+ENGINE_REQUESTS, ENGINE_RATE, ENGINE_SEED = 12, 1.0, 12
+ENGINE_PROMPT, ENGINE_GEN, ENGINE_REVISIT, ENGINE_SAMPLED = (16, 32), 16, \
+    0.25, 4
+ENGINE_AFTER_RESTORE, ENGINE_LOCKSTEP_EVERY, ENGINE_BUSY_STEPS = 3, 16, 8
 # Fig. 7 (`benchmarks/bench_sdnc.py`): B = 2, R = 2, K = 4, W = 32,
 # hidden 64, T = 10; the dense DNC only where its reckoning fits.
 FIG7_B, FIG7_T = 2, 10
@@ -1496,7 +1537,8 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
     else:
         print("[time] the decode on the device: not measured (the "
               "profiler recorded no device time)")
-    del params, cache, mem, state, toks, logits, d_logits
+    # The weights stay for phase 12's engine.
+    del cache, mem, state, toks, logits, d_logits
     torch.cuda.empty_cache()
 
     # The static serving driver, once (it runs no memory op and, decoding
@@ -1522,7 +1564,432 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
     return {"row": flash_f32, "launches": launched,
             "err": out["flash_f32_max_err"],
             "bf16_err": out["flash_bf16_max_err"],
-            "bf16_launches": m.every_n_layers, "lm": out}
+            "bf16_launches": m.every_n_layers, "lm": out, "params": params}
+
+
+def engine_workload(vocab: int):
+    """The open-loop workload of phase 12, built as
+    `benchmarks/bench_serve.py::make_workload` builds it: Poisson arrivals
+    at ENGINE_RATE, the trailing ENGINE_REVISIT of the requests revisiting
+    earlier users round-robin; prompts of ENGINE_PROMPT tokens, ENGINE_GEN
+    new tokens, ENGINE_SAMPLED requests sampled. [(arrival s, Request
+    keywords)]."""
+    import numpy as np
+
+    rng = np.random.default_rng(ENGINE_SEED)
+    n = ENGINE_REQUESTS
+    arrivals = np.cumsum(rng.exponential(1.0 / ENGINE_RATE, n))
+    n_fresh = max(1, int(round(n * (1.0 - ENGINE_REVISIT))))
+    sampled = set(rng.choice(n, ENGINE_SAMPLED, replace=False).tolist())
+    out = []
+    for i, t in enumerate(arrivals):
+        plen = int(rng.integers(ENGINE_PROMPT[0], ENGINE_PROMPT[1] + 1))
+        out.append((float(t), dict(
+            user=f"user{i if i < n_fresh else (i - n_fresh) % n_fresh}",
+            prompt=rng.integers(1, vocab, plen).tolist(),
+            max_new_tokens=ENGINE_GEN, greedy=i not in sampled,
+            sample_seed=i)))
+    return out
+
+
+class Lockstep:
+    """Holds the engine's kernel launches against their plain versions on
+    chosen steps only: `Intercept` with a checker, entered by `start(n)`
+    for the next n `step()` calls (the call under way counting, where a
+    restore starts it from inside `step()`)."""
+
+    def __init__(self, ops, checker):
+        self.intercept = Intercept(ops, checker=checker)
+        self.left, self.steps, self.next = 0, 0, 0
+
+    def every(self, step: int, period: int) -> None:
+        """Start for one call at the first call that reaches each multiple
+        of ``period`` engine steps (a prefill hop runs several)."""
+        if step >= self.next:
+            self.start(1)
+            self.next = step - step % period + period
+
+    def start(self, n: int) -> None:
+        if self.left == 0:
+            self.intercept.__enter__()
+        self.left = max(self.left, n)
+
+    def stepped(self) -> None:
+        if self.left:
+            self.steps += 1
+            self.left -= 1
+            if self.left == 0:
+                self.intercept.__exit__(None, None, None)
+
+    def close(self) -> None:
+        if self.left:
+            self.left = 0
+            self.intercept.__exit__(None, None, None)
+
+
+def spy(obj, name, times, pre=None):
+    """Wrap method ``name`` of ``obj`` (the instance only): its host ms
+    go to ``times``; ``pre`` runs before it."""
+    fn = getattr(obj, name)
+
+    def timed(*args):
+        if pre:
+            pre()
+        t0 = time.perf_counter()
+        result = fn(*args)
+        times.append((time.perf_counter() - t0) * 1e3)
+        return result
+    setattr(obj, name, timed)
+
+
+def rows_depend_on_m(params, cfg, dev) -> list:
+    """The products of one 4-lane decode step (`torch.einsum` calls, with
+    their dtypes) whose first two batch rows change when computed for
+    those two rows alone: what makes a step's bits depend on the lane
+    count."""
+    from repro_torch.models import lm
+
+    seen, einsum = [], torch.einsum
+
+    def record(spec, *ops):
+        out = einsum(spec, *ops)
+        seen.append((spec, ops, out))
+        return out
+
+    cache = lm.init_cache(cfg, 4, ENGINE_MAX_LEN, per_lane_pos=True,
+                          device=dev)
+    mem = lm.init_memory_states(cfg, 4, per_lane_step=True, device=dev)
+    toks = torch.randint(1, cfg.vocab_size, (4, 1), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3))
+    torch.einsum = record
+    try:
+        lm.decode_step(params, cfg, cache, toks, mem_states=mem)
+    finally:
+        torch.einsum = einsum
+    differ = set()
+    with torch.inference_mode():
+        for spec, ops, out in seen:
+            subs = spec.split("->")[0].split(",")
+            two = [o[:2] if sub.startswith("b") else o
+                   for sub, o in zip(subs, ops)]
+            if not torch.equal(einsum(spec, *two), out[:2]):
+                dtypes = ", ".join(str(o.dtype)[6:] for o in ops)
+                differ.add(f"{spec} ({dtypes})")
+    return sorted(differ)
+
+
+def engine_phase(dev, ops, ref, checker, zero_counts, counts, params):
+    """Phase 12: the continuous-batching serving engine at StarCoder2-7B's
+    full width on phase 9's weights. Returns its numbers."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import Request, ServeEngine, SessionStore
+
+    cfg = get_config(LM_ARCH)
+    m = cfg.memory
+    groups = cfg.num_layers // m.every_n_layers
+    session_bytes = groups * (m.num_slots + 1) * (m.word_size * 4 + 4)
+    workload = engine_workload(cfg.vocab_size)
+    out = {"session_memory_bytes": session_bytes}
+
+    def engine(tmp, lanes=ENGINE_LANES, capacity=ENGINE_CAPACITY,
+               store=None, **kw):
+        if store is None:
+            store = SessionStore(num_slots=m.num_slots, capacity=capacity,
+                                 spill_dir=tmp)
+        return ServeEngine(cfg, lanes=lanes, max_len=ENGINE_MAX_LEN,
+                           params=params, device=dev, session_store=store,
+                           **kw)
+
+    def checked_step(eng, lock=None):
+        """One `step()` with the counters set to 0 just before it and read
+        just after: 8 launches of each memory kernel an engine step (a
+        prefill hop advances several) and nothing else."""
+        before = eng.steps
+        if lock is not None:
+            lock.every(before, ENGINE_LOCKSTEP_EVERY)
+        zero_counts()
+        t0 = time.perf_counter()
+        done = eng.step()
+        ms = (time.perf_counter() - t0) * 1e3
+        launched = counts()
+        if lock is not None:
+            lock.stepped()
+        n = eng.steps - before
+        want = {name: 0 for name in launched}
+        want.update({name: groups * n for name in FORWARD})
+        require(launched == want, f"engine step {before}: launches "
+                f"{ {k: v for k, v in launched.items() if v} }, expected "
+                f"{ {k: v for k, v in want.items() if v} }")
+        return done, ms, n
+
+    def serve(eng, lock=None, open_loop=True):
+        """Serve the workload: open-loop, each request submitted at its
+        arrival, or all at once in arrival order; the engine stepped while
+        it has work."""
+        pending, results, steps = list(workload), [], []
+        t0 = time.time() - (0 if open_loop else pending[-1][0])
+        while pending or eng.scheduler.has_work:
+            now = time.time() - t0
+            while pending and pending[0][0] <= now:
+                t_arr, kw = pending.pop(0)
+                eng.submit(Request(arrival=t0 + t_arr, **kw))
+            if not eng.scheduler.has_work:
+                time.sleep(max(0.0, pending[0][0] - now))
+                continue
+            done, ms, n = checked_step(eng, lock)
+            results.extend(done)
+            steps.append((ms, n))
+        return results, time.time() - t0, steps
+
+    def tokens_by_id(results):
+        require(len(results) == len(workload) and all(
+            len(r["tokens"]) == ENGINE_GEN
+            and all(0 <= t < cfg.vocab_size for t in r["tokens"])
+            for r in results), "engine: requests dropped, or tokens out of "
+            "count or range")
+        return {r["id"]: r["tokens"] for r in results}
+
+    def warm(eng):
+        """One throwaway request first (as the bench does), in both runs,
+        so that request ids match."""
+        eng.run([Request(user="warmup", prompt=[1, 2], max_new_tokens=2)])
+        eng.sessions.take("warmup")
+
+    # (b) the workload, all requests at once, with the kernels in lockstep
+    # on the first three steps after each restore and on every 16th step.
+    with tempfile.TemporaryDirectory() as tmp:
+        eng = engine(tmp)
+        warm(eng)
+        lock = Lockstep(ops, checker)
+        restore_ms = []
+        spy(eng, "_restore_lane", restore_ms,
+            pre=lambda: lock.start(ENGINE_AFTER_RESTORE))
+        try:
+            res1, _, steps1 = serve(eng, lock, open_loop=False)
+        finally:
+            lock.close()
+        tok1 = tokens_by_id(res1)
+        require(bool(torch.isfinite(eng.last_logits).all()),
+                "engine: logits not finite")
+        out.update(lockstep_steps=lock.steps, lockstep_restores=len(
+            restore_ms), lockstep_engine_steps=eng.steps)
+        torch.cuda.synchronize()
+        print(f"[engine] {ENGINE_REQUESTS} requests ({ENGINE_SAMPLED} "
+              f"sampled, {len({kw['user'] for _, kw in workload})} users) "
+              f"in {eng.steps} engine steps, {len(steps1)} step() calls at "
+              f"{groups} read, write and LRA launches an engine step and 0 "
+              f"attention; {lock.steps} calls in lockstep ({len(restore_ms)}"
+              f" restores): read err {checker.err['fused_read_sweep']:.3g}, "
+              f"write err {checker.err['sparse_write_update']:.3g}, LRA "
+              f"exact, near-ties {checker.near_ties}")
+        del eng
+
+    # (a) the same workload timed, no lockstep: the tokens of every request
+    # as in (b), whatever lanes and neighbours it had there.
+    with tempfile.TemporaryDirectory() as tmp:
+        eng = engine(tmp)
+        warm(eng)
+        evict_ms, insert_ms, spill_ms, disk_ms = [], [], [], []
+        spy(eng, "_evict_lane", evict_ms)
+        spy(eng, "_restore_lane", insert_ms)
+        store = eng.sessions
+        maybe_spill = store._maybe_spill
+
+        def timed_spill():
+            n, t0 = store.spills, time.perf_counter()
+            maybe_spill()
+            if store.spills > n:
+                spill_ms.append((time.perf_counter() - t0) * 1e3
+                                / (store.spills - n))
+        store._maybe_spill = timed_spill
+        spy(store, "_restore", disk_ms)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t_steps = eng.steps
+        res2, wall, steps2 = serve(eng)
+        peak = torch.cuda.max_memory_allocated() - held
+        require(tokens_by_id(res2) == tok1, "engine: the timed run's "
+                "tokens differ from the lockstep run's")
+        ttft = [r["first_token_time"] - r["arrival"] for r in res2]
+        e2e = [r["finish_time"] - r["arrival"] for r in res2]
+        per_step = sorted(ms / n for ms, n in steps2)
+        pct = lambda xs, q: float(np.percentile(np.asarray(xs) * 1e3, q))
+        out.update(
+            tok_per_s=len(res2) * ENGINE_GEN / wall, wall_s=wall,
+            engine_steps=eng.steps - t_steps, step_calls=len(steps2),
+            ttft_p50_ms=pct(ttft, 50), ttft_p99_ms=pct(ttft, 99),
+            e2e_p50_ms=pct(e2e, 50), e2e_p99_ms=pct(e2e, 99),
+            host_ms_per_step=per_step[len(per_step) // 2],
+            host_ms_per_step_p90=per_step[int(0.9 * (len(per_step) - 1))],
+            spills=store.spills, restores=store.restores,
+            spill_ms=spill_ms, restore_ms=disk_ms, evict_ms=evict_ms,
+            insert_ms=insert_ms, peak_bytes=peak, held_bytes=held)
+        med = lambda xs: sorted(xs)[len(xs) // 2] if xs else None
+        print(f"[engine] timed run: {out['tok_per_s']:.2f} tok/s "
+              f"({len(res2) * ENGINE_GEN} tokens in {wall:.2f} s); TTFT "
+              f"p50 {out['ttft_p50_ms']:.1f} ms, p99 "
+              f"{out['ttft_p99_ms']:.1f}; end to end p50 "
+              f"{out['e2e_p50_ms']:.1f}, p99 {out['e2e_p99_ms']:.1f}; "
+              f"{out['engine_steps']} engine steps in {len(steps2)} calls, "
+              f"host ms an engine step median {out['host_ms_per_step']:.2f}"
+              f", p90 {out['host_ms_per_step_p90']:.2f}; {store.spills} "
+              f"spills ({med(spill_ms) or 0:.1f} ms median), "
+              f"{store.restores} restores from disk "
+              f"({med(disk_ms) or 0:.1f} ms); lane to host "
+              f"{med(evict_ms) or 0:.1f} ms, host to lane "
+              f"{med(insert_ms) or 0:.1f} ms (a session's memory "
+              f"{session_bytes} B); peak {peak} B above the {held} B held;"
+              f" tokens equal to the lockstep run's")
+
+        # The device's busy share: four lanes decoding, a window of steps
+        # on the host clock, then the same window traced.
+        eng.run()
+        for i in range(ENGINE_LANES):
+            eng.submit(Request(user=f"busy{i}", prompt=[1 + i],
+                               max_new_tokens=4 * ENGINE_BUSY_STEPS))
+        eng.step()
+        busy_ms, busy_all = host_ms(lambda _: [
+            eng.step() for _ in range(ENGINE_BUSY_STEPS)], runs=1)
+        dev_ms, on_dev = device_time(lambda: [
+            eng.step() for _ in range(ENGINE_BUSY_STEPS)])
+        busy_ms /= ENGINE_BUSY_STEPS
+        dev_ms /= ENGINE_BUSY_STEPS
+        out.update(busy_host_ms_per_step=busy_ms,
+                   busy_device_ms_per_step=dev_ms or None,
+                   busy_share=(dev_ms / busy_ms) if dev_ms else None)
+        if dev_ms:
+            print(f"[engine] {ENGINE_LANES} lanes decoding: "
+                  f"{busy_ms:.2f} ms an engine step on the host, "
+                  f"{dev_ms:.3f} ms of kernels (torch.profiler, "
+                  f"{ENGINE_BUSY_STEPS} steps): busy {dev_ms / busy_ms:.1%};"
+                  f" by kernel (ms, launches a step): " + "; ".join(
+                      f"{k[:50]} {t / ENGINE_BUSY_STEPS:.3f} "
+                      f"({c / ENGINE_BUSY_STEPS:g})" for k, t, c in
+                      on_dev[:5]))
+        else:
+            print("[engine] the busy share: not measured (the profiler "
+                  "recorded no device time)")
+        del eng, store
+    torch.cuda.empty_cache()
+
+    # (c) determinism: user u (sampled) 8 tokens uninterrupted against 4 +
+    # 4 across two engines sharing a store of one hot session, u spilled to
+    # disk between them, other neighbours and lanes.
+    gen = np.random.default_rng(ENGINE_SEED + 1)
+    P = gen.integers(1, cfg.vocab_size, 4).tolist()
+    Pn, Po = (gen.integers(1, cfg.vocab_size, 4).tolist() for _ in range(2))
+
+    def u(prompt, n):
+        return Request(user="u", prompt=prompt, max_new_tokens=n,
+                       greedy=False, sample_seed=42)
+
+    def noise(n):
+        return Request(user="noise", prompt=Pn, max_new_tokens=n,
+                       greedy=False, sample_seed=7)
+
+    def user_tokens(results, user="u"):
+        return [r for r in results if r["user"] == user][0]["tokens"]
+
+    def session_diff(a, b):
+        """The first leaf of two sessions that is not bit-equal, or None."""
+        pairs = [("cache." + k, a["cache"][k], b["cache"][k])
+                 for k in ("k", "v")] + [("pos", a["pos"], b["pos"])]
+        pairs += [(f"mem.{g}.{f}", getattr(sa, f), getattr(sb, f))
+                  for g, (sa, sb) in enumerate(zip(a["mem"], b["mem"]))
+                  for f in sa._fields]
+        if int(a["counter"]) != int(b["counter"]):
+            return "counter"
+        for name, x, y in pairs:
+            if not torch.equal(x, y):
+                return (f"{name} (max abs diff "
+                        f"{(x.float() - y.float()).abs().max().item():.3g})")
+        return None
+
+    with tempfile.TemporaryDirectory() as tmp:
+        e1 = engine(tmp, lanes=3, capacity=None)
+        tok_full = user_tokens(e1.run([u(P, 8), noise(6)]))
+        sess_full = e1.sessions.take("u")
+        del e1
+        store = SessionStore(num_slots=m.num_slots, capacity=1,
+                             spill_dir=tmp)
+        a = engine(tmp, lanes=3, store=store)
+        first = user_tokens(a.run([u(P, 4), noise(8)]))
+        del a
+        require(store.spills == 1, f"u did not spill: {store.spills}")
+        b = engine(tmp, lanes=3, store=store)
+        b.submit(Request(user="other", prompt=Po, max_new_tokens=9,
+                         greedy=False, sample_seed=5))      # takes lane 0
+        split = first + user_tokens(b.run([u([first[-1]], 4)]))
+        require(store.restores == 1, "u was not restored from disk")
+        diff = session_diff(b.sessions.take("u"), sess_full)
+        require(split == tok_full and diff is None,
+                f"evict/restore: tokens {split} against {tok_full}, first "
+                f"differing leaf {diff}")
+        del b, store
+    out["round_trip_tokens"] = tok_full
+    print(f"[engine] evict/restore round trip (lanes 3, a disk spill and "
+          f"other neighbours between 4 + 4 sampled tokens): tokens, memory "
+          f"states, cache, position and counter bit for bit")
+
+    # Rescale 4 -> 2 -> 4 lanes mid-run, against an uninterrupted run.
+    def logged(eng, log):
+        """Make ``eng.step`` keep u's logits row by its token counter."""
+        inner = eng.step
+
+        def step():
+            done = inner()
+            for lane, req in eng.scheduler.active.items():
+                if req.user == "u":
+                    log[int(eng._counters[lane])] = \
+                        eng.last_logits[lane].clone()
+            return done
+        eng.step = step
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log_ref, log_live = {}, {}
+        ref_eng = engine(tmp, lanes=4, capacity=None, replicas=2)
+        logged(ref_eng, log_ref)
+        tok_ref = user_tokens(ref_eng.run([u(P, 8), noise(6)]))
+        tok_ref2 = user_tokens(ref_eng.run([u([5], 4)]))
+        sess_ref = ref_eng.sessions.take("u")
+        del ref_eng
+        eng = engine(tmp, lanes=4, capacity=None, replicas=2)
+        logged(eng, log_live)
+        eng.submit(u(P, 8))
+        eng.submit(noise(6))
+        done = []
+        for _ in range(6):
+            done.extend(eng.step())
+        eng.rescale(replicas=1)
+        require(eng.lanes == 2, f"rescale left {eng.lanes} lanes")
+        while eng.scheduler.has_work:
+            done.extend(eng.step())
+        tok_live = user_tokens(done)
+        eng.rescale(replicas=2, lanes=4)
+        tok_live2 = user_tokens(eng.run([u([5], 4)]))
+        diff = session_diff(eng.sessions.take("u"), sess_ref)
+        del eng
+    exact = tok_live == tok_ref and tok_live2 == tok_ref2 and diff is None
+    first_step = next((c for c in sorted(log_ref) if c in log_live
+                       and not torch.equal(log_ref[c], log_live[c])), None)
+    m_dependent = rows_depend_on_m(params, cfg, dev) if not exact else []
+    out.update(rescale_bit_exact=exact, rescale_tokens_equal=(
+        tok_live == tok_ref and tok_live2 == tok_ref2),
+        rescale_first_differing_counter=first_step,
+        rescale_first_differing_leaf=diff, products_rows_differ=m_dependent)
+    print(f"[engine] rescale 4 -> 2 -> 4 lanes mid-run against an "
+          f"uninterrupted 4-lane run: "
+          + ("bit for bit" if exact else
+             f"not bit-exact: tokens equal {out['rescale_tokens_equal']}, "
+             f"u's logits first differ at token counter {first_step}, "
+             f"first differing leaf {diff}; the products of a decode step "
+             f"whose first two rows differ at B = 2 from B = 4's: "
+             f"{m_dependent}"))
+    torch.cuda.empty_cache()
+    return out
 
 
 def card_line() -> str:
@@ -3179,7 +3646,11 @@ def run() -> None:
     # ---- 11. the DNC and the SDNC ----
     dnc_res = dnc_phase(dev, ops, ref, checker, zero_counts, counts)
 
-    # ---- 12. report ----
+    # ---- 12. the serving engine at StarCoder2-7B's width ----
+    engine_res = engine_phase(dev, ops, ref, checker, zero_counts, counts,
+                              lmr.pop("params"))
+
+    # ---- 13. report ----
     lm_write = lmr["lm"]["kernels_at_lm_shapes"]["sparse_write_update"]
     above = (("lra_topn", rows["lra_topn"]), ("block", lra_block),
              ("scatter_rows 'set'", rows["scatter_rows"]),
@@ -3270,7 +3741,7 @@ def run() -> None:
                       "dense": {k: v for k, v in dense.items()
                                 if k != "row"},
                       "lm": lmr["lm"], "mesh": mesh["mesh"],
-                      "dnc": dnc_res}))
+                      "dnc": dnc_res, "engine": engine_res}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

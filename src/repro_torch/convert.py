@@ -12,7 +12,8 @@ P = 1) where there is one; the dense models' is `DenseState`, with a plain
 rank's block of a slot-sharded memory. The LM's weights are the nested
 tree of `models/lm.py::param_defs` (stacked ``blocks``, ``memory``, ``embed``,
 ``final_norm``, ``lm_head``) on both sides; its cache is {"k", "v", "pos"}
-and its memory states a tuple of `sam_layer.MemoryState`. The functions
+and its memory states a tuple of `sam_layer.MemoryState`; a serving
+session (`session_from_jax`) holds both for one lane. The functions
 take numpy leaves (or anything `numpy.asarray` reads) and import nothing
 of JAX.
 """
@@ -271,3 +272,18 @@ def lm_memory_states_from_jax(states, *, device="cuda"):
             read_w=_tensor(st.read_w, np.float32, device),
             step=_tensor(st.step, np.int32, device)))
     return tuple(out)
+
+
+def session_from_jax(sess, *, device="cuda"):
+    """A JAX serving session (`repro.launch.engine`: {"cache": {"k", "v"}
+    (L, 1, Smax, Hkv, D), "pos" (1,), "counter", "mem": a tuple of
+    `MemoryState` with batch 1}) -> the port's (`repro_torch.launch.
+    engine.SessionStore`'s), leaf for leaf; "mem" absent for a memoryless
+    model."""
+    cache = lm_cache_from_jax({**sess["cache"], "pos": sess["pos"]},
+                              device=device)
+    out = {"cache": {k: cache[k] for k in ("k", "v")}, "pos": cache["pos"],
+           "counter": int(np.asarray(sess["counter"]))}
+    if sess.get("mem") is not None:
+        out["mem"] = lm_memory_states_from_jax(sess["mem"], device=device)
+    return out

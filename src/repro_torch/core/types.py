@@ -26,6 +26,8 @@ LA_SCRATCH = 2 ** 31 - 1
 # `convert.sharded_state_from_jax`); every other leaf is replicated.
 # ``usage`` is the dense models' and the DNC's table.
 SLOT_LEAVES = frozenset({"memory", "last_access", "usage", "mem_scale"})
+# Field names of the LSH index's leaves (`ANNState`).
+ANN_LEAVES = frozenset({"buckets", "cursor"})
 
 
 # Storage dtypes of the memory rows (`MemoryConfig.mem_dtype`).

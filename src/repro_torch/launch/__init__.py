@@ -1,1 +1,2 @@
-"""Launch drivers of the port: the static-batch serving driver (`serve`)."""
+"""Launch entry points of the port: the static-batch `serve` and the
+continuous-batching engine (`engine`, `serve.serve_continuous`)."""

@@ -1,20 +1,25 @@
-"""Static-batch serving driver of the port, the JAX package's
-`launch/serve.py::serve`: prefill a lockstep batch of prompts with
+"""Serving entry points of the port, the JAX package's `launch/serve.py`.
+
+`serve` is the static batch: prefill a lockstep batch of prompts with
 `lm.decode_scan`, then decode greedy (or sampled) tokens one
 `lm.decode_step` at a time. Like the JAX driver it passes no memory
-states, so it runs no memory op; the memory-carrying decode is the
-continuous-batching engine's call (ROADMAP A10).
+states, so it runs no memory op. `serve_continuous` serves synthetic
+single-request users through the continuous-batching engine
+(`launch/engine`), whose decode carries each lane's memory states.
 
     python -m repro_torch.launch.serve --arch starcoder2_7b_sam --full
+    python -m repro_torch.launch.serve --continuous --requests 8 --full
 
-runs StarCoder2-7B at full width on the card (weights from ``--seed``, held
-in the bf16 compute dtype: 15.8 GB); without ``--full`` the reduced config.
+run StarCoder2-7B at full width on the card (weights from ``--seed``, held
+in the bf16 compute dtype: 15.8 GB); without ``--full`` the reduced
+config; ``--device cpu`` runs on the host.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config
@@ -85,10 +90,52 @@ def _serve(cfg, *, batch, prompt_len, gen_len, max_len, seed, greedy=True,
             "decode_tok_per_s": batch * gen_len / max(decode_s, 1e-9)}
 
 
+def serve_continuous(arch: str, *, lanes: int = 4, requests: int = 8,
+                     prompt_len: int = 8, gen_len: int = 16,
+                     max_len: int = 128, use_reduced: bool = True,
+                     seed: int = 0, greedy: bool = True, device="cuda"):
+    """Serve ``requests`` synthetic single-request users of ``arch`` (the
+    reduced config unless ``use_reduced=False``) through the
+    continuous-batching engine; see `_serve_continuous`."""
+    cfg = get_config(arch)
+    if use_reduced:
+        cfg = reduce_cfg(cfg)
+    return _serve_continuous(cfg, lanes=lanes, requests=requests,
+                             prompt_len=prompt_len, gen_len=gen_len,
+                             max_len=max_len, seed=seed, greedy=greedy,
+                             device=device)
+
+
+def _serve_continuous(cfg, *, lanes, requests, prompt_len, gen_len,
+                      max_len, seed, greedy=True, device="cuda",
+                      params=None):
+    """User i sends prompt_len tokens in [1, V) from ``seed``'s numpy
+    generator (as the JAX package's draws them) and asks for gen_len
+    tokens, sampled with seed i unless ``greedy``. ``params`` defaults to
+    weights from ``seed``. Returns {"results", "wall_s", "steps",
+    "tok_per_s"}."""
+    from repro_torch.launch.engine import Request, ServeEngine
+
+    rng = np.random.default_rng(seed)
+    eng = ServeEngine(cfg, lanes=lanes, max_len=max_len, param_seed=seed,
+                      params=params, device=device)
+    t0 = time.time()
+    results = eng.run([
+        Request(user=f"user{i}",
+                prompt=rng.integers(1, cfg.vocab_size, prompt_len).tolist(),
+                max_new_tokens=gen_len, greedy=greedy, sample_seed=i)
+        for i in range(requests)])
+    wall = time.time() - t0
+    total = sum(len(r["tokens"]) for r in results)
+    return {"results": results, "wall_s": wall, "steps": eng.steps,
+            "tok_per_s": total / max(wall, 1e-9)}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="starcoder2_7b_sam")
-    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=4,
+                    help="static-batch size / engine lane count")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen-len", type=int, default=32)
     ap.add_argument("--max-len", type=int, default=128)
@@ -98,7 +145,21 @@ def main():
     ap.add_argument("--full", action="store_true",
                     help="the published width (default: the reduced config)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--continuous", action="store_true",
+                    help="serve through the continuous-batching engine "
+                         "(launch/engine) instead of the static batch")
+    ap.add_argument("--requests", type=int, default=8,
+                    help="request count for --continuous")
     args = ap.parse_args()
+    if args.continuous:
+        res = serve_continuous(
+            args.arch, lanes=args.batch, requests=args.requests,
+            prompt_len=args.prompt_len, gen_len=args.gen_len,
+            max_len=args.max_len, use_reduced=not args.full, seed=args.seed,
+            greedy=not args.sample, device=args.device)
+        print(f"served {len(res['results'])} requests in {res['steps']} "
+              f"steps; {res['tok_per_s']:.1f} tok/s")
+        return
     res = serve(args.arch, batch=args.batch, prompt_len=args.prompt_len,
                 gen_len=args.gen_len, max_len=args.max_len,
                 use_reduced=not args.full, seed=args.seed,

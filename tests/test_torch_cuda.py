@@ -1466,3 +1466,83 @@ def test_flash_attention_kernel_raises_on_inputs_it_cannot_take(dev):
     assert flash_attention.launches == n0
     with pytest.raises(NotImplementedError, match="A9b"):
         ops.flash_attention(q.requires_grad_(), k, v)
+
+
+# --------------------------------------------------------------------------
+# The serving engine and checkpoints on the card
+# --------------------------------------------------------------------------
+
+def test_engine_evict_restore_round_trip_on_card(dev, tmp_path):
+    """The reduced `starcoder2_7b_sam` (bf16 compute) served on the card:
+    user u (sampled) 8 tokens uninterrupted against 4 + 4 across two
+    engines sharing a store of one hot session (u spills to disk between
+    them) with other neighbours and lanes: tokens, the memory states, the
+    cache, the position and the counter bit for bit, through the read,
+    write and LRA kernels."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.engine import Request, ServeEngine, SessionStore
+    from repro_torch.models import lm
+
+    cfg = reduced(get_config("starcoder2_7b_sam"))
+    params = lm.init_params(cfg, seed=0, device=dev, dtype=cfg.compute_dtype)
+
+    def u(**kw):
+        return Request(user="u", greedy=False, sample_seed=42, **kw)
+
+    def noise(n):
+        return Request(user="noise", prompt=[9, 9], max_new_tokens=n,
+                       greedy=False, sample_seed=7)
+
+    def engine(store=None):
+        return ServeEngine(cfg, lanes=3, max_len=64, params=params,
+                           device=dev, session_store=store)
+
+    n0 = fused_read_sweep.launches
+    e1 = engine()
+    full = {r["user"]: r["tokens"] for r in e1.run(
+        [u(prompt=[3, 7, 11, 2], max_new_tokens=8), noise(6)])}
+    want = e1.sessions.take("u")
+    assert fused_read_sweep.launches > n0
+    store = SessionStore(num_slots=cfg.memory.num_slots, capacity=1,
+                         spill_dir=str(tmp_path))
+    first = engine(store).run([u(prompt=[3, 7, 11, 2], max_new_tokens=4),
+                               noise(8)])
+    first = [r for r in first if r["user"] == "u"][0]["tokens"]
+    assert store.spills == 1
+    b = engine(store)
+    b.submit(Request(user="other", prompt=[1, 2, 3], max_new_tokens=9,
+                     greedy=False, sample_seed=5))
+    rest = b.run([u(prompt=[first[-1]], max_new_tokens=4)])
+    assert store.restores == 1
+    assert first + [r for r in rest if r["user"] == "u"][0]["tokens"] == \
+        full["u"]
+    got = b.sessions.take("u")
+    for key in ("k", "v"):
+        assert torch.equal(got["cache"][key], want["cache"][key])
+    assert torch.equal(got["pos"], want["pos"])
+    assert int(got["counter"]) == int(want["counter"])
+    for sg, sw in zip(got["mem"], want["mem"], strict=True):
+        for name in sg._fields:
+            assert torch.equal(getattr(sg, name), getattr(sw, name)), name
+
+
+def test_checkpoint_round_trip_of_cuda_tensors(dev, tmp_path):
+    """CUDA leaves of every dtype a session holds save and restore bit for
+    bit, onto the card where the template leaf lies there."""
+    from repro_torch.checkpoint import ckpt
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    tree = {"f32": torch.randn((3, 5), generator=g, device=dev),
+            "bf16": torch.randn((4, 2), generator=g, device=dev).bfloat16(),
+            "int8": torch.randint(-127, 128, (2, 6), generator=g,
+                                  device=dev, dtype=torch.int8),
+            "int32": torch.randint(0, 1 << 30, (7,), generator=g,
+                                   device=dev, dtype=torch.int32),
+            "host": torch.arange(3), "counter": 5}
+    ckpt.save_checkpoint(str(tmp_path), 1, tree)
+    got, step = ckpt.restore_checkpoint(str(tmp_path), tree)
+    assert step == 1 and int(got["counter"]) == 5
+    for key in ("f32", "bf16", "int8", "int32", "host"):
+        assert got[key].device == tree[key].device
+        assert got[key].dtype == tree[key].dtype
+        assert torch.equal(got[key], tree[key]), key
