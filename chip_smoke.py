@@ -18,8 +18,9 @@ memory states and the static `serve`), whose attention is the
 by slots over 4 processes (`repro_torch.distributed.mem_shard`), whose
 ranks sweep their blocks with the `topk_read` kernel; then the sparse DNC
 (exact and LSH) forward and in training on associative recall, and the
-paper's Fig. 7 against the dense DNC; last the LM served through the
-continuous-batching engine with per-user memory sessions. It fails
+paper's Fig. 7 against the dense DNC; then the LM served through the
+continuous-batching engine with per-user memory sessions; last the LM
+trained (8 of its 32 layers at full width, AdamW). It fails
 (nonzero exit) if any phase fails:
 
 1. build the kernels from `src/repro_torch/kernels/csrc/` with nvcc for
@@ -232,17 +233,43 @@ continuous-batching engine with per-user memory sessions. It fails
       of one hot session, u spilled to disk between them, with other
       neighbours and lanes: tokens, memory states, cache, position and
       counter bit for bit; then a live `rescale` 4 -> 2 -> 4 lanes
-      against an uninterrupted run, reported (bit-exact or not, where u's
-      logits first differ, and which products of a decode step give
-      other bits for two lanes than for the same two rows of four);
-13. print the empty-launch floor with each latency-bound kernel's time
+      against an uninterrupted run, bit for bit: tokens, u's logits at
+      every token counter, the session (on failure it names the products
+      of a decode step that give other bits for two lanes than for the
+      same two rows of four);
+13. (run right after the build, while the card holds nothing else: its
+   37 GB of parameters, gradients and AdamW moments and the step's
+   transients do not fit beside the ~20 GB the other phases keep) the
+   LM's training at StarCoder2-7B's full width with its depth cut to
+   8 of 32 layers (two memory groups; 2.32 B f32 parameters, bf16
+   compute, `launch.steps.make_train_step`: AdamW after one warmup step),
+   one B = 4, S = 2048 batch of `data.tokens.lm_token_batches`:
+   a. the attention Function's gradient at one layer's shapes (48 heads
+      over 4, unit normal, bf16 and f32) against autograd through the
+      plain version: f32 within 2e-5 of max(1, |g|), bf16 one bf16 ulp;
+   b. at f32 compute, every parameter's gradient in the sparse, chunked
+      (C = 2) and naive unrolls of the memory layers: chunked against
+      sparse within 1e-5 of max(1, |g|), naive against sparse within the
+      JAX suite's atol 2e-4 (of the leaf's max(1, |g|): the gradients
+      reach 1e6) / rtol 1e-3; the memory zero again, bit for bit, after
+      every rollback;
+   c. the step's forward and backward in lockstep (every attention,
+      read, write, LRA and scatter launch held against its plain
+      version), then the train step itself (the main path), the counters
+      set to 0 before each and read after: 16 attention launches (8
+      bf16, 8 f32: the forward and the blocks' recompute), 8 reads,
+      writes and LRAs, 48 scatters; the same loss;
+   d. more steps, timed (host ms, forward, backward and optimizer apart,
+      tokens/s, peak memory against 16 B a parameter, the device's busy
+      share and top kernels): the loss finite and falling;
+14. print the empty-launch floor with each latency-bound kernel's time
    above it (`lra_topn`, the scatter, the write at step 21 on f32, bf16
    and int8 rows and at the LM's shapes, the candidate read on f32, bf16
    and int8 rows, the hash of the written rows and of the queries), the
    card, one JSON line of per-kernel numbers (the LM's
    under ``"lm"``, the sharded memory's under ``"mesh"``, the DNC's under
-   ``"dnc"``, the engine's under ``"engine"``), and last the
-   ``{"ok": true, ...}`` line.
+   ``"dnc"``, the engine's under ``"engine"``, the LM trainer's under
+   ``"lm_train"``), and last the ``{"ok": true, ...}`` line.
 
 Tolerances: integer outputs exact; forward floats within 1e-5 of
 max(1, |plain|), element by element (other summation order, rsqrt
@@ -381,6 +408,14 @@ LM_ARCH = "starcoder2_7b_sam"
 LM_B, LM_S, LM_PROMPT, LM_GEN, LM_MAX_LEN = 4, 2048, 32, 32, 128
 FLASH_TOL = 2e-5               # the JAX suite's f32 bar for the kernel
 SLICE_TOL = 1e-4               # tests/test_torch_lm.py's bar for the slice
+# Phase 13, the LM's train step at StarCoder2-7B's full width with its
+# depth cut to TRAIN_LAYERS of 32 (two memory groups): f32 parameters, bf16
+# compute, the sparse unroll, AdamW at TRAIN_LR after TRAIN_WARMUP steps;
+# one B × S batch of `lm_token_batches`, TRAIN_STEPS steps. The modes'
+# gradients are compared at f32 compute, chunked with C = TRAIN_CHUNK.
+TRAIN_LAYERS, TRAIN_B, TRAIN_S = 8, 4, 2048
+TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP, TRAIN_CHUNK = 4, 3e-4, 1, 2
+NAIVE_ATOL, NAIVE_RTOL = 2e-4, 1e-3   # tests/test_unroll.py's bar
 # Phase 10, the slot-sharded memory: MESH_S ranks, one block of N/MESH_S
 # rows each, all on the one card, joined by gloo.
 MESH_S = 4
@@ -1161,14 +1196,17 @@ class FlashCheck:
     def __enter__(self):
         self.saved = self.ops.flash_attention
 
-        def flash_attention(q, k, v):
-            out = self.saved(q, k, v)
+        def flash_attention(q, k, v, **kw):
+            out = self.saved(q, k, v, **kw)
             n = len(self.checks)
-            if n in self.keep:
-                self.kept[n] = tuple(t.contiguous().clone() for t in (q, k, v))
-            self.checks.append(check_flash(self.ref, q.contiguous(),
-                                           k.contiguous(), v.contiguous(),
-                                           out))
+            with torch.no_grad():
+                if n in self.keep:
+                    self.kept[n] = tuple(t.detach().contiguous().clone()
+                                         for t in (q, k, v))
+                check = check_flash(self.ref, q.detach().contiguous(),
+                                    k.detach().contiguous(),
+                                    v.detach().contiguous(), out.detach())
+            self.checks.append(dict(check, dtype=q.dtype))
             return out
 
         self.ops.flash_attention = flash_attention
@@ -1980,14 +2018,321 @@ def engine_phase(dev, ops, ref, checker, zero_counts, counts, params):
         tok_live == tok_ref and tok_live2 == tok_ref2),
         rescale_first_differing_counter=first_step,
         rescale_first_differing_leaf=diff, products_rows_differ=m_dependent)
-    print(f"[engine] rescale 4 -> 2 -> 4 lanes mid-run against an "
-          f"uninterrupted 4-lane run: "
-          + ("bit for bit" if exact else
-             f"not bit-exact: tokens equal {out['rescale_tokens_equal']}, "
-             f"u's logits first differ at token counter {first_step}, "
-             f"first differing leaf {diff}; the products of a decode step "
-             f"whose first two rows differ at B = 2 from B = 4's: "
-             f"{m_dependent}"))
+    require(exact and first_step is None,
+            f"rescale 4 -> 2 -> 4 lanes is not bit-exact: tokens equal "
+            f"{out['rescale_tokens_equal']}, u's logits first differ at token "
+            f"counter {first_step}, first differing leaf {diff}; the products "
+            f"of a decode step whose first two rows differ at B = 2 from B = "
+            f"4's: {m_dependent}")
+    print("[engine] rescale 4 -> 2 -> 4 lanes mid-run against an "
+          "uninterrupted 4-lane run: tokens, u's logits at every token "
+          "counter, memory states, cache, position and counter bit for bit")
+    torch.cuda.empty_cache()
+    return out
+
+
+def f64_grads(ref, q, k, v, g):
+    """The attention's gradients in q, k and v through the plain version
+    in f64."""
+    leaves = [t.detach().double().requires_grad_() for t in (q, k, v)]
+    return torch.autograd.grad(ref.flash_attention_ref(*leaves), leaves,
+                               g.double())
+
+
+def f64_err(got: torch.Tensor, exact: torch.Tensor) -> float:
+    """max |got - exact| / max(1, |exact|), in f64."""
+    return ((got.double() - exact).abs_()
+            / exact.abs().clamp_min(1.0)).max().item()
+
+
+def lm_train_phase(dev, ops, ref, checker, zero_counts, counts):
+    """Phase 13: the LM's train step (`launch.steps.make_train_step`) at
+    StarCoder2-7B's full width, TRAIN_LAYERS layers deep. Returns its
+    numbers."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import lm_token_batches
+    from repro_torch.launch import steps
+    from repro_torch.models import lm, sam_layer
+    from repro_torch.optim import optimizers as opt
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=TRAIN_LAYERS)
+    m = cfg.memory
+    n_steps = cfg.num_layers // m.every_n_layers * (TRAIN_S // m.segment)
+    L = cfg.num_layers
+    torch.cuda.empty_cache()
+    out = {"layers": L, "memory_steps": n_steps,
+           "held_at_start_bytes": torch.cuda.memory_allocated()}
+
+    # (a) the attention Function's gradient at one layer's shapes, unit
+    # normal, against autograd through the plain version (f32).
+    gen = torch.Generator().manual_seed(11)
+    shapes = ((TRAIN_B, TRAIN_S, cfg.padded_heads, cfg.head_dim),
+              (TRAIN_B, TRAIN_S, cfg.num_kv_heads, cfg.head_dim))
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn(shapes[i > 0], generator=gen).to(dev, dtype)
+                   .requires_grad_() for i in range(3))
+        g = torch.randn(shapes[0], generator=gen).to(dev, dtype)
+        zero_counts()
+        got = torch.autograd.grad(
+            ops.flash_attention(q, k, v, q_block=cfg.q_block), (q, k, v), g)
+        require(counts()["flash_attention"] == 1,
+                "the attention Function did not launch its kernel once")
+        plain = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(ref.flash_attention_ref(*plain), plain,
+                                   g.float())
+        errs = []
+        for name, a, b in zip("qkv", got, want):
+            if dtype == torch.bfloat16:
+                err = (a.float() - b).abs().max().item()
+                require(a.dtype == dtype and err <= bf16_ulp(b),
+                        f"attention d{name} (bf16) {err:.3g} above one bf16 "
+                        f"ulp {bf16_ulp(b):.3g}")
+            else:
+                err = rel_err(a, b)
+            errs.append(err)
+        if dtype == torch.float32 and max(errs) > FLASH_TOL:
+            # Sums over S·G terms: two f32 orders may differ by more; then
+            # each gradient lies no further from the f64 one than twice
+            # the plain version's does.
+            exact = f64_grads(ref, q, k, v, g)
+            for name, a, b, e in zip("qkv", got, want, exact):
+                got_err, plain_err = f64_err(a, e), f64_err(b, e)
+                require(got_err <= 2 * plain_err + FLASH_TOL,
+                        f"attention d{name} (f32): {got_err:.3g} from the "
+                        f"f64 gradient, the plain version {plain_err:.3g}")
+                out[f"attention_grad_f64_err_d{name}"] = (got_err, plain_err)
+            del exact
+        out[f"attention_grad_err_{str(dtype)[6:]}"] = max(errs)
+        del q, k, v, g, got, want, plain
+        torch.cuda.empty_cache()
+    print(f"[train] attention gradient at one layer's shapes (B, S, H, Hkv, "
+          f"D) = {shapes[0][:3] + shapes[1][2:]}, blocks of {cfg.q_block} "
+          f"query rows, against autograd through the plain version: bf16 "
+          f"{out['attention_grad_err_bfloat16']:.3g} (one bf16 ulp), f32 "
+          f"{out['attention_grad_err_float32']:.3g} of max(1, |g|) (bar "
+          f"{FLASH_TOL}, or twice the plain version's distance from f64: "
+          + (", ".join(f"{kk[-2:]} {e[0]:.3g} against {e[1]:.3g}"
+                       for kk, e in out.items() if "f64" in kk) or "not needed")
+          + ")")
+
+    # The weights (f32) and one batch; the memory state each forward makes.
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=dev)
+    n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+    b, _ = next(lm_token_batches(cfg.vocab_size, TRAIN_B, TRAIN_S))
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+    made = []
+    init_state = sam_layer.init_memory_state
+
+    def recorded_init(*a, **kw):
+        made.append(init_state(*a, **kw))
+        return made[-1]
+
+    def memory_back_to_zero(what):
+        require(len(made) == 1 and torch.equal(
+            made[0].memory, torch.zeros_like(made[0].memory)),
+            f"{what}: the memory is not zero again after the backward")
+        made.clear()
+
+    sam_layer.init_memory_state = recorded_init
+    try:
+        # (b) the three unroll modes' gradients, at f32 compute.
+        f32 = dataclasses.replace(cfg, compute_dtype="float32")
+
+        def grads_of(mode, chunk=None):
+            c = dataclasses.replace(f32, memory=dataclasses.replace(
+                m, unroll_mode=mode, unroll_chunk=chunk))
+            return steps.value_and_grad(params, c, batch)
+
+        zero_counts()
+        loss_s, _, g_s = grads_of("sparse")
+        torch.cuda.synchronize()
+        f32_launches = counts()
+        memory_back_to_zero("sparse (f32 compute)")
+        loss_c, _, g_c = grads_of("chunked", TRAIN_CHUNK)
+        memory_back_to_zero("chunked (f32 compute)")
+        chunk_err = max(rel_err(a, b) for a, b in zip(
+            pytree.tree_leaves(g_c), pytree.tree_leaves(g_s)))
+        require(chunk_err <= GRAD_ATOL, f"chunked against sparse gradients: "
+                f"{chunk_err:.3g} above {GRAD_ATOL} of max(1, |g|)")
+        del g_c
+        made.clear()
+        loss_n, _, g_n = grads_of("naive")
+        made.clear()
+        # The JAX suite's bar, its absolute part taken relative to the
+        # leaf's scale max(1, max |g|) as the LM's floats are everywhere
+        # (ROADMAP §C, "Large scores": gradients reach 1e6 here, where an
+        # f32 ulp is 0.06); `elementwise` is the bar taken literally.
+        naive_ratio = elementwise = 0.0
+        for a, b in zip(pytree.tree_leaves(g_s), pytree.tree_leaves(g_n)):
+            d = (a - b).abs()
+            scale = max(1.0, b.abs().max().item())
+            naive_ratio = max(naive_ratio, (d / (NAIVE_ATOL * scale
+                                                 + NAIVE_RTOL * b.abs())
+                                            ).max().item())
+            elementwise = max(elementwise, (d / (NAIVE_ATOL + NAIVE_RTOL
+                                                 * b.abs())).max().item())
+        require(naive_ratio <= 1.0, f"sparse against naive gradients: "
+                f"{naive_ratio:.3g} of the bar atol {NAIVE_ATOL} of max(1, "
+                f"|g|), rtol {NAIVE_RTOL}")
+        loss_gap = max(abs(float(loss_c) - float(loss_s)),
+                       abs(float(loss_n) - float(loss_s)))
+        require(loss_gap <= TOL * max(1.0, abs(float(loss_s))),
+                f"the modes' losses differ by {loss_gap:.3g}")
+        del g_s, g_n
+        torch.cuda.empty_cache()
+        out.update(chunked_vs_sparse_grad_err=chunk_err,
+                   naive_vs_sparse_bar_ratio=naive_ratio,
+                   naive_vs_sparse_elementwise_ratio=elementwise,
+                   f32_loss=float(loss_s), f32_launches=f32_launches)
+        print(f"[train] f32 compute, {n_params} parameters: gradients of "
+              f"every leaf, chunked (C = {TRAIN_CHUNK}) against sparse "
+              f"{chunk_err:.3g} of max(1, |g|) (bar {GRAD_ATOL}), naive "
+              f"against sparse at {naive_ratio:.3g} of the bar (atol "
+              f"{NAIVE_ATOL} of the leaf's max(1, |g|), rtol {NAIVE_RTOL}; "
+              f"{elementwise:.3g} of it with an absolute atol); losses "
+              f"{float(loss_s):.6f} "
+              f"(gap {loss_gap:.3g}); the memory zero again after each "
+              f"rollback, bit for bit; sparse launches "
+              f"{ {k: v for k, v in f32_launches.items() if v} }")
+
+        # (c) the train step's forward and backward (bf16 compute, sparse)
+        # in lockstep: every kernel launch against its plain version. Before
+        # the optimizer's moments exist: the f64 checks of the f32
+        # attention launches need ~19 GB beside the step.
+        want = {name: 0 for name in counts()}
+        want.update({"flash_attention": 2 * L, "scatter_rows": 6 * n_steps,
+                     **{name: n_steps for name in FORWARD}})
+
+        def require_launches(launched, what):
+            require(launched == want, f"{what} launches "
+                    f"{ {k: v for k, v in launched.items() if v} }, expected "
+                    f"{ {k: v for k, v in want.items() if v} }")
+
+        zero_counts()
+        with Intercept(ops, checker=checker), FlashCheck(ops, ref) as fc:
+            lock_loss, _, lock_grads = steps.value_and_grad(params, cfg,
+                                                            batch)
+        torch.cuda.synchronize()
+        require_launches(counts(), "the lockstep forward and backward")
+        memory_back_to_zero("the lockstep forward and backward")
+        del lock_grads
+        torch.cuda.empty_cache()
+        by_dtype = {str(dt)[6:]: sum(c["dtype"] == dt for c in fc.checks)
+                    for dt in (torch.bfloat16, torch.float32)}
+        require(by_dtype == {"bfloat16": 2 * m.every_n_layers,
+                             "float32": 2 * (L - m.every_n_layers)},
+                f"attention launches by dtype {by_dtype}")
+        flash_err = {dt: max(c["err"] for c in fc.checks
+                             if str(c["dtype"])[6:] == dt) for dt in by_dtype}
+
+        # The main path: one `make_train_step`, the counters set to 0 just
+        # before it and read just after.
+        step_fn = steps.make_train_step(cfg, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                                        total_steps=TRAIN_STEPS)
+        opt_state = opt.adamw_init(params)
+        zero_counts()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        launched = counts()
+        require_launches(launched, "the train step")
+        memory_back_to_zero("the train step")
+        losses = [float(metrics["loss"])]
+        require(abs(losses[0] - float(lock_loss))
+                <= TOL * max(1.0, abs(losses[0])), f"the train step's loss "
+                f"{losses[0]} differs from the lockstep run's {lock_loss}")
+        print(f"[train] train step (B={TRAIN_B}, S={TRAIN_S}, bf16 compute, "
+              f"sparse): launches "
+              f"{ {k: v for k, v in launched.items() if v} } (attention "
+              f"bf16 {by_dtype['bfloat16']}, f32 {by_dtype['float32']}: the "
+              f"forward and the blocks' recompute); its forward and backward "
+              f"in lockstep: attention against plain: bf16 "
+              f"{flash_err['bfloat16']:.3g}, f32 {flash_err['float32']:.3g}; "
+              f"memory kernels: read err "
+              f"{checker.err['fused_read_sweep']:.3g}, write err "
+              f"{checker.err['sparse_write_update']:.3g}, scatters bit for "
+              f"bit, near-ties {checker.near_ties}; loss {losses[0]:.4f}")
+
+        # (d) times: whole steps, a step taken apart, the device's share.
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = []
+        for _ in range(TRAIN_STEPS - 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss"]))
+            memory_back_to_zero("a timed train step")
+        peak = torch.cuda.max_memory_allocated()
+
+        def parts():
+            """One step with the forward, the backward and the optimizer
+            timed apart (the train step's own code, in its order)."""
+            torch.cuda.synchronize()
+            t = [time.perf_counter()]
+            leaves, spec = pytree.tree_flatten(params)
+            diff = [x.detach().requires_grad_() for x in leaves]
+            loss, _ = lm.loss_fn(pytree.tree_unflatten(diff, spec), cfg,
+                                 batch)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            grads = pytree.tree_unflatten(
+                list(torch.autograd.grad(loss, diff)), spec)
+            del diff
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            grads, _ = opt.clip_by_global_norm(grads, 1.0)
+            lr = opt.cosine_schedule(opt_state.count, base_lr=TRAIN_LR,
+                                     warmup=TRAIN_WARMUP,
+                                     total=TRAIN_STEPS)
+            state = opt.adamw_update_(params, grads, opt_state, lr=lr)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            memory_back_to_zero("the step taken apart")
+            return float(loss.detach()), state, [(b - a) * 1e3 for a, b in
+                                        zip(t, t[1:])]
+
+        loss_p, opt_state, (fwd_ms, bwd_ms, opt_ms) = parts()
+        losses.append(loss_p)
+        dev_ms, on_dev = device_time(
+            lambda: step_fn(params, opt_state, batch))
+        memory_back_to_zero("the traced train step")
+    finally:
+        sam_layer.init_memory_state = init_state
+    require(all(map(lambda x: x == x and abs(x) < float("inf"), losses))
+            and losses[-1] < losses[0],
+            f"the loss is not finite or does not fall: {losses}")
+    ms = sorted(step_ms)[len(step_ms) // 2]
+    tok_s = TRAIN_B * TRAIN_S / (ms / 1e3)
+    reckoned = 16 * n_params
+    out.update(params=n_params, launches=launched,
+               attention_launches=by_dtype, attention_err=flash_err,
+               losses=losses, step_ms=ms, step_ms_all=step_ms,
+               fwd_ms=fwd_ms, bwd_ms=bwd_ms, opt_ms=opt_ms,
+               tokens_per_s=tok_s, peak_bytes=peak, held_bytes=held,
+               reckoned_state_bytes=reckoned, device_ms=dev_ms or None,
+               busy_share=(dev_ms / ms) if dev_ms else None,
+               top_kernels=[(k, t, c) for k, t, c in on_dev[:8]])
+    print(f"[time] LM train step (B={TRAIN_B}, S={TRAIN_S}, {L} layers): "
+          f"{ms:.1f} ms, median of {', '.join(f'{t:.1f}' for t in step_ms)}"
+          f" ({tok_s:.0f} tokens/s); apart: forward {fwd_ms:.1f}, backward "
+          f"{bwd_ms:.1f}, optimizer {opt_ms:.1f} ms; peak {peak} B against "
+          f"the reckoned {reckoned} B of f32 parameters, gradients and two "
+          f"moments (16 B a parameter; {held} B held before the step); "
+          f"losses {', '.join(f'{x:.4f}' for x in losses)}")
+    if dev_ms:
+        print(f"[time] the train step on the device (torch.profiler): "
+              f"{dev_ms:.1f} ms of kernels, {dev_ms / ms:.1%} of the step; "
+              f"by kernel (ms, launches): "
+              + "; ".join(f"{k[:60]} {t:.2f} ({c})" for k, t, c in on_dev[:8]))
+    else:
+        print("[time] the train step on the device: not measured (the "
+              "profiler recorded no device time)")
+    del params, opt_state, batch
     torch.cuda.empty_cache()
     return out
 
@@ -2726,6 +3071,13 @@ def run() -> None:
                 f"kernels must run on the tensor cores, the f32 ones not")
         print(f"[build] flash_attention: HMMA instructions in the SASS "
               f"(cuobjdump -sass): {hmma}")
+    checker = Checker(ref)
+
+    # ---- 13, run first: the LM's train step at StarCoder2-7B's width.
+    # Its parameters, gradients and moments (37 GB) and the step's
+    # transients (~10 GB, ~19 GB more for the f64 checks) need the card
+    # empty; the later phases keep some 20 GB of their inputs and states.
+    train_res = lm_train_phase(dev, ops, ref, checker, zero_counts, counts)
 
     cfg = sam.SAMConfig(MemoryConfig(num_slots=N, word_size=W, num_heads=H,
                                      k=K, delta=DELTA),
@@ -2741,7 +3093,6 @@ def run() -> None:
     require(xs.shape == (T, B, BITS + 2), f"xs has shape {tuple(xs.shape)}")
 
     # ---- 2. each kernel against its plain version, at full width ----
-    checker = Checker(ref)
     with torch.inference_mode():
         with Intercept(ops, record=True) as rec:
             model(model.init_state(B), xs[:max(RECORD_STEPS)])
@@ -3650,7 +4001,7 @@ def run() -> None:
     engine_res = engine_phase(dev, ops, ref, checker, zero_counts, counts,
                               lmr.pop("params"))
 
-    # ---- 13. report ----
+    # ---- 14. report ----
     lm_write = lmr["lm"]["kernels_at_lm_shapes"]["sparse_write_update"]
     above = (("lra_topn", rows["lra_topn"]), ("block", lra_block),
              ("scatter_rows 'set'", rows["scatter_rows"]),
@@ -3741,7 +4092,8 @@ def run() -> None:
                       "dense": {k: v for k, v in dense.items()
                                 if k != "row"},
                       "lm": lmr["lm"], "mesh": mesh["mesh"],
-                      "dnc": dnc_res, "engine": engine_res}))
+                      "dnc": dnc_res, "engine": engine_res,
+                      "lm_train": train_res}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,8 +11,9 @@ P = 1) where there is one; the dense models' is `DenseState`, with a plain
 (`dnc_state_from_jax`), whose weights share SAM's three groups. `sharded_state_from_jax` cuts a SAM state into one
 rank's block of a slot-sharded memory. The LM's weights are the nested
 tree of `models/lm.py::param_defs` (stacked ``blocks``, ``memory``, ``embed``,
-``final_norm``, ``lm_head``) on both sides; its cache is {"k", "v", "pos"}
-and its memory states a tuple of `sam_layer.MemoryState`; a serving
+``final_norm``, ``lm_head``) on both sides; its cache is {"k", "v", "pos"},
+its memory states a tuple of `sam_layer.MemoryState` and its optimizer
+state an `AdamWState` (`adamw_state_from_jax`); a serving
 session (`session_from_jax`) holds both for one lane. The functions
 take numpy leaves (or anything `numpy.asarray` reads) and import nothing
 of JAX.
@@ -25,7 +26,7 @@ import torch
 from repro_torch.core.types import (SCRATCH_ROWS, SLOT_LEAVES, ANNState,
                                     DenseState, LSTMState, SAMState,
                                     SparseRead)
-from repro_torch.optim.optimizers import RMSPropState
+from repro_torch.optim.optimizers import AdamWState, RMSPropState
 
 _PARAM_GROUPS = {"lstm": ("wx", "wh", "b"), "iface": ("w", "b"),
                  "out": ("w", "b")}
@@ -241,6 +242,15 @@ def lm_params_from_jax(tree, *, device="cuda"):
         raise ValueError(f"expected the groups {_LM_GROUPS} (lm_head and "
                          f"memory optional), got {sorted(tree)}")
     return _tree(dict(tree), device)
+
+
+def adamw_state_from_jax(state, *, device="cuda") -> AdamWState:
+    """JAX `optimizers.AdamWState` of an LM (``mu`` and ``nu`` f32 trees in
+    the parameters' layout, ``count`` () int32) -> the port's, leaf for
+    leaf, so that both sides take their next step from the same numbers."""
+    return AdamWState(mu=_tree(dict(state.mu), device),
+                      nu=_tree(dict(state.nu), device),
+                      count=_tensor(state.count, np.int32, device))
 
 
 def lm_cache_from_jax(cache, *, device="cuda"):

@@ -26,7 +26,15 @@ them to hold the unroll's final buffers when they start. After such a
 backward, neither ``state0`` nor the returned state is a valid state any
 more (the memory is M₀, the usage table that of step T): the backward
 flags the memory (`types.mark_rolled_back`) and a later step from either
-raises. Gradients reach the parameters, xs and the float leaves of
+raises. Unrolls may be chained over one state (the LM threads one memory
+through its memory groups): the next unroll updates the same buffers in
+place, and as autograd runs the backwards in reverse order each finds the
+buffers as its forward left them and leaves them as its forward found
+them; a backward whose later unrolls have not run theirs raises. The
+flag is set on the caller's tensor; a backward works on its own aliases
+of the buffers, and a chunked one steps again only from a checkpoint's
+buffers, restored in full.
+Gradients reach the parameters, xs and the float leaves of
 ``state0``: every small one (the float leaves outside the dense buffers)
 is differentiated again at each replayed step, and each buffer of
 ``cell.cotangent_buffers`` has one dense cotangent that the whole
@@ -196,19 +204,34 @@ class _RollbackUnroll(torch.autograd.Function):
         ctx.params, ctx.xs, ctx.ys_shape = params, xs, ys.shape
         ctx.mark_dirty(*_buffers(cell, state))
         # The caller's memory tensor, to flag once the backward rolls it
-        # back (a saved output unpacks as another tensor object).
+        # back (an alias unpacks as another tensor object), and this
+        # unroll's place among those over it whose backward is pending.
         ctx.memory_ref = weakref.ref(state.memory)
+        ctx.token = object()
+        state.memory.__dict__.setdefault("pending_unrolls", []).append(
+            ctx.token)
         ctx.mark_non_differentiable(*[t for t in out
                                       if not t.is_floating_point()])
-        # Saved as outputs: backward raises if the memory changed since.
-        ctx.save_for_backward(*out)
+        # Kept as detached aliases, not saved: a later unroll over the same
+        # buffers (the next memory group of an LM) changes them in place,
+        # which autograd would refuse in a saved tensor. Its backward must
+        # run first, to leave them as this forward left them.
+        ctx.outs = [t.detach() for t in out]
         ctx.set_materialize_grads(False)
         return (ys, *out)
 
     @staticmethod
     def backward(ctx, g_ys, *g_out):
         cell, xs = ctx.cell, ctx.xs
-        outs = ctx.saved_tensors
+        memory = ctx.memory_ref()
+        pending = getattr(memory, "pending_unrolls", [ctx.token])
+        if not pending or pending[-1] is not ctx.token:
+            raise RuntimeError(
+                "a later unroll changed this unroll's memory in place and "
+                "its backward has not run: the buffers do not hold this "
+                "unroll's final state")
+        pending.pop()
+        outs = ctx.outs
         state = _join(outs, ctx.out_template)
         flat_p, p_spec = pytree.tree_flatten(ctx.params)
         params = pytree.tree_unflatten(
@@ -247,8 +270,7 @@ class _RollbackUnroll(torch.autograd.Function):
             state, cts = _segment_bwd(cell, params, state, res, xs[lo:hi],
                                       cts, g_ys[lo:hi], buf_cts, g_params,
                                       g_xs[lo:hi])
-        ctx.res = ctx.checkpoints = None
-        memory = ctx.memory_ref()
+        ctx.res = ctx.checkpoints = ctx.outs = None
         if memory is not None:
             mark_rolled_back(memory)
         # The gradient of state0: the small floats' and the cotangent

@@ -1,6 +1,6 @@
 """Device dispatch of the memory ops (the f32, single-device part of
 `repro/kernels/ops.py`), and their gradients; and of the LM's causal
-attention (`flash_attention`, forward only). The ops never route a
+attention (`flash_attention`), whose backward is plain PyTorch. The ops never route a
 slot-sharded memory: `distributed/mem_shard.py` calls them on a rank's
 block with the block's ``valid_n``.
 
@@ -108,20 +108,70 @@ def lsh_hash(x: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
     return ids.reshape(shape[:-1] + (planes.shape[0],))
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
-    """Causal GQA attention, forward only: q (B, S, H, D), k, v (B, S, Hkv,
-    D), f32 or bf16 -> (B, S, H, D) in q's dtype (`ref.flash_attention_ref`
-    on the CPU, `csrc/flash_attention.cu` on the card). Like the TPU
-    kernel it has no gradient: under autograd it raises (LM training,
-    ROADMAP A9b)."""
-    if _records(q, k, v):
-        raise NotImplementedError("flash_attention has no backward: LM "
-                                  "training is ROADMAP item A9b")
+def _flash_attention(q, k, v):
     if _on_cpu(q):
         return ref.flash_attention_ref(q, k, v)
     return flash_attention_kernel(q.contiguous(), k.contiguous(),
                                   v.contiguous())
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    q_block: int | None = None) -> torch.Tensor:
+    """Causal GQA attention: q (B, S, H, D), k, v (B, S, Hkv, D), f32 or
+    bf16 -> (B, S, H, D) in q's dtype (`ref.flash_attention_ref` on the
+    CPU, `csrc/flash_attention.cu` on the card). Differentiable in q, k
+    and v: the backward (`_FlashAttention`) is plain PyTorch in blocks of
+    ``q_block`` query rows (default: all S), as the TPU kernel has no
+    backward either (the JAX package differentiates `chunked_attention`)."""
+    if _records(q, k, v):
+        return _FlashAttention.apply(q, k, v, q_block or q.shape[1])
+    return _flash_attention(q, k, v)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward is the kernel (or its plain version); it saves q, k and
+    v only. The backward recomputes the scores of one block of
+    ``q_block`` query rows at a time against the keys up to the block's
+    end, in f32, so it never holds the whole (B, H, S, S) at full width:
+    with P = softmax(S), dV += Pᵀ·dO, dP = dO·Vᵀ, dS = P ∘ (dP - rowsum(P
+    ∘ dP)), dQ = dS·K·D^-0.5, dK += dSᵀ·Q·D^-0.5; a kv head's gradients
+    sum over its group of query heads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_block):
+        ctx.save_for_backward(q, k, v)
+        ctx.q_block = q_block
+        return _flash_attention(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        B, S, H, D = q.shape
+        Hkv = k.shape[2]
+        ct = torch.promote_types(q.dtype, torch.float32)
+        scale = D ** -0.5
+        kf, vf = k.to(ct), v.to(ct)
+        dq = torch.empty((B, S, H, D), dtype=ct, device=q.device)
+        dk = torch.zeros((B, S, Hkv, D), dtype=ct, device=q.device)
+        dv = torch.zeros_like(dk)
+        pos = torch.arange(S, device=q.device)
+        for lo in range(0, S, ctx.q_block):
+            hi = min(lo + ctx.q_block, S)
+            qb = q[:, lo:hi].to(ct).reshape(B, hi - lo, Hkv, H // Hkv, D)
+            gb = g[:, lo:hi].to(ct).reshape(qb.shape)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kf[:, :hi]) * scale
+            causal = pos[lo:hi, None] >= pos[None, :hi]
+            p = torch.softmax(torch.where(causal, s, -1e30), dim=-1)
+            del s
+            dv[:, :hi] += torch.einsum("bhgqk,bqhgd->bkhd", p, gb)
+            dp = torch.einsum("bqhgd,bkhd->bhgqk", gb, vf[:, :hi])
+            ds = p.mul_(dp.sub_((p * dp).sum(-1, keepdim=True)))
+            del dp
+            dq[:, lo:hi] = torch.einsum("bhgqk,bkhd->bqhgd", ds,
+                                        kf[:, :hi]).reshape(
+                                            B, hi - lo, H, D) * scale
+            dk[:, :hi] += torch.einsum("bhgqk,bqhgd->bkhd", ds, qb) * scale
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
 
 
 # --------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Attention of the LM, the dense-GQA part of the JAX package's
 `models/attention.py`: the training/prefill attention (`gqa_forward`,
-through the causal attention kernel, `ops.flash_attention`), the
+through the causal attention kernel, `ops.flash_attention`, whose
+backward is plain PyTorch in blocks of ``cfg.q_block`` query rows), the
 single-token decode against a KV cache (`gqa_decode`, plain PyTorch, as
 the JAX package computes it outside any kernel). Where the JAX forward
 runs its jnp chunked online softmax (`chunked_attention`), the port runs
@@ -55,7 +56,7 @@ def gqa_forward(params, cfg: ModelConfig, x: torch.Tensor,
     v = peinsum("bsd,dhk->bshk", x, params["wv"])
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    o = ops.flash_attention(q, k, v)
+    o = ops.flash_attention(q, k, v, q_block=qb)
     mask = _head_mask(cfg, o.dtype, o.device)
     if mask is not None:
         o = o * mask[None, None, :, None]
@@ -79,6 +80,19 @@ def _cache_write(cache: torch.Tensor, new: torch.Tensor,
     cache[b, slot] = torch.where(keep, new, cache[b, slot])
 
 
+def _tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Σ over the last axis in a fixed pairwise order: halves added
+    elementwise until one value is left (a zero pad makes an odd length
+    even). Every output element is then the same sum of the same terms
+    whatever the other axes hold."""
+    while x.shape[-1] > 1:
+        if x.shape[-1] % 2:
+            x = torch.cat([x, x.new_zeros(x.shape[:-1] + (1,))], dim=-1)
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
 def gqa_decode(params, cfg: ModelConfig, x: torch.Tensor,
                k_cache: torch.Tensor, v_cache: torch.Tensor,
                pos: torch.Tensor):
@@ -99,15 +113,18 @@ def gqa_decode(params, cfg: ModelConfig, x: torch.Tensor,
     _cache_write(v_cache, v, pos)
 
     H, Hkv = cfg.padded_heads, cfg.num_kv_heads
-    qg = q.reshape(B, Hkv, H // Hkv, -1)
-    # bf16 products are exact in f32: the JAX einsum's f32 accumulation.
-    s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k_cache.float()) \
+    qg = q.reshape(B, Hkv, H // Hkv, 1, -1).float()
+    # Both products sum in a fixed order (`_tree_sum`), so a lane's bits
+    # do not depend on how many lanes the batch holds; a batched GEMM may
+    # pick another kernel, and another order, for another batch.
+    s = _tree_sum(qg * k_cache.float().permute(0, 2, 1, 3)[:, :, None]) \
         * (q.shape[-1] ** -0.5)
     valid = torch.arange(Smax, device=x.device) <= pos[..., None]
     valid = valid.expand(B, Smax)
     s = torch.where(valid[:, None, None, :], s, _NEG)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    o = _tree_sum(p[:, :, :, None, :]
+                  * v_cache.float().permute(0, 2, 3, 1)[:, :, None])
     o = o.reshape(B, 1, H, -1).to(x.dtype)
     mask = _head_mask(cfg, o.dtype, o.device)
     if mask is not None:

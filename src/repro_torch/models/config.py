@@ -57,9 +57,10 @@ class MemoryLayerConfig:
     block is followed by a sparse top-K read (§3.1) and a write to
     {previously read ∪ LRA} rows (§3.2) of a per-sequence (B, N+1, W)
     memory. The JAX field ``backend`` has no counterpart (the port
-    dispatches by device). ``mem_dtype`` other than 'float32' and the
-    training fields ``unroll_mode``/``unroll_chunk`` are carried as data:
-    the LM layer runs f32 rows forward (ROADMAP A9b, A9c)."""
+    dispatches by device). In training the segments run through the
+    unroll engine in ``unroll_mode`` (naive, sparse or chunked, with
+    ``unroll_chunk``). ``mem_dtype`` other than 'float32' is carried as
+    data: the LM layer runs f32 rows (ROADMAP A9c)."""
     num_slots: int = 65536
     word_size: int = 128
     num_heads: int = 4

@@ -1,9 +1,11 @@
-"""The top-level LM's serving forward, the JAX package's `models/lm.py`
-for the dense GQA family: embeddings, the stack of blocks with a SAM
-memory layer after every group of `every_n_layers`, the final norm and the
-head; `prefill` (the full-sequence forward, whose attention is the causal
-attention kernel) and `decode_step`/`decode_scan` against a KV cache, with
-or without memory states.
+"""The top-level LM, the JAX package's `models/lm.py` for the dense GQA
+family: embeddings, the stack of blocks with a SAM memory layer after
+every group of `every_n_layers`, the final norm and the head. `forward`
+and `loss_fn` train (under autograd, the blocks under
+`torch.utils.checkpoint` with ``cfg.remat``, the memory layers through the
+unroll engine); `prefill` (the full-sequence forward, whose attention is
+the causal attention kernel) and `decode_step`/`decode_scan` against a KV
+cache, with or without memory states, serve under inference mode.
 
 Dtypes follow JAX: the weights are cast to the compute dtype per call
 (`_cast`, a no-op on weights already held in it). A memory layer adds its
@@ -11,13 +13,13 @@ f32 reads to the stream, which promotes a bf16 stream to f32 after the
 first memory group in `forward`/`prefill` (later blocks then run f32
 activations against bf16 weights); `decode_step` casts the read back to
 the stream's dtype. Caches and memory states are updated in place (JAX
-returns new ones). Forward only: `loss_fn` and the memory layer's
-training are ROADMAP item A9b."""
+returns new ones)."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import sam_layer
 from repro_torch.models import transformer as tfm
@@ -78,18 +80,29 @@ def _head_weight(params, cfg: ModelConfig) -> torch.Tensor:
     return params["lm_head"].to(cd)
 
 
-@torch.inference_mode()
+def _block(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    """One block; under autograd with ``cfg.remat`` its activations are
+    recomputed in the backward (JAX's ``jax.checkpoint`` with
+    ``nothing_saveable``), the memory layers never."""
+    if cfg.remat and torch.is_grad_enabled() and x.requires_grad:
+        return checkpoint(tfm.block_forward, p, cfg, x, positions,
+                          use_reentrant=False)
+    return tfm.block_forward(p, cfg, x, positions)
+
+
 def forward(params, cfg: ModelConfig, batch):
     """batch {"tokens": (B, S) int} -> (final hidden states (B, S, d),
     the auxiliary loss: 0, the dense blocks make none). With a memory, the
     blocks run in groups and each group is followed by
-    `sam_layer.memory_layer_seq` on fresh memory states."""
+    `sam_layer.memory_layer_seq`; one memory state, zero at the start,
+    runs through all the groups, as JAX threads one through its loop.
+    Differentiable in the weights when they require grad."""
     x = _embed(params, cfg, batch["tokens"])
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     blocks = _cast(params["blocks"], cfg)
     if cfg.memory is None:
         for i in range(cfg.num_layers):
-            x = tfm.block_forward(_layer(blocks, i), cfg, x, positions)
+            x = _block(_layer(blocks, i), cfg, x, positions)
     else:
         n_groups = _n_groups(cfg)
         per = cfg.num_layers // n_groups
@@ -97,7 +110,7 @@ def forward(params, cfg: ModelConfig, batch):
         mem_params = _cast(params["memory"], cfg)
         for g in range(n_groups):
             for i in range(g * per, (g + 1) * per):
-                x = tfm.block_forward(_layer(blocks, i), cfg, x, positions)
+                x = _block(_layer(blocks, i), cfg, x, positions)
             x, state = sam_layer.memory_layer_seq(_layer(mem_params, g), cfg,
                                                   x, state)
     x = rms_norm(x, _cast(params["final_norm"], cfg), cfg.norm_eps)
@@ -106,10 +119,54 @@ def forward(params, cfg: ModelConfig, batch):
 
 @torch.inference_mode()
 def prefill(params, cfg: ModelConfig, batch):
-    """The full-sequence forward; returns the last position's logits
-    (B, 1, V) in the promoted dtype of the hidden state and the head."""
+    """The full-sequence forward under inference mode; returns the last
+    position's logits (B, 1, V) in the promoted dtype of the hidden state
+    and the head."""
     hidden, _ = forward(params, cfg, batch)
     return einsum("bsd,dv->bsv", hidden[:, -1:], _head_weight(params, cfg))
+
+
+def chunked_ce(head_w: torch.Tensor, hidden: torch.Tensor,
+               targets: torch.Tensor, mask: torch.Tensor, chunk: int):
+    """Mean cross-entropy over the unmasked positions, ``chunk`` positions
+    at a time, so the (B, S, V) logits never exist whole: each chunk's f32
+    logits, their log-sum-exp and the target's logit. A ragged tail is
+    padded with masked positions. hidden (B, S, d), targets (B, S) int,
+    mask (B, S) f32."""
+    B, S, d = hidden.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
+        targets = torch.nn.functional.pad(targets, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for lo in range(0, S + pad, chunk):
+        hc, tc = hidden[:, lo:lo + chunk], targets[:, lo:lo + chunk]
+        mc = mask[:, lo:lo + chunk]
+        logits = einsum("bsd,dv->bsv", hc, head_w).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, tc.long()[..., None])[..., 0]
+        tot = tot + ((lse - picked) * mc).sum()
+        cnt = cnt + mc.sum()
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """batch {"tokens" (B, S), "targets" (B, S_t)[, "mask" (B, S_t)]} ->
+    (loss, {"ce", "aux"}): `chunked_ce` over the last S_t positions in
+    chunks of ``cfg.loss_chunk``, plus the auxiliary loss."""
+    hidden, aux = forward(params, cfg, batch)
+    targets = batch["targets"]
+    hidden = hidden[:, -targets.shape[1]:]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device)
+    ce = chunked_ce(_head_weight(params, cfg), hidden, targets, mask,
+                    cfg.loss_chunk)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # --------------------------------------------------------------------------

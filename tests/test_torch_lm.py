@@ -301,9 +301,17 @@ def test_flash_attention_bf16_split_p_within_one_ulp(S_, D, scale):
 
 
 def test_flash_attention_has_no_gradient():
+    """The TPU kernel has no gradient (JAX differentiates
+    `chunked_attention`); the port's op has one since LM training was
+    ported: its plain blockwise backward equals autograd through the plain
+    version (`tests/test_torch_lm_train.py` holds it against JAX)."""
     q, k, v = (_t(x).requires_grad_() for x in _qkv(0, 1, 16, 2, 1, 16))
-    with pytest.raises(NotImplementedError, match="A9b"):
-        ops.flash_attention(q, k, v)
+    got = torch.autograd.grad(ops.flash_attention(q, k, v, q_block=8).sum(),
+                              (q, k, v))
+    want = torch.autograd.grad(ref.flash_attention_ref(q, k, v).sum(),
+                               (q, k, v))
+    for a, b in zip(got, want):
+        _close(a, b, FLASH_TOL)
 
 
 # --------------------------------------------------------------------------
