@@ -8,7 +8,8 @@ H = K = 4, W = 32, δ = 0.005) with N = 2^20 memory rows, B = 8 and T = 42
 — through the hand-written CUDA kernels: on f32 rows forward and in
 training, with the exact read and with the LSH read (kind ``sam_ann``: 4
 tables of 8 bits, buckets of 32, so C = 4·32 + 20 = 148 candidates per
-head), and on bf16 and int8 rows forward, with both reads; then the dense
+head), and on bf16 and int8 rows forward and in training, with both
+reads; then the dense
 baselines (DAM, whose least-used row is the `usage_argmin` kernel, the
 NTM and the LSTM) forward and in training, and the paper's comparison of
 SAM against DAM and the NTM as N grows; then the SAM-augmented LM at
@@ -37,7 +38,11 @@ trained (8 of its 32 layers at full width, AdamW). It fails
    the forward kernels; for `scatter_rows`, the inputs of a real backward:
    the rollback of step 21 ('set', which must also give back the memory
    before step 21's write bit for bit), the read-cotangent add ('add') and
-   a case heavy in duplicates (both modes);
+   a case heavy in duplicates (both modes); the same on a bf16 rollout's
+   step 21 (the bf16 instantiation) and, on an int8 rollout's, the
+   restore of (codes, scale) pairs ('set', which must give back both) and
+   the f32 kernel at W = 1 on a (B, N+1, 1) view of the scales'
+   cotangent ('set' and 'add');
 3. run the forward path (`SAM.forward` = `sam_unroll`) in lockstep — at
    every step the plain versions run on the inputs the kernels got and the
    outputs are compared, the rollout going on with the kernels' results —
@@ -99,6 +104,22 @@ trained (8 of its 32 layers at full width, AdamW). It fails
    c. each instantiation's time against its bound, the plain version's
       time, the rollout's host ms/step, device ms/step (`torch.profiler`)
       and peak memory beside the state's size;
+   d. training on these rows: a sparse forward and backward from the
+      rollout's final state in lockstep, with the launches of a backward
+      step exact (bf16: 6 scatters on bf16 rows; int8: 2 restores of
+      (codes, scale) pairs, 2 f32 scatters on the scales' cotangent and
+      the replayed int8 write) and the memory (and scales) back bit for
+      bit; chunked against sparse within the gradient bar; the main path
+      (one `make_task_train_step` step in lockstep with the counters set
+      to 0 just before it and read just after, exact, then three more
+      RMSProp steps without a NaN); a small step (N = 1000, T = 12) on the
+      card against the CPU (int8 within 1e-5, bf16 within BF16_GRAD_BAR of
+      max(1, |g|)); the train step's ms, forward and backward apart, and
+      its peak beside `residual_accounting` plus the cotangent buffer;
+   e. (exact read) the bf16 scatter ('set' of step 21's rollback, 'add' of
+      the read cotangent) and the int8 restore timed against their bounds,
+      plain versions and `index_put_` (with ``accumulate=True`` for
+      'add'; none restores codes and scales in one call);
 8. the dense baselines (`core/dense.py`), at the same widths, λ = 0.99:
    a. `usage_argmin` against its plain version at (B, N) = (8, 2^20),
       indices equal, on DAM's initial usage table, the table at step 21 of
@@ -151,7 +172,8 @@ trained (8 of its 32 layers at full width, AdamW). It fails
       against its bound (bf16: q·kᵀ and the two bf16 products of p·v at
       the tensor cores' rate; f32: f32 FMAs), its share of it, its plain
       version and `scaled_dot_product_attention` (and the factor); the
-      memory kernels at the LM's shapes; the prefill (median of 3); the decode's ms per token, a
+      memory kernels at the LM's shapes (the row scatter's 'set' and
+      'add' of J = 36 rows too); the prefill (median of 3); the decode's ms per token, a
       window of 32 greedy steps timed as one span, the median of five
       windows after one untimed (single steps, median of 5, on the
       side); their peaks and the window's device time
@@ -211,6 +233,11 @@ trained (8 of its 32 layers at full width, AdamW). It fails
       (`dnc_bytes`), with the SDNC's speed-up;
    f. the rollouts' host ms per step (median of five), device ms per step
       (`torch.profiler`) and peaks;
+   g. the SDNC on bf16 rows, exact and LSH: the rollout in lockstep (its
+      two scatters and its read on their bf16 instantiations), then a
+      sparse forward and backward from its final state in lockstep, 7 of
+      the 13 scatters a backward step on bf16 rows, the memory, N_t and
+      P_t back bit for bit;
 12. the continuous-batching serving engine (`repro_torch.launch.engine`)
    at StarCoder2-7B's full width on phase 9's weights: 4 lanes, a cache
    of 128, two hot sessions and the rest spilled to disk:
@@ -252,7 +279,12 @@ trained (8 of its 32 layers at full width, AdamW). It fails
       sparse within 1e-5 of max(1, |g|), naive against sparse within the
       JAX suite's atol 2e-4 (of the leaf's max(1, |g|): the gradients
       reach 1e6) / rtol 1e-3; the memory zero again, bit for bit, after
-      every rollback;
+      every rollback; the leaf and element of the largest naive miss of
+      the bar taken elementwise, with both values; then each memory group
+      on the sparse run's inputs and output cotangent, its sparse and
+      naive gradients at f32 against an f64 re-implementation of the
+      group on the naive run's selections (`group_f64`, which in f32 must
+      agree with the naive unroll within the JAX suite's bar);
    c. the step's forward and backward in lockstep (every attention,
       read, write, LRA and scatter launch held against its plain
       version), then the train step itself (the main path), the counters
@@ -362,6 +394,13 @@ REPLACES = {
     "fused_read_candidates_int8": (
         "src/repro/kernels/fused_read.py:210",
         "src/repro_torch/kernels/csrc/fused_read_candidates.cu"),
+    # The row scatter on bf16 rows (the Pallas kernel's bf16 case) and the
+    # int8 (row, scale) restore, which JAX runs through its oracle: no
+    # Pallas counterpart.
+    "scatter_rows_bf16": ("src/repro/kernels/scatter_rows.py:29",
+                          "src/repro_torch/kernels/csrc/scatter_rows.cu"),
+    "scatter_rows_int8": ("src/repro/kernels/ref.py:247",
+                          "src/repro_torch/kernels/csrc/scatter_rows.cu"),
     # DAM's least-used row (phase 8).
     "usage_argmin": ("src/repro/kernels/usage_argmin.py:26",
                      "src/repro_torch/kernels/csrc/usage_argmin.cu"),
@@ -416,6 +455,12 @@ SLICE_TOL = 1e-4               # tests/test_torch_lm.py's bar for the slice
 TRAIN_LAYERS, TRAIN_B, TRAIN_S = 8, 4, 2048
 TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP, TRAIN_CHUNK = 4, 3e-4, 1, 2
 NAIVE_ATOL, NAIVE_RTOL = 2e-4, 1e-3   # tests/test_unroll.py's bar
+# bf16 rows' gradients, card against CPU, of max(1, |g|): the bar the CPU
+# tests hold the port to against JAX on bf16 rows, twice JAX's own spread
+# across its modes and backends (0.0205 at their inputs,
+# tests/test_torch_dtypes.py::_bf16_bar): one bf16 rounding that drift
+# flips moves a gradient by up to an ulp of the memory's cotangent.
+BF16_GRAD_BAR = 2e-2
 # Phase 10, the slot-sharded memory: MESH_S ranks, one block of N/MESH_S
 # rows each, all on the one card, joined by gloo.
 MESH_S = 4
@@ -435,6 +480,8 @@ SDNC_STEP = {"lra_topn": 1, "scatter_rows": 2, "fused_read_sweep": 1}
 SDNC_LSH_STEP = {"lra_topn": 1, "scatter_rows": 2, "lsh_hash": 2,
                  "fused_read_candidates": 1}
 SDNC_BWD_SCATTERS = 13
+# Of those, on bf16 rows, the memory's seven run on the bf16 instantiation.
+SDNC_BF16_BWD_SCATTERS = 7
 SDNC_CHUNK = 14
 FLAT_NS = (1 << 16, 1 << 18, 1 << 20)
 # Phase 12, the serving engine at the LM's full width on phase 9's weights:
@@ -629,14 +676,26 @@ class Checker:
                     f"the plain version's bit for bit (max err {err:.3g})")
         self.err[name] = max(self.err[name], err)
 
-    def scatter(self, before, idx, rows, mode, after):
+    def scatter(self, before, idx, rows, mode, after, scales=None):
         """``before``: a copy of the buffer the kernel got, which the plain
-        version updates here; ``after``: the kernel's result."""
-        want = self.ref.scatter_rows_ref(before, idx.contiguous(),
-                                         rows.contiguous(), mode)
-        err = (after - want).abs().max().item()
-        require(torch.equal(after, want), f"scatter_rows '{mode}' differs "
-                f"from its plain version (max err {err:.3g})")
+        version updates here; ``after``: the kernel's result. For int8
+        rows ``scales`` is (copy of the scales the kernel got, the rows'
+        scales, the kernel's scales). Bit for bit, bf16 rows compared as
+        their bits."""
+        name = kernel_name("scatter_rows", before)
+        if scales is None:
+            want = self.ref.scatter_rows_ref(before, idx.contiguous(),
+                                             rows.contiguous(), mode)
+        else:
+            s0, rows_scale, s_after = scales
+            want, s_want = self.ref.scatter_rows_q_ref(
+                before, s0, idx.contiguous(), rows.contiguous(),
+                rows_scale.contiguous(), mode)
+            require(torch.equal(s_after, s_want), f"{name} '{mode}': scales "
+                    f"differ from its plain version's")
+        err = (after.float() - want.float()).abs().max().item()
+        require(torch.equal(after, want), f"{name} '{mode}' differs from "
+                f"its plain version (max err {err:.3g})")
         self.scatter_calls[mode] += 1
 
 
@@ -728,13 +787,22 @@ class Intercept:
                 self.checker.write(before, out)
             return out
 
-        def scatter_rows(mem, idx, rows, mode="add"):
-            self._keep("scatter_rows", (mem, idx, rows, mode))
+        def scatter_rows(mem, idx, rows, mode="add", *, mem_scale=None,
+                         rows_scale=None):
+            self._keep("scatter_rows", (mem, idx, rows, mode, mem_scale,
+                                        rows_scale))
             before = mem.detach().clone() if self.checker else None
-            out = scatter0(mem, idx, rows, mode)
+            s0 = (mem_scale.clone() if self.checker and mem_scale is not None
+                  else None)
+            out = scatter0(mem, idx, rows, mode, mem_scale=mem_scale,
+                           rows_scale=rows_scale)
             if self.checker:
-                self.checker.scatter(before, idx, rows.detach(), mode,
-                                     out.detach())
+                if mem_scale is None:
+                    self.checker.scatter(before, idx, rows.detach(), mode,
+                                         out.detach())
+                else:
+                    self.checker.scatter(before, idx, rows, mode, out[0],
+                                         (s0, rows_scale, out[1]))
             return out
 
         ops.lra_topn, ops.fused_read = lra_topn, fused_read
@@ -1243,6 +1311,7 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
     from repro_torch.configs import get_config, reduced
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fused_read import fused_read_sweep
+    from repro_torch.kernels.scatter_rows import scatter_rows
     from repro_torch.kernels.sparse_write import sparse_write_update
     from repro_torch.kernels.usage_argmin import lra_topn
     from repro_torch.launch.serve import serve
@@ -1486,7 +1555,35 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
                                flush),
             bound=bound(4 * (LM_B * N_ + LM_B * n_), LM_B * N_)),
     }
-    del m_w, l_w, rec_lm
+    # The row scatter at the LM's shapes, on a backward's inputs: the
+    # rollback of step 21's J rows ('set') and its replayed write's 'add'
+    # of the J rows w·a (six scatters of these shapes a replayed segment,
+    # 48 a train step, phase 13).
+    idx_s = wr_[2]
+    old_s = ref.gather_rows(wr_[0], idx_s)
+    add_s = ref.write_rows(wr_[3], wr_[4])
+    m_s = wr_[0].clone()
+    b_s = torch.arange(LM_B, device=dev)[:, None].expand(LM_B, J_)
+    il_s = idx_s.long()
+    mem_rows["scatter_rows"] = dict(
+        ms=time_ms(lambda: scatter_rows(m_s, idx_s, old_s, mode="set"), 50,
+                   flush),
+        plain_ms=time_ms(lambda: ref.scatter_rows_ref(m_s, idx_s, old_s,
+                                                      "set"), 20, flush),
+        library_ms=time_ms(lambda: m_s.index_put_((b_s, il_s), old_s), 50,
+                           flush),
+        bound=bound(4 * (LM_B * J_ + 2 * uniq_ * W_), 0))
+    mem_rows["scatter_rows_add"] = dict(
+        ms=time_ms(lambda: scatter_rows(m_s, idx_s, add_s, mode="add"), 50,
+                   flush),
+        plain_ms=time_ms(lambda: ref.scatter_rows_ref(m_s, idx_s, add_s,
+                                                      "add"), 20, flush),
+        library_ms=time_ms(lambda: m_s.index_put_((b_s, il_s), add_s,
+                                                  accumulate=True), 50,
+                           flush),
+        bound=bound(4 * (LM_B * J_ + LM_B * J_ * W_ + 2 * uniq_ * W_),
+                    LM_B * J_ * W_))
+    del m_w, l_w, rec_lm, m_s
 
     # The prefill and a decode step, on the host clock (synchronised).
     def prefill_run(_):
@@ -2045,6 +2142,129 @@ def f64_err(got: torch.Tensor, exact: torch.Tensor) -> float:
             / exact.abs().clamp_min(1.0)).max().item()
 
 
+def leaf_names(tree, prefix="") -> list[str]:
+    """Dotted names of a nested dict / list's leaves, in `tree_leaves`
+    order."""
+    if isinstance(tree, dict):
+        return [n for k in tree for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def group_f64(p, cfg, x, sels):
+    """One LM memory group (`sam_layer.memory_layer_seq` over x (B, S, d))
+    in plain PyTorch in x's dtype, with the LRA rows and the read rows of
+    each segment fixed to ``sels`` [(lra (B, H), read (B, H, K))]: the
+    memory a fresh (B, N+1, W) zero buffer, each write an erase and an
+    accumulated add, each read the differentiable tail on its rows, all
+    under autograd. In f64 it is the arbiter of the group's naive and
+    sparse f32 gradients."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels import ref
+    from repro_torch.models import sam_layer
+    m = cfg.memory
+    B, S, d = x.shape
+    n = len(sels)
+    seg = S // n
+    H, K, W_ = m.num_heads, m.k, m.word_size
+    pooled = x.reshape(B, n, seg, d).mean(2)
+    mem = x.new_zeros((B, m.num_slots + 1, W_))
+    prev = SimpleNamespace(read_idx=torch.zeros((B, H, K), dtype=torch.int32,
+                                                device=x.device),
+                           read_w=x.new_zeros((B, H, K)))
+    b = torch.arange(B, device=x.device)[:, None]
+    outs = []
+    for t, (lra, idx) in enumerate(sels):
+        q, a, alpha, gamma, beta = sam_layer._interface(p, cfg, pooled[:, t])
+        widx, ww = sam_layer._write_weights(prev, lra, alpha, gamma)
+        mem = mem.index_put((b.expand(B, H), lra.long()),
+                            x.new_zeros((B, H, W_)))
+        rows = ww[..., None] * a.repeat_interleave(K + 1, dim=1)
+        mem = mem.index_put((b.expand(B, widx.shape[1]), widx.long()), rows,
+                            accumulate=True)
+        words = mem[b[:, :, None], idx.long()]
+        read, w = ref.read_tail_rows(q, words, beta, idx >= 0)
+        outs.append(torch.einsum("bhw,hwd->bd", read, p["wr"]))
+        prev = SimpleNamespace(read_idx=idx, read_w=w)
+    reads = torch.stack(outs, dim=1).repeat_interleave(seg, dim=1)
+    return x + reads
+
+
+def group_f64_check(cfg, rec, seq, init_state, ops, ref):
+    """Satellite of phase 13 (b): one memory group at full width, on the
+    sparse run's inputs to it (``rec``: its weights, its input x and the
+    cotangent of its output), the group's gradients (weights and x) in
+    the sparse and the naive unroll at f32 against `group_f64` in f64 on
+    the selections the naive run made. `group_f64` in f32 must agree with
+    the naive unroll within the JAX suite's bar (it computes the same
+    function). Returns the errors, of max(1, |g64|) element by element."""
+    B = rec["x"].shape[0]
+
+    def port(mode):
+        c = dataclasses.replace(cfg, memory=dataclasses.replace(
+            cfg.memory, unroll_mode=mode, unroll_chunk=None))
+        p = {k: v.clone().requires_grad_() for k, v in rec["p"].items()}
+        x = rec["x"].clone().requires_grad_()
+        y, _ = seq(p, c, x, init_state(c, B, device=x.device))
+        return torch.autograd.grad(y, [*p.values(), x], rec["ct"])
+
+    sels, lra0, read0 = [], ops.lra_topn, ops.fused_read
+
+    def lra(*a, **kw):
+        out = lra0(*a, **kw)
+        sels.append([out.detach().clone()])
+        return out
+
+    def read(*a, **kw):
+        out = read0(*a, **kw)
+        sels[-1].append(out[2].detach().clone())
+        return out
+
+    g_sparse = port("sparse")
+    ops.lra_topn, ops.fused_read = lra, read
+    try:
+        g_naive = port("naive")
+    finally:
+        ops.lra_topn, ops.fused_read = lra0, read0
+
+    def reimpl(dtype):
+        p = {k: v.to(dtype).requires_grad_() for k, v in rec["p"].items()}
+        x = rec["x"].to(dtype).requires_grad_()
+        y = group_f64(p, cfg, x, sels)
+        return torch.autograd.grad(y, [*p.values(), x], rec["ct"].to(dtype))
+
+    g64 = reimpl(torch.float64)
+    g32 = reimpl(torch.float32)
+    names = [*rec["p"], "x"]
+
+    def err(got):
+        return {n: f64_err(a, e) for n, a, e in zip(names, got, g64)}
+
+    bar = max(((a - b).abs() / (NAIVE_ATOL * max(1.0, b.abs().max().item())
+                                + NAIVE_RTOL * b.abs())).max().item()
+              for a, b in zip(g32, g_naive))
+    require(bar <= 1.0, f"the f64 arbiter computed in f32 is not the naive "
+            f"unroll's function: {bar:.3g} of the JAX suite's bar")
+    res = {"sparse": err(g_sparse), "naive": err(g_naive),
+           "reimpl_f32": err(g32), "reimpl_f32_vs_naive_bar_ratio": bar}
+    s_max, n_max = max(res["sparse"].values()), max(res["naive"].values())
+    res["nearer"] = "sparse" if s_max < n_max else (
+        "naive" if n_max < s_max else "equal")
+    print(f"[train] a memory group at full width against an f64 naive "
+          f"gradient on the same selections, of max(1, |g64|): sparse "
+          f"{s_max:.3g} ({', '.join(f'{k} {v:.3g}' for k, v in res['sparse'].items())}), "
+          f"naive {n_max:.3g} ({', '.join(f'{k} {v:.3g}' for k, v in res['naive'].items())}); "
+          f"{res['nearer']} is nearer; the arbiter in f32 "
+          f"{max(res['reimpl_f32'].values()):.3g} (at {bar:.3g} of the JAX "
+          f"suite's bar from the naive unroll)")
+    del g_sparse, g_naive, g64, g32
+    torch.cuda.empty_cache()
+    return res
+
+
 def lm_train_phase(dev, ops, ref, checker, zero_counts, counts):
     """Phase 13: the LM's train step (`launch.steps.make_train_step`) at
     StarCoder2-7B's full width, TRAIN_LAYERS layers deep. Returns its
@@ -2146,8 +2366,25 @@ def lm_train_phase(dev, ops, ref, checker, zero_counts, counts):
                 m, unroll_mode=mode, unroll_chunk=chunk))
             return steps.value_and_grad(params, c, batch)
 
+        # The sparse run's inputs to each memory group, and the cotangent
+        # its output gets: what the f64 check below replays a group on.
+        groups = []
+        seq = sam_layer.memory_layer_seq
+
+        def capturing_seq(p, c, x, state, segment=None):
+            y, st = seq(p, c, x, state, segment)
+            rec = {"p": {kk: vv.detach().clone() for kk, vv in p.items()},
+                   "x": x.detach().clone()}
+            y.register_hook(lambda g: rec.__setitem__("ct", g.detach()))
+            groups.append(rec)
+            return y, st
+
         zero_counts()
-        loss_s, _, g_s = grads_of("sparse")
+        sam_layer.memory_layer_seq = capturing_seq
+        try:
+            loss_s, _, g_s = grads_of("sparse")
+        finally:
+            sam_layer.memory_layer_seq = seq
         torch.cuda.synchronize()
         f32_launches = counts()
         memory_back_to_zero("sparse (f32 compute)")
@@ -2174,6 +2411,30 @@ def lm_train_phase(dev, ops, ref, checker, zero_counts, counts):
                                             ).max().item())
             elementwise = max(elementwise, (d / (NAIVE_ATOL + NAIVE_RTOL
                                                  * b.abs())).max().item())
+        # Where the element-by-element bar is missed most: the leaf, the
+        # element, |g| there and the leaf's largest, and both modes' values.
+        worst = None
+        for name_, a_, b_ in zip(leaf_names(g_s), pytree.tree_leaves(g_s),
+                                 pytree.tree_leaves(g_n)):
+            r_ = (a_ - b_).abs() / (NAIVE_ATOL + NAIVE_RTOL * b_.abs())
+            i_ = int(r_.argmax())
+            if worst is None or r_.reshape(-1)[i_].item() > worst[0]:
+                worst = (r_.reshape(-1)[i_].item(), name_, a_, b_, i_)
+        ratio_w, name_w, a_w, b_w, i_w = worst
+        where = tuple(int(v) for v in torch.unravel_index(
+            torch.tensor(i_w), a_w.shape))
+        out["naive_vs_sparse_worst"] = dict(
+            leaf=name_w, element=where, ratio=ratio_w,
+            sparse=a_w.reshape(-1)[i_w].item(),
+            naive=b_w.reshape(-1)[i_w].item(),
+            leaf_max_abs=b_w.abs().max().item())
+        print(f"[train] naive against sparse, the largest miss of the "
+              f"element-by-element bar ({ratio_w:.3g} of it): leaf {name_w}"
+              f"{list(where)}, sparse {out['naive_vs_sparse_worst']['sparse']!r}"
+              f", naive {out['naive_vs_sparse_worst']['naive']!r} (|g| "
+              f"{abs(out['naive_vs_sparse_worst']['naive']):.4g} there, "
+              f"{out['naive_vs_sparse_worst']['leaf_max_abs']:.4g} the "
+              f"leaf's largest)")
         require(naive_ratio <= 1.0, f"sparse against naive gradients: "
                 f"{naive_ratio:.3g} of the bar atol {NAIVE_ATOL} of max(1, "
                 f"|g|), rtol {NAIVE_RTOL}")
@@ -2182,6 +2443,11 @@ def lm_train_phase(dev, ops, ref, checker, zero_counts, counts):
         require(loss_gap <= TOL * max(1.0, abs(float(loss_s))),
                 f"the modes' losses differ by {loss_gap:.3g}")
         del g_s, g_n
+        torch.cuda.empty_cache()
+        out["memory_groups_f64"] = [
+            group_f64_check(f32, rec, seq, init_state, ops, ref)
+            for rec in groups]
+        del groups
         torch.cuda.empty_cache()
         out.update(chunked_vs_sparse_grad_err=chunk_err,
                    naive_vs_sparse_bar_ratio=naive_ratio,
@@ -2642,11 +2908,11 @@ def dnc_phase(dev, ops, ref, checker, zero_counts, counts):
     ctl = ControllerConfig(input_size=BITS + 2, hidden_size=HIDDEN,
                            output_size=BITS)
 
-    def sdnc_cfg(n, ann="exact", **kw):
+    def sdnc_cfg(n, ann="exact", mem_dtype="float32", **kw):
         lsh = LSH if ann == "lsh" else {}
         return dnc.DNCConfig(MemoryConfig(num_slots=n, word_size=W,
                                           num_heads=H, k=K, delta=DELTA,
-                                          **lsh),
+                                          mem_dtype=mem_dtype, **lsh),
                              ctl, k_l=DNC_KL, sparse=True, **kw)
 
     inputs, targets, mask = associative_recall_task(
@@ -2766,6 +3032,61 @@ def dnc_phase(dev, ops, ref, checker, zero_counts, counts):
             <= TOL * abs(train["exact"]["loss"]), "chunked SDNC loss")
     print(f"[sdnc] chunked C={chunk}: gradients max err {chunk_err:.3g} "
           f"against sparse; buffers restored bit for bit")
+
+    # The SDNC on bf16 rows (ROADMAP A6b), exact and LSH: the rollout in
+    # lockstep, its two scatters and its read a step on their bf16
+    # instantiations; then a sparse forward and backward from its final
+    # state in lockstep, of whose 13 scatters a backward step the memory's
+    # seven run on bf16 rows (two rollbacks, the replayed write's two, the
+    # write's cotangent 'set', the two reads' 'add') and N_t's and P_t's
+    # six on f32; the memory, N_t and P_t back bit for bit.
+    bf16_runs = {}
+    for ann, per in (("exact", SDNC_STEP), ("lsh", SDNC_LSH_STEP)):
+        key = f"bf16-{ann}"
+        model = dnc.DNC(sdnc_cfg(N, ann, mem_dtype="bfloat16"), seed=0,
+                        device=dev)
+        rname = ("fused_read_sweep" if ann == "exact"
+                 else "fused_read_candidates") + SUFFIX["bfloat16"]
+        want_f = expect(per, T, scatter_rows_bf16=2 * T, **{rname: T})
+        zero_counts()
+        with Intercept(ops, checker=checker):
+            state, ys = model(model.init_state(B), xs)
+        torch.cuda.synchronize()
+        launched = counts()
+        require(launched == want_f, f"the bf16 {ann} SDNC rollout launched "
+                f"{launched}, expected {want_f}")
+        require(state.memory.dtype == torch.bfloat16
+                and ys.shape == (T, B, BITS)
+                and torch.isfinite(ys).all().item()
+                and torch.isfinite(state.memory).all().item()
+                and state.memory[:, N].eq(0).all().item(),
+                f"the bf16 {ann} SDNC's outputs or memory")
+        models[key], finals[key] = model, state
+        loss, grads, fwd, bwd, restored, acct = fwd_bwd(key, "sparse", None,
+                                                        True)
+        want_b = expect({}, T, scatter_rows=SDNC_BWD_SCATTERS * T,
+                        scatter_rows_bf16=SDNC_BF16_BWD_SCATTERS * T)
+        require(fwd == want_f, f"bf16 {ann} sparse forward launched {fwd}")
+        require(bwd == want_b, f"the bf16 {ann} SDNC backward launched "
+                f"{ {k: v for k, v in bwd.items() if v} }, expected "
+                f"{ {k: v for k, v in want_b.items() if v} }")
+        require(restored, f"the bf16 {ann} sparse backward did not give the "
+                f"memory, N_t and P_t back bit for bit")
+        require(torch.isfinite(loss).item() and all(
+            torch.isfinite(g).all().item() for g in grads),
+            f"a bf16 {ann} SDNC loss or gradient leaf is not finite")
+        bf16_runs[ann] = dict(fwd_launches=launched, bwd_launches=bwd,
+                              loss=loss.item(),
+                              residual_bytes=acct["residual_bytes"],
+                              state_bytes=tree_bytes(state))
+        print(f"[sdnc] bf16 {ann} rollout in lockstep: launches "
+              f"{ {k: v for k, v in launched.items() if v} }; sparse "
+              f"backward in lockstep: launches "
+              f"{ {k: v for k, v in bwd.items() if v} }; memory, N_t and "
+              f"P_t restored bit for bit; loss {loss.item():.6f}; state "
+              f"{tree_bytes(state)} B")
+        del models[key], finals[key], model, state, ys, grads
+        torch.cuda.empty_cache()
 
     # (c) the main path: one make_task_train_step step of kind sdnc.
     spec = training.ModelSpec("sdnc", sdnc_cfg(N).memory, ctl)
@@ -2965,6 +3286,7 @@ def dnc_phase(dev, ops, ref, checker, zero_counts, counts):
     per_step = {"exact": dict(SDNC_STEP), "lsh": dict(SDNC_LSH_STEP),
                 "backward_scatter_rows": SDNC_BWD_SCATTERS}
     return dict(per_step=per_step, forward_launches=fwd_launches,
+                bf16=bf16_runs,
                 train=train, chunk=chunk, chunk_err=chunk_err,
                 main_path_launches=main_launches, main_losses=losses,
                 card_vs_cpu_grad_err=card_vs_cpu, flat=flat, fig7=fig7,
@@ -3154,6 +3476,91 @@ def run() -> None:
               f"rollback gives back the memory before step {step}'s write "
               f"bit for bit")
 
+        # The bf16 and int8 instantiations on the inputs of a real backward
+        # of each: a rollout of 21 steps on bf16 and on int8 rows, whose
+        # step-21 write is rolled back ('set'; int8: codes and scales
+        # together), whose step-21 read takes the cotangent 'add' (bf16
+        # rows; the int8 scales' cotangent is the f32 kernel at W = 1), and
+        # a case heavy in duplicates.
+        for dtype in ("bfloat16", "int8"):
+            d_model = sam.SAM(sam.SAMConfig(dataclasses.replace(
+                cfg.memory, mem_dtype=dtype), cfg.controller), seed=0,
+                device=dev)
+            with Intercept(ops, record=True) as rec_d:
+                d_model(d_model.init_state(B), xs[:step])
+            wr_d = rec_d.records[("sparse_write_update", step)]
+            q_d, mem_d, beta_d, _, _, s_d = rec_d.records[("fused_read_sweep",
+                                                           step)]
+            widx_d, J_d = wr_d[2], wr_d[2].shape[1]
+            old_d = ref.gather_rows(wr_d[0], widx_d)
+            ridx_d = fused_read_sweep(q_d, mem_d, beta_d, k=K, valid_n=N,
+                                      mem_scale=s_d)[2].reshape(B, H * K)
+            dup_d = torch.randint(0, 3, (B, J_d), generator=cpu,
+                                  dtype=torch.int32).to(dev)
+            if dtype == "bfloat16":
+                cases = {
+                    "rollback of step 21 (set)": (mem_d, widx_d, old_d, "set"),
+                    "read cotangent (add)": (
+                        torch.zeros_like(mem_d), ridx_d,
+                        randn(B, H * K, W).bfloat16(), "add"),
+                    "duplicates (add)": (mem_d, dup_d,
+                                         randn(B, J_d, W).bfloat16(), "add"),
+                    "duplicates (set)": (mem_d, dup_d,
+                                         randn(B, J_d, W).bfloat16(), "set")}
+                for name, (buf, idx, rows, mode) in cases.items():
+                    out = scatter_rows(buf.clone(), idx, rows, mode=mode)
+                    checker.scatter(buf.clone(), idx, rows, mode, out)
+                    if name.startswith("rollback"):
+                        require(torch.equal(out, wr_d[0]), "the bf16 "
+                                "rollback of step 21 does not give back the "
+                                "memory before its write")
+                    del out
+            else:
+                scale0 = wr_d[8]
+                old_s = ref.gather_rows(scale0[..., None], widx_d)[..., 0]
+                codes = torch.randint(-127, 128, (B, J_d, W), generator=cpu,
+                                      dtype=torch.int8).to(dev)
+                cases = {
+                    "rollback of step 21 (set)": (widx_d, old_d, old_s),
+                    "duplicates (set)": (dup_d, codes, randn(B, J_d).abs())}
+                for name, (idx, rows, rows_s) in cases.items():
+                    buf, sc = mem_d.clone(), s_d.clone()
+                    scatter_rows(buf, idx, rows, mode="set", mem_scale=sc,
+                                 rows_scale=rows_s)
+                    checker.scatter(mem_d.clone(), idx, rows, "set", buf,
+                                    (s_d.clone(), rows_s, sc))
+                    if name.startswith("rollback"):
+                        require(torch.equal(buf, wr_d[0])
+                                and torch.equal(sc, scale0), "the int8 "
+                                "rollback of step 21 does not give back the "
+                                "codes and scales before its write")
+                    del buf, sc
+                # The scales' cotangent, (B, N+1) f32 as a (B, N+1, 1) view:
+                # the write's 'set' of the old scales' gradient at the
+                # written rows, the read's 'add' at the read rows.
+                ct = randn(B, N + 1)
+                for name, idx, mode in (("scale cotangent (set)", widx_d,
+                                         "set"),
+                                        ("scale cotangent (add)", ridx_d,
+                                         "add"),
+                                        ("scale cotangent, duplicates (add)",
+                                         dup_d, "add")):
+                    rows = randn(B, idx.shape[1], 1)
+                    out = scatter_rows(ct.clone()[..., None], idx, rows,
+                                       mode=mode)
+                    checker.scatter(ct.clone()[..., None], idx, rows, mode,
+                                    out)
+                    cases[name] = None
+            torch.cuda.synchronize()
+            print(f"[kernels] {kernel_name('scatter_rows', mem_d)} on a "
+                  f"{dtype} backward's inputs at full width: "
+                  f"{', '.join(cases)}; bit for bit against the plain "
+                  f"version; the rollback gives back the "
+                  f"{'codes and scales' if dtype == 'int8' else 'rows'} "
+                  f"before step {step}'s write bit for bit")
+            del d_model, rec_d, wr_d, q_d, mem_d, beta_d, s_d, old_d, cases
+            torch.cuda.empty_cache()
+
     # ---- 3. the forward path, in lockstep ----
     zero_counts()
     state = model.init_state(B)
@@ -3213,6 +3620,8 @@ def run() -> None:
         s = c.init_state(B, device=dev)
         s.memory.copy_(src.memory)
         s.last_access.copy_(src.last_access)
+        if src.mem_scale is not None:
+            s.mem_scale.copy_(src.mem_scale)
         return s._replace(read=type(src.read)(*(t.clone() for t in src.read)),
                           ctrl=type(src.ctrl)(*(t.clone() for t in src.ctrl)),
                           step=src.step.clone(), ann=src.ann)
@@ -3222,9 +3631,10 @@ def run() -> None:
         `start_state(c, src)` with the weights ``flat`` ((leaves, spec),
         by default the exact model's). Returns (loss, grads (a zero one
         for a leaf the loss does not reach), fwd counts, bwd counts,
-        memory restored, residual accounting)."""
+        memory (and int8 scales) restored, residual accounting)."""
         s0 = start_state(c, src)
         m0 = s0.memory.clone()
+        sc0 = None if s0.mem_scale is None else s0.mem_scale.clone()
         f_leaves, f_spec = (flat_p, p_spec) if flat is None else flat
         leaves = [p.clone().requires_grad_() for p in f_leaves]
         params = pytree.tree_unflatten(leaves, f_spec)
@@ -3243,7 +3653,8 @@ def run() -> None:
                      for p, g in zip(leaves, grads)]
             torch.cuda.synchronize()
             bwd = counts()
-        restored = torch.equal(s0.memory, m0)
+        restored = torch.equal(s0.memory, m0) and (
+            sc0 is None or torch.equal(s0.mem_scale, sc0))
         return loss.detach(), grads, fwd, bwd, restored, acct
 
     def checked_since(before):
@@ -3283,13 +3694,15 @@ def run() -> None:
           f"against sparse; backward launches {bwd_c} (the segment's "
           f"forward is recomputed once); memory restored bit for bit")
 
-    def main_step(kind, flat):
-        """The main path of ``kind``: one `make_task_train_step` step, in
-        lockstep, with every counter set to 0 just before it and read just
-        after, then three more RMSProp steps; nothing may turn NaN. Returns
+    def main_step(kind, flat, memory=None):
+        """The main path of ``kind`` (on ``memory``'s rows, by default the
+        exact f32 cell's): one `make_task_train_step` step, in lockstep,
+        with every counter set to 0 just before it and read just after,
+        then three more RMSProp steps; nothing may turn NaN. Returns
         (step_fn, params, opt_state, launches of the first step)."""
+        memory = cfg.memory if memory is None else memory
         _, _, fn = training.make_task_train_step(
-            training.ModelSpec(kind, cfg.memory, cfg.controller), LR,
+            training.ModelSpec(kind, memory, cfg.controller), LR,
             device=dev)
         p0 = pytree.tree_unflatten([p.clone() for p in flat[0]], flat[1])
         o0 = opt.rmsprop_init(p0)
@@ -3299,7 +3712,8 @@ def run() -> None:
             p1, o1, loss, err = fn(p0, o0, inputs, targets, mask)
         torch.cuda.synchronize()
         launched = counts()
-        print(f"[train] main path ({kind}): one make_task_train_step step, "
+        print(f"[train] main path ({kind}, {memory.mem_dtype} rows): one "
+              f"make_task_train_step step, "
               f"launches {launched}; loss {loss.item():.6f}, bit error "
               f"{err.item():.4f}; scatter_rows calls checked in lockstep "
               f"{checked_since(before)}")
@@ -3327,11 +3741,13 @@ def run() -> None:
     require(launches["lsh_hash"] == launches["fused_read_candidates"] == 0,
             "the exact-read train step launched an LSH kernel")
 
-    def small_train(kind):
-        """A small training step (N = 1000, T = 12) of ``kind``: kernels on
-        the card against the plain versions on the CPU. Returns the
-        largest gradient error."""
-        small_spec = training.ModelSpec(kind, small.memory, small.controller)
+    def small_train(kind, dtype="float32", bar=None):
+        """A small training step (N = 1000, T = 12) of ``kind`` on rows of
+        ``dtype``: kernels on the card against the plain versions on the
+        CPU; gradients within atol = rtol = GRAD_ATOL, or within ``bar``
+        of max(1, |g|) where given. Returns the largest gradient error."""
+        small_spec = training.ModelSpec(kind, dataclasses.replace(
+            small.memory, mem_dtype=dtype), small.controller)
         batch = copy_task(2, 5, 5, BITS, device="cpu",
                           generator=torch.Generator().manual_seed(4))
         results = {}
@@ -3356,11 +3772,16 @@ def run() -> None:
         require(abs(l_gpu - l_cpu) <= TOL * abs(l_cpu),
                 f"small {kind} train step: loss {l_gpu} on the card, "
                 f"{l_cpu} on the CPU")
-        require(all(torch.allclose(a, b, atol=GRAD_ATOL, rtol=GRAD_RTOL)
-                    for a, b in zip(g_gpu, g_cpu)),
-                f"small {kind} train step: gradients differ (max err "
-                f"{grad_err:.3g})")
-        print(f"[train] small {kind} step (N=1000, T=12) card vs CPU: loss "
+        if bar is None:
+            ok = all(torch.allclose(a, b, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+                     for a, b in zip(g_gpu, g_cpu))
+        else:
+            grad_err = max(rel_err(a, b) for a, b in zip(g_gpu, g_cpu))
+            ok = grad_err <= bar
+        require(ok, f"small {kind} train step ({dtype} rows): gradients "
+                f"differ (max err {grad_err:.3g})")
+        print(f"[train] small {kind} step ({dtype} rows, N=1000, T=12) card "
+              f"vs CPU: loss "
               f"rel err {abs(l_gpu - l_cpu) / abs(l_cpu):.3g}, gradients max "
               f"err {grad_err:.3g}")
         return grad_err
@@ -3836,7 +4257,7 @@ def run() -> None:
                                 + 4 * (2 * B * J + B * H * W + B * H + B),
                                 2 * B * J * W))
 
-    dtype_runs, dtype_launches = {}, {}
+    dtype_runs, dtype_launches, dtype_train = {}, {}, {}
     cpu_gen = torch.Generator().manual_seed(6)
     for dtype in ("bfloat16", "int8"):
         for read in ("exact", "lsh"):
@@ -3974,6 +4395,164 @@ def run() -> None:
                   f"{d_dev_ms:.4f} ms/step in {d_dev_n:.1f} kernel launches; "
                   f"peak memory {d_peak} B against the state's "
                   f"{tree_bytes(d_state)} B")
+            # (d) training on these rows (ROADMAP A6b), from the rollout's
+            # final state: the sparse forward and backward in lockstep with
+            # the launches a backward step predicted in PERF.md §6 (bf16:
+            # six bf16 scatters; int8: the rollback's two int8 restores,
+            # the replay's int8 write, the scales' cotangent 'set' and
+            # 'add' on the f32 kernel at W = 1), the memory (and scales)
+            # back bit for bit; chunked against sparse; the main path;
+            # a small step on the card against the CPU; times.
+            d_cell = SAMCell(d_cfg)
+            flat_d = flat_params(d_model)
+            kind = "sam_ann" if read == "lsh" else "sam"
+            want_bwd = {name: 0 for name in launched}
+            if scaled:
+                want_bwd.update({"scatter_rows": 4 * T,
+                                 "scatter_rows_int8": 2 * T,
+                                 "sparse_write_update": T, wname: T})
+            else:
+                want_bwd.update({"scatter_rows": 6 * T,
+                                 "scatter_rows_bf16": 6 * T})
+            before = dict(checker.scatter_calls)
+            loss_d, g_d, fwd_d, bwd_d, restored_d, acct_d = fwd_bwd(
+                "sparse", None, True, d_cell, d_state, flat_d)
+            require(fwd_d == want, f"{pair} sparse forward launched "
+                    f"{fwd_d}, expected {want}")
+            require(bwd_d == want_bwd, f"{pair} sparse backward launched "
+                    f"{ {k: v for k, v in bwd_d.items() if v} }, expected "
+                    f"{ {k: v for k, v in want_bwd.items() if v} }")
+            require(restored_d, f"the {pair} sparse backward did not give "
+                    f"the memory{' and scales' if scaled else ''} back bit "
+                    f"for bit")
+            require(torch.isfinite(loss_d).item() and all(
+                torch.isfinite(g).all().item() for g in g_d),
+                f"a {pair} loss or gradient leaf is not finite")
+            print(f"[dtype-train] {pair} sparse forward and backward in "
+                  f"lockstep: backward launches "
+                  f"{ {k: v for k, v in bwd_d.items() if v} } (as "
+                  f"predicted); scatter calls checked "
+                  f"{checked_since(before)}, each bit for bit; memory"
+                  f"{' and scales' if scaled else ''} restored bit for bit; "
+                  f"loss {loss_d.item():.6f}")
+            chunk_d = unroll_lib.suggest_chunk(d_cell, None, start_state(
+                d_cell, d_state), xs) if read == "exact" else 5
+            loss_dc, g_dc, _, _, restored_dc, acct_dc = fwd_bwd(
+                "chunked", chunk_d, False, d_cell, d_state, flat_d)
+            d_chunk_err = max((a - b).abs().max().item()
+                              for a, b in zip(g_dc, g_d))
+            require(restored_dc and all(
+                torch.allclose(a, b, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+                for a, b in zip(g_dc, g_d)), f"{pair} chunked C={chunk_d} "
+                f"against sparse: gradients max err {d_chunk_err:.3g}, "
+                f"restored {restored_dc}")
+            require(abs(loss_dc.item() - loss_d.item())
+                    <= TOL * abs(loss_d.item()), f"{pair} chunked loss")
+            print(f"[dtype-train] {pair} chunked C={chunk_d}: gradients max "
+                  f"err {d_chunk_err:.3g} against sparse")
+            fn_d, p_d, o_d, main_d = main_step(kind, flat_d, d_cfg.memory)
+            want_main = {k_: want[k_] + want_bwd[k_] for k_ in want}
+            require(main_d == want_main, f"{pair} train step launched "
+                    f"{ {k: v for k, v in main_d.items() if v} }, expected "
+                    f"{ {k: v for k, v in want_main.items() if v} }")
+            d_small = small_train(kind, dtype, None if scaled
+                                  else BF16_GRAD_BAR)
+            tr_d = train_timing(fn_d, p_d, o_d, d_cell, flat_d, d_state)
+            ct_bytes = (B * (N + 1) * 4 if scaled
+                        else B * (N + 1) * W * 2)
+            dtype_train[pair] = dict(
+                loss=loss_d.item(), bwd_launches=bwd_d, main_launches=main_d,
+                chunk=chunk_d, chunked_vs_sparse_grad_err=d_chunk_err,
+                card_vs_cpu_grad_err=d_small, ms=tr_d["ms"],
+                all=tr_d["all"], fwd_ms=tr_d["fwd_ms"],
+                bwd_ms=tr_d["bwd_ms"], peak_bytes=tr_d["peak"],
+                residual_bytes=acct_d["residual_bytes"],
+                chunked_residual_bytes=acct_dc["residual_bytes"],
+                cotangent_bytes=ct_bytes)
+            dtype_launches[pair + "/train"] = main_d
+            print(f"[time] {pair} train step {tr_d['ms']:.2f} ms, median of "
+                  f"{', '.join(f'{t:.2f}' for t in tr_d['all'])} (sparse, "
+                  f"B={B}, N={N}, T={T}); forward {tr_d['fwd_ms']:.2f} ms, "
+                  f"backward {tr_d['bwd_ms']:.2f} ms; peak memory "
+                  f"{tr_d['peak']} B against residual_accounting("
+                  f"mode='sparse') {acct_d['residual_bytes']} B + the "
+                  f"cotangent buffer {ct_bytes} B = "
+                  f"{acct_d['residual_bytes'] + ct_bytes} B (chunked "
+                  f"C={chunk_d}: {acct_dc['residual_bytes']} B)")
+            del fn_d, p_d, o_d, g_d, g_dc
+            # (e) the row scatter's instantiation on these rows, timed on
+            # the step-21 inputs of a backward: the rollback ('set'), and
+            # for bf16 the read cotangent's 'add'.
+            if read == "exact":
+                wr21 = rec_d.records[("sparse_write_update", step21)]
+                sname = "scatter_rows" + SUFFIX[dtype]
+                widx21d = wr21[2]
+                old21d = ref.gather_rows(wr21[0], widx21d)
+                uniq_d = unique_rows(widx21d)
+                b_d = torch.arange(B, device=dev)[:, None].expand(B, J)
+                wl_d = widx21d.long()
+                buf = wr21[0].clone()
+                elt = buf.element_size()
+                if scaled:
+                    sc_buf = wr21[8].clone()
+                    old_sd = ref.gather_rows(wr21[8][..., None],
+                                             widx21d)[..., 0]
+                    rows[sname] = dict(
+                        ms=time_ms(lambda: scatter_rows(
+                            buf, widx21d, old21d, mode="set",
+                            mem_scale=sc_buf, rows_scale=old_sd), 50, flush),
+                        plain_ms=time_ms(lambda: ref.scatter_rows_q_ref(
+                            buf, sc_buf, widx21d, old21d, old_sd, "set"), 20,
+                            flush),
+                        library_ms=None,
+                        bound=bound(4 * B * J + 2 * uniq_d * (W * elt + 4),
+                                    0))
+                else:
+                    q21d, m21d, b21d, _, _, _ = rec_d.records[(base, step21)]
+                    ridx21d = fused_read_sweep(q21d, m21d, b21d, k=K,
+                                               valid_n=N)[2].reshape(B, H * K)
+                    uniq_ad = unique_rows(ridx21d)
+                    g_bf = scatter_cases["read cotangent (add)"][2].bfloat16()
+                    buf_a = torch.zeros_like(buf)
+                    b_a = torch.arange(B, device=dev)[:, None].expand(B,
+                                                                      H * K)
+                    rl_d = ridx21d.long()
+                    rows[sname] = dict(
+                        ms=time_ms(lambda: scatter_rows(
+                            buf, widx21d, old21d, mode="set"), 50, flush),
+                        plain_ms=time_ms(lambda: ref.scatter_rows_ref(
+                            buf, widx21d, old21d, "set"), 20, flush),
+                        library_ms=time_ms(lambda: buf.index_put_(
+                            (b_d, wl_d), old21d), 50, flush),
+                        bound=bound(4 * B * J + 2 * uniq_d * W * elt, 0))
+                    scatter_add_bf16 = dict(
+                        ms=time_ms(lambda: scatter_rows(
+                            buf_a, ridx21d, g_bf, mode="add"), 50, flush),
+                        plain_ms=time_ms(lambda: ref.scatter_rows_ref(
+                            buf_a, ridx21d, g_bf, "add"), 20, flush),
+                        library_ms=time_ms(lambda: buf_a.index_put_(
+                            (b_a, rl_d), g_bf, accumulate=True), 50, flush),
+                        bound=bound(4 * B * H * K
+                                    + B * H * K * W * elt
+                                    + 2 * uniq_ad * W * elt, B * H * K * W))
+                    del buf_a
+                r = rows[sname]
+                lib = ("none (no one PyTorch call restores the codes and "
+                       "the scales)" if r["library_ms"] is None
+                       else f"index_put_ {r['library_ms']:.4f} ms")
+                print(f"[time] {sname} 'set' (the rollback of step {step21}, "
+                      f"J={J}, {uniq_d} unique rows): {r['ms']:.4f} ms (bound "
+                      f"{r['bound'][0]:.6f} ms by {r['bound'][1]}), plain "
+                      f"{r['plain_ms']:.4f} ms, library {lib}")
+                if not scaled:
+                    r = scatter_add_bf16
+                    print(f"[time] {sname} 'add' (read cotangent, {H * K} "
+                          f"columns, {uniq_ad} unique rows): {r['ms']:.4f} "
+                          f"ms (bound {r['bound'][0]:.6f} ms by "
+                          f"{r['bound'][1]}), plain {r['plain_ms']:.4f} ms, "
+                          f"library index_put_(accumulate=True) "
+                          f"{r['library_ms']:.4f} ms")
+                del buf
             del d_model, d_state, d_ys, rec_d, wr_d, dup, r_args
             q_ = m_ = b_ = s_ = None
             torch.cuda.empty_cache()
@@ -4014,7 +4593,13 @@ def run() -> None:
              ("bf16", rows["fused_read_candidates_bf16"]),
              ("int8", rows["fused_read_candidates_int8"]),
              ("lsh_hash R = B·J", rows["lsh_hash"]),
-             ("R = B·H", hash_query))
+             ("R = B·H", hash_query),
+             ("scatter_rows_bf16 'set'", rows["scatter_rows_bf16"]),
+             ("'add'", scatter_add_bf16),
+             ("scatter_rows_int8 'set'", rows["scatter_rows_int8"]),
+             ("scatter_rows at the LM's shapes 'set'",
+              lmr["lm"]["kernels_at_lm_shapes"]["scatter_rows"]),
+             ("'add'", lmr["lm"]["kernels_at_lm_shapes"]["scatter_rows_add"]))
     print(f"[time] empty-launch floor (torch.cuda._sleep(0), same timer): "
           f"{empty_ms:.4f} ms; above it: "
           + ", ".join(f"{name} {r['ms'] - empty_ms:.4f} ms"
@@ -4029,6 +4614,8 @@ def run() -> None:
                "fused_read_sweep_int8": dtype_launches["int8/exact"],
                "fused_read_candidates_bf16": dtype_launches["bfloat16/lsh"],
                "fused_read_candidates_int8": dtype_launches["int8/lsh"],
+               "scatter_rows_bf16": dtype_launches["bfloat16/exact/train"],
+               "scatter_rows_int8": dtype_launches["int8/exact/train"],
                "usage_argmin": dense["launches"],
                "flash_attention": lmr["launches"],
                "topk_read": mesh["launches"]}
@@ -4050,6 +4637,7 @@ def run() -> None:
 
     by_name = {r["name"]: r for r in report}
     by_name["scatter_rows"]["add"] = sub(scatter_add)
+    by_name["scatter_rows_bf16"]["add"] = sub(scatter_add_bf16)
     by_name["lra_topn"]["block"] = sub(lra_block)
     by_name["lsh_hash"]["query"] = sub(hash_query)
     by_name["lsh_hash"]["bulk"] = sub(hash_bulk)
@@ -4088,7 +4676,7 @@ def run() -> None:
                       "lsh_card_vs_cpu_grad_err": small_lsh_grad_err,
                       "chunked_vs_sparse_grad_err": chunk_err,
                       "lsh_chunked_vs_sparse_grad_err": lsh_chunk_err,
-                      "dtypes": dtype_runs,
+                      "dtypes": dtype_runs, "dtype_train": dtype_train,
                       "dense": {k: v for k, v in dense.items()
                                 if k != "row"},
                       "lm": lmr["lm"], "mesh": mesh["mesh"],

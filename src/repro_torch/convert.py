@@ -166,14 +166,18 @@ def dnc_state_from_jax(state, *, device="cuda"):
     """JAX `dnc.DNCState` -> the port's, field for field: the dense DNC's
     (B, N, W) memory, f32 usage and (B, N, N) link, or the SDNC's
     scratch-row memory, int32 usage table, sparse read, precedence and
-    N_t/P_t, with its LSH index where there is one (`ann_from_jax`).
-    Raises on a memory that is not f32 (the port's SDNC takes f32 rows)."""
+    N_t/P_t, with its LSH index where there is one (`ann_from_jax`). The
+    SDNC's memory may hold f32 or bf16 rows (bf16 bits carried as they
+    are); any other memory raises, as does a dense DNC's that is not f32
+    (JAX builds neither)."""
     from repro_torch.core.dnc import DNCState, SparseMat, SparseVec
     memory = memory_from_jax(state.memory, device=device)
-    if memory.dtype != torch.float32:
-        raise ValueError(f"a {memory.dtype} DNC memory: the port's DNC and "
-                         f"SDNC take f32 rows")
     sparse = state.n_mat is not None
+    takes = (torch.float32, torch.bfloat16) if sparse else (torch.float32,)
+    if memory.dtype not in takes:
+        raise ValueError(f"a {memory.dtype} {'SDNC' if sparse else 'DNC'} "
+                         f"memory: the port's SDNC takes f32 or bf16 rows, "
+                         f"its DNC f32")
 
     def f32(x):
         return _tensor(x, np.float32, device)

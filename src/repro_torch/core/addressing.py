@@ -172,16 +172,22 @@ def finish_candidate_read(q: torch.Tensor, m: torch.Tensor, beta: torch.Tensor,
 
 
 def scatter_add_rows(m: torch.Tensor, idx: torch.Tensor,
-                     rows: torch.Tensor) -> torch.Tensor:
+                     rows: torch.Tensor, *, mem_scale=None):
     """m[b, idx[b, j]] += rows[b, j], in place; duplicates sum in j order.
-    idx: (B, J), rows: (B, J, W)."""
-    return ops.scatter_rows(m, idx, rows, "add")
+    idx: (B, J), rows: (B, J, W). With ``mem_scale`` (int8 rows) each
+    touched row accumulates in f32 and re-quantizes once; returns (m,
+    mem_scale)."""
+    return ops.scatter_rows(m, idx, rows, "add", mem_scale=mem_scale)
 
 
 def scatter_set_rows(m: torch.Tensor, idx: torch.Tensor,
-                     rows: torch.Tensor) -> torch.Tensor:
-    """m[b, idx[b, j]] = rows[b, j], in place; the last duplicate wins."""
-    return ops.scatter_rows(m, idx, rows, "set")
+                     rows: torch.Tensor, *, mem_scale=None, rows_scale=None):
+    """m[b, idx[b, j]] = rows[b, j], in place; the last duplicate wins.
+    With ``mem_scale`` (int8 rows) int8 ``rows`` and their scales
+    ``rows_scale`` are restored bit for bit (the rollback); returns (m,
+    mem_scale)."""
+    return ops.scatter_rows(m, idx, rows, "set", mem_scale=mem_scale,
+                            rows_scale=rows_scale)
 
 
 def update_last_access(last_access: torch.Tensor, idx: torch.Tensor,

@@ -58,6 +58,7 @@ from repro_torch.core import addressing as addr
 from repro_torch.core import dnc as dnc_lib
 from repro_torch.core import sam as sam_lib
 from repro_torch.core.controller import linear, lstm_step
+from repro_torch.core.quant import dequantize_rows
 from repro_torch.core.sam import SAMConfig, _interface, apply_write, write_plan
 from repro_torch.core.types import (SAMState, SparseRead, StepDeltas,
                                     tree_bytes)
@@ -67,51 +68,97 @@ from repro_torch.kernels import ops, ref
 class _ReplayWrite(torch.autograd.Function):
     """The replay's memory-only write on a memory outside the graph; its
     gradient goes through ``mem_ct``, the cotangent of the memory after the
-    write, which it leaves as the cotangent of the memory before it."""
+    write, which it leaves as the cotangent of the memory before it.
+
+    On int8 rows (``mem_scale`` given) ``mem_ct`` is the scales'
+    cotangent, the write is the fused quantized one against the throwaway
+    table ``usage`` (`sam.apply_write`), and ``old`` holds the touched
+    rows' recorded codes and scales (`StepDeltas`): the backward hands w
+    and a the closed-form gradient of the new scales (`ops.write_q_vjp`),
+    then sets each touched row of ``mem_ct`` to its old scale's gradient,
+    which the winning column carries."""
 
     @staticmethod
-    def forward(ctx, write_w, a, memory, mem_ct, write_idx, lra_idx):
-        apply_write(memory, write_idx, write_w, a, lra_idx)
+    def forward(ctx, write_w, a, memory, mem_ct, write_idx, lra_idx,
+                mem_scale=None, usage=None, old=None):
+        apply_write(memory, write_idx, write_w, a, lra_idx,
+                    mem_scale=mem_scale, usage=usage)
         ctx.save_for_backward(write_w, a)
         ctx.mem_ct, ctx.write_idx, ctx.lra_idx = mem_ct, write_idx, lra_idx
+        ctx.old = old
         return write_w.new_empty(0)
 
     @staticmethod
     def backward(ctx, _):
         write_w, a = ctx.saved_tensors
+        ct, widx = ctx.mem_ct, ctx.write_idx
+        if ctx.old is not None:
+            g_old_s, g_w, g_a = ops.write_q_vjp(
+                ops.winners(ct[..., None], widx)[..., 0], *ctx.old, widx,
+                ctx.lra_idx, write_w, a)
+            ops.scatter_rows(ct[..., None], widx, g_old_s[..., None], "set")
+            return g_w, g_a, None, None, None, None, None, None, None
         # The written rows' cotangents, read before the erase zeroes them.
         g_w, g_a = ops.write_rows_vjp(
-            addr.gather_rows(ctx.mem_ct, ctx.write_idx), write_w, a)
-        ops.scatter_rows(ctx.mem_ct, ctx.lra_idx, ctx.mem_ct.new_zeros(a.shape),
-                         "set")
-        return g_w, g_a, None, None, None, None
+            addr.gather_rows(ct, widx).to(torch.float32), write_w, a)
+        ops.scatter_rows(ct, ctx.lra_idx, ct.new_zeros(a.shape), "set")
+        return g_w, g_a, None, None, None, None, None, None, None
 
 
 class _ReadRows(torch.autograd.Function):
     """The rows ``idx`` (B, H, K) names, gathered after the write that
-    ``token`` stands for; their cotangents are added into ``mem_ct``."""
+    ``token`` stands for, as f32 words (bf16 rows upcast, int8 rows
+    dequantized with ``mem_scale``); their cotangents are added into
+    ``mem_ct`` (bf16: rounded to bf16 first, as JAX's cast transposes
+    them). On int8 rows ``mem_ct`` is the scales' cotangent, and each row
+    adds Σ_w g_w · code_w into its scale's."""
 
     @staticmethod
-    def forward(ctx, token, memory, mem_ct, idx):
+    def forward(ctx, token, memory, mem_ct, idx, mem_scale=None):
         ctx.mem_ct, ctx.idx = mem_ct, idx
-        return addr.gather_rows(memory, idx)
+        rows = addr.gather_rows(memory, idx)
+        if mem_scale is None:
+            return rows.to(torch.float32)
+        ctx.save_for_backward(rows)
+        return dequantize_rows(rows, addr.gather_scales(mem_scale, idx))
 
     @staticmethod
     def backward(ctx, g_words):
         B, W = g_words.shape[0], g_words.shape[-1]
-        ops.scatter_rows(ctx.mem_ct, ctx.idx.reshape(B, -1),
-                         g_words.reshape(B, -1, W), "add")
-        return g_words.new_zeros(0), None, None, None
+        flat = ctx.idx.reshape(B, -1)
+        if ctx.saved_tensors:
+            codes, = ctx.saved_tensors
+            g_s = (g_words * codes.to(torch.float32)).sum(-1)
+            ops.scatter_rows(ctx.mem_ct[..., None], flat,
+                             g_s.reshape(B, -1, 1), "add")
+        else:
+            ops.scatter_rows(ctx.mem_ct, flat, g_words.reshape(B, -1, W),
+                             "add")
+        return g_words.new_zeros(0), None, None, None, None
+
+
+def _replay_usage(ct: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+    """The throwaway usage table of an int8 replay's write (`apply_write`),
+    made at the first replayed step of a backward and kept on the scales'
+    cotangent, which lives for that backward: (B, N+1) int32 zeros, 32 MiB
+    at B = 8, N = 2^20."""
+    usage = getattr(ct, "replay_usage", None)
+    if usage is None:
+        usage = ct.replay_usage = torch.zeros(memory.shape[:2],
+                                              dtype=torch.int32,
+                                              device=memory.device)
+    return usage
 
 
 def sam_replay_step(params, cfg: SAMConfig, s: SAMState, x: torch.Tensor,
                     deltas: StepDeltas, mem_ct: torch.Tensor):
     """Recompute one SAM step from the rolled-back state ``s`` with the
-    recorded selections. Writes the memory in place (it then holds the
-    step's memory again, bit for bit) and returns (new_state, y), which
-    are differentiable in the parameters, x and the small float leaves of
-    ``s``; the memory's gradient goes through ``mem_ct`` (module
-    docstring)."""
+    recorded selections. Writes the memory (and an int8 memory's scales)
+    in place (it then holds the step's memory again, bit for bit) and
+    returns (new_state, y), which are differentiable in the parameters, x
+    and the small float leaves of ``s``; the memory's gradient goes
+    through ``mem_ct`` (module docstring), the scales' cotangent for int8
+    rows."""
     B = x.shape[0]
     H, K = cfg.memory.num_heads, cfg.memory.k
     ctrl_in = torch.cat([x, s.read.words.reshape(B, -1)], dim=-1)
@@ -119,14 +166,18 @@ def sam_replay_step(params, cfg: SAMConfig, s: SAMState, x: torch.Tensor,
     q, a, beta, alpha, gamma = _interface(params, cfg, h)
     lra_idx = deltas.write_idx.reshape(B, H, K + 1)[..., -1].contiguous()
     _, ww, _, _ = write_plan(cfg, s.read, lra_idx, alpha, gamma)
-    token = _ReplayWrite.apply(ww, a, s.memory, mem_ct, deltas.write_idx,
-                               lra_idx)
+    q8 = s.mem_scale is not None
+    token = _ReplayWrite.apply(
+        ww, a, s.memory, mem_ct, deltas.write_idx, lra_idx, s.mem_scale,
+        _replay_usage(mem_ct, s.memory) if q8 else None,
+        (deltas.old_rows, deltas.old_scale) if q8 else None)
     idx = deltas.read_idx.clamp_min(0)
-    words = _ReadRows.apply(token, s.memory, mem_ct, idx)
+    words = _ReadRows.apply(token, s.memory, mem_ct, idx, s.mem_scale)
     read = addr.read_from_rows(q, words, beta, deltas.read_idx)
     y = linear(params["out"], torch.cat([h, read.words.reshape(B, -1)], -1))
     return SAMState(memory=s.memory, last_access=s.last_access, read=read,
-                    ctrl=ctrl, step=s.step + 1, ann=s.ann), y
+                    ctrl=ctrl, step=s.step + 1, ann=s.ann,
+                    mem_scale=s.mem_scale), y
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,8 +185,19 @@ class SAMCell:
     """SAM (paper §3) behind the unroll engine's cell contract."""
 
     cfg: SAMConfig
-    dense_buffers = ("memory", "last_access")
-    cotangent_buffers = ("memory",)
+
+    @property
+    def dense_buffers(self):
+        """The memory and the usage table, and an int8 memory's scales."""
+        return ("memory", "last_access") + (
+            ("mem_scale",) if self.cfg.memory.mem_dtype == "int8" else ())
+
+    @property
+    def cotangent_buffers(self):
+        """The memory (f32 or bf16 rows), or an int8 memory's scales: its
+        codes carry no cotangent."""
+        return (("mem_scale",) if self.cfg.memory.mem_dtype == "int8"
+                else ("memory",))
 
     def init_params(self, generator: torch.Generator, *, device="cuda"):
         return sam_lib.init_params(generator, self.cfg, device=device)
@@ -152,8 +214,11 @@ class SAMCell:
 
     def rollback(self, state: SAMState, prev_small, deltas: StepDeltas):
         read, ctrl = prev_small
-        # write_idx names logical rows only, so scratch row N is untouched.
-        addr.scatter_set_rows(state.memory, deltas.write_idx, deltas.old_rows)
+        # write_idx names logical rows only, so scratch row N is untouched;
+        # int8 rows get their recorded (row, scale) pairs back.
+        addr.scatter_set_rows(state.memory, deltas.write_idx, deltas.old_rows,
+                              mem_scale=state.mem_scale,
+                              rows_scale=deltas.old_scale)
         return state._replace(read=read, ctrl=ctrl, step=state.step - 1)
 
     def replay_step(self, params, state, x, deltas: StepDeltas, cts):
@@ -162,12 +227,14 @@ class SAMCell:
 
     def step_residual_bytes(self, state: SAMState) -> int:
         """Bytes of one step's rollback record: `residual_state` plus the
-        `StepDeltas` (J·W old rows in the memory's dtype)."""
+        `StepDeltas` (J·W old rows in the memory's dtype, and J old scales
+        on int8 rows)."""
         B, _, W = state.memory.shape
         mem = self.cfg.memory
         J = self.cfg.total_write_rows
         deltas = (B * J * 4 + B * J * W * state.memory.element_size()
-                  + B * mem.num_heads * mem.k * 4)
+                  + B * mem.num_heads * mem.k * 4
+                  + (B * J * 4 if state.mem_scale is not None else 0))
         return tree_bytes(self.residual_state(state)) + deltas
 
 
@@ -229,11 +296,6 @@ class _ReplayLinkage(torch.autograd.Function):
     def backward(ctx, _, g_prec):
         prec_val, ww, n_cols, n_vals, p_cols, p_vals = ctx.saved_tensors
         (nv_ct, pv_ct), (widx, p_rows, prec_idx) = ctx.cts, ctx.rows
-
-        def winners(ct, idx):
-            last = ref.first_occurrence(idx.flip(1)).flip(1)
-            return ref.gather_rows(ct, idx) * last[..., None]
-
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_()
                       for t in (prec_val, n_vals, p_vals)]
@@ -242,7 +304,8 @@ class _ReplayLinkage(torch.autograd.Function):
                 dnc_lib.SparseVec(prec_idx, leaves[0]), widx, ww, ctx.k_l)
             g_val, g_n, g_p = torch.autograd.grad(
                 [m[1], mp[1], prec[1]], leaves,
-                [winners(nv_ct, widx), winners(pv_ct, p_rows), g_prec])
+                [ops.winners(nv_ct, widx), ops.winners(pv_ct, p_rows),
+                 g_prec])
         for ct, idx, g in ((nv_ct, widx, g_n), (pv_ct, p_rows, g_p)):
             ops.scatter_rows(ct, idx, torch.zeros_like(g), "set")
             ops.scatter_rows(ct, idx, g, "add")
@@ -333,10 +396,12 @@ class SDNCCell:
 
     def step_residual_bytes(self, state: dnc_lib.DNCState) -> int:
         """Bytes of one step's rollback record: `residual_state` plus the
-        `SDNCDeltas` (J memory rows, J N_t rows and K_L P_t rows)."""
+        `SDNCDeltas` (J memory rows in the memory's dtype, J N_t rows and
+        K_L P_t rows)."""
         B, _, W = state.memory.shape
         mem, KL = self.cfg.memory, self.cfg.k_l
         J = mem.num_heads * mem.k + 1
-        deltas = 4 * B * (J + J * W + 1 + mem.num_heads * mem.k
-                          + 2 * J * KL + 2 * KL * KL)
+        deltas = (4 * B * (J + 1 + mem.num_heads * mem.k + 2 * J * KL
+                           + 2 * KL * KL)
+                  + B * J * W * state.memory.element_size())
         return tree_bytes(self.residual_state(state)) + deltas

@@ -15,8 +15,10 @@ recently accessed row (`lra_topn`, n = 1), the write as a 'set' of that
 row and an 'add' of J = R·K + 1 rows (`scatter_rows` twice), the exact
 read (`fused_read_sweep`) or, with ``MemoryConfig(ann="lsh")``, the LSH
 candidates and their re-rank (`lsh_hash`, `fused_read_candidates`).
-The SDNC keeps the scratch-row layout and updates its dense buffers **in
-place**: the memory, the usage table and N_t, P_t are the tensors of the
+The SDNC takes f32 or bf16 rows (``mem_dtype``; bf16 rows are upcast
+for the reads and the write's rows rounded to bf16, a bf16 memory's
+gradient is bf16) and refuses int8 rows, as JAX does. It keeps the
+scratch-row layout and updates its dense buffers **in place**: the memory, the usage table and N_t, P_t are the tensors of the
 state handed to `dnc_step`. Row merges combine duplicate columns with the
 paper's O(K_L²) pairwise scheme. As in the paper, the link update gets the
 write weights without gradient; cotangents still flow through N_t and P_t
@@ -53,16 +55,14 @@ from repro_torch.core import addressing as addr
 from repro_torch.core import ann as ann_lib
 from repro_torch.core.controller import (linear, linear_init, lstm_init,
                                          lstm_step, lstm_zero_state)
-from repro_torch.core.types import (ANNState, ControllerConfig, LSTMState,
-                                    MemoryConfig, SparseRead,
+from repro_torch.core.types import (MEM_DTYPES, ANNState, ControllerConfig,
+                                    LSTMState, MemoryConfig, SparseRead,
                                     init_scratch_last_access,
                                     init_scratch_memory, require_live)
 from repro_torch.distributed import mem_shard
 from repro_torch.kernels import ref
 
-# The open roadmap items that the SDNC's other configurations wait on.
-BF16_ITEM = ("the SDNC on bf16 rows is ROADMAP.md A6b (scatter_rows takes "
-             "f32 rows only)")
+# The open roadmap item that the SDNC on a sharded memory waits on.
 MESH_ITEM = ("the SDNC on a slot-sharded memory is ROADMAP.md A11; the port "
              "runs it on one device")
 
@@ -283,14 +283,12 @@ def _require_sdnc_rows(mem: MemoryConfig) -> None:
             "write scheme re-reads rows it just wrote within a step, "
             "which would compound requantization error. Use 'bfloat16' "
             "for reduced-precision SDNC memory, or SAM for int8.")
-    if mem.mem_dtype != "float32":
-        raise ValueError(f"mem_dtype={mem.mem_dtype!r}: {BF16_ITEM}")
 
 
 def init_state(batch: int, cfg: DNCConfig, *, device="cuda") -> DNCState:
-    """A zero state in the JAX layout (`DNCState`). The SDNC takes f32
-    rows on one device: int8 rows raise JAX's error, bf16 rows and a
-    `mem_shard.memory_mesh` context raise naming their roadmap items."""
+    """A zero state in the JAX layout (`DNCState`). The SDNC takes f32 or
+    bf16 rows (``mem_dtype``) on one device: int8 rows raise JAX's error,
+    a `mem_shard.memory_mesh` context raises naming its roadmap item."""
     mem, ctl = cfg.memory, cfg.controller
     R, W, N, KL = mem.num_heads, mem.word_size, mem.num_slots, cfg.k_l
     J = R * mem.k + 1
@@ -310,7 +308,9 @@ def init_state(batch: int, cfg: DNCConfig, *, device="cuda") -> DNCState:
             return torch.full(shape, -1, dtype=torch.int32, device=device)
 
         return DNCState(
-            memory=init_scratch_memory(batch, N, W, device=device),
+            memory=init_scratch_memory(batch, N, W,
+                                       dtype=MEM_DTYPES[mem.mem_dtype],
+                                       device=device),
             usage=init_scratch_last_access(batch, N, device=device),
             read_w=zeros(batch),
             read=SparseRead(indices=zeros(batch, R, mem.k, dtype=torch.int32),
@@ -450,8 +450,10 @@ def _combine(modes, bwd, cont_idx, cont_w, fwd, k: int):
 def _check_sdnc(cfg: DNCConfig, s: DNCState) -> None:
     mem = cfg.memory
     _require_sdnc_rows(mem)
-    if s.memory.dtype != torch.float32:
-        raise ValueError(f"a {s.memory.dtype} memory: {BF16_ITEM}")
+    if s.memory.dtype != MEM_DTYPES[mem.mem_dtype]:
+        raise ValueError(f"mem_dtype={mem.mem_dtype!r} needs a "
+                         f"{MEM_DTYPES[mem.mem_dtype]} memory, got a "
+                         f"{s.memory.dtype} one")
     if mem_shard.memory_layout(mem.num_slots, s.memory.shape[1]) is not None:
         raise NotImplementedError(MESH_ITEM)
     if (s.ann is not None) != (mem.ann == "lsh"):
@@ -501,13 +503,13 @@ def _sdnc_step(params, cfg: DNCConfig, s: DNCState, x: torch.Tensor, *,
         cand = ann_lib.ann_candidates(planes, s.ann, rk, widx, mem)
         cont, cont_sel = addr.select_and_read_candidates(rk, memory, rb, K,
                                                          cand)
-        rows = addr.gather_rows(memory, widx).detach()
+        rows = addr.gather_rows(memory, widx).detach().to(torch.float32)
         ann_state = ann_lib.ann_insert(planes, s.ann, widx, rows, mem)
     else:
         cont = addr.sparse_read_exact(rk, memory, rb, K, valid_n=N)
         cont_sel, ann_state = cont.indices, None
     top_idx, top_w = _combine(modes, bwd, cont.indices, cont.weights, fwd, K)
-    words = addr.gather_rows(memory, top_idx)
+    words = addr.gather_rows(memory, top_idx).to(torch.float32)
     read_words = torch.einsum("brk,brkw->brw", top_w, words)
     read = SparseRead(indices=top_idx, weights=top_w, words=read_words)
 

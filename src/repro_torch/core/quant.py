@@ -13,6 +13,9 @@ port multiplies by ``fl(1/127)`` too. ``q = clip(round(row / scale),
 reciprocal rounds differently), and ``torch.round`` rounds half to even,
 as ``jnp.round`` and CUDA's ``rintf`` do. The CUDA int8 write
 (`csrc/sparse_write.cu`) repeats this arithmetic.
+
+The codes carry no gradient; the scale is differentiable through the row's
+max (`scale_vjp`), the magnitude channel that int8 rows train through.
 """
 from __future__ import annotations
 
@@ -39,3 +42,15 @@ def dequantize_rows(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """q: (..., W) int8, scale: (...,) -> (..., W) f32 rows ``q * scale``;
     a scale-0 row gives exactly 0.0."""
     return q.to(torch.float32) * scale.to(SCALE_DTYPE)[..., None]
+
+
+def scale_vjp(x: torch.Tensor, g_scale: torch.Tensor) -> torch.Tensor:
+    """The gradient of `quantize_rows`'s scale ``max|x| · fl(1/127)`` with
+    respect to the rows x (..., W), given the scale's cotangent g_scale
+    (...,): JAX's subgradient of ``max``, the cotangent split evenly among
+    the tied maxima of |x|, times JAX's derivative of |x|, -1 below 0 and
+    +1 from 0 up (so a zero row's W elements, all tied, share it)."""
+    ax = x.abs()
+    tied = (ax == ax.amax(-1, keepdim=True)).to(x.dtype)
+    share = (g_scale * INV_QMAX)[..., None] / tied.sum(-1, keepdim=True)
+    return torch.where(x >= 0, share, -share) * tied

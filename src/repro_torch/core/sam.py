@@ -17,10 +17,10 @@ also returns what the sparse-rollback backward needs (`StepDeltas`,
 `core/cell.py`).
 
 `sam_step` records an autograd graph when its inputs require grad (the
-naive unroll of `core/unroll.py`), on f32 rows only: bf16 and int8 rows
-run forward only and raise when autograd records
-(`types.DTYPE_TRAINING_ITEM`). `sam_unroll` and `SAM.forward`, the
-forward-only path, run under `torch.inference_mode` and record none.
+naive unroll of `core/unroll.py`), on f32, bf16 or int8 rows (a bf16
+memory's gradient is bf16; an int8 memory's codes get none, its scales
+do). `sam_unroll` and `SAM.forward`, the forward-only path, run under
+`torch.inference_mode` and record none.
 
 Slot-sharded memory (`distributed/mem_shard.py`): under
 ``mem_shard.memory_mesh(N)`` in each rank of a process group,
@@ -150,12 +150,25 @@ def write_plan(cfg: SAMConfig, prev_read: SparseRead, lra_idx: torch.Tensor,
 
 def apply_write(memory: torch.Tensor, write_idx: torch.Tensor,
                 write_w: torch.Tensor, a: torch.Tensor,
-                lra_idx: torch.Tensor) -> torch.Tensor:
+                lra_idx: torch.Tensor, *, mem_scale=None, usage=None):
     """The memory-only write used by the replay (`core/cell.py`), in place:
     erase the LRA rows (R_t = I^U 1^T), then add the outer product
     A_t = w^W a^T on the H·(K+1) touched rows, both through `scatter_rows`.
     Its floats are the fused write's bit for bit: each touched row starts
-    from its old value (zero if erased) and adds its columns in j order."""
+    from its old value (zero if erased) and adds its columns in j order
+    (bf16 rows: each w·a rounded to bf16, each add rounded).
+
+    int8 rows (``mem_scale`` given): an erase and an add would quantize a
+    row twice, so the replay runs the *same* fused quantized write that
+    the forward ran (`repro/core/sam.py:147-157`), each touched row
+    rounded once, against ``usage``, a throwaway all-zero (B, N+1) int32
+    usage table: the step is its scratch entry, 0, so the stamps leave it
+    all zero, and nothing reads it. Returns the memory."""
+    if mem_scale is not None:
+        addr.sparse_write_update(memory, usage, write_idx, write_w, a,
+                                 lra_idx, usage[:, -1], 0.0,
+                                 mem_scale=mem_scale)
+        return memory
     B, H, W = a.shape
     memory = addr.scatter_set_rows(memory, lra_idx, memory.new_zeros((B, H, W)))
     return addr.scatter_add_rows(memory, write_idx, ref.write_rows(write_w, a))

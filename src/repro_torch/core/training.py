@@ -24,8 +24,7 @@ from repro_torch.core import dnc as dnc_lib
 from repro_torch.core import unroll as unroll_lib
 from repro_torch.core.cell import SAMCell, SDNCCell
 from repro_torch.core.sam import SAMConfig
-from repro_torch.core.types import (DTYPE_TRAINING_ITEM, ControllerConfig,
-                                    MemoryConfig)
+from repro_torch.core.types import ControllerConfig, MemoryConfig
 from repro_torch.data.curriculum import Curriculum
 from repro_torch.data.tasks import (associative_recall_task, copy_task,
                                     priority_sort_task)
@@ -34,6 +33,14 @@ from repro_torch.optim import optimizers as opt
 TASKS = {"copy": copy_task, "associative_recall": associative_recall_task,
          "priority_sort": priority_sort_task}
 KINDS = ("sam", "sam_ann", "sdnc", "dam", "ntm", "dnc", "lstm")
+# The kinds whose rows take ``MemoryConfig.mem_dtype``.
+DTYPE_KINDS = ("sam", "sam_ann", "sdnc")
+# Stricter than the reference on purpose (ROADMAP §C): JAX's dense models
+# build f32 rows whatever mem_dtype says; the port refuses rather than
+# train other rows than the configuration names.
+DENSE_DTYPE = ("the dense DAM, NTM, DNC and the LSTM keep f32 rows: the JAX "
+               "models ignore mem_dtype, so the port refuses it rather than "
+               "silently train f32 rows")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,13 +66,15 @@ def build_model(spec: ModelSpec, *, device="cuda"):
     `SAMCell` and `SDNCCell`; ``dam`` and ``ntm`` unroll
     `dense.dense_unroll`, ``dnc`` `dnc.dnc_unroll` and ``lstm`` the bare
     controller, whose state is the batch size, all in a plain loop. Any
-    other kind raises, and so does a bf16 or int8 memory
-    (``mem_dtype``), which runs forward only."""
+    other kind raises. ``memory.mem_dtype`` holds the rows of ``sam``,
+    ``sam_ann`` (f32, bf16, int8) and ``sdnc`` (f32, bf16; int8 raises,
+    as in JAX) as JAX's `build_model` holds them; the dense kinds raise on
+    anything but f32 (`DENSE_DTYPE`)."""
     if spec.kind not in KINDS:
         raise ValueError(f"unknown model kind {spec.kind!r}")
-    if spec.memory.mem_dtype != "float32":
-        raise ValueError(f"build_model with mem_dtype="
-                         f"{spec.memory.mem_dtype!r}: {DTYPE_TRAINING_ITEM}")
+    if spec.memory.mem_dtype != "float32" and spec.kind not in DTYPE_KINDS:
+        raise ValueError(f"build_model({spec.kind!r}) with mem_dtype="
+                         f"{spec.memory.mem_dtype!r}: {DENSE_DTYPE}")
     if spec.kind in ("dam", "ntm"):
         cfg = dense_lib.DenseConfig(spec.memory, spec.controller,
                                     model=spec.kind)

@@ -75,7 +75,8 @@ class MemoryConfig:
     'bfloat16' (reads upcast, writes round once per column) or 'int8'
     (per-row symmetric quantization with an f32 scale per row,
     `SAMState.mem_scale`; reads dequantize, writes re-quantize each
-    touched row once). bf16 and int8 rows run forward only."""
+    touched row once). All three train: a bf16 memory's gradient is bf16,
+    an int8 memory's codes get none and its scales do."""
 
     num_slots: int = 1024          # N
     word_size: int = 32            # W
@@ -179,23 +180,6 @@ class StepDeltas(NamedTuple):
     #                           signed: -1 = no valid selection
     old_scale: Optional[torch.Tensor] = None   # (B, J) their f32 scales
     #                           before the write, int8 rows only (None else)
-
-
-# The open roadmap item that bf16 and int8 rows wait on to train.
-DTYPE_TRAINING_ITEM = (
-    "training with bf16 or int8 memory rows is not ported yet: ROADMAP.md "
-    "A6b (the rollback of int8 (row, scale) pairs, the straight-through "
-    "scale cotangent, the bf16 memory cotangent); these rows run forward "
-    "only (SAM.forward, sam_unroll, sam_step)")
-
-
-def require_f32_rows(memory: torch.Tensor, mem_scale=None, *,
-                     what: str) -> None:
-    """Raise a ValueError naming `DTYPE_TRAINING_ITEM` unless ``memory``
-    holds f32 rows (no int8 scales): ``what`` is the refused operation."""
-    if memory.dtype != torch.float32 or mem_scale is not None:
-        raise ValueError(f"{what} on a {memory.dtype} memory: "
-                         f"{DTYPE_TRAINING_ITEM}")
 
 
 def mark_rolled_back(memory: torch.Tensor) -> None:

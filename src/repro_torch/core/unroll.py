@@ -37,8 +37,11 @@ buffers, restored in full.
 Gradients reach the parameters, xs and the float leaves of
 ``state0``: every small one (the float leaves outside the dense buffers)
 is differentiated again at each replayed step, and each buffer of
-``cell.cotangent_buffers`` has one dense cotangent that the whole
-backward updates in place (`core/cell.py`). The backward launches no O(N)
+``cell.cotangent_buffers`` has one dense cotangent, in the buffer's dtype,
+that the whole backward updates in place (`core/cell.py`): a bf16
+memory's is bf16, and an int8 memory's codes have none, its scales
+(a dense buffer of the cell) one. The chunked mode's checkpoints copy
+every dense buffer, the scales included. The backward launches no O(N)
 kernel outside the chunked recompute.
 """
 from __future__ import annotations
@@ -49,8 +52,7 @@ import weakref
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch.core.types import (mark_rolled_back, require_f32_rows,
-                                    tree_bytes)
+from repro_torch.core.types import mark_rolled_back, tree_bytes
 
 
 def _split(tree):
@@ -313,11 +315,10 @@ def unroll(cell, params, state0, xs, *, mode: str = "sparse", chunk=None):
     "sparse" or "chunked" unroll they hold ``state0``'s again while the
     usage table keeps step T's: the returned state (and ``state0``) can
     be read but not stepped from; the cell's step raises (module
-    docstring). A bf16 or int8 memory raises: those rows run forward only
-    (`types.DTYPE_TRAINING_ITEM`).
+    docstring). The memory may hold f32, bf16 or int8 rows: its
+    cotangent is then f32, bf16, or (int8) that of its scales, the codes
+    carrying none (`cell.cotangent_buffers`).
     """
-    require_f32_rows(state0.memory, getattr(state0, "mem_scale", None),
-                     what=f"unroll(mode={mode!r})")
     if mode == "naive":
         return unroll_naive(cell, params, state0, xs)
     if mode == "sparse":

@@ -24,7 +24,10 @@ card. They state the kernels' contracts exactly:
   column's w·a to bf16 once and adds it into the bf16 row in j order,
   the JAX oracle's rounding; the int8 write adds a row's columns into
   its dequantized row in j order, each as one fused multiply-add, and
-  re-quantizes the row once (`sparse_write_update_q_ref`).
+  re-quantizes the row once (`sparse_write_update_q_ref`). The row
+  scatter casts its rows to the memory's dtype (bf16 'add' rounds after
+  each add); on int8 rows (`scatter_rows_q_ref`) 'set' restores recorded
+  (row, scale) pairs bit for bit and 'add' re-quantizes each row once.
 * Attention (`flash_attention_ref`) is the naive masked softmax over the
   whole S×S score matrix in f32 (f64 for f64 inputs, an exact reference
   on the card), the oracle of the JAX suite's flash-attention tests.
@@ -209,19 +212,26 @@ def _lane_step(step, batch: int, device) -> torch.Tensor:
     return flat
 
 
-def scatter_rows_ref(mem: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
-                     mode: str = "add") -> torch.Tensor:
-    """mem: (B, R, W), idx: (B, J) int with every index in [0, R), rows:
-    (B, J, W), in place. 'add': each target row takes its old value plus
-    every column naming it, summed in j order (written once, by the first
-    such column). 'set': each target row takes its last column's row.
-    Rows no index names are not touched. Returns ``mem``. Raises on an
-    index outside [0, R), which the CUDA kernel would skip."""
-    B, J = idx.shape
-    i = idx.long()
+def _check_rows(mem: torch.Tensor, i: torch.Tensor) -> None:
     if ((i < 0) | (i >= mem.shape[1])).any():
         raise ValueError(f"scatter_rows: an index lies outside [0, "
                          f"{mem.shape[1]})")
+
+
+def scatter_rows_ref(mem: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
+                     mode: str = "add") -> torch.Tensor:
+    """mem: (B, R, W) f32 or bf16, idx: (B, J) int with every index in
+    [0, R), rows: (B, J, W), in place. The rows are first cast to the
+    memory's dtype. 'add': each target row takes its old value plus every
+    column naming it, summed in j order (written once, by the first such
+    column); on bf16 rows each add rounds to bf16, as the JAX oracle's
+    bf16 scatter-add does. 'set': each target row takes its last column's
+    row. Rows no index names are not touched. Returns ``mem``. Raises on
+    an index outside [0, R), which the CUDA kernel would skip."""
+    B, J = idx.shape
+    i = idx.long()
+    _check_rows(mem, i)
+    rows = rows.to(mem.dtype)
     b = torch.arange(B, device=mem.device)[:, None].expand(B, J)
     if mode == "add":
         eq = i[:, :, None] == i[:, None, :]                   # (B, J, J)
@@ -332,6 +342,46 @@ def sparse_write_update_q_ref(mem: torch.Tensor, mem_scale: torch.Tensor,
     mem_scale[b[own], i[own]] = new_s[own]
     stamp_usage(last_access, write_idx, write_w, step, delta)
     return mem, last_access, mem_scale
+
+
+def scatter_rows_q_ref(mem: torch.Tensor, mem_scale: torch.Tensor,
+                       idx: torch.Tensor, rows: torch.Tensor,
+                       rows_scale=None, mode: str = "add"):
+    """`scatter_rows_ref` on int8 rows with their (B, R) f32 scales, in
+    place; untouched rows keep their bits. Returns (mem, mem_scale).
+
+    * 'set' with int8 ``rows`` and their scales ``rows_scale`` (B, J): the
+      recorded (row, scale) pairs restored bit for bit (the rollback), the
+      last duplicate winning;
+    * 'set' with float rows: each quantized once (`quantize_rows`), the
+      last duplicate winning;
+    * 'add': each target row dequantized, the sum of every column naming
+      it added (``old + Σ rows``, the JAX oracle's einsum of duplicates
+      and then the add, in f32) and re-quantized once."""
+    B, J = idx.shape
+    i = idx.long()
+    _check_rows(mem, i)
+    b = torch.arange(B, device=mem.device)[:, None].expand(B, J)
+    if mode == "set":
+        if rows.dtype == torch.int8:
+            if rows_scale is None:
+                raise ValueError("scatter_rows: int8 'set' rows need their "
+                                 "recorded scales (rows_scale)")
+            q, s = rows, rows_scale.to(mem_scale.dtype)
+        else:
+            q, s = quantize_rows(rows)
+        own = first_occurrence(i.flip(1)).flip(1)             # last occurrence
+    elif mode == "add":
+        eq = (i[:, :, None] == i[:, None, :]).to(torch.float32)
+        new = (dequantize_rows(mem[b, i], mem_scale[b, i])
+               + torch.einsum("bjk,bkw->bjw", eq, rows.to(torch.float32)))
+        q, s = quantize_rows(new)
+        own = first_occurrence(i)
+    else:
+        raise ValueError(f"scatter_rows: unknown mode {mode!r}")
+    mem[b[own], i[own]] = q[own]
+    mem_scale[b[own], i[own]] = s[own]
+    return mem, mem_scale
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,

@@ -493,6 +493,201 @@ def test_scatter_rows_kernel_raises_on_inputs_it_cannot_take(dev):
                      torch.zeros((2, 4097, 8), device=dev), mode="set")
 
 
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+@pytest.mark.parametrize("B,R,J,W,case", [
+    (3, 1001, 20, 32, "some"),             # the smoke's widths
+    (3, 1000, 36, 32, "heavy"),            # three rows, every column
+    (4, 65537, 36, 128, "some"),           # the LM's write
+    (3, 1000, 70, 32, "cross"),            # groups across three warps
+    (3, 1000, 36, 30, "some"),             # W % 8 != 0: single values
+    (3, 1000, 20, 32, "unaligned"),        # mem off a 16-byte boundary
+    (2, 500, 40, 32, "outside"),           # indices -1 and R are skipped
+])
+@pytest.mark.parametrize("mode", ["add", "set"])
+def test_scatter_rows_bf16_kernel_matches_plain(dev, B, R, J, W, case, mode):
+    """bf16 rows, both modes bit for bit against `ref.scatter_rows_ref`:
+    each column rounded to bf16 and added in j order, rounding after each
+    add; one launch a call, counted under bf16."""
+    rng = np.random.default_rng(J + W + 1)
+    mem = torch.tensor(rng.standard_normal((B, R, W)), dtype=torch.bfloat16)
+    rows = torch.tensor(3 * rng.standard_normal((B, J, W)),
+                        dtype=torch.bfloat16)
+    if case == "heavy":
+        idx = rng.integers(0, 3, (B, J))
+    elif case == "cross":
+        idx = rng.integers(0, R, (B, J))
+        idx[:, [5, 33, 40, 66]] = idx[:, [0]]
+        idx[:, [31, 32]] = idx[:, [64]]
+    else:
+        idx = rng.integers(0, R - 1, (B, J))
+        idx[:, [7, J - 1]] = idx[:, [2]]
+    keep = list(range(J))
+    if case == "outside":
+        idx[:, 3], idx[:, J - 4] = -1, R
+        keep = [j for j in keep if j not in (3, J - 4)]
+    idx = idx.astype(np.int32)
+    want = ref.scatter_rows_ref(mem.clone(), torch.tensor(idx[:, keep]),
+                                rows[:, keep], mode)
+    if case == "unaligned":
+        flat = torch.empty(B * R * W + 1, dtype=torch.bfloat16, device=dev)
+        m = flat[1:].view(B, R, W)
+        m.copy_(mem)
+        assert m.data_ptr() % 16 == 2
+    else:
+        m = mem.to(dev)
+    count = scatter_rows.launches_by_dtype["bfloat16"]
+    out = scatter_rows(m, torch.tensor(idx, device=dev), rows.to(dev),
+                       mode=mode)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == m.data_ptr()
+    assert scatter_rows.launches_by_dtype["bfloat16"] == count + 1
+    assert torch.equal(_bits(m.cpu()), _bits(want))
+
+
+@pytest.mark.parametrize("B,R,J,W,case", [
+    (3, 1001, 20, 32, "some"), (3, 1000, 36, 32, "heavy"),
+    (4, 65537, 36, 128, "some"), (3, 1000, 70, 32, "cross"),
+    (3, 1000, 20, 24, "some"),             # W % 16 != 0: single codes
+    (3, 1000, 20, 32, "unaligned"), (2, 500, 40, 32, "outside")])
+def test_scatter_rows_int8_restore_matches_plain(dev, B, R, J, W, case):
+    """int8 rows: the 'set' of recorded (codes, scale) pairs, both bit for
+    bit against `ref.scatter_rows_q_ref`, the last duplicate winning;
+    untouched rows and scales keep their bits."""
+    rng = np.random.default_rng(J + W + 2)
+    mem, scale = quantize_rows(torch.tensor(
+        rng.standard_normal((B, R, W)), dtype=torch.float32))
+    rows, rows_scale = quantize_rows(torch.tensor(
+        3 * rng.standard_normal((B, J, W)), dtype=torch.float32))
+    if case == "heavy":
+        idx = rng.integers(0, 3, (B, J))
+    elif case == "cross":
+        idx = rng.integers(0, R, (B, J))
+        idx[:, [5, 33, 40, 66]] = idx[:, [0]]
+        idx[:, [31, 32]] = idx[:, [64]]
+    else:
+        idx = rng.integers(0, R - 1, (B, J))
+        idx[:, [7, J - 1]] = idx[:, [2]]
+    keep = list(range(J))
+    if case == "outside":
+        idx[:, 3], idx[:, J - 4] = -1, R
+        keep = [j for j in keep if j not in (3, J - 4)]
+    idx = idx.astype(np.int32)
+    want, want_s = ref.scatter_rows_q_ref(
+        mem.clone(), scale.clone(), torch.tensor(idx[:, keep]),
+        rows[:, keep], rows_scale[:, keep], "set")
+    if case == "unaligned":
+        flat = torch.empty(B * R * W + 1, dtype=torch.int8, device=dev)
+        m = flat[1:].view(B, R, W)
+        m.copy_(mem)
+    else:
+        m = mem.to(dev)
+    s = scale.to(dev)
+    count = scatter_rows.launches_by_dtype["int8"]
+    out = scatter_rows(m, torch.tensor(idx, device=dev), rows.to(dev),
+                       mode="set", mem_scale=s, rows_scale=rows_scale.to(dev))
+    torch.cuda.synchronize()
+    assert out.data_ptr() == m.data_ptr()
+    assert scatter_rows.launches_by_dtype["int8"] == count + 1
+    assert torch.equal(m.cpu(), want) and torch.equal(s.cpu(), want_s)
+
+
+def test_scatter_rows_new_instantiations_refuse_what_they_cannot_take(dev):
+    mem = torch.zeros((2, 65, 16), dtype=torch.int8, device=dev)
+    scale = torch.zeros((2, 65), device=dev)
+    idx = torch.zeros((2, 5), dtype=torch.int32, device=dev)
+    rows = torch.zeros((2, 5, 16), dtype=torch.int8, device=dev)
+    rows_scale = torch.zeros((2, 5), device=dev)
+    with pytest.raises(NotImplementedError, match="A9c"):
+        scatter_rows(mem, idx, rows, mode="add", mem_scale=scale,
+                     rows_scale=rows_scale)
+    with pytest.raises(ValueError, match="rows_scale"):
+        scatter_rows(mem, idx, rows, mode="set", mem_scale=scale)
+    with pytest.raises(ValueError, match="int8"):
+        scatter_rows(mem, idx, rows.float(), mode="set", mem_scale=scale,
+                     rows_scale=rows_scale)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        scatter_rows(mem, idx, rows, mode="set")
+    with pytest.raises(ValueError, match="bfloat16"):
+        scatter_rows(mem.bfloat16(), idx, rows.float(), mode="add")
+    # On the card ops route an int8 'add' to the kernel, which raises.
+    with pytest.raises(NotImplementedError, match="A9c"):
+        ops.scatter_rows(mem, idx, rows.float(), "add", mem_scale=scale)
+
+
+@pytest.mark.parametrize("mode", ["add", "set"])
+def test_scatter_rows_on_a_scale_cotangent_view(dev, mode):
+    """The int8 scales' cotangent takes the f32 kernel at W = 1 on a
+    (B, N+1, 1) view of the (B, N+1) buffer: bit for bit, in place."""
+    rng = np.random.default_rng(7)
+    ct = torch.tensor(rng.standard_normal((8, 4097)), dtype=torch.float32)
+    idx = torch.tensor(rng.integers(0, 4096, (8, 36)), dtype=torch.int32)
+    idx[:, 9] = idx[:, 2]
+    rows = torch.tensor(rng.standard_normal((8, 36, 1)), dtype=torch.float32)
+    want = ref.scatter_rows_ref(ct.clone()[..., None], idx, rows, mode)
+    c = ct.to(dev)
+    scatter_rows(c[..., None], idx.to(dev), rows.to(dev), mode=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(c.cpu(), want[..., 0])
+
+
+@pytest.mark.parametrize("kind", ["sam", "sam_ann"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_dtype_train_step_on_card_matches_cpu(dev, dtype, kind):
+    """A sparse training step on bf16 and int8 rows, kernels on the card
+    against the plain versions on the CPU: the loss within 1e-5 relative,
+    gradients within 2e-5 of max(1, |g|) (int8: the JAX suite's bar) or
+    2e-2 (bf16: a drift-flipped bf16 rounding moves a gradient by up to
+    an ulp of the memory's cotangent). Launches a step: the forward's
+    read, LRA and write T times; the backward's scatters (bf16: 6T on
+    bf16 rows; int8: 2T restores and 2T on the f32 scales' cotangent)
+    and, for int8, T replayed writes."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core import training
+    from repro_torch.data.tasks import copy_task
+    spec = training.ModelSpec(
+        kind, MemoryConfig(num_slots=1000, word_size=32, num_heads=4, k=4,
+                           mem_dtype=dtype),
+        ControllerConfig(input_size=10, hidden_size=32, output_size=8))
+    batch = copy_task(2, 5, 5, 8, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
+    T = batch[0].shape[1]
+    out = {}
+    for device in ("cpu", dev):
+        init_p, init_s, unroll = training.build_model(spec, device=device)
+        leaves, treedef = pytree.tree_flatten(
+            init_p(torch.Generator().manual_seed(0)))
+        leaves = [p.requires_grad_() for p in leaves]
+        inputs, targets, mask = (t.to(device) for t in batch)
+        n0 = dict(scatter_rows.launches_by_dtype)
+        w0 = sparse_write_update.launches
+        _, ys = unroll(pytree.tree_unflatten(leaves, treedef), init_s(2),
+                       inputs.transpose(0, 1))
+        loss = training.bits_loss(ys, targets.transpose(0, 1),
+                                  mask.transpose(0, 1))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        out[str(device)[:4]] = (
+            loss.item(), [torch.zeros_like(x).cpu() if g is None else g.cpu()
+                          for x, g in zip(leaves, grads)],
+            {k: v - n0[k] for k, v in scatter_rows.launches_by_dtype.items()},
+            sparse_write_update.launches - w0)
+    (l_cpu, g_cpu, _, _), (l_gpu, g_gpu, scat, writes) = out["cpu"], \
+        out["cuda"]
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    bar = 2e-2 if dtype == "bfloat16" else 2e-5
+    for a, b in zip(g_gpu, g_cpu):
+        assert ((a - b).abs() / b.abs().clamp_min(1.0)).max() <= bar
+    if dtype == "bfloat16":
+        assert scat == {"float32": 0, "bfloat16": 6 * T, "int8": 0}
+        assert writes == T
+    else:
+        assert scat == {"float32": 2 * T, "bfloat16": 0, "int8": 2 * T}
+        assert writes == 2 * T
+
+
 def test_sparse_train_step_on_card_matches_cpu(dev):
     """One sparse-mode training step, kernels on the card against the plain
     versions on the CPU: loss within 1e-5 relative; gradients and updated

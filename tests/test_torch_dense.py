@@ -346,8 +346,9 @@ def test_three_train_steps_match_jax(kind):
 
 
 def test_build_model_refuses_dnc_sdnc_and_other_rows():
-    """The DNC and the SDNC build (a plain loop; the rollback engine), and
-    refuse bf16 rows like every kind; an unknown kind raises."""
+    """The DNC and the SDNC build (a plain loop; the rollback engine); the
+    SDNC builds on bf16 rows too, while the dense kinds refuse them (JAX's
+    dense models ignore mem_dtype); an unknown kind raises."""
     _, cfg = _configs("dam", 64)
     for kind in ("dnc", "sdnc"):
         init_p, init_s, unroll = training.build_model(
@@ -360,10 +361,13 @@ def test_build_model_refuses_dnc_sdnc_and_other_rows():
                                                 cfg.controller))
     bf16 = MemoryConfig(num_slots=64, word_size=W, num_heads=H,
                         mem_dtype="bfloat16")
-    for kind in ("dam", "ntm", "dnc", "sdnc", "lstm"):
-        with pytest.raises(ValueError, match="ROADMAP.md A6b"):
+    for kind in ("dam", "ntm", "dnc", "lstm"):
+        with pytest.raises(ValueError, match="ignore mem_dtype"):
             training.build_model(training.ModelSpec(kind, bf16,
                                                     cfg.controller))
+    _, init_s, _ = training.build_model(
+        training.ModelSpec("sdnc", bf16, cfg.controller), device="cpu")
+    assert init_s(2).memory.dtype == torch.bfloat16
     with pytest.raises(ValueError, match="expected 'dam' or 'ntm'"):
         dense.DenseConfig(cfg.memory, cfg.controller, model="dnc")
 

@@ -27,11 +27,14 @@ Tolerances, each with its reason:
 """
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils import _pytree as pytree
 
 from repro.core import quant as jquant
 from repro.core import sam as jsam
@@ -44,7 +47,7 @@ from repro_torch import convert
 from repro_torch.core import quant, sam, training
 from repro_torch.core import unroll as unroll_lib
 from repro_torch.core.cell import SAMCell
-from repro_torch.core.types import ControllerConfig, MemoryConfig
+from repro_torch.core.types import ControllerConfig, LSTMState, MemoryConfig
 from repro_torch.data.tasks import copy_task
 from repro_torch.kernels import ops, ref
 
@@ -424,31 +427,341 @@ def test_mem_dtype_is_checked():
             sam.sam_step(params, c, s, x)
 
 
-def _refused(what, dtype):
-    _, cfg = _sam_configs(dtype, "exact", "ref", N=32)
-    spec = training.ModelSpec("sam", cfg.memory, cfg.controller)
-    if what == "build_model":
-        return lambda: training.build_model(spec, device="cpu")
-    if what == "make_task_train_step":
-        return lambda: training.make_task_train_step(spec, device="cpu")
-    cell = SAMCell(cfg)
-    params = cell.init_params(torch.Generator().manual_seed(0), device="cpu")
-    state = cell.init_state(B, device="cpu")
-    if what.startswith("unroll"):
-        mode = what.split("_")[1]
-        return lambda: unroll_lib.unroll(cell, params, state, _xs(),
-                                         mode=mode, chunk=2)
-    q = torch.randn(B, 2, W, requires_grad=True)
-    beta = torch.ones(B, 2)
-    if what == "autograd_read":
-        return lambda: ops.fused_read(q, state.memory, beta, 4, valid_n=32,
-                                      mem_scale=state.mem_scale)
-    J = 10
-    idx = torch.arange(J, dtype=torch.int32).expand(B, J).contiguous()
-    ww = torch.rand(B, J, requires_grad=True)
-    return lambda: ops.sparse_write_update(
-        state.memory, state.last_access, idx, ww, torch.randn(B, 2, W),
-        idx[:, 4::5].contiguous(), 1, delta=0.005, mem_scale=state.mem_scale)
+# --------------------------------------------------------------------------
+# Training on bf16 and int8 rows (ROADMAP.md A6b), against JAX
+# --------------------------------------------------------------------------
+
+TRAIN_N, TRAIN_H, TRAIN_K, TRAIN_T = 32, 2, 2, 5
+BACKENDS = ("ref", "pallas-interpret")
+# Gradients on int8 rows: the JAX suite's own bar between its modes
+# (`tests/test_int8_memory.py:276-279`, atol 2e-5), taken of the leaf's
+# max(1, |g|), with the port's rtol 1e-5. The initial scales' gradient,
+# Σ_w g_w·code_w with codes up to 127, reaches 1e2 here and cancels to ~1
+# in places, where the f32 drift of g_w between torch and XLA, times the
+# codes, reaches 4e-5 (`_int8_close`).
+INT8_ATOL, INT8_RTOL = 2e-5, 1e-5
+
+
+def _int8_close(got, want):
+    np.testing.assert_allclose(
+        got, want, rtol=INT8_RTOL,
+        atol=INT8_ATOL * max(1.0, float(np.abs(want).max())))
+
+
+def _train_configs(dtype, backend="ref", ann="exact"):
+    return _sam_configs(dtype, ann, backend, N=TRAIN_N, H=TRAIN_H,
+                        K=TRAIN_K)
+
+
+def _train_inputs(dtype, ann="exact", seed=0):
+    """Weights from the JAX init; a random initial memory (bf16 rows, or
+    int8 codes and scales quantized by the compiled JAX quantizer; scratch
+    row zero), controller state and previous read; xs and the loss's
+    weights from numpy. The float leaves that get a gradient: the bf16
+    memory or the int8 scales, h, c, the read words and weights. An LSH
+    cell's index is JAX's `ann_build` of the initial memory."""
+    from repro.core import ann as jann
+    rng = np.random.default_rng(seed)
+    jcfg, _ = _train_configs(dtype, ann=ann)
+    jparams = _numpy(jsam.init_params(jax.random.PRNGKey(seed), jcfg))
+    jstate = _numpy(jsam.init_state(B, jcfg))
+    mem = rng.standard_normal((B, TRAIN_N + 1, W)).astype(np.float32)
+    mem[:, TRAIN_N] = 0.0
+    rows, scale = _storage(mem, dtype)
+    floats = {"mem_scale": np.asarray(scale)} if dtype == "int8" else \
+        {"memory": np.asarray(rows)}
+    if dtype == "int8":
+        jstate = jstate._replace(memory=np.asarray(rows))
+    floats.update(
+        h=0.5 * rng.standard_normal((B, HIDDEN)).astype(np.float32),
+        c=0.5 * rng.standard_normal((B, HIDDEN)).astype(np.float32),
+        words=rng.standard_normal((B, TRAIN_H, W)).astype(np.float32),
+        weights=rng.dirichlet(np.ones(TRAIN_K),
+                              (B, TRAIN_H)).astype(np.float32))
+    if ann == "lsh":
+        jstate = jstate._replace(ann=_numpy(jann.ann_build(
+            jnp.asarray(jparams["lsh_planes"]), jnp.asarray(rows),
+            jcfg.memory, partitions=1)))
+    xs = rng.integers(0, 2, (TRAIN_T, B, BITS + 2)).astype(np.float32)
+    r = rng.standard_normal((B, TRAIN_N + 1) + ((W,) if dtype != "int8"
+                                                 else ())).astype(np.float32)
+    return jparams, jstate, floats, xs, r
+
+
+def _buffer(dtype):
+    return "mem_scale" if dtype == "int8" else "memory"
+
+
+def _train_loss(final, ys, r, dtype, f32):
+    """Reads the outputs, the final controller state and the final
+    memory (int8: its scales), made f32 by ``f32``."""
+    return ((ys ** 2).sum() + (final.ctrl.h ** 2).sum()
+            + (f32(getattr(final, _buffer(dtype))) * r).sum())
+
+
+def _jax_with(jstate, f):
+    from repro.core.types import LSTMState as JaxLSTMState
+    s = jstate._replace(ctrl=JaxLSTMState(h=f["h"], c=f["c"]),
+                        read=jstate.read._replace(words=f["words"],
+                                                  weights=f["weights"]))
+    return s._replace(**{k: f[k] for k in ("memory", "mem_scale") if k in f})
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_train_grads(dtype, backend, mode, ann="exact"):
+    """(loss, grads as a flat list of f32 numpy arrays: the parameters in
+    `jax.tree.leaves` order, the float leaves, xs) of JAX's `unroll`."""
+    from repro.core import unroll as junroll
+    from repro.core.cell import SAMCell as JaxSAMCell
+    jparams, jstate, floats, xs, r = _train_inputs(dtype, ann)
+    jcfg, _ = _train_configs(dtype, backend, ann)
+    cell = JaxSAMCell(jcfg)
+
+    def loss(p, f, x):
+        final, ys = junroll.unroll(cell, p, _jax_with(jstate, f), x,
+                                   mode=mode)
+        return _train_loss(final, ys, r, dtype,
+                           lambda t: t.astype(jnp.float32))
+
+    val, (gp, gf, gx) = jax.jit(jax.value_and_grad(loss, argnums=(0, 1, 2)))(
+        jparams, floats, xs)
+    return float(val), [np.asarray(g, np.float32) for g in
+                        [*jax.tree.leaves(gp), *(gf[k] for k in floats), gx]]
+
+
+def _port_train_grads(dtype, mode, ann="exact"):
+    """The port's (loss, grads in `_jax_train_grads`' order, the initial
+    state the unroll ran from, the initial float leaves)."""
+    jparams, jstate, floats, xs, r = _train_inputs(dtype, ann)
+    _, cfg = _train_configs(dtype, ann=ann)
+    params = convert.params_from_jax(jparams, device="cpu")
+    p_leaves, p_spec = pytree.tree_flatten(params)
+    p_leaves = [p.requires_grad_() for p in p_leaves]
+    f = {k: _t(v).requires_grad_() for k, v in floats.items()}
+    x = torch.tensor(xs, requires_grad=True)
+    s0 = convert.state_from_jax(jstate, device="cpu")
+    buf = _buffer(dtype)
+    # The unroll updates the memory (or the scales) in place: a copy.
+    s0 = s0._replace(ctrl=LSTMState(h=f["h"], c=f["c"]),
+                     read=s0.read._replace(words=f["words"],
+                                           weights=f["weights"]),
+                     **{buf: f[buf].clone()})
+    final, ys = unroll_lib.unroll(SAMCell(cfg),
+                                  pytree.tree_unflatten(p_leaves, p_spec),
+                                  s0, x, mode=mode, chunk=2)
+    loss = _train_loss(final, ys, torch.tensor(r), dtype, torch.Tensor.float)
+    inputs = [*p_leaves, *f.values(), x]
+    grads = [torch.zeros_like(i) if g is None else g for i, g in zip(
+        inputs, torch.autograd.grad(loss, inputs, allow_unused=True))]
+    g_params = pytree.tree_unflatten(
+        [g.float().numpy() for g in grads[:len(p_leaves)]], p_spec)
+    return (loss.item(),
+            [np.asarray(g) for g in jax.tree.leaves(g_params)]
+            + [g.float().numpy() for g in grads[len(p_leaves):]], s0, f)
+
+
+def _gap(got, want) -> float:
+    """The largest |got - want| over max(1, |want|), element by element,
+    over every leaf."""
+    return max(float((np.abs(a - b) / np.maximum(1.0, np.abs(b))).max())
+               for a, b in zip(got, want))
+
+
+def _spread(runs) -> float:
+    """The largest `_gap` between two of JAX's runs (loss, grads)."""
+    return max(_gap([np.float32(a[0]), *a[1]], [np.float32(b[0]), *b[1]])
+               for i, a in enumerate(runs) for b in runs[i + 1:])
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_bar(ann="exact") -> float:
+    """Twice JAX's own spread on the same inputs: the largest gap between
+    two of its four runs, naive and sparse under ``ref`` and
+    ``pallas-interpret``. Its sparse-against-naive gap alone can be 0
+    (under ``ref`` both modes round alike: XLA keeps bf16 sums in f32
+    within a fusion), while the port rounds each add into its one bf16
+    cotangent in j order and JAX's Pallas bf16 write rounds otherwise
+    (ROADMAP §C)."""
+    return 2 * _spread([_jax_train_grads("bfloat16", be, mode, ann)
+                        for be in BACKENDS for mode in ("naive", "sparse")])
+
+
+def _check_train_grads(dtype, mode, ann="exact"):
+    loss, grads, s0, f = _port_train_grads(dtype, mode, ann)
+    buf = _buffer(dtype)
+    if mode != "naive":
+        # The rollback gave the buffer back bit for bit.
+        assert torch.equal(_bits(getattr(s0, buf)), _bits(f[buf].detach()))
+    for backend in BACKENDS:
+        for j_mode in ("naive", "sparse"):
+            j_loss, j_grads = _jax_train_grads(dtype, backend, j_mode, ann)
+            assert len(grads) == len(j_grads)
+            if dtype == "int8":
+                np.testing.assert_allclose(loss, j_loss, rtol=TOL)
+                for g, want in zip(grads, j_grads):
+                    _int8_close(g, want)
+                continue
+            # bf16: the forward is the oracle's bit for bit (ROADMAP.md §C:
+            # the Pallas bf16 write rounds otherwise).
+            if backend == "ref":
+                np.testing.assert_allclose(loss, j_loss, rtol=TOL)
+            assert _gap([np.float32(loss), *grads],
+                        [np.float32(j_loss), *j_grads]) <= _bf16_bar(ann)
+    if dtype == "int8" and mode != "naive":
+        for g, want in zip(grads, _port_train_grads(dtype, "naive", ann)[1]):
+            _int8_close(g, want)
+
+
+def _acc_like(jparams, rng):
+    return jax.tree.map(
+        lambda p: (0.01 + rng.random(p.shape)).astype(np.float32) * 1e-3,
+        jparams)
+
+
+def _check_three_train_steps(dtype):
+    """Three RMSProp steps of ``sam`` on the copy task, the port and JAX
+    from the same weights, optimizer state and batches: losses, bit
+    errors, weights and accumulators."""
+    from repro.core.training import ModelSpec as JaxModelSpec
+    from repro.core.training import make_task_train_step as jax_train_step
+    from repro.optim import optimizers as jopt
+    jcfg, cfg = _train_configs(dtype)
+    rng = np.random.default_rng(7)
+    j_init, _, j_step = jax_train_step(
+        JaxModelSpec("sam", jcfg.memory, jcfg.controller), 1e-3)
+    _, _, step = training.make_task_train_step(
+        training.ModelSpec("sam", cfg.memory, cfg.controller), 1e-3,
+        device="cpu")
+    jparams = _numpy(j_init(jax.random.PRNGKey(3)))
+    j_opt = jopt.RMSPropState(acc=_acc_like(jparams, rng))
+    params = convert.params_from_jax(jparams, device="cpu")
+    opt_state = convert.opt_state_from_jax(j_opt, device="cpu")
+    j_step = jax.jit(j_step)
+    for n in (MAX_LEN, 1, MAX_LEN):
+        seq = rng.integers(0, 2, (B, MAX_LEN, BITS))
+        batch = copy_task(B, n, MAX_LEN, BITS, seq=seq, device="cpu")
+        jparams, j_opt, j_loss, j_err = j_step(
+            jparams, j_opt, *(jnp.asarray(t.numpy()) for t in batch))
+        params, opt_state, loss, err = step(params, opt_state, *batch)
+        np.testing.assert_allclose(loss.item(), float(j_loss), rtol=TOL)
+        assert err.item() == float(j_err)
+        for got, want in ((params, jparams), (opt_state.acc, j_opt.acc)):
+            for group, leaves in _numpy(want).items():
+                for name, leaf in leaves.items():
+                    np.testing.assert_allclose(got[group][name].numpy(),
+                                               leaf, atol=TOL, rtol=TOL)
+
+
+def _check_build_model(dtype):
+    """`build_model` on the rows: the state's dtypes, and its unroll's
+    outputs and final state against JAX's `build_model`'s from the same
+    weights (bf16 rows, int8 codes and usage bit for bit)."""
+    from repro.core.training import ModelSpec as JaxModelSpec
+    from repro.core.training import build_model as jax_build_model
+    jcfg, cfg = _train_configs(dtype)
+    j_init, j_state, j_unroll = jax_build_model(
+        JaxModelSpec("sam", jcfg.memory, jcfg.controller))
+    init_p, init_s, run = training.build_model(
+        training.ModelSpec("sam", cfg.memory, cfg.controller), device="cpu")
+    state = init_s(B)
+    assert state.memory.dtype == getattr(torch, dtype)
+    assert (state.mem_scale is not None) == (dtype == "int8")
+    jparams = _numpy(j_init(jax.random.PRNGKey(4)))
+    xs = _xs()
+    j_final, j_ys = jax.jit(j_unroll)(jparams, j_state(B),
+                                      jnp.asarray(xs.numpy()))
+    final, ys = run(convert.params_from_jax(jparams, device="cpu"), state, xs)
+    np.testing.assert_allclose(ys.detach().numpy(), np.asarray(j_ys),
+                               atol=TOL, rtol=TOL)
+    _assert_state_matches(final, j_final)
+
+
+def _op_case(dtype, seed=5):
+    """A read's and a write's inputs on the rows of ``dtype`` (bf16 rows
+    or int8 codes and scales from the compiled JAX quantizer), with rows
+    that two heads both read and duplicate write columns, and
+    cotangents."""
+    rng = np.random.default_rng(seed)
+    mem, la, widx, ww, a, lra = _write_case("some", N=64, H=2, K=4,
+                                            seed=seed)
+    rows, scale = _storage(mem, dtype)
+    idx_rows = rng.integers(0, 64, (B, 2, 4)).astype(np.int32)
+    q = rng.standard_normal((B, 2, W)).astype(np.float32)
+    q[:, 1] = np.asarray(rows, np.float32)[:, 7] if dtype != "int8" else \
+        mem[:, 7]                          # both heads read row 7
+    q[:, 0] = q[:, 1] + 0.01 * q[:, 0]
+    beta = (1.0 + rng.random((B, 2))).astype(np.float32)
+    g_mem = rng.standard_normal(mem.shape).astype(np.float32)
+    return dict(rows=rows, scale=scale, la=la, widx=widx, ww=ww, a=a,
+                lra=lra, q=q, beta=beta, idx_rows=idx_rows,
+                g_mem=g_mem, g_scale=rng.standard_normal(mem.shape[:2]).astype(
+                    np.float32),
+                g_read=rng.standard_normal((B, 2, W)).astype(np.float32),
+                g_w=rng.standard_normal((B, 2, 4)).astype(np.float32))
+
+
+def _vjps(port_fn, jax_fn, primals, cts):
+    """(the port's VJP through its autograd Functions, JAX's `jax.vjp`) of
+    the same function, at ``primals`` (numpy or JAX arrays) and ``cts``."""
+    leaves = [_t(p).requires_grad_() for p in primals]
+    outs = port_fn(*[x.clone() for x in leaves])
+    got = torch.autograd.grad(outs, leaves, [_t(c) for c in cts])
+    _, vjp = jax.vjp(jax_fn, *[jnp.asarray(p) for p in primals])
+    want = vjp(tuple(jnp.asarray(c) for c in cts) if len(cts) > 1
+               else jnp.asarray(cts[0]))
+    return got, want
+
+
+def _check_op_vjp(op, dtype):
+    """The read's and the write's closed-form VJPs on the rows against
+    `jax.vjp` of the JAX ops under both backends: on bf16 rows the
+    memory's gradient is bf16, on int8 rows the scales' is held (the codes
+    carry none)."""
+    d = _op_case(dtype)
+    N = d["rows"].shape[1] - 1
+    q8 = dtype == "int8"
+    codes = d["rows"] if q8 else None
+    for backend in BACKENDS:
+        if op == "read":
+            primals = (d["q"], d["scale"] if q8 else d["rows"], d["beta"])
+            cts = (d["g_read"], d["g_w"])
+
+            def port(q, m, b):
+                mem, s = (_t(codes), m) if q8 else (m, None)
+                return ops.fused_read(q, mem, b, 4, valid_n=N,
+                                      mem_scale=s)[:2]
+
+            def jax_fn(q, m, b, backend=backend):
+                mem, s = (jnp.asarray(codes), m) if q8 else (m, None)
+                return jops.fused_read(q, mem, b, 4, backend=backend,
+                                       block_n=16, valid_n=N,
+                                       mem_scale=s)[:2]
+        else:
+            primals = (d["scale"] if q8 else d["rows"], d["ww"], d["a"])
+            cts = (d["g_scale"] if q8 else
+                   np.asarray(jnp.asarray(d["g_mem"]).astype(jnp.bfloat16)),)
+            step = np.int32(9)
+
+            def port(m, w, a):
+                out = ops.sparse_write_update(
+                    _t(codes).clone() if q8 else m, _t(d["la"]),
+                    _t(d["widx"]), w, a, _t(d["lra"]), torch.tensor(step),
+                    delta=0.005, mem_scale=m if q8 else None)
+                return out[2] if q8 else out[0]
+
+            def jax_fn(m, w, a, backend=backend):
+                out = jops.sparse_write_update(
+                    jnp.asarray(codes) if q8 else m, jnp.asarray(d["la"]),
+                    jnp.asarray(d["widx"]), w, a, jnp.asarray(d["lra"]),
+                    step, delta=0.005, backend=backend, scratch_row=N,
+                    mem_scale=m if q8 else None)
+                return out[2] if q8 else out[0]
+        got, want = _vjps(port, jax_fn, primals, cts)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.dtype == _t(np.asarray(w)).dtype
+            assert np.abs(np.asarray(w, np.float32)).max() > 0
+            _int8_close(g.float().numpy(), np.asarray(w, np.float32))
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
@@ -456,6 +769,21 @@ def _refused(what, dtype):
     "build_model", "make_task_train_step", "unroll_naive", "unroll_sparse",
     "unroll_chunked", "autograd_read", "autograd_write"])
 def test_training_on_bf16_or_int8_rows_is_refused(what, dtype):
-    fn = _refused(what, dtype)
-    with pytest.raises(ValueError, match="ROADMAP.md A6b"):
-        fn()
+    """Once refused (ROADMAP.md A6b), each of these training paths now runs
+    on bf16 and int8 rows and is held against JAX: `build_model`'s unroll;
+    three `make_task_train_step` RMSProp steps; the naive, sparse and
+    chunked (C = 2) unrolls' gradients against `jax.grad` of JAX's naive
+    and sparse unrolls under ``ref`` and ``pallas-interpret`` (int8: within
+    atol 2e-5 of the leaf's max(1, |g|) / rtol 1e-5, and sparse and
+    chunked against the port's naive so too, the rollback bit for bit;
+    bf16: within twice JAX's own spread across its modes and backends,
+    `_bf16_bar`);
+    the read's and the write's VJPs against `jax.vjp`."""
+    if what == "build_model":
+        _check_build_model(dtype)
+    elif what == "make_task_train_step":
+        _check_three_train_steps(dtype)
+    elif what.startswith("unroll"):
+        _check_train_grads(dtype, what.split("_")[1])
+    else:
+        _check_op_vjp(what.split("_")[1], dtype)
