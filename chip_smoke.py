@@ -20,9 +20,12 @@ by slots over 4 processes (`repro_torch.distributed.mem_shard`), whose
 ranks sweep their blocks with the `topk_read` kernel; then the sparse DNC
 (exact and LSH) forward and in training on associative recall, and the
 paper's Fig. 7 against the dense DNC; then the LM served through the
-continuous-batching engine with per-user memory sessions; last the LM
-trained (8 of its 32 layers at full width, AdamW). It fails
-(nonzero exit) if any phase fails:
+continuous-batching engine with per-user memory sessions; then the LM
+trained (8 of its 32 layers at full width, AdamW); last the streaming
+trainer, which carries the SAM cell's memory from chunk to chunk of long
+episodes and checkpoints mid-episode, and a ~100M LM trained under the
+checkpointing, retrying loop. It fails (nonzero exit) if any phase
+fails:
 
 1. build the kernels from `src/repro_torch/kernels/csrc/` with nvcc for
    sm_90a and print each kernel's registers, shared memory and spills
@@ -294,14 +297,48 @@ trained (8 of its 32 layers at full width, AdamW). It fails
    d. more steps, timed (host ms, forward, backward and optimizer apart,
       tokens/s, peak memory against 16 B a parameter, the device's busy
       share and top kernels): the loss finite and falling;
-14. print the empty-launch floor with each latency-bound kernel's time
+14. the streaming trainer (`core/training.py::train_task_streaming`; the
+   carry kept live after each backward by `core/unroll.py::roll_forward`)
+   and the checkpointed training loop (`distributed/fault_tolerance.py::
+   ResilientLoop`), checkpoints in a temporary directory it removes:
+   a. the copy task at the smoke's widths (N = 2^20, B = 8, f32 rows, the
+      exact read), two episodes of T = 514 in chunks of 42 (13 an episode,
+      the last of 10 steps), a checkpoint every 4 chunks and at each
+      episode's end: the first chunk in lockstep; after every chunk the
+      carry's memory and usage table equal a clone taken after the
+      chunk's forward, bit for bit; each chunk's launches exact (the
+      forward's read, write and LRA one a step, the backward's 6 scatters
+      a step, the redo's one 'set' a step and nothing else); nothing
+      turns NaN; the chunk step's host ms (forward, backward, redo apart),
+      time steps trained a second, the peak against
+      `residual_accounting(mode="sparse")`, the cotangent, the redo log
+      and the phase's clone, and each save's ms and bytes;
+   b. the same run killed after 17 chunks (episode 1, chunk 4) and
+      resumed: it goes on at the newest checkpoint's chunk, and its
+      history, parameters and its last two checkpoints (parameters,
+      RMSProp state, carry, loop) equal (a)'s bit for bit, the first leaf
+      that differs named otherwise; the restore's ms;
+   c. two chunks each of ``sam_ann`` (f32), ``sam`` on int8 rows and the
+      SDNC (exact, f32) at the same widths, the first in lockstep: the
+      carry's buffers back bit for bit and every chunk's launches exact
+      (the redo: one f32 scatter a step, or one int8 (codes, scale)
+      restore on int8 rows);
+   d. the ~100M LM of `examples/train_lm_100m.py` at its 65,536 slots,
+      B = 4, S = 256, 30 steps under `launch.train.train(ckpt_dir=)`, a
+      checkpoint every 10: a run with two `TransientError`s at step 5
+      saves at step 10 the clean run's state bit for bit; stopped at step
+      17, it resumes at the step after its newest checkpoint with the
+      state saved there, bit for bit; the final save is on disk when the loop's `run`
+      returns; step ms, the saves' blocking and writer ms and bytes;
+15. print the empty-launch floor with each latency-bound kernel's time
    above it (`lra_topn`, the scatter, the write at step 21 on f32, bf16
    and int8 rows and at the LM's shapes, the candidate read on f32, bf16
    and int8 rows, the hash of the written rows and of the queries), the
    card, one JSON line of per-kernel numbers (the LM's
    under ``"lm"``, the sharded memory's under ``"mesh"``, the DNC's under
    ``"dnc"``, the engine's under ``"engine"``, the LM trainer's under
-   ``"lm_train"``), and last the ``{"ok": true, ...}`` line.
+   ``"lm_train"``, the streaming trainer's under ``"stream"``), and last
+   the ``{"ok": true, ...}`` line.
 
 Tolerances: integer outputs exact; forward floats within 1e-5 of
 max(1, |plain|), element by element (other summation order, rsqrt
@@ -503,6 +540,20 @@ ENGINE_AFTER_RESTORE, ENGINE_LOCKSTEP_EVERY, ENGINE_BUSY_STEPS = 3, 16, 8
 # hidden 64, T = 10; the dense DNC only where its reckoning fits.
 FIG7_B, FIG7_T = 2, 10
 FIG7_NS = tuple(1 << e for e in range(8, 21))
+# Phase 14, the streaming trainer at the smoke's widths: episodes of the
+# copy task at level STREAM_LEVEL (T = 2·256 + 2 = 514: 13 chunks of
+# STREAM_CHUNK, the last of 10 steps), STREAM_EPISODES of them, a
+# checkpoint every STREAM_EVERY chunks; (b) kills the run after
+# STREAM_STOP chunks (episode 1, chunk 4) and resumes it. (d): the ~100M LM
+# of `examples/train_lm_100m.py` at its full LM100_SLOTS slots, B × S =
+# LM100_B × LM100_S, LM100_STEPS steps under `ResilientLoop`, a checkpoint
+# every LM100_EVERY: a clean run, and a run with two transient errors at
+# step LM100_FLAKY, stopped at step LM100_STOP and resumed.
+STREAM_CHUNK, STREAM_LEVEL, STREAM_EPISODES, STREAM_EVERY = 42, 256, 2, 4
+STREAM_STOP = 17
+LM100_SLOTS, LM100_B, LM100_S, LM100_STEPS, LM100_EVERY = 65536, 4, 256, \
+    30, 10
+LM100_FLAKY, LM100_STOP = 5, 17
 
 
 class SmokeFailure(Exception):
@@ -3293,6 +3344,528 @@ def dnc_phase(dev, ops, ref, checker, zero_counts, counts):
                 times=times)
 
 
+def stream_bytes(tree) -> int:
+    """Bytes of a tree's tensors on the host side of a checkpoint."""
+    return sum(t.numel() * t.element_size() for t in
+               torch.utils._pytree.tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def stream_phase(dev, ops, ref, checker, zero_counts, counts):
+    """Phase 14: the streaming trainer (`core/training.py::
+    train_task_streaming`, the carry kept live by `unroll.roll_forward`),
+    its checkpoints and resume, and the ~100M LM under `ResilientLoop`
+    (`launch/train.py`, `examples/train_lm_100m.py`). Its checkpoints go to
+    a temporary directory that it removes. Returns what was measured."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.checkpoint import ckpt as ckpt_lib
+    from repro_torch.core import training
+    from repro_torch.core import unroll as unroll_lib
+    from repro_torch.core.cell import SAMCell
+    from repro_torch.core.sam import SAMConfig
+    from repro_torch.core.types import (ControllerConfig, MemoryConfig,
+                                        tree_bytes)
+    from repro_torch.data.tasks import copy_task
+    from repro_torch.distributed import fault_tolerance
+    from repro_torch.examples import train_lm_100m
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import optimizers as opt
+
+    card = card_line()
+    ctl = ControllerConfig(input_size=BITS + 2, hidden_size=HIDDEN,
+                           output_size=BITS)
+
+    def spec(kind="sam", mem_dtype="float32"):
+        lsh = LSH if kind == "sam_ann" else {}
+        return training.ModelSpec(kind, MemoryConfig(
+            num_slots=N, word_size=W, num_heads=H, k=K, delta=DELTA,
+            mem_dtype=mem_dtype, **lsh), ctl)
+
+    def since(before):
+        return {k: v - before.get(k, 0) for k, v in counts().items()
+                if v - before.get(k, 0)}
+
+    out = {"card": card}
+    root = Path(tempfile.mkdtemp(prefix="stream_ckpt_"))
+    saves, restores = [], []
+    save0 = ckpt_lib.save_checkpoint
+    restore0 = ckpt_lib.restore_checkpoint
+    forward, roll = unroll_lib.unroll, unroll_lib.roll_forward
+    make_step = training.make_streaming_train_step
+    probe = {"check": True, "chunks": [], "lockstep": 0}
+
+    def timed_save(directory, step, tree, mem_layout=None):
+        """The trainer's (or the writer thread's) save, timed; then all but
+        the newest two steps of the directory removed: the streaming
+        trainer keeps every checkpoint, as JAX's does, and (a) and (b)
+        would leave 16 of 1.1 GB."""
+        t0 = time.perf_counter()
+        path = save0(directory, step, tree, mem_layout=mem_layout)
+        ms = (time.perf_counter() - t0) * 1e3
+        saves.append(dict(dir=Path(directory).name, step=step, ms=ms,
+                          bytes=stream_bytes(tree)))
+        for old in sorted((int(p.name[5:]) for p in Path(directory).iterdir()
+                           if p.name.startswith("step_")))[:-2]:
+            shutil.rmtree(Path(directory) / f"step_{old}")
+        return path
+
+    def timed_restore(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = restore0(*args, **kw)
+        torch.cuda.synchronize()
+        restores.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                             step=result[1]))
+        return result
+
+    def probed_unroll(cell, params, state, xs, **kw):
+        torch.cuda.synchronize()
+        c0, t0 = counts(), time.perf_counter()
+        final, ys = forward(cell, params, state, xs, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        probe["cur"] = dict(
+            steps=xs.shape[0], fwd_ms=(t1 - t0) * 1e3, t1=t1, c1=counts(),
+            fwd=since(c0), cell=cell,
+            clone=[unroll_lib._get(final, p).clone()
+                   for p in cell.dense_buffers] if probe["check"] else None)
+        return final, ys
+
+    def probed_roll(state):
+        cur = probe["cur"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cur["bwd_ms"] = (t0 - cur["t1"]) * 1e3
+        cur["bwd"] = since(cur.pop("c1"))
+        cur["log_bytes"] = tree_bytes([log for _, log in getattr(
+            state.memory, "redo_logs", [])])
+        c0 = counts()
+        state = roll(state)
+        torch.cuda.synchronize()
+        cur["redo_ms"] = (time.perf_counter() - t0) * 1e3
+        cur["redo"] = since(c0)
+        if cur["clone"] is not None:
+            for p, b in zip(cur["cell"].dense_buffers, cur.pop("clone")):
+                require(torch.equal(unroll_lib._get(state, p), b),
+                        f"after roll_forward the carry's {p} is not the "
+                        f"chunk's forward's, bit for bit")
+        return state
+
+    def probed_make_step(*args, **kw):
+        init_p, init_s, step = make_step(*args, **kw)
+
+        def chunk_step(params, opt_state, carry, xs, ts, ms):
+            lockstep = probe["lockstep"] > 0
+            probe["lockstep"] -= lockstep
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            c0, t0 = counts(), time.perf_counter()
+            if lockstep:
+                with Intercept(ops, checker=checker):
+                    res = step(params, opt_state, carry, xs, ts, ms)
+            else:
+                res = step(params, opt_state, carry, xs, ts, ms)
+            torch.cuda.synchronize()
+            cur = probe.pop("cur")
+            cur.update(ms=(time.perf_counter() - t0) * 1e3, all=since(c0),
+                       lockstep=lockstep, cell=None,
+                       peak=torch.cuda.max_memory_allocated() - held)
+            require(all(torch.isfinite(t).all().item() for t in
+                        pytree.tree_leaves((res[0], res[1], res[3]))
+                        if t.is_floating_point()) and all(
+                torch.isfinite(t.float()).all().item()
+                for t in pytree.tree_leaves(res[2])
+                if isinstance(t, torch.Tensor) and t.is_floating_point()),
+                "a chunk step produced a NaN or an infinity")
+            probe["chunks"].append(cur)
+            return res
+        return init_p, init_s, chunk_step
+
+    def want_chunk(kind, c, mem_dtype="float32"):
+        """Launches of one chunk step of c steps: the forward's, the
+        backward's and the redo's (one 'set' a step)."""
+        if kind == "sdnc":
+            fwd = {"lra_topn": c, "scatter_rows": 2 * c,
+                   "fused_read_sweep": c}
+            bwd = {"scatter_rows": SDNC_BWD_SCATTERS * c}
+        elif mem_dtype == "int8":
+            fwd = {"lra_topn": c, "fused_read_sweep": c,
+                   "fused_read_sweep_int8": c, "sparse_write_update": c,
+                   "sparse_write_update_int8": c}
+            bwd = {"scatter_rows": 4 * c, "scatter_rows_int8": 2 * c,
+                   "sparse_write_update": c, "sparse_write_update_int8": c}
+        else:
+            fwd = ({"lsh_hash": 2 * c, "fused_read_candidates": c}
+                   if kind == "sam_ann" else {"fused_read_sweep": c})
+            fwd.update(lra_topn=c, sparse_write_update=c)
+            bwd = {"scatter_rows": 6 * c}
+        redo = {"scatter_rows": c}
+        if mem_dtype == "int8":
+            redo["scatter_rows_int8"] = c
+        return fwd, bwd, redo
+
+    def check_chunk(cur, kind, mem_dtype="float32"):
+        fwd, bwd, redo = want_chunk(kind, cur["steps"], mem_dtype)
+        for what, want in (("forward", fwd), ("backward", bwd),
+                           ("redo", redo)):
+            got = cur[{"forward": "fwd", "backward": "bwd",
+                       "redo": "redo"}[what]]
+            require(got == want, f"{kind} ({mem_dtype} rows) chunk of "
+                    f"{cur['steps']} steps: the {what} launched {got}, "
+                    f"expected {want}")
+        total = {}
+        for part in (fwd, bwd, redo):
+            for k_, v in part.items():
+                total[k_] = total.get(k_, 0) + v
+        require(cur["all"] == total, f"{kind} chunk step launched "
+                f"{cur['all']}, expected {total}")
+
+    def same_tree(a, b, what):
+        for (name, x), (_, y) in zip(ckpt_lib.flatten_with_paths(a),
+                                     ckpt_lib.flatten_with_paths(b)):
+            require(torch.equal(x, y), f"{name} differs: {what}")
+
+    def leaves_of(directory, step):
+        path = Path(directory) / f"step_{step}"
+        manifest = json.loads((path / "manifest.json").read_text())
+        return manifest, [(e["path"], path / e["file"])
+                          for e in manifest["leaves"]]
+
+    def same_checkpoint(a, b, step):
+        """The two directories' checkpoints of ``step`` leaf for leaf, bit
+        for bit; the first leaf that differs fails the phase."""
+        ma, la = leaves_of(a, step)
+        mb, lb = leaves_of(b, step)
+        require(ma == mb, f"the manifests of step {step} differ")
+        import numpy as np
+        for (p, fa), (_, fb) in zip(la, lb):
+            xa, xb = np.load(fa), np.load(fb)
+            require(xa.dtype == xb.dtype and np.array_equal(
+                np.atleast_1d(xa).view(np.uint8),
+                np.atleast_1d(xb).view(np.uint8)),
+                f"checkpoint step {step}: leaf {p} differs between the "
+                f"uninterrupted and the resumed run")
+        return len(la)
+
+    stream_kw = dict(episodes=STREAM_EPISODES, chunk=STREAM_CHUNK, batch=B,
+                     level=STREAM_LEVEL, max_level=STREAM_LEVEL, bits=BITS,
+                     lr=LR, seed=0, ckpt_every=STREAM_EVERY, device=dev)
+    T_ep = 2 * STREAM_LEVEL + 2
+    n_chunks = -(-T_ep // STREAM_CHUNK)
+    final = STREAM_EPISODES * n_chunks
+    # The steps the trainer saves: every STREAM_EVERY chunks and at each
+    # episode's end.
+    save_points = sorted({*range(STREAM_EVERY, final + 1, STREAM_EVERY),
+                          *range(n_chunks, final + 1, n_chunks)})
+    ckpt_lib.save_checkpoint = timed_save
+    ckpt_lib.restore_checkpoint = timed_restore
+    unroll_lib.unroll, unroll_lib.roll_forward = probed_unroll, probed_roll
+    training.make_streaming_train_step = probed_make_step
+    try:
+        # (a) two episodes of the copy task, chunk by chunk, the first
+        # chunk in lockstep, a checkpoint every STREAM_EVERY chunks.
+        dir_a = root / "a"
+        probe["lockstep"] = 1
+        before = dict(checker.scatter_calls)
+        zero_counts()
+        t0 = time.perf_counter()
+        params_a, hist_a = training.train_task_streaming(
+            spec(), "copy", ckpt_dir=str(dir_a), **stream_kw)
+        torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t0
+        launched_a = counts()
+        chunks_a = probe["chunks"]
+        probe["chunks"] = []
+        require(len(hist_a) == len(chunks_a) == STREAM_EPISODES * n_chunks,
+                f"{len(hist_a)} chunks trained, expected "
+                f"{STREAM_EPISODES * n_chunks}")
+        for cur in chunks_a:
+            check_chunk(cur, "sam")
+        require(launched_a["scatter_rows"] > 0 and all(
+            launched_a[k_] > 0 for k_ in FORWARD), f"the stream launched "
+            f"{launched_a}")
+        steps_a = sum(c["steps"] for c in chunks_a)
+        # Times and peaks of the chunks outside lockstep (the first's
+        # plain versions copy the memory at every call).
+        timed = [c for c in chunks_a if not c["lockstep"]]
+        steps_t, ms_t = (sum(c[k_] for c in timed) for k_ in ("steps", "ms"))
+        lock_ms = sum(c["ms"] for c in chunks_a if c["lockstep"])
+        peak_a = max(c["peak"] for c in timed)
+        body = [c for c in timed if c["steps"] == STREAM_CHUNK]
+        med = {k_: sorted(c[k_] for c in body)[len(body) // 2]
+               for k_ in ("ms", "fwd_ms", "bwd_ms", "redo_ms")}
+        s_cell = SAMCell(SAMConfig(spec().memory, ctl))
+        s_tmpl = s_cell.init_state(B, device=dev)
+        acct = unroll_lib.residual_accounting(
+            s_cell, None, s_tmpl,
+            torch.zeros((STREAM_CHUNK, B, BITS + 2), device=dev),
+            mode="sparse")
+        clone_bytes = tree_bytes([unroll_lib._get(s_tmpl, p)
+                                  for p in s_cell.dense_buffers])
+        del s_tmpl
+        ct_bytes = B * (N + 1) * W * 4
+        log_bytes = max(c["log_bytes"] for c in chunks_a)
+        res_bytes = acct["residual_bytes"] - acct["state_bytes"]
+        reckoned = res_bytes + ct_bytes + log_bytes + clone_bytes
+        saves_a = [s for s in saves if s["dir"] == "a"]
+        print(f"[stream] (a) {STREAM_EPISODES} episodes of T={T_ep} (copy, "
+              f"N={N}, B={B}, f32 rows, exact read) in {len(chunks_a)} "
+              f"chunks of {STREAM_CHUNK} (the last of each episode "
+              f"{T_ep - (n_chunks - 1) * STREAM_CHUNK}): chunk 1 in "
+              f"lockstep (scatter_rows calls checked "
+              f"{ {m: c - before[m] for m, c in checker.scatter_calls.items()} }"
+              f"); after every chunk the carry's memory and usage table "
+              f"equal a clone taken after its forward, bit for bit; "
+              f"launches exact a chunk (read, write, LRA one a step; "
+              f"scatter 6 a backward step and 1 a redo step, nothing else "
+              f"in the redo); total {launched_a}; {card}")
+        print(f"[stream] (a) chunk step {med['ms']:.2f} ms (median of "
+              f"{len(body)} full chunks): forward {med['fwd_ms']:.2f}, "
+              f"backward {med['bwd_ms']:.2f}, redo {med['redo_ms']:.2f} ms; "
+              f"{steps_t / ms_t * 1e3:.1f} time steps trained a second "
+              f"outside lockstep ({steps_t / (wall_a - lock_ms / 1e3):.1f} "
+              f"with the saves; {wall_a:.2f} s in all, {lock_ms:.0f} ms of "
+              f"it the lockstep chunk); a chunk step's peak above the held "
+              f"carry {peak_a} B (the largest outside lockstep) against a "
+              f"chunk's residuals (residual_accounting(mode='sparse') "
+              f"without the state) {res_bytes} B + the cotangent "
+              f"{ct_bytes} B + the redo log {log_bytes} B + this phase's "
+              f"clone of the carry's buffers {clone_bytes} B = {reckoned} "
+              f"B; {card}")
+        for s in saves_a:
+            print(f"[stream] (a) save of step {s['step']}: {s['ms']:.1f} ms "
+                  f"blocking the loop (synchronous, as JAX's trainer: the "
+                  f"copy to the host and the files); {s['bytes']} B")
+        out["a"] = dict(
+            chunks=len(chunks_a), steps=steps_a, wall_s=wall_a,
+            lockstep_ms=lock_ms,
+            chunk_ms=med["ms"], fwd_ms=med["fwd_ms"], bwd_ms=med["bwd_ms"],
+            redo_ms=med["redo_ms"],
+            all_chunk_ms=[c["ms"] for c in chunks_a],
+            steps_per_s=steps_t / ms_t * 1e3,
+            steps_per_s_with_saves=steps_t / (wall_a - lock_ms / 1e3),
+            peak_bytes=peak_a, residual_bytes=res_bytes,
+            cotangent_bytes=ct_bytes, log_bytes=log_bytes,
+            clone_bytes=clone_bytes,
+            launches=launched_a, chunk_launches=chunks_a[1]["all"],
+            saves=saves_a, losses=[h["loss"] for h in hist_a])
+
+        # (b) killed after STREAM_STOP chunks, then resumed: the same run.
+        probe["check"] = False
+        dir_b = root / "b"
+        _, hist_b1 = training.train_task_streaming(
+            spec(), "copy", ckpt_dir=str(dir_b),
+            stop_after_chunks=STREAM_STOP, **stream_kw)
+        require(len(hist_b1) == STREAM_STOP, f"the killed run trained "
+                f"{len(hist_b1)} chunks")
+        n_restores = len(restores)
+        params_b, hist_b2 = training.train_task_streaming(
+            spec(), "copy", ckpt_dir=str(dir_b), **stream_kw)
+        restore = restores[n_restores]
+        resumed_at = (hist_b2[0]["episode"], hist_b2[0]["chunk"])
+        last = max(s for s in save_points if s <= STREAM_STOP)
+        require(resumed_at == divmod(last, n_chunks), f"resumed at "
+                f"{resumed_at}, expected {divmod(last, n_chunks)}")
+        require(hist_b2 == hist_a[last:], "the resumed run's history differs "
+                "from the uninterrupted run's")
+        same_tree(params_a, params_b, "the uninterrupted and the resumed "
+                  "run's parameters")
+        compared = {step: same_checkpoint(dir_a, dir_b, step)
+                    for step in save_points[-2:]}
+        print(f"[stream] (b) killed after {STREAM_STOP} chunks (episode "
+              f"{STREAM_STOP // n_chunks}, chunk {STREAM_STOP % n_chunks}), "
+              f"resumed from step {restore['step']} at episode "
+              f"{resumed_at[0]}, chunk {resumed_at[1]} in "
+              f"{restore['ms']:.1f} ms (the restore); history, parameters "
+              f"and the checkpoints of steps {sorted(compared)} (params, "
+              f"RMSProp state, carry, loop: {compared} leaves) equal the "
+              f"uninterrupted run's bit for bit; {card}")
+        out["b"] = dict(stop=STREAM_STOP, resumed_step=restore["step"],
+                        resumed_at=resumed_at, restore_ms=restore["ms"],
+                        compared_steps=sorted(compared))
+        del params_b, hist_b1, hist_b2
+        probe["chunks"] = []
+
+        # (c) two chunks each of sam_ann, sam on int8 rows and the SDNC.
+        probe["check"] = True
+        # A copy of 40 bits: the answer (steps 42-81) is the second chunk.
+        inputs, targets, mask = copy_task(
+            B, 40, STREAM_LEVEL, BITS, device=dev,
+            generator=torch.Generator().manual_seed(21))
+        xs_c, ts_c, ms_c = (t.transpose(0, 1) for t in (inputs, targets,
+                                                         mask))
+        out["c"] = {}
+        for kind, mem_dtype in (("sam_ann", "float32"), ("sam", "int8"),
+                                ("sdnc", "float32")):
+            init_p, init_s, step = training.make_streaming_train_step(
+                spec(kind, mem_dtype), LR, device=dev)
+            p_c = init_p(torch.Generator().manual_seed(0))
+            o_c, carry = opt.rmsprop_init(p_c), init_s(B)
+            probe["lockstep"] = 1
+            for c in range(2):
+                sl = slice(c * STREAM_CHUNK, (c + 1) * STREAM_CHUNK)
+                p_c, o_c, carry, loss, _ = step(p_c, o_c, carry, xs_c[sl],
+                                                ts_c[sl], ms_c[sl])
+            for cur in probe["chunks"]:
+                check_chunk(cur, kind, mem_dtype)
+            cur = probe["chunks"][-1]
+            print(f"[stream] (c) {kind} ({mem_dtype} rows), two chunks of "
+                  f"{STREAM_CHUNK}, the first in lockstep: the carry after "
+                  f"roll_forward equals its forward's, bit for bit; redo "
+                  f"launches {cur['redo']} a chunk, forward {cur['fwd']}, "
+                  f"backward {cur['bwd']}; chunk step {cur['ms']:.2f} ms "
+                  f"(forward {cur['fwd_ms']:.2f}, backward "
+                  f"{cur['bwd_ms']:.2f}, redo {cur['redo_ms']:.2f}); loss "
+                  f"{loss.item():.6f}; {card}")
+            out["c"][f"{kind}/{mem_dtype}"] = dict(
+                redo=cur["redo"], fwd=cur["fwd"], bwd=cur["bwd"],
+                ms=cur["ms"], fwd_ms=cur["fwd_ms"], bwd_ms=cur["bwd_ms"],
+                redo_ms=cur["redo_ms"], log_bytes=cur["log_bytes"])
+            probe["chunks"] = []
+            del p_c, o_c, carry
+            torch.cuda.empty_cache()
+    finally:
+        ckpt_lib.save_checkpoint = save0
+        ckpt_lib.restore_checkpoint = restore0
+        unroll_lib.unroll, unroll_lib.roll_forward = forward, roll
+        training.make_streaming_train_step = make_step
+
+    # (d) the ~100M LM under ResilientLoop: a clean run, and one with two
+    # transient errors that is then stopped and resumed.
+    cfg = train_lm_100m.config_100m(LM100_SLOTS)
+    step_ms, run_checks, blocking = [], [], []
+    saved, restored = {}, []
+    hooks = []                  # each run's failure hook, in order
+    make_train = train_mod.make_train_step
+    loop0 = train_mod.ResilientLoop
+
+    def timed_make_train(*args, **kw):
+        fn = make_train(*args, **kw)
+
+        def timed(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return res
+        return timed
+
+    class Loop(loop0):
+        """`launch.train`'s loop with the run's failure hook, the saves it
+        hands its checkpointer timed and (at step LM100_EVERY) kept on the
+        card, and its restore kept: to compare with, not part of the
+        run."""
+
+        def __post_init__(self):
+            super().__post_init__()
+            self.failure_hook = hooks.pop(0)
+            save = self._ckpt.save
+
+            def spied(step, tree):
+                t0 = time.perf_counter()
+                save(step, tree)
+                blocking.append((time.perf_counter() - t0) * 1e3)
+                if step == LM100_EVERY:
+                    saved[self.ckpt_dir] = pytree.tree_map(
+                        lambda t: t.clone(), tree)
+            self._ckpt.save = spied
+
+        def restore_or(self, template):
+            state, start = super().restore_or(template)
+            if start:
+                restored.append((pytree.tree_map(lambda t: t.clone(), state),
+                                 start))
+            return state, start
+
+        def run(self, *args, **kw):
+            result = super().run(*args, **kw)
+            run_checks.append(ckpt_lib.latest_step(self.ckpt_dir))
+            return result
+
+    def lm_run(name, hook=None):
+        hooks.append(hook)
+        return train_mod.train(
+            cfg=cfg, steps=LM100_STEPS, batch=LM100_B, seq=LM100_S, lr=3e-4,
+            ckpt_dir=str(root / name), ckpt_every=LM100_EVERY, log_every=1,
+            seed=0, device=dev)
+
+    flaky = {"left": 2}
+
+    def flaky_then_stop(step):
+        if step == LM100_FLAKY and flaky["left"]:
+            flaky["left"] -= 1
+            raise fault_tolerance.TransientError("injected")
+        if step == LM100_STOP:
+            raise RuntimeError("stopped")
+
+    ckpt_lib.save_checkpoint = timed_save
+    train_mod.make_train_step, train_mod.ResilientLoop = (timed_make_train,
+                                                          Loop)
+    try:
+        n_saves = len(saves)
+        clean, log_clean = lm_run("lm_clean")
+        require(run_checks[-1] == LM100_STEPS - 1, f"the final save (step "
+                f"{LM100_STEPS - 1}) was not on disk when run returned: "
+                f"latest {run_checks[-1]}")
+        ms_clean = list(step_ms)
+        lm_saves = saves[n_saves:]
+        try:
+            lm_run("lm_stop", flaky_then_stop)
+            raise SmokeFailure("the stopped run did not stop")
+        except RuntimeError as e:
+            require(str(e) == "stopped", f"the stopped run raised {e!r}")
+        require(flaky["left"] == 0, "the transient errors were not raised")
+        same_tree(saved[str(root / "lm_clean")], saved[str(root / "lm_stop")],
+                  f"the state saved at step {LM100_EVERY} of the run with "
+                  f"two transient errors and of the clean run")
+        resumed, _ = lm_run("lm_stop")
+        state_r, start = restored[-1]
+        require(start == LM100_EVERY + 1, f"resumed at step {start}, "
+                f"expected {LM100_EVERY + 1}")
+        same_tree(saved[str(root / "lm_stop")], state_r,
+                  f"the restored state is not the one saved at step "
+                  f"{LM100_EVERY}")
+        disk, at = ckpt_lib.restore_checkpoint(str(root / "lm_stop"),
+                                               resumed)
+        require(at == LM100_STEPS - 1, f"the resumed run's last save is "
+                f"step {at}")
+        same_tree(disk, resumed, "the resumed run's final save is not its "
+                  "final state")
+        n_params = sum(t.numel() for t in pytree.tree_leaves(clean[0]))
+        ck_bytes = lm_saves[0]["bytes"]
+        body_ms = sorted(ms_clean[1:])[len(ms_clean[1:]) // 2]
+        block_s = ", ".join(f"{b:.1f}" for b in blocking[:len(lm_saves)])
+        writer_s = ", ".join(f"{s['ms']:.1f}" for s in lm_saves)
+        print(f"[stream] (d) {cfg.name} ({n_params} parameters, memory "
+              f"{LM100_SLOTS} x {cfg.memory.word_size} every "
+              f"{cfg.memory.every_n_layers} layers), B={LM100_B}, "
+              f"S={LM100_S}, {LM100_STEPS} steps under ResilientLoop, a "
+              f"checkpoint every {LM100_EVERY}: with two TransientErrors at "
+              f"step {LM100_FLAKY} a run saves at step {LM100_EVERY} the "
+              f"clean run's weights and AdamW state bit for bit; stopped at "
+              f"step {LM100_STOP}, it resumed at step {start} with the state "
+              f"saved at step {LM100_EVERY}, bit for bit; the final save was on disk when run returned; "
+              f"step {body_ms:.2f} ms (median of {len(ms_clean) - 1} after "
+              f"the first, first {ms_clean[0]:.1f}); saves: blocking "
+              f"{block_s} ms, the writer {writer_s} ms; {ck_bytes} B a "
+              f"checkpoint; {card}")
+        out["d"] = dict(params=n_params, step_ms=body_ms,
+                        all_step_ms=ms_clean, resumed_at=start,
+                        blocking_ms=blocking[:len(lm_saves)],
+                        writer_ms=[s["ms"] for s in lm_saves],
+                        checkpoint_bytes=ck_bytes,
+                        losses=[m["loss"] for _, m in log_clean])
+    finally:
+        ckpt_lib.save_checkpoint = save0
+        train_mod.make_train_step, train_mod.ResilientLoop = make_train, loop0
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def small_state(s, kind, gen):
     """A small model's start state for the card-against-CPU step: an SDNC
     state with a random memory (written rows then are not parallel, so the
@@ -4580,7 +5153,10 @@ def run() -> None:
     engine_res = engine_phase(dev, ops, ref, checker, zero_counts, counts,
                               lmr.pop("params"))
 
-    # ---- 14. report ----
+    # ---- 14. the streaming trainer and the checkpointed training loop ----
+    stream_res = stream_phase(dev, ops, ref, checker, zero_counts, counts)
+
+    # ---- 15. report ----
     lm_write = lmr["lm"]["kernels_at_lm_shapes"]["sparse_write_update"]
     above = (("lra_topn", rows["lra_topn"]), ("block", lra_block),
              ("scatter_rows 'set'", rows["scatter_rows"]),
@@ -4681,7 +5257,8 @@ def run() -> None:
                                 if k != "row"},
                       "lm": lmr["lm"], "mesh": mesh["mesh"],
                       "dnc": dnc_res, "engine": engine_res,
-                      "lm_train": train_res}, default=str))
+                      "lm_train": train_res, "stream": stream_res},
+                     default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -28,14 +28,21 @@ written by either restores in the other bit for bit.
   `mem_shard.from_shard_layout`. A re-partition of the LSH index (P > 1)
   or a sharded target raise, naming ROADMAP A11.
 
-The JAX package's `AsyncCheckpointer` belongs to its streaming trainer,
-which the port does not have yet (ROADMAP A10b).
+* ``AsyncCheckpointer`` saves on a writer thread, as the JAX package's
+  does (driven by `distributed/fault_tolerance.py::ResilientLoop`): `save`
+  copies the tree to the host on the calling thread and queues it (at most
+  two saves wait), the writer commits it and keeps the newest ``keep``.
+  Stricter than JAX's on purpose (ROADMAP §C): `wait` returns only once
+  every queued save is committed, and raises the first error the writer
+  met.
 """
 from __future__ import annotations
 
 import json
 import os
+import queue
 import shutil
+import threading
 
 import numpy as np
 import torch
@@ -461,3 +468,75 @@ def restore_checkpoint(directory: str, template, step: int = None,
         leaves[slot] = _tensor(scales.pop(sp), "float32",
                                t_by_path[sp])
     return _unflatten(template, iter(leaves)), step
+
+
+# --------------------------------------------------------------------------
+# The asynchronous writer
+# --------------------------------------------------------------------------
+
+def _host_copy(leaf):
+    """A host copy of a leaf that later in-place updates cannot reach: a
+    tensor copied to the CPU (complete when this returns), an array
+    copied."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to("cpu", copy=True)
+    return np.array(leaf, copy=True)
+
+
+class AsyncCheckpointer:
+    """Checkpoints written by a background thread, so the step loop blocks
+    only for the copy to the host. ``save(step, tree)`` copies every leaf
+    to the host on the calling thread (the next step may update the
+    parameters in place) and queues the copy; the writer runs
+    `save_checkpoint` (``mem_layout`` as given) and then deletes all but
+    the newest ``keep`` committed steps. A full queue (two saves) blocks
+    `save`. ``wait()`` blocks until every queued save is committed and
+    raises the first error the writer met (JAX's returns once the queue
+    is empty, while its writer may still be writing, and only collects
+    errors in ``errors``). ``close()`` stops the writer once every queued
+    save is committed (JAX's gives it 10 s); its errors stay in
+    ``errors``."""
+
+    def __init__(self, directory: str, keep: int = 3, mem_layout: tuple = None):
+        self.directory = directory
+        self.keep = keep
+        self.mem_layout = mem_layout
+        self.errors: list = []
+        self._q: queue.Queue = queue.Queue(maxsize=2)
+        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._worker.start()
+
+    def save(self, step: int, tree) -> None:
+        host = map_with_path(lambda _, leaf: _host_copy(leaf), tree)
+        self._q.put((step, host))
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            try:
+                if item is None:
+                    return
+                step, tree = item
+                save_checkpoint(self.directory, step, tree,
+                                mem_layout=self.mem_layout)
+                self._gc()
+            except Exception as e:  # noqa: BLE001 -- raised again by wait()
+                self.errors.append(e)
+            finally:
+                self._q.task_done()
+
+    def _gc(self):
+        steps = sorted(int(n.split("_")[1]) for n in os.listdir(self.directory)
+                       if n.startswith("step_") and n[5:].isdigit())
+        for s in steps[:-self.keep]:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s}"),
+                          ignore_errors=True)
+
+    def wait(self) -> None:
+        self._q.join()
+        if self.errors:
+            raise self.errors[0]
+
+    def close(self) -> None:
+        self._q.put(None)
+        self._worker.join()

@@ -11,7 +11,12 @@ and `SDNCCell`:
   * ``rollback(state, prev_small, deltas)`` — undo one step: 'set' the
     recorded old rows back into the dense buffers, in place, and splice
     the small state back in. The usage table stays stale on purpose: the
-    backward never reads it;
+    backward never reads it (``stale_buffers`` names it);
+  * ``redo_deltas(state, prev_small, deltas)`` — the step's deltas with
+    the rows the rollback is about to overwrite (the rows the step left)
+    in place of the old ones: `rollback` with them 'sets' the step again,
+    which is how `unroll.roll_forward` brings the final state back after
+    a backward. Gathered before the step's rollback, O(K·W);
   * ``replay_step(params, state, x, deltas, cts)`` — recompute the step
     from the rolled-back state with the recorded selections as fixed
     inputs. It needs neither the usage table, nor a sweep, nor the LSH
@@ -199,6 +204,8 @@ class SAMCell:
         return (("mem_scale",) if self.cfg.memory.mem_dtype == "int8"
                 else ("memory",))
 
+    stale_buffers = ("last_access",)
+
     def init_params(self, generator: torch.Generator, *, device="cuda"):
         return sam_lib.init_params(generator, self.cfg, device=device)
 
@@ -220,6 +227,13 @@ class SAMCell:
                               mem_scale=state.mem_scale,
                               rows_scale=deltas.old_scale)
         return state._replace(read=read, ctrl=ctrl, step=state.step - 1)
+
+    def redo_deltas(self, state: SAMState, prev_small, deltas: StepDeltas):
+        scale = (None if state.mem_scale is None
+                 else addr.gather_scales(state.mem_scale, deltas.write_idx))
+        return deltas._replace(
+            old_rows=addr.gather_rows(state.memory, deltas.write_idx),
+            old_scale=scale)
 
     def replay_step(self, params, state, x, deltas: StepDeltas, cts):
         mem_ct, = cts
@@ -368,6 +382,7 @@ class SDNCCell:
     dense_buffers = ("memory", "usage", "n_mat.cols", "n_mat.vals",
                      "p_mat.cols", "p_mat.vals")
     cotangent_buffers = ("memory", "n_mat.vals", "p_mat.vals")
+    stale_buffers = ("usage",)
 
     def __post_init__(self):
         if not self.cfg.sparse:
@@ -390,6 +405,18 @@ class SDNCCell:
 
     def rollback(self, state, prev_small, deltas):
         return dnc_lib.sdnc_rollback(self.cfg, state, prev_small, deltas)
+
+    def redo_deltas(self, state, prev_small, deltas):
+        """The memory's and N_t's rows at the write's rows, P_t's at the
+        previous precedence's support (where `sdnc_rollback` sets them)."""
+        widx = deltas.write_idx
+        p_rows = prev_small[2].idx.clamp_min(0)
+        return deltas._replace(
+            old_rows=addr.gather_rows(state.memory, widx),
+            n_cols=ref.gather_rows(state.n_mat.cols, widx),
+            n_vals=ref.gather_rows(state.n_mat.vals, widx),
+            p_cols=ref.gather_rows(state.p_mat.cols, p_rows),
+            p_vals=ref.gather_rows(state.p_mat.vals, p_rows))
 
     def replay_step(self, params, state, x, deltas, cts):
         return sdnc_replay_step(params, self.cfg, state, x, deltas, cts)

@@ -186,8 +186,15 @@ def mark_rolled_back(memory: torch.Tensor) -> None:
     """Flag a memory buffer that a sparse or chunked backward has rolled
     back to the unroll's initial memory. The usage table beside it still
     holds the final step's stamps, so no state that holds the buffer is
-    consistent any more: `require_live` refuses to step from it."""
+    consistent any more: `require_live` refuses to step from it until
+    `unroll.roll_forward` brings the final state back."""
     memory.rolled_back = True
+
+
+def mark_rolled_forward(memory: torch.Tensor) -> None:
+    """Clear `mark_rolled_back`'s flag: the buffers hold the final state
+    of the unrolls again (`unroll.roll_forward`)."""
+    memory.rolled_back = False
 
 
 def require_live(state) -> None:
@@ -197,8 +204,9 @@ def require_live(state) -> None:
         raise RuntimeError(
             "this state's memory was rolled back to the unroll's initial "
             "memory by a sparse or chunked backward, while its usage table "
-            "was not: start again from a fresh state (init_state), or unroll "
-            "in naive mode to keep the final state")
+            "was not: call repro_torch.core.unroll.roll_forward(state) to "
+            "bring the final state back and keep stepping, start again from "
+            "a fresh state (init_state), or unroll in naive mode")
 
 
 def tree_bytes(tree) -> int:

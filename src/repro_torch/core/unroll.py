@@ -32,8 +32,24 @@ place, and as autograd runs the backwards in reverse order each finds the
 buffers as its forward left them and leaves them as its forward found
 them; a backward whose later unrolls have not run theirs raises. The
 flag is set on the caller's tensor; a backward works on its own aliases
-of the buffers, and a chunked one steps again only from a checkpoint's
-buffers, restored in full.
+of the buffers. A chunked one copies a checkpoint's buffers back into
+them before it recomputes a segment, but for the usage table
+(``cell.stale_buffers``), which it recomputes on the checkpoint's own
+copy, so that the live usage table stays step T's there too.
+
+To go on stepping after such a backward (the streaming trainer carries the
+state across chunks), `roll_forward` brings the final state back. Each
+backward keeps a redo log: before it rolls step t back, it records the
+rows that the rollback overwrites, which are the rows step t left
+(`cell.redo_deltas`: the deltas with those rows in place of the old ones),
+and it drops step t's residuals once it has them, so the log takes their
+place and the backward's peak stays as it was. O(K·W) per step, like the
+residuals; no O(N) buffer is copied. `roll_forward` 'sets' the logged
+rows again in forward order through the cell's own `rollback` (one
+`scatter_rows` 'set' a step on the card), the logs of chained unrolls in
+forward order. The usage table is step T's and the small leaves of the
+returned state were never changed, so the state is then the forward's
+final state, bit for bit.
 Gradients reach the parameters, xs and the float leaves of
 ``state0``: every small one (the float leaves outside the dense buffers)
 is differentiated again at each replayed step, and each buffer of
@@ -52,7 +68,8 @@ import weakref
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch.core.types import mark_rolled_back, tree_bytes
+from repro_torch.core.types import (mark_rolled_back, mark_rolled_forward,
+                                    tree_bytes)
 
 
 def _split(tree):
@@ -139,16 +156,19 @@ def _collect(cell, params, state, xs):
 
 
 def _segment_bwd(cell, params, state, res, xs, cts, ct_ys, buf_cts, g_params,
-                 g_xs):
+                 g_xs, log):
     """Roll one segment back, step by step from its end. ``params`` require
     grad; each step adds its gradients into the ``g_params`` leaves and
     writes ``g_xs[t]``, and updates the buffers' cotangents ``buf_cts`` in
     place. ``cts`` are the cotangents of the end state's small float
-    leaves. Returns (the segment's start state, the cotangents of its
-    small float leaves)."""
+    leaves. Each step appends its redo record to ``log`` (the latest step
+    first) and drops its residuals from ``res``. Returns (the segment's
+    start state, the cotangents of its small float leaves)."""
     p_leaves = pytree.tree_leaves(params)
     for t in reversed(range(len(xs))):
         prev_small, deltas = res[t]
+        res[t] = None
+        log.append((prev_small, cell.redo_deltas(state, prev_small, deltas)))
         state = cell.rollback(state, prev_small, deltas)
         with torch.enable_grad():
             diff = [leaf.detach().requires_grad_()
@@ -257,24 +277,33 @@ class _RollbackUnroll(torch.autograd.Function):
             g_ys = xs.new_zeros(ctx.ys_shape)
         g_xs = torch.zeros_like(xs)
         bounds = ctx.bounds
+        live = _buffers(cell, state)
+        log = []
         for s in reversed(range(len(bounds) - 1)):
             lo, hi = bounds[s], bounds[s + 1]
             if ctx.chunk is None:
                 res = ctx.res
             else:
-                start = ctx.checkpoints[s]
-                live = _buffers(cell, state)
-                for b, b0 in zip(live, _buffers(cell, start)):
-                    b.copy_(b0)
+                # The live buffers get the checkpoint's contents back, but
+                # for the usage table, recomputed on the checkpoint's copy:
+                # the live one keeps step T's.
+                start, ctx.checkpoints[s] = ctx.checkpoints[s], None
+                bufs = [b0 if p in cell.stale_buffers else b.copy_(b0)
+                        for p, b, b0 in zip(cell.dense_buffers, live,
+                                            _buffers(cell, start))]
                 state, _, res = _collect(
-                    cell, params, _put_all(start, cell.dense_buffers, live),
+                    cell, params, _put_all(start, cell.dense_buffers, bufs),
                     xs[lo:hi])
             state, cts = _segment_bwd(cell, params, state, res, xs[lo:hi],
                                       cts, g_ys[lo:hi], buf_cts, g_params,
-                                      g_xs[lo:hi])
+                                      g_xs[lo:hi], log)
         ctx.res = ctx.checkpoints = ctx.outs = None
         if memory is not None:
             mark_rolled_back(memory)
+            # The backwards of chained unrolls run latest first: each log
+            # goes in front, so the list is in forward order.
+            memory.__dict__.setdefault("redo_logs", []).insert(
+                0, (cell, log[::-1]))
         # The gradient of state0: the small floats' and the cotangent
         # buffers', None for the other (integer) buffers.
         grads = _put_all(_with_small_floats(cell, state, cts),
@@ -282,6 +311,29 @@ class _RollbackUnroll(torch.autograd.Function):
         g_s0, _ = _split(grads)
         return (None, None, None, None, g_xs, *g_params,
                 *[g if g.is_floating_point() else None for g in g_s0])
+
+
+def roll_forward(state):
+    """Bring back the final state of the sparse or chunked unrolls whose
+    backwards rolled ``state``'s buffers back (module docstring): 'set' the
+    rows each backward logged, in forward order, in place, and clear the
+    memory's rolled-back flag. ``state`` is a state an unroll returned (or
+    any state holding its buffers); it is returned, live again. A state
+    that no backward rolled back is returned as it is. Raises while an
+    unroll over these buffers still waits for its backward: the buffers
+    then hold that unroll's final state, not a rolled-back one."""
+    memory = getattr(state, "memory", None)
+    if not isinstance(memory, torch.Tensor):
+        return state
+    if memory.__dict__.get("pending_unrolls"):
+        raise RuntimeError("roll_forward: an unroll over this memory has "
+                           "not run its backward yet")
+    with torch.no_grad():
+        for cell, log in memory.__dict__.pop("redo_logs", []):
+            for prev_small, redo in log:
+                cell.rollback(state, prev_small, redo)
+    mark_rolled_forward(memory)
+    return state
 
 
 def _rollback_unroll(cell, chunk, params, state0, xs):
@@ -314,10 +366,11 @@ def unroll(cell, params, state0, xs, *, mode: str = "sparse", chunk=None):
     The cell's dense buffers are updated in place. After the backward of a
     "sparse" or "chunked" unroll they hold ``state0``'s again while the
     usage table keeps step T's: the returned state (and ``state0``) can
-    be read but not stepped from; the cell's step raises (module
-    docstring). The memory may hold f32, bf16 or int8 rows: its
-    cotangent is then f32, bf16, or (int8) that of its scales, the codes
-    carrying none (`cell.cotangent_buffers`).
+    be read but not stepped from (the cell's step raises) until
+    `roll_forward` brings the final state back (module docstring). The
+    memory may hold f32, bf16 or int8 rows: its cotangent is then f32,
+    bf16, or (int8) that of its scales, the codes carrying none
+    (`cell.cotangent_buffers`).
     """
     if mode == "naive":
         return unroll_naive(cell, params, state0, xs)

@@ -1,0 +1,38 @@
+"""Batched serving: decode a static batch of requests against a KV cache,
+the port of the JAX package's `examples/serve_batched.py`, for the family
+the port runs (dense GQA: StarCoder2-7B). Another architecture raises the
+registry's error, naming the ROADMAP item that ports it.
+
+    python -m repro_torch.examples.serve_batched --full
+    python -m repro_torch.examples.serve_batched --device cpu
+
+serve the published width on the card (the default device) or the reduced
+config on the host.
+"""
+import argparse
+
+from repro_torch.launch.serve import serve
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="starcoder2_7b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--full", action="store_true",
+                    help="the published width (default: the reduced config)")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+    res = serve(args.arch, batch=args.batch, prompt_len=args.prompt_len,
+                gen_len=args.gen_len, max_len=args.prompt_len + args.gen_len,
+                use_reduced=not args.full, device=args.device)
+    print(f"[{args.arch}] generated {res['tokens'].shape[1]} tokens for "
+          f"{res['tokens'].shape[0]} requests")
+    print(f"prefill: {res['prefill_s']:.2f}s  "
+          f"decode: {res['decode_tok_per_s']:.1f} tok/s ({args.device})")
+    print("sample token ids:", res["tokens"][0][:10].tolist())
+
+
+if __name__ == "__main__":
+    main()

@@ -188,6 +188,7 @@ class LMMemoryCell:
     cfg: ModelConfig
     dense_buffers = ("memory", "last_access")
     cotangent_buffers = ("memory",)
+    stale_buffers = ("last_access",)
 
     def init_state(self, batch: int, *, device="cuda") -> MemoryState:
         return init_memory_state(self.cfg, batch, device=device)
@@ -205,6 +206,10 @@ class LMMemoryCell:
         addr.scatter_set_rows(state.memory, deltas.write_idx, deltas.old_rows)
         return state._replace(read_idx=read_idx, read_w=read_w,
                               step=state.step - 1)
+
+    def redo_deltas(self, state: MemoryState, prev_small, deltas: MemDeltas):
+        return deltas._replace(
+            old_rows=addr.gather_rows(state.memory, deltas.write_idx))
 
     def replay_step(self, params, state, pooled, deltas: MemDeltas, cts):
         mem_ct, = cts

@@ -1907,3 +1907,79 @@ def test_lm_sparse_against_chunked_on_card(dev, compute_dtype):
     for x, y in zip(torch.utils._pytree.tree_leaves(grads["chunked"]),
                     torch.utils._pytree.tree_leaves(grads["sparse"])):
         assert ((x - y).abs() / y.abs().clamp_min(1.0)).max().item() <= 1e-5
+
+
+# --------------------------------------------------------------------------
+# The streaming trainer (core/training.py, unroll.roll_forward)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["sparse", "chunked"])
+def test_streaming_chunk_steps_on_card_match_cpu(dev, mode):
+    """Two streaming chunk steps (N = 1000, a chunk of 12 from a carry
+    with a written memory) on the card against the CPU: losses within
+    1e-5 relative, the updated weights within atol/rtol 1e-5; after each,
+    the carry's buffers (after `roll_forward`) equal a clone taken after
+    the chunk's forward, bit for bit, and the redo launched one
+    `scatter_rows` 'set' a step and nothing else."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core import training, unroll
+    from repro_torch.data.tasks import copy_task
+    from repro_torch.optim import optimizers as opt
+    spec = training.ModelSpec(
+        "sam", MemoryConfig(num_slots=1000, word_size=32, num_heads=4, k=4),
+        ControllerConfig(input_size=10, hidden_size=32, output_size=8),
+        bptt_chunk=5 if mode == "chunked" else None)
+    inputs, targets, mask = (t.transpose(0, 1) for t in copy_task(
+        2, 11, 11, 8, generator=torch.Generator().manual_seed(0),
+        device="cpu"))
+    C = 12
+    out = {}
+    for device in ("cpu", dev):
+        forward = unroll.unroll
+        finals, redo = [], []
+
+        def recording(cell, p, s, xs, **kw):
+            state, ys = forward(cell, p, s, xs, **kw)
+            finals.append([unroll._get(state, b).clone()
+                           for b in cell.dense_buffers])
+            return state, ys
+
+        roll = unroll.roll_forward
+
+        def counted(state):
+            n0 = (scatter_rows.launches, sparse_write_update.launches,
+                  lra_topn.launches, fused_read_sweep.launches)
+            state = roll(state)
+            redo.append(tuple(a.launches - b for a, b in zip(
+                (scatter_rows, sparse_write_update, lra_topn,
+                 fused_read_sweep), n0)))
+            return state
+
+        unroll.unroll, unroll.roll_forward = recording, counted
+        try:
+            init_p, init_s, step = training.make_streaming_train_step(
+                spec, 1e-3, device=device)
+            params = init_p(torch.Generator().manual_seed(0))
+            opt_state, carry = opt.rmsprop_init(params), init_s(2)
+            losses, carries = [], []
+            for c in range(2):
+                sl = slice(c * C, (c + 1) * C)
+                params, opt_state, carry, loss, _ = step(
+                    params, opt_state, carry, *(t[sl].to(device) for t in
+                                                (inputs, targets, mask)))
+                losses.append(loss.item())
+                carries.append([unroll._get(carry, b).clone() for b in
+                                ("memory", "last_access")])
+        finally:
+            unroll.unroll, unroll.roll_forward = forward, roll
+        for got, want in zip(carries, finals):
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+        out[str(torch.device(device).type)] = (
+            losses, [p.cpu() for p in pytree.tree_leaves(params)], redo)
+    (l_cpu, p_cpu, r_cpu), (l_gpu, p_gpu, r_gpu) = out["cpu"], out["cuda"]
+    for a, b in zip(l_gpu, l_cpu):
+        assert abs(a - b) <= 1e-5 * abs(b)
+    for a, b in zip(p_gpu, p_cpu):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    assert r_cpu == [(0, 0, 0, 0)] * 2 and r_gpu == [(C, 0, 0, 0)] * 2

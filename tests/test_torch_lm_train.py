@@ -43,6 +43,7 @@ from repro.models import lm as jlm
 from repro.models import sam_layer as jsam
 from repro.optim import optimizers as jopt
 from repro_torch import convert
+from repro_torch.checkpoint import latest_step
 from repro_torch.configs import get_config, reduced
 from repro_torch.core import unroll
 from repro_torch.core.types import tree_bytes
@@ -610,10 +611,18 @@ def test_train_losses_match_jax(monkeypatch, reads):
     _assert_read_margins(reads)
 
 
-def test_train_refusals():
+def test_train_refusals(tmp_path):
+    """A mesh (A11) and an architecture not ported (A9c) are refused. A
+    checkpoint directory, refused until A10b was ported, now runs the
+    steps under `ResilientLoop` and leaves the final step on disk
+    (`tests/test_torch_fault_tolerance.py` holds it in full)."""
     with pytest.raises(NotImplementedError, match="A11"):
         ttrain.train(ARCH, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A10b"):
-        ttrain.train(ARCH, ckpt_dir="ckpt", device="cpu")
+    with pytest.raises(NotImplementedError, match="A11"):
+        ttrain.train(ARCH, mesh=object(), ckpt_dir=str(tmp_path),
+                     device="cpu")
+    ttrain.train(ARCH, ckpt_dir=str(tmp_path), steps=1, batch=1, seq=64,
+                 device="cpu")
+    assert latest_step(str(tmp_path)) == 0
     with pytest.raises(ValueError, match="A9c"):
         ttrain.train("yi_34b", device="cpu")
