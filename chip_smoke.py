@@ -21,17 +21,20 @@ ranks sweep their blocks with the `topk_read` kernel; then the sparse DNC
 (exact and LSH) forward and in training on associative recall, and the
 paper's Fig. 7 against the dense DNC; then the LM served through the
 continuous-batching engine with per-user memory sessions; then the LM
-trained (8 of its 32 layers at full width, AdamW); last the streaming
+trained (8 of its 32 layers at full width, AdamW); then the streaming
 trainer, which carries the SAM cell's memory from chunk to chunk of long
 episodes and checkpoints mid-episode, and a ~100M LM trained under the
-checkpointing, retrying loop. It fails (nonzero exit) if any phase
-fails:
+checkpointing, retrying loop; last the sliding-window LM, H2O-Danube3-4B
++ SAM at full width (`h2o_danube_3_4b_sam`: prefill, decode with memory
+states into a ring cache, `serve` and the engine), whose attention is the
+`flash_attention` kernel at head dim 120 with a window of 4096. It fails
+(nonzero exit) if any phase fails:
 
 1. build the kernels from `src/repro_torch/kernels/csrc/` with nvcc for
    sm_90a and print each kernel's registers, shared memory and spills
    (none may spill in `fused_read.cu`, `usage_argmin.cu`,
-   `scatter_rows.cu`, `sparse_write.cu`, `fused_read_candidates.cu` or
-   `lsh_hash.cu`),
+   `scatter_rows.cu`, `sparse_write.cu`, `fused_read_candidates.cu`,
+   `lsh_hash.cu` or `flash_attention.cu`),
    and the HMMA
    (tensor-core) instructions in each `flash_attention` kernel's SASS
    (`cuobjdump -sass`): the bf16 kernels must have them, the f32 ones
@@ -330,15 +333,45 @@ fails:
       17, it resumes at the step after its newest checkpoint with the
       state saved there, bit for bit; the final save is on disk when the loop's `run`
       returns; step ms, the saves' blocking and writer ms and bytes;
-15. print the empty-launch floor with each latency-bound kernel's time
+15. the sliding-window LM, `h2o_danube_3_4b_sam` at full width (bf16
+   weights from seed 0; window 4096, head dim 120, the gated SiLU MLP):
+   e. first the reduced config at head dim 120 (window 32, f32) on the
+      card against the CPU: a prefill, a `decode_scan` of 80 tokens into
+      a ring of 32 and one `loss_fn` gradient (the windowed kernel's
+      forward, the plain backward), the token seeds the first of 0-63
+      whose CPU reads hold no near-tie at K; gradients within atol 2e-4 /
+      rtol 1e-3, or within twice the CPU's own move under a one-ulp
+      perturbation of its weights (the gradient is that ill-conditioned
+      at this config);
+   b. a prefill at B = 4, S = 8192 (two windows) in lockstep: 24
+      attention launches at D = 120 with the window (4 bf16, 20 f32: the
+      stream is f32 after the first memory group), each against its plain
+      version, and 96 each of the read, write and LRA; host ms, peak,
+      device-busy share;
+   a. the kernel at layer 0's (bf16) and layer 4's (f32) inputs: ms
+      against the bound (the window's (query, key) pairs, `attn_pairs`),
+      the plain version's and `scaled_dot_product_attention`'s with the
+      (S, S) window mask; the D = 120 kernels' registers and spills (none);
+   c. a decode with memory states, a 112-token prompt and 32 greedy
+      tokens (in lockstep) into a ring of 128 that wraps: 6 reads, writes
+      and LRAs and no attention launch a token; ms a token on the host and
+      the device; `serve` once past the ring's end;
+   d. the engine on 4 lanes of 128: 8 requests and a user returning past
+      position 128 (admitted: the cache is a ring), at once in lockstep
+      with exact launches a step, then one by one through a store of one
+      hot session, the returning user spilled to disk and restored in
+      another engine: every token equal, its session bit for bit;
+16. print each phase's seconds, the empty-launch floor with each
+   latency-bound kernel's time
    above it (`lra_topn`, the scatter, the write at step 21 on f32, bf16
    and int8 rows and at the LM's shapes, the candidate read on f32, bf16
    and int8 rows, the hash of the written rows and of the queries), the
    card, one JSON line of per-kernel numbers (the LM's
    under ``"lm"``, the sharded memory's under ``"mesh"``, the DNC's under
    ``"dnc"``, the engine's under ``"engine"``, the LM trainer's under
-   ``"lm_train"``, the streaming trainer's under ``"stream"``), and last
-   the ``{"ok": true, ...}`` line.
+   ``"lm_train"``, the streaming trainer's under ``"stream"``, the
+   sliding-window LM's under ``"swa"``, the phases' seconds under
+   ``"phase_seconds"``), and last the ``{"ok": true, ...}`` line.
 
 Tolerances: integer outputs exact; forward floats within 1e-5 of
 max(1, |plain|), element by element (other summation order, rsqrt
@@ -444,6 +477,13 @@ REPLACES = {
     # The LM's causal attention (phase 9).
     "flash_attention": ("src/repro/kernels/flash_attention.py:94",
                         "src/repro_torch/kernels/csrc/flash_attention.cu"),
+    # The sliding-window attention at head dim 120 (phase 15): the same
+    # kernels' D = 120 instantiations with the window of chunked_attention.
+    "flash_attention_swa": ("src/repro/kernels/flash_attention.py:94",
+                            "src/repro_torch/kernels/csrc/flash_attention.cu"),
+    "flash_attention_swa_bf16": (
+        "src/repro/kernels/flash_attention.py:94",
+        "src/repro_torch/kernels/csrc/flash_attention.cu"),
     # The slot-sharded memory's top-K (phase 10): fused_read.cu's first
     # pass and a merge without the softmax tail.
     "topk_read": ("src/repro/kernels/topk_read.py:31",
@@ -454,7 +494,7 @@ SUFFIX = {"bfloat16": "_bf16", "int8": "_int8"}
 # the LRA selection and DAM's argmin, the row scatter, the writes, the
 # candidate read and the hash.
 NO_SPILL = ("fused_read", "usage_argmin", "scatter_rows", "sparse_write",
-            "fused_read_candidates", "lsh_hash")
+            "fused_read_candidates", "lsh_hash", "flash_attention")
 
 
 def kernel_name(base: str, mem: torch.Tensor) -> str:
@@ -482,6 +522,9 @@ CMP_NS = tuple(1 << e for e in (12, 14, 16, 18, 20))
 # MAX_LEN. Its memory: N = 65536 rows of W = 128, H = 4 heads, K = 8.
 LM_ARCH = "starcoder2_7b_sam"
 LM_B, LM_S, LM_PROMPT, LM_GEN, LM_MAX_LEN = 4, 2048, 32, 32, 128
+# The decode steps a device-time profile takes (phases 9, 15): the
+# profiler's processing of a 32-step window took ~40 s.
+PROFILE_STEPS = 4
 FLASH_TOL = 2e-5               # the JAX suite's f32 bar for the kernel
 SLICE_TOL = 1e-4               # tests/test_torch_lm.py's bar for the slice
 # Phase 13, the LM's train step at StarCoder2-7B's full width with its
@@ -554,6 +597,26 @@ STREAM_STOP = 17
 LM100_SLOTS, LM100_B, LM100_S, LM100_STEPS, LM100_EVERY = 65536, 4, 256, \
     30, 10
 LM100_FLAKY, LM100_STOP = 5, 17
+
+
+# Phase 15, the sliding-window LM at H2O-Danube3-4B's full width (bf16
+# compute; weights from seed 0 held in bf16; window 4096, head_dim 120,
+# the gated SiLU MLP; memory N = 65536, W = 128, H = 4, K = 8 every 4 of 24
+# layers): a prefill of SWA_B × SWA_S tokens (two windows), timed
+# SWA_PREFILL_RUNS times; a decode with memory states of a SWA_PROMPT-token
+# prompt and SWA_GEN greedy tokens into a ring of SWA_MAX_LEN slots, which
+# wraps; the engine on SWA_LANES lanes of SWA_MAX_LEN: SWA_REQUESTS
+# requests of SWA_REQ_PROMPT tokens and SWA_REQ_GEN new ones, and a user
+# returning with prompts of SWA_RETURN tokens, past SWA_MAX_LEN; the
+# reduced config at head_dim 120 on the card against the CPU: a prefill of
+# SWA_SMALL_S tokens, a decode of SWA_SMALL_DECODE into a ring of the
+# window (max_len SWA_SMALL_MAX_LEN), a loss gradient.
+SWA_ARCH = "h2o_danube_3_4b_sam"
+SWA_B, SWA_S, SWA_PREFILL_RUNS = 4, 8192, 2
+SWA_PROMPT, SWA_GEN, SWA_MAX_LEN = 112, 32, 128
+SWA_LANES, SWA_REQUESTS, SWA_REQ_PROMPT, SWA_REQ_GEN = 4, 8, (16, 32), 16
+SWA_RETURN = (100, 8)
+SWA_SMALL_S, SWA_SMALL_DECODE, SWA_SMALL_MAX_LEN = 128, 80, 64
 
 
 class SmokeFailure(Exception):
@@ -1278,13 +1341,14 @@ def bf16_ulp(x: torch.Tensor) -> float:
     return 2.0 ** (int(e) - 8)
 
 
-def check_flash(ref, q, k, v, out) -> dict:
+def check_flash(ref, q, k, v, out, window=None) -> dict:
     """The attention kernel's output against its plain version on the same
-    inputs: bf16 within one bf16 ulp of the output's magnitude; f32 within
-    FLASH_TOL, or, where the two f32 versions differ by more (scores as
-    large as the LM's: two f32 summation orders then differ by ~1e-3), no
-    further from the f64 result than twice the plain version is."""
-    want = ref.flash_attention_ref(q, k, v)
+    inputs (and window): bf16 within one bf16 ulp of the output's
+    magnitude; f32 within FLASH_TOL, or, where the two f32 versions differ
+    by more (scores as large as the LM's: two f32 summation orders then
+    differ by ~1e-3), no further from the f64 result than twice the plain
+    version is."""
+    want = ref.flash_attention_ref(q, k, v, window)
     err = (out.float() - want.float()).abs().max().item()
     r = {"err": err}
     if q.dtype == torch.bfloat16:
@@ -1293,10 +1357,11 @@ def check_flash(ref, q, k, v, out) -> dict:
                 f"{bf16_ulp(want):.3g}")
     elif err > FLASH_TOL:
         del want
-        exact = ref.flash_attention_ref(q.double(), k.double(), v.double())
+        exact = ref.flash_attention_ref(q.double(), k.double(), v.double(),
+                                        window)
         r["exact_err"] = (out.double() - exact).abs().max().item()
-        r["plain_exact_err"] = (ref.flash_attention_ref(q, k, v).double()
-                                - exact).abs().max().item()
+        r["plain_exact_err"] = (ref.flash_attention_ref(
+            q, k, v, window).double() - exact).abs().max().item()
         require(r["exact_err"] <= 2 * r["plain_exact_err"] + FLASH_TOL,
                 f"flash_attention (f32) is {r['exact_err']:.3g} from the f64 "
                 f"result, the plain version {r['plain_exact_err']:.3g}")
@@ -1324,8 +1389,10 @@ class FlashCheck:
                                          for t in (q, k, v))
                 check = check_flash(self.ref, q.detach().contiguous(),
                                     k.detach().contiguous(),
-                                    v.detach().contiguous(), out.detach())
-            self.checks.append(dict(check, dtype=q.dtype))
+                                    v.detach().contiguous(), out.detach(),
+                                    kw.get("window"))
+            self.checks.append(dict(check, dtype=q.dtype,
+                                    window=kw.get("window")))
             return out
 
         self.ops.flash_attention = flash_attention
@@ -1352,11 +1419,21 @@ def stable_reads(ref, reads, margin=NEAR_TIE) -> bool:
     return True
 
 
+def card_close(a, b, what) -> float:
+    """The card's ``a`` against the CPU's ``b``: |a - b| <= SLICE_TOL ·
+    max(1, max |b|); returns the error."""
+    a, b = a.float().cpu(), b.float().cpu()
+    err = (a - b).abs().max().item()
+    scale = max(1.0, b.abs().max().item())
+    require(err <= SLICE_TOL * scale, f"{what}: card against CPU "
+            f"{err:.3g} above {SLICE_TOL} x {scale:.3g}")
+    return err
+
+
 def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
     """Phase 9: the SAM-augmented LM's serving forward at StarCoder2-7B's
     full width. Returns the attention kernel's row (f32, with its bf16
     instantiation as a sub-row), the prefill's launches and the numbers."""
-    import torch.nn.functional as F
     from torch.utils import _pytree as pytree
 
     from repro_torch.configs import get_config, reduced
@@ -1375,15 +1452,6 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
     groups = cfg.num_layers // m.every_n_layers
     segments = LM_S // m.segment
     out = {}
-
-    def close(a, b, what):
-        """|a - b| <= SLICE_TOL · max(1, max |b|); returns the error."""
-        a, b = a.float().cpu(), b.float().cpu()
-        err = (a - b).abs().max().item()
-        scale = max(1.0, b.abs().max().item())
-        require(err <= SLICE_TOL * scale, f"{what}: card against CPU "
-                f"{err:.3g} above {SLICE_TOL} x {scale:.3g}")
-        return err
 
     # (d) first, at the reduced config in f32: the card against the plain
     # versions on the CPU (prefill; a decode without memory, whose
@@ -1408,13 +1476,13 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
     require(stable_reads(ref, seen), "the reduced prefill's reads hold a "
             "near-tie at K: card against CPU is undecidable there")
     got = lm.prefill(p_gpu, small, {"tokens": toks_s.to(dev)})
-    errs = {"prefill": close(got, want, "prefill logits")}
+    errs = {"prefill": card_close(got, want, "prefill logits")}
     res = {}
     for name, p_, d_ in (("cpu", p_cpu, "cpu"), ("cuda", p_gpu, dev)):
         cache = lm.init_cache(small, 2, 16, device=d_)
         res[name] = lm.decode_scan(p_, small, cache, toks_s[:, :8].to(d_))
-    errs["decode"] = close(res["cuda"][0], res["cpu"][0], "decode logits")
-    errs["cache"] = max(close(res["cuda"][1][kk], res["cpu"][1][kk], kk)
+    errs["decode"] = card_close(res["cuda"][0], res["cpu"][0], "decode logits")
+    errs["cache"] = max(card_close(res["cuda"][1][kk], res["cpu"][1][kk], kk)
                         for kk in ("k", "v"))
     torch.cuda.synchronize()
     out["card_vs_cpu_err"] = errs
@@ -1541,34 +1609,11 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
           f"err {checker.err['fused_read_sweep']:.3g}, near-ties "
           f"{checker.near_ties}")
 
-    # (e) times: the kernel at layer 0's (bf16) and layer 4's (f32) inputs,
-    # the memory kernels at the decode's 21st read, write and LRA. The
-    # bound: q·kᵀ and p·v take `half` flop each. On f32 inputs both are
-    # f32 FMAs (no TF32). On bf16 inputs q·kᵀ is exact on the bf16 tensor
-    # cores (f32 sums), and p·v with p at f32 precision, as the TPU kernel
-    # keeps it, is two bf16 products (p_hi and p_lo; TF32 at half the rate
-    # gives the same time): 3·half at the bf16 rate.
-    def flash_row(q, k, v):
-        Bq, S_, Hq, D_ = q.shape
-        half = S_ * (S_ + 1) / 2 * Bq * Hq * 2 * D_
-        on_tc = 3 * half if q.dtype == torch.bfloat16 else 0
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        try:
-            lib = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), 10, flush)
-        except RuntimeError as e:          # a yardstick only
-            print(f"[lm] scaled_dot_product_attention not timed: {e}")
-            lib = None
-        del qt, kt, vt
-        return dict(
-            ms=time_ms(lambda: flash_attention(q, k, v), 10, flush),
-            plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v), 3,
-                             flush),
-            library_ms=lib,
-            bound=bound((2 * q.numel() + k.numel() + v.numel())
-                        * q.element_size(), 0 if on_tc else 2 * half, on_tc))
-
-    flash_f32, flash_bf16 = flash_row(q4, k4, v4), flash_row(q0, k0, v0)
+    # (e) times: the kernel at layer 0's (bf16) and layer 4's (f32) inputs
+    # (`attention_row`), the memory kernels at the decode's 21st read, write
+    # and LRA.
+    flash_f32 = attention_row(ref, flash_attention, q4, k4, v4, flush)
+    flash_bf16 = attention_row(ref, flash_attention, q0, k0, v0, flush)
     del q0, k0, v0, q4, k4, v4
     step21 = max(RECORD_STEPS)
     q_, mem_, beta_, k_, vn_, _ = rec_lm.records[("fused_read_sweep", step21)]
@@ -1661,9 +1706,9 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
         state["cache"] = {**state["cache"], "pos": torch.tensor(
             LM_PROMPT, dtype=torch.int32, device=dev)}
 
-    def decode_window(_):
+    def decode_window(_, steps=LM_GEN):
         tok = torch.ones((LM_B, 1), dtype=torch.int32, device=dev)
-        for _ in range(LM_GEN):
+        for _ in range(steps):
             lg, state["cache"], state["mem"] = lm.decode_step(
                 params, cfg, state["cache"], tok, mem_states=state["mem"])
             tok = lg[:, -1].float().argmax(-1).to(torch.int32)[:, None]
@@ -1678,9 +1723,10 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
     decode_all = [t / LM_GEN for t in window_all]
     spread = (max(decode_all) - min(decode_all)) / decode_ms
     rewind()
-    dev_ms, on_dev = device_time(lambda: decode_window(None))
-    dev_ms /= LM_GEN
-    on_dev = [(kk, t / LM_GEN, c / LM_GEN) for kk, t, c in on_dev]
+    dev_ms, on_dev = device_time(lambda: decode_window(None, PROFILE_STEPS))
+    dev_ms /= PROFILE_STEPS
+    on_dev = [(kk, t / PROFILE_STEPS, c / PROFILE_STEPS)
+              for kk, t, c in on_dev]
     out.update(prefill_ms=prefill_ms, prefill_ms_all=prefill_all,
                held_bytes=held, prefill_peak_bytes=prefill_peak,
                decode_ms_per_token=decode_ms,
@@ -1715,7 +1761,8 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
           f"above what is held")
     if dev_ms:
         print(f"[time] the decode on the device (torch.profiler, a window "
-              f"of {LM_GEN} steps): {dev_ms:.3f} ms of kernels a token, "
+              f"of {PROFILE_STEPS} steps): {dev_ms:.3f} ms of kernels a "
+              f"token, "
               f"{dev_ms / decode_ms:.1%} of the token's time; by kernel (ms, "
               f"launches a token): "
               + "; ".join(f"{kk[:60]} {t:.3f} ({c:g})"
@@ -1862,6 +1909,23 @@ def rows_depend_on_m(params, cfg, dev) -> list:
                 dtypes = ", ".join(str(o.dtype)[6:] for o in ops)
                 differ.add(f"{spec} ({dtypes})")
     return sorted(differ)
+
+
+def session_diff(a, b):
+    """The first leaf of two engine sessions that is not bit-equal, or
+    None."""
+    pairs = [("cache." + k, a["cache"][k], b["cache"][k])
+             for k in ("k", "v")] + [("pos", a["pos"], b["pos"])]
+    pairs += [(f"mem.{g}.{f}", getattr(sa, f), getattr(sb, f))
+              for g, (sa, sb) in enumerate(zip(a["mem"], b["mem"]))
+              for f in sa._fields]
+    if int(a["counter"]) != int(b["counter"]):
+        return "counter"
+    for name, x, y in pairs:
+        if not torch.equal(x, y):
+            return (f"{name} (max abs diff "
+                    f"{(x.float() - y.float()).abs().max().item():.3g})")
+    return None
 
 
 def engine_phase(dev, ops, ref, checker, zero_counts, counts, params):
@@ -2078,21 +2142,6 @@ def engine_phase(dev, ops, ref, checker, zero_counts, counts, params):
 
     def user_tokens(results, user="u"):
         return [r for r in results if r["user"] == user][0]["tokens"]
-
-    def session_diff(a, b):
-        """The first leaf of two sessions that is not bit-equal, or None."""
-        pairs = [("cache." + k, a["cache"][k], b["cache"][k])
-                 for k in ("k", "v")] + [("pos", a["pos"], b["pos"])]
-        pairs += [(f"mem.{g}.{f}", getattr(sa, f), getattr(sb, f))
-                  for g, (sa, sb) in enumerate(zip(a["mem"], b["mem"]))
-                  for f in sa._fields]
-        if int(a["counter"]) != int(b["counter"]):
-            return "counter"
-        for name, x, y in pairs:
-            if not torch.equal(x, y):
-                return (f"{name} (max abs diff "
-                        f"{(x.float() - y.float()).abs().max().item():.3g})")
-        return None
 
     with tempfile.TemporaryDirectory() as tmp:
         e1 = engine(tmp, lanes=3, capacity=None)
@@ -3866,6 +3915,542 @@ def stream_phase(dev, ops, ref, checker, zero_counts, counts):
     return out
 
 
+def attn_pairs(S: int, window=None) -> int:
+    """Σ_q min(q + 1, window): the (query, key) pairs of causal attention
+    over S positions within a window (S(S+1)/2 without one)."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def window_mask(S: int, window: int, device) -> torch.Tensor:
+    """(S, S) bool: query i sees key j where 0 <= i - j < window."""
+    pos = torch.arange(S, device=device)
+    gap = pos[:, None] - pos[None, :]
+    return (gap >= 0) & (gap < window)
+
+
+def attention_row(ref, kernel, q, k, v, flush, window=None) -> dict:
+    """The attention kernel's row at q, k, v: its ms, its plain version's,
+    one PyTorch call's and the bound. The bound: q·kᵀ and p·v take `half`
+    flop each (2·D a (query, key) pair of `attn_pairs`). On f32 inputs
+    both are f32 FMAs (no TF32). On bf16 inputs q·kᵀ is exact on the bf16
+    tensor cores (f32 sums), and p·v with p at f32 precision, as the TPU
+    kernel keeps it, is two bf16 products (p_hi and p_lo; TF32 at half the
+    rate gives the same time): 3·half at the bf16 rate. The library call is
+    `scaled_dot_product_attention` with GQA: causal, or with the (S, S)
+    window mask on the efficient-attention backend (k and v repeated to
+    the query heads where that backend refuses GQA); a yardstick only."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    Bq, S_, Hq, D_ = q.shape
+    half = attn_pairs(S_, window) * Bq * Hq * 2 * D_
+    on_tc = 3 * half if q.dtype == torch.bfloat16 else 0
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib, how = None, "causal, enable_gqa"
+    try:
+        if window is None:
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 10, flush)
+        else:
+            mask = window_mask(S_, window, q.device)
+            how = "window mask, efficient attention, enable_gqa"
+            try:
+                with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                    lib = time_ms(lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask, enable_gqa=True), 10,
+                        flush)
+            except RuntimeError as e:
+                print(f"[swa] scaled_dot_product_attention with "
+                      f"enable_gqa refused ({str(e)[:120]}): k and v "
+                      f"repeated to {Hq} heads")
+                how = "window mask, efficient attention, k and v repeated"
+                G = Hq // kt.shape[1]
+                kt, vt = kt.repeat_interleave(G, 1), vt.repeat_interleave(G, 1)
+                with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                    lib = time_ms(lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask), 10, flush)
+    except RuntimeError as e:             # a yardstick only
+        print(f"[time] scaled_dot_product_attention not timed: {e}")
+        lib = None
+    del qt, kt, vt
+    torch.cuda.empty_cache()
+    return dict(
+        ms=time_ms(lambda: kernel(q, k, v, window=window), 10, flush),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, window), 3,
+                         flush),
+        library_ms=lib, library_call=how,
+        bound=bound((2 * q.numel() + k.numel() + v.numel())
+                    * q.element_size(), 0 if on_tc else 2 * half, on_tc))
+
+
+def swa_phase(dev, ops, ref, checker, zero_counts, counts, flush, ptxas):
+    """Phase 15: the sliding-window LM (H2O-Danube3-4B + SAM) served at
+    full width. ``ptxas`` is the attention library's `-Xptxas -v` report.
+    Returns the D = 120 attention rows (f32 at layer 4's prefill inputs,
+    bf16 at layer 0's), their prefill launches and the numbers."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import steps
+    from repro_torch.launch.engine import Request, ServeEngine, SessionStore
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+    from repro_torch.models.layers import tree_map
+
+    cfg = get_config(SWA_ARCH)
+    m = cfg.memory
+    groups = cfg.num_layers // m.every_n_layers
+    segments = SWA_S // m.segment
+    per = m.every_n_layers
+    require(cfg.window is not None and cfg.head_dim == 120
+            and cfg.act == "silu", f"{SWA_ARCH}: window {cfg.window}, "
+            f"head_dim {cfg.head_dim}, act {cfg.act}")
+    out, part_s, clock = {}, {}, [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        part_s[name] = round(now - clock[0], 1)
+        clock[0] = now
+
+    # The D = 120 instantiations: registers and spills from ptxas, and the
+    # dynamic shared memory their launcher asks for (the D = 128 tile's:
+    # f32 q, k, v and p; bf16 q and two k and v slots, rows padded by 8).
+    lines = ptxas_summary(ptxas)
+    d120 = {("bf16" if "bf16" in line else "f32"): lines[i + 1:i + 3]
+            for i, line in enumerate(lines) if "ILi120E" in line}
+    smem = {"f32": (3 * 64 * 128 + 64 * 64) * 4, "bf16": 5 * 64 * 136 * 2}
+    require(sorted(d120) == ["bf16", "f32"] and not any(
+        re.search(r"[1-9][0-9]* bytes spill", line)
+        for r in d120.values() for line in r),
+        f"flash_attention<120> (ptxas): {d120}")
+    out["d120_ptxas"] = {k: " | ".join(v) for k, v in d120.items()}
+    print("[swa] flash_attention at D = 120: " + "; ".join(
+        f"{k}: {' | '.join(v)}, {smem[k]} B of dynamic shared memory"
+        for k, v in sorted(d120.items())))
+
+    # (e) first, at the reduced config in f32 with Danube's head_dim 120
+    # (so that the D = 120 path itself is compared; window 32): the card
+    # against the plain versions on the CPU. The tokens of the prefill and
+    # of the loss: each the first seed of 0-63 whose CPU reads hold no
+    # near-tie at K (rows written from zero tie: ROADMAP §C).
+    small = dataclasses.replace(reduced(cfg), head_dim=120,
+                                compute_dtype="float32")
+    p_cpu = lm.init_params(small, seed=0, device="cpu")
+    p_gpu = tree_map(lambda t: t.to(dev), p_cpu)
+    fused_read = ops.fused_read
+    seen = []
+
+    def record(q, mem, beta, k, *, valid_n=None, cand_idx=None,
+               mem_scale=None):
+        seen.append((q.detach().clone(), mem.detach().clone(), k, valid_n))
+        return fused_read(q, mem, beta, k, valid_n=valid_n)
+
+    def first_stable(run, what):
+        """(seed, run(seed)) for the first seed whose reads are stable."""
+        for seed in range(64):
+            seen.clear()
+            ops.fused_read = record
+            try:
+                got = run(torch.Generator().manual_seed(seed))
+            finally:
+                ops.fused_read = fused_read
+            if stable_reads(ref, seen):
+                return seed, got
+        raise SmokeFailure(f"no token seed of 0-63 gives the reduced "
+                           f"Danube's {what} no read near-tie at K")
+
+    def prefill_case(gen):
+        toks = torch.randint(0, small.vocab_size, (2, SWA_SMALL_S),
+                             generator=gen)
+        return toks, lm.prefill(p_cpu, small, {"tokens": toks})
+
+    def loss_case(gen):
+        batch = {k: torch.randint(0, small.vocab_size, (2, SWA_SMALL_S // 2),
+                                  generator=gen)
+                 for k in ("tokens", "targets")}
+        return batch, steps.value_and_grad(p_cpu, small, batch)
+
+    seed, (toks_s, want) = first_stable(prefill_case, "prefill")
+    loss_seed, (batch_s, g_cpu) = first_stable(loss_case, "loss")
+    zero_counts()
+    got = lm.prefill(p_gpu, small, {"tokens": toks_s.to(dev)})
+    errs = {"prefill": card_close(got, want, "prefill logits")}
+    require(counts()["flash_attention"] == small.num_layers,
+            "the reduced prefill did not run the attention kernel")
+    res = {}
+    for name, p_, d_ in (("cpu", p_cpu, "cpu"), ("cuda", p_gpu, dev)):
+        cache = lm.init_cache(small, 2, SWA_SMALL_MAX_LEN, device=d_)
+        res[name] = lm.decode_scan(p_, small, cache,
+                                   toks_s[:, :SWA_SMALL_DECODE].to(d_))
+    errs["decode"] = card_close(res["cuda"][0], res["cpu"][0], "decode logits")
+    errs["ring"] = max(card_close(res["cuda"][1][kk], res["cpu"][1][kk], kk)
+                       for kk in ("k", "v"))
+    require(res["cuda"][1]["k"].shape[2] == small.window
+            and int(res["cuda"][1]["pos"]) == SWA_SMALL_DECODE,
+            "decode: the ring's size or the position is off")
+    zero_counts()
+    g_gpu = steps.value_and_grad(p_gpu, small,
+                                 {k: v.to(dev) for k, v in batch_s.items()})
+    require(counts()["flash_attention"] == small.num_layers,
+            "the loss's forward did not run the attention kernel")
+    errs["loss"] = card_close(g_gpu[0], g_cpu[0], "loss")
+
+    def spread():
+        """The CPU's own gradient after a one-ulp perturbation of every
+        weight (1 + 2^-24·N(0, 1)): the arbiter of a leaf beyond the bar."""
+        gen = torch.Generator().manual_seed(1)
+        p2 = tree_map(lambda t: t * (1 + torch.randn(
+            t.shape, generator=gen) * 2 ** -24), p_cpu)
+        return pytree.tree_leaves(steps.value_and_grad(p2, small,
+                                                       batch_s)[2])
+
+    own, grad_err, arbitered = None, 0.0, []
+    leaves_c = pytree.tree_leaves(g_cpu[2])
+    for i, (a, b) in enumerate(zip(pytree.tree_leaves(g_gpu[2]), leaves_c)):
+        a = a.float().cpu()
+        d = (a - b).abs()
+        grad_err = max(grad_err, d.max().item())
+        if bool((d <= NAIVE_ATOL + NAIVE_RTOL * b.abs()).all()):
+            continue
+        own = spread() if own is None else own
+        cpu_own = (own[i] - b).abs().max().item()
+        arbitered.append((i, d.max().item(), cpu_own))
+        require(d.max().item() <= 2 * cpu_own, f"loss gradient leaf {i}: "
+                f"card against CPU {d.max().item():.3g}, beyond atol "
+                f"{NAIVE_ATOL} / rtol {NAIVE_RTOL} and twice the CPU's own "
+                f"move under a one-ulp perturbation ({cpu_own:.3g})")
+    errs["grad"] = grad_err
+    out.update(card_vs_cpu_err=errs, card_vs_cpu_seeds=(seed, loss_seed),
+               card_vs_cpu_grad_arbitered=arbitered)
+    print(f"[swa] reduced {SWA_ARCH} at head_dim 120, window 32 (f32) on "
+          f"the card against the CPU (token seeds {seed}, {loss_seed}): "
+          f"prefill logits "
+          f"{errs['prefill']:.3g}, decode_scan of {SWA_SMALL_DECODE} tokens "
+          f"into a ring of {small.window} {errs['decode']:.3g}, the rings "
+          f"{errs['ring']:.3g} (bar {SLICE_TOL} of max(1, |CPU|)); loss "
+          f"{errs['loss']:.3g}, gradients max {grad_err:.3g} (atol "
+          f"{NAIVE_ATOL} / rtol {NAIVE_RTOL}; leaves beyond, held to twice "
+          f"the CPU's own one-ulp move: {arbitered})")
+    del p_cpu, p_gpu, seen, res, got, want, g_cpu, g_gpu, own
+    torch.cuda.empty_cache()
+    part("e")
+
+    # (b) the prefill at full width, in lockstep: every attention launch
+    # against its plain version with the window, the memory kernels too.
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=dev, dtype=cfg.compute_dtype)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in pytree.tree_leaves(params))
+    out.update(params=n_params, param_bytes=param_bytes)
+    print(f"[swa] {SWA_ARCH}: {n_params} parameters, {param_bytes} B in "
+          f"bf16, drawn on the card in {time.perf_counter() - t0:.1f} s")
+    toks = torch.randint(0, cfg.vocab_size, (SWA_B, SWA_S),
+                         generator=torch.Generator().manual_seed(7)).to(dev)
+    zero_counts()
+    with torch.inference_mode(), Intercept(ops, checker=checker), \
+            FlashCheck(ops, ref, keep=(0, per)) as fc:
+        logits = lm.prefill(params, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    launched = counts()
+    want_counts = {name: 0 for name in launched}
+    want_counts.update({"flash_attention": cfg.num_layers,
+                        **{name: groups * segments for name in FORWARD}})
+    require(launched == want_counts, f"prefill launches {launched}, expected "
+            f"{want_counts}")
+    by_dtype = [str(c["dtype"])[6:] for c in fc.checks]
+    require(by_dtype == ["bfloat16"] * per
+            + ["float32"] * (cfg.num_layers - per)
+            and all(c["window"] == cfg.window for c in fc.checks),
+            f"prefill attention launches by dtype {by_dtype}: expected "
+            f"{per} bf16, then f32, each with the window")
+    require(logits.dtype == torch.float32
+            and logits.shape == (SWA_B, 1, cfg.vocab_size)
+            and torch.isfinite(logits).all().item(),
+            "prefill logits are not finite f32 of shape (B, 1, V)")
+    conditioned = [c for c in fc.checks if "exact_err" in c]
+    bf16_err = max(c["err"] for c in fc.checks[:per])
+    f32_err = max(c["err"] for c in fc.checks[per:])
+    out.update(prefill_launches=launched, flash_bf16_max_err=bf16_err,
+               flash_f32_max_err=f32_err,
+               flash_f32_above_tol=len(conditioned),
+               flash_f32_exact_err=max((c["exact_err"] for c in conditioned),
+                                       default=None),
+               flash_f32_plain_exact_err=max(
+                   (c["plain_exact_err"] for c in conditioned), default=None))
+    print(f"[swa] prefill (B={SWA_B}, S={SWA_S}, window {cfg.window}) in "
+          f"lockstep: launches { {k: v for k, v in launched.items() if v} } "
+          f"({per} bf16 + {cfg.num_layers - per} f32 attention launches); "
+          f"flash against plain: bf16 max err {bf16_err:.3g}, f32 "
+          f"{f32_err:.3g}; {len(conditioned)} f32 launches above "
+          f"{FLASH_TOL}, held against f64: kernel "
+          f"{out['flash_f32_exact_err'] or 0:.3g}, plain "
+          f"{out['flash_f32_plain_exact_err'] or 0:.3g}; memory kernels: read "
+          f"err {checker.err['fused_read_sweep']:.3g}, write err "
+          f"{checker.err['sparse_write_update']:.3g}, near-ties "
+          f"{checker.near_ties}")
+
+    part("b")
+
+    # (a) the kernel at layer 0's (bf16) and layer 4's (f32) inputs.
+    q0, k0, v0 = fc.kept[0]
+    q4, k4, v4 = fc.kept[per]
+    del fc
+    require(q0.dtype == torch.bfloat16 and q4.dtype == torch.float32
+            and q4.shape == (SWA_B, SWA_S, cfg.num_heads, 120),
+            f"layer 0 ran {q0.dtype}, layer {per} {q4.dtype} "
+            f"{tuple(q4.shape)}")
+    row_f32 = attention_row(ref, flash_attention, q4, k4, v4, flush,
+                            cfg.window)
+    row_bf16 = attention_row(ref, flash_attention, q0, k0, v0, flush,
+                             cfg.window)
+    del q0, k0, v0, q4, k4, v4
+    for name, r in (("f32 (layer 4)", row_f32), ("bf16 (layer 0)", row_bf16)):
+        lib = "none" if r["library_ms"] is None else (
+            f"{r['library_ms']:.4f} ms ({r['library_call']}; "
+            f"{r['ms'] / r['library_ms']:.2f}x its time)")
+        print(f"[time] flash_attention {name} at Danube's prefill (B={SWA_B},"
+              f" S={SWA_S}, H={cfg.num_heads} over {cfg.num_kv_heads}, D=120,"
+              f" window {cfg.window}): "
+              f"{r['ms']:.4f} ms (bound {r['bound'][0]:.4f} ms by "
+              f"{r['bound'][1]}: {r['bound'][0] / r['ms']:.1%} of it), plain "
+              f"{r['plain_ms']:.4f} ms, library {lib}")
+
+    part("a")
+
+    # The prefill's host ms, peak and device-busy share.
+    def prefill_run(_):
+        lm.prefill(params, cfg, {"tokens": toks})
+
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms, prefill_all = host_ms(prefill_run, runs=SWA_PREFILL_RUNS)
+    prefill_peak = torch.cuda.max_memory_allocated() - held
+    dev_ms, on_dev = device_time(lambda: prefill_run(None))
+    out.update(prefill_ms=prefill_ms, prefill_ms_all=prefill_all,
+               prefill_peak_bytes=prefill_peak, held_bytes=held,
+               prefill_device_ms=dev_ms or None,
+               prefill_busy_share=(dev_ms / prefill_ms) if dev_ms else None,
+               prefill_tokens_per_s=SWA_B * SWA_S / prefill_ms * 1e3)
+    print(f"[time] Danube prefill (B={SWA_B}, S={SWA_S}) {prefill_ms:.1f} ms"
+          f", median of {', '.join(f'{t:.1f}' for t in prefill_all)} "
+          f"({out['prefill_tokens_per_s']:.0f} tokens/s); peak {prefill_peak} "
+          f"B above the {held} B held ({param_bytes} B of weights); "
+          + (f"{dev_ms:.1f} ms of kernels ({dev_ms / prefill_ms:.1%} busy); "
+             f"by kernel (ms, launches): "
+             + "; ".join(f"{kk[:50]} {t:.1f} ({c})"
+                         for kk, t, c in on_dev[:5])
+             if dev_ms else "device time not measured (the profiler "
+             "recorded none)"))
+    del logits
+    torch.cuda.empty_cache()
+    part("b timed")
+
+    # (c) the decode with memory states: a SWA_PROMPT-token prompt, then
+    # SWA_GEN greedy tokens, into a ring of SWA_MAX_LEN slots (it wraps):
+    # launches counted on every token, the memory kernels in lockstep on
+    # the greedy ones, which cross the wrap (a checked write clones the
+    # 134 MB memory: the prompt's 672 checks would take a minute).
+    cache = lm.init_cache(cfg, SWA_B, SWA_MAX_LEN, device=dev)
+    require(cache["k"].shape == (cfg.num_layers, SWA_B, SWA_MAX_LEN,
+                                 cfg.num_kv_heads, 120),
+            f"the ring has shape {tuple(cache['k'].shape)}")
+    mem = lm.init_memory_states(cfg, SWA_B, device=dev)
+    zero_counts()
+    d_logits, cache, mem = lm.decode_scan(params, cfg, cache,
+                                          toks[:, :SWA_PROMPT],
+                                          mem_states=mem)
+    after_prompt = counts()
+    with torch.inference_mode(), Intercept(ops, checker=checker):
+        per_token = []
+        for _ in range(SWA_GEN):
+            tok = d_logits[:, -1].float().argmax(-1).to(torch.int32)
+            zero_counts()
+            d_logits, cache, mem = lm.decode_step(params, cfg, cache,
+                                                  tok[:, None],
+                                                  mem_states=mem)
+            per_token.append(counts())
+    torch.cuda.synchronize()
+    one = {name: 0 for name in after_prompt}
+    one.update({name: groups for name in FORWARD})
+    require(after_prompt == {kk: vv * SWA_PROMPT for kk, vv in one.items()},
+            f"prompt launches {after_prompt}")
+    require(all(c == one for c in per_token), f"a decode step launched "
+            f"{[c for c in per_token if c != one][:1]}, expected {one}")
+    n_tok = SWA_PROMPT + SWA_GEN
+    require(d_logits.dtype == torch.bfloat16
+            and torch.isfinite(d_logits).all().item()
+            and int(cache["pos"]) == n_tok
+            and all(int(st.step) == n_tok for st in mem),
+            "decode: logits not finite bf16, or the position or the steps "
+            "are off")
+    state = {"cache": cache, "mem": mem}
+
+    def rewind():
+        state["cache"] = {**state["cache"], "pos": torch.tensor(
+            SWA_PROMPT, dtype=torch.int32, device=dev)}
+
+    def decode_window(_, steps=SWA_GEN):
+        tok = torch.ones((SWA_B, 1), dtype=torch.int32, device=dev)
+        for _ in range(steps):
+            lg, state["cache"], state["mem"] = lm.decode_step(
+                params, cfg, state["cache"], tok, mem_states=state["mem"])
+            tok = lg[:, -1].float().argmax(-1).to(torch.int32)[:, None]
+
+    window_ms, window_all = host_ms(decode_window, runs=3, setup=rewind)
+    decode_ms = window_ms / SWA_GEN
+    rewind()
+    ddev_ms, _ = device_time(lambda: decode_window(None, PROFILE_STEPS))
+    ddev_ms /= PROFILE_STEPS
+    out.update(decode_ms_per_token=decode_ms,
+               decode_ms_per_token_all=[t / SWA_GEN for t in window_all],
+               decode_device_ms=ddev_ms or None,
+               decode_busy_share=(ddev_ms / decode_ms) if ddev_ms else None)
+    print(f"[swa] decode_scan with memory states: {SWA_PROMPT} prompt tokens "
+          f"and {SWA_GEN} greedy ones (in lockstep) into a ring of "
+          f"{SWA_MAX_LEN} slots (wrapped at {SWA_MAX_LEN}), "
+          f"{one['fused_read_sweep']} read, write and LRA launches and no "
+          f"attention launch a token")
+    print(f"[time] Danube decode with memory (B={SWA_B}): {decode_ms:.3f} ms "
+          f"a token on the host (windows of {SWA_GEN}: "
+          f"{', '.join(f'{t / SWA_GEN:.3f}' for t in window_all)}); "
+          + (f"{ddev_ms:.3f} ms of kernels ({ddev_ms / decode_ms:.1%} busy, "
+             f"a profiled window of {PROFILE_STEPS} steps)"
+             if ddev_ms else "device time not measured"))
+    del cache, mem, state, d_logits
+    torch.cuda.empty_cache()
+    part("c")
+
+    # The static serving driver, once (no memory op and, decoding only, no
+    # attention kernel), past the end of its ring.
+    zero_counts()
+    served = serve(SWA_ARCH, use_reduced=False, batch=SWA_B,
+                   prompt_len=SWA_PROMPT, gen_len=SWA_GEN,
+                   max_len=SWA_MAX_LEN, device=dev)
+    torch.cuda.synchronize()
+    tokens = served["tokens"]
+    require(tokens.shape == (SWA_B, SWA_GEN)
+            and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+            and not any(counts().values()),
+            "serve: tokens out of shape or range, or a kernel launched")
+    out.update(serve_prefill_s=served["prefill_s"],
+               serve_decode_tok_per_s=served["decode_tok_per_s"])
+    print(f"[swa] serve(--full, max_len {SWA_MAX_LEN}): {tuple(tokens.shape)} "
+          f"greedy tokens past the ring's end; prefill "
+          f"{served['prefill_s']:.2f} s, decode "
+          f"{served['decode_tok_per_s']:.1f} tok/s")
+    del served, tokens
+    torch.cuda.empty_cache()
+    part("serve")
+
+    # (d) the engine on SWA_LANES lanes of SWA_MAX_LEN: SWA_REQUESTS
+    # requests and a returning user whose second request takes its session
+    # past SWA_MAX_LEN (admitted: the cache is a ring), all at once and in
+    # lockstep; then the same requests one by one through a store of one
+    # hot session, the returning user spilled to disk and restored in
+    # another engine: the same tokens, its session bit for bit.
+    gen = torch.Generator().manual_seed(15)
+
+    def draw(n):
+        return torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+
+    lens = torch.randint(SWA_REQ_PROMPT[0], SWA_REQ_PROMPT[1] + 1,
+                         (SWA_REQUESTS,), generator=gen).tolist()
+    reqs = [dict(user=f"user{i}", prompt=draw(n),
+                 max_new_tokens=SWA_REQ_GEN) for i, n in enumerate(lens)]
+    back = [dict(user="ret", prompt=draw(n), max_new_tokens=SWA_REQ_GEN)
+            for n in SWA_RETURN]
+
+    def engine(store=None):
+        return ServeEngine(cfg, lanes=SWA_LANES, max_len=SWA_MAX_LEN,
+                           params=params, device=dev, session_store=store)
+
+    def by_user(results):
+        require(all(len(r["tokens"]) == SWA_REQ_GEN and all(
+                    0 <= t < cfg.vocab_size for t in r["tokens"])
+                    for r in results), "engine: tokens out of count or range")
+        return {r["user"]: r["tokens"] for r in results}
+
+    eng = engine()
+    for kw in [back[0], *reqs]:
+        eng.submit(Request(**kw))
+    got_a, steps_a, ms_a = {}, 0, []
+    with Intercept(ops, checker=checker):
+        for phase_reqs in ([], [back[1]]):
+            for kw in phase_reqs:
+                eng.submit(Request(**kw))
+            while eng.scheduler.has_work:
+                before = eng.steps
+                zero_counts()
+                t0 = time.perf_counter()
+                done = eng.step()
+                ms_a.append((time.perf_counter() - t0) * 1e3)
+                launched = counts()
+                want_counts = {name: 0 for name in launched}
+                want_counts.update({name: groups * (eng.steps - before)
+                                    for name in FORWARD})
+                require(launched == want_counts, f"engine step {before}: "
+                        f"launches "
+                        f"{ {k: v for k, v in launched.items() if v} }")
+                for r in done:
+                    key = r["user"] + ("" if r["user"] not in got_a else "2")
+                    got_a[key] = r["tokens"]
+            steps_a = eng.steps
+    by_user([{"user": k, "tokens": v} for k, v in got_a.items()])
+    sess_a = eng.sessions.take("ret")
+    ret_pos = int(sess_a["pos"][0])
+    require(ret_pos == sum(SWA_RETURN) + 2 * SWA_REQ_GEN - 2
+            and ret_pos > SWA_MAX_LEN, f"the returning user ended at "
+            f"position {ret_pos}")
+    del eng
+    with tempfile.TemporaryDirectory() as tmp:
+        store = SessionStore(num_slots=m.num_slots, capacity=1,
+                             spill_dir=tmp)
+        b1 = engine(store)
+        got_b = by_user(b1.run([Request(**back[0])]))
+        for kw in reqs:
+            b1.submit(Request(**kw))
+            got_b.update(by_user(b1.step()))
+        got_b.update(by_user(b1.run()))
+        require(store.spills >= 1 and store.restores == 0,
+                f"{store.spills} spills, {store.restores} restores")
+        del b1
+        b2 = engine(store)
+        got_b["ret2"] = by_user(b2.run([Request(**back[1])]))["ret"]
+        require(store.restores == 1, "the returning user was not restored "
+                "from disk")
+        diff = session_diff(b2.sessions.take("ret"), sess_a)
+        del b2, store
+    require(got_b == got_a and diff is None, f"engine: one by one through "
+            f"evictions and a disk spill against all at once: tokens equal "
+            f"{got_b == got_a}, the returning user's first differing leaf "
+            f"{diff}")
+    ms_a.sort()
+    out.update(engine_steps=steps_a, engine_ms_per_step=ms_a[len(ms_a) // 2],
+               engine_returning_pos=ret_pos)
+    print(f"[swa] engine ({SWA_LANES} lanes, max_len {SWA_MAX_LEN}): "
+          f"{SWA_REQUESTS} requests and a returning user (prompts "
+          f"{SWA_RETURN}, to position {ret_pos}, past max_len) at once in "
+          f"{steps_a} steps in lockstep ({groups} read, write and LRA "
+          f"launches a step; median {ms_a[len(ms_a) // 2]:.1f} ms a step "
+          f"with the checks); one by one, the returning user spilled to disk "
+          f"and restored in another engine: every token equal, its session "
+          f"bit for bit")
+    del params, toks
+    torch.cuda.empty_cache()
+    part("d")
+    out["seconds"] = part_s
+    print(f"[swa] seconds by part: {part_s}")
+    return {"row": row_f32, "bf16_row": row_bf16,
+            "launches": {"flash_attention_swa": cfg.num_layers - per,
+                         "flash_attention_swa_bf16": per},
+            "err": f32_err, "bf16_err": bf16_err, "swa": out}
+
+
 def small_state(s, kind, gen):
     """A small model's start state for the card-against-CPU step: an SDNC
     state with a random memory (written rows then are not parallel, so the
@@ -3939,6 +4524,14 @@ def run() -> None:
                     c[name + SUFFIX[dtype]] = n
         return c
 
+    # Each phase's seconds, for the report (`phase_seconds`).
+    phase_s, clock = {}, [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        phase_s[name] = round(now - clock[0], 1)
+        clock[0] = now
+
     # ---- 1. build ----
     t0 = time.perf_counter()
     try:
@@ -3959,7 +4552,7 @@ def run() -> None:
         print(f"[build] flash_attention: HMMA not counted ({hmma}); the "
               f"-Xptxas -v lines above are all there is")
     else:
-        require(len(hmma) == 8 and all(
+        require(len(hmma) == 10 and all(
                     (n > 0) == k.startswith("flash_bf16") for k, n in
                     hmma.items()),
                 f"flash_attention's SASS: HMMA counts {hmma}: the bf16 "
@@ -3968,6 +4561,7 @@ def run() -> None:
               f"(cuobjdump -sass): {hmma}")
     checker = Checker(ref)
 
+    mark("1")
     # ---- 13, run first: the LM's train step at StarCoder2-7B's width.
     # Its parameters, gradients and moments (37 GB) and the step's
     # transients (~10 GB, ~19 GB more for the f64 checks) need the card
@@ -3987,6 +4581,7 @@ def run() -> None:
     ts, ms = targets.transpose(0, 1), mask.transpose(0, 1)
     require(xs.shape == (T, B, BITS + 2), f"xs has shape {tuple(xs.shape)}")
 
+    mark("13")
     # ---- 2. each kernel against its plain version, at full width ----
     with torch.inference_mode():
         with Intercept(ops, record=True) as rec:
@@ -4134,6 +4729,7 @@ def run() -> None:
             del d_model, rec_d, wr_d, q_d, mem_d, beta_d, s_d, old_d, cases
             torch.cuda.empty_cache()
 
+    mark("2")
     # ---- 3. the forward path, in lockstep ----
     zero_counts()
     state = model.init_state(B)
@@ -4174,6 +4770,7 @@ def run() -> None:
     require(small_err <= TOL, f"small rollout differs from the CPU ({small_err:.3g})")
     print(f"[forward] small rollout (N=1000, T=12) card vs CPU max err {small_err:.3g}")
 
+    mark("3")
     # ---- 4. training ----
     cell = SAMCell(cfg)
 
@@ -4361,6 +4958,7 @@ def run() -> None:
 
     small_grad_err = small_train("sam")
 
+    mark("4")
     # ---- 5. the LSH read (kind sam_ann) ----
     lsh_cfg = sam.SAMConfig(dataclasses.replace(cfg.memory, **LSH),
                             cfg.controller)
@@ -4509,6 +5107,7 @@ def run() -> None:
             f"scatter_rows launched {launches_l['scatter_rows']} times")
     small_lsh_grad_err = small_train("sam_ann")
 
+    mark("5")
     # ---- 6. timing, on the step-21 inputs ----
     flush = torch.empty(32 << 20, device=dev)
     step = max(RECORD_STEPS)
@@ -4802,6 +5401,7 @@ def run() -> None:
             print(f"[time] {kind} train step on the device: not measured "
                   f"(the profiler recorded no device time)")
 
+    mark("6")
     # ---- 7. bf16 and int8 rows, exact and LSH reads ----
     def run_write(args):
         """The write kernel of ``args`` (a write's recorded arguments) on
@@ -5130,33 +5730,49 @@ def run() -> None:
             q_ = m_ = b_ = s_ = None
             torch.cuda.empty_cache()
 
+    mark("7")
     # ---- 8. the dense baselines: DAM, the NTM, the LSTM ----
     dense = dense_phase(dev, ops, ref, usage_argmin, checker, zero_counts,
                         counts, flush, small_train,
                         (inputs, targets, mask, xs))
     rows["usage_argmin"] = dense["row"]
 
+    mark("8")
     # ---- 9. the SAM-augmented LM at StarCoder2-7B's width ----
     lmr = lm_phase(dev, ops, ref, checker, zero_counts, counts, flush)
     rows["flash_attention"] = lmr["row"]
     checker.err["flash_attention"] = lmr["err"]
 
+    mark("9")
     # ---- 10. the slot-sharded memory: MESH_S ranks over gloo ----
     mesh = mesh_phase(dev, ref, checker, flush, rec, mesh_ref,
                       model.params(), xs, step_ms)
     rows["topk_read"] = mesh["row"]
 
+    mark("10")
     # ---- 11. the DNC and the SDNC ----
     dnc_res = dnc_phase(dev, ops, ref, checker, zero_counts, counts)
 
+    mark("11")
     # ---- 12. the serving engine at StarCoder2-7B's width ----
     engine_res = engine_phase(dev, ops, ref, checker, zero_counts, counts,
                               lmr.pop("params"))
 
+    mark("12")
     # ---- 14. the streaming trainer and the checkpointed training loop ----
     stream_res = stream_phase(dev, ops, ref, checker, zero_counts, counts)
 
-    # ---- 15. report ----
+    mark("14")
+    # ---- 15. the sliding-window LM at H2O-Danube3-4B's width ----
+    swa = swa_phase(dev, ops, ref, checker, zero_counts, counts, flush,
+                    info["flash_attention"]["ptxas"])
+    rows["flash_attention_swa"] = swa["row"]
+    rows["flash_attention_swa_bf16"] = swa["bf16_row"]
+    checker.err["flash_attention_swa"] = swa["err"]
+    checker.err["flash_attention_swa_bf16"] = swa["bf16_err"]
+
+    mark("15")
+    # ---- 16. report ----
     lm_write = lmr["lm"]["kernels_at_lm_shapes"]["sparse_write_update"]
     above = (("lra_topn", rows["lra_topn"]), ("block", lra_block),
              ("scatter_rows 'set'", rows["scatter_rows"]),
@@ -5180,6 +5796,8 @@ def run() -> None:
           f"{empty_ms:.4f} ms; above it: "
           + ", ".join(f"{name} {r['ms'] - empty_ms:.4f} ms"
                       for name, r in above))
+    print(f"[phases] seconds: {phase_s}, {sum(phase_s.values()):.1f} in "
+          f"all")
     print(card_line())
     # Launches: each kernel's count in the main path of its own read, the
     # exact-read train step or (the hash, the candidate read) sam_ann's.
@@ -5194,6 +5812,8 @@ def run() -> None:
                "scatter_rows_int8": dtype_launches["int8/exact/train"],
                "usage_argmin": dense["launches"],
                "flash_attention": lmr["launches"],
+               "flash_attention_swa": swa["launches"],
+               "flash_attention_swa_bf16": swa["launches"],
                "topk_read": mesh["launches"]}
     report = []
     for name, r in rows.items():
@@ -5257,7 +5877,8 @@ def run() -> None:
                                 if k != "row"},
                       "lm": lmr["lm"], "mesh": mesh["mesh"],
                       "dnc": dnc_res, "engine": engine_res,
-                      "lm_train": train_res, "stream": stream_res},
+                      "lm_train": train_res, "stream": stream_res,
+                      "swa": swa["swa"], "phase_seconds": phase_s},
                      default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

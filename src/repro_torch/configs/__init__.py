@@ -2,9 +2,10 @@
 
 ``get_config(name)`` returns the published config (a ``_sam`` suffix adds
 the default `MemoryLayerConfig`); ``reduced(cfg)`` a test-sized config of
-the same family. The port runs the dense GQA family with no window and no
-prefix-LM: StarCoder2-7B. Every other architecture of the JAX registry
-raises, naming the ROADMAP item that ports it.
+the same family. The port runs the dense GQA family without prefix-LM:
+StarCoder2-7B (causal, GELU MLP) and H2O-Danube3-4B (sliding window,
+gated SiLU MLP, head dim 120). Every other architecture of the JAX
+registry raises, naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -25,14 +26,12 @@ ARCH_IDS = (
     "paligemma_3b",
     "hymba_1_5b",
 )
-PORTED = ("starcoder2_7b",)
+PORTED = ("starcoder2_7b", "h2o_danube_3_4b")
 # What each architecture the port does not run yet needs (ROADMAP §A).
 NOT_PORTED = {
     "rwkv6_7b": "A9c (the RWKV block)",
     "yi_34b": "A9c (dense GQA like StarCoder2, but 34B parameters need "
               "more than one H100; its registry entry comes with A9c)",
-    "h2o_danube_3_4b": "A9c (sliding-window attention and the ring-buffer "
-                       "decode; head_dim 120)",
     "mistral_large_123b": "A9c (dense GQA, 123B parameters: more than one "
                           "H100)",
     "musicgen_medium": "A9c (the audio frontend)",
@@ -60,12 +59,15 @@ def get_config(name: str) -> ModelConfig:
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Test-sized config of the same family (`repro/configs/__init__.py::
     reduced` for the families the port runs): 2 layers, d 128, 4 heads
-    over 2 kv heads, head_dim 32, no head padding, and a memory of 64
-    slots of 16 with K = 4, a memory group per layer and segments of 32."""
+    over 2 kv heads, head_dim 32, no head padding, a window of 32 where
+    the config has one, and a memory of 64 slots of 16 with K = 4, a
+    memory group per layer and segments of 32."""
     kw = dict(
         num_layers=2, d_model=128, num_heads=4, num_kv_heads=2, head_dim=32,
         d_ff=256, vocab_size=512, q_block=64, kv_block=64, loss_chunk=64,
         remat=False, pad_head_groups=None)
+    if cfg.window is not None:
+        kw["window"] = 32
     if cfg.memory is not None:
         kw["memory"] = dataclasses.replace(
             cfg.memory, num_slots=64, word_size=16, k=4, every_n_layers=1,

@@ -259,7 +259,8 @@ def adamw_state_from_jax(state, *, device="cuda") -> AdamWState:
 
 def lm_cache_from_jax(cache, *, device="cuda"):
     """A JAX LM cache {"k", "v" (L, B, Smax, Hkv, D), "pos" () or (B,)}
-    -> the port's, k and v in their dtype (f32 or bf16), pos int32."""
+    -> the port's, k and v in their dtype (f32 or bf16), pos int32. With a
+    window Smax = min(max_len, window) slots of a ring, as on both sides."""
     if set(cache) != {"k", "v", "pos"}:
         raise ValueError(f"expected the cache keys k, v and pos (the dense "
                          f"GQA family), got {sorted(cache)}")

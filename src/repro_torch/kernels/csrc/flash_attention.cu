@@ -1,4 +1,5 @@
-// Causal GQA attention, forward: o = softmax(q·kᵀ·D^-0.5, causal) · v.
+// Causal GQA attention, forward: o = softmax(q·kᵀ·D^-0.5, causal) · v,
+// optionally within a sliding window.
 //
 // Replaces src/repro/kernels/flash_attention.py::flash_attention (_kernel,
 // flash_attention.py:27-61, pallas_call at :94): q (B, S, H, D) and k, v
@@ -15,6 +16,27 @@
 // computes. Rows and keys past S are zero-filled by cp.async's src-size
 // operand and never stored; the causal mask alone hides a ragged tile's
 // padded keys.
+//
+// The window (a launch argument, 0 for none) is `chunked_attention`'s
+// (src/repro/models/attention.py:145-148), which the TPU kernel does not
+// have: a key is masked where pos_q - pos_k >= window, as a causal one
+// where pos_k > pos_q. A block of query rows [q0, q0 + 64) starts its key
+// loop at the tile that holds key q0 - window + 1, so a launch does about
+// Σ_q min(q + 1, window) of the S(S+1)/2 causal work. A row can then meet
+// a tile whose keys are all masked for it: its running max stays -1e30,
+// and its weights there are taken as 0 (ms = 0 below), where the plain
+// softmax gives exp(0) = 1 that the next tile's correction exp(-1e30 - m)
+// multiplies by 0. The sums are the same; the kernel never forms
+// exp2 of the f32 residue of -1e30·scale.
+//
+// Head dims: D in 16, 32, 64, 128 use tiles of D columns; D = 120
+// (H2O-Danube3) runs in the D = 128 tile (DP, `pad_dim`) with a zero tail:
+// the chunks of a row at or past D are zero-filled by cp.async (src-size
+// 0), the global row stride stays H·D, and output columns D .. 127 are
+// never stored. A 120-wide row is 480 B in f32 and 240 B in bf16, so rows
+// stay 16-byte aligned. The zero tail adds nothing to q·kᵀ; the f32 q·kᵀ
+// stops at D, the bf16 one runs the last 16-wide k-slice half on zeros,
+// and the bf16 p·v skips the output n-tile that lies wholly in the tail.
 //
 // What bounds it on the H100: operations. Let half = S(S+1)/2 · B·H · 2D,
 // the flop of q·kᵀ over the causal half (1.03e11 at B = 4, S = 2048,
@@ -63,6 +85,19 @@ namespace {
 constexpr int kBQ = 64;          // query rows per block
 constexpr int kThreads = 128;    // four warps
 constexpr float kNeg = -1e30f;   // the TPU kernel's mask value
+
+// The tile width of head dim D: D itself, or 128 for D = 120.
+constexpr int pad_dim(int D) { return D == 120 ? 128 : D; }
+
+__host__ __device__ constexpr bool head_dim_ok(int D) {
+  return D == 16 || D == 32 || D == 64 || D == 120 || D == 128;
+}
+
+// Whether key `key` is hidden from query row `row` (both absolute):
+// causal, or outside a window of `win` keys (`win` > S when there is none).
+__device__ __forceinline__ bool masked(int row, int key, int win) {
+  return key > row || row - key >= win;
+}
 
 // ---- cp.async, ldmatrix, mma.sync ----
 
@@ -148,23 +183,27 @@ __device__ __forceinline__ unsigned short to_bf16(float x) {
   return (unsigned short)((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
 }
 
-// Rows [0, R) of a (·, row_stride) input from `src` into a shared tile by
-// 16-byte cp.async; rows at or past `valid` (at least 1) are zero. Chunk
-// `ch` of row `r` goes to element `at(r, ch)` of `dst`. Each thread keeps
-// one chunk column and walks the rows kThreads / (D / V) apart.
-template <typename T, int R, int D, typename At>
+// Rows [0, R) of a (·, row_stride) input of D columns from `src` into a
+// shared tile of DP columns by 16-byte cp.async; rows at or past `valid`
+// (at least 1) and columns at or past D are zero. Chunk `ch` of row `r`
+// goes to element `at(r, ch)` of `dst`. Each thread keeps one chunk column
+// and walks the rows kThreads / (DP / V) apart.
+template <typename T, int R, int D, int DP, typename At>
 __device__ __forceinline__ void load_rows(T* dst, const T* src,
                                           long long row_stride, int valid,
                                           At at) {
-  constexpr int V = 16 / sizeof(T), PER_ROW = D / V;
+  constexpr int V = 16 / sizeof(T), PER_ROW = DP / V;
   constexpr int STEP = kThreads / PER_ROW;
-  static_assert(kThreads % PER_ROW == 0 && R % STEP == 0, "tile shape");
+  static_assert(kThreads % PER_ROW == 0 && R % STEP == 0 && D % V == 0,
+                "tile shape");
   const int ch = threadIdx.x % PER_ROW, r0 = threadIdx.x / PER_ROW;
-  const T* row = src + r0 * row_stride + ch * V;
+  const bool col = ch * V < D;
+  const T* row = src + r0 * row_stride + (col ? ch * V : 0);
 #pragma unroll
   for (int p = 0; p < R / STEP; ++p) {
     const int r = r0 + p * STEP;
-    cp_async16(dst + at(r, ch), r < valid ? row : src, r < valid);
+    const bool ok = col && r < valid;
+    cp_async16(dst + at(r, ch), ok ? row : src, ok);
     row += STEP * row_stride;
   }
 }
@@ -173,8 +212,9 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src,
 
 template <int D>
 struct TileBF16 {
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dim");
-  static constexpr int LD = D + 8;            // bf16 elements a padded row
+  static_assert(head_dim_ok(D), "head dim");
+  static constexpr int DP = pad_dim(D);       // columns of a tile
+  static constexpr int LD = DP + 8;           // bf16 elements a padded row
   static constexpr int TILE = kBQ * LD;       // one 64-row tile
   static constexpr int SMEM = 5 * TILE * 2;   // q, k ×2, v ×2
 };
@@ -185,10 +225,10 @@ flash_bf16_kernel(const unsigned short* __restrict__ q,
                   const unsigned short* __restrict__ k,
                   const unsigned short* __restrict__ v,
                   unsigned short* __restrict__ o, int S, int H, int Hkv,
-                  float scale_log2) {
+                  int win, float scale_log2) {
   using Sh = TileBF16<D>;
-  constexpr int LD = Sh::LD, TILE = Sh::TILE;
-  constexpr int KD = D / 16;                  // k-slices of q·kᵀ
+  constexpr int DP = Sh::DP, LD = Sh::LD, TILE = Sh::TILE;
+  constexpr int KD = DP / 16;                 // k-slices of q·kᵀ
   constexpr int NO = D / 8;                   // n-tiles of the output
   extern __shared__ __align__(16) unsigned short smem_bf[];
   unsigned short* Qs = smem_bf;               // [64][LD]
@@ -205,12 +245,15 @@ flash_bf16_kernel(const unsigned short* __restrict__ q,
   const unsigned short* k_rows = k + ((long long)b * S * Hkv + hk) * D;
   const unsigned short* v_rows = v + ((long long)b * S * Hkv + hk) * D;
   const int q0 = iq * kBQ;
+  const int kt0 = max(0, q0 - win + 1) / kBQ;  // the window's first tile
 
   const auto padded = [](int r, int ch) { return r * LD + ch * 8; };
-  load_rows<unsigned short, kBQ, D>(Qs, q_rows + q0 * q_stride, q_stride,
-                                    S - q0, padded);
-  load_rows<unsigned short, kBQ, D>(Ks, k_rows, kv_stride, S, padded);
-  load_rows<unsigned short, kBQ, D>(Vs, v_rows, kv_stride, S, padded);
+  load_rows<unsigned short, kBQ, D, DP>(Qs, q_rows + q0 * q_stride, q_stride,
+                                        S - q0, padded);
+  load_rows<unsigned short, kBQ, D, DP>(Ks, k_rows + kt0 * kBQ * kv_stride,
+                                        kv_stride, S - kt0 * kBQ, padded);
+  load_rows<unsigned short, kBQ, D, DP>(Vs, v_rows + kt0 * kBQ * kv_stride,
+                                        kv_stride, S - kt0 * kBQ, padded);
   cp_async_commit();
 
   float acc[NO][4];
@@ -232,25 +275,26 @@ flash_bf16_kernel(const unsigned short* __restrict__ q,
   const unsigned v_lane = smem_addr(Vs) +
       2 * (((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + ((lane >> 4) << 3));
 
-  for (int kt = 0; kt <= iq; ++kt) {
+  for (int kt = kt0; kt <= iq; ++kt) {
+    const int slot = (kt - kt0) & 1, k0 = kt * kBQ;
     cp_async_wait_all();
     __syncthreads();        // tile kt is in; every read of tile kt-1 done
     if (kt < iq) {          // tile kt+1 into the other half of the ring
-      const int k0 = (kt + 1) * kBQ, st = (kt + 1) & 1;
-      load_rows<unsigned short, kBQ, D>(Ks + st * TILE,
-                                        k_rows + k0 * kv_stride, kv_stride,
-                                        S - k0, padded);
-      load_rows<unsigned short, kBQ, D>(Vs + st * TILE,
-                                        v_rows + k0 * kv_stride, kv_stride,
-                                        S - k0, padded);
+      const int k1 = k0 + kBQ;
+      load_rows<unsigned short, kBQ, D, DP>(Ks + (slot ^ 1) * TILE,
+                                            k_rows + k1 * kv_stride,
+                                            kv_stride, S - k1, padded);
+      load_rows<unsigned short, kBQ, D, DP>(Vs + (slot ^ 1) * TILE,
+                                            v_rows + k1 * kv_stride,
+                                            kv_stride, S - k1, padded);
       cp_async_commit();
     }
-    if (kt == 0) {
+    if (kt == kt0) {
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) ldmatrix_x4(qf[kk], q_lane + 32 * kk);
     }
-    const unsigned kt_lane = k_lane + (kt & 1) * TILE * 2;
-    const unsigned vt_lane = v_lane + (kt & 1) * TILE * 2;
+    const unsigned kt_lane = k_lane + slot * TILE * 2;
+    const unsigned vt_lane = v_lane + slot * TILE * 2;
 
     // s = q·kᵀ: 8 n-tiles of 8 keys; C fragment c0,c1 = row g, keys
     // 8j + 2t, +1; c2,c3 = row g + 8.
@@ -269,14 +313,16 @@ flash_bf16_kernel(const unsigned short* __restrict__ q,
         mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
       }
     }
-    if (kt == iq) {                          // the diagonal tile
+    // The diagonal tile, and a tile the window's edge crosses.
+    if (kt == iq || q0 + kBQ - 1 - k0 >= win) {
+      const int ra = q0 + row_a, rb = q0 + row_b;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int key = 8 * j + 2 * t;
-        if (key > row_a) s[j][0] = kNeg;
-        if (key + 1 > row_a) s[j][1] = kNeg;
-        if (key > row_b) s[j][2] = kNeg;
-        if (key + 1 > row_b) s[j][3] = kNeg;
+        const int key = k0 + 8 * j + 2 * t;
+        if (masked(ra, key, win)) s[j][0] = kNeg;
+        if (masked(ra, key + 1, win)) s[j][1] = kNeg;
+        if (masked(rb, key, win)) s[j][2] = kNeg;
+        if (masked(rb, key + 1, win)) s[j][3] = kNeg;
       }
     }
 
@@ -294,7 +340,7 @@ flash_bf16_kernel(const unsigned short* __restrict__ q,
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
       const float m_new = fmaxf(m[r], mx[r]);
       corr[r] = exp2_ftz((m[r] - m_new) * scale_log2);
-      ms[r] = m_new * scale_log2;
+      ms[r] = m_new == kNeg ? 0.0f : m_new * scale_log2;  // all masked: p = 0
       m[r] = m_new;
     }
 #pragma unroll
@@ -314,7 +360,8 @@ flash_bf16_kernel(const unsigned short* __restrict__ q,
     }
 
     // acc += p_hi·v + p_lo·v over keys 16kv .. 16kv + 15: the C fragments
-    // of n-tiles 2kv and 2kv + 1 are the A fragment of that key slice.
+    // of n-tiles 2kv and 2kv + 1 are the A fragment of that key slice. An
+    // output n-tile wholly in the zero tail (D = 120: n-tile 15) is skipped.
 #pragma unroll
     for (int kv = 0; kv < 4; ++kv) {
       unsigned ph[4], pl[4];
@@ -323,13 +370,15 @@ flash_bf16_kernel(const unsigned short* __restrict__ q,
       split_bf16(s[2 * kv + 1][0], s[2 * kv + 1][1], ph[2], pl[2]);
       split_bf16(s[2 * kv + 1][2], s[2 * kv + 1][3], ph[3], pl[3]);
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {  // columns 16dp .. 16dp + 15
+      for (int dp = 0; dp < DP / 16; ++dp) {  // columns 16dp .. 16dp + 15
         unsigned bv[4];
         ldmatrix_x4_trans(bv, vt_lane + 2 * (16 * kv * LD + 16 * dp));
         mma_bf16(acc[2 * dp], ph, bv[0], bv[1]);
         mma_bf16(acc[2 * dp], pl, bv[0], bv[1]);
-        mma_bf16(acc[2 * dp + 1], ph, bv[2], bv[3]);
-        mma_bf16(acc[2 * dp + 1], pl, bv[2], bv[3]);
+        if (2 * dp + 1 < NO) {
+          mma_bf16(acc[2 * dp + 1], ph, bv[2], bv[3]);
+          mma_bf16(acc[2 * dp + 1], pl, bv[2], bv[3]);
+        }
       }
     }
   }
@@ -361,11 +410,12 @@ flash_bf16_kernel(const unsigned short* __restrict__ q,
 // rows meet no bank conflict and a tile needs no padding.
 template <int D>
 struct TileF32 {
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dim");
-  static constexpr int SW = D >= 32 ? 7 : 3;        // swizzle mask
-  static constexpr int CW = D >= 64 ? 4 : D / 16;   // output columns a load
-  static constexpr int NG = D / (16 * CW);          // loads a row
-  static constexpr int TILE = kBQ * D;              // one 64-row tile
+  static_assert(head_dim_ok(D), "head dim");
+  static constexpr int DP = pad_dim(D);             // columns of a tile
+  static constexpr int SW = DP >= 32 ? 7 : 3;       // swizzle mask
+  static constexpr int CW = DP >= 64 ? 4 : DP / 16; // output columns a load
+  static constexpr int NG = DP / (16 * CW);         // loads a row
+  static constexpr int TILE = kBQ * DP;             // one 64-row tile
   // q, one k and one v slot, p (64 × 64, swizzled as D = 64)
   static constexpr int SMEM = (3 * TILE + kBQ * kBQ) * 4;
 };
@@ -379,13 +429,14 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int S,
-                 int H, int Hkv, float scale_log2) {
+                 int H, int Hkv, int win, float scale_log2) {
   using Sh = TileF32<D>;
-  constexpr int SW = Sh::SW, CW = Sh::CW, NG = Sh::NG, TILE = Sh::TILE;
+  constexpr int DP = Sh::DP, SW = Sh::SW, CW = Sh::CW, NG = Sh::NG;
+  constexpr int TILE = Sh::TILE;
   extern __shared__ __align__(16) float smem_f[];
-  float* Qs = smem_f;                // [64][D]
-  float* Ks = Qs + TILE;             // [64][D]: k of tile t
-  float* Vs = Ks + TILE;             // [64][D]: v of tile t
+  float* Qs = smem_f;                // [64][DP]
+  float* Ks = Qs + TILE;             // [64][DP]: k of tile t
+  float* Vs = Ks + TILE;             // [64][DP]: v of tile t
   float* Ps = Vs + TILE;             // [64][64]
 
   // Thread (ty, tx) owns rows ty + 8i (i < 8): their scores against keys
@@ -401,11 +452,13 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* k_rows = k + ((long long)b * S * Hkv + hk) * D;
   const float* v_rows = v + ((long long)b * S * Hkv + hk) * D;
   const int q0 = iq * kBQ;
+  const int kt0 = max(0, q0 - win + 1) / kBQ;  // the window's first tile
 
-  const auto swizzled = [](int r, int ch) { return swz<D, SW>(r, 4 * ch); };
-  load_rows<float, kBQ, D>(Qs, q_rows + q0 * q_stride, q_stride, S - q0,
-                           swizzled);
-  load_rows<float, kBQ, D>(Ks, k_rows, kv_stride, S, swizzled);
+  const auto swizzled = [](int r, int ch) { return swz<DP, SW>(r, 4 * ch); };
+  load_rows<float, kBQ, D, DP>(Qs, q_rows + q0 * q_stride, q_stride, S - q0,
+                               swizzled);
+  load_rows<float, kBQ, D, DP>(Ks, k_rows + kt0 * kBQ * kv_stride, kv_stride,
+                               S - kt0 * kBQ, swizzled);
   cp_async_commit();
 
   float m[8], l[8], acc[8][NG][CW];
@@ -420,16 +473,18 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   // Row ty + 8i has (row & SW) == (ty & SW) and key tx + 16j has
   // (key & SW) == (tx & SW): each thread's swizzle is one constant.
-  const float* q_base = Qs + ty * D;
-  const float* k_base = Ks + tx * D;
+  const float* q_base = Qs + ty * DP;
+  const float* k_base = Ks + tx * DP;
   const int qx = ty & SW, kx = tx & SW;
 
-  for (int kt = 0; kt <= iq; ++kt) {
+  for (int kt = kt0; kt <= iq; ++kt) {
     const int k0 = kt * kBQ;
+    // The diagonal tile, and a tile the window's edge crosses.
+    const bool edge = kt == iq || q0 + kBQ - 1 - k0 >= win;
     cp_async_wait_all();
     __syncthreads();        // k of tile kt is in; p·v of tile kt-1 done
-    load_rows<float, kBQ, D>(Vs, v_rows + k0 * kv_stride, kv_stride, S - k0,
-                             swizzled);
+    load_rows<float, kBQ, D, DP>(Vs, v_rows + k0 * kv_stride, kv_stride,
+                                 S - k0, swizzled);
     cp_async_commit();
 
     float s[8][4];
@@ -438,15 +493,15 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
 #pragma unroll 2
-    for (int c = 0; c < D / 4; ++c) {
+    for (int c = 0; c < D / 4; ++c) {       // the zero tail is left out
       float4 qv[8], kv[4];
 #pragma unroll
       for (int i = 0; i < 8; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(q_base + 8 * i * D +
+        qv[i] = *reinterpret_cast<const float4*>(q_base + 8 * i * DP +
                                                  ((c ^ qx) << 2));
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(k_base + 16 * j * D +
+        kv[j] = *reinterpret_cast<const float4*>(k_base + 16 * j * DP +
                                                  ((c ^ kx) << 2));
 #pragma unroll
       for (int i = 0; i < 8; ++i)
@@ -470,13 +525,14 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float mx = kNeg;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        if (kt == iq && tx + 16 * j > row) s[i][j] = kNeg;
+        if (edge && masked(q0 + row, k0 + tx + 16 * j, win)) s[i][j] = kNeg;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx), ms = m_new * scale_log2;
+      const float m_new = fmaxf(m[i], mx);
+      const float ms = m_new == kNeg ? 0.0f : m_new * scale_log2;
       corr[i] = exp2_ftz((m[i] - m_new) * scale_log2);
       float sum = 0.0f;
 #pragma unroll
@@ -492,8 +548,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();        // v of tile kt is in, p is whole, k is read
     if (kt < iq) {          // k of tile kt+1 into the k slot
       const int k1 = k0 + kBQ;
-      load_rows<float, kBQ, D>(Ks, k_rows + k1 * kv_stride, kv_stride,
-                               S - k1, swizzled);
+      load_rows<float, kBQ, D, DP>(Ks, k_rows + k1 * kv_stride, kv_stride,
+                                   S - k1, swizzled);
       cp_async_commit();
     }
 
@@ -517,7 +573,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         float vv[NG][CW];
 #pragma unroll
         for (int gg = 0; gg < NG; ++gg) {
-          const float* src = Vs + swz<D, SW>(key, gg * 16 * CW + tx * CW);
+          const float* src = Vs + swz<DP, SW>(key, gg * 16 * CW + tx * CW);
           if constexpr (CW == 4) {
             const float4 x = *reinterpret_cast<const float4*>(src);
             vv[gg][0] = x.x; vv[gg][1] = x.y; vv[gg][2] = x.z; vv[gg][3] = x.w;
@@ -552,10 +608,12 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-20f);
     float* dst = o + (((long long)b * S + row) * H + h) * D;
 #pragma unroll
-    for (int gg = 0; gg < NG; ++gg)
+    for (int gg = 0; gg < NG; ++gg) {
+      if (gg * 16 * CW + tx * CW >= D) continue;     // the zero tail
 #pragma unroll
       for (int c = 0; c < CW; ++c)
         dst[gg * 16 * CW + tx * CW + c] = acc[i][gg][c] / denom;
+    }
   }
 }
 
@@ -575,11 +633,13 @@ cudaError_t prepare(Kernel kernel, int smem) {
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int Hkv, int dtype, float scale,
+           int S, int H, int Hkv, int dtype, int window, float scale,
            cudaStream_t stream) {
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
   // exp(x·scale) = 2^(x·scale·log2 e)
   const float scale_log2 = scale * 1.4426950408889634f;
+  // No window, or one that reaches every key: a width no row - key meets.
+  const int win = window > 0 && window < S ? window : S + kBQ;
   if (dtype == 1) {
     const cudaError_t err = prepare(flash_bf16_kernel<D>, TileBF16<D>::SMEM);
     if (err != cudaSuccess) return (int)err;
@@ -587,13 +647,13 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
         static_cast<const unsigned short*>(q),
         static_cast<const unsigned short*>(k),
         static_cast<const unsigned short*>(v),
-        static_cast<unsigned short*>(o), S, H, Hkv, scale_log2);
+        static_cast<unsigned short*>(o), S, H, Hkv, win, scale_log2);
   } else {
     const cudaError_t err = prepare(flash_f32_kernel<D>, TileF32<D>::SMEM);
     if (err != cudaSuccess) return (int)err;
     flash_f32_kernel<D><<<grid, kThreads, TileF32<D>::SMEM, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), S, H, Hkv,
+        static_cast<const float*>(v), static_cast<float*>(o), S, H, Hkv, win,
         scale_log2);
   }
   return (int)cudaGetLastError();
@@ -605,19 +665,21 @@ extern "C" {
 
 // q, o: (B, S, H, D); k, v: (B, S, Hkv, D), all contiguous and 16-byte
 // aligned, of one dtype: code 0 = f32, 1 = bf16 (`_build.ROW_CODE`).
-// D is 16, 32, 64 or 128, and Hkv divides H.
+// D is 16, 32, 64, 120 or 128, and Hkv divides H. window >= 1 hides the
+// keys with pos_q - pos_k >= window; 0 means none.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int S, int H, int Hkv, int D,
-                           int dtype, float scale, void* stream) {
+                           int dtype, int window, float scale, void* stream) {
   if (B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 || B * H > 65535 ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) || window < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch<16>(q, k, v, o, B, S, H, Hkv, dtype, scale, s);
-    case 32: return launch<32>(q, k, v, o, B, S, H, Hkv, dtype, scale, s);
-    case 64: return launch<64>(q, k, v, o, B, S, H, Hkv, dtype, scale, s);
-    case 128: return launch<128>(q, k, v, o, B, S, H, Hkv, dtype, scale, s);
+    case 16: return launch<16>(q, k, v, o, B, S, H, Hkv, dtype, window, scale, s);
+    case 32: return launch<32>(q, k, v, o, B, S, H, Hkv, dtype, window, scale, s);
+    case 64: return launch<64>(q, k, v, o, B, S, H, Hkv, dtype, window, scale, s);
+    case 120: return launch<120>(q, k, v, o, B, S, H, Hkv, dtype, window, scale, s);
+    case 128: return launch<128>(q, k, v, o, B, S, H, Hkv, dtype, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

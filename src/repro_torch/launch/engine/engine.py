@@ -228,12 +228,13 @@ class ServeEngine:
         # Validate against the stored session before taking it: a rejected
         # request leaves the session in the store and the lane free. The
         # budget counts only the remaining prompt and generation, so a
-        # request resuming after a rescale is not counted twice.
+        # request resuming after a rescale is not counted twice. A windowed
+        # config's cache is a ring, which any length fits (JAX's check).
         sess = self.sessions.peek(req.user)
         pos = 0 if sess is None else int(sess["pos"][0])
         need = (len(req.prompt) - req.prefill_done
                 + req.max_new_tokens - req.generated)
-        if pos + need > self.max_len:
+        if pos + need > self.max_len and self.cfg.window is None:
             self.scheduler.evict(lane)
             raise ValueError(
                 f"user {req.user!r}: session at position {pos} cannot fit "

@@ -9,10 +9,14 @@ single-request users through the continuous-batching engine
 
     python -m repro_torch.launch.serve --arch starcoder2_7b_sam --full
     python -m repro_torch.launch.serve --continuous --requests 8 --full
+    python -m repro_torch.launch.serve --arch h2o_danube_3_4b_sam --full
 
-run StarCoder2-7B at full width on the card (weights from ``--seed``, held
-in the bf16 compute dtype: 15.8 GB); without ``--full`` the reduced
-config; ``--device cpu`` runs on the host.
+run StarCoder2-7B (weights from ``--seed``, held in the bf16 compute
+dtype: 15.8 GB) or H2O-Danube3-4B (sliding window, a ring cache of
+min(max_len, 4096) slots: 7.9 GB) at full width on the card, with or
+without the ``_sam`` memory layer; without ``--full`` the reduced config;
+``--device cpu`` runs on the host. The registry's other architectures
+raise, naming ROADMAP item A9c.
 """
 from __future__ import annotations
 

@@ -7,9 +7,16 @@ the JAX package computes it outside any kernel). Where the JAX forward
 runs its jnp chunked online softmax (`chunked_attention`), the port runs
 the kernel; the kernel's plain version is `kernels/ref.flash_attention_ref`.
 
+A config with a sliding window (``cfg.window``, H2O-Danube3) passes it to
+the kernel, and its decode cache is a ring of Smax = min(max_len, window)
+slots (`models/transformer.py::layer_cache_shapes`): position p writes
+slot p % Smax, and once p reaches Smax every slot is valid. So the decode
+attends to the last Smax tokens, the prefill to the last ``window``: with
+max_len < window the two differ, in JAX as here (ROADMAP §C).
+
 Layouts are the JAX package's: q (B, S, H, D), k and v (B, S, Hkv, D),
-caches (B, Smax, Hkv, D). Windows, prefix-LM and MLA are not ported
-(ROADMAP A9c): `models/transformer.py` refuses such configs."""
+caches (B, Smax, Hkv, D). Prefix-LM and MLA are not ported (ROADMAP A9c):
+`models/transformer.py` refuses such configs."""
 from __future__ import annotations
 
 from typing import Optional
@@ -42,8 +49,9 @@ def _head_mask(cfg: ModelConfig, dtype, device) -> Optional[torch.Tensor]:
 
 def gqa_forward(params, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d): the training/prefill attention, causal,
-    through `ops.flash_attention` (the kernel on the card). S must be a
+    """x: (B, S, d) -> (B, S, d): the training/prefill attention, causal
+    within ``cfg.window`` when the config has one, through
+    `ops.flash_attention` (the kernel on the card). S must be a
     multiple of min(q_block, S) and of min(kv_block, S), as the JAX
     package's chunked attention requires."""
     S = x.shape[1]
@@ -56,7 +64,7 @@ def gqa_forward(params, cfg: ModelConfig, x: torch.Tensor,
     v = peinsum("bsd,dhk->bshk", x, params["wv"])
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    o = ops.flash_attention(q, k, v, q_block=qb)
+    o = ops.flash_attention(q, k, v, q_block=qb, window=cfg.window)
     mask = _head_mask(cfg, o.dtype, o.device)
     if mask is not None:
         o = o * mask[None, None, :, None]
@@ -64,14 +72,19 @@ def gqa_forward(params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _cache_write(cache: torch.Tensor, new: torch.Tensor,
-                 pos: torch.Tensor) -> None:
+                 pos: torch.Tensor, ring: bool) -> None:
     """Write new (B, 1, Hkv, D) at position ``pos`` of cache (B, Smax, Hkv,
-    D), in place. A () position past the end writes the last slot (JAX's
-    ``dynamic_update_slice`` clamps); a lane whose (B,) position lies past
-    the end keeps its cache (JAX's scatter drops it). No host sync."""
+    D), in place. A ``ring`` (a windowed config) writes slot pos % Smax
+    for every lane. Otherwise a () position past the end writes the last
+    slot (JAX's ``dynamic_update_slice`` clamps) and a lane whose (B,)
+    position lies past the end keeps its cache (JAX's scatter drops it).
+    No host sync."""
     B, Smax = cache.shape[:2]
     b = torch.arange(B, device=cache.device)
     new = new[:, 0].to(cache.dtype)
+    if ring:
+        cache[b, (pos % Smax).expand(B)] = new
+        return
     if pos.dim() == 0:
         cache[b, pos.clamp(max=Smax - 1).expand(B)] = new
         return
@@ -99,8 +112,9 @@ def gqa_decode(params, cfg: ModelConfig, x: torch.Tensor,
     """x: (B, 1, d); caches (B, Smax, Hkv, D). ``pos`` is a () int tensor
     for a lockstep batch or (B,) per-lane positions (each lane its own
     rope phase, cache slot and validity horizon). The caches are updated
-    in place (JAX returns new ones). Returns (out (B, 1, d), k_cache,
-    v_cache)."""
+    in place (JAX returns new ones). With ``cfg.window`` the caches are
+    rings: slot pos % Smax, and every slot valid once pos >= Smax (JAX's
+    `gqa_decode`). Returns (out (B, 1, d), k_cache, v_cache)."""
     B = x.shape[0]
     Smax = k_cache.shape[1]
     q = peinsum("bsd,dhk->bshk", x, params["wq"])
@@ -109,8 +123,9 @@ def gqa_decode(params, cfg: ModelConfig, x: torch.Tensor,
     ppos = pos.reshape(1, 1) if pos.dim() == 0 else pos[:, None]
     q = rope(q, ppos, cfg.rope_theta)
     k = rope(k, ppos, cfg.rope_theta)
-    _cache_write(k_cache, k, pos)
-    _cache_write(v_cache, v, pos)
+    ring = cfg.window is not None
+    _cache_write(k_cache, k, pos, ring)
+    _cache_write(v_cache, v, pos, ring)
 
     H, Hkv = cfg.padded_heads, cfg.num_kv_heads
     qg = q.reshape(B, Hkv, H // Hkv, 1, -1).float()
@@ -119,7 +134,11 @@ def gqa_decode(params, cfg: ModelConfig, x: torch.Tensor,
     # pick another kernel, and another order, for another batch.
     s = _tree_sum(qg * k_cache.float().permute(0, 2, 1, 3)[:, :, None]) \
         * (q.shape[-1] ** -0.5)
-    valid = torch.arange(Smax, device=x.device) <= pos[..., None]
+    idx = torch.arange(Smax, device=x.device)
+    if ring:
+        valid = (idx <= (pos % Smax)[..., None]) | (pos[..., None] >= Smax)
+    else:
+        valid = idx <= pos[..., None]
     valid = valid.expand(B, Smax)
     s = torch.where(valid[:, None, None, :], s, _NEG)
     p = torch.softmax(s, dim=-1)

@@ -122,15 +122,26 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return out.to(x.dtype)
 
 
-def mlp_defs(d_in: int, d_hidden: int):
-    return {"w1": pdef((d_in, d_hidden)), "w2": pdef((d_hidden, d_in))}
+def mlp_defs(d_in: int, d_hidden: int, gated: bool = False):
+    defs = {"w1": pdef((d_in, d_hidden)), "w2": pdef((d_hidden, d_in))}
+    if gated:
+        defs["w3"] = pdef((d_in, d_hidden))
+    return defs
 
 
-def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
-    """The non-gated GELU MLP, x (B, S, d) -> w2 · gelu(w1 · x). GELU is
-    the tanh approximation, `jax.nn.gelu`'s default. (The gated silu and
-    geglu MLPs of other families are ROADMAP A9c.)"""
-    h = F.gelu(peinsum("bsd,df->bsf", x, params["w1"]), approximate="tanh")
+def mlp_apply(params, x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
+    """x (B, S, d) -> (B, S, d). Without ``w3`` the GELU MLP, w2 ·
+    gelu(w1 · x), GELU the tanh approximation (`jax.nn.gelu`'s default).
+    With ``w3`` the gated MLP of ``act`` 'silu' (llama's), w2 · (silu(w1 ·
+    x) ∘ (w3 · x)). (The gated 'geglu' MLP is ROADMAP A9c.)"""
+    h = peinsum("bsd,df->bsf", x, params["w1"])
+    if "w3" in params:
+        if act != "silu":
+            raise ValueError(f"the gated {act} MLP is not ported yet "
+                             f"(ROADMAP item A9c)")
+        h = F.silu(h) * peinsum("bsd,df->bsf", x, params["w3"])
+    else:
+        h = F.gelu(h, approximate="tanh")
     return peinsum("bsf,fd->bsd", h, params["w2"])
 
 

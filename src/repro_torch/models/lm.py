@@ -1,5 +1,6 @@
 """The top-level LM, the JAX package's `models/lm.py` for the dense GQA
-family: embeddings, the stack of blocks with a SAM memory layer after
+family (causal or sliding-window attention; GELU or gated SiLU MLP):
+embeddings, the stack of blocks with a SAM memory layer after
 every group of `every_n_layers`, the final norm and the head. `forward`
 and `loss_fn` train (under autograd, the blocks under
 `torch.utils.checkpoint` with ``cfg.remat``, the memory layers through the
@@ -174,14 +175,18 @@ def loss_fn(params, cfg: ModelConfig, batch):
 # --------------------------------------------------------------------------
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
+    """(L, B, Smax, Hkv, D) shapes of k and v: Smax = max_len, or
+    min(max_len, window) for a windowed config, whose cache is a ring."""
     per_layer = tfm.layer_cache_shapes(cfg, batch, max_len)
     return {k: (cfg.num_layers,) + v for k, v in per_layer.items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                per_lane_pos: bool = False, *, device="cuda"):
-    """Zero (L, B, max_len, Hkv, D) k and v caches in the compute dtype and
-    ``pos``: () int32, or (B,) per-lane positions with ``per_lane_pos``."""
+    """Zero (L, B, Smax, Hkv, D) k and v caches (`cache_shapes`: a ring of
+    min(max_len, window) slots with a window, which any position fits) in
+    the compute dtype and ``pos``: () int32, or (B,) per-lane positions
+    with ``per_lane_pos``."""
     cd = torch_dtype(cfg.compute_dtype)
     cache = {k: torch.zeros(v, dtype=cd, device=device)
              for k, v in cache_shapes(cfg, batch, max_len).items()}

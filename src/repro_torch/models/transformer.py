@@ -1,6 +1,7 @@
 """Transformer block of the LM, the JAX package's `models/transformer.py`
-for ``block="dense"``: pre-norm GQA attention and an MLP, each added to
-the residual stream. Any other family raises, naming its ROADMAP item."""
+for ``block="dense"``: pre-norm GQA attention (causal, or within a sliding
+window) and an MLP (GELU, or gated SiLU), each added to the residual
+stream. Any other family raises, naming its ROADMAP item."""
 from __future__ import annotations
 
 import torch
@@ -11,13 +12,13 @@ from repro_torch.models.layers import mlp_apply, mlp_defs, pdef, rms_norm
 
 
 def require_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is the dense GQA family the port runs."""
+    """Raise unless ``cfg`` is a dense GQA family the port runs: causal
+    or sliding-window attention, the GELU or the gated SiLU MLP."""
     unported = (
         (cfg.block != "dense", f"block={cfg.block!r}"),
-        (cfg.act != "gelu", f"the gated {cfg.act} MLP"),
+        (cfg.act not in ("gelu", "silu"), f"the gated {cfg.act} MLP"),
         (cfg.mla is not None, "MLA"),
         (cfg.moe is not None, "MoE"),
-        (cfg.window is not None, "sliding-window attention"),
         (bool(cfg.prefix_lm), "prefix-LM attention"),
         (cfg.frontend is not None, f"the {cfg.frontend} frontend"),
         (cfg.sparse_decode_blocks is not None,
@@ -35,7 +36,7 @@ def block_defs(cfg: ModelConfig):
     d = cfg.d_model
     return {"ln1": pdef((d,), init="zeros"), "ln2": pdef((d,), init="zeros"),
             "attn": attn.attn_defs(cfg),
-            "mlp": mlp_defs(d, cfg.d_ff)}
+            "mlp": mlp_defs(d, cfg.d_ff, gated=cfg.act == "silu")}
 
 
 def block_forward(p, cfg: ModelConfig, x: torch.Tensor,
@@ -45,7 +46,7 @@ def block_forward(p, cfg: ModelConfig, x: torch.Tensor,
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     x = x + attn.gqa_forward(p["attn"], cfg, h, positions)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h)
+    return x + mlp_apply(p["mlp"], h, cfg.act)
 
 
 def block_decode(p, cfg: ModelConfig, x: torch.Tensor, cache, pos):
@@ -56,11 +57,13 @@ def block_decode(p, cfg: ModelConfig, x: torch.Tensor, cache, pos):
                                 pos)
     x = x + a
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h), dict(cache, k=kc, v=vc)
+    return x + mlp_apply(p["mlp"], h, cfg.act), dict(cache, k=kc, v=vc)
 
 
 def layer_cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
-    """Cache shapes of one layer (the caller stacks a leading L)."""
+    """Cache shapes of one layer (the caller stacks a leading L): Smax =
+    max_len, or min(max_len, window) slots of a ring with a window."""
     require_supported(cfg)
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    smax = min(max_len, cfg.window) if cfg.window else max_len
+    shape = (batch, smax, cfg.num_kv_heads, cfg.head_dim)
     return {"k": shape, "v": shape}

@@ -16,7 +16,8 @@ candidate read may swap selections whose plain similarities lie within
 1e-6 of each other. The causal attention kernel: f32 within 2e-5 (the JAX
 suite's bar) on unit normal inputs; bf16 outputs within one bf16 ulp of
 the output's magnitude (both round the same f32 softmax, summed in
-another order); on scores as large as the LM's (q and k of std 12), where
+another order), at D in 16 ... 128 and D = 120, with and without a
+sliding window; on scores as large as the LM's (q and k of std 12), where
 two f32 orders differ by 1e-3, no further from the f64 result than twice
 the plain f32 version is.
 """
@@ -1621,6 +1622,58 @@ def test_flash_attention_kernel_matches_plain(dev, B, S, H, Hkv, D, dtype):
     assert torch.equal(ops.flash_attention(qt, k, v), out)
 
 
+# D = 120 (H2O-Danube3: the D = 128 tile with a zero tail) and the sliding
+# window: a window under one tile, one not a multiple of the tile, one of
+# whole tiles, one at least S (no key hidden), width 1 (a row sees only
+# itself), and Danube's heads (32 over 8) at a window of 512.
+WINDOW_CASES = [
+    (1, 130, 4, 2, 120, None), (2, 63, 8, 2, 120, None),
+    (2, 257, 8, 2, 120, 32), (1, 1000, 4, 1, 120, 100),
+    (1, 1000, 4, 4, 64, 64), (2, 300, 4, 2, 32, 1), (1, 200, 2, 1, 128, 500),
+    (1, 129, 12, 1, 16, 65), (1, 2048, 32, 8, 120, 512),
+]
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,window", WINDOW_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_head_dim_120_and_window(dev, B, S, H, Hkv, D,
+                                                        window, dtype):
+    q, k, v = _attention_inputs(dev, B, S, H, Hkv, D, dtype, seed=S + D)
+    n0 = flash_attention.launches
+    out = flash_attention(q, k, v, window=window)
+    want = ref.flash_attention_ref(q, k, v, window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= (2e-5 if dtype == "float32" else _bf16_ulp(want))
+    assert torch.equal(ops.flash_attention(q, k, v, window=window), out)
+    if window is not None and window < S:   # the window hides keys
+        assert (ref.flash_attention_ref(q, k, v) - want).abs().max() > 1e-3
+
+
+@pytest.mark.parametrize("window", [None, 200])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_head_dim_120_on_large_scores(dev, window,
+                                                             dtype):
+    """The large-score bars of the next test at D = 120, with and without
+    a window."""
+    q, k, v = _attention_inputs(dev, 2, 512, 8, 2, 120, dtype, seed=6,
+                                scale=12.0)
+    out = flash_attention(q, k, v, window=window)
+    if dtype == "bfloat16":
+        want = ref.flash_attention_ref(q, k, v, window)
+        err = (out.float() - want.float()).abs().max().item()
+        assert err <= _bf16_ulp(want)
+        return
+    exact = ref.flash_attention_ref(q.double(), k.double(), v.double(),
+                                    window)
+    err = (out.double() - exact).abs().max().item()
+    plain = (ref.flash_attention_ref(q, k, v, window).double()
+             - exact).abs().max()
+    assert err <= 2 * plain.item() + 2e-5
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_kernel_on_large_scores(dev, dtype):
     """Scores of std ~144, as the LM's weights give them. f32: both f32
@@ -1658,6 +1711,9 @@ def test_flash_attention_kernel_raises_on_inputs_it_cannot_take(dev):
     for case, args in bad.items():
         with pytest.raises(ValueError, match="flash_attention"):
             flash_attention(*args)
+    for window in (0, -3, 2.5):
+        with pytest.raises(ValueError, match="window"):
+            flash_attention(q, k, v, window=window)
     assert flash_attention.launches == n0
     # Under autograd the op is the attention Function (LM training): its
     # forward launches the kernel once.
@@ -1770,6 +1826,33 @@ def test_flash_attention_gradient_on_card_matches_plain(dev, B, S, H, Hkv, D,
     plain = [t.detach().float().requires_grad_() for t in (q, k, v)]
     want = torch.autograd.grad(ref.flash_attention_ref(*plain), plain,
                                g.float())
+    for a, b in zip(got, want):
+        assert a.dtype == q.dtype
+        err = ((a.float() - b).abs() / b.abs().clamp_min(1.0)).max().item() \
+            if dtype == "float32" else (a.float() - b).abs().max().item()
+        assert err <= (2e-5 if dtype == "float32" else _bf16_ulp(b))
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,qb,window", [
+    (1, 130, 4, 2, 120, 64, 32), (2, 512, 32, 8, 120, 128, 100),
+    (1, 300, 4, 4, 64, 100, 1)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_window_gradient_on_card_matches_plain(
+        dev, B, S, H, Hkv, D, qb, window, dtype):
+    """The same at D = 120 and with a window: the kernel's forward and the
+    plain backward, whose query blocks take only the keys the window
+    reaches, against autograd through the plain windowed version."""
+    q, k, v = (t.requires_grad_() for t in _attention_inputs(
+        dev, B, S, H, Hkv, D, dtype, seed=S + D))
+    g = torch.randn(q.shape, device=dev,
+                    generator=torch.Generator(dev).manual_seed(4)).to(q.dtype)
+    n0 = flash_attention.launches
+    got = torch.autograd.grad(
+        ops.flash_attention(q, k, v, q_block=qb, window=window), (q, k, v), g)
+    assert flash_attention.launches == n0 + 1
+    plain = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.flash_attention_ref(*plain, window),
+                               plain, g.float())
     for a, b in zip(got, want):
         assert a.dtype == q.dtype
         err = ((a.float() - b).abs() / b.abs().clamp_min(1.0)).max().item() \
