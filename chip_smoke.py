@@ -24,11 +24,15 @@ continuous-batching engine with per-user memory sessions; then the LM
 trained (8 of its 32 layers at full width, AdamW); then the streaming
 trainer, which carries the SAM cell's memory from chunk to chunk of long
 episodes and checkpoints mid-episode, and a ~100M LM trained under the
-checkpointing, retrying loop; last the sliding-window LM, H2O-Danube3-4B
+checkpointing, retrying loop; then the sliding-window LM, H2O-Danube3-4B
 + SAM at full width (`h2o_danube_3_4b_sam`: prefill, decode with memory
 states into a ring cache, `serve` and the engine), whose attention is the
-`flash_attention` kernel at head dim 120 with a window of 4096. It fails
-(nonzero exit) if any phase fails:
+`flash_attention` kernel at head dim 120 with a window of 4096; last the
+vision-language LM, PaliGemma-3B + SAM at full width (`paligemma_3b_sam`:
+prefill on 256 patch embeddings, decode with memory states, `serve` and
+the engine), whose attention is the `flash_attention` kernel at head dim
+256 with the prefix-LM over the 256. It fails (nonzero exit) if any phase
+fails:
 
 1. build the kernels from `src/repro_torch/kernels/csrc/` with nvcc for
    sm_90a and print each kernel's registers, shared memory and spills
@@ -361,7 +365,36 @@ states into a ring cache, `serve` and the engine), whose attention is the
       with exact launches a step, then one by one through a store of one
       hot session, the returning user spilled to disk and restored in
       another engine: every token equal, its session bit for bit;
-16. print each phase's seconds, the empty-launch floor with each
+16. the vision-language LM, `paligemma_3b_sam` at full width (bf16
+   weights from seed 0; head dim 256, 8 heads over one kv head padded to
+   16, the GeGLU MLP, the head tied to the embedding; 18 layers, memory
+   every 4, so JAX's grouping runs blocks 0-15 with memory states):
+   e. first the reduced config (f32) in two variants, JAX's (head dim 32,
+      4 heads over 2) and one at head dim 256 over one kv head with 4 pad
+      heads, on the card against the CPU: a prefill on 16 patch
+      embeddings and 48 tokens, a `decode_scan` of 24 tokens with filled
+      memory states, one `loss_fn` gradient, each on the first token seed
+      of 0-63 whose CPU reads hold no near-tie at K; the bars of phase 15,
+      a gradient leaf beyond atol/rtol held to twice the CPU's largest own
+      move over three one-ulp perturbations of its weights (one in phase
+      15);
+   b. a prefill at B = 4, S = 2048 (256 patch embeddings, 1792 tokens,
+      the prefix 256) in lockstep: 16 attention launches at D = 256 with
+      the prefix (4 bf16, 12 f32), each against its plain version, and 16
+      each of the read, write and LRA; host ms, peak, device-busy share;
+   a. the kernel at layer 0's (bf16) and layer 4's (f32) inputs: ms
+      against the bound (the prefix's (query, key) pairs, `attn_pairs`),
+      the plain version's and `scaled_dot_product_attention`'s with the
+      (S, S) prefix mask, naming the backend that took it; the D = 256
+      kernels' registers, spills (none) and shared memory;
+   c. a decode with memory states, a 32-token prompt and 16 greedy tokens
+      (in lockstep): 4 reads, writes and LRAs and no attention launch a
+      token, the caches of blocks 16 and 17 untouched; ms a token on the
+      host and the device; `serve` once (no memory states: all 18
+      blocks);
+   d. the engine on 4 lanes of 128: 6 token requests, in lockstep with
+      exact launches a step;
+17. print each phase's seconds, the empty-launch floor with each
    latency-bound kernel's time
    above it (`lra_topn`, the scatter, the write at step 21 on f32, bf16
    and int8 rows and at the LM's shapes, the candidate read on f32, bf16
@@ -370,8 +403,9 @@ states into a ring cache, `serve` and the engine), whose attention is the
    under ``"lm"``, the sharded memory's under ``"mesh"``, the DNC's under
    ``"dnc"``, the engine's under ``"engine"``, the LM trainer's under
    ``"lm_train"``, the streaming trainer's under ``"stream"``, the
-   sliding-window LM's under ``"swa"``, the phases' seconds under
-   ``"phase_seconds"``), and last the ``{"ok": true, ...}`` line.
+   sliding-window LM's under ``"swa"``, the vision-language LM's under
+   ``"vlm"``, the phases' seconds under ``"phase_seconds"``), and last the
+   ``{"ok": true, ...}`` line.
 
 Tolerances: integer outputs exact; forward floats within 1e-5 of
 max(1, |plain|), element by element (other summation order, rsqrt
@@ -482,6 +516,13 @@ REPLACES = {
     "flash_attention_swa": ("src/repro/kernels/flash_attention.py:94",
                             "src/repro_torch/kernels/csrc/flash_attention.cu"),
     "flash_attention_swa_bf16": (
+        "src/repro/kernels/flash_attention.py:94",
+        "src/repro_torch/kernels/csrc/flash_attention.cu"),
+    # The prefix-LM attention at head dim 256 (phase 16): the same
+    # kernels' D = 256 instantiations with chunked_attention's prefix.
+    "flash_attention_vlm": ("src/repro/kernels/flash_attention.py:94",
+                            "src/repro_torch/kernels/csrc/flash_attention.cu"),
+    "flash_attention_vlm_bf16": (
         "src/repro/kernels/flash_attention.py:94",
         "src/repro_torch/kernels/csrc/flash_attention.cu"),
     # The slot-sharded memory's top-K (phase 10): fused_read.cu's first
@@ -617,6 +658,29 @@ SWA_PROMPT, SWA_GEN, SWA_MAX_LEN = 112, 32, 128
 SWA_LANES, SWA_REQUESTS, SWA_REQ_PROMPT, SWA_REQ_GEN = 4, 8, (16, 32), 16
 SWA_RETURN = (100, 8)
 SWA_SMALL_S, SWA_SMALL_DECODE, SWA_SMALL_MAX_LEN = 128, 80, 64
+# Phase 16, the vision-language LM at PaliGemma-3B's full width (bf16
+# compute; weights from seed 0 held in bf16, the head tied to the
+# embedding; head_dim 256, 8 heads over one kv head padded to 16, the GeGLU
+# MLP; memory N = 65536, W = 128, H = 4, K = 8 every 4 of 18 layers): a
+# prefill of VLM_B × VLM_S positions (256 patch embeddings, then tokens;
+# the prefix-LM over the 256), timed VLM_PREFILL_RUNS times; a decode
+# with memory states of a VLM_PROMPT-token prompt and VLM_GEN greedy
+# tokens into a cache of VLM_MAX_LEN; the engine on VLM_LANES lanes of
+# VLM_MAX_LEN: VLM_REQUESTS requests of VLM_REQ_PROMPT tokens and
+# VLM_REQ_GEN new ones; the reduced config in two variants on the card
+# against the CPU: a prefill on VLM_SMALL_S_T tokens after its 16 patch
+# embeddings, a decode of VLM_SMALL_DECODE tokens into a cache of
+# VLM_SMALL_MAX_LEN, a loss gradient.
+VLM_ARCH = "paligemma_3b_sam"
+VLM_B, VLM_S, VLM_PREFILL_RUNS = 4, 2048, 2
+VLM_PROMPT, VLM_GEN, VLM_MAX_LEN = 32, 16, 128
+VLM_LANES, VLM_REQUESTS, VLM_REQ_PROMPT, VLM_REQ_GEN = 4, 6, (8, 16), 8
+VLM_SMALL_S_T, VLM_SMALL_DECODE, VLM_SMALL_MAX_LEN = 48, 24, 32
+# The reduced configs' loss gradients are ill-conditioned (scores of std
+# ~64 at head dim 256; the tied embedding's gradient sums the head's and
+# the input's): a leaf beyond atol/rtol is held to twice the CPU's largest
+# own move over this many one-ulp perturbations of its weights.
+VLM_SPREAD_DRAWS = 3
 
 
 class SmokeFailure(Exception):
@@ -1341,14 +1405,14 @@ def bf16_ulp(x: torch.Tensor) -> float:
     return 2.0 ** (int(e) - 8)
 
 
-def check_flash(ref, q, k, v, out, window=None) -> dict:
+def check_flash(ref, q, k, v, out, window=None, prefix=0) -> dict:
     """The attention kernel's output against its plain version on the same
-    inputs (and window): bf16 within one bf16 ulp of the output's
+    inputs (and window and prefix): bf16 within one bf16 ulp of the output's
     magnitude; f32 within FLASH_TOL, or, where the two f32 versions differ
     by more (scores as large as the LM's: two f32 summation orders then
     differ by ~1e-3), no further from the f64 result than twice the plain
     version is."""
-    want = ref.flash_attention_ref(q, k, v, window)
+    want = ref.flash_attention_ref(q, k, v, window, prefix)
     err = (out.float() - want.float()).abs().max().item()
     r = {"err": err}
     if q.dtype == torch.bfloat16:
@@ -1358,10 +1422,10 @@ def check_flash(ref, q, k, v, out, window=None) -> dict:
     elif err > FLASH_TOL:
         del want
         exact = ref.flash_attention_ref(q.double(), k.double(), v.double(),
-                                        window)
+                                        window, prefix)
         r["exact_err"] = (out.double() - exact).abs().max().item()
         r["plain_exact_err"] = (ref.flash_attention_ref(
-            q, k, v, window).double() - exact).abs().max().item()
+            q, k, v, window, prefix).double() - exact).abs().max().item()
         require(r["exact_err"] <= 2 * r["plain_exact_err"] + FLASH_TOL,
                 f"flash_attention (f32) is {r['exact_err']:.3g} from the f64 "
                 f"result, the plain version {r['plain_exact_err']:.3g}")
@@ -1390,9 +1454,10 @@ class FlashCheck:
                 check = check_flash(self.ref, q.detach().contiguous(),
                                     k.detach().contiguous(),
                                     v.detach().contiguous(), out.detach(),
-                                    kw.get("window"))
+                                    kw.get("window"), kw.get("prefix", 0))
             self.checks.append(dict(check, dtype=q.dtype,
-                                    window=kw.get("window")))
+                                    window=kw.get("window"),
+                                    prefix=kw.get("prefix", 0)))
             return out
 
         self.ops.flash_attention = flash_attention
@@ -3915,22 +3980,31 @@ def stream_phase(dev, ops, ref, checker, zero_counts, counts):
     return out
 
 
-def attn_pairs(S: int, window=None) -> int:
-    """Σ_q min(q + 1, window): the (query, key) pairs of causal attention
-    over S positions within a window (S(S+1)/2 without one)."""
-    if window is None or window >= S:
-        return S * (S + 1) // 2
-    return window * (window + 1) // 2 + (S - window) * window
+def attn_pairs(S: int, window=None, prefix=0) -> int:
+    """The (query, key) pairs of causal attention over S positions within
+    a window, and with every key below the prefix seen by every query:
+    Σ_q |[max(0, q - window + 1), q] ∪ [0, min(prefix, S))| (S(S+1)/2
+    with neither; Σ_q max(q + 1, prefix) with a prefix alone)."""
+    q = torch.arange(S, dtype=torch.int64)
+    lo = (q - window + 1).clamp(min=0) if window else torch.zeros_like(q)
+    P = min(prefix, S)
+    overlap = ((q + 1).clamp(max=P) - lo.clamp(max=P)).clamp(min=0)
+    return int((q - lo + 1 + P - overlap).sum())
 
 
-def window_mask(S: int, window: int, device) -> torch.Tensor:
-    """(S, S) bool: query i sees key j where 0 <= i - j < window."""
+def attn_visible(S: int, window, prefix, device) -> torch.Tensor:
+    """(S, S) bool: query i sees key j where 0 <= i - j (< window, with
+    one) or j < prefix: JAX's (causal & window) | key < prefix."""
     pos = torch.arange(S, device=device)
     gap = pos[:, None] - pos[None, :]
-    return (gap >= 0) & (gap < window)
+    mask = gap >= 0
+    if window is not None:
+        mask &= gap < window
+    return mask | (pos[None, :] < prefix)
 
 
-def attention_row(ref, kernel, q, k, v, flush, window=None) -> dict:
+def attention_row(ref, kernel, q, k, v, flush, window=None, prefix=0,
+                  tag="swa") -> dict:
     """The attention kernel's row at q, k, v: its ms, its plain version's,
     one PyTorch call's and the bound. The bound: q·kᵀ and p·v take `half`
     flop each (2·D a (query, key) pair of `attn_pairs`). On f32 inputs
@@ -3939,50 +4013,121 @@ def attention_row(ref, kernel, q, k, v, flush, window=None) -> dict:
     kernel keeps it, is two bf16 products (p_hi and p_lo; TF32 at half the
     rate gives the same time): 3·half at the bf16 rate. The library call is
     `scaled_dot_product_attention` with GQA: causal, or with the (S, S)
-    window mask on the efficient-attention backend (k and v repeated to
-    the query heads where that backend refuses GQA); a yardstick only."""
+    mask of the window or the prefix (`attn_visible`) on the
+    efficient-attention backend (k and v repeated to the query heads where
+    it refuses GQA); a yardstick only, its call named in
+    ``library_call``."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     Bq, S_, Hq, D_ = q.shape
-    half = attn_pairs(S_, window) * Bq * Hq * 2 * D_
+    half = attn_pairs(S_, window, prefix) * Bq * Hq * 2 * D_
     on_tc = 3 * half if q.dtype == torch.bfloat16 else 0
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     lib, how = None, "causal, enable_gqa"
     try:
-        if window is None:
+        if window is None and not prefix:
             lib = time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True), 10, flush)
         else:
-            mask = window_mask(S_, window, q.device)
-            how = "window mask, efficient attention, enable_gqa"
-            try:
-                with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
-                    lib = time_ms(lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, attn_mask=mask, enable_gqa=True), 10,
-                        flush)
-            except RuntimeError as e:
-                print(f"[swa] scaled_dot_product_attention with "
-                      f"enable_gqa refused ({str(e)[:120]}): k and v "
-                      f"repeated to {Hq} heads")
-                how = "window mask, efficient attention, k and v repeated"
-                G = Hq // kt.shape[1]
-                kt, vt = kt.repeat_interleave(G, 1), vt.repeat_interleave(G, 1)
-                with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
-                    lib = time_ms(lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, attn_mask=mask), 10, flush)
+            mask = attn_visible(S_, window, prefix, q.device)
+            what = "window" if window is not None else "prefix"
+            G = Hq // kt.shape[1]
+            kr, vr = kt.repeat_interleave(G, 1), vt.repeat_interleave(G, 1)
+            tries = [(kt, vt, True, "enable_gqa"),
+                     (kr, vr, False, "k and v repeated")]
+            for k_, v_, gqa, name in tries:
+                def call(k_=k_, v_=v_, gqa=gqa):
+                    return F.scaled_dot_product_attention(
+                        qt, k_, v_, attn_mask=mask, enable_gqa=gqa)
+                try:
+                    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                        lib = time_ms(call, 10, flush)
+                    how = f"{what} mask, efficient attention, {name}"
+                    break
+                except RuntimeError as e:
+                    print(f"[{tag}] scaled_dot_product_attention "
+                          f"(efficient attention, {name}) refused: "
+                          f"{str(e)[:120]}")
+            del kr, vr
     except RuntimeError as e:             # a yardstick only
         print(f"[time] scaled_dot_product_attention not timed: {e}")
         lib = None
     del qt, kt, vt
     torch.cuda.empty_cache()
     return dict(
-        ms=time_ms(lambda: kernel(q, k, v, window=window), 10, flush),
-        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, window), 3,
-                         flush),
+        ms=time_ms(lambda: kernel(q, k, v, window=window, prefix=prefix), 10,
+                   flush),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, window,
+                                                         prefix), 3, flush),
         library_ms=lib, library_call=how,
         bound=bound((2 * q.numel() + k.numel() + v.numel())
                     * q.element_size(), 0 if on_tc else 2 * half, on_tc))
+
+
+def first_stable(ops, ref, run, what, seeds=64):
+    """(seed, run(generator)) for the first seed of 0 .. seeds - 1 whose
+    reads (through ``ops.fused_read``) hold no near-tie at K
+    (`stable_reads`): rows written from zero tie (ROADMAP §C)."""
+    fused_read = ops.fused_read
+    seen = []
+
+    def record(q, mem, beta, k, *, valid_n=None, cand_idx=None,
+               mem_scale=None):
+        seen.append((q.detach().clone(), mem.detach().clone(), k, valid_n))
+        return fused_read(q, mem, beta, k, valid_n=valid_n)
+
+    for seed in range(seeds):
+        seen.clear()
+        ops.fused_read = record
+        try:
+            got = run(torch.Generator().manual_seed(seed))
+        finally:
+            ops.fused_read = fused_read
+        if stable_reads(ref, seen):
+            return seed, got
+    raise SmokeFailure(f"no token seed of 0-{seeds - 1} gives {what} no "
+                       f"read near-tie at K")
+
+
+def grads_close(p_cpu, cfg, batch, g_gpu, g_cpu, draws=1):
+    """The card's `loss_fn` gradients against the CPU's, leaf by leaf:
+    within atol NAIVE_ATOL / rtol NAIVE_RTOL, or, where a leaf is not, no
+    further than twice the CPU's own move under a one-ulp perturbation of
+    every weight (1 + 2^-24·N(0, 1)), the arbiter: the largest move over
+    ``draws`` independent perturbations. Returns (max error, [(leaf,
+    error, the CPU's own move)] of the arbitered leaves)."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.launch import steps
+    from repro_torch.models.layers import tree_map
+
+    def spread():
+        gen = torch.Generator().manual_seed(1)
+        runs = []
+        for _ in range(draws):
+            p2 = tree_map(lambda t: t * (1 + torch.randn(
+                t.shape, generator=gen) * 2 ** -24), p_cpu)
+            runs.append(pytree.tree_leaves(
+                steps.value_and_grad(p2, cfg, batch)[2]))
+        return runs
+
+    own, grad_err, arbitered = None, 0.0, []
+    leaves_c = pytree.tree_leaves(g_cpu)
+    for i, (a, b) in enumerate(zip(pytree.tree_leaves(g_gpu), leaves_c)):
+        a = a.float().cpu()
+        d = (a - b).abs()
+        grad_err = max(grad_err, d.max().item())
+        if bool((d <= NAIVE_ATOL + NAIVE_RTOL * b.abs()).all()):
+            continue
+        own = spread() if own is None else own
+        cpu_own = max((run[i] - b).abs().max().item() for run in own)
+        arbitered.append((i, d.max().item(), cpu_own))
+        require(d.max().item() <= 2 * cpu_own, f"loss gradient leaf {i}: "
+                f"card against CPU {d.max().item():.3g}, beyond atol "
+                f"{NAIVE_ATOL} / rtol {NAIVE_RTOL} and twice the CPU's own "
+                f"move under a one-ulp perturbation ({cpu_own:.3g})")
+    return grad_err, arbitered
 
 
 def swa_phase(dev, ops, ref, checker, zero_counts, counts, flush, ptxas):
@@ -4040,28 +4185,6 @@ def swa_phase(dev, ops, ref, checker, zero_counts, counts, flush, ptxas):
                                 compute_dtype="float32")
     p_cpu = lm.init_params(small, seed=0, device="cpu")
     p_gpu = tree_map(lambda t: t.to(dev), p_cpu)
-    fused_read = ops.fused_read
-    seen = []
-
-    def record(q, mem, beta, k, *, valid_n=None, cand_idx=None,
-               mem_scale=None):
-        seen.append((q.detach().clone(), mem.detach().clone(), k, valid_n))
-        return fused_read(q, mem, beta, k, valid_n=valid_n)
-
-    def first_stable(run, what):
-        """(seed, run(seed)) for the first seed whose reads are stable."""
-        for seed in range(64):
-            seen.clear()
-            ops.fused_read = record
-            try:
-                got = run(torch.Generator().manual_seed(seed))
-            finally:
-                ops.fused_read = fused_read
-            if stable_reads(ref, seen):
-                return seed, got
-        raise SmokeFailure(f"no token seed of 0-63 gives the reduced "
-                           f"Danube's {what} no read near-tie at K")
-
     def prefill_case(gen):
         toks = torch.randint(0, small.vocab_size, (2, SWA_SMALL_S),
                              generator=gen)
@@ -4073,8 +4196,10 @@ def swa_phase(dev, ops, ref, checker, zero_counts, counts, flush, ptxas):
                  for k in ("tokens", "targets")}
         return batch, steps.value_and_grad(p_cpu, small, batch)
 
-    seed, (toks_s, want) = first_stable(prefill_case, "prefill")
-    loss_seed, (batch_s, g_cpu) = first_stable(loss_case, "loss")
+    seed, (toks_s, want) = first_stable(ops, ref, prefill_case,
+                                        "the reduced Danube's prefill")
+    loss_seed, (batch_s, g_cpu) = first_stable(ops, ref, loss_case,
+                                               "the reduced Danube's loss")
     zero_counts()
     got = lm.prefill(p_gpu, small, {"tokens": toks_s.to(dev)})
     errs = {"prefill": card_close(got, want, "prefill logits")}
@@ -4097,31 +4222,8 @@ def swa_phase(dev, ops, ref, checker, zero_counts, counts, flush, ptxas):
     require(counts()["flash_attention"] == small.num_layers,
             "the loss's forward did not run the attention kernel")
     errs["loss"] = card_close(g_gpu[0], g_cpu[0], "loss")
-
-    def spread():
-        """The CPU's own gradient after a one-ulp perturbation of every
-        weight (1 + 2^-24·N(0, 1)): the arbiter of a leaf beyond the bar."""
-        gen = torch.Generator().manual_seed(1)
-        p2 = tree_map(lambda t: t * (1 + torch.randn(
-            t.shape, generator=gen) * 2 ** -24), p_cpu)
-        return pytree.tree_leaves(steps.value_and_grad(p2, small,
-                                                       batch_s)[2])
-
-    own, grad_err, arbitered = None, 0.0, []
-    leaves_c = pytree.tree_leaves(g_cpu[2])
-    for i, (a, b) in enumerate(zip(pytree.tree_leaves(g_gpu[2]), leaves_c)):
-        a = a.float().cpu()
-        d = (a - b).abs()
-        grad_err = max(grad_err, d.max().item())
-        if bool((d <= NAIVE_ATOL + NAIVE_RTOL * b.abs()).all()):
-            continue
-        own = spread() if own is None else own
-        cpu_own = (own[i] - b).abs().max().item()
-        arbitered.append((i, d.max().item(), cpu_own))
-        require(d.max().item() <= 2 * cpu_own, f"loss gradient leaf {i}: "
-                f"card against CPU {d.max().item():.3g}, beyond atol "
-                f"{NAIVE_ATOL} / rtol {NAIVE_RTOL} and twice the CPU's own "
-                f"move under a one-ulp perturbation ({cpu_own:.3g})")
+    grad_err, arbitered = grads_close(p_cpu, small, batch_s, g_gpu[2],
+                                      g_cpu[2])
     errs["grad"] = grad_err
     out.update(card_vs_cpu_err=errs, card_vs_cpu_seeds=(seed, loss_seed),
                card_vs_cpu_grad_arbitered=arbitered)
@@ -4134,7 +4236,7 @@ def swa_phase(dev, ops, ref, checker, zero_counts, counts, flush, ptxas):
           f"{errs['loss']:.3g}, gradients max {grad_err:.3g} (atol "
           f"{NAIVE_ATOL} / rtol {NAIVE_RTOL}; leaves beyond, held to twice "
           f"the CPU's own one-ulp move: {arbitered})")
-    del p_cpu, p_gpu, seen, res, got, want, g_cpu, g_gpu, own
+    del p_cpu, p_gpu, res, got, want, g_cpu, g_gpu
     torch.cuda.empty_cache()
     part("e")
 
@@ -4451,6 +4553,457 @@ def swa_phase(dev, ops, ref, checker, zero_counts, counts, flush, ptxas):
             "err": f32_err, "bf16_err": bf16_err, "swa": out}
 
 
+def filled_memory_states(cfg, batch, gen):
+    """Memory states as a served session leaves them, drawn on the CPU
+    from ``gen``: random rows, a permuted usage table, distinct read rows
+    with normalised weights, step 5 (a fresh memory's rows, written from
+    zero by one head, tie: ROADMAP §C)."""
+    from repro_torch.models import lm
+
+    m = cfg.memory
+    states = []
+    for st in lm.init_memory_states(cfg, batch, device="cpu"):
+        N = m.num_slots
+        mem = torch.randn(st.memory.shape, generator=gen)
+        mem[:, N] = 0.0
+        la = st.last_access.clone()
+        la[:, :N] = -torch.stack([torch.randperm(N, generator=gen)
+                                  for _ in range(batch)]).to(la.dtype)
+        idx = torch.stack([torch.randperm(N, generator=gen)[
+            :m.num_heads * m.k].reshape(m.num_heads, m.k)
+            for _ in range(batch)]).to(torch.int32)
+        w = torch.rand(st.read_w.shape, generator=gen)
+        states.append(st._replace(memory=mem, last_access=la, read_idx=idx,
+                                  read_w=w / w.sum(-1, keepdim=True),
+                                  step=st.step + 5))
+    return tuple(states)
+
+
+def vlm_phase(dev, ops, ref, checker, zero_counts, counts, flush, ptxas):
+    """Phase 16: the vision-language LM (PaliGemma-3B + SAM) served at full
+    width. ``ptxas`` is the attention library's `-Xptxas -v` report.
+    Returns the D = 256 attention rows with the prefix (f32 at layer 4's
+    prefill inputs, bf16 at layer 0's), their prefill launches and the
+    numbers."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import steps
+    from repro_torch.launch.engine import Request, ServeEngine
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+    from repro_torch.models.layers import tree_map
+
+    cfg = get_config(VLM_ARCH)
+    m = cfg.memory
+    P = cfg.frontend_len
+    groups = cfg.num_layers // m.every_n_layers
+    per = cfg.num_layers // groups
+    ran = groups * per            # the blocks a run with memory runs
+    segments = VLM_S // m.segment
+    require(cfg.head_dim == 256 and cfg.prefix_lm == P == 256
+            and cfg.padded_heads == 16 and cfg.num_kv_heads == 1
+            and cfg.act == "geglu" and cfg.tie_embeddings,
+            f"{VLM_ARCH}: head_dim {cfg.head_dim}, prefix {cfg.prefix_lm}, "
+            f"frontend_len {P}, heads {cfg.padded_heads} over "
+            f"{cfg.num_kv_heads}, act {cfg.act}")
+    require(ran < cfg.num_layers, f"{VLM_ARCH}: {groups} memory groups of "
+            f"{per} run {ran} of {cfg.num_layers} blocks: JAX's grouping "
+            f"leaves none out")
+    out, part_s, clock = {}, {}, [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        part_s[name] = round(now - clock[0], 1)
+        clock[0] = now
+
+    # The D = 256 instantiations: registers and spills from ptxas (phase 1
+    # holds the whole library to no spill), and the dynamic shared memory
+    # their launcher asks for: f32 q, k, v (64 × 256) and p (64 × 64) for
+    # 256 threads; bf16 q and two k and v slots, rows padded by 8.
+    lines = ptxas_summary(ptxas)
+    d256 = {("bf16" if "bf16" in line else "f32"): lines[i + 1:i + 3]
+            for i, line in enumerate(lines) if "ILi256E" in line}
+    smem = {"f32": (3 * 64 * 256 + 64 * 64) * 4, "bf16": 5 * 64 * 264 * 2}
+    require(sorted(d256) == ["bf16", "f32"] and not any(
+        re.search(r"[1-9][0-9]* bytes spill", line)
+        for r in d256.values() for line in r),
+        f"flash_attention<256> (ptxas): {d256}")
+    out["d256_ptxas"] = {k: " | ".join(v) for k, v in d256.items()}
+    out["d256_smem_bytes"] = smem
+    print("[vlm] flash_attention at D = 256: " + "; ".join(
+        f"{k}: {' | '.join(v)}, {smem[k]} B of dynamic shared memory"
+        for k, v in sorted(d256.items())))
+
+    # (e) first, the reduced config in f32 on the card against the plain
+    # versions on the CPU, in two variants: JAX's reduced config (head_dim
+    # 32, 4 heads over 2), and the same at head_dim 256 over one kv head
+    # with its 4 heads padded to 8 (4 dead heads), so that the D = 256,
+    # MQA and pad-head paths themselves are compared. Each: a prefill on
+    # patch embeddings, a decode_scan with filled memory states, one
+    # loss_fn gradient; the token seeds the first of 0-63 whose CPU reads
+    # hold no near-tie at K.
+    small_runs = {}
+    for variant, kw in (("jax", {}), ("mqa", dict(
+            head_dim=256, num_kv_heads=1, pad_head_groups=8))):
+        small = dataclasses.replace(reduced(cfg), compute_dtype="float32",
+                                    **kw)
+        p_cpu = lm.init_params(small, seed=0, device="cpu")
+        p_gpu = tree_map(lambda t: t.to(dev), p_cpu)
+        Ps, d = small.frontend_len, small.d_model
+
+        def vision_batch(gen, n, targets=False):
+            b = {"tokens": torch.randint(0, small.vocab_size,
+                                         (n, VLM_SMALL_S_T), generator=gen),
+                 "patch_embeds": torch.randn((n, Ps, d), generator=gen)}
+            if targets:
+                b["targets"] = torch.randint(0, small.vocab_size,
+                                             (n, VLM_SMALL_S_T), generator=gen)
+            return b
+
+        def prefill_case(gen):
+            b = vision_batch(gen, 2)
+            return b, lm.prefill(p_cpu, small, b)
+
+        def decode_case(gen):
+            toks = torch.randint(0, small.vocab_size, (2, VLM_SMALL_DECODE),
+                                 generator=gen)
+            states = filled_memory_states(small, 2, gen)
+            start = pytree.tree_map(lambda t: t.clone(), states)
+            cache = lm.init_cache(small, 2, VLM_SMALL_MAX_LEN, device="cpu")
+            return (toks, start), lm.decode_scan(p_cpu, small, cache, toks,
+                                                 mem_states=states)
+
+        def loss_case(gen):
+            b = vision_batch(gen, 2, targets=True)
+            return b, steps.value_and_grad(p_cpu, small, b)
+
+        what = f"the reduced PaliGemma ({variant})"
+        seeds = []
+        seed, (b_s, want) = first_stable(ops, ref, prefill_case,
+                                         what + "'s prefill")
+        seeds.append(seed)
+        zero_counts()
+        got = lm.prefill(p_gpu, small, tree_map(lambda t: t.to(dev), b_s))
+        require(counts()["flash_attention"] == small.num_layers,
+                "the reduced prefill did not run the attention kernel")
+        errs = {"prefill": card_close(got, want, f"{variant} prefill logits")}
+        seed, ((toks_d, start), want_d) = first_stable(
+            ops, ref, decode_case, what + "'s decode")
+        seeds.append(seed)
+        cache = lm.init_cache(small, 2, VLM_SMALL_MAX_LEN, device=dev)
+        got_d = lm.decode_scan(p_gpu, small, cache, toks_d.to(dev),
+                               mem_states=pytree.tree_map(
+                                   lambda t: t.to(dev), start))
+        errs["decode"] = card_close(got_d[0], want_d[0],
+                                    f"{variant} decode logits")
+        errs["cache"] = max(card_close(got_d[1][kk], want_d[1][kk], kk)
+                            for kk in ("k", "v"))
+        errs["memory"] = max(card_close(a.memory, b.memory, "memory")
+                             for a, b in zip(got_d[2], want_d[2]))
+        require(all(torch.equal(a.last_access.cpu(), b.last_access)
+                    and torch.equal(a.read_idx.cpu().sort(-1).values,
+                                    b.read_idx.sort(-1).values)
+                    for a, b in zip(got_d[2], want_d[2])),
+                f"{variant} decode: usage or read rows differ, card against "
+                f"CPU")
+        seed, (batch_l, g_cpu) = first_stable(ops, ref, loss_case,
+                                              what + "'s loss")
+        seeds.append(seed)
+        zero_counts()
+        g_gpu = steps.value_and_grad(
+            p_gpu, small, {k: v.to(dev) for k, v in batch_l.items()})
+        require(counts()["flash_attention"] == small.num_layers,
+                "the loss's forward did not run the attention kernel")
+        errs["loss"] = card_close(g_gpu[0], g_cpu[0], f"{variant} loss")
+        errs["grad"], arbitered = grads_close(p_cpu, small, batch_l,
+                                              g_gpu[2], g_cpu[2],
+                                              draws=VLM_SPREAD_DRAWS)
+        small_runs[variant] = dict(err=errs, seeds=seeds,
+                                   grad_arbitered=arbitered)
+        print(f"[vlm] reduced {VLM_ARCH} ({variant}: head_dim "
+              f"{small.head_dim}, {small.padded_heads} heads over "
+              f"{small.num_kv_heads}, prefix {small.prefix_lm}; f32) on the "
+              f"card against the CPU (token seeds {seeds}): prefill logits "
+              f"{errs['prefill']:.3g}, decode_scan of {VLM_SMALL_DECODE} "
+              f"tokens with memory states {errs['decode']:.3g}, caches "
+              f"{errs['cache']:.3g}, memory {errs['memory']:.3g} (bar "
+              f"{SLICE_TOL} of max(1, |CPU|); usage and read rows equal); "
+              f"loss {errs['loss']:.3g}, gradients max {errs['grad']:.3g} "
+              f"(atol {NAIVE_ATOL} / rtol {NAIVE_RTOL}; leaves beyond, held "
+              f"to twice the CPU's largest own move over {VLM_SPREAD_DRAWS} "
+              f"one-ulp perturbations: {arbitered})")
+        del p_cpu, p_gpu, got, want, got_d, want_d, g_cpu, g_gpu
+    out["card_vs_cpu"] = small_runs
+    torch.cuda.empty_cache()
+    part("e")
+
+    # (b) the prefill at full width on 256 patch embeddings and S - 256
+    # tokens, in lockstep: every attention launch against its plain
+    # version with the prefix, the memory kernels too. The memory groups
+    # run blocks 0-15 of 18 (JAX's grouping: ROADMAP §C).
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=dev, dtype=cfg.compute_dtype)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in pytree.tree_leaves(params))
+    out.update(params=n_params, param_bytes=param_bytes)
+    print(f"[vlm] {VLM_ARCH}: {n_params} parameters (the head tied to the "
+          f"embedding), {param_bytes} B in bf16, drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(7)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (VLM_B, VLM_S - P),
+                                     generator=gen).to(dev),
+             "patch_embeds": torch.randn((VLM_B, P, cfg.d_model),
+                                         generator=gen).to(dev)}
+    zero_counts()
+    with torch.inference_mode(), Intercept(ops, checker=checker), \
+            FlashCheck(ops, ref, keep=(0, per)) as fc:
+        logits = lm.prefill(params, cfg, batch)
+    torch.cuda.synchronize()
+    launched = counts()
+    want_counts = {name: 0 for name in launched}
+    want_counts.update({"flash_attention": ran,
+                        **{name: groups * segments for name in FORWARD}})
+    require(launched == want_counts, f"prefill launches {launched}, expected "
+            f"{want_counts}")
+    by_dtype = [str(c["dtype"])[6:] for c in fc.checks]
+    require(by_dtype == ["bfloat16"] * per + ["float32"] * (ran - per)
+            and all(c["prefix"] == P and c["window"] is None
+                    for c in fc.checks),
+            f"prefill attention launches by dtype {by_dtype}: expected "
+            f"{per} bf16, then f32, each with the prefix {P}")
+    require(logits.dtype == torch.float32
+            and logits.shape == (VLM_B, 1, cfg.vocab_size)
+            and torch.isfinite(logits).all().item(),
+            "prefill logits are not finite f32 of shape (B, 1, V)")
+    conditioned = [c for c in fc.checks if "exact_err" in c]
+    bf16_err = max(c["err"] for c in fc.checks[:per])
+    f32_err = max(c["err"] for c in fc.checks[per:])
+    out.update(prefill_launches=launched, flash_bf16_max_err=bf16_err,
+               flash_f32_max_err=f32_err,
+               flash_f32_above_tol=len(conditioned),
+               flash_f32_exact_err=max((c["exact_err"] for c in conditioned),
+                                       default=None),
+               flash_f32_plain_exact_err=max(
+                   (c["plain_exact_err"] for c in conditioned), default=None))
+    print(f"[vlm] prefill (B={VLM_B}, S={VLM_S}: {P} patch embeddings and "
+          f"{VLM_S - P} tokens, prefix {P}) in lockstep: launches "
+          f"{ {k: v for k, v in launched.items() if v} } ({per} bf16 + "
+          f"{ran - per} f32 attention launches: blocks 0-{ran - 1} of "
+          f"{cfg.num_layers}, JAX's grouping); flash against plain: bf16 max "
+          f"err {bf16_err:.3g}, f32 {f32_err:.3g}; {len(conditioned)} f32 "
+          f"launches above {FLASH_TOL}, held against f64: kernel "
+          f"{out['flash_f32_exact_err'] or 0:.3g}, plain "
+          f"{out['flash_f32_plain_exact_err'] or 0:.3g}; memory kernels: read "
+          f"err {checker.err['fused_read_sweep']:.3g}, write err "
+          f"{checker.err['sparse_write_update']:.3g}, near-ties "
+          f"{checker.near_ties}")
+    part("b")
+
+    # (a) the kernel at layer 0's (bf16) and layer 4's (f32) inputs.
+    q0, k0, v0 = fc.kept[0]
+    q4, k4, v4 = fc.kept[per]
+    del fc
+    require(q0.dtype == torch.bfloat16 and q4.dtype == torch.float32
+            and q4.shape == (VLM_B, VLM_S, cfg.padded_heads, 256)
+            and k4.shape == (VLM_B, VLM_S, 1, 256),
+            f"layer 0 ran {q0.dtype}, layer {per} {q4.dtype} "
+            f"{tuple(q4.shape)}")
+    row_f32 = attention_row(ref, flash_attention, q4, k4, v4, flush,
+                            prefix=P, tag="vlm")
+    row_bf16 = attention_row(ref, flash_attention, q0, k0, v0, flush,
+                             prefix=P, tag="vlm")
+    out["pairs"] = attn_pairs(VLM_S, prefix=P)
+    del q0, k0, v0, q4, k4, v4
+    for name, r in (("f32 (layer 4)", row_f32), ("bf16 (layer 0)", row_bf16)):
+        lib = "none" if r["library_ms"] is None else (
+            f"{r['library_ms']:.4f} ms ({r['library_call']}; "
+            f"{r['ms'] / r['library_ms']:.2f}x its time)")
+        print(f"[time] flash_attention {name} at PaliGemma's prefill (B="
+              f"{VLM_B}, S={VLM_S}, H={cfg.padded_heads} ({cfg.num_heads} "
+              f"real) over {cfg.num_kv_heads}, D=256, prefix {P}: "
+              f"{out['pairs']} (query, key) pairs a head): {r['ms']:.4f} ms "
+              f"(bound {r['bound'][0]:.4f} ms by {r['bound'][1]}: "
+              f"{r['bound'][0] / r['ms']:.1%} of it), plain "
+              f"{r['plain_ms']:.4f} ms, library {lib}")
+    part("a")
+
+    # The prefill's host ms, peak and device-busy share.
+    def prefill_run(_):
+        lm.prefill(params, cfg, batch)
+
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms, prefill_all = host_ms(prefill_run, runs=VLM_PREFILL_RUNS)
+    prefill_peak = torch.cuda.max_memory_allocated() - held
+    dev_ms, on_dev = device_time(lambda: prefill_run(None))
+    out.update(prefill_ms=prefill_ms, prefill_ms_all=prefill_all,
+               prefill_peak_bytes=prefill_peak, held_bytes=held,
+               prefill_device_ms=dev_ms or None,
+               prefill_busy_share=(dev_ms / prefill_ms) if dev_ms else None,
+               prefill_tokens_per_s=VLM_B * VLM_S / prefill_ms * 1e3)
+    print(f"[time] PaliGemma prefill (B={VLM_B}, S={VLM_S}) {prefill_ms:.1f} "
+          f"ms, median of {', '.join(f'{t:.1f}' for t in prefill_all)} "
+          f"({out['prefill_tokens_per_s']:.0f} tokens/s); peak "
+          f"{prefill_peak} B above the {held} B held ({param_bytes} B of "
+          f"weights); "
+          + (f"{dev_ms:.1f} ms of kernels ({dev_ms / prefill_ms:.1%} busy); "
+             f"by kernel (ms, launches): "
+             + "; ".join(f"{kk[:50]} {t:.1f} ({c})"
+                         for kk, t, c in on_dev[:5])
+             if dev_ms else "device time not measured (the profiler "
+             "recorded none)"))
+    del logits
+    torch.cuda.empty_cache()
+    part("b timed")
+
+    # (c) the decode with memory states: a VLM_PROMPT-token prompt (token
+    # prompts, as JAX serves PaliGemma: no image, causal from position 0),
+    # then VLM_GEN greedy tokens in lockstep. Blocks 16 and 17 run nowhere
+    # with memory states (JAX's grouping), so their cache stays zero.
+    cache = lm.init_cache(cfg, VLM_B, VLM_MAX_LEN, device=dev)
+    mem = lm.init_memory_states(cfg, VLM_B, device=dev)
+    zero_counts()
+    d_logits, cache, mem = lm.decode_scan(params, cfg, cache,
+                                          batch["tokens"][:, :VLM_PROMPT],
+                                          mem_states=mem)
+    after_prompt = counts()
+    with torch.inference_mode(), Intercept(ops, checker=checker):
+        per_token = []
+        for _ in range(VLM_GEN):
+            tok = d_logits[:, -1].float().argmax(-1).to(torch.int32)
+            zero_counts()
+            d_logits, cache, mem = lm.decode_step(params, cfg, cache,
+                                                  tok[:, None],
+                                                  mem_states=mem)
+            per_token.append(counts())
+    torch.cuda.synchronize()
+    one = {name: 0 for name in after_prompt}
+    one.update({name: groups for name in FORWARD})
+    require(after_prompt == {kk: vv * VLM_PROMPT for kk, vv in one.items()},
+            f"prompt launches {after_prompt}")
+    require(all(c == one for c in per_token), f"a decode step launched "
+            f"{[c for c in per_token if c != one][:1]}, expected {one}")
+    n_tok = VLM_PROMPT + VLM_GEN
+    require(d_logits.dtype == torch.bfloat16
+            and d_logits.shape == (VLM_B, 1, cfg.vocab_size)
+            and torch.isfinite(d_logits).all().item()
+            and int(cache["pos"]) == n_tok
+            and all(int(st.step) == n_tok for st in mem),
+            "decode: logits not finite bf16, or the position or the steps "
+            "are off")
+    require(bool(cache["k"][:ran, :, :n_tok].any())
+            and not cache["k"][ran:].any() and not cache["v"][ran:].any(),
+            f"decode with memory states: blocks {ran}-{cfg.num_layers - 1} "
+            f"wrote their cache, or blocks 0-{ran - 1} did not")
+    state = {"cache": cache, "mem": mem}
+
+    def rewind():
+        state["cache"] = {**state["cache"], "pos": torch.tensor(
+            VLM_PROMPT, dtype=torch.int32, device=dev)}
+
+    def decode_window(_, steps=VLM_GEN):
+        tok = torch.ones((VLM_B, 1), dtype=torch.int32, device=dev)
+        for _ in range(steps):
+            lg, state["cache"], state["mem"] = lm.decode_step(
+                params, cfg, state["cache"], tok, mem_states=state["mem"])
+            tok = lg[:, -1].float().argmax(-1).to(torch.int32)[:, None]
+
+    window_ms, window_all = host_ms(decode_window, runs=3, setup=rewind)
+    decode_ms = window_ms / VLM_GEN
+    rewind()
+    ddev_ms, _ = device_time(lambda: decode_window(None, PROFILE_STEPS))
+    ddev_ms /= PROFILE_STEPS
+    out.update(decode_ms_per_token=decode_ms,
+               decode_ms_per_token_all=[t / VLM_GEN for t in window_all],
+               decode_device_ms=ddev_ms or None,
+               decode_busy_share=(ddev_ms / decode_ms) if ddev_ms else None)
+    print(f"[vlm] decode_scan with memory states: {VLM_PROMPT} prompt tokens "
+          f"and {VLM_GEN} greedy ones (in lockstep), {one['fused_read_sweep']}"
+          f" read, write and LRA launches and no attention launch a token; "
+          f"the caches of blocks {ran}-{cfg.num_layers - 1} untouched (JAX's "
+          f"grouping)")
+    print(f"[time] PaliGemma decode with memory (B={VLM_B}): {decode_ms:.3f} "
+          f"ms a token on the host (windows of {VLM_GEN}: "
+          f"{', '.join(f'{t / VLM_GEN:.3f}' for t in window_all)}); "
+          + (f"{ddev_ms:.3f} ms of kernels ({ddev_ms / decode_ms:.1%} busy, "
+             f"a profiled window of {PROFILE_STEPS} steps)"
+             if ddev_ms else "device time not measured"))
+    del cache, mem, state, d_logits
+    torch.cuda.empty_cache()
+    part("c")
+
+    # The static serving driver, once: no memory states, so all 18 blocks
+    # run; no memory op and, decoding only, no attention kernel.
+    zero_counts()
+    served = serve(VLM_ARCH, use_reduced=False, batch=VLM_B,
+                   prompt_len=VLM_PROMPT, gen_len=VLM_GEN,
+                   max_len=VLM_MAX_LEN, device=dev)
+    torch.cuda.synchronize()
+    tokens = served["tokens"]
+    require(tokens.shape == (VLM_B, VLM_GEN)
+            and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+            and not any(counts().values()),
+            "serve: tokens out of shape or range, or a kernel launched")
+    out.update(serve_prefill_s=served["prefill_s"],
+               serve_decode_tok_per_s=served["decode_tok_per_s"])
+    print(f"[vlm] serve(--full, max_len {VLM_MAX_LEN}): {tuple(tokens.shape)} "
+          f"greedy tokens; prefill {served['prefill_s']:.2f} s, decode "
+          f"{served['decode_tok_per_s']:.1f} tok/s")
+    del served, tokens
+    torch.cuda.empty_cache()
+    part("serve")
+
+    # (d) the engine on VLM_LANES lanes of VLM_MAX_LEN: VLM_REQUESTS token
+    # requests, in lockstep with exact launches a step.
+    gen = torch.Generator().manual_seed(16)
+    lens = torch.randint(VLM_REQ_PROMPT[0], VLM_REQ_PROMPT[1] + 1,
+                         (VLM_REQUESTS,), generator=gen).tolist()
+    eng = ServeEngine(cfg, lanes=VLM_LANES, max_len=VLM_MAX_LEN,
+                      params=params, device=dev)
+    for i, n in enumerate(lens):
+        eng.submit(Request(user=f"user{i}", prompt=torch.randint(
+            1, cfg.vocab_size, (n,), generator=gen).tolist(),
+            max_new_tokens=VLM_REQ_GEN))
+    results, ms_a = [], []
+    with Intercept(ops, checker=checker):
+        while eng.scheduler.has_work:
+            before = eng.steps
+            zero_counts()
+            t0 = time.perf_counter()
+            results += eng.step()
+            ms_a.append((time.perf_counter() - t0) * 1e3)
+            launched = counts()
+            want_counts = {name: 0 for name in launched}
+            want_counts.update({name: groups * (eng.steps - before)
+                                for name in FORWARD})
+            require(launched == want_counts, f"engine step {before}: launches "
+                    f"{ {k: v for k, v in launched.items() if v} }")
+    require(len(results) == VLM_REQUESTS and all(
+        len(r["tokens"]) == VLM_REQ_GEN
+        and all(0 <= t < cfg.vocab_size for t in r["tokens"])
+        for r in results), "engine: requests or tokens out of count or range")
+    ms_a.sort()
+    out.update(engine_steps=eng.steps, engine_ms_per_step=ms_a[len(ms_a) // 2])
+    print(f"[vlm] engine ({VLM_LANES} lanes, max_len {VLM_MAX_LEN}): "
+          f"{VLM_REQUESTS} token requests (prompts of {VLM_REQ_PROMPT[0]}-"
+          f"{VLM_REQ_PROMPT[1]}, {VLM_REQ_GEN} new) in {eng.steps} steps in "
+          f"lockstep ({groups} read, write and LRA launches a step; median "
+          f"{ms_a[len(ms_a) // 2]:.1f} ms a step with the checks)")
+    del eng, params, batch
+    torch.cuda.empty_cache()
+    part("d")
+    out["seconds"] = part_s
+    print(f"[vlm] seconds by part: {part_s}")
+    return {"row": row_f32, "bf16_row": row_bf16,
+            "launches": {"flash_attention_vlm": ran - per,
+                         "flash_attention_vlm_bf16": per},
+            "err": f32_err, "bf16_err": bf16_err, "vlm": out}
+
+
 def small_state(s, kind, gen):
     """A small model's start state for the card-against-CPU step: an SDNC
     state with a random memory (written rows then are not parallel, so the
@@ -4552,7 +5105,7 @@ def run() -> None:
         print(f"[build] flash_attention: HMMA not counted ({hmma}); the "
               f"-Xptxas -v lines above are all there is")
     else:
-        require(len(hmma) == 10 and all(
+        require(len(hmma) == 12 and all(
                     (n > 0) == k.startswith("flash_bf16") for k, n in
                     hmma.items()),
                 f"flash_attention's SASS: HMMA counts {hmma}: the bf16 "
@@ -5772,7 +6325,16 @@ def run() -> None:
     checker.err["flash_attention_swa_bf16"] = swa["bf16_err"]
 
     mark("15")
-    # ---- 16. report ----
+    # ---- 16. the vision-language LM at PaliGemma-3B's width ----
+    vlm = vlm_phase(dev, ops, ref, checker, zero_counts, counts, flush,
+                    info["flash_attention"]["ptxas"])
+    rows["flash_attention_vlm"] = vlm["row"]
+    rows["flash_attention_vlm_bf16"] = vlm["bf16_row"]
+    checker.err["flash_attention_vlm"] = vlm["err"]
+    checker.err["flash_attention_vlm_bf16"] = vlm["bf16_err"]
+
+    mark("16")
+    # ---- 17. report ----
     lm_write = lmr["lm"]["kernels_at_lm_shapes"]["sparse_write_update"]
     above = (("lra_topn", rows["lra_topn"]), ("block", lra_block),
              ("scatter_rows 'set'", rows["scatter_rows"]),
@@ -5814,6 +6376,8 @@ def run() -> None:
                "flash_attention": lmr["launches"],
                "flash_attention_swa": swa["launches"],
                "flash_attention_swa_bf16": swa["launches"],
+               "flash_attention_vlm": vlm["launches"],
+               "flash_attention_vlm_bf16": vlm["launches"],
                "topk_read": mesh["launches"]}
     report = []
     for name, r in rows.items():
@@ -5878,7 +6442,8 @@ def run() -> None:
                       "lm": lmr["lm"], "mesh": mesh["mesh"],
                       "dnc": dnc_res, "engine": engine_res,
                       "lm_train": train_res, "stream": stream_res,
-                      "swa": swa["swa"], "phase_seconds": phase_s},
+                      "swa": swa["swa"], "vlm": vlm["vlm"],
+                      "phase_seconds": phase_s},
                      default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,12 @@
 
 ``get_config(name)`` returns the published config (a ``_sam`` suffix adds
 the default `MemoryLayerConfig`); ``reduced(cfg)`` a test-sized config of
-the same family. The port runs the dense GQA family without prefix-LM:
-StarCoder2-7B (causal, GELU MLP) and H2O-Danube3-4B (sliding window,
-gated SiLU MLP, head dim 120). Every other architecture of the JAX
-registry raises, naming the ROADMAP item that ports it.
+the same family. The port runs the dense GQA family: StarCoder2-7B
+(causal, GELU MLP), H2O-Danube3-4B (sliding window, gated SiLU MLP, head
+dim 120) and PaliGemma-3B (prefix-LM over a stubbed vision prefix, MQA
+with pad heads, GeGLU MLP, head dim 256, tied embeddings). Every other
+architecture of the JAX registry raises, naming the ROADMAP item that
+ports it.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ ARCH_IDS = (
     "paligemma_3b",
     "hymba_1_5b",
 )
-PORTED = ("starcoder2_7b", "h2o_danube_3_4b")
+PORTED = ("starcoder2_7b", "h2o_danube_3_4b", "paligemma_3b")
 # What each architecture the port does not run yet needs (ROADMAP §A).
 NOT_PORTED = {
     "rwkv6_7b": "A9c (the RWKV block)",
@@ -37,7 +39,6 @@ NOT_PORTED = {
     "musicgen_medium": "A9c (the audio frontend)",
     "deepseek_v2_236b": "A9c (MLA and MoE)",
     "llama4_maverick_400b_a17b": "A9c (MoE)",
-    "paligemma_3b": "A9c (prefix-LM and the vision frontend)",
     "hymba_1_5b": "A9c (the hybrid SSM block)",
 }
 
@@ -60,14 +61,18 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     """Test-sized config of the same family (`repro/configs/__init__.py::
     reduced` for the families the port runs): 2 layers, d 128, 4 heads
     over 2 kv heads, head_dim 32, no head padding, a window of 32 where
-    the config has one, and a memory of 64 slots of 16 with K = 4, a
-    memory group per layer and segments of 32."""
+    the config has one, a vision prefix of 16 (``frontend_len`` and
+    ``prefix_lm``) where it has one, and a memory of 64 slots of 16 with
+    K = 4, a memory group per layer and segments of 32."""
     kw = dict(
         num_layers=2, d_model=128, num_heads=4, num_kv_heads=2, head_dim=32,
         d_ff=256, vocab_size=512, q_block=64, kv_block=64, loss_chunk=64,
         remat=False, pad_head_groups=None)
     if cfg.window is not None:
         kw["window"] = 32
+    if cfg.frontend == "vision":
+        kw["frontend_len"] = 16
+        kw["prefix_lm"] = 16
     if cfg.memory is not None:
         kw["memory"] = dataclasses.replace(
             cfg.memory, num_slots=64, word_size=16, k=4, every_n_layers=1,

@@ -239,7 +239,9 @@ def _tree(tree, device):
 def lm_params_from_jax(tree, *, device="cuda"):
     """A JAX LM weight tree (`repro.models.lm.init_params`) -> the port's,
     leaf for leaf in the same layout and dtype (stacked ``blocks`` (L, ...)
-    and ``memory`` (groups, ...), ``embed``, ``final_norm``, ``lm_head``).
+    and ``memory`` (groups, ...), ``embed``, ``final_norm``, ``lm_head``;
+    no ``lm_head`` where the head is tied to the embedding, PaliGemma's,
+    whose pad heads are leaves of ``wq`` and ``wo`` like the others).
     Raises on any other group."""
     unknown = set(tree) - set(_LM_GROUPS)
     if unknown or not {"embed", "blocks", "final_norm"} <= set(tree):

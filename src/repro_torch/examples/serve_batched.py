@@ -1,11 +1,13 @@
 """Batched serving: decode a static batch of requests against a KV cache,
 the port of the JAX package's `examples/serve_batched.py`, for the
-families the port runs (dense GQA: StarCoder2-7B, and H2O-Danube3-4B with
-its sliding window and ring cache). Another architecture raises the
-registry's error, naming the ROADMAP item that ports it.
+families the port runs (dense GQA: StarCoder2-7B, H2O-Danube3-4B with its
+sliding window and ring cache, and PaliGemma-3B served with token prompts
+as JAX serves it). Another architecture raises the registry's error,
+naming the ROADMAP item that ports it.
 
     python -m repro_torch.examples.serve_batched --full
     python -m repro_torch.examples.serve_batched --arch h2o_danube_3_4b --full
+    python -m repro_torch.examples.serve_batched --arch paligemma_3b --full
     python -m repro_torch.examples.serve_batched --device cpu
 
 serve the published width on the card (the default device) or the reduced

@@ -29,7 +29,20 @@
 // multiplies by 0. The sums are the same; the kernel never forms
 // exp2 of the f32 residue of -1e30·scale.
 //
-// Head dims: D in 16, 32, 64, 128 use tiles of D columns; D = 120
+// The prefix (a launch argument P, 0 for none; PaliGemma's prefix-LM) is
+// `chunked_attention(prefix_len=)`'s (attention.py:149-150): every query
+// sees the keys below P, so the mask is (causal & window) | key < P and
+// the rows of [0, P) attend to each other both ways. The launcher clamps
+// P to S, so a key past S is never unmasked: it lies past every row and
+// at or past P. With a prefix the key loop starts at tile 0 (the prefix
+// lies before any window) and ends at the tile that holds key
+// max(q0 + 63, P - 1), past the diagonal for the rows inside the prefix;
+// a launch then does Σ_q max(q + 1, P) pairs (no config has both a window
+// and a prefix; the semantics are JAX's all the same). A tile wholly
+// below P needs no mask; one that P cuts, the diagonal, any tile past it
+// and one the window's edge crosses are masked key by key.
+//
+// Head dims: D in 16, 32, 64, 128, 256 use tiles of D columns; D = 120
 // (H2O-Danube3) runs in the D = 128 tile (DP, `pad_dim`) with a zero tail:
 // the chunks of a row at or past D are zero-filled by cp.async (src-size
 // 0), the global row stride stays H·D, and output columns D .. 127 are
@@ -37,6 +50,8 @@
 // stay 16-byte aligned. The zero tail adds nothing to q·kᵀ; the f32 q·kᵀ
 // stops at D, the bf16 one runs the last 16-wide k-slice half on zeros,
 // and the bf16 p·v skips the output n-tile that lies wholly in the tail.
+// D = 256 (PaliGemma) does not fit the narrower tiles' registers; its
+// changes are under each kernel below.
 //
 // What bounds it on the H100: operations. Let half = S(S+1)/2 · B·H · 2D,
 // the flop of q·kᵀ over the causal half (1.03e11 at B = 4, S = 2048,
@@ -63,7 +78,12 @@
 // the softmax between a warp's products, and mma.sync does not reach the
 // tensor cores' full rate; then the 4e8 exp2 of the causal half on the
 // SFUs (about 0.1 ms). wgmma with TMA and warp specialisation is the next
-// design.
+// design. At D = 256 q's 16 k-slices (64 registers) and the 32 output
+// n-tiles (128) would not fit beside the scores, so q stays in shared
+// memory and each k-slice's A fragment is loaded (ldmatrix) where it is
+// used, and a 64-key tile is taken as two sub-tiles of 32 keys (16
+// scores a thread, each sub-tile its own online-softmax step); the five
+// tiles take 165 KB, one block (four warps) an SM.
 //
 // f32 inputs (`flash_f32_kernel`): f32 FMAs on the CUDA cores, 2·half at
 // 67 TFLOP/s (3.08 ms). TF32's 10-bit mantissa cannot hold the JAX suite's
@@ -77,26 +97,48 @@
 // k of tile t+1 while p·v runs. 112 KB a block at D = 128, two blocks an
 // SM. What holds it back: the FMAs share the issue slots with the shared
 // loads, addresses and the softmax, with two warps an SMSP (246
-// registers a thread) to hide latency.
+// registers a thread) to hide latency. At D = 256 a thread of the 128
+// would hold 8 rows × 16 output columns (128 accumulators) and spill, so
+// the block has 256 threads (`TileF32::NT`): thread (ty, tx), ty < 16,
+// owns rows ty + 16i (i < 4), their scores against keys tx + 16j and 16
+// output columns (64 accumulators). Its q, k, v and p take 208 KB, one
+// block (eight warps) an SM.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kBQ = 64;          // query rows per block
-constexpr int kThreads = 128;    // four warps
+constexpr int kThreads = 128;    // four warps (the f32 kernel at D = 256: 8)
 constexpr float kNeg = -1e30f;   // the TPU kernel's mask value
 
 // The tile width of head dim D: D itself, or 128 for D = 120.
 constexpr int pad_dim(int D) { return D == 120 ? 128 : D; }
 
 __host__ __device__ constexpr bool head_dim_ok(int D) {
-  return D == 16 || D == 32 || D == 64 || D == 120 || D == 128;
+  return D == 16 || D == 32 || D == 64 || D == 120 || D == 128 || D == 256;
 }
 
 // Whether key `key` is hidden from query row `row` (both absolute):
-// causal, or outside a window of `win` keys (`win` > S when there is none).
-__device__ __forceinline__ bool masked(int row, int key, int win) {
-  return key > row || row - key >= win;
+// causal, or outside a window of `win` keys (`win` > S when there is
+// none), and not in the prefix [0, pre).
+__device__ __forceinline__ bool masked(int row, int key, int win, int pre) {
+  return (key > row || row - key >= win) && key >= pre;
+}
+
+// The key tiles a block of query rows [q0, q0 + 64) (tile iq) walks, kt0
+// .. kt1: from the window's first (0 with a prefix: it lies before any
+// window) to the diagonal, or to the tile of the prefix's last key.
+__device__ __forceinline__ void key_tiles(int q0, int iq, int win, int pre,
+                                          int& kt0, int& kt1) {
+  kt0 = pre > 0 ? 0 : max(0, q0 - win + 1) / kBQ;
+  kt1 = pre > 0 ? max(iq, (pre - 1) / kBQ) : iq;
+}
+
+// Whether tile k0 .. k0 + 63 needs the mask for the rows [q0, q0 + 64):
+// not where every key lies in the prefix; else the diagonal, a tile past
+// it, and a tile the window's edge crosses.
+__device__ __forceinline__ bool edge_tile(int q0, int k0, int win, int pre) {
+  return k0 + kBQ > pre && (k0 >= q0 || q0 + kBQ - 1 - k0 >= win);
 }
 
 // ---- cp.async, ldmatrix, mma.sync ----
@@ -186,15 +228,15 @@ __device__ __forceinline__ unsigned short to_bf16(float x) {
 // Rows [0, R) of a (·, row_stride) input of D columns from `src` into a
 // shared tile of DP columns by 16-byte cp.async; rows at or past `valid`
 // (at least 1) and columns at or past D are zero. Chunk `ch` of row `r`
-// goes to element `at(r, ch)` of `dst`. Each thread keeps one chunk column
-// and walks the rows kThreads / (DP / V) apart.
-template <typename T, int R, int D, int DP, typename At>
+// goes to element `at(r, ch)` of `dst`. Each of the block's NT threads
+// keeps one chunk column and walks the rows NT / (DP / V) apart.
+template <typename T, int R, int D, int DP, int NT = kThreads, typename At>
 __device__ __forceinline__ void load_rows(T* dst, const T* src,
                                           long long row_stride, int valid,
                                           At at) {
   constexpr int V = 16 / sizeof(T), PER_ROW = DP / V;
-  constexpr int STEP = kThreads / PER_ROW;
-  static_assert(kThreads % PER_ROW == 0 && R % STEP == 0 && D % V == 0,
+  constexpr int STEP = NT / PER_ROW;
+  static_assert(NT % PER_ROW == 0 && R % STEP == 0 && D % V == 0,
                 "tile shape");
   const int ch = threadIdx.x % PER_ROW, r0 = threadIdx.x / PER_ROW;
   const bool col = ch * V < D;
@@ -217,19 +259,28 @@ struct TileBF16 {
   static constexpr int LD = DP + 8;           // bf16 elements a padded row
   static constexpr int TILE = kBQ * LD;       // one 64-row tile
   static constexpr int SMEM = 5 * TILE * 2;   // q, k ×2, v ×2
+  // q's A fragments held in registers for the whole key loop (D <= 128),
+  // or loaded from shared memory per k-slice (D = 256).
+  static constexpr bool KEEP_Q = DP <= 128;
+  static constexpr int BLOCKS = DP <= 128 ? 2 : 1;   // an SM
+  // A 64-key tile's compute in NSUB sub-tiles of SUBK keys, KN n-tiles.
+  static constexpr int NSUB = DP <= 128 ? 1 : 2;
+  static constexpr int SUBK = kBQ / NSUB, KN = SUBK / 8;
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, TileBF16<D>::BLOCKS)
 flash_bf16_kernel(const unsigned short* __restrict__ q,
                   const unsigned short* __restrict__ k,
                   const unsigned short* __restrict__ v,
                   unsigned short* __restrict__ o, int S, int H, int Hkv,
-                  int win, float scale_log2) {
+                  int win, int pre, float scale_log2) {
   using Sh = TileBF16<D>;
   constexpr int DP = Sh::DP, LD = Sh::LD, TILE = Sh::TILE;
   constexpr int KD = DP / 16;                 // k-slices of q·kᵀ
   constexpr int NO = D / 8;                   // n-tiles of the output
+  constexpr bool KEEP_Q = Sh::KEEP_Q;
+  constexpr int NSUB = Sh::NSUB, SUBK = Sh::SUBK, KN = Sh::KN;
   extern __shared__ __align__(16) unsigned short smem_bf[];
   unsigned short* Qs = smem_bf;               // [64][LD]
   unsigned short* Ks = Qs + TILE;             // 2 × [64][LD]
@@ -245,7 +296,8 @@ flash_bf16_kernel(const unsigned short* __restrict__ q,
   const unsigned short* k_rows = k + ((long long)b * S * Hkv + hk) * D;
   const unsigned short* v_rows = v + ((long long)b * S * Hkv + hk) * D;
   const int q0 = iq * kBQ;
-  const int kt0 = max(0, q0 - win + 1) / kBQ;  // the window's first tile
+  int kt0, kt1;
+  key_tiles(q0, iq, win, pre, kt0, kt1);
 
   const auto padded = [](int r, int ch) { return r * LD + ch * 8; };
   load_rows<unsigned short, kBQ, D, DP>(Qs, q_rows + q0 * q_stride, q_stride,
@@ -262,7 +314,7 @@ flash_bf16_kernel(const unsigned short* __restrict__ q,
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[n][c] = 0.0f;
   float m[2] = {kNeg, kNeg}, l[2] = {0.0f, 0.0f};   // rows g, g + 8
-  unsigned qf[KD][4];
+  unsigned qf[KEEP_Q ? KD : 1][4];
   const int row_a = warp * 16 + g, row_b = row_a + 8;   // in the tile
   // Each lane's ldmatrix row addresses (bytes): q's A fragments (rows
   // warp·16 + l%16, columns 8·(l/16)); k's B fragments (keys l%8 + 8·(l/16),
@@ -275,11 +327,11 @@ flash_bf16_kernel(const unsigned short* __restrict__ q,
   const unsigned v_lane = smem_addr(Vs) +
       2 * (((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + ((lane >> 4) << 3));
 
-  for (int kt = kt0; kt <= iq; ++kt) {
+  for (int kt = kt0; kt <= kt1; ++kt) {
     const int slot = (kt - kt0) & 1, k0 = kt * kBQ;
     cp_async_wait_all();
     __syncthreads();        // tile kt is in; every read of tile kt-1 done
-    if (kt < iq) {          // tile kt+1 into the other half of the ring
+    if (kt < kt1) {         // tile kt+1 into the other half of the ring
       const int k1 = k0 + kBQ;
       load_rows<unsigned short, kBQ, D, DP>(Ks + (slot ^ 1) * TILE,
                                             k_rows + k1 * kv_stride,
@@ -289,95 +341,108 @@ flash_bf16_kernel(const unsigned short* __restrict__ q,
                                             kv_stride, S - k1, padded);
       cp_async_commit();
     }
-    if (kt == kt0) {
+    if constexpr (KEEP_Q) {
+      if (kt == kt0) {
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk) ldmatrix_x4(qf[kk], q_lane + 32 * kk);
+        for (int kk = 0; kk < KD; ++kk) ldmatrix_x4(qf[kk], q_lane + 32 * kk);
+      }
     }
     const unsigned kt_lane = k_lane + slot * TILE * 2;
     const unsigned vt_lane = v_lane + slot * TILE * 2;
+    const bool edge = edge_tile(q0, k0, win, pre);
 
-    // s = q·kᵀ: 8 n-tiles of 8 keys; C fragment c0,c1 = row g, keys
-    // 8j + 2t, +1; c2,c3 = row g + 8.
-    float s[8][4];
+    // The tile's keys in NSUB sub-tiles of SUBK, each through q·kᵀ, the
+    // online softmax and p·v in turn (one at D <= 128; two of 32 keys at
+    // D = 256, whose 128 accumulators leave no room for 64 scores).
+#pragma unroll 1
+    for (int sub = 0; sub < NSUB; ++sub) {
+      const int kb = sub * SUBK;               // the sub-tile's first key
+      // s = q·kᵀ: KN n-tiles of 8 keys; C fragment c0,c1 = row g, keys
+      // 8j + 2t, +1; c2,c3 = row g + 8.
+      float s[KN][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < KN; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[j][c] = 0.0f;
+        for (int c = 0; c < 4; ++c) s[j][c] = 0.0f;
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
+      for (int kk = 0; kk < KD; ++kk) {
+        unsigned (&a)[4] = qf[KEEP_Q ? kk : 0];
+        if constexpr (!KEEP_Q) ldmatrix_x4(a, q_lane + 32 * kk);
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {      // keys 16np .. 16np + 15
-        unsigned bk[4];
-        ldmatrix_x4(bk, kt_lane + 2 * (16 * np * LD + 16 * kk));
-        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+        for (int np = 0; np < KN / 2; ++np) {  // keys kb + 16np .. + 15
+          unsigned bk[4];
+          ldmatrix_x4(bk, kt_lane + 2 * ((kb + 16 * np) * LD + 16 * kk));
+          mma_bf16(s[2 * np], a, bk[0], bk[1]);
+          mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
+        }
       }
-    }
-    // The diagonal tile, and a tile the window's edge crosses.
-    if (kt == iq || q0 + kBQ - 1 - k0 >= win) {
-      const int ra = q0 + row_a, rb = q0 + row_b;
+      if (edge) {
+        const int ra = q0 + row_a, rb = q0 + row_b;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int key = k0 + 8 * j + 2 * t;
-        if (masked(ra, key, win)) s[j][0] = kNeg;
-        if (masked(ra, key + 1, win)) s[j][1] = kNeg;
-        if (masked(rb, key, win)) s[j][2] = kNeg;
-        if (masked(rb, key + 1, win)) s[j][3] = kNeg;
+        for (int j = 0; j < KN; ++j) {
+          const int key = k0 + kb + 8 * j + 2 * t;
+          if (masked(ra, key, win, pre)) s[j][0] = kNeg;
+          if (masked(ra, key + 1, win, pre)) s[j][1] = kNeg;
+          if (masked(rb, key, win, pre)) s[j][2] = kNeg;
+          if (masked(rb, key + 1, win, pre)) s[j][3] = kNeg;
+        }
       }
-    }
 
-    // Online softmax in registers: a row's 64 scores lie in one quad.
-    float mx[2] = {kNeg, kNeg};
+      // Online softmax in registers: a row's scores lie in one quad.
+      float mx[2] = {kNeg, kNeg};
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-    }
-    float corr[2], ms[2], sum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      corr[r] = exp2_ftz((m[r] - m_new) * scale_log2);
-      ms[r] = m_new == kNeg ? 0.0f : m_new * scale_log2;  // all masked: p = 0
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[j][c] = exp2_ftz(fmaf(s[j][c], scale_log2, -ms[c >> 1]));
-        sum[c >> 1] += s[j][c];
+      for (int j = 0; j < KN; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
       }
-    }
+      float corr[2], ms[2], sum[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        corr[r] = exp2_ftz((m[r] - m_new) * scale_log2);
+        ms[r] = m_new == kNeg ? 0.0f : m_new * scale_log2;  // all masked
+        m[r] = m_new;
+      }
 #pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      acc[n][0] *= corr[0]; acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1]; acc[n][3] *= corr[1];
-    }
+      for (int j = 0; j < KN; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[j][c] = exp2_ftz(fmaf(s[j][c], scale_log2, -ms[c >> 1]));
+          sum[c >> 1] += s[j][c];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        acc[n][0] *= corr[0]; acc[n][1] *= corr[0];
+        acc[n][2] *= corr[1]; acc[n][3] *= corr[1];
+      }
 
-    // acc += p_hi·v + p_lo·v over keys 16kv .. 16kv + 15: the C fragments
-    // of n-tiles 2kv and 2kv + 1 are the A fragment of that key slice. An
-    // output n-tile wholly in the zero tail (D = 120: n-tile 15) is skipped.
+      // acc += p_hi·v + p_lo·v over keys kb + 16kv .. + 15: the C
+      // fragments of n-tiles 2kv and 2kv + 1 are the A fragment of that
+      // key slice. An output n-tile wholly in the zero tail (D = 120:
+      // n-tile 15) is skipped.
 #pragma unroll
-    for (int kv = 0; kv < 4; ++kv) {
-      unsigned ph[4], pl[4];
-      split_bf16(s[2 * kv][0], s[2 * kv][1], ph[0], pl[0]);
-      split_bf16(s[2 * kv][2], s[2 * kv][3], ph[1], pl[1]);
-      split_bf16(s[2 * kv + 1][0], s[2 * kv + 1][1], ph[2], pl[2]);
-      split_bf16(s[2 * kv + 1][2], s[2 * kv + 1][3], ph[3], pl[3]);
+      for (int kv = 0; kv < KN / 2; ++kv) {
+        unsigned ph[4], pl[4];
+        split_bf16(s[2 * kv][0], s[2 * kv][1], ph[0], pl[0]);
+        split_bf16(s[2 * kv][2], s[2 * kv][3], ph[1], pl[1]);
+        split_bf16(s[2 * kv + 1][0], s[2 * kv + 1][1], ph[2], pl[2]);
+        split_bf16(s[2 * kv + 1][2], s[2 * kv + 1][3], ph[3], pl[3]);
 #pragma unroll
-      for (int dp = 0; dp < DP / 16; ++dp) {  // columns 16dp .. 16dp + 15
-        unsigned bv[4];
-        ldmatrix_x4_trans(bv, vt_lane + 2 * (16 * kv * LD + 16 * dp));
-        mma_bf16(acc[2 * dp], ph, bv[0], bv[1]);
-        mma_bf16(acc[2 * dp], pl, bv[0], bv[1]);
-        if (2 * dp + 1 < NO) {
-          mma_bf16(acc[2 * dp + 1], ph, bv[2], bv[3]);
-          mma_bf16(acc[2 * dp + 1], pl, bv[2], bv[3]);
+        for (int dp = 0; dp < DP / 16; ++dp) {  // columns 16dp .. + 15
+          unsigned bv[4];
+          ldmatrix_x4_trans(bv,
+                            vt_lane + 2 * ((kb + 16 * kv) * LD + 16 * dp));
+          mma_bf16(acc[2 * dp], ph, bv[0], bv[1]);
+          mma_bf16(acc[2 * dp], pl, bv[0], bv[1]);
+          if (2 * dp + 1 < NO) {
+            mma_bf16(acc[2 * dp + 1], ph, bv[2], bv[3]);
+            mma_bf16(acc[2 * dp + 1], pl, bv[2], bv[3]);
+          }
         }
       }
     }
@@ -416,6 +481,10 @@ struct TileF32 {
   static constexpr int CW = DP >= 64 ? 4 : DP / 16; // output columns a load
   static constexpr int NG = DP / (16 * CW);         // loads a row
   static constexpr int TILE = kBQ * DP;             // one 64-row tile
+  static constexpr int NT = DP > 128 ? 256 : kThreads;  // threads a block
+  static constexpr int TY = NT / 16;                // row groups
+  static constexpr int RI = kBQ / TY;               // rows a thread
+  static constexpr int BLOCKS = DP > 128 ? 1 : 2;   // an SM
   // q, one k and one v slot, p (64 × 64, swizzled as D = 64)
   static constexpr int SMEM = (3 * TILE + kBQ * kBQ) * 4;
 };
@@ -426,21 +495,21 @@ __device__ __forceinline__ int swz(int r, int c) {   // element (r, c)
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(TileF32<D>::NT, TileF32<D>::BLOCKS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int S,
-                 int H, int Hkv, int win, float scale_log2) {
+                 int H, int Hkv, int win, int pre, float scale_log2) {
   using Sh = TileF32<D>;
   constexpr int DP = Sh::DP, SW = Sh::SW, CW = Sh::CW, NG = Sh::NG;
-  constexpr int TILE = Sh::TILE;
+  constexpr int TILE = Sh::TILE, NT = Sh::NT, TY = Sh::TY, RI = Sh::RI;
   extern __shared__ __align__(16) float smem_f[];
   float* Qs = smem_f;                // [64][DP]
   float* Ks = Qs + TILE;             // [64][DP]: k of tile t
   float* Vs = Ks + TILE;             // [64][DP]: v of tile t
   float* Ps = Vs + TILE;             // [64][64]
 
-  // Thread (ty, tx) owns rows ty + 8i (i < 8): their scores against keys
-  // tx + 16j (j < 4), their softmax state, and their output columns
+  // Thread (ty, tx) owns rows ty + TY·i (i < RI): their scores against
+  // keys tx + 16j (j < 4), their softmax state, and their output columns
   // g·16·CW + tx·CW + c. The 16 lanes of a half warp share the rows.
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tx = lane & 15, ty = warp * 2 + (lane >> 4);
@@ -452,18 +521,19 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* k_rows = k + ((long long)b * S * Hkv + hk) * D;
   const float* v_rows = v + ((long long)b * S * Hkv + hk) * D;
   const int q0 = iq * kBQ;
-  const int kt0 = max(0, q0 - win + 1) / kBQ;  // the window's first tile
+  int kt0, kt1;
+  key_tiles(q0, iq, win, pre, kt0, kt1);
 
   const auto swizzled = [](int r, int ch) { return swz<DP, SW>(r, 4 * ch); };
-  load_rows<float, kBQ, D, DP>(Qs, q_rows + q0 * q_stride, q_stride, S - q0,
-                               swizzled);
-  load_rows<float, kBQ, D, DP>(Ks, k_rows + kt0 * kBQ * kv_stride, kv_stride,
-                               S - kt0 * kBQ, swizzled);
+  load_rows<float, kBQ, D, DP, NT>(Qs, q_rows + q0 * q_stride, q_stride,
+                                   S - q0, swizzled);
+  load_rows<float, kBQ, D, DP, NT>(Ks, k_rows + kt0 * kBQ * kv_stride,
+                                   kv_stride, S - kt0 * kBQ, swizzled);
   cp_async_commit();
 
-  float m[8], l[8], acc[8][NG][CW];
+  float m[RI], l[RI], acc[RI][NG][CW];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < RI; ++i) {
     m[i] = kNeg;
     l[i] = 0.0f;
 #pragma unroll
@@ -471,40 +541,40 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < CW; ++c) acc[i][gg][c] = 0.0f;
   }
-  // Row ty + 8i has (row & SW) == (ty & SW) and key tx + 16j has
-  // (key & SW) == (tx & SW): each thread's swizzle is one constant.
+  // Row ty + TY·i has (row & SW) == (ty & SW) (TY is a multiple of 8) and
+  // key tx + 16j has (key & SW) == (tx & SW): each thread's swizzle is one
+  // constant.
   const float* q_base = Qs + ty * DP;
   const float* k_base = Ks + tx * DP;
   const int qx = ty & SW, kx = tx & SW;
 
-  for (int kt = kt0; kt <= iq; ++kt) {
+  for (int kt = kt0; kt <= kt1; ++kt) {
     const int k0 = kt * kBQ;
-    // The diagonal tile, and a tile the window's edge crosses.
-    const bool edge = kt == iq || q0 + kBQ - 1 - k0 >= win;
+    const bool edge = edge_tile(q0, k0, win, pre);
     cp_async_wait_all();
     __syncthreads();        // k of tile kt is in; p·v of tile kt-1 done
-    load_rows<float, kBQ, D, DP>(Vs, v_rows + k0 * kv_stride, kv_stride,
-                                 S - k0, swizzled);
+    load_rows<float, kBQ, D, DP, NT>(Vs, v_rows + k0 * kv_stride, kv_stride,
+                                     S - k0, swizzled);
     cp_async_commit();
 
-    float s[8][4];
+    float s[RI][4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
 #pragma unroll 2
     for (int c = 0; c < D / 4; ++c) {       // the zero tail is left out
-      float4 qv[8], kv[4];
+      float4 qv[RI], kv[4];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(q_base + 8 * i * DP +
+      for (int i = 0; i < RI; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(q_base + TY * i * DP +
                                                  ((c ^ qx) << 2));
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         kv[j] = *reinterpret_cast<const float4*>(k_base + 16 * j * DP +
                                                  ((c ^ kx) << 2));
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
@@ -518,14 +588,15 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // reduce its max by shuffles, each keeps its part of the row's sum
     // (summed across the lanes at the end); the scale is folded into
     // exp2. p goes to shared memory, swizzled as a 64-wide tile.
-    float corr[8];
+    float corr[RI];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int row = ty + 8 * i;
+    for (int i = 0; i < RI; ++i) {
+      const int row = ty + TY * i;
       float mx = kNeg;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        if (edge && masked(q0 + row, k0 + tx + 16 * j, win)) s[i][j] = kNeg;
+        if (edge && masked(q0 + row, k0 + tx + 16 * j, win, pre))
+          s[i][j] = kNeg;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -546,27 +617,27 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     cp_async_wait_all();
     __syncthreads();        // v of tile kt is in, p is whole, k is read
-    if (kt < iq) {          // k of tile kt+1 into the k slot
+    if (kt < kt1) {         // k of tile kt+1 into the k slot
       const int k1 = k0 + kBQ;
-      load_rows<float, kBQ, D, DP>(Ks, k_rows + k1 * kv_stride, kv_stride,
-                                   S - k1, swizzled);
+      load_rows<float, kBQ, D, DP, NT>(Ks, k_rows + k1 * kv_stride,
+                                       kv_stride, S - k1, swizzled);
       cp_async_commit();
     }
 
     // acc[row, col] = acc · corr + Σ_key p[row, key] · v[key, col].
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int gg = 0; gg < NG; ++gg)
 #pragma unroll
         for (int c = 0; c < CW; ++c) acc[i][gg][c] *= corr[i];
 #pragma unroll 2
     for (int j = 0; j < kBQ / 4; ++j) {   // keys 4j .. 4j + 3
-      float4 pv[8];
+      float4 pv[RI];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < RI; ++i)
         pv[i] = *reinterpret_cast<const float4*>(
-            Ps + (ty + 8 * i) * kBQ + ((j ^ (ty & 7)) << 2));
+            Ps + (ty + TY * i) * kBQ + ((j ^ (ty & 7)) << 2));
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         const int key = 4 * j + jj;
@@ -585,7 +656,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
           }
         }
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
+        for (int i = 0; i < RI; ++i) {
           const float p = jj == 0 ? pv[i].x : jj == 1 ? pv[i].y
                         : jj == 2 ? pv[i].z : pv[i].w;
 #pragma unroll
@@ -599,11 +670,11 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < RI; ++i) {
 #pragma unroll
     for (int off = 8; off > 0; off >>= 1)
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
-    const int row = q0 + ty + 8 * i;
+    const int row = q0 + ty + TY * i;
     if (row >= S) continue;
     const float denom = fmaxf(l[i], 1e-20f);
     float* dst = o + (((long long)b * S + row) * H + h) * D;
@@ -620,7 +691,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ---- launchers ----
 
 // Both kernels ask for the whole 228 KB of an SM as shared memory, so two
-// blocks fit.
+// blocks fit (one at D = 256).
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, int smem) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -633,13 +704,15 @@ cudaError_t prepare(Kernel kernel, int smem) {
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int Hkv, int dtype, int window, float scale,
-           cudaStream_t stream) {
+           int S, int H, int Hkv, int dtype, int window, int prefix,
+           float scale, cudaStream_t stream) {
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
   // exp(x·scale) = 2^(x·scale·log2 e)
   const float scale_log2 = scale * 1.4426950408889634f;
   // No window, or one that reaches every key: a width no row - key meets.
   const int win = window > 0 && window < S ? window : S + kBQ;
+  // A prefix past S unmasks nothing more than S does (and no key past S).
+  const int pre = prefix < S ? prefix : S;
   if (dtype == 1) {
     const cudaError_t err = prepare(flash_bf16_kernel<D>, TileBF16<D>::SMEM);
     if (err != cudaSuccess) return (int)err;
@@ -647,14 +720,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
         static_cast<const unsigned short*>(q),
         static_cast<const unsigned short*>(k),
         static_cast<const unsigned short*>(v),
-        static_cast<unsigned short*>(o), S, H, Hkv, win, scale_log2);
+        static_cast<unsigned short*>(o), S, H, Hkv, win, pre, scale_log2);
   } else {
     const cudaError_t err = prepare(flash_f32_kernel<D>, TileF32<D>::SMEM);
     if (err != cudaSuccess) return (int)err;
-    flash_f32_kernel<D><<<grid, kThreads, TileF32<D>::SMEM, stream>>>(
+    flash_f32_kernel<D><<<grid, TileF32<D>::NT, TileF32<D>::SMEM, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), S, H, Hkv, win,
-        scale_log2);
+        pre, scale_log2);
   }
   return (int)cudaGetLastError();
 }
@@ -665,23 +738,30 @@ extern "C" {
 
 // q, o: (B, S, H, D); k, v: (B, S, Hkv, D), all contiguous and 16-byte
 // aligned, of one dtype: code 0 = f32, 1 = bf16 (`_build.ROW_CODE`).
-// D is 16, 32, 64, 120 or 128, and Hkv divides H. window >= 1 hides the
-// keys with pos_q - pos_k >= window; 0 means none.
+// D is 16, 32, 64, 120, 128 or 256, and Hkv divides H. window >= 1 hides
+// the keys with pos_q - pos_k >= window; 0 means none. prefix >= 1 shows
+// every query the keys below it; 0 means none.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int S, int H, int Hkv, int D,
-                           int dtype, int window, float scale, void* stream) {
+                           int dtype, int window, int prefix, float scale,
+                           void* stream) {
   if (B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 || B * H > 65535 ||
-      (dtype != 0 && dtype != 1) || window < 0)
+      (dtype != 0 && dtype != 1) || window < 0 || prefix < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FLASH_CASE(d) \
+  case d: return launch<d>(q, k, v, o, B, S, H, Hkv, dtype, window, prefix, \
+                           scale, s);
   switch (D) {
-    case 16: return launch<16>(q, k, v, o, B, S, H, Hkv, dtype, window, scale, s);
-    case 32: return launch<32>(q, k, v, o, B, S, H, Hkv, dtype, window, scale, s);
-    case 64: return launch<64>(q, k, v, o, B, S, H, Hkv, dtype, window, scale, s);
-    case 120: return launch<120>(q, k, v, o, B, S, H, Hkv, dtype, window, scale, s);
-    case 128: return launch<128>(q, k, v, o, B, S, H, Hkv, dtype, window, scale, s);
+    FLASH_CASE(16)
+    FLASH_CASE(32)
+    FLASH_CASE(64)
+    FLASH_CASE(120)
+    FLASH_CASE(128)
+    FLASH_CASE(256)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef FLASH_CASE
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 """Wrapper of the causal GQA attention kernel (`csrc/flash_attention.cu`),
 the port of `repro/kernels/flash_attention.py::flash_attention`, with the
-sliding window of `repro/models/attention.py::chunked_attention`.
+sliding window and the prefix-LM of
+`repro/models/attention.py::chunked_attention`.
 
 CUDA tensors only: the caller (`kernels/ops.py`) sends CPU tensors to the
 plain version, `ref.flash_attention_ref`. ``flash_attention.launches``
@@ -15,7 +16,7 @@ import torch
 from repro_torch.kernels import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-HEAD_DIMS = (16, 32, 64, 120, 128)
+HEAD_DIMS = (16, 32, 64, 120, 128, 256)
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -23,14 +24,29 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"flash_attention: {msg}")
 
 
+def check_mask_args(window, prefix) -> None:
+    """Raise unless ``window`` is None or an int >= 1 and ``prefix`` an
+    int >= 0 (the mask's arguments, on any device)."""
+    _require(window is None or (isinstance(window, int)
+                                and not isinstance(window, bool)
+                                and window >= 1),
+             f"window must be None or a positive int, got {window!r}")
+    _require(isinstance(prefix, int) and not isinstance(prefix, bool)
+             and prefix >= 0,
+             f"prefix must be a non-negative int, got {prefix!r}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int | None = None) -> torch.Tensor:
+                    window: int | None = None,
+                    prefix: int = 0) -> torch.Tensor:
     """q: (B, S, H, D), k, v: (B, S, Hkv, D) CUDA tensors of one dtype,
     f32 or bf16, contiguous -> o (B, S, H, D) in q's dtype: causal
     attention with scores q·kᵀ·D^-0.5 in f32, query head h reading kv head
     h // (H // Hkv); with ``window`` (>= 1) query i sees only the keys j
-    with i - j < window. D is 16, 32, 64, 120 or 128; any S. Matches
-    `ref.flash_attention_ref`."""
+    with i - j < window; every query also sees the keys j < ``prefix``
+    (an int >= 0; one past S shows all S). D is 16, 32, 64, 120, 128 or
+    256; any S. Matches `ref.flash_attention_ref`."""
+    check_mask_args(window, prefix)
     _require(q.is_cuda, "q must be a CUDA tensor")
     _require(q.dtype in (torch.float32, torch.bfloat16),
              f"q must be float32 or bfloat16, got {q.dtype}")
@@ -41,8 +57,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _require(Hkv >= 1 and H % Hkv == 0,
              f"the kv heads ({Hkv}) must divide the query heads ({H})")
     _require(D in HEAD_DIMS, f"head dim {D} not in {HEAD_DIMS}")
-    _require(window is None or (isinstance(window, int) and window >= 1),
-             f"window must be None or a positive int, got {window!r}")
     _require(B * H <= 65535, f"B·H = {B * H} exceeds the grid's 65535")
     for name, t in (("k", k), ("v", v)):
         _require(tuple(t.shape) == (B, S, Hkv, D),
@@ -54,11 +68,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  f"{name} must be contiguous and 16-byte aligned")
     out = torch.empty_like(q)
     fn = _build.function("flash_attention", "flash_attention_launch",
-                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P])
+                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _F, _P])
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, S, H, Hkv, D, _build.ROW_CODE[q.dtype], window or 0,
-                 D ** -0.5,
+                 min(prefix, S), D ** -0.5,
                  torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_attention", err)
     flash_attention.launches += 1

@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.core.quant import dequantize_rows, scale_vjp
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import check_mask_args
 from repro_torch.kernels.flash_attention import \
     flash_attention as flash_attention_kernel
 from repro_torch.kernels.fused_read import fused_read_sweep
@@ -111,44 +112,50 @@ def lsh_hash(x: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
     return ids.reshape(shape[:-1] + (planes.shape[0],))
 
 
-def _flash_attention(q, k, v, window):
+def _flash_attention(q, k, v, window, prefix):
     if _on_cpu(q):
-        return ref.flash_attention_ref(q, k, v, window)
+        return ref.flash_attention_ref(q, k, v, window, prefix)
     return flash_attention_kernel(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), window=window)
+                                  v.contiguous(), window=window,
+                                  prefix=prefix)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    q_block: int | None = None,
-                    window: int | None = None) -> torch.Tensor:
+                    q_block: int | None = None, window: int | None = None,
+                    prefix: int = 0) -> torch.Tensor:
     """Causal GQA attention: q (B, S, H, D), k, v (B, S, Hkv, D), f32 or
     bf16 -> (B, S, H, D) in q's dtype (`ref.flash_attention_ref` on the
     CPU, `csrc/flash_attention.cu` on the card); with ``window`` query i
     sees the keys j with i - j < window (`chunked_attention`'s sliding
-    window). Differentiable in q, k and v: the backward
-    (`_FlashAttention`) is plain PyTorch in blocks of ``q_block`` query
-    rows (default: all S), as the TPU kernel has no backward either (the
-    JAX package differentiates `chunked_attention`)."""
+    window), and every query sees the keys j < ``prefix`` (its
+    ``prefix_len``, the prefix-LM). Differentiable in q, k and v: the
+    backward (`_FlashAttention`) is plain PyTorch in blocks of ``q_block``
+    query rows (default: all S), as the TPU kernel has no backward either
+    (the JAX package differentiates `chunked_attention`). Raises unless
+    ``window`` is None or an int >= 1 and ``prefix`` an int >= 0."""
+    check_mask_args(window, prefix)
     if _records(q, k, v):
-        return _FlashAttention.apply(q, k, v, q_block or q.shape[1], window)
-    return _flash_attention(q, k, v, window)
+        return _FlashAttention.apply(q, k, v, q_block or q.shape[1], window,
+                                     prefix)
+    return _flash_attention(q, k, v, window, prefix)
 
 
 class _FlashAttention(torch.autograd.Function):
     """The forward is the kernel (or its plain version); it saves q, k and
     v only. The backward recomputes the scores of one block of
-    ``q_block`` query rows at a time against the keys the block sees (from
-    `ref.attn_keys` to the block's end: the window's first key, or 0), in
-    f32, so it never holds the whole (B, H, S, S) at full width: with P =
-    softmax(S), dV += Pᵀ·dO, dP = dO·Vᵀ, dS = P ∘ (dP - rowsum(P ∘ dP)),
-    dQ = dS·K·D^-0.5, dK += dSᵀ·Q·D^-0.5; a kv head's gradients sum over
-    its group of query heads."""
+    ``q_block`` query rows at a time against the keys the block sees
+    (`ref.attn_keys`: from the window's first key, or 0, to the block's
+    end, or to the prefix's end past it), under the forward's mask
+    (`ref.attn_mask`), in f32, so it never holds the whole (B, H, S, S) at
+    full width: with P = softmax(S), dV += Pᵀ·dO, dP = dO·Vᵀ, dS = P ∘
+    (dP - rowsum(P ∘ dP)), dQ = dS·K·D^-0.5, dK += dSᵀ·Q·D^-0.5; a kv
+    head's gradients sum over its group of query heads."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_block, window):
+    def forward(ctx, q, k, v, q_block, window, prefix):
         ctx.save_for_backward(q, k, v)
-        ctx.q_block, ctx.window = q_block, window
-        return _flash_attention(q, k, v, window)
+        ctx.q_block, ctx.window, ctx.prefix = q_block, window, prefix
+        return _flash_attention(q, k, v, window, prefix)
 
     @staticmethod
     def backward(ctx, g):
@@ -163,22 +170,25 @@ class _FlashAttention(torch.autograd.Function):
         dv = torch.zeros_like(dk)
         for lo in range(0, S, ctx.q_block):
             hi = min(lo + ctx.q_block, S)
-            k_lo = ref.attn_keys(lo, hi, ctx.window)
-            kb, vb = kf[:, k_lo:hi], vf[:, k_lo:hi]
+            k_lo, k_hi = ref.attn_keys(lo, hi, S, ctx.window, ctx.prefix)
+            kb, vb = kf[:, k_lo:k_hi], vf[:, k_lo:k_hi]
             qb = q[:, lo:hi].to(ct).reshape(B, hi - lo, Hkv, H // Hkv, D)
             gb = g[:, lo:hi].to(ct).reshape(qb.shape)
             s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kb) * scale
-            mask = ref.attn_mask(lo, hi, k_lo, ctx.window, q.device)
+            mask = ref.attn_mask(lo, hi, k_lo, k_hi, ctx.window, ctx.prefix,
+                                 q.device)
             p = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
             del s
-            dv[:, k_lo:hi] += torch.einsum("bhgqk,bqhgd->bkhd", p, gb)
+            dv[:, k_lo:k_hi] += torch.einsum("bhgqk,bqhgd->bkhd", p, gb)
             dp = torch.einsum("bqhgd,bkhd->bhgqk", gb, vb)
             ds = p.mul_(dp.sub_((p * dp).sum(-1, keepdim=True)))
             del dp
             dq[:, lo:hi] = torch.einsum("bhgqk,bkhd->bqhgd", ds,
                                         kb).reshape(B, hi - lo, H, D) * scale
-            dk[:, k_lo:hi] += torch.einsum("bhgqk,bqhgd->bkhd", ds, qb) * scale
-        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None)
+            dk[:, k_lo:k_hi] += torch.einsum("bhgqk,bqhgd->bkhd", ds,
+                                             qb) * scale
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None)
 
 
 # --------------------------------------------------------------------------

@@ -31,8 +31,9 @@ card. They state the kernels' contracts exactly:
 * Attention (`flash_attention_ref`) is the naive masked softmax in f32
   (f64 for f64 inputs, an exact reference on the card), the oracle of the
   JAX suite's flash-attention tests, with `chunked_attention`'s sliding
-  window. It takes one block of query rows at a time against the keys
-  the block can see, so it never holds the whole (B, H, S, S).
+  window and prefix-LM. It takes one block of query rows at a time
+  against the keys the block can see, so it never holds the whole (B, H,
+  S, S).
 """
 from __future__ import annotations
 
@@ -389,34 +390,45 @@ def scatter_rows_q_ref(mem: torch.Tensor, mem_scale: torch.Tensor,
 ATTN_Q_BLOCK = 256   # query rows a block of `flash_attention_ref`
 
 
-def attn_keys(lo: int, hi: int, window: int | None) -> int:
-    """The first key a block of query rows [lo, hi) sees: 0, or the first
-    within the window of row lo."""
-    return 0 if window is None else max(0, lo - window + 1)
+def attn_keys(lo: int, hi: int, S: int, window: int | None,
+              prefix: int = 0) -> tuple[int, int]:
+    """The keys [k_lo, k_hi) a block of query rows [lo, hi) sees: from 0,
+    or from the first within the window of row lo, to the block's end; a
+    prefix P reaches every row, so the keys start at 0 and end at max(hi,
+    min(P, S))."""
+    if prefix:
+        return 0, max(hi, min(prefix, S))
+    return (0 if window is None else max(0, lo - window + 1)), hi
 
 
-def attn_mask(lo: int, hi: int, k_lo: int, window: int | None, device):
-    """(hi - lo, hi - k_lo) bool: query lo + i sees key k_lo + j where
-    0 <= (lo + i) - (k_lo + j) and, with a window, that gap < window
-    (`repro/models/attention.py:145-148`)."""
-    gap = (torch.arange(lo, hi, device=device)[:, None]
-           - torch.arange(k_lo, hi, device=device)[None, :])
+def attn_mask(lo: int, hi: int, k_lo: int, k_hi: int, window: int | None,
+              prefix: int, device):
+    """(hi - lo, k_hi - k_lo) bool: query lo + i sees key k_lo + j where
+    0 <= (lo + i) - (k_lo + j) and, with a window, that gap < window; or
+    where k_lo + j < prefix. JAX's (causal & window) | key < prefix
+    (`repro/models/attention.py:143-150`)."""
+    keys = torch.arange(k_lo, k_hi, device=device)
+    gap = torch.arange(lo, hi, device=device)[:, None] - keys[None, :]
     mask = gap >= 0
     if window is not None:
         mask &= gap < window
+    if prefix:
+        mask |= keys[None, :] < prefix
     return mask
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        window: int | None = None) -> torch.Tensor:
+                        window: int | None = None,
+                        prefix: int = 0) -> torch.Tensor:
     """Causal GQA attention, the plain version of `csrc/flash_attention.cu`
     and of `repro/kernels/flash_attention.py`. q: (B, S, H, D), k, v:
     (B, S, Hkv, D) -> o (B, S, H, D) in q's dtype. Query head h reads kv
     head h // (H // Hkv); scores q·kᵀ·D^-0.5 are masked to -1e30 where
-    pos_q < pos_k or, with ``window``, pos_q - pos_k >= window, and
+    pos_q < pos_k or, with ``window``, pos_q - pos_k >= window, unless
+    pos_k < ``prefix`` (the prefix-LM's keys, seen by every query), and
     softmaxed, all in f32 (bf16 inputs upcast; f64 inputs stay f64). The
     query rows go ATTN_Q_BLOCK at a time, each block against only the keys
-    from `attn_keys` to its end."""
+    of `attn_keys`."""
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     ct = torch.promote_types(q.dtype, torch.float32)
@@ -424,12 +436,13 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     for lo in range(0, S, ATTN_Q_BLOCK):
         hi = min(lo + ATTN_Q_BLOCK, S)
-        k_lo = attn_keys(lo, hi, window)
+        k_lo, k_hi = attn_keys(lo, hi, S, window, prefix)
         qg = q[:, lo:hi].to(ct).reshape(B, hi - lo, Hkv, H // Hkv, D)
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf[:, k_lo:hi]) * D ** -0.5
-        mask = attn_mask(lo, hi, k_lo, window, q.device)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf[:, k_lo:k_hi]) \
+            * D ** -0.5
+        mask = attn_mask(lo, hi, k_lo, k_hi, window, prefix, q.device)
         p = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
         del s
-        o = torch.einsum("bhgqk,bkhd->bqhgd", p, vf[:, k_lo:hi])
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, vf[:, k_lo:k_hi])
         out[:, lo:hi] = o.reshape(B, hi - lo, H, D).to(q.dtype)
     return out

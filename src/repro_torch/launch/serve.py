@@ -10,13 +10,18 @@ single-request users through the continuous-batching engine
     python -m repro_torch.launch.serve --arch starcoder2_7b_sam --full
     python -m repro_torch.launch.serve --continuous --requests 8 --full
     python -m repro_torch.launch.serve --arch h2o_danube_3_4b_sam --full
+    python -m repro_torch.launch.serve --arch paligemma_3b_sam --full
 
 run StarCoder2-7B (weights from ``--seed``, held in the bf16 compute
-dtype: 15.8 GB) or H2O-Danube3-4B (sliding window, a ring cache of
-min(max_len, 4096) slots: 7.9 GB) at full width on the card, with or
-without the ``_sam`` memory layer; without ``--full`` the reduced config;
-``--device cpu`` runs on the host. The registry's other architectures
-raise, naming ROADMAP item A9c.
+dtype: 15.8 GB), H2O-Danube3-4B (sliding window, a ring cache of
+min(max_len, 4096) slots: 7.9 GB) or PaliGemma-3B (2.67 B parameters with
+its pad heads, 5.3 GB) at full width on the card, with or without the
+``_sam`` memory layer; without ``--full`` the reduced config; ``--device
+cpu`` runs on the host.
+PaliGemma is served with token prompts, as JAX serves it: the decode
+attends causally from position 0 and has no image prefix (its prefill
+with patch embeddings is `models.lm.prefill`). The registry's other
+architectures raise, naming ROADMAP item A9c.
 """
 from __future__ import annotations
 

@@ -12,7 +12,10 @@ card (the default device). Weights come from ``--seed``, batches from
 steps run under `distributed.fault_tolerance.ResilientLoop`: an
 asynchronous checkpoint every 20 steps and at the end, and a
 restart resumes from the newest one (its batches start again from the
-first, as in JAX). A mesh is ROADMAP item A11.
+first, as in JAX). A mesh is ROADMAP item A11. A config with a frontend
+(PaliGemma's vision prefix) is refused: JAX draws its batches with a JAX
+key (`repro/launch/specs.py::concrete_batch`), which the port has no
+counterpart of; training it is ROADMAP item A9c.
 """
 from __future__ import annotations
 
@@ -51,6 +54,11 @@ def train(arch: str = DEFAULT_ARCH, *, steps: int = 50, batch: int = 8,
         cfg = get_config(arch)
         if use_reduced:
             cfg = reduce_cfg(cfg)
+    if cfg.frontend is not None:
+        raise ValueError(f"{cfg.name}: training a config with the "
+                         f"{cfg.frontend} frontend is not ported yet (its "
+                         f"batches are drawn with a JAX key): ROADMAP item "
+                         f"A9c")
     if params is None:
         params = lm.init_params(cfg, seed=seed, device=device)
     opt_state = opt.adamw_init(params)

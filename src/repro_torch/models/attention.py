@@ -7,16 +7,23 @@ the JAX package computes it outside any kernel). Where the JAX forward
 runs its jnp chunked online softmax (`chunked_attention`), the port runs
 the kernel; the kernel's plain version is `kernels/ref.flash_attention_ref`.
 
-A config with a sliding window (``cfg.window``, H2O-Danube3) passes it to
-the kernel, and its decode cache is a ring of Smax = min(max_len, window)
-slots (`models/transformer.py::layer_cache_shapes`): position p writes
-slot p % Smax, and once p reaches Smax every slot is valid. So the decode
-attends to the last Smax tokens, the prefill to the last ``window``: with
-max_len < window the two differ, in JAX as here (ROADMAP §C).
+A config with a prefix-LM (``cfg.prefix_lm``, PaliGemma's image prefix)
+passes it to the kernel: every query of the prefill sees the keys below
+it. The decode has no prefix, as JAX's has none: it attends causally over
+the cache. A config with a sliding window (``cfg.window``, H2O-Danube3)
+passes it to the kernel, and its decode cache is a ring of Smax =
+min(max_len, window) slots (`models/transformer.py::layer_cache_shapes`):
+position p writes slot p % Smax, and once p reaches Smax every slot is
+valid. So the decode attends to the last Smax tokens, the prefill to the
+last ``window``: with max_len < window the two differ, in JAX as here
+(ROADMAP §C).
 
 Layouts are the JAX package's: q (B, S, H, D), k and v (B, S, Hkv, D),
-caches (B, Smax, Hkv, D). Prefix-LM and MLA are not ported (ROADMAP A9c):
-`models/transformer.py` refuses such configs."""
+caches (B, Smax, Hkv, D). With ``cfg.pad_head_groups`` each kv head's
+group is padded to that many query heads (PaliGemma: 8 heads over one kv
+head padded to 16), which are computed and then zeroed by the head mask,
+as in JAX. MLA is not ported (ROADMAP A9c): `models/transformer.py`
+refuses such configs."""
 from __future__ import annotations
 
 from typing import Optional
@@ -50,8 +57,9 @@ def _head_mask(cfg: ModelConfig, dtype, device) -> Optional[torch.Tensor]:
 def gqa_forward(params, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d): the training/prefill attention, causal
-    within ``cfg.window`` when the config has one, through
-    `ops.flash_attention` (the kernel on the card). S must be a
+    within ``cfg.window`` when the config has one, every query seeing the
+    first ``cfg.prefix_lm`` keys, through `ops.flash_attention` (the
+    kernel on the card). S must be a
     multiple of min(q_block, S) and of min(kv_block, S), as the JAX
     package's chunked attention requires."""
     S = x.shape[1]
@@ -64,7 +72,8 @@ def gqa_forward(params, cfg: ModelConfig, x: torch.Tensor,
     v = peinsum("bsd,dhk->bshk", x, params["wv"])
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    o = ops.flash_attention(q, k, v, q_block=qb, window=cfg.window)
+    o = ops.flash_attention(q, k, v, q_block=qb, window=cfg.window,
+                            prefix=cfg.prefix_lm)
     mask = _head_mask(cfg, o.dtype, o.device)
     if mask is not None:
         o = o * mask[None, None, :, None]

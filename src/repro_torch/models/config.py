@@ -3,8 +3,9 @@ field for field.
 
 One `ModelConfig` describes every architecture of the registry
 (`repro_torch.configs`). The port's model code runs the dense GQA family
-(``block="dense"``, no window, no prefix-LM, no MLA or MoE) with the
-optional SAM memory layer on f32 rows; the MLA, MoE, RWKV and SSM
+(``block="dense"``: causal, windowed or prefix-LM attention, the vision
+frontend's patch embeddings; no MLA or MoE) with the optional SAM memory
+layer on f32 rows; the MLA, MoE, RWKV and SSM
 dataclasses are carried as data, and the model code refuses a config that
 uses them (`models/transformer.py`)."""
 from __future__ import annotations

@@ -132,14 +132,19 @@ def mlp_defs(d_in: int, d_hidden: int, gated: bool = False):
 def mlp_apply(params, x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
     """x (B, S, d) -> (B, S, d). Without ``w3`` the GELU MLP, w2 ·
     gelu(w1 · x), GELU the tanh approximation (`jax.nn.gelu`'s default).
-    With ``w3`` the gated MLP of ``act`` 'silu' (llama's), w2 · (silu(w1 ·
-    x) ∘ (w3 · x)). (The gated 'geglu' MLP is ROADMAP A9c.)"""
+    With ``w3`` the gated MLP of ``act``: 'silu' (llama's), w2 · (silu(w1
+    · x) ∘ (w3 · x)), or 'geglu' (gemma's), w2 · (gelu(w1 · x) ∘ (w3 ·
+    x)) with the same tanh GELU."""
     h = peinsum("bsd,df->bsf", x, params["w1"])
     if "w3" in params:
-        if act != "silu":
-            raise ValueError(f"the gated {act} MLP is not ported yet "
-                             f"(ROADMAP item A9c)")
-        h = F.silu(h) * peinsum("bsd,df->bsf", x, params["w3"])
+        if act == "silu":
+            gate = F.silu(h)
+        elif act == "geglu":
+            gate = F.gelu(h, approximate="tanh")
+        else:
+            raise ValueError(f"no gated MLP of activation {act!r}: "
+                             f"expected 'silu' or 'geglu'")
+        h = gate * peinsum("bsd,df->bsf", x, params["w3"])
     else:
         h = F.gelu(h, approximate="tanh")
     return peinsum("bsf,fd->bsd", h, params["w2"])

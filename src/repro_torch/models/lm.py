@@ -1,7 +1,9 @@
 """The top-level LM, the JAX package's `models/lm.py` for the dense GQA
-family (causal or sliding-window attention; GELU or gated SiLU MLP):
-embeddings, the stack of blocks with a SAM memory layer after
-every group of `every_n_layers`, the final norm and the head. `forward`
+family (causal, sliding-window or prefix-LM attention; GELU, gated SiLU or
+GeGLU MLP; a stubbed vision frontend whose patch embeddings the batch
+carries): embeddings, the stack of blocks with a SAM memory layer after
+every group of `every_n_layers`, the final norm and the head (tied to the
+embeddings where the config says so). `forward`
 and `loss_fn` train (under autograd, the blocks under
 `torch.utils.checkpoint` with ``cfg.remat``, the memory layers through the
 unroll engine); `prefill` (the full-sequence forward, whose attention is
@@ -14,7 +16,14 @@ f32 reads to the stream, which promotes a bf16 stream to f32 after the
 first memory group in `forward`/`prefill` (later blocks then run f32
 activations against bf16 weights); `decode_step` casts the read back to
 the stream's dtype. Caches and memory states are updated in place (JAX
-returns new ones)."""
+returns new ones).
+
+The layer grouping is JAX's, faults included (ROADMAP §C): with memory,
+n_groups = max(1, L // every_n_layers) groups of per = L // n_groups
+blocks run, so where per·n_groups < L the trailing blocks run nowhere
+(`paligemma_3b_sam`: 18 layers in 4 groups of 4, blocks 16 and 17 skipped
+by `forward`, `prefill` and a `decode_step` with memory states; a
+`decode_step` without memory states runs all 18)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -74,6 +83,21 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     return x * torch.tensor(cfg.d_model ** 0.5, dtype=cd, device=x.device)
 
 
+def _embed_inputs(params, cfg: ModelConfig, batch):
+    """JAX's `_embed_inputs`: the token embeddings (`_embed`), after the
+    (B, frontend_len, d) ``batch["patch_embeds"]`` of a vision config,
+    cast to the compute dtype and not scaled; and the positions 0 .. S-1
+    over the whole sequence, (1, S)."""
+    x = _embed(params, cfg, batch["tokens"])
+    if cfg.frontend == "vision" and cfg.frontend_len:
+        if "patch_embeds" not in batch:
+            raise ValueError(f"{cfg.name}: a batch of a vision config needs "
+                             f"'patch_embeds' (B, {cfg.frontend_len}, "
+                             f"{cfg.d_model}) beside 'tokens'")
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    return x, torch.arange(x.shape[1], device=x.device)[None, :]
+
+
 def _head_weight(params, cfg: ModelConfig) -> torch.Tensor:
     cd = torch_dtype(cfg.compute_dtype)
     if cfg.tie_embeddings:
@@ -92,14 +116,16 @@ def _block(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
 
 
 def forward(params, cfg: ModelConfig, batch):
-    """batch {"tokens": (B, S) int} -> (final hidden states (B, S, d),
-    the auxiliary loss: 0, the dense blocks make none). With a memory, the
-    blocks run in groups and each group is followed by
-    `sam_layer.memory_layer_seq`; one memory state, zero at the start,
-    runs through all the groups, as JAX threads one through its loop.
-    Differentiable in the weights when they require grad."""
-    x = _embed(params, cfg, batch["tokens"])
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    """batch {"tokens": (B, S_t) int[, "patch_embeds": (B, P, d)]} ->
+    (final hidden states (B, S, d), S = P + S_t, the auxiliary loss: 0,
+    the dense blocks make none). A vision config needs the patch
+    embeddings (`_embed_inputs`). With a memory, the blocks run in groups
+    and each group is followed by `sam_layer.memory_layer_seq`; one memory
+    state, zero at the start, runs through all the groups, as JAX threads
+    one through its loop (and, as JAX, runs no block past the last whole
+    group: module docstring). Differentiable in the weights when they
+    require grad."""
+    x, positions = _embed_inputs(params, cfg, batch)
     blocks = _cast(params["blocks"], cfg)
     if cfg.memory is None:
         for i in range(cfg.num_layers):
@@ -155,9 +181,10 @@ def chunked_ce(head_w: torch.Tensor, hidden: torch.Tensor,
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
-    """batch {"tokens" (B, S), "targets" (B, S_t)[, "mask" (B, S_t)]} ->
-    (loss, {"ce", "aux"}): `chunked_ce` over the last S_t positions in
-    chunks of ``cfg.loss_chunk``, plus the auxiliary loss."""
+    """batch {"tokens" (B, S), "targets" (B, S_t)[, "mask" (B, S_t)][,
+    "patch_embeds"]} -> (loss, {"ce", "aux"}): `chunked_ce` over the last
+    S_t positions in chunks of ``cfg.loss_chunk`` (a vision prefix
+    predicts nothing), plus the auxiliary loss."""
     hidden, aux = forward(params, cfg, batch)
     targets = batch["targets"]
     hidden = hidden[:, -targets.shape[1]:]

@@ -1,7 +1,8 @@
 """Transformer block of the LM, the JAX package's `models/transformer.py`
-for ``block="dense"``: pre-norm GQA attention (causal, or within a sliding
-window) and an MLP (GELU, or gated SiLU), each added to the residual
-stream. Any other family raises, naming its ROADMAP item."""
+for ``block="dense"``: pre-norm GQA attention (causal, within a sliding
+window, or over a bidirectional prefix) and an MLP (GELU, gated SiLU or
+GeGLU), each added to the residual stream. Any other family raises,
+naming its ROADMAP item."""
 from __future__ import annotations
 
 import torch
@@ -12,15 +13,16 @@ from repro_torch.models.layers import mlp_apply, mlp_defs, pdef, rms_norm
 
 
 def require_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense GQA family the port runs: causal
-    or sliding-window attention, the GELU or the gated SiLU MLP."""
+    """Raise unless ``cfg`` is a dense GQA family the port runs: causal,
+    sliding-window or prefix-LM attention, the GELU, gated SiLU or GeGLU
+    MLP, no frontend or the (stubbed) vision one."""
     unported = (
         (cfg.block != "dense", f"block={cfg.block!r}"),
-        (cfg.act not in ("gelu", "silu"), f"the gated {cfg.act} MLP"),
+        (cfg.act not in ("gelu", "silu", "geglu"), f"the {cfg.act} MLP"),
         (cfg.mla is not None, "MLA"),
         (cfg.moe is not None, "MoE"),
-        (bool(cfg.prefix_lm), "prefix-LM attention"),
-        (cfg.frontend is not None, f"the {cfg.frontend} frontend"),
+        (cfg.frontend not in (None, "vision"), f"the {cfg.frontend} "
+                                               f"frontend"),
         (cfg.sparse_decode_blocks is not None,
          "the sparse top-K decode (gqa_decode_sparse)"),
     )
@@ -36,7 +38,8 @@ def block_defs(cfg: ModelConfig):
     d = cfg.d_model
     return {"ln1": pdef((d,), init="zeros"), "ln2": pdef((d,), init="zeros"),
             "attn": attn.attn_defs(cfg),
-            "mlp": mlp_defs(d, cfg.d_ff, gated=cfg.act == "silu")}
+            "mlp": mlp_defs(d, cfg.d_ff,
+                            gated=cfg.act in ("silu", "geglu"))}
 
 
 def block_forward(p, cfg: ModelConfig, x: torch.Tensor,

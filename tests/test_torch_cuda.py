@@ -16,10 +16,11 @@ candidate read may swap selections whose plain similarities lie within
 1e-6 of each other. The causal attention kernel: f32 within 2e-5 (the JAX
 suite's bar) on unit normal inputs; bf16 outputs within one bf16 ulp of
 the output's magnitude (both round the same f32 softmax, summed in
-another order), at D in 16 ... 128 and D = 120, with and without a
-sliding window; on scores as large as the LM's (q and k of std 12), where
-two f32 orders differ by 1e-3, no further from the f64 result than twice
-the plain f32 version is.
+another order), at D in 16 ... 128, D = 120 and D = 256, with and
+without a sliding window or a prefix (the prefix-LM's keys, seen by every
+query); on scores as large as the LM's (q and k of std 12), where two f32
+orders differ by 1e-3, no further from the f64 result than twice the
+plain f32 version is.
 """
 from __future__ import annotations
 
@@ -1694,6 +1695,65 @@ def test_flash_attention_kernel_on_large_scores(dev, dtype):
     assert err <= 2 * plain.item() + 2e-5
 
 
+# D = 256 (PaliGemma: 16 query heads, 8 of them its pad heads, over one kv
+# head) and the prefix: none, under one tile, not a multiple of the tile,
+# of whole tiles, equal to S, past S (every key seen: no key past S may be
+# unmasked), with a window, at D = 120 and D = 32 too, and PaliGemma's
+# prefill shapes (B = 4, S = 2048, prefix 256).
+PREFIX_CASES = [
+    (1, 64, 16, 1, 256, None, 0), (1, 130, 4, 2, 256, None, 0),
+    (2, 63, 16, 1, 256, None, 16), (1, 257, 8, 1, 256, None, 40),
+    (2, 300, 16, 1, 256, None, 256), (1, 200, 4, 2, 256, None, 200),
+    (1, 100, 4, 2, 32, None, 500), (1, 65, 2, 1, 256, None, 1),
+    (2, 500, 4, 2, 128, 64, 100), (1, 1000, 4, 1, 120, 100, 130),
+    (1, 129, 12, 1, 16, 65, 70), (4, 2048, 16, 1, 256, None, 256),
+]
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,window,prefix", PREFIX_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_head_dim_256_and_prefix(dev, B, S, H, Hkv, D,
+                                                        window, prefix,
+                                                        dtype):
+    q, k, v = _attention_inputs(dev, B, S, H, Hkv, D, dtype,
+                                seed=S + D + prefix)
+    n0 = flash_attention.launches
+    out = flash_attention(q, k, v, window=window, prefix=prefix)
+    want = ref.flash_attention_ref(q, k, v, window, prefix)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= (2e-5 if dtype == "float32" else _bf16_ulp(want))
+    assert torch.equal(ops.flash_attention(q, k, v, window=window,
+                                           prefix=prefix), out)
+    if prefix > 1:                          # the prefix shows keys
+        assert (ref.flash_attention_ref(q, k, v, window) - want).abs().max() \
+            > 1e-3
+
+
+@pytest.mark.parametrize("prefix", [0, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_head_dim_256_on_large_scores(dev, prefix,
+                                                             dtype):
+    """The large-score bars at D = 256 (16 query heads over one kv head),
+    with and without a prefix."""
+    q, k, v = _attention_inputs(dev, 2, 512, 16, 1, 256, dtype, seed=7,
+                                scale=12.0)
+    out = flash_attention(q, k, v, prefix=prefix)
+    if dtype == "bfloat16":
+        want = ref.flash_attention_ref(q, k, v, None, prefix)
+        err = (out.float() - want.float()).abs().max().item()
+        assert err <= _bf16_ulp(want)
+        return
+    exact = ref.flash_attention_ref(q.double(), k.double(), v.double(),
+                                    None, prefix)
+    err = (out.double() - exact).abs().max().item()
+    plain = (ref.flash_attention_ref(q, k, v, None, prefix).double()
+             - exact).abs().max()
+    assert err <= 2 * plain.item() + 2e-5
+
+
 def test_flash_attention_kernel_raises_on_inputs_it_cannot_take(dev):
     q, k, v = _attention_inputs(dev, 1, 64, 4, 2, 32, "float32")
     bad = {
@@ -1714,6 +1774,9 @@ def test_flash_attention_kernel_raises_on_inputs_it_cannot_take(dev):
     for window in (0, -3, 2.5):
         with pytest.raises(ValueError, match="window"):
             flash_attention(q, k, v, window=window)
+    for prefix in (-1, 2.5, None, True):
+        with pytest.raises(ValueError, match="prefix"):
+            flash_attention(q, k, v, prefix=prefix)
     assert flash_attention.launches == n0
     # Under autograd the op is the attention Function (LM training): its
     # forward launches the kernel once.
@@ -1852,6 +1915,34 @@ def test_flash_attention_window_gradient_on_card_matches_plain(
     assert flash_attention.launches == n0 + 1
     plain = [t.detach().float().requires_grad_() for t in (q, k, v)]
     want = torch.autograd.grad(ref.flash_attention_ref(*plain, window),
+                               plain, g.float())
+    for a, b in zip(got, want):
+        assert a.dtype == q.dtype
+        err = ((a.float() - b).abs() / b.abs().clamp_min(1.0)).max().item() \
+            if dtype == "float32" else (a.float() - b).abs().max().item()
+        assert err <= (2e-5 if dtype == "float32" else _bf16_ulp(b))
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,qb,window,prefix", [
+    (1, 300, 16, 1, 256, 64, None, 40), (2, 130, 4, 2, 32, 64, None, 200),
+    (1, 256, 8, 1, 256, 128, None, 256), (1, 200, 4, 2, 64, 100, 32, 50)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_prefix_gradient_on_card_matches_plain(
+        dev, B, S, H, Hkv, D, qb, window, prefix, dtype):
+    """The same at D = 256 and with a prefix: the kernel's forward and the
+    plain backward, whose query blocks take the keys up to the prefix's
+    end, against autograd through the plain version with the prefix."""
+    q, k, v = (t.requires_grad_() for t in _attention_inputs(
+        dev, B, S, H, Hkv, D, dtype, seed=S + D + prefix))
+    g = torch.randn(q.shape, device=dev,
+                    generator=torch.Generator(dev).manual_seed(5)).to(q.dtype)
+    n0 = flash_attention.launches
+    got = torch.autograd.grad(
+        ops.flash_attention(q, k, v, q_block=qb, window=window,
+                            prefix=prefix), (q, k, v), g)
+    assert flash_attention.launches == n0 + 1
+    plain = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.flash_attention_ref(*plain, window, prefix),
                                plain, g.float())
     for a, b in zip(got, want):
         assert a.dtype == q.dtype

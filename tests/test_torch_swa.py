@@ -256,7 +256,9 @@ def test_windowed_attention_gradient_matches_jax(D, q_block):
 
 
 def test_gated_mlp_matches_jax():
-    """silu(w1·x) ∘ (w3·x), then w2, at f32 and bf16; the defs as JAX's."""
+    """silu(w1·x) ∘ (w3·x), then w2, at f32 and bf16; the defs as JAX's.
+    A gate of another activation than 'silu' or 'geglu' (GeGLU:
+    tests/test_torch_vlm.py) is refused."""
     rng = np.random.default_rng(3)
     d, f = 128, 256
     p = {name: (rng.standard_normal(shape) * 0.1).astype(np.float32)
@@ -276,8 +278,8 @@ def test_gated_mlp_matches_jax():
                           _t(x).bfloat16(), "silu")
     assert tb.dtype == torch.bfloat16 and jb.dtype == jnp.bfloat16
     _close(tb, jb, 2 ** -6)       # two bf16 ulps: each side rounds its own
-    with pytest.raises(ValueError, match="A9c"):
-        layers.mlp_apply({k: _t(v) for k, v in p.items()}, _t(x), "geglu")
+    with pytest.raises(ValueError, match="gated MLP"):
+        layers.mlp_apply({k: _t(v) for k, v in p.items()}, _t(x), "relu")
 
 
 # --------------------------------------------------------------------------
