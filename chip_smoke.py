@@ -31,8 +31,12 @@ states into a ring cache, `serve` and the engine), whose attention is the
 vision-language LM, PaliGemma-3B + SAM at full width (`paligemma_3b_sam`:
 prefill on 256 patch embeddings, decode with memory states, `serve` and
 the engine), whose attention is the `flash_attention` kernel at head dim
-256 with the prefix-LM over the 256. It fails (nonzero exit) if any phase
-fails:
+256 with the prefix-LM over the 256; last DeepSeek-V2 + SAM at full width
+and 4 of its 60 layers (`deepseek_v2_236b_sam`: MLA, the dense layer and
+3 MoE layers; prefill, decode with memory states, the engine with a
+rescale, `serve` and `examples.serve_batched`), whose prefill attention
+is the `flash_attention` kernel at q·k 192 wide and v 128 wide. It fails
+(nonzero exit) if any phase fails:
 
 1. build the kernels from `src/repro_torch/kernels/csrc/` with nvcc for
    sm_90a and print each kernel's registers, shared memory and spills
@@ -394,7 +398,34 @@ fails:
       blocks);
    d. the engine on 4 lanes of 128: 6 token requests, in lockstep with
       exact launches a step;
-17. print each phase's seconds, the empty-launch floor with each
+17. DeepSeek-V2 + SAM, `deepseek_v2_236b_sam` at full width with its depth
+   cut to 4 of 60 layers (bf16 weights from seed 0, 13.3 B parameters;
+   MLA with 128 heads, q·k 192 (nope 128, rope 64), v 128; the dense
+   layer 0, then 3 layers of 160 experts, top-6, 2 shared; one memory
+   group after the 4):
+   e. first the reduced config at the kernel's heads (q·k 192, v 128, 2
+      heads, 3 layers, a memory group every 2; f32) on the card against
+      the CPU: a prefill of 64 tokens (3 f32 attention launches at (192,
+      128)) and a `decode_scan` of 24 tokens with filled memory states,
+      each on the first token seed of 0-63 whose CPU reads hold no
+      near-tie at K and whose routers none at k; the bars of phase 15;
+   b. a prefill at B = 4, S = 2048 in lockstep: 4 bf16 attention launches
+      at (192, 128), each against its plain version, and 4 each of the
+      read, write and LRA; host ms, peak, device-busy share;
+   a. the kernel at layer 0's inputs, bf16 and upcast to f32, each against
+      its plain version: ms against the bound (q·kᵀ at 192 and p·v at 128
+      a pair), the plain version's and `scaled_dot_product_attention`'s
+      (each fused backend tried, the refusals printed); the (192, 128)
+      kernels' registers, spills (none) and shared memory;
+   c. a decode with memory states, a 32-token prompt and 16 greedy tokens
+      (in lockstep): 1 read, write and LRA and no attention launch a token
+      (the absorbed decode is plain PyTorch); ms a token on the host and
+      the device;
+   d. the engine on 4 lanes of 128: 6 token requests in lockstep with
+      exact launches a step, and a rescale 4 -> 2 -> 4 lanes mid-run
+      against an uninterrupted run, bit for bit; then `serve` and
+      `examples.serve_batched` once each (no memory states);
+18. print each phase's seconds, the empty-launch floor with each
    latency-bound kernel's time
    above it (`lra_topn`, the scatter, the write at step 21 on f32, bf16
    and int8 rows and at the LM's shapes, the candidate read on f32, bf16
@@ -404,7 +435,8 @@ fails:
    ``"dnc"``, the engine's under ``"engine"``, the LM trainer's under
    ``"lm_train"``, the streaming trainer's under ``"stream"``, the
    sliding-window LM's under ``"swa"``, the vision-language LM's under
-   ``"vlm"``, the phases' seconds under ``"phase_seconds"``), and last the
+   ``"vlm"``, DeepSeek-V2's under ``"mla"``, the phases' seconds under
+   ``"phase_seconds"``), and last the
    ``{"ok": true, ...}`` line.
 
 Tolerances: integer outputs exact; forward floats within 1e-5 of
@@ -523,6 +555,14 @@ REPLACES = {
     "flash_attention_vlm": ("src/repro/kernels/flash_attention.py:94",
                             "src/repro_torch/kernels/csrc/flash_attention.cu"),
     "flash_attention_vlm_bf16": (
+        "src/repro/kernels/flash_attention.py:94",
+        "src/repro_torch/kernels/csrc/flash_attention.cu"),
+    # MLA's prefill attention (phase 17): the same kernels' (192, 128)
+    # instantiations, v narrower than q·k (chunked_attention in mla_forward,
+    # src/repro/models/attention.py:452-468).
+    "flash_attention_mla": ("src/repro/kernels/flash_attention.py:94",
+                            "src/repro_torch/kernels/csrc/flash_attention.cu"),
+    "flash_attention_mla_bf16": (
         "src/repro/kernels/flash_attention.py:94",
         "src/repro_torch/kernels/csrc/flash_attention.cu"),
     # The slot-sharded memory's top-K (phase 10): fused_read.cu's first
@@ -681,6 +721,29 @@ VLM_SMALL_S_T, VLM_SMALL_DECODE, VLM_SMALL_MAX_LEN = 48, 24, 32
 # the input's): a leaf beyond atol/rtol is held to twice the CPU's largest
 # own move over this many one-ulp perturbations of its weights.
 VLM_SPREAD_DRAWS = 3
+# Phase 17, DeepSeek-V2 (+ SAM) at full width with its depth cut to the
+# first MLA_LAYERS of 60 (the dense layer 0 and 3 MoE layers: 13.3 B
+# parameters, 26.6 GB in bf16; 60 layers are 472 GB) (bf16 compute;
+# weights from seed 0 held in bf16; MLA q·k 192 wide (nope 128, rope 64),
+# v 128, 128 heads; 160 routed experts of 1536, top-6, 2 shared; memory N =
+# 65536, W = 128, H = 4, K = 8, one group after the 4 layers): a prefill of
+# MLA_B × MLA_S tokens, timed MLA_PREFILL_RUNS times; a decode with
+# memory states of a MLA_PROMPT-token prompt and MLA_GEN greedy tokens
+# into a cache of MLA_MAX_LEN; the engine on MLA_LANES lanes of
+# MLA_MAX_LEN: MLA_REQUESTS requests of MLA_REQ_PROMPT tokens and
+# MLA_REQ_GEN new ones, and a rescale of 4 -> 2 -> 4 lanes; the reduced
+# config at the kernel's (192, 128) heads (MLA_SMALL) on the card against
+# the CPU: a prefill of MLA_SMALL_S tokens and a decode of
+# MLA_SMALL_DECODE into a cache of MLA_SMALL_MAX_LEN.
+MLA_ARCH, MLA_LAYERS = "deepseek_v2_236b_sam", 4
+MLA_B, MLA_S, MLA_PREFILL_RUNS = 4, 2048, 2
+MLA_PROMPT, MLA_GEN, MLA_MAX_LEN = 32, 16, 128
+MLA_LANES, MLA_REQUESTS, MLA_REQ_PROMPT, MLA_REQ_GEN = 4, 6, (8, 16), 8
+MLA_SMALL_S, MLA_SMALL_DECODE, MLA_SMALL_MAX_LEN = 64, 24, 32
+MLA_SMALL = dict(num_layers=3, num_heads=2, num_kv_heads=2, every=2,
+                 kv_lora=64, q_lora=48, rope_head_dim=64, nope_head_dim=128,
+                 v_head_dim=128)
+ROUTER_NEAR_TIE = 1e-6
 
 
 class SmokeFailure(Exception):
@@ -718,7 +781,8 @@ def hmma_counts(lib: str) -> dict | str:
             fn = next((k for k in ("flash_bf16_kernel", "flash_f32_kernel")
                        if k in name), None)
             if fn:
-                fn += "<" + name.split("ILi")[1].split("E")[0] + ">"
+                dims = re.search(r"ILi(\d+)ELi(\d+)E", name)
+                fn += f"<{dims[1]}, {dims[2]}>"
                 counts[fn] = 0
         elif fn and "HMMA" in line:
             counts[fn] += 1
@@ -1980,7 +2044,7 @@ def session_diff(a, b):
     """The first leaf of two engine sessions that is not bit-equal, or
     None."""
     pairs = [("cache." + k, a["cache"][k], b["cache"][k])
-             for k in ("k", "v")] + [("pos", a["pos"], b["pos"])]
+             for k in sorted(a["cache"])] + [("pos", a["pos"], b["pos"])]
     pairs += [(f"mem.{g}.{f}", getattr(sa, f), getattr(sb, f))
               for g, (sa, sb) in enumerate(zip(a["mem"], b["mem"]))
               for f in sa._fields]
@@ -4006,14 +4070,16 @@ def attn_visible(S: int, window, prefix, device) -> torch.Tensor:
 def attention_row(ref, kernel, q, k, v, flush, window=None, prefix=0,
                   tag="swa") -> dict:
     """The attention kernel's row at q, k, v: its ms, its plain version's,
-    one PyTorch call's and the bound. The bound: q·kᵀ and p·v take `half`
-    flop each (2·D a (query, key) pair of `attn_pairs`). On f32 inputs
-    both are f32 FMAs (no TF32). On bf16 inputs q·kᵀ is exact on the bf16
-    tensor cores (f32 sums), and p·v with p at f32 precision, as the TPU
-    kernel keeps it, is two bf16 products (p_hi and p_lo; TF32 at half the
-    rate gives the same time): 3·half at the bf16 rate. The library call is
-    `scaled_dot_product_attention` with GQA: causal, or with the (S, S)
-    mask of the window or the prefix (`attn_visible`) on the
+    one PyTorch call's and the bound. The bound: q·kᵀ takes 2·D flop and
+    p·v 2·DV a (query, key) pair of `attn_pairs` (DV = D but for MLA's
+    (192, 128)). On f32 inputs both are f32 FMAs (no TF32). On bf16 inputs
+    q·kᵀ is exact on the bf16 tensor cores (f32 sums), and p·v with p at
+    f32 precision, as the TPU kernel keeps it, is two bf16 products (p_hi
+    and p_lo; TF32 at half the rate gives the same time): q·kᵀ + 2·p·v at
+    the bf16 rate. The library call is `scaled_dot_product_attention` with
+    GQA: causal (where v is narrower than q·k, each fused backend in turn,
+    the refusals printed and kept in ``library_refused``), or with the (S,
+    S) mask of the window or the prefix (`attn_visible`) on the
     efficient-attention backend (k and v repeated to the query heads where
     it refuses GQA); a yardstick only, its call named in
     ``library_call``."""
@@ -4021,14 +4087,32 @@ def attention_row(ref, kernel, q, k, v, flush, window=None, prefix=0,
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     Bq, S_, Hq, D_ = q.shape
-    half = attn_pairs(S_, window, prefix) * Bq * Hq * 2 * D_
-    on_tc = 3 * half if q.dtype == torch.bfloat16 else 0
+    DV = v.shape[-1]
+    pairs = attn_pairs(S_, window, prefix) * Bq * Hq
+    qk, pv = pairs * 2 * D_, pairs * 2 * DV
+    on_tc = qk + 2 * pv if q.dtype == torch.bfloat16 else 0
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    lib, how = None, "causal, enable_gqa"
+    lib, how, refused = None, "causal, enable_gqa", []
     try:
-        if window is None and not prefix:
+        if window is None and not prefix and DV == D_:
             lib = time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True), 10, flush)
+        elif window is None and not prefix:
+            for backend in (SDPBackend.FLASH_ATTENTION,
+                            SDPBackend.EFFICIENT_ATTENTION,
+                            SDPBackend.CUDNN_ATTENTION):
+                try:
+                    with sdpa_kernel([backend]):
+                        lib = time_ms(lambda: F.scaled_dot_product_attention(
+                            qt, kt, vt, is_causal=True, enable_gqa=True), 10,
+                            flush)
+                    how = f"causal, enable_gqa, {backend.name}"
+                    break
+                except RuntimeError as e:
+                    refused.append(backend.name)
+                    print(f"[{tag}] scaled_dot_product_attention "
+                          f"({backend.name}, v {DV} wide, q·k {D_}) refused: "
+                          f"{str(e)[:120]}")
         else:
             mask = attn_visible(S_, window, prefix, q.device)
             what = "window" if window is not None else "prefix"
@@ -4060,9 +4144,9 @@ def attention_row(ref, kernel, q, k, v, flush, window=None, prefix=0,
                    flush),
         plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, window,
                                                          prefix), 3, flush),
-        library_ms=lib, library_call=how,
-        bound=bound((2 * q.numel() + k.numel() + v.numel())
-                    * q.element_size(), 0 if on_tc else 2 * half, on_tc))
+        library_ms=lib, library_call=how, library_refused=refused,
+        bound=bound((q.numel() + k.numel() + v.numel() + Bq * S_ * Hq * DV)
+                    * q.element_size(), 0 if on_tc else qk + pv, on_tc))
 
 
 def first_stable(ops, ref, run, what, seeds=64):
@@ -5004,6 +5088,506 @@ def vlm_phase(dev, ops, ref, checker, zero_counts, counts, flush, ptxas):
             "err": f32_err, "bf16_err": bf16_err, "vlm": out}
 
 
+def mla_phase(dev, ops, ref, checker, zero_counts, counts, flush, ptxas):
+    """Phase 17: DeepSeek-V2 (+ SAM) served at full width, its depth cut to
+    the first MLA_LAYERS of 60 layers. ``ptxas`` is the attention
+    library's `-Xptxas -v` report. Returns the (192, 128) attention rows
+    (bf16 at layer 0's prefill inputs, f32 at the same inputs upcast),
+    their launches and the numbers."""
+    import numpy as np
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.examples import serve_batched
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.engine import Request, ServeEngine
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm, moe
+    from repro_torch.models.config import MLAConfig
+    from repro_torch.models.layers import tree_map
+
+    cfg = dataclasses.replace(get_config(MLA_ARCH), num_layers=MLA_LAYERS)
+    m, mla = cfg.memory, cfg.mla
+    n_dense = cfg.moe.num_dense_layers
+    groups = cfg.num_layers // m.every_n_layers
+    per = (cfg.num_layers - n_dense) // groups
+    segments = MLA_S // m.segment
+    DQK, DV = mla.nope_head_dim + mla.rope_head_dim, mla.v_head_dim
+    require((DQK, DV, n_dense, groups, per) == (192, 128, 1, 1, 3),
+            f"{MLA_ARCH} at {MLA_LAYERS} layers: q·k {DQK}, v {DV}, "
+            f"{n_dense} dense, {groups} groups of {per}: expected 192, 128, "
+            f"1, 1 group of all 3 MoE blocks")
+    out, part_s, clock = {}, {}, [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        part_s[name] = round(now - clock[0], 1)
+        clock[0] = now
+
+    # The (192, 128) instantiations: registers and spills from ptxas (phase
+    # 1 holds the whole library to no spill) and the dynamic shared memory
+    # their launcher asks for: f32 q and k (64 × 192), v (64 × 128) and p
+    # (64 × 64) for 256 threads; bf16 q and two k slots of rows of 192 + 8,
+    # two v slots of 128 + 8.
+    lines = ptxas_summary(ptxas)
+    pair = {("bf16" if "bf16" in line else "f32"): lines[i + 1:i + 3]
+            for i, line in enumerate(lines) if "ILi192ELi128E" in line}
+    smem = {"f32": (2 * 64 * 192 + 64 * 128 + 64 * 64) * 4,
+            "bf16": (3 * 64 * 200 + 2 * 64 * 136) * 2}
+    require(sorted(pair) == ["bf16", "f32"] and not any(
+        re.search(r"[1-9][0-9]* bytes spill", line)
+        for r in pair.values() for line in r),
+        f"flash_attention<192, 128> (ptxas): {pair}")
+    out["pair_ptxas"] = {k: " | ".join(v) for k, v in pair.items()}
+    out["pair_smem_bytes"] = smem
+    print("[mla] flash_attention at (q·k 192, v 128): " + "; ".join(
+        f"{k}: {' | '.join(v)}, {smem[k]} B of dynamic shared memory"
+        for k, v in sorted(pair.items())))
+
+    # (e) first, the reduced config at the kernel's (192, 128) heads (2
+    # heads, kv_lora 64; 3 layers: the dense one and two MoE blocks, one
+    # memory group every 2) in f32 on the card against the plain versions
+    # on the CPU: a prefill and a decode_scan with filled memory states;
+    # the token seeds the first of 0-63 whose CPU reads hold no near-tie at
+    # K and whose routers none at k.
+    kw = dict(MLA_SMALL)
+    small = reduced(cfg)
+    small = dataclasses.replace(
+        small, compute_dtype="float32", num_layers=kw.pop("num_layers"),
+        num_heads=kw.pop("num_heads"), num_kv_heads=kw.pop("num_kv_heads"),
+        memory=dataclasses.replace(small.memory,
+                                   every_n_layers=kw.pop("every")),
+        mla=MLAConfig(**kw))
+    p_cpu = lm.init_params(small, seed=0, device="cpu")
+    p_gpu = tree_map(lambda t: t.to(dev), p_cpu)
+
+    def stable(run, what):
+        """(seed, run(generator)) for the first seed of 0-63 whose CPU
+        reads and routes hold no near-tie at K and at k."""
+        fused_read, top_k = ops.fused_read, moe.top_k
+        reads, routes = [], []
+
+        def record(q, mem, beta, k, *, valid_n=None, cand_idx=None,
+                   mem_scale=None):
+            reads.append((q.detach().clone(), mem.detach().clone(), k,
+                          valid_n))
+            return fused_read(q, mem, beta, k, valid_n=valid_n)
+
+        def route(probs, k):
+            routes.append(probs.sort(-1, descending=True).values[:, k - 1:k + 1])
+            return top_k(probs, k)
+
+        for seed in range(64):
+            reads.clear()
+            routes.clear()
+            ops.fused_read, moe.top_k = record, route
+            try:
+                got = run(torch.Generator().manual_seed(seed))
+            finally:
+                ops.fused_read, moe.top_k = fused_read, top_k
+            if stable_reads(ref, reads) and all(
+                    (r[:, 0] - r[:, 1]).min().item() > ROUTER_NEAR_TIE
+                    for r in routes):
+                return seed, got
+        raise SmokeFailure(f"no token seed of 0-63 gives {what} no read "
+                           f"near-tie at K and no router near-tie at k")
+
+    def prefill_case(gen):
+        b = {"tokens": torch.randint(0, small.vocab_size, (2, MLA_SMALL_S),
+                                     generator=gen)}
+        return b, lm.prefill(p_cpu, small, b)
+
+    def decode_case(gen):
+        toks = torch.randint(0, small.vocab_size, (2, MLA_SMALL_DECODE),
+                             generator=gen)
+        states = filled_memory_states(small, 2, gen)
+        start = pytree.tree_map(lambda t: t.clone(), states)
+        cache = lm.init_cache(small, 2, MLA_SMALL_MAX_LEN, device="cpu")
+        return (toks, start), lm.decode_scan(p_cpu, small, cache, toks,
+                                             mem_states=states)
+
+    seeds = []
+    seed, (b_s, want) = stable(prefill_case, "the reduced prefill")
+    seeds.append(seed)
+    zero_counts()
+    got = lm.prefill(p_gpu, small, tree_map(lambda t: t.to(dev), b_s))
+    small_launches = counts()["flash_attention"]
+    require(small_launches == small.num_layers,
+            f"the reduced prefill launched the attention kernel "
+            f"{small_launches} times, not {small.num_layers}")
+    errs = {"prefill": card_close(got, want, "reduced prefill logits")}
+    seed, ((toks_d, start), want_d) = stable(decode_case, "the reduced "
+                                                          "decode")
+    seeds.append(seed)
+    cache = lm.init_cache(small, 2, MLA_SMALL_MAX_LEN, device=dev)
+    got_d = lm.decode_scan(p_gpu, small, cache, toks_d.to(dev),
+                           mem_states=pytree.tree_map(lambda t: t.to(dev),
+                                                      start))
+    errs["decode"] = card_close(got_d[0], want_d[0], "reduced decode logits")
+    errs["cache"] = card_close(got_d[1]["ckv"], want_d[1]["ckv"], "ckv")
+    errs["memory"] = max(card_close(a.memory, b.memory, "memory")
+                         for a, b in zip(got_d[2], want_d[2]))
+    require(all(torch.equal(a.last_access.cpu(), b.last_access)
+                and torch.equal(a.read_idx.cpu().sort(-1).values,
+                                b.read_idx.sort(-1).values)
+                for a, b in zip(got_d[2], want_d[2])),
+            "reduced decode: usage or read rows differ, card against CPU")
+    out["card_vs_cpu"] = dict(err=errs, seeds=seeds,
+                              f32_launches=small_launches)
+    print(f"[mla] reduced {MLA_ARCH} (q·k {small.mla.nope_head_dim} + "
+          f"{small.mla.rope_head_dim}, v {small.mla.v_head_dim}, "
+          f"{small.num_heads} heads, {small.num_layers} layers; f32) on the "
+          f"card against the CPU (token seeds {seeds}): prefill logits "
+          f"{errs['prefill']:.3g} ({small_launches} f32 attention launches "
+          f"at (192, 128)), decode_scan of {MLA_SMALL_DECODE} tokens with "
+          f"memory states {errs['decode']:.3g}, ckv {errs['cache']:.3g}, "
+          f"memory {errs['memory']:.3g} (bar {SLICE_TOL} of max(1, |CPU|); "
+          f"usage and read rows equal)")
+    del p_cpu, p_gpu, got, want, got_d, want_d
+    torch.cuda.empty_cache()
+    part("e")
+
+    # (b) the prefill at full width in lockstep: every attention launch
+    # against its plain version, the memory kernels too. The stream stays
+    # bf16 through the 4 blocks (the one memory group comes last).
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=dev, dtype=cfg.compute_dtype)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in pytree.tree_leaves(params))
+    out.update(params=n_params, param_bytes=param_bytes)
+    print(f"[mla] {MLA_ARCH} at {MLA_LAYERS} of 60 layers: {n_params} "
+          f"parameters, {param_bytes} B in bf16, drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(17)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (MLA_B, MLA_S),
+                                     generator=gen).to(dev)}
+    zero_counts()
+    with torch.inference_mode(), Intercept(ops, checker=checker), \
+            FlashCheck(ops, ref, keep=(0,)) as fc:
+        logits = lm.prefill(params, cfg, batch)
+    torch.cuda.synchronize()
+    launched = counts()
+    want_counts = {name: 0 for name in launched}
+    want_counts.update({"flash_attention": cfg.num_layers,
+                        **{name: groups * segments for name in FORWARD}})
+    require(launched == want_counts, f"prefill launches {launched}, expected "
+            f"{want_counts}")
+    by_dtype = [str(c["dtype"])[6:] for c in fc.checks]
+    require(by_dtype == ["bfloat16"] * cfg.num_layers,
+            f"prefill attention launches by dtype {by_dtype}: expected "
+            f"{cfg.num_layers} bf16")
+    require(logits.dtype == torch.float32
+            and logits.shape == (MLA_B, 1, cfg.vocab_size)
+            and torch.isfinite(logits).all().item(),
+            "prefill logits are not finite f32 of shape (B, 1, V)")
+    bf16_err = max(c["err"] for c in fc.checks)
+    out.update(prefill_launches=launched, flash_bf16_max_err=bf16_err)
+    print(f"[mla] prefill (B={MLA_B}, S={MLA_S}) in lockstep: launches "
+          f"{ {k: v for k, v in launched.items() if v} } ({cfg.num_layers} "
+          f"bf16 attention launches at (192, 128), {groups * segments} of "
+          f"each memory kernel: one group of {segments} segments); flash "
+          f"against plain: bf16 max err {bf16_err:.3g}; memory kernels: read "
+          f"err {checker.err['fused_read_sweep']:.3g}, write err "
+          f"{checker.err['sparse_write_update']:.3g}, near-ties "
+          f"{checker.near_ties}")
+    part("b")
+
+    # (a) the kernel at layer 0's inputs: bf16 as the prefill ran it, and
+    # f32 on the same values upcast, each held against its plain version.
+    q0, k0, v0 = fc.kept[0]
+    del fc
+    require(q0.dtype == torch.bfloat16
+            and q0.shape == (MLA_B, MLA_S, cfg.num_heads, DQK)
+            and v0.shape == (MLA_B, MLA_S, cfg.num_heads, DV),
+            f"layer 0 ran {q0.dtype} {tuple(q0.shape)}, v {tuple(v0.shape)}")
+    q4, k4, v4 = (t.float() for t in (q0, k0, v0))
+    zero_counts()
+    f32_check = check_flash(ref, q4, k4, v4, flash_attention(q4, k4, v4))
+    require(counts()["flash_attention"] == 1, "the f32 check did not launch")
+    row_bf16 = attention_row(ref, flash_attention, q0, k0, v0, flush,
+                             tag="mla")
+    row_f32 = attention_row(ref, flash_attention, q4, k4, v4, flush,
+                            tag="mla")
+    out["pairs"] = attn_pairs(MLA_S)
+    out["flash_f32_check"] = f32_check
+    del q0, k0, v0, q4, k4, v4
+    torch.cuda.empty_cache()
+    for name, r in (("f32", row_f32), ("bf16", row_bf16)):
+        lib = "none (" + ", ".join(r["library_refused"]) + " refused)" \
+            if r["library_ms"] is None else (
+                f"{r['library_ms']:.4f} ms ({r['library_call']}; "
+                f"{r['ms'] / r['library_ms']:.2f}x its time)")
+        print(f"[time] flash_attention {name} at DeepSeek-V2's prefill (B="
+              f"{MLA_B}, S={MLA_S}, H={cfg.num_heads}, q·k {DQK}, v {DV}, "
+              f"causal: {out['pairs']} (query, key) pairs a head): "
+              f"{r['ms']:.4f} ms (bound {r['bound'][0]:.4f} ms by "
+              f"{r['bound'][1]}: {r['bound'][0] / r['ms']:.1%} of it), "
+              f"plain {r['plain_ms']:.4f} ms, library {lib}")
+    print(f"[mla] flash_attention f32 at (192, 128) against plain: "
+          f"{f32_check}")
+    part("a")
+
+    # The prefill's host ms, peak and device-busy share.
+    def prefill_run(_):
+        lm.prefill(params, cfg, batch)
+
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms, prefill_all = host_ms(prefill_run, runs=MLA_PREFILL_RUNS)
+    prefill_peak = torch.cuda.max_memory_allocated() - held
+    dev_ms, on_dev = device_time(lambda: prefill_run(None))
+    out.update(prefill_ms=prefill_ms, prefill_ms_all=prefill_all,
+               prefill_peak_bytes=prefill_peak, held_bytes=held,
+               prefill_device_ms=dev_ms or None,
+               prefill_busy_share=(dev_ms / prefill_ms) if dev_ms else None,
+               prefill_tokens_per_s=MLA_B * MLA_S / prefill_ms * 1e3,
+               prefill_by_kernel=[(kk[:60], t, c) for kk, t, c in on_dev[:8]])
+    print(f"[time] DeepSeek-V2 prefill (B={MLA_B}, S={MLA_S}, {MLA_LAYERS} "
+          f"layers) {prefill_ms:.1f} ms, median of "
+          f"{', '.join(f'{t:.1f}' for t in prefill_all)} "
+          f"({out['prefill_tokens_per_s']:.0f} tokens/s); peak "
+          f"{prefill_peak} B above the {held} B held ({param_bytes} B of "
+          f"weights); "
+          + (f"{dev_ms:.1f} ms of kernels ({dev_ms / prefill_ms:.1%} busy); "
+             f"by kernel (ms, launches): "
+             + "; ".join(f"{kk[:50]} {t:.1f} ({c})"
+                         for kk, t, c in on_dev[:6])
+             if dev_ms else "device time not measured (the profiler "
+             "recorded none)"))
+    del logits
+    torch.cuda.empty_cache()
+    part("b timed")
+
+    # (c) the decode with memory states: a MLA_PROMPT-token prompt, then
+    # MLA_GEN greedy tokens in lockstep; the absorbed decode is plain
+    # PyTorch, so a token launches the memory kernels and no attention.
+    cache = lm.init_cache(cfg, MLA_B, MLA_MAX_LEN, device=dev)
+    mem = lm.init_memory_states(cfg, MLA_B, device=dev)
+    zero_counts()
+    d_logits, cache, mem = lm.decode_scan(params, cfg, cache,
+                                          batch["tokens"][:, :MLA_PROMPT],
+                                          mem_states=mem)
+    after_prompt = counts()
+    with torch.inference_mode(), Intercept(ops, checker=checker):
+        per_token = []
+        for _ in range(MLA_GEN):
+            tok = d_logits[:, -1].float().argmax(-1).to(torch.int32)
+            zero_counts()
+            d_logits, cache, mem = lm.decode_step(params, cfg, cache,
+                                                  tok[:, None],
+                                                  mem_states=mem)
+            per_token.append(counts())
+    torch.cuda.synchronize()
+    one = {name: 0 for name in after_prompt}
+    one.update({name: groups for name in FORWARD})
+    require(after_prompt == {kk: vv * MLA_PROMPT for kk, vv in one.items()},
+            f"prompt launches {after_prompt}")
+    require(all(c == one for c in per_token), f"a decode step launched "
+            f"{[c for c in per_token if c != one][:1]}, expected {one}")
+    n_tok = MLA_PROMPT + MLA_GEN
+    require(d_logits.dtype == torch.bfloat16
+            and d_logits.shape == (MLA_B, 1, cfg.vocab_size)
+            and torch.isfinite(d_logits).all().item()
+            and int(cache["pos"]) == n_tok
+            and all(int(st.step) == n_tok for st in mem)
+            and cache["ckv"].shape == (MLA_LAYERS, MLA_B, MLA_MAX_LEN,
+                                       mla.kv_lora + mla.rope_head_dim)
+            and bool(cache["ckv"][:, :, :n_tok].abs().amax((1, 2, 3)).gt(0)
+                     .all()) and not cache["ckv"][:, :, n_tok:].any(),
+            "decode: logits not finite bf16, the position or the steps are "
+            "off, or the ckv cache is not written at every layer up to the "
+            "position and zero past it")
+    state = {"cache": cache, "mem": mem}
+
+    def rewind():
+        state["cache"] = {**state["cache"], "pos": torch.tensor(
+            MLA_PROMPT, dtype=torch.int32, device=dev)}
+
+    def decode_window(_, steps=MLA_GEN):
+        tok = torch.ones((MLA_B, 1), dtype=torch.int32, device=dev)
+        for _ in range(steps):
+            lg, state["cache"], state["mem"] = lm.decode_step(
+                params, cfg, state["cache"], tok, mem_states=state["mem"])
+            tok = lg[:, -1].float().argmax(-1).to(torch.int32)[:, None]
+
+    window_ms, window_all = host_ms(decode_window, runs=2, setup=rewind)
+    decode_ms = window_ms / MLA_GEN
+    rewind()
+    ddev_ms, d_on_dev = device_time(lambda: decode_window(None,
+                                                           PROFILE_STEPS))
+    ddev_ms /= PROFILE_STEPS
+    out.update(decode_ms_per_token=decode_ms,
+               decode_ms_per_token_all=[t / MLA_GEN for t in window_all],
+               decode_device_ms=ddev_ms or None,
+               decode_busy_share=(ddev_ms / decode_ms) if ddev_ms else None,
+               decode_by_kernel=[(kk[:60], t / PROFILE_STEPS,
+                                  c / PROFILE_STEPS)
+                                 for kk, t, c in d_on_dev[:8]])
+    print(f"[mla] decode_scan with memory states: {MLA_PROMPT} prompt tokens "
+          f"and {MLA_GEN} greedy ones (in lockstep), {one['fused_read_sweep']}"
+          f" read, write and LRA launch and no attention launch a token (the "
+          f"absorbed decode is plain PyTorch, as in JAX)")
+    print(f"[time] DeepSeek-V2 decode with memory (B={MLA_B}): "
+          f"{decode_ms:.3f} ms a token on the host (windows of {MLA_GEN}: "
+          f"{', '.join(f'{t / MLA_GEN:.3f}' for t in window_all)}); "
+          + (f"{ddev_ms:.3f} ms of kernels ({ddev_ms / decode_ms:.1%} busy, "
+             f"a profiled window of {PROFILE_STEPS} steps); by kernel (ms a "
+             f"token): " + "; ".join(f"{kk[:40]} {t / PROFILE_STEPS:.3f}"
+                                     for kk, t, c in d_on_dev[:5])
+             if ddev_ms else "device time not measured"))
+    del cache, mem, state, d_logits
+    torch.cuda.empty_cache()
+    part("c")
+
+    # (d) the engine on MLA_LANES lanes: MLA_REQUESTS token requests in
+    # lockstep with exact launches a step; then the rescale 4 -> 2 -> 4
+    # lanes mid-run against an uninterrupted run, bit for bit.
+    gen = torch.Generator().manual_seed(18)
+    lens = torch.randint(MLA_REQ_PROMPT[0], MLA_REQ_PROMPT[1] + 1,
+                         (MLA_REQUESTS,), generator=gen).tolist()
+    eng = ServeEngine(cfg, lanes=MLA_LANES, max_len=MLA_MAX_LEN,
+                      params=params, device=dev)
+    for i, n in enumerate(lens):
+        eng.submit(Request(user=f"user{i}", prompt=torch.randint(
+            1, cfg.vocab_size, (n,), generator=gen).tolist(),
+            max_new_tokens=MLA_REQ_GEN))
+    results, ms_a = [], []
+    with Intercept(ops, checker=checker):
+        while eng.scheduler.has_work:
+            before = eng.steps
+            zero_counts()
+            t0 = time.perf_counter()
+            results += eng.step()
+            ms_a.append((time.perf_counter() - t0) * 1e3)
+            launched = counts()
+            want_counts = {name: 0 for name in launched}
+            want_counts.update({name: groups * (eng.steps - before)
+                                for name in FORWARD})
+            require(launched == want_counts, f"engine step {before}: launches "
+                    f"{ {k: v for k, v in launched.items() if v} }")
+    require(len(results) == MLA_REQUESTS and all(
+        len(r["tokens"]) == MLA_REQ_GEN
+        and all(0 <= t < cfg.vocab_size for t in r["tokens"])
+        for r in results), "engine: requests or tokens out of count or range")
+    ms_a.sort()
+    out.update(engine_steps=eng.steps, engine_ms_per_step=ms_a[len(ms_a) // 2])
+    print(f"[mla] engine ({MLA_LANES} lanes, max_len {MLA_MAX_LEN}): "
+          f"{MLA_REQUESTS} token requests (prompts of {MLA_REQ_PROMPT[0]}-"
+          f"{MLA_REQ_PROMPT[1]}, {MLA_REQ_GEN} new) in {eng.steps} steps in "
+          f"lockstep ({groups} read, write and LRA launch a step; median "
+          f"{ms_a[len(ms_a) // 2]:.1f} ms a step with the checks)")
+    del eng
+
+    rng = np.random.default_rng(19)
+    P = rng.integers(1, cfg.vocab_size, 4).tolist()
+    Pn = rng.integers(1, cfg.vocab_size, 4).tolist()
+
+    def u(prompt, n):
+        return Request(user="u", prompt=prompt, max_new_tokens=n,
+                       greedy=False, sample_seed=42)
+
+    def noise(n):
+        return Request(user="noise", prompt=Pn, max_new_tokens=n,
+                       greedy=False, sample_seed=7)
+
+    def user_tokens(res):
+        return [r for r in res if r["user"] == "u"][0]["tokens"]
+
+    def logged(lanes, log):
+        e = ServeEngine(cfg, lanes=lanes, max_len=MLA_MAX_LEN, params=params,
+                        device=dev, replicas=2)
+        inner = e.step
+
+        def step():
+            done = inner()
+            for lane, req in e.scheduler.active.items():
+                if req.user == "u":
+                    log[int(e._counters[lane])] = e.last_logits[lane].clone()
+            return done
+        e.step = step
+        return e
+
+    log_ref, log_live = {}, {}
+    ref_eng = logged(4, log_ref)
+    tok_ref = user_tokens(ref_eng.run([u(P, 8), noise(6)]))
+    tok_ref2 = user_tokens(ref_eng.run([u([5], 4)]))
+    sess_ref = ref_eng.sessions.take("u")
+    del ref_eng
+    eng = logged(4, log_live)
+    eng.submit(u(P, 8))
+    eng.submit(noise(6))
+    done = []
+    for _ in range(6):
+        done.extend(eng.step())
+    eng.rescale(replicas=1)
+    require(eng.lanes == 2, f"rescale left {eng.lanes} lanes")
+    while eng.scheduler.has_work:
+        done.extend(eng.step())
+    tok_live = user_tokens(done)
+    eng.rescale(replicas=2, lanes=4)
+    tok_live2 = user_tokens(eng.run([u([5], 4)]))
+    diff = session_diff(eng.sessions.take("u"), sess_ref)
+    del eng
+    first_step = next((c for c in sorted(log_ref) if c in log_live
+                       and not torch.equal(log_ref[c], log_live[c])), None)
+    exact = (tok_live == tok_ref and tok_live2 == tok_ref2 and diff is None
+             and first_step is None)
+    out.update(rescale_bit_exact=exact,
+               rescale_first_differing_counter=first_step,
+               rescale_first_differing_leaf=diff)
+    require(exact, f"rescale 4 -> 2 -> 4 lanes is not bit-exact: tokens "
+            f"{tok_live}, {tok_live2} against {tok_ref}, {tok_ref2}; u's "
+            f"logits first differ at token counter {first_step}, first "
+            f"differing leaf {diff}")
+    print("[mla] engine rescale 4 -> 2 -> 4 lanes mid-run against an "
+          "uninterrupted 4-lane run: tokens, u's logits at every token "
+          "counter, memory states, ckv cache, position and counter bit for "
+          "bit")
+    del params, batch
+    torch.cuda.empty_cache()
+    part("d")
+
+    # The static serving driver and the example, each on weights of its
+    # own from seed 0: no memory states, so no memory op and, decoding only,
+    # no attention kernel.
+    zero_counts()
+    served = serve(MLA_ARCH, use_reduced=False, num_layers=MLA_LAYERS,
+                   batch=MLA_B, prompt_len=MLA_PROMPT, gen_len=MLA_GEN,
+                   max_len=MLA_MAX_LEN, device=dev)
+    torch.cuda.synchronize()
+    tokens = served["tokens"]
+    require(tokens.shape == (MLA_B, MLA_GEN)
+            and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+            and not any(counts().values()),
+            "serve: tokens out of shape or range, or a kernel launched")
+    out.update(serve_prefill_s=served["prefill_s"],
+               serve_decode_tok_per_s=served["decode_tok_per_s"])
+    print(f"[mla] serve(--full, {MLA_LAYERS} layers, max_len {MLA_MAX_LEN}): "
+          f"{tuple(tokens.shape)} greedy tokens; prefill "
+          f"{served['prefill_s']:.2f} s, decode "
+          f"{served['decode_tok_per_s']:.1f} tok/s")
+    del served, tokens
+    torch.cuda.empty_cache()
+    argv = sys.argv
+    sys.argv = ["serve_batched", "--arch", "deepseek_v2_236b", "--full",
+                "--layers", str(MLA_LAYERS), "--prompt-len", "8",
+                "--gen-len", "8", "--device", str(dev)]
+    try:
+        serve_batched.main()
+    finally:
+        sys.argv = argv
+    torch.cuda.empty_cache()
+    part("serve")
+    out["seconds"] = part_s
+    print(f"[mla] seconds by part: {part_s}")
+    return {"row": row_f32, "bf16_row": row_bf16,
+            "launches": {"flash_attention_mla": small_launches,
+                         "flash_attention_mla_bf16": cfg.num_layers},
+            "err": f32_check["err"], "bf16_err": bf16_err, "mla": out}
+
+
 def small_state(s, kind, gen):
     """A small model's start state for the card-against-CPU step: an SDNC
     state with a random memory (written rows then are not parallel, so the
@@ -5105,7 +5689,7 @@ def run() -> None:
         print(f"[build] flash_attention: HMMA not counted ({hmma}); the "
               f"-Xptxas -v lines above are all there is")
     else:
-        require(len(hmma) == 12 and all(
+        require(len(hmma) == 14 and all(
                     (n > 0) == k.startswith("flash_bf16") for k, n in
                     hmma.items()),
                 f"flash_attention's SASS: HMMA counts {hmma}: the bf16 "
@@ -6334,7 +6918,16 @@ def run() -> None:
     checker.err["flash_attention_vlm_bf16"] = vlm["bf16_err"]
 
     mark("16")
-    # ---- 17. report ----
+    # ---- 17. DeepSeek-V2 (MLA, MoE) at full width, 4 of 60 layers ----
+    mla = mla_phase(dev, ops, ref, checker, zero_counts, counts, flush,
+                    info["flash_attention"]["ptxas"])
+    rows["flash_attention_mla"] = mla["row"]
+    rows["flash_attention_mla_bf16"] = mla["bf16_row"]
+    checker.err["flash_attention_mla"] = mla["err"]
+    checker.err["flash_attention_mla_bf16"] = mla["bf16_err"]
+
+    mark("17")
+    # ---- 18. report ----
     lm_write = lmr["lm"]["kernels_at_lm_shapes"]["sparse_write_update"]
     above = (("lra_topn", rows["lra_topn"]), ("block", lra_block),
              ("scatter_rows 'set'", rows["scatter_rows"]),
@@ -6378,6 +6971,8 @@ def run() -> None:
                "flash_attention_swa_bf16": swa["launches"],
                "flash_attention_vlm": vlm["launches"],
                "flash_attention_vlm_bf16": vlm["launches"],
+               "flash_attention_mla": mla["launches"],
+               "flash_attention_mla_bf16": mla["launches"],
                "topk_read": mesh["launches"]}
     report = []
     for name, r in rows.items():
@@ -6443,6 +7038,7 @@ def run() -> None:
                       "dnc": dnc_res, "engine": engine_res,
                       "lm_train": train_res, "stream": stream_res,
                       "swa": swa["swa"], "vlm": vlm["vlm"],
+                      "mla": mla["mla"],
                       "phase_seconds": phase_s},
                      default=str))
     print(json.dumps({"ok": True, "device": {

@@ -2,12 +2,12 @@
 
 ``get_config(name)`` returns the published config (a ``_sam`` suffix adds
 the default `MemoryLayerConfig`); ``reduced(cfg)`` a test-sized config of
-the same family. The port runs the dense GQA family: StarCoder2-7B
-(causal, GELU MLP), H2O-Danube3-4B (sliding window, gated SiLU MLP, head
-dim 120) and PaliGemma-3B (prefix-LM over a stubbed vision prefix, MQA
-with pad heads, GeGLU MLP, head dim 256, tied embeddings). Every other
-architecture of the JAX registry raises, naming the ROADMAP item that
-ports it.
+the same family. The port runs StarCoder2-7B (causal, GELU MLP),
+H2O-Danube3-4B (sliding window, gated SiLU MLP, head dim 120),
+PaliGemma-3B (prefix-LM over a stubbed vision prefix, MQA with pad heads,
+GeGLU MLP, head dim 256, tied embeddings) and DeepSeek-V2-236B (MLA, a
+dense first layer, then MoE layers). Every other architecture of the JAX
+registry raises, naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -28,7 +28,8 @@ ARCH_IDS = (
     "paligemma_3b",
     "hymba_1_5b",
 )
-PORTED = ("starcoder2_7b", "h2o_danube_3_4b", "paligemma_3b")
+PORTED = ("starcoder2_7b", "h2o_danube_3_4b", "paligemma_3b",
+          "deepseek_v2_236b")
 # What each architecture the port does not run yet needs (ROADMAP §A).
 NOT_PORTED = {
     "rwkv6_7b": "A9c (the RWKV block)",
@@ -37,8 +38,10 @@ NOT_PORTED = {
     "mistral_large_123b": "A9c (dense GQA, 123B parameters: more than one "
                           "H100)",
     "musicgen_medium": "A9c (the audio frontend)",
-    "deepseek_v2_236b": "A9c (MLA and MoE)",
-    "llama4_maverick_400b_a17b": "A9c (MoE)",
+    "llama4_maverick_400b_a17b": "A9c (its registry entry: GQA with pad "
+                                 "heads over the ported MoE, but one "
+                                 "layer's 128 x 3 x 5120 x 8192 experts "
+                                 "are 32 GB in bf16)",
     "hymba_1_5b": "A9c (the hybrid SSM block)",
 }
 
@@ -62,14 +65,24 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     reduced` for the families the port runs): 2 layers, d 128, 4 heads
     over 2 kv heads, head_dim 32, no head padding, a window of 32 where
     the config has one, a vision prefix of 16 (``frontend_len`` and
-    ``prefix_lm``) where it has one, and a memory of 64 slots of 16 with
-    K = 4, a memory group per layer and segments of 32."""
+    ``prefix_lm``) where it has one; 4 experts of 64, top-2 (or fewer), at
+    most one dense layer where it has MoE; MLA's kv_lora 32, q_lora 48,
+    rope 16, nope 32, v 32 where it has MLA; and a memory of 64 slots of
+    16 with K = 4, a memory group per layer and segments of 32."""
     kw = dict(
         num_layers=2, d_model=128, num_heads=4, num_kv_heads=2, head_dim=32,
         d_ff=256, vocab_size=512, q_block=64, kv_block=64, loss_chunk=64,
         remat=False, pad_head_groups=None)
     if cfg.window is not None:
         kw["window"] = 32
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, num_experts=4, top_k=min(2, cfg.moe.top_k), d_expert=64,
+            num_dense_layers=min(1, cfg.moe.num_dense_layers))
+    if cfg.mla is not None:
+        kw["mla"] = dataclasses.replace(
+            cfg.mla, kv_lora=32, q_lora=48, rope_head_dim=16,
+            nope_head_dim=32, v_head_dim=32)
     if cfg.frontend == "vision":
         kw["frontend_len"] = 16
         kw["prefix_lm"] = 16

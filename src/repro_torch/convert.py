@@ -218,7 +218,8 @@ def opt_state_from_jax(state, *, device="cuda") -> RMSPropState:
 # The LM
 # --------------------------------------------------------------------------
 
-_LM_GROUPS = ("embed", "blocks", "final_norm", "lm_head", "memory")
+_LM_GROUPS = ("embed", "blocks", "dense_blocks", "final_norm", "lm_head",
+              "memory")
 
 
 def _float_leaf(x, device) -> torch.Tensor:
@@ -241,12 +242,15 @@ def lm_params_from_jax(tree, *, device="cuda"):
     leaf for leaf in the same layout and dtype (stacked ``blocks`` (L, ...)
     and ``memory`` (groups, ...), ``embed``, ``final_norm``, ``lm_head``;
     no ``lm_head`` where the head is tied to the embedding, PaliGemma's,
-    whose pad heads are leaves of ``wq`` and ``wo`` like the others).
-    Raises on any other group."""
+    whose pad heads are leaves of ``wq`` and ``wo`` like the others; a MoE
+    config's leading dense layers stacked as ``dense_blocks``, its blocks'
+    ``moe`` and MLA's ``attn`` leaves as any others). Raises on any other
+    group."""
     unknown = set(tree) - set(_LM_GROUPS)
     if unknown or not {"embed", "blocks", "final_norm"} <= set(tree):
-        raise ValueError(f"expected the groups {_LM_GROUPS} (lm_head and "
-                         f"memory optional), got {sorted(tree)}")
+        raise ValueError(f"expected the groups {_LM_GROUPS} (lm_head, "
+                         f"dense_blocks and memory optional), got "
+                         f"{sorted(tree)}")
     return _tree(dict(tree), device)
 
 
@@ -260,15 +264,16 @@ def adamw_state_from_jax(state, *, device="cuda") -> AdamWState:
 
 
 def lm_cache_from_jax(cache, *, device="cuda"):
-    """A JAX LM cache {"k", "v" (L, B, Smax, Hkv, D), "pos" () or (B,)}
-    -> the port's, k and v in their dtype (f32 or bf16), pos int32. With a
+    """A JAX LM cache {"k", "v" (L, B, Smax, Hkv, D), "pos" () or (B,)},
+    or MLA's {"ckv" (L, B, Smax, kv_lora + rope), "pos"}, -> the port's,
+    the float leaves in their dtype (f32 or bf16), pos int32. With a
     window Smax = min(max_len, window) slots of a ring, as on both sides."""
-    if set(cache) != {"k", "v", "pos"}:
-        raise ValueError(f"expected the cache keys k, v and pos (the dense "
-                         f"GQA family), got {sorted(cache)}")
-    return {"k": _float_leaf(cache["k"], device),
-            "v": _float_leaf(cache["v"], device),
-            "pos": _tensor(cache["pos"], np.int32, device)}
+    if set(cache) not in ({"k", "v", "pos"}, {"ckv", "pos"}):
+        raise ValueError(f"expected the cache keys k, v and pos (GQA) or "
+                         f"ckv and pos (MLA), got {sorted(cache)}")
+    out = {k: _float_leaf(v, device) for k, v in cache.items() if k != "pos"}
+    out["pos"] = _tensor(cache["pos"], np.int32, device)
+    return out
 
 
 def lm_memory_states_from_jax(states, *, device="cuda"):
@@ -293,13 +298,14 @@ def lm_memory_states_from_jax(states, *, device="cuda"):
 
 def session_from_jax(sess, *, device="cuda"):
     """A JAX serving session (`repro.launch.engine`: {"cache": {"k", "v"}
-    (L, 1, Smax, Hkv, D), "pos" (1,), "counter", "mem": a tuple of
-    `MemoryState` with batch 1}) -> the port's (`repro_torch.launch.
-    engine.SessionStore`'s), leaf for leaf; "mem" absent for a memoryless
-    model."""
+    (L, 1, Smax, Hkv, D) or MLA's {"ckv"} (L, 1, Smax, kv_lora + rope),
+    "pos" (1,), "counter", "mem": a tuple of `MemoryState` with batch 1})
+    -> the port's (`repro_torch.launch.engine.SessionStore`'s), leaf for
+    leaf; "mem" absent for a memoryless model."""
     cache = lm_cache_from_jax({**sess["cache"], "pos": sess["pos"]},
                               device=device)
-    out = {"cache": {k: cache[k] for k in ("k", "v")}, "pos": cache["pos"],
+    out = {"cache": {k: v for k, v in cache.items() if k != "pos"},
+           "pos": cache["pos"],
            "counter": int(np.asarray(sess["counter"]))}
     if sess.get("mem") is not None:
         out["mem"] = lm_memory_states_from_jax(sess["mem"], device=device)

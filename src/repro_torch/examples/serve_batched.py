@@ -1,17 +1,20 @@
 """Batched serving: decode a static batch of requests against a KV cache,
 the port of the JAX package's `examples/serve_batched.py`, for the
-families the port runs (dense GQA: StarCoder2-7B, H2O-Danube3-4B with its
-sliding window and ring cache, and PaliGemma-3B served with token prompts
-as JAX serves it). Another architecture raises the registry's error,
-naming the ROADMAP item that ports it.
+families the port runs (StarCoder2-7B, H2O-Danube3-4B with its sliding
+window and ring cache, PaliGemma-3B served with token prompts as JAX
+serves it, and DeepSeek-V2 with MLA and MoE). Another architecture raises
+the registry's error, naming the ROADMAP item that ports it.
 
     python -m repro_torch.examples.serve_batched --full
     python -m repro_torch.examples.serve_batched --arch h2o_danube_3_4b --full
     python -m repro_torch.examples.serve_batched --arch paligemma_3b --full
+    python -m repro_torch.examples.serve_batched --arch deepseek_v2_236b \
+        --full --layers 4
     python -m repro_torch.examples.serve_batched --device cpu
 
-serve the published width on the card (the default device) or the reduced
-config on the host.
+serve the published width on the card (the default device; DeepSeek-V2's
+60 layers need more than one card: ``--layers 4`` keeps the first 4) or
+the reduced config on the host.
 """
 import argparse
 
@@ -26,11 +29,14 @@ def main():
     ap.add_argument("--gen-len", type=int, default=16)
     ap.add_argument("--full", action="store_true",
                     help="the published width (default: the reduced config)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to the first LAYERS layers")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     res = serve(args.arch, batch=args.batch, prompt_len=args.prompt_len,
                 gen_len=args.gen_len, max_len=args.prompt_len + args.gen_len,
-                use_reduced=not args.full, device=args.device)
+                use_reduced=not args.full, device=args.device,
+                num_layers=args.layers)
     print(f"[{args.arch}] generated {res['tokens'].shape[1]} tokens for "
           f"{res['tokens'].shape[0]} requests")
     print(f"prefill: {res['prefill_s']:.2f}s  "

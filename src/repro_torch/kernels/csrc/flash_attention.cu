@@ -53,6 +53,15 @@
 // D = 256 (PaliGemma) does not fit the narrower tiles' registers; its
 // changes are under each kernel below.
 //
+// q·k and v of different widths (DeepSeek-V2's MLA: q and k 192 wide, the
+// 128 nope columns and the 64 rope ones, v 128 wide; `chunked_attention`
+// takes v's width apart, src/repro/models/attention.py:452-468): the
+// kernels are templates over the pair (DQK, DV), the head dims above being
+// (D, D). q and k tiles are DQK wide, v tiles and the output DV wide; the
+// row strides are H·DQK, Hkv·DQK and Hkv·DV, and o is (B, S, H, DV). The
+// scale stays DQK^-0.5. Only (192, 128) is instantiated besides (D, D);
+// its changes are under each kernel below.
+//
 // What bounds it on the H100: operations. Let half = S(S+1)/2 · B·H · 2D,
 // the flop of q·kᵀ over the causal half (1.03e11 at B = 4, S = 2048,
 // H = 48, D = 128).
@@ -114,8 +123,11 @@ constexpr float kNeg = -1e30f;   // the TPU kernel's mask value
 // The tile width of head dim D: D itself, or 128 for D = 120.
 constexpr int pad_dim(int D) { return D == 120 ? 128 : D; }
 
-__host__ __device__ constexpr bool head_dim_ok(int D) {
-  return D == 16 || D == 32 || D == 64 || D == 120 || D == 128 || D == 256;
+// The (q·k, v) head dims instantiated: (D, D), and MLA's (192, 128).
+__host__ __device__ constexpr bool head_dims_ok(int DQK, int DV) {
+  return (DQK == DV && (DQK == 16 || DQK == 32 || DQK == 64 || DQK == 120 ||
+                        DQK == 128 || DQK == 256)) ||
+         (DQK == 192 && DV == 128);
 }
 
 // Whether key `key` is hidden from query row `row` (both absolute):
@@ -228,84 +240,105 @@ __device__ __forceinline__ unsigned short to_bf16(float x) {
 // Rows [0, R) of a (·, row_stride) input of D columns from `src` into a
 // shared tile of DP columns by 16-byte cp.async; rows at or past `valid`
 // (at least 1) and columns at or past D are zero. Chunk `ch` of row `r`
-// goes to element `at(r, ch)` of `dst`. Each of the block's NT threads
-// keeps one chunk column and walks the rows NT / (DP / V) apart.
+// goes to element `at(r, ch)` of `dst`. Where the block's NT threads are a
+// multiple of a row's DP / V chunks, each keeps one chunk column and walks
+// the rows NT / (DP / V) apart; else (DP = 192) thread i takes chunks i,
+// i + NT, ... of the tile in row-major order.
 template <typename T, int R, int D, int DP, int NT = kThreads, typename At>
 __device__ __forceinline__ void load_rows(T* dst, const T* src,
                                           long long row_stride, int valid,
                                           At at) {
   constexpr int V = 16 / sizeof(T), PER_ROW = DP / V;
-  constexpr int STEP = NT / PER_ROW;
-  static_assert(NT % PER_ROW == 0 && R % STEP == 0 && D % V == 0,
-                "tile shape");
-  const int ch = threadIdx.x % PER_ROW, r0 = threadIdx.x / PER_ROW;
-  const bool col = ch * V < D;
-  const T* row = src + r0 * row_stride + (col ? ch * V : 0);
+  static_assert(D % V == 0 && (R * PER_ROW) % NT == 0, "tile shape");
+  if constexpr (NT % PER_ROW == 0) {
+    constexpr int STEP = NT / PER_ROW;
+    static_assert(R % STEP == 0, "tile shape");
+    const int ch = threadIdx.x % PER_ROW, r0 = threadIdx.x / PER_ROW;
+    const bool col = ch * V < D;
+    const T* row = src + r0 * row_stride + (col ? ch * V : 0);
 #pragma unroll
-  for (int p = 0; p < R / STEP; ++p) {
-    const int r = r0 + p * STEP;
-    const bool ok = col && r < valid;
-    cp_async16(dst + at(r, ch), ok ? row : src, ok);
-    row += STEP * row_stride;
+    for (int p = 0; p < R / STEP; ++p) {
+      const int r = r0 + p * STEP;
+      const bool ok = col && r < valid;
+      cp_async16(dst + at(r, ch), ok ? row : src, ok);
+      row += STEP * row_stride;
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < R * PER_ROW / NT; ++p) {
+      const int i = threadIdx.x + p * NT, r = i / PER_ROW, ch = i % PER_ROW;
+      const bool ok = ch * V < D && r < valid;
+      cp_async16(dst + at(r, ch), ok ? src + r * row_stride + ch * V : src,
+                 ok);
+    }
   }
 }
 
 // ---- bf16: tensor cores ----
 
-template <int D>
+// (192, 128): q and k tiles of 192 + 8 columns, v tiles of 128 + 8 (112 KB
+// a block, two blocks an SM); q's 12 k-slices are loaded per use, as at
+// D = 256, and the 16 output n-tiles fit beside a whole 64-key tile.
+template <int DQK, int DV>
 struct TileBF16 {
-  static_assert(head_dim_ok(D), "head dim");
-  static constexpr int DP = pad_dim(D);       // columns of a tile
-  static constexpr int LD = DP + 8;           // bf16 elements a padded row
-  static constexpr int TILE = kBQ * LD;       // one 64-row tile
-  static constexpr int SMEM = 5 * TILE * 2;   // q, k ×2, v ×2
-  // q's A fragments held in registers for the whole key loop (D <= 128),
-  // or loaded from shared memory per k-slice (D = 256).
-  static constexpr bool KEEP_Q = DP <= 128;
-  static constexpr int BLOCKS = DP <= 128 ? 2 : 1;   // an SM
+  static_assert(head_dims_ok(DQK, DV), "head dims");
+  static constexpr int DPQ = pad_dim(DQK);    // columns of a q or k tile
+  static constexpr int DPV = pad_dim(DV);     // columns of a v tile
+  static constexpr int LDQ = DPQ + 8;         // bf16 elements a padded row
+  static constexpr int LDV = DPV + 8;
+  static constexpr int TQ = kBQ * LDQ;        // one 64-row q or k tile
+  static constexpr int TV = kBQ * LDV;        // one 64-row v tile
+  static constexpr int SMEM = (3 * TQ + 2 * TV) * 2;   // q, k ×2, v ×2
+  // q's A fragments held in registers for the whole key loop (DQK <= 128),
+  // or loaded from shared memory per k-slice (192, 256).
+  static constexpr bool KEEP_Q = DPQ <= 128;
+  static constexpr int BLOCKS = DPV <= 128 ? 2 : 1;  // an SM
   // A 64-key tile's compute in NSUB sub-tiles of SUBK keys, KN n-tiles.
-  static constexpr int NSUB = DP <= 128 ? 1 : 2;
+  static constexpr int NSUB = DPV <= 128 ? 1 : 2;
   static constexpr int SUBK = kBQ / NSUB, KN = SUBK / 8;
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, TileBF16<D>::BLOCKS)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(kThreads, TileBF16<DQK, DV>::BLOCKS)
 flash_bf16_kernel(const unsigned short* __restrict__ q,
                   const unsigned short* __restrict__ k,
                   const unsigned short* __restrict__ v,
                   unsigned short* __restrict__ o, int S, int H, int Hkv,
                   int win, int pre, float scale_log2) {
-  using Sh = TileBF16<D>;
-  constexpr int DP = Sh::DP, LD = Sh::LD, TILE = Sh::TILE;
-  constexpr int KD = DP / 16;                 // k-slices of q·kᵀ
-  constexpr int NO = D / 8;                   // n-tiles of the output
+  using Sh = TileBF16<DQK, DV>;
+  constexpr int DPQ = Sh::DPQ, DPV = Sh::DPV, LDQ = Sh::LDQ, LDV = Sh::LDV;
+  constexpr int TQ = Sh::TQ, TV = Sh::TV;
+  constexpr int KD = DPQ / 16;                // k-slices of q·kᵀ
+  constexpr int NO = DV / 8;                  // n-tiles of the output
   constexpr bool KEEP_Q = Sh::KEEP_Q;
   constexpr int NSUB = Sh::NSUB, SUBK = Sh::SUBK, KN = Sh::KN;
   extern __shared__ __align__(16) unsigned short smem_bf[];
-  unsigned short* Qs = smem_bf;               // [64][LD]
-  unsigned short* Ks = Qs + TILE;             // 2 × [64][LD]
-  unsigned short* Vs = Ks + 2 * TILE;         // 2 × [64][LD]
+  unsigned short* Qs = smem_bf;               // [64][LDQ]
+  unsigned short* Ks = Qs + TQ;               // 2 × [64][LDQ]
+  unsigned short* Vs = Ks + 2 * TQ;           // 2 × [64][LDV]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;      // the mma fragments' row, pair
   const int iq = gridDim.x - 1 - blockIdx.x;  // heaviest first
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int hk = h / (H / Hkv);
-  const long long q_stride = (long long)H * D, kv_stride = (long long)Hkv * D;
-  const unsigned short* q_rows = q + ((long long)b * S * H + h) * D;
-  const unsigned short* k_rows = k + ((long long)b * S * Hkv + hk) * D;
-  const unsigned short* v_rows = v + ((long long)b * S * Hkv + hk) * D;
+  const long long q_stride = (long long)H * DQK;
+  const long long k_stride = (long long)Hkv * DQK, v_stride = (long long)Hkv * DV;
+  const unsigned short* q_rows = q + ((long long)b * S * H + h) * DQK;
+  const unsigned short* k_rows = k + ((long long)b * S * Hkv + hk) * DQK;
+  const unsigned short* v_rows = v + ((long long)b * S * Hkv + hk) * DV;
   const int q0 = iq * kBQ;
   int kt0, kt1;
   key_tiles(q0, iq, win, pre, kt0, kt1);
 
-  const auto padded = [](int r, int ch) { return r * LD + ch * 8; };
-  load_rows<unsigned short, kBQ, D, DP>(Qs, q_rows + q0 * q_stride, q_stride,
-                                        S - q0, padded);
-  load_rows<unsigned short, kBQ, D, DP>(Ks, k_rows + kt0 * kBQ * kv_stride,
-                                        kv_stride, S - kt0 * kBQ, padded);
-  load_rows<unsigned short, kBQ, D, DP>(Vs, v_rows + kt0 * kBQ * kv_stride,
-                                        kv_stride, S - kt0 * kBQ, padded);
+  const auto padded_q = [](int r, int ch) { return r * LDQ + ch * 8; };
+  const auto padded_v = [](int r, int ch) { return r * LDV + ch * 8; };
+  load_rows<unsigned short, kBQ, DQK, DPQ>(Qs, q_rows + q0 * q_stride,
+                                           q_stride, S - q0, padded_q);
+  load_rows<unsigned short, kBQ, DQK, DPQ>(Ks, k_rows + kt0 * kBQ * k_stride,
+                                           k_stride, S - kt0 * kBQ, padded_q);
+  load_rows<unsigned short, kBQ, DV, DPV>(Vs, v_rows + kt0 * kBQ * v_stride,
+                                          v_stride, S - kt0 * kBQ, padded_v);
   cp_async_commit();
 
   float acc[NO][4];
@@ -321,11 +354,11 @@ flash_bf16_kernel(const unsigned short* __restrict__ q,
   // columns 8·(l/8 % 2)); v's, transposed (keys l%8 + 8·(l/8 % 2), columns
   // 8·(l/16)). The fragment (kk, np) or (kv, dp) adds a constant.
   const unsigned q_lane = smem_addr(Qs) +
-      2 * ((warp * 16 + (lane & 15)) * LD + ((lane >> 4) << 3));
+      2 * ((warp * 16 + (lane & 15)) * LDQ + ((lane >> 4) << 3));
   const unsigned k_lane = smem_addr(Ks) +
-      2 * (((lane & 7) + ((lane >> 4) << 3)) * LD + (((lane >> 3) & 1) << 3));
+      2 * (((lane & 7) + ((lane >> 4) << 3)) * LDQ + (((lane >> 3) & 1) << 3));
   const unsigned v_lane = smem_addr(Vs) +
-      2 * (((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + ((lane >> 4) << 3));
+      2 * (((lane & 7) + (((lane >> 3) & 1) << 3)) * LDV + ((lane >> 4) << 3));
 
   for (int kt = kt0; kt <= kt1; ++kt) {
     const int slot = (kt - kt0) & 1, k0 = kt * kBQ;
@@ -333,12 +366,12 @@ flash_bf16_kernel(const unsigned short* __restrict__ q,
     __syncthreads();        // tile kt is in; every read of tile kt-1 done
     if (kt < kt1) {         // tile kt+1 into the other half of the ring
       const int k1 = k0 + kBQ;
-      load_rows<unsigned short, kBQ, D, DP>(Ks + (slot ^ 1) * TILE,
-                                            k_rows + k1 * kv_stride,
-                                            kv_stride, S - k1, padded);
-      load_rows<unsigned short, kBQ, D, DP>(Vs + (slot ^ 1) * TILE,
-                                            v_rows + k1 * kv_stride,
-                                            kv_stride, S - k1, padded);
+      load_rows<unsigned short, kBQ, DQK, DPQ>(Ks + (slot ^ 1) * TQ,
+                                               k_rows + k1 * k_stride,
+                                               k_stride, S - k1, padded_q);
+      load_rows<unsigned short, kBQ, DV, DPV>(Vs + (slot ^ 1) * TV,
+                                              v_rows + k1 * v_stride,
+                                              v_stride, S - k1, padded_v);
       cp_async_commit();
     }
     if constexpr (KEEP_Q) {
@@ -347,8 +380,8 @@ flash_bf16_kernel(const unsigned short* __restrict__ q,
         for (int kk = 0; kk < KD; ++kk) ldmatrix_x4(qf[kk], q_lane + 32 * kk);
       }
     }
-    const unsigned kt_lane = k_lane + slot * TILE * 2;
-    const unsigned vt_lane = v_lane + slot * TILE * 2;
+    const unsigned kt_lane = k_lane + slot * TQ * 2;
+    const unsigned vt_lane = v_lane + slot * TV * 2;
     const bool edge = edge_tile(q0, k0, win, pre);
 
     // The tile's keys in NSUB sub-tiles of SUBK, each through q·kᵀ, the
@@ -371,7 +404,7 @@ flash_bf16_kernel(const unsigned short* __restrict__ q,
 #pragma unroll
         for (int np = 0; np < KN / 2; ++np) {  // keys kb + 16np .. + 15
           unsigned bk[4];
-          ldmatrix_x4(bk, kt_lane + 2 * ((kb + 16 * np) * LD + 16 * kk));
+          ldmatrix_x4(bk, kt_lane + 2 * ((kb + 16 * np) * LDQ + 16 * kk));
           mma_bf16(s[2 * np], a, bk[0], bk[1]);
           mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
         }
@@ -433,10 +466,10 @@ flash_bf16_kernel(const unsigned short* __restrict__ q,
         split_bf16(s[2 * kv + 1][0], s[2 * kv + 1][1], ph[2], pl[2]);
         split_bf16(s[2 * kv + 1][2], s[2 * kv + 1][3], ph[3], pl[3]);
 #pragma unroll
-        for (int dp = 0; dp < DP / 16; ++dp) {  // columns 16dp .. + 15
+        for (int dp = 0; dp < DPV / 16; ++dp) {  // columns 16dp .. + 15
           unsigned bv[4];
           ldmatrix_x4_trans(bv,
-                            vt_lane + 2 * ((kb + 16 * kv) * LD + 16 * dp));
+                            vt_lane + 2 * ((kb + 16 * kv) * LDV + 16 * dp));
           mma_bf16(acc[2 * dp], ph, bv[0], bv[1]);
           mma_bf16(acc[2 * dp], pl, bv[0], bv[1]);
           if (2 * dp + 1 < NO) {
@@ -459,7 +492,7 @@ flash_bf16_kernel(const unsigned short* __restrict__ q,
     if (row >= S) continue;
     const float denom = fmaxf(l[r], 1e-20f);
     unsigned* dst = reinterpret_cast<unsigned*>(
-        o + (((long long)b * S + row) * H + h) * D);
+        o + (((long long)b * S + row) * H + h) * DV);
 #pragma unroll
     for (int n = 0; n < NO; ++n)
       dst[(8 * n + 2 * t) >> 1] =
@@ -473,20 +506,26 @@ flash_bf16_kernel(const unsigned short* __restrict__ q,
 // A row of D f32 in shared memory, its 16-byte chunks XOR-swizzled by the
 // row (chunk c of row r sits at c ^ (r & SW)), so the loads of a warp's
 // rows meet no bank conflict and a tile needs no padding.
-template <int D>
+// (192, 128): 256 threads a block as at D = 256 (4 rows a thread, 8
+// output columns), q and k tiles of 192 columns; 144 KB, one block an SM.
+template <int DQK, int DV>
 struct TileF32 {
-  static_assert(head_dim_ok(D), "head dim");
-  static constexpr int DP = pad_dim(D);             // columns of a tile
-  static constexpr int SW = DP >= 32 ? 7 : 3;       // swizzle mask
-  static constexpr int CW = DP >= 64 ? 4 : DP / 16; // output columns a load
-  static constexpr int NG = DP / (16 * CW);         // loads a row
-  static constexpr int TILE = kBQ * DP;             // one 64-row tile
-  static constexpr int NT = DP > 128 ? 256 : kThreads;  // threads a block
+  static_assert(head_dims_ok(DQK, DV), "head dims");
+  static constexpr int DPQ = pad_dim(DQK);          // columns of q, k tiles
+  static constexpr int DPV = pad_dim(DV);           // columns of a v tile
+  static constexpr int SWQ = DPQ >= 32 ? 7 : 3;     // swizzle masks
+  static constexpr int SWV = DPV >= 32 ? 7 : 3;
+  static constexpr int CW = DPV >= 64 ? 4 : DPV / 16;  // output columns a load
+  static constexpr int NG = DPV / (16 * CW);        // loads a row
+  static constexpr int TQ = kBQ * DPQ;              // one 64-row q or k tile
+  static constexpr int TV = kBQ * DPV;              // one 64-row v tile
+  static constexpr int NT = DPQ > 128 || DPV > 128 ? 256 : kThreads;
   static constexpr int TY = NT / 16;                // row groups
   static constexpr int RI = kBQ / TY;               // rows a thread
-  static constexpr int BLOCKS = DP > 128 ? 1 : 2;   // an SM
   // q, one k and one v slot, p (64 × 64, swizzled as D = 64)
-  static constexpr int SMEM = (3 * TILE + kBQ * kBQ) * 4;
+  static constexpr int SMEM = (2 * TQ + TV + kBQ * kBQ) * 4;
+  // An SM's 228 KB hold two blocks (and their 1 KB each) up to D = 128.
+  static constexpr int BLOCKS = 2 * (SMEM + 1024) <= 228 * 1024 ? 2 : 1;
 };
 
 template <int D, int SW>
@@ -494,19 +533,21 @@ __device__ __forceinline__ int swz(int r, int c) {   // element (r, c)
   return r * D + ((((c >> 2) ^ (r & SW))) << 2) + (c & 3);
 }
 
-template <int D>
-__global__ void __launch_bounds__(TileF32<D>::NT, TileF32<D>::BLOCKS)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(TileF32<DQK, DV>::NT,
+                                  TileF32<DQK, DV>::BLOCKS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int S,
                  int H, int Hkv, int win, int pre, float scale_log2) {
-  using Sh = TileF32<D>;
-  constexpr int DP = Sh::DP, SW = Sh::SW, CW = Sh::CW, NG = Sh::NG;
-  constexpr int TILE = Sh::TILE, NT = Sh::NT, TY = Sh::TY, RI = Sh::RI;
+  using Sh = TileF32<DQK, DV>;
+  constexpr int DPQ = Sh::DPQ, DPV = Sh::DPV, SWQ = Sh::SWQ, SWV = Sh::SWV;
+  constexpr int CW = Sh::CW, NG = Sh::NG;
+  constexpr int TQ = Sh::TQ, NT = Sh::NT, TY = Sh::TY, RI = Sh::RI;
   extern __shared__ __align__(16) float smem_f[];
-  float* Qs = smem_f;                // [64][DP]
-  float* Ks = Qs + TILE;             // [64][DP]: k of tile t
-  float* Vs = Ks + TILE;             // [64][DP]: v of tile t
-  float* Ps = Vs + TILE;             // [64][64]
+  float* Qs = smem_f;                // [64][DPQ]
+  float* Ks = Qs + TQ;               // [64][DPQ]: k of tile t
+  float* Vs = Ks + TQ;               // [64][DPV]: v of tile t
+  float* Ps = Vs + Sh::TV;           // [64][64]
 
   // Thread (ty, tx) owns rows ty + TY·i (i < RI): their scores against
   // keys tx + 16j (j < 4), their softmax state, and their output columns
@@ -516,19 +557,25 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int iq = gridDim.x - 1 - blockIdx.x;        // heaviest first
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int hk = h / (H / Hkv);
-  const long long q_stride = (long long)H * D, kv_stride = (long long)Hkv * D;
-  const float* q_rows = q + ((long long)b * S * H + h) * D;
-  const float* k_rows = k + ((long long)b * S * Hkv + hk) * D;
-  const float* v_rows = v + ((long long)b * S * Hkv + hk) * D;
+  const long long q_stride = (long long)H * DQK;
+  const long long k_stride = (long long)Hkv * DQK, v_stride = (long long)Hkv * DV;
+  const float* q_rows = q + ((long long)b * S * H + h) * DQK;
+  const float* k_rows = k + ((long long)b * S * Hkv + hk) * DQK;
+  const float* v_rows = v + ((long long)b * S * Hkv + hk) * DV;
   const int q0 = iq * kBQ;
   int kt0, kt1;
   key_tiles(q0, iq, win, pre, kt0, kt1);
 
-  const auto swizzled = [](int r, int ch) { return swz<DP, SW>(r, 4 * ch); };
-  load_rows<float, kBQ, D, DP, NT>(Qs, q_rows + q0 * q_stride, q_stride,
-                                   S - q0, swizzled);
-  load_rows<float, kBQ, D, DP, NT>(Ks, k_rows + kt0 * kBQ * kv_stride,
-                                   kv_stride, S - kt0 * kBQ, swizzled);
+  const auto swizzled_q = [](int r, int ch) {
+    return swz<DPQ, SWQ>(r, 4 * ch);
+  };
+  const auto swizzled_v = [](int r, int ch) {
+    return swz<DPV, SWV>(r, 4 * ch);
+  };
+  load_rows<float, kBQ, DQK, DPQ, NT>(Qs, q_rows + q0 * q_stride, q_stride,
+                                      S - q0, swizzled_q);
+  load_rows<float, kBQ, DQK, DPQ, NT>(Ks, k_rows + kt0 * kBQ * k_stride,
+                                      k_stride, S - kt0 * kBQ, swizzled_q);
   cp_async_commit();
 
   float m[RI], l[RI], acc[RI][NG][CW];
@@ -544,17 +591,17 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // Row ty + TY·i has (row & SW) == (ty & SW) (TY is a multiple of 8) and
   // key tx + 16j has (key & SW) == (tx & SW): each thread's swizzle is one
   // constant.
-  const float* q_base = Qs + ty * DP;
-  const float* k_base = Ks + tx * DP;
-  const int qx = ty & SW, kx = tx & SW;
+  const float* q_base = Qs + ty * DPQ;
+  const float* k_base = Ks + tx * DPQ;
+  const int qx = ty & SWQ, kx = tx & SWQ;
 
   for (int kt = kt0; kt <= kt1; ++kt) {
     const int k0 = kt * kBQ;
     const bool edge = edge_tile(q0, k0, win, pre);
     cp_async_wait_all();
     __syncthreads();        // k of tile kt is in; p·v of tile kt-1 done
-    load_rows<float, kBQ, D, DP, NT>(Vs, v_rows + k0 * kv_stride, kv_stride,
-                                     S - k0, swizzled);
+    load_rows<float, kBQ, DV, DPV, NT>(Vs, v_rows + k0 * v_stride, v_stride,
+                                       S - k0, swizzled_v);
     cp_async_commit();
 
     float s[RI][4];
@@ -563,15 +610,15 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
 #pragma unroll 2
-    for (int c = 0; c < D / 4; ++c) {       // the zero tail is left out
+    for (int c = 0; c < DQK / 4; ++c) {     // the zero tail is left out
       float4 qv[RI], kv[4];
 #pragma unroll
       for (int i = 0; i < RI; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(q_base + TY * i * DP +
+        qv[i] = *reinterpret_cast<const float4*>(q_base + TY * i * DPQ +
                                                  ((c ^ qx) << 2));
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(k_base + 16 * j * DP +
+        kv[j] = *reinterpret_cast<const float4*>(k_base + 16 * j * DPQ +
                                                  ((c ^ kx) << 2));
 #pragma unroll
       for (int i = 0; i < RI; ++i)
@@ -619,8 +666,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();        // v of tile kt is in, p is whole, k is read
     if (kt < kt1) {         // k of tile kt+1 into the k slot
       const int k1 = k0 + kBQ;
-      load_rows<float, kBQ, D, DP, NT>(Ks, k_rows + k1 * kv_stride,
-                                       kv_stride, S - k1, swizzled);
+      load_rows<float, kBQ, DQK, DPQ, NT>(Ks, k_rows + k1 * k_stride,
+                                          k_stride, S - k1, swizzled_q);
       cp_async_commit();
     }
 
@@ -644,7 +691,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         float vv[NG][CW];
 #pragma unroll
         for (int gg = 0; gg < NG; ++gg) {
-          const float* src = Vs + swz<DP, SW>(key, gg * 16 * CW + tx * CW);
+          const float* src = Vs + swz<DPV, SWV>(key, gg * 16 * CW + tx * CW);
           if constexpr (CW == 4) {
             const float4 x = *reinterpret_cast<const float4*>(src);
             vv[gg][0] = x.x; vv[gg][1] = x.y; vv[gg][2] = x.z; vv[gg][3] = x.w;
@@ -677,10 +724,10 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + ty + TY * i;
     if (row >= S) continue;
     const float denom = fmaxf(l[i], 1e-20f);
-    float* dst = o + (((long long)b * S + row) * H + h) * D;
+    float* dst = o + (((long long)b * S + row) * H + h) * DV;
 #pragma unroll
     for (int gg = 0; gg < NG; ++gg) {
-      if (gg * 16 * CW + tx * CW >= D) continue;     // the zero tail
+      if (gg * 16 * CW + tx * CW >= DV) continue;    // the zero tail
 #pragma unroll
       for (int c = 0; c < CW; ++c)
         dst[gg * 16 * CW + tx * CW + c] = acc[i][gg][c] / denom;
@@ -691,7 +738,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ---- launchers ----
 
 // Both kernels ask for the whole 228 KB of an SM as shared memory, so two
-// blocks fit (one at D = 256).
+// blocks fit (one at D = 256, and the f32 one at (192, 128)).
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, int smem) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -702,10 +749,12 @@ cudaError_t prepare(Kernel kernel, int smem) {
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int S, int H, int Hkv, int dtype, int window, int prefix,
            float scale, cudaStream_t stream) {
+  using Bf = TileBF16<DQK, DV>;
+  using F32 = TileF32<DQK, DV>;
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
   // exp(x·scale) = 2^(x·scale·log2 e)
   const float scale_log2 = scale * 1.4426950408889634f;
@@ -714,17 +763,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   // A prefix past S unmasks nothing more than S does (and no key past S).
   const int pre = prefix < S ? prefix : S;
   if (dtype == 1) {
-    const cudaError_t err = prepare(flash_bf16_kernel<D>, TileBF16<D>::SMEM);
+    const cudaError_t err = prepare(flash_bf16_kernel<DQK, DV>, Bf::SMEM);
     if (err != cudaSuccess) return (int)err;
-    flash_bf16_kernel<D><<<grid, kThreads, TileBF16<D>::SMEM, stream>>>(
+    flash_bf16_kernel<DQK, DV><<<grid, kThreads, Bf::SMEM, stream>>>(
         static_cast<const unsigned short*>(q),
         static_cast<const unsigned short*>(k),
         static_cast<const unsigned short*>(v),
         static_cast<unsigned short*>(o), S, H, Hkv, win, pre, scale_log2);
   } else {
-    const cudaError_t err = prepare(flash_f32_kernel<D>, TileF32<D>::SMEM);
+    const cudaError_t err = prepare(flash_f32_kernel<DQK, DV>, F32::SMEM);
     if (err != cudaSuccess) return (int)err;
-    flash_f32_kernel<D><<<grid, TileF32<D>::NT, TileF32<D>::SMEM, stream>>>(
+    flash_f32_kernel<DQK, DV><<<grid, F32::NT, F32::SMEM, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), S, H, Hkv, win,
         pre, scale_log2);
@@ -736,32 +785,33 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 extern "C" {
 
-// q, o: (B, S, H, D); k, v: (B, S, Hkv, D), all contiguous and 16-byte
-// aligned, of one dtype: code 0 = f32, 1 = bf16 (`_build.ROW_CODE`).
-// D is 16, 32, 64, 120, 128 or 256, and Hkv divides H. window >= 1 hides
-// the keys with pos_q - pos_k >= window; 0 means none. prefix >= 1 shows
-// every query the keys below it; 0 means none.
+// q: (B, S, H, DQK); k: (B, S, Hkv, DQK); v: (B, S, Hkv, DV); o: (B, S,
+// H, DV); all contiguous and 16-byte aligned, of one dtype: code 0 = f32,
+// 1 = bf16 (`_build.ROW_CODE`). (DQK, DV) is (D, D) with D in 16, 32, 64,
+// 120, 128, 256, or (192, 128); Hkv divides H. window >= 1 hides the keys
+// with pos_q - pos_k >= window; 0 means none. prefix >= 1 shows every
+// query the keys below it; 0 means none.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int B, int S, int H, int Hkv, int D,
-                           int dtype, int window, int prefix, float scale,
-                           void* stream) {
+                           void* o, int B, int S, int H, int Hkv, int DQK,
+                           int DV, int dtype, int window, int prefix,
+                           float scale, void* stream) {
   if (B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 || B * H > 65535 ||
       (dtype != 0 && dtype != 1) || window < 0 || prefix < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_CASE(d) \
-  case d: return launch<d>(q, k, v, o, B, S, H, Hkv, dtype, window, prefix, \
-                           scale, s);
-  switch (D) {
-    FLASH_CASE(16)
-    FLASH_CASE(32)
-    FLASH_CASE(64)
-    FLASH_CASE(120)
-    FLASH_CASE(128)
-    FLASH_CASE(256)
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define FLASH_CASE(dq, dv)                                                \
+  if (DQK == dq && DV == dv)                                              \
+    return launch<dq, dv>(q, k, v, o, B, S, H, Hkv, dtype, window, prefix, \
+                          scale, s);
+  FLASH_CASE(16, 16)
+  FLASH_CASE(32, 32)
+  FLASH_CASE(64, 64)
+  FLASH_CASE(120, 120)
+  FLASH_CASE(128, 128)
+  FLASH_CASE(256, 256)
+  FLASH_CASE(192, 128)
 #undef FLASH_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -123,9 +123,11 @@ def _flash_attention(q, k, v, window, prefix):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_block: int | None = None, window: int | None = None,
                     prefix: int = 0) -> torch.Tensor:
-    """Causal GQA attention: q (B, S, H, D), k, v (B, S, Hkv, D), f32 or
-    bf16 -> (B, S, H, D) in q's dtype (`ref.flash_attention_ref` on the
-    CPU, `csrc/flash_attention.cu` on the card); with ``window`` query i
+    """Causal GQA attention: q (B, S, H, D), k (B, S, Hkv, D), v (B, S,
+    Hkv, DV), f32 or bf16 -> (B, S, H, DV) in q's dtype
+    (`ref.flash_attention_ref` on the CPU, any DV; `csrc/flash_attention.cu`
+    on the card, DV = D or, at D = 192, 128:
+    `flash_attention.HEAD_DIM_PAIRS`); with ``window`` query i
     sees the keys j with i - j < window (`chunked_attention`'s sliding
     window), and every query sees the keys j < ``prefix`` (its
     ``prefix_len``, the prefix-LM). Differentiable in q, k and v: the
@@ -167,13 +169,13 @@ class _FlashAttention(torch.autograd.Function):
         kf, vf = k.to(ct), v.to(ct)
         dq = torch.empty((B, S, H, D), dtype=ct, device=q.device)
         dk = torch.zeros((B, S, Hkv, D), dtype=ct, device=q.device)
-        dv = torch.zeros_like(dk)
+        dv = torch.zeros(v.shape, dtype=ct, device=q.device)
         for lo in range(0, S, ctx.q_block):
             hi = min(lo + ctx.q_block, S)
             k_lo, k_hi = ref.attn_keys(lo, hi, S, ctx.window, ctx.prefix)
             kb, vb = kf[:, k_lo:k_hi], vf[:, k_lo:k_hi]
             qb = q[:, lo:hi].to(ct).reshape(B, hi - lo, Hkv, H // Hkv, D)
-            gb = g[:, lo:hi].to(ct).reshape(qb.shape)
+            gb = g[:, lo:hi].to(ct).reshape(B, hi - lo, Hkv, H // Hkv, -1)
             s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kb) * scale
             mask = ref.attn_mask(lo, hi, k_lo, k_hi, ctx.window, ctx.prefix,
                                  q.device)

@@ -421,19 +421,20 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         window: int | None = None,
                         prefix: int = 0) -> torch.Tensor:
     """Causal GQA attention, the plain version of `csrc/flash_attention.cu`
-    and of `repro/kernels/flash_attention.py`. q: (B, S, H, D), k, v:
-    (B, S, Hkv, D) -> o (B, S, H, D) in q's dtype. Query head h reads kv
-    head h // (H // Hkv); scores q·kᵀ·D^-0.5 are masked to -1e30 where
+    and of `repro/kernels/flash_attention.py`. q: (B, S, H, D), k: (B, S,
+    Hkv, D), v: (B, S, Hkv, DV), any DV (MLA's v is narrower than its q·k)
+    -> o (B, S, H, DV) in q's dtype. Query head h reads kv head h // (H //
+    Hkv); scores q·kᵀ·D^-0.5 are masked to -1e30 where
     pos_q < pos_k or, with ``window``, pos_q - pos_k >= window, unless
     pos_k < ``prefix`` (the prefix-LM's keys, seen by every query), and
     softmaxed, all in f32 (bf16 inputs upcast; f64 inputs stay f64). The
     query rows go ATTN_Q_BLOCK at a time, each block against only the keys
     of `attn_keys`."""
     B, S, H, D = q.shape
-    Hkv = k.shape[2]
+    Hkv, DV = k.shape[2], v.shape[-1]
     ct = torch.promote_types(q.dtype, torch.float32)
     kf, vf = k.to(ct), v.to(ct)
-    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, S, H, DV), dtype=q.dtype, device=q.device)
     for lo in range(0, S, ATTN_Q_BLOCK):
         hi = min(lo + ATTN_Q_BLOCK, S)
         k_lo, k_hi = attn_keys(lo, hi, S, window, prefix)
@@ -444,5 +445,5 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
         del s
         o = torch.einsum("bhgqk,bkhd->bqhgd", p, vf[:, k_lo:k_hi])
-        out[:, lo:hi] = o.reshape(B, hi - lo, H, D).to(q.dtype)
+        out[:, lo:hi] = o.reshape(B, hi - lo, H, DV).to(q.dtype)
     return out

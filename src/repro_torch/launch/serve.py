@@ -11,11 +11,15 @@ single-request users through the continuous-batching engine
     python -m repro_torch.launch.serve --continuous --requests 8 --full
     python -m repro_torch.launch.serve --arch h2o_danube_3_4b_sam --full
     python -m repro_torch.launch.serve --arch paligemma_3b_sam --full
+    python -m repro_torch.launch.serve --arch deepseek_v2_236b_sam --full \
+        --layers 4
 
 run StarCoder2-7B (weights from ``--seed``, held in the bf16 compute
 dtype: 15.8 GB), H2O-Danube3-4B (sliding window, a ring cache of
-min(max_len, 4096) slots: 7.9 GB) or PaliGemma-3B (2.67 B parameters with
-its pad heads, 5.3 GB) at full width on the card, with or without the
+min(max_len, 4096) slots: 7.9 GB), PaliGemma-3B (2.67 B parameters with
+its pad heads, 5.3 GB) or DeepSeek-V2 (MLA and MoE; its 60 layers need
+472 GB, so ``--layers 4`` keeps the dense layer and 3 MoE layers: 13.3 B
+parameters, 26.6 GB) at full width on the card, with or without the
 ``_sam`` memory layer; without ``--full`` the reduced config; ``--device
 cpu`` runs on the host.
 PaliGemma is served with token prompts, as JAX serves it: the decode
@@ -26,6 +30,7 @@ architectures raise, naming ROADMAP item A9c.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -52,14 +57,24 @@ def _select(logits: torch.Tensor, greedy: bool,
                              generator=generator)[:, 0].to(torch.int32)
 
 
-def serve(arch: str, *, batch: int = 4, prompt_len: int = 32,
-          gen_len: int = 32, max_len: int = 128, use_reduced: bool = True,
-          seed: int = 0, greedy: bool = True, device="cuda"):
-    """Serve one static batch of ``arch`` (the reduced config unless
-    ``use_reduced=False``); see `_serve`."""
+def config(arch: str, use_reduced: bool = True, num_layers: int = None):
+    """``arch``'s config: the reduced one unless ``use_reduced=False``,
+    its depth cut to the first ``num_layers`` layers where given (the
+    widths kept: DeepSeek-V2's 60 layers do not fit one card)."""
     cfg = get_config(arch)
     if use_reduced:
         cfg = reduce_cfg(cfg)
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    return cfg
+
+
+def serve(arch: str, *, batch: int = 4, prompt_len: int = 32,
+          gen_len: int = 32, max_len: int = 128, use_reduced: bool = True,
+          seed: int = 0, greedy: bool = True, device="cuda",
+          num_layers: int = None):
+    """Serve one static batch of ``arch`` (`config`); see `_serve`."""
+    cfg = config(arch, use_reduced, num_layers)
     return _serve(cfg, batch=batch, prompt_len=prompt_len, gen_len=gen_len,
                   max_len=max_len, seed=seed, greedy=greedy, device=device)
 
@@ -102,13 +117,12 @@ def _serve(cfg, *, batch, prompt_len, gen_len, max_len, seed, greedy=True,
 def serve_continuous(arch: str, *, lanes: int = 4, requests: int = 8,
                      prompt_len: int = 8, gen_len: int = 16,
                      max_len: int = 128, use_reduced: bool = True,
-                     seed: int = 0, greedy: bool = True, device="cuda"):
-    """Serve ``requests`` synthetic single-request users of ``arch`` (the
-    reduced config unless ``use_reduced=False``) through the
-    continuous-batching engine; see `_serve_continuous`."""
-    cfg = get_config(arch)
-    if use_reduced:
-        cfg = reduce_cfg(cfg)
+                     seed: int = 0, greedy: bool = True, device="cuda",
+                     num_layers: int = None):
+    """Serve ``requests`` synthetic single-request users of ``arch``
+    (`config`) through the continuous-batching engine; see
+    `_serve_continuous`."""
+    cfg = config(arch, use_reduced, num_layers)
     return _serve_continuous(cfg, lanes=lanes, requests=requests,
                              prompt_len=prompt_len, gen_len=gen_len,
                              max_len=max_len, seed=seed, greedy=greedy,
@@ -153,6 +167,8 @@ def main():
                     help="categorical sampling instead of argmax")
     ap.add_argument("--full", action="store_true",
                     help="the published width (default: the reduced config)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to the first LAYERS layers")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--continuous", action="store_true",
                     help="serve through the continuous-batching engine "
@@ -165,14 +181,16 @@ def main():
             args.arch, lanes=args.batch, requests=args.requests,
             prompt_len=args.prompt_len, gen_len=args.gen_len,
             max_len=args.max_len, use_reduced=not args.full, seed=args.seed,
-            greedy=not args.sample, device=args.device)
+            greedy=not args.sample, device=args.device,
+            num_layers=args.layers)
         print(f"served {len(res['results'])} requests in {res['steps']} "
               f"steps; {res['tok_per_s']:.1f} tok/s")
         return
     res = serve(args.arch, batch=args.batch, prompt_len=args.prompt_len,
                 gen_len=args.gen_len, max_len=args.max_len,
                 use_reduced=not args.full, seed=args.seed,
-                greedy=not args.sample, device=args.device)
+                greedy=not args.sample, device=args.device,
+                num_layers=args.layers)
     print(f"generated {tuple(res['tokens'].shape)} tokens; "
           f"prefill {res['prefill_s']:.2f}s, "
           f"decode {res['decode_tok_per_s']:.1f} tok/s")

@@ -22,23 +22,48 @@ Layouts are the JAX package's: q (B, S, H, D), k and v (B, S, Hkv, D),
 caches (B, Smax, Hkv, D). With ``cfg.pad_head_groups`` each kv head's
 group is padded to that many query heads (PaliGemma: 8 heads over one kv
 head padded to 16), which are computed and then zeroed by the head mask,
-as in JAX. MLA is not ported (ROADMAP A9c): `models/transformer.py`
-refuses such configs."""
+as in JAX.
+
+DeepSeek-V2's multi-head latent attention (``cfg.mla``, JAX's
+`_mla_qkv`, `mla_forward`, `mla_decode`): q comes from a q_lora-wide
+latent, k and v from a kv_lora-wide one, and each head's q·k is its
+nope_head_dim columns and rope_head_dim rotated ones, the latter shared
+by all heads. The prefill (`mla_forward`) runs the attention kernel at
+q·k nope + rope wide and v v_head_dim wide (192 and 128 at full width).
+The decode (`mla_decode`) is the absorbed one: its cache holds the
+normed latent and the rotated k columns, (B, Smax, kv_lora + rope), and
+the scores are taken in the latent space (q_nope absorbed into wk_up);
+plain PyTorch, as JAX computes it outside any kernel, its five products
+summed in a fixed order (`_fixed_dot`)."""
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import pdef, peinsum, rope
+from repro_torch.models.layers import einsum, pdef, peinsum, rms_norm, rope
 
 _NEG = -1e30
+# Elements of f32 products `_fixed_dot` holds at once (256 MB).
+_DOT_CHUNK = 1 << 26
 
 
 def attn_defs(cfg: ModelConfig):
     d, Hkv, Dh = cfg.d_model, cfg.num_kv_heads, cfg.head_dim
+    if cfg.mla is not None:
+        m, H = cfg.mla, cfg.num_heads
+        return {"wq_down": pdef((d, m.q_lora)),
+                "q_norm": pdef((m.q_lora,), init="zeros"),
+                "wq_up": pdef((m.q_lora, H,
+                               m.nope_head_dim + m.rope_head_dim)),
+                "wkv_down": pdef((d, m.kv_lora + m.rope_head_dim)),
+                "kv_norm": pdef((m.kv_lora,), init="zeros"),
+                "wk_up": pdef((m.kv_lora, H, m.nope_head_dim)),
+                "wv_up": pdef((m.kv_lora, H, m.v_head_dim)),
+                "wo": pdef((H, m.v_head_dim, d))}
     Hp = cfg.padded_heads    # dead pad heads: computed, then masked
     return {"wq": pdef((d, Hp, Dh)), "wk": pdef((d, Hkv, Dh)),
             "wv": pdef((d, Hkv, Dh)), "wo": pdef((Hp, Dh, d))}
@@ -82,8 +107,9 @@ def gqa_forward(params, cfg: ModelConfig, x: torch.Tensor,
 
 def _cache_write(cache: torch.Tensor, new: torch.Tensor,
                  pos: torch.Tensor, ring: bool) -> None:
-    """Write new (B, 1, Hkv, D) at position ``pos`` of cache (B, Smax, Hkv,
-    D), in place. A ``ring`` (a windowed config) writes slot pos % Smax
+    """Write new (B, 1, ...) at position ``pos`` of cache (B, Smax, ...):
+    (Hkv, D) a head, or MLA's latent row. In place. A ``ring`` (a windowed
+    config) writes slot pos % Smax
     for every lane. Otherwise a () position past the end writes the last
     slot (JAX's ``dynamic_update_slice`` clamps) and a lane whose (B,)
     position lies past the end keeps its cache (JAX's scatter drops it).
@@ -97,7 +123,7 @@ def _cache_write(cache: torch.Tensor, new: torch.Tensor,
     if pos.dim() == 0:
         cache[b, pos.clamp(max=Smax - 1).expand(B)] = new
         return
-    keep = (pos < Smax)[:, None, None]
+    keep = (pos < Smax).view((B,) + (1,) * (new.dim() - 1))
     slot = pos.clamp(max=Smax - 1)
     cache[b, slot] = torch.where(keep, new, cache[b, slot])
 
@@ -158,3 +184,103 @@ def gqa_decode(params, cfg: ModelConfig, x: torch.Tensor,
     if mask is not None:
         o = o * mask[None, None, :, None]
     return peinsum("bshk,hkd->bsd", o, params["wo"]), k_cache, v_cache
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# --------------------------------------------------------------------------
+
+def _fixed_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Σ over the last axis of a·b, broadcast, in f32 and `_tree_sum`'s
+    order: every element the same sum of the same terms whatever the
+    batch holds. Axis 1 (the heads) is taken a chunk at a time so the
+    products never exceed _DOT_CHUNK elements."""
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    per = max(1, _DOT_CHUNK * shape[1] // math.prod(shape))
+    parts = []
+    for lo in range(0, shape[1], per):
+        aa = a if a.shape[1] == 1 else a[:, lo:lo + per]
+        bb = b if b.shape[1] == 1 else b[:, lo:lo + per]
+        parts.append(_tree_sum(aa.float() * bb.float()))
+    return torch.cat(parts, dim=1)
+
+
+def _mla_qkv(params, cfg: ModelConfig, x: torch.Tensor,
+             positions: torch.Tensor):
+    """JAX's `_mla_qkv`: x (B, S, d) -> q_nope (B, S, H, nope), q_rope (B,
+    S, H, rope) rotated, the normed kv latent c (B, S, kv_lora) and k_rope
+    (B, S, rope) rotated (through an added head axis)."""
+    m = cfg.mla
+    ql = rms_norm(einsum("bsd,dl->bsl", x, params["wq_down"]),
+                  params["q_norm"], cfg.norm_eps)
+    q = peinsum("bsl,lhk->bshk", ql, params["wq_up"])
+    q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    ckv = einsum("bsd,dl->bsl", x, params["wkv_down"])
+    c = rms_norm(ckv[..., :m.kv_lora], params["kv_norm"], cfg.norm_eps)
+    k_rope = rope(ckv[:, :, None, m.kv_lora:], positions,
+                  cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, c, k_rope
+
+
+def mla_forward(params, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d): the prefill, JAX's `mla_forward`. The
+    heads' k is the up-projected latent's nope columns and the shared
+    k_rope, broadcast over the H heads; the causal attention runs through
+    `ops.flash_attention` at q·k nope + rope wide and v v_head_dim wide,
+    scaled by (nope + rope)^-0.5. S must be a multiple of min(q_block, S)
+    and of min(kv_block, S), as JAX's chunked attention requires."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    qb, kb = min(cfg.q_block, S), min(cfg.kv_block, S)
+    if S % qb or S % kb:
+        raise ValueError(f"sequence length {S} must be a multiple of the "
+                         f"attention blocks ({qb}, {kb})")
+    q_nope, q_rope, c, k_rope = _mla_qkv(params, cfg, x, positions)
+    k_nope = peinsum("bsl,lhk->bshk", c, params["wk_up"])
+    v = peinsum("bsl,lhk->bshk", c, params["wv_up"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, cfg.num_heads, m.rope_head_dim)], dim=-1)
+    o = ops.flash_attention(q, k, v, q_block=qb)
+    return peinsum("bshk,hkd->bsd", o, params["wo"])
+
+
+def mla_decode(params, cfg: ModelConfig, x: torch.Tensor,
+               ckv_cache: torch.Tensor, pos: torch.Tensor):
+    """The absorbed decode, JAX's `mla_decode`: x (B, 1, d), the latent
+    cache (B, Smax, kv_lora + rope), pos () or (B,) (each lane its own
+    rope phase, slot and horizon). The token's normed latent and rotated
+    k_rope are written at ``pos`` (in place; a () position past the end
+    writes the last slot, a lane past it writes nothing, as JAX's update
+    and scatter), the cache is read in x's dtype, q_nope is absorbed into
+    wk_up (q_eff), and the scores q_eff·c + q_rope·k_rope, scaled by
+    (nope + rope)^-0.5 and masked past ``pos``, weight the latent rows,
+    which wv_up then wo project out. The five products over heads, cache
+    and latent sum in a fixed order (`_fixed_dot`), so a lane's bits do
+    not depend on how many lanes the batch holds. Returns (out (B, 1, d),
+    ckv_cache)."""
+    m = cfg.mla
+    B, Smax = x.shape[0], ckv_cache.shape[1]
+    ppos = pos.reshape(1, 1) if pos.dim() == 0 else pos[:, None]
+    q_nope, q_rope, c, k_rope = _mla_qkv(params, cfg, x, ppos)
+    _cache_write(ckv_cache, torch.cat([c, k_rope], dim=-1), pos, ring=False)
+    cache = ckv_cache.to(x.dtype)
+    c_all, kr_all = cache[..., :m.kv_lora], cache[..., m.kv_lora:]
+
+    # q_eff (B, H, L) = q_nope · wk_upᵀ, emitted in q_nope's dtype.
+    q_eff = _fixed_dot(q_nope[:, 0, :, None, :],
+                       params["wk_up"].permute(1, 0, 2)[None]).to(
+        q_nope.dtype)
+    s = _fixed_dot(q_eff[:, :, None, :], c_all[:, None]) \
+        + _fixed_dot(q_rope[:, 0, :, None, :], kr_all[:, None])
+    s = s * (m.nope_head_dim + m.rope_head_dim) ** -0.5        # (B, H, T)
+    valid = (torch.arange(Smax, device=x.device) <= pos[..., None]).expand(
+        B, Smax)
+    p = torch.softmax(torch.where(valid[:, None, :], s, _NEG), dim=-1)
+    o_lat = _fixed_dot(p[:, :, None, :],
+                       c_all.transpose(1, 2)[:, None]).to(x.dtype)
+    o = _fixed_dot(o_lat[:, :, None, :],
+                   params["wv_up"].permute(1, 2, 0)[None]).to(o_lat.dtype)
+    return peinsum("bshk,hkd->bsd", o[:, None], params["wo"]), ckv_cache

@@ -2,12 +2,13 @@
 field for field.
 
 One `ModelConfig` describes every architecture of the registry
-(`repro_torch.configs`). The port's model code runs the dense GQA family
-(``block="dense"``: causal, windowed or prefix-LM attention, the vision
-frontend's patch embeddings; no MLA or MoE) with the optional SAM memory
-layer on f32 rows; the MLA, MoE, RWKV and SSM
-dataclasses are carried as data, and the model code refuses a config that
-uses them (`models/transformer.py`)."""
+(`repro_torch.configs`). The port's model code runs ``block="dense"``:
+GQA attention (causal, windowed or prefix-LM, the vision frontend's patch
+embeddings) or DeepSeek-V2's MLA, each with an MLP or, with ``moe``, the
+mixture of experts after ``num_dense_layers`` dense layers; with the
+optional SAM memory layer on f32 rows. The RWKV and SSM dataclasses are
+carried as data, and the model code refuses a config that uses them
+(`models/transformer.py`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -22,7 +23,7 @@ class MLAConfig:
     rope_head_dim: int = 64
     nope_head_dim: int = 128
     v_head_dim: int = 128
-    absorb: bool = False
+    absorb: bool = False     # read by neither package: the decode absorbs
 
 
 @dataclasses.dataclass(frozen=True)

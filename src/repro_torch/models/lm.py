@@ -1,9 +1,10 @@
-"""The top-level LM, the JAX package's `models/lm.py` for the dense GQA
-family (causal, sliding-window or prefix-LM attention; GELU, gated SiLU or
-GeGLU MLP; a stubbed vision frontend whose patch embeddings the batch
-carries): embeddings, the stack of blocks with a SAM memory layer after
-every group of `every_n_layers`, the final norm and the head (tied to the
-embeddings where the config says so). `forward`
+"""The top-level LM, the JAX package's `models/lm.py` for ``block="dense"``
+(causal, sliding-window or prefix-LM GQA, or MLA; GELU, gated SiLU or
+GeGLU MLP, or MoE after ``moe.num_dense_layers`` leading dense layers,
+held apart as ``dense_blocks``; a stubbed vision frontend whose patch
+embeddings the batch carries): embeddings, the dense blocks, the stack of
+blocks with a SAM memory layer after every group, the final norm and the
+head (tied to the embeddings where the config says so). `forward`
 and `loss_fn` train (under autograd, the blocks under
 `torch.utils.checkpoint` with ``cfg.remat``, the memory layers through the
 unroll engine); `prefill` (the full-sequence forward, whose attention is
@@ -19,11 +20,14 @@ the stream's dtype. Caches and memory states are updated in place (JAX
 returns new ones).
 
 The layer grouping is JAX's, faults included (ROADMAP §C): with memory,
-n_groups = max(1, L // every_n_layers) groups of per = L // n_groups
-blocks run, so where per·n_groups < L the trailing blocks run nowhere
-(`paligemma_3b_sam`: 18 layers in 4 groups of 4, blocks 16 and 17 skipped
-by `forward`, `prefill` and a `decode_step` with memory states; a
-`decode_step` without memory states runs all 18)."""
+the n_dense leading dense blocks run first, then n_groups = max(1, L //
+every_n_layers) groups of per = (L - n_dense) // n_groups of the other
+blocks, so where per·n_groups < L - n_dense the trailing blocks run
+nowhere (`paligemma_3b_sam`: 18 layers in 4 groups of 4, blocks 16 and 17
+skipped; `deepseek_v2_236b_sam`: 60 layers, 1 dense and 15 groups of 3,
+blocks 46-59 skipped; by `forward`, `prefill` and a `decode_step` with
+memory states; a `decode_step` without memory states runs them all). The
+cache stacks the dense layers first, as JAX's."""
 from __future__ import annotations
 
 from typing import Optional
@@ -43,10 +47,25 @@ def _n_groups(cfg: ModelConfig) -> int:
     return max(1, cfg.num_layers // cfg.memory.every_n_layers)
 
 
+def _n_dense(cfg: ModelConfig) -> int:
+    """The leading dense layers of a MoE config (0 without MoE)."""
+    return cfg.moe.num_dense_layers if cfg.moe is not None else 0
+
+
+def _per_group(cfg: ModelConfig, n_groups: int) -> int:
+    """Blocks a memory group runs: JAX's (L - n_dense) // n_groups."""
+    return (cfg.num_layers - _n_dense(cfg)) // n_groups
+
+
 def param_defs(cfg: ModelConfig):
+    n_dense = _n_dense(cfg)
     defs = {"embed": embed_defs(cfg.vocab_size, cfg.d_model),
-            "blocks": stack_defs(tfm.block_defs(cfg), cfg.num_layers),
+            "blocks": stack_defs(tfm.block_defs(cfg),
+                                 cfg.num_layers - n_dense),
             "final_norm": pdef((cfg.d_model,), init="zeros")}
+    if n_dense:
+        defs["dense_blocks"] = stack_defs(
+            tfm.block_defs(cfg, moe_layer=False), n_dense)
     if not cfg.tie_embeddings:
         defs["lm_head"] = pdef((cfg.d_model, cfg.vocab_size))
     if cfg.memory is not None:
@@ -106,42 +125,61 @@ def _head_weight(params, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _block(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
-    """One block; under autograd with ``cfg.remat`` its activations are
-    recomputed in the backward (JAX's ``jax.checkpoint`` with
-    ``nothing_saveable``), the memory layers never."""
+    """One block -> (x, its aux loss); under autograd with ``cfg.remat``
+    its activations are recomputed in the backward (JAX's
+    ``jax.checkpoint`` with ``nothing_saveable``), the memory layers
+    never."""
     if cfg.remat and torch.is_grad_enabled() and x.requires_grad:
         return checkpoint(tfm.block_forward, p, cfg, x, positions,
                           use_reentrant=False)
     return tfm.block_forward(p, cfg, x, positions)
 
 
+def _run_stack(stacked, cfg: ModelConfig, x, positions, layers):
+    """The blocks ``layers`` of a stack in turn -> (x, their aux losses
+    summed from 0, in order, as JAX's scan carries them)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in layers:
+        x, a = _block(_layer(stacked, i), cfg, x, positions)
+        aux = aux + a
+    return x, aux
+
+
 def forward(params, cfg: ModelConfig, batch):
     """batch {"tokens": (B, S_t) int[, "patch_embeds": (B, P, d)]} ->
-    (final hidden states (B, S, d), S = P + S_t, the auxiliary loss: 0,
-    the dense blocks make none). A vision config needs the patch
-    embeddings (`_embed_inputs`). With a memory, the blocks run in groups
-    and each group is followed by `sam_layer.memory_layer_seq`; one memory
-    state, zero at the start, runs through all the groups, as JAX threads
-    one through its loop (and, as JAX, runs no block past the last whole
-    group: module docstring). Differentiable in the weights when they
-    require grad."""
+    (final hidden states (B, S, d), S = P + S_t, the auxiliary loss: the
+    routers', summed stack by stack; 0 without MoE). A vision config needs
+    the patch embeddings (`_embed_inputs`). The dense blocks run first.
+    With a memory, the other blocks run in groups and each group is
+    followed by `sam_layer.memory_layer_seq`; one memory state, zero at
+    the start, runs through all the groups, as JAX threads one through its
+    loop (and, as JAX, runs no block past the last whole group: module
+    docstring). Differentiable in the weights when they require grad."""
     x, positions = _embed_inputs(params, cfg, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_dense = _n_dense(cfg)
+    if n_dense:
+        x, a = _run_stack(_cast(params["dense_blocks"], cfg), cfg, x,
+                          positions, range(n_dense))
+        aux = aux + a
     blocks = _cast(params["blocks"], cfg)
     if cfg.memory is None:
-        for i in range(cfg.num_layers):
-            x = _block(_layer(blocks, i), cfg, x, positions)
+        x, a = _run_stack(blocks, cfg, x, positions,
+                          range(cfg.num_layers - n_dense))
+        aux = aux + a
     else:
         n_groups = _n_groups(cfg)
-        per = cfg.num_layers // n_groups
+        per = _per_group(cfg, n_groups)
         state = sam_layer.init_memory_state(cfg, x.shape[0], device=x.device)
         mem_params = _cast(params["memory"], cfg)
         for g in range(n_groups):
-            for i in range(g * per, (g + 1) * per):
-                x = _block(_layer(blocks, i), cfg, x, positions)
+            x, a = _run_stack(blocks, cfg, x, positions,
+                              range(g * per, (g + 1) * per))
+            aux = aux + a
             x, state = sam_layer.memory_layer_seq(_layer(mem_params, g), cfg,
                                                   x, state)
     x = rms_norm(x, _cast(params["final_norm"], cfg), cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 @torch.inference_mode()
@@ -203,17 +241,19 @@ def loss_fn(params, cfg: ModelConfig, batch):
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
     """(L, B, Smax, Hkv, D) shapes of k and v: Smax = max_len, or
-    min(max_len, window) for a windowed config, whose cache is a ring."""
+    min(max_len, window) for a windowed config, whose cache is a ring; or
+    MLA's latent rows, ckv (L, B, max_len, kv_lora + rope). The layers
+    stack as the blocks run: the dense ones first."""
     per_layer = tfm.layer_cache_shapes(cfg, batch, max_len)
     return {k: (cfg.num_layers,) + v for k, v in per_layer.items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                per_lane_pos: bool = False, *, device="cuda"):
-    """Zero (L, B, Smax, Hkv, D) k and v caches (`cache_shapes`: a ring of
-    min(max_len, window) slots with a window, which any position fits) in
-    the compute dtype and ``pos``: () int32, or (B,) per-lane positions
-    with ``per_lane_pos``."""
+    """Zero caches of `cache_shapes` (k and v, a ring of min(max_len,
+    window) slots with a window, which any position fits; or MLA's ckv)
+    in the compute dtype and ``pos``: () int32, or (B,) per-lane
+    positions with ``per_lane_pos``."""
     cd = torch_dtype(cfg.compute_dtype)
     cache = {k: torch.zeros(v, dtype=cd, device=device)
              for k, v in cache_shapes(cfg, batch, max_len).items()}
@@ -245,36 +285,43 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
     """tokens (B, 1) int. ``cache["pos"]`` is () or (B,). With
     ``mem_states`` (`init_memory_states`) each memory group's blocks are
     followed by one SAM read and write of the token's hidden state, whose
-    read is added back in the stream's dtype. Returns (logits (B, 1, V),
-    cache) — plus the new memory states when ``mem_states`` was given.
-    The cache's k and v and the memory states are updated in place."""
+    read is added back in the stream's dtype. The dense blocks run first,
+    on the cache's first layers. Returns (logits (B, 1, V), cache) — plus
+    the new memory states when ``mem_states`` was given. The cache (k and
+    v, or ckv) and the memory states are updated in place."""
     pos = cache["pos"]
     x = _embed(params, cfg, tokens)
+    n_dense = _n_dense(cfg)
     blocks = _cast(params["blocks"], cfg)
-    new_cache = {"k": cache["k"], "v": cache["v"]}
+    new_cache = {key: t for key, t in cache.items() if key != "pos"}
 
-    def run(i, x):
-        layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
-        x, _ = tfm.block_decode(_layer(blocks, i), cfg, x, layer_cache, pos)
+    def run(stacked, i, at, x):
+        """Block i of ``stacked`` on the cache's layer ``at``."""
+        layer_cache = {key: t[at] for key, t in new_cache.items()}
+        x, _ = tfm.block_decode(_layer(stacked, i), cfg, x, layer_cache, pos)
         return x
 
+    if n_dense:
+        dense = _cast(params["dense_blocks"], cfg)
+        for i in range(n_dense):
+            x = run(dense, i, i, x)
     new_mem = None
     if mem_states is not None:
         if cfg.memory is None:
             raise ValueError("mem_states passed but cfg.memory is None")
-        per = cfg.num_layers // len(mem_states)
+        per = _per_group(cfg, len(mem_states))
         mem_params = _cast(params["memory"], cfg)
         new_mem = []
         for g, state in enumerate(mem_states):
             for i in range(g * per, (g + 1) * per):
-                x = run(i, x)
+                x = run(blocks, i, n_dense + i, x)
             state, out = sam_layer.memory_access(_layer(mem_params, g), cfg,
                                                  x[:, 0], state)
             new_mem.append(state)
             x = x + out[:, None, :].to(x.dtype)
     else:
-        for i in range(cfg.num_layers):
-            x = run(i, x)
+        for i in range(cfg.num_layers - n_dense):
+            x = run(blocks, i, n_dense + i, x)
     x = rms_norm(x, _cast(params["final_norm"], cfg), cfg.norm_eps)
     logits = einsum("bsd,dv->bsv", x, _head_weight(params, cfg))
     new_cache["pos"] = pos + 1

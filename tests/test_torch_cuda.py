@@ -1754,6 +1754,70 @@ def test_flash_attention_kernel_head_dim_256_on_large_scores(dev, prefix,
     assert err <= 2 * plain.item() + 2e-5
 
 
+# (192, 128): DeepSeek-V2 MLA's q·k (nope 128 + rope 64) and v widths, H =
+# Hkv (MLA's k_rope is broadcast to every head), with GQA too, ragged S
+# around the 64-row tile, and the full config's prefill heads (B = 4, S =
+# 2048, 128 heads).
+MLA_CASES = [
+    (1, 64, 2, 2, 192, 128), (2, 130, 4, 4, 192, 128),
+    (1, 63, 8, 2, 192, 128), (1, 1, 2, 1, 192, 128),
+    (2, 1000, 4, 4, 192, 128), (4, 2048, 128, 128, 192, 128),
+]
+
+
+def _mla_inputs(dev, B, S, H, Hkv, D, DV, dtype, seed=0, scale=1.0):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, S, H, D), generator=g) * scale
+    k = torch.randn((B, S, Hkv, D), generator=g) * scale
+    v = torch.randn((B, S, Hkv, DV), generator=g)
+    return tuple(t.to(device=dev, dtype=getattr(torch, dtype))
+                 for t in (q, k, v))
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,DV", MLA_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_narrow_v(dev, B, S, H, Hkv, D, DV, dtype):
+    q, k, v = _mla_inputs(dev, B, S, H, Hkv, D, DV, dtype, seed=S + H)
+    n0 = flash_attention.launches
+    out = flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    assert out.dtype == q.dtype and out.shape == (B, S, H, DV)
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= (2e-5 if dtype == "float32" else _bf16_ulp(want))
+    assert torch.equal(ops.flash_attention(q, k, v), out)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_narrow_v_on_large_scores(dev, dtype):
+    """The large-score bars at (192, 128), MLA's 128 heads over themselves
+    cut to 8."""
+    q, k, v = _mla_inputs(dev, 2, 512, 8, 8, 192, 128, dtype, seed=8,
+                          scale=12.0)
+    out = flash_attention(q, k, v)
+    if dtype == "bfloat16":
+        want = ref.flash_attention_ref(q, k, v)
+        err = (out.float() - want.float()).abs().max().item()
+        assert err <= _bf16_ulp(want)
+        return
+    exact = ref.flash_attention_ref(q.double(), k.double(), v.double())
+    err = (out.double() - exact).abs().max().item()
+    plain = (ref.flash_attention_ref(q, k, v).double() - exact).abs().max()
+    assert err <= 2 * plain.item() + 2e-5
+
+
+def test_flash_attention_kernel_refuses_unbuilt_pairs(dev):
+    """Only (D, D) and (192, 128) are built: any other pair is refused by
+    name before a launch, v wider than q·k too."""
+    n0 = flash_attention.launches
+    for D, DV in ((192, 192), (128, 64), (192, 64), (64, 128), (256, 128)):
+        q, k, v = _mla_inputs(dev, 1, 64, 2, 2, D, DV, "bfloat16")
+        with pytest.raises(ValueError, match=f"q·k {D}, v {DV}"):
+            flash_attention(q, k, v)
+    assert flash_attention.launches == n0
+
+
 def test_flash_attention_kernel_raises_on_inputs_it_cannot_take(dev):
     q, k, v = _attention_inputs(dev, 1, 64, 4, 2, 32, "float32")
     bad = {

@@ -342,9 +342,10 @@ def test_block_forward_and_decode_match_jax(weights):
         np.float32)
     pos = np.arange(S)[None]
     want, aux = jtfm.block_forward(jblk, jcfg, x, pos)
-    got = transformer.block_forward(tblk, cfg, _t(x), torch.arange(S)[None])
+    got, taux = transformer.block_forward(tblk, cfg, _t(x),
+                                          torch.arange(S)[None])
     _close(got, want)
-    assert float(aux) == 0.0            # only MoE blocks make one
+    assert float(aux) == float(taux) == 0.0   # only MoE blocks make one
     # Decode 5 tokens, the last at a per-lane position.
     shape = (B, 8, 2, 32)
     jc = {"k": jnp.zeros(shape), "v": jnp.zeros(shape)}
