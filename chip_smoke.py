@@ -31,12 +31,17 @@ states into a ring cache, `serve` and the engine), whose attention is the
 vision-language LM, PaliGemma-3B + SAM at full width (`paligemma_3b_sam`:
 prefill on 256 patch embeddings, decode with memory states, `serve` and
 the engine), whose attention is the `flash_attention` kernel at head dim
-256 with the prefix-LM over the 256; last DeepSeek-V2 + SAM at full width
+256 with the prefix-LM over the 256; then DeepSeek-V2 + SAM at full width
 and 4 of its 60 layers (`deepseek_v2_236b_sam`: MLA, the dense layer and
 3 MoE layers; prefill, decode with memory states, the engine with a
 rescale, `serve` and `examples.serve_batched`), whose prefill attention
-is the `flash_attention` kernel at q·k 192 wide and v 128 wide. It fails
-(nonzero exit) if any phase fails:
+is the `flash_attention` kernel at q·k 192 wide and v 128 wide; Llama-4
+Maverick + SAM at full width and 2 of its 48 layers
+(`llama4_maverick_400b_a17b_sam`: top-1 MoE with a shared expert, 48
+padded heads over 8; the same entry points), whose prefill attention is
+the `flash_attention` kernel at head dim 128; and last the paper's
+memory models trained on its bAbI-lite and one-shot Omniglot tasks. It
+fails (nonzero exit) if any phase fails:
 
 1. build the kernels from `src/repro_torch/kernels/csrc/` with nvcc for
    sm_90a and print each kernel's registers, shared memory and spills
@@ -188,8 +193,8 @@ is the `flash_attention` kernel at q·k 192 wide and v 128 wide. It fails
       version and `scaled_dot_product_attention` (and the factor); the
       memory kernels at the LM's shapes (the row scatter's 'set' and
       'add' of J = 36 rows too); the prefill (median of 3); the decode's ms per token, a
-      window of 32 greedy steps timed as one span, the median of five
-      windows after one untimed (single steps, median of 5, on the
+      window of 32 greedy steps timed as one span, the median of three
+      windows after one untimed (single steps, median of 3, on the
       side); their peaks and the window's device time
       (`torch.profiler`);
 10. the slot-sharded memory (N = 2^20 over S = 4 ranks, one block of
@@ -243,7 +248,7 @@ is the `flash_attention` kernel at q·k 192 wide and v 128 wide. It fails
    e. Fig. 7 (`benchmarks/bench_sdnc.py`'s setup: B = 2, R = 2, K = 4,
       W = 32, hidden 64, T = 10): forward + backward ms (median of 3
       after a warm-up) and peak of the SDNC (its default sparse engine) at
-      N = 2^8 ... 2^20 and of the dense DNC where its byte reckoning fits
+      N = 2^8, 2^10 ... 2^20 and of the dense DNC where its byte reckoning fits
       (`dnc_bytes`), with the SDNC's speed-up;
    f. the rollouts' host ms per step (median of five), device ms per step
       (`torch.profiler`) and peaks;
@@ -260,7 +265,7 @@ is the `flash_attention` kernel at q·k 192 wide and v 128 wide. It fails
       4 sampled, each submitted at its arrival), timed: tok/s, time to
       first token and end to end (p50, p99), engine steps, host ms an
       engine step, spills and restores with their ms, lane-to-host and
-      host-to-lane ms, peak memory; then the device's busy share over 8
+      host-to-lane ms, peak memory; then the device's busy share over 4
       steps of 4 decoding lanes (`torch.profiler`);
    b. the same requests first, all submitted at once, with every kernel
       launch of the first three steps after each restore and of every
@@ -335,7 +340,7 @@ is the `flash_attention` kernel at q·k 192 wide and v 128 wide. It fails
       (the redo: one f32 scatter a step, or one int8 (codes, scale)
       restore on int8 rows);
    d. the ~100M LM of `examples/train_lm_100m.py` at its 65,536 slots,
-      B = 4, S = 256, 30 steps under `launch.train.train(ckpt_dir=)`, a
+      B = 4, S = 256, 20 steps under `launch.train.train(ckpt_dir=)`, a
       checkpoint every 10: a run with two `TransientError`s at step 5
       saves at step 10 the clean run's state bit for bit; stopped at step
       17, it resumes at the step after its newest checkpoint with the
@@ -364,7 +369,7 @@ is the `flash_attention` kernel at q·k 192 wide and v 128 wide. It fails
       tokens (in lockstep) into a ring of 128 that wraps: 6 reads, writes
       and LRAs and no attention launch a token; ms a token on the host and
       the device; `serve` once past the ring's end;
-   d. the engine on 4 lanes of 128: 8 requests and a user returning past
+   d. the engine on 4 lanes of 128: 4 requests and a user returning past
       position 128 (admitted: the cache is a ring), at once in lockstep
       with exact launches a step, then one by one through a store of one
       hot session, the returning user spilled to disk and restored in
@@ -425,7 +430,48 @@ is the `flash_attention` kernel at q·k 192 wide and v 128 wide. It fails
       exact launches a step, and a rescale 4 -> 2 -> 4 lanes mid-run
       against an uninterrupted run, bit for bit; then `serve` and
       `examples.serve_batched` once each (no memory states);
-18. print each phase's seconds, the empty-launch floor with each
+18. Llama-4 Maverick + SAM, `llama4_maverick_400b_a17b_sam` at full width
+   with its depth cut to 2 of 48 layers (bf16 weights from seed 0, 34.7 B
+   parameters, 69.4 GB: a slice of the routed experts past 8 GiB in f32
+   drawn expert by expert; 40 heads over 8 padded to 48, head dim 128; 2
+   layers of 128 experts of 8192, top-1, one shared, no dense layer; one
+   memory group after both). It runs right after phase 13, while the card
+   is empty: its weights leave ~15 GB of the 80;
+   e. first the reduced config with pad heads (10 heads over 2 padded to
+      12, groups of 6 as the full config's; a memory group every 4, so one
+      group after both layers; f32) on the card against the CPU: a prefill
+      of 64 tokens (2 f32 attention launches) and a `decode_scan` of 24
+      tokens with filled memory states, on seeds free of read near-ties
+      at K and router near-ties at k; the bars of phase 15;
+   b. a prefill at B = 4, S = 2048 in lockstep: 2 bf16 attention launches
+      at D = 128 over 48 heads (8 pad heads computed and masked), each
+      against its plain version, and 4 each of the read, write and LRA
+      (one group of 4 segments); host ms, peak, device-busy share;
+   a. the kernel at layer 0's inputs, bf16 and upcast to f32, each against
+      its plain version: ms against the bound, the plain version's and
+      `scaled_dot_product_attention`'s (causal, GQA);
+   c. a decode with memory states, a 32-token prompt and 16 greedy tokens
+      (in lockstep): 1 read, write and LRA and no attention launch a token;
+      ms a token on the host and the device (the expert products read C =
+      8 slots of all 128 experts a layer, JAX's buffer: 64.4 GB a token);
+   d. the engine on 4 lanes of 128: 6 token requests in lockstep and the
+      rescale 4 -> 2 -> 4 lanes bit for bit; then `serve` and
+      `examples.serve_batched --arch llama4_maverick_400b_a17b_sam --full
+      --layers 2` once each;
+19. the paper's tasks at the benches' widths (`benchmarks/bench_babi.py`,
+   `benchmarks/bench_omniglot.py`; RMSProp at 1e-3 after a clip at 10):
+   ``sdnc``, ``sam`` and ``lstm`` on bAbI-lite (V = 27, hidden 128, N =
+   64, W = 24, H = 2, K = 4, B = 16, L = 32; softmax cross-entropy of the
+   last step) and ``sam`` and ``lstm`` on one-shot Omniglot episodes (dim
+   16, 8 label channels, hidden 100, N = 256, W = 24, H = 4, K = 4, B = 8,
+   2-5 classes of 5 presentations; masked cross-entropy over every step),
+   20 steps each (the benches' 250 and 150 cut): the first step on a
+   batch whose CPU reads hold no near-tie at K, in lockstep (every read,
+   write, LRA and backward scatter against its plain version, the
+   launches exact) and against the same step on the CPU (loss, every
+   gradient within 1e-5 of max(1, |g|)); ms a train step and the losses
+   (printed, not gated);
+20. print each phase's seconds, the empty-launch floor with each
    latency-bound kernel's time
    above it (`lra_topn`, the scatter, the write at step 21 on f32, bf16
    and int8 rows and at the LM's shapes, the candidate read on f32, bf16
@@ -435,7 +481,8 @@ is the `flash_attention` kernel at q·k 192 wide and v 128 wide. It fails
    ``"dnc"``, the engine's under ``"engine"``, the LM trainer's under
    ``"lm_train"``, the streaming trainer's under ``"stream"``, the
    sliding-window LM's under ``"swa"``, the vision-language LM's under
-   ``"vlm"``, DeepSeek-V2's under ``"mla"``, the phases' seconds under
+   ``"vlm"``, DeepSeek-V2's under ``"mla"``, Llama-4's under
+   ``"llama4"``, the tasks' under ``"tasks"``, the phases' seconds under
    ``"phase_seconds"``), and last the
    ``{"ok": true, ...}`` line.
 
@@ -474,6 +521,7 @@ present or the port's sources are missing.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import re
 import shutil
@@ -565,6 +613,14 @@ REPLACES = {
     "flash_attention_mla_bf16": (
         "src/repro/kernels/flash_attention.py:94",
         "src/repro_torch/kernels/csrc/flash_attention.cu"),
+    # Llama-4's prefill attention (phase 18): the D = 128 instantiations at
+    # 48 heads (40 real, padded) over 8 kv heads.
+    "flash_attention_llama4": (
+        "src/repro/kernels/flash_attention.py:94",
+        "src/repro_torch/kernels/csrc/flash_attention.cu"),
+    "flash_attention_llama4_bf16": (
+        "src/repro/kernels/flash_attention.py:94",
+        "src/repro_torch/kernels/csrc/flash_attention.cu"),
     # The slot-sharded memory's top-K (phase 10): fused_read.cu's first
     # pass and a merge without the softmax tail.
     "topk_read": ("src/repro/kernels/topk_read.py:31",
@@ -603,9 +659,10 @@ CMP_NS = tuple(1 << e for e in (12, 14, 16, 18, 20))
 # MAX_LEN. Its memory: N = 65536 rows of W = 128, H = 4 heads, K = 8.
 LM_ARCH = "starcoder2_7b_sam"
 LM_B, LM_S, LM_PROMPT, LM_GEN, LM_MAX_LEN = 4, 2048, 32, 32, 128
-# The decode steps a device-time profile takes (phases 9, 15): the
-# profiler's processing of a 32-step window took ~40 s.
-PROFILE_STEPS = 4
+# The decode steps a device-time profile takes (phases 9, 15–18): the
+# profiler's processing of a 32-step window took ~40 s, and the whole
+# smoke must stay inside its limit on a slow host.
+PROFILE_STEPS = 2
 FLASH_TOL = 2e-5               # the JAX suite's f32 bar for the kernel
 SLICE_TOL = 1e-4               # tests/test_torch_lm.py's bar for the slice
 # Phase 13, the LM's train step at StarCoder2-7B's full width with its
@@ -659,11 +716,11 @@ ENGINE_LANES, ENGINE_MAX_LEN, ENGINE_CAPACITY = 4, 128, 2
 ENGINE_REQUESTS, ENGINE_RATE, ENGINE_SEED = 12, 1.0, 12
 ENGINE_PROMPT, ENGINE_GEN, ENGINE_REVISIT, ENGINE_SAMPLED = (16, 32), 16, \
     0.25, 4
-ENGINE_AFTER_RESTORE, ENGINE_LOCKSTEP_EVERY, ENGINE_BUSY_STEPS = 3, 16, 8
+ENGINE_AFTER_RESTORE, ENGINE_LOCKSTEP_EVERY, ENGINE_BUSY_STEPS = 3, 16, 4
 # Fig. 7 (`benchmarks/bench_sdnc.py`): B = 2, R = 2, K = 4, W = 32,
 # hidden 64, T = 10; the dense DNC only where its reckoning fits.
 FIG7_B, FIG7_T = 2, 10
-FIG7_NS = tuple(1 << e for e in range(8, 21))
+FIG7_NS = tuple(1 << e for e in range(8, 21, 2))   # every other 2^e
 # Phase 14, the streaming trainer at the smoke's widths: episodes of the
 # copy task at level STREAM_LEVEL (T = 2·256 + 2 = 514: 13 chunks of
 # STREAM_CHUNK, the last of 10 steps), STREAM_EPISODES of them, a
@@ -676,7 +733,7 @@ FIG7_NS = tuple(1 << e for e in range(8, 21))
 STREAM_CHUNK, STREAM_LEVEL, STREAM_EPISODES, STREAM_EVERY = 42, 256, 2, 4
 STREAM_STOP = 17
 LM100_SLOTS, LM100_B, LM100_S, LM100_STEPS, LM100_EVERY = 65536, 4, 256, \
-    30, 10
+    20, 10
 LM100_FLAKY, LM100_STOP = 5, 17
 
 
@@ -693,9 +750,9 @@ LM100_FLAKY, LM100_STOP = 5, 17
 # SWA_SMALL_S tokens, a decode of SWA_SMALL_DECODE into a ring of the
 # window (max_len SWA_SMALL_MAX_LEN), a loss gradient.
 SWA_ARCH = "h2o_danube_3_4b_sam"
-SWA_B, SWA_S, SWA_PREFILL_RUNS = 4, 8192, 2
+SWA_B, SWA_S, SWA_PREFILL_RUNS = 4, 8192, 1
 SWA_PROMPT, SWA_GEN, SWA_MAX_LEN = 112, 32, 128
-SWA_LANES, SWA_REQUESTS, SWA_REQ_PROMPT, SWA_REQ_GEN = 4, 8, (16, 32), 16
+SWA_LANES, SWA_REQUESTS, SWA_REQ_PROMPT, SWA_REQ_GEN = 4, 4, (16, 32), 16
 SWA_RETURN = (100, 8)
 SWA_SMALL_S, SWA_SMALL_DECODE, SWA_SMALL_MAX_LEN = 128, 80, 64
 # Phase 16, the vision-language LM at PaliGemma-3B's full width (bf16
@@ -743,6 +800,45 @@ MLA_SMALL_S, MLA_SMALL_DECODE, MLA_SMALL_MAX_LEN = 64, 24, 32
 MLA_SMALL = dict(num_layers=3, num_heads=2, num_kv_heads=2, every=2,
                  kv_lora=64, q_lora=48, rope_head_dim=64, nope_head_dim=128,
                  v_head_dim=128)
+# Phase 18, Llama-4 Maverick (+ SAM) at full width with its depth cut to
+# the first L4_LAYERS of 48 (two MoE layers: 34.7 B parameters, 69.4 GB in
+# bf16; 48 layers are 1.57 TB) (bf16 compute; weights from seed 0 held in
+# bf16; 40 heads over 8 padded to 48, head dim 128; 128 routed experts of
+# 8192, top-1, one shared; memory N = 65536, W = 128, H = 4, K = 8, one
+# group after both layers): a prefill of L4_B × L4_S tokens, timed
+# L4_PREFILL_RUNS times; a decode with memory states of a L4_PROMPT-token
+# prompt and L4_GEN greedy tokens into a cache of L4_MAX_LEN; the engine
+# on L4_LANES lanes of L4_MAX_LEN: L4_REQUESTS requests of L4_REQ_PROMPT
+# tokens and L4_REQ_GEN new ones, and a rescale of 4 -> 2 -> 4 lanes; the
+# reduced config with the full config's head groups (L4_SMALL) on the
+# card against the CPU: a prefill of L4_SMALL_S tokens and a decode of
+# L4_SMALL_DECODE into a cache of L4_SMALL_MAX_LEN. L4_SPARE is what the
+# prefill needs beside the weights (the head upcast to f32 for the
+# promoted stream, 4.1 GB, and the activations).
+L4_ARCH, L4_LAYERS = "llama4_maverick_400b_a17b_sam", 2
+L4_B, L4_S, L4_PREFILL_RUNS = 4, 2048, 2
+L4_PROMPT, L4_GEN, L4_MAX_LEN = 32, 16, 128
+L4_LANES, L4_REQUESTS, L4_REQ_PROMPT, L4_REQ_GEN = 4, 6, (8, 16), 8
+L4_SMALL_S, L4_SMALL_DECODE, L4_SMALL_MAX_LEN = 64, 24, 32
+L4_SMALL = dict(num_heads=10, num_kv_heads=2, pad_head_groups=6)
+L4_SPARE = 8 << 30
+# Phase 19, the paper's tasks at the benches' widths: TASK_STEPS RMSProp
+# steps of each (kind, task) of TASK_RUNS (the benches' 250 and 150 cut).
+# bAbI-lite (`benchmarks/bench_babi.py`): stories of BABI_LEN words, B =
+# BABI_B, hidden 128 over BABI_MEM; one-shot Omniglot
+# (`benchmarks/bench_omniglot.py`): episodes of 2 to OMNI_CLASSES classes
+# of OMNI_P presentations, examples of OMNI_DIM, inputs padded to
+# OMNI_LABELS label channels, B = OMNI_B, hidden 100 over OMNI_MEM.
+TASK_STEPS, TASK_LR, TASK_CLIP = 20, 1e-3, 10.0
+TASK_RUNS = (("sdnc", "babi"), ("sam", "babi"), ("lstm", "babi"),
+             ("sam", "omniglot"), ("lstm", "omniglot"))
+BABI_LEN, BABI_B, BABI_HIDDEN = 32, 16, 128
+BABI_MEM = dict(num_slots=64, word_size=24, num_heads=2, k=4)
+OMNI_DIM, OMNI_LABELS, OMNI_CLASSES, OMNI_P, OMNI_B = 16, 8, 5, 5, 8
+OMNI_HIDDEN = 100
+OMNI_MEM = dict(num_slots=256, word_size=24, num_heads=4, k=4)
+# Scatters a SAM backward step launches (phase 6).
+SAM_BWD_SCATTERS = 6
 ROUTER_NEAR_TIE = 1e-6
 
 
@@ -1829,8 +1925,8 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
 
     # The decode's rate: a window of GEN greedy steps (the token fed back
     # on the device) as one synchronised span, from the prompt's end of
-    # the cache; the median of five windows after one untimed; single
-    # steps (median of 5) on the side.
+    # the cache; the median of three windows after one untimed; single
+    # steps (median of 3) on the side.
     def rewind():
         state["cache"] = {**state["cache"], "pos": torch.tensor(
             LM_PROMPT, dtype=torch.int32, device=dev)}
@@ -1843,11 +1939,11 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
             tok = lg[:, -1].float().argmax(-1).to(torch.int32)[:, None]
 
     torch.cuda.reset_peak_memory_stats()
-    step_ms, step_all = host_ms(decode_run, runs=5)
+    step_ms, step_all = host_ms(decode_run, runs=3)
     decode_peak = torch.cuda.max_memory_allocated() - held
     rewind()
     decode_window(None)
-    window_ms, window_all = host_ms(decode_window, runs=5, setup=rewind)
+    window_ms, window_all = host_ms(decode_window, runs=3, setup=rewind)
     decode_ms = window_ms / LM_GEN
     decode_all = [t / LM_GEN for t in window_all]
     spread = (max(decode_all) - min(decode_all)) / decode_ms
@@ -3411,9 +3507,9 @@ def dnc_phase(dev, ops, ref, checker, zero_counts, counts):
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - held
         del s0
-        f_med, _ = host_ms(forward, setup=lambda: cell.init_state(B,
-                                                                  device=dev))
-        b_med, b_all = host_ms(backward, setup=lambda: forward(
+        f_med, _ = host_ms(forward, runs=3, setup=lambda: cell.init_state(
+            B, device=dev))
+        b_med, b_all = host_ms(backward, runs=3, setup=lambda: forward(
             cell.init_state(B, device=dev)))
         out.clear()
         acct = unroll_lib.residual_accounting(
@@ -5088,30 +5184,501 @@ def vlm_phase(dev, ops, ref, checker, zero_counts, counts, flush, ptxas):
             "err": f32_err, "bf16_err": bf16_err, "vlm": out}
 
 
+def stable_routed(ops, ref, run, what, seeds=64):
+    """(seed, run(generator)) for the first seed of 0 .. seeds - 1 whose
+    CPU reads (through ``ops.fused_read``) hold no near-tie at K and whose
+    routers (through `moe.top_k`) none at k: a token's k-th and (k+1)-th
+    router probabilities more than ROUTER_NEAR_TIE apart."""
+    from repro_torch.models import moe
+
+    fused_read, top_k = ops.fused_read, moe.top_k
+    reads, routes = [], []
+
+    def record(q, mem, beta, k, *, valid_n=None, cand_idx=None,
+               mem_scale=None):
+        reads.append((q.detach().clone(), mem.detach().clone(), k, valid_n))
+        return fused_read(q, mem, beta, k, valid_n=valid_n)
+
+    def route(probs, k):
+        routes.append(probs.sort(-1, descending=True).values[:, k - 1:k + 1])
+        return top_k(probs, k)
+
+    for seed in range(seeds):
+        reads.clear()
+        routes.clear()
+        ops.fused_read, moe.top_k = record, route
+        try:
+            got = run(torch.Generator().manual_seed(seed))
+        finally:
+            ops.fused_read, moe.top_k = fused_read, top_k
+        if stable_reads(ref, reads) and all(
+                (r[:, 0] - r[:, 1]).min().item() > ROUTER_NEAR_TIE
+                for r in routes):
+            return seed, got
+    raise SmokeFailure(f"no token seed of 0-{seeds - 1} gives {what} no "
+                       f"read near-tie at K and no router near-tie at k")
+
+
+def engine_rescale(tag, cfg, params, dev, checker, zero_counts, counts,
+                   groups, *, lanes, requests, req_prompt, req_gen, max_len,
+                   cache_key):
+    """The engine at full width on ``params`` (phases 17, 18): ``requests``
+    token requests of ``req_prompt`` tokens and ``req_gen`` new ones on
+    ``lanes`` lanes of ``max_len``, in lockstep with exact launches a step
+    (``groups`` of each memory kernel); then a rescale 4 -> 2 -> 4 lanes
+    mid-run against an uninterrupted run, bit for bit (tokens, the user's
+    logits at every token counter, its session: memory states, the
+    ``cache_key`` cache, position and counter). Returns the numbers."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import Request, ServeEngine
+
+    gen = torch.Generator().manual_seed(18)
+    lens = torch.randint(req_prompt[0], req_prompt[1] + 1,
+                         (requests,), generator=gen).tolist()
+    eng = ServeEngine(cfg, lanes=lanes, max_len=max_len,
+                      params=params, device=dev)
+    for i, n in enumerate(lens):
+        eng.submit(Request(user=f"user{i}", prompt=torch.randint(
+            1, cfg.vocab_size, (n,), generator=gen).tolist(),
+            max_new_tokens=req_gen))
+    results, ms_a = [], []
+    with Intercept(ops, checker=checker):
+        while eng.scheduler.has_work:
+            before = eng.steps
+            zero_counts()
+            t0 = time.perf_counter()
+            results += eng.step()
+            ms_a.append((time.perf_counter() - t0) * 1e3)
+            launched = counts()
+            want_counts = {name: 0 for name in launched}
+            want_counts.update({name: groups * (eng.steps - before)
+                                for name in FORWARD})
+            require(launched == want_counts, f"engine step {before}: launches "
+                    f"{ {k: v for k, v in launched.items() if v} }")
+    require(len(results) == requests and all(
+        len(r["tokens"]) == req_gen
+        and all(0 <= t < cfg.vocab_size for t in r["tokens"])
+        for r in results), "engine: requests or tokens out of count or range")
+    ms_a.sort()
+    out = dict(engine_steps=eng.steps, engine_ms_per_step=ms_a[len(ms_a) // 2])
+    print(f"[{tag}] engine ({lanes} lanes, max_len {max_len}): "
+          f"{requests} token requests (prompts of {req_prompt[0]}-"
+          f"{req_prompt[1]}, {req_gen} new) in {eng.steps} steps in "
+          f"lockstep ({groups} read, write and LRA launch a step; median "
+          f"{ms_a[len(ms_a) // 2]:.1f} ms a step with the checks)")
+    del eng
+
+    rng = np.random.default_rng(19)
+    P = rng.integers(1, cfg.vocab_size, 4).tolist()
+    Pn = rng.integers(1, cfg.vocab_size, 4).tolist()
+
+    def u(prompt, n):
+        return Request(user="u", prompt=prompt, max_new_tokens=n,
+                       greedy=False, sample_seed=42)
+
+    def noise(n):
+        return Request(user="noise", prompt=Pn, max_new_tokens=n,
+                       greedy=False, sample_seed=7)
+
+    def user_tokens(res):
+        return [r for r in res if r["user"] == "u"][0]["tokens"]
+
+    def logged(n_lanes, log):
+        e = ServeEngine(cfg, lanes=n_lanes, max_len=max_len, params=params,
+                        device=dev, replicas=2)
+        inner = e.step
+
+        def step():
+            done = inner()
+            for lane, req in e.scheduler.active.items():
+                if req.user == "u":
+                    log[int(e._counters[lane])] = e.last_logits[lane].clone()
+            return done
+        e.step = step
+        return e
+
+    log_ref, log_live = {}, {}
+    ref_eng = logged(4, log_ref)
+    tok_ref = user_tokens(ref_eng.run([u(P, 8), noise(6)]))
+    tok_ref2 = user_tokens(ref_eng.run([u([5], 4)]))
+    sess_ref = ref_eng.sessions.take("u")
+    del ref_eng
+    eng = logged(4, log_live)
+    eng.submit(u(P, 8))
+    eng.submit(noise(6))
+    done = []
+    for _ in range(6):
+        done.extend(eng.step())
+    eng.rescale(replicas=1)
+    require(eng.lanes == 2, f"rescale left {eng.lanes} lanes")
+    while eng.scheduler.has_work:
+        done.extend(eng.step())
+    tok_live = user_tokens(done)
+    eng.rescale(replicas=2, lanes=4)
+    tok_live2 = user_tokens(eng.run([u([5], 4)]))
+    diff = session_diff(eng.sessions.take("u"), sess_ref)
+    del eng
+    first_step = next((c for c in sorted(log_ref) if c in log_live
+                       and not torch.equal(log_ref[c], log_live[c])), None)
+    exact = (tok_live == tok_ref and tok_live2 == tok_ref2 and diff is None
+             and first_step is None)
+    out.update(rescale_bit_exact=exact,
+               rescale_first_differing_counter=first_step,
+               rescale_first_differing_leaf=diff)
+    require(exact, f"rescale 4 -> 2 -> 4 lanes is not bit-exact: tokens "
+            f"{tok_live}, {tok_live2} against {tok_ref}, {tok_ref2}; u's "
+            f"logits first differ at token counter {first_step}, first "
+            f"differing leaf {diff}")
+    print(f"[{tag}] engine rescale 4 -> 2 -> 4 lanes mid-run against an "
+          "uninterrupted 4-lane run: tokens, u's logits at every token "
+          f"counter, memory states, {cache_key} cache, position and counter "
+          "bit for "
+          "bit")
+    # The logged engines hold themselves (their wrapped step), so only the
+    # cycle collector frees them and the weights they hold.
+    gc.collect()
+    return out
+
+
+def serve_full(tag, arch, layers, example_arch, dev, counts, zero_counts, *,
+               batch, prompt, gen, max_len, vocab):
+    """`serve` of ``arch`` at full width, its first ``layers`` layers, and
+    `examples.serve_batched --arch example_arch --full --layers`, each
+    once on weights of its own from seed 0 (phases 17, 18): no memory
+    states, so no memory op and, decoding only, no attention kernel."""
+    from repro_torch.examples import serve_batched
+    from repro_torch.launch.serve import serve
+
+    zero_counts()
+    served = serve(arch, use_reduced=False, num_layers=layers,
+                   batch=batch, prompt_len=prompt, gen_len=gen,
+                   max_len=max_len, device=dev)
+    torch.cuda.synchronize()
+    tokens = served["tokens"]
+    require(tokens.shape == (batch, gen)
+            and bool(((tokens >= 0) & (tokens < vocab)).all())
+            and not any(counts().values()),
+            "serve: tokens out of shape or range, or a kernel launched")
+    out = dict(serve_prefill_s=served["prefill_s"],
+               serve_decode_tok_per_s=served["decode_tok_per_s"])
+    print(f"[{tag}] serve(--full, {layers} layers, max_len {max_len}): "
+          f"{tuple(tokens.shape)} greedy tokens; prefill "
+          f"{served['prefill_s']:.2f} s, decode "
+          f"{served['decode_tok_per_s']:.1f} tok/s")
+    del served, tokens
+    torch.cuda.empty_cache()
+    argv = sys.argv
+    sys.argv = ["serve_batched", "--arch", example_arch, "--full",
+                "--layers", str(layers), "--prompt-len", "8",
+                "--gen-len", "8", "--device", str(dev)]
+    try:
+        serve_batched.main()
+    finally:
+        sys.argv = argv
+    torch.cuda.empty_cache()
+    return out
+
+
+def reduced_card_vs_cpu(small, dev, ops, ref, zero_counts, counts, *, S,
+                        decode, max_len):
+    """A reduced config (f32) on the card against the plain versions on the
+    CPU (phases 17, 18), on the same weights from seed 0: a prefill of 2 ×
+    ``S`` tokens (one attention launch a layer), and a `decode_scan` of
+    ``decode`` tokens with filled memory states into a cache of
+    ``max_len``: the logits, every cache leaf and the memories within
+    SLICE_TOL of max(1, |CPU|), usage and read rows equal; the token seeds
+    the first of 0-63 whose CPU reads hold no near-tie at K and whose
+    routers none at k. Returns (errors, seeds, attention launches)."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.models import lm
+    from repro_torch.models.layers import tree_map
+
+    p_cpu = lm.init_params(small, seed=0, device="cpu")
+    p_gpu = tree_map(lambda t: t.to(dev), p_cpu)
+
+    def prefill_case(gen):
+        b = {"tokens": torch.randint(0, small.vocab_size, (2, S),
+                                     generator=gen)}
+        return b, lm.prefill(p_cpu, small, b)
+
+    def decode_case(gen):
+        toks = torch.randint(0, small.vocab_size, (2, decode), generator=gen)
+        states = filled_memory_states(small, 2, gen)
+        start = pytree.tree_map(lambda t: t.clone(), states)
+        cache = lm.init_cache(small, 2, max_len, device="cpu")
+        return (toks, start), lm.decode_scan(p_cpu, small, cache, toks,
+                                             mem_states=states)
+
+    seeds = []
+    seed, (b_s, want) = stable_routed(ops, ref, prefill_case,
+                                      "the reduced prefill")
+    seeds.append(seed)
+    zero_counts()
+    got = lm.prefill(p_gpu, small, tree_map(lambda t: t.to(dev), b_s))
+    launches = counts()["flash_attention"]
+    require(launches == small.num_layers,
+            f"the reduced prefill launched the attention kernel {launches} "
+            f"times, not {small.num_layers}")
+    errs = {"prefill": card_close(got, want, "reduced prefill logits")}
+    seed, ((toks_d, start), want_d) = stable_routed(
+        ops, ref, decode_case, "the reduced decode")
+    seeds.append(seed)
+    cache = lm.init_cache(small, 2, max_len, device=dev)
+    got_d = lm.decode_scan(p_gpu, small, cache, toks_d.to(dev),
+                           mem_states=pytree.tree_map(lambda t: t.to(dev),
+                                                      start))
+    errs["decode"] = card_close(got_d[0], want_d[0], "reduced decode logits")
+    for key in sorted(k for k in want_d[1] if k != "pos"):
+        errs[key] = card_close(got_d[1][key], want_d[1][key], key)
+    require(torch.equal(got_d[1]["pos"].cpu(), want_d[1]["pos"]),
+            "reduced decode: the position differs, card against CPU")
+    errs["memory"] = max(card_close(a.memory, b.memory, "memory")
+                         for a, b in zip(got_d[2], want_d[2]))
+    require(all(torch.equal(a.last_access.cpu(), b.last_access)
+                and torch.equal(a.read_idx.cpu().sort(-1).values,
+                                b.read_idx.sort(-1).values)
+                for a, b in zip(got_d[2], want_d[2])),
+            "reduced decode: usage or read rows differ, card against CPU")
+    return errs, seeds, launches
+
+
+def full_width_serving(tag, name_, cfg, params, dev, checker, zero_counts,
+                       counts, flush, part, *, B, S, prompt, gen, max_len,
+                       prefill_runs, heads, cache_ok, cache_what,
+                       decode_dtype):
+    """Phases 17 and 18 at full width on ``params``: (b) a B × S prefill in
+    lockstep (every attention launch, all bf16, against its plain
+    version, the memory kernels too); (a) the attention kernel at layer
+    0's inputs, bf16 as the prefill ran them and upcast to f32, against
+    its plain version, with its `attention_row`; the prefill's host ms,
+    peak and device-busy share; (c) a decode with memory states of a
+    ``prompt``-token prompt and ``gen`` greedy tokens into a cache of
+    ``max_len`` in lockstep (each memory kernel once a group a token, no
+    attention launch; ``cache_ok(cache, n)`` holds the cache written up
+    to n and zero past it), and its ms a token on the host and the
+    device. ``heads`` is (query heads, q·k width, v width). Returns the
+    numbers, the f32 and bf16 rows and the errors."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import lm
+
+    m = cfg.memory
+    groups = max(1, cfg.num_layers // m.every_n_layers)
+    segments = S // m.segment
+    Hq, DQK, DV = heads
+    pair = f"({DQK}, {DV})" if DQK != DV else f"D = {DQK}"
+    n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in pytree.tree_leaves(params))
+    out = dict(params=n_params, param_bytes=param_bytes)
+    print(f"[{tag}] {cfg.name} at {cfg.num_layers} layers: {n_params} "
+          f"parameters, {param_bytes} B in {cfg.compute_dtype}")
+
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (B, S),
+        generator=torch.Generator().manual_seed(17)).to(dev)}
+    zero_counts()
+    with torch.inference_mode(), Intercept(ops, checker=checker), \
+            FlashCheck(ops, ref, keep=(0,)) as fc:
+        logits = lm.prefill(params, cfg, batch)
+    torch.cuda.synchronize()
+    launched = counts()
+    want_counts = {name: 0 for name in launched}
+    want_counts.update({"flash_attention": cfg.num_layers,
+                        **{name: groups * segments for name in FORWARD}})
+    require(launched == want_counts, f"prefill launches {launched}, expected "
+            f"{want_counts}")
+    by_dtype = [str(c["dtype"])[6:] for c in fc.checks]
+    require(by_dtype == ["bfloat16"] * cfg.num_layers,
+            f"prefill attention launches by dtype {by_dtype}: expected "
+            f"{cfg.num_layers} bf16")
+    require(logits.dtype == torch.float32
+            and logits.shape == (B, 1, cfg.vocab_size)
+            and torch.isfinite(logits).all().item(),
+            "prefill logits are not finite f32 of shape (B, 1, V)")
+    bf16_err = max(c["err"] for c in fc.checks)
+    out.update(prefill_launches=launched, flash_bf16_max_err=bf16_err)
+    print(f"[{tag}] prefill (B={B}, S={S}) in lockstep: launches "
+          f"{ {k: v for k, v in launched.items() if v} } ({cfg.num_layers} "
+          f"bf16 attention launches at {pair}, {groups * segments} of "
+          f"each memory kernel: one group of {segments} segments); flash "
+          f"against plain: bf16 max err {bf16_err:.3g}; memory kernels: read "
+          f"err {checker.err['fused_read_sweep']:.3g}, write err "
+          f"{checker.err['sparse_write_update']:.3g}, near-ties "
+          f"{checker.near_ties}")
+    part("b")
+
+    # (a) the kernel at layer 0's inputs: bf16 as the prefill ran it, and
+    # f32 on the same values upcast, each held against its plain version.
+    q0, k0, v0 = fc.kept[0]
+    del fc
+    require(q0.dtype == torch.bfloat16
+            and q0.shape == (B, S, Hq, DQK)
+            and k0.shape == (B, S, cfg.num_kv_heads, DQK)
+            and v0.shape == (B, S, cfg.num_kv_heads, DV),
+            f"layer 0 ran {q0.dtype} {tuple(q0.shape)}, k {tuple(k0.shape)}, "
+            f"v {tuple(v0.shape)}")
+    q4, k4, v4 = (t.float() for t in (q0, k0, v0))
+    zero_counts()
+    f32_check = check_flash(ref, q4, k4, v4, flash_attention(q4, k4, v4))
+    require(counts()["flash_attention"] == 1, "the f32 check did not launch")
+    row_bf16 = attention_row(ref, flash_attention, q0, k0, v0, flush,
+                             tag=tag)
+    row_f32 = attention_row(ref, flash_attention, q4, k4, v4, flush,
+                            tag=tag)
+    out["pairs"] = attn_pairs(S)
+    out["flash_f32_check"] = f32_check
+    del q0, k0, v0, q4, k4, v4
+    torch.cuda.empty_cache()
+    for name, r in (("f32", row_f32), ("bf16", row_bf16)):
+        lib = "none (" + ", ".join(r["library_refused"]) + " refused)" \
+            if r["library_ms"] is None else (
+                f"{r['library_ms']:.4f} ms ({r['library_call']}; "
+                f"{r['ms'] / r['library_ms']:.2f}x its time)")
+        print(f"[time] flash_attention {name} at {name_}'s prefill (B="
+              f"{B}, S={S}, H={Hq} over {cfg.num_kv_heads}, q·k {DQK}, "
+              f"v {DV}, "
+              f"causal: {out['pairs']} (query, key) pairs a head): "
+              f"{r['ms']:.4f} ms (bound {r['bound'][0]:.4f} ms by "
+              f"{r['bound'][1]}: {r['bound'][0] / r['ms']:.1%} of it), "
+              f"plain {r['plain_ms']:.4f} ms, library {lib}")
+    print(f"[{tag}] flash_attention f32 at {pair} against plain: "
+          f"{f32_check}")
+    part("a")
+
+    # The prefill's host ms, peak and device-busy share.
+    def prefill_run(_):
+        lm.prefill(params, cfg, batch)
+
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms, prefill_all = host_ms(prefill_run, runs=prefill_runs)
+    prefill_peak = torch.cuda.max_memory_allocated() - held
+    dev_ms, on_dev = device_time(lambda: prefill_run(None))
+    out.update(prefill_ms=prefill_ms, prefill_ms_all=prefill_all,
+               prefill_peak_bytes=prefill_peak, held_bytes=held,
+               prefill_device_ms=dev_ms or None,
+               prefill_busy_share=(dev_ms / prefill_ms) if dev_ms else None,
+               prefill_tokens_per_s=B * S / prefill_ms * 1e3,
+               prefill_by_kernel=[(kk[:60], t, c) for kk, t, c in on_dev[:8]])
+    print(f"[time] {name_} prefill (B={B}, S={S}, {cfg.num_layers} "
+          f"layers) {prefill_ms:.1f} ms, median of "
+          f"{', '.join(f'{t:.1f}' for t in prefill_all)} "
+          f"({out['prefill_tokens_per_s']:.0f} tokens/s); peak "
+          f"{prefill_peak} B above the {held} B held ({param_bytes} B of "
+          f"weights); "
+          + (f"{dev_ms:.1f} ms of kernels ({dev_ms / prefill_ms:.1%} busy); "
+             f"by kernel (ms, launches): "
+             + "; ".join(f"{kk[:50]} {t:.1f} ({c})"
+                         for kk, t, c in on_dev[:6])
+             if dev_ms else "device time not measured (the profiler "
+             "recorded none)"))
+    del logits
+    torch.cuda.empty_cache()
+    part("b timed")
+
+    # (c) the decode with memory states: a ``prompt``-token prompt, then
+    # ``gen`` greedy tokens in lockstep; the decode's attention is plain
+    # PyTorch, so a token launches the memory kernels and no attention.
+    cache = lm.init_cache(cfg, B, max_len, device=dev)
+    mem = lm.init_memory_states(cfg, B, device=dev)
+    zero_counts()
+    d_logits, cache, mem = lm.decode_scan(params, cfg, cache,
+                                          batch["tokens"][:, :prompt],
+                                          mem_states=mem)
+    after_prompt = counts()
+    with torch.inference_mode(), Intercept(ops, checker=checker):
+        per_token = []
+        for _ in range(gen):
+            tok = d_logits[:, -1].float().argmax(-1).to(torch.int32)
+            zero_counts()
+            d_logits, cache, mem = lm.decode_step(params, cfg, cache,
+                                                  tok[:, None],
+                                                  mem_states=mem)
+            per_token.append(counts())
+    torch.cuda.synchronize()
+    one = {name: 0 for name in after_prompt}
+    one.update({name: groups for name in FORWARD})
+    require(after_prompt == {kk: vv * prompt for kk, vv in one.items()},
+            f"prompt launches {after_prompt}")
+    require(all(c == one for c in per_token), f"a decode step launched "
+            f"{[c for c in per_token if c != one][:1]}, expected {one}")
+    n_tok = prompt + gen
+    require(d_logits.dtype == decode_dtype
+            and d_logits.shape == (B, 1, cfg.vocab_size)
+            and torch.isfinite(d_logits).all().item()
+            and int(cache["pos"]) == n_tok
+            and all(int(st.step) == n_tok for st in mem)
+            and cache_ok(cache, n_tok),
+            f"decode: logits not finite bf16, the position or the steps are "
+            f"off, or {cache_what} is not written at every layer up to the "
+            f"position and zero past it")
+    state = {"cache": cache, "mem": mem}
+
+    def rewind():
+        state["cache"] = {**state["cache"], "pos": torch.tensor(
+            prompt, dtype=torch.int32, device=dev)}
+
+    def decode_window(_, steps=gen):
+        tok = torch.ones((B, 1), dtype=torch.int32, device=dev)
+        for _ in range(steps):
+            lg, state["cache"], state["mem"] = lm.decode_step(
+                params, cfg, state["cache"], tok, mem_states=state["mem"])
+            tok = lg[:, -1].float().argmax(-1).to(torch.int32)[:, None]
+
+    window_ms, window_all = host_ms(decode_window, runs=2, setup=rewind)
+    decode_ms = window_ms / gen
+    rewind()
+    ddev_ms, d_on_dev = device_time(lambda: decode_window(None,
+                                                           PROFILE_STEPS))
+    ddev_ms /= PROFILE_STEPS
+    out.update(decode_ms_per_token=decode_ms,
+               decode_ms_per_token_all=[t / gen for t in window_all],
+               decode_device_ms=ddev_ms or None,
+               decode_busy_share=(ddev_ms / decode_ms) if ddev_ms else None,
+               decode_by_kernel=[(kk[:60], t / PROFILE_STEPS,
+                                  c / PROFILE_STEPS)
+                                 for kk, t, c in d_on_dev[:8]])
+    print(f"[{tag}] decode_scan with memory states: {prompt} prompt tokens "
+          f"and {gen} greedy ones (in lockstep), {one['fused_read_sweep']}"
+          f" read, write and LRA launch and no attention launch a token (the "
+          f"decode's attention is plain PyTorch, as in JAX)")
+    print(f"[time] {name_} decode with memory (B={B}): "
+          f"{decode_ms:.3f} ms a token on the host (windows of {gen}: "
+          f"{', '.join(f'{t / gen:.3f}' for t in window_all)}); "
+          + (f"{ddev_ms:.3f} ms of kernels ({ddev_ms / decode_ms:.1%} busy, "
+             f"a profiled window of {PROFILE_STEPS} steps); by kernel (ms a "
+             f"token): " + "; ".join(f"{kk[:40]} {t / PROFILE_STEPS:.3f}"
+                                     for kk, t, c in d_on_dev[:5])
+             if ddev_ms else "device time not measured"))
+    del cache, mem, state, d_logits
+    torch.cuda.empty_cache()
+    part("c")
+    return {"out": out, "row": row_f32, "bf16_row": row_bf16,
+            "bf16_err": bf16_err, "f32_check": f32_check}
+
+
+
 def mla_phase(dev, ops, ref, checker, zero_counts, counts, flush, ptxas):
     """Phase 17: DeepSeek-V2 (+ SAM) served at full width, its depth cut to
     the first MLA_LAYERS of 60 layers. ``ptxas`` is the attention
     library's `-Xptxas -v` report. Returns the (192, 128) attention rows
     (bf16 at layer 0's prefill inputs, f32 at the same inputs upcast),
     their launches and the numbers."""
-    import numpy as np
-    from torch.utils import _pytree as pytree
-
     from repro_torch.configs import get_config, reduced
-    from repro_torch.examples import serve_batched
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.launch.engine import Request, ServeEngine
-    from repro_torch.launch.serve import serve
-    from repro_torch.models import lm, moe
+    from repro_torch.models import lm
     from repro_torch.models.config import MLAConfig
-    from repro_torch.models.layers import tree_map
 
     cfg = dataclasses.replace(get_config(MLA_ARCH), num_layers=MLA_LAYERS)
     m, mla = cfg.memory, cfg.mla
     n_dense = cfg.moe.num_dense_layers
     groups = cfg.num_layers // m.every_n_layers
     per = (cfg.num_layers - n_dense) // groups
-    segments = MLA_S // m.segment
     DQK, DV = mla.nope_head_dim + mla.rope_head_dim, mla.v_head_dim
     require((DQK, DV, n_dense, groups, per) == (192, 128, 1, 1, 3),
             f"{MLA_ARCH} at {MLA_LAYERS} layers: q·k {DQK}, v {DV}, "
@@ -5158,80 +5725,9 @@ def mla_phase(dev, ops, ref, checker, zero_counts, counts, flush, ptxas):
         memory=dataclasses.replace(small.memory,
                                    every_n_layers=kw.pop("every")),
         mla=MLAConfig(**kw))
-    p_cpu = lm.init_params(small, seed=0, device="cpu")
-    p_gpu = tree_map(lambda t: t.to(dev), p_cpu)
-
-    def stable(run, what):
-        """(seed, run(generator)) for the first seed of 0-63 whose CPU
-        reads and routes hold no near-tie at K and at k."""
-        fused_read, top_k = ops.fused_read, moe.top_k
-        reads, routes = [], []
-
-        def record(q, mem, beta, k, *, valid_n=None, cand_idx=None,
-                   mem_scale=None):
-            reads.append((q.detach().clone(), mem.detach().clone(), k,
-                          valid_n))
-            return fused_read(q, mem, beta, k, valid_n=valid_n)
-
-        def route(probs, k):
-            routes.append(probs.sort(-1, descending=True).values[:, k - 1:k + 1])
-            return top_k(probs, k)
-
-        for seed in range(64):
-            reads.clear()
-            routes.clear()
-            ops.fused_read, moe.top_k = record, route
-            try:
-                got = run(torch.Generator().manual_seed(seed))
-            finally:
-                ops.fused_read, moe.top_k = fused_read, top_k
-            if stable_reads(ref, reads) and all(
-                    (r[:, 0] - r[:, 1]).min().item() > ROUTER_NEAR_TIE
-                    for r in routes):
-                return seed, got
-        raise SmokeFailure(f"no token seed of 0-63 gives {what} no read "
-                           f"near-tie at K and no router near-tie at k")
-
-    def prefill_case(gen):
-        b = {"tokens": torch.randint(0, small.vocab_size, (2, MLA_SMALL_S),
-                                     generator=gen)}
-        return b, lm.prefill(p_cpu, small, b)
-
-    def decode_case(gen):
-        toks = torch.randint(0, small.vocab_size, (2, MLA_SMALL_DECODE),
-                             generator=gen)
-        states = filled_memory_states(small, 2, gen)
-        start = pytree.tree_map(lambda t: t.clone(), states)
-        cache = lm.init_cache(small, 2, MLA_SMALL_MAX_LEN, device="cpu")
-        return (toks, start), lm.decode_scan(p_cpu, small, cache, toks,
-                                             mem_states=states)
-
-    seeds = []
-    seed, (b_s, want) = stable(prefill_case, "the reduced prefill")
-    seeds.append(seed)
-    zero_counts()
-    got = lm.prefill(p_gpu, small, tree_map(lambda t: t.to(dev), b_s))
-    small_launches = counts()["flash_attention"]
-    require(small_launches == small.num_layers,
-            f"the reduced prefill launched the attention kernel "
-            f"{small_launches} times, not {small.num_layers}")
-    errs = {"prefill": card_close(got, want, "reduced prefill logits")}
-    seed, ((toks_d, start), want_d) = stable(decode_case, "the reduced "
-                                                          "decode")
-    seeds.append(seed)
-    cache = lm.init_cache(small, 2, MLA_SMALL_MAX_LEN, device=dev)
-    got_d = lm.decode_scan(p_gpu, small, cache, toks_d.to(dev),
-                           mem_states=pytree.tree_map(lambda t: t.to(dev),
-                                                      start))
-    errs["decode"] = card_close(got_d[0], want_d[0], "reduced decode logits")
-    errs["cache"] = card_close(got_d[1]["ckv"], want_d[1]["ckv"], "ckv")
-    errs["memory"] = max(card_close(a.memory, b.memory, "memory")
-                         for a, b in zip(got_d[2], want_d[2]))
-    require(all(torch.equal(a.last_access.cpu(), b.last_access)
-                and torch.equal(a.read_idx.cpu().sort(-1).values,
-                                b.read_idx.sort(-1).values)
-                for a, b in zip(got_d[2], want_d[2])),
-            "reduced decode: usage or read rows differ, card against CPU")
+    errs, seeds, small_launches = reduced_card_vs_cpu(
+        small, dev, ops, ref, zero_counts, counts, S=MLA_SMALL_S,
+        decode=MLA_SMALL_DECODE, max_len=MLA_SMALL_MAX_LEN)
     out["card_vs_cpu"] = dict(err=errs, seeds=seeds,
                               f32_launches=small_launches)
     print(f"[mla] reduced {MLA_ARCH} (q·k {small.mla.nope_head_dim} + "
@@ -5240,352 +5736,338 @@ def mla_phase(dev, ops, ref, checker, zero_counts, counts, flush, ptxas):
           f"card against the CPU (token seeds {seeds}): prefill logits "
           f"{errs['prefill']:.3g} ({small_launches} f32 attention launches "
           f"at (192, 128)), decode_scan of {MLA_SMALL_DECODE} tokens with "
-          f"memory states {errs['decode']:.3g}, ckv {errs['cache']:.3g}, "
+          f"memory states {errs['decode']:.3g}, ckv {errs['ckv']:.3g}, "
           f"memory {errs['memory']:.3g} (bar {SLICE_TOL} of max(1, |CPU|); "
           f"usage and read rows equal)")
-    del p_cpu, p_gpu, got, want, got_d, want_d
     torch.cuda.empty_cache()
     part("e")
 
-    # (b) the prefill at full width in lockstep: every attention launch
-    # against its plain version, the memory kernels too. The stream stays
-    # bf16 through the 4 blocks (the one memory group comes last).
     t0 = time.perf_counter()
     params = lm.init_params(cfg, seed=0, device=dev, dtype=cfg.compute_dtype)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in pytree.tree_leaves(params))
-    param_bytes = sum(t.numel() * t.element_size()
-                      for t in pytree.tree_leaves(params))
-    out.update(params=n_params, param_bytes=param_bytes)
-    print(f"[mla] {MLA_ARCH} at {MLA_LAYERS} of 60 layers: {n_params} "
-          f"parameters, {param_bytes} B in bf16, drawn on the card in "
-          f"{time.perf_counter() - t0:.1f} s")
-    gen = torch.Generator().manual_seed(17)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (MLA_B, MLA_S),
-                                     generator=gen).to(dev)}
-    zero_counts()
-    with torch.inference_mode(), Intercept(ops, checker=checker), \
-            FlashCheck(ops, ref, keep=(0,)) as fc:
-        logits = lm.prefill(params, cfg, batch)
-    torch.cuda.synchronize()
-    launched = counts()
-    want_counts = {name: 0 for name in launched}
-    want_counts.update({"flash_attention": cfg.num_layers,
-                        **{name: groups * segments for name in FORWARD}})
-    require(launched == want_counts, f"prefill launches {launched}, expected "
-            f"{want_counts}")
-    by_dtype = [str(c["dtype"])[6:] for c in fc.checks]
-    require(by_dtype == ["bfloat16"] * cfg.num_layers,
-            f"prefill attention launches by dtype {by_dtype}: expected "
-            f"{cfg.num_layers} bf16")
-    require(logits.dtype == torch.float32
-            and logits.shape == (MLA_B, 1, cfg.vocab_size)
-            and torch.isfinite(logits).all().item(),
-            "prefill logits are not finite f32 of shape (B, 1, V)")
-    bf16_err = max(c["err"] for c in fc.checks)
-    out.update(prefill_launches=launched, flash_bf16_max_err=bf16_err)
-    print(f"[mla] prefill (B={MLA_B}, S={MLA_S}) in lockstep: launches "
-          f"{ {k: v for k, v in launched.items() if v} } ({cfg.num_layers} "
-          f"bf16 attention launches at (192, 128), {groups * segments} of "
-          f"each memory kernel: one group of {segments} segments); flash "
-          f"against plain: bf16 max err {bf16_err:.3g}; memory kernels: read "
-          f"err {checker.err['fused_read_sweep']:.3g}, write err "
-          f"{checker.err['sparse_write_update']:.3g}, near-ties "
-          f"{checker.near_ties}")
-    part("b")
+    print(f"[mla] {MLA_ARCH} at {MLA_LAYERS} of 60 layers: drawn on the "
+          f"card in {time.perf_counter() - t0:.1f} s")
+    part("draw")
 
-    # (a) the kernel at layer 0's inputs: bf16 as the prefill ran it, and
-    # f32 on the same values upcast, each held against its plain version.
-    q0, k0, v0 = fc.kept[0]
-    del fc
-    require(q0.dtype == torch.bfloat16
-            and q0.shape == (MLA_B, MLA_S, cfg.num_heads, DQK)
-            and v0.shape == (MLA_B, MLA_S, cfg.num_heads, DV),
-            f"layer 0 ran {q0.dtype} {tuple(q0.shape)}, v {tuple(v0.shape)}")
-    q4, k4, v4 = (t.float() for t in (q0, k0, v0))
-    zero_counts()
-    f32_check = check_flash(ref, q4, k4, v4, flash_attention(q4, k4, v4))
-    require(counts()["flash_attention"] == 1, "the f32 check did not launch")
-    row_bf16 = attention_row(ref, flash_attention, q0, k0, v0, flush,
-                             tag="mla")
-    row_f32 = attention_row(ref, flash_attention, q4, k4, v4, flush,
-                            tag="mla")
-    out["pairs"] = attn_pairs(MLA_S)
-    out["flash_f32_check"] = f32_check
-    del q0, k0, v0, q4, k4, v4
-    torch.cuda.empty_cache()
-    for name, r in (("f32", row_f32), ("bf16", row_bf16)):
-        lib = "none (" + ", ".join(r["library_refused"]) + " refused)" \
-            if r["library_ms"] is None else (
-                f"{r['library_ms']:.4f} ms ({r['library_call']}; "
-                f"{r['ms'] / r['library_ms']:.2f}x its time)")
-        print(f"[time] flash_attention {name} at DeepSeek-V2's prefill (B="
-              f"{MLA_B}, S={MLA_S}, H={cfg.num_heads}, q·k {DQK}, v {DV}, "
-              f"causal: {out['pairs']} (query, key) pairs a head): "
-              f"{r['ms']:.4f} ms (bound {r['bound'][0]:.4f} ms by "
-              f"{r['bound'][1]}: {r['bound'][0] / r['ms']:.1%} of it), "
-              f"plain {r['plain_ms']:.4f} ms, library {lib}")
-    print(f"[mla] flash_attention f32 at (192, 128) against plain: "
-          f"{f32_check}")
-    part("a")
-
-    # The prefill's host ms, peak and device-busy share.
-    def prefill_run(_):
-        lm.prefill(params, cfg, batch)
-
-    held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    prefill_ms, prefill_all = host_ms(prefill_run, runs=MLA_PREFILL_RUNS)
-    prefill_peak = torch.cuda.max_memory_allocated() - held
-    dev_ms, on_dev = device_time(lambda: prefill_run(None))
-    out.update(prefill_ms=prefill_ms, prefill_ms_all=prefill_all,
-               prefill_peak_bytes=prefill_peak, held_bytes=held,
-               prefill_device_ms=dev_ms or None,
-               prefill_busy_share=(dev_ms / prefill_ms) if dev_ms else None,
-               prefill_tokens_per_s=MLA_B * MLA_S / prefill_ms * 1e3,
-               prefill_by_kernel=[(kk[:60], t, c) for kk, t, c in on_dev[:8]])
-    print(f"[time] DeepSeek-V2 prefill (B={MLA_B}, S={MLA_S}, {MLA_LAYERS} "
-          f"layers) {prefill_ms:.1f} ms, median of "
-          f"{', '.join(f'{t:.1f}' for t in prefill_all)} "
-          f"({out['prefill_tokens_per_s']:.0f} tokens/s); peak "
-          f"{prefill_peak} B above the {held} B held ({param_bytes} B of "
-          f"weights); "
-          + (f"{dev_ms:.1f} ms of kernels ({dev_ms / prefill_ms:.1%} busy); "
-             f"by kernel (ms, launches): "
-             + "; ".join(f"{kk[:50]} {t:.1f} ({c})"
-                         for kk, t, c in on_dev[:6])
-             if dev_ms else "device time not measured (the profiler "
-             "recorded none)"))
-    del logits
-    torch.cuda.empty_cache()
-    part("b timed")
-
-    # (c) the decode with memory states: a MLA_PROMPT-token prompt, then
-    # MLA_GEN greedy tokens in lockstep; the absorbed decode is plain
-    # PyTorch, so a token launches the memory kernels and no attention.
-    cache = lm.init_cache(cfg, MLA_B, MLA_MAX_LEN, device=dev)
-    mem = lm.init_memory_states(cfg, MLA_B, device=dev)
-    zero_counts()
-    d_logits, cache, mem = lm.decode_scan(params, cfg, cache,
-                                          batch["tokens"][:, :MLA_PROMPT],
-                                          mem_states=mem)
-    after_prompt = counts()
-    with torch.inference_mode(), Intercept(ops, checker=checker):
-        per_token = []
-        for _ in range(MLA_GEN):
-            tok = d_logits[:, -1].float().argmax(-1).to(torch.int32)
-            zero_counts()
-            d_logits, cache, mem = lm.decode_step(params, cfg, cache,
-                                                  tok[:, None],
-                                                  mem_states=mem)
-            per_token.append(counts())
-    torch.cuda.synchronize()
-    one = {name: 0 for name in after_prompt}
-    one.update({name: groups for name in FORWARD})
-    require(after_prompt == {kk: vv * MLA_PROMPT for kk, vv in one.items()},
-            f"prompt launches {after_prompt}")
-    require(all(c == one for c in per_token), f"a decode step launched "
-            f"{[c for c in per_token if c != one][:1]}, expected {one}")
-    n_tok = MLA_PROMPT + MLA_GEN
-    require(d_logits.dtype == torch.bfloat16
-            and d_logits.shape == (MLA_B, 1, cfg.vocab_size)
-            and torch.isfinite(d_logits).all().item()
-            and int(cache["pos"]) == n_tok
-            and all(int(st.step) == n_tok for st in mem)
-            and cache["ckv"].shape == (MLA_LAYERS, MLA_B, MLA_MAX_LEN,
+    def ckv_ok(cache, n_tok):
+        return (cache["ckv"].shape == (MLA_LAYERS, MLA_B, MLA_MAX_LEN,
                                        mla.kv_lora + mla.rope_head_dim)
-            and bool(cache["ckv"][:, :, :n_tok].abs().amax((1, 2, 3)).gt(0)
-                     .all()) and not cache["ckv"][:, :, n_tok:].any(),
-            "decode: logits not finite bf16, the position or the steps are "
-            "off, or the ckv cache is not written at every layer up to the "
-            "position and zero past it")
-    state = {"cache": cache, "mem": mem}
+                and bool(cache["ckv"][:, :, :n_tok].abs().amax((1, 2, 3))
+                         .gt(0).all())
+                and not cache["ckv"][:, :, n_tok:].any())
 
-    def rewind():
-        state["cache"] = {**state["cache"], "pos": torch.tensor(
-            MLA_PROMPT, dtype=torch.int32, device=dev)}
+    core = full_width_serving(
+        "mla", "DeepSeek-V2", cfg, params, dev, checker, zero_counts, counts,
+        flush, part, B=MLA_B, S=MLA_S, prompt=MLA_PROMPT, gen=MLA_GEN,
+        max_len=MLA_MAX_LEN, prefill_runs=MLA_PREFILL_RUNS,
+        heads=(cfg.num_heads, DQK, DV), cache_ok=ckv_ok,
+        cache_what="the ckv cache", decode_dtype=torch.bfloat16)
+    out.update(core["out"])
 
-    def decode_window(_, steps=MLA_GEN):
-        tok = torch.ones((MLA_B, 1), dtype=torch.int32, device=dev)
-        for _ in range(steps):
-            lg, state["cache"], state["mem"] = lm.decode_step(
-                params, cfg, state["cache"], tok, mem_states=state["mem"])
-            tok = lg[:, -1].float().argmax(-1).to(torch.int32)[:, None]
-
-    window_ms, window_all = host_ms(decode_window, runs=2, setup=rewind)
-    decode_ms = window_ms / MLA_GEN
-    rewind()
-    ddev_ms, d_on_dev = device_time(lambda: decode_window(None,
-                                                           PROFILE_STEPS))
-    ddev_ms /= PROFILE_STEPS
-    out.update(decode_ms_per_token=decode_ms,
-               decode_ms_per_token_all=[t / MLA_GEN for t in window_all],
-               decode_device_ms=ddev_ms or None,
-               decode_busy_share=(ddev_ms / decode_ms) if ddev_ms else None,
-               decode_by_kernel=[(kk[:60], t / PROFILE_STEPS,
-                                  c / PROFILE_STEPS)
-                                 for kk, t, c in d_on_dev[:8]])
-    print(f"[mla] decode_scan with memory states: {MLA_PROMPT} prompt tokens "
-          f"and {MLA_GEN} greedy ones (in lockstep), {one['fused_read_sweep']}"
-          f" read, write and LRA launch and no attention launch a token (the "
-          f"absorbed decode is plain PyTorch, as in JAX)")
-    print(f"[time] DeepSeek-V2 decode with memory (B={MLA_B}): "
-          f"{decode_ms:.3f} ms a token on the host (windows of {MLA_GEN}: "
-          f"{', '.join(f'{t / MLA_GEN:.3f}' for t in window_all)}); "
-          + (f"{ddev_ms:.3f} ms of kernels ({ddev_ms / decode_ms:.1%} busy, "
-             f"a profiled window of {PROFILE_STEPS} steps); by kernel (ms a "
-             f"token): " + "; ".join(f"{kk[:40]} {t / PROFILE_STEPS:.3f}"
-                                     for kk, t, c in d_on_dev[:5])
-             if ddev_ms else "device time not measured"))
-    del cache, mem, state, d_logits
-    torch.cuda.empty_cache()
-    part("c")
-
-    # (d) the engine on MLA_LANES lanes: MLA_REQUESTS token requests in
-    # lockstep with exact launches a step; then the rescale 4 -> 2 -> 4
-    # lanes mid-run against an uninterrupted run, bit for bit.
-    gen = torch.Generator().manual_seed(18)
-    lens = torch.randint(MLA_REQ_PROMPT[0], MLA_REQ_PROMPT[1] + 1,
-                         (MLA_REQUESTS,), generator=gen).tolist()
-    eng = ServeEngine(cfg, lanes=MLA_LANES, max_len=MLA_MAX_LEN,
-                      params=params, device=dev)
-    for i, n in enumerate(lens):
-        eng.submit(Request(user=f"user{i}", prompt=torch.randint(
-            1, cfg.vocab_size, (n,), generator=gen).tolist(),
-            max_new_tokens=MLA_REQ_GEN))
-    results, ms_a = [], []
-    with Intercept(ops, checker=checker):
-        while eng.scheduler.has_work:
-            before = eng.steps
-            zero_counts()
-            t0 = time.perf_counter()
-            results += eng.step()
-            ms_a.append((time.perf_counter() - t0) * 1e3)
-            launched = counts()
-            want_counts = {name: 0 for name in launched}
-            want_counts.update({name: groups * (eng.steps - before)
-                                for name in FORWARD})
-            require(launched == want_counts, f"engine step {before}: launches "
-                    f"{ {k: v for k, v in launched.items() if v} }")
-    require(len(results) == MLA_REQUESTS and all(
-        len(r["tokens"]) == MLA_REQ_GEN
-        and all(0 <= t < cfg.vocab_size for t in r["tokens"])
-        for r in results), "engine: requests or tokens out of count or range")
-    ms_a.sort()
-    out.update(engine_steps=eng.steps, engine_ms_per_step=ms_a[len(ms_a) // 2])
-    print(f"[mla] engine ({MLA_LANES} lanes, max_len {MLA_MAX_LEN}): "
-          f"{MLA_REQUESTS} token requests (prompts of {MLA_REQ_PROMPT[0]}-"
-          f"{MLA_REQ_PROMPT[1]}, {MLA_REQ_GEN} new) in {eng.steps} steps in "
-          f"lockstep ({groups} read, write and LRA launch a step; median "
-          f"{ms_a[len(ms_a) // 2]:.1f} ms a step with the checks)")
-    del eng
-
-    rng = np.random.default_rng(19)
-    P = rng.integers(1, cfg.vocab_size, 4).tolist()
-    Pn = rng.integers(1, cfg.vocab_size, 4).tolist()
-
-    def u(prompt, n):
-        return Request(user="u", prompt=prompt, max_new_tokens=n,
-                       greedy=False, sample_seed=42)
-
-    def noise(n):
-        return Request(user="noise", prompt=Pn, max_new_tokens=n,
-                       greedy=False, sample_seed=7)
-
-    def user_tokens(res):
-        return [r for r in res if r["user"] == "u"][0]["tokens"]
-
-    def logged(lanes, log):
-        e = ServeEngine(cfg, lanes=lanes, max_len=MLA_MAX_LEN, params=params,
-                        device=dev, replicas=2)
-        inner = e.step
-
-        def step():
-            done = inner()
-            for lane, req in e.scheduler.active.items():
-                if req.user == "u":
-                    log[int(e._counters[lane])] = e.last_logits[lane].clone()
-            return done
-        e.step = step
-        return e
-
-    log_ref, log_live = {}, {}
-    ref_eng = logged(4, log_ref)
-    tok_ref = user_tokens(ref_eng.run([u(P, 8), noise(6)]))
-    tok_ref2 = user_tokens(ref_eng.run([u([5], 4)]))
-    sess_ref = ref_eng.sessions.take("u")
-    del ref_eng
-    eng = logged(4, log_live)
-    eng.submit(u(P, 8))
-    eng.submit(noise(6))
-    done = []
-    for _ in range(6):
-        done.extend(eng.step())
-    eng.rescale(replicas=1)
-    require(eng.lanes == 2, f"rescale left {eng.lanes} lanes")
-    while eng.scheduler.has_work:
-        done.extend(eng.step())
-    tok_live = user_tokens(done)
-    eng.rescale(replicas=2, lanes=4)
-    tok_live2 = user_tokens(eng.run([u([5], 4)]))
-    diff = session_diff(eng.sessions.take("u"), sess_ref)
-    del eng
-    first_step = next((c for c in sorted(log_ref) if c in log_live
-                       and not torch.equal(log_ref[c], log_live[c])), None)
-    exact = (tok_live == tok_ref and tok_live2 == tok_ref2 and diff is None
-             and first_step is None)
-    out.update(rescale_bit_exact=exact,
-               rescale_first_differing_counter=first_step,
-               rescale_first_differing_leaf=diff)
-    require(exact, f"rescale 4 -> 2 -> 4 lanes is not bit-exact: tokens "
-            f"{tok_live}, {tok_live2} against {tok_ref}, {tok_ref2}; u's "
-            f"logits first differ at token counter {first_step}, first "
-            f"differing leaf {diff}")
-    print("[mla] engine rescale 4 -> 2 -> 4 lanes mid-run against an "
-          "uninterrupted 4-lane run: tokens, u's logits at every token "
-          "counter, memory states, ckv cache, position and counter bit for "
-          "bit")
-    del params, batch
+    # (d) the engine on MLA_LANES lanes in lockstep, the rescale 4 -> 2 ->
+    # 4 bit for bit; then `serve` and the example.
+    out.update(engine_rescale(
+        "mla", cfg, params, dev, checker, zero_counts, counts, groups,
+        lanes=MLA_LANES, requests=MLA_REQUESTS, req_prompt=MLA_REQ_PROMPT,
+        req_gen=MLA_REQ_GEN, max_len=MLA_MAX_LEN, cache_key="ckv"))
+    del params
     torch.cuda.empty_cache()
     part("d")
-
-    # The static serving driver and the example, each on weights of its
-    # own from seed 0: no memory states, so no memory op and, decoding only,
-    # no attention kernel.
-    zero_counts()
-    served = serve(MLA_ARCH, use_reduced=False, num_layers=MLA_LAYERS,
-                   batch=MLA_B, prompt_len=MLA_PROMPT, gen_len=MLA_GEN,
-                   max_len=MLA_MAX_LEN, device=dev)
-    torch.cuda.synchronize()
-    tokens = served["tokens"]
-    require(tokens.shape == (MLA_B, MLA_GEN)
-            and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
-            and not any(counts().values()),
-            "serve: tokens out of shape or range, or a kernel launched")
-    out.update(serve_prefill_s=served["prefill_s"],
-               serve_decode_tok_per_s=served["decode_tok_per_s"])
-    print(f"[mla] serve(--full, {MLA_LAYERS} layers, max_len {MLA_MAX_LEN}): "
-          f"{tuple(tokens.shape)} greedy tokens; prefill "
-          f"{served['prefill_s']:.2f} s, decode "
-          f"{served['decode_tok_per_s']:.1f} tok/s")
-    del served, tokens
-    torch.cuda.empty_cache()
-    argv = sys.argv
-    sys.argv = ["serve_batched", "--arch", "deepseek_v2_236b", "--full",
-                "--layers", str(MLA_LAYERS), "--prompt-len", "8",
-                "--gen-len", "8", "--device", str(dev)]
-    try:
-        serve_batched.main()
-    finally:
-        sys.argv = argv
-    torch.cuda.empty_cache()
+    out.update(serve_full(
+        "mla", MLA_ARCH, MLA_LAYERS, "deepseek_v2_236b", dev, counts,
+        zero_counts, batch=MLA_B, prompt=MLA_PROMPT, gen=MLA_GEN,
+        max_len=MLA_MAX_LEN, vocab=cfg.vocab_size))
     part("serve")
     out["seconds"] = part_s
     print(f"[mla] seconds by part: {part_s}")
-    return {"row": row_f32, "bf16_row": row_bf16,
+    return {"row": core["row"], "bf16_row": core["bf16_row"],
             "launches": {"flash_attention_mla": small_launches,
                          "flash_attention_mla_bf16": cfg.num_layers},
-            "err": f32_check["err"], "bf16_err": bf16_err, "mla": out}
+            "err": core["f32_check"]["err"], "bf16_err": core["bf16_err"],
+            "mla": out}
+
+
+def llama4_phase(dev, ops, ref, checker, zero_counts, counts, flush):
+    """Phase 18: Llama-4 Maverick (+ SAM) served at full width, its depth
+    cut to the first L4_LAYERS of 48 layers. Returns the D = 128 attention
+    rows over 48 heads (bf16 at layer 0's prefill inputs, f32 at the same
+    inputs upcast), their launches and the numbers."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import lm
+    from repro_torch.models.layers import ParamDef
+
+    cfg = dataclasses.replace(get_config(L4_ARCH), num_layers=L4_LAYERS)
+    m, mo = cfg.memory, cfg.moe
+    groups = max(1, cfg.num_layers // m.every_n_layers)
+    per = (cfg.num_layers - mo.num_dense_layers) // groups
+    got = (cfg.padded_heads, cfg.num_kv_heads, cfg.head_dim, mo.num_experts,
+           mo.top_k, mo.shared_experts, mo.num_dense_layers, groups, per)
+    require(got == (48, 8, 128, 128, 1, 1, 0, 1, 2),
+            f"{L4_ARCH} at {L4_LAYERS} layers: (heads, kv heads, head dim, "
+            f"experts, top-k, shared, dense, groups, per group) {got}")
+    out, part_s, clock = {}, {}, [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        part_s[name] = round(now - clock[0], 1)
+        clock[0] = now
+
+    # (e) first, the reduced config with the full config's head groups (10
+    # heads over 2 padded to 12: groups of 6, 5 real) and one memory group
+    # after both layers, in f32 on the card against the CPU.
+    small = reduced(cfg)
+    small = dataclasses.replace(
+        small, compute_dtype="float32", **L4_SMALL,
+        memory=dataclasses.replace(small.memory,
+                                   every_n_layers=m.every_n_layers))
+    errs, seeds, small_launches = reduced_card_vs_cpu(
+        small, dev, ops, ref, zero_counts, counts, S=L4_SMALL_S,
+        decode=L4_SMALL_DECODE, max_len=L4_SMALL_MAX_LEN)
+    out["card_vs_cpu"] = dict(err=errs, seeds=seeds,
+                              f32_launches=small_launches)
+    print(f"[llama4] reduced {L4_ARCH} ({small.num_heads} heads over "
+          f"{small.num_kv_heads} padded to {small.padded_heads}, head dim "
+          f"{small.head_dim}, {small.moe.num_experts} experts, top-"
+          f"{small.moe.top_k}, {small.num_layers} layers, one memory group; "
+          f"f32) on the card against the CPU (token seeds {seeds}): prefill "
+          f"logits {errs['prefill']:.3g} ({small_launches} f32 attention "
+          f"launches), decode_scan of {L4_SMALL_DECODE} tokens with memory "
+          f"states {errs['decode']:.3g}, k {errs['k']:.3g}, v "
+          f"{errs['v']:.3g}, memory {errs['memory']:.3g} (bar {SLICE_TOL} of "
+          f"max(1, |CPU|); usage and read rows equal)")
+    torch.cuda.empty_cache()
+    part("e")
+
+    # The weights, drawn on the card where they fit with the prefill's
+    # spare; a routed-expert slice is drawn expert by expert (its layer's
+    # (128, 5120, 8192) is 21.5 GB in f32: `layers.DRAW_LIMIT`).
+    def leaves(defs):
+        if isinstance(defs, ParamDef):
+            return [defs.shape]
+        return [x for v in defs.values() for x in leaves(v)]
+
+    need = 2 * sum(int(torch.tensor(s).prod()) for s in
+                   leaves(lm.param_defs(cfg)))
+    _, avail = fits(0)
+    require(need + L4_SPARE <= avail, f"{L4_ARCH} at {L4_LAYERS} layers "
+            f"needs {need} B of bf16 weights and {L4_SPARE} B beside them; "
+            f"{avail} B are free")
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=dev, dtype=cfg.compute_dtype)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    draw_peak = torch.cuda.max_memory_allocated() - held - need
+    out.update(draw_s=draw_s, draw_transient_bytes=draw_peak,
+               free_before_bytes=avail)
+    print(f"[llama4] {L4_ARCH} at {L4_LAYERS} of 48 layers: {need} B of bf16 "
+          f"weights drawn on the card in {draw_s:.1f} s, {draw_peak} B of "
+          f"f32 draws above them at the peak; {avail} B were free")
+    part("draw")
+
+    def kv_ok(cache, n_tok):
+        shape = (L4_LAYERS, L4_B, L4_MAX_LEN, cfg.num_kv_heads, cfg.head_dim)
+        return all(cache[key].shape == shape
+                   and bool(cache[key][:, :, :n_tok].abs().amax((1, 2, 3, 4))
+                            .gt(0).all())
+                   and not cache[key][:, :, n_tok:].any()
+                   for key in ("k", "v"))
+
+    core = full_width_serving(
+        "llama4", "Llama-4 Maverick", cfg, params, dev, checker, zero_counts,
+        counts, flush, part, B=L4_B, S=L4_S, prompt=L4_PROMPT, gen=L4_GEN,
+        max_len=L4_MAX_LEN, prefill_runs=L4_PREFILL_RUNS,
+        heads=(cfg.padded_heads, cfg.head_dim, cfg.head_dim), cache_ok=kv_ok,
+        cache_what="the k and v caches", decode_dtype=torch.bfloat16)
+    out.update(core["out"])
+
+    # (d) the engine on L4_LANES lanes in lockstep, the rescale 4 -> 2 ->
+    # 4 bit for bit; then `serve` and the example.
+    out.update(engine_rescale(
+        "llama4", cfg, params, dev, checker, zero_counts, counts, groups,
+        lanes=L4_LANES, requests=L4_REQUESTS, req_prompt=L4_REQ_PROMPT,
+        req_gen=L4_REQ_GEN, max_len=L4_MAX_LEN, cache_key="k and v"))
+    del params
+    torch.cuda.empty_cache()
+    part("d")
+    out.update(serve_full(
+        "llama4", L4_ARCH, L4_LAYERS, L4_ARCH, dev, counts, zero_counts,
+        batch=L4_B, prompt=L4_PROMPT, gen=L4_GEN, max_len=L4_MAX_LEN,
+        vocab=cfg.vocab_size))
+    part("serve")
+    out["seconds"] = part_s
+    print(f"[llama4] seconds by part: {part_s}")
+    return {"row": core["row"], "bf16_row": core["bf16_row"],
+            "launches": {"flash_attention_llama4": small_launches,
+                         "flash_attention_llama4_bf16": cfg.num_layers},
+            "err": core["f32_check"]["err"], "bf16_err": core["bf16_err"],
+            "llama4": out}
+
+
+def task_batch(task, source, device):
+    """One batch of ``task`` at the bench's widths as (time-major model
+    inputs, the loss's tensors): a bAbI-lite batch from the numpy
+    generator ``source`` (one-hot stories (L, B, 27), answers); an Omniglot
+    episode of 2 to OMNI_CLASSES classes from the torch generator
+    ``source``, padded to OMNI_LABELS label channels (inputs (T, B, 24),
+    class ids, mask)."""
+    import numpy as np
+
+    from repro_torch.data.babi import BABI_VOCAB, babi_lite_batch
+    from repro_torch.data.omniglot import omniglot_episode
+
+    if task == "babi":
+        toks, ans, _ = babi_lite_batch(source, BABI_B, BABI_LEN)
+        xs = torch.as_tensor(np.eye(len(BABI_VOCAB), dtype=np.float32)[toks])
+        return (xs.transpose(0, 1).contiguous().to(device),
+                (torch.as_tensor(ans).long().to(device),))
+    classes = int(torch.randint(2, OMNI_CLASSES + 1, (1,), generator=source))
+    inputs, ids, mask = omniglot_episode(OMNI_B, classes, OMNI_P, OMNI_DIM,
+                                         generator=source, device=device)
+    inputs = torch.nn.functional.pad(inputs, (0, OMNI_LABELS - classes))
+    return inputs.transpose(0, 1).contiguous(), (ids, mask)
+
+
+def task_loss(task, ys, batch):
+    """The benches' losses: bAbI's softmax cross-entropy of the last step's
+    logits against the answer; Omniglot's cross-entropy of every step's
+    logits against its class, masked."""
+    if task == "babi":
+        (ans,) = batch
+        return -torch.log_softmax(ys[-1], -1).gather(1, ans[:, None]).mean()
+    ids, mask = batch
+    lp = torch.log_softmax(ys.transpose(0, 1), -1)
+    picked = lp.gather(-1, ids[..., None])[..., 0]
+    return -(picked * mask).sum() / mask.sum()
+
+
+def tasks_phase(dev, ops, ref, checker, zero_counts, counts):
+    """Phase 19: the paper's memory models trained on bAbI-lite and one-shot
+    Omniglot at the benches' widths (TASK_RUNS). Returns, by run, the
+    launches of the checked step, the card-against-CPU errors, the ms a
+    step and the losses."""
+    import numpy as np
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core import training
+    from repro_torch.core.types import ControllerConfig, MemoryConfig
+    from repro_torch.data.babi import BABI_VOCAB
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim import optimizers as opt
+
+    V = len(BABI_VOCAB)
+
+    def spec(kind, task):
+        if task == "babi":
+            mem, ctl = BABI_MEM, dict(input_size=V, hidden_size=BABI_HIDDEN,
+                                      output_size=V)
+        else:
+            mem, ctl = OMNI_MEM, dict(input_size=OMNI_DIM + OMNI_LABELS,
+                                      hidden_size=OMNI_HIDDEN,
+                                      output_size=OMNI_LABELS)
+        return training.ModelSpec(kind, MemoryConfig(**mem),
+                                  ControllerConfig(**ctl))
+
+    def grads_of(unroll, init_s, task, params, xs, batch):
+        """(loss, the gradients) of the bench's loss at ``params``."""
+        leaves, tree = pytree.tree_flatten(params)
+        with torch.enable_grad():
+            p = [x.detach().requires_grad_() for x in leaves]
+            _, ys = unroll(pytree.tree_unflatten(p, tree),
+                           init_s(xs.shape[1]), xs)
+            loss = task_loss(task, ys, batch)
+            g = torch.autograd.grad(loss, p, allow_unused=True)
+        g = [torch.zeros_like(x) if gi is None else gi for x, gi in
+             zip(leaves, g)]
+        return loss.detach(), pytree.tree_unflatten(g, tree)
+
+    def update(params, opt_state, grads):
+        with torch.no_grad():
+            g, _ = opt.clip_by_global_norm(grads, TASK_CLIP)
+            return opt.rmsprop_update(params, g, opt_state, lr=TASK_LR)
+
+    out = {}
+    for kind, task in TASK_RUNS:
+        name = f"{kind}/{task}"
+        sp = spec(kind, task)
+        init_p, init_s_c, unroll_c = training.build_model(sp, device="cpu")
+        _, init_s, unroll = training.build_model(sp, device=dev)
+        p_cpu = init_p(torch.Generator().manual_seed(0))
+        params = tree_map(lambda t: t.to(dev), p_cpu)
+        opt_state = opt.rmsprop_init(params)
+
+        # The checked step's batch: the first source seed of 0-63 whose
+        # CPU reads hold no near-tie at K (a near-tie could read other
+        # rows on the card).
+        def source(seed):
+            return (np.random.default_rng(seed) if task == "babi"
+                    else torch.Generator().manual_seed(seed))
+
+        def cpu_rollout(gen):
+            xs_c, _ = task_batch(task, source(gen.initial_seed()), "cpu")
+            with torch.no_grad():
+                unroll_c(p_cpu, init_s_c(xs_c.shape[1]), xs_c)
+
+        seed, _ = first_stable(ops, ref, cpu_rollout, f"the {name} batch")
+        xs_c, b_c = task_batch(task, source(seed), "cpu")
+        src = source(seed)
+        xs, b = task_batch(task, src, dev)
+        T = xs.shape[0]
+        loss_c, g_c = grads_of(unroll_c, init_s_c, task, p_cpu, xs_c, b_c)
+        zero_counts()
+        with Intercept(ops, checker=checker):
+            loss_g, g_g = grads_of(unroll, init_s, task, params, xs, b)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in counts().items() if v}
+        want = {"sam": {"fused_read_sweep": T, "sparse_write_update": T,
+                        "lra_topn": T, "scatter_rows": SAM_BWD_SCATTERS * T},
+                "sdnc": {"fused_read_sweep": T, "lra_topn": T,
+                         "scatter_rows": (SDNC_STEP["scatter_rows"]
+                                          + SDNC_BWD_SCATTERS) * T},
+                "lstm": {}}[kind]
+        require(launched == want, f"{name}: a train step of T = {T} "
+                f"launched {launched}, expected {want}")
+        require(abs(loss_g.item() - loss_c.item())
+                <= TOL * abs(loss_c.item()), f"{name}: loss card "
+                f"{loss_g.item()} against CPU {loss_c.item()}")
+        grad_err = 0.0
+        for path, (a, c) in zip(leaf_names(g_c), zip(
+                pytree.tree_leaves(g_g), pytree.tree_leaves(g_c))):
+            d = (a.cpu() - c).abs()
+            grad_err = max(grad_err, d.max().item())
+            require(bool((d <= GRAD_ATOL * torch.clamp(c.abs(), min=1.0))
+                         .all()), f"{name}: gradient {path} card against "
+                    f"CPU {d.max().item():.3g}, beyond 1e-5 of max(1, |g|)")
+        params, opt_state = update(params, opt_state, g_g)
+        losses, step_ms = [loss_g.item()], []
+        for _ in range(TASK_STEPS - 1):
+            xs, b = task_batch(task, src, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, g = grads_of(unroll, init_s, task, params, xs, b)
+            params, opt_state = update(params, opt_state, g)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+        require(all(np.isfinite(losses)), f"{name}: a loss is not finite: "
+                f"{losses}")
+        med = sorted(step_ms)[len(step_ms) // 2]
+        out[name] = dict(launches=launched, T=T, seed=seed,
+                         card_vs_cpu_grad_err=grad_err, ms_per_step=med,
+                         ms_per_step_all=step_ms, losses=losses)
+        print(f"[tasks] {name} (N = {sp.memory.num_slots}, W = "
+              f"{sp.memory.word_size}, H = {sp.memory.num_heads}, K = "
+              f"{sp.memory.k}, hidden {sp.controller.hidden_size}): step 1 "
+              f"(T = {T}, batch seed {seed}) in lockstep, launches "
+              f"{launched}; card against CPU: loss {loss_g.item():.6f}, "
+              f"gradients {grad_err:.3g} (bar {GRAD_ATOL} of max(1, |g|)); "
+              f"{TASK_STEPS} steps at {med:.2f} ms a step (median of "
+              f"{len(step_ms)}, host clock), losses {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}; {card_line()}")
+        del params, opt_state, p_cpu
+    torch.cuda.empty_cache()
+    return out
 
 
 def small_state(s, kind, gen):
@@ -5705,6 +6187,13 @@ def run() -> None:
     # empty; the later phases keep some 20 GB of their inputs and states.
     train_res = lm_train_phase(dev, ops, ref, checker, zero_counts, counts)
 
+    mark("13")
+    # ---- 18, run second: Llama-4 Maverick (MoE) at full width, 2 of 48
+    # layers. Its 69.4 GB of weights need the card as empty as phase 13.
+    flush = torch.empty(32 << 20, device=dev)
+    llama4 = llama4_phase(dev, ops, ref, checker, zero_counts, counts, flush)
+
+    mark("18")
     cfg = sam.SAMConfig(MemoryConfig(num_slots=N, word_size=W, num_heads=H,
                                      k=K, delta=DELTA),
                         ControllerConfig(input_size=BITS + 2,
@@ -5718,7 +6207,6 @@ def run() -> None:
     ts, ms = targets.transpose(0, 1), mask.transpose(0, 1)
     require(xs.shape == (T, B, BITS + 2), f"xs has shape {tuple(xs.shape)}")
 
-    mark("13")
     # ---- 2. each kernel against its plain version, at full width ----
     with torch.inference_mode():
         with Intercept(ops, record=True) as rec:
@@ -6246,7 +6734,6 @@ def run() -> None:
 
     mark("5")
     # ---- 6. timing, on the step-21 inputs ----
-    flush = torch.empty(32 << 20, device=dev)
     step = max(RECORD_STEPS)
     q, mem, beta, k, valid_n, _ = rec.records[("fused_read_sweep", step)]
     la, n, _ = rec.records[("lra_topn", step)]
@@ -6722,7 +7209,7 @@ def run() -> None:
                                  "scatter_rows_int8": 2 * T,
                                  "sparse_write_update": T, wname: T})
             else:
-                want_bwd.update({"scatter_rows": 6 * T,
+                want_bwd.update({"scatter_rows": SAM_BWD_SCATTERS * T,
                                  "scatter_rows_bf16": 6 * T})
             before = dict(checker.scatter_calls)
             loss_d, g_d, fwd_d, bwd_d, restored_d, acct_d = fwd_bwd(
@@ -6925,9 +7412,17 @@ def run() -> None:
     rows["flash_attention_mla_bf16"] = mla["bf16_row"]
     checker.err["flash_attention_mla"] = mla["err"]
     checker.err["flash_attention_mla_bf16"] = mla["bf16_err"]
+    rows["flash_attention_llama4"] = llama4["row"]
+    rows["flash_attention_llama4_bf16"] = llama4["bf16_row"]
+    checker.err["flash_attention_llama4"] = llama4["err"]
+    checker.err["flash_attention_llama4_bf16"] = llama4["bf16_err"]
 
     mark("17")
-    # ---- 18. report ----
+    # ---- 19. the paper's tasks: bAbI-lite and one-shot Omniglot ----
+    tasks_res = tasks_phase(dev, ops, ref, checker, zero_counts, counts)
+
+    mark("19")
+    # ---- 20. report ----
     lm_write = lmr["lm"]["kernels_at_lm_shapes"]["sparse_write_update"]
     above = (("lra_topn", rows["lra_topn"]), ("block", lra_block),
              ("scatter_rows 'set'", rows["scatter_rows"]),
@@ -6973,6 +7468,8 @@ def run() -> None:
                "flash_attention_vlm_bf16": vlm["launches"],
                "flash_attention_mla": mla["launches"],
                "flash_attention_mla_bf16": mla["launches"],
+               "flash_attention_llama4": llama4["launches"],
+               "flash_attention_llama4_bf16": llama4["launches"],
                "topk_read": mesh["launches"]}
     report = []
     for name, r in rows.items():
@@ -7038,7 +7535,8 @@ def run() -> None:
                       "dnc": dnc_res, "engine": engine_res,
                       "lm_train": train_res, "stream": stream_res,
                       "swa": swa["swa"], "vlm": vlm["vlm"],
-                      "mla": mla["mla"],
+                      "mla": mla["mla"], "llama4": llama4["llama4"],
+                      "tasks": tasks_res,
                       "phase_seconds": phase_s},
                      default=str))
     print(json.dumps({"ok": True, "device": {

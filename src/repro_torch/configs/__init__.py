@@ -5,9 +5,11 @@ the default `MemoryLayerConfig`); ``reduced(cfg)`` a test-sized config of
 the same family. The port runs StarCoder2-7B (causal, GELU MLP),
 H2O-Danube3-4B (sliding window, gated SiLU MLP, head dim 120),
 PaliGemma-3B (prefix-LM over a stubbed vision prefix, MQA with pad heads,
-GeGLU MLP, head dim 256, tied embeddings) and DeepSeek-V2-236B (MLA, a
-dense first layer, then MoE layers). Every other architecture of the JAX
-registry raises, naming the ROADMAP item that ports it.
+GeGLU MLP, head dim 256, tied embeddings), DeepSeek-V2-236B (MLA, a
+dense first layer, then MoE layers) and Llama-4 Maverick (GQA with 40
+heads padded to 48 over 8, MoE layers of 128 experts, top-1, one shared
+expert, no dense layer). Every other architecture of the JAX registry
+raises, naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ ARCH_IDS = (
     "hymba_1_5b",
 )
 PORTED = ("starcoder2_7b", "h2o_danube_3_4b", "paligemma_3b",
-          "deepseek_v2_236b")
+          "deepseek_v2_236b", "llama4_maverick_400b_a17b")
 # What each architecture the port does not run yet needs (ROADMAP §A).
 NOT_PORTED = {
     "rwkv6_7b": "A9c (the RWKV block)",
@@ -38,10 +40,6 @@ NOT_PORTED = {
     "mistral_large_123b": "A9c (dense GQA, 123B parameters: more than one "
                           "H100)",
     "musicgen_medium": "A9c (the audio frontend)",
-    "llama4_maverick_400b_a17b": "A9c (its registry entry: GQA with pad "
-                                 "heads over the ported MoE, but one "
-                                 "layer's 128 x 3 x 5120 x 8192 experts "
-                                 "are 32 GB in bf16)",
     "hymba_1_5b": "A9c (the hybrid SSM block)",
 }
 

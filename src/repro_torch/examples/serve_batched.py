@@ -2,19 +2,23 @@
 the port of the JAX package's `examples/serve_batched.py`, for the
 families the port runs (StarCoder2-7B, H2O-Danube3-4B with its sliding
 window and ring cache, PaliGemma-3B served with token prompts as JAX
-serves it, and DeepSeek-V2 with MLA and MoE). Another architecture raises
-the registry's error, naming the ROADMAP item that ports it.
+serves it, DeepSeek-V2 with MLA and MoE, and Llama-4 Maverick with pad
+heads over top-1 MoE). Another architecture raises the registry's error,
+naming the ROADMAP item that ports it.
 
     python -m repro_torch.examples.serve_batched --full
     python -m repro_torch.examples.serve_batched --arch h2o_danube_3_4b --full
     python -m repro_torch.examples.serve_batched --arch paligemma_3b --full
     python -m repro_torch.examples.serve_batched --arch deepseek_v2_236b \
         --full --layers 4
+    python -m repro_torch.examples.serve_batched \
+        --arch llama4_maverick_400b_a17b_sam --full --layers 2
     python -m repro_torch.examples.serve_batched --device cpu
 
 serve the published width on the card (the default device; DeepSeek-V2's
-60 layers need more than one card: ``--layers 4`` keeps the first 4) or
-the reduced config on the host.
+60 layers and Llama-4's 48 need more than one card: ``--layers 4`` and
+``--layers 2`` keep the first 4 and 2) or the reduced config on the
+host.
 """
 import argparse
 

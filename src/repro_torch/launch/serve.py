@@ -13,15 +13,20 @@ single-request users through the continuous-batching engine
     python -m repro_torch.launch.serve --arch paligemma_3b_sam --full
     python -m repro_torch.launch.serve --arch deepseek_v2_236b_sam --full \
         --layers 4
+    python -m repro_torch.launch.serve \
+        --arch llama4_maverick_400b_a17b_sam --full --layers 2
 
 run StarCoder2-7B (weights from ``--seed``, held in the bf16 compute
 dtype: 15.8 GB), H2O-Danube3-4B (sliding window, a ring cache of
 min(max_len, 4096) slots: 7.9 GB), PaliGemma-3B (2.67 B parameters with
-its pad heads, 5.3 GB) or DeepSeek-V2 (MLA and MoE; its 60 layers need
+its pad heads, 5.3 GB), DeepSeek-V2 (MLA and MoE; its 60 layers need
 472 GB, so ``--layers 4`` keeps the dense layer and 3 MoE layers: 13.3 B
-parameters, 26.6 GB) at full width on the card, with or without the
-``_sam`` memory layer; without ``--full`` the reduced config; ``--device
-cpu`` runs on the host.
+parameters, 26.6 GB) or Llama-4 Maverick (GQA with 40 heads padded to
+48, MoE layers of 128 experts, top-1, one shared; its 48 layers need
+1.57 TB, so ``--layers 2`` keeps two MoE layers: 34.7 B parameters,
+69.4 GB) at full width on the card, with or without the ``_sam`` memory
+layer; without ``--full`` the reduced config; ``--device cpu`` runs on
+the host.
 PaliGemma is served with token prompts, as JAX serves it: the decode
 attends causally from position 0 and has no image prefix (its prefill
 with patch embeddings is `models.lm.prefill`). The registry's other
@@ -60,7 +65,8 @@ def _select(logits: torch.Tensor, greedy: bool,
 def config(arch: str, use_reduced: bool = True, num_layers: int = None):
     """``arch``'s config: the reduced one unless ``use_reduced=False``,
     its depth cut to the first ``num_layers`` layers where given (the
-    widths kept: DeepSeek-V2's 60 layers do not fit one card)."""
+    widths kept: DeepSeek-V2's 60 layers and Llama-4's 48 do not fit one
+    card)."""
     cfg = get_config(arch)
     if use_reduced:
         cfg = reduce_cfg(cfg)

@@ -43,13 +43,30 @@ class ParamDef:
         if len(self.shape) == 1:
             return (torch.randn(self.shape, generator=generator,
                                 device=device) * scale).to(dtype)
-        # Drawn slice by slice of the leading axis in f32 and cast, so a
-        # stacked leaf never exists in f32 whole.
         out = torch.empty(self.shape, dtype=dtype, device=device)
-        for i in range(self.shape[0]):
-            out[i] = torch.randn(self.shape[1:], generator=generator,
-                                 device=device) * scale
+        fill_normal(out, generator, scale)
         return out
+
+
+# The most bytes a slice drawn at once in f32 may take (8 GiB).
+DRAW_LIMIT = 8 << 30
+
+
+def fill_normal(out: torch.Tensor, generator: torch.Generator, scale: float,
+                limit: int = DRAW_LIMIT) -> None:
+    """Fill ``out`` (2-D or more) with N(0, 1) times ``scale``, drawn in f32
+    slice by slice of its leading axis and cast, so a stacked leaf never
+    exists in f32 whole. A slice of more than ``limit`` bytes in f32 is
+    itself filled slice by slice of its own leading axis (one layer's
+    routed experts of Llama-4, (128, 5120, 8192), are 21.5 GB in f32); a
+    slice within the limit is drawn whole, so the draws of a leaf whose
+    slices all stay within it do not depend on the limit."""
+    for i in range(out.shape[0]):
+        if out.dim() > 2 and out[i].numel() * 4 > limit:
+            fill_normal(out[i], generator, scale, limit)
+        else:
+            out[i] = torch.randn(out.shape[1:], generator=generator,
+                                 device=out.device) * scale
 
 
 def pdef(shape, init="normal", scale=None) -> ParamDef:

@@ -26,8 +26,10 @@ blocks, so where per·n_groups < L - n_dense the trailing blocks run
 nowhere (`paligemma_3b_sam`: 18 layers in 4 groups of 4, blocks 16 and 17
 skipped; `deepseek_v2_236b_sam`: 60 layers, 1 dense and 15 groups of 3,
 blocks 46-59 skipped; by `forward`, `prefill` and a `decode_step` with
-memory states; a `decode_step` without memory states runs them all). The
-cache stacks the dense layers first, as JAX's."""
+memory states; a `decode_step` without memory states runs them all).
+Llama-4's cut to 2 of 48 layers has no dense layer and one group (max(1,
+2 // 4)) of both blocks, so none is skipped. The cache stacks the dense
+layers first, as JAX's."""
 from __future__ import annotations
 
 from typing import Optional

@@ -3,7 +3,9 @@
 
 Each token is routed to its top-k experts by the router's f32 softmax:
 the k largest probabilities, ties to the lowest expert (`jax.lax.top_k`'s
-order, here a stable sort), renormalised to sum to one. Its (token,
+order, here a stable sort), renormalised to sum to one (over their sum
+plus 1e-9, as JAX: at top-1, Llama-4's, the one weight is p / (p +
+1e-9)). Its (token,
 choice) pairs, taken in token-major order, are ranked within their
 expert by a running count, and a pair ranked at or past the capacity C
 (`capacity`) is dropped. The kept pairs fill a per-expert buffer (E, C,
