@@ -15,9 +15,10 @@ NTM and the LSTM) forward and in training, and the paper's comparison of
 SAM against DAM and the NTM as N grows; then the SAM-augmented LM at
 StarCoder2-7B's full width (`starcoder2_7b_sam`: prefill, decode with
 memory states and the static `serve`), whose attention is the
-`flash_attention` kernel; then the SAM cell's forward on a memory sharded
-by slots over 4 processes (`repro_torch.distributed.mem_shard`), whose
-ranks sweep their blocks with the `topk_read` kernel; then the sparse DNC
+`flash_attention` kernel; then the SAM cell on a memory sharded by slots
+over 4 processes (`repro_torch.distributed.mem_shard`), forward and in
+training on f32, bf16 and int8 rows, whose ranks sweep their blocks with
+the `topk_read` kernel; then the sparse DNC
 (exact and LSH) forward and in training on associative recall, and the
 paper's Fig. 7 against the dense DNC; then the LM served through the
 continuous-batching engine with per-user memory sessions; then the LM
@@ -200,11 +201,12 @@ fails (nonzero exit) if any phase fails:
 10. the slot-sharded memory (N = 2^20 over S = 4 ranks, one block of
    2^18 + 1 rows each):
    a. `topk_read` against its plain version at (B, H, W, K) =
-      (8, 4, 32, 4) on step 21's memory, whole (2^20 + 1 rows) and as each
-      rank's block (valid_n = 2^18), on an all-zero memory (rows 0..3),
-      on copies of one row spread over both sides of a block boundary
-      (the lowest copy first) and at a ragged valid_n; its indices equal
-      `fused_read_sweep`'s on the same inputs bit for bit;
+      (8, 4, 32, 4) on f32, bf16 and int8 rows (with their scales): step
+      21's memory, whole (2^20 + 1 rows) and as each rank's block
+      (valid_n = 2^18), an all-zero memory (rows 0..3), copies of one row
+      spread over both sides of a block boundary (the lowest copy first)
+      and a ragged valid_n; its indices equal `fused_read_sweep`'s on the
+      same rows bit for bit;
    b. S = 4 processes on this card, joined by gloo (`file://` rendezvous
       in a temporary directory; the kernels built above), run
       `sam_unroll` (T = 42) from the model's weights and phase 3's inputs
@@ -215,15 +217,29 @@ fails (nonzero exit) if any phase fails:
       indices bit-identical; then the parent holds the gathered rows,
       usage table, ys and read against phase 3's single-device rollout
       (floats within 1e-5, with the count of memory elements that are not
-      bit-equal; usage and read indices exact). A failed rank fails the
-      run;
+      bit-equal; usage and read indices exact). The same processes then
+      run the rollout on bf16 and on int8 rows in lockstep (T launches of
+      each kernel's bf16 or int8 instantiation), held against the
+      single-device rollouts on the card (ys and floats within 1e-5;
+      read indices, usage table and int8 codes exact), and one sparse
+      `make_task_train_step` step (T = 42) on each of f32, bf16 and int8
+      rows from the same weights and batch, in lockstep: the launches
+      (T of `topk_read`, `lra_topn` and the write, 2T of the write on
+      int8 rows, whose replay writes; 6T scatters, 4T on int8 rows), the
+      gradients (what the clip sees) bit-identical across ranks and
+      within 1e-5 of max(1, |g|) of the single-device step's (bf16 rows
+      2e-2), the weights after the step (and after a second f32 step)
+      bit-identical across ranks, and the bytes each rank sent per step
+      in the forward and in the backward. A failed rank fails the run;
    c. times, labelled as S ranks sharing one card with gloo through the
-      host (not the times of S cards): `topk_read` at both shapes against
-      its bound and its plain version; each rank's host ms per step
-      (median of 3) and the part of it inside the collectives beside
-      phase 6's single-device step; rank 0's device ms per step
+      host (not the times of S cards): `topk_read` at both shapes on each
+      row dtype against its bound and its plain version; each rank's host
+      ms per step (median of 3) and the part of it inside the collectives
+      beside phase 6's single-device step; rank 0's device ms per step
       (`torch.profiler`); each rank's peak memory beside its block; a
-      bare all-gather of a CUDA and of a host tensor;
+      bare all-gather of a CUDA and of a host tensor; each train step's
+      host ms per rank run bare (its forward's share and the collectives'
+      share) and in lockstep, and its peak;
 11. the sparse DNC and the DNC (`core/dnc.py`, `SDNCCell`; paper Suppl.
    D) at the same widths with K_L = 8, on associative recall (18 items of
    2 vectors: T = 42):
@@ -625,6 +641,13 @@ REPLACES = {
     # pass and a merge without the softmax tail.
     "topk_read": ("src/repro/kernels/topk_read.py:31",
                   "src/repro_torch/kernels/csrc/fused_read.cu"),
+    # The same kernel on bf16 rows (the Pallas kernel sweeps the rows it
+    # is given) and on int8 rows with their scales (JAX sweeps their
+    # dequantized f32 view with the Pallas kernel, addressing.py:88-104).
+    "topk_read_bf16": ("src/repro/kernels/topk_read.py:31",
+                       "src/repro_torch/kernels/csrc/fused_read.cu"),
+    "topk_read_int8": ("src/repro/kernels/topk_read.py:31",
+                       "src/repro_torch/kernels/csrc/fused_read.cu"),
 }
 SUFFIX = {"bfloat16": "_bf16", "int8": "_int8"}
 # The kernels whose ptxas report may show no spill: the exact read's sweep,
@@ -945,18 +968,21 @@ class Checker:
                 f"{name} gave an invalid selection a weight")
         self.err[name] = max(self.err[name], err)
 
-    def topk(self, q, mem, k, valid_n, out):
+    def topk(self, q, mem, k, valid_n, out, mem_scale=None):
         """The selection as a read's (swaps only at near-ties), and the
-        scores within TOL of the plain similarities of the rows picked."""
+        scores within TOL of the plain similarities of the rows picked, on
+        their f32 view (bf16 upcast, int8 dequantized)."""
+        name = kernel_name("topk_read", mem)
         vals, idx = out
-        _, r_idx = self.ref.topk_read_ref(q, mem, k, valid_n=valid_n)
-        self._selection("topk_read", q, mem, idx, r_idx)
-        rows = self.ref.gather_rows(mem, idx)
+        _, r_idx = self.ref.topk_read_ref(q, mem, k, valid_n=valid_n,
+                                          mem_scale=mem_scale)
+        self._selection(name, q, mem, idx, r_idx, mem_scale)
+        rows = self.ref.gather_words(mem, idx, mem_scale)
         sims = torch.einsum("bhw,bhkw->bhk", self.ref._normalize(q),
                             self.ref._normalize(rows))
         err = (vals - sims).abs().max().item()
-        require(err <= TOL, f"topk_read score error {err:.3g}")
-        self.err["topk_read"] = max(self.err["topk_read"], err)
+        require(err <= TOL, f"{name} score error {err:.3g}")
+        self.err[name] = max(self.err[name], err)
 
     def read(self, q, mem, beta, k, valid_n, out, mem_scale=None):
         name = kernel_name("fused_read_sweep", mem)
@@ -1064,11 +1090,11 @@ class Intercept:
                       ops.topk_read)
         lra0, read0, write0, scatter0, hash0, argmin0, topk0 = self.saved
 
-        def topk_read(q, mem, k, *, valid_n=None):
-            self._keep("topk_read", (q, mem, k, valid_n))
-            out = topk0(q, mem, k, valid_n=valid_n)
+        def topk_read(q, mem, k, *, valid_n=None, mem_scale=None):
+            self._keep("topk_read", (q, mem, k, valid_n, mem_scale))
+            out = topk0(q, mem, k, valid_n=valid_n, mem_scale=mem_scale)
             if self.checker:
-                self.checker.topk(q, mem, k, valid_n, out)
+                self.checker.topk(q, mem, k, valid_n, out, mem_scale)
             return out
 
         def lra_topn(la, n, *, valid_n=None):
@@ -2937,23 +2963,33 @@ def card_line() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
+# The row dtypes of phase 10's sharded rollouts and train steps.
+MESH_DTYPES = ("float32", "bfloat16", "int8")
+
+
 def _mesh_rank(rank: int, shards: int, path: str, payload: dict) -> None:
     """One rank of phase 10 (b), in a process of its own on cuda:0: the
-    sharded forward rollout in lockstep, its launches, the ranks' outputs
-    against each other bit for bit, then its times; writes what the
-    parent compares to ``path``/rank<r>.pt. A failed check raises, and
-    `torch.multiprocessing.spawn` re-raises it in the parent."""
+    sharded f32 forward rollout in lockstep, its launches, the ranks'
+    outputs against each other bit for bit, then its times; the bf16 and
+    int8 rollouts in lockstep; a sparse train step on each row dtype in
+    lockstep (a second one on f32 rows), the ranks' gradients and new
+    weights against each other bit for bit, and each step timed bare;
+    writes what the parent compares to ``path``/rank<r>.pt. A failed
+    check raises, and `torch.multiprocessing.spawn` re-raises it in the
+    parent."""
     sys.path.insert(0, str(ROOT / "src"))
     from torch.utils import _pytree as pytree
 
-    from repro_torch.core import sam
+    from repro_torch.core import sam, training
     from repro_torch.core.types import ControllerConfig, MemoryConfig
     from repro_torch.distributed import mem_shard
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.fused_read import fused_read_sweep
+    from repro_torch.kernels.scatter_rows import scatter_rows
     from repro_torch.kernels.sparse_write import sparse_write_update
     from repro_torch.kernels.topk_read import topk_read
     from repro_torch.kernels.usage_argmin import lra_topn
+    from repro_torch.optim import optimizers as opt
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(payload["device"])
@@ -2962,15 +2998,43 @@ def _mesh_rank(rank: int, shards: int, path: str, payload: dict) -> None:
                             rank=rank, world_size=shards)
     kernels = {"topk_read": topk_read, "lra_topn": lra_topn,
                "sparse_write_update": sparse_write_update,
-               "fused_read_sweep": fused_read_sweep}
-    cfg = sam.SAMConfig(MemoryConfig(num_slots=N, word_size=W, num_heads=H,
-                                     k=K, delta=DELTA),
-                        ControllerConfig(input_size=BITS + 2,
-                                         hidden_size=HIDDEN,
-                                         output_size=BITS))
+               "fused_read_sweep": fused_read_sweep,
+               "scatter_rows": scatter_rows}
+
+    def zero_counts():
+        for fn in kernels.values():
+            fn.launches = 0
+            for dtype in getattr(fn, "launches_by_dtype", {}):
+                fn.launches_by_dtype[dtype] = 0
+
+    def counts():
+        c = {name: fn.launches for name, fn in kernels.items()}
+        for name, fn in kernels.items():
+            for dtype, n in getattr(fn, "launches_by_dtype", {}).items():
+                if dtype in SUFFIX:
+                    c[name + SUFFIX[dtype]] = n
+        return c
+
+    def cfg_of(dtype):
+        return sam.SAMConfig(
+            MemoryConfig(num_slots=N, word_size=W, num_heads=H, k=K,
+                         delta=DELTA, mem_dtype=dtype),
+            ControllerConfig(input_size=BITS + 2, hidden_size=HIDDEN,
+                             output_size=BITS))
+
+    def same_on_every_rank(what, tensors):
+        """Every rank's ``tensors`` equal this rank's, bit for bit."""
+        flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+        parts = [torch.empty_like(flat) for _ in range(shards)]
+        dist.all_gather(parts, flat)
+        require(all(torch.equal(p.view(torch.int32), flat.view(torch.int32))
+                    for p in parts), f"rank {rank}: the ranks' {what} differ")
+
+    cfg = cfg_of("float32")
     params = pytree.tree_map(lambda a: torch.tensor(a, device=dev),
                              payload["params"])
     xs = torch.tensor(payload["xs"], device=dev)
+    batch = [torch.tensor(a, device=dev) for a in payload["batch"]]
     checker = Checker(ref)
     with mem_shard.memory_mesh(N) as ctx:
         state = sam.init_state(B, cfg, device=dev)
@@ -2981,23 +3045,19 @@ def _mesh_rank(rank: int, shards: int, path: str, payload: dict) -> None:
         # The main path, in lockstep: every top-K, LRA and write of this
         # rank's block against its plain version, the counts set to 0 just
         # before and read just after.
-        for fn in kernels.values():
-            fn.launches = 0
+        zero_counts()
         with torch.inference_mode(), Intercept(ops, checker=checker):
             final, ys = sam.sam_unroll(params, cfg, state, xs)
         torch.cuda.synchronize()
-        launches = {name: fn.launches for name, fn in kernels.items()}
+        launches = counts()
         want = {"topk_read": T, "lra_topn": T, "sparse_write_update": T,
-                "fused_read_sweep": 0}
-        require(launches == want, f"rank {rank}: launches {launches}, "
-                                  f"expected {want}")
+                "fused_read_sweep": 0, "scatter_rows": 0}
+        require(all(launches[k_] == v for k_, v in want.items())
+                and launches["topk_read_bf16"] == 0,
+                f"rank {rank}: launches {launches}, expected {want}")
         # Lockstep: every rank's outputs equal, bit for bit.
-        for name, t in (("ys", ys), ("read words", final.read.words),
-                        ("read indices", final.read.indices)):
-            parts = [torch.empty_like(t) for _ in range(shards)]
-            dist.all_gather(parts, t.contiguous())
-            require(all(torch.equal(p, t) for p in parts),
-                    f"rank {rank}: the ranks' {name} differ")
+        same_on_every_rank("ys, read words and indices",
+                           (ys, final.read.words, final.read.indices))
         la = mem_shard.gather_blocks(ctx, final.last_access)
         out = dict(ys=ys.cpu(), memory=final.memory[:, :ctx.local_n].cpu(),
                    la=la.cpu() if rank == 0 else None,
@@ -3051,87 +3111,326 @@ def _mesh_rank(rank: int, shards: int, path: str, payload: dict) -> None:
         else:
             sam.sam_unroll(params, cfg, s, xs)
             torch.cuda.synchronize()
+        del s
+
+        # The bf16 and int8 rollouts, in lockstep: topk_read, the LRA and
+        # the write on these rows, T launches of each, the ranks alike.
+        out["rows"] = {}
+        for dtype in MESH_DTYPES[1:]:
+            c = cfg_of(dtype)
+            sfx = SUFFIX[dtype]
+            s = sam.init_state(B, c, device=dev)
+            zero_counts()
+            ctx.collectives.reset()
+            with torch.inference_mode(), Intercept(ops, checker=checker):
+                final, ys = sam.sam_unroll(params, c, s, xs)
+            torch.cuda.synchronize()
+            got = counts()
+            require(all(got[name] == T for name in (
+                "topk_read", "topk_read" + sfx, "lra_topn",
+                "sparse_write_update", "sparse_write_update" + sfx))
+                and got["fused_read_sweep"] == got["scatter_rows"] == 0,
+                f"rank {rank}: {dtype} rollout launches {got}")
+            same_on_every_rank(f"{dtype} ys, read words and indices",
+                               (ys, final.read.words, final.read.indices))
+            out["rows"][dtype] = dict(
+                ys=ys.cpu(), memory=final.memory[:, :ctx.local_n].cpu(),
+                scale=(None if final.mem_scale is None else
+                       final.mem_scale[:, :ctx.local_n].cpu()),
+                la=final.last_access[:, :ctx.local_n].cpu(),
+                read_idx=final.read.indices.cpu(), launches=got,
+                bytes_per_step={k: v // T for k, v in
+                                ctx.collectives.bytes.items()})
+            del s, final
+
+        # One sparse train step (make_task_train_step) on each row dtype,
+        # from the model's weights and phase 3's batch: its gradients (what
+        # the clip sees), the collectives' bytes in the forward (up to the
+        # loss) and in the backward, in lockstep with the counts set to 0
+        # just before and read just after; then the step bare, timed.
+        grads_seen, at_loss = [], {}
+        clip, loss_fn = opt.clip_by_global_norm, training.bits_loss
+
+        def seen_clip(grads, max_norm):
+            grads_seen.append([g.clone() for g in pytree.tree_leaves(grads)])
+            return clip(grads, max_norm)
+
+        def timed_loss(*args):
+            torch.cuda.synchronize()
+            at_loss["t"] = time.perf_counter()
+            at_loss["bytes"] = dict(ctx.collectives.bytes)
+            return loss_fn(*args)
+
+        opt.clip_by_global_norm, training.bits_loss = seen_clip, timed_loss
+        out["train"] = {}
+        try:
+            for dtype in MESH_DTYPES:
+                spec = training.ModelSpec("sam", cfg_of(dtype).memory,
+                                          cfg.controller)
+                _, _, step = training.make_task_train_step(spec, LR,
+                                                           device=dev)
+                p0 = pytree.tree_map(torch.clone, params)
+                o0 = opt.rmsprop_init(p0)
+                before = dict(checker.scatter_calls)
+                grads_seen.clear()
+                zero_counts()
+                ctx.collectives.reset()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                with Intercept(ops, checker=checker):
+                    p1, o1, loss, err = step(p0, o0, *batch)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                got = counts()
+                fwd_b = {k_: v // T for k_, v in at_loss["bytes"].items()}
+                bwd_b = {k_: (v - at_loss["bytes"][k_]) // T
+                         for k_, v in ctx.collectives.bytes.items()}
+                grads = grads_seen[-1]
+                require(torch.isfinite(loss).item() and all(
+                    torch.isfinite(g).all().item() for g in grads),
+                    f"rank {rank}: a {dtype} loss or gradient is not finite")
+                same_on_every_rank(f"{dtype} gradients", grads)
+                same_on_every_rank(f"{dtype} weights after a step",
+                                   pytree.tree_leaves((p1, o1)))
+                rec = dict(
+                    loss=loss.item(), err=err.item(), launches=got,
+                    grads=[g.cpu() for g in grads],
+                    checked={m: n - before[m]
+                             for m, n in checker.scatter_calls.items()},
+                    fwd_bytes=fwd_b, bwd_bytes=bwd_b,
+                    lockstep_ms=(t1 - t0) * 1e3,
+                    peak=torch.cuda.max_memory_allocated())
+                if dtype == "float32":
+                    # A second step: the weights stay equal on every rank.
+                    p2, o2, _, _ = step(p1, o1, *batch)
+                    same_on_every_rank("weights after two steps",
+                                       pytree.tree_leaves((p2, o2)))
+                    del p2, o2
+                # The same step bare: its host ms, the forward's share.
+                p0 = pytree.tree_map(torch.clone, params)
+                o0 = opt.rmsprop_init(p0)
+                ctx.collectives.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(p0, o0, *batch)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                rec.update(ms=(t1 - t0) * 1e3,
+                           fwd_ms=(at_loss["t"] - t0) * 1e3,
+                           coll_ms=ctx.collectives.seconds * 1e3)
+                out["train"][dtype] = rec
+                del p0, o0, p1, o1, step
+        finally:
+            opt.clip_by_global_norm, training.bits_loss = clip, loss_fn
+        out["topk_err"] = {k_: v for k_, v in checker.err.items()
+                           if k_.startswith("topk_read")}
+        out["near_ties_all"] = checker.near_ties
     torch.save(out, f"{path}/rank{rank}.pt")
     dist.barrier()
     dist.destroy_process_group()
 
 
 def mesh_phase(dev, ref, checker, flush, rec, mesh_ref, params, xs,
-               step_ms):
+               step_ms, batch):
     """Phase 10: the slot-sharded memory. ``rec`` holds phase 2's recorded
     inputs, ``mesh_ref`` phase 3's single-device rollout (on the host),
     ``params`` the model's weights, ``step_ms`` phase 6's single-device
-    exact step."""
+    exact step, ``batch`` the copy-task batch (inputs, targets, mask) of
+    the train steps."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core import sam, training
+    from repro_torch.core.quant import quantize_rows
+    from repro_torch.core.types import ControllerConfig, MemoryConfig
     from repro_torch.distributed import mem_shard
+    from repro_torch.kernels import ops
     from repro_torch.kernels.fused_read import fused_read_sweep
     from repro_torch.kernels.topk_read import topk_read
+    from repro_torch.optim import optimizers as opt
     S, ln = MESH_S, N // MESH_S
     step = max(RECORD_STEPS)
     q, mem, beta, _, _, _ = rec.records[("fused_read_sweep", step)]
 
     # (a) the kernel against its plain version and fused_read's selection
-    # at full width: step 21's memory whole and as each rank's block, an
-    # all-zero memory, copies of row N-1 (written at step 1) in rows 7, ...
-    # (the best, straddling the blocks' boundary: row 7 must come first)
-    # and a ragged valid_n.
+    # at full width, on f32, bf16 and int8 rows: step 21's memory whole
+    # and as each rank's block, an all-zero memory, copies of row N-1
+    # (written at step 1) in rows 7, ... (the best, straddling the blocks'
+    # boundary: row 7 must come first) and a ragged valid_n.
     cpu = torch.Generator().manual_seed(10)
     dup = mem.clone()
     dup[:, [7, N // 3, N // 2, ln - 1, ln]] = mem[:, N - 1:N]
     q_dup = mem[:, N - 1][:, None, :] * (
         1.0 + 0.01 * torch.randn((B, H, W), generator=cpu).to(dev))
-    cases = {f"step {step}": (q, mem, N)}
-    for r in range(S):
-        cases[f"block {r}"] = (q, mem_shard.shard_block(mem, N, S, r), ln)
-    cases.update({"all zero": (q, torch.zeros_like(mem), N),
-                  "duplicate rows": (q_dup, dup, N),
-                  "ragged": (q, mem, 3 * N // 4 + 5)})
+
+    def stored(m, dtype):
+        """f32 rows as ``dtype``: (rows, scales or None)."""
+        if dtype == "float32":
+            return m, None
+        if dtype == "bfloat16":
+            return m.bfloat16(), None
+        return quantize_rows(m)
+
+    def block(t, r):
+        return None if t is None else mem_shard.shard_block(t, N, S, r)
+
+    topk_rows, mem_rows, f32_view = {}, {}, {}
+    for dtype in MESH_DTYPES:
+        m_all, s_all = stored(mem, dtype)
+        mem_rows[dtype] = (m_all, s_all)
+        cases = {f"step {step}": (q, m_all, s_all, N)}
+        for r in range(S):
+            cases[f"block {r}"] = (q, block(m_all, r), block(s_all, r), ln)
+        cases.update({"all zero": (q, *stored(torch.zeros_like(mem), dtype),
+                                   N),
+                      "duplicate rows": (q_dup, *stored(dup, dtype), N),
+                      "ragged": (q, m_all, s_all, 3 * N // 4 + 5)})
+        name = "topk_read" + SUFFIX.get(dtype, "")
+        with torch.inference_mode():
+            for case, (q_, m_, s_, n_) in cases.items():
+                out = topk_read(q_, m_, k=K, valid_n=n_, mem_scale=s_)
+                checker.topk(q_, m_, K, n_, out, s_)
+                f_idx = fused_read_sweep(q_, m_, beta, k=K, valid_n=n_,
+                                         mem_scale=s_)[2]
+                require(torch.equal(out[1], f_idx), f"{name} ({case}) "
+                        f"picks other rows than fused_read_sweep")
+                if case == "all zero":
+                    require(torch.equal(out[1].cpu(), torch.arange(
+                        K, dtype=torch.int32).expand(B, H, K)),
+                        f"{name} on an all-zero memory must pick rows "
+                        f"0..K-1")
+                if case == "duplicate rows":
+                    require(torch.equal(out[1][:, :, 0].cpu(), torch.full(
+                        (B, H), 7, dtype=torch.int32)), f"{name}: row 7 "
+                        f"first")
+                if dtype == "int8":
+                    # JAX's route: B9 on a dequantized f32 copy of the
+                    # rows, whose arithmetic is not the int8 read's.
+                    view = topk_read(q_, ref._deq_view(m_, s_), k=K,
+                                     valid_n=n_)[1]
+                    f32_view[case] = int((view != f_idx).sum())
+            torch.cuda.synchronize()
+        print(f"[mesh] {name} against its plain version at (B, H, W, K) = "
+              f"({B}, {H}, {W}, {K}) on {', '.join(cases)}: indices equal "
+              f"(near-ties {checker.near_ties} so far), scores err "
+              f"{checker.err[name]:.3g}; indices equal fused_read_sweep's "
+              f"on the same {dtype} rows bit for bit")
+
+        def topk_row(m_, s_, n_, iters):
+            # Each row read once (int8: its 4-byte scale too), q read and
+            # the (B, H, K) scores and indices written once.
+            nbytes = (B * n_ * W * m_.element_size()
+                      + (4 * B * n_ if s_ is not None else 0)
+                      + 4 * (B * H * W + 2 * B * H * K))
+            return dict(
+                ms=time_ms(lambda: topk_read(q, m_, k=K, valid_n=n_,
+                                             mem_scale=s_), iters, flush),
+                plain_ms=time_ms(lambda: ref.topk_read_ref(
+                    q, m_, K, valid_n=n_, mem_scale=s_), 5, flush),
+                library_ms=None,
+                bound=bound(nbytes, B * n_ * W * (2 * H + 2)),
+                rate=(nbytes, B * n_))
+
+        blk = cases["block 0"]
+        row = topk_row(blk[1], blk[2], ln, 50)
+        row["full"] = topk_row(m_all, s_all, N, 20)
+        topk_rows[dtype] = row
+        if dtype == "int8":
+            view = ref._deq_view(blk[1], blk[2])
+            f32_view.update(
+                dequantize_ms=time_ms(lambda: ref._deq_view(blk[1], blk[2]),
+                                      20, flush),
+                topk_ms=time_ms(lambda: topk_read(q, view, k=K, valid_n=ln),
+                                50, flush))
+            print(f"[mesh] JAX's int8 route, B9 on a block's dequantized "
+                  f"f32 copy: picks other than the int8 read's "
+                  f"{ {k_: v for k_, v in f32_view.items() if 'ms' not in k_} }"
+                  f" of {B * H * K} a case; the copy "
+                  f"{f32_view['dequantize_ms']:.4f} ms and its sweep "
+                  f"{f32_view['topk_ms']:.4f} ms a step, against "
+                  f"{row['ms']:.4f} ms for B9 on the int8 block")
+            del view
+        for what, r in ((f"a rank's block (B, 2^18+1, W) of {dtype} rows",
+                         row),
+                        (f"the whole memory (B, 2^20+1, W) of {dtype} rows",
+                         row["full"])):
+            print(f"[time] topk_read on {what}: {r['ms']:.4f} ms (bound "
+                  f"{r['bound'][0]:.6f} ms by {r['bound'][1]}"
+                  f"{sweep_rate(r)}), plain {r['plain_ms']:.4f} ms")
+        del cases, blk
+    del dup, q_dup, mem_rows
+
+    # The single-device runs the sharded ones are held against, on this
+    # card: the bf16 and int8 rollouts, and one sparse train step on each
+    # row dtype (its gradients, as the clip sees them).
+    base = sam.SAMConfig(
+        MemoryConfig(num_slots=N, word_size=W, num_heads=H, k=K,
+                     delta=DELTA),
+        ControllerConfig(input_size=BITS + 2, hidden_size=HIDDEN,
+                         output_size=BITS))
+
+    def cfg_of(dtype):
+        return sam.SAMConfig(dataclasses.replace(base.memory,
+                                                 mem_dtype=dtype),
+                             base.controller)
+
+    # Each twice: through B1 (the single-device read, its softmax tail in
+    # the kernel), and with B1's picks but the plain tail on the picked
+    # rows (`ref.sparse_read_tail`), the sharded read's own arithmetic.
+    sweep = ops.fused_read_sweep
+
+    def plain_tail(q_, m_, beta_, *, k, valid_n=None, mem_scale=None):
+        idx = sweep(q_, m_, beta_, k=k, valid_n=valid_n,
+                    mem_scale=mem_scale)[2]
+        return (*ref.sparse_read_tail(q_, m_, beta_, idx, mem_scale), idx)
+
+    single = {}
     with torch.inference_mode():
-        for name, (q_, m_, n_) in cases.items():
-            out = topk_read(q_, m_, k=K, valid_n=n_)
-            checker.topk(q_, m_, K, n_, out)
-            f_idx = fused_read_sweep(q_, m_, beta, k=K, valid_n=n_)[2]
-            require(torch.equal(out[1], f_idx), f"topk_read ({name}) picks "
-                    f"other rows than fused_read_sweep")
-            if name == "all zero":
-                require(torch.equal(out[1].cpu(), torch.arange(
-                    K, dtype=torch.int32).expand(B, H, K)),
-                    "topk_read on an all-zero memory must pick rows 0..K-1")
-            if name == "duplicate rows":
-                require(torch.equal(out[1][:, :, 0].cpu(), torch.full(
-                    (B, H), 7, dtype=torch.int32)), "topk_read: row 7 first")
-        torch.cuda.synchronize()
-    print(f"[mesh] topk_read against its plain version at (B, H, W, K) = "
-          f"({B}, {H}, {W}, {K}) on {', '.join(cases)}: indices equal "
-          f"(near-ties {checker.near_ties} so far), scores err "
-          f"{checker.err['topk_read']:.3g}; indices equal fused_read_sweep's "
-          f"bit for bit")
-    blk = cases["block 0"][1]
+        for dtype in MESH_DTYPES[1:]:
+            c = cfg_of(dtype)
+            for key, read in ((dtype, sweep), (dtype + "/plain tail",
+                                               plain_tail)):
+                ops.fused_read_sweep = read
+                try:
+                    final, ys = sam.sam_unroll(
+                        params, c, sam.init_state(B, c, device=dev), xs)
+                finally:
+                    ops.fused_read_sweep = sweep
+                single[key] = dict(
+                    ys=ys.cpu(), memory=final.memory[:, :N].cpu(),
+                    scale=(None if final.mem_scale is None
+                           else final.mem_scale[:, :N].cpu()),
+                    la=final.last_access[:, :N].cpu(),
+                    read_idx=final.read.indices.cpu())
+                del final
+    grads_seen, clip = [], opt.clip_by_global_norm
 
-    def topk_row(m_, n_, iters):
-        nbytes = 4 * (B * n_ * W + B * H * W + 2 * B * H * K)
-        return dict(
-            ms=time_ms(lambda: topk_read(q, m_, k=K, valid_n=n_), iters,
-                       flush),
-            plain_ms=time_ms(lambda: ref.topk_read_ref(q, m_, K, valid_n=n_),
-                             5, flush),
-            library_ms=None,
-            bound=bound(nbytes, B * n_ * W * (2 * H + 2)),
-            rate=(nbytes, B * n_))
+    def seen_clip(grads, max_norm):
+        grads_seen.append([g.clone() for g in pytree.tree_leaves(grads)])
+        return clip(grads, max_norm)
 
-    row = topk_row(blk, ln, 50)
-    row["full"] = topk_row(mem, N, 20)
-    for what, r in (("a rank's block (B, 2^18+1, W)", row),
-                    ("the whole memory (B, 2^20+1, W)", row["full"])):
-        print(f"[time] topk_read on {what}: {r['ms']:.4f} ms (bound "
-              f"{r['bound'][0]:.6f} ms by {r['bound'][1]}{sweep_rate(r)}), "
-              f"plain {r['plain_ms']:.4f} ms")
-    del cases, dup, q_dup
+    single_train = {}
+    opt.clip_by_global_norm = seen_clip
+    try:
+        for dtype in MESH_DTYPES:
+            _, _, fn = training.make_task_train_step(
+                training.ModelSpec("sam", cfg_of(dtype).memory,
+                                   base.controller), LR, device=dev)
+            p0 = pytree.tree_map(lambda t: t.detach().clone(), params)
+            _, _, loss, _ = fn(p0, opt.rmsprop_init(p0), *batch)
+            single_train[dtype] = (loss.item(),
+                                   [g.cpu() for g in grads_seen[-1]])
+            del fn, p0
+    finally:
+        opt.clip_by_global_norm = clip
+    torch.cuda.synchronize()
 
-    # (b) the sharded forward: S ranks on this card over gloo, from the
-    # model's weights and phase 3's inputs.
+    # (b) the sharded runs: S ranks on this card over gloo, from the
+    # model's weights, phase 3's inputs and the copy-task batch.
     payload = {"params": {g: {n: t.detach().cpu().numpy() for n, t in
                               grp.items()} for g, grp in params.items()},
-               "xs": xs.cpu().numpy(), "device": str(dev)}
+               "xs": xs.cpu().numpy(), "device": str(dev),
+               "batch": [t.cpu().numpy() for t in batch]}
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as path:
@@ -3155,19 +3454,135 @@ def mesh_phase(dev, ref, checker, flush, rec, mesh_ref, params, xs,
             "the sharded usage table differs from the single-device one")
     require(torch.equal(runs[0]["read_idx"], mesh_ref["read_idx"]),
             "the sharded read indices differ from the single-device ones")
-    checker.err["topk_read"] = max([checker.err["topk_read"]]
-                                   + [run["err"] for run in runs])
-    checker.near_ties += sum(run["near_ties"] for run in runs)
+    for name in topk_rows:
+        key = "topk_read" + SUFFIX.get(name, "")
+        checker.err[key] = max([checker.err[key]]
+                               + [run["topk_err"][key] for run in runs])
+    checker.near_ties += sum(run["near_ties_all"] for run in runs)
     print(f"[mesh] S={S} ranks on {dev} over gloo ({spawn_s:.1f} s with the "
-          f"spawn): launches per rank {runs[0]['launches']} over T={T} "
-          f"steps, every step checked against the plain versions (top-K "
-          f"err {checker.err['topk_read']:.3g}, write err "
+          f"spawn): f32 rollout launches per rank {runs[0]['launches']} over "
+          f"T={T} steps, every step checked against the plain versions "
+          f"(top-K err {checker.err['topk_read']:.3g}, write err "
           f"{max(run['write_err'] for run in runs):.3g}); ys, read words "
           f"and indices bit-identical across ranks; against phase 3's "
           f"single-device rollout: ys err {ys_err:.3g}, memory err "
           f"{mem_err:.3g} ({not_bit_equal} of {memory.numel()} elements "
           f"not bit-equal), read words err {words_err:.3g}, usage table and "
           f"read indices exact")
+
+    # The bf16 and int8 rollouts against the single-device ones: bit for
+    # bit against the run with the sharded read's arithmetic (B1's picks,
+    # the plain tail), and against the run through B1: read indices,
+    # usage table and int8 codes exact, floats within the phase's bar
+    # (1e-5 of max(1, |x|), bf16 rows BF16_GRAD_BAR: the two tails' last
+    # bits move a bf16 rounding of the write). Every figure is printed
+    # before any is held to its bar.
+    rows_res, failed = {}, []
+    for dtype in MESH_DTYPES[1:]:
+        want, twin = single[dtype], single[dtype + "/plain tail"]
+        keys = ("memory", "la") + (("scale",) if dtype == "int8" else ())
+        got = {key: torch.cat([run["rows"][dtype][key] for run in runs], 1)
+               for key in keys}
+        r0 = runs[0]["rows"][dtype]
+        got["ys"], got["read_idx"] = r0["ys"], r0["read_idx"]
+        bar = BF16_GRAD_BAR if dtype == "bfloat16" else TOL
+        res = dict(
+            equal_to_plain_tail=all(torch.equal(got[key], twin[key])
+                                    for key in got),
+            ys_err=rel_err(got["ys"], want["ys"]),
+            memory_err=rel_err(got["memory"], want["memory"]),
+            memory_not_bit_equal=int((got["memory"]
+                                      != want["memory"]).sum()),
+            read_idx_equal=torch.equal(got["read_idx"], want["read_idx"]),
+            la_equal=torch.equal(got["la"], want["la"]),
+            plain_tail_ys_err=rel_err(twin["ys"], want["ys"]),
+            launches=r0["launches"], bytes_per_step=r0["bytes_per_step"])
+        if dtype == "int8":
+            res["scale_err"] = rel_err(got["scale"], want["scale"])
+        rows_res[dtype] = res
+        print(f"[mesh] {dtype} rollout, S={S} ranks: launches per rank "
+              f"{r0['launches']}, every step in lockstep, the ranks alike; "
+              f"bit for bit the single-device rollout with B1's picks and "
+              f"the plain tail: {res['equal_to_plain_tail']}; against the "
+              f"single-device rollout through B1: ys err "
+              f"{res['ys_err']:.3g} (the plain-tail run's "
+              f"{res['plain_tail_ys_err']:.3g}), "
+              f"{'codes' if dtype == 'int8' else 'rows'} err "
+              f"{res['memory_err']:.3g} ({res['memory_not_bit_equal']} "
+              f"elements not bit-equal)"
+              + (f", scales err {res['scale_err']:.3g}" if dtype == "int8"
+                 else "")
+              + f", read indices equal {res['read_idx_equal']}, usage table "
+              f"equal {res['la_equal']}; bytes per step per rank "
+              f"{r0['bytes_per_step']}")
+        if not res["equal_to_plain_tail"]:
+            failed.append(f"the sharded {dtype} rollout is not the "
+                          f"single-device one with its arithmetic")
+        if not (res["read_idx_equal"] and res["la_equal"]):
+            failed.append(f"the sharded {dtype} rollout's read indices or "
+                          f"usage table differ from the single-device one's")
+        if max(res["ys_err"], res.get("scale_err", 0.0)) > bar or (
+                res["memory_not_bit_equal"] if dtype == "int8"
+                else res["memory_err"] > bar):
+            failed.append(f"the sharded {dtype} rollout against the "
+                          f"single-device one: {res}")
+
+    # The train steps against the single-device ones.
+    train_res = {}
+    for dtype in MESH_DTYPES:
+        sfx = SUFFIX.get(dtype, "")
+        r0 = runs[0]["train"][dtype]
+        s_loss, s_grads = single_train[dtype]
+        g_err = max(rel_err(a, b) for a, b in zip(r0["grads"], s_grads))
+        bar = BF16_GRAD_BAR if dtype == "bfloat16" else GRAD_ATOL
+        if g_err > bar:
+            failed.append(f"the sharded {dtype} train step's gradients err "
+                          f"{g_err:.3g} (bar {bar})")
+        if abs(r0["loss"] - s_loss) > TOL * abs(s_loss):
+            failed.append(f"the sharded {dtype} loss {r0['loss']} against "
+                          f"{s_loss}")
+        want = {"topk_read": T, "lra_topn": T, "fused_read_sweep": 0,
+                "sparse_write_update": 2 * T if dtype == "int8" else T,
+                "scatter_rows": (4 if dtype == "int8" else SAM_BWD_SCATTERS)
+                * T}
+        if sfx:
+            want.update({"topk_read" + sfx: T,
+                         "sparse_write_update" + sfx:
+                         want["sparse_write_update"],
+                         "scatter_rows" + sfx: 2 * T if dtype == "int8"
+                         else SAM_BWD_SCATTERS * T})
+        for run in runs:
+            got = run["train"][dtype]["launches"]
+            if not all(got[k_] == v for k_, v in want.items()):
+                failed.append(f"the sharded {dtype} train step launched "
+                              f"{got}, expected {want}")
+        train_res[dtype] = dict(
+            loss=r0["loss"], single_loss=s_loss, grad_err=g_err,
+            launches=r0["launches"],
+            scatter_checked=r0["checked"],
+            fwd_bytes_per_step=r0["fwd_bytes"],
+            bwd_bytes_per_step=r0["bwd_bytes"],
+            ms=[run["train"][dtype]["ms"] for run in runs],
+            fwd_ms=[run["train"][dtype]["fwd_ms"] for run in runs],
+            coll_ms=[run["train"][dtype]["coll_ms"] for run in runs],
+            lockstep_ms=[run["train"][dtype]["lockstep_ms"] for run in runs],
+            peak=[run["train"][dtype]["peak"] for run in runs])
+        t = train_res[dtype]
+        print(f"[mesh-train] {dtype} rows, S={S}: one sparse train step "
+              f"(T={T}) per rank in lockstep, launches {r0['launches']}, "
+              f"scatter calls checked {r0['checked']}; gradients "
+              f"bit-identical across ranks{' (and the weights after a '
+              'second step)' if dtype == 'float32' else ''}, against the "
+              f"single-device step err {g_err:.3g} (bar {bar}), loss "
+              f"{r0['loss']:.6f} ({s_loss:.6f} on one device); bytes per step per rank forward "
+              f"{r0['fwd_bytes']}, backward {r0['bwd_bytes']}")
+        print(f"[mesh-train] {dtype} times ({MESH_LABEL}): host ms per "
+              f"step per rank {[round(x, 1) for x in t['ms']]} (forward "
+              f"{[round(x, 1) for x in t['fwd_ms']]}, in the collectives "
+              f"{[round(x, 1) for x in t['coll_ms']]}); in lockstep "
+              f"{[round(x, 1) for x in t['lockstep_ms']]}; peak per rank "
+              f"{t['peak']} B")
+    require(not failed, "; ".join(failed))
     card = card_line()
     print(f"[mesh] times ({MESH_LABEL}; {card}): host ms/step per rank "
           f"{[round(run['host_ms'], 4) for run in runs]} (median of 3), in "
@@ -3178,15 +3593,20 @@ def mesh_phase(dev, ref, checker, flush, rec, mesh_ref, params, xs,
           f"); peak per rank {[run['peak'] for run in runs]} B beside a "
           f"block of {runs[0]['block_bytes']} B; bytes per step per rank "
           f"{runs[0]['bytes_per_step']}")
-    print(f"[mesh] topk_read ({card}): block (B, 2^18+1, W) "
-          f"{row['ms']:.4f} ms (bound {row['bound'][0]:.4f}, plain "
-          f"{row['plain_ms']:.3f}); whole (B, 2^20+1, W) "
-          f"{row['full']['ms']:.4f} ms (bound {row['full']['bound'][0]:.4f}, "
-          f"plain {row['full']['plain_ms']:.3f}); a bare all-gather of "
-          f"(B, H, K) f32 per rank: CUDA tensor "
-          f"{[round(run['bare_ms_dev'], 4) for run in runs]} ms, host "
-          f"tensor {[round(run['bare_ms_host'], 4) for run in runs]} ms")
-    return {"row": row, "launches": runs[0]["launches"], "mesh": {
+    row = topk_rows["float32"]
+    print(f"[mesh] topk_read ({card}): " + "; ".join(
+        f"{dtype} block (B, 2^18+1, W) {r['ms']:.4f} ms (bound "
+        f"{r['bound'][0]:.4f}, plain {r['plain_ms']:.3f}), whole "
+        f"(B, 2^20+1, W) {r['full']['ms']:.4f} ms (bound "
+        f"{r['full']['bound'][0]:.4f}, plain {r['full']['plain_ms']:.3f})"
+        for dtype, r in topk_rows.items())
+        + f"; a bare all-gather of (B, H, K) f32 per rank: CUDA tensor "
+        f"{[round(run['bare_ms_dev'], 4) for run in runs]} ms, host "
+        f"tensor {[round(run['bare_ms_host'], 4) for run in runs]} ms")
+    return {"row": row, "bf16_row": topk_rows["bfloat16"],
+            "int8_row": topk_rows["int8"], "launches": runs[0]["launches"],
+            "bf16_launches": train_res["bfloat16"]["launches"],
+            "int8_launches": train_res["int8"]["launches"], "mesh": {
         "label": MESH_LABEL, "card": card, "shards": S,
         "launches_per_rank": [run["launches"] for run in runs],
         "ys_err": ys_err, "memory_err": mem_err, "read_words_err": words_err,
@@ -3200,7 +3620,11 @@ def mesh_phase(dev, ref, checker, flush, rec, mesh_ref, params, xs,
         "device_ms_per_step_rank0": runs[0]["device_ms"],
         "peak_bytes": [run["peak"] for run in runs],
         "block_bytes": runs[0]["block_bytes"],
-        "single_device_ms_per_step": step_ms}}
+        "single_device_ms_per_step": step_ms,
+        "rollouts": rows_res, "train": train_res,
+        "int8_f32_view": f32_view,
+        "topk_read": {dtype: {k_: v for k_, v in r.items() if k_ != "rate"}
+                      for dtype, r in topk_rows.items()}}}
 
 
 def dnc_bytes(n: int, batch: int, steps: int, cfg) -> int:
@@ -7370,8 +7794,10 @@ def run() -> None:
     mark("9")
     # ---- 10. the slot-sharded memory: MESH_S ranks over gloo ----
     mesh = mesh_phase(dev, ref, checker, flush, rec, mesh_ref,
-                      model.params(), xs, step_ms)
+                      model.params(), xs, step_ms, (inputs, targets, mask))
     rows["topk_read"] = mesh["row"]
+    rows["topk_read_bf16"] = mesh["bf16_row"]
+    rows["topk_read_int8"] = mesh["int8_row"]
 
     mark("10")
     # ---- 11. the DNC and the SDNC ----
@@ -7470,7 +7896,9 @@ def run() -> None:
                "flash_attention_mla_bf16": mla["launches"],
                "flash_attention_llama4": llama4["launches"],
                "flash_attention_llama4_bf16": llama4["launches"],
-               "topk_read": mesh["launches"]}
+               "topk_read": mesh["launches"],
+               "topk_read_bf16": mesh["bf16_launches"],
+               "topk_read_int8": mesh["int8_launches"]}
     report = []
     for name, r in rows.items():
         replaces, source = REPLACES[name]
@@ -7494,6 +7922,8 @@ def run() -> None:
     by_name["lsh_hash"]["query"] = sub(hash_query)
     by_name["lsh_hash"]["bulk"] = sub(hash_bulk)
     by_name["topk_read"]["full"] = sub(mesh["row"]["full"])
+    by_name["topk_read_bf16"]["full"] = sub(mesh["bf16_row"]["full"])
+    by_name["topk_read_int8"]["full"] = sub(mesh["int8_row"]["full"])
     by_name["flash_attention"]["bf16"] = dict(
         sub(lmr["row"]["bf16"]), max_abs_err=lmr["bf16_err"],
         launches=lmr["bf16_launches"])

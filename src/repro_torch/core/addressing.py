@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.quant import dequantize_rows
 from repro_torch.core.types import SparseRead
 from repro_torch.distributed import mem_shard
 from repro_torch.kernels import ops, ref
@@ -94,10 +95,16 @@ def gather_rows(m: torch.Tensor, idx: torch.Tensor, *,
     return rows.reshape(tuple(idx.shape) + (m.shape[-1],))
 
 
-def gather_scales(mem_scale: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_scales(mem_scale: torch.Tensor, idx: torch.Tensor, *,
+                  shard=None) -> torch.Tensor:
     """mem_scale: (B, N), idx: (B, ...) -> (B, ...): the per-row scales of
-    the rows idx names (int8 rows)."""
-    return gather_rows(mem_scale[..., None], idx)[..., 0]
+    the rows idx names (int8 rows); on a rank's block, ``shard`` given, a
+    width-1 row gather from the ranks that own them."""
+    if shard is None:
+        return gather_rows(mem_scale[..., None], idx)[..., 0]
+    B = mem_scale.shape[0]
+    return mem_shard.gather_rows_sharded(
+        shard, mem_scale, idx.reshape(B, -1)).reshape(idx.shape)
 
 
 def sparse_read_exact(q: torch.Tensor, m: torch.Tensor, beta: torch.Tensor,
@@ -105,14 +112,21 @@ def sparse_read_exact(q: torch.Tensor, m: torch.Tensor, beta: torch.Tensor,
                       shard=None) -> SparseRead:
     """'Linear index' SAM read: the exact K nearest rows by cosine
     similarity among rows [0, valid_n), softmax over the kept K only: one
-    `ops.fused_read` call. On a rank's block (``shard``; f32 rows) the
-    sweep and merge are `mem_shard.topk_read_sharded`, the K rows come
-    from the ranks that own them and `read_from_rows` finishes the read,
-    with global indices."""
+    `ops.fused_read` call. On a rank's block (``shard``) the sweep and
+    merge are `mem_shard.topk_read_sharded`, which ranks the block's rows
+    as the single-device read ranks them (bf16 upcast, int8 dequantized),
+    the K rows (and int8 rows' scales) come from the ranks that own them,
+    and `read_from_rows` finishes the read on them as f32 words, with
+    global indices."""
     if shard is not None:
-        _, idx = mem_shard.topk_read_sharded(shard, q.detach(), m.detach(),
-                                             k)
-        return read_from_rows(q, gather_rows(m, idx, shard=shard), beta, idx)
+        _, idx = mem_shard.topk_read_sharded(
+            shard, q.detach(), m.detach(), k,
+            mem_scale=None if mem_scale is None else mem_scale.detach())
+        rows = gather_rows(m, idx, shard=shard)
+        words = (rows.to(torch.float32) if mem_scale is None else
+                 dequantize_rows(rows, gather_scales(mem_scale, idx,
+                                                     shard=shard)))
+        return read_from_rows(q, words, beta, idx)
     read, w, idx = ops.fused_read(q, m, beta, k, valid_n=valid_n,
                                   mem_scale=mem_scale)
     return SparseRead(indices=idx, weights=w, words=read)
@@ -172,20 +186,28 @@ def finish_candidate_read(q: torch.Tensor, m: torch.Tensor, beta: torch.Tensor,
 
 
 def scatter_add_rows(m: torch.Tensor, idx: torch.Tensor,
-                     rows: torch.Tensor, *, mem_scale=None):
+                     rows: torch.Tensor, *, mem_scale=None, shard=None):
     """m[b, idx[b, j]] += rows[b, j], in place; duplicates sum in j order.
     idx: (B, J), rows: (B, J, W). With ``mem_scale`` (int8 rows) each
     touched row accumulates in f32 and re-quantizes once; returns (m,
-    mem_scale)."""
+    mem_scale). On a rank's block (``shard``) the rows it owns only."""
+    if shard is not None:
+        return mem_shard.scatter_rows_sharded(shard, m, idx, rows, "add",
+                                              mem_scale=mem_scale)
     return ops.scatter_rows(m, idx, rows, "add", mem_scale=mem_scale)
 
 
 def scatter_set_rows(m: torch.Tensor, idx: torch.Tensor,
-                     rows: torch.Tensor, *, mem_scale=None, rows_scale=None):
+                     rows: torch.Tensor, *, mem_scale=None, rows_scale=None,
+                     shard=None):
     """m[b, idx[b, j]] = rows[b, j], in place; the last duplicate wins.
     With ``mem_scale`` (int8 rows) int8 ``rows`` and their scales
     ``rows_scale`` are restored bit for bit (the rollback); returns (m,
-    mem_scale)."""
+    mem_scale). On a rank's block (``shard``) the rows it owns only."""
+    if shard is not None:
+        return mem_shard.scatter_rows_sharded(shard, m, idx, rows, "set",
+                                              mem_scale=mem_scale,
+                                              rows_scale=rows_scale)
     return ops.scatter_rows(m, idx, rows, "set", mem_scale=mem_scale,
                             rows_scale=rows_scale)
 
@@ -221,7 +243,7 @@ def sparse_write_update(memory, last_access, write_idx, write_w, a, lra_idx,
     if shard is not None:
         return mem_shard.sparse_write_update_sharded(
             shard, memory, last_access, write_idx, write_w, a, lra_idx,
-            step, delta=delta)
+            step, delta=delta, mem_scale=mem_scale)
     return ops.sparse_write_update(memory, last_access, write_idx, write_w,
                                    a, lra_idx, step, delta=delta,
                                    mem_scale=mem_scale)

@@ -52,6 +52,13 @@ O(K·W) per step, through autograd Functions of the replay:
 
 The per-step autograd graph holds only small tensors: parameters, the
 controller state, the previous read, x and the gathered rows.
+
+On a rank's block of a slot-sharded memory (`distributed/mem_shard.py`)
+``mem_ct`` is the rank's cotangent block. The SAM replay gathers the rows
+it reads, and the write's cotangent rows, from the ranks that own them,
+so every rank computes the single-device gradients of the replicated
+leaves; each rank adds, zeroes and sets only the rows it owns, and the
+rollback and the redo restore only those (module docstring there).
 """
 from __future__ import annotations
 
@@ -67,6 +74,7 @@ from repro_torch.core.quant import dequantize_rows
 from repro_torch.core.sam import SAMConfig, _interface, apply_write, write_plan
 from repro_torch.core.types import (SAMState, SparseRead, StepDeltas,
                                     tree_bytes)
+from repro_torch.distributed import mem_shard
 from repro_torch.kernels import ops, ref
 
 
@@ -81,33 +89,43 @@ class _ReplayWrite(torch.autograd.Function):
     rows' recorded codes and scales (`StepDeltas`): the backward hands w
     and a the closed-form gradient of the new scales (`ops.write_q_vjp`),
     then sets each touched row of ``mem_ct`` to its old scale's gradient,
-    which the winning column carries."""
+    which the winning column carries.
+
+    On a rank's block (``shard``) the memory and ``mem_ct`` are blocks:
+    the written rows' cotangents are gathered from the ranks that own
+    them (O(J·W)), so w and a get the single-device gradients on every
+    rank, and each rank zeroes or sets only the rows it owns."""
 
     @staticmethod
     def forward(ctx, write_w, a, memory, mem_ct, write_idx, lra_idx,
-                mem_scale=None, usage=None, old=None):
+                mem_scale=None, usage=None, old=None, shard=None):
         apply_write(memory, write_idx, write_w, a, lra_idx,
-                    mem_scale=mem_scale, usage=usage)
+                    mem_scale=mem_scale, usage=usage, shard=shard)
         ctx.save_for_backward(write_w, a)
         ctx.mem_ct, ctx.write_idx, ctx.lra_idx = mem_ct, write_idx, lra_idx
-        ctx.old = old
+        ctx.old, ctx.shard = old, shard
         return write_w.new_empty(0)
 
     @staticmethod
     def backward(ctx, _):
         write_w, a = ctx.saved_tensors
-        ct, widx = ctx.mem_ct, ctx.write_idx
+        ct, widx, shard = ctx.mem_ct, ctx.write_idx, ctx.shard
+        nones = (None,) * 8
         if ctx.old is not None:
-            g_old_s, g_w, g_a = ops.write_q_vjp(
-                ops.winners(ct[..., None], widx)[..., 0], *ctx.old, widx,
-                ctx.lra_idx, write_w, a)
-            ops.scatter_rows(ct[..., None], widx, g_old_s[..., None], "set")
-            return g_w, g_a, None, None, None, None, None, None, None
+            win = (ops.winners(ct, widx) if shard is None
+                   else mem_shard.winners_sharded(shard, ct, widx))
+            g_old_s, g_w, g_a = ops.write_q_vjp(win, *ctx.old, widx,
+                                                ctx.lra_idx, write_w, a)
+            addr.scatter_set_rows(ct[..., None], widx, g_old_s[..., None],
+                                  shard=shard)
+            return (g_w, g_a) + nones
         # The written rows' cotangents, read before the erase zeroes them.
         g_w, g_a = ops.write_rows_vjp(
-            addr.gather_rows(ct, widx).to(torch.float32), write_w, a)
-        ops.scatter_rows(ct, ctx.lra_idx, ct.new_zeros(a.shape), "set")
-        return g_w, g_a, None, None, None, None, None, None, None
+            addr.gather_rows(ct, widx, shard=shard).to(torch.float32),
+            write_w, a)
+        addr.scatter_set_rows(ct, ctx.lra_idx, ct.new_zeros(a.shape),
+                              shard=shard)
+        return (g_w, g_a) + nones
 
 
 class _ReadRows(torch.autograd.Function):
@@ -116,16 +134,20 @@ class _ReadRows(torch.autograd.Function):
     dequantized with ``mem_scale``); their cotangents are added into
     ``mem_ct`` (bf16: rounded to bf16 first, as JAX's cast transposes
     them). On int8 rows ``mem_ct`` is the scales' cotangent, and each row
-    adds Σ_w g_w · code_w into its scale's."""
+    adds Σ_w g_w · code_w into its scale's. On a rank's block
+    (``shard``) the rows come from the ranks that own them, and each rank
+    adds the (replicated) cotangents of the rows it owns: the backward of
+    the owned-rows sum is the identity on them."""
 
     @staticmethod
-    def forward(ctx, token, memory, mem_ct, idx, mem_scale=None):
-        ctx.mem_ct, ctx.idx = mem_ct, idx
-        rows = addr.gather_rows(memory, idx)
+    def forward(ctx, token, memory, mem_ct, idx, mem_scale=None, shard=None):
+        ctx.mem_ct, ctx.idx, ctx.shard = mem_ct, idx, shard
+        rows = addr.gather_rows(memory, idx, shard=shard)
         if mem_scale is None:
             return rows.to(torch.float32)
         ctx.save_for_backward(rows)
-        return dequantize_rows(rows, addr.gather_scales(mem_scale, idx))
+        return dequantize_rows(rows, addr.gather_scales(mem_scale, idx,
+                                                        shard=shard))
 
     @staticmethod
     def backward(ctx, g_words):
@@ -134,12 +156,12 @@ class _ReadRows(torch.autograd.Function):
         if ctx.saved_tensors:
             codes, = ctx.saved_tensors
             g_s = (g_words * codes.to(torch.float32)).sum(-1)
-            ops.scatter_rows(ctx.mem_ct[..., None], flat,
-                             g_s.reshape(B, -1, 1), "add")
+            addr.scatter_add_rows(ctx.mem_ct[..., None], flat,
+                                  g_s.reshape(B, -1, 1), shard=ctx.shard)
         else:
-            ops.scatter_rows(ctx.mem_ct, flat, g_words.reshape(B, -1, W),
-                             "add")
-        return g_words.new_zeros(0), None, None, None, None
+            addr.scatter_add_rows(ctx.mem_ct, flat,
+                                  g_words.reshape(B, -1, W), shard=ctx.shard)
+        return g_words.new_zeros(0), None, None, None, None, None
 
 
 def _replay_usage(ct: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
@@ -172,12 +194,13 @@ def sam_replay_step(params, cfg: SAMConfig, s: SAMState, x: torch.Tensor,
     lra_idx = deltas.write_idx.reshape(B, H, K + 1)[..., -1].contiguous()
     _, ww, _, _ = write_plan(cfg, s.read, lra_idx, alpha, gamma)
     q8 = s.mem_scale is not None
+    shard = mem_shard.memory_layout(cfg.memory.num_slots, s.memory.shape[1])
     token = _ReplayWrite.apply(
         ww, a, s.memory, mem_ct, deltas.write_idx, lra_idx, s.mem_scale,
         _replay_usage(mem_ct, s.memory) if q8 else None,
-        (deltas.old_rows, deltas.old_scale) if q8 else None)
+        (deltas.old_rows, deltas.old_scale) if q8 else None, shard)
     idx = deltas.read_idx.clamp_min(0)
-    words = _ReadRows.apply(token, s.memory, mem_ct, idx, s.mem_scale)
+    words = _ReadRows.apply(token, s.memory, mem_ct, idx, s.mem_scale, shard)
     read = addr.read_from_rows(q, words, beta, deltas.read_idx)
     y = linear(params["out"], torch.cat([h, read.words.reshape(B, -1)], -1))
     return SAMState(memory=s.memory, last_access=s.last_access, read=read,
@@ -219,21 +242,36 @@ class SAMCell:
     def residual_state(self, state: SAMState):
         return (state.read, state.ctrl)
 
+    def _shard(self, state: SAMState):
+        return mem_shard.memory_layout(self.cfg.memory.num_slots,
+                                       state.memory.shape[1])
+
     def rollback(self, state: SAMState, prev_small, deltas: StepDeltas):
         read, ctrl = prev_small
         # write_idx names logical rows only, so scratch row N is untouched;
-        # int8 rows get their recorded (row, scale) pairs back.
+        # int8 rows get their recorded (row, scale) pairs back. On a rank's
+        # block, the rows this rank owns.
         addr.scatter_set_rows(state.memory, deltas.write_idx, deltas.old_rows,
                               mem_scale=state.mem_scale,
-                              rows_scale=deltas.old_scale)
+                              rows_scale=deltas.old_scale,
+                              shard=self._shard(state))
         return state._replace(read=read, ctrl=ctrl, step=state.step - 1)
 
     def redo_deltas(self, state: SAMState, prev_small, deltas: StepDeltas):
-        scale = (None if state.mem_scale is None
-                 else addr.gather_scales(state.mem_scale, deltas.write_idx))
+        """The rows (and int8 scales) at the write's rows; on a rank's
+        block only those it owns, zeros for the others, with no collective:
+        `rollback` restores no other."""
+        shard, widx = self._shard(state), deltas.write_idx
+
+        def rows(buf):
+            if shard is None:
+                return ref.gather_rows(buf, widx)
+            return mem_shard.owned_rows(shard, buf, widx)
+
         return deltas._replace(
-            old_rows=addr.gather_rows(state.memory, deltas.write_idx),
-            old_scale=scale)
+            old_rows=rows(state.memory),
+            old_scale=None if state.mem_scale is None else rows(
+                state.mem_scale))
 
     def replay_step(self, params, state, x, deltas: StepDeltas, cts):
         mem_ct, = cts

@@ -63,8 +63,8 @@ from repro_torch.distributed import mem_shard
 from repro_torch.kernels import ref
 
 # The open roadmap item that the SDNC on a sharded memory waits on.
-MESH_ITEM = ("the SDNC on a slot-sharded memory is ROADMAP.md A11; the port "
-             "runs it on one device")
+MESH_ITEM = ("the SDNC on a slot-sharded memory is ROADMAP.md A11, item 4; "
+             "the port runs it on one device")
 
 
 @dataclasses.dataclass(frozen=True)

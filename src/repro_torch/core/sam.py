@@ -26,9 +26,10 @@ Slot-sharded memory (`distributed/mem_shard.py`): under
 ``mem_shard.memory_mesh(N)`` in each rank of a process group,
 `init_state` builds this rank's block and `sam_step` runs every memory op
 through its sharded counterpart (`mem_shard.memory_layout` tells a block
-from a whole memory). That route runs the exact read on f32 rows forward
-only; the LSH read, bf16 and int8 rows and a step recorded for training
-raise (`MESH_ITEM`).
+from a whole memory): the exact read on f32, bf16 or int8 rows, forward,
+recorded by autograd (the naive unroll) or with ``collect_deltas`` (the
+sparse-rollback engine, `core/cell.py`). The LSH read raises there
+(`MESH_ITEM`).
 """
 from __future__ import annotations
 
@@ -37,7 +38,6 @@ import dataclasses
 import torch
 from torch import nn
 from torch.nn import functional as F
-from torch.utils import _pytree as pytree
 
 from repro_torch.core import addressing as addr
 from repro_torch.core import ann as ann_lib
@@ -52,9 +52,9 @@ from repro_torch.distributed import mem_shard
 from repro_torch.kernels import ref
 
 # The open roadmap item that the slot-sharded memory's other routes wait on.
-MESH_ITEM = ("on a slot-sharded memory the port runs the exact read on "
-             "float32 rows, forward only; the LSH read, bf16 and int8 rows "
-             "and training are ROADMAP.md A11")
+MESH_ITEM = ("on a slot-sharded memory the port runs the exact read, on "
+             "f32, bf16 and int8 rows, forward and in training; the LSH "
+             "read (the sharded index) is ROADMAP.md A11, item 2")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,7 +150,8 @@ def write_plan(cfg: SAMConfig, prev_read: SparseRead, lra_idx: torch.Tensor,
 
 def apply_write(memory: torch.Tensor, write_idx: torch.Tensor,
                 write_w: torch.Tensor, a: torch.Tensor,
-                lra_idx: torch.Tensor, *, mem_scale=None, usage=None):
+                lra_idx: torch.Tensor, *, mem_scale=None, usage=None,
+                shard=None):
     """The memory-only write used by the replay (`core/cell.py`), in place:
     erase the LRA rows (R_t = I^U 1^T), then add the outer product
     A_t = w^W a^T on the H·(K+1) touched rows, both through `scatter_rows`.
@@ -163,15 +164,18 @@ def apply_write(memory: torch.Tensor, write_idx: torch.Tensor,
     the forward ran (`repro/core/sam.py:147-157`), each touched row
     rounded once, against ``usage``, a throwaway all-zero (B, N+1) int32
     usage table: the step is its scratch entry, 0, so the stamps leave it
-    all zero, and nothing reads it. Returns the memory."""
+    all zero, and nothing reads it. On a rank's block (``shard``) each
+    rank writes the rows it owns. Returns the memory."""
     if mem_scale is not None:
         addr.sparse_write_update(memory, usage, write_idx, write_w, a,
                                  lra_idx, usage[:, -1], 0.0,
-                                 mem_scale=mem_scale)
+                                 mem_scale=mem_scale, shard=shard)
         return memory
     B, H, W = a.shape
-    memory = addr.scatter_set_rows(memory, lra_idx, memory.new_zeros((B, H, W)))
-    return addr.scatter_add_rows(memory, write_idx, ref.write_rows(write_w, a))
+    memory = addr.scatter_set_rows(memory, lra_idx,
+                                   memory.new_zeros((B, H, W)), shard=shard)
+    return addr.scatter_add_rows(memory, write_idx, ref.write_rows(write_w, a),
+                                 shard=shard)
 
 
 def sam_step(params, cfg: SAMConfig, state: SAMState, x: torch.Tensor, *,
@@ -195,13 +199,8 @@ def sam_step(params, cfg: SAMConfig, state: SAMState, x: torch.Tensor, *,
                          f"LSH index")
     require_live(state)
     shard = mem_shard.memory_layout(N, state.memory.shape[1])
-    if shard is not None and (
-            mem.ann == "lsh" or mem.mem_dtype != "float32" or collect_deltas
-            or (torch.is_grad_enabled() and any(
-                t.requires_grad for t in [x, *pytree.tree_leaves(params)]))):
-        raise NotImplementedError(
-            f"ann={mem.ann!r}, mem_dtype={mem.mem_dtype!r}, collect_deltas="
-            f"{collect_deltas}, autograd recording: {MESH_ITEM}")
+    if shard is not None and mem.ann == "lsh":
+        raise NotImplementedError(f"ann={mem.ann!r}: {MESH_ITEM}")
     B = x.shape[0]
     ctrl_in = torch.cat([x, state.read.words.reshape(B, -1)], dim=-1)
     ctrl, h = lstm_step(params["lstm"], state.ctrl, ctrl_in)
@@ -215,14 +214,15 @@ def sam_step(params, cfg: SAMConfig, state: SAMState, x: torch.Tensor, *,
     old_scale = None
     if collect_deltas:
         # The raw storage bits (int8 codes) and, for int8 rows, the scales.
-        old_rows = addr.gather_rows(state.memory, widx)
+        old_rows = addr.gather_rows(state.memory, widx, shard=shard)
         if int8:
-            old_scale = addr.gather_scales(state.mem_scale, widx)
+            old_scale = addr.gather_scales(state.mem_scale, widx,
+                                           shard=shard)
     mem_scale = state.mem_scale
     if int8:
         memory, la, mem_scale = addr.sparse_write_update(
             state.memory, state.last_access, widx, ww, a, lra_idx, step,
-            mem.delta, mem_scale=mem_scale)
+            mem.delta, mem_scale=mem_scale, shard=shard)
     else:
         memory, la = addr.sparse_write_update(
             state.memory, state.last_access, widx, ww, a, lra_idx, step,

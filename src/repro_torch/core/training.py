@@ -211,8 +211,9 @@ def train_task(spec: ModelSpec, task: str, *, steps: int = 200,
 # mid-episode checkpoints (the JAX package's `train_task_streaming`)
 # --------------------------------------------------------------------------
 
-# The item that ports training on a slot-sharded memory.
-MESH_ITEM = "ROADMAP.md A11"
+# The item that ports streaming on a slot-sharded memory (a train step on
+# one, `make_task_train_step` inside `mem_shard.memory_mesh`, runs).
+MESH_ITEM = "ROADMAP.md A11, item 4"
 
 
 class TrainLoopState(NamedTuple):

@@ -1,5 +1,9 @@
 """The sparse-rollback BPTT engine (paper §3.4, Suppl. Fig. 5), the port of
-`repro/core/unroll.py` for one device.
+`repro/core/unroll.py`, on one device or, inside
+`mem_shard.memory_mesh`, on each rank's block of a slot-sharded SAM
+memory: the cell's ops take their sharded counterparts, the dense buffers
+and their cotangents are the rank's blocks, and the chunked mode's
+checkpoints copy the block, never the whole memory.
 
 Three modes, as in the JAX package:
 
@@ -70,6 +74,7 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.core.types import (mark_rolled_back, mark_rolled_forward,
                                     tree_bytes)
+from repro_torch.distributed import mem_shard
 
 
 def _split(tree):
@@ -223,6 +228,9 @@ class _RollbackUnroll(torch.autograd.Function):
             ys = torch.stack(ys)
         out, ctx.out_template = _split(state)
         ctx.cell, ctx.chunk, ctx.s_template = cell, chunk, s_template
+        # The slot-sharded memory's context, which the backward activates
+        # (on the card autograd runs it on a thread of its own).
+        ctx.mesh = mem_shard.current()
         ctx.params, ctx.xs, ctx.ys_shape = params, xs, ys.shape
         ctx.mark_dirty(*_buffers(cell, state))
         # The caller's memory tensor, to flag once the backward rolls it
@@ -244,6 +252,11 @@ class _RollbackUnroll(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_ys, *g_out):
+        with mem_shard.activated(ctx.mesh):
+            return _RollbackUnroll._backward(ctx, g_ys, *g_out)
+
+    @staticmethod
+    def _backward(ctx, g_ys, *g_out):
         cell, xs = ctx.cell, ctx.xs
         memory = ctx.memory_ref()
         pending = getattr(memory, "pending_unrolls", [ctx.token])

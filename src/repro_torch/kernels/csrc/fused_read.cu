@@ -720,18 +720,35 @@ int fused_read_launch(const float* q, const void* mem, const float* scale,
   return (int)cudaErrorInvalidValue;
 }
 
-// topk_read: q (B, H, W), mem (B, rows_per_b, W) f32 -> vals, idx (B, H, K)
-// over rows [0, valid_n); plan, cand_v, cand_i and tickets as above.
-int topk_read_launch(const float* q, const float* mem, int batch, int H,
-                     int K, int W, int valid_n, long long rows_per_b,
-                     const Plan* plan, float* cand_v, int* cand_i,
-                     unsigned* tickets, float* vals, int* idx, void* stream) {
+// topk_read: q (B, H, W), mem (B, rows_per_b, W) -> vals, idx (B, H, K)
+// over rows [0, valid_n): the sweep above with its tail compiled out, on
+// the row storage row_dtype (0 = f32, 1 = bf16, 2 = int8 with scale, as
+// fused_read_launch), so a row scores as it does there; plan, cand_v,
+// cand_i and tickets as above.
+int topk_read_launch(const float* q, const void* mem, const float* scale,
+                     int batch, int H, int K, int W, int valid_n,
+                     long long rows_per_b, int row_dtype, const Plan* plan,
+                     float* cand_v, int* cand_i, unsigned* tickets,
+                     float* vals, int* idx, void* stream) {
   if (!args_ok(batch, H, K, valid_n, plan, tickets))
     return (int)cudaErrorInvalidValue;
-  return (int)launch<RowsF32, false>(
-      *plan, batch, H, static_cast<cudaStream_t>(stream), q, mem, nullptr,
-      rows_per_b, nullptr, valid_n, K, W, cand_v, cand_i, tickets, nullptr,
-      vals, idx);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (row_dtype == 0)
+    return (int)launch<RowsF32, false>(*plan, batch, H, s, q, mem, nullptr,
+                                       rows_per_b, nullptr, valid_n, K, W,
+                                       cand_v, cand_i, tickets, nullptr,
+                                       vals, idx);
+  if (row_dtype == 1)
+    return (int)launch<RowsBF16, false>(*plan, batch, H, s, q, mem, nullptr,
+                                        rows_per_b, nullptr, valid_n, K, W,
+                                        cand_v, cand_i, tickets, nullptr,
+                                        vals, idx);
+  if (row_dtype == 2)
+    return (int)launch<RowsI8, false>(*plan, batch, H, s, q, mem, scale,
+                                      rows_per_b, nullptr, valid_n, K, W,
+                                      cand_v, cand_i, tickets, nullptr,
+                                      vals, idx);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

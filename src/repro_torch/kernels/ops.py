@@ -77,17 +77,21 @@ def lra_topn(last_access: torch.Tensor, n: int, *, valid_n: int | None = None):
 
 
 def topk_read(q: torch.Tensor, mem: torch.Tensor, k: int, *,
-              valid_n: int | None = None):
-    """q: (B, H, W), mem: (B, rows, W) f32 -> (vals (B, H, K) f32, idx
-    (B, H, K) int32): the K rows among [0, valid_n) of highest cosine
-    similarity, by (similarity desc, index asc). A selection: it has no
-    gradient and raises when autograd records (the caller detaches)."""
-    if _records(q, mem):
+              valid_n: int | None = None, mem_scale=None):
+    """q: (B, H, W), mem: (B, rows, W) f32, bf16, or int8 with its scales
+    ``mem_scale`` (B, rows) f32 -> (vals (B, H, K) f32, idx (B, H, K)
+    int32): the K rows among [0, valid_n) of highest cosine similarity on
+    the rows as f32 (upcast or dequantized, as `fused_read` ranks them),
+    by (similarity desc, index asc). A selection: it has no gradient and
+    raises when autograd records (the caller detaches)."""
+    if _records(q, mem, mem_scale):
         raise ValueError("topk_read is a selection and has no gradient: "
                          "pass detached q and mem")
     if _on_cpu(mem):
-        return ref.topk_read_ref(q, mem, k, valid_n=valid_n)
-    return topk_read_kernel(q.contiguous(), mem, k=k, valid_n=valid_n)
+        return ref.topk_read_ref(q, mem, k, valid_n=valid_n,
+                                 mem_scale=mem_scale)
+    return topk_read_kernel(q.contiguous(), mem, k=k, valid_n=valid_n,
+                            mem_scale=mem_scale)
 
 
 def usage_argmin(usage: torch.Tensor, *, valid_n: int | None = None):

@@ -50,12 +50,17 @@ def _normalize(x: torch.Tensor) -> torch.Tensor:
 
 
 def topk_read_ref(q: torch.Tensor, mem: torch.Tensor, k: int,
-                  valid_n: int | None = None):
-    """q: (B, H, W), mem: (B, rows, W) -> (vals (B,H,K), idx (B,H,K)
-    int32): the K rows among [0, valid_n) (default: all) of highest cosine
-    similarity, ordered by (sim desc, index asc)."""
+                  valid_n: int | None = None, mem_scale=None):
+    """q: (B, H, W), mem: (B, rows, W) f32, bf16, or int8 with its scales
+    ``mem_scale`` (B, rows) -> (vals (B,H,K), idx (B,H,K) int32): the K
+    rows among [0, valid_n) (default: all) of highest cosine similarity on
+    their f32 view (`_deq_view`: bf16 rows upcast, int8 rows dequantized
+    before the norm, as `fused_read_ref` ranks them), ordered by (sim
+    desc, index asc)."""
     mv = mem if valid_n is None else mem[:, :valid_n]
-    sims = torch.einsum("bhw,bnw->bhn", _normalize(q), _normalize(mv))
+    sv = None if mem_scale is None else mem_scale[:, :mv.shape[1]]
+    sims = torch.einsum("bhw,bnw->bhn", _normalize(q),
+                        _normalize(_deq_view(mv, sv)))
     vals, idx = torch.sort(sims, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k].to(torch.int32)
 
@@ -171,9 +176,7 @@ def fused_read_ref(q: torch.Tensor, mem: torch.Tensor, beta: torch.Tensor,
     """The exact read: top-K over the f32 view (`_deq_view`) of rows
     [0, valid_n) of the (B, N+1, W) buffer, then `sparse_read_tail`.
     Returns (read (B,H,W), weights (B,H,K), indices (B,H,K) int32)."""
-    mv = mem if valid_n is None else mem[:, :valid_n]
-    sv = None if mem_scale is None else mem_scale[:, :mv.shape[1]]
-    _, idx = topk_read_ref(q, _deq_view(mv, sv), k)
+    _, idx = topk_read_ref(q, mem, k, valid_n, mem_scale)
     read, w = sparse_read_tail(q, mem, beta, idx, mem_scale)
     return read, w, idx
 

@@ -136,6 +136,33 @@ def test_topk_read_kernel_matches_plain_and_fused_read(dev, shape, case):
     assert torch.equal(ops.topk_read(q, mem, K, valid_n=valid_n)[1], idx)
 
 
+@pytest.mark.parametrize("shape,case", [
+    pytest.param(shape, case, id=f"{case}-{'x'.join(map(str, shape))}")
+    for shape in TOPK_SHAPES[:4] for case in ("rand", "zero", "dup")])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_topk_read_kernel_on_bf16_and_int8_rows(dev, shape, case, dtype):
+    """bf16 rows, and int8 rows with their scales: indices equal to the
+    plain version's (which ranks the upcast or dequantized rows) and to
+    `fused_read_sweep`'s on the same storage, bit for bit, vals within
+    1e-5, on a whole buffer and with a valid_n short of it."""
+    B, N, valid_n, W, H, K = shape
+    q, mem, beta = (torch.tensor(x, device=dev) for x in
+                    _read_inputs(np.random.default_rng(N + valid_n), B,
+                                 N, W, H, case))
+    mem, scale = _storage(mem, dtype)
+    vals, idx = topk_read(q, mem, k=K, valid_n=valid_n, mem_scale=scale)
+    r_vals, r_idx = ref.topk_read_ref(q, mem, K, valid_n=valid_n,
+                                      mem_scale=scale)
+    f_idx = fused_read_sweep(q, mem, beta, k=K, valid_n=valid_n,
+                             mem_scale=scale)[2]
+    torch.cuda.synchronize()
+    assert torch.equal(idx, r_idx)
+    assert torch.equal(idx, f_idx)
+    assert (vals - r_vals).abs().max().item() <= TOL
+    if case == "zero":
+        _check_zero_case(idx, B, H, K)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 def test_sweep_scores_do_not_depend_on_where_the_rows_lie(dev, dtype):
     """A row's score is a function of the row, q and the row dtype: the
@@ -158,11 +185,9 @@ def test_sweep_scores_do_not_depend_on_where_the_rows_lie(dev, dtype):
         bt = torch.full(q.shape[:2], 2.0, device=dev)
         _, w, idx = fused_read_sweep(q, mem, bt, k=K, valid_n=valid_n,
                                      mem_scale=scale)
-        got = {"w": w[b], "idx": idx[b]}
-        if dtype == "float32":
-            vals, t_idx = topk_read(q, mem, k=K, valid_n=valid_n)
-            got.update(vals=vals[b], t_idx=t_idx[b])
-        return got
+        vals, t_idx = topk_read(q, mem, k=K, valid_n=valid_n,
+                                mem_scale=scale)
+        return {"w": w[b], "idx": idx[b], "vals": vals[b], "t_idx": t_idx[b]}
 
     alone = np.zeros((1, n + 1, W), np.float32)
     alone[0, :n] = x
@@ -176,16 +201,24 @@ def test_sweep_scores_do_not_depend_on_where_the_rows_lie(dev, dtype):
         torch.cuda.synchronize()
         assert torch.equal(got["idx"] - off, want["idx"])
         assert torch.equal(got["w"], want["w"])
-        if dtype == "float32":
-            assert torch.equal(got["t_idx"] - off, want["t_idx"])
-            assert torch.equal(got["vals"], want["vals"])
+        assert torch.equal(got["t_idx"] - off, want["t_idx"])
+        assert torch.equal(got["vals"], want["vals"])
 
 
 def test_topk_read_kernel_raises_on_inputs_it_cannot_take(dev):
     q = torch.zeros((2, 4, 8), device=dev)
     mem = torch.zeros((2, 65, 8), device=dev)
-    with pytest.raises(ValueError, match="float32"):
-        topk_read(q, mem.to(torch.bfloat16), k=2)
+    with pytest.raises(ValueError, match="float32, bfloat16 or int8"):
+        topk_read(q, mem.to(torch.float16), k=2)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        topk_read(torch.zeros((2, 4, 4), device=dev),
+                  torch.zeros((2, 65, 4), device=dev, dtype=torch.bfloat16),
+                  k=2)
+    with pytest.raises(ValueError, match="mem_scale"):
+        topk_read(torch.zeros((2, 4, 16), device=dev),
+                  torch.zeros((2, 65, 16), device=dev, dtype=torch.int8), k=2)
+    with pytest.raises(ValueError, match="take no mem_scale"):
+        topk_read(q, mem, k=2, mem_scale=torch.ones((2, 65), device=dev))
     with pytest.raises(ValueError, match="valid_n"):
         topk_read(q, mem, k=4, valid_n=3)
     with pytest.raises(ValueError, match="CUDA"):
