@@ -40,9 +40,17 @@ is the `flash_attention` kernel at q·k 192 wide and v 128 wide; Llama-4
 Maverick + SAM at full width and 2 of its 48 layers
 (`llama4_maverick_400b_a17b_sam`: top-1 MoE with a shared expert, 48
 padded heads over 8; the same entry points), whose prefill attention is
-the `flash_attention` kernel at head dim 128; and last the paper's
-memory models trained on its bAbI-lite and one-shot Omniglot tasks. It
-fails (nonzero exit) if any phase fails:
+the `flash_attention` kernel at head dim 128; MusicGen-medium + SAM at
+full width and depth on frame embeddings (`musicgen_medium_sam`: 24 MHA
+heads padded to 48 at head dim 64; prefill, decode with memory states,
+`serve` and `examples.serve_batched` on frames, the engine's refusal of
+audio), whose prefill attention is the `flash_attention` kernel at head
+dim 64, bf16 and f32; RWKV-6 7B + SAM at full width and depth
+(`rwkv6_7b_sam`: the attention-free RWKV block; prefill with the WKV
+loop's host share, decode with memory states, the engine with a
+rescale, `serve` and the example); and last the paper's memory models
+trained on its bAbI-lite and one-shot Omniglot tasks. It fails (nonzero
+exit) if any phase fails:
 
 1. build the kernels from `src/repro_torch/kernels/csrc/` with nvcc for
    sm_90a and print each kernel's registers, shared memory and spills
@@ -193,8 +201,8 @@ fails (nonzero exit) if any phase fails:
       the tensor cores' rate; f32: f32 FMAs), its share of it, its plain
       version and `scaled_dot_product_attention` (and the factor); the
       memory kernels at the LM's shapes (the row scatter's 'set' and
-      'add' of J = 36 rows too); the prefill (median of 3); the decode's ms per token, a
-      window of 32 greedy steps timed as one span, the median of three
+      'add' of J = 36 rows too); the prefill (one timed run); the decode's ms per token, a
+      window of 32 greedy steps timed as one span, the median of two
       windows after one untimed (single steps, median of 3, on the
       side); their peaks and the window's device time
       (`torch.profiler`);
@@ -264,7 +272,7 @@ fails (nonzero exit) if any phase fails:
    e. Fig. 7 (`benchmarks/bench_sdnc.py`'s setup: B = 2, R = 2, K = 4,
       W = 32, hidden 64, T = 10): forward + backward ms (median of 3
       after a warm-up) and peak of the SDNC (its default sparse engine) at
-      N = 2^8, 2^10 ... 2^20 and of the dense DNC where its byte reckoning fits
+      N = 2^8, 2^12, 2^16, 2^20 and of the dense DNC where its byte reckoning fits
       (`dnc_bytes`), with the SDNC's speed-up;
    f. the rollouts' host ms per step (median of five), device ms per step
       (`torch.profiler`) and peaks;
@@ -276,7 +284,7 @@ fails (nonzero exit) if any phase fails:
 12. the continuous-batching serving engine (`repro_torch.launch.engine`)
    at StarCoder2-7B's full width on phase 9's weights: 4 lanes, a cache
    of 128, two hot sessions and the rest spilled to disk:
-   a. an open-loop Poisson workload (12 requests at 1 a second, prompts
+   a. an open-loop Poisson workload (6 requests at 1 a second, prompts
       of 16-32 tokens, 16 new tokens, a quarter revisiting earlier users,
       4 sampled, each submitted at its arrival), timed: tok/s, time to
       first token and end to end (p50, p99), engine steps, host ms an
@@ -385,7 +393,7 @@ fails (nonzero exit) if any phase fails:
       tokens (in lockstep) into a ring of 128 that wraps: 6 reads, writes
       and LRAs and no attention launch a token; ms a token on the host and
       the device; `serve` once past the ring's end;
-   d. the engine on 4 lanes of 128: 4 requests and a user returning past
+   d. the engine on 4 lanes of 128: 2 requests and a user returning past
       position 128 (admitted: the cache is a ring), at once in lockstep
       with exact launches a step, then one by one through a store of one
       hot session, the returning user spilled to disk and restored in
@@ -487,7 +495,51 @@ fails (nonzero exit) if any phase fails:
    launches exact) and against the same step on the CPU (loss, every
    gradient within 1e-5 of max(1, |g|)); ms a train step and the losses
    (printed, not gated);
-20. print each phase's seconds, the empty-launch floor with each
+20. MusicGen-medium + SAM, `musicgen_medium_sam` at full width and full
+   depth (bf16 weights from seed 0, 1.6 B parameters, 3.3 GB; 24 MHA
+   heads padded to 48, head dim 64, the GELU MLP; a memory group every 4
+   of 48 layers), the stubbed audio frontend's frames of N(0, 1) in place
+   of tokens:
+   e. first the reduced config with the full config's head groups (4 MHA
+      heads padded to 8; f32) on the card against the CPU, on frames: a
+      prefill of 64 frames and a `decode_scan` of 24 with filled memory
+      states, on seeds free of read near-ties at K;
+   b. a prefill at B = 4, S = 2048 in lockstep: 4 bf16 attention launches
+      (the blocks before the first memory group) and 44 f32 (after it,
+      where the stream is promoted) at D = 64 over 48 heads, each against
+      its plain version, and 48 each of the read, write and LRA (12 groups
+      of 4 segments); host ms, peak, device-busy share;
+   a. the kernel at layer 0's inputs, bf16 and upcast to f32, each against
+      its plain version: ms against the bound, the plain version's and
+      `scaled_dot_product_attention`'s (causal, GQA);
+   c. a decode with memory states, a 32-frame prompt and 16 greedy tokens,
+      each fed back as ``one_hot(token, d_model)`` (in lockstep): 12 reads,
+      writes and LRAs and no attention launch a token; ms a token on the
+      host and the device;
+   d. the engine refuses audio, as JAX's; `serve` and
+      `examples.serve_batched --arch musicgen_medium --full` on frames
+      once each;
+21. RWKV-6 7B + SAM, `rwkv6_7b_sam` at full width and full depth (bf16
+   weights from seed 0 with the leaves JAX initialises to zero drawn, 7.7
+   B parameters, 15.4 GB; 32 layers of d 4096, head size 64; a memory
+   group every 4 layers):
+   e. first the reduced config, its zero leaves drawn (f32), on the card
+      against the CPU: a prefill of 64 tokens and a `decode_scan` of 24
+      with filled memory states (the logits, the three state leaves, the
+      memories);
+   b. a prefill at B = 4, S = 2048 in lockstep: no attention launch, 32
+      each of the read, write and LRA; its host ms and peak (not
+      profiled: the WKV loop's ~400,000 launches), each WKV loop timed
+      between synchronisations: the loop's host share;
+   c. a decode with memory states, a 32-token prompt and 16 greedy tokens
+      (in lockstep): 8 reads, writes and LRAs a token; the states (wkv
+      f32); ms a token on the host and the device;
+   d. `layers.row_mean` (the norms' mean of squares) of a row among 4
+      lanes against the same row among 2, bit for bit over 200 draws
+      (`mean(-1)`'s count apart printed); the engine on 4 lanes of 128: 4
+      token requests in lockstep and the rescale 4 -> 2 -> 4 lanes bit
+      for bit (the states, the memories, tokens and logits);
+22. print each phase's seconds, the empty-launch floor with each
    latency-bound kernel's time
    above it (`lra_topn`, the scatter, the write at step 21 on f32, bf16
    and int8 rows and at the LM's shapes, the candidate read on f32, bf16
@@ -498,7 +550,8 @@ fails (nonzero exit) if any phase fails:
    ``"lm_train"``, the streaming trainer's under ``"stream"``, the
    sliding-window LM's under ``"swa"``, the vision-language LM's under
    ``"vlm"``, DeepSeek-V2's under ``"mla"``, Llama-4's under
-   ``"llama4"``, the tasks' under ``"tasks"``, the phases' seconds under
+   ``"llama4"``, MusicGen's under ``"musicgen"``, RWKV-6's under
+   ``"rwkv"``, the tasks' under ``"tasks"``, the phases' seconds under
    ``"phase_seconds"``), and last the
    ``{"ok": true, ...}`` line.
 
@@ -536,6 +589,7 @@ present or the port's sources are missing.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -637,6 +691,15 @@ REPLACES = {
     "flash_attention_llama4_bf16": (
         "src/repro/kernels/flash_attention.py:94",
         "src/repro_torch/kernels/csrc/flash_attention.cu"),
+    # MusicGen's prefill attention (phase 20): the D = 64 instantiations at
+    # 48 heads (24 real, padded) over 24 kv heads, bf16 before the first
+    # memory group and f32 after it.
+    "flash_attention_musicgen": (
+        "src/repro/kernels/flash_attention.py:94",
+        "src/repro_torch/kernels/csrc/flash_attention.cu"),
+    "flash_attention_musicgen_bf16": (
+        "src/repro/kernels/flash_attention.py:94",
+        "src/repro_torch/kernels/csrc/flash_attention.cu"),
     # The slot-sharded memory's top-K (phase 10): fused_read.cu's first
     # pass and a merge without the softmax tail.
     "topk_read": ("src/repro/kernels/topk_read.py:31",
@@ -736,14 +799,14 @@ FLAT_NS = (1 << 16, 1 << 18, 1 << 20)
 # ENGINE_AFTER_RESTORE steps after each restore and every
 # ENGINE_LOCKSTEP_EVERY-th step; the busy share over ENGINE_BUSY_STEPS.
 ENGINE_LANES, ENGINE_MAX_LEN, ENGINE_CAPACITY = 4, 128, 2
-ENGINE_REQUESTS, ENGINE_RATE, ENGINE_SEED = 12, 1.0, 12
+ENGINE_REQUESTS, ENGINE_RATE, ENGINE_SEED = 6, 1.0, 12
 ENGINE_PROMPT, ENGINE_GEN, ENGINE_REVISIT, ENGINE_SAMPLED = (16, 32), 16, \
     0.25, 4
 ENGINE_AFTER_RESTORE, ENGINE_LOCKSTEP_EVERY, ENGINE_BUSY_STEPS = 3, 16, 4
 # Fig. 7 (`benchmarks/bench_sdnc.py`): B = 2, R = 2, K = 4, W = 32,
 # hidden 64, T = 10; the dense DNC only where its reckoning fits.
 FIG7_B, FIG7_T = 2, 10
-FIG7_NS = tuple(1 << e for e in range(8, 21, 2))   # every other 2^e
+FIG7_NS = tuple(1 << e for e in range(8, 21, 4))   # every fourth 2^e
 # Phase 14, the streaming trainer at the smoke's widths: episodes of the
 # copy task at level STREAM_LEVEL (T = 2·256 + 2 = 514: 13 chunks of
 # STREAM_CHUNK, the last of 10 steps), STREAM_EPISODES of them, a
@@ -775,7 +838,7 @@ LM100_FLAKY, LM100_STOP = 5, 17
 SWA_ARCH = "h2o_danube_3_4b_sam"
 SWA_B, SWA_S, SWA_PREFILL_RUNS = 4, 8192, 1
 SWA_PROMPT, SWA_GEN, SWA_MAX_LEN = 112, 32, 128
-SWA_LANES, SWA_REQUESTS, SWA_REQ_PROMPT, SWA_REQ_GEN = 4, 4, (16, 32), 16
+SWA_LANES, SWA_REQUESTS, SWA_REQ_PROMPT, SWA_REQ_GEN = 4, 2, (16, 32), 16
 SWA_RETURN = (100, 8)
 SWA_SMALL_S, SWA_SMALL_DECODE, SWA_SMALL_MAX_LEN = 128, 80, 64
 # Phase 16, the vision-language LM at PaliGemma-3B's full width (bf16
@@ -845,6 +908,48 @@ L4_LANES, L4_REQUESTS, L4_REQ_PROMPT, L4_REQ_GEN = 4, 6, (8, 16), 8
 L4_SMALL_S, L4_SMALL_DECODE, L4_SMALL_MAX_LEN = 64, 24, 32
 L4_SMALL = dict(num_heads=10, num_kv_heads=2, pad_head_groups=6)
 L4_SPARE = 8 << 30
+# Phase 20, MusicGen-medium (+ SAM) at full width and full depth (bf16
+# compute; weights from seed 0 held in bf16: 1.6 B parameters, 3.3 GB; 24
+# MHA heads padded to 48, head dim 64, the GELU MLP; memory N = 65536, W =
+# 128, H = 4, K = 8, a group every 4 of 48 layers): a prefill of MG_B ×
+# MG_S frame embeddings of N(0, 1) (the stubbed audio frontend), timed
+# MG_PREFILL_RUNS times; a decode with memory states of a MG_PROMPT-frame
+# prompt and MG_GEN greedy tokens, each fed back as a one-hot frame, into
+# a cache of MG_MAX_LEN; `serve` and `examples.serve_batched` on frames;
+# the engine's refusal of audio; the reduced config with the full
+# config's head groups (MG_SMALL) on the card against the CPU: a prefill
+# of MG_SMALL_S frames and a decode of MG_SMALL_DECODE into a cache of
+# MG_SMALL_MAX_LEN.
+MG_ARCH = "musicgen_medium_sam"
+MG_B, MG_S, MG_PREFILL_RUNS = 4, 2048, 1
+MG_PROMPT, MG_GEN, MG_MAX_LEN = 32, 16, 128
+MG_SMALL_S, MG_SMALL_DECODE, MG_SMALL_MAX_LEN = 64, 24, 32
+MG_SMALL = dict(num_heads=4, num_kv_heads=4, pad_head_groups=2)
+# Phase 21, RWKV-6 7B (+ SAM) at full width and full depth (bf16 compute;
+# weights from seed 0 held in bf16, the leaves JAX initialises to zero
+# drawn (`draw_rwkv_zero_leaves`): 7.7 B parameters, 15.4 GB; 32 layers of
+# d 4096, head size 64, d_ff 14336; memory N = 65536, W = 128, H = 4, K =
+# 8, a group every 4 layers): a prefill of RW_B × RW_S tokens, timed
+# once (in lockstep) with the WKV loop's host share; a
+# decode with memory states of a RW_PROMPT-token prompt and RW_GEN greedy
+# tokens; the engine on RW_LANES lanes of RW_MAX_LEN: RW_REQUESTS
+# requests of RW_REQ_PROMPT tokens and RW_REQ_GEN new ones, and a rescale
+# of 4 -> 2 -> 4 lanes; the reduced config on the card against the CPU: a
+# prefill of RW_SMALL_S tokens and a decode of RW_SMALL_DECODE.
+RW_ARCH = "rwkv6_7b_sam"
+RW_B, RW_S = 4, 2048
+RW_PROMPT, RW_GEN, RW_MAX_LEN = 32, 16, 128
+RW_LANES, RW_REQUESTS, RW_REQ_PROMPT, RW_REQ_GEN = 4, 4, (8, 16), 8
+RW_SMALL_S, RW_SMALL_DECODE, RW_SMALL_MAX_LEN = 64, 24, 32
+ROW_SUM_DRAWS = 200
+# `serve` in phase 20: a prompt of SERVE_PROMPT frames and SERVE_GEN new
+# tokens (host-bound decodes of ~0.17 s a token).
+SERVE_PROMPT, SERVE_GEN = 8, 8
+# The RWKV leaves JAX's `rwkv_defs` initialises to zeros.
+RWKV_ZERO_LEAVES = {"tm": ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g", "mu_x",
+                           "mix_b", "decay_base", "decay_b", "bonus",
+                           "ln_x"),
+                    "cm": ("mu_k2", "mu_r2")}
 # Phase 19, the paper's tasks at the benches' widths: TASK_STEPS RMSProp
 # steps of each (kind, task) of TASK_RUNS (the benches' 250 and 150 cut).
 # bAbI-lite (`benchmarks/bench_babi.py`): stories of BABI_LEN words, B =
@@ -1940,7 +2045,7 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
     # memory states among it; earlier phases' tensors too).
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    prefill_ms, prefill_all = host_ms(prefill_run, runs=3)
+    prefill_ms, prefill_all = host_ms(prefill_run, runs=1)
     prefill_peak = torch.cuda.max_memory_allocated() - held
     state = {"cache": cache, "mem": mem}
 
@@ -1951,7 +2056,7 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
 
     # The decode's rate: a window of GEN greedy steps (the token fed back
     # on the device) as one synchronised span, from the prompt's end of
-    # the cache; the median of three windows after one untimed; single
+    # the cache; the median of two windows after one untimed; single
     # steps (median of 3) on the side.
     def rewind():
         state["cache"] = {**state["cache"], "pos": torch.tensor(
@@ -1969,7 +2074,7 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
     decode_peak = torch.cuda.max_memory_allocated() - held
     rewind()
     decode_window(None)
-    window_ms, window_all = host_ms(decode_window, runs=3, setup=rewind)
+    window_ms, window_all = host_ms(decode_window, runs=2, setup=rewind)
     decode_ms = window_ms / LM_GEN
     decode_all = [t / LM_GEN for t in window_all]
     spread = (max(decode_all) - min(decode_all)) / decode_ms
@@ -5007,7 +5112,7 @@ def swa_phase(dev, ops, ref, checker, zero_counts, counts, flush, ptxas):
                 params, cfg, state["cache"], tok, mem_states=state["mem"])
             tok = lg[:, -1].float().argmax(-1).to(torch.int32)[:, None]
 
-    window_ms, window_all = host_ms(decode_window, runs=3, setup=rewind)
+    window_ms, window_all = host_ms(decode_window, runs=2, setup=rewind)
     decode_ms = window_ms / SWA_GEN
     rewind()
     ddev_ms, _ = device_time(lambda: decode_window(None, PROFILE_STEPS))
@@ -5516,7 +5621,7 @@ def vlm_phase(dev, ops, ref, checker, zero_counts, counts, flush, ptxas):
                 params, cfg, state["cache"], tok, mem_states=state["mem"])
             tok = lg[:, -1].float().argmax(-1).to(torch.int32)[:, None]
 
-    window_ms, window_all = host_ms(decode_window, runs=3, setup=rewind)
+    window_ms, window_all = host_ms(decode_window, runs=2, setup=rewind)
     decode_ms = window_ms / VLM_GEN
     rewind()
     ddev_ms, _ = device_time(lambda: decode_window(None, PROFILE_STEPS))
@@ -5768,10 +5873,11 @@ def engine_rescale(tag, cfg, params, dev, checker, zero_counts, counts,
 
 def serve_full(tag, arch, layers, example_arch, dev, counts, zero_counts, *,
                batch, prompt, gen, max_len, vocab):
-    """`serve` of ``arch`` at full width, its first ``layers`` layers, and
-    `examples.serve_batched --arch example_arch --full --layers`, each
-    once on weights of its own from seed 0 (phases 17, 18): no memory
-    states, so no memory op and, decoding only, no attention kernel."""
+    """`serve` of ``arch`` at full width, its first ``layers`` layers (all
+    of them where None), and `examples.serve_batched --arch example_arch
+    --full [--layers]`, each once on weights of its own from seed 0
+    (phases 17, 18, 20, 21): no memory states, so no memory op and,
+    decoding only, no attention kernel."""
     from repro_torch.examples import serve_batched
     from repro_torch.launch.serve import serve
 
@@ -5787,7 +5893,8 @@ def serve_full(tag, arch, layers, example_arch, dev, counts, zero_counts, *,
             "serve: tokens out of shape or range, or a kernel launched")
     out = dict(serve_prefill_s=served["prefill_s"],
                serve_decode_tok_per_s=served["decode_tok_per_s"])
-    print(f"[{tag}] serve(--full, {layers} layers, max_len {max_len}): "
+    print(f"[{tag}] serve(--full, {layers or 'all'} layers, max_len "
+          f"{max_len}): "
           f"{tuple(tokens.shape)} greedy tokens; prefill "
           f"{served['prefill_s']:.2f} s, decode "
           f"{served['decode_tok_per_s']:.1f} tok/s")
@@ -5795,8 +5902,9 @@ def serve_full(tag, arch, layers, example_arch, dev, counts, zero_counts, *,
     torch.cuda.empty_cache()
     argv = sys.argv
     sys.argv = ["serve_batched", "--arch", example_arch, "--full",
-                "--layers", str(layers), "--prompt-len", "8",
-                "--gen-len", "8", "--device", str(dev)]
+                "--prompt-len", "8", "--gen-len", "8", "--device", str(dev)]
+    if layers is not None:
+        sys.argv += ["--layers", str(layers)]
     try:
         serve_batched.main()
     finally:
@@ -5805,12 +5913,27 @@ def serve_full(tag, arch, layers, example_arch, dev, counts, zero_counts, *,
     return out
 
 
+def draw_rwkv_zero_leaves(params, gen) -> None:
+    """Draw, in place, the RWKV leaves that `init_params` (as JAX's) leaves
+    at zero, so the lerp's and the decay's LoRAs and the bonus act (at
+    zero a wrong split or ``mix_b`` block would pass): the lerp's μ in [0,
+    1), the others N(0, 0.5²), from ``gen`` on the CPU."""
+    for group, names in RWKV_ZERO_LEAVES.items():
+        for name in names:
+            t = params["blocks"][group][name]
+            draw = torch.rand(t.shape, generator=gen) if name.startswith(
+                "mu_") else 0.5 * torch.randn(t.shape, generator=gen)
+            t.copy_(draw)
+
+
 def reduced_card_vs_cpu(small, dev, ops, ref, zero_counts, counts, *, S,
                         decode, max_len):
     """A reduced config (f32) on the card against the plain versions on the
-    CPU (phases 17, 18), on the same weights from seed 0: a prefill of 2 ×
-    ``S`` tokens (one attention launch a layer), and a `decode_scan` of
-    ``decode`` tokens with filled memory states into a cache of
+    CPU (phases 17, 18, 20, 21), on the same weights from seed 0 (an RWKV
+    config's zero leaves drawn: `draw_rwkv_zero_leaves`): a prefill of 2 ×
+    ``S`` tokens, or frames of N(0, 1) for an audio config (one attention
+    launch a layer, none in an RWKV config), and a `decode_scan` of
+    ``decode`` tokens or frames with filled memory states into a cache of
     ``max_len``: the logits, every cache leaf and the memories within
     SLICE_TOL of max(1, |CPU|), usage and read rows equal; the token seeds
     the first of 0-63 whose CPU reads hold no near-tie at K and whose
@@ -5821,15 +5944,22 @@ def reduced_card_vs_cpu(small, dev, ops, ref, zero_counts, counts, *, S,
     from repro_torch.models.layers import tree_map
 
     p_cpu = lm.init_params(small, seed=0, device="cpu")
+    if small.block == "rwkv":
+        draw_rwkv_zero_leaves(p_cpu, torch.Generator().manual_seed(5))
     p_gpu = tree_map(lambda t: t.to(dev), p_cpu)
 
+    def inputs(gen, n):
+        if small.frontend == "audio":
+            return torch.randn((2, n, small.d_model), generator=gen)
+        return torch.randint(0, small.vocab_size, (2, n), generator=gen)
+
     def prefill_case(gen):
-        b = {"tokens": torch.randint(0, small.vocab_size, (2, S),
-                                     generator=gen)}
+        key = "frame_embeds" if small.frontend == "audio" else "tokens"
+        b = {key: inputs(gen, S)}
         return b, lm.prefill(p_cpu, small, b)
 
     def decode_case(gen):
-        toks = torch.randint(0, small.vocab_size, (2, decode), generator=gen)
+        toks = inputs(gen, decode)
         states = filled_memory_states(small, 2, gen)
         start = pytree.tree_map(lambda t: t.clone(), states)
         cache = lm.init_cache(small, 2, max_len, device="cpu")
@@ -5843,9 +5973,9 @@ def reduced_card_vs_cpu(small, dev, ops, ref, zero_counts, counts, *, S,
     zero_counts()
     got = lm.prefill(p_gpu, small, tree_map(lambda t: t.to(dev), b_s))
     launches = counts()["flash_attention"]
-    require(launches == small.num_layers,
-            f"the reduced prefill launched the attention kernel {launches} "
-            f"times, not {small.num_layers}")
+    n_attn = 0 if small.block == "rwkv" else small.num_layers
+    require(launches == n_attn, f"the reduced prefill launched the "
+            f"attention kernel {launches} times, not {n_attn}")
     errs = {"prefill": card_close(got, want, "reduced prefill logits")}
     seed, ((toks_d, start), want_d) = stable_routed(
         ops, ref, decode_case, "the reduced decode")
@@ -5872,30 +6002,49 @@ def reduced_card_vs_cpu(small, dev, ops, ref, zero_counts, counts, *, S,
 def full_width_serving(tag, name_, cfg, params, dev, checker, zero_counts,
                        counts, flush, part, *, B, S, prompt, gen, max_len,
                        prefill_runs, heads, cache_ok, cache_what,
-                       decode_dtype):
-    """Phases 17 and 18 at full width on ``params``: (b) a B × S prefill in
-    lockstep (every attention launch, all bf16, against its plain
-    version, the memory kernels too); (a) the attention kernel at layer
-    0's inputs, bf16 as the prefill ran them and upcast to f32, against
-    its plain version, with its `attention_row`; the prefill's host ms,
-    peak and device-busy share; (c) a decode with memory states of a
-    ``prompt``-token prompt and ``gen`` greedy tokens into a cache of
-    ``max_len`` in lockstep (each memory kernel once a group a token, no
-    attention launch; ``cache_ok(cache, n)`` holds the cache written up
-    to n and zero past it), and its ms a token on the host and the
-    device. ``heads`` is (query heads, q·k width, v width). Returns the
-    numbers, the f32 and bf16 rows and the errors."""
+                       decode_dtype, prefill_context=contextlib.nullcontext):
+    """Phases 17, 18, 20 and 21 at full width on ``params``: (b) a B × S
+    prefill in lockstep (every attention launch against its plain
+    version: bf16 up to the first memory group, f32 after it, where the
+    stream is promoted; the memory kernels too); (a) the attention kernel
+    at layer 0's inputs, bf16 as the prefill ran them and upcast to f32,
+    against its plain version, with its `attention_row`; the prefill's
+    host ms (its ``prefill_runs`` runs under ``prefill_context()``, or with
+    none the lockstep prefill under it), peak and device-busy
+    share (not for RWKV: its WKV loop's ~400,000 launches would take the
+    profiler minutes); (c) a
+    decode with memory states of a ``prompt``-token prompt and ``gen``
+    greedy tokens into a cache of ``max_len`` in lockstep (each memory
+    kernel once a group a token, no attention launch; ``cache_ok(cache,
+    n)`` holds the cache written up to n and zero past it), and its ms a
+    token on the host and the device. ``heads`` is (query heads, q·k
+    width, v width). An audio config's prefill and prompt are frames of
+    N(0, 1) and each chosen token is fed back as `serve.one_hot`; an RWKV
+    config (``heads`` None) runs no attention, so no (a). Returns the
+    numbers, the f32 and bf16 rows (None without attention) and the
+    errors."""
     from torch.utils import _pytree as pytree
 
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import one_hot
     from repro_torch.models import lm
 
     m = cfg.memory
     groups = max(1, cfg.num_layers // m.every_n_layers)
     segments = S // m.segment
-    Hq, DQK, DV = heads
+    n_dense = cfg.moe.num_dense_layers if cfg.moe is not None else 0
+    attention = heads is not None
+    n_attn = cfg.num_layers if attention else 0
+    # Launches before the first memory group's read run on the bf16 stream.
+    n_bf16 = min(n_attn, n_dense + (cfg.num_layers - n_dense) // groups)
+    audio = cfg.frontend == "audio"
+    Hq, DQK, DV = heads or (0, 0, 0)
     pair = f"({DQK}, {DV})" if DQK != DV else f"D = {DQK}"
+
+    def feed(tok):
+        return one_hot(tok, cfg.d_model)[:, None] if audio else tok[:, None]
+
     n_params = sum(t.numel() for t in pytree.tree_leaves(params))
     param_bytes = sum(t.numel() * t.element_size()
                       for t in pytree.tree_leaves(params))
@@ -5903,40 +6052,68 @@ def full_width_serving(tag, name_, cfg, params, dev, checker, zero_counts,
     print(f"[{tag}] {cfg.name} at {cfg.num_layers} layers: {n_params} "
           f"parameters, {param_bytes} B in {cfg.compute_dtype}")
 
-    batch = {"tokens": torch.randint(
-        0, cfg.vocab_size, (B, S),
-        generator=torch.Generator().manual_seed(17)).to(dev)}
+    gen17 = torch.Generator().manual_seed(17)
+    batch = {"frame_embeds": torch.randn((B, S, cfg.d_model),
+                                         generator=gen17).to(dev)} \
+        if audio else {"tokens": torch.randint(
+            0, cfg.vocab_size, (B, S), generator=gen17).to(dev)}
     zero_counts()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     with torch.inference_mode(), Intercept(ops, checker=checker), \
-            FlashCheck(ops, ref, keep=(0,)) as fc:
+            FlashCheck(ops, ref, keep=(0,)) as fc, \
+            (contextlib.nullcontext() if prefill_runs else prefill_context()):
         logits = lm.prefill(params, cfg, batch)
     torch.cuda.synchronize()
+    lockstep = dict(ms=(time.perf_counter() - t0) * 1e3, held=held,
+                    peak=torch.cuda.max_memory_allocated() - held)
     launched = counts()
     want_counts = {name: 0 for name in launched}
-    want_counts.update({"flash_attention": cfg.num_layers,
+    want_counts.update({"flash_attention": n_attn,
                         **{name: groups * segments for name in FORWARD}})
     require(launched == want_counts, f"prefill launches {launched}, expected "
             f"{want_counts}")
     by_dtype = [str(c["dtype"])[6:] for c in fc.checks]
-    require(by_dtype == ["bfloat16"] * cfg.num_layers,
+    require(by_dtype == ["bfloat16"] * n_bf16
+            + ["float32"] * (n_attn - n_bf16),
             f"prefill attention launches by dtype {by_dtype}: expected "
-            f"{cfg.num_layers} bf16")
+            f"{n_bf16} bf16, then {n_attn - n_bf16} f32")
     require(logits.dtype == torch.float32
             and logits.shape == (B, 1, cfg.vocab_size)
             and torch.isfinite(logits).all().item(),
             "prefill logits are not finite f32 of shape (B, 1, V)")
-    bf16_err = max(c["err"] for c in fc.checks)
-    out.update(prefill_launches=launched, flash_bf16_max_err=bf16_err)
+    out["flash_by_dtype"] = {d: by_dtype.count(d) for d in sorted(
+        set(by_dtype))}
+    bf16_err = max((c["err"] for c in fc.checks
+                    if c["dtype"] == torch.bfloat16), default=None)
+    f32_err = max((c["err"] for c in fc.checks
+                   if c["dtype"] == torch.float32), default=None)
+    out.update(prefill_launches=launched, flash_bf16_max_err=bf16_err,
+               flash_f32_prefill_max_err=f32_err)
+    attn_note = (f"{n_bf16} bf16 and {n_attn - n_bf16} f32 attention "
+                 f"launches at {pair}" if attention
+                 else "no attention launch")
     print(f"[{tag}] prefill (B={B}, S={S}) in lockstep: launches "
-          f"{ {k: v for k, v in launched.items() if v} } ({cfg.num_layers} "
-          f"bf16 attention launches at {pair}, {groups * segments} of "
-          f"each memory kernel: one group of {segments} segments); flash "
-          f"against plain: bf16 max err {bf16_err:.3g}; memory kernels: read "
+          f"{ {k: v for k, v in launched.items() if v} } ({attn_note}, "
+          f"{groups * segments} of each memory kernel: {groups} groups of "
+          f"{segments} segments); flash against plain: bf16 max err "
+          f"{bf16_err}, f32 {f32_err}; memory kernels: read "
           f"err {checker.err['fused_read_sweep']:.3g}, write err "
           f"{checker.err['sparse_write_update']:.3g}, near-ties "
           f"{checker.near_ties}")
     part("b")
 
+    del logits
+    rest = dict(B=B, S=S, prompt=prompt, gen=gen, max_len=max_len,
+                prefill_runs=prefill_runs, lockstep=lockstep, groups=groups,
+                param_bytes=param_bytes, cache_ok=cache_ok,
+                cache_what=cache_what, decode_dtype=decode_dtype,
+                prefill_context=prefill_context)
+    if not attention:
+        serving_rest(tag, name_, cfg, params, dev, checker, zero_counts,
+                     counts, part, out, batch, feed, **rest)
+        return {"out": out}
     # (a) the kernel at layer 0's inputs: bf16 as the prefill ran it, and
     # f32 on the same values upcast, each held against its plain version.
     q0, k0, v0 = fc.kept[0]
@@ -5974,16 +6151,39 @@ def full_width_serving(tag, name_, cfg, params, dev, checker, zero_counts,
     print(f"[{tag}] flash_attention f32 at {pair} against plain: "
           f"{f32_check}")
     part("a")
+    serving_rest(tag, name_, cfg, params, dev, checker, zero_counts, counts,
+                 part, out, batch, feed, **rest)
+    return {"out": out, "row": row_f32, "bf16_row": row_bf16,
+            "bf16_err": bf16_err, "f32_check": f32_check}
+
+
+def serving_rest(tag, name_, cfg, params, dev, checker, zero_counts, counts,
+                 part, out, batch, feed, *, B, S, prompt, gen, max_len,
+                 prefill_runs, lockstep, groups, param_bytes, cache_ok,
+                 cache_what, decode_dtype, prefill_context):
+    """`full_width_serving`'s timed prefill and (c), its decode, feeding
+    ``feed(token)``; adds their numbers to ``out``. With ``prefill_runs``
+    0 the lockstep prefill's own host ms and peak (``lockstep``) stand for
+    the timed ones: its checks of the memory kernels take ~0.1 s."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
 
     # The prefill's host ms, peak and device-busy share.
     def prefill_run(_):
         lm.prefill(params, cfg, batch)
 
-    held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    prefill_ms, prefill_all = host_ms(prefill_run, runs=prefill_runs)
-    prefill_peak = torch.cuda.max_memory_allocated() - held
-    dev_ms, on_dev = device_time(lambda: prefill_run(None))
+    if prefill_runs:
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with prefill_context():
+            prefill_ms, prefill_all = host_ms(prefill_run, runs=prefill_runs)
+        prefill_peak = torch.cuda.max_memory_allocated() - held
+    else:
+        held, prefill_peak = lockstep["held"], lockstep["peak"]
+        prefill_ms, prefill_all = lockstep["ms"], [lockstep["ms"]]
+    profile_prefill = cfg.block != "rwkv"
+    dev_ms, on_dev = device_time(lambda: prefill_run(None)) \
+        if profile_prefill else (0.0, [])
     out.update(prefill_ms=prefill_ms, prefill_ms_all=prefill_all,
                prefill_peak_bytes=prefill_peak, held_bytes=held,
                prefill_device_ms=dev_ms or None,
@@ -6000,9 +6200,9 @@ def full_width_serving(tag, name_, cfg, params, dev, checker, zero_counts,
              f"by kernel (ms, launches): "
              + "; ".join(f"{kk[:50]} {t:.1f} ({c})"
                          for kk, t, c in on_dev[:6])
-             if dev_ms else "device time not measured (the profiler "
-             "recorded none)"))
-    del logits
+             if dev_ms else "device time not measured" + (
+                 " (the profiler recorded none)" if profile_prefill
+                 else " (not profiled)")))
     torch.cuda.empty_cache()
     part("b timed")
 
@@ -6012,8 +6212,10 @@ def full_width_serving(tag, name_, cfg, params, dev, checker, zero_counts,
     cache = lm.init_cache(cfg, B, max_len, device=dev)
     mem = lm.init_memory_states(cfg, B, device=dev)
     zero_counts()
+    prompt_in = batch["frame_embeds"] if "frame_embeds" in batch \
+        else batch["tokens"]
     d_logits, cache, mem = lm.decode_scan(params, cfg, cache,
-                                          batch["tokens"][:, :prompt],
+                                          prompt_in[:, :prompt],
                                           mem_states=mem)
     after_prompt = counts()
     with torch.inference_mode(), Intercept(ops, checker=checker):
@@ -6022,7 +6224,7 @@ def full_width_serving(tag, name_, cfg, params, dev, checker, zero_counts,
             tok = d_logits[:, -1].float().argmax(-1).to(torch.int32)
             zero_counts()
             d_logits, cache, mem = lm.decode_step(params, cfg, cache,
-                                                  tok[:, None],
+                                                  feed(tok),
                                                   mem_states=mem)
             per_token.append(counts())
     torch.cuda.synchronize()
@@ -6049,13 +6251,14 @@ def full_width_serving(tag, name_, cfg, params, dev, checker, zero_counts,
             prompt, dtype=torch.int32, device=dev)}
 
     def decode_window(_, steps=gen):
-        tok = torch.ones((B, 1), dtype=torch.int32, device=dev)
+        tok = torch.ones((B,), dtype=torch.int32, device=dev)
         for _ in range(steps):
             lg, state["cache"], state["mem"] = lm.decode_step(
-                params, cfg, state["cache"], tok, mem_states=state["mem"])
-            tok = lg[:, -1].float().argmax(-1).to(torch.int32)[:, None]
+                params, cfg, state["cache"], feed(tok),
+                mem_states=state["mem"])
+            tok = lg[:, -1].float().argmax(-1).to(torch.int32)
 
-    window_ms, window_all = host_ms(decode_window, runs=2, setup=rewind)
+    window_ms, window_all = host_ms(decode_window, runs=1, setup=rewind)
     decode_ms = window_ms / gen
     rewind()
     ddev_ms, d_on_dev = device_time(lambda: decode_window(None,
@@ -6071,7 +6274,7 @@ def full_width_serving(tag, name_, cfg, params, dev, checker, zero_counts,
     print(f"[{tag}] decode_scan with memory states: {prompt} prompt tokens "
           f"and {gen} greedy ones (in lockstep), {one['fused_read_sweep']}"
           f" read, write and LRA launch and no attention launch a token (the "
-          f"decode's attention is plain PyTorch, as in JAX)")
+          f"decode's blocks are plain PyTorch, as in JAX)")
     print(f"[time] {name_} decode with memory (B={B}): "
           f"{decode_ms:.3f} ms a token on the host (windows of {gen}: "
           f"{', '.join(f'{t / gen:.3f}' for t in window_all)}); "
@@ -6083,8 +6286,6 @@ def full_width_serving(tag, name_, cfg, params, dev, checker, zero_counts,
     del cache, mem, state, d_logits
     torch.cuda.empty_cache()
     part("c")
-    return {"out": out, "row": row_f32, "bf16_row": row_bf16,
-            "bf16_err": bf16_err, "f32_check": f32_check}
 
 
 
@@ -6327,6 +6528,237 @@ def llama4_phase(dev, ops, ref, checker, zero_counts, counts, flush):
                          "flash_attention_llama4_bf16": cfg.num_layers},
             "err": core["f32_check"]["err"], "bf16_err": core["bf16_err"],
             "llama4": out}
+
+
+def musicgen_phase(dev, ops, ref, checker, zero_counts, counts, flush):
+    """Phase 20: MusicGen-medium (+ SAM) served at full width and full
+    depth on frame embeddings. Returns the D = 64 attention rows over 48
+    heads (bf16 at layer 0's prefill inputs, f32 at the same inputs
+    upcast), their launches in the prefill and the numbers."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.engine import ServeEngine
+    from repro_torch.models import lm
+
+    cfg = get_config(MG_ARCH)
+    groups = cfg.num_layers // cfg.memory.every_n_layers
+    got = (cfg.num_layers, cfg.padded_heads, cfg.num_kv_heads, cfg.head_dim,
+           groups, cfg.frontend)
+    require(got == (48, 48, 24, 64, 12, "audio"),
+            f"{MG_ARCH}: (layers, padded heads, kv heads, head dim, memory "
+            f"groups, frontend) {got}")
+    out, part_s, clock = {}, {}, [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        part_s[name] = round(now - clock[0], 1)
+        clock[0] = now
+
+    # (e) first, the reduced config with the full config's head groups (4
+    # MHA heads padded to 8: groups of 2, 1 real), in f32 on the card
+    # against the CPU, on frames.
+    small = dataclasses.replace(reduced(cfg), compute_dtype="float32",
+                                **MG_SMALL)
+    errs, seeds, small_launches = reduced_card_vs_cpu(
+        small, dev, ops, ref, zero_counts, counts, S=MG_SMALL_S,
+        decode=MG_SMALL_DECODE, max_len=MG_SMALL_MAX_LEN)
+    out["card_vs_cpu"] = dict(err=errs, seeds=seeds,
+                              f32_launches=small_launches)
+    print(f"[musicgen] reduced {MG_ARCH} ({small.num_heads} heads over "
+          f"{small.num_kv_heads} padded to {small.padded_heads}, head dim "
+          f"{small.head_dim}, {small.num_layers} layers; f32) on the card "
+          f"against the CPU on frames (seeds {seeds}): prefill logits "
+          f"{errs['prefill']:.3g} ({small_launches} f32 attention launches), "
+          f"decode_scan of {MG_SMALL_DECODE} frames with memory states "
+          f"{errs['decode']:.3g}, k {errs['k']:.3g}, v {errs['v']:.3g}, "
+          f"memory {errs['memory']:.3g} (bar {SLICE_TOL} of max(1, |CPU|); "
+          f"usage and read rows equal)")
+    torch.cuda.empty_cache()
+    part("e")
+
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=dev, dtype=cfg.compute_dtype)
+    torch.cuda.synchronize()
+    print(f"[musicgen] {MG_ARCH} at all 48 layers: drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    part("draw")
+
+    def kv_ok(cache, n_tok):
+        shape = (cfg.num_layers, MG_B, MG_MAX_LEN, cfg.num_kv_heads,
+                 cfg.head_dim)
+        return all(cache[key].shape == shape
+                   and bool(cache[key][:, :, :n_tok].abs().amax((1, 2, 3, 4))
+                            .gt(0).all())
+                   and not cache[key][:, :, n_tok:].any()
+                   for key in ("k", "v"))
+
+    core = full_width_serving(
+        "musicgen", "MusicGen-medium", cfg, params, dev, checker, zero_counts,
+        counts, flush, part, B=MG_B, S=MG_S, prompt=MG_PROMPT, gen=MG_GEN,
+        max_len=MG_MAX_LEN, prefill_runs=MG_PREFILL_RUNS,
+        heads=(cfg.padded_heads, cfg.head_dim, cfg.head_dim), cache_ok=kv_ok,
+        cache_what="the k and v caches", decode_dtype=torch.bfloat16)
+    out.update(core["out"])
+
+    # (d) the engine feeds token ids: it refuses audio, as JAX's does.
+    try:
+        ServeEngine(cfg, lanes=4, max_len=MG_MAX_LEN, params=params,
+                    device=dev)
+        refusal = None
+    except NotImplementedError as e:
+        refusal = str(e)
+    require(refusal is not None and "audio frames" in refusal,
+            f"the engine took an audio config ({refusal})")
+    out["engine_refusal"] = refusal
+    print(f"[musicgen] the engine refuses audio, as JAX's: {refusal}")
+    del params
+    torch.cuda.empty_cache()
+    part("d")
+    out.update(serve_full(
+        "musicgen", MG_ARCH, None, "musicgen_medium", dev, counts,
+        zero_counts, batch=MG_B, prompt=SERVE_PROMPT, gen=SERVE_GEN,
+        max_len=MG_MAX_LEN, vocab=cfg.vocab_size))
+    part("serve")
+    out["seconds"] = part_s
+    print(f"[musicgen] seconds by part: {part_s}")
+    by_dtype = out["flash_by_dtype"]
+    return {"row": core["row"], "bf16_row": core["bf16_row"],
+            "launches": {"flash_attention_musicgen": by_dtype["float32"],
+                         "flash_attention_musicgen_bf16":
+                             by_dtype["bfloat16"]},
+            "err": core["f32_check"]["err"], "bf16_err": core["bf16_err"],
+            "musicgen": out}
+
+
+def rwkv_phase(dev, ops, ref, checker, zero_counts, counts, flush):
+    """Phase 21: RWKV-6 7B (+ SAM) served at full width and full depth.
+    Returns the numbers (no attention: its WKV recurrence is plain PyTorch,
+    as JAX's is plain JAX)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import lm, rwkv
+
+    cfg = get_config(RW_ARCH)
+    groups = cfg.num_layers // cfg.memory.every_n_layers
+    H, D = cfg.d_model // cfg.rwkv.head_size, cfg.rwkv.head_size
+    got = (cfg.num_layers, cfg.d_model, H, D, cfg.d_ff, groups)
+    require(got == (32, 4096, 64, 64, 14336, 8),
+            f"{RW_ARCH}: (layers, d, heads, head size, d_ff, memory groups) "
+            f"{got}")
+    out, part_s, clock = {}, {}, [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        part_s[name] = round(now - clock[0], 1)
+        clock[0] = now
+
+    # (e) first, the reduced config, its zero leaves drawn, in f32 on the
+    # card against the CPU.
+    small = dataclasses.replace(reduced(cfg), compute_dtype="float32")
+    errs, seeds, _ = reduced_card_vs_cpu(
+        small, dev, ops, ref, zero_counts, counts, S=RW_SMALL_S,
+        decode=RW_SMALL_DECODE, max_len=RW_SMALL_MAX_LEN)
+    out["card_vs_cpu"] = dict(err=errs, seeds=seeds)
+    print(f"[rwkv] reduced {RW_ARCH} (head size {small.rwkv.head_size}, "
+          f"{small.num_layers} layers, zero leaves drawn; f32) on the card "
+          f"against the CPU (token seeds {seeds}): prefill logits "
+          f"{errs['prefill']:.3g}, decode_scan of {RW_SMALL_DECODE} tokens "
+          f"with memory states {errs['decode']:.3g}, tm_shift "
+          f"{errs['tm_shift']:.3g}, wkv {errs['wkv']:.3g}, cm_shift "
+          f"{errs['cm_shift']:.3g}, memory {errs['memory']:.3g} (bar "
+          f"{SLICE_TOL} of max(1, |CPU|); usage and read rows equal)")
+    torch.cuda.empty_cache()
+    part("e")
+
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=dev, dtype=cfg.compute_dtype)
+    draw_rwkv_zero_leaves(params, torch.Generator().manual_seed(5))
+    torch.cuda.synchronize()
+    print(f"[rwkv] {RW_ARCH} at all 32 layers: drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s, the zero leaves drawn")
+    part("draw")
+
+    def state_ok(cache, n_tok):
+        want = {"tm_shift": ((cfg.num_layers, RW_B, cfg.d_model),
+                             torch.bfloat16),
+                "wkv": ((cfg.num_layers, RW_B, H, D, D), torch.float32),
+                "cm_shift": ((cfg.num_layers, RW_B, cfg.d_model),
+                             torch.bfloat16)}
+        return set(cache) == {*want, "pos"} and all(
+            cache[k].shape == shape and cache[k].dtype == dtype
+            and bool(torch.isfinite(cache[k]).all())
+            and bool(cache[k].flatten(1).abs().amax(1).gt(0).all())
+            for k, (shape, dtype) in want.items())
+
+    # The prefill (the lockstep one, timed) runs with each WKV loop timed
+    # between synchronisations: the loop's host share (a few launches a
+    # step).
+    scan, wkv_s = rwkv.wkv_scan, []
+
+    def timed_scan(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = scan(*args, **kw)
+        torch.cuda.synchronize()
+        wkv_s.append(time.perf_counter() - t)
+        return res
+
+    @contextlib.contextmanager
+    def wkv_timed():
+        rwkv.wkv_scan = timed_scan
+        try:
+            yield
+        finally:
+            rwkv.wkv_scan = scan
+
+    core = full_width_serving(
+        "rwkv", "RWKV-6 7B", cfg, params, dev, checker, zero_counts, counts,
+        flush, part, B=RW_B, S=RW_S, prompt=RW_PROMPT, gen=RW_GEN,
+        max_len=RW_MAX_LEN, prefill_runs=0, heads=None,
+        cache_ok=state_ok, cache_what="an RWKV state (wkv f32, the shifts "
+        "bf16)", decode_dtype=torch.bfloat16, prefill_context=wkv_timed)
+    out.update(core["out"])
+    require(len(wkv_s) == cfg.num_layers, f"the timed prefill ran "
+            f"{len(wkv_s)} WKV loops, not {cfg.num_layers}")
+    total, loops = out["prefill_ms"], sum(wkv_s) * 1e3
+    steps = cfg.num_layers * RW_S
+    out.update(wkv_loop_ms=loops, wkv_host_share=loops / total,
+               wkv_us_per_step=loops * 1e3 / steps)
+    print(f"[time] RWKV-6 7B prefill (B={RW_B}, S={RW_S}): the "
+          f"{cfg.num_layers} WKV loops ({steps} steps, each loop timed "
+          f"between synchronisations) take {loops:.1f} ms of {total:.1f} "
+          f"({loops / total:.1%}); {loops * 1e3 / steps:.1f} µs a step")
+
+    # The decode's norms are lane-invariant: `layers.row_mean` gives a
+    # row of 4 lanes the bits it gives it among 2, where `mean(-1)` splits
+    # a long row across more thread blocks when there are fewer rows.
+    from repro_torch.models.layers import row_mean
+    gen = torch.Generator().manual_seed(21)
+    apart = {"mean": 0, "row_mean": 0}
+    for _ in range(ROW_SUM_DRAWS):     # a decode's rows, (B, 1, d)
+        x = (torch.randn((4, 1, cfg.d_model), generator=gen) * 30).to(dev)
+        apart["mean"] += not torch.equal(x.square().mean(-1)[:2],
+                                         x[:2].square().mean(-1))
+        apart["row_mean"] += not torch.equal(row_mean(x.square())[:2],
+                                             row_mean(x[:2].square()))
+    out["row_means_apart"] = apart
+    require(apart["row_mean"] == 0, f"row_mean of 2 rows against 4: "
+            f"{apart['row_mean']} of {ROW_SUM_DRAWS} draws apart")
+    print(f"[rwkv] a row of d = {cfg.d_model} in 4 lanes against 2, over "
+          f"{ROW_SUM_DRAWS} draws: mean(-1) of its squares apart in "
+          f"{apart['mean']}, `layers.row_mean` in {apart['row_mean']}")
+
+    # (d) the engine on RW_LANES lanes in lockstep, the rescale 4 -> 2 -> 4
+    # bit for bit.
+    out.update(engine_rescale(
+        "rwkv", cfg, params, dev, checker, zero_counts, counts, groups,
+        lanes=RW_LANES, requests=RW_REQUESTS, req_prompt=RW_REQ_PROMPT,
+        req_gen=RW_REQ_GEN, max_len=RW_MAX_LEN,
+        cache_key="tm_shift, wkv and cm_shift"))
+    del params
+    torch.cuda.empty_cache()
+    part("d")
+    out["seconds"] = part_s
+    print(f"[rwkv] seconds by part: {part_s}")
+    return {"rwkv": out}
 
 
 def task_batch(task, source, device):
@@ -7844,11 +8276,23 @@ def run() -> None:
     checker.err["flash_attention_llama4_bf16"] = llama4["bf16_err"]
 
     mark("17")
+    # ---- 20. MusicGen-medium (+ SAM) on frames, full width and depth ----
+    mg = musicgen_phase(dev, ops, ref, checker, zero_counts, counts, flush)
+    rows["flash_attention_musicgen"] = mg["row"]
+    rows["flash_attention_musicgen_bf16"] = mg["bf16_row"]
+    checker.err["flash_attention_musicgen"] = mg["err"]
+    checker.err["flash_attention_musicgen_bf16"] = mg["bf16_err"]
+
+    mark("20")
+    # ---- 21. RWKV-6 7B (+ SAM), full width and depth ----
+    rw = rwkv_phase(dev, ops, ref, checker, zero_counts, counts, flush)
+
+    mark("21")
     # ---- 19. the paper's tasks: bAbI-lite and one-shot Omniglot ----
     tasks_res = tasks_phase(dev, ops, ref, checker, zero_counts, counts)
 
     mark("19")
-    # ---- 20. report ----
+    # ---- 22. report ----
     lm_write = lmr["lm"]["kernels_at_lm_shapes"]["sparse_write_update"]
     above = (("lra_topn", rows["lra_topn"]), ("block", lra_block),
              ("scatter_rows 'set'", rows["scatter_rows"]),
@@ -7896,6 +8340,8 @@ def run() -> None:
                "flash_attention_mla_bf16": mla["launches"],
                "flash_attention_llama4": llama4["launches"],
                "flash_attention_llama4_bf16": llama4["launches"],
+               "flash_attention_musicgen": mg["launches"],
+               "flash_attention_musicgen_bf16": mg["launches"],
                "topk_read": mesh["launches"],
                "topk_read_bf16": mesh["bf16_launches"],
                "topk_read_int8": mesh["int8_launches"]}
@@ -7966,6 +8412,7 @@ def run() -> None:
                       "lm_train": train_res, "stream": stream_res,
                       "swa": swa["swa"], "vlm": vlm["vlm"],
                       "mla": mla["mla"], "llama4": llama4["llama4"],
+                      "musicgen": mg["musicgen"], "rwkv": rw["rwkv"],
                       "tasks": tasks_res,
                       "phase_seconds": phase_s},
                      default=str))

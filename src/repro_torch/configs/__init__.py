@@ -8,8 +8,12 @@ PaliGemma-3B (prefix-LM over a stubbed vision prefix, MQA with pad heads,
 GeGLU MLP, head dim 256, tied embeddings), DeepSeek-V2-236B (MLA, a
 dense first layer, then MoE layers) and Llama-4 Maverick (GQA with 40
 heads padded to 48 over 8, MoE layers of 128 experts, top-1, one shared
-expert, no dense layer). Every other architecture of the JAX registry
-raises, naming the ROADMAP item that ports it.
+expert, no dense layer), MusicGen-medium (the stubbed audio frontend:
+frame embeddings in place of tokens; 24 MHA heads at head dim 64 padded
+to 48, the GELU MLP) and RWKV-6 7B (the attention-free RWKV block:
+time-mix with a data-dependent decay, squared-ReLU channel-mix). Every
+other architecture of the JAX registry raises, naming the ROADMAP item
+that ports it.
 """
 from __future__ import annotations
 
@@ -31,15 +35,14 @@ ARCH_IDS = (
     "hymba_1_5b",
 )
 PORTED = ("starcoder2_7b", "h2o_danube_3_4b", "paligemma_3b",
-          "deepseek_v2_236b", "llama4_maverick_400b_a17b")
+          "deepseek_v2_236b", "llama4_maverick_400b_a17b", "musicgen_medium",
+          "rwkv6_7b")
 # What each architecture the port does not run yet needs (ROADMAP §A).
 NOT_PORTED = {
-    "rwkv6_7b": "A9c (the RWKV block)",
     "yi_34b": "A9c (dense GQA like StarCoder2, but 34B parameters need "
               "more than one H100; its registry entry comes with A9c)",
     "mistral_large_123b": "A9c (dense GQA, 123B parameters: more than one "
                           "H100)",
-    "musicgen_medium": "A9c (the audio frontend)",
     "hymba_1_5b": "A9c (the hybrid SSM block)",
 }
 
@@ -65,8 +68,10 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     the config has one, a vision prefix of 16 (``frontend_len`` and
     ``prefix_lm``) where it has one; 4 experts of 64, top-2 (or fewer), at
     most one dense layer where it has MoE; MLA's kv_lora 32, q_lora 48,
-    rope 16, nope 32, v 32 where it has MLA; and a memory of 64 slots of
-    16 with K = 4, a memory group per layer and segments of 32."""
+    rope 16, nope 32, v 32 where it has MLA; RWKV's head_size 32,
+    decay_lora 16 and mix_lora 8 where it has RWKV; and a memory of 64
+    slots of 16 with K = 4, a memory group per layer and segments of
+    32."""
     kw = dict(
         num_layers=2, d_model=128, num_heads=4, num_kv_heads=2, head_dim=32,
         d_ff=256, vocab_size=512, q_block=64, kv_block=64, loss_chunk=64,
@@ -81,6 +86,9 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         kw["mla"] = dataclasses.replace(
             cfg.mla, kv_lora=32, q_lora=48, rope_head_dim=16,
             nope_head_dim=32, v_head_dim=32)
+    if cfg.rwkv is not None:
+        kw["rwkv"] = dataclasses.replace(cfg.rwkv, head_size=32,
+                                         decay_lora=16, mix_lora=8)
     if cfg.frontend == "vision":
         kw["frontend_len"] = 16
         kw["prefix_lm"] = 16

@@ -12,6 +12,7 @@ P = 1) where there is one; the dense models' is `DenseState`, with a plain
 rank's block of a slot-sharded memory. The LM's weights are the nested
 tree of `models/lm.py::param_defs` (stacked ``blocks``, ``memory``, ``embed``,
 ``final_norm``, ``lm_head``) on both sides; its cache is {"k", "v", "pos"},
+MLA's {"ckv", "pos"} or RWKV's {"tm_shift", "wkv", "cm_shift", "pos"},
 its memory states a tuple of `sam_layer.MemoryState` and its optimizer
 state an `AdamWState` (`adamw_state_from_jax`); a serving
 session (`session_from_jax`) holds both for one lane. The functions
@@ -244,8 +245,9 @@ def lm_params_from_jax(tree, *, device="cuda"):
     no ``lm_head`` where the head is tied to the embedding, PaliGemma's,
     whose pad heads are leaves of ``wq`` and ``wo`` like the others; a MoE
     config's leading dense layers stacked as ``dense_blocks``, its blocks'
-    ``moe`` and MLA's ``attn`` leaves as any others). Raises on any other
-    group."""
+    ``moe`` and MLA's ``attn`` leaves, and an RWKV block's ``tm`` and
+    ``cm``, as any others; an audio config's unused ``embed`` too). Raises
+    on any other group."""
     unknown = set(tree) - set(_LM_GROUPS)
     if unknown or not {"embed", "blocks", "final_norm"} <= set(tree):
         raise ValueError(f"expected the groups {_LM_GROUPS} (lm_head, "
@@ -263,14 +265,21 @@ def adamw_state_from_jax(state, *, device="cuda") -> AdamWState:
                       count=_tensor(state.count, np.int32, device))
 
 
+_CACHE_KEYS = ({"k", "v", "pos"}, {"ckv", "pos"},
+               {"tm_shift", "wkv", "cm_shift", "pos"})
+
+
 def lm_cache_from_jax(cache, *, device="cuda"):
     """A JAX LM cache {"k", "v" (L, B, Smax, Hkv, D), "pos" () or (B,)},
-    or MLA's {"ckv" (L, B, Smax, kv_lora + rope), "pos"}, -> the port's,
-    the float leaves in their dtype (f32 or bf16), pos int32. With a
-    window Smax = min(max_len, window) slots of a ring, as on both sides."""
-    if set(cache) not in ({"k", "v", "pos"}, {"ckv", "pos"}):
-        raise ValueError(f"expected the cache keys k, v and pos (GQA) or "
-                         f"ckv and pos (MLA), got {sorted(cache)}")
+    MLA's {"ckv" (L, B, Smax, kv_lora + rope), "pos"} or RWKV's
+    {"tm_shift", "cm_shift" (L, B, d), "wkv" (L, B, H, D, D) f32, "pos"}
+    -> the port's, the float leaves in their dtype (f32 or bf16), pos
+    int32. With a window Smax = min(max_len, window) slots of a ring, as
+    on both sides."""
+    if set(cache) not in _CACHE_KEYS:
+        raise ValueError(f"expected the cache keys k, v and pos (GQA), ckv "
+                         f"and pos (MLA) or tm_shift, wkv, cm_shift and pos "
+                         f"(RWKV), got {sorted(cache)}")
     out = {k: _float_leaf(v, device) for k, v in cache.items() if k != "pos"}
     out["pos"] = _tensor(cache["pos"], np.int32, device)
     return out
@@ -298,8 +307,9 @@ def lm_memory_states_from_jax(states, *, device="cuda"):
 
 def session_from_jax(sess, *, device="cuda"):
     """A JAX serving session (`repro.launch.engine`: {"cache": {"k", "v"}
-    (L, 1, Smax, Hkv, D) or MLA's {"ckv"} (L, 1, Smax, kv_lora + rope),
-    "pos" (1,), "counter", "mem": a tuple of `MemoryState` with batch 1})
+    (L, 1, Smax, Hkv, D), MLA's {"ckv"} (L, 1, Smax, kv_lora + rope) or
+    RWKV's {"tm_shift", "wkv", "cm_shift"} (L, 1, ...), "pos" (1,),
+    "counter", "mem": a tuple of `MemoryState` with batch 1})
     -> the port's (`repro_torch.launch.engine.SessionStore`'s), leaf for
     leaf; "mem" absent for a memoryless model."""
     cache = lm_cache_from_jax({**sess["cache"], "pos": sess["pos"]},

@@ -2,9 +2,11 @@
 the port of the JAX package's `examples/serve_batched.py`, for the
 families the port runs (StarCoder2-7B, H2O-Danube3-4B with its sliding
 window and ring cache, PaliGemma-3B served with token prompts as JAX
-serves it, DeepSeek-V2 with MLA and MoE, and Llama-4 Maverick with pad
-heads over top-1 MoE). Another architecture raises the registry's error,
-naming the ROADMAP item that ports it.
+serves it, DeepSeek-V2 with MLA and MoE, Llama-4 Maverick with pad heads
+over top-1 MoE, MusicGen-medium on frame embeddings, each chosen token
+fed back as a one-hot frame, and RWKV-6 7B with its O(1) decode state).
+Another architecture raises the registry's error, naming the ROADMAP
+item that ports it.
 
     python -m repro_torch.examples.serve_batched --full
     python -m repro_torch.examples.serve_batched --arch h2o_danube_3_4b --full
@@ -13,6 +15,9 @@ naming the ROADMAP item that ports it.
         --full --layers 4
     python -m repro_torch.examples.serve_batched \
         --arch llama4_maverick_400b_a17b_sam --full --layers 2
+    python -m repro_torch.examples.serve_batched --arch musicgen_medium \
+        --full
+    python -m repro_torch.examples.serve_batched --arch rwkv6_7b_sam --full
     python -m repro_torch.examples.serve_batched --device cpu
 
 serve the published width on the card (the default device; DeepSeek-V2's

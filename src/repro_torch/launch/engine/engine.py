@@ -56,7 +56,10 @@ class ServeEngine:
     pools with session-to-replica affinity (launch/engine/scheduler.py);
     `rescale()` is the live join/leave event. ``session_capacity`` and
     ``spill_dir`` bound the in-RAM session store with LRU disk spill, or
-    ``session_store`` shares one store between engines."""
+    ``session_store`` shares one store between engines. An audio config
+    raises NotImplementedError, as JAX's engine does. An RWKV session is
+    its O(1) state {tm_shift, wkv, cm_shift}, but ``max_len`` bounds it
+    all the same, as in JAX (ROADMAP §C)."""
 
     def __init__(self, cfg, *, lanes: int = 4, max_len: int = 128,
                  param_seed: int = 0, params=None,
@@ -67,6 +70,9 @@ class ServeEngine:
                  device="cuda", mesh=None):
         if mesh is not None:
             raise ValueError(MESH_ITEM)
+        if cfg.frontend == "audio":
+            raise NotImplementedError(
+                "the serving engine feeds token ids, not audio frames")
         self.cfg = cfg
         self.max_len = max_len
         self.device = torch.device(device)

@@ -3,9 +3,13 @@
 `serve` is the static batch: prefill a lockstep batch of prompts with
 `lm.decode_scan`, then decode greedy (or sampled) tokens one
 `lm.decode_step` at a time. Like the JAX driver it passes no memory
-states, so it runs no memory op. `serve_continuous` serves synthetic
-single-request users through the continuous-batching engine
-(`launch/engine`), whose decode carries each lane's memory states.
+states, so it runs no memory op. An audio config's prompt is frames of
+N(0, 1) (B, prompt_len, d), and each chosen token is fed back as
+``one_hot(token, d_model)``, JAX's: MusicGen's tokens of 1536 and up
+(its vocabulary is 2048, d_model 1536) feed a zero frame (ROADMAP §C).
+`serve_continuous` serves synthetic single-request users through the
+continuous-batching engine (`launch/engine`), whose decode carries each
+lane's memory states; the engine refuses an audio config, as JAX's.
 
     python -m repro_torch.launch.serve --arch starcoder2_7b_sam --full
     python -m repro_torch.launch.serve --continuous --requests 8 --full
@@ -15,6 +19,10 @@ single-request users through the continuous-batching engine
         --layers 4
     python -m repro_torch.launch.serve \
         --arch llama4_maverick_400b_a17b_sam --full --layers 2
+    python -m repro_torch.launch.serve --arch musicgen_medium_sam --full
+    python -m repro_torch.launch.serve --arch rwkv6_7b_sam --full
+    python -m repro_torch.launch.serve --arch rwkv6_7b_sam --full \
+        --continuous
 
 run StarCoder2-7B (weights from ``--seed``, held in the bf16 compute
 dtype: 15.8 GB), H2O-Danube3-4B (sliding window, a ring cache of
@@ -24,9 +32,12 @@ its pad heads, 5.3 GB), DeepSeek-V2 (MLA and MoE; its 60 layers need
 parameters, 26.6 GB) or Llama-4 Maverick (GQA with 40 heads padded to
 48, MoE layers of 128 experts, top-1, one shared; its 48 layers need
 1.57 TB, so ``--layers 2`` keeps two MoE layers: 34.7 B parameters,
-69.4 GB) at full width on the card, with or without the ``_sam`` memory
-layer; without ``--full`` the reduced config; ``--device cpu`` runs on
-the host.
+69.4 GB), MusicGen-medium (frames in place of tokens, 24 heads padded to
+48 at head dim 64: 1.6 B parameters, 3.3 GB) or RWKV-6 7B (the
+attention-free RWKV block, whose decode state is O(1) in the length: 7.7
+B parameters, 15.4 GB) at full width on the card, with or without the
+``_sam`` memory layer; without ``--full`` the reduced config; ``--device
+cpu`` runs on the host.
 PaliGemma is served with token prompts, as JAX serves it: the decode
 attends causally from position 0 and has no image prefix (its prefill
 with patch embeddings is `models.lm.prefill`). The registry's other
@@ -49,6 +60,13 @@ from repro_torch.models import lm
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def one_hot(tok: torch.Tensor, width: int) -> torch.Tensor:
+    """``jax.nn.one_hot(tok, width)``: (B,) ints -> (B, width) f32, a row of
+    zeros for a token outside [0, width)."""
+    return (tok[:, None].long() == torch.arange(
+        width, device=tok.device)).float()
 
 
 def _select(logits: torch.Tensor, greedy: bool,
@@ -89,13 +107,18 @@ def _serve(cfg, *, batch, prompt_len, gen_len, max_len, seed, greedy=True,
            device="cuda", params=None, prompt=None):
     """``params`` and ``prompt`` (B, prompt_len) default to weights from
     ``seed`` (held in the compute dtype) and tokens in [1, V) from
-    ``seed``. Returns {"tokens" (B, gen_len): the token chosen after each
+    ``seed`` (an audio config's prompt: frames (B, prompt_len, d) of N(0,
+    1)). Returns {"tokens" (B, gen_len): the token chosen after each
     decode step, "prefill_s", "decode_s", "decode_tok_per_s"}."""
     gen = torch.Generator(device=device).manual_seed(seed)
+    audio = cfg.frontend == "audio"
     if params is None:
         params = lm.init_params(cfg, seed=seed, device=device,
                                 dtype=cfg.compute_dtype)
-    if prompt is None:
+    if prompt is None and audio:
+        prompt = torch.randn((batch, prompt_len, cfg.d_model), generator=gen,
+                             device=device)
+    elif prompt is None:
         prompt = torch.randint(1, cfg.vocab_size, (batch, prompt_len),
                                generator=gen, device=device)
     cache = lm.init_cache(cfg, batch, max_len, device=device)
@@ -110,7 +133,9 @@ def _serve(cfg, *, batch, prompt_len, gen_len, max_len, seed, greedy=True,
     toks = []
     t0 = time.perf_counter()
     for _ in range(gen_len):
-        logits, cache = lm.decode_step(params, cfg, cache, tok[:, None])
+        step_in = one_hot(tok, cfg.d_model)[:, None] if audio \
+            else tok[:, None]
+        logits, cache = lm.decode_step(params, cfg, cache, step_in)
         tok = _select(logits, greedy, gen)
         toks.append(tok)
     tokens = torch.stack(toks, dim=1)
@@ -127,7 +152,8 @@ def serve_continuous(arch: str, *, lanes: int = 4, requests: int = 8,
                      num_layers: int = None):
     """Serve ``requests`` synthetic single-request users of ``arch``
     (`config`) through the continuous-batching engine; see
-    `_serve_continuous`."""
+    `_serve_continuous`. An audio config raises NotImplementedError (the
+    engine feeds token ids)."""
     cfg = config(arch, use_reduced, num_layers)
     return _serve_continuous(cfg, lanes=lanes, requests=requests,
                              prompt_len=prompt_len, gen_len=gen_len,

@@ -4,11 +4,12 @@ field for field.
 One `ModelConfig` describes every architecture of the registry
 (`repro_torch.configs`). The port's model code runs ``block="dense"``:
 GQA attention (causal, windowed or prefix-LM, the vision frontend's patch
-embeddings) or DeepSeek-V2's MLA, each with an MLP or, with ``moe``, the
-mixture of experts after ``num_dense_layers`` dense layers; with the
-optional SAM memory layer on f32 rows. The RWKV and SSM dataclasses are
-carried as data, and the model code refuses a config that uses them
-(`models/transformer.py`)."""
+embeddings or the audio frontend's frame embeddings) or DeepSeek-V2's
+MLA, each with an MLP or, with ``moe``, the mixture of experts after
+``num_dense_layers`` dense layers; and ``block="rwkv"`` with ``rwkv``'s
+RWKV-6 block; with the optional SAM memory layer on f32 rows. The SSM
+dataclass is carried as data, and the model code refuses a config that
+uses it (`models/transformer.py`)."""
 from __future__ import annotations
 
 import dataclasses

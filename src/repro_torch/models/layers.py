@@ -10,6 +10,7 @@ first operand's dtype (the JAX package's ``preferred_element_type``), and
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -115,10 +116,26 @@ def peinsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return einsum(spec, a, b).to(a.dtype)
 
 
+def row_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the last axis, kept: `mean(-1)`, but for the decode's
+    rows on the card. A decode's (B, 1, d) holds so few rows that the card
+    splits each across thread blocks by their count, so a row's bits would
+    depend on how many lanes the batch holds (the engine's rescale is bit
+    for bit); there a row is summed as gcd(d, 64) contiguous pieces and
+    then their sum, two short reductions whose order its length alone
+    sets. The CPU sums a row in one thread."""
+    d = x.shape[-1]
+    if not x.is_cuda or x.dim() < 2 or x.shape[-2] != 1:
+        return x.mean(-1, keepdim=True)
+    g = math.gcd(d, 64)
+    return x.unflatten(-1, (g, d // g)).sum(-1).sum(-1, keepdim=True) / d
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
-    """f32 RMS norm scaled by **1 + scale**, in x's dtype."""
+    """f32 RMS norm scaled by **1 + scale**, in x's dtype; the mean of
+    squares by `row_mean`."""
     xf = x.float()
-    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    y = xf * torch.rsqrt(row_mean(xf.square()) + eps)
     return (y * (1.0 + scale.float())).to(x.dtype)
 
 

@@ -2,7 +2,9 @@
 (causal, sliding-window or prefix-LM GQA, or MLA; GELU, gated SiLU or
 GeGLU MLP, or MoE after ``moe.num_dense_layers`` leading dense layers,
 held apart as ``dense_blocks``; a stubbed vision frontend whose patch
-embeddings the batch carries): embeddings, the dense blocks, the stack of
+embeddings the batch carries, or a stubbed audio frontend whose frame
+embeddings take the tokens' place) and ``block="rwkv"`` (RWKV-6, whose
+decode cache is its O(1) state): embeddings, the dense blocks, the stack of
 blocks with a SAM memory layer after every group, the final norm and the
 head (tied to the embeddings where the config says so). `forward`
 and `loss_fn` train (under autograd, the blocks under
@@ -107,8 +109,13 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
 def _embed_inputs(params, cfg: ModelConfig, batch):
     """JAX's `_embed_inputs`: the token embeddings (`_embed`), after the
     (B, frontend_len, d) ``batch["patch_embeds"]`` of a vision config,
-    cast to the compute dtype and not scaled; and the positions 0 .. S-1
-    over the whole sequence, (1, S)."""
+    cast to the compute dtype and not scaled; for an audio config the (B,
+    S, d) ``batch["frame_embeds"]`` alone, cast and not scaled (it reads
+    no tokens; ``embed`` stays in the tree, unused, as in JAX); and the
+    positions 0 .. S-1 over the whole sequence, (1, S)."""
+    if cfg.frontend == "audio":
+        x = batch["frame_embeds"].to(torch_dtype(cfg.compute_dtype))
+        return x, torch.arange(x.shape[1], device=x.device)[None, :]
     x = _embed(params, cfg, batch["tokens"])
     if cfg.frontend == "vision" and cfg.frontend_len:
         if "patch_embeds" not in batch:
@@ -148,10 +155,11 @@ def _run_stack(stacked, cfg: ModelConfig, x, positions, layers):
 
 
 def forward(params, cfg: ModelConfig, batch):
-    """batch {"tokens": (B, S_t) int[, "patch_embeds": (B, P, d)]} ->
-    (final hidden states (B, S, d), S = P + S_t, the auxiliary loss: the
-    routers', summed stack by stack; 0 without MoE). A vision config needs
-    the patch embeddings (`_embed_inputs`). The dense blocks run first.
+    """batch {"tokens": (B, S_t) int[, "patch_embeds": (B, P, d)]}, or an
+    audio config's {"frame_embeds": (B, S, d)} -> (final hidden states (B,
+    S, d), S = P + S_t, the auxiliary loss: the routers', summed stack by
+    stack; 0 without MoE). A vision config needs the patch embeddings
+    (`_embed_inputs`). The dense blocks run first.
     With a memory, the other blocks run in groups and each group is
     followed by `sam_layer.memory_layer_seq`; one memory state, zero at
     the start, runs through all the groups, as JAX threads one through its
@@ -244,8 +252,10 @@ def loss_fn(params, cfg: ModelConfig, batch):
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
     """(L, B, Smax, Hkv, D) shapes of k and v: Smax = max_len, or
     min(max_len, window) for a windowed config, whose cache is a ring; or
-    MLA's latent rows, ckv (L, B, max_len, kv_lora + rope). The layers
-    stack as the blocks run: the dense ones first."""
+    MLA's latent rows, ckv (L, B, max_len, kv_lora + rope); or RWKV's
+    states, tm_shift and cm_shift (L, B, d) and wkv (L, B, H, D, D), which
+    max_len does not size. The layers stack as the blocks run: the dense
+    ones first."""
     per_layer = tfm.layer_cache_shapes(cfg, batch, max_len)
     return {k: (cfg.num_layers,) + v for k, v in per_layer.items()}
 
@@ -253,11 +263,13 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                per_lane_pos: bool = False, *, device="cuda"):
     """Zero caches of `cache_shapes` (k and v, a ring of min(max_len,
-    window) slots with a window, which any position fits; or MLA's ckv)
-    in the compute dtype and ``pos``: () int32, or (B,) per-lane
-    positions with ``per_lane_pos``."""
+    window) slots with a window, which any position fits; MLA's ckv; or
+    RWKV's states) in the compute dtype, RWKV's wkv in f32 whatever it is
+    (JAX's); and ``pos``: () int32, or (B,) per-lane positions with
+    ``per_lane_pos``."""
     cd = torch_dtype(cfg.compute_dtype)
-    cache = {k: torch.zeros(v, dtype=cd, device=device)
+    cache = {k: torch.zeros(v, dtype=torch.float32 if k == "wkv" else cd,
+                            device=device)
              for k, v in cache_shapes(cfg, batch, max_len).items()}
     cache["pos"] = torch.zeros((batch,) if per_lane_pos else (),
                                dtype=torch.int32, device=device)
@@ -284,15 +296,21 @@ def init_memory_states(cfg: ModelConfig, batch: int, *,
 @torch.inference_mode()
 def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
                 mem_states=None):
-    """tokens (B, 1) int. ``cache["pos"]`` is () or (B,). With
+    """tokens (B, 1) int, or an audio config's frame embeddings (B, 1, d),
+    cast to the compute dtype and not scaled. ``cache["pos"]`` is () or
+    (B,). With
     ``mem_states`` (`init_memory_states`) each memory group's blocks are
     followed by one SAM read and write of the token's hidden state, whose
     read is added back in the stream's dtype. The dense blocks run first,
     on the cache's first layers. Returns (logits (B, 1, V), cache) — plus
     the new memory states when ``mem_states`` was given. The cache (k and
-    v, or ckv) and the memory states are updated in place."""
+    v, ckv or RWKV's states) and the memory states are updated in
+    place."""
     pos = cache["pos"]
-    x = _embed(params, cfg, tokens)
+    if cfg.frontend == "audio":
+        x = tokens.to(torch_dtype(cfg.compute_dtype))
+    else:
+        x = _embed(params, cfg, tokens)
     n_dense = _n_dense(cfg)
     blocks = _cast(params["blocks"], cfg)
     new_cache = {key: t for key, t in cache.items() if key != "pos"}
@@ -335,10 +353,11 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
 @torch.inference_mode()
 def decode_scan(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
                 mem_states=None):
-    """Consume tokens (B, T) one `decode_step` at a time. Returns (logits
-    (B, 1, V) of the last position, cache) — plus the memory states when
-    ``mem_states`` was given."""
-    B, T = tokens.shape
+    """Consume tokens (B, T), or an audio config's frames (B, T, d), one
+    `decode_step` at a time. Returns (logits (B, 1, V) of the last
+    position, cache) — plus the memory states when ``mem_states`` was
+    given."""
+    B, T = tokens.shape[:2]
     logits = torch.zeros((B, 1, cfg.vocab_size),
                          dtype=torch_dtype(cfg.compute_dtype),
                          device=tokens.device)

@@ -1,10 +1,14 @@
 """Transformer block of the LM, the JAX package's `models/transformer.py`
-for ``block="dense"``: pre-norm attention (GQA: causal, within a sliding
-window, or over a bidirectional prefix; or DeepSeek-V2's MLA) and an MLP
-(GELU, gated SiLU or GeGLU) or a mixture of experts, each added to the
-residual stream. A block's parameter tree says which it runs: ``"moe"``
-or ``"mlp"`` (JAX's ``moe_layer`` flag: a MoE config's leading dense
-layers hold an MLP). Any other family raises, naming its ROADMAP item."""
+for ``block="dense"`` and ``block="rwkv"``. A dense block is pre-norm
+attention (GQA: causal, within a sliding window, or over a bidirectional
+prefix; or DeepSeek-V2's MLA) and an MLP (GELU, gated SiLU or GeGLU) or a
+mixture of experts, each added to the residual stream; its parameter
+tree says which it runs: ``"moe"`` or ``"mlp"`` (JAX's ``moe_layer``
+flag: a MoE config's leading dense layers hold an MLP). An RWKV block
+(`models/rwkv.py`) is the pre-norm time-mix and channel-mix; its prefill
+starts from zero shift and WKV states, its decode carries them in the
+cache, {tm_shift, wkv, cm_shift}. Any other family (the hybrid SSM)
+raises, naming its ROADMAP item."""
 from __future__ import annotations
 
 from typing import Optional
@@ -13,6 +17,7 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import mlp_apply, mlp_defs, pdef, rms_norm
 
@@ -20,12 +25,17 @@ from repro_torch.models.layers import mlp_apply, mlp_defs, pdef, rms_norm
 def require_supported(cfg: ModelConfig) -> None:
     """Raise unless ``cfg`` is a family the port runs: ``block="dense"``
     with causal, sliding-window or prefix-LM GQA or MLA, the GELU, gated
-    SiLU or GeGLU MLP or MoE, no frontend or the (stubbed) vision one."""
+    SiLU or GeGLU MLP or MoE, or ``block="rwkv"`` with its squared-ReLU
+    channel-mix; no frontend, or the (stubbed) vision or audio one."""
+    rwkv = cfg.block == "rwkv"
     unported = (
-        (cfg.block != "dense", f"block={cfg.block!r}"),
-        (cfg.act not in ("gelu", "silu", "geglu"), f"the {cfg.act} MLP"),
-        (cfg.frontend not in (None, "vision"), f"the {cfg.frontend} "
-                                               f"frontend"),
+        (cfg.block not in ("dense", "rwkv"), f"block={cfg.block!r}"),
+        (not rwkv and cfg.act not in ("gelu", "silu", "geglu"),
+         f"the {cfg.act} MLP"),
+        (rwkv and cfg.act != "relu_sq",
+         f"the RWKV block with act={cfg.act!r}"),
+        (cfg.frontend not in (None, "vision", "audio"),
+         f"the {cfg.frontend} frontend"),
         (cfg.sparse_decode_blocks is not None,
          "the sparse top-K decode (gqa_decode_sparse)"),
     )
@@ -40,6 +50,9 @@ def block_defs(cfg: ModelConfig, *, moe_layer: Optional[bool] = None):
     holds the mixture of experts (default: where the config has one)."""
     require_supported(cfg)
     d = cfg.d_model
+    if cfg.block == "rwkv":
+        return {**rwkv_lib.rwkv_defs(cfg), "ln1": pdef((d,), init="zeros"),
+                "ln2": pdef((d,), init="zeros")}
     defs = {"ln1": pdef((d,), init="zeros"), "ln2": pdef((d,), init="zeros"),
             "attn": attn.attn_defs(cfg)}
     if cfg.moe is not None if moe_layer is None else moe_layer:
@@ -67,7 +80,19 @@ def _ffn(p, cfg: ModelConfig, h):
 def block_forward(p, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor):
     """Prefill of one block, x (B, S, d) -> (x (B, S, d), the aux loss: the
-    router's in a MoE block, else 0), as JAX's."""
+    router's in a MoE block, else 0), as JAX's. An RWKV block starts from
+    zero states and drops the ones it ends with, as JAX's."""
+    if cfg.block == "rwkv":
+        B, _, d = x.shape
+        D = cfg.rwkv.head_size
+        shift0 = torch.zeros((B, d), dtype=x.dtype, device=x.device)
+        wkv0 = torch.zeros((B, d // D, D, D), dtype=torch.float32,
+                           device=x.device)
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        x = x + rwkv_lib.time_mix(p["tm"], cfg, h, shift0, wkv0)[0]
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + rwkv_lib.channel_mix(p["cm"], cfg, h, shift0)[0]
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     x = x + _attention(p, cfg, h, positions)
     f, aux = _ffn(p, cfg, rms_norm(x, p["ln2"], cfg.norm_eps))
@@ -76,8 +101,22 @@ def block_forward(p, cfg: ModelConfig, x: torch.Tensor,
 
 def block_decode(p, cfg: ModelConfig, x: torch.Tensor, cache, pos):
     """One token through one block: x (B, 1, d), ``cache`` this layer's
-    {"k", "v"} or MLA's {"ckv"} (updated in place), pos () or (B,).
+    {"k", "v"}, MLA's {"ckv"} or RWKV's {"tm_shift", "wkv", "cm_shift"}
+    (updated in place), pos () or (B,) (an RWKV block reads none).
     Returns (x, cache)."""
+    if cfg.block == "rwkv":
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        tm_out, tm_shift, wkv = rwkv_lib.time_mix(
+            p["tm"], cfg, h, cache["tm_shift"], cache["wkv"],
+            fixed_order=True)
+        x = x + tm_out
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        cm_out, cm_shift = rwkv_lib.channel_mix(p["cm"], cfg, h,
+                                                cache["cm_shift"])
+        for key, new in (("tm_shift", tm_shift), ("wkv", wkv),
+                         ("cm_shift", cm_shift)):
+            cache[key].copy_(new)
+        return x + cm_out, cache
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.mla is not None:
         a, ckv = attn.mla_decode(p["attn"], cfg, h, cache["ckv"], pos)
@@ -92,11 +131,14 @@ def block_decode(p, cfg: ModelConfig, x: torch.Tensor, cache, pos):
 
 
 def layer_cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
-    """Cache shapes of one layer (the caller stacks a leading L): MLA's
-    latent rows {"ckv": (B, max_len, kv_lora + rope)}; else {"k", "v"}
-    of (B, Smax, Hkv, head_dim), Smax = max_len, or min(max_len, window)
-    slots of a ring with a window."""
+    """Cache shapes of one layer (the caller stacks a leading L): RWKV's
+    states {"tm_shift", "cm_shift": (B, d), "wkv": (B, H, D, D)}, of no
+    length; MLA's latent rows {"ckv": (B, max_len, kv_lora + rope)}; else
+    {"k", "v"} of (B, Smax, Hkv, head_dim), Smax = max_len, or
+    min(max_len, window) slots of a ring with a window."""
     require_supported(cfg)
+    if cfg.block == "rwkv":
+        return rwkv_lib.rwkv_state_shapes(cfg, batch)
     if cfg.mla is not None:
         m = cfg.mla
         return {"ckv": (batch, max_len, m.kv_lora + m.rope_head_dim)}

@@ -653,7 +653,7 @@ def test_configs_match_jax():
             assert tcfg.padded_heads == jcfg.padded_heads
     full = get_config(ARCH)
     assert (full.padded_heads, full.q_heads_per_kv) == (48, 9)
-    for name in ("musicgen_medium", "yi_34b", "rwkv6_7b_sam"):
+    for name in ("hymba_1_5b", "yi_34b", "mistral_large_123b_sam"):
         with pytest.raises(ValueError, match="ROADMAP item A9c"):
             get_config(name)
 
@@ -703,7 +703,7 @@ def test_refusals():
         cfg.memory, mem_dtype="bfloat16"))
     with pytest.raises(ValueError, match="A9c"):
         sam_layer.init_memory_state(bf, B, device="cpu")
-    for unported in (dict(frontend="audio"), dict(sparse_decode_blocks=4)):
+    for unported in (dict(block="hybrid"), dict(sparse_decode_blocks=4)):
         with pytest.raises(ValueError, match="A9c"):
             lm.param_defs(dataclasses.replace(cfg, **unported))
     p = lm.init_params(cfg, device="cpu")
