@@ -202,8 +202,8 @@ exit) if any phase fails:
       version and `scaled_dot_product_attention` (and the factor); the
       memory kernels at the LM's shapes (the row scatter's 'set' and
       'add' of J = 36 rows too); the prefill (one timed run); the decode's ms per token, a
-      window of 32 greedy steps timed as one span, the median of two
-      windows after one untimed (single steps, median of 3, on the
+      window of 32 greedy steps timed as one span, one window after
+      one untimed (single steps, median of 3, on the
       side); their peaks and the window's device time
       (`torch.profiler`);
 10. the slot-sharded memory (N = 2^20 over S = 4 ranks, one block of
@@ -285,7 +285,7 @@ exit) if any phase fails:
    at StarCoder2-7B's full width on phase 9's weights: 4 lanes, a cache
    of 128, two hot sessions and the rest spilled to disk:
    a. an open-loop Poisson workload (6 requests at 1 a second, prompts
-      of 16-32 tokens, 16 new tokens, a quarter revisiting earlier users,
+      of 16-32 tokens, 8 new tokens, a quarter revisiting earlier users,
       4 sampled, each submitted at its arrival), timed: tok/s, time to
       first token and end to end (p50, p99), engine steps, host ms an
       engine step, spills and restores with their ms, lane-to-host and
@@ -425,7 +425,7 @@ exit) if any phase fails:
       token, the caches of blocks 16 and 17 untouched; ms a token on the
       host and the device; `serve` once (no memory states: all 18
       blocks);
-   d. the engine on 4 lanes of 128: 6 token requests, in lockstep with
+   d. the engine on 4 lanes of 128: 4 token requests, in lockstep with
       exact launches a step;
 17. DeepSeek-V2 + SAM, `deepseek_v2_236b_sam` at full width with its depth
    cut to 4 of 60 layers (bf16 weights from seed 0, 13.3 B parameters;
@@ -450,7 +450,7 @@ exit) if any phase fails:
       (in lockstep): 1 read, write and LRA and no attention launch a token
       (the absorbed decode is plain PyTorch); ms a token on the host and
       the device;
-   d. the engine on 4 lanes of 128: 6 token requests in lockstep with
+   d. the engine on 4 lanes of 128: 4 token requests in lockstep with
       exact launches a step, and a rescale 4 -> 2 -> 4 lanes mid-run
       against an uninterrupted run, bit for bit; then `serve` and
       `examples.serve_batched` once each (no memory states);
@@ -478,7 +478,7 @@ exit) if any phase fails:
       (in lockstep): 1 read, write and LRA and no attention launch a token;
       ms a token on the host and the device (the expert products read C =
       8 slots of all 128 experts a layer, JAX's buffer: 64.4 GB a token);
-   d. the engine on 4 lanes of 128: 6 token requests in lockstep and the
+   d. the engine on 4 lanes of 128: 4 token requests in lockstep and the
       rescale 4 -> 2 -> 4 lanes bit for bit; then `serve` and
       `examples.serve_batched --arch llama4_maverick_400b_a17b_sam --full
       --layers 2` once each;
@@ -489,7 +489,7 @@ exit) if any phase fails:
    last step) and ``sam`` and ``lstm`` on one-shot Omniglot episodes (dim
    16, 8 label channels, hidden 100, N = 256, W = 24, H = 4, K = 4, B = 8,
    2-5 classes of 5 presentations; masked cross-entropy over every step),
-   20 steps each (the benches' 250 and 150 cut): the first step on a
+   10 steps each (the benches' 250 and 150 cut): the first step on a
    batch whose CPU reads hold no near-tie at K, in lockstep (every read,
    write, LRA and backward scatter against its plain version, the
    launches exact) and against the same step on the CPU (loss, every
@@ -539,7 +539,37 @@ exit) if any phase fails:
       (`mean(-1)`'s count apart printed); the engine on 4 lanes of 128: 4
       token requests in lockstep and the rescale 4 -> 2 -> 4 lanes bit
       for bit (the states, the memories, tokens and logits);
-22. print each phase's seconds, the empty-launch floor with each
+22. Hymba-1.5B + SAM, `hymba_1_5b_sam` at full width and full depth (bf16
+   weights from seed 0, 1.78 B parameters, 3.57 GB; 32 layers of d 1600,
+   25 heads over 5 padded to 80 at head dim 64, a window of 1024; the SSM
+   at d_inner 1600, state 16; a memory group every 4 layers), every SSM
+   leaf drawn (`draw_ssm_leaves`), then the sparse top-K decode:
+   e. first the reduced config with the full config's head groups (10
+      heads over 2 padded to 32), its SSM leaves drawn (f32), on the card
+      against the CPU: a prefill of 64 tokens (the window of 32 binds)
+      and a `decode_scan` of 24 with filled memory states (the logits, k,
+      v, conv, ssm, the memories);
+   b. a prefill at B = 4, S = 2048 in lockstep: 32 attention launches (4
+      bf16, 28 f32, each against its plain version), 32 each of the read,
+      write and LRA; timed once with each SSM head and scan timed between
+      synchronisations (their share), its peak and device-busy share;
+   a. the attention kernel at layer 0's inputs (D = 64, window 1024,
+      groups of 16), bf16 and f32, against its plain version, its time,
+      bound and SDPA's with the window mask;
+   c. a decode with memory states, a 32-token prompt and 16 greedy tokens
+      (in lockstep): 8 reads, writes and LRAs a token, no attention; the
+      cache (k, v a ring, conv bf16, ssm f32); ms a token on the host and
+      the device;
+   d. the engine on 4 lanes of 128: 4 token requests in lockstep and the
+      rescale 4 -> 2 -> 4 lanes bit for bit; `serve` and
+      `examples.serve_batched --arch hymba_1_5b_sam --full` once each;
+   s. the sparse decode: the reduced `starcoder2_7b_sam` with 2 blocks of
+      4 read, on the card against the CPU as (e); one `gqa_decode_sparse`
+      at StarCoder2-7B's attention widths (48 heads over 4, D 128, B = 4,
+      a drawn cache of 4096 slots, 8 blocks of 128 read) equal to
+      `gqa_decode` where every written block is read, and both timed at
+      the last position, f32 and bf16;
+23. print each phase's seconds, the empty-launch floor with each
    latency-bound kernel's time
    above it (`lra_topn`, the scatter, the write at step 21 on f32, bf16
    and int8 rows and at the LM's shapes, the candidate read on f32, bf16
@@ -551,7 +581,8 @@ exit) if any phase fails:
    sliding-window LM's under ``"swa"``, the vision-language LM's under
    ``"vlm"``, DeepSeek-V2's under ``"mla"``, Llama-4's under
    ``"llama4"``, MusicGen's under ``"musicgen"``, RWKV-6's under
-   ``"rwkv"``, the tasks' under ``"tasks"``, the phases' seconds under
+   ``"rwkv"``, Hymba's and the sparse decode's under ``"hymba"``, the
+   tasks' under ``"tasks"``, the phases' seconds under
    ``"phase_seconds"``), and last the
    ``{"ok": true, ...}`` line.
 
@@ -700,6 +731,15 @@ REPLACES = {
     "flash_attention_musicgen_bf16": (
         "src/repro/kernels/flash_attention.py:94",
         "src/repro_torch/kernels/csrc/flash_attention.cu"),
+    # Hymba's prefill attention (phase 22): the D = 64 instantiations with
+    # the window of 1024, 80 heads (25 real, padded: groups of 16) over 5
+    # kv heads, bf16 before the first memory group and f32 after it.
+    "flash_attention_hymba": (
+        "src/repro/kernels/flash_attention.py:94",
+        "src/repro_torch/kernels/csrc/flash_attention.cu"),
+    "flash_attention_hymba_bf16": (
+        "src/repro/kernels/flash_attention.py:94",
+        "src/repro_torch/kernels/csrc/flash_attention.cu"),
     # The slot-sharded memory's top-K (phase 10): fused_read.cu's first
     # pass and a merge without the softmax tail.
     "topk_read": ("src/repro/kernels/topk_read.py:31",
@@ -800,7 +840,7 @@ FLAT_NS = (1 << 16, 1 << 18, 1 << 20)
 # ENGINE_LOCKSTEP_EVERY-th step; the busy share over ENGINE_BUSY_STEPS.
 ENGINE_LANES, ENGINE_MAX_LEN, ENGINE_CAPACITY = 4, 128, 2
 ENGINE_REQUESTS, ENGINE_RATE, ENGINE_SEED = 6, 1.0, 12
-ENGINE_PROMPT, ENGINE_GEN, ENGINE_REVISIT, ENGINE_SAMPLED = (16, 32), 16, \
+ENGINE_PROMPT, ENGINE_GEN, ENGINE_REVISIT, ENGINE_SAMPLED = (16, 32), 8, \
     0.25, 4
 ENGINE_AFTER_RESTORE, ENGINE_LOCKSTEP_EVERY, ENGINE_BUSY_STEPS = 3, 16, 4
 # Fig. 7 (`benchmarks/bench_sdnc.py`): B = 2, R = 2, K = 4, W = 32,
@@ -855,9 +895,9 @@ SWA_SMALL_S, SWA_SMALL_DECODE, SWA_SMALL_MAX_LEN = 128, 80, 64
 # embeddings, a decode of VLM_SMALL_DECODE tokens into a cache of
 # VLM_SMALL_MAX_LEN, a loss gradient.
 VLM_ARCH = "paligemma_3b_sam"
-VLM_B, VLM_S, VLM_PREFILL_RUNS = 4, 2048, 2
+VLM_B, VLM_S, VLM_PREFILL_RUNS = 4, 2048, 1
 VLM_PROMPT, VLM_GEN, VLM_MAX_LEN = 32, 16, 128
-VLM_LANES, VLM_REQUESTS, VLM_REQ_PROMPT, VLM_REQ_GEN = 4, 6, (8, 16), 8
+VLM_LANES, VLM_REQUESTS, VLM_REQ_PROMPT, VLM_REQ_GEN = 4, 4, (8, 16), 8
 VLM_SMALL_S_T, VLM_SMALL_DECODE, VLM_SMALL_MAX_LEN = 48, 24, 32
 # The reduced configs' loss gradients are ill-conditioned (scores of std
 # ~64 at head dim 256; the tied embedding's gradient sums the head's and
@@ -879,9 +919,9 @@ VLM_SPREAD_DRAWS = 3
 # the CPU: a prefill of MLA_SMALL_S tokens and a decode of
 # MLA_SMALL_DECODE into a cache of MLA_SMALL_MAX_LEN.
 MLA_ARCH, MLA_LAYERS = "deepseek_v2_236b_sam", 4
-MLA_B, MLA_S, MLA_PREFILL_RUNS = 4, 2048, 2
+MLA_B, MLA_S, MLA_PREFILL_RUNS = 4, 2048, 1
 MLA_PROMPT, MLA_GEN, MLA_MAX_LEN = 32, 16, 128
-MLA_LANES, MLA_REQUESTS, MLA_REQ_PROMPT, MLA_REQ_GEN = 4, 6, (8, 16), 8
+MLA_LANES, MLA_REQUESTS, MLA_REQ_PROMPT, MLA_REQ_GEN = 4, 4, (8, 16), 8
 MLA_SMALL_S, MLA_SMALL_DECODE, MLA_SMALL_MAX_LEN = 64, 24, 32
 MLA_SMALL = dict(num_layers=3, num_heads=2, num_kv_heads=2, every=2,
                  kv_lora=64, q_lora=48, rope_head_dim=64, nope_head_dim=128,
@@ -902,9 +942,9 @@ MLA_SMALL = dict(num_layers=3, num_heads=2, num_kv_heads=2, every=2,
 # prefill needs beside the weights (the head upcast to f32 for the
 # promoted stream, 4.1 GB, and the activations).
 L4_ARCH, L4_LAYERS = "llama4_maverick_400b_a17b_sam", 2
-L4_B, L4_S, L4_PREFILL_RUNS = 4, 2048, 2
+L4_B, L4_S, L4_PREFILL_RUNS = 4, 2048, 1
 L4_PROMPT, L4_GEN, L4_MAX_LEN = 32, 16, 128
-L4_LANES, L4_REQUESTS, L4_REQ_PROMPT, L4_REQ_GEN = 4, 6, (8, 16), 8
+L4_LANES, L4_REQUESTS, L4_REQ_PROMPT, L4_REQ_GEN = 4, 4, (8, 16), 8
 L4_SMALL_S, L4_SMALL_DECODE, L4_SMALL_MAX_LEN = 64, 24, 32
 L4_SMALL = dict(num_heads=10, num_kv_heads=2, pad_head_groups=6)
 L4_SPARE = 8 << 30
@@ -942,6 +982,35 @@ RW_PROMPT, RW_GEN, RW_MAX_LEN = 32, 16, 128
 RW_LANES, RW_REQUESTS, RW_REQ_PROMPT, RW_REQ_GEN = 4, 4, (8, 16), 8
 RW_SMALL_S, RW_SMALL_DECODE, RW_SMALL_MAX_LEN = 64, 24, 32
 ROW_SUM_DRAWS = 200
+# Phase 22, Hymba-1.5B (+ SAM) at full width and full depth (bf16 compute;
+# weights from seed 0 held in bf16, every SSM leaf drawn
+# (`draw_ssm_leaves`): 1.78 B parameters, 3.57 GB; 32 layers of d 1600,
+# 25 heads over 5 padded to 80 at head dim 64, a window of 1024, the SSM
+# at d_inner 1600, state 16; memory N = 65536, W = 128, H = 4, K = 8, a
+# group every 4 layers): a prefill of HY_B × HY_S tokens, timed
+# HY_PREFILL_RUNS times with the SSM's host share; a decode with memory
+# states of a HY_PROMPT-token prompt and HY_GEN greedy tokens; the engine
+# on HY_LANES lanes of HY_MAX_LEN: HY_REQUESTS requests of HY_REQ_PROMPT
+# tokens and HY_REQ_GEN new ones, and a rescale of 4 -> 2 -> 4 lanes; the
+# reduced config with the full config's head groups (HY_SMALL) on the
+# card against the CPU: a prefill of HY_SMALL_S tokens and a decode of
+# HY_SMALL_DECODE into a cache of HY_SMALL_MAX_LEN. The sparse decode:
+# the reduced `starcoder2_7b_sam` with SP_SMALL, the same card-against-CPU
+# run; one `gqa_decode_sparse` call at StarCoder2-7B's attention widths
+# with SP_BIG (`benchmarks/perf_iterations.py`'s overrides) over a drawn
+# cache of SP_SLOTS slots, SP_B lanes, at SP_EQUAL_POS (every written
+# block read: equal to `gqa_decode`) and timed at the last slot.
+HY_ARCH = "hymba_1_5b_sam"
+HY_B, HY_S, HY_PREFILL_RUNS = 4, 2048, 1
+HY_PROMPT, HY_GEN, HY_MAX_LEN = 32, 16, 128
+HY_LANES, HY_REQUESTS, HY_REQ_PROMPT, HY_REQ_GEN = 4, 4, (8, 16), 8
+HY_SMALL_S, HY_SMALL_DECODE, HY_SMALL_MAX_LEN = 64, 24, 32
+HY_SMALL = dict(num_heads=10, num_kv_heads=2, pad_head_groups=16)
+# The SSM's matrices, drawn N(0, 1/fan_in) of their own input width.
+SSM_PROJECTIONS = ("in_proj", "x_proj", "dt_proj", "out_proj")
+SP_SMALL = dict(sparse_decode_blocks=2, sparse_decode_block=4)
+SP_BIG = dict(sparse_decode_blocks=8, sparse_decode_block=128)
+SP_B, SP_SLOTS, SP_EQUAL_POS = 4, 4096, 1000
 # `serve` in phase 20: a prompt of SERVE_PROMPT frames and SERVE_GEN new
 # tokens (host-bound decodes of ~0.17 s a token).
 SERVE_PROMPT, SERVE_GEN = 8, 8
@@ -957,7 +1026,7 @@ RWKV_ZERO_LEAVES = {"tm": ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g", "mu_x",
 # (`benchmarks/bench_omniglot.py`): episodes of 2 to OMNI_CLASSES classes
 # of OMNI_P presentations, examples of OMNI_DIM, inputs padded to
 # OMNI_LABELS label channels, B = OMNI_B, hidden 100 over OMNI_MEM.
-TASK_STEPS, TASK_LR, TASK_CLIP = 20, 1e-3, 10.0
+TASK_STEPS, TASK_LR, TASK_CLIP = 10, 1e-3, 10.0
 TASK_RUNS = (("sdnc", "babi"), ("sam", "babi"), ("lstm", "babi"),
              ("sam", "omniglot"), ("lstm", "omniglot"))
 BABI_LEN, BABI_B, BABI_HIDDEN = 32, 16, 128
@@ -2056,7 +2125,7 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
 
     # The decode's rate: a window of GEN greedy steps (the token fed back
     # on the device) as one synchronised span, from the prompt's end of
-    # the cache; the median of two windows after one untimed; single
+    # the cache; one window after one untimed; single
     # steps (median of 3) on the side.
     def rewind():
         state["cache"] = {**state["cache"], "pos": torch.tensor(
@@ -2074,7 +2143,7 @@ def lm_phase(dev, ops, ref, checker, zero_counts, counts, flush):
     decode_peak = torch.cuda.max_memory_allocated() - held
     rewind()
     decode_window(None)
-    window_ms, window_all = host_ms(decode_window, runs=2, setup=rewind)
+    window_ms, window_all = host_ms(decode_window, runs=1, setup=rewind)
     decode_ms = window_ms / LM_GEN
     decode_all = [t / LM_GEN for t in window_all]
     spread = (max(decode_all) - min(decode_all)) / decode_ms
@@ -5112,7 +5181,7 @@ def swa_phase(dev, ops, ref, checker, zero_counts, counts, flush, ptxas):
                 params, cfg, state["cache"], tok, mem_states=state["mem"])
             tok = lg[:, -1].float().argmax(-1).to(torch.int32)[:, None]
 
-    window_ms, window_all = host_ms(decode_window, runs=2, setup=rewind)
+    window_ms, window_all = host_ms(decode_window, runs=1, setup=rewind)
     decode_ms = window_ms / SWA_GEN
     rewind()
     ddev_ms, _ = device_time(lambda: decode_window(None, PROFILE_STEPS))
@@ -5621,7 +5690,7 @@ def vlm_phase(dev, ops, ref, checker, zero_counts, counts, flush, ptxas):
                 params, cfg, state["cache"], tok, mem_states=state["mem"])
             tok = lg[:, -1].float().argmax(-1).to(torch.int32)[:, None]
 
-    window_ms, window_all = host_ms(decode_window, runs=2, setup=rewind)
+    window_ms, window_all = host_ms(decode_window, runs=1, setup=rewind)
     decode_ms = window_ms / VLM_GEN
     rewind()
     ddev_ms, _ = device_time(lambda: decode_window(None, PROFILE_STEPS))
@@ -5913,6 +5982,19 @@ def serve_full(tag, arch, layers, example_arch, dev, counts, zero_counts, *,
     return out
 
 
+def synced(fn, log):
+    """``fn`` with each call timed between two synchronisations, its
+    seconds appended to ``log`` (a plain loop's share of a run)."""
+    def run(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn(*args, **kw)
+        torch.cuda.synchronize()
+        log.append(time.perf_counter() - t)
+        return res
+    return run
+
+
 def draw_rwkv_zero_leaves(params, gen) -> None:
     """Draw, in place, the RWKV leaves that `init_params` (as JAX's) leaves
     at zero, so the lerp's and the decay's LoRAs and the bonus act (at
@@ -5926,6 +6008,22 @@ def draw_rwkv_zero_leaves(params, gen) -> None:
             t.copy_(draw)
 
 
+def draw_ssm_leaves(params, gen) -> None:
+    """Draw, in place, every SSM leaf of a hybrid config from ``gen`` (a
+    generator on the leaves' device), layer by layer: a projection N(0,
+    1/fan_in) of its own input width, conv_w and the leaves `init_params`
+    (as JAX's) sets to constants (a_log, conv_b and dt_bias to zero,
+    d_skip to one: a wrong index into one would pass) N(0, 0.5²). The
+    init's fan-in of the stacked axis (the layer count) makes Δ ~ 100 and
+    the SSM's output ~ 1e9, whose writes swamp the memory and tie its
+    reads at K."""
+    for name, t in sorted(params["blocks"]["ssm"].items()):
+        std = t.shape[-2] ** -0.5 if name in SSM_PROJECTIONS else 0.5
+        for i in range(t.shape[0]):
+            t[i] = torch.randn(t.shape[1:], generator=gen,
+                               device=t.device) * std
+
+
 def reduced_card_vs_cpu(small, dev, ops, ref, zero_counts, counts, *, S,
                         decode, max_len):
     """A reduced config (f32) on the card against the plain versions on the
@@ -5937,7 +6035,8 @@ def reduced_card_vs_cpu(small, dev, ops, ref, zero_counts, counts, *, S,
     ``max_len``: the logits, every cache leaf and the memories within
     SLICE_TOL of max(1, |CPU|), usage and read rows equal; the token seeds
     the first of 0-63 whose CPU reads hold no near-tie at K and whose
-    routers none at k. Returns (errors, seeds, attention launches)."""
+    routers none at k. A hybrid config's SSM leaves are drawn
+    (`draw_ssm_leaves`). Returns (errors, seeds, attention launches)."""
     from torch.utils import _pytree as pytree
 
     from repro_torch.models import lm
@@ -5946,6 +6045,8 @@ def reduced_card_vs_cpu(small, dev, ops, ref, zero_counts, counts, *, S,
     p_cpu = lm.init_params(small, seed=0, device="cpu")
     if small.block == "rwkv":
         draw_rwkv_zero_leaves(p_cpu, torch.Generator().manual_seed(5))
+    if small.block == "hybrid":
+        draw_ssm_leaves(p_cpu, torch.Generator().manual_seed(5))
     p_gpu = tree_map(lambda t: t.to(dev), p_cpu)
 
     def inputs(gen, n):
@@ -6126,13 +6227,15 @@ def full_width_serving(tag, name_, cfg, params, dev, checker, zero_counts,
             f"v {tuple(v0.shape)}")
     q4, k4, v4 = (t.float() for t in (q0, k0, v0))
     zero_counts()
-    f32_check = check_flash(ref, q4, k4, v4, flash_attention(q4, k4, v4))
+    win = cfg.window
+    f32_check = check_flash(ref, q4, k4, v4,
+                            flash_attention(q4, k4, v4, window=win), win)
     require(counts()["flash_attention"] == 1, "the f32 check did not launch")
     row_bf16 = attention_row(ref, flash_attention, q0, k0, v0, flush,
-                             tag=tag)
+                             window=win, tag=tag)
     row_f32 = attention_row(ref, flash_attention, q4, k4, v4, flush,
-                            tag=tag)
-    out["pairs"] = attn_pairs(S)
+                            window=win, tag=tag)
+    out["pairs"] = attn_pairs(S, win)
     out["flash_f32_check"] = f32_check
     del q0, k0, v0, q4, k4, v4
     torch.cuda.empty_cache()
@@ -6143,8 +6246,9 @@ def full_width_serving(tag, name_, cfg, params, dev, checker, zero_counts,
                 f"{r['ms'] / r['library_ms']:.2f}x its time)")
         print(f"[time] flash_attention {name} at {name_}'s prefill (B="
               f"{B}, S={S}, H={Hq} over {cfg.num_kv_heads}, q·k {DQK}, "
-              f"v {DV}, "
-              f"causal: {out['pairs']} (query, key) pairs a head): "
+              f"v {DV}, causal"
+              + (f" within a window of {win}" if win else "")
+              + f": {out['pairs']} (query, key) pairs a head): "
               f"{r['ms']:.4f} ms (bound {r['bound'][0]:.4f} ms by "
               f"{r['bound'][1]}: {r['bound'][0] / r['ms']:.1%} of it), "
               f"plain {r['plain_ms']:.4f} ms, library {lib}")
@@ -6693,17 +6797,9 @@ def rwkv_phase(dev, ops, ref, checker, zero_counts, counts, flush):
     # step).
     scan, wkv_s = rwkv.wkv_scan, []
 
-    def timed_scan(*args, **kw):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = scan(*args, **kw)
-        torch.cuda.synchronize()
-        wkv_s.append(time.perf_counter() - t)
-        return res
-
     @contextlib.contextmanager
     def wkv_timed():
-        rwkv.wkv_scan = timed_scan
+        rwkv.wkv_scan = synced(scan, wkv_s)
         try:
             yield
         finally:
@@ -6759,6 +6855,237 @@ def rwkv_phase(dev, ops, ref, checker, zero_counts, counts, flush):
     out["seconds"] = part_s
     print(f"[rwkv] seconds by part: {part_s}")
     return {"rwkv": out}
+
+
+def hymba_phase(dev, ops, ref, checker, zero_counts, counts, flush):
+    """Phase 22: Hymba-1.5B (+ SAM) served at full width and full depth,
+    then the sparse top-K decode (`sparse_decode_part`). Returns the D = 64
+    windowed attention rows over 80 heads (bf16 at layer 0's prefill
+    inputs, f32 at the same inputs upcast), their launches in the prefill
+    and the numbers."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import lm, ssm
+
+    cfg = get_config(HY_ARCH)
+    groups = cfg.num_layers // cfg.memory.every_n_layers
+    d_inner = cfg.ssm.expand * cfg.d_model // 2
+    got = (cfg.num_layers, cfg.d_model, cfg.padded_heads, cfg.num_kv_heads,
+           cfg.head_dim, cfg.window, d_inner, cfg.ssm.state_size, groups)
+    require(got == (32, 1600, 80, 5, 64, 1024, 1600, 16, 8),
+            f"{HY_ARCH}: (layers, d, padded heads, kv heads, head dim, "
+            f"window, d_inner, state, memory groups) {got}")
+    out, part_s, clock = {}, {}, [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        part_s[name] = round(now - clock[0], 1)
+        clock[0] = now
+
+    # (e) first, the reduced config with the full config's head groups (10
+    # heads over 2 padded to 32: groups of 16, 5 real), its SSM leaves
+    # drawn, in f32 on the card against the CPU.
+    small = dataclasses.replace(reduced(cfg), compute_dtype="float32",
+                                **HY_SMALL)
+    errs, seeds, small_launches = reduced_card_vs_cpu(
+        small, dev, ops, ref, zero_counts, counts, S=HY_SMALL_S,
+        decode=HY_SMALL_DECODE, max_len=HY_SMALL_MAX_LEN)
+    out["card_vs_cpu"] = dict(err=errs, seeds=seeds,
+                              f32_launches=small_launches)
+    print(f"[hymba] reduced {HY_ARCH} ({small.num_heads} heads over "
+          f"{small.num_kv_heads} padded to {small.padded_heads}, head dim "
+          f"{small.head_dim}, window {small.window}, SSM state "
+          f"{small.ssm.state_size}, {small.num_layers} layers, SSM leaves "
+          f"drawn; f32) on the card against the CPU (token seeds {seeds}): "
+          f"prefill logits {errs['prefill']:.3g} ({small_launches} f32 "
+          f"attention launches), decode_scan of {HY_SMALL_DECODE} tokens "
+          f"with memory states {errs['decode']:.3g}, k {errs['k']:.3g}, v "
+          f"{errs['v']:.3g}, conv {errs['conv']:.3g}, ssm "
+          f"{errs['ssm']:.3g}, memory {errs['memory']:.3g} (bar "
+          f"{SLICE_TOL} of max(1, |CPU|); usage and read rows equal)")
+    torch.cuda.empty_cache()
+    part("e")
+
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=dev, dtype=cfg.compute_dtype)
+    draw_ssm_leaves(params, torch.Generator(device=dev).manual_seed(5))
+    torch.cuda.synchronize()
+    print(f"[hymba] {HY_ARCH} at all 32 layers: drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s, the SSM leaves drawn")
+    part("draw")
+
+    def cache_ok(cache, n_tok):
+        L = cfg.num_layers
+        kv_shape = (L, HY_B, min(HY_MAX_LEN, cfg.window), cfg.num_kv_heads,
+                    cfg.head_dim)
+        kv = all(cache[key].shape == kv_shape
+                 and cache[key].dtype == torch.bfloat16
+                 and bool(cache[key][:, :, :n_tok].abs().amax((1, 2, 3, 4))
+                          .gt(0).all())
+                 and not cache[key][:, :, n_tok:].any()
+                 for key in ("k", "v"))
+        states = {"conv": ((L, HY_B, cfg.ssm.conv_width - 1, d_inner),
+                           torch.bfloat16),
+                  "ssm": ((L, HY_B, d_inner, cfg.ssm.state_size),
+                          torch.float32)}
+        return set(cache) == {"k", "v", *states, "pos"} and kv and all(
+            cache[k].shape == shape and cache[k].dtype == dtype
+            and bool(torch.isfinite(cache[k]).all())
+            and bool(cache[k].flatten(1).abs().amax(1).gt(0).all())
+            for k, (shape, dtype) in states.items())
+
+    # The timed prefill runs with each SSM head and each scan timed between
+    # synchronisations: their share of the prefill.
+    scan, head, scan_s, head_s = ssm._scan_assoc, ssm.ssm_apply, [], []
+
+    @contextlib.contextmanager
+    def ssm_timed():
+        ssm._scan_assoc = synced(scan, scan_s)
+        ssm.ssm_apply = synced(head, head_s)
+        try:
+            yield
+        finally:
+            ssm._scan_assoc, ssm.ssm_apply = scan, head
+
+    core = full_width_serving(
+        "hymba", "Hymba-1.5B", cfg, params, dev, checker, zero_counts,
+        counts, flush, part, B=HY_B, S=HY_S, prompt=HY_PROMPT, gen=HY_GEN,
+        max_len=HY_MAX_LEN, prefill_runs=HY_PREFILL_RUNS,
+        heads=(cfg.padded_heads, cfg.head_dim, cfg.head_dim),
+        cache_ok=cache_ok, cache_what="the cache (k and v a ring, conv "
+        "bf16, ssm f32)", decode_dtype=torch.bfloat16,
+        prefill_context=ssm_timed)
+    out.update(core["out"])
+    runs = cfg.num_layers * HY_PREFILL_RUNS
+    require(len(scan_s) == len(head_s) == runs, f"the timed prefills ran "
+            f"{len(head_s)} SSM heads and {len(scan_s)} scans, not {runs}")
+    total = sum(out["prefill_ms_all"])
+    scans, heads = sum(scan_s) * 1e3, sum(head_s) * 1e3
+    out.update(ssm_scan_ms=scans / HY_PREFILL_RUNS,
+               ssm_scan_share=scans / total,
+               ssm_head_ms=heads / HY_PREFILL_RUNS,
+               ssm_head_share=heads / total)
+    print(f"[time] Hymba-1.5B prefill (B={HY_B}, S={HY_S}): the "
+          f"{cfg.num_layers} SSM heads (each timed between "
+          f"synchronisations) take {heads / HY_PREFILL_RUNS:.1f} ms of "
+          f"{total / HY_PREFILL_RUNS:.1f} ({heads / total:.1%}), their "
+          f"scans {scans / HY_PREFILL_RUNS:.1f} ms ({scans / total:.1%})")
+
+    # (d) the engine on HY_LANES lanes in lockstep, the rescale 4 -> 2 -> 4
+    # bit for bit.
+    out.update(engine_rescale(
+        "hymba", cfg, params, dev, checker, zero_counts, counts, groups,
+        lanes=HY_LANES, requests=HY_REQUESTS, req_prompt=HY_REQ_PROMPT,
+        req_gen=HY_REQ_GEN, max_len=HY_MAX_LEN,
+        cache_key="k, v, conv and ssm"))
+    del params
+    torch.cuda.empty_cache()
+    part("d")
+    out.update(serve_full(
+        "hymba", HY_ARCH, None, HY_ARCH, dev, counts, zero_counts,
+        batch=HY_B, prompt=SERVE_PROMPT, gen=SERVE_GEN, max_len=HY_MAX_LEN,
+        vocab=cfg.vocab_size))
+    part("serve")
+    out["sparse"] = sparse_decode_part(dev, ops, ref, zero_counts, counts)
+    part("s")
+    out["seconds"] = part_s
+    print(f"[hymba] seconds by part: {part_s}")
+    by_dtype = out["flash_by_dtype"]
+    return {"row": core["row"], "bf16_row": core["bf16_row"],
+            "launches": {"flash_attention_hymba": by_dtype["float32"],
+                         "flash_attention_hymba_bf16": by_dtype["bfloat16"]},
+            "err": core["f32_check"]["err"], "bf16_err": core["bf16_err"],
+            "hymba": out}
+
+
+def sparse_decode_part(dev, ops, ref, zero_counts, counts):
+    """Phase 22's sparse top-K decode (`attention.gqa_decode_sparse`, plain
+    PyTorch as JAX's is plain JAX): the reduced `starcoder2_7b_sam` with
+    SP_SMALL on the card against the CPU (`reduced_card_vs_cpu`: k, v and
+    ksum among the cache leaves); then one call at StarCoder2-7B's
+    attention widths with SP_BIG over a drawn cache of SP_SLOTS slots,
+    ksum the sums of each block's written slots: at SP_EQUAL_POS, where
+    every written block is read, equal to `gqa_decode` within SLICE_TOL
+    of max(1, |dense|) (f32); both timed at the last slot, f32 and bf16:
+    the ms of a call's kernels (`device_time`: each is a few dozen
+    launches, so a window between two events would hold the host's gaps)
+    and its host ms. Returns the numbers."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import init_from_defs
+
+    small = dataclasses.replace(reduced(get_config(LM_ARCH)),
+                                compute_dtype="float32", **SP_SMALL)
+    errs, seeds, _ = reduced_card_vs_cpu(
+        small, dev, ops, ref, zero_counts, counts, S=HY_SMALL_S,
+        decode=HY_SMALL_DECODE, max_len=HY_SMALL_MAX_LEN)
+    out = {"card_vs_cpu": dict(err=errs, seeds=seeds)}
+    print(f"[sparse] reduced {LM_ARCH} with "
+          f"{SP_SMALL['sparse_decode_blocks']} blocks of "
+          f"{SP_SMALL['sparse_decode_block']} read "
+          f"(f32) on the card against the CPU (token seeds {seeds}): "
+          f"decode_scan of {HY_SMALL_DECODE} tokens with memory states "
+          f"{errs['decode']:.3g}, k {errs['k']:.3g}, v {errs['v']:.3g}, "
+          f"ksum {errs['ksum']:.3g}, memory {errs['memory']:.3g} (bar "
+          f"{SLICE_TOL} of max(1, |CPU|))")
+
+    big = dataclasses.replace(get_config("starcoder2_7b"), **SP_BIG)
+    bs, Hkv, D = big.sparse_decode_block, big.num_kv_heads, big.head_dim
+    gen = torch.Generator(device=dev).manual_seed(22)
+    slot = torch.arange(SP_SLOTS, device=dev)[None, :, None, None]
+
+    def ksum_below(kc, pos):
+        return (kc.float() * (slot < pos)).reshape(
+            SP_B, SP_SLOTS // bs, bs, Hkv, D).sum(2).to(kc.dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        p = init_from_defs(attn.attn_defs(big), gen, dtype, dev)
+        x = torch.randn((SP_B, 1, big.d_model), generator=gen,
+                        device=dev).to(dtype)
+        kc, vc = (torch.randn((SP_B, SP_SLOTS, Hkv, D), generator=gen,
+                              device=dev).to(dtype) for _ in range(2))
+        if dtype == torch.float32:
+            at = torch.tensor(SP_EQUAL_POS, dtype=torch.int32, device=dev)
+            sparse = attn.gqa_decode_sparse(
+                p, big, x, kc.clone(), vc.clone(),
+                ksum_below(kc, SP_EQUAL_POS), at)[0]
+            dense = attn.gqa_decode(p, big, x, kc.clone(), vc.clone(), at)[0]
+            err = (sparse - dense).abs().max().item()
+            scale = max(1.0, dense.abs().max().item())
+            require(bool(torch.isfinite(sparse).all())
+                    and err <= SLICE_TOL * scale,
+                    f"gqa_decode_sparse at pos {SP_EQUAL_POS} (every written "
+                    f"block read) differs from gqa_decode by {err:.3g}, "
+                    f"above {SLICE_TOL} x {scale:.3g}")
+            out["equal_to_dense_err"] = err
+        last = torch.tensor(SP_SLOTS - 1, dtype=torch.int32, device=dev)
+        ks = ksum_below(kc, SP_SLOTS - 1)
+
+        def run_sparse(_=None):
+            attn.gqa_decode_sparse(p, big, x, kc, vc, ks, last)
+
+        def run_dense(_=None):
+            attn.gqa_decode(p, big, x, kc, vc, last)
+
+        run_sparse(), run_dense()
+        row = dict(sparse_ms=device_time(run_sparse)[0],
+                   dense_ms=device_time(run_dense)[0],
+                   sparse_host_ms=host_ms(run_sparse, runs=10)[0],
+                   dense_host_ms=host_ms(run_dense, runs=10)[0])
+        out[name] = row
+        print(f"[time] gqa_decode_sparse {name} at StarCoder2-7B's attention "
+              f"(B={SP_B}, {big.padded_heads} heads over {Hkv}, D={D}, a "
+              f"cache of {SP_SLOTS} slots, {SP_BIG['sparse_decode_blocks']}"
+              f" blocks of {bs} read) at pos {SP_SLOTS - 1}: "
+              f"{row['sparse_ms']:.4f} ms of kernels (host "
+              f"{row['sparse_host_ms']:.4f}), gqa_decode "
+              f"{row['dense_ms']:.4f} ms (host {row['dense_host_ms']:.4f})")
+        del p, x, kc, vc, ks
+    print(f"[sparse] gqa_decode_sparse at pos {SP_EQUAL_POS} (every written "
+          f"block read) against gqa_decode, f32: "
+          f"{out['equal_to_dense_err']:.3g}")
+    torch.cuda.empty_cache()
+    return out
 
 
 def task_batch(task, source, device):
@@ -8288,11 +8615,19 @@ def run() -> None:
     rw = rwkv_phase(dev, ops, ref, checker, zero_counts, counts, flush)
 
     mark("21")
+    # ---- 22. Hymba-1.5B (+ SAM), full width and depth; the sparse decode
+    hy = hymba_phase(dev, ops, ref, checker, zero_counts, counts, flush)
+    rows["flash_attention_hymba"] = hy["row"]
+    rows["flash_attention_hymba_bf16"] = hy["bf16_row"]
+    checker.err["flash_attention_hymba"] = hy["err"]
+    checker.err["flash_attention_hymba_bf16"] = hy["bf16_err"]
+
+    mark("22")
     # ---- 19. the paper's tasks: bAbI-lite and one-shot Omniglot ----
     tasks_res = tasks_phase(dev, ops, ref, checker, zero_counts, counts)
 
     mark("19")
-    # ---- 22. report ----
+    # ---- 23. report ----
     lm_write = lmr["lm"]["kernels_at_lm_shapes"]["sparse_write_update"]
     above = (("lra_topn", rows["lra_topn"]), ("block", lra_block),
              ("scatter_rows 'set'", rows["scatter_rows"]),
@@ -8342,6 +8677,8 @@ def run() -> None:
                "flash_attention_llama4_bf16": llama4["launches"],
                "flash_attention_musicgen": mg["launches"],
                "flash_attention_musicgen_bf16": mg["launches"],
+               "flash_attention_hymba": hy["launches"],
+               "flash_attention_hymba_bf16": hy["launches"],
                "topk_read": mesh["launches"],
                "topk_read_bf16": mesh["bf16_launches"],
                "topk_read_int8": mesh["int8_launches"]}
@@ -8413,6 +8750,7 @@ def run() -> None:
                       "swa": swa["swa"], "vlm": vlm["vlm"],
                       "mla": mla["mla"], "llama4": llama4["llama4"],
                       "musicgen": mg["musicgen"], "rwkv": rw["rwkv"],
+                      "hymba": hy["hymba"],
                       "tasks": tasks_res,
                       "phase_seconds": phase_s},
                      default=str))

@@ -10,10 +10,12 @@ dense first layer, then MoE layers) and Llama-4 Maverick (GQA with 40
 heads padded to 48 over 8, MoE layers of 128 experts, top-1, one shared
 expert, no dense layer), MusicGen-medium (the stubbed audio frontend:
 frame embeddings in place of tokens; 24 MHA heads at head dim 64 padded
-to 48, the GELU MLP) and RWKV-6 7B (the attention-free RWKV block:
-time-mix with a data-dependent decay, squared-ReLU channel-mix). Every
-other architecture of the JAX registry raises, naming the ROADMAP item
-that ports it.
+to 48, the GELU MLP), RWKV-6 7B (the attention-free RWKV block:
+time-mix with a data-dependent decay, squared-ReLU channel-mix) and
+Hymba-1.5B (the hybrid block: sliding-window GQA with 25 heads padded to
+80 over 5 and a Mamba-style selective SSM on the same normed input,
+averaged; the gated SiLU MLP). Yi-34B and Mistral-Large-123B, which need
+more than one card, raise, naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -36,14 +38,13 @@ ARCH_IDS = (
 )
 PORTED = ("starcoder2_7b", "h2o_danube_3_4b", "paligemma_3b",
           "deepseek_v2_236b", "llama4_maverick_400b_a17b", "musicgen_medium",
-          "rwkv6_7b")
+          "rwkv6_7b", "hymba_1_5b")
 # What each architecture the port does not run yet needs (ROADMAP §A).
 NOT_PORTED = {
     "yi_34b": "A9c (dense GQA like StarCoder2, but 34B parameters need "
               "more than one H100; its registry entry comes with A9c)",
     "mistral_large_123b": "A9c (dense GQA, 123B parameters: more than one "
                           "H100)",
-    "hymba_1_5b": "A9c (the hybrid SSM block)",
 }
 
 
@@ -69,7 +70,8 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     ``prefix_lm``) where it has one; 4 experts of 64, top-2 (or fewer), at
     most one dense layer where it has MoE; MLA's kv_lora 32, q_lora 48,
     rope 16, nope 32, v 32 where it has MLA; RWKV's head_size 32,
-    decay_lora 16 and mix_lora 8 where it has RWKV; and a memory of 64
+    decay_lora 16 and mix_lora 8 where it has RWKV; the SSM's state_size 8
+    and dt_rank 16 where it has one; and a memory of 64
     slots of 16 with K = 4, a memory group per layer and segments of
     32."""
     kw = dict(
@@ -89,6 +91,8 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     if cfg.rwkv is not None:
         kw["rwkv"] = dataclasses.replace(cfg.rwkv, head_size=32,
                                          decay_lora=16, mix_lora=8)
+    if cfg.ssm is not None:
+        kw["ssm"] = dataclasses.replace(cfg.ssm, state_size=8, dt_rank=16)
     if cfg.frontend == "vision":
         kw["frontend_len"] = 16
         kw["prefix_lm"] = 16

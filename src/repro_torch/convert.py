@@ -11,7 +11,8 @@ P = 1) where there is one; the dense models' is `DenseState`, with a plain
 (`dnc_state_from_jax`), whose weights share SAM's three groups. `sharded_state_from_jax` cuts a SAM state into one
 rank's block of a slot-sharded memory. The LM's weights are the nested
 tree of `models/lm.py::param_defs` (stacked ``blocks``, ``memory``, ``embed``,
-``final_norm``, ``lm_head``) on both sides; its cache is {"k", "v", "pos"},
+``final_norm``, ``lm_head``) on both sides; its cache is {"k", "v", "pos"}
+(with "ksum" for the sparse decode, "conv" and "ssm" in a hybrid block),
 MLA's {"ckv", "pos"} or RWKV's {"tm_shift", "wkv", "cm_shift", "pos"},
 its memory states a tuple of `sam_layer.MemoryState` and its optimizer
 state an `AdamWState` (`adamw_state_from_jax`); a serving
@@ -245,8 +246,9 @@ def lm_params_from_jax(tree, *, device="cuda"):
     no ``lm_head`` where the head is tied to the embedding, PaliGemma's,
     whose pad heads are leaves of ``wq`` and ``wo`` like the others; a MoE
     config's leading dense layers stacked as ``dense_blocks``, its blocks'
-    ``moe`` and MLA's ``attn`` leaves, and an RWKV block's ``tm`` and
-    ``cm``, as any others; an audio config's unused ``embed`` too). Raises
+    ``moe`` and MLA's ``attn`` leaves, an RWKV block's ``tm`` and
+    ``cm`` and a hybrid block's ``ssm``, as any others; an audio
+    config's unused ``embed`` too). Raises
     on any other group."""
     unknown = set(tree) - set(_LM_GROUPS)
     if unknown or not {"embed", "blocks", "final_norm"} <= set(tree):
@@ -266,20 +268,25 @@ def adamw_state_from_jax(state, *, device="cuda") -> AdamWState:
 
 
 _CACHE_KEYS = ({"k", "v", "pos"}, {"ckv", "pos"},
-               {"tm_shift", "wkv", "cm_shift", "pos"})
+               {"tm_shift", "wkv", "cm_shift", "pos"},
+               {"k", "v", "conv", "ssm", "pos"}, {"k", "v", "ksum", "pos"})
 
 
 def lm_cache_from_jax(cache, *, device="cuda"):
-    """A JAX LM cache {"k", "v" (L, B, Smax, Hkv, D), "pos" () or (B,)},
-    MLA's {"ckv" (L, B, Smax, kv_lora + rope), "pos"} or RWKV's
+    """A JAX LM cache {"k", "v" (L, B, Smax, Hkv, D), "pos" () or (B,)}
+    (with the sparse decode's "ksum" (L, B, nb, Hkv, D), or a hybrid
+    block's "conv" (L, B, K-1, d_inner) and "ssm" (L, B, d_inner, N)
+    f32), MLA's {"ckv" (L, B, Smax, kv_lora + rope), "pos"} or RWKV's
     {"tm_shift", "cm_shift" (L, B, d), "wkv" (L, B, H, D, D) f32, "pos"}
     -> the port's, the float leaves in their dtype (f32 or bf16), pos
     int32. With a window Smax = min(max_len, window) slots of a ring, as
     on both sides."""
     if set(cache) not in _CACHE_KEYS:
-        raise ValueError(f"expected the cache keys k, v and pos (GQA), ckv "
-                         f"and pos (MLA) or tm_shift, wkv, cm_shift and pos "
-                         f"(RWKV), got {sorted(cache)}")
+        raise ValueError(f"expected the cache keys k, v and pos (GQA; with "
+                         f"ksum for the sparse decode, with conv and ssm in "
+                         f"a hybrid block), ckv and pos (MLA) or tm_shift, "
+                         f"wkv, cm_shift and pos (RWKV), got "
+                         f"{sorted(cache)}")
     out = {k: _float_leaf(v, device) for k, v in cache.items() if k != "pos"}
     out["pos"] = _tensor(cache["pos"], np.int32, device)
     return out
@@ -307,8 +314,9 @@ def lm_memory_states_from_jax(states, *, device="cuda"):
 
 def session_from_jax(sess, *, device="cuda"):
     """A JAX serving session (`repro.launch.engine`: {"cache": {"k", "v"}
-    (L, 1, Smax, Hkv, D), MLA's {"ckv"} (L, 1, Smax, kv_lora + rope) or
-    RWKV's {"tm_shift", "wkv", "cm_shift"} (L, 1, ...), "pos" (1,),
+    (L, 1, Smax, Hkv, D), with a hybrid block's {"conv", "ssm"} (L, 1,
+    ...), MLA's {"ckv"} (L, 1, Smax, kv_lora + rope) or RWKV's
+    {"tm_shift", "wkv", "cm_shift"} (L, 1, ...), "pos" (1,),
     "counter", "mem": a tuple of `MemoryState` with batch 1})
     -> the port's (`repro_torch.launch.engine.SessionStore`'s), leaf for
     leaf; "mem" absent for a memoryless model."""

@@ -4,9 +4,10 @@ families the port runs (StarCoder2-7B, H2O-Danube3-4B with its sliding
 window and ring cache, PaliGemma-3B served with token prompts as JAX
 serves it, DeepSeek-V2 with MLA and MoE, Llama-4 Maverick with pad heads
 over top-1 MoE, MusicGen-medium on frame embeddings, each chosen token
-fed back as a one-hot frame, and RWKV-6 7B with its O(1) decode state).
-Another architecture raises the registry's error, naming the ROADMAP
-item that ports it.
+fed back as a one-hot frame, RWKV-6 7B with its O(1) decode state, and
+Hymba-1.5B with its hybrid attention and SSM blocks). Another
+architecture raises the registry's error, naming the ROADMAP item that
+ports it.
 
     python -m repro_torch.examples.serve_batched --full
     python -m repro_torch.examples.serve_batched --arch h2o_danube_3_4b --full
@@ -18,6 +19,7 @@ item that ports it.
     python -m repro_torch.examples.serve_batched --arch musicgen_medium \
         --full
     python -m repro_torch.examples.serve_batched --arch rwkv6_7b_sam --full
+    python -m repro_torch.examples.serve_batched --arch hymba_1_5b_sam --full
     python -m repro_torch.examples.serve_batched --device cpu
 
 serve the published width on the card (the default device; DeepSeek-V2's

@@ -23,6 +23,7 @@ lane's memory states; the engine refuses an audio config, as JAX's.
     python -m repro_torch.launch.serve --arch rwkv6_7b_sam --full
     python -m repro_torch.launch.serve --arch rwkv6_7b_sam --full \
         --continuous
+    python -m repro_torch.launch.serve --arch hymba_1_5b_sam --full
 
 run StarCoder2-7B (weights from ``--seed``, held in the bf16 compute
 dtype: 15.8 GB), H2O-Danube3-4B (sliding window, a ring cache of
@@ -35,13 +36,15 @@ parameters, 26.6 GB) or Llama-4 Maverick (GQA with 40 heads padded to
 69.4 GB), MusicGen-medium (frames in place of tokens, 24 heads padded to
 48 at head dim 64: 1.6 B parameters, 3.3 GB) or RWKV-6 7B (the
 attention-free RWKV block, whose decode state is O(1) in the length: 7.7
-B parameters, 15.4 GB) at full width on the card, with or without the
-``_sam`` memory layer; without ``--full`` the reduced config; ``--device
-cpu`` runs on the host.
+B parameters, 15.4 GB) or Hymba-1.5B (the hybrid block: windowed
+attention beside a selective SSM, whose conv and state the decode
+carries: 1.78 B parameters, 3.57 GB) at full width on the card, with or
+without the ``_sam`` memory layer; without ``--full`` the reduced
+config; ``--device cpu`` runs on the host.
 PaliGemma is served with token prompts, as JAX serves it: the decode
 attends causally from position 0 and has no image prefix (its prefill
-with patch embeddings is `models.lm.prefill`). The registry's other
-architectures raise, naming ROADMAP item A9c.
+with patch embeddings is `models.lm.prefill`). Yi-34B and
+Mistral-Large-123B raise, naming ROADMAP item A9c.
 """
 from __future__ import annotations
 

@@ -17,8 +17,8 @@ first, as in JAX). A mesh is ROADMAP item A11. A config with a frontend
 draws its batches with a JAX key (`repro/launch/specs.py::
 concrete_batch`), which the port has no counterpart of; training it is
 ROADMAP item A9c. So is a config with MLA or MoE (DeepSeek-V2, Llama-4)
-or the RWKV block (RWKV-6), which the port serves but does not train
-yet.
+or the RWKV block (RWKV-6) or the hybrid block (Hymba-1.5B), which the
+port serves but does not train yet.
 """
 from __future__ import annotations
 
@@ -60,9 +60,9 @@ def train(arch: str = DEFAULT_ARCH, *, steps: int = 50, batch: int = 8,
     if cfg.mla is not None or cfg.moe is not None:
         raise ValueError(f"{cfg.name}: training MLA or MoE is not ported "
                          f"yet: ROADMAP item A9c")
-    if cfg.block == "rwkv":
-        raise ValueError(f"{cfg.name}: training the RWKV block is not "
-                         f"ported yet: ROADMAP item A9c")
+    if cfg.block in ("rwkv", "hybrid"):
+        raise ValueError(f"{cfg.name}: training the {cfg.block} block is "
+                         f"not ported yet: ROADMAP item A9c")
     if cfg.frontend is not None:
         raise ValueError(f"{cfg.name}: training a config with the "
                          f"{cfg.frontend} frontend is not ported yet (its "

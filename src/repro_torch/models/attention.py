@@ -6,6 +6,9 @@ single-token decode against a KV cache (`gqa_decode`, plain PyTorch, as
 the JAX package computes it outside any kernel). Where the JAX forward
 runs its jnp chunked online softmax (`chunked_attention`), the port runs
 the kernel; the kernel's plain version is `kernels/ref.flash_attention_ref`.
+With ``cfg.sparse_decode_blocks`` the decode reads only the top blocks of
+the cache by their key centroids (`gqa_decode_sparse`, plain PyTorch as
+JAX's is plain JAX).
 
 A config with a prefix-LM (``cfg.prefix_lm``, PaliGemma's image prefix)
 passes it to the kernel: every query of the prefill sees the keys below
@@ -184,6 +187,96 @@ def gqa_decode(params, cfg: ModelConfig, x: torch.Tensor,
     if mask is not None:
         o = o * mask[None, None, :, None]
     return peinsum("bshk,hkd->bsd", o, params["wo"]), k_cache, v_cache
+
+
+def top_k_indices(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The indices of ``jax.lax.top_k(x, k)`` over the last axis: the k
+    largest, largest first, the lower index first among equal values (a
+    stable descending sort; `torch.topk` promises no order on ties)."""
+    return torch.sort(x, dim=-1, descending=True, stable=True).indices[
+        ..., :k]
+
+
+def gqa_decode_sparse(params, cfg: ModelConfig, x: torch.Tensor,
+                      k_cache: torch.Tensor, v_cache: torch.Tensor,
+                      ksum: torch.Tensor, pos: torch.Tensor):
+    """The top-K block decode, JAX's `gqa_decode_sparse`: SAM's sparse read
+    applied to the KV cache. x (B, 1, d); caches (B, Smax, Hkv, D); ksum
+    (B, nb, Hkv, D) the running key sum of each block of
+    ``cfg.sparse_decode_block`` slots; pos a () int tensor (a lockstep
+    batch: `lm.decode_step` refuses per-lane positions here, as JAX's).
+    Plain PyTorch, as JAX's is plain JAX.
+
+    The token's k and v are written at ``pos`` and its k added to its
+    block's sum (in the cache dtype); each block's centroid, its sum over
+    its written slots (at most bs, at least 1) in q's dtype, is scored
+    against the query group (Σ over the group's heads and D); blocks past
+    ``pos`` score ``_NEG`` and the current block gets +1e9, so it is
+    always read; the top kb = min(sparse_decode_blocks, nb) blocks, in
+    `lax.top_k`'s order (`top_k_indices`), are gathered and attended
+    exactly over their slots at or below ``pos``. The scores, the
+    softmax and the read are in q's dtype, the products summed in f32
+    and rounded once. The caches and ksum are updated in place (JAX
+    returns new ones). Returns (out (B, 1, d), k_cache, v_cache,
+    ksum)."""
+    B, Smax = x.shape[0], k_cache.shape[1]
+    bs = cfg.sparse_decode_block
+    nb = Smax // bs
+    kb = min(cfg.sparse_decode_blocks, nb)
+    H, Hkv, D = cfg.padded_heads, cfg.num_kv_heads, cfg.head_dim
+    dev = x.device
+
+    q = peinsum("bsd,dhk->bshk", x, params["wq"])
+    k = peinsum("bsd,dhk->bshk", x, params["wk"])
+    v = peinsum("bsd,dhk->bshk", x, params["wv"])
+    q = rope(q, pos.reshape(1, 1), cfg.rope_theta)
+    k = rope(k, pos.reshape(1, 1), cfg.rope_theta)
+    _cache_write(k_cache, k, pos, ring=False)
+    _cache_write(v_cache, v, pos, ring=False)
+    # The written block's sum: JAX's gather clamps the block and its
+    # scatter drops one past the end.
+    b = torch.arange(B, device=dev)
+    blk = pos // bs
+    at = blk.clamp(max=ksum.shape[1] - 1).expand(B)
+    upd = ksum[b, at] + k[:, 0].to(ksum.dtype)
+    ksum[b, at] = torch.where(blk < ksum.shape[1], upd, ksum[b, at])
+
+    qg = q.reshape(B, Hkv, H // Hkv, D)
+    idx = torch.arange(nb, device=dev)
+    counts = ((pos + 1) - idx * bs).clamp(0, bs).to(qg.dtype)
+    cent = ksum[:, :nb].to(qg.dtype) / counts.clamp(min=1.0)[None, :, None,
+                                                             None]
+    bscore = torch.einsum("bhgd,bnhd->bhn", qg.float(),
+                          cent.float()).to(qg.dtype)
+    bscore = torch.where(idx <= blk, bscore, _NEG)
+    bscore = bscore + (idx == blk).to(bscore.dtype) * 1e9
+    top = top_k_indices(bscore, kb)                          # (B, Hkv, kb)
+
+    sel = (top[..., None] * bs
+           + torch.arange(bs, device=dev)).reshape(B, Hkv, kb * bs)
+    bi = b[:, None, None]
+    hi = torch.arange(Hkv, device=dev)[None, :, None]
+    k_sel = k_cache[bi, sel, hi].to(qg.dtype)               # (B, Hkv, P, D)
+    v_sel = v_cache[bi, sel, hi].to(qg.dtype)
+    s = torch.einsum("bhgd,bhpd->bhgp", qg.float(),
+                     k_sel.float()).to(qg.dtype) * (D ** -0.5)
+    s = torch.where((sel <= pos)[:, :, None, :], s, _NEG)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgp,bhpd->bhgd", p.float(), v_sel.float()).to(
+        qg.dtype)
+    o = o.reshape(B, 1, H, D).to(x.dtype)
+    mask = _head_mask(cfg, o.dtype, o.device)
+    if mask is not None:
+        o = o * mask[None, None, :, None]
+    return (peinsum("bshk,hkd->bsd", o, params["wo"]), k_cache, v_cache,
+            ksum)
+
+
+def gqa_decode_sparse_sharded(*args, **kwargs):
+    """JAX's `gqa_decode_sparse_sharded`: the sparse decode with the cache
+    sharded by sequence over a mesh. Not ported: raises."""
+    raise ValueError("the sparse decode over a mesh (gqa_decode_sparse_"
+                     "sharded) is not ported yet: ROADMAP item A11, item 4")
 
 
 # --------------------------------------------------------------------------

@@ -6,10 +6,11 @@ One `ModelConfig` describes every architecture of the registry
 GQA attention (causal, windowed or prefix-LM, the vision frontend's patch
 embeddings or the audio frontend's frame embeddings) or DeepSeek-V2's
 MLA, each with an MLP or, with ``moe``, the mixture of experts after
-``num_dense_layers`` dense layers; and ``block="rwkv"`` with ``rwkv``'s
-RWKV-6 block; with the optional SAM memory layer on f32 rows. The SSM
-dataclass is carried as data, and the model code refuses a config that
-uses it (`models/transformer.py`)."""
+``num_dense_layers`` dense layers; ``block="rwkv"`` with ``rwkv``'s
+RWKV-6 block; and ``block="hybrid"``, GQA beside ``ssm``'s selective SSM
+(`models/ssm.py`); with the optional SAM memory layer on f32 rows. With
+``sparse_decode_blocks`` a GQA config without a window decodes through
+the top-K block read of the KV cache (`attention.gqa_decode_sparse`)."""
 from __future__ import annotations
 
 import dataclasses

@@ -31,7 +31,7 @@ class ParamDef:
     """One parameter: ``init`` 'normal' draws N(0, 1) times ``scale`` or,
     without one, fan_in^-0.5 with fan_in = shape[0] (the leading axis: for
     a stacked parameter, the number of stacked layers, as in the JAX
-    package); 'zeros' fills."""
+    package); 'zeros' and 'ones' fill."""
     shape: tuple
     init: str = "normal"
     scale: Optional[float] = None
@@ -39,6 +39,8 @@ class ParamDef:
     def initialize(self, generator: torch.Generator, dtype, device):
         if self.init == "zeros":
             return torch.zeros(self.shape, dtype=dtype, device=device)
+        if self.init == "ones":
+            return torch.ones(self.shape, dtype=dtype, device=device)
         fan_in = self.shape[0] if len(self.shape) > 1 else self.shape[-1]
         scale = self.scale if self.scale is not None else fan_in ** -0.5
         if len(self.shape) == 1:
@@ -129,6 +131,27 @@ def row_mean(x: torch.Tensor) -> torch.Tensor:
         return x.mean(-1, keepdim=True)
     g = math.gcd(d, 64)
     return x.unflatten(-1, (g, d // g)).sum(-1).sum(-1, keepdim=True) / d
+
+
+# A decode's products on the card run at a multiple of this many rows.
+LANE_ROWS = 8
+
+
+def lane_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`einsum` of a decode's rows a (B, 1, ...) with a weight b, its rows
+    the same bits in any batch. cuBLAS picks a product's kernel, and so
+    its summation order, by the row count: at Hymba's widths the SSM's
+    projections and the head (d 1600 to 32001) give a lane other bits
+    among 2 lanes than among 4. On the card the lanes are padded with
+    zero rows to a multiple of LANE_ROWS, so every batch of up to 8 lanes
+    (in general, of one multiple of 8) runs the same kernel; the CPU sums
+    a row alike at any count."""
+    B = a.shape[0]
+    pad = -B % LANE_ROWS
+    if not a.is_cuda or not pad:
+        return einsum(spec, a, b)
+    a = torch.cat([a, a.new_zeros((pad,) + a.shape[1:])])
+    return einsum(spec, a, b)[:B]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):

@@ -3,7 +3,9 @@
 GeGLU MLP, or MoE after ``moe.num_dense_layers`` leading dense layers,
 held apart as ``dense_blocks``; a stubbed vision frontend whose patch
 embeddings the batch carries, or a stubbed audio frontend whose frame
-embeddings take the tokens' place) and ``block="rwkv"`` (RWKV-6, whose
+embeddings take the tokens' place), ``block="hybrid"`` (Hymba's: the
+windowed attention beside a selective SSM, whose decode cache holds the
+SSM's conv and state beside k and v) and ``block="rwkv"`` (RWKV-6, whose
 decode cache is its O(1) state): embeddings, the dense blocks, the stack of
 blocks with a SAM memory layer after every group, the final norm and the
 head (tied to the embeddings where the config says so). `forward`
@@ -43,8 +45,9 @@ from repro_torch.models import sam_layer
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (einsum, embed_apply, embed_defs,
-                                       init_from_defs, pdef, rms_norm,
-                                       stack_defs, torch_dtype, tree_map)
+                                       init_from_defs, lane_einsum, pdef,
+                                       rms_norm, stack_defs, torch_dtype,
+                                       tree_map)
 
 
 def _n_groups(cfg: ModelConfig) -> int:
@@ -254,8 +257,10 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
     min(max_len, window) for a windowed config, whose cache is a ring; or
     MLA's latent rows, ckv (L, B, max_len, kv_lora + rope); or RWKV's
     states, tm_shift and cm_shift (L, B, d) and wkv (L, B, H, D, D), which
-    max_len does not size. The layers stack as the blocks run: the dense
-    ones first."""
+    max_len does not size; with the sparse decode the block key sums
+    ksum (L, B, nb, Hkv, D); in a hybrid block the SSM's conv (L, B, K-1,
+    d_inner) and ssm (L, B, d_inner, N) beside k and v. The layers stack
+    as the blocks run: the dense ones first."""
     per_layer = tfm.layer_cache_shapes(cfg, batch, max_len)
     return {k: (cfg.num_layers,) + v for k, v in per_layer.items()}
 
@@ -263,13 +268,13 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                per_lane_pos: bool = False, *, device="cuda"):
     """Zero caches of `cache_shapes` (k and v, a ring of min(max_len,
-    window) slots with a window, which any position fits; MLA's ckv; or
-    RWKV's states) in the compute dtype, RWKV's wkv in f32 whatever it is
-    (JAX's); and ``pos``: () int32, or (B,) per-lane positions with
-    ``per_lane_pos``."""
+    window) slots with a window, which any position fits; MLA's ckv;
+    ksum; the SSM's conv; or RWKV's states) in the compute dtype, RWKV's
+    wkv and the SSM's state in f32 whatever it is (JAX's); and ``pos``: ()
+    int32, or (B,) per-lane positions with ``per_lane_pos``."""
     cd = torch_dtype(cfg.compute_dtype)
-    cache = {k: torch.zeros(v, dtype=torch.float32 if k == "wkv" else cd,
-                            device=device)
+    cache = {k: torch.zeros(v, dtype=torch.float32 if k in ("wkv", "ssm")
+                            else cd, device=device)
              for k, v in cache_shapes(cfg, batch, max_len).items()}
     cache["pos"] = torch.zeros((batch,) if per_lane_pos else (),
                                dtype=torch.int32, device=device)
@@ -304,9 +309,18 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
     read is added back in the stream's dtype. The dense blocks run first,
     on the cache's first layers. Returns (logits (B, 1, V), cache) — plus
     the new memory states when ``mem_states`` was given. The cache (k and
-    v, ckv or RWKV's states) and the memory states are updated in
-    place."""
+    v, with ksum, conv and ssm where the config has them; ckv or RWKV's
+    states) and the memory states are updated in place. The head's
+    product runs through `layers.lane_einsum`, so a lane's logits do not
+    depend on how many lanes the batch holds. A per-lane ``pos`` with
+    ``cfg.sparse_decode_blocks`` raises NotImplementedError, as JAX's: the
+    block sums assume a lockstep position."""
     pos = cache["pos"]
+    if pos.dim() and cfg.sparse_decode_blocks is not None:
+        raise NotImplementedError(
+            "per-lane decode positions are not supported with "
+            "sparse_decode_blocks (the block-centroid ring assumes a "
+            "lockstep position)")
     if cfg.frontend == "audio":
         x = tokens.to(torch_dtype(cfg.compute_dtype))
     else:
@@ -343,7 +357,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
         for i in range(cfg.num_layers - n_dense):
             x = run(blocks, i, n_dense + i, x)
     x = rms_norm(x, _cast(params["final_norm"], cfg), cfg.norm_eps)
-    logits = einsum("bsd,dv->bsv", x, _head_weight(params, cfg))
+    logits = lane_einsum("bsd,dv->bsv", x, _head_weight(params, cfg))
     new_cache["pos"] = pos + 1
     if mem_states is not None:
         return logits, new_cache, tuple(new_mem)

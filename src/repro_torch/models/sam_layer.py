@@ -33,7 +33,7 @@ from repro_torch.core.types import (SCRATCH_ROWS, init_scratch_last_access,
                                     tree_bytes)
 from repro_torch.kernels.ops import _records
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import einsum, pdef
+from repro_torch.models.layers import lane_einsum, pdef
 
 
 class MemoryState(NamedTuple):
@@ -100,9 +100,9 @@ def init_memory_state(cfg: ModelConfig, batch: int, *,
 def _interface(p, cfg: ModelConfig, pooled: torch.Tensor):
     """Project a summary (B, d) to (q, a, alpha, gamma, beta), each in
     the promoted dtype of the summary and the weights."""
-    q = einsum("bd,dhw->bhw", pooled, p["wq"])
-    a = einsum("bd,dhw->bhw", pooled, p["wa"])
-    g = torch.sigmoid(einsum("bd,dhg->bhg", pooled, p["gates"]))
+    q = lane_einsum("bd,dhw->bhw", pooled, p["wq"])
+    a = lane_einsum("bd,dhw->bhw", pooled, p["wa"])
+    g = torch.sigmoid(lane_einsum("bd,dhg->bhg", pooled, p["gates"]))
     alpha, gamma, beta_g = g[..., 0], g[..., 1], g[..., 2]
     return q, a, alpha, gamma, 1.0 + 9.0 * beta_g            # key strength
 
@@ -126,7 +126,9 @@ def memory_access(p, cfg: ModelConfig, pooled: torch.Tensor,
     take f32: q and beta are cast as the JAX read kernels cast them, the
     write word ``a`` to the memory's dtype as the JAX write does. Returns
     (new_state, read_out (B, d)[, `MemDeltas`]) with read_out in the
-    promoted dtype of the f32 read and the weights (f32)."""
+    promoted dtype of the f32 read and the weights (f32). The products
+    with the weights run through `layers.lane_einsum`, so a lane's bits
+    do not depend on how many lanes the batch holds."""
     m = cfg.memory
     B = pooled.shape[0]
     H, K, N = m.num_heads, m.k, m.num_slots
@@ -148,7 +150,7 @@ def memory_access(p, cfg: ModelConfig, pooled: torch.Tensor,
                                   beta.float().contiguous(), K, valid_n=N)
     la = addr.update_last_access(la, read.indices.reshape(B, -1),
                                  read.weights.reshape(B, -1), step, m.delta)
-    out = einsum("bhw,hwd->bd", read.words, p["wr"])
+    out = lane_einsum("bhw,hwd->bd", read.words, p["wr"])
     new_state = MemoryState(memory=memory, last_access=la,
                             read_idx=read.indices, read_w=read.weights,
                             step=step)
@@ -175,7 +177,7 @@ def memory_replay(p, cfg: ModelConfig, pooled: torch.Tensor,
     words = _ReadRows.apply(token, state.memory, mem_ct, deltas.read_idx)
     read = addr.read_from_rows(q.float(), words, beta.float(),
                                deltas.read_idx)
-    out = einsum("bhw,hwd->bd", read.words, p["wr"])
+    out = lane_einsum("bhw,hwd->bd", read.words, p["wr"])
     return state._replace(read_idx=deltas.read_idx, read_w=read.weights,
                           step=state.step + 1), out
 

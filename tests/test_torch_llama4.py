@@ -351,7 +351,7 @@ def test_earlier_configs_draw_what_they_drew():
 
         def old(defs):
             if isinstance(defs, layers.ParamDef):
-                if defs.init == "zeros" or len(defs.shape) == 1:
+                if defs.init != "normal" or len(defs.shape) == 1:
                     return defs.initialize(gen, torch.float32, "cpu")
                 scale = defs.scale if defs.scale is not None \
                     else defs.shape[0] ** -0.5

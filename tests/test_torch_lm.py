@@ -653,9 +653,10 @@ def test_configs_match_jax():
             assert tcfg.padded_heads == jcfg.padded_heads
     full = get_config(ARCH)
     assert (full.padded_heads, full.q_heads_per_kv) == (48, 9)
-    for name in ("hymba_1_5b", "yi_34b", "mistral_large_123b_sam"):
+    for name in ("yi_34b", "mistral_large_123b_sam"):
         with pytest.raises(ValueError, match="ROADMAP item A9c"):
             get_config(name)
+    assert get_config("hymba_1_5b").block == "hybrid"
 
 
 def test_param_tree_matches_jax(weights):
@@ -703,9 +704,15 @@ def test_refusals():
         cfg.memory, mem_dtype="bfloat16"))
     with pytest.raises(ValueError, match="A9c"):
         sam_layer.init_memory_state(bf, B, device="cpu")
-    for unported in (dict(block="hybrid"), dict(sparse_decode_blocks=4)):
-        with pytest.raises(ValueError, match="A9c"):
-            lm.param_defs(dataclasses.replace(cfg, **unported))
+    # A hybrid block needs an SSM and the gated SiLU MLP.
+    with pytest.raises(ValueError, match="A9c"):
+        lm.param_defs(dataclasses.replace(cfg, block="hybrid"))
+    # The sparse top-K decode is ported: its cache holds the block sums.
+    sparse = dataclasses.replace(cfg, sparse_decode_blocks=4)
+    assert lm.param_defs(sparse).keys() == lm.param_defs(cfg).keys()
+    assert lm.cache_shapes(sparse, B, 256)["ksum"] == (
+        cfg.num_layers, B, 256 // sparse.sparse_decode_block,
+        cfg.num_kv_heads, cfg.head_dim)
     p = lm.init_params(cfg, device="cpu")
     x = torch.randn((B, 48, 128), generator=gen)
     with pytest.raises(ValueError, match="segment"):

@@ -823,15 +823,16 @@ def test_uneven_groups_with_a_dense_layer_skip_trailing_blocks(reads,
 # --------------------------------------------------------------------------
 
 def test_refusals():
-    """Training MLA or MoE (ROADMAP A9c; JAX trains them); Hymba, whose
-    hybrid SSM block waits (A9c); the converter on a cache mixing k/v
+    """Training MLA or MoE (ROADMAP A9c; JAX trains them); Hymba's config
+    loads, its training waits (A9c); the converter on a cache mixing k/v
     with ckv."""
     with pytest.raises(ValueError, match="A9c"):
         ttrain.train(ARCH, device="cpu")
     _, cfg = _configs(memory=False)
     with pytest.raises(ValueError, match="A9c"):
         ttrain.train(cfg=dataclasses.replace(cfg, moe=None), device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP item A9c.*hybrid"):
-        get_config("hymba_1_5b_sam")
+    assert get_config("hymba_1_5b_sam").ssm is not None
+    with pytest.raises(ValueError, match="hybrid block.*A9c"):
+        ttrain.train("hymba_1_5b_sam", device="cpu")
     with pytest.raises(ValueError, match="cache keys"):
         convert.lm_cache_from_jax({"ckv": 0, "k": 0, "pos": 0})
