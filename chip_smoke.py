@@ -48,8 +48,12 @@ audio), whose prefill attention is the `flash_attention` kernel at head
 dim 64, bf16 and f32; RWKV-6 7B + SAM at full width and depth
 (`rwkv6_7b_sam`: the attention-free RWKV block; prefill with the WKV
 loop's host share, decode with memory states, the engine with a
-rescale, `serve` and the example); and last the paper's memory models
-trained on its bAbI-lite and one-shot Omniglot tasks. It fails (nonzero
+rescale, `serve` and the example); the served LM families trained
+(`make_train_step`): Hymba-1.5B at full width and depth, RWKV-6,
+PaliGemma-3B and MusicGen-medium at full width and cut depth, DeepSeek-V2's
+gradients at full width, each family's reduced config on the card against
+the CPU; and last the paper's memory models trained on its bAbI-lite and
+one-shot Omniglot tasks. It fails (nonzero
 exit) if any phase fails:
 
 1. build the kernels from `src/repro_torch/kernels/csrc/` with nvcc for
@@ -268,7 +272,7 @@ exit) if any phase fails:
       ``dnc`` step (N = 1000, T = 12, from a random memory; the DNC from
       distinct usages) on the card against the CPU;
    d. flat in N: the sparse forward's and backward's ms and the peak above
-      the state at N = 2^16, 2^18, 2^20, beside `residual_accounting`;
+      the state at N = 2^16 and 2^20, beside `residual_accounting`;
    e. Fig. 7 (`benchmarks/bench_sdnc.py`'s setup: B = 2, R = 2, K = 4,
       W = 32, hidden 64, T = 10): forward + backward ms (median of 3
       after a warm-up) and peak of the SDNC (its default sparse engine) at
@@ -489,7 +493,7 @@ exit) if any phase fails:
    last step) and ``sam`` and ``lstm`` on one-shot Omniglot episodes (dim
    16, 8 label channels, hidden 100, N = 256, W = 24, H = 4, K = 4, B = 8,
    2-5 classes of 5 presentations; masked cross-entropy over every step),
-   10 steps each (the benches' 250 and 150 cut): the first step on a
+   5 steps each (the benches' 250 and 150 cut): the first step on a
    batch whose CPU reads hold no near-tie at K, in lockstep (every read,
    write, LRA and backward scatter against its plain version, the
    launches exact) and against the same step on the CPU (loss, every
@@ -512,7 +516,7 @@ exit) if any phase fails:
    a. the kernel at layer 0's inputs, bf16 and upcast to f32, each against
       its plain version: ms against the bound, the plain version's and
       `scaled_dot_product_attention`'s (causal, GQA);
-   c. a decode with memory states, a 32-frame prompt and 16 greedy tokens,
+   c. a decode with memory states, a 16-frame prompt and 16 greedy tokens,
       each fed back as ``one_hot(token, d_model)`` (in lockstep): 12 reads,
       writes and LRAs and no attention launch a token; ms a token on the
       host and the device;
@@ -531,7 +535,7 @@ exit) if any phase fails:
       each of the read, write and LRA; its host ms and peak (not
       profiled: the WKV loop's ~400,000 launches), each WKV loop timed
       between synchronisations: the loop's host share;
-   c. a decode with memory states, a 32-token prompt and 16 greedy tokens
+   c. a decode with memory states, a 16-token prompt and 16 greedy tokens
       (in lockstep): 8 reads, writes and LRAs a token; the states (wkv
       f32); ms a token on the host and the device;
    d. `layers.row_mean` (the norms' mean of squares) of a row among 4
@@ -556,7 +560,7 @@ exit) if any phase fails:
    a. the attention kernel at layer 0's inputs (D = 64, window 1024,
       groups of 16), bf16 and f32, against its plain version, its time,
       bound and SDPA's with the window mask;
-   c. a decode with memory states, a 32-token prompt and 16 greedy tokens
+   c. a decode with memory states, a 16-token prompt and 16 greedy tokens
       (in lockstep): 8 reads, writes and LRAs a token, no attention; the
       cache (k, v a ring, conv bf16, ssm f32); ms a token on the host and
       the device;
@@ -569,7 +573,40 @@ exit) if any phase fails:
       a drawn cache of 4096 slots, 8 blocks of 128 read) equal to
       `gqa_decode` where every written block is read, and both timed at
       the last position, f32 and bf16;
-23. print each phase's seconds, the empty-launch floor with each
+23. the served LM families trained (`launch.steps.make_train_step`: the
+   loss by autograd through the blocks, each under `torch.utils.checkpoint`
+   at full width, the memory layers through the rollback engine, the
+   chunked cross-entropy, clipping, the cosine schedule, AdamW); it runs
+   third, after phase 18, while the card is empty:
+   a. each family's reduced config (f32: Danube at head dim 120, PaliGemma
+      at head dim 256 over one kv head with pad heads, MusicGen with its
+      head groups, DeepSeek-V2 at (192, 128) heads over 3 layers with a
+      memory group every 2, Llama-4 with its head groups and one memory
+      group, RWKV-6 and Hymba with their leaves drawn), two steps at JAX's
+      default schedule on the card against the CPU on one batch of 2 × 64
+      (a frontend config's from `launch.specs.concrete_batch`), the batch
+      seed the first of 0-63 whose CPU reads hold no near-tie at K and
+      whose routers none at k: the losses within SLICE_TOL, every gradient
+      leaf within 1e-5 of max(1, max |g|) or three times the CPU's own move
+      under one-ulp perturbations of its weights, the parameters after the
+      steps within 1e-5; the attention, read, write, LRA and scatter
+      launches exact;
+   b. the attention Function's gradient at each new full-width training
+      shape (B = 4, S = 2048): Hymba's (D = 64, a window of 1024, 80 heads
+      over 5), PaliGemma's (D = 256, a prefix of 256, 16 heads over 1),
+      MusicGen's (D = 64, 48 heads over 24) and MLA's ((192, 128), 128
+      heads), bf16 and f32, against autograd through the plain version as
+      phase 13 (a);
+   c. full width, bf16 compute, sparse, f32 weights from seed 0 (the SSM's
+      and RWKV's leaves drawn), B = 4, S = 2048: Hymba-1.5B at all 32
+      layers, 3 AdamW steps; RWKV-6 7B at 4 layers, PaliGemma-3B at 8 (256
+      patch embeddings and 1792 tokens) and MusicGen-medium at 12, 2 steps
+      each; DeepSeek-V2 at 2 layers (the dense one and one MoE) a forward
+      and backward only: each step's launches exact, ms (forward,
+      backward, optimizer apart), tokens/s, peak, the device's busy share
+      (torch.profiler; not for RWKV-6, whose WKV loops launch too many
+      kernels to trace), the losses finite;
+24. print each phase's seconds, the empty-launch floor with each
    latency-bound kernel's time
    above it (`lra_topn`, the scatter, the write at step 21 on f32, bf16
    and int8 rows and at the LM's shapes, the candidate read on f32, bf16
@@ -582,7 +619,8 @@ exit) if any phase fails:
    ``"vlm"``, DeepSeek-V2's under ``"mla"``, Llama-4's under
    ``"llama4"``, MusicGen's under ``"musicgen"``, RWKV-6's under
    ``"rwkv"``, Hymba's and the sparse decode's under ``"hymba"``, the
-   tasks' under ``"tasks"``, the phases' seconds under
+   families' training under ``"family_train"``, the tasks' under
+   ``"tasks"``, the phases' seconds under
    ``"phase_seconds"``), and last the
    ``{"ok": true, ...}`` line.
 
@@ -827,7 +865,7 @@ SDNC_BWD_SCATTERS = 13
 # Of those, on bf16 rows, the memory's seven run on the bf16 instantiation.
 SDNC_BF16_BWD_SCATTERS = 7
 SDNC_CHUNK = 14
-FLAT_NS = (1 << 16, 1 << 18, 1 << 20)
+FLAT_NS = (1 << 16, 1 << 20)
 # Phase 12, the serving engine at the LM's full width on phase 9's weights:
 # ENGINE_LANES lanes, a cache of ENGINE_MAX_LEN, ENGINE_CAPACITY hot
 # sessions (a session's memory: 8 × (65536 + 1) × 128 f32 rows, 256 MiB),
@@ -878,7 +916,7 @@ LM100_FLAKY, LM100_STOP = 5, 17
 SWA_ARCH = "h2o_danube_3_4b_sam"
 SWA_B, SWA_S, SWA_PREFILL_RUNS = 4, 8192, 1
 SWA_PROMPT, SWA_GEN, SWA_MAX_LEN = 112, 32, 128
-SWA_LANES, SWA_REQUESTS, SWA_REQ_PROMPT, SWA_REQ_GEN = 4, 2, (16, 32), 16
+SWA_LANES, SWA_REQUESTS, SWA_REQ_PROMPT, SWA_REQ_GEN = 4, 2, (16, 32), 12
 SWA_RETURN = (100, 8)
 SWA_SMALL_S, SWA_SMALL_DECODE, SWA_SMALL_MAX_LEN = 128, 80, 64
 # Phase 16, the vision-language LM at PaliGemma-3B's full width (bf16
@@ -962,7 +1000,7 @@ L4_SPARE = 8 << 30
 # MG_SMALL_MAX_LEN.
 MG_ARCH = "musicgen_medium_sam"
 MG_B, MG_S, MG_PREFILL_RUNS = 4, 2048, 1
-MG_PROMPT, MG_GEN, MG_MAX_LEN = 32, 16, 128
+MG_PROMPT, MG_GEN, MG_MAX_LEN = 16, 16, 128
 MG_SMALL_S, MG_SMALL_DECODE, MG_SMALL_MAX_LEN = 64, 24, 32
 MG_SMALL = dict(num_heads=4, num_kv_heads=4, pad_head_groups=2)
 # Phase 21, RWKV-6 7B (+ SAM) at full width and full depth (bf16 compute;
@@ -978,7 +1016,7 @@ MG_SMALL = dict(num_heads=4, num_kv_heads=4, pad_head_groups=2)
 # prefill of RW_SMALL_S tokens and a decode of RW_SMALL_DECODE.
 RW_ARCH = "rwkv6_7b_sam"
 RW_B, RW_S = 4, 2048
-RW_PROMPT, RW_GEN, RW_MAX_LEN = 32, 16, 128
+RW_PROMPT, RW_GEN, RW_MAX_LEN = 16, 16, 128
 RW_LANES, RW_REQUESTS, RW_REQ_PROMPT, RW_REQ_GEN = 4, 4, (8, 16), 8
 RW_SMALL_S, RW_SMALL_DECODE, RW_SMALL_MAX_LEN = 64, 24, 32
 ROW_SUM_DRAWS = 200
@@ -1002,7 +1040,7 @@ ROW_SUM_DRAWS = 200
 # block read: equal to `gqa_decode`) and timed at the last slot.
 HY_ARCH = "hymba_1_5b_sam"
 HY_B, HY_S, HY_PREFILL_RUNS = 4, 2048, 1
-HY_PROMPT, HY_GEN, HY_MAX_LEN = 32, 16, 128
+HY_PROMPT, HY_GEN, HY_MAX_LEN = 16, 16, 128
 HY_LANES, HY_REQUESTS, HY_REQ_PROMPT, HY_REQ_GEN = 4, 4, (8, 16), 8
 HY_SMALL_S, HY_SMALL_DECODE, HY_SMALL_MAX_LEN = 64, 24, 32
 HY_SMALL = dict(num_heads=10, num_kv_heads=2, pad_head_groups=16)
@@ -1011,6 +1049,37 @@ SSM_PROJECTIONS = ("in_proj", "x_proj", "dt_proj", "out_proj")
 SP_SMALL = dict(sparse_decode_blocks=2, sparse_decode_block=4)
 SP_BIG = dict(sparse_decode_blocks=8, sparse_decode_block=128)
 SP_B, SP_SLOTS, SP_EQUAL_POS = 4, 4096, 1000
+# Phase 23, the served LM families trained (`make_train_step`: the loss
+# by autograd through the blocks under checkpoint, the memory layers
+# through the rollback engine, clipping, the cosine schedule, AdamW):
+# (a) each family's reduced config (f32; the serving phases' head
+# overrides, FT_SMALL) two steps on the card against the CPU, B = 2 ×
+# FT_SMALL_S positions, at JAX's default schedule (rate 3e-4, 100 warmup
+# steps: the first step's rate is 0, the second's 3e-6); (b) the attention
+# Function's gradient at each new full-width training shape (Hymba's,
+# PaliGemma's, MusicGen's, MLA's) at B = FT_ATTN_B, S = FT_ATTN_S; (c) full width, bf16 compute, sparse,
+# f32 weights from seed 0 (FT_FULL: arch, layers or None for all, B, S,
+# AdamW steps, 0 for a forward and backward only, whose f32 AdamW state
+# would not fit beside the 5.4 B parameters: 16 B a parameter). A leaf of
+# (a) beyond GRAD_ATOL of max(1, max |g|) is held to FT_SPREAD_FACTOR
+# times the CPU's own move under one-ulp perturbations of its weights
+# (FT_SPREAD_DRAWS draws; tests/torch_train_parity.py's arbiter).
+FT_SMALL_S = 64
+FT_SMALL = (("h2o_danube_3_4b_sam", dict(head_dim=120)),
+            ("paligemma_3b_sam", dict(head_dim=256, num_kv_heads=1,
+                                      pad_head_groups=8)),
+            ("musicgen_medium_sam", MG_SMALL),
+            ("deepseek_v2_236b_sam", MLA_SMALL),
+            ("llama4_maverick_400b_a17b_sam", dict(L4_SMALL, every=4)),
+            ("rwkv6_7b_sam", {}),
+            ("hymba_1_5b_sam", HY_SMALL))
+FT_FULL = (("hymba_1_5b_sam", None, 4, 2048, 3),
+           ("rwkv6_7b_sam", 4, 4, 2048, 2),
+           ("paligemma_3b_sam", 8, 4, 2048, 2),
+           ("musicgen_medium_sam", 12, 4, 2048, 2),
+           ("deepseek_v2_236b_sam", 2, 4, 2048, 0))
+FT_SPREAD_FACTOR, FT_SPREAD_DRAWS = 3, 3
+FT_ATTN_B, FT_ATTN_S = 4, 2048
 # `serve` in phase 20: a prompt of SERVE_PROMPT frames and SERVE_GEN new
 # tokens (host-bound decodes of ~0.17 s a token).
 SERVE_PROMPT, SERVE_GEN = 8, 8
@@ -1026,7 +1095,7 @@ RWKV_ZERO_LEAVES = {"tm": ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g", "mu_x",
 # (`benchmarks/bench_omniglot.py`): episodes of 2 to OMNI_CLASSES classes
 # of OMNI_P presentations, examples of OMNI_DIM, inputs padded to
 # OMNI_LABELS label channels, B = OMNI_B, hidden 100 over OMNI_MEM.
-TASK_STEPS, TASK_LR, TASK_CLIP = 10, 1e-3, 10.0
+TASK_STEPS, TASK_LR, TASK_CLIP = 5, 1e-3, 10.0
 TASK_RUNS = (("sdnc", "babi"), ("sam", "babi"), ("lstm", "babi"),
              ("sam", "omniglot"), ("lstm", "omniglot"))
 BABI_LEN, BABI_B, BABI_HIDDEN = 32, 16, 128
@@ -1393,9 +1462,10 @@ def host_ms(fn, runs=5, setup=None):
 
 def device_time(fn):
     """Device time of the kernels of one ``fn()`` traced by torch.profiler:
-    (ms, [(kernel, ms, launches)] largest first)."""
+    (ms, [(kernel, ms, launches)] largest first). Only the device's
+    activity is traced: its kernels and their times are the same as with
+    the host's ops traced too, at a fraction of the processing."""
     with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -7088,6 +7158,401 @@ def sparse_decode_part(dev, ops, ref, zero_counts, counts):
     return out
 
 
+def ft_small(arch):
+    """The reduced config of ``arch`` (f32) with its FT_SMALL overrides:
+    the serving phases' head groups, Danube's head dim 120, PaliGemma's
+    head dim 256 over one kv head, DeepSeek-V2's (192, 128) heads over 3
+    layers with a memory group every 2 (so its two MoE blocks run),
+    Llama-4's one memory group after both layers."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.config import MLAConfig
+
+    kw = dict(dict(FT_SMALL)[arch])
+    small = dataclasses.replace(reduced(get_config(arch)),
+                                compute_dtype="float32")
+    if "every" in kw:
+        small = dataclasses.replace(small, memory=dataclasses.replace(
+            small.memory, every_n_layers=kw.pop("every")))
+    if small.mla is not None:
+        mla = {k: kw.pop(k) for k in ("kv_lora", "q_lora", "rope_head_dim",
+                                      "nope_head_dim", "v_head_dim")}
+        kw["mla"] = MLAConfig(**mla)
+    return dataclasses.replace(small, **kw)
+
+
+def train_launches(cfg, S) -> dict:
+    """The kernel launches of one train step of ``cfg`` on S positions:
+    the attention once a block that runs (JAX's grouping skips trailing
+    blocks), twice under remat (the backward's recompute), none in an RWKV
+    config, all in the forward (its backward is plain); a memory step per
+    group and segment, each one read, write and LRA in the forward and
+    SAM_BWD_SCATTERS scatters in the backward."""
+    m = cfg.memory
+    groups = max(1, cfg.num_layers // m.every_n_layers)
+    n_dense = cfg.moe.num_dense_layers if cfg.moe is not None else 0
+    ran = n_dense + groups * ((cfg.num_layers - n_dense) // groups)
+    mem_steps = groups * (S // m.segment)
+    attn = 0 if cfg.block == "rwkv" else ran * (2 if cfg.remat else 1)
+    return {"flash_attention": attn, "scatter_rows":
+            SAM_BWD_SCATTERS * mem_steps,
+            **{name: mem_steps for name in FORWARD}}
+
+
+def train_grads_close(p_cpu, cfg, batch, g_gpu, g_cpu):
+    """The card's gradient tree against the CPU's, leaf by leaf: within
+    GRAD_ATOL of max(1, max |g|) over the leaf, or, where a leaf is not,
+    its largest miss within FT_SPREAD_FACTOR times the CPU's largest own
+    move under FT_SPREAD_DRAWS one-ulp perturbations of every weight (1 +
+    2^-24·N(0, 1)). Returns (the largest miss over max(1, max |g|), [(leaf,
+    miss, the CPU's own move)] of the arbitrated leaves)."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.launch import steps
+    from repro_torch.models.layers import tree_map
+
+    def spread():
+        gen = torch.Generator().manual_seed(1)
+        return [pytree.tree_leaves(steps.value_and_grad(tree_map(
+            lambda t: t * (1 + torch.randn(t.shape, generator=gen)
+                           * 2 ** -24), p_cpu), cfg, batch)[2])
+                for _ in range(FT_SPREAD_DRAWS)]
+
+    own, worst, arbitrated = None, 0.0, []
+    names = leaf_names(g_cpu)
+    for i, (a, b) in enumerate(zip(pytree.tree_leaves(g_gpu),
+                                   pytree.tree_leaves(g_cpu), strict=True)):
+        d = (a.float().cpu() - b).abs().max().item()
+        scale = max(1.0, b.abs().max().item())
+        worst = max(worst, d / scale)
+        if d <= GRAD_ATOL * scale:
+            continue
+        own = spread() if own is None else own
+        cpu_own = max((run[i] - b).abs().max().item() for run in own)
+        arbitrated.append((names[i], d, cpu_own))
+        require(d <= FT_SPREAD_FACTOR * cpu_own, f"gradient {names[i]}: "
+                f"card against CPU {d:.3g}, beyond {GRAD_ATOL} x {scale:.3g} "
+                f"and {FT_SPREAD_FACTOR} times the CPU's own move under a "
+                f"one-ulp perturbation ({cpu_own:.3g})")
+    return worst, arbitrated
+
+
+def family_train_phase(dev, ops, ref, zero_counts, counts):
+    """Phase 23: the served LM families trained through `make_train_step`
+    (module docstring, item 23). Returns its numbers."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs, steps
+    from repro_torch.models import lm
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim import optimizers as opt
+
+    out = {"card_vs_cpu": {}, "attention_grad": {}, "full": {},
+           "seconds": {}}
+    clock = [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        out["seconds"][name] = round(now - clock[0], 1)
+        clock[0] = now
+
+    def draw_leaves(params, cfg):
+        """RWKV's zero leaves (from a CPU generator) or the SSM's leaves
+        (from one on the weights' device), as phases 21 and 22 draw them."""
+        if cfg.block == "rwkv":
+            draw_rwkv_zero_leaves(params, torch.Generator().manual_seed(5))
+        if cfg.block == "hybrid":
+            device = pytree.tree_leaves(params)[0].device
+            draw_ssm_leaves(params,
+                            torch.Generator(device=device).manual_seed(5))
+
+    # (a) each family's reduced config, two steps on the card against the
+    # CPU from the same weights and batch; the batch seed the first of
+    # 0-63 whose CPU reads hold no near-tie at K and whose routers none at
+    # k through both steps.
+    for arch, _ in FT_SMALL:
+        small = ft_small(arch)
+        p0 = lm.init_params(small, seed=0, device="cpu")
+        draw_leaves(p0, small)
+        step_fn = steps.make_train_step(small)
+        vg = steps.value_and_grad
+
+        def two_steps(params, batch):
+            """Two steps in place -> ([(loss, grads)] a step, metrics)."""
+            seen = []
+
+            def capture(*a):
+                seen.append(vg(*a))
+                return seen[-1]
+
+            state, ms = opt.adamw_init(params), []
+            steps.value_and_grad = capture
+            try:
+                for _ in range(2):
+                    params, state, m = step_fn(params, state, batch)
+                    ms.append(m)
+            finally:
+                steps.value_and_grad = vg
+            return [(s[0], s[2]) for s in seen], ms
+
+        def cpu_case(gen):
+            batch = specs.concrete_batch(small, 2, FT_SMALL_S, generator=gen,
+                                         device="cpu")
+            params = tree_map(lambda t: t.clone(), p0)
+            return batch, params, two_steps(params, batch)
+
+        seed, (batch, p_cpu, (g_cpu, m_cpu)) = stable_routed(
+            ops, ref, cpu_case, f"{arch}'s reduced train steps")
+        p_gpu = tree_map(lambda t: t.to(dev), p0)
+        zero_counts()
+        g_gpu, m_gpu = two_steps(p_gpu, tree_map(lambda t: t.to(dev), batch))
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in counts().items() if v}
+        want = {k: 2 * v for k, v in train_launches(small, FT_SMALL_S).items()
+                if v}
+        require(launched == want, f"{arch} (reduced): two train steps "
+                f"launched {launched}, expected {want}")
+        # The first step's rate is 0, so the second takes its gradients at
+        # the same weights: the first's are compared.
+        errs = {"loss": max(card_close(a[0], b[0], f"{arch} loss")
+                            for a, b in zip(g_gpu, g_cpu))}
+        errs["grad"], arbitrated = train_grads_close(
+            p0, small, batch, g_gpu[0][1], g_cpu[0][1])
+        errs["params"] = max(
+            (a.float().cpu() - b).abs().max().item()
+            / max(1.0, b.abs().max().item())
+            for a, b in zip(pytree.tree_leaves(p_gpu),
+                            pytree.tree_leaves(p_cpu)))
+        require(errs["params"] <= TOL, f"{arch} (reduced): parameters after "
+                f"two steps {errs['params']:.3g} apart, card against CPU")
+        # (The gradient norm follows the leaves, some of them held to the
+        # CPU's own spread above, so it is not held to SLICE_TOL.)
+        card_close(m_gpu[1]["lr"], m_cpu[1]["lr"], f"{arch} lr")
+        out["card_vs_cpu"][arch] = dict(seed=seed, err=errs,
+                                        launches=launched,
+                                        arbitrated=arbitrated)
+        print(f"[train23] reduced {arch} (f32, {small.num_layers} layers, "
+              f"head dim {small.head_dim}) two steps on the card against "
+              f"the CPU (batch seed {seed}): loss {errs['loss']:.3g}, "
+              f"gradients {errs['grad']:.3g} of max(1, max |g|) (bar "
+              f"{GRAD_ATOL}"
+              + (f"; arbitrated {[(n, f'{d:.3g}', f'{o:.3g}') for n, d, o in arbitrated]}"
+                 if arbitrated else "")
+              + f"), parameters {errs['params']:.3g}; launches {launched}")
+        del p0, p_cpu, p_gpu, g_cpu, g_gpu
+        part(f"a {arch}")
+
+    # (b) the attention Function's gradient at each new full-width training
+    # shape, unit normal, against autograd through the plain version.
+    shapes = []
+    for arch in ("hymba_1_5b_sam", "paligemma_3b_sam", "musicgen_medium_sam",
+                 "deepseek_v2_236b_sam"):
+        c = get_config(arch)
+        if c.mla is not None:
+            D = c.mla.nope_head_dim + c.mla.rope_head_dim
+            shapes.append((arch, c.num_heads, c.num_heads, D,
+                           c.mla.v_head_dim, None, 0, c.q_block))
+        else:
+            shapes.append((arch, c.padded_heads, c.num_kv_heads, c.head_dim,
+                           c.head_dim, c.window, c.prefix_lm, c.q_block))
+    Bf, Sf = FT_ATTN_B, FT_ATTN_S
+    gen = torch.Generator().manual_seed(11)
+    for arch, H, Hkv, D, DV, window, prefix, qb in shapes:
+        row = {"shape": (Bf, Sf, H, Hkv, D, DV), "window": window,
+               "prefix": prefix}
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((Bf, Sf, H, D), generator=gen).to(dev, dtype)
+            k = torch.randn((Bf, Sf, Hkv, D), generator=gen).to(dev, dtype)
+            v = torch.randn((Bf, Sf, Hkv, DV), generator=gen).to(dev, dtype)
+            g = torch.randn((Bf, Sf, H, DV), generator=gen).to(dev, dtype)
+            for t in (q, k, v):
+                t.requires_grad_()
+            zero_counts()
+            got = torch.autograd.grad(ops.flash_attention(
+                q, k, v, q_block=qb, window=window, prefix=prefix),
+                (q, k, v), g)
+            require(counts()["flash_attention"] == 1, f"{arch}: the "
+                    f"attention Function did not launch its kernel once")
+            plain = [t.detach().float().requires_grad_() for t in (q, k, v)]
+            want = torch.autograd.grad(ref.flash_attention_ref(
+                *plain, window=window, prefix=prefix), plain, g.float())
+            errs = []
+            for name, a, b in zip("qkv", got, want):
+                if dtype == torch.bfloat16:
+                    err = (a.float() - b).abs().max().item()
+                    require(a.dtype == dtype and err <= bf16_ulp(b),
+                            f"{arch}: attention d{name} (bf16) {err:.3g} "
+                            f"above one bf16 ulp {bf16_ulp(b):.3g}")
+                else:
+                    err = rel_err(a, b)
+                errs.append(err)
+            del plain, want
+            key = str(dtype)[6:]
+            row[key] = max(errs)
+            if dtype == torch.float32 and max(errs) > FLASH_TOL:
+                # Two f32 orders over S·G terms: each gradient no further
+                # from the f64 one than twice the plain version's.
+                leaves = [t.detach().double().requires_grad_()
+                          for t in (q, k, v)]
+                exact = torch.autograd.grad(ref.flash_attention_ref(
+                    *leaves, window=window, prefix=prefix), leaves,
+                    g.double())
+                del leaves
+                plain = [t.detach().float().requires_grad_()
+                         for t in (q, k, v)]
+                want = torch.autograd.grad(ref.flash_attention_ref(
+                    *plain, window=window, prefix=prefix), plain, g.float())
+                row["f64"] = []
+                for name, a, b, e in zip("qkv", got, want, exact):
+                    got_err, plain_err = f64_err(a, e), f64_err(b, e)
+                    require(got_err <= 2 * plain_err + FLASH_TOL,
+                            f"{arch}: attention d{name} (f32) {got_err:.3g} "
+                            f"from the f64 gradient, the plain version "
+                            f"{plain_err:.3g}")
+                    row["f64"].append((got_err, plain_err))
+                del exact, plain, want
+            del q, k, v, g, got
+            torch.cuda.empty_cache()
+        out["attention_grad"][arch] = row
+        part(f"b {arch}")
+        print(f"[train23] attention gradient at {arch}'s training shape "
+              f"(B, S, H, Hkv, D, DV) = {row['shape']}, window {window}, "
+              f"prefix {prefix}, blocks of {qb} query rows, against autograd "
+              f"through the plain version: bf16 {row['bfloat16']:.3g} (one "
+              f"bf16 ulp), f32 {row['float32']:.3g} of max(1, |g|) (bar "
+              f"{FLASH_TOL}"
+              + (f"; from f64: {[(f'{a:.3g}', f'{b:.3g}') for a, b in row['f64']]}"
+                 if "f64" in row else "") + ")")
+
+    # (c) full width, bf16 compute, sparse: steps of `make_train_step`
+    # (the first with the counters set to 0 just before it and read just
+    # after, traced by the profiler but for RWKV, whose WKV loops launch
+    # too many kernels to trace), one taken apart (forward, backward,
+    # optimizer), the rest timed whole.
+    for arch, layers, B_, S_, n_steps in FT_FULL:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        t0 = time.perf_counter()
+        params = lm.init_params(cfg, seed=0, device=dev)
+        draw_leaves(params, cfg)
+        n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+        batch = specs.concrete_batch(
+            cfg, B_, S_, generator=torch.Generator().manual_seed(0),
+            device=dev)
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        res = {"layers": cfg.num_layers, "B": B_, "S": S_,
+               "params": n_params, "draw_s": draw_s, "adamw_steps": n_steps}
+        want = {k: v for k, v in train_launches(cfg, S_).items() if v}
+        step_fn = steps.make_train_step(cfg)
+        st = [opt.adamw_init(params) if n_steps else None]
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        def one():
+            """A train step -> its metrics; a forward and backward only
+            where n_steps is 0."""
+            if n_steps:
+                _, st[0], m = step_fn(params, st[0], batch)
+                return m
+            loss_, m, grads_ = steps.value_and_grad(params, cfg, batch)
+            return {"loss": loss_, **m, "grad_norm": torch.sqrt(sum(
+                (g_.float() ** 2).sum() for g_ in pytree.tree_leaves(grads_)))}
+
+        zero_counts()
+        t0 = time.perf_counter()
+        if cfg.block == "rwkv":
+            metrics, dev_ms, on_dev = one(), None, []
+        else:
+            metrics = {}
+            dev_ms, on_dev = device_time(lambda: metrics.update(one()))
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launched = {k: v for k, v in counts().items() if v}
+        require(launched == want, f"{arch}: a train step launched "
+                f"{launched}, expected {want}")
+        losses = [float(metrics["loss"])]
+
+        # A step taken apart (the train step's own code, in its order).
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        leaves, spec = pytree.tree_flatten(params)
+        diff = [x.detach().requires_grad_() for x in leaves]
+        loss, _ = lm.loss_fn(pytree.tree_unflatten(diff, spec), cfg, batch)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        grads = pytree.tree_unflatten(
+            [torch.zeros_like(x) if g_ is None else g_ for x, g_ in zip(
+                diff, torch.autograd.grad(loss, diff, allow_unused=True))],
+            spec)
+        del diff
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        if n_steps:
+            grads, _ = opt.clip_by_global_norm(grads, 1.0)
+            lr = opt.cosine_schedule(st[0].count, base_lr=3e-4, warmup=100,
+                                     total=10000)
+            st[0] = opt.adamw_update_(params, grads, st[0], lr=lr)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+        del grads, leaves
+        losses.append(float(loss.detach()))
+        parts_ms = [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+        step_ms = sum(parts_ms)
+        whole_ms = []
+        for _ in range(max(0, n_steps - 2)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = one()
+            torch.cuda.synchronize()
+            whole_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss"]))
+        peak = torch.cuda.max_memory_allocated()
+        require(all(x == x and abs(x) < float("inf") for x in losses),
+                f"{arch}: a loss is not finite: {losses}")
+        res.update(launches=launched, losses=losses, first_step_ms=first_ms,
+                   fwd_ms=parts_ms[0], bwd_ms=parts_ms[1],
+                   opt_ms=parts_ms[2] if n_steps else None, step_ms=step_ms,
+                   whole_step_ms=whole_ms,
+                   tokens_per_s=B_ * S_ / (step_ms / 1e3), peak_bytes=peak,
+                   held_bytes=held, device_ms=dev_ms,
+                   busy_share=dev_ms / step_ms if dev_ms else None,
+                   top_kernels=[(k, t_, c) for k, t_, c in on_dev[:6]])
+        out["full"][arch] = res
+        busy = (f"{dev_ms:.1f} ms of kernels in the first step, "
+                f"{dev_ms / step_ms:.1%} of the step taken apart"
+                if dev_ms else "busy share not measured (the WKV loops' "
+                "launches are too many to trace)")
+        print(f"[train23] {arch} at full width, {cfg.num_layers} layers, "
+              f"{n_params} f32 parameters (drawn in {draw_s:.1f} s), B = "
+              f"{B_}, S = {S_}, bf16 compute, sparse, "
+              + (f"{n_steps} AdamW steps" if n_steps else
+                 "forward and backward only (no AdamW state)")
+              + f": a step {step_ms:.1f} ms (forward {parts_ms[0]:.1f}, "
+              f"backward {parts_ms[1]:.1f}"
+              + (f", optimizer {parts_ms[2]:.1f}" if n_steps else "")
+              + f"; the first, traced, {first_ms:.1f}"
+              + (f"; whole {', '.join(f'{x:.1f}' for x in whole_ms)}"
+                 if whole_ms else "")
+              + f"), {B_ * S_ / (step_ms / 1e3):.0f} tokens/s; peak "
+              f"{peak / 1e9:.2f} GB ({held / 1e9:.2f} GB held before); "
+              f"{busy}; launches {launched}; losses "
+              f"{', '.join(f'{x:.4f}' for x in losses)}")
+        if on_dev:
+            print(f"[train23] {arch}: by kernel (ms, launches): "
+                  + "; ".join(f"{k[:60]} {t_:.2f} ({c})"
+                              for k, t_, c in on_dev[:6]))
+        del params, st, batch, loss, metrics, one, step_fn
+        part(f"c {arch}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train23] seconds: {out['seconds']}")
+    return out
+
+
 def task_batch(task, source, device):
     """One batch of ``task`` at the bench's widths as (time-major model
     inputs, the loss's tensors): a bAbI-lite batch from the numpy
@@ -7377,6 +7842,12 @@ def run() -> None:
     llama4 = llama4_phase(dev, ops, ref, checker, zero_counts, counts, flush)
 
     mark("18")
+    # ---- 23, run third: the served LM families trained, at full width;
+    # Hymba-1.5B's 28.5 GB of f32 weights and AdamW state and DeepSeek-V2's
+    # 43 GB of f32 weights and gradients need the card as empty.
+    family_train = family_train_phase(dev, ops, ref, zero_counts, counts)
+
+    mark("23")
     cfg = sam.SAMConfig(MemoryConfig(num_slots=N, word_size=W, num_heads=H,
                                      k=K, delta=DELTA),
                         ControllerConfig(input_size=BITS + 2,
@@ -8627,7 +9098,7 @@ def run() -> None:
     tasks_res = tasks_phase(dev, ops, ref, checker, zero_counts, counts)
 
     mark("19")
-    # ---- 23. report ----
+    # ---- 24. report ----
     lm_write = lmr["lm"]["kernels_at_lm_shapes"]["sparse_write_update"]
     above = (("lra_topn", rows["lra_topn"]), ("block", lra_block),
              ("scatter_rows 'set'", rows["scatter_rows"]),
@@ -8751,6 +9222,7 @@ def run() -> None:
                       "mla": mla["mla"], "llama4": llama4["llama4"],
                       "musicgen": mg["musicgen"], "rwkv": rw["rwkv"],
                       "hymba": hy["hymba"],
+                      "family_train": family_train,
                       "tasks": tasks_res,
                       "phase_seconds": phase_s},
                      default=str))

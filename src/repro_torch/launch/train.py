@@ -6,19 +6,20 @@
     python -m repro_torch.launch.train --reduced --steps 40 --ckpt-dir ckpt
 
 train the reduced config on the host, or the full published config on the
-card (the default device). Weights come from ``--seed``, batches from
-`data.tokens.lm_token_batches`; the step is `launch.steps.make_train_step`
+card (the default device). Every family the port serves trains: the
+dense GQA ones (causal, sliding-window, prefix-LM), MLA and MoE
+(DeepSeek-V2, Llama-4), the RWKV block (RWKV-6) and the hybrid block
+(Hymba-1.5B). Weights come from ``seed``; batches from
+`data.tokens.lm_token_batches`, or for a config with a frontend
+(PaliGemma's vision prefix, MusicGen's audio frames) from
+`launch.specs.concrete_batch` with a `torch.Generator` seeded by
+``seed``, as JAX draws them from its key (the values differ: JAX's key
+has no counterpart here). The step is `launch.steps.make_train_step`
 (AdamW, the cosine schedule over ``--steps``). With ``--ckpt-dir`` the
 steps run under `distributed.fault_tolerance.ResilientLoop`: an
-asynchronous checkpoint every 20 steps and at the end, and a
-restart resumes from the newest one (its batches start again from the
-first, as in JAX). A mesh is ROADMAP item A11. A config with a frontend
-(PaliGemma's vision prefix, MusicGen's audio frames) is refused: JAX
-draws its batches with a JAX key (`repro/launch/specs.py::
-concrete_batch`), which the port has no counterpart of; training it is
-ROADMAP item A9c. So is a config with MLA or MoE (DeepSeek-V2, Llama-4)
-or the RWKV block (RWKV-6) or the hybrid block (Hymba-1.5B), which the
-port serves but does not train yet.
+asynchronous checkpoint every 20 steps and at the end, and a restart
+resumes from the newest one (its batches start again from the first, as
+in JAX). A mesh is ROADMAP item A11.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs import reduced as reduce_cfg
 from repro_torch.data.tokens import lm_token_batches
 from repro_torch.distributed.fault_tolerance import ResilientLoop
+from repro_torch.launch.specs import concrete_batch
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import lm
 from repro_torch.optim import optimizers as opt
@@ -44,11 +46,11 @@ def train(arch: str = DEFAULT_ARCH, *, steps: int = 50, batch: int = 8,
           log_every: int = 10, seed: int = 0, accum: int = 1, device="cuda",
           params=None, cfg=None):
     """Train ``arch`` (or ``cfg`` as given) for ``steps`` AdamW steps on
-    synthetic token batches. ``params`` (default: `lm.init_params` from
-    ``seed``, in the config's param dtype) are updated in place. With
-    ``ckpt_dir`` the steps run under `ResilientLoop` (module docstring),
-    a checkpoint every ``ckpt_every``, from the newest checkpoint there if
-    there is one. Returns ((params, opt_state), log), log holding (step,
+    synthetic batches (module docstring). ``params`` (default:
+    `lm.init_params` from ``seed``, in the config's param dtype) are
+    updated in place. With ``ckpt_dir`` the steps run under
+    `ResilientLoop` (module docstring), a checkpoint every ``ckpt_every``,
+    from the newest checkpoint there if there is one. Returns ((params, opt_state), log), log holding (step,
     metrics as floats) every ``log_every`` steps."""
     if mesh is not None:
         raise NotImplementedError("training on a mesh is not ported yet: "
@@ -57,23 +59,20 @@ def train(arch: str = DEFAULT_ARCH, *, steps: int = 50, batch: int = 8,
         cfg = get_config(arch)
         if use_reduced:
             cfg = reduce_cfg(cfg)
-    if cfg.mla is not None or cfg.moe is not None:
-        raise ValueError(f"{cfg.name}: training MLA or MoE is not ported "
-                         f"yet: ROADMAP item A9c")
-    if cfg.block in ("rwkv", "hybrid"):
-        raise ValueError(f"{cfg.name}: training the {cfg.block} block is "
-                         f"not ported yet: ROADMAP item A9c")
-    if cfg.frontend is not None:
-        raise ValueError(f"{cfg.name}: training a config with the "
-                         f"{cfg.frontend} frontend is not ported yet (its "
-                         f"batches are drawn with a JAX key): ROADMAP item "
-                         f"A9c")
     if params is None:
         params = lm.init_params(cfg, seed=seed, device=device)
     opt_state = opt.adamw_init(params)
     step_fn = make_train_step(cfg, lr=lr, accum=accum, total_steps=steps)
-    batches = ({k: torch.as_tensor(v).to(device) for k, v in b.items()}
-               for b, _ in lm_token_batches(cfg.vocab_size, batch, seq))
+    if cfg.frontend is None:
+        batches = ({k: torch.as_tensor(v).to(device) for k, v in b.items()}
+                   for b, _ in lm_token_batches(cfg.vocab_size, batch, seq))
+    else:
+        def frontend_batches():
+            gen = torch.Generator().manual_seed(seed)
+            while True:
+                yield concrete_batch(cfg, batch, seq, generator=gen,
+                                     device=device)
+        batches = frontend_batches()
 
     def wrapped(state, b):
         params, opt_state, metrics = step_fn(*state, b)

@@ -39,6 +39,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils import _pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import sam_layer
@@ -140,8 +141,11 @@ def _block(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
     """One block -> (x, its aux loss); under autograd with ``cfg.remat``
     its activations are recomputed in the backward (JAX's
     ``jax.checkpoint`` with ``nothing_saveable``), the memory layers
-    never."""
-    if cfg.remat and torch.is_grad_enabled() and x.requires_grad:
+    never. That holds for a block whose input needs no gradient too (an
+    audio config's first block reads the batch's frames)."""
+    if cfg.remat and torch.is_grad_enabled() and (
+            x.requires_grad or any(t.requires_grad
+                                   for t in pytree.tree_leaves(p))):
         return checkpoint(tfm.block_forward, p, cfg, x, positions,
                           use_reentrant=False)
     return tfm.block_forward(p, cfg, x, positions)
@@ -233,9 +237,11 @@ def chunked_ce(head_w: torch.Tensor, hidden: torch.Tensor,
 
 def loss_fn(params, cfg: ModelConfig, batch):
     """batch {"tokens" (B, S), "targets" (B, S_t)[, "mask" (B, S_t)][,
-    "patch_embeds"]} -> (loss, {"ce", "aux"}): `chunked_ce` over the last
-    S_t positions in chunks of ``cfg.loss_chunk`` (a vision prefix
-    predicts nothing), plus the auxiliary loss."""
+    "patch_embeds"]}, or an audio config's {"frame_embeds" (B, S, d),
+    "targets" (B, S)[, "mask"]} -> (loss, {"ce", "aux"}): `chunked_ce`
+    over the last S_t positions in chunks of ``cfg.loss_chunk`` (a vision
+    prefix predicts nothing), plus the auxiliary loss (the routers',
+    `forward`)."""
     hidden, aux = forward(params, cfg, batch)
     targets = batch["targets"]
     hidden = hidden[:, -targets.shape[1]:]

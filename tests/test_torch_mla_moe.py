@@ -64,7 +64,6 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import serve as tserve
-from repro_torch.launch import train as ttrain
 from repro_torch.launch.engine import Request, ServeEngine
 from repro_torch.models import attention, layers, lm, moe, transformer
 from repro_torch.models.config import MLAConfig
@@ -823,16 +822,10 @@ def test_uneven_groups_with_a_dense_layer_skip_trailing_blocks(reads,
 # --------------------------------------------------------------------------
 
 def test_refusals():
-    """Training MLA or MoE (ROADMAP A9c; JAX trains them); Hymba's config
-    loads, its training waits (A9c); the converter on a cache mixing k/v
-    with ckv."""
-    with pytest.raises(ValueError, match="A9c"):
-        ttrain.train(ARCH, device="cpu")
-    _, cfg = _configs(memory=False)
-    with pytest.raises(ValueError, match="A9c"):
-        ttrain.train(cfg=dataclasses.replace(cfg, moe=None), device="cpu")
+    """Hymba's config loads; the converter refuses a cache mixing k/v with
+    ckv. (`tests/test_torch_train_moe.py` and
+    `tests/test_torch_train_recurrent.py` hold the training of MLA, MoE
+    and Hymba against JAX.)"""
     assert get_config("hymba_1_5b_sam").ssm is not None
-    with pytest.raises(ValueError, match="hybrid block.*A9c"):
-        ttrain.train("hymba_1_5b_sam", device="cpu")
     with pytest.raises(ValueError, match="cache keys"):
         convert.lm_cache_from_jax({"ckv": 0, "k": 0, "pos": 0})

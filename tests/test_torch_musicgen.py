@@ -311,8 +311,9 @@ def test_serve_one_hot_feed_matches_jax():
 
 def test_engine_and_trainer_refuse_audio():
     """The engine feeds token ids, on both sides (JAX refuses audio at
-    construction), so `serve_continuous` refuses too; training an audio
-    config waits for A9c (JAX draws its batches with a JAX key)."""
+    construction), so `serve_continuous` refuses too. The trainer trains
+    an audio config on frames (`tests/test_torch_train_frontends.py`
+    holds it against JAX)."""
     jcfg, cfg = _configs(memory=False)
     with pytest.raises(NotImplementedError, match="audio frames"):
         jengine.ServeEngine(jcfg, lanes=2, max_len=16)
@@ -320,5 +321,7 @@ def test_engine_and_trainer_refuse_audio():
         ServeEngine(cfg, lanes=2, max_len=16, device="cpu")
     with pytest.raises(NotImplementedError, match="audio frames"):
         tserve.serve_continuous(ARCH, requests=1, device="cpu")
-    with pytest.raises(ValueError, match="A9c"):
-        ttrain.train(ARCH, device="cpu")
+    (_, opt_state), log = ttrain.train(ARCH, steps=2, batch=1, seq=64,
+                                      log_every=1, device="cpu")
+    assert int(opt_state.count) == 2
+    assert all(np.isfinite(m["loss"]) for _, m in log)
